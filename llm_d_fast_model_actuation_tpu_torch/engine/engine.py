@@ -1,0 +1,757 @@
+"""The serving engine: continuous batching over a paged KV cache.
+
+Port of ``llm_d_fast_model_actuation_tpu/engine/engine.py``, bucketed path
+only. One engine owns the model, the page pool and two kinds of work:
+
+  * prefill — batch-1 prompt ingestion, padded to power-of-two buckets,
+    sampling the first token on the device (prefix-cache hits and chunked
+    prefill run the suffix through ``prefill_continue``);
+  * the decode chunk — up to ``decode_chunk`` decode+sample steps for the
+    whole slot batch, run as a Python loop whose state (last tokens,
+    positions, budgets, token counts) stays on the device; the host reads
+    back one ``[T, b]`` token block per chunk.
+
+Decode runs every slot every step (static shapes; empty slots write
+nothing and their outputs are ignored). Host mirrors of the scheduler
+state are the source of truth between chunks and are uploaded after an
+admission or retire edge.
+
+Not ported yet, and refused rather than ignored (they are not fields of
+the port's ``EngineConfig``): packed serving, speculative decoding,
+pipelined decode, co-resident variants, parking and migration,
+multi-host lockstep, AOT executables and meshes. CUDA graphs for the
+chunk are later work.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence as Seq
+
+import numpy as np
+import torch
+
+from ..models import llama
+from ..models.registry import init_params_for
+from .device import resolve_device
+from .kv_cache import OutOfPages, PageAllocator, PagePool
+from .sampling import gumbel, noise_width, sample
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    model: llama.LlamaConfig
+    max_batch: int = 8
+    page_size: int = 16
+    num_pages: int = 2048
+    max_seq_len: int = 0  # 0 -> model.max_seq_len
+    eos_token_id: int = -1  # -1 = never stop on EOS
+    #: additional stopping ids (Llama-3-Instruct declares [eos, eom, eot])
+    extra_eos_ids: tuple = ()
+    #: top-k alternative logprobs computed per emitted token on the device
+    #: (OpenAI `logprobs`/`top_logprobs`); 0 disables them
+    logprobs_topk: int = 5
+    #: max decode steps run per chunk before the host reads tokens back
+    decode_chunk: int = 8
+    #: automatic prefix caching (engine/prefix_cache.py): page-aligned KV
+    #: reuse across requests sharing a prompt prefix; outputs are the same
+    #: with it on or off
+    prefix_caching: bool = True
+    #: chunked prefill: prompts longer than this prefill in segments of at
+    #: most this many tokens. 0 = off.
+    max_prefill_tokens: int = 0
+
+    @property
+    def seq_len(self) -> int:
+        return self.max_seq_len or self.model.max_seq_len
+
+    @property
+    def pages_per_seq(self) -> int:
+        return -(-self.seq_len // self.page_size)
+
+
+def prefill_bucket(n: int, seq_len: int) -> int:
+    """Power-of-two prefill shape bucket (floor 16) clamped to seq_len."""
+    b = 16
+    while b < n:
+        b *= 2
+    return min(b, seq_len)
+
+
+@dataclass
+class Request:
+    seq_id: int
+    prompt: List[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    out_tokens: List[int] = field(default_factory=list)
+    out_logprobs: List[float] = field(default_factory=list)
+    #: per emitted token: [(token_id, logprob), ...] top-k alternatives of
+    #: the raw distribution (filled only when `want_top_logprobs`)
+    out_top_logprobs: List[list] = field(default_factory=list)
+    want_top_logprobs: bool = False
+    #: per-request RNG seed: with it, a sampled request's output depends
+    #: only on (seed, params, prompt, sampling knobs), not on its batch
+    #: neighbours. None = a stream derived from the engine seed and seq_id.
+    seed: Optional[int] = None
+    #: OpenAI `logit_bias`: token_id -> additive bias in [-100, 100]
+    logit_bias: Dict[int, float] = field(default_factory=dict)
+    #: vLLM `ignore_eos`: decode the full budget even past eos
+    ignore_eos: bool = False
+    #: nucleus sampling threshold; >= 1.0 = full distribution
+    top_p: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    #: stop sequences (token tuples); on match the request finishes and
+    #: the matched sequence is stripped from the output (OpenAI semantics)
+    stop_seqs: tuple = ()
+    pages: List[int] = field(default_factory=list)
+    pos: int = 0  # tokens in cache
+    slot: int = -1
+    #: prompt tokens served from the prefix cache (0 = full prefill)
+    cached_tokens: int = 0
+    #: how many of `pages` are shared prefix pages (for registration)
+    shared_pages: int = 0
+    done: bool = False
+    #: why the request finished: "length" | "stop" (eos or stop sequence)
+    finish_reason: str = ""
+    error: Optional[str] = None
+    submit_time: float = field(default_factory=time.monotonic)
+    first_sched_time: Optional[float] = None
+    first_token_time: Optional[float] = None
+    #: stamped by the serving loop when the finished request leaves
+    done_time: Optional[float] = None
+    #: streaming hook: on_token(req, token) for every emitted token, on
+    #: the engine thread; tokens that may start a stop sequence are held
+    #: back until disambiguated
+    on_token: Optional[Callable[["Request", int], None]] = None
+    #: tokens already delivered to on_token (stop-prefix holdback cursor)
+    streamed: int = 0
+    #: external early-stop request: finish at the next emitted token
+    stop_requested: bool = False
+
+
+def validate_logit_bias(lb, vocab_size: int) -> "Dict[int, float] | None":
+    """OpenAI logit_bias validation: token ids in-vocab, values in
+    [-100, 100]. Returns a normalized {int: float} dict."""
+    if lb is None:
+        return None
+    if not isinstance(lb, dict):
+        raise ValueError("logit_bias must be an object")
+    out: Dict[int, float] = {}
+    for k, v in lb.items():
+        try:
+            t = int(k)
+            fv = float(v)
+        except (TypeError, ValueError):
+            raise ValueError(f"invalid logit_bias entry {k!r}: {v!r}")
+        if not (0 <= t < vocab_size):
+            raise ValueError(f"logit_bias token {t} outside vocab")
+        if not (-100.0 <= fv <= 100.0):
+            raise ValueError(f"logit_bias value {fv} outside [-100, 100]")
+        out[t] = fv
+    return out
+
+
+def _stop_holdback(out: List[int], stop_seqs) -> int:
+    """Length of the longest suffix of `out` that is a PROPER prefix of
+    any stop sequence — tokens that must not be streamed yet."""
+    best = 0
+    for seq in stop_seqs:
+        m = min(len(seq) - 1, len(out))
+        for k in range(m, best, -1):
+            if tuple(out[-k:]) == tuple(seq[:k]):
+                best = k
+                break
+    return best
+
+
+def _stream_seed(engine_seed: int, seq_id: int) -> int:
+    """The generator seed of an unseeded request: a function of the
+    engine seed and the request id only."""
+    h = hashlib.sha256(f"{engine_seed + 1}:{seq_id}".encode()).digest()
+    return int.from_bytes(h[:8], "little") & ((1 << 63) - 1)
+
+
+class EngineAsleep(RuntimeError):
+    """The engine's device state is offloaded; wake_up() before serving."""
+
+
+class InferenceEngine:
+    """Continuous-batching engine on one device.
+
+    ``params``: None (random init from ``seed``, drawn on the device), a
+    :class:`~..models.llama.Llama` already on the device, or a state dict
+    (``models/convert.py:params_from_jax``). ``device``: None means the
+    card and raises without one; the CPU must be asked for."""
+
+    def __init__(
+        self,
+        cfg: EngineConfig,
+        params: "llama.Llama | Dict[str, torch.Tensor] | None" = None,
+        seed: int = 0,
+        device: "torch.device | str | None" = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        m = cfg.model
+        self._seed = seed
+        if params is None:
+            self.model = self.init_model()
+        elif isinstance(params, llama.Llama):
+            if params.device != self.device:
+                raise ValueError(f"model is on {params.device}, engine on {self.device}")
+            self.model = params
+        else:
+            self.model = llama.Llama(m, self.device)
+            self.model.load_state_dict(params, strict=True)
+        self.pool = PagePool.create(
+            m.num_layers, cfg.num_pages, cfg.page_size, m.num_kv_heads,
+            m.head_dim, dtype=m.dtype, device=self.device,
+        )
+        self.allocator = PageAllocator(cfg.num_pages)
+        if cfg.prefix_caching:
+            from .prefix_cache import PrefixCache
+
+            self.prefix_cache: Optional[Any] = PrefixCache(cfg.page_size)
+        else:
+            self.prefix_cache = None
+        b, p = cfg.max_batch, cfg.pages_per_seq
+        vocab = m.vocab_size
+        # Host mirrors of the device scheduler state (source of truth between
+        # chunks; re-uploaded only after an admission/retire/prefill edge).
+        self._page_table = np.zeros((b, p), dtype=np.int32)
+        self._positions = np.zeros((b,), dtype=np.int32)
+        self._last_tokens = np.zeros((b,), dtype=np.int32)
+        self._temps = np.zeros((b,), dtype=np.float32)
+        self._topps = np.ones((b,), dtype=np.float32)
+        self._pres = np.zeros((b,), dtype=np.float32)
+        self._freqs = np.zeros((b,), dtype=np.float32)
+        #: per-slot token counts over prompt + generated (penalties input)
+        self._token_counts = np.zeros((b, vocab), dtype=np.int32)
+        self._budgets = np.zeros((b,), dtype=np.int32)
+        #: per-slot eos sensitivity (0 = ignore_eos request)
+        self._eos_on = np.ones((b,), dtype=np.int32)
+        #: per-slot additive logit bias [b, vocab]
+        self._bias = np.zeros((b, vocab), dtype=np.float32)
+        self._slots: List[Optional[Request]] = [None] * b
+        #: per-slot sampling generators on the device, seeded at admission:
+        #: one draw per emitted token of a sampled request, so its stream
+        #: depends on its own progress only
+        self._gens: List[Optional[torch.Generator]] = [None] * b
+        self._waiting: List[Request] = []
+        self._next_seq_id = 1
+        #: model forwards run (observability: each decode step launches the
+        #: decode kernel once per layer, each cold prefill the prefill kernel)
+        self.decode_steps = 0
+        self.cold_prefills = 0
+        self._dev: Optional[Dict[str, torch.Tensor]] = None  # device scheduler tensors
+        self._dirty = True
+        #: True while a SleepManager holds the state offloaded (engine/sleep.py)
+        self.asleep = False
+
+    def init_model(self) -> llama.Llama:
+        """Fresh random parameters from the engine seed (also the level-2
+        wake's reinit)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._seed)
+        return init_params_for(self.cfg.model, gen, self.device)
+
+    # -- device scheduler state ---------------------------------------------
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        # always a copy: on the CPU a plain .to() would alias the host
+        # mirror, and the chunk updates its device state in place
+        return torch.from_numpy(a).to(self.device, copy=True)
+
+    def _upload_sched(self) -> None:
+        """Push the host scheduler mirrors to the device."""
+        mirrors = {
+            "lt": self._last_tokens,
+            "pos": self._positions,
+            "budget": self._budgets,
+            "pt": self._page_table,
+            "temps": self._temps,
+            "topp": self._topps,
+            "counts": self._token_counts,
+            "pres": self._pres,
+            "freq": self._freqs,
+            "eos_on": self._eos_on,
+            "bias": self._bias,
+        }
+        self._dev = {k: self._to_dev(v) for k, v in mirrors.items()}
+        self._dirty = False
+
+    def drop_device_sched_state(self) -> None:
+        """Forget the device scheduler tensors (sleep path); the host
+        mirrors stay authoritative and the next chunk re-uploads them."""
+        self._dev = None
+        self._dirty = True
+
+    # -- request lifecycle --------------------------------------------------
+
+    def add_request(
+        self,
+        prompt: Seq[int],
+        max_new_tokens: int = 16,
+        temperature: float = 0.0,
+        top_p: float = 1.0,
+        stop_seqs: Seq[Seq[int]] = (),
+        presence_penalty: float = 0.0,
+        frequency_penalty: float = 0.0,
+        on_token: Optional[Callable[[Request, int], None]] = None,
+        want_top_logprobs: bool = False,
+        seed: Optional[int] = None,
+        ignore_eos: bool = False,
+        logit_bias: "Dict[int, float] | None" = None,
+        submit_time: Optional[float] = None,
+    ) -> int:
+        if not prompt:
+            raise ValueError("empty prompt")
+        if min(prompt) < 0 or max(prompt) >= self.cfg.model.vocab_size:
+            raise ValueError("prompt token id outside vocab")
+        if seed is not None and not (-(2**63) <= int(seed) < 2**63):
+            raise ValueError("seed must fit in a signed 64-bit integer")
+        logit_bias = validate_logit_bias(logit_bias, self.cfg.model.vocab_size)
+        total = len(prompt) + max_new_tokens
+        if total > self.cfg.seq_len:
+            raise ValueError(
+                f"prompt+generation {len(prompt)}+{max_new_tokens} exceeds "
+                f"max_seq_len {self.cfg.seq_len}"
+            )
+        need = PageAllocator.pages_needed(total, self.cfg.page_size)
+        if need > self.cfg.num_pages - 1:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.cfg.num_pages - 1}"
+            )
+        req = Request(
+            seq_id=self._next_seq_id,
+            prompt=list(prompt),
+            max_new_tokens=max_new_tokens,
+            temperature=temperature,
+            top_p=float(top_p),
+            stop_seqs=tuple(tuple(int(t) for t in s) for s in stop_seqs),
+            presence_penalty=float(presence_penalty),
+            frequency_penalty=float(frequency_penalty),
+            on_token=on_token,
+            want_top_logprobs=want_top_logprobs,
+            seed=seed,
+            ignore_eos=ignore_eos,
+            logit_bias=logit_bias or {},
+        )
+        if submit_time is not None:
+            req.submit_time = submit_time
+        self._next_seq_id += 1
+        self._waiting.append(req)
+        return req.seq_id
+
+    def _init_slot_gen(self, req: Request) -> None:
+        seed = req.seed if req.seed is not None else _stream_seed(self._seed, req.seq_id)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
+        self._gens[req.slot] = gen
+
+    def _draw_noise(self, slots: Seq[int], rows: int) -> torch.Tensor:
+        """[rows, noise_width] Gumbel noise: one draw from each listed
+        slot's generator (row = slot, or row 0 for a batch-1 prefill when
+        ``rows == 1``); other rows are zero and belong to greedy rows."""
+        w = noise_width(self.cfg.model.vocab_size)
+        noise = torch.zeros((rows, w), dtype=torch.float32, device=self.device)
+        for s in slots:
+            u = torch.rand(w, generator=self._gens[s], device=self.device)
+            noise[s if rows > 1 else 0] = gumbel(u)
+        return noise
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self._slots):
+            if s is None:
+                return i
+        return None
+
+    def _admit(self, req: Request) -> bool:
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        # a blocked request re-attempts every engine step: skip the
+        # match+alloc until allocator or cache state actually moved
+        state = (
+            self.allocator.version,
+            self.prefix_cache.version if self.prefix_cache else 0,
+        )
+        if getattr(req, "_blocked_state", None) == state:
+            return False
+        total = len(req.prompt) + req.max_new_tokens
+        need = PageAllocator.pages_needed(total, self.cfg.page_size)
+        shared: List[int] = []
+        hashes: List[str] = []
+        if self.prefix_cache is not None:
+            shared, req.cached_tokens, hashes = self.prefix_cache.match(req.prompt)
+            # hold the shared pages BEFORE allocating: eviction inside the
+            # allocation path must not reclaim what was just matched
+            self.prefix_cache.acquire(shared)
+        try:
+            own = self._alloc_pages(need - len(shared))
+        except OutOfPages:
+            if self.prefix_cache is not None and shared:
+                self.allocator.free(self.prefix_cache.release(shared))
+            req.cached_tokens = 0
+            req._blocked_state = (
+                self.allocator.version,
+                self.prefix_cache.version if self.prefix_cache else 0,
+            )
+            return False
+        req.pages = shared + own
+        req.shared_pages = len(shared)
+        req._prefix_hashes = hashes
+        if self.prefix_cache is not None:
+            self.prefix_cache.acquire(own)
+            self.prefix_cache.commit(hashes)
+        req.slot = slot
+        if req.first_sched_time is None:
+            req.first_sched_time = time.monotonic()
+        self._slots[slot] = req
+        self._init_slot_gen(req)
+        self._eos_on[slot] = 0 if req.ignore_eos else 1
+        self._bias[slot] = 0.0
+        for t, v in req.logit_bias.items():
+            self._bias[slot, t] = v
+        row = np.zeros((self.cfg.pages_per_seq,), dtype=np.int32)
+        row[: len(req.pages)] = req.pages
+        self._page_table[slot] = row
+        # penalties count prompt tokens too (OpenAI "text so far")
+        self._token_counts[slot] = 0
+        np.add.at(self._token_counts[slot], req.prompt, 1)
+        self._pres[slot] = req.presence_penalty
+        self._freqs[slot] = req.frequency_penalty
+        self._temps[slot] = req.temperature
+        self._topps[slot] = req.top_p
+        self._dirty = True
+        return True
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """Allocate, evicting LRU cache-only prefix pages under pressure."""
+        try:
+            return self.allocator.alloc(n)
+        except OutOfPages:
+            if self.prefix_cache is None:
+                raise
+            evicted = self.prefix_cache.evict(n - self.allocator.available)
+            if not evicted:
+                raise
+            self.allocator.free(evicted)
+            return self.allocator.alloc(n)
+
+    def _prefill_bucket(self, n: int) -> int:
+        return prefill_bucket(n, self.cfg.seq_len)
+
+    def _sample_last(self, req: Request, logits: torch.Tensor, n: int):
+        """Sample the first generated token from the logits at position
+        n-1 of a batch-1 prefill (one draw from the request's generator
+        when it samples) — shared by the cold and cache-hit paths."""
+        s = req.slot
+        out = sample(
+            logits[:, n - 1],
+            self._to_dev(self._temps[s : s + 1]),
+            self._draw_noise([s], 1) if req.temperature > 0 else None,
+            top_p=self._to_dev(self._topps[s : s + 1]),
+            counts=self._to_dev(self._token_counts[s : s + 1]),
+            presence_penalty=self._to_dev(self._pres[s : s + 1]),
+            frequency_penalty=self._to_dev(self._freqs[s : s + 1]),
+            alt_k=self.cfg.logprobs_topk,
+            bias=self._to_dev(self._bias[s : s + 1]),
+        )
+        return out
+
+    def _run_suffix_segment(self, req: Request, start_pos: int, seg: List[int]) -> torch.Tensor:
+        """One prefill segment through ``prefill_continue``: write the
+        segment's KV, attend over everything already in the pages. Used by
+        prefix-cache hits and chunked prefill. Returns its logits."""
+        bucket = self._prefill_bucket(len(seg))
+        tokens = np.zeros((1, bucket), dtype=np.int32)
+        tokens[0, : len(seg)] = seg
+        return llama.prefill_continue(
+            self.model,
+            self._to_dev(tokens),
+            self._to_dev(np.array([start_pos], dtype=np.int32)),
+            self._to_dev(np.array([len(seg)], dtype=np.int32)),
+            self.pool.as_tuple(),
+            self._to_dev(self._page_table[req.slot : req.slot + 1]),
+        )
+
+    def _run_prefill(self, req: Request) -> None:
+        n = len(req.prompt)
+        k = req.cached_tokens
+        limit = self.cfg.max_prefill_tokens or (n - k)
+        if k == 0 and n <= limit:
+            # single cold segment: the flash-style causal prefill
+            bucket = self._prefill_bucket(n)
+            tokens = np.zeros((1, bucket), dtype=np.int32)
+            tokens[0, :n] = req.prompt
+            self.cold_prefills += 1
+            logits = llama.prefill(
+                self.model,
+                self._to_dev(tokens),
+                self._to_dev(np.array([n], dtype=np.int32)),
+                self.pool.as_tuple(),
+                self._to_dev(self._page_table[req.slot : req.slot + 1]),
+            )
+            last = n
+        else:
+            # prefix-cache hit and/or chunked prefill: run [k, n) in
+            # segments of <= limit tokens; only the final one samples
+            pos = k
+            while pos < n:
+                seg = req.prompt[pos : min(n, pos + limit)]
+                logits = self._run_suffix_segment(req, pos, seg)
+                last = len(seg)
+                pos += len(seg)
+        out = self._sample_last(req, logits, last)
+        if self.prefix_cache is not None:
+            # the full prompt pages now hold prompt KV: make them reusable
+            self.prefix_cache.register(
+                req.prompt, req.pages, req.shared_pages,
+                known_hashes=getattr(req, "_prefix_hashes", ()),
+            )
+        tok_h, lp_h = out[0].cpu().numpy(), out[1].cpu().numpy()
+        alts = None
+        if req.want_top_logprobs and self.cfg.logprobs_topk > 0:
+            av_h, ai_h = out[2].cpu().numpy(), out[3].cpu().numpy()
+            alts = [(int(ai_h[0, j]), float(av_h[0, j])) for j in range(av_h.shape[1])]
+        first = int(tok_h[0])
+        req.pos = n
+        self._emit(req, first, float(lp_h[0]), alts)
+        self._positions[req.slot] = req.pos  # position of the token to place
+        self._last_tokens[req.slot] = first
+        self._budgets[req.slot] = req.max_new_tokens - len(req.out_tokens)
+        self._dirty = True
+
+    def _emit(self, req: Request, token: int, logprob: float = 0.0, alts: Optional[list] = None) -> None:
+        if req.first_token_time is None:
+            req.first_token_time = time.monotonic()
+        req.out_tokens.append(token)
+        req.out_logprobs.append(logprob)
+        req.out_top_logprobs.append(alts or [])
+        if req.slot >= 0:
+            # host counts mirror the device copy the chunk maintains
+            self._token_counts[req.slot, token] += 1
+        for seq in req.stop_seqs:
+            if len(req.out_tokens) >= len(seq) and tuple(req.out_tokens[-len(seq):]) == seq:
+                # OpenAI semantics: finish on the stop sequence and strip it
+                del req.out_tokens[-len(seq):]
+                del req.out_logprobs[-len(seq):]
+                del req.out_top_logprobs[-len(seq):]
+                req.done = True
+                req.finish_reason = "stop"
+                break
+        if not req.done:
+            eos_hit = (
+                token == self.cfg.eos_token_id or token in self.cfg.extra_eos_ids
+            ) and not req.ignore_eos
+            if req.stop_requested or eos_hit:
+                req.done = True
+                req.finish_reason = "stop"
+            elif len(req.out_tokens) >= req.max_new_tokens:
+                req.done = True
+                req.finish_reason = "length"
+        self._stream(req)
+
+    def _stream(self, req: Request) -> None:
+        """Deliver newly-safe tokens to the streaming hook, holding back a
+        suffix that may still become a stripped stop sequence."""
+        if req.on_token is None:
+            return
+        if req.done:
+            tail = req.out_tokens[req.streamed:]
+        else:
+            hold = _stop_holdback(req.out_tokens, req.stop_seqs)
+            tail = req.out_tokens[req.streamed : len(req.out_tokens) - hold]
+        was_done = req.done
+        try:
+            for i, t in enumerate(tail):
+                req.done = was_done and i == len(tail) - 1
+                req.on_token(req, t)
+                req.streamed += 1
+        finally:
+            req.done = was_done
+
+    def _retire(self, req: Request) -> None:
+        if self.prefix_cache is not None:
+            self.allocator.free(self.prefix_cache.release(req.pages))
+        else:
+            self.allocator.free(req.pages)
+        s = req.slot
+        self._slots[s] = None
+        self._gens[s] = None
+        self._page_table[s] = 0
+        self._positions[s] = 0
+        self._last_tokens[s] = 0
+        self._temps[s] = 0.0
+        self._topps[s] = 1.0
+        self._pres[s] = 0.0
+        self._freqs[s] = 0.0
+        self._token_counts[s] = 0
+        self._budgets[s] = 0
+        self._eos_on[s] = 1
+        self._bias[s] = 0.0
+        req.slot = -1
+        self._dirty = True
+
+    # -- the engine loop body ----------------------------------------------
+
+    def step(self) -> List[Request]:
+        """Admit + prefill waiting requests, then one decode chunk (up to
+        ``decode_chunk`` steps) for the running batch. Returns requests
+        that finished."""
+        if self.asleep:
+            raise EngineAsleep("engine state is offloaded (sleeping)")
+        finished: List[Request] = []
+        while self._waiting:
+            req = self._waiting[0]
+            if not self._admit(req):
+                break
+            self._waiting.pop(0)
+            self._run_prefill(req)
+            if req.done:
+                self._retire(req)
+                finished.append(req)
+        running = self._running()
+        if running:
+            finished.extend(self._drain_chunk(self._dispatch_chunk(running)))
+        return finished
+
+    def _running(self) -> Dict[int, Request]:
+        return {r.slot: r for r in self._slots if r is not None and not r.done}
+
+    @torch.no_grad()
+    def _dispatch_chunk(self, running: Dict[int, Request]):
+        """Enqueue one decode chunk on the device (T decode+sample steps
+        whose state never leaves it); the matching _drain_chunk does the
+        one host read."""
+        max_remaining = max(r.max_new_tokens - len(r.out_tokens) for r in running.values())
+        # the batch's drain tail runs single steps (the reference's
+        # drain_tail="single", its choice off-TPU)
+        T = self.cfg.decode_chunk if max_remaining >= self.cfg.decode_chunk else 1
+        if self._dirty or self._dev is None:
+            self._upload_sched()
+        d = self._dev
+        sampled = [s for s, r in running.items() if r.temperature > 0]
+        alt_k = self.cfg.logprobs_topk
+        eos = self.cfg.eos_token_id
+        b = self.cfg.max_batch
+        rows = torch.arange(b, device=self.device)
+        lt, pos, budget, counts = d["lt"], d["pos"], d["budget"], d["counts"]
+        toks, lps, avs, ais = [], [], [], []
+        for _ in range(T):
+            active = budget > 0
+            self.decode_steps += 1
+            logits = llama.decode_step(self.model, lt, pos, self.pool.as_tuple(), d["pt"], active)
+            out = sample(
+                logits, d["temps"],
+                self._draw_noise(sampled, b) if sampled else None,
+                top_p=d["topp"], counts=counts, presence_penalty=d["pres"],
+                frequency_penalty=d["freq"], alt_k=alt_k, bias=d["bias"],
+            )
+            nxt = torch.where(active, out[0], lt)
+            a32 = active.to(torch.int32)
+            # the emitted token joins the counts the NEXT step penalizes
+            counts.index_put_((rows, nxt.long()), a32, accumulate=True)
+            pos = pos + a32
+            budget = budget - a32
+            if eos >= 0:
+                budget = torch.where(active & (nxt == eos) & (d["eos_on"] > 0), 0, budget)
+            lt = nxt
+            toks.append(nxt)
+            lps.append(out[1])
+            if alt_k > 0:
+                avs.append(out[2])
+                ais.append(out[3])
+        d.update(lt=lt, pos=pos, budget=budget)
+        alts = (torch.stack(avs), torch.stack(ais)) if alt_k > 0 else None
+        return torch.stack(toks), torch.stack(lps), alts, running, T
+
+    def _drain_chunk(self, inflight) -> List[Request]:
+        """Read one chunk's [T, b] results back (the one host sync per
+        chunk) and emit its tokens."""
+        toks_dev, lps_dev, alts_dev, running, T = inflight
+        toks = toks_dev.cpu().numpy()
+        lps = lps_dev.cpu().numpy()
+        if alts_dev is not None and any(r.want_top_logprobs for r in running.values()):
+            avs, ais = alts_dev[0].cpu().numpy(), alts_dev[1].cpu().numpy()
+        else:
+            avs = ais = None
+        finished: List[Request] = []
+        running = dict(running)
+        for t in range(T):
+            for slot, req in list(running.items()):
+                tok = int(toks[t, slot])
+                req.pos += 1
+                self._positions[slot] = req.pos
+                self._last_tokens[slot] = tok
+                alts = None
+                if req.want_top_logprobs and avs is not None:
+                    alts = [(int(ais[t, slot, j]), float(avs[t, slot, j])) for j in range(avs.shape[2])]
+                self._emit(req, tok, float(lps[t, slot]), alts)
+                # keep the budget mirror exact: a dirty re-upload with a
+                # stale budget would un-freeze finished slots on device
+                self._budgets[slot] = req.max_new_tokens - len(req.out_tokens)
+                if req.done:
+                    self._retire(req)
+                    finished.append(req)
+                    del running[slot]
+        return finished
+
+    def has_work(self) -> bool:
+        return bool(self._waiting) or any(s is not None for s in self._slots)
+
+    def abort(self, seq_id: int, reason: str = "aborted") -> bool:
+        """Abort one request: waiting requests are dropped, running ones
+        retired — their pages return to the pool this step."""
+        for i, req in enumerate(self._waiting):
+            if req.seq_id == seq_id:
+                self._waiting.pop(i)
+                req.done = True
+                req.error = reason
+                return True
+        for req in self._slots:
+            if req is not None and req.seq_id == seq_id:
+                self._retire(req)
+                req.done = True
+                req.error = reason
+                return True
+        return False
+
+    def abort_all(self, reason: str) -> List[Request]:
+        """Fail every waiting and running request and reset the scheduler
+        (slots, page tables, allocator, prefix cache) — used when a
+        level-2 sleep discarded the KV cache."""
+        aborted = list(self._waiting)
+        self._waiting.clear()
+        for req in list(self._slots):
+            if req is not None:
+                aborted.append(req)
+                self._retire(req)
+        for req in aborted:
+            req.done = True
+            req.error = reason
+        if self.prefix_cache is not None:
+            # the KV content backing the index is gone
+            self.allocator.free(self.prefix_cache.clear())
+        return aborted
+
+    # -- convenience --------------------------------------------------------
+
+    def generate(
+        self,
+        prompts: Seq[Seq[int]],
+        max_new_tokens: int = 16,
+        temperature: float = 0.0,
+    ) -> List[List[int]]:
+        ids = [self.add_request(p, max_new_tokens, temperature) for p in prompts]
+        results: Dict[int, List[int]] = {}
+        while self.has_work():
+            for req in self.step():
+                results[req.seq_id] = req.out_tokens
+        return [results[i] for i in ids]

@@ -1,0 +1,16 @@
+"""Hand-written Hopper kernels of the serving path (sources in ``csrc/``).
+
+The counterpart of the JAX package's ``ops/pallas/``: each module holds a
+kernel's launch wrapper beside the plain PyTorch version of the same
+function. A wrapper runs the plain version for CPU tensors and the kernel
+for CUDA tensors, and counts its kernel launches in ``launches``.
+"""
+
+from .decode import (  # noqa: F401
+    paged_decode_attention_inline,
+    paged_decode_attention_inline_plain,
+)
+from .prefill import (  # noqa: F401
+    causal_prefill_attention,
+    causal_prefill_attention_plain,
+)

@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds. Builds happen at first use,
+from the sources in the checkout, into ``build/kernels/`` at the root of
+the checkout (listed in ``.gitignore``); a library is named by the hash of
+its source and flags, so an edited source rebuilds and an unchanged one
+is reused. All sources compile in parallel, one ``nvcc`` each.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+#: kernel library name -> source file under csrc/
+SOURCES = {"decode": "decode.cu", "prefill": "prefill.cu"}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / shared memory / spills into the build log
+]
+
+
+@dataclass
+class BuiltLibrary:
+    name: str
+    path: Path
+    #: nvcc's output (ptxas resource usage); empty when the library was
+    #: already built
+    log: str
+    #: seconds this call spent compiling it (0 when reused)
+    seconds: float
+
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, then ``/usr/local/cuda/bin/nvcc``, then
+    ``PATH``; raises when there is none."""
+    candidates: List[Optional[str]] = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    candidates.append(shutil.which("nvcc"))
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin, PATH)"
+    )
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all() -> Dict[str, BuiltLibrary]:
+    """Compile every kernel library that is not built yet, all at once
+    (one nvcc process per source); raises with nvcc's output if any
+    fails."""
+    todo = {n: _target(n) for n in SOURCES if not _target(n).exists()}
+    out = {
+        n: BuiltLibrary(n, _target(n), "", 0.0) for n in SOURCES if n not in todo
+    }
+    if not todo:
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.monotonic()
+    for n, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+        )
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {SOURCES[n]} (exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, todo[n])  # atomic: a reader never sees half a file
+        out[n] = BuiltLibrary(n, todo[n], log, time.monotonic() - t0)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        built = build_all()
+        lib = _loaded[name] = ctypes.CDLL(str(built[name].path))
+    return lib

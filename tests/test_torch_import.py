@@ -1,0 +1,87 @@
+"""The port stands alone: it imports with JAX and the JAX package blocked,
+and no file of it (nor chip_smoke.py) imports either of them; its kernel
+sources and build stay out of module import."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax  # noqa: F401 — test files import both frameworks, as the suite does
+import pytest
+import torch  # noqa: F401
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "llm_d_fast_model_actuation_tpu_torch"
+FORBIDDEN = ("jax", "llm_d_fast_model_actuation_tpu")
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def _forbidden(name: str) -> bool:
+    # exact name or a submodule: "llm_d_fast_model_actuation_tpu_torch" is
+    # NOT the JAX package, though its name starts with it
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_every_module_imports_with_jax_and_the_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['llm_d_fast_model_actuation_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_file_imports_jax_or_the_jax_package(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_forbidden_match_is_exact_or_dotted():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("llm_d_fast_model_actuation_tpu.engine")
+    assert not _forbidden("llm_d_fast_model_actuation_tpu_torch.engine")
+    assert not _forbidden("jaxlib_like_name")
+
+
+def test_kernel_build_finds_the_sources_and_names_libraries_by_content():
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build
+
+    for src in build.SOURCES.values():
+        assert (build.CSRC / src).is_file()
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # the build directory is ignored by git, inside the checkout
+    assert build.BUILD_DIR.is_relative_to(ROOT)
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    name = build._target("decode").name
+    assert name.startswith("libdecode-") and name.endswith(".so")

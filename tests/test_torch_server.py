@@ -1,0 +1,117 @@
+"""The port's standard-library HTTP server (engine/server.py), driven over
+real sockets with urllib on port 0, on the CPU; its completion response
+is held to the JAX EngineService's JSON keys for the same token-id
+request."""
+
+import asyncio
+import json
+import urllib.error
+import urllib.request
+
+import pytest
+from aiohttp.test_utils import TestClient, TestServer
+
+from llm_d_fast_model_actuation_tpu.engine import server as jserver
+from llm_d_fast_model_actuation_tpu_torch.engine import server as tserver
+
+OPTS = "--model tiny --num-pages 32 --page-size 8 --max-batch 2 --max-model-len 64 --seed 0"
+
+
+@pytest.fixture
+def port_server():
+    svc = tserver.EngineService(tserver.parse_engine_options(OPTS + " --device cpu"))
+    http = tserver.serve(svc, "127.0.0.1", 0)
+    yield svc, http.server_address[1]
+    http.shutdown()
+    svc.shutdown()
+
+
+def _call(port, method, path, body=None, raw=None):
+    data = raw if raw is not None else (json.dumps(body).encode() if body is not None else None)
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _keys(body):
+    return (
+        set(body),
+        set(body["choices"][0]),
+        set(body["usage"]),
+    )
+
+
+def _jax_completion(request_body):
+    svc = jserver.EngineService(jserver.parse_engine_options(OPTS))
+
+    async def scenario():
+        client = TestClient(TestServer(jserver.build_app(svc)))
+        await client.start_server()
+        try:
+            r = await client.post("/v1/completions", json=request_body)
+            assert r.status == 200
+            return await r.json()
+        finally:
+            await client.close()
+
+    try:
+        return asyncio.run(scenario())
+    finally:
+        svc.shutdown()
+
+
+def test_completion_keys_match_the_jax_service(port_server):
+    _, port = port_server
+    body = {"prompt": [1, 2, 3], "max_tokens": 3}
+    status, got = _call(port, "POST", "/v1/completions", body)
+    assert status == 200
+    assert len(got["choices"][0]["token_ids"]) == 3
+    assert got["usage"]["prompt_tokens"] == 3
+    assert _keys(got) == _keys(_jax_completion(body))
+
+
+def test_health_models_and_bad_requests(port_server):
+    _, port = port_server
+    assert _call(port, "GET", "/health") == (200, {"status": "OK"})
+    status, two = _call(port, "POST", "/v1/completions", {"prompt": [3, 4], "max_tokens": 2, "n": 2})
+    assert status == 200 and [c["index"] for c in two["choices"]] == [0, 1]
+    assert _call(port, "POST", "/v1/completions", {"prompt": [3], "n": 3})[0] == 400  # > max_batch
+    status, models = _call(port, "GET", "/v1/models")
+    assert status == 200 and models["data"][0]["id"] == "tiny"
+    # the reference's 400s for token-id prompts
+    assert _call(port, "POST", "/v1/completions", raw=b"junk")[0] == 400
+    assert _call(port, "POST", "/v1/completions", {"prompt": []})[0] == 400
+    assert _call(port, "POST", "/v1/completions", {"prompt": [1] * 63, "max_tokens": 10})[0] == 400
+    # what the port does not serve yet is refused, and says so
+    status, err = _call(port, "POST", "/v1/completions", {"prompt": "hi", "max_tokens": 2})
+    assert status == 400 and "tokenizer" in err["error"]
+    status, err = _call(port, "POST", "/v1/completions", {"prompt": [1], "stream": True})
+    assert status == 400 and "not supported" in err["error"]
+    status, err = _call(port, "POST", "/v1/chat/completions", {"messages": []})
+    assert status == 400 and "not supported" in err["error"]
+
+
+def test_sleep_wake_over_http(port_server):
+    svc, port = port_server
+    body = {"prompt": [5, 6, 7, 8], "max_tokens": 6}
+    _, before = _call(port, "POST", "/v1/completions", body)
+    status, info = _call(port, "POST", "/sleep?level=1")
+    assert status == 200 and info["is_sleeping"] and info["bytes_offloaded"] > 0
+    assert _call(port, "GET", "/is_sleeping")[1]["is_sleeping"] is True
+    status, info = _call(port, "POST", "/wake_up")
+    assert status == 200 and not info["is_sleeping"]
+    assert _call(port, "GET", "/is_sleeping")[1]["is_sleeping"] is False
+    _, after = _call(port, "POST", "/v1/completions", body)
+    assert after["choices"][0]["token_ids"] == before["choices"][0]["token_ids"]
+    assert _call(port, "POST", "/sleep?level=3")[0] == 400
+    # level 2, then wake: weights re-initialized from the seed, serving resumes
+    assert _call(port, "POST", "/sleep?level=2")[1]["level"] == 2
+    assert _call(port, "POST", "/wake_up")[0] == 200
+    status, again = _call(port, "POST", "/v1/completions", body)
+    assert status == 200 and again["choices"][0]["token_ids"] == before["choices"][0]["token_ids"]
