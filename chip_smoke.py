@@ -9,15 +9,19 @@ Phases (each prints one JSON line; any failure raises, so the script
 exits non-zero and never prints the final ``ok`` line):
 
   1. device  — card name, count, and ``nvidia-smi`` name and power limit;
-  2. build   — both kernels built from ``csrc/`` with nvcc for sm_90a;
+  2. build   — every kernel built from ``csrc/`` with nvcc for sm_90a, and
+     the probe kernel's copy checked against its plain version;
   3. kernels — each kernel against its plain PyTorch version at
      Llama-3-8B shapes (tolerance: bf16 I/O with fp32 math, so each output
      row — one head's vector of head_dim values — may differ by at most
      two bf16 ulps of its largest value: max |out - plain| <= 1.6e-2 x
      max |plain|, row by row), then timed with CUDA events beside
-     its plain version, one PyTorch library call and its bound; then,
-     correctness only, the head dims, GQA groups and page sizes of the
-     other supported models;
+     its plain version, one PyTorch library call and its bound: the
+     inline and the scatter-first decode, prefill at every serve bucket,
+     and ragged attention at both packed buffer shapes the packed serve
+     uses (256 and 72 rows); then, correctness only, the head dims, GQA
+     groups and page sizes of the other supported models, head_dim 256
+     (Gemma-3-4B) prefill included;
   4. serve   — the port's HTTP server in process, full-width full-depth
      llama3-8b with seeded random weights; four greedy completions
      (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then
@@ -26,9 +30,23 @@ exits non-zero and never prints the final ``ok`` line):
      prefill went through them;
   5. sleep   — level-1 sleep, ``memory_reserved`` under 1 GiB while
      asleep, wake, and identical greedy tokens after the wake;
-  6. kernels line — every ported kernel with its TPU source and numbers;
-     prefill gets one entry for each sequence bucket the serve run
-     launched it at, with that bucket's launches.
+  6. serve_packed — the same traffic through a second server with
+     ``--packed-serving on``, started after the first is shut down and its
+     memory freed: every packed step runs the ragged kernel in each layer,
+     the prefill kernel never runs, the decode chunk runs the inline decode
+     kernel; TTFT, TPOT and tok/s beside phase 4's;
+  7. serve_reference — the same traffic through a third server with
+     ``--attention-impl reference``: every decode step runs the
+     scatter-first decode kernel in each layer;
+  8. model_parity — on phase 7's weights at full width: ``mixed_step``
+     over a 300-token prompt against ``prefill`` (last row's logits), and
+     one scatter-first ``decode_step`` against the inline one on the same
+     state, each within a tolerance stated from bf16 rounding;
+  9. kernels line — every ported kernel with its TPU source and numbers,
+     one entry for each shape the serve runs launched it at (prefill by
+     sequence bucket, ragged by buffer rows), with that shape's launches.
+     Each serve phase sets every count to 0 just before it starts its
+     server and reads them just after its traffic.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card the
 script exits non-zero before printing any result. It imports nothing of
@@ -37,6 +55,8 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -100,7 +120,9 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
 # -- phase 3: the kernels against their plain versions --------------------
 
 
-def check_decode(torch, gen) -> dict:
+def check_decode(torch, gen) -> list:
+    """The inline decode kernel at Llama-3-8B shapes, and the scatter-first one
+    on the same inputs with ``positions + 1`` as ``seq_lens``."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import decode as mod
 
     b, h, kvh, d, ps = 8, 32, 8, 128, 16
@@ -121,56 +143,69 @@ def check_decode(torch, gen) -> dict:
     perm = torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(1)) + 1
     page_table = perm.reshape(b, pps).to(torch.int32).to(dev)  # shuffled pages
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-
-    def args(i):
-        return (q[i], k_pool[i], v_pool[i], k_new[i], v_new[i], page_table, pos)
-
-    out = mod.paged_decode_attention_inline(*args(0))
-    ref = mod.paged_decode_attention_inline_plain(*args(0))
-    torch.cuda.synchronize()
-    err, rel = errors(out, ref)
-    if not rel <= REL_TOL:
-        raise AssertionError(f"decode kernel disagrees with its plain version: {rel}")
-    it = iter(range(10**9))
-    ms = time_ms(lambda: mod.paged_decode_attention_inline(*args(next(it) % layers)), 200)
-    plain_ms = time_ms(lambda: mod.paged_decode_attention_inline_plain(*args(next(it) % layers)), 5)
-    # library yardstick: SDPA over K/V already gathered, contiguous and
-    # GQA-expanded, with the new token appended — it excludes the gather
-    ctx = max(positions) + 1
-    kg = torch.empty((b, h, ctx, d), dtype=bf16, device=dev)
-    vg = torch.empty_like(kg)
-    mask = torch.zeros((b, 1, 1, ctx), dtype=torch.bool, device=dev)
-    for r, p in enumerate(positions):
-        rows = k_pool[0][page_table[r].long()].reshape(-1, kvh, d)[:p]
-        vrows = v_pool[0][page_table[r].long()].reshape(-1, kvh, d)[:p]
-        kg[r, :, :p] = rows.repeat_interleave(h // kvh, dim=1).transpose(0, 1)
-        vg[r, :, :p] = vrows.repeat_interleave(h // kvh, dim=1).transpose(0, 1)
-        kg[r, :, p] = k_new[0][r].repeat_interleave(h // kvh, dim=0)
-        vg[r, :, p] = v_new[0][r].repeat_interleave(h // kvh, dim=0)
-        mask[r, 0, 0, : p + 1] = True
-    qs = q[0][:, :, None, :]
+    seq_lens = pos + 1
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask), 50)
-    pages = sum(-(-p // ps) for p in positions)
-    nbytes = (
-        2 * b * h * d * 2  # q in, out
-        + 2 * b * kvh * d * 2  # k_new, v_new
-        + 2 * pages * ps * kvh * d * 2  # the K and V pages the positions need
-        + (pages + b) * 4  # page-table entries and positions
-    )
-    flops = sum(4 * h * d * (p + 1) for p in positions)
-    bnd, by = bound_ms(nbytes, flops)
-    return {
-        "name": "paged_decode_attention_inline",
-        "route": "cuda",
-        "source": "llm_d_fast_model_actuation_tpu_torch/csrc/decode.cu",
-        "replaces": "llm_d_fast_model_actuation_tpu/ops/pallas/decode.py:135",
-        "shape": {"batch": b, "heads": h, "kv_heads": kvh, "head_dim": d,
-                  "page_size": ps, "positions": positions},
-        "max_abs_err": err, "max_row_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bnd, "bound_by": by, "library_ms": library_ms,
-        "library": "scaled_dot_product_attention over pre-gathered contiguous K/V (excludes the gather)",
-    }
+    rows = []
+    for name, fn, plain, args, replaces in (
+        ("paged_decode_attention_inline", mod.paged_decode_attention_inline,
+         mod.paged_decode_attention_inline_plain,
+         lambda i: (q[i], k_pool[i], v_pool[i], k_new[i], v_new[i], page_table, pos),
+         "llm_d_fast_model_actuation_tpu/ops/pallas/decode.py:135"),
+        ("paged_decode_attention", mod.paged_decode_attention, mod.paged_decode_attention_plain,
+         lambda i: (q[i], k_pool[i], v_pool[i], page_table, seq_lens),
+         "llm_d_fast_model_actuation_tpu/ops/pallas/decode.py:34"),
+    ):
+        inline = fn is mod.paged_decode_attention_inline
+        out = fn(*args(0))
+        ref = plain(*args(0))
+        torch.cuda.synchronize()
+        err, rel = errors(out, ref)
+        if not rel <= REL_TOL:
+            raise AssertionError(f"{name} kernel disagrees with its plain version: {rel}")
+        it = iter(range(10**9))
+        ms = time_ms(lambda: fn(*args(next(it) % layers)), 200)
+        plain_ms = time_ms(lambda: plain(*args(next(it) % layers)), 5)
+        # library yardstick: SDPA over K/V already gathered, contiguous and
+        # GQA-expanded (the inline token appended for the inline variant);
+        # it excludes the gather
+        ctx = max(positions) + 1
+        kg = torch.empty((b, h, ctx, d), dtype=bf16, device=dev)
+        vg = torch.empty_like(kg)
+        mask = torch.zeros((b, 1, 1, ctx), dtype=torch.bool, device=dev)
+        for r, p in enumerate(positions):
+            n = p if inline else p + 1  # cache entries read
+            krows = k_pool[0][page_table[r].long()].reshape(-1, kvh, d)[:n]
+            vrows = v_pool[0][page_table[r].long()].reshape(-1, kvh, d)[:n]
+            kg[r, :, :n] = krows.repeat_interleave(h // kvh, dim=1).transpose(0, 1)
+            vg[r, :, :n] = vrows.repeat_interleave(h // kvh, dim=1).transpose(0, 1)
+            if inline:
+                kg[r, :, p] = k_new[0][r].repeat_interleave(h // kvh, dim=0)
+                vg[r, :, p] = v_new[0][r].repeat_interleave(h // kvh, dim=0)
+            mask[r, 0, 0, : p + 1] = True
+        qs = q[0][:, :, None, :]
+        library_ms = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask), 50)
+        lens = positions if inline else [p + 1 for p in positions]
+        pages = sum(-(-n // ps) for n in lens)
+        nbytes = (
+            2 * b * h * d * 2  # q in, out
+            + (2 * b * kvh * d * 2 if inline else 0)  # k_new, v_new
+            + 2 * pages * ps * kvh * d * 2  # the K and V pages the lengths need
+            + (pages + b) * 4  # page-table entries and positions
+        )
+        flops = sum(4 * h * d * (p + 1) for p in positions)
+        bnd, by = bound_ms(nbytes, flops)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "llm_d_fast_model_actuation_tpu_torch/csrc/decode.cu",
+            "replaces": replaces,
+            "shape": {"batch": b, "heads": h, "kv_heads": kvh, "head_dim": d,
+                      "page_size": ps, ("positions" if inline else "seq_lens"): lens},
+            "max_abs_err": err, "max_row_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention over pre-gathered contiguous K/V (excludes the gather)",
+        })
+    return rows
 
 
 # s=16 is the smallest bucket; 32, 512, 2048 and 4096 are those the serve
@@ -232,6 +267,145 @@ def check_prefill(torch, gen) -> list:
     return rows
 
 
+# the packed serve's two buffer shapes (packed_budget_shapes at max_batch 8)
+# and what each carries in ragged_scenarios below
+RAGGED_ROWS = (256, 72)
+
+
+def ragged_scenarios():
+    """(rows, segments): each segment is (slot, first position, tokens), in
+    the engine's packing order — one decode row per running sequence, then
+    the prompt segment — at the two buffer shapes the packed serve uses."""
+    decode = [(1, 20, 1), (2, 300, 1), (3, 1500, 1)]
+    return [
+        (256, decode + [(0, 2768, 232)]),  # a long prompt's last segment
+        (72, decode + [(0, 0, 44)]),  # a short prompt's only segment
+    ]
+
+
+def pack(torch, segments, rows, dev):
+    """The engine's packing layout: each segment starts on an 8-row
+    boundary; the rest are padding rows."""
+    slot = torch.full((rows,), -1, dtype=torch.int32)
+    pos = torch.zeros((rows,), dtype=torch.int32)
+    r = 0
+    for s, p0, n in segments:
+        slot[r : r + n] = s
+        pos[r : r + n] = torch.arange(p0, p0 + n, dtype=torch.int32)
+        r += -(-n // 8) * 8
+    if r > rows:
+        raise ValueError("segments do not fit the buffer")
+    return slot.to(dev), pos.to(dev)
+
+
+def check_ragged(torch, gen) -> list:
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import kv_pages_bucket
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import ragged as mod
+
+    h, kvh, d, ps, max_batch, pps = 32, 8, 128, 16, 8, 8192 // 16
+    g = h // kvh
+    dev = "cuda"
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_rows = []
+    for rows, segments in ragged_scenarios():
+        # each sequence gets its own shuffled pages, as many as it needs
+        need = {s: -(-(p0 + n) // ps) for s, p0, n in segments}
+        num_pages = sum(need.values()) + 1
+        perm = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(rows)) + 1).tolist()
+        table = torch.zeros((max_batch, pps), dtype=torch.int32)
+        for s, n in need.items():
+            table[s, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+            perm = perm[n:]
+        max_kv = max(p0 + n for _, p0, n in segments)
+        kvp = kv_pages_bucket(max_kv, ps, pps)
+        pt = table.to(dev)[:, :kvp]  # the engine's column slice: a strided view
+        slot, pos = pack(torch, segments, rows, dev)
+        layers = 8  # rotate, so each timed launch finds its pages cold in L2
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf16)
+
+        k_pool, v_pool, q = rnd(layers, num_pages, ps, kvh, d), rnd(layers, num_pages, ps, kvh, d), rnd(layers, rows, h, d)
+
+        def args(i):
+            return (q[i], k_pool[i], v_pool[i], pt, slot, pos)
+
+        out = mod.ragged_paged_attention(*args(0))
+        ref = mod.ragged_paged_attention_plain(*args(0))
+        torch.cuda.synchronize()
+        err, rel = errors(out, ref)  # padding rows too: zeros in both
+        if not rel <= REL_TOL:
+            raise AssertionError(f"ragged kernel disagrees with its plain version at {rows} rows: {rel}")
+        it = iter(range(10**9))
+        ms = time_ms(lambda: mod.ragged_paged_attention(*args(next(it) % layers)), 50)
+        plain_ms = time_ms(lambda: mod.ragged_paged_attention_plain(*args(next(it) % layers)), 5)
+        # library: one SDPA call over the sequences padded to one batch, K/V
+        # pre-gathered, contiguous and GQA-expanded, with the same mask (a
+        # row sees its sequence's positions <= its own); excludes the gather
+        nseq, lq = len(segments), max(n for _, _, n in segments)
+        qb = torch.zeros((nseq, h, lq, d), dtype=bf16, device=dev)
+        kb = torch.zeros((nseq, h, max_kv, d), dtype=bf16, device=dev)
+        vb = torch.zeros_like(kb)
+        mask = torch.zeros((nseq, 1, lq, max_kv), dtype=torch.bool, device=dev)
+        mask[..., 0] = True  # padded query rows see position 0 (no NaN)
+        r = 0
+        for i, (s, p0, n) in enumerate(segments):
+            ctx = p0 + n
+            pages = table[s, : -(-ctx // ps)].long().to(dev)
+            kb[i, :, :ctx] = k_pool[0][pages].reshape(-1, kvh, d)[:ctx].repeat_interleave(g, dim=1).transpose(0, 1)
+            vb[i, :, :ctx] = v_pool[0][pages].reshape(-1, kvh, d)[:ctx].repeat_interleave(g, dim=1).transpose(0, 1)
+            qb[i, :, :n] = q[0][r : r + n].transpose(0, 1)
+            qpos = torch.arange(p0, p0 + n, device=dev)
+            mask[i, 0, :n, :ctx] = torch.arange(ctx, device=dev)[None, :] <= qpos[:, None]
+            r += -(-n // 8) * 8
+        library_ms = time_ms(lambda: sdpa(qb, kb, vb, attn_mask=mask), 50)
+        # bound: each sequence's pages once, q in, out, the metadata
+        unique_pages = sum(need.values())
+        nbytes = (2 * unique_pages * ps * kvh * d * 2 + 2 * rows * h * d * 2
+                  + unique_pages * 4 + 2 * rows * 4)
+        flops = sum(4 * h * d * (p0 + j + 1) for _, p0, n in segments for j in range(n))
+        bnd, by = bound_ms(nbytes, flops)
+        # what the blocks re-read: every 8-row block walks positions
+        # [0, its last valid position] of its sequence for every KV head
+        reread = 0
+        for _, p0, n in segments:
+            for b0 in range(0, n, 8):
+                reread += (p0 + min(n, b0 + 8)) * kvh * d * 2 * 2
+        out_rows.append({
+            "name": f"ragged_paged_attention[T={rows}]",
+            "route": "cuda",
+            "source": "llm_d_fast_model_actuation_tpu_torch/csrc/ragged.cu",
+            "replaces": "llm_d_fast_model_actuation_tpu/ops/pallas/ragged.py:54",
+            "rows": rows,
+            "shape": {"rows": rows, "heads": h, "kv_heads": kvh, "head_dim": d, "page_size": ps,
+                      "table_cols": kvp, "segments": [list(x) for x in segments]},
+            "max_abs_err": err, "max_row_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "bound_bytes": nbytes, "bound_flops": flops,
+            "reread_bytes": reread, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention over the sequences padded to one batch, pre-gathered contiguous K/V (excludes the gather)",
+        })
+    return out_rows
+
+
+def ragged_case(torch, gen, h, kvh, d, ps):
+    """A small packed buffer in the reference tests' layout (a cold
+    segment across a page, a decode row, a suffix from position 7, a
+    padded tail) through the ragged kernel and its plain version."""
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import ragged
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+
+    pps, nseq = 4, 3
+    num_pages = nseq * pps + 1
+    pt = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(3)) + 1)
+    pt = pt.reshape(nseq, pps).to(torch.int32).cuda()
+    slot, pos = pack(torch, [(0, 0, 11), (1, min(13, ps * pps - 1), 1), (2, 7, 5)], 40, "cuda")
+    args = (rnd(40, h, d), rnd(num_pages, ps, kvh, d), rnd(num_pages, ps, kvh, d), pt, slot, pos)
+    return errors(ragged.ragged_paged_attention(*args), ragged.ragged_paged_attention_plain(*args))
+
+
 def check_variants(torch, gen) -> list:
     """Correctness only, at small shapes: the head dims, GQA groups and
     page sizes the main path does not use (other supported models)."""
@@ -252,13 +426,26 @@ def check_variants(torch, gen) -> list:
                           decode.paged_decode_attention_inline_plain(*args))
         out.append({"kernel": "decode", "head_dim": d, "heads": h, "kv_heads": kvh,
                     "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
-    for d, h, kvh, s, lens in ((64, 32, 4, 128, [128, 70]), (128, 28, 4, 64, [1, 50])):
+        sf = (*args[:3], args[5], args[6] + 1)  # scatter-first: seq_lens = pos + 1
+        err, rel = errors(decode.paged_decode_attention(*sf), decode.paged_decode_attention_plain(*sf))
+        out.append({"kernel": "decode_scatter_first", "head_dim": d, "heads": h, "kv_heads": kvh,
+                    "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
+    # the last two: Gemma-3-4B's head_dim 256 with 8/4 heads, one short and
+    # one long seq_len
+    for d, h, kvh, s, lens in ((64, 32, 4, 128, [128, 70]), (128, 28, 4, 64, [1, 50]),
+                               (256, 8, 4, 64, [5, 64]), (256, 8, 4, 1024, [9, 1000])):
         args = (rnd(len(lens), s, h, d), rnd(len(lens), s, kvh, d), rnd(len(lens), s, kvh, d),
                 torch.tensor(lens, dtype=torch.int32, device="cuda"))
         err, rel = errors(prefill.causal_prefill_attention(*args),
                           prefill.causal_prefill_attention_plain(*args))
         out.append({"kernel": "prefill", "head_dim": d, "heads": h, "kv_heads": kvh,
                     "seq": s, "seq_lens": lens, "max_abs_err": err, "max_row_rel_err": rel})
+    # ragged: head dims 64 and 256, GQA groups 1, 2, 7 and 8, page size 8
+    for d, h, kvh, ps in ((64, 32, 4, 16), (256, 8, 4, 16), (128, 28, 4, 8), (128, 8, 8, 16),
+                          (128, 32, 4, 8)):
+        err, rel = ragged_case(torch, gen, h, kvh, d, ps)
+        out.append({"kernel": "ragged", "head_dim": d, "heads": h, "kv_heads": kvh,
+                    "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
     torch.cuda.synchronize()
     bad = [v for v in out if not v["max_row_rel_err"] <= REL_TOL]
     if bad:
@@ -283,74 +470,102 @@ def get(port: int, path: str):
         return json.loads(r.read())
 
 
-def serve_and_sleep(torch, smi: str) -> dict:
-    import numpy as np
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build, decode, prefill, ragged
 
+    return {
+        "probe": build.launch_probe,
+        "decode_inline": decode.paged_decode_attention_inline,
+        "decode_scatter_first": decode.paged_decode_attention,
+        "prefill": prefill.causal_prefill_attention,
+        "ragged": ragged.ragged_paged_attention,
+    }
+
+
+def reset_counts() -> None:
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    wrappers["prefill"].launches_by_seq.clear()
+    wrappers["ragged"].launches_by_rows.clear()
+
+
+def read_counts() -> dict:
+    wrappers = kernel_wrappers()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    counts["prefill_by_seq"] = dict(wrappers["prefill"].launches_by_seq)
+    counts["ragged_by_rows"] = dict(wrappers["ragged"].launches_by_rows)
+    return counts
+
+
+def start_service(torch, opts: str):
+    """An EngineService and its HTTP server on a free port; the kernel
+    counts are set to 0 just before, so the engine's probe launch counts."""
     from llm_d_fast_model_actuation_tpu_torch.engine import server as srv
-    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import decode, prefill
 
-    # the reference EngineConfig's default pool: 2048 pages x 16 tokens
-    opts = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
+    reset_counts()
     t0 = time.monotonic()
     service = srv.EngineService(srv.parse_engine_options(opts))
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     server = srv.serve(service, "127.0.0.1", 0)
-    port = server.server_address[1]
-    try:
-        eng = service.engine
-        L = eng.cfg.model.num_layers
-        vocab = eng.cfg.model.vocab_size
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, vocab, n).tolist() for n in (20, 300, 1500, 3000)]
-        torch.cuda.reset_peak_memory_stats()
-        # the main path's run: counters start at 0 here
-        decode.paged_decode_attention_inline.launches = 0
-        prefill.causal_prefill_attention.launches = 0
-        prefill.causal_prefill_attention.launches_by_seq.clear()
-        steps0, cold0 = eng.decode_steps, eng.cold_prefills
-        results = [None] * len(prompts)
+    return service, server, init_s
 
-        def one(i):
-            results[i] = post(port, "/v1/completions", {"prompt": prompts[i], "max_tokens": 64})
 
-        t1 = time.monotonic()
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        batch_s = time.monotonic() - t1
-        if any(r is None for r in results):
-            raise RuntimeError("a completion failed")
-        # fifth request: a 512-token prefix of the 1500-token prompt plus
-        # 200 fresh ids -> a prefix-cache hit, the suffix path
-        shared = prompts[2][:512] + rng.integers(0, vocab, 200).tolist()
-        t2 = time.monotonic()
-        fifth = post(port, "/v1/completions", {"prompt": shared, "max_tokens": 64})
-        fifth_s = time.monotonic() - t2
-        torch.cuda.synchronize()
-        dec_launches = decode.paged_decode_attention_inline.launches
-        pre_launches = prefill.causal_prefill_attention.launches
-        pre_by_seq = dict(prefill.causal_prefill_attention.launches_by_seq)
-        steps = eng.decode_steps - steps0
-        colds = eng.cold_prefills - cold0
-        if dec_launches != L * steps or steps == 0:
-            raise AssertionError(f"decode kernel launches {dec_launches} != {L} x {steps} decode steps")
-        if pre_launches != L * colds or colds != 4:
-            raise AssertionError(f"prefill kernel launches {pre_launches} != {L} x {colds} cold prefills (want 4)")
-        hits = eng.prefix_cache.stats()["hits"] if eng.prefix_cache else 0
-        if hits < 1:
-            raise AssertionError("the fifth request did not hit the prefix cache")
-        for r in results + [fifth]:
-            ids = r["choices"][0]["token_ids"]
-            if len(ids) != 64 or not all(0 <= t < vocab for t in ids):
-                raise AssertionError(f"bad completion {ids[:8]}...")
-        completion = sum(r["usage"]["completion_tokens"] for r in results)
-        emit({
-            "phase": "serve", "model": "llama3-8b", "layers": L,
-            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-            "init_s": init_s,
+def stop_service(torch, service, server) -> None:
+    server.shutdown()
+    server.server_close()
+    service.shutdown()
+
+
+def free_memory(torch) -> float:
+    """Collect the previous phase's objects and give their blocks back;
+    returns the bytes still allocated, in GiB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / GIB
+
+
+def run_traffic(torch, port: int, vocab: int) -> dict:
+    """The serve phases' traffic: four concurrent greedy completions
+    (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then a
+    fifth request sharing a 512-token prefix with the third."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in (20, 300, 1500, 3000)]
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = post(port, "/v1/completions", {"prompt": prompts[i], "max_tokens": 64})
+
+    t1 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    batch_s = time.monotonic() - t1
+    if any(r is None for r in results):
+        raise RuntimeError("a completion failed")
+    # fifth request: a 512-token prefix of the 1500-token prompt plus
+    # 200 fresh ids -> a prefix-cache hit
+    shared = prompts[2][:512] + rng.integers(0, vocab, 200).tolist()
+    t2 = time.monotonic()
+    fifth = post(port, "/v1/completions", {"prompt": shared, "max_tokens": 64})
+    fifth_s = time.monotonic() - t2
+    torch.cuda.synchronize()
+    for r in results + [fifth]:
+        ids = r["choices"][0]["token_ids"]
+        if len(ids) != 64 or not all(0 <= t < vocab for t in ids):
+            raise AssertionError(f"bad completion {ids[:8]}...")
+    completion = sum(r["usage"]["completion_tokens"] for r in results)
+    return {
+        "prompts": prompts,
+        "tokens": [r["choices"][0]["token_ids"] for r in results + [fifth]],
+        "summary": {
             "ttft_s": {str(len(p)): r["usage"]["time_to_first_token_s"] for p, r in zip(prompts, results)},
             "decode_tpot_s": {str(len(p)): r["usage"]["decode_tpot_s"] for p, r in zip(prompts, results)},
             "batch_wall_s": batch_s,
@@ -360,18 +575,56 @@ def serve_and_sleep(torch, smi: str) -> dict:
             },
             "prefix_hit_request_s": fifth_s,
             "prefix_hit_ttft_s": fifth["usage"]["time_to_first_token_s"],
-            "decode_steps": steps, "decode_launches": dec_launches,
-            "cold_prefills": colds, "prefill_launches": pre_launches,
-            "prefill_launches_by_seq": pre_by_seq,
+        },
+    }
+
+
+def check_probe_launch(counts: dict) -> None:
+    if counts["probe"] != 1:
+        raise AssertionError(f"the engine launched the probe kernel {counts['probe']} times at start, want 1")
+
+
+def serve_and_sleep(torch, smi: str) -> dict:
+    # the reference EngineConfig's default pool: 2048 pages x 16 tokens
+    opts = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
+    service, server, init_s = start_service(torch, opts)
+    port = server.server_address[1]
+    try:
+        eng = service.engine
+        L = eng.cfg.model.num_layers
+        vocab = eng.cfg.model.vocab_size
+        torch.cuda.reset_peak_memory_stats()
+        steps0, cold0 = eng.decode_steps, eng.cold_prefills
+        traffic = run_traffic(torch, port, vocab)
+        counts = read_counts()
+        steps = eng.decode_steps - steps0
+        colds = eng.cold_prefills - cold0
+        check_probe_launch(counts)
+        if counts["decode_inline"] != L * steps or steps == 0:
+            raise AssertionError(f"decode kernel launches {counts['decode_inline']} != {L} x {steps} decode steps")
+        if counts["prefill"] != L * colds or colds != 4:
+            raise AssertionError(f"prefill kernel launches {counts['prefill']} != {L} x {colds} cold prefills (want 4)")
+        if counts["ragged"] or counts["decode_scatter_first"]:
+            raise AssertionError(f"the bucketed path launched kernels off its path: {counts}")
+        hits = eng.prefix_cache.stats()["hits"] if eng.prefix_cache else 0
+        if hits < 1:
+            raise AssertionError("the fifth request did not hit the prefix cache")
+        emit({
+            "phase": "serve", "model": "llama3-8b", "layers": L,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "init_s": init_s, **traffic["summary"],
+            "decode_steps": steps, "decode_launches": counts["decode_inline"],
+            "cold_prefills": colds, "prefill_launches": counts["prefill"],
+            "prefill_launches_by_seq": counts["prefill_by_seq"],
+            "launches": counts,
             "prefix_cache": eng.prefix_cache.stats(),
             "peak_allocated_gib": torch.cuda.max_memory_allocated() / GIB,
         })
-        launches = {"decode": dec_launches, "prefill_by_seq": pre_by_seq}
 
         # -- sleep / wake, three cycles (the spread of one transfer per call
         #    is too wide to read): the reference output is a repeat of
         #    request 1 (a prefix-cache hit, the path every repeat takes)
-        probe = {"prompt": prompts[0], "max_tokens": 64}
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
         before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
         cycles = []
         for _ in range(3):
@@ -413,10 +666,188 @@ def serve_and_sleep(torch, smi: str) -> dict:
         })
         if get(port, "/health")["status"] != "OK":
             raise AssertionError("server is not healthy")
-        return launches
+        return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"]}
     finally:
-        server.shutdown()
-        service.shutdown()
+        stop_service(torch, service, server)
+
+
+def serve_packed(torch, smi: str, bucketed: dict) -> dict:
+    """The serve phase's traffic through a packed server: prompts stream
+    into mixed steps beside the running decode rows."""
+    left_gib = free_memory(torch)
+    opts = ("--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda "
+            "--packed-serving on")
+    service, server, init_s = start_service(torch, opts)
+    try:
+        eng = service.engine
+        L = eng.cfg.model.num_layers
+        torch.cuda.reset_peak_memory_stats()
+        traffic = run_traffic(torch, server.server_address[1], eng.cfg.model.vocab_size)
+        counts = read_counts()
+        check_probe_launch(counts)
+        if eng.packed_steps == 0 or counts["ragged"] != L * eng.packed_steps:
+            raise AssertionError(f"ragged kernel launches {counts['ragged']} != {L} x {eng.packed_steps} packed steps (> 0)")
+        if counts["prefill"]:
+            raise AssertionError(f"the prefill kernel ran {counts['prefill']} times on the packed path")
+        if counts["decode_inline"] != L * eng.decode_steps or eng.decode_steps == 0:
+            raise AssertionError(f"decode kernel launches {counts['decode_inline']} != {L} x {eng.decode_steps} decode steps")
+        if eng.prefix_cache.stats()["hits"] < 1:
+            raise AssertionError("the fifth request did not hit the prefix cache")
+        untimed = sorted(set(counts["ragged_by_rows"]) - set(RAGGED_ROWS))
+        if untimed:
+            raise AssertionError(f"the packed run launched ragged at untimed buffer sizes {untimed}")
+        same = sum(a == b for a, b in zip(traffic["tokens"], bucketed["tokens"]))
+        emit({
+            "phase": "serve_packed", "model": "llama3-8b", "layers": L,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "allocated_before_gib": left_gib, "init_s": init_s, **traffic["summary"],
+            "bucketed": bucketed["summary"],
+            "packed_steps": eng.packed_steps, "packed_tokens_total": eng.packed_tokens_total,
+            "decode_steps": eng.decode_steps, "launches": counts,
+            "pad_waste_bytes": eng.pad_waste_bytes, "dispatch_tokens": eng.dispatch_tokens,
+            "step_h2d_bytes": eng.step_h2d_bytes,
+            "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
+            "prefix_cache": eng.prefix_cache.stats(),
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / GIB,
+        })
+        return {"counts": counts, "summary": traffic["summary"]}
+    finally:
+        stop_service(torch, service, server)
+
+
+def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
+    """The serve phase's traffic with ``--attention-impl reference``: the
+    scatter-first decode branch. Returns the phase's numbers and its
+    (stopped) engine, whose weights the model-parity phase uses."""
+    left_gib = free_memory(torch)
+    opts = ("--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda "
+            "--attention-impl reference")
+    service, server, init_s = start_service(torch, opts)
+    try:
+        eng = service.engine
+        L = eng.cfg.model.num_layers
+        traffic = run_traffic(torch, server.server_address[1], eng.cfg.model.vocab_size)
+        counts = read_counts()
+        check_probe_launch(counts)
+        if counts["decode_scatter_first"] != L * eng.decode_steps or eng.decode_steps == 0:
+            raise AssertionError(
+                f"scatter-first decode launches {counts['decode_scatter_first']} != {L} x {eng.decode_steps} decode steps"
+            )
+        if counts["decode_inline"] or counts["ragged"]:
+            raise AssertionError(f"the scatter-first path launched kernels off its path: {counts}")
+        if counts["prefill"] != L * eng.cold_prefills or eng.cold_prefills != 4:
+            raise AssertionError(f"prefill kernel launches {counts['prefill']} != {L} x {eng.cold_prefills} cold prefills (want 4)")
+        same = sum(a == b for a, b in zip(traffic["tokens"], bucketed["tokens"]))
+        emit({
+            "phase": "serve_reference", "model": "llama3-8b", "layers": L,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "allocated_before_gib": left_gib, "init_s": init_s, **traffic["summary"],
+            "decode_steps": eng.decode_steps, "launches": counts,
+            "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
+        })
+        return {"counts": counts, "summary": traffic["summary"]}, eng
+    finally:
+        stop_service(torch, service, server)
+
+
+# Model parity at full width, bf16 on both sides. Stated before the first
+# run, from bf16 rounding: two paths that compute the same function round
+# differently (another product shape picks another cuBLAS tiling; another
+# attention kernel sums in another order), each rounding to bf16 moves a
+# value by at most u = 2**-8 relative, and a layer rounds its hidden state
+# some ten times. If every rounding of 32 layers differed, independently,
+# the hidden state and so the logits would drift by u * sqrt(320) = 0.07 of
+# their norm; far fewer differ, so the limit on ||a - b|| / ||b|| over the
+# vocabulary is 5e-2 for mixed_step against prefill. The two decode
+# branches differ only in the attention's order of summation, one bf16
+# rounding per layer: u * sqrt(32) = 2.2e-2, so the limit is 2e-2. Argmax
+# agreement is reported, not gated (bf16 near-ties can flip it).
+PARITY_TOL = {"mixed_vs_prefill": 5e-2, "scatter_first_vs_inline": 2e-2}
+
+
+def model_parity(torch, eng) -> dict:
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import kv_pages_bucket, prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    model = eng.model
+    cfg = model.cfg
+    ps, n = 16, 300
+    pages = kv_pages_bucket(n + 1, ps, eng.cfg.pages_per_seq)
+    shape = (cfg.num_layers, pages + 1, ps, cfg.num_kv_heads, cfg.head_dim)
+    pools = [tuple(torch.zeros(shape, dtype=cfg.dtype, device="cuda") for _ in range(2)) for _ in range(2)]
+    pt = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda", dtype=torch.int32)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item(), (a - b).abs().max().item(), bool(a.argmax() == b.argmax())
+
+    # prefill over the prompt at its bucket, as the bucketed engine runs it
+    bucket = prefill_bucket(n, eng.cfg.seq_len)
+    tokens = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+    tokens[0, :n] = prompt
+    lp = llama.prefill(model, tokens, torch.tensor([n], dtype=torch.int32, device="cuda"), pools[0], pt)[0, n - 1]
+    # mixed_step over the same prompt, packed as the engine packs it
+    rows = -(-n // 8) * 8
+    slot = torch.full((rows,), -1, dtype=torch.int32, device="cuda")
+    slot[:n] = 0
+    pos = torch.zeros((rows,), dtype=torch.int32, device="cuda")
+    pos[:n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    toks = torch.zeros((rows,), dtype=torch.int32, device="cuda")
+    toks[:n] = prompt
+    lm = llama.mixed_step(model, toks, slot, pos, pools[1], pt)[n - 1]
+    mixed = rel(lm, lp)
+    # one decode step at position n on the mixed step's cache: inline, then
+    # scatter-first on the same state (it writes the same K/V again)
+    nxt = lm.argmax().to(torch.int32)[None]
+    at = torch.tensor([n], dtype=torch.int32, device="cuda")
+    try:
+        model.cfg = dataclasses.replace(cfg, attention_impl="grouped")
+        li = llama.decode_step(model, nxt, at, pools[1], pt)[0]
+        model.cfg = dataclasses.replace(cfg, attention_impl="reference")
+        lr = llama.decode_step(model, nxt, at, pools[1], pt)[0]
+    finally:
+        model.cfg = cfg
+    torch.cuda.synchronize()
+    dec = rel(lr, li)
+    out = {
+        "phase": "model_parity", "model": "llama3-8b", "prompt_tokens": n, "prefill_bucket": bucket,
+        "tolerance_rel_l2": PARITY_TOL,
+        "mixed_vs_prefill": {"rel_l2": mixed[0], "max_abs": mixed[1], "argmax_equal": mixed[2]},
+        "scatter_first_vs_inline": {"rel_l2": dec[0], "max_abs": dec[1], "argmax_equal": dec[2]},
+    }
+    emit(out)
+    if not mixed[0] <= PARITY_TOL["mixed_vs_prefill"]:
+        raise AssertionError(f"mixed_step disagrees with prefill at full width: {mixed}")
+    if not dec[0] <= PARITY_TOL["scatter_first_vs_inline"]:
+        raise AssertionError(f"the scatter-first decode disagrees with the inline one: {dec}")
+    return out
+
+
+def check_build_probe(torch) -> dict:
+    """The probe kernel against its plain version, and its numbers."""
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build
+
+    x = torch.randn(build.PROBE_SHAPE, device="cuda")
+    out = build.launch_probe(x)
+    torch.cuda.synchronize()
+    if not torch.equal(out, build.launch_probe_plain(x)):
+        raise AssertionError("the probe kernel's copy differs from its plain version")
+    dst = torch.empty_like(x)
+    bnd, by = bound_ms(2 * x.numel() * 4, 0)
+    return {
+        "name": "launch_probe",
+        "route": "cuda",
+        "source": "llm_d_fast_model_actuation_tpu_torch/csrc/probe.cu",
+        "replaces": "llm_d_fast_model_actuation_tpu/utils/compat.py:53",
+        "shape": {"rows": build.PROBE_SHAPE[0], "cols": build.PROBE_SHAPE[1], "dtype": "float32"},
+        "max_abs_err": (out - x).abs().max().item(),
+        "ms": time_ms(lambda: build.launch_probe(x), 200),
+        "plain_ms": time_ms(lambda: build.launch_probe_plain(x), 200),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(lambda: dst.copy_(x), 200),
+        "library": "Tensor.copy_ into a preallocated tensor",
+    }
 
 
 def main() -> int:
@@ -434,25 +865,45 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.monotonic()
     built = build.build_all()
+    probe = check_build_probe(torch)
     emit({"phase": "build", "seconds": time.monotonic() - t0, "nvcc": build.find_nvcc(),
+          "probe": {k: probe[k] for k in ("max_abs_err", "ms")},
           "ptxas": {n: [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
                     for n, b in built.items()}})
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = check_decode(torch, gen)
     pre = check_prefill(torch, gen)
-    for k in [dec] + pre:
+    rag = check_ragged(torch, gen)
+    for k in dec + pre + rag + [probe]:
         emit({"phase": "kernel", **k, "nvidia_smi": smi})
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
-    launches = serve_and_sleep(torch, smi)
-    dec["launches"] = launches["decode"]
-    by_seq = launches["prefill_by_seq"]
-    untimed = sorted(set(by_seq) - set(PREFILL_SEQS))
+    bucketed = serve_and_sleep(torch, smi)
+    packed = serve_packed(torch, smi, bucketed)
+    reference, eng = serve_reference(torch, smi, bucketed)
+    model_parity(torch, eng)
+    del eng
+    runs = (bucketed["counts"], packed["counts"], reference["counts"])
+
+    def total(key):
+        return sum(c[key] for c in runs)
+
+    untimed = sorted({s for c in runs for s in c["prefill_by_seq"]} - set(PREFILL_SEQS))
     if untimed:
         raise AssertionError(f"the serve run launched prefill at untimed lengths {untimed}")
-    kernels = [dec]
-    for k in pre:  # one entry per bucket the serve run launched
-        if by_seq.get(k["seq"]):
-            kernels.append(dict(k, launches=by_seq[k["seq"]]))
+    by_rows = packed["counts"]["ragged_by_rows"]
+    kernels = [dict(dec[0], launches=total("decode_inline")),
+               dict(dec[1], launches=total("decode_scatter_first"))]
+    for k in pre:  # one entry per bucket the serve runs launched
+        n = sum(c["prefill_by_seq"].get(k["seq"], 0) for c in runs)
+        if n:
+            kernels.append(dict(k, launches=n))
+    for k in rag:  # one entry per buffer size the packed run launched
+        if by_rows.get(k["rows"]):
+            kernels.append(dict(k, launches=by_rows[k["rows"]]))
+    kernels.append(dict(probe, launches=total("probe")))
+    unused = [k["name"] for k in kernels if not k["launches"] > 0]
+    if unused or not by_rows:
+        raise AssertionError(f"kernels the serve runs never launched: {unused or 'ragged'}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row.get(k) for k in keys} for row in kernels]})

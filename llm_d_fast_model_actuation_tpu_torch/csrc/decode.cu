@@ -1,14 +1,21 @@
-// Paged decode attention with the new token's K/V passed inline, for
-// Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a), in two variants of one
+// kernel template:
 //
-// Replaces the TPU kernel
-//   llm_d_fast_model_actuation_tpu/ops/pallas/decode.py:_decode_kernel_inline
-//   (paged_decode_attention_inline_pallas)
-// and computes the same function: one GQA decode step per sequence that
-// attends over the cache entries at positions < pos, read through the
-// page table, with an fp32 online softmax, and folds the new token's
-// (k_new, v_new) in last as a virtual final entry. The engine defers
-// every layer's KV write to one scatter after the layer loop.
+//   * INLINE = true replaces the TPU kernel
+//       llm_d_fast_model_actuation_tpu/ops/pallas/decode.py:_decode_kernel_inline
+//       (paged_decode_attention_inline_pallas): one GQA decode step per
+//       sequence that attends over the cache entries at positions < pos,
+//       read through the page table, with an fp32 online softmax, and
+//       folds the new token's (k_new, v_new) in last as a virtual final
+//       entry. The engine defers every layer's KV write to one scatter
+//       after the layer loop.
+//   * INLINE = false replaces the TPU kernel
+//       llm_d_fast_model_actuation_tpu/ops/pallas/decode.py:_decode_kernel
+//       (paged_decode_attention_pallas): the scatter-first step, whose new
+//       token is already in the cache; it attends over positions
+//       < seq_len, where seq_len counts the new token. A sequence with
+//       seq_len 0 reads no page and writes zeros, as the Pallas kernel
+//       does.
 //
 // Arithmetic follows the Pallas kernel, not the XLA "grouped" twin: q is
 // scaled by head_dim**-0.5 in fp32 (decode.py:178) and stays fp32; K and V
@@ -29,6 +36,9 @@
 //     the softmax of a tile costs one exp per lane;
 //   * the splits' (m, l, acc) are merged through shared memory at the end,
 //     then the inline token is folded in.
+//
+// Both variants share the page walk below; only the last step (fold the
+// inline token, or divide by the sum) differs.
 //
 // Known limit: batch x kv_heads blocks (8 x 8 = 64 for Llama-3-8B at
 // batch 8) leave half of the 132 SMs idle; splitting a sequence over
@@ -111,15 +121,16 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float (&out)[D
   }
 }
 
-template <int HEAD_DIM>
-__global__ void __launch_bounds__(kMaxWarps * 32) decode_inline_kernel(
+template <int HEAD_DIM, bool INLINE>
+__global__ void __launch_bounds__(kMaxWarps * 32) decode_kernel(
     const __nv_bfloat16* __restrict__ q,        // [b, h, d]
     const __nv_bfloat16* __restrict__ k_pages,  // [P, ps, kvh, d]
     const __nv_bfloat16* __restrict__ v_pages,  // [P, ps, kvh, d]
-    const __nv_bfloat16* __restrict__ k_new,    // [b, kvh, d]
-    const __nv_bfloat16* __restrict__ v_new,    // [b, kvh, d]
+    const __nv_bfloat16* __restrict__ k_new,    // [b, kvh, d]; unused unless INLINE
+    const __nv_bfloat16* __restrict__ v_new,    // [b, kvh, d]; unused unless INLINE
     const int* __restrict__ page_table,         // [b, pps]
-    const int* __restrict__ positions,          // [b]
+    const int* __restrict__ lens,               // [b]: cache entries to read
+    //                                             (pos if INLINE, else seq_len)
     __nv_bfloat16* __restrict__ out,            // [b, h, d]
     int num_heads, int num_kv_heads, int page_size, int pages_per_seq,
     int nsplit, float scale) {
@@ -135,7 +146,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_inline_kernel(
   const int hq = warp % group;     // query head within the group
   const int split = warp / group;  // which tiles this warp reads
   const int head = kvh * group + hq;
-  const int pos = positions[b];
+  const int pos = lens[b];
   const int* pt = page_table + (size_t)b * pages_per_seq;
   const long long row_stride = (long long)num_kv_heads * HEAD_DIM;
 
@@ -196,7 +207,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_inline_kernel(
     m = m_new;
   }
 
-  // Merge the splits of each head, then fold the inline token.
+  // Merge the splits of each head, then fold the inline token (or, in
+  // the scatter-first variant, normalise).
   float* mine = merge + warp * STATE;
   if (lane == 0) {
     mine[0] = m;
@@ -220,6 +232,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_inline_kernel(
     for (int j = 0; j < DPL; ++j) A[j] += o[2 + lane * DPL + j] * w;
   }
 
+  __nv_bfloat16* orow = out + ((size_t)b * num_heads + head) * HEAD_DIM + lane * DPL;
+  if constexpr (!INLINE) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) orow[j] = __float2bfloat16(L > 0.f ? A[j] / L : 0.f);
+    return;
+  }
   // the inline token: always valid, so L > 0 even at pos == 0
   const size_t nrow = ((size_t)b * num_kv_heads + kvh) * HEAD_DIM + lane * DPL;
   float kn[DPL], vn[DPL];
@@ -233,49 +251,70 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_inline_kernel(
   const float alpha = expf(M - m_new);
   const float p_self = expf(logit - m_new);
   L = L * alpha + p_self;
-  __nv_bfloat16* orow = out + ((size_t)b * num_heads + head) * HEAD_DIM + lane * DPL;
 #pragma unroll
   for (int j = 0; j < DPL; ++j) orow[j] = __float2bfloat16((A[j] * alpha + p_self * vn[j]) / L);
 }
 
-}  // namespace
-
-// Launch on `stream`; returns cudaGetLastError() (0 = launched). Needs
-// num_heads / num_kv_heads <= 16 and head_dim in {64, 128, 256}.
-extern "C" int fma_paged_decode_inline_bf16(
-    const void* q, const void* k_pages, const void* v_pages, const void* k_new,
-    const void* v_new, const void* page_table, const void* positions, void* out,
-    int batch, int num_heads, int num_kv_heads, int head_dim, int page_size,
-    int pages_per_seq, float scale, void* stream) {
+template <bool INLINE>
+int launch(const void* q, const void* k_pages, const void* v_pages, const void* k_new,
+           const void* v_new, const void* page_table, const void* lens, void* out,
+           int batch, int num_heads, int num_kv_heads, int head_dim, int page_size,
+           int pages_per_seq, float scale, cudaStream_t s) {
   const int group = num_heads / num_kv_heads;
   if (group < 1 || group > kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
   const int nsplit = kMaxWarps / group;
   const dim3 grid(batch, num_kv_heads);
   const dim3 block(32 * group * nsplit);
   const size_t smem = sizeof(float) * group * nsplit * (2 + head_dim);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FMA_DECODE_ARGS                                                      \
   static_cast<const __nv_bfloat16*>(q),                                      \
       static_cast<const __nv_bfloat16*>(k_pages),                            \
       static_cast<const __nv_bfloat16*>(v_pages),                            \
       static_cast<const __nv_bfloat16*>(k_new),                              \
       static_cast<const __nv_bfloat16*>(v_new),                              \
-      static_cast<const int*>(page_table), static_cast<const int*>(positions), \
+      static_cast<const int*>(page_table), static_cast<const int*>(lens),    \
       static_cast<__nv_bfloat16*>(out), num_heads, num_kv_heads, page_size,  \
       pages_per_seq, nsplit, scale
   switch (head_dim) {
     case 64:
-      decode_inline_kernel<64><<<grid, block, smem, s>>>(FMA_DECODE_ARGS);
+      decode_kernel<64, INLINE><<<grid, block, smem, s>>>(FMA_DECODE_ARGS);
       break;
     case 128:
-      decode_inline_kernel<128><<<grid, block, smem, s>>>(FMA_DECODE_ARGS);
+      decode_kernel<128, INLINE><<<grid, block, smem, s>>>(FMA_DECODE_ARGS);
       break;
     case 256:
-      decode_inline_kernel<256><<<grid, block, smem, s>>>(FMA_DECODE_ARGS);
+      decode_kernel<256, INLINE><<<grid, block, smem, s>>>(FMA_DECODE_ARGS);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FMA_DECODE_ARGS
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both entry points launch on `stream` and return cudaGetLastError()
+// (0 = launched). They need num_heads / num_kv_heads <= 16 and head_dim in
+// {64, 128, 256}.
+
+// The inline variant: cache entries < positions[b], then (k_new, v_new).
+extern "C" int fma_paged_decode_inline_bf16(
+    const void* q, const void* k_pages, const void* v_pages, const void* k_new,
+    const void* v_new, const void* page_table, const void* positions, void* out,
+    int batch, int num_heads, int num_kv_heads, int head_dim, int page_size,
+    int pages_per_seq, float scale, void* stream) {
+  return launch<true>(q, k_pages, v_pages, k_new, v_new, page_table, positions, out,
+                      batch, num_heads, num_kv_heads, head_dim, page_size,
+                      pages_per_seq, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The scatter-first variant: cache entries < seq_lens[b].
+extern "C" int fma_paged_decode_bf16(
+    const void* q, const void* k_pages, const void* v_pages, const void* page_table,
+    const void* seq_lens, void* out, int batch, int num_heads, int num_kv_heads,
+    int head_dim, int page_size, int pages_per_seq, float scale, void* stream) {
+  return launch<false>(q, k_pages, v_pages, nullptr, nullptr, page_table, seq_lens, out,
+                       batch, num_heads, num_kv_heads, head_dim, page_size,
+                       pages_per_seq, scale, static_cast<cudaStream_t>(stream));
 }

@@ -29,6 +29,11 @@
 // results pass through a per-warp shared-memory scratch because the
 // accumulator fragment's layout is opaque.
 //
+// Shared memory is dynamic (PrefillSmem): 96 KB at head_dim 128 and 176 KB
+// at head_dim 256, both above the 48 KB a static allocation may take, so
+// each launch first raises the kernel's limit with cudaFuncSetAttribute and
+// returns that call's error if the card refuses.
+//
 // Not yet done (later work): wgmma and TMA, a pipelined K/V ring, and a
 // persistent schedule. This kernel uses mma.sync-class tensor-core
 // instructions and synchronous tile loads.
@@ -270,6 +275,9 @@ extern "C" int fma_causal_prefill_bf16(const void* q, const void* k,
                         num_kv_heads, strides, scale, s);
     case 128:
       return launch<128>(q, k, v, seq_lens, out, batch, seq, num_heads,
+                         num_kv_heads, strides, scale, s);
+    case 256:  // 176 KB of dynamic shared memory (PrefillSmem<256>)
+      return launch<256>(q, k, v, seq_lens, out, batch, seq, num_heads,
                          num_kv_heads, strides, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,11 +1,20 @@
 """The serving engine: continuous batching over a paged KV cache.
 
-Port of ``llm_d_fast_model_actuation_tpu/engine/engine.py``, bucketed path
-only. One engine owns the model, the page pool and two kinds of work:
+Port of ``llm_d_fast_model_actuation_tpu/engine/engine.py``: the bucketed
+and the token-packed serving paths. One engine owns the model, the page
+pool and three kinds of work:
 
-  * prefill — batch-1 prompt ingestion, padded to power-of-two buckets,
-    sampling the first token on the device (prefix-cache hits and chunked
-    prefill run the suffix through ``prefill_continue``);
+  * prefill (bucketed path) — batch-1 prompt ingestion, padded to
+    power-of-two buckets, sampling the first token on the device
+    (prefix-cache hits and chunked prefill run the suffix through
+    ``prefill_continue``);
+  * the packed step (``packed_serving``) — whenever prompt work is
+    pending, ONE forward over a flat ``[token_budget]`` buffer carries
+    prefill segments of many requests and one decode row per running
+    sequence (``llama.mixed_step``, ragged paged attention), then the
+    step falls through to the decode chunk; the buffer is always packed
+    at ``RAGGED_BLOCK`` alignment, the ragged kernel's layout, on the CPU
+    too;
   * the decode chunk — up to ``decode_chunk`` decode+sample steps for the
     whole slot batch, run as a Python loop whose state (last tokens,
     positions, budgets, token counts) stays on the device; the host reads
@@ -13,28 +22,34 @@ only. One engine owns the model, the page pool and two kinds of work:
 
 Decode runs every slot every step (static shapes; empty slots write
 nothing and their outputs are ignored). Host mirrors of the scheduler
-state are the source of truth between chunks and are uploaded after an
-admission or retire edge.
+state are the source of truth between chunks and are uploaded in full
+after an admission, retire or packed-step edge (the reference's cheaper
+per-slot upload tier is not ported). A packed admission needs only the
+page table uploaded: the ``[b, vocab]`` count and bias rows of a free
+slot are already zero on the device, because its retire was uploaded in
+full. (The reference zeroes them in the mixed program, ``fresh_on``,
+because its retires leave them stale.)
 
 Not ported yet, and refused rather than ignored (they are not fields of
-the port's ``EngineConfig``): packed serving, speculative decoding,
-pipelined decode, co-resident variants, parking and migration,
-multi-host lockstep, AOT executables and meshes. CUDA graphs for the
-chunk are later work.
+the port's ``EngineConfig``): speculative decoding, pipelined decode,
+co-resident variants, parking and migration, multi-host lockstep, AOT
+executables and meshes. CUDA graphs for the chunk are later work.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence as Seq
+from typing import Any, Callable, Dict, List, Optional, Sequence as Seq, Tuple
 
 import numpy as np
 import torch
 
 from ..models import llama
 from ..models.registry import init_params_for
+from ..ops.attention import RAGGED_BLOCK
 from .device import resolve_device
 from .kv_cache import OutOfPages, PageAllocator, PagePool
 from .sampling import gumbel, noise_width, sample
@@ -62,6 +77,20 @@ class EngineConfig:
     #: chunked prefill: prompts longer than this prefill in segments of at
     #: most this many tokens. 0 = off.
     max_prefill_tokens: int = 0
+    #: "auto", "reference", "grouped" or "pallas"; overrides the model's
+    #: ``attention_impl``. "reference" takes the scatter-first decode
+    #: branch, every other value the inline one ("auto" resolves to
+    #: "grouped"). The kernels are picked by device either way.
+    attention_impl: str = "auto"
+    #: token-packed mixed-batch serving: whenever prompt work is pending,
+    #: one forward over a flat [token_budget] buffer packs prefill
+    #: segments AND one decode row per running sequence, then the step
+    #: falls through to the decode chunk; the bucketed prefill is off
+    #: this path. Off (default) keeps the bucketed path as it was.
+    packed_serving: bool = False
+    #: row capacity of the packed buffer; 0 = auto (256, floored so every
+    #: slot can decode and one prefill block always fits)
+    token_budget: int = 0
 
     @property
     def seq_len(self) -> int:
@@ -70,6 +99,53 @@ class EngineConfig:
     @property
     def pages_per_seq(self) -> int:
         return -(-self.seq_len // self.page_size)
+
+    @property
+    def packed_token_budget(self) -> int:
+        """The resolved [token_budget] buffer size: requested (or 256),
+        floored so every slot can decode AND one prefill block always
+        fits, rounded up to RAGGED_BLOCK alignment."""
+        qb = RAGGED_BLOCK
+        want = max(self.token_budget or 256, qb * (self.max_batch + 1))
+        return -(-want // qb) * qb
+
+
+ATTENTION_IMPLS = ("auto", "reference", "grouped", "pallas")
+
+
+def resolve_attention_impl(impl: str) -> str:
+    """The model's ``attention_impl`` for an engine flag: "auto" is the
+    inline branch ("grouped", the reference's choice off the TPU)."""
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; known: {ATTENTION_IMPLS}")
+    return "grouped" if impl == "auto" else impl
+
+
+def packed_budget_shapes(cfg: EngineConfig) -> List[int]:
+    """The one or two [token_budget] buffer shapes of a packed engine,
+    smallest first: the full budget, preceded by a quarter-size buffer
+    (when it differs) so a lightly loaded step neither computes nor
+    pad-counts the full budget."""
+    qb = RAGGED_BLOCK
+    full = cfg.packed_token_budget
+    small = -(-max(full // 4, qb * (cfg.max_batch + 1)) // qb) * qb
+    return [small, full] if small < full else [full]
+
+
+def kv_pages_bucket(max_kv: int, page_size: int, pages_per_seq: int) -> int:
+    """Page-table width covering ``max_kv`` cache entries, rounded up the
+    {1, 2, 3, 4, 6, 8, 12, ...} ladder (powers of two and their 1.5x
+    midpoints), clamped to the full table. The packed step hands the
+    model the table's first this-many columns; the rest are masked for
+    every row."""
+    need = max(1, -(-max_kv // page_size))
+    k = 1
+    while k < need:
+        if k * 3 // 2 >= need and k * 3 % 2 == 0:
+            k = k * 3 // 2
+            break
+        k *= 2
+    return min(k, pages_per_seq)
 
 
 def prefill_bucket(n: int, seq_len: int) -> int:
@@ -114,6 +190,9 @@ class Request:
     cached_tokens: int = 0
     #: how many of `pages` are shared prefix pages (for registration)
     shared_pages: int = 0
+    #: packed serving: admitted, prompt not fully in the cache yet (``pos``
+    #: counts the prompt tokens that are)
+    prefilling: bool = False
     done: bool = False
     #: why the request finished: "length" | "stop" (eos or stop sequence)
     finish_reason: str = ""
@@ -195,14 +274,33 @@ class InferenceEngine:
         device: "torch.device | str | None" = None,
     ) -> None:
         self.device = resolve_device(device)
+        if cfg.token_budget < 0:
+            raise ValueError("token_budget must be >= 0, or 0 for auto")
         self.cfg = cfg
+        # the engine's attention_impl overrides the model's (per engine,
+        # as in the reference)
         m = cfg.model
+        impl = resolve_attention_impl(cfg.attention_impl)
+        if m.attention_impl != impl:
+            m = dataclasses.replace(m, attention_impl=impl)
+        #: the model config this engine runs (``cfg.model`` with the
+        #: resolved ``attention_impl``)
+        self.model_cfg = m
         self._seed = seed
+        if self.device.type == "cuda":
+            # build this checkout's kernels (if needed) and launch the
+            # probe once; raises if the card cannot run them
+            from ..ops.cuda.build import check_launch
+
+            check_launch(self.device)
         if params is None:
             self.model = self.init_model()
         elif isinstance(params, llama.Llama):
             if params.device != self.device:
                 raise ValueError(f"model is on {params.device}, engine on {self.device}")
+            if dataclasses.replace(params.cfg, attention_impl=impl) != m:
+                raise ValueError("the model's config differs from the engine's")
+            params.cfg = m
             self.model = params
         else:
             self.model = llama.Llama(m, self.device)
@@ -247,6 +345,22 @@ class InferenceEngine:
         #: decode kernel once per layer, each cold prefill the prefill kernel)
         self.decode_steps = 0
         self.cold_prefills = 0
+        #: packed steps dispatched, and the valid tokens they carried
+        self.packed_steps = 0
+        self.packed_tokens_total = 0
+        #: host-to-device bytes of dispatch inputs and scheduler uploads,
+        #: by serving path ("packed" / "bucketed")
+        self.step_h2d_bytes: Dict[str, int] = {"packed": 0, "bucketed": 0}
+        #: bytes of computed-but-invalid activation rows (one embedding row
+        #: each): prefill bucket padding ("bucketed"), padded rows of the
+        #: packed buffer ("packed")
+        self.pad_waste_bytes: Dict[str, int] = {"packed": 0, "bucketed": 0}
+        #: valid prompt/decode tokens dispatched by those two paths
+        self.dispatch_tokens: Dict[str, int] = {"packed": 0, "bucketed": 0}
+        self._pad_token_bytes = m.hidden_size * m.dtype.itemsize
+        #: stats of the most recent step's packed dispatch (None when the
+        #: step dispatched none)
+        self.last_step_stats: Optional[Dict[str, Any]] = None
         self._dev: Optional[Dict[str, torch.Tensor]] = None  # device scheduler tensors
         self._dirty = True
         #: True while a SleepManager holds the state offloaded (engine/sleep.py)
@@ -257,7 +371,7 @@ class InferenceEngine:
         wake's reinit)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._seed)
-        return init_params_for(self.cfg.model, gen, self.device)
+        return init_params_for(self.model_cfg, gen, self.device)
 
     # -- device scheduler state ---------------------------------------------
 
@@ -282,11 +396,16 @@ class InferenceEngine:
             "bias": self._bias,
         }
         self._dev = {k: self._to_dev(v) for k, v in mirrors.items()}
+        self.step_h2d_bytes[self._h2d_path] += sum(a.nbytes for a in mirrors.values())
         self._dirty = False
+
+    @property
+    def _h2d_path(self) -> str:
+        return "packed" if self.cfg.packed_serving else "bucketed"
 
     def drop_device_sched_state(self) -> None:
         """Forget the device scheduler tensors (sleep path); the host
-        mirrors stay authoritative and the next chunk re-uploads them."""
+        mirrors stay authoritative and the next dispatch re-uploads them."""
         self._dev = None
         self._dirty = True
 
@@ -428,7 +547,9 @@ class InferenceEngine:
         self._freqs[slot] = req.frequency_penalty
         self._temps[slot] = req.temperature
         self._topps[slot] = req.top_p
-        self._dirty = True
+        if not self.cfg.packed_serving:
+            # a packed admission decides in _step_packed what to upload
+            self._dirty = True
         return True
 
     def _alloc_pages(self, n: int) -> List[int]:
@@ -472,6 +593,7 @@ class InferenceEngine:
         bucket = self._prefill_bucket(len(seg))
         tokens = np.zeros((1, bucket), dtype=np.int32)
         tokens[0, : len(seg)] = seg
+        self._count_bucketed(bucket, len(seg))
         return llama.prefill_continue(
             self.model,
             self._to_dev(tokens),
@@ -480,6 +602,10 @@ class InferenceEngine:
             self.pool.as_tuple(),
             self._to_dev(self._page_table[req.slot : req.slot + 1]),
         )
+
+    def _count_bucketed(self, bucket: int, n: int) -> None:
+        self.pad_waste_bytes["bucketed"] += (bucket - n) * self._pad_token_bytes
+        self.dispatch_tokens["bucketed"] += n
 
     def _run_prefill(self, req: Request) -> None:
         n = len(req.prompt)
@@ -491,6 +617,7 @@ class InferenceEngine:
             tokens = np.zeros((1, bucket), dtype=np.int32)
             tokens[0, :n] = req.prompt
             self.cold_prefills += 1
+            self._count_bucketed(bucket, n)
             logits = llama.prefill(
                 self.model,
                 self._to_dev(tokens),
@@ -602,28 +729,254 @@ class InferenceEngine:
     # -- the engine loop body ----------------------------------------------
 
     def step(self) -> List[Request]:
-        """Admit + prefill waiting requests, then one decode chunk (up to
-        ``decode_chunk`` steps) for the running batch. Returns requests
-        that finished."""
+        """Admit + prefill waiting requests (bucketed), or run one packed
+        step while prompt work is pending (packed serving), then one
+        decode chunk (up to ``decode_chunk`` steps) for the running batch.
+        Returns requests that finished."""
         if self.asleep:
             raise EngineAsleep("engine state is offloaded (sleeping)")
+        self.last_step_stats = None
         finished: List[Request] = []
-        while self._waiting:
-            req = self._waiting[0]
-            if not self._admit(req):
-                break
-            self._waiting.pop(0)
-            self._run_prefill(req)
-            if req.done:
-                self._retire(req)
-                finished.append(req)
+        if self.cfg.packed_serving:
+            # prompts stream into one mixed forward beside a decode row
+            # per running sequence, then the step falls through to the
+            # chunk; a queue blocked on slots or pages packs nothing
+            if self._waiting or self._any_prefilling():
+                self._step_packed(finished)
+        else:
+            while self._waiting:
+                req = self._waiting[0]
+                if not self._admit(req):
+                    break
+                self._waiting.pop(0)
+                self._run_prefill(req)
+                if req.done:
+                    self._retire(req)
+                    finished.append(req)
         running = self._running()
         if running:
             finished.extend(self._drain_chunk(self._dispatch_chunk(running)))
         return finished
 
     def _running(self) -> Dict[int, Request]:
-        return {r.slot: r for r in self._slots if r is not None and not r.done}
+        # mid-prefill slots (packed serving) are not decodable yet: their
+        # budget mirror is 0, so the chunk leaves them inactive
+        return {
+            r.slot: r
+            for r in self._slots
+            if r is not None and not r.done and not r.prefilling
+        }
+
+    # -- token-packed mixed-batch serving (cfg.packed_serving) ----------------
+
+    def _any_prefilling(self) -> bool:
+        return any(r is not None and r.prefilling and not r.done for r in self._slots)
+
+    def _step_packed(self, finished: List[Request]) -> bool:
+        """One token-packed mixed-batch step: a decode row per running
+        sequence, then prefill segments of the in-flight and the waiting
+        requests, packed into the flat buffer; ONE mixed forward; at most
+        one token emitted per sequence.
+
+        Returns False without dispatching when no prefill segment could be
+        packed (the waiting queue is blocked on slots or pages): the
+        caller's decode chunk then serves the running batch.
+
+        Packing layout (the ragged kernel's contract): each sequence's rows
+        are contiguous, at consecutive positions, and start on a
+        RAGGED_BLOCK boundary; alignment gaps and the tail are padding
+        rows (row_slot -1)."""
+        qb = RAGGED_BLOCK
+        T = self.cfg.packed_token_budget
+        b = self.cfg.max_batch
+        tokens = np.zeros((T,), dtype=np.int32)
+        row_slot = np.full((T,), -1, dtype=np.int32)
+        positions = np.zeros((T,), dtype=np.int32)
+        #: rows whose token joins its slot's counts BEFORE the sample:
+        #: streamed prompt tokens (decode rows' tokens were counted when
+        #: they were emitted)
+        count_row = np.zeros((T,), dtype=np.int32)
+        sample_rows = np.zeros((b,), dtype=np.int32)
+        sample_on = np.zeros((b,), dtype=np.int32)
+        rows_used = 0
+        decode_reqs: List[Request] = []
+        segments: List[Tuple[Request, int, bool]] = []
+        seg_cap = self.cfg.max_prefill_tokens or T
+
+        def pack_segment(req: Request) -> None:
+            nonlocal rows_used
+            take = min(len(req.prompt) - req.pos, seg_cap, T - rows_used)
+            start = rows_used
+            tokens[start : start + take] = req.prompt[req.pos : req.pos + take]
+            row_slot[start : start + take] = req.slot
+            positions[start : start + take] = np.arange(req.pos, req.pos + take)
+            count_row[start : start + take] = 1
+            final = req.pos + take >= len(req.prompt)
+            if final:
+                # the segment's last row predicts the first generated token
+                sample_rows[req.slot] = start + take - 1
+                sample_on[req.slot] = 1
+            segments.append((req, take, final))
+            rows_used += -(-take // qb) * qb
+
+        # 1. one decode row per running sequence, each in its own block
+        for slot, req in enumerate(self._slots):
+            if req is None or req.done or req.prefilling:
+                continue
+            tokens[rows_used] = self._last_tokens[slot]
+            row_slot[rows_used] = slot
+            positions[rows_used] = req.pos
+            sample_rows[slot] = rows_used
+            sample_on[slot] = 1
+            decode_reqs.append(req)
+            rows_used += qb
+        # 2. one segment of each in-flight chunked prefill, in slot order
+        for req in self._slots:
+            if req is not None and req.prefilling and not req.done and T - rows_used >= qb:
+                pack_segment(req)
+        # 3. admit waiting requests into the rest of the buffer
+        admitted = False
+        while self._waiting and T - rows_used >= qb:
+            req = self._waiting[0]
+            if not self._admit(req):
+                break
+            self._waiting.pop(0)
+            req.prefilling = True
+            req.pos = req.cached_tokens
+            # the count mirror follows the streaming the mixed forward
+            # does: a cached prefix's tokens now (they never enter the
+            # buffer), packed rows as they stream (below)
+            self._token_counts[req.slot] = 0
+            if req.cached_tokens:
+                np.add.at(self._token_counts[req.slot], req.prompt[: req.cached_tokens], 1)
+            if req.logit_bias or ((req.presence_penalty or req.frequency_penalty) and req.cached_tokens):
+                # rows the device cannot rebuild from the buffer: upload all
+                self._dirty = True
+            admitted = True
+            pack_segment(req)
+        if not segments:
+            return False
+
+        # the smallest buffer shape that fits, against the page table cut
+        # to the width the step's longest sequence needs
+        shape = next(s for s in packed_budget_shapes(self.cfg) if s >= rows_used)
+        valid_rows = row_slot[:shape] >= 0
+        valid = int(valid_rows.sum())
+        max_kv = int(positions[:shape][valid_rows].max()) + 1
+        kvp = kv_pages_bucket(max_kv, self.cfg.page_size, self.cfg.pages_per_seq)
+        prefill_tokens = sum(take for _, take, _ in segments)
+        self.packed_steps += 1
+        self.packed_tokens_total += valid
+        self.pad_waste_bytes["packed"] += (shape - valid) * self._pad_token_bytes
+        self.dispatch_tokens["packed"] += valid
+        self.last_step_stats = {
+            "mode": "packed",
+            "rows": shape,
+            "tokens": valid,
+            "pad_rows": shape - valid,
+            "decode_rows": len(decode_reqs),
+            "prefill_tokens": prefill_tokens,
+        }
+        if self._dirty or self._dev is None:
+            self._upload_sched()
+        elif admitted:
+            # the admissions wrote page-table rows; their slots' count and
+            # bias rows are zero on the device since their last retire
+            self._dev["pt"] = self._to_dev(self._page_table)
+            self.step_h2d_bytes["packed"] += self._page_table.nbytes
+        sampled = [s for s in range(b) if sample_on[s] and self._temps[s] > 0]
+        per_step = (tokens[:shape], row_slot[:shape], positions[:shape], count_row[:shape],
+                    sample_rows, sample_on, self._temps, self._topps, self._pres, self._freqs)
+        self.step_h2d_bytes["packed"] += sum(a.nbytes for a in per_step)
+        out = self._mixed(shape, kvp, *per_step, sampled)
+        tok_h, lp_h = out[0].cpu().numpy(), out[1].cpu().numpy()
+        av_h = ai_h = None
+        emitting = [r for r, _, _ in segments] + decode_reqs
+        if len(out) > 2 and any(r.want_top_logprobs for r in emitting):
+            av_h, ai_h = out[2].cpu().numpy(), out[3].cpu().numpy()
+
+        def alts_for(req: Request):
+            if not req.want_top_logprobs or av_h is None:
+                return None
+            return [(int(ai_h[req.slot, j]), float(av_h[req.slot, j])) for j in range(av_h.shape[1])]
+
+        # the host count mirror takes the streamed prompt rows, as the
+        # forward added them on the device (req.pos is still pre-step)
+        for req, take, _ in segments:
+            if req.slot >= 0:
+                np.add.at(self._token_counts[req.slot], req.prompt[req.pos : req.pos + take], 1)
+        # prefill segments advance; final segments emit their first token
+        for req, take, final in segments:
+            if req.done:  # aborted mid-step: pages already freed
+                continue
+            slot = req.slot
+            req.pos += take
+            if not final:
+                continue
+            req.prefilling = False
+            if self.prefix_cache is not None:
+                # the whole prompt's KV is in its pages now: reusable
+                self.prefix_cache.register(
+                    req.prompt, req.pages, req.shared_pages,
+                    known_hashes=getattr(req, "_prefix_hashes", ()),
+                )
+            self._emit(req, int(tok_h[slot]), float(lp_h[slot]), alts_for(req))
+            self._positions[slot] = req.pos
+            self._last_tokens[slot] = int(tok_h[slot])
+            self._budgets[slot] = req.max_new_tokens - len(req.out_tokens)
+            if req.done:
+                self._retire(req)
+                finished.append(req)
+        # decode rows emit one token each
+        for req in decode_reqs:
+            if req.done:
+                continue
+            slot = req.slot
+            req.pos += 1
+            self._positions[slot] = req.pos
+            self._last_tokens[slot] = int(tok_h[slot])
+            self._emit(req, int(tok_h[slot]), float(lp_h[slot]), alts_for(req))
+            self._budgets[slot] = req.max_new_tokens - len(req.out_tokens)
+            if req.done:
+                self._retire(req)
+                finished.append(req)
+        # positions, last tokens and budgets moved on the host: the next
+        # dispatch uploads the mirrors in full
+        self._dirty = True
+        return True
+
+    @torch.no_grad()
+    def _mixed(self, shape, kvp, tokens, row_slot, positions, count_row, sample_rows,
+               sample_on, temps, topps, pres, freqs, sampled):
+        """The mixed forward and its sampling tail, on the device: add the
+        streamed prompt rows to their slots' counts BEFORE sampling (the
+        final segment's sample sees the whole prompt, as a bucketed
+        prefill does), run ``llama.mixed_step`` over the [shape] buffer
+        against the page table's first ``kvp`` columns, sample one row per
+        slot, and add each sampling slot's emitted token to its counts.
+        Only the ``sampled`` slots draw from their generators."""
+        d = self._dev
+        b = self.cfg.max_batch
+        tok_d, slot_d, pos_d = self._to_dev(tokens), self._to_dev(row_slot), self._to_dev(positions)
+        counts, bias = d["counts"], d["bias"]
+        # padding and decode rows add 0 (to row 0), so nothing syncs
+        counts.index_put_(
+            (slot_d.long().clamp(min=0), tok_d.long()), self._to_dev(count_row), accumulate=True
+        )
+        logits = llama.mixed_step(
+            self.model, tok_d, slot_d, pos_d, self.pool.as_tuple(), d["pt"][:, :kvp]
+        )
+        out = sample(
+            logits[self._to_dev(sample_rows).long()],
+            self._to_dev(temps),
+            self._draw_noise(sampled, b) if sampled else None,
+            top_p=self._to_dev(topps), counts=counts,
+            presence_penalty=self._to_dev(pres), frequency_penalty=self._to_dev(freqs),
+            alt_k=self.cfg.logprobs_topk, bias=bias,
+        )
+        rows = torch.arange(b, device=self.device)
+        counts.index_put_((rows, out[0].long()), self._to_dev(sample_on), accumulate=True)
+        return out
 
     @torch.no_grad()
     def _dispatch_chunk(self, running: Dict[int, Request]):

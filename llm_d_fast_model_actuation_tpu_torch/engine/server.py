@@ -7,12 +7,17 @@ server.py``: one engine thread fed by a submit queue, and the routes
   POST /sleep?level=1|2, /wake_up, /v1/completions (token-id prompts,
        non-streaming)
 
-with the reference's flag names for the flags it keeps. The completion
-response has the reference's JSON keys; its ``text`` is the reference's
-no-tokenizer (byte-level) decoding of the token ids. Not ported yet, and
-answered with a 400 that says so: string prompts (they need the
-tokenizer), ``stream``, ``echo``, ``logprobs``, string stops, and the
-other routes of the reference (chat, metrics, swap, ...).
+with the reference's flag names for the flags it keeps, among them
+``--packed-serving on|off``, ``--token-budget`` and ``--attention-impl``.
+The completion response has the reference's JSON keys; its ``text`` is
+the reference's no-tokenizer (byte-level) decoding of the token ids. Not
+ported yet, and answered with a 400 that says so: string prompts (they
+need the tokenizer), ``stream``, ``echo``, ``logprobs``, string stops, and
+the other routes of the reference (chat, metrics, swap, ...). Not ported
+yet and absent from the options: the reference's other engine flags
+(``--pipeline-decode``, ``--speculative-ngram``, ``--quantization``,
+``--sleep-quant``, ``--resident-variants``, ``--tensor-parallel-size``,
+multi-host gangs, ...).
 
 Run: ``python -m llm_d_fast_model_actuation_tpu_torch.engine.server
 --model llama3-8b`` (on the card; ``--device cpu`` to run on the CPU).
@@ -31,7 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..models import llama
-from .engine import EngineConfig, InferenceEngine, validate_logit_bias
+from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
 from .kv_cache import PageAllocator
 from .sleep import attach_sleep, fresh_state
 
@@ -95,6 +100,23 @@ def make_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--attention-impl", default="auto", choices=list(ATTENTION_IMPLS),
+        help="decode cache-write strategy: reference = scatter-first, "
+        "the others inline (auto = grouped); the kernels follow the device",
+    )
+    p.add_argument(
+        "--packed-serving", choices=["on", "off"], default="off",
+        help="token-packed mixed-batch serving: whenever prompt work is "
+        "pending, one forward over a flat [token-budget] buffer packs "
+        "prefill segments AND a decode row per running sequence (ragged "
+        "paged attention). off (default) keeps the bucketed path",
+    )
+    p.add_argument(
+        "--token-budget", type=int, default=0,
+        help="row capacity of the packed buffer (--packed-serving). 0 = "
+        "auto (256, floored so every decode slot plus one prefill block fits)",
+    )
     return p
 
 
@@ -104,9 +126,17 @@ def parse_engine_options(options: str) -> argparse.Namespace:
         args = make_arg_parser().parse_args(options.split())
     except (argparse.ArgumentError, SystemExit) as e:
         raise ValueError(f"invalid engine options {options!r}: {e}")
+    check_engine_options(args)
+    return args
+
+
+def check_engine_options(args: argparse.Namespace) -> None:
+    """The reference's checks of the options the port has; raises
+    ValueError."""
     if args.model not in MODEL_CONFIGS:
         raise ValueError(f"unknown model {args.model!r}; known: {sorted(MODEL_CONFIGS)}")
-    return args
+    if args.token_budget < 0:
+        raise ValueError("--token-budget must be >= 0, or 0 for auto")
 
 
 def byte_text(ids: List[int]) -> str:
@@ -130,6 +160,9 @@ class EngineService:
             page_size=args.page_size,
             num_pages=args.num_pages,
             max_seq_len=args.max_model_len,
+            attention_impl=args.attention_impl,
+            packed_serving=args.packed_serving == "on",
+            token_budget=args.token_budget,
         )
         self.engine = InferenceEngine(self.cfg, seed=args.seed, device=args.device)
         self.sleeper = attach_sleep(self.engine)
@@ -464,8 +497,10 @@ def serve(service: EngineService, host: str, port: int) -> ThreadingHTTPServer:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = make_arg_parser().parse_args(argv)
-    if args.model not in MODEL_CONFIGS:
-        raise SystemExit(f"unknown model {args.model!r}; known: {sorted(MODEL_CONFIGS)}")
+    try:
+        check_engine_options(args)
+    except ValueError as e:
+        raise SystemExit(str(e))
     service = EngineService(args)
     server = serve(service, args.host, args.port)
     print(f"serving {args.model} on http://{args.host}:{server.server_address[1]}", flush=True)

@@ -52,8 +52,10 @@ def params_from_jax(tree: Dict[str, Any], device: "torch.device | str" = "cpu") 
 
 def config_from_jax(cfg: Any) -> LlamaConfig:
     """A port config with the same field values as a reference config
-    (its ``dtype`` mapped by name; ``attention_impl`` has no counterpart —
-    the port picks the kernel by device)."""
+    (its ``dtype`` mapped by name). ``attention_impl`` carries across: in
+    the port it selects only the decode step's cache-write strategy
+    (``"reference"`` = scatter-first), while the kernel is picked by the
+    device of the tensors."""
     kw = {}
     for f in dataclasses.fields(LlamaConfig):
         v = getattr(cfg, f.name)

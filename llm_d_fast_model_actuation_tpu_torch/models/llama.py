@@ -30,8 +30,10 @@ from torch import nn
 
 from ..ops.attention import (
     causal_prefill_attention,
+    paged_decode_attention,
     paged_decode_attention_inline,
     paged_suffix_attention,
+    ragged_paged_attention,
 )
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_table
@@ -57,6 +59,12 @@ class LlamaConfig:
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
+    #: the decode step's cache-write strategy, with the reference's values:
+    #: "reference" scatters each layer's new K/V into the pool before it
+    #: attends (paged_decode_attention); "grouped" and "pallas" attend with
+    #: the new K/V inline and write all layers once after the loop. The
+    #: kernel is chosen by the device of the tensors, not by this field.
+    attention_impl: str = "reference"
     #: weight-only quantization: only "" (plain weights) is ported yet
     quantization: str = ""
     # -- Gemma-family knobs (llama-neutral defaults; one shared forward) --
@@ -325,6 +333,33 @@ def _scatter_prefill(pages, new, page_table, positions, valid, page_size):
     pages[phys.reshape(-1), slot_of.reshape(-1)] = new.reshape((-1,) + new.shape[2:])
 
 
+def _row_targets(page_table, row_slot, positions, page_size):
+    """(page, slot) each row of a packed buffer writes its K/V to: its OWN
+    sequence's page (``page_table[row_slot[t]]``) at its own position.
+    Padding rows (``row_slot < 0``) write the null page 0; the reference
+    drops them (``llama.py:_scatter_rows``). The logical page is clamped
+    first: a padding row's may lie past the table. Computed once per
+    step, shared by every layer's write."""
+    page_of = (positions // page_size).long().clamp_(max=page_table.shape[1] - 1)
+    safe = row_slot.long().clamp(0, page_table.shape[0] - 1)
+    phys = page_table[safe, page_of].long()
+    return torch.where(row_slot >= 0, phys, 0), (positions % page_size).long()
+
+
+def _scatter_rows(pages, new, targets):
+    """Write a packed buffer's K or V [T, kvh, hd] into one layer's pages,
+    in place, at ``targets`` (:func:`_row_targets`)."""
+    pages[targets] = new
+
+
+def _scatter_decode(pages, new, page_table, positions, page_size):
+    """Write one token's K or V [b, kvh, hd] per sequence at ``positions``
+    [b] into one layer's pages, in place (rows of the null page in
+    ``page_table`` write there)."""
+    phys = torch.gather(page_table.long(), 1, (positions.long() // page_size)[:, None])[:, 0]
+    pages[phys, positions.long() % page_size] = new
+
+
 def _logits(model: Llama, x):
     x = _norm(model.cfg, x, model.final_norm)
     return qmat(x, model.head()).float()
@@ -399,6 +434,45 @@ def prefill_continue(
 
 
 @torch.no_grad()
+def mixed_step(
+    model: Llama,
+    tokens: torch.Tensor,  # [T] int — flat packed token buffer
+    row_slot: torch.Tensor,  # [T] int32 — page_table row per token; -1 = pad
+    positions: torch.Tensor,  # [T] int32 — absolute position per token
+    cache: Cache,  # written in place
+    page_table: torch.Tensor,  # [rows, pages] int32, may be a column slice
+) -> torch.Tensor:
+    """One token-packed mixed-batch step: prefill segments, suffix
+    continuations and decode rows of many sequences in one forward over a
+    flat buffer (the packed serving path). Each token's K/V is written
+    into its own sequence's pages first, then ragged paged attention
+    masks every row to its own sequence at positions <= its own — causal
+    prefill, suffix continuation and decode are the same mask.
+
+    Returns logits [T, vocab] fp32; the caller gathers the rows that
+    sample. Padding rows write only the null page and produce values
+    nobody reads."""
+    cfg = model.cfg
+    (T,) = tokens.shape
+    k_pages, v_pages = cache
+    targets = _row_targets(page_table, row_slot, positions, k_pages.shape[2])
+    pos = positions.long()[None]
+    x = _embed_tokens(model, tokens)  # [T, hidden]
+    for i in range(cfg.num_layers):
+        lp = model.layer(i)
+        h = _norm(cfg, x, lp["attn_norm"])
+        q, k, v = _project_qkv(model, lp, h[None], pos)
+        q, k, v = q[0], k[0], v[0]  # [T, heads/kvh, hd]
+        _scatter_rows(k_pages[i], k, targets)
+        _scatter_rows(v_pages[i], v, targets)
+        attn = ragged_paged_attention(
+            q, k_pages[i], v_pages[i], page_table, row_slot, positions
+        )
+        x = _layer_tail(model, lp, x, attn.reshape(T, cfg.q_dim))
+    return _logits(model, x)
+
+
+@torch.no_grad()
 def decode_step(
     model: Llama,
     tokens: torch.Tensor,  # [b] int — the latest token per sequence
@@ -410,12 +484,19 @@ def decode_step(
     """One decode step for the whole running batch; returns logits
     [b, vocab] fp32.
 
-    The reference's serving fast path (its inline, deferred-scatter
-    branch): attention reads the pool at positions < pos and takes the new
-    token's K/V inline, so all layers' cache writes defer to ONE write
-    after the layer loop. ``active`` masks rows of a frozen slot: their
-    K/V go to the null page, and their logits are values the caller
-    ignores."""
+    Two cache-write strategies, selected by ``cfg.attention_impl`` as in
+    the reference:
+
+    * ``"reference"`` — scatter each layer's new K/V into the pool, then
+      attend over positions < pos + 1 (:func:`_decode_step_scatter_first`);
+    * any other value — the serving fast path: attention reads the pool
+      at positions < pos and takes the new token's K/V inline, so all
+      layers' cache writes defer to ONE write after the layer loop.
+
+    ``active`` masks rows of a frozen slot: their K/V go to the null page,
+    and their logits are values the caller ignores."""
+    if model.cfg.attention_impl == "reference":
+        return _decode_step_scatter_first(model, tokens, positions, cache, page_table, active)
     cfg = model.cfg
     b = tokens.shape[0]
     k_pages, v_pages = cache
@@ -443,4 +524,32 @@ def decode_step(
         phys = torch.where(active, phys, 0)  # inactive rows: the null page
     k_pages[:, phys, slot] = k_all
     v_pages[:, phys, slot] = v_all
+    return _logits(model, x)
+
+
+def _decode_step_scatter_first(model, tokens, positions, cache, page_table, active=None):
+    """The reference's baseline decode step: each layer writes its new K/V
+    into the pool, then attends over the cache with ``seq_lens = pos + 1``
+    (:func:`~..ops.attention.paged_decode_attention`). Inactive rows write
+    the null page 0 (the reference drops them) and attend through their
+    unmasked table; their logits are ignored."""
+    cfg = model.cfg
+    b = tokens.shape[0]
+    k_pages, v_pages = cache
+    page_size = k_pages.shape[2]
+    seq_lens = positions + 1
+    table = page_table
+    if active is not None:
+        table = torch.where(active[:, None], page_table, 0)
+    x = _embed_tokens(model, tokens)  # [b, hidden]
+    pos2 = positions.long()[:, None]
+    for i in range(cfg.num_layers):
+        lp = model.layer(i)
+        h = _norm(cfg, x, lp["attn_norm"])
+        q, k, v = _project_qkv(model, lp, h[:, None, :], pos2)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
+        _scatter_decode(k_pages[i], k, table, positions, page_size)
+        _scatter_decode(v_pages[i], v, table, positions, page_size)
+        attn = paged_decode_attention(q, k_pages[i], v_pages[i], page_table, seq_lens)
+        x = _layer_tail(model, lp, x, attn.reshape(b, cfg.q_dim))
     return _logits(model, x)

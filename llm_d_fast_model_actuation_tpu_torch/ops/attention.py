@@ -1,5 +1,6 @@
-"""Attention ops of the serving path: causal prefill, inline paged decode,
-and paged suffix attention.
+"""Attention ops of the serving path: causal prefill, paged decode (inline
+and scatter-first), ragged paged attention over a token-packed buffer, and
+paged suffix attention.
 
 Shapes (per layer), as in the JAX package's ``ops/attention.py``:
   k_pages, v_pages: [num_pages, page_size, kv_heads, head_dim]
@@ -16,12 +17,21 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import causal_prefill_attention, paged_decode_attention_inline
+from .cuda import (
+    RAGGED_BLOCK,
+    causal_prefill_attention,
+    paged_decode_attention,
+    paged_decode_attention_inline,
+    ragged_paged_attention,
+)
 
 __all__ = [
+    "RAGGED_BLOCK",
     "causal_prefill_attention",
+    "paged_decode_attention",
     "paged_decode_attention_inline",
     "paged_suffix_attention",
+    "ragged_paged_attention",
 ]
 
 NEG_INF = -1e30

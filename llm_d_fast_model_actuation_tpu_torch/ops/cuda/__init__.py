@@ -6,11 +6,19 @@ function. A wrapper runs the plain version for CPU tensors and the kernel
 for CUDA tensors, and counts its kernel launches in ``launches``.
 """
 
+from .build import launch_probe, launch_probe_plain  # noqa: F401
 from .decode import (  # noqa: F401
+    paged_decode_attention,
     paged_decode_attention_inline,
     paged_decode_attention_inline_plain,
+    paged_decode_attention_plain,
 )
 from .prefill import (  # noqa: F401
     causal_prefill_attention,
     causal_prefill_attention_plain,
+)
+from .ragged import (  # noqa: F401
+    RAGGED_BLOCK,
+    ragged_paged_attention,
+    ragged_paged_attention_plain,
 )

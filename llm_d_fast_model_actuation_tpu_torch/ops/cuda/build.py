@@ -10,6 +10,11 @@ is reused. All sources compile in parallel, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc``.
+
+:func:`launch_probe` is the port of the JAX package's toolchain probe
+(``utils/compat.py:pallas_interpret_supported``): an ``[8, 128]`` float32
+copy through ``csrc/probe.cu``, which the engine launches once when it
+starts on the card (:func:`check_launch`). It is a check, not a switch.
 """
 
 from __future__ import annotations
@@ -24,11 +29,18 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: kernel library name -> source file under csrc/
-SOURCES = {"decode": "decode.cu", "prefill": "prefill.cu"}
+SOURCES = {
+    "decode": "decode.cu",
+    "prefill": "prefill.cu",
+    "ragged": "ragged.cu",
+    "probe": "probe.cu",
+}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -116,3 +128,46 @@ def library(name: str) -> ctypes.CDLL:
         built = build_all()
         lib = _loaded[name] = ctypes.CDLL(str(built[name].path))
     return lib
+
+
+PROBE_SHAPE = (8, 128)
+
+
+def launch_probe_plain(x: torch.Tensor) -> torch.Tensor:
+    """The probe kernel's function in plain PyTorch: a copy."""
+    return x.clone()
+
+
+def launch_probe(x: torch.Tensor) -> torch.Tensor:
+    """Copy an ``[8, 128]`` float32 tensor. A CPU tensor takes the plain
+    version; a CUDA tensor launches ``csrc/probe.cu`` or raises.
+    ``launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return launch_probe_plain(x)
+    if not x.is_cuda:
+        raise ValueError(f"x must be a CPU or CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32 or tuple(x.shape) != PROBE_SHAPE or not x.is_contiguous():
+        raise ValueError(f"the probe copies a contiguous {PROBE_SHAPE} float32 tensor")
+    out = torch.empty_like(x)
+    fn = library("probe").fma_copy_probe_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"probe kernel launch failed: CUDA error {err}")
+    launch_probe.launches += 1
+    return out
+
+
+launch_probe.launches = 0
+
+
+def check_launch(device: torch.device) -> None:
+    """Build this checkout's kernels if needed and launch the probe on
+    ``device``; raises unless the copy comes back equal. Nothing routes
+    on the result."""
+    x = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32, device=device)
+    x = x.reshape(PROBE_SHAPE)
+    if not torch.equal(launch_probe(x), x):
+        raise RuntimeError(f"the probe kernel's copy on {device} came back wrong")

@@ -22,7 +22,7 @@ import torch
 
 NEG_INF = -1e30
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def causal_prefill_attention_plain(

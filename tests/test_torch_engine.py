@@ -181,8 +181,31 @@ def test_engine_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_unported_engine_options_are_refused():
     _, tcfg = _cfgs()
-    for field in ("packed_serving", "speculative_ngram", "pipeline_decode"):
+    for field in ("speculative_ngram", "pipeline_decode"):
         with pytest.raises(TypeError):
             dataclasses.replace(tcfg, **{field: 1})
     with pytest.raises(ValueError):
         tllama.Llama(dataclasses.replace(tcfg.model, quantization="int8"), "cpu")
+    with pytest.raises(ValueError):
+        tengine.InferenceEngine(dataclasses.replace(tcfg, attention_impl="flash"), device="cpu")
+
+
+def test_packed_serving_option_reaches_the_engine():
+    from llm_d_fast_model_actuation_tpu_torch.engine import server
+
+    opts = "--model tiny --num-pages 32 --page-size 8 --max-batch 2 --max-model-len 64 --device cpu"
+    args = server.parse_engine_options(opts + " --packed-serving on --token-budget 40 --attention-impl reference")
+    svc = server.EngineService(args)
+    try:
+        cfg = svc.engine.cfg
+        assert cfg.packed_serving and cfg.token_budget == 40 and cfg.packed_token_budget == 40
+        assert svc.engine.model.cfg.attention_impl == "reference"  # the engine's flag wins
+        req = svc.submit(prompt=[1, 2, 3], max_new_tokens=3).result(timeout=60)
+        assert len(req.out_tokens) == 3
+        assert svc.engine.packed_steps > 0 and svc.engine.cold_prefills == 0
+    finally:
+        svc.shutdown()
+    assert server.parse_engine_options(opts).packed_serving == "off"
+    for bad in ("--packed-serving maybe", "--token-budget -1", "--attention-impl flash"):
+        with pytest.raises(ValueError):
+            server.parse_engine_options(opts + " " + bad)

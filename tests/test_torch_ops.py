@@ -27,8 +27,10 @@ from llm_d_fast_model_actuation_tpu.utils.compat import pallas_interpret_support
 from llm_d_fast_model_actuation_tpu_torch.ops import attention as tattn
 from llm_d_fast_model_actuation_tpu_torch.ops import norm as tnorm
 from llm_d_fast_model_actuation_tpu_torch.ops import rope as trope
+from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build as tbuild
 from llm_d_fast_model_actuation_tpu_torch.ops.cuda import decode as tdecode
 from llm_d_fast_model_actuation_tpu_torch.ops.cuda import prefill as tprefill
+from llm_d_fast_model_actuation_tpu_torch.ops.cuda import ragged as tragged
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -125,11 +127,31 @@ def test_wrappers_dispatch_by_device_and_count_only_kernel_launches():
     q = torch.zeros(1, 16, 2, 16)
     k = torch.zeros(1, 16, 2, 16)
     lens = torch.tensor([16], dtype=torch.int32)
-    before = tprefill.causal_prefill_attention.launches
-    tprefill.causal_prefill_attention(q, k, k, lens)
-    assert tprefill.causal_prefill_attention.launches == before
-    with pytest.raises(ValueError):
-        tprefill.causal_prefill_attention(q.to("meta"), k, k, lens)
+    pages = torch.zeros(3, 8, 2, 16)
+    table = torch.tensor([[1, 2]], dtype=torch.int32)
+    q8 = torch.zeros(8, 2, 16)
+    slots = torch.tensor([0] * 3 + [-1] * 5, dtype=torch.int32)
+    pos = torch.tensor([4, 5, 6] + [0] * 5, dtype=torch.int32)
+    probe = torch.zeros(8, 128)
+    calls = {
+        tprefill.causal_prefill_attention: (q, k, k, lens),
+        tdecode.paged_decode_attention_inline: (q[:, 0], pages, pages, k[:, 0], k[:, 0], table, lens),
+        tdecode.paged_decode_attention: (q[:, 0], pages, pages, table, lens),
+        tragged.ragged_paged_attention: (q8, pages, pages, table, slots, pos),
+        tbuild.launch_probe: (probe,),
+    }
+    counters = [(fn, fn.launches) for fn in calls]
+    for fn, args in calls.items():
+        fn(*args)
+        with pytest.raises(ValueError):
+            fn(args[0].to("meta"), *args[1:])
+    assert [fn.launches for fn, _ in counters] == [n for _, n in counters]
+    assert tragged.ragged_paged_attention.launches_by_rows == {}
+    # a packed buffer that is not RAGGED_BLOCK-aligned is refused, never
+    # served by another path
+    with pytest.raises(ValueError, match="RAGGED_BLOCK"):
+        tragged.ragged_paged_attention(q8[:6].to("meta"), pages, pages, table, slots[:6], pos[:6])
+    assert torch.equal(tbuild.launch_probe(probe + 3), probe + 3)
 
 
 def test_paged_suffix_attention_matches_jax():
