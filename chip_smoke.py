@@ -19,9 +19,13 @@ exits non-zero and never prints the final ``ok`` line):
      its plain version, one PyTorch library call and its bound: the
      inline and the scatter-first decode, prefill at every serve bucket,
      and ragged attention at both packed buffer shapes the packed serve
-     uses (256 and 72 rows); then, correctness only, the head dims, GQA
-     groups and page sizes of the other supported models, head_dim 256
-     (Gemma-3-4B) prefill included;
+     uses (256 and 72 rows), and there also the sharded ragged op (the
+     same kernel launched once per rank over the rank's heads) split over
+     two and over four ranks that share the card, against the unsharded
+     plain version and the unsharded kernel; then, correctness only, the
+     head dims, GQA groups and page sizes of the other supported models,
+     head_dim 256 (Gemma-3-4B) prefill included, and the per-rank head
+     counts of Llama-3-8B at tp 2 and 4 (16/4 and 8/2);
   4. serve   — the port's HTTP server in process, full-width full-depth
      llama3-8b with seeded random weights; four greedy completions
      (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then
@@ -35,20 +39,34 @@ exits non-zero and never prints the final ``ok`` line):
      memory freed: every packed step runs the ragged kernel in each layer,
      the prefill kernel never runs, the decode chunk runs the inline decode
      kernel; TTFT, TPOT and tok/s beside phase 4's;
-  7. serve_reference — the same traffic through a third server with
+  7. serve_tp2_packed — the same traffic through a server with
+     ``--tensor-parallel-size 2 --device cuda:0,cuda:0 --packed-serving
+     on``: two ranks on the one card, each with its half of every split
+     weight and its KV-head half of the page pool. Every
+     packed step runs the ragged kernel once per rank in each layer
+     through the sharded op, the unsharded op never runs; then one
+     level-1 sleep and wake (0 bytes reserved while asleep, the same
+     ``bytes_offloaded`` as one rank, identical tokens after the wake).
+     Two ranks on one card add launches and remove none, so its times
+     are for reading beside phase 6's, not a claim;
+  8. serve_reference — the same traffic through a server with
      ``--attention-impl reference``: every decode step runs the
      scatter-first decode kernel in each layer;
-  8. model_parity — on phase 7's weights at full width: ``mixed_step``
+  9. model_parity — on phase 8's weights at full width: ``mixed_step``
      over a 300-token prompt against ``prefill`` (last row's logits), and
      one scatter-first ``decode_step`` against the inline one on the same
-     state, each within a tolerance stated from bf16 rounding;
-  9. kernels line — every ported kernel with its TPU source and numbers,
+     state, each within a tolerance stated from bf16 rounding; then
+     phase 7's two-rank model (the same seed, so the same weights)
+     against the one-rank model: ``mixed_step`` and ``decode_step``;
+  10. kernels line — every ported kernel with its TPU source and numbers,
      one entry for each shape the serve runs launched it at (prefill by
      sequence bucket, ragged by buffer rows), with that shape's launches.
      Each serve phase sets every count to 0 just before it starts its
      server and reads them just after its traffic.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a card the
+With two or more cards the sharded ragged check also runs with its ranks
+on ``cuda:0,cuda:1`` and says so; with one it prints ``"two_cards": "not
+run"``. The last line is ``{"ok": true, "device": {...}}``. Without a card the
 script exits non-zero before printing any result. It imports nothing of
 JAX or of the JAX package.
 """
@@ -298,7 +316,87 @@ def pack(torch, segments, rows, dev):
     return slot.to(dev), pos.to(dev)
 
 
-def check_ragged(torch, gen) -> list:
+def check_ragged_sharded(torch, mod, row3: dict, args, out, ref, layers: int, devices: list) -> dict:
+    """The sharded ragged op on the inputs of ``check_ragged``'s case
+    ``row3``, split over ``len(devices)`` ranks: the same kernel once per
+    rank over the rank's query heads and KV-head slice of the pool. The
+    heads joined, it is held to the unsharded plain version ``ref`` on
+    every row (limit ``REL_TOL``) and to the unsharded kernel's ``out``
+    (bit-equal is expected: a head's arithmetic does not depend on the
+    rank that runs it; reported, and gated at the same limit).
+
+    Timed: one rank's launch alone, and all ranks' launches (ranks that
+    share a card run one after the other on its queue). The bound and the
+    library time are ``row3``'s: the ranks together move the same unique
+    bytes and do the same operations as the one launch."""
+    from llm_d_fast_model_actuation_tpu_torch.parallel.mesh import serving_mesh
+
+    tp = len(devices)
+    mesh = serving_mesh(tp, devices)
+    q, k_pool, v_pool, pt, slot, pos = args
+    h, kvh = q.shape[2], k_pool.shape[3]
+    hs, ks = h // tp, kvh // tp
+
+    def split(x, dim, n):  # per rank: all layers' slice, contiguous, on the rank's device
+        return [x.narrow(dim, r * n, n).to(mesh.devices[r]).contiguous() for r in range(tp)]
+
+    qs, kps, vps = split(q, 2, hs), split(k_pool, 3, ks), split(v_pool, 3, ks)
+    meta = [mesh.replicate(x) for x in (pt, slot, pos)]
+
+    def run(i):
+        outs = mod.ragged_paged_attention_sharded(
+            mesh, [x[i] for x in qs], [x[i] for x in kps], [x[i] for x in vps], *meta
+        )
+        for d in mesh.distinct_devices()[1:]:  # the timing events sit on card 0's stream
+            torch.cuda.current_stream(mesh.devices[0]).wait_stream(torch.cuda.current_stream(d))
+        return outs
+
+    before = mod.ragged_paged_attention_sharded.launches
+    outs = run(0)
+    torch.cuda.synchronize()
+    if mod.ragged_paged_attention_sharded.launches - before != tp:
+        raise AssertionError(f"the sharded ragged op did not launch the kernel once per rank (tp={tp})")
+    if any(o.device != mesh.devices[r] or tuple(o.shape) != (q.shape[1], hs, q.shape[3]) for r, o in enumerate(outs)):
+        raise AssertionError("a rank's output is not its head slice on its device")
+    joined = torch.cat([o.to(out.device) for o in outs], dim=1)
+    err, rel = errors(joined, ref)
+    err_k, rel_k = errors(joined, out)
+    if not (rel <= REL_TOL and rel_k <= REL_TOL):
+        raise AssertionError(f"sharded ragged (tp={tp}) disagrees at {row3['rows']} rows: plain {rel}, kernel {rel_k}")
+    it = iter(range(10**9))
+    ms_all = time_ms(lambda: run(next(it) % layers), 50)
+    ms_rank = time_ms(lambda: mod.ragged_paged_attention(
+        qs[0][(i := next(it) % layers)], kps[0][i], vps[0][i], meta[0][0], meta[1][0], meta[2][0]), 50)
+
+    def plain(i):
+        return mod.ragged_paged_attention_sharded_plain(
+            mesh, [x[i] for x in qs], [x[i] for x in kps], [x[i] for x in vps], *meta
+        )
+
+    plain_ms = time_ms(lambda: plain(next(it) % layers), 5)
+    two_cards = len(set(devices)) > 1
+    return {
+        "name": f"ragged_paged_attention_sharded[tp={tp},T={row3['rows']}]",
+        "route": "cuda",
+        "source": "llm_d_fast_model_actuation_tpu_torch/csrc/ragged.cu",
+        "replaces": "llm_d_fast_model_actuation_tpu/ops/pallas/ragged.py:244",
+        "rows": row3["rows"], "tp": tp, "devices": devices,
+        "shape": dict(row3["shape"], heads_per_rank=hs, kv_heads_per_rank=ks,
+                      blocks_per_launch=(row3["rows"] // 8) * ks),
+        "max_abs_err": err, "max_row_rel_err": rel,
+        "vs_unsharded_kernel": {"max_abs_err": err_k, "bit_equal": bool(torch.equal(joined, out))},
+        "ms": ms_all, "ms_one_rank": ms_rank, "unsharded_ms": row3["ms"], "plain_ms": plain_ms,
+        "bound_ms": row3["bound_ms"], "bound_by": row3["bound_by"],
+        "bound": "row 3's: the ranks together move the same unique bytes and do the same operations",
+        "library_ms": row3["library_ms"], "library": row3["library"],
+        "two_cards": "ran with the ranks on two cards" if two_cards else "not run",
+    }
+
+
+def check_ragged(torch, gen) -> tuple:
+    """The ragged kernel's rows, and the sharded ragged op's on the same
+    inputs (tp 2 and 4 on the one card; tp 2 across two cards where there
+    are two)."""
     from llm_d_fast_model_actuation_tpu_torch.engine.engine import kv_pages_bucket
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import ragged as mod
 
@@ -307,7 +405,7 @@ def check_ragged(torch, gen) -> list:
     dev = "cuda"
     bf16 = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out_rows = []
+    out_rows, sharded_rows = [], []
     for rows, segments in ragged_scenarios():
         # each sequence gets its own shuffled pages, as many as it needs
         need = {s: -(-(p0 + n) // ps) for s, p0, n in segments}
@@ -385,7 +483,14 @@ def check_ragged(torch, gen) -> list:
             "reread_bytes": reread, "library_ms": library_ms,
             "library": "scaled_dot_product_attention over the sequences padded to one batch, pre-gathered contiguous K/V (excludes the gather)",
         })
-    return out_rows
+        meshes = [["cuda:0"] * 2, ["cuda:0"] * 4]
+        if torch.cuda.device_count() >= 2:
+            meshes.append(["cuda:0", "cuda:1"])
+        for devices in meshes:
+            sharded_rows.append(check_ragged_sharded(
+                torch, mod, out_rows[-1], (q, k_pool, v_pool, pt, slot, pos), out, ref, layers, devices
+            ))
+    return out_rows, sharded_rows
 
 
 def ragged_case(torch, gen, h, kvh, d, ps):
@@ -408,14 +513,18 @@ def ragged_case(torch, gen, h, kvh, d, ps):
 
 def check_variants(torch, gen) -> list:
     """Correctness only, at small shapes: the head dims, GQA groups and
-    page sizes the main path does not use (other supported models)."""
+    page sizes the main path does not use (other supported models), and
+    the per-rank head counts of Llama-3-8B on a tensor-parallel mesh
+    (16/4 at tp 2, 8/2 at tp 4), which the model hands the decode and
+    prefill kernels rank by rank."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import decode, prefill
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
 
     out = []
-    for d, h, kvh, ps in ((64, 32, 4, 16), (256, 8, 4, 16), (128, 28, 4, 8), (128, 8, 8, 16)):
+    for d, h, kvh, ps in ((64, 32, 4, 16), (256, 8, 4, 16), (128, 28, 4, 8), (128, 8, 8, 16),
+                          (128, 16, 4, 16), (128, 8, 2, 16)):
         b, pps = 3, 20
         num_pages = b * pps + 1
         pt = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(2)) + 1)
@@ -433,7 +542,8 @@ def check_variants(torch, gen) -> list:
     # the last two: Gemma-3-4B's head_dim 256 with 8/4 heads, one short and
     # one long seq_len
     for d, h, kvh, s, lens in ((64, 32, 4, 128, [128, 70]), (128, 28, 4, 64, [1, 50]),
-                               (256, 8, 4, 64, [5, 64]), (256, 8, 4, 1024, [9, 1000])):
+                               (256, 8, 4, 64, [5, 64]), (256, 8, 4, 1024, [9, 1000]),
+                               (128, 16, 4, 512, [509, 33]), (128, 8, 2, 512, [509, 33])):
         args = (rnd(len(lens), s, h, d), rnd(len(lens), s, kvh, d), rnd(len(lens), s, kvh, d),
                 torch.tensor(lens, dtype=torch.int32, device="cuda"))
         err, rel = errors(prefill.causal_prefill_attention(*args),
@@ -442,7 +552,7 @@ def check_variants(torch, gen) -> list:
                     "seq": s, "seq_lens": lens, "max_abs_err": err, "max_row_rel_err": rel})
     # ragged: head dims 64 and 256, GQA groups 1, 2, 7 and 8, page size 8
     for d, h, kvh, ps in ((64, 32, 4, 16), (256, 8, 4, 16), (128, 28, 4, 8), (128, 8, 8, 16),
-                          (128, 32, 4, 8)):
+                          (128, 32, 4, 8), (128, 16, 4, 16), (128, 8, 2, 16)):
         err, rel = ragged_case(torch, gen, h, kvh, d, ps)
         out.append({"kernel": "ragged", "head_dim": d, "heads": h, "kv_heads": kvh,
                     "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
@@ -480,6 +590,7 @@ def kernel_wrappers() -> dict:
         "decode_scatter_first": decode.paged_decode_attention,
         "prefill": prefill.causal_prefill_attention,
         "ragged": ragged.ragged_paged_attention,
+        "ragged_sharded": ragged.ragged_paged_attention_sharded,
     }
 
 
@@ -489,6 +600,7 @@ def reset_counts() -> None:
         fn.launches = 0
     wrappers["prefill"].launches_by_seq.clear()
     wrappers["ragged"].launches_by_rows.clear()
+    wrappers["ragged_sharded"].launches_by_rows.clear()
 
 
 def read_counts() -> dict:
@@ -496,6 +608,7 @@ def read_counts() -> dict:
     counts = {k: fn.launches for k, fn in wrappers.items()}
     counts["prefill_by_seq"] = dict(wrappers["prefill"].launches_by_seq)
     counts["ragged_by_rows"] = dict(wrappers["ragged"].launches_by_rows)
+    counts["ragged_sharded_by_rows"] = dict(wrappers["ragged_sharded"].launches_by_rows)
     return counts
 
 
@@ -604,7 +717,7 @@ def serve_and_sleep(torch, smi: str) -> dict:
             raise AssertionError(f"decode kernel launches {counts['decode_inline']} != {L} x {steps} decode steps")
         if counts["prefill"] != L * colds or colds != 4:
             raise AssertionError(f"prefill kernel launches {counts['prefill']} != {L} x {colds} cold prefills (want 4)")
-        if counts["ragged"] or counts["decode_scatter_first"]:
+        if counts["ragged"] or counts["ragged_sharded"] or counts["decode_scatter_first"]:
             raise AssertionError(f"the bucketed path launched kernels off its path: {counts}")
         hits = eng.prefix_cache.stats()["hits"] if eng.prefix_cache else 0
         if hits < 1:
@@ -666,7 +779,8 @@ def serve_and_sleep(torch, smi: str) -> dict:
         })
         if get(port, "/health")["status"] != "OK":
             raise AssertionError("server is not healthy")
-        return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"]}
+        return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"],
+                "bytes_offloaded": nbytes}
     finally:
         stop_service(torch, service, server)
 
@@ -687,8 +801,8 @@ def serve_packed(torch, smi: str, bucketed: dict) -> dict:
         check_probe_launch(counts)
         if eng.packed_steps == 0 or counts["ragged"] != L * eng.packed_steps:
             raise AssertionError(f"ragged kernel launches {counts['ragged']} != {L} x {eng.packed_steps} packed steps (> 0)")
-        if counts["prefill"]:
-            raise AssertionError(f"the prefill kernel ran {counts['prefill']} times on the packed path")
+        if counts["prefill"] or counts["ragged_sharded"]:
+            raise AssertionError(f"the one-rank packed path launched kernels off its path: {counts}")
         if counts["decode_inline"] != L * eng.decode_steps or eng.decode_steps == 0:
             raise AssertionError(f"decode kernel launches {counts['decode_inline']} != {L} x {eng.decode_steps} decode steps")
         if eng.prefix_cache.stats()["hits"] < 1:
@@ -715,6 +829,95 @@ def serve_packed(torch, smi: str, bucketed: dict) -> dict:
         stop_service(torch, service, server)
 
 
+def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
+    """The serve phases' traffic through a tensor-parallel packed server:
+    two ranks, both on card 0. Then one level-1 sleep and wake. Returns
+    the phase's numbers and its (stopped) engine, whose two-rank model
+    the model-parity phase holds against the one-rank model."""
+    left_gib = free_memory(torch)
+    tp = 2
+    opts = ("--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --tensor-parallel-size 2 "
+            "--device cuda:0,cuda:0 --packed-serving on")
+    service, server, init_s = start_service(torch, opts)
+    port = server.server_address[1]
+    try:
+        eng = service.engine
+        L = eng.cfg.model.num_layers
+        if eng.mesh is None or eng.mesh.tp != tp or eng.mixed_impl != "ragged_sharded":
+            raise AssertionError("the server did not build a two-rank engine")
+        shard_shapes = [tuple(k.shape) for k, _ in eng.pool.shards]
+        wq = [tuple(m.layers["wq"].shape) for m in eng.model.ranks]
+        torch.cuda.reset_peak_memory_stats()
+        traffic = run_traffic(torch, port, eng.cfg.model.vocab_size)
+        counts = read_counts()
+        check_probe_launch(counts)  # two ranks, one distinct device: one probe
+        # read now: the sleep/wake probes below add steps of their own
+        steps, decode_steps, packed_tokens = eng.packed_steps, eng.decode_steps, eng.packed_tokens_total
+        h2d = dict(eng.step_h2d_bytes)
+        if steps == 0 or counts["ragged_sharded"] != tp * L * steps:
+            raise AssertionError(f"sharded ragged launches {counts['ragged_sharded']} != {tp} x {L} x {steps} packed steps (> 0)")
+        if counts["ragged"] or counts["prefill"] or counts["decode_scatter_first"]:
+            raise AssertionError(f"the two-rank packed path launched kernels off its path: {counts}")
+        if counts["decode_inline"] != tp * L * decode_steps or decode_steps == 0:
+            raise AssertionError(f"decode kernel launches {counts['decode_inline']} != {tp} x {L} x {decode_steps} decode steps")
+        if eng.prefix_cache.stats()["hits"] < 1:
+            raise AssertionError("the fifth request did not hit the prefix cache")
+        untimed = sorted(set(counts["ragged_sharded_by_rows"]) - set(RAGGED_ROWS))
+        if untimed:
+            raise AssertionError(f"the two-rank packed run launched ragged at untimed buffer sizes {untimed}")
+        same = sum(a == b for a, b in zip(traffic["tokens"], bucketed["tokens"]))
+        peak = torch.cuda.max_memory_allocated() / GIB
+        # one level-1 sleep and wake; the reference output is a repeat of
+        # request 1 on this same engine (a prefix-cache hit)
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
+        before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        info = post(port, "/sleep?level=1")
+        reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        if reserved != 0:
+            raise AssertionError(f"{reserved} bytes still reserved while the two-rank engine sleeps ({allocated} allocated)")
+        if info["bytes_offloaded"] != bucketed["bytes_offloaded"]:
+            raise AssertionError(
+                f"bytes_offloaded {info['bytes_offloaded']} at tp={tp} != {bucketed['bytes_offloaded']} at tp=1"
+            )
+        woke = post(port, "/wake_up")
+        after = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        if after != before:
+            raise AssertionError(f"tokens changed across the two-rank sleep/wake: {before[:8]} vs {after[:8]}")
+        if [tuple(k.shape) for k, _ in eng.pool.shards] != shard_shapes or any(
+            k.device != d or v.device != d for (k, v), d in zip(eng.pool.shards, eng.mesh.devices)
+        ):
+            raise AssertionError("a pool shard did not come back to its rank")
+        host_bytes = info["bytes_offloaded"] + sum(t.numel() * t.element_size() for t in eng.model.replicas())
+        emit({
+            "phase": "serve_tp2_packed", "model": "llama3-8b", "layers": L, "tp": tp,
+            "mesh": [str(d) for d in eng.mesh.devices], "mixed_impl": eng.mixed_impl,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "pool_shard_shapes": shard_shapes, "wq_shard_shapes": wq,
+            "allocated_before_gib": left_gib, "init_s": init_s, **traffic["summary"],
+            "tp1_packed": packed["summary"],
+            "packed_steps": steps, "packed_tokens_total": packed_tokens,
+            "decode_steps": decode_steps, "launches": counts,
+            "step_h2d_bytes": h2d,
+            "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
+            "prefix_cache": eng.prefix_cache.stats(), "peak_allocated_gib": peak,
+            "sleep_wake": {
+                "bytes_offloaded": info["bytes_offloaded"], "bytes_offloaded_tp1": bucketed["bytes_offloaded"],
+                "host_bytes_with_replicas": host_bytes,
+                "sleep_s": info["last_sleep_seconds"], "sleep_pin_s": service.sleeper.stats.last_pin_seconds,
+                "wake_s": woke["last_wake_seconds"],
+                "wake_gib_per_s": host_bytes / GIB / woke["last_wake_seconds"],
+                "reserved_while_asleep_bytes": reserved, "allocated_while_asleep_bytes": allocated,
+                "tokens_identical": True,
+            },
+            "note": "two ranks on one card add launches and remove none: times are for reading, not a claim",
+        })
+        if get(port, "/health")["status"] != "OK":
+            raise AssertionError("server is not healthy")
+        return {"counts": counts, "summary": traffic["summary"]}, eng
+    finally:
+        stop_service(torch, service, server)
+
+
 def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
     """The serve phase's traffic with ``--attention-impl reference``: the
     scatter-first decode branch. Returns the phase's numbers and its
@@ -733,7 +936,7 @@ def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
             raise AssertionError(
                 f"scatter-first decode launches {counts['decode_scatter_first']} != {L} x {eng.decode_steps} decode steps"
             )
-        if counts["decode_inline"] or counts["ragged"]:
+        if counts["decode_inline"] or counts["ragged"] or counts["ragged_sharded"]:
             raise AssertionError(f"the scatter-first path launched kernels off its path: {counts}")
         if counts["prefill"] != L * eng.cold_prefills or eng.cold_prefills != 4:
             raise AssertionError(f"prefill kernel launches {counts['prefill']} != {L} x {eng.cold_prefills} cold prefills (want 4)")
@@ -762,10 +965,17 @@ def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
 # branches differ only in the attention's order of summation, one bf16
 # rounding per layer: u * sqrt(32) = 2.2e-2, so the limit is 2e-2. Argmax
 # agreement is reported, not gated (bf16 near-ties can flip it).
-PARITY_TOL = {"mixed_vs_prefill": 5e-2, "scatter_first_vs_inline": 2e-2}
+#
+# Two ranks against one, on the same weights: every row-parallel product
+# (wo, w_down) is summed as two bf16 halves instead of one fp32
+# accumulation, one more bf16 rounding at each of the 64 reduces, so
+# u * sqrt(64) = 3.1e-2 if every one moved every value; the sum rounds the
+# way the single product does for most values, so the limit is 2e-2 for
+# mixed_step and for decode_step, and the argmax must agree.
+PARITY_TOL = {"mixed_vs_prefill": 5e-2, "scatter_first_vs_inline": 2e-2, "tp2_vs_tp1": 2e-2}
 
 
-def model_parity(torch, eng) -> dict:
+def model_parity(torch, eng, eng_tp2) -> dict:
     from llm_d_fast_model_actuation_tpu_torch.engine.engine import kv_pages_bucket, prefill_bucket
     from llm_d_fast_model_actuation_tpu_torch.models import llama
 
@@ -810,17 +1020,42 @@ def model_parity(torch, eng) -> dict:
         model.cfg = cfg
     torch.cuda.synchronize()
     dec = rel(lr, li)
+    # the two-rank model (same seed: its shards joined are these weights)
+    # on the same prompt and then the same decode step, with a pool split
+    # on its kv_heads axis
+    two = eng_tp2.model
+    tp = two.mesh.tp
+    wq2 = torch.cat([m.layers["wq"] for m in two.ranks], dim=-1)
+    head2 = torch.cat([m.lm_head for m in two.ranks], dim=-1)
+    if not (torch.equal(wq2, model.layers["wq"]) and torch.equal(head2, model.lm_head)):
+        raise AssertionError("the two-rank model's shards do not join to the one-rank model's weights")
+    del wq2, head2
+    shard_shape = shape[:3] + (cfg.num_kv_heads // tp,) + shape[4:]
+    pool2 = [tuple(torch.zeros(shard_shape, dtype=cfg.dtype, device=d) for _ in range(2)) for d in two.mesh.devices]
+    lm2 = llama.mixed_step(two, toks, slot, pos, pool2, pt)[n - 1]
+    try:
+        two.cfg = dataclasses.replace(two.cfg, attention_impl="grouped")
+        li2 = llama.decode_step(two, nxt, at, pool2, pt)[0]
+    finally:
+        two.cfg = eng_tp2.model_cfg
+    torch.cuda.synchronize()
+    tp_mixed, tp_dec = rel(lm2, lm), rel(li2, li)
     out = {
         "phase": "model_parity", "model": "llama3-8b", "prompt_tokens": n, "prefill_bucket": bucket,
         "tolerance_rel_l2": PARITY_TOL,
         "mixed_vs_prefill": {"rel_l2": mixed[0], "max_abs": mixed[1], "argmax_equal": mixed[2]},
         "scatter_first_vs_inline": {"rel_l2": dec[0], "max_abs": dec[1], "argmax_equal": dec[2]},
+        "tp2_vs_tp1_mixed_step": {"rel_l2": tp_mixed[0], "max_abs": tp_mixed[1], "argmax_equal": tp_mixed[2]},
+        "tp2_vs_tp1_decode_step": {"rel_l2": tp_dec[0], "max_abs": tp_dec[1], "argmax_equal": tp_dec[2]},
     }
     emit(out)
     if not mixed[0] <= PARITY_TOL["mixed_vs_prefill"]:
         raise AssertionError(f"mixed_step disagrees with prefill at full width: {mixed}")
     if not dec[0] <= PARITY_TOL["scatter_first_vs_inline"]:
         raise AssertionError(f"the scatter-first decode disagrees with the inline one: {dec}")
+    for what, got in (("mixed_step", tp_mixed), ("decode_step", tp_dec)):
+        if not (got[0] <= PARITY_TOL["tp2_vs_tp1"] and got[2]):
+            raise AssertionError(f"two ranks disagree with one rank in {what} at full width: {got}")
     return out
 
 
@@ -873,16 +1108,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = check_decode(torch, gen)
     pre = check_prefill(torch, gen)
-    rag = check_ragged(torch, gen)
-    for k in dec + pre + rag + [probe]:
+    rag, rag_sharded = check_ragged(torch, gen)
+    for k in dec + pre + rag + rag_sharded + [probe]:
         emit({"phase": "kernel", **k, "nvidia_smi": smi})
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
     bucketed = serve_and_sleep(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
+    tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)
-    model_parity(torch, eng)
-    del eng
-    runs = (bucketed["counts"], packed["counts"], reference["counts"])
+    model_parity(torch, eng, eng_tp2)
+    del eng, eng_tp2
+    runs = (bucketed["counts"], packed["counts"], tp2["counts"], reference["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)
@@ -900,9 +1136,15 @@ def main() -> int:
     for k in rag:  # one entry per buffer size the packed run launched
         if by_rows.get(k["rows"]):
             kernels.append(dict(k, launches=by_rows[k["rows"]]))
+    # the sharded ragged op: one entry per buffer size the two-rank run
+    # launched it at, at that run's mesh (two ranks on card 0)
+    sharded_by_rows = tp2["counts"]["ragged_sharded_by_rows"]
+    for k in rag_sharded:
+        if k["devices"] == ["cuda:0"] * 2 and sharded_by_rows.get(k["rows"]):
+            kernels.append(dict(k, launches=sharded_by_rows[k["rows"]]))
     kernels.append(dict(probe, launches=total("probe")))
     unused = [k["name"] for k in kernels if not k["launches"] > 0]
-    if unused or not by_rows:
+    if unused or not by_rows or not sharded_by_rows:
         raise AssertionError(f"kernels the serve runs never launched: {unused or 'ragged'}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,7 +10,10 @@ main serving path end to end:
   with ``nvcc`` at first use and bound with ``ctypes``);
 * the bucketed continuous-batching engine with prefix caching;
 * level-1 sleep/wake (weights and KV to pinned host memory and back);
-* a minimal standard-library HTTP server (``engine/server.py``).
+* a minimal standard-library HTTP server (``engine/server.py``);
+* tensor-parallel serving (``parallel/mesh.py``): one process drives
+  ``tp`` ranks, each with its slice of the weights and of the KV cache,
+  and the ragged kernel is launched once per rank over its heads.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); with no card and no explicit CPU request they raise.

@@ -46,6 +46,17 @@
 // 8-row blocks of one sequence in one CUDA block) and the next tile's
 // copies in flight while this one is computed (a ring of tiles, TMA).
 // Both are later work: a tile's copies and its products do not overlap.
+//
+// On a tensor-parallel mesh the same kernel also replaces
+//   ragged.py:ragged_paged_attention_pallas_sharded
+// (the kernel under shard_map over the tp axis): ops/cuda/ragged.py
+// launches it once per rank, on the rank's device, with num_heads and
+// num_kv_heads the RANK's (Llama-3-8B: 16/4 at tp 2, 8/2 at tp 4) over the
+// rank's KV-head slice of the pool. Nothing here knows of ranks: a KV
+// head's softmax is complete inside its block, so no rank needs another's
+// data. The grid shrinks by tp per launch (T/8 x kv_heads/tp blocks), and
+// a launch's time is set by its longest block, so one rank's launch takes
+// well over 1/tp of the whole (0.61 of 0.89 ms at tp 2, 256 rows, H100).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -30,10 +30,19 @@ slot are already zero on the device, because its retire was uploaded in
 full. (The reference zeroes them in the mixed program, ``fresh_on``,
 because its retires leave them stale.)
 
+Tensor parallelism: ``InferenceEngine(cfg, mesh=...)`` (a
+``parallel/mesh.py:TpMesh``) builds the model and the page pool sharded
+over the mesh's ranks and drives all of them from this one process, one
+scheduler and one engine object, as the reference's single-process mesh
+does. The scheduler state is REPLICATED: what the forwards read (page
+table, tokens, positions) is uploaded once per distinct device of the
+mesh, everything else (counts, bias, sampling knobs) lives on rank 0's
+device, where the gathered logits are sampled.
+
 Not ported yet, and refused rather than ignored (they are not fields of
 the port's ``EngineConfig``): speculative decoding, pipelined decode,
-co-resident variants, parking and migration, multi-host lockstep, AOT
-executables and meshes. CUDA graphs for the chunk are later work.
+co-resident variants, parking and migration, multi-host lockstep and AOT
+executables. CUDA graphs for the chunk are later work.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ import torch
 
 from ..models import llama
 from ..models.registry import init_params_for
-from ..ops.attention import RAGGED_BLOCK
+from ..ops.attention import RAGGED_BLOCK, resolve_ragged_impl
 from .device import resolve_device
 from .kv_cache import OutOfPages, PageAllocator, PagePool
 from .sampling import gumbel, noise_width, sample
@@ -259,21 +268,38 @@ class EngineAsleep(RuntimeError):
 
 
 class InferenceEngine:
-    """Continuous-batching engine on one device.
+    """Continuous-batching engine on one device, or on a tensor-parallel
+    mesh of them.
 
     ``params``: None (random init from ``seed``, drawn on the device), a
     :class:`~..models.llama.Llama` already on the device, or a state dict
-    (``models/convert.py:params_from_jax``). ``device``: None means the
-    card and raises without one; the CPU must be asked for."""
+    (``models/convert.py:params_from_jax``); with a ``mesh`` a
+    :class:`~..models.llama.ShardedLlama` on it or its state dict
+    (``params_from_jax(..., mesh=)``). ``device``: None means the card
+    and raises without one; the CPU must be asked for. ``mesh``
+    (``parallel/mesh.py:serving_mesh``) names the ranks' devices itself:
+    rank 0's is the engine's ``device``."""
 
     def __init__(
         self,
         cfg: EngineConfig,
-        params: "llama.Llama | Dict[str, torch.Tensor] | None" = None,
+        params: "llama.Llama | llama.ShardedLlama | Dict[str, torch.Tensor] | None" = None,
         seed: int = 0,
         device: "torch.device | str | None" = None,
+        mesh=None,
     ) -> None:
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None:
+                dev, rank0 = torch.device(device), mesh.devices[0]
+                if dev.type != rank0.type or dev.index not in (None, rank0.index):
+                    raise ValueError(f"device {device} is not rank 0 of {mesh}; leave it out with a mesh")
+            for d in mesh.distinct_devices():
+                resolve_device(d)
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        #: devices beyond the first that every replicated upload also goes to
+        self._extra_devices = len(mesh.distinct_devices()) - 1 if mesh is not None else 0
         if cfg.token_budget < 0:
             raise ValueError("token_budget must be >= 0, or 0 for auto")
         self.cfg = cfg
@@ -287,15 +313,23 @@ class InferenceEngine:
         #: resolved ``attention_impl``)
         self.model_cfg = m
         self._seed = seed
-        if self.device.type == "cuda":
-            # build this checkout's kernels (if needed) and launch the
-            # probe once; raises if the card cannot run them
-            from ..ops.cuda.build import check_launch
+        #: what the packed step's attention runs as: "ragged", or on a
+        #: mesh "ragged_sharded" (the kernel once per rank)
+        self.mixed_impl = resolve_ragged_impl(impl, mesh)
+        for d in [self.device] if mesh is None else mesh.distinct_devices():
+            if d.type == "cuda":
+                # build this checkout's kernels (if needed) and launch the
+                # probe once per device; raises if the card cannot run them
+                from ..ops.cuda.build import check_launch
 
-            check_launch(self.device)
+                check_launch(d)
         if params is None:
             self.model = self.init_model()
-        elif isinstance(params, llama.Llama):
+        elif isinstance(params, (llama.Llama, llama.ShardedLlama)):
+            if isinstance(params, llama.ShardedLlama) != (mesh is not None) or (
+                mesh is not None and params.mesh.devices != mesh.devices
+            ):
+                raise ValueError("the model's mesh differs from the engine's")
             if params.device != self.device:
                 raise ValueError(f"model is on {params.device}, engine on {self.device}")
             if dataclasses.replace(params.cfg, attention_impl=impl) != m:
@@ -303,11 +337,11 @@ class InferenceEngine:
             params.cfg = m
             self.model = params
         else:
-            self.model = llama.Llama(m, self.device)
+            self.model = llama.Llama(m, self.device) if mesh is None else llama.ShardedLlama(m, mesh)
             self.model.load_state_dict(params, strict=True)
         self.pool = PagePool.create(
             m.num_layers, cfg.num_pages, cfg.page_size, m.num_kv_heads,
-            m.head_dim, dtype=m.dtype, device=self.device,
+            m.head_dim, dtype=m.dtype, device=self.device, mesh=mesh,
         )
         self.allocator = PageAllocator(cfg.num_pages)
         if cfg.prefix_caching:
@@ -366,12 +400,12 @@ class InferenceEngine:
         #: True while a SleepManager holds the state offloaded (engine/sleep.py)
         self.asleep = False
 
-    def init_model(self) -> llama.Llama:
+    def init_model(self) -> "llama.Llama | llama.ShardedLlama":
         """Fresh random parameters from the engine seed (also the level-2
-        wake's reinit)."""
+        wake's reinit); on a mesh the same numbers, sliced per rank."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._seed)
-        return init_params_for(self.model_cfg, gen, self.device)
+        return init_params_for(self.model_cfg, gen, self.device, mesh=self.mesh)
 
     # -- device scheduler state ---------------------------------------------
 
@@ -379,6 +413,23 @@ class InferenceEngine:
         # always a copy: on the CPU a plain .to() would alias the host
         # mirror, and the chunk updates its device state in place
         return torch.from_numpy(a).to(self.device, copy=True)
+
+    def _to_ranks(self, a: np.ndarray):
+        """A host array as a REPLICATED input of the model's forwards: on
+        a mesh one upload per distinct device, handed out per rank (ranks
+        on one device share the tensor); without one, the tensor."""
+        if self.mesh is None:
+            return self._to_dev(a)
+        copies = {d: torch.from_numpy(a).to(d, copy=True) for d in self.mesh.distinct_devices()}
+        return [copies[d] for d in self.mesh.devices]
+
+    def _table(self, cols: Optional[int] = None):
+        """The device page table as the forwards take it, optionally cut
+        to its first ``cols`` columns."""
+        pt = self._dev["pt"]
+        if cols is None:
+            return pt
+        return pt[:, :cols] if self.mesh is None else [p[:, :cols] for p in pt]
 
     def _upload_sched(self) -> None:
         """Push the host scheduler mirrors to the device."""
@@ -395,8 +446,11 @@ class InferenceEngine:
             "eos_on": self._eos_on,
             "bias": self._bias,
         }
-        self._dev = {k: self._to_dev(v) for k, v in mirrors.items()}
-        self.step_h2d_bytes[self._h2d_path] += sum(a.nbytes for a in mirrors.values())
+        self._dev = {k: self._to_dev(v) for k, v in mirrors.items() if k != "pt"}
+        self._dev["pt"] = self._to_ranks(self._page_table)
+        self.step_h2d_bytes[self._h2d_path] += (
+            sum(a.nbytes for a in mirrors.values()) + self._extra_devices * self._page_table.nbytes
+        )
         self._dirty = False
 
     @property
@@ -596,11 +650,11 @@ class InferenceEngine:
         self._count_bucketed(bucket, len(seg))
         return llama.prefill_continue(
             self.model,
-            self._to_dev(tokens),
-            self._to_dev(np.array([start_pos], dtype=np.int32)),
-            self._to_dev(np.array([len(seg)], dtype=np.int32)),
+            self._to_ranks(tokens),
+            self._to_ranks(np.array([start_pos], dtype=np.int32)),
+            self._to_ranks(np.array([len(seg)], dtype=np.int32)),
             self.pool.as_tuple(),
-            self._to_dev(self._page_table[req.slot : req.slot + 1]),
+            self._to_ranks(self._page_table[req.slot : req.slot + 1]),
         )
 
     def _count_bucketed(self, bucket: int, n: int) -> None:
@@ -620,10 +674,10 @@ class InferenceEngine:
             self._count_bucketed(bucket, n)
             logits = llama.prefill(
                 self.model,
-                self._to_dev(tokens),
-                self._to_dev(np.array([n], dtype=np.int32)),
+                self._to_ranks(tokens),
+                self._to_ranks(np.array([n], dtype=np.int32)),
                 self.pool.as_tuple(),
-                self._to_dev(self._page_table[req.slot : req.slot + 1]),
+                self._to_ranks(self._page_table[req.slot : req.slot + 1]),
             )
             last = n
         else:
@@ -882,12 +936,15 @@ class InferenceEngine:
         elif admitted:
             # the admissions wrote page-table rows; their slots' count and
             # bias rows are zero on the device since their last retire
-            self._dev["pt"] = self._to_dev(self._page_table)
-            self.step_h2d_bytes["packed"] += self._page_table.nbytes
+            self._dev["pt"] = self._to_ranks(self._page_table)
+            self.step_h2d_bytes["packed"] += (1 + self._extra_devices) * self._page_table.nbytes
         sampled = [s for s in range(b) if sample_on[s] and self._temps[s] > 0]
         per_step = (tokens[:shape], row_slot[:shape], positions[:shape], count_row[:shape],
                     sample_rows, sample_on, self._temps, self._topps, self._pres, self._freqs)
-        self.step_h2d_bytes["packed"] += sum(a.nbytes for a in per_step)
+        # tokens, row_slot and positions go to every device of a mesh
+        self.step_h2d_bytes["packed"] += (
+            sum(a.nbytes for a in per_step) + self._extra_devices * sum(a.nbytes for a in per_step[:3])
+        )
         out = self._mixed(shape, kvp, *per_step, sampled)
         tok_h, lp_h = out[0].cpu().numpy(), out[1].cpu().numpy()
         av_h = ai_h = None
@@ -957,14 +1014,16 @@ class InferenceEngine:
         Only the ``sampled`` slots draw from their generators."""
         d = self._dev
         b = self.cfg.max_batch
-        tok_d, slot_d, pos_d = self._to_dev(tokens), self._to_dev(row_slot), self._to_dev(positions)
+        tok_r, slot_r, pos_r = self._to_ranks(tokens), self._to_ranks(row_slot), self._to_ranks(positions)
+        # rank 0's copies: the counts live beside the sampler
+        tok_d, slot_d = (tok_r, slot_r) if self.mesh is None else (tok_r[0], slot_r[0])
         counts, bias = d["counts"], d["bias"]
         # padding and decode rows add 0 (to row 0), so nothing syncs
         counts.index_put_(
             (slot_d.long().clamp(min=0), tok_d.long()), self._to_dev(count_row), accumulate=True
         )
         logits = llama.mixed_step(
-            self.model, tok_d, slot_d, pos_d, self.pool.as_tuple(), d["pt"][:, :kvp]
+            self.model, tok_r, slot_r, pos_r, self.pool.as_tuple(), self._table(kvp)
         )
         out = sample(
             logits[self._to_dev(sample_rows).long()],
@@ -1000,7 +1059,7 @@ class InferenceEngine:
         for _ in range(T):
             active = budget > 0
             self.decode_steps += 1
-            logits = llama.decode_step(self.model, lt, pos, self.pool.as_tuple(), d["pt"], active)
+            logits = llama.decode_step(self.model, lt, pos, self.pool.as_tuple(), self._table(), active)
             out = sample(
                 logits, d["temps"],
                 self._draw_noise(sampled, b) if sampled else None,

@@ -4,12 +4,19 @@ Pool layout (per k and v): ``[num_layers, num_pages, page_size, kv_heads,
 head_dim]`` — the reference's layout, one tensor for all layers so the
 whole pool moves device<->host in one transfer on sleep/wake, and a
 layer's pages are the view ``k_pages[l]``.
+
+On a tensor-parallel mesh the pool is split on its kv_heads axis, as the
+reference shards it (``P(None, None, None, "tp", None)``): one
+``[L, pages, page_size, kv_heads/tp, head_dim]`` pair per rank, each a
+contiguous allocation of its own on the rank's device. The shape and byte
+helpers keep reporting the GLOBAL figures; the allocator, the page table
+and the prefix cache stay single and host-side.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,6 +25,9 @@ import torch
 class PagePool:
     k_pages: Optional[torch.Tensor]
     v_pages: Optional[torch.Tensor]
+    #: on a mesh: every rank's (k, v) pair in rank order, and ``k_pages``/
+    #: ``v_pages`` are rank 0's; None on one device
+    shards: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
 
     @staticmethod
     def pool_shape(
@@ -70,18 +80,40 @@ class PagePool:
         head_dim: int,
         dtype: torch.dtype = torch.bfloat16,
         device: "torch.device | str" = "cpu",
+        mesh=None,
     ) -> "PagePool":
-        shape = cls.pool_shape(num_layers, num_pages, page_size, num_kv_heads, head_dim)
-        return cls(
-            k_pages=torch.zeros(shape, dtype=dtype, device=device),
-            v_pages=torch.zeros(shape, dtype=dtype, device=device),
-        )
+        """A zero pool on ``device``, or with a ``mesh``
+        (``parallel/mesh.py:TpMesh``) one kv_heads/tp slice per rank on the
+        rank's device."""
+        if mesh is None:
+            shape = cls.pool_shape(num_layers, num_pages, page_size, num_kv_heads, head_dim)
+            return cls(
+                k_pages=torch.zeros(shape, dtype=dtype, device=device),
+                v_pages=torch.zeros(shape, dtype=dtype, device=device),
+            )
+        if num_kv_heads % mesh.tp:
+            raise ValueError(f"num_kv_heads={num_kv_heads} is not divisible by tensor_parallel_size {mesh.tp}")
+        shape = cls.pool_shape(num_layers, num_pages, page_size, num_kv_heads // mesh.tp, head_dim)
+        shards = [
+            (torch.zeros(shape, dtype=dtype, device=d), torch.zeros(shape, dtype=dtype, device=d))
+            for d in mesh.devices
+        ]
+        return cls(k_pages=shards[0][0], v_pages=shards[0][1], shards=shards)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the pool: k then v, rank by rank."""
+        if self.shards is None:
+            return [self.k_pages, self.v_pages]
+        return [t for pair in self.shards for t in pair]
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.k_pages, self.v_pages))
+        """Bytes the pool holds over all ranks: the global figure."""
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
-    def as_tuple(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.k_pages, self.v_pages
+    def as_tuple(self) -> "Tuple[torch.Tensor, torch.Tensor] | Sequence[Tuple[torch.Tensor, torch.Tensor]]":
+        """What the model's forwards take as ``cache``: the (k, v) pair, or
+        on a mesh one pair per rank."""
+        return (self.k_pages, self.v_pages) if self.shards is None else self.shards
 
 
 class OutOfPages(Exception):

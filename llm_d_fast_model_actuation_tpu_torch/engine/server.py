@@ -8,7 +8,11 @@ server.py``: one engine thread fed by a submit queue, and the routes
        non-streaming)
 
 with the reference's flag names for the flags it keeps, among them
-``--packed-serving on|off``, ``--token-budget`` and ``--attention-impl``.
+``--packed-serving on|off``, ``--token-budget``, ``--attention-impl`` and
+``--tensor-parallel-size N`` (one process drives the ``N`` ranks; with it
+``--device`` takes a comma-separated list of ``N`` devices, which may name
+one device more than once, and a single ``cuda`` means the first ``N``
+cards).
 The completion response has the reference's JSON keys; its ``text`` is
 the reference's no-tokenizer (byte-level) decoding of the token ids. Not
 ported yet, and answered with a 400 that says so: string prompts (they
@@ -16,11 +20,13 @@ need the tokenizer), ``stream``, ``echo``, ``logprobs``, string stops, and
 the other routes of the reference (chat, metrics, swap, ...). Not ported
 yet and absent from the options: the reference's other engine flags
 (``--pipeline-decode``, ``--speculative-ngram``, ``--quantization``,
-``--sleep-quant``, ``--resident-variants``, ``--tensor-parallel-size``,
-multi-host gangs, ...).
+``--sleep-quant``, ``--resident-variants``, multi-host gangs, ...), also
+where the reference combines them with tensor parallelism.
 
 Run: ``python -m llm_d_fast_model_actuation_tpu_torch.engine.server
---model llama3-8b`` (on the card; ``--device cpu`` to run on the CPU).
+--model llama3-8b`` (on the card; ``--device cpu`` to run on the CPU;
+``--tensor-parallel-size 2`` on two cards, or with ``--device
+cuda:0,cuda:0`` as two ranks on one).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..models import llama
+from ..parallel.mesh import serving_mesh
 from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
 from .kv_cache import PageAllocator
 from .sleep import attach_sleep, fresh_state
@@ -99,7 +106,17 @@ def make_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--device", default="cuda",
+        help="cuda (default) or cpu; with --tensor-parallel-size N > 1 also a "
+        "comma-separated list of N devices, one per rank (a device may repeat: "
+        "cuda:0,cuda:0), where a single cuda means the first N cards",
+    )
+    p.add_argument(
+        "--tensor-parallel-size", type=int, default=1,
+        help="shard the model and the KV cache over this many ranks, all "
+        "driven by this one process",
+    )
     p.add_argument(
         "--attention-impl", default="auto", choices=list(ATTENTION_IMPLS),
         help="decode cache-write strategy: reference = scatter-first, "
@@ -137,6 +154,28 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError(f"unknown model {args.model!r}; known: {sorted(MODEL_CONFIGS)}")
     if args.token_budget < 0:
         raise ValueError("--token-budget must be >= 0, or 0 for auto")
+    if args.tensor_parallel_size < 1:
+        raise ValueError("--tensor-parallel-size must be >= 1")
+    devices = args.device.split(",")
+    if len(devices) > 1 and len(devices) != args.tensor_parallel_size:
+        raise ValueError(
+            f"--device names {len(devices)} devices for --tensor-parallel-size "
+            f"{args.tensor_parallel_size}"
+        )
+
+
+def mesh_from_options(args: argparse.Namespace):
+    """The tensor-parallel mesh the options ask for; None for one rank. A
+    device list is taken as given; a single ``cuda`` means the first N
+    cards and raises when there are fewer; a single other device is every
+    rank's."""
+    tp = args.tensor_parallel_size
+    if tp == 1:
+        return None
+    devices = args.device.split(",")
+    if len(devices) == 1:
+        devices = None if devices[0] == "cuda" else devices * tp
+    return serving_mesh(tp, devices)
 
 
 def byte_text(ids: List[int]) -> str:
@@ -164,7 +203,10 @@ class EngineService:
             packed_serving=args.packed_serving == "on",
             token_budget=args.token_budget,
         )
-        self.engine = InferenceEngine(self.cfg, seed=args.seed, device=args.device)
+        mesh = mesh_from_options(args)
+        self.engine = InferenceEngine(
+            self.cfg, seed=args.seed, device=args.device if mesh is None else None, mesh=mesh
+        )
         self.sleeper = attach_sleep(self.engine)
         self.failure: Optional[str] = None
         self._mu = threading.Lock()  # guards the two queues below

@@ -16,6 +16,15 @@ restore swap each tensor's storage (``t.data = ...``), so the model
 module, its ``Parameter`` objects and the engine's pool references stay
 valid, and nothing that holds them has to be rebuilt.
 
+**Meshes.** The state of an engine on a tensor-parallel mesh is every
+rank's tensors. Each shard goes to a pinned host tensor of its own and
+comes back to the device, and into the tensor object, it left: no
+resharding and no gather, each card's shard moves independently (one copy
+stream per device). ``bytes_offloaded`` is the state's GLOBAL size, as the
+reference's is (a sharded ``jax.Array``'s ``nbytes``): a replicated
+parameter (a norm) is moved once per rank but counted once, so a model
+reports the same figure at any ``tp``.
+
 **Chunked transfers** (``bucket_bytes``): the flattened state is split into
 size-bounded buckets of whole tensors and moved bucket by bucket, each
 bucket's source freed as soon as it lands. ``None`` = one bucket.
@@ -107,11 +116,17 @@ class SleepManager:
         set_state: Callable[[Any], None],
         device: torch.device,
         bucket_bytes: Optional[int] = None,
+        replicas: Optional[Callable[[], Sequence[torch.Tensor]]] = None,
     ) -> None:
         self._get_state = get_state
         self._set_state = set_state
+        #: the engine's (rank 0's) device; each tensor moves to and from
+        #: the device it lives on
         self.device = torch.device(device)
         self.bucket_bytes = bucket_bytes
+        #: tensors of the state that repeat another of it on a further
+        #: rank: moved like any, left out of ``bytes_offloaded``
+        self._replicas = replicas
         self._level = SleepLevel.AWAKE
         self._state: Any = None
         self._leaves: Optional[List[torch.Tensor]] = None
@@ -119,8 +134,8 @@ class SleepManager:
         self._specs: List[tuple] = []
         self._host: Optional[List[torch.Tensor]] = None
         self._cuda = self.device.type == "cuda"
-        #: the dedicated copy stream of both transfer directions
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        #: the dedicated copy stream of both transfer directions, per device
+        self._streams: Dict[torch.device, Any] = {}
         self.stats = _Stats()
 
     @property
@@ -135,8 +150,32 @@ class SleepManager:
     def devices_released(self) -> bool:
         return False  # device release is not ported yet
 
-    def _empty(self, t: torch.Tensor) -> torch.Tensor:
-        return torch.empty(0, dtype=t.dtype, device=self.device)
+    @staticmethod
+    def _empty(t: torch.Tensor) -> torch.Tensor:
+        return torch.empty(0, dtype=t.dtype, device=t.device)
+
+    def _copy(self, pairs: Sequence[tuple]) -> None:
+        """``dst.copy_(src)`` for every pair. On the card, each device's
+        copies run on its copy stream, after every write queued on that
+        device before the call, and have landed when this returns."""
+        if not self._cuda:
+            for dst, src in pairs:
+                dst.copy_(src)
+            return
+        by_device: Dict[torch.device, List[tuple]] = {}
+        for dst, src in pairs:
+            dev = dst.device if dst.is_cuda else src.device
+            by_device.setdefault(dev, []).append((dst, src))
+        for dev, items in by_device.items():
+            stream = self._streams.get(dev)
+            if stream is None:
+                stream = self._streams[dev] = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                for dst, src in items:
+                    dst.copy_(src, non_blocking=True)
+        for dev in by_device:
+            self._streams[dev].synchronize()
 
     def _offload(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
         """Device -> pinned host, bucket by bucket; each bucket's device
@@ -150,16 +189,7 @@ class SleepManager:
                     leaves[i].shape, dtype=leaves[i].dtype, pin_memory=self._cuda
                 )
             self.stats.last_pin_seconds += time.monotonic() - t_pin
-            if self._cuda:
-                # the copies must see every write queued before the sleep
-                self._stream.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(self._stream):
-                    for i in bucket:
-                        host[i].copy_(leaves[i], non_blocking=True)
-                self._stream.synchronize()
-            else:
-                for i in bucket:
-                    host[i].copy_(leaves[i])
+            self._copy([(host[i], leaves[i]) for i in bucket])
             for i in bucket:
                 leaves[i].data = self._empty(leaves[i])
         return host
@@ -170,18 +200,14 @@ class SleepManager:
         self.stats.last_alloc_seconds = 0.0
         for bucket in partition_buckets([_nbytes(t) for t in host], self.bucket_bytes):
             t_alloc = time.monotonic()
-            # allocated on the current stream, which uses them next
-            dev = {i: torch.empty(host[i].shape, dtype=host[i].dtype, device=self.device) for i in bucket}
+            # allocated on the current stream, which uses them next; each
+            # on the device its (emptied) tensor object stayed on
+            dev = {
+                i: torch.empty(host[i].shape, dtype=host[i].dtype, device=leaves[i].device)
+                for i in bucket
+            }
             self.stats.last_alloc_seconds += time.monotonic() - t_alloc
-            if self._cuda:
-                self._stream.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(self._stream):
-                    for i in bucket:
-                        dev[i].copy_(host[i], non_blocking=True)
-                self._stream.synchronize()
-            else:
-                for i in bucket:
-                    dev[i].copy_(host[i])
+            self._copy([(dev[i], host[i]) for i in bucket])
             for i in bucket:
                 leaves[i].data = dev[i]
                 host[i] = None
@@ -202,7 +228,8 @@ class SleepManager:
         self._state = self._get_state()
         leaves = self._leaves = flatten_state(self._state)
         self._specs = [(t.shape, t.dtype) for t in leaves]
-        nbytes = sum(_nbytes(t) for t in leaves)
+        repeated = {id(t) for t in self._replicas()} if self._replicas else set()
+        nbytes = sum(_nbytes(t) for t in leaves if id(t) not in repeated)
         if level == SleepLevel.L1_HOST_OFFLOAD:
             self._host = self._offload(leaves)
         else:
@@ -277,7 +304,7 @@ def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:
     def get_state():
         return {
             "params": dict(engine.model.named_parameters()),
-            "kv": engine.pool.as_tuple(),
+            "kv": engine.pool.tensors(),
         }
 
     def set_state(state):
@@ -289,17 +316,19 @@ def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:
             engine.model.build_tables()
             engine.asleep = False
 
-    return SleepManager(get_state, set_state, engine.device, bucket_bytes=bucket_bytes)
+    replicas = getattr(engine.model, "replicas", None)  # a sharded model's repeated norms
+    return SleepManager(get_state, set_state, engine.device, bucket_bytes=bucket_bytes, replicas=replicas)
 
 
 def fresh_state(engine) -> Dict[str, Any]:
     """A level-2 wake's reinit for ``engine``: parameters drawn anew from
     the engine seed and a zero pool, in ``attach_sleep``'s structure."""
     model = engine.init_model()
-    k, v = engine.pool.k_pages, engine.pool.v_pages
+    tp = engine.mesh.tp if engine.mesh is not None else 1
     shape = tuple(engine.pool.pool_shape(
         engine.cfg.model.num_layers, engine.cfg.num_pages, engine.cfg.page_size,
-        engine.cfg.model.num_kv_heads, engine.cfg.model.head_dim,
+        engine.cfg.model.num_kv_heads // tp, engine.cfg.model.head_dim,
     ))
-    zeros = lambda t: torch.zeros(shape, dtype=t.dtype, device=engine.device)  # noqa: E731
-    return {"params": dict(model.named_parameters()), "kv": (zeros(k), zeros(v))}
+    # the slept pool's tensors are empty but keep their dtype and device
+    kv = [torch.zeros(shape, dtype=t.dtype, device=t.device) for t in engine.pool.tensors()]
+    return {"params": dict(model.named_parameters()), "kv": kv}

@@ -14,7 +14,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .llama import LlamaConfig
+from ..parallel.mesh import shard
+from .llama import LlamaConfig, param_tp_dims
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -32,22 +33,38 @@ def _leaf(a: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree: Dict[str, Any], device: "torch.device | str" = "cpu") -> Dict[str, torch.Tensor]:
+def params_from_jax(
+    tree: Dict[str, Any],
+    device: "torch.device | str" = "cpu",
+    mesh=None,
+    cfg: "LlamaConfig | None" = None,
+) -> Dict[str, torch.Tensor]:
     """The reference's parameter pytree (numpy leaves) -> a state dict
     for :class:`~.llama.Llama` (``layers.<name>`` for the stacked layer
-    weights), on ``device``. Quantized leaves are refused."""
-    state: Dict[str, torch.Tensor] = {}
+    weights), on ``device``. Quantized leaves are refused.
+
+    With a ``mesh`` (``parallel/mesh.py:TpMesh``) and the model's GLOBAL
+    ``cfg``: the state dict of a :class:`~.llama.ShardedLlama`
+    (``ranks.<r>.<name>``), each numpy array sliced by the logical-axes
+    table before it leaves the host, so rank ``r``'s tensor holds what the
+    reference's sharded array holds on its ``r``-th device, on
+    ``mesh.devices[r]``."""
+    flat: Dict[str, Any] = {}
     for name, leaf in tree.items():
-        if name == "layers":
-            for lname, lleaf in leaf.items():
-                if isinstance(lleaf, dict):
-                    raise ValueError(f"quantized weight layers.{lname} is not supported")
-                state[f"layers.{lname}"] = _leaf(lleaf).to(device)
-        else:
-            if isinstance(leaf, dict):
-                raise ValueError(f"quantized weight {name} is not supported")
-            state[name] = _leaf(leaf).to(device)
-    return state
+        for key, sub in ({f"layers.{k}": v for k, v in leaf.items()} if name == "layers" else {name: leaf}).items():
+            if isinstance(sub, dict):
+                raise ValueError(f"quantized weight {key} is not supported")
+            flat[key] = sub
+    if mesh is None:
+        return {name: _leaf(a).to(device) for name, a in flat.items()}
+    if cfg is None:
+        raise ValueError("slicing for a mesh needs the model's config (cfg=)")
+    dims = param_tp_dims(cfg)
+    return {
+        f"ranks.{r}.{name}": _leaf(shard(np.asarray(a), dims[name], r, mesh.tp)).to(d)
+        for r, d in enumerate(mesh.devices)
+        for name, a in flat.items()
+    }
 
 
 def config_from_jax(cfg: Any) -> LlamaConfig:

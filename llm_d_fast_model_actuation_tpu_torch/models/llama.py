@@ -16,13 +16,32 @@ page ``num_pages``; ``index_put_`` has no drop mode and an out-of-range
 index on CUDA is a device-side assert, so here they go to page 0, the
 null page the allocator never hands out and no attention reads unmasked.
 The write then needs no mask and no host sync.
+
+**Tensor parallelism.** The reference annotates each weight with logical
+axes (:func:`param_logical_axes`) and leaves slicing and collectives to
+XLA's partitioner. Here they are written out: a :class:`ShardedLlama` is
+``tp`` :class:`Llama` modules, rank ``r`` on ``mesh.devices[r]``, each
+built from a LOCAL config (``num_heads/tp``, ``num_kv_heads/tp``,
+``intermediate_size/tp``, ``vocab_size/tp``), so the projections, the
+cache writes and every attention kernel run unchanged per rank on its own
+heads and its own KV-head slice of the pool. ``wo`` and ``w_down`` are
+row-parallel: each rank's product is a partial sum, reduced over the mesh
+BEFORE the post-norm and the residual, which every rank then computes for
+itself (replicated). The partials are reduced in the model dtype (bf16
+products give a bf16 sum), as the partitioner reduces them. The embedding
+is vocab-split (a rank looks up the ids it owns and contributes zeros for
+the rest, then a reduce), the logits are column-parallel and gathered on
+the vocab axis to rank 0, where sampling runs. Norms, ``q_norm``/``k_norm``
+and the RoPE tables are replicated. A plain :class:`Llama` runs through
+the same functions as a single rank with no mesh: no collective and no
+copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,11 +53,14 @@ from ..ops.attention import (
     paged_decode_attention_inline,
     paged_suffix_attention,
     ragged_paged_attention,
+    ragged_paged_attention_sharded,
 )
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_table
+from ..parallel.mesh import TpMesh, shard, tp_dim
 from .quant import qmat
 
+#: one device's k and v pages; a sharded model takes one pair per rank
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
 
@@ -185,6 +207,64 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Logical axis names of every parameter, in the reference's nested
+    structure (its ``param_logical_axes``, the same table)."""
+    layers = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    if cfg.post_norms:
+        layers["post_attn_norm"] = ("layers", "embed")
+        layers["post_ffn_norm"] = ("layers", "embed")
+    if cfg.qk_norm:
+        layers["q_norm"] = ("layers", None)
+        layers["k_norm"] = ("layers", None)
+    if cfg.attn_bias:
+        layers["bq"] = ("layers", "heads")
+        layers["bk"] = ("layers", "kv_heads")
+        layers["bv"] = ("layers", "kv_heads")
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": layers,
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def param_tp_dims(cfg: LlamaConfig) -> Dict[str, Optional[int]]:
+    """Flat parameter name (as in :func:`param_shapes`) -> the dimension
+    split over ``tp``, or None for a replicated parameter."""
+    axes = param_logical_axes(cfg)
+    flat = {f"layers.{k}": v for k, v in axes.pop("layers").items()}
+    flat.update(axes)
+    return {name: tp_dim(ax) for name, ax in flat.items()}
+
+
+def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """One rank's LOCAL config on a ``tp`` mesh: heads, KV heads, MLP width
+    and vocabulary divided by ``tp``; raises if one does not divide."""
+    for name in ("num_kv_heads", "num_heads", "intermediate_size", "vocab_size"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"{name}={getattr(cfg, name)} is not divisible by tensor_parallel_size {tp}")
+    return dataclasses.replace(
+        cfg,
+        num_heads=cfg.num_heads // tp,
+        num_kv_heads=cfg.num_kv_heads // tp,
+        intermediate_size=cfg.intermediate_size // tp,
+        vocab_size=cfg.vocab_size // tp,
+    )
+
+
 class Llama(nn.Module):
     """The decoder's parameters (uninitialized until loaded or
     :func:`init_params` fills them) plus its RoPE table, all on one
@@ -238,39 +318,114 @@ class Llama(nn.Module):
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
 
+class ShardedLlama(nn.Module):
+    """The decoder on a tensor-parallel mesh: ``mesh.tp`` :class:`Llama`
+    modules, rank ``r`` on ``mesh.devices[r]`` holding its slice of every
+    split weight and a copy of every replicated one. ``cfg`` is the
+    GLOBAL config; each rank's own is :func:`shard_config` of it."""
+
+    def __init__(self, cfg: LlamaConfig, mesh: TpMesh) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.mesh = mesh
+        local = shard_config(cfg, mesh.tp)
+        self.ranks = nn.ModuleList(Llama(local, d) for d in mesh.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """Rank 0's device: where tokens go in and logits come out."""
+        return self.mesh.devices[0]
+
+    def build_tables(self) -> None:
+        for m in self.ranks:
+            m.build_tables()
+
+    def free_tables(self) -> None:
+        for m in self.ranks:
+            m.free_tables()
+
+    def replicas(self) -> List[torch.Tensor]:
+        """The parameters of ranks 1.. that repeat rank 0's (norms and the
+        like): the reference holds each of them as ONE replicated array."""
+        dims = param_tp_dims(self.cfg)
+        return [
+            p for m in list(self.ranks)[1:] for name, p in m.named_parameters() if dims[name] is None
+        ]
+
+
+def shard_params(
+    state: Dict[str, torch.Tensor], cfg: LlamaConfig, mesh: TpMesh
+) -> Dict[str, torch.Tensor]:
+    """A full model's state dict (``Llama.state_dict()`` names) -> the
+    state dict of a :class:`ShardedLlama` on ``mesh``: rank ``r``'s slice of
+    each split weight (a contiguous copy) and a copy of each replicated
+    one, on ``mesh.devices[r]``, under ``ranks.<r>.<name>``."""
+    dims = param_tp_dims(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    for r, d in enumerate(mesh.devices):
+        for name, t in state.items():
+            out[f"ranks.{r}.{name}"] = shard(t, dims[name], r, mesh.tp).to(d, copy=True).contiguous()
+    return out
+
+
 def init_params(
     cfg: LlamaConfig,
     generator: torch.Generator,
     device: "torch.device | str",
-) -> Llama:
+    mesh: Optional[TpMesh] = None,
+) -> "Llama | ShardedLlama":
     """Random-init parameters (serving loads checkpoints; random init is
     for tests and benchmarks), drawn from ``generator``, which must live
     on ``device``. Same distributions as the reference (normal scaled by
     fan_in**-0.5, identity norms); not the same numbers — JAX's threefry
     and torch's Philox differ. Stacked weights are drawn one layer at a
-    time, so the fp32 staging never exceeds one layer's slice."""
-    model = Llama(cfg, device)
+    time, so the fp32 staging never exceeds one layer's slice.
+
+    With a ``mesh`` (``device`` is then its rank 0's) the FULL tensor of
+    each layer is drawn and every rank is copied its slice, so a seed
+    gives a sharded model the very numbers it gives a single-device one."""
+    if mesh is None:
+        model: "Llama | ShardedLlama" = Llama(cfg, device)
+        ranks = [model]
+    else:
+        model = ShardedLlama(cfg, mesh)
+        ranks = list(model.ranks)
+    tp = len(ranks)
+    shapes, dims = param_shapes(cfg), param_tp_dims(cfg)
     fill = 0.0 if cfg.norm_offset else 1.0
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        # rank 0's registration order: the order the draws have always had
+        for name, _ in ranks[0].named_parameters():
             short = name.split(".")[-1]
+            dests = [m.get_parameter(name) for m in ranks]
             if "norm" in short:
-                p.fill_(fill)
+                for p in dests:
+                    p.fill_(fill)
             elif short in ("bq", "bk", "bv"):
-                p.zero_()
+                for p in dests:
+                    p.zero_()
             else:
-                fan_in = p.shape[-2] if short != "embed" else p.shape[-1]
-                slices = [p] if p.dim() == 2 else list(p)
-                for dst in slices:
+                shape, dim = shapes[name], dims[name]
+                fan_in = shape[-2] if short != "embed" else shape[-1]
+                stacked = len(shape) == 3
+                for i in range(shape[0] if stacked else 1):
                     src = torch.randn(
-                        dst.shape, generator=generator, device=device,
+                        shape[-2:], generator=generator, device=device,
                         dtype=torch.float32,
-                    )
-                    dst.copy_(src.mul_(fan_in**-0.5))
+                    ).mul_(fan_in**-0.5)
+                    for r, p in enumerate(dests):
+                        piece = src if tp == 1 else shard(src, dim - 1 if stacked and dim else dim, r, tp)
+                        (p[i] if stacked else p).copy_(piece)
     return model
 
 
 # -- forward -----------------------------------------------------------------
+#
+# Every forward below runs over RANKS: a ShardedLlama's modules with their
+# per-rank caches, or a plain Llama as the one rank of no mesh. Per-rank
+# work is a closure run once per rank, on that rank's tensors and so on
+# its device (_each); the mesh's collectives join the ranks. With no mesh
+# each closure runs once and the collectives are the identity.
 
 
 def _norm(cfg: LlamaConfig, x, w):
@@ -284,12 +439,55 @@ def _post(cfg: LlamaConfig, lp, name: str, y):
     return y
 
 
-def _embed_tokens(model: Llama, tokens):
+def _ranks(model, cache):
+    """(mesh, per-rank modules, per-rank caches) of a model and the cache
+    it was handed: a sharded model takes one (k, v) pair per rank."""
+    if isinstance(model, ShardedLlama):
+        if len(cache) != model.mesh.tp or isinstance(cache[0], torch.Tensor):
+            raise ValueError(f"a model on {model.mesh} takes one (k_pages, v_pages) pair per rank")
+        return model.mesh, list(model.ranks), list(cache)
+    return None, [model], [cache]
+
+
+def _each(mesh: Optional[TpMesh], fn: Callable[[int], Any]) -> List[Any]:
+    """``fn(rank)`` for every rank, in rank order."""
+    return [fn(r) for r in range(1 if mesh is None else mesh.tp)]
+
+
+def _replicated(mesh: Optional[TpMesh], *tensors):
+    """Per-rank copies of the forward's replicated inputs (tokens,
+    positions, page table, ...; each one tensor, or already a list with
+    one tensor per rank)."""
+    if mesh is None:
+        return [[t] for t in tensors]
+    return [[None] * mesh.tp if t is None else mesh.replicate(t) for t in tensors]
+
+
+def _reduce(mesh: Optional[TpMesh], parts):
+    return parts if mesh is None else mesh.all_reduce_sum(parts)
+
+
+def _embed_tokens(model: Llama, tokens, rank: int = 0, tp: int = 1):
+    """Embedding rows of ``tokens``. On a mesh the table is split over the
+    vocabulary: rank ``rank`` looks up the ids it owns and gives zeros for
+    the rest, so the ranks' sum is the row."""
     cfg = model.cfg
-    x = model.embed[tokens.long()].to(cfg.dtype)
+    ids = tokens.long()
+    if tp > 1:
+        ids = ids - rank * cfg.vocab_size
+        own = (ids >= 0) & (ids < cfg.vocab_size)
+        x = model.embed[ids.clamp(0, cfg.vocab_size - 1)].to(cfg.dtype)
+        x = torch.where(own[..., None], x, torch.zeros((), dtype=cfg.dtype, device=x.device))
+    else:
+        x = model.embed[ids].to(cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=cfg.dtype)
     return x
+
+
+def _embed(mesh, ms, tokens):
+    tp = len(ms)
+    return _reduce(mesh, _each(mesh, lambda r: _embed_tokens(ms[r], tokens[r], r, tp)))
 
 
 def _mlp(cfg: LlamaConfig, x, gate, up, down):
@@ -302,7 +500,8 @@ def _mlp(cfg: LlamaConfig, x, gate, up, down):
 
 
 def _project_qkv(model: Llama, lp, x, positions):
-    """x: [b, s, hidden] -> q [b,s,heads,hd], k/v [b,s,kvh,hd], roped."""
+    """x: [b, s, hidden] -> q [b,s,heads,hd], k/v [b,s,kvh,hd], roped
+    (the module's own heads: all of them, or one rank's)."""
     cfg = model.cfg
     b, s, _ = x.shape
     q, k, v = qmat(x, lp["wq"]), qmat(x, lp["wk"]), qmat(x, lp["wv"])
@@ -360,86 +559,122 @@ def _scatter_decode(pages, new, page_table, positions, page_size):
     pages[phys, positions.long() % page_size] = new
 
 
-def _logits(model: Llama, x):
-    x = _norm(model.cfg, x, model.final_norm)
-    return qmat(x, model.head()).float()
+def _logits(mesh, ms, x):
+    """Final norm and the head product: fp32 logits over the whole
+    vocabulary, on rank 0. Each rank's product covers its own slice of
+    the vocabulary (column-parallel); the slices are gathered in the
+    model dtype and widened once."""
+    parts = _each(mesh, lambda r: qmat(_norm(ms[r].cfg, x[r], ms[r].final_norm), ms[r].head()))
+    return (parts[0] if mesh is None else mesh.gather(parts, dim=-1)).float()
 
 
-def _layer_tail(model: Llama, lp, x, attn):
-    cfg = model.cfg
-    x = x + _post(cfg, lp, "post_attn_norm", qmat(attn, lp["wo"]))
-    h = _norm(cfg, x, lp["mlp_norm"])
-    return x + _post(cfg, lp, "post_ffn_norm", _mlp(cfg, h, lp["w_gate"], lp["w_up"], lp["w_down"]))
+def _layer_tail(mesh, ms, lps, x, attn):
+    """The rest of a layer after attention. ``wo`` and ``w_down`` are
+    row-parallel on a mesh: each rank's product is a partial sum, reduced
+    FIRST; the post-norm and the residual then run on the full sum,
+    replicated on every rank."""
+    cfg = ms[0].cfg
+    o = _reduce(mesh, _each(mesh, lambda r: qmat(attn[r], lps[r]["wo"])))
+
+    def mlp(r):
+        lp = lps[r]
+        xr = x[r] + _post(cfg, lp, "post_attn_norm", o[r])
+        h = _norm(cfg, xr, lp["mlp_norm"])
+        return xr, _mlp(cfg, h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+    mid = _each(mesh, mlp)
+    y = _reduce(mesh, [m[1] for m in mid])
+    return _each(mesh, lambda r: mid[r][0] + _post(cfg, lps[r], "post_ffn_norm", y[r]))
 
 
 @torch.no_grad()
 def prefill(
-    model: Llama,
+    model: "Llama | ShardedLlama",
     tokens: torch.Tensor,  # [b, s] int, right-padded
     seq_lens: torch.Tensor,  # [b] int32
-    cache: Cache,  # k/v pages [L, P, ps, kvh, hd], written in place
+    cache: "Cache | Sequence[Cache]",  # k/v pages [L, P, ps, kvh, hd], written in place
     page_table: torch.Tensor,  # [b, pages_per_seq] int32
 ) -> torch.Tensor:
     """Prefill a batch of prompts, writing their KV into the pool.
     Returns logits [b, s, vocab] fp32; the caller reads them at
     seq_lens-1."""
-    cfg = model.cfg
-    b, s = tokens.shape
-    k_pages, v_pages = cache
-    page_size = k_pages.shape[2]
-    positions = torch.arange(s, dtype=torch.int64, device=tokens.device).expand(b, s)
-    valid = positions < seq_lens[:, None]
-    x = _embed_tokens(model, tokens)
+    mesh, ms, caches = _ranks(model, cache)
+    cfg = ms[0].cfg
+    tokens, seq_lens, page_table = _replicated(mesh, tokens, seq_lens, page_table)
+    b, s = tokens[0].shape
+    page_size = caches[0][0].shape[2]
+
+    def prepare(r):
+        positions = torch.arange(s, dtype=torch.int64, device=tokens[r].device).expand(b, s)
+        return positions, positions < seq_lens[r][:, None]
+
+    pv = _each(mesh, prepare)
+    x = _embed(mesh, ms, tokens)
     for i in range(cfg.num_layers):
-        lp = model.layer(i)
-        h = _norm(cfg, x, lp["attn_norm"])
-        q, k, v = _project_qkv(model, lp, h, positions)
-        _scatter_prefill(k_pages[i], k, page_table, positions, valid, page_size)
-        _scatter_prefill(v_pages[i], v, page_table, positions, valid, page_size)
-        attn = causal_prefill_attention(q, k, v, seq_lens)
-        x = _layer_tail(model, lp, x, attn.reshape(b, s, cfg.q_dim))
-    return _logits(model, x)
+        lps = [m.layer(i) for m in ms]
+
+        def attend(r):
+            positions, valid = pv[r]
+            k_pages, v_pages = caches[r]
+            h = _norm(cfg, x[r], lps[r]["attn_norm"])
+            q, k, v = _project_qkv(ms[r], lps[r], h, positions)
+            _scatter_prefill(k_pages[i], k, page_table[r], positions, valid, page_size)
+            _scatter_prefill(v_pages[i], v, page_table[r], positions, valid, page_size)
+            return causal_prefill_attention(q, k, v, seq_lens[r]).reshape(b, s, cfg.q_dim)
+
+        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
+    return _logits(mesh, ms, x)
 
 
 @torch.no_grad()
 def prefill_continue(
-    model: Llama,
+    model: "Llama | ShardedLlama",
     tokens: torch.Tensor,  # [b, s] int suffix tokens, right-padded
     start: torch.Tensor,  # [b] int32 — absolute position of tokens[:, 0]
     suffix_lens: torch.Tensor,  # [b] int32 — valid suffix length per row
-    cache: Cache,  # written in place
+    cache: "Cache | Sequence[Cache]",  # written in place
     page_table: torch.Tensor,  # [b, pages_per_seq] int32
 ) -> torch.Tensor:
     """Prefill a prompt SUFFIX against a pool whose first ``start`` tokens
     are already present (prefix-cache hits, chunked prefill): writes only
     the suffix's KV, then attends over the paged cache. Returns logits
     [b, s, vocab] fp32; the caller samples at suffix_lens-1."""
-    cfg = model.cfg
-    b, s = tokens.shape
-    k_pages, v_pages = cache
-    page_size = k_pages.shape[2]
-    ar = torch.arange(s, dtype=torch.int64, device=tokens.device)
-    positions = start.long()[:, None] + ar[None, :]
-    valid = ar[None, :] < suffix_lens[:, None]
-    x = _embed_tokens(model, tokens)
+    mesh, ms, caches = _ranks(model, cache)
+    cfg = ms[0].cfg
+    tokens, start, suffix_lens, page_table = _replicated(mesh, tokens, start, suffix_lens, page_table)
+    b, s = tokens[0].shape
+    page_size = caches[0][0].shape[2]
+
+    def prepare(r):
+        ar = torch.arange(s, dtype=torch.int64, device=tokens[r].device)
+        return start[r].long()[:, None] + ar[None, :], ar[None, :] < suffix_lens[r][:, None]
+
+    pv = _each(mesh, prepare)
+    x = _embed(mesh, ms, tokens)
     for i in range(cfg.num_layers):
-        lp = model.layer(i)
-        h = _norm(cfg, x, lp["attn_norm"])
-        q, k, v = _project_qkv(model, lp, h, positions)
-        _scatter_prefill(k_pages[i], k, page_table, positions, valid, page_size)
-        _scatter_prefill(v_pages[i], v, page_table, positions, valid, page_size)
-        attn = paged_suffix_attention(q, k_pages[i], v_pages[i], page_table, start)
-        x = _layer_tail(model, lp, x, attn.reshape(b, s, cfg.q_dim))
-    return _logits(model, x)
+        lps = [m.layer(i) for m in ms]
+
+        def attend(r):
+            positions, valid = pv[r]
+            k_pages, v_pages = caches[r]
+            h = _norm(cfg, x[r], lps[r]["attn_norm"])
+            q, k, v = _project_qkv(ms[r], lps[r], h, positions)
+            _scatter_prefill(k_pages[i], k, page_table[r], positions, valid, page_size)
+            _scatter_prefill(v_pages[i], v, page_table[r], positions, valid, page_size)
+            attn = paged_suffix_attention(q, k_pages[i], v_pages[i], page_table[r], start[r])
+            return attn.reshape(b, s, cfg.q_dim)
+
+        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
+    return _logits(mesh, ms, x)
 
 
 @torch.no_grad()
 def mixed_step(
-    model: Llama,
+    model: "Llama | ShardedLlama",
     tokens: torch.Tensor,  # [T] int — flat packed token buffer
     row_slot: torch.Tensor,  # [T] int32 — page_table row per token; -1 = pad
     positions: torch.Tensor,  # [T] int32 — absolute position per token
-    cache: Cache,  # written in place
+    cache: "Cache | Sequence[Cache]",  # written in place
     page_table: torch.Tensor,  # [rows, pages] int32, may be a column slice
 ) -> torch.Tensor:
     """One token-packed mixed-batch step: prefill segments, suffix
@@ -447,37 +682,56 @@ def mixed_step(
     flat buffer (the packed serving path). Each token's K/V is written
     into its own sequence's pages first, then ragged paged attention
     masks every row to its own sequence at positions <= its own — causal
-    prefill, suffix continuation and decode are the same mask.
+    prefill, suffix continuation and decode are the same mask. On a mesh
+    the attention is ``ragged_paged_attention_sharded``: the ragged kernel
+    once per rank over the rank's heads, no collective inside.
 
     Returns logits [T, vocab] fp32; the caller gathers the rows that
     sample. Padding rows write only the null page and produce values
     nobody reads."""
-    cfg = model.cfg
-    (T,) = tokens.shape
-    k_pages, v_pages = cache
-    targets = _row_targets(page_table, row_slot, positions, k_pages.shape[2])
-    pos = positions.long()[None]
-    x = _embed_tokens(model, tokens)  # [T, hidden]
+    mesh, ms, caches = _ranks(model, cache)
+    cfg = ms[0].cfg
+    tokens, row_slot, positions, page_table = _replicated(mesh, tokens, row_slot, positions, page_table)
+    (T,) = tokens[0].shape
+    page_size = caches[0][0].shape[2]
+    prep = _each(mesh, lambda r: (
+        _row_targets(page_table[r], row_slot[r], positions[r], page_size),
+        positions[r].long()[None],
+    ))
+    x = _embed(mesh, ms, tokens)  # [T, hidden] per rank
     for i in range(cfg.num_layers):
-        lp = model.layer(i)
-        h = _norm(cfg, x, lp["attn_norm"])
-        q, k, v = _project_qkv(model, lp, h[None], pos)
-        q, k, v = q[0], k[0], v[0]  # [T, heads/kvh, hd]
-        _scatter_rows(k_pages[i], k, targets)
-        _scatter_rows(v_pages[i], v, targets)
-        attn = ragged_paged_attention(
-            q, k_pages[i], v_pages[i], page_table, row_slot, positions
-        )
-        x = _layer_tail(model, lp, x, attn.reshape(T, cfg.q_dim))
-    return _logits(model, x)
+        lps = [m.layer(i) for m in ms]
+
+        def project_and_write(r):
+            targets, pos = prep[r]
+            k_pages, v_pages = caches[r]
+            h = _norm(cfg, x[r], lps[r]["attn_norm"])
+            q, k, v = _project_qkv(ms[r], lps[r], h[None], pos)
+            q, k, v = q[0], k[0], v[0]  # [T, heads/kvh, hd]
+            _scatter_rows(k_pages[i], k, targets)
+            _scatter_rows(v_pages[i], v, targets)
+            return q
+
+        q = _each(mesh, project_and_write)
+        if mesh is None:
+            attn = [ragged_paged_attention(
+                q[0], caches[0][0][i], caches[0][1][i], page_table[0], row_slot[0], positions[0]
+            )]
+        else:
+            attn = ragged_paged_attention_sharded(
+                mesh, q, [c[0][i] for c in caches], [c[1][i] for c in caches],
+                page_table, row_slot, positions,
+            )
+        x = _layer_tail(mesh, ms, lps, x, [a.reshape(T, cfg.q_dim) for a in attn])
+    return _logits(mesh, ms, x)
 
 
 @torch.no_grad()
 def decode_step(
-    model: Llama,
+    model: "Llama | ShardedLlama",
     tokens: torch.Tensor,  # [b] int — the latest token per sequence
     positions: torch.Tensor,  # [b] int32 — its position (seq_len - 1)
-    cache: Cache,  # written in place
+    cache: "Cache | Sequence[Cache]",  # written in place
     page_table: torch.Tensor,  # [b, pages_per_seq] int32
     active: Optional[torch.Tensor] = None,  # [b] bool; inactive rows write the null page
 ) -> torch.Tensor:
@@ -497,34 +751,43 @@ def decode_step(
     and their logits are values the caller ignores."""
     if model.cfg.attention_impl == "reference":
         return _decode_step_scatter_first(model, tokens, positions, cache, page_table, active)
-    cfg = model.cfg
-    b = tokens.shape[0]
-    k_pages, v_pages = cache
-    page_size = k_pages.shape[2]
-    x = _embed_tokens(model, tokens)  # [b, hidden]
-    pos2 = positions.long()[:, None]
-    k_all, v_all = [], []
+    mesh, ms, caches = _ranks(model, cache)
+    cfg = ms[0].cfg
+    tokens, positions, page_table, active = _replicated(mesh, tokens, positions, page_table, active)
+    b = tokens[0].shape[0]
+    page_size = caches[0][0].shape[2]
+    pos2 = _each(mesh, lambda r: positions[r].long()[:, None])
+    x = _embed(mesh, ms, tokens)  # [b, hidden] per rank
+    kv_all: List[Tuple[list, list]] = [([], []) for _ in ms]
     for i in range(cfg.num_layers):
-        lp = model.layer(i)
-        h = _norm(cfg, x, lp["attn_norm"])
-        q, k, v = _project_qkv(model, lp, h[:, None, :], pos2)
-        q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
-        attn = paged_decode_attention_inline(
-            q, k_pages[i], v_pages[i], k, v, page_table, positions
-        )
-        x = _layer_tail(model, lp, x, attn.reshape(b, cfg.q_dim))
-        k_all.append(k)
-        v_all.append(v)
-    # One write for all layers: [L, b, kvh, hd] at (page, slot) per row.
-    phys = torch.gather(page_table.long(), 1, (pos2 // page_size))[:, 0]
-    slot = positions.long() % page_size
-    k_all = torch.stack(k_all)
-    v_all = torch.stack(v_all)
-    if active is not None:
-        phys = torch.where(active, phys, 0)  # inactive rows: the null page
-    k_pages[:, phys, slot] = k_all
-    v_pages[:, phys, slot] = v_all
-    return _logits(model, x)
+        lps = [m.layer(i) for m in ms]
+
+        def attend(r):
+            k_pages, v_pages = caches[r]
+            h = _norm(cfg, x[r], lps[r]["attn_norm"])
+            q, k, v = _project_qkv(ms[r], lps[r], h[:, None, :], pos2[r])
+            q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
+            attn = paged_decode_attention_inline(
+                q, k_pages[i], v_pages[i], k, v, page_table[r], positions[r]
+            )
+            kv_all[r][0].append(k)
+            kv_all[r][1].append(v)
+            return attn.reshape(b, cfg.q_dim)
+
+        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
+
+    def write_all(r):
+        # One write for all layers: [L, b, kvh, hd] at (page, slot) per row.
+        k_pages, v_pages = caches[r]
+        phys = torch.gather(page_table[r].long(), 1, (pos2[r] // page_size))[:, 0]
+        slot = positions[r].long() % page_size
+        if active[r] is not None:
+            phys = torch.where(active[r], phys, 0)  # inactive rows: the null page
+        k_pages[:, phys, slot] = torch.stack(kv_all[r][0])
+        v_pages[:, phys, slot] = torch.stack(kv_all[r][1])
+
+    _each(mesh, write_all)
+    return _logits(mesh, ms, x)
 
 
 def _decode_step_scatter_first(model, tokens, positions, cache, page_table, active=None):
@@ -533,23 +796,33 @@ def _decode_step_scatter_first(model, tokens, positions, cache, page_table, acti
     (:func:`~..ops.attention.paged_decode_attention`). Inactive rows write
     the null page 0 (the reference drops them) and attend through their
     unmasked table; their logits are ignored."""
-    cfg = model.cfg
-    b = tokens.shape[0]
-    k_pages, v_pages = cache
-    page_size = k_pages.shape[2]
-    seq_lens = positions + 1
-    table = page_table
-    if active is not None:
-        table = torch.where(active[:, None], page_table, 0)
-    x = _embed_tokens(model, tokens)  # [b, hidden]
-    pos2 = positions.long()[:, None]
+    mesh, ms, caches = _ranks(model, cache)
+    cfg = ms[0].cfg
+    tokens, positions, page_table, active = _replicated(mesh, tokens, positions, page_table, active)
+    b = tokens[0].shape[0]
+    page_size = caches[0][0].shape[2]
+
+    def prepare(r):
+        table = page_table[r]
+        if active[r] is not None:
+            table = torch.where(active[r][:, None], table, 0)
+        return positions[r] + 1, table, positions[r].long()[:, None]
+
+    prep = _each(mesh, prepare)
+    x = _embed(mesh, ms, tokens)  # [b, hidden] per rank
     for i in range(cfg.num_layers):
-        lp = model.layer(i)
-        h = _norm(cfg, x, lp["attn_norm"])
-        q, k, v = _project_qkv(model, lp, h[:, None, :], pos2)
-        q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
-        _scatter_decode(k_pages[i], k, table, positions, page_size)
-        _scatter_decode(v_pages[i], v, table, positions, page_size)
-        attn = paged_decode_attention(q, k_pages[i], v_pages[i], page_table, seq_lens)
-        x = _layer_tail(model, lp, x, attn.reshape(b, cfg.q_dim))
-    return _logits(model, x)
+        lps = [m.layer(i) for m in ms]
+
+        def attend(r):
+            seq_lens, table, pos2 = prep[r]
+            k_pages, v_pages = caches[r]
+            h = _norm(cfg, x[r], lps[r]["attn_norm"])
+            q, k, v = _project_qkv(ms[r], lps[r], h[:, None, :], pos2)
+            q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
+            _scatter_decode(k_pages[i], k, table, positions[r], page_size)
+            _scatter_decode(v_pages[i], v, table, positions[r], page_size)
+            attn = paged_decode_attention(q, k_pages[i], v_pages[i], page_table[r], seq_lens)
+            return attn.reshape(b, cfg.q_dim)
+
+        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
+    return _logits(mesh, ms, x)

@@ -12,8 +12,9 @@ from . import llama
 
 
 def init_params_for(
-    cfg: llama.LlamaConfig, generator: torch.Generator, device: "torch.device | str"
-) -> llama.Llama:
+    cfg: llama.LlamaConfig, generator: torch.Generator, device: "torch.device | str",
+    mesh=None,
+) -> "llama.Llama | llama.ShardedLlama":
     if not isinstance(cfg, llama.LlamaConfig) or getattr(cfg, "num_experts", 0) > 1:
         raise ValueError(f"unsupported model config {type(cfg).__name__} (dense Llama only)")
-    return llama.init_params(cfg, generator, device)
+    return llama.init_params(cfg, generator, device, mesh=mesh)

@@ -23,6 +23,7 @@ from .cuda import (
     paged_decode_attention,
     paged_decode_attention_inline,
     ragged_paged_attention,
+    ragged_paged_attention_sharded,
 )
 
 __all__ = [
@@ -32,9 +33,25 @@ __all__ = [
     "paged_decode_attention_inline",
     "paged_suffix_attention",
     "ragged_paged_attention",
+    "ragged_paged_attention_sharded",
+    "resolve_ragged_impl",
 ]
 
 NEG_INF = -1e30
+
+
+def resolve_ragged_impl(impl: str, mesh) -> str:
+    """What the packed path's attention runs as for an engine on ``mesh``
+    (None = one device): the mesh leg of the reference's
+    ``resolve_ragged_impl``, as far as the port has anything to route
+    between. The port has ONE ragged implementation per device kind (the
+    kernel on the card, its plain version on the CPU, picked by the
+    tensors' device), whatever ``impl`` says, so the only decision left is
+    the mesh's: ``"ragged"`` without one, ``"ragged_sharded"`` (the kernel
+    once per rank, ``ragged_paged_attention_sharded``) with one. The
+    reference's interpret-mode column does not exist here."""
+    del impl  # the cache-write strategy of the decode step only
+    return "ragged" if mesh is None else "ragged_sharded"
 
 
 def paged_suffix_attention(

@@ -21,4 +21,6 @@ from .ragged import (  # noqa: F401
     RAGGED_BLOCK,
     ragged_paged_attention,
     ragged_paged_attention_plain,
+    ragged_paged_attention_sharded,
+    ragged_paged_attention_sharded_plain,
 )

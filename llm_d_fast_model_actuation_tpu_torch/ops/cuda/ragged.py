@@ -23,11 +23,22 @@ launches the kernel for CUDA tensors; it never falls back. Unlike the JAX
 dispatcher, which quietly takes its XLA twin for a buffer that is not a
 multiple of ``RAGGED_BLOCK`` rows, it raises: the port's packer always
 aligns, so such a buffer is a bug.
+
+:func:`ragged_paged_attention_sharded` is the port of
+``ops/pallas/ragged.py:ragged_paged_attention_pallas_sharded``, the same
+kernel under ``shard_map`` over the ``tp`` mesh axis. As there, it is not
+a new kernel body: each rank launches ``csrc/ragged.cu`` over its own
+query heads and its own KV-head slice of the pool, with the page table
+and the row metadata replicated. With GQA every softmax is complete
+within the rank that owns its KV head, so no collective runs inside
+attention, and the per-rank outputs stay split for the row-parallel
+``wo`` that follows.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence
 
 import torch
 
@@ -120,10 +131,12 @@ def _launch(q, k_pages, v_pages, page_table, row_slot, positions) -> torch.Tenso
         )
     if err != 0:
         raise RuntimeError(f"ragged kernel launch failed: CUDA error {err}")
-    ragged_paged_attention.launches += 1
-    by_rows = ragged_paged_attention.launches_by_rows
-    by_rows[t] = by_rows.get(t, 0) + 1
     return out
+
+
+def _count(wrapper, rows: int) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_rows[rows] = wrapper.launches_by_rows.get(rows, 0) + 1
 
 
 def ragged_paged_attention(
@@ -140,8 +153,73 @@ def ragged_paged_attention(
     ``launches_by_rows`` counts them per buffer size T."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pages, v_pages, page_table, row_slot, positions)
-    return _launch(q, k_pages, v_pages, page_table, row_slot, positions)
+    out = _launch(q, k_pages, v_pages, page_table, row_slot, positions)
+    _count(ragged_paged_attention, q.shape[0])
+    return out
 
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_rows = {}
+
+
+def _check_shards(mesh, q_shards, k_pages_shards, v_pages_shards) -> None:
+    for name, shards in (("q", q_shards), ("k_pages", k_pages_shards), ("v_pages", v_pages_shards)):
+        if len(shards) != mesh.tp:
+            raise ValueError(f"{len(shards)} {name} shards for a mesh of {mesh.tp}")
+        for r, x in enumerate(shards):
+            if x.device != mesh.devices[r]:
+                raise ValueError(f"rank {r}'s {name} shard is on {x.device}, its rank on {mesh.devices[r]}")
+
+
+def ragged_paged_attention_sharded_plain(
+    mesh,
+    q_shards: Sequence[torch.Tensor],
+    k_pages_shards: Sequence[torch.Tensor],
+    v_pages_shards: Sequence[torch.Tensor],
+    page_table,
+    row_slot,
+    positions,
+) -> List[torch.Tensor]:
+    """The sharded kernel's function in plain PyTorch: the plain version
+    once per rank over the rank's head slice."""
+    _check_shards(mesh, q_shards, k_pages_shards, v_pages_shards)
+    pt, rs, pos = mesh.replicate(page_table), mesh.replicate(row_slot), mesh.replicate(positions)
+    return [
+        ragged_paged_attention_plain(q_shards[r], k_pages_shards[r], v_pages_shards[r], pt[r], rs[r], pos[r])
+        for r in range(mesh.tp)
+    ]
+
+
+def ragged_paged_attention_sharded(
+    mesh,
+    q_shards: Sequence[torch.Tensor],  # per rank [T, heads/tp, head_dim]
+    k_pages_shards: Sequence[torch.Tensor],  # per rank [num_pages, page_size, kv_heads/tp, head_dim]
+    v_pages_shards: Sequence[torch.Tensor],
+    page_table,  # [rows, pages] int32: one tensor, or a copy per rank
+    row_slot,  # [T] int32, likewise
+    positions,  # [T] int32, likewise
+) -> List[torch.Tensor]:
+    """Ragged paged attention on a tensor-parallel mesh (``parallel/mesh.py:
+    TpMesh``): the ragged kernel launched once per rank, on that rank's
+    device (its current stream), over the rank's query heads and KV-head
+    slice of the pool. The page table and the row metadata are replicated (a copy
+    per device). Returns the per-rank outputs ``[T, heads/tp, head_dim]``,
+    not gathered. Ranks whose tensors are on the CPU take the plain
+    version; CUDA tensors launch the kernel or raise. ``launches`` counts
+    kernel launches (one per rank and call) and ``launches_by_rows``
+    counts them per buffer size T."""
+    _check_shards(mesh, q_shards, k_pages_shards, v_pages_shards)
+    if all(q.device.type == "cpu" for q in q_shards):
+        return ragged_paged_attention_sharded_plain(
+            mesh, q_shards, k_pages_shards, v_pages_shards, page_table, row_slot, positions
+        )
+    pt, rs, pos = mesh.replicate(page_table), mesh.replicate(row_slot), mesh.replicate(positions)
+    outs = []
+    for r in range(mesh.tp):
+        outs.append(_launch(q_shards[r], k_pages_shards[r], v_pages_shards[r], pt[r], rs[r], pos[r]))
+        _count(ragged_paged_attention_sharded, q_shards[r].shape[0])
+    return outs
+
+
+ragged_paged_attention_sharded.launches = 0
+ragged_paged_attention_sharded.launches_by_rows = {}

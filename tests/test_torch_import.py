@@ -67,6 +67,12 @@ def test_no_file_imports_jax_or_the_jax_package(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def test_the_walk_covers_the_parallel_package():
+    mods = set(_modules())
+    for m in ("parallel", "parallel.mesh", "models.llama", "ops.cuda.ragged", "engine.server"):
+        assert f"llm_d_fast_model_actuation_tpu_torch.{m}" in mods
+
+
 def test_forbidden_match_is_exact_or_dotted():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("llm_d_fast_model_actuation_tpu.engine")

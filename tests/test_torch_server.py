@@ -115,3 +115,58 @@ def test_sleep_wake_over_http(port_server):
     assert _call(port, "POST", "/wake_up")[0] == 200
     status, again = _call(port, "POST", "/v1/completions", body)
     assert status == 200 and again["choices"][0]["token_ids"] == before["choices"][0]["token_ids"]
+
+
+def test_tensor_parallel_server_equals_one_rank():
+    """``--tensor-parallel-size 2 --device cpu,cpu``: two ranks driven by
+    the one engine thread serve the completion one rank serves, and a
+    sleep/wake cycle in between leaves it unchanged."""
+    body = {"prompt": [5, 6, 7, 8], "max_tokens": 6}
+    got = {}
+    for opts in ("--device cpu", "--tensor-parallel-size 2 --device cpu,cpu",
+                 "--tensor-parallel-size 2 --device cpu --packed-serving on"):
+        svc = tserver.EngineService(tserver.parse_engine_options(OPTS + " " + opts))
+        http = tserver.serve(svc, "127.0.0.1", 0)
+        try:
+            port = http.server_address[1]
+            status, first = _call(port, "POST", "/v1/completions", body)
+            assert status == 200
+            if "parallel" in opts:
+                assert svc.engine.mesh.tp == 2 and len(svc.engine.pool.shards) == 2
+                assert _call(port, "POST", "/sleep?level=1")[1]["bytes_offloaded"] == got["sleep"]
+                assert _call(port, "POST", "/wake_up")[0] == 200
+                assert _call(port, "POST", "/v1/completions", body)[1]["choices"] == first["choices"]
+            else:
+                assert svc.engine.mesh is None
+                got["sleep"] = _call(port, "POST", "/sleep?level=1")[1]["bytes_offloaded"]
+                assert _call(port, "POST", "/wake_up")[0] == 200
+            got[opts] = first["choices"][0]["token_ids"]
+        finally:
+            http.shutdown()
+            svc.shutdown()
+    assert len({tuple(ids) for o, ids in got.items() if o != "sleep"}) == 1
+
+
+@pytest.mark.parametrize("bad", [
+    "--tensor-parallel-size 0",
+    "--tensor-parallel-size -2",
+    "--tensor-parallel-size 2 --device cpu,cpu,cpu",  # a list of the wrong length
+    "--device cpu,cpu",  # a list for one rank
+    "--tensor-parallel-size two",
+])
+def test_tensor_parallel_options_are_checked(bad):
+    with pytest.raises(ValueError):
+        tserver.parse_engine_options(OPTS + " " + bad)
+
+
+def test_tensor_parallel_on_cuda_needs_the_cards(monkeypatch):
+    import torch
+
+    args = tserver.parse_engine_options(OPTS + " --tensor-parallel-size 2")
+    assert args.device == "cuda" and args.tensor_parallel_size == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="needs 2 devices, have 0"):
+        tserver.EngineService(args)  # a single cuda means the first N cards
+    assert tserver.mesh_from_options(tserver.parse_engine_options(OPTS + " --device cpu")) is None
+    mesh = tserver.mesh_from_options(tserver.parse_engine_options(OPTS + " --tensor-parallel-size 2 --device cpu"))
+    assert [str(d) for d in mesh.devices] == ["cpu", "cpu"]  # a single other device is every rank's
