@@ -17,7 +17,10 @@ exits non-zero and never prints the final ``ok`` line):
      two bf16 ulps of its largest value: max |out - plain| <= 1.6e-2 x
      max |plain|, row by row), then timed with CUDA events beside
      its plain version, one PyTorch library call and its bound: the
-     inline and the scatter-first decode, prefill at every serve bucket,
+     inline and the scatter-first decode, prefill at every serve bucket
+     (its library call is SDPA with the same mask on the fastest backend
+     that takes a mask, named in the row; beside it, for reading, flash
+     SDPA with ``is_causal`` over the valid prefix, ``library_causal_ms``),
      and ragged attention at both packed buffer shapes the packed serve
      uses (256 and 72 rows), and there also the sharded ragged op (the
      same kernel launched once per rank over the rank's heads) split over
@@ -25,7 +28,9 @@ exits non-zero and never prints the final ``ok`` line):
      plain version and the unsharded kernel; then, correctness only, the
      head dims, GQA groups and page sizes of the other supported models,
      head_dim 256 (Gemma-3-4B) prefill included, and the per-rank head
-     counts of Llama-3-8B at tp 2 and 4 (16/4 and 8/2);
+     counts of Llama-3-8B at tp 2 and 4 (16/4 and 8/2); prefill also at
+     GQA group 1, at s = 3000 (a bucket clamped to a max length that is
+     not a power of two) and at s = 200 beside a one-token prompt;
   4. serve   — the port's HTTP server in process, full-width full-depth
      llama3-8b with seeded random weights; four greedy completions
      (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then
@@ -232,6 +237,8 @@ PREFILL_SEQS = (16, 32, 512, 2048, 4096)
 
 
 def check_prefill(torch, gen) -> list:
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import prefill as mod
 
     h, kvh, d = 32, 8, 128
@@ -259,7 +266,9 @@ def check_prefill(torch, gen) -> list:
         ms = time_ms(lambda: mod.causal_prefill_attention(*sets[next(it) % n_sets], seq_lens), iters)
         plain_ms = time_ms(lambda: mod.causal_prefill_attention_plain(*sets[next(it) % n_sets], seq_lens), 3)
         # library: SDPA computing the same masked function (causal and
-        # key < seq_len) on GQA-expanded [b, h, s, d] inputs
+        # key < seq_len) on GQA-expanded [b, h, s, d] inputs, on each
+        # backend that takes a boolean mask (flash does not); the fastest
+        # is the yardstick, and the row names it
         pos = torch.arange(s, device=dev)
         mask = ((pos[None, :] <= pos[:, None]) & (pos[None, :] < L))[None, None]
         lib_sets = [
@@ -267,7 +276,20 @@ def check_prefill(torch, gen) -> list:
              vv.repeat_interleave(h // kvh, dim=2).transpose(1, 2))
             for qq, kk, vv in sets
         ]
-        library_ms = time_ms(lambda: sdpa(*lib_sets[next(it) % n_sets], attn_mask=mask), iters)
+        backends = {}
+        for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+            try:
+                with sdpa_kernel([backend]):
+                    backends[backend.name] = time_ms(
+                        lambda: sdpa(*lib_sets[next(it) % n_sets], attn_mask=mask), iters)
+            except RuntimeError:  # this backend refuses the call
+                continue
+        library_backend = min(backends, key=backends.get)
+        # for reading only: flash SDPA with is_causal over the valid prefix
+        # [0, seq_len) — the padded rows are not computed
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            library_causal_ms = time_ms(
+                lambda: sdpa(*(x[:, :, :L] for x in lib_sets[next(it) % n_sets]), is_causal=True), iters)
         nbytes = (2 * s * h * d + 2 * s * kvh * d) * 2 + 4
         visible = sum(min(i, L - 1) + 1 for i in range(s))  # keys each row sees
         flops = 4 * h * d * visible
@@ -279,8 +301,15 @@ def check_prefill(torch, gen) -> list:
             "replaces": "llm_d_fast_model_actuation_tpu/ops/pallas/prefill.py:29",
             "shape": {"batch": 1, "seq": s, "seq_len": L, "heads": h, "kv_heads": kvh, "head_dim": d},
             "seq": s, "max_abs_err": err, "max_row_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": library_ms,
-            "library": "scaled_dot_product_attention with the same causal and seq_len mask",
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "tflops": flops / ms / 1e9, "bound_share": bnd / ms,
+            "library_ms": backends[library_backend],
+            "library": f"scaled_dot_product_attention with the same causal and seq_len mask, "
+                       f"{library_backend} backend (the fastest that takes the mask)",
+            "library_backends_ms": backends,
+            "library_causal_ms": library_causal_ms,
+            "library_causal": "scaled_dot_product_attention, FLASH_ATTENTION backend, is_causal "
+                              "over the valid prefix [0, seq_len) only; for reading",
         })
     return rows
 
@@ -539,11 +568,15 @@ def check_variants(torch, gen) -> list:
         err, rel = errors(decode.paged_decode_attention(*sf), decode.paged_decode_attention_plain(*sf))
         out.append({"kernel": "decode_scatter_first", "head_dim": d, "heads": h, "kv_heads": kvh,
                     "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
-    # the last two: Gemma-3-4B's head_dim 256 with 8/4 heads, one short and
-    # one long seq_len
+    # prefill: Gemma-3-4B's head_dim 256 with 8/4 heads, one short and one
+    # long seq_len; the per-rank 16/4 and 8/2; GQA group 1 (8/8); a bucket
+    # clamped to a --max-model-len that is not a power of two (s 3000); a
+    # one-token prompt beside a partial last tile (s 200)
     for d, h, kvh, s, lens in ((64, 32, 4, 128, [128, 70]), (128, 28, 4, 64, [1, 50]),
                                (256, 8, 4, 64, [5, 64]), (256, 8, 4, 1024, [9, 1000]),
-                               (128, 16, 4, 512, [509, 33]), (128, 8, 2, 512, [509, 33])):
+                               (128, 16, 4, 512, [509, 33]), (128, 8, 2, 512, [509, 33]),
+                               (128, 8, 8, 256, [256, 100]), (128, 32, 8, 3000, [3000, 2999]),
+                               (128, 32, 8, 200, [1, 130])):
         args = (rnd(len(lens), s, h, d), rnd(len(lens), s, kvh, d), rnd(len(lens), s, kvh, d),
                 torch.tensor(lens, dtype=torch.int32, device="cuda"))
         err, rel = errors(prefill.causal_prefill_attention(*args),
@@ -1103,7 +1136,8 @@ def main() -> int:
     probe = check_build_probe(torch)
     emit({"phase": "build", "seconds": time.monotonic() - t0, "nvcc": build.find_nvcc(),
           "probe": {k: probe[k] for k in ("max_abs_err", "ms")},
-          "ptxas": {n: [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
+          "nvcc_seconds": {n: b.seconds for n, b in built.items()},
+          "ptxas": {n: [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln or "warning" in ln]
                     for n, b in built.items()}})
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = check_decode(torch, gen)
