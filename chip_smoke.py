@@ -25,12 +25,18 @@ exits non-zero and never prints the final ``ok`` line):
      uses (256 and 72 rows), and there also the sharded ragged op (the
      same kernel launched once per rank over the rank's heads) split over
      two and over four ranks that share the card, against the unsharded
-     plain version and the unsharded kernel; then, correctness only, the
+     plain version and the unsharded kernel. The ragged rows and the
+     probe's also carry ``device_ms``, the device time of one launch from
+     the replay of a CUDA graph (no host time), and one launch of each
+     ragged op runs under CUDA's sync debug mode set to error, so a
+     wrapper that waits for the device fails. Then, correctness only, the
      head dims, GQA groups and page sizes of the other supported models,
      head_dim 256 (Gemma-3-4B) prefill included, and the per-rank head
      counts of Llama-3-8B at tp 2 and 4 (16/4 and 8/2); prefill also at
      GQA group 1, at s = 3000 (a bucket clamped to a max length that is
-     not a power of two) and at s = 200 beside a one-token prompt;
+     not a power of two) and at s = 200 beside a one-token prompt; ragged
+     also with six sequences' decode rows in one CTA's window and a run
+     over several CTAs, and a 512-token segment at position 7680;
   4. serve   — the port's HTTP server in process, full-width full-depth
      llama3-8b with seeded random weights; four greedy completions
      (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then
@@ -124,6 +130,44 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, n: int) -> float:
+    """Device time of one call: ``n`` calls captured in a CUDA graph, whose
+    replays are timed with CUDA events (no host time in it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * n)
+
+
+def sync_free(fn) -> bool:
+    """Run ``fn`` once with CUDA's sync debug mode set to error: any call
+    that waits for the device (``.item()``, ``.cpu()``, a blocking copy)
+    raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return True
 
 
 def errors(out, ref) -> tuple:
@@ -394,8 +438,18 @@ def check_ragged_sharded(torch, mod, row3: dict, args, out, ref, layers: int, de
         raise AssertionError(f"sharded ragged (tp={tp}) disagrees at {row3['rows']} rows: plain {rel}, kernel {rel_k}")
     it = iter(range(10**9))
     ms_all = time_ms(lambda: run(next(it) % layers), 50)
-    ms_rank = time_ms(lambda: mod.ragged_paged_attention(
-        qs[0][(i := next(it) % layers)], kps[0][i], vps[0][i], meta[0][0], meta[1][0], meta[2][0]), 50)
+
+    def one_rank():
+        i = next(it) % layers
+        return mod.ragged_paged_attention(qs[0][i], kps[0][i], vps[0][i], meta[0][0], meta[1][0], meta[2][0])
+
+    ms_rank = time_ms(one_rank, 50)
+    two_cards = len(set(devices)) > 1
+    device = {} if two_cards else {
+        "device_ms": graph_ms(lambda: run(next(it) % layers), 40),
+        "device_ms_one_rank": graph_ms(one_rank, 40),
+    }
+    sync_free(lambda: run(1))
 
     def plain(i):
         return mod.ragged_paged_attention_sharded_plain(
@@ -403,7 +457,6 @@ def check_ragged_sharded(torch, mod, row3: dict, args, out, ref, layers: int, de
         )
 
     plain_ms = time_ms(lambda: plain(next(it) % layers), 5)
-    two_cards = len(set(devices)) > 1
     return {
         "name": f"ragged_paged_attention_sharded[tp={tp},T={row3['rows']}]",
         "route": "cuda",
@@ -414,7 +467,8 @@ def check_ragged_sharded(torch, mod, row3: dict, args, out, ref, layers: int, de
                       blocks_per_launch=(row3["rows"] // 8) * ks),
         "max_abs_err": err, "max_row_rel_err": rel,
         "vs_unsharded_kernel": {"max_abs_err": err_k, "bit_equal": bool(torch.equal(joined, out))},
-        "ms": ms_all, "ms_one_rank": ms_rank, "unsharded_ms": row3["ms"], "plain_ms": plain_ms,
+        "ms": ms_all, "ms_one_rank": ms_rank, **device, "unsharded_ms": row3["ms"],
+        "unsharded_device_ms": row3["device_ms"], "plain_ms": plain_ms, "sync_free": True,
         "bound_ms": row3["bound_ms"], "bound_by": row3["bound_by"],
         "bound": "row 3's: the ranks together move the same unique bytes and do the same operations",
         "library_ms": row3["library_ms"], "library": row3["library"],
@@ -466,6 +520,8 @@ def check_ragged(torch, gen) -> tuple:
             raise AssertionError(f"ragged kernel disagrees with its plain version at {rows} rows: {rel}")
         it = iter(range(10**9))
         ms = time_ms(lambda: mod.ragged_paged_attention(*args(next(it) % layers)), 50)
+        device_ms = graph_ms(lambda: mod.ragged_paged_attention(*args(next(it) % layers)), 40)
+        sync_free(lambda: mod.ragged_paged_attention(*args(1)))
         plain_ms = time_ms(lambda: mod.ragged_paged_attention_plain(*args(next(it) % layers)), 5)
         # library: one SDPA call over the sequences padded to one batch, K/V
         # pre-gathered, contiguous and GQA-expanded, with the same mask (a
@@ -493,12 +549,13 @@ def check_ragged(torch, gen) -> tuple:
                   + unique_pages * 4 + 2 * rows * 4)
         flops = sum(4 * h * d * (p0 + j + 1) for _, p0, n in segments for j in range(n))
         bnd, by = bound_ms(nbytes, flops)
-        # what the blocks re-read: every 8-row block walks positions
-        # [0, its last valid position] of its sequence for every KV head
-        reread = 0
-        for _, p0, n in segments:
-            for b0 in range(0, n, 8):
-                reread += (p0 + min(n, b0 + 8)) * kvh * d * 2 * 2
+        # what the CTAs read, K and V for every KV head: each tile of one
+        # run walks positions [0, its last valid position] of its sequence
+        # (mod.work_items, the kernel's rule); beside it, the same for the
+        # 8-row blocks of the design it replaced, one walk per block
+        kv_pos_bytes = kvh * d * 2 * 2
+        reread = sum(p0 + n for _, _, s, p0, n in mod.work_items(slot.cpu(), pos.cpu(), g) if s >= 0)
+        reread_8row = sum(p0 + min(n, b0 + 8) for _, p0, n in segments for b0 in range(0, n, 8))
         out_rows.append({
             "name": f"ragged_paged_attention[T={rows}]",
             "route": "cuda",
@@ -509,7 +566,9 @@ def check_ragged(torch, gen) -> tuple:
                       "table_cols": kvp, "segments": [list(x) for x in segments]},
             "max_abs_err": err, "max_row_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "bound_bytes": nbytes, "bound_flops": flops,
-            "reread_bytes": reread, "library_ms": library_ms,
+            "device_ms": device_ms, "sync_free": True,
+            "reread_bytes": reread * kv_pos_bytes, "reread_bytes_8_row_blocks": reread_8row * kv_pos_bytes,
+            "library_ms": library_ms,
             "library": "scaled_dot_product_attention over the sequences padded to one batch, pre-gathered contiguous K/V (excludes the gather)",
         })
         meshes = [["cuda:0"] * 2, ["cuda:0"] * 4]
@@ -522,21 +581,38 @@ def check_ragged(torch, gen) -> tuple:
     return out_rows, sharded_rows
 
 
-def ragged_case(torch, gen, h, kvh, d, ps):
-    """A small packed buffer in the reference tests' layout (a cold
-    segment across a page, a decode row, a suffix from position 7, a
-    padded tail) through the ragged kernel and its plain version."""
+# ragged_case's layouts: (segments, rows, table pages per sequence; None:
+# as many as the longest sequence needs)
+RAGGED_LAYOUTS = {
+    # the reference tests' layout: a cold segment across a page, a decode
+    # row, a suffix from position 7, a padded tail
+    "reference": (lambda ps: [(0, 0, 11), (1, min(13, ps * 4 - 1), 1), (2, 7, 5)], 40, 4),
+    # one CTA's 32-token window holding six sequences' decode rows, then a
+    # run over several CTAs that ends mid-block, then padding
+    "several_sequences": (lambda ps: [(s, 7 * s + 3, 1) for s in range(6)] + [(6, 50, 70)], 160, None),
+    # a long context: a 512-token segment at position 7680 of an
+    # 8192-position table
+    "long_context": (lambda ps: [(0, 7680, 512)], 512, None),
+}
+
+
+def ragged_case(torch, gen, h, kvh, d, ps, layout="reference"):
+    """A packed buffer in one of RAGGED_LAYOUTS through the ragged kernel
+    and its plain version."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import ragged
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
 
-    pps, nseq = 4, 3
+    segments, rows, pps = RAGGED_LAYOUTS[layout]
+    segments = segments(ps)
+    pps = pps or -(-max(p0 + n for _, p0, n in segments) // ps)
+    nseq = len(segments)
     num_pages = nseq * pps + 1
     pt = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(3)) + 1)
     pt = pt.reshape(nseq, pps).to(torch.int32).cuda()
-    slot, pos = pack(torch, [(0, 0, 11), (1, min(13, ps * pps - 1), 1), (2, 7, 5)], 40, "cuda")
-    args = (rnd(40, h, d), rnd(num_pages, ps, kvh, d), rnd(num_pages, ps, kvh, d), pt, slot, pos)
+    slot, pos = pack(torch, segments, rows, "cuda")
+    args = (rnd(rows, h, d), rnd(num_pages, ps, kvh, d), rnd(num_pages, ps, kvh, d), pt, slot, pos)
     return errors(ragged.ragged_paged_attention(*args), ragged.ragged_paged_attention_plain(*args))
 
 
@@ -583,11 +659,17 @@ def check_variants(torch, gen) -> list:
                           prefill.causal_prefill_attention_plain(*args))
         out.append({"kernel": "prefill", "head_dim": d, "heads": h, "kv_heads": kvh,
                     "seq": s, "seq_lens": lens, "max_abs_err": err, "max_row_rel_err": rel})
-    # ragged: head dims 64 and 256, GQA groups 1, 2, 7 and 8, page size 8
-    for d, h, kvh, ps in ((64, 32, 4, 16), (256, 8, 4, 16), (128, 28, 4, 8), (128, 8, 8, 16),
-                          (128, 32, 4, 8), (128, 16, 4, 16), (128, 8, 2, 16)):
-        err, rel = ragged_case(torch, gen, h, kvh, d, ps)
-        out.append({"kernel": "ragged", "head_dim": d, "heads": h, "kv_heads": kvh,
+    # ragged: head dims 64 and 256, GQA groups 1, 2, 7 and 8, page size 8;
+    # then several sequences in one CTA's window at groups 4, 1 and 8, and
+    # the long context
+    for d, h, kvh, ps, layout in ((64, 32, 4, 16, "reference"), (256, 8, 4, 16, "reference"),
+                                  (128, 28, 4, 8, "reference"), (128, 8, 8, 16, "reference"),
+                                  (128, 32, 4, 8, "reference"), (128, 16, 4, 16, "reference"),
+                                  (128, 8, 2, 16, "reference"), (128, 32, 8, 16, "several_sequences"),
+                                  (128, 8, 8, 8, "several_sequences"), (128, 64, 8, 16, "several_sequences"),
+                                  (128, 32, 8, 16, "long_context")):
+        err, rel = ragged_case(torch, gen, h, kvh, d, ps, layout)
+        out.append({"kernel": "ragged", "layout": layout, "head_dim": d, "heads": h, "kv_heads": kvh,
                     "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
     torch.cuda.synchronize()
     bad = [v for v in out if not v["max_row_rel_err"] <= REL_TOL]
@@ -1113,7 +1195,9 @@ def check_build_probe(torch) -> dict:
         "ms": time_ms(lambda: build.launch_probe(x), 200),
         "plain_ms": time_ms(lambda: build.launch_probe_plain(x), 200),
         "bound_ms": bnd, "bound_by": by,
+        "device_ms": graph_ms(lambda: build.launch_probe(x), 100),
         "library_ms": time_ms(lambda: dst.copy_(x), 200),
+        "library_device_ms": graph_ms(lambda: dst.copy_(x), 100),
         "library": "Tensor.copy_ into a preallocated tensor",
     }
 
@@ -1135,7 +1219,7 @@ def main() -> int:
     built = build.build_all()
     probe = check_build_probe(torch)
     emit({"phase": "build", "seconds": time.monotonic() - t0, "nvcc": build.find_nvcc(),
-          "probe": {k: probe[k] for k in ("max_abs_err", "ms")},
+          "probe": {k: probe[k] for k in ("max_abs_err", "ms", "device_ms")},
           "nvcc_seconds": {n: b.seconds for n, b in built.items()},
           "ptxas": {n: [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln or "warning" in ln]
                     for n, b in built.items()}})

@@ -79,10 +79,16 @@ def find_nvcc() -> str:
     )
 
 
+def source_digest(src: Path) -> str:
+    """The hash a library built from ``src`` is named by: the source, every
+    header in ``csrc/`` (``hopper.cuh`` is shared by two kernels) and the
+    nvcc flags, so an edit to any of them rebuilds."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    return hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{source_digest(CSRC / SOURCES[name])}.so"
 
 
 def build_all() -> Dict[str, BuiltLibrary]:

@@ -108,10 +108,10 @@ def key_tile_kinds(q_tile: int, seq: int, seq_len: int, head_dim: int) -> List[s
 
     The kernel's rule: the block loads key tiles up to the last key any
     of its rows sees, ``min(q0 + BLOCK_Q - 1, seq - 1, seq_len - 1)``
-    (``last_key`` and ``n_kt``, ``csrc/prefill.cu:438-439``; the producer
-    and the consumers loop ``kt < n_kt``, ``:461`` and ``:498``), and
+    (``last_key`` and ``n_kt``, ``csrc/prefill.cu:175-176``; the producer
+    and the consumers loop ``kt < n_kt``, ``:198`` and ``:235``), and
     masks a loaded tile unless every key in it is at or below the block's
-    first row and below seq_len (``full`` in ``softmax_tile``, ``:354``)."""
+    first row and below seq_len (``full`` in ``softmax_tile``, ``:107``)."""
     block_k = TILES[head_dim][0]
     sl = max(1, min(seq_len, seq))
     q0 = q_tile * BLOCK_Q

@@ -7,7 +7,8 @@ Usage, from the root of a checkout, on a machine with one NVIDIA card:
     python3 prefill_ab.py parent=build/ab/parent.cu [name=path.cu ...]
 
 Each ``path.cu`` is a version of ``csrc/prefill.cu`` (an earlier commit's,
-or a variant), built with this checkout's nvcc flags into ``build/ab/``.
+or a variant), built with this checkout's nvcc flags into ``build/ab/``
+(``csrc/`` on the include path, for ``hopper.cuh``).
 Two C interfaces are understood: the launch plan of this checkout
 (``fma_prefill_set_encoder`` present; a variant's tile sizes are read
 from its ``Tiles<>``) and the earlier twelve-stride one.
@@ -52,13 +53,15 @@ def build_version(path: str):
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build
 
     src = open(path).read()
-    digest = hashlib.sha256(src.encode() + " ".join(build.NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(open(os.path.join(build.CSRC, h), "rb").read() for h in sorted(os.listdir(build.CSRC))
+                       if h.endswith(".cuh"))
+    digest = hashlib.sha256(src.encode() + headers + " ".join(build.NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = os.path.join(ROOT, "build", "ab")
     os.makedirs(out_dir, exist_ok=True)
     so = os.path.join(out_dir, f"libprefill-{digest}.so")
     if not os.path.exists(so):
-        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, path], check=True,
-                       capture_output=True)
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", so, path],
+                       check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     fn = lib.fma_causal_prefill_bf16
     fn.restype = ctypes.c_int

@@ -38,11 +38,11 @@ def test_key_tile_rule_is_stated_from_the_kernel():
     """The statements key_tile_kinds restates, at the lines it cites."""
     lines = CU.read_text().splitlines()
     for line, stmt in (
-        (438, "const int last_key = min(min(q0 + kBlockQ - 1, seq - 1), sl - 1);"),
-        (439, "const int n_kt = last_key / BK + 1;"),
-        (461, "for (int kt = 0; kt < n_kt; ++kt) {"),
-        (498, "for (int kt = 0; kt < n_kt; ++kt) {"),
-        (354, "const bool full = k0 + BK - 1 <= q0 && k0 + BK <= sl;"),
+        (175, "const int last_key = min(min(q0 + kBlockQ - 1, seq - 1), sl - 1);"),
+        (176, "const int n_kt = last_key / BK + 1;"),
+        (198, "for (int kt = 0; kt < n_kt; ++kt) {"),
+        (235, "for (int kt = 0; kt < n_kt; ++kt) {"),
+        (107, "const bool full = k0 + BK - 1 <= q0 && k0 + BK <= sl;"),
     ):
         assert lines[line - 1].strip() == stmt
         assert str(line) in P.key_tile_kinds.__doc__
