@@ -25,16 +25,20 @@ exits non-zero and never prints the final ``ok`` line):
      uses (256 and 72 rows), and there also the sharded ragged op (the
      same kernel launched once per rank over the rank's heads) split over
      two and over four ranks that share the card, against the unsharded
-     plain version and the unsharded kernel. The ragged rows and the
-     probe's also carry ``device_ms``, the device time of one launch from
-     the replay of a CUDA graph (no host time), and one launch of each
-     ragged op runs under CUDA's sync debug mode set to error, so a
-     wrapper that waits for the device fails. Then, correctness only, the
+     plain version and the unsharded kernel. The decode, ragged and
+     probe rows also carry ``device_ms``, the device time of one launch
+     from the replay of a CUDA graph (no host time; so each launch is
+     also shown capturable), and one launch of each decode and ragged op
+     runs under CUDA's sync debug mode set to error, so a wrapper that
+     waits for the device fails. Then, correctness only, the
      head dims, GQA groups and page sizes of the other supported models,
      head_dim 256 (Gemma-3-4B) prefill included, and the per-rank head
      counts of Llama-3-8B at tp 2 and 4 (16/4 and 8/2); prefill also at
      GQA group 1, at s = 3000 (a bucket clamped to a max length that is
-     not a power of two) and at s = 200 beside a one-token prompt; ragged
+     not a power of two) and at s = 200 beside a one-token prompt; decode
+     also at GQA groups 1, 2, 4, 5, 7 and 8 (clusters of 8 CTAs, two splits
+     a CTA at group 1, and of 8, 4, 3 and 2), page sizes 8, 12 and 64, and
+     batch 1 at 4095; ragged
      also with six sequences' decode rows in one CTA's window and a run
      over several CTAs, and a 512-token segment at position 7680;
   4. serve   — the port's HTTP server in process, full-width full-depth
@@ -62,13 +66,18 @@ exits non-zero and never prints the final ``ok`` line):
      are for reading beside phase 6's, not a claim;
   8. serve_reference — the same traffic through a server with
      ``--attention-impl reference``: every decode step runs the
-     scatter-first decode kernel in each layer;
+     scatter-first decode kernel in each layer. Phases 6 to 8 print, per
+     completion, the first position where its greedy tokens leave phase
+     4's (``first_difference_from_bucketed``);
   9. model_parity — on phase 8's weights at full width: ``mixed_step``
      over a 300-token prompt against ``prefill`` (last row's logits), and
      one scatter-first ``decode_step`` against the inline one on the same
      state, each within a tolerance stated from bf16 rounding; then
      phase 7's two-rank model (the same seed, so the same weights)
      against the one-rank model: ``mixed_step`` and ``decode_step``;
+     then (``greedy_divergence``, not gated) one prefill of the one-rank
+     model over each diverging request's prompt and agreed tokens, and
+     the top-2 logit margin where the tokens part;
   10. kernels line — every ported kernel with its TPU source and numbers,
      one entry for each shape the serve runs launched it at (prefill by
      sequence bucket, ragged by buffer rows), with that shape's launches.
@@ -231,6 +240,8 @@ def check_decode(torch, gen) -> list:
             raise AssertionError(f"{name} kernel disagrees with its plain version: {rel}")
         it = iter(range(10**9))
         ms = time_ms(lambda: fn(*args(next(it) % layers)), 200)
+        device_ms = graph_ms(lambda: fn(*args(next(it) % layers)), 40)
+        sync_free(lambda: fn(*args(1)))
         plain_ms = time_ms(lambda: plain(*args(next(it) % layers)), 5)
         # library yardstick: SDPA over K/V already gathered, contiguous and
         # GQA-expanded (the inline token appended for the inline variant);
@@ -269,7 +280,8 @@ def check_decode(torch, gen) -> list:
             "shape": {"batch": b, "heads": h, "kv_heads": kvh, "head_dim": d,
                       "page_size": ps, ("positions" if inline else "seq_lens"): lens},
             "max_abs_err": err, "max_row_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": library_ms,
+            "bound_ms": bnd, "bound_by": by, "device_ms": device_ms, "sync_free": True,
+            "library_ms": library_ms,
             "library": "scaled_dot_product_attention over pre-gathered contiguous K/V (excludes the gather)",
         })
     return rows
@@ -628,22 +640,30 @@ def check_variants(torch, gen) -> list:
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
 
     out = []
-    for d, h, kvh, ps in ((64, 32, 4, 16), (256, 8, 4, 16), (128, 28, 4, 8), (128, 8, 8, 16),
-                          (128, 16, 4, 16), (128, 8, 2, 16)):
-        b, pps = 3, 20
+    # decode: head dims 64 and 256; GQA groups 8, 2, 7, 1, 4 and 5 (clusters
+    # of 2, 8, 2, 8 with two splits a CTA, 4 and 3 CTAs); page sizes 8, 12
+    # and 64; positions 0, a partial page and ~1280 (40 tiles: several ring
+    # steps a CTA), then batch 1 at position 4095
+    for d, h, kvh, ps, positions in ((64, 32, 4, 16, None), (256, 8, 4, 16, None), (128, 28, 4, 8, None),
+                                     (128, 8, 8, 16, None), (128, 16, 4, 16, None), (128, 8, 2, 16, None),
+                                     (128, 20, 4, 16, None), (128, 32, 8, 12, None), (128, 32, 8, 64, None),
+                                     (128, 32, 8, 16, [4095])):
+        pps = -(-1280 // ps) if positions is None else -(-(max(positions) + 1) // ps)
+        positions = positions or [0, ps + 3, pps * ps - 1]
+        b = len(positions)
         num_pages = b * pps + 1
         pt = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(2)) + 1)
         args = (rnd(b, h, d), rnd(num_pages, ps, kvh, d), rnd(num_pages, ps, kvh, d),
                 rnd(b, kvh, d), rnd(b, kvh, d), pt.reshape(b, pps).to(torch.int32).cuda(),
-                torch.tensor([0, ps + 3, pps * ps - 1], dtype=torch.int32, device="cuda"))
+                torch.tensor(positions, dtype=torch.int32, device="cuda"))
         err, rel = errors(decode.paged_decode_attention_inline(*args),
                           decode.paged_decode_attention_inline_plain(*args))
         out.append({"kernel": "decode", "head_dim": d, "heads": h, "kv_heads": kvh,
-                    "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
+                    "page_size": ps, "positions": positions, "max_abs_err": err, "max_row_rel_err": rel})
         sf = (*args[:3], args[5], args[6] + 1)  # scatter-first: seq_lens = pos + 1
         err, rel = errors(decode.paged_decode_attention(*sf), decode.paged_decode_attention_plain(*sf))
         out.append({"kernel": "decode_scatter_first", "head_dim": d, "heads": h, "kv_heads": kvh,
-                    "page_size": ps, "max_abs_err": err, "max_row_rel_err": rel})
+                    "page_size": ps, "positions": positions, "max_abs_err": err, "max_row_rel_err": rel})
     # prefill: Gemma-3-4B's head_dim 256 with 8/4 heads, one short and one
     # long seq_len; the per-rank 16/4 and 8/2; GQA group 1 (8/8); a bucket
     # clamped to a --max-model-len that is not a power of two (s 3000); a
@@ -792,6 +812,7 @@ def run_traffic(torch, port: int, vocab: int) -> dict:
     completion = sum(r["usage"]["completion_tokens"] for r in results)
     return {
         "prompts": prompts,
+        "request_prompts": prompts + [shared],  # one per completion in "tokens"
         "tokens": [r["choices"][0]["token_ids"] for r in results + [fifth]],
         "summary": {
             "ttft_s": {str(len(p)): r["usage"]["time_to_first_token_s"] for p, r in zip(prompts, results)},
@@ -805,6 +826,12 @@ def run_traffic(torch, port: int, vocab: int) -> dict:
             "prefix_hit_ttft_s": fifth["usage"]["time_to_first_token_s"],
         },
     }
+
+
+def first_differences(tokens: list, bucketed: list) -> list:
+    """For each completion, the first position where its tokens differ
+    from the bucketed run's, or None where they are equal."""
+    return [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None) for x, y in zip(tokens, bucketed)]
 
 
 def check_probe_launch(counts: dict) -> None:
@@ -895,7 +922,7 @@ def serve_and_sleep(torch, smi: str) -> dict:
         if get(port, "/health")["status"] != "OK":
             raise AssertionError("server is not healthy")
         return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"],
-                "bytes_offloaded": nbytes}
+                "prompts": traffic["request_prompts"], "bytes_offloaded": nbytes}
     finally:
         stop_service(torch, service, server)
 
@@ -936,10 +963,11 @@ def serve_packed(torch, smi: str, bucketed: dict) -> dict:
             "pad_waste_bytes": eng.pad_waste_bytes, "dispatch_tokens": eng.dispatch_tokens,
             "step_h2d_bytes": eng.step_h2d_bytes,
             "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
+            "first_difference_from_bucketed": first_differences(traffic["tokens"], bucketed["tokens"]),
             "prefix_cache": eng.prefix_cache.stats(),
             "peak_allocated_gib": torch.cuda.max_memory_allocated() / GIB,
         })
-        return {"counts": counts, "summary": traffic["summary"]}
+        return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"]}
     finally:
         stop_service(torch, service, server)
 
@@ -1014,6 +1042,7 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
             "decode_steps": decode_steps, "launches": counts,
             "step_h2d_bytes": h2d,
             "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
+            "first_difference_from_bucketed": first_differences(traffic["tokens"], bucketed["tokens"]),
             "prefix_cache": eng.prefix_cache.stats(), "peak_allocated_gib": peak,
             "sleep_wake": {
                 "bytes_offloaded": info["bytes_offloaded"], "bytes_offloaded_tp1": bucketed["bytes_offloaded"],
@@ -1028,7 +1057,7 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         })
         if get(port, "/health")["status"] != "OK":
             raise AssertionError("server is not healthy")
-        return {"counts": counts, "summary": traffic["summary"]}, eng
+        return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"]}, eng
     finally:
         stop_service(torch, service, server)
 
@@ -1062,8 +1091,9 @@ def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
             "allocated_before_gib": left_gib, "init_s": init_s, **traffic["summary"],
             "decode_steps": eng.decode_steps, "launches": counts,
             "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
+            "first_difference_from_bucketed": first_differences(traffic["tokens"], bucketed["tokens"]),
         })
-        return {"counts": counts, "summary": traffic["summary"]}, eng
+        return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"]}, eng
     finally:
         stop_service(torch, service, server)
 
@@ -1090,7 +1120,52 @@ def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
 PARITY_TOL = {"mixed_vs_prefill": 5e-2, "scatter_first_vs_inline": 2e-2, "tp2_vs_tp1": 2e-2}
 
 
-def model_parity(torch, eng, eng_tp2) -> dict:
+def greedy_divergence(torch, model, max_len: int, bucketed: dict, paths: dict) -> dict:
+    """Where a path's greedy tokens first leave the bucketed run's: one
+    prefill of the one-rank model over the request's prompt plus the
+    tokens both runs agree on, and the top-2 logit margin at the next
+    position, with the logits of the token each run chose there. For
+    reading: a margin of a few bf16 ulps of the top logit is a near-tie."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    cfg = model.cfg
+    dev = "cuda"
+    ps = 16
+    pps = -(-max_len // ps)
+    shape = (cfg.num_layers, pps + 1, ps, cfg.num_kv_heads, cfg.head_dim)
+    pool = tuple(torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(2))
+    pt = torch.arange(1, pps + 1, dtype=torch.int32, device=dev)[None]
+    margins = {}
+    for name, tokens in paths.items():
+        for i, j in enumerate(first_differences(tokens, bucketed["tokens"])):
+            if j is None:
+                continue
+            if (i, j) not in margins:
+                ids = bucketed["prompts"][i] + bucketed["tokens"][i][:j]
+                n = len(ids)
+                x = torch.zeros((1, prefill_bucket(n, max_len)), dtype=torch.int32, device=dev)
+                x[0, :n] = torch.tensor(ids, dtype=torch.int32, device=dev)
+                lg = llama.prefill(model, x, torch.tensor([n], dtype=torch.int32, device=dev), pool, pt)[0, n - 1].clone()
+                top = lg.topk(2).values
+                chose = bucketed["tokens"][i][j]
+                margins[(i, j)] = {
+                    "completion": i, "position": j, "top2_margin": (top[0] - top[1]).item(),
+                    "top1": top[0].item(), "bucketed_token": chose, "bucketed_token_logit": lg[chose].item(),
+                    "paths": {}, "logits": lg,
+                }
+            at = margins[(i, j)]
+            at["paths"][name] = {"token": tokens[i][j], "logit": at["logits"][tokens[i][j]].item()}
+    for at in margins.values():
+        del at["logits"]
+    del pool
+    return {"phase": "greedy_divergence", "model": "llama3-8b",
+            "first_difference_from_bucketed": {k: first_differences(v, bucketed["tokens"]) for k, v in paths.items()},
+            "at": list(margins.values()),
+            "note": "prefill of the one-rank model over prompt + agreed tokens; not gated"}
+
+
+def model_parity(torch, eng, eng_tp2, bucketed: dict, paths: dict) -> dict:
     from llm_d_fast_model_actuation_tpu_torch.engine.engine import kv_pages_bucket, prefill_bucket
     from llm_d_fast_model_actuation_tpu_torch.models import llama
 
@@ -1164,6 +1239,8 @@ def model_parity(torch, eng, eng_tp2) -> dict:
         "tp2_vs_tp1_decode_step": {"rel_l2": tp_dec[0], "max_abs": tp_dec[1], "argmax_equal": tp_dec[2]},
     }
     emit(out)
+    del pools, pool2
+    emit(greedy_divergence(torch, model, eng.cfg.seq_len, bucketed, paths))
     if not mixed[0] <= PARITY_TOL["mixed_vs_prefill"]:
         raise AssertionError(f"mixed_step disagrees with prefill at full width: {mixed}")
     if not dec[0] <= PARITY_TOL["scatter_first_vs_inline"]:
@@ -1234,7 +1311,9 @@ def main() -> int:
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)
-    model_parity(torch, eng, eng_tp2)
+    model_parity(torch, eng, eng_tp2, bucketed,
+                 {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
+                  "serve_reference": reference["tokens"]})
     del eng, eng_tp2
     runs = (bucketed["counts"], packed["counts"], tp2["counts"], reference["counts"])
 
@@ -1266,7 +1345,10 @@ def main() -> int:
         raise AssertionError(f"kernels the serve runs never launched: {unused or 'ragged'}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: row.get(k) for k in keys} for row in kernels]})
+    # device_ms beside ms where the row has it: decode, ragged and the probe,
+    # whose ms is its wrapper's
+    emit({"kernels": [{**{k: row.get(k) for k in keys}, **({"device_ms": row["device_ms"]} if "device_ms" in row else {})}
+                      for row in kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

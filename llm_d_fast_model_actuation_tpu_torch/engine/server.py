@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..models import llama
+from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
 from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
 from .kv_cache import PageAllocator
@@ -161,6 +162,12 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError(
             f"--device names {len(devices)} devices for --tensor-parallel-size "
             f"{args.tensor_parallel_size}"
+        )
+    on_card = any(d.split(":")[0] != "cpu" for d in devices)
+    if args.packed_serving == "on" and on_card and args.page_size not in PAGE_SIZES:
+        raise ValueError(
+            f"--packed-serving on takes --page-size in {PAGE_SIZES} on the card (the ragged "
+            f"kernel's), got {args.page_size}"
         )
 
 

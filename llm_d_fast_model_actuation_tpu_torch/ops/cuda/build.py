@@ -144,6 +144,21 @@ def launch_probe_plain(x: torch.Tensor) -> torch.Tensor:
     return x.clone()
 
 
+_probe_fn = None
+
+
+def _probe_kernel():
+    """``fma_copy_probe_f32``, built and bound on first use: argument
+    types are set once."""
+    global _probe_fn
+    if _probe_fn is None:
+        fn = library("probe").fma_copy_probe_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _probe_fn = fn
+    return _probe_fn
+
+
 def launch_probe(x: torch.Tensor) -> torch.Tensor:
     """Copy an ``[8, 128]`` float32 tensor. A CPU tensor takes the plain
     version; a CUDA tensor launches ``csrc/probe.cu`` or raises.
@@ -154,12 +169,14 @@ def launch_probe(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be a CPU or CUDA tensor, got {x.device}")
     if x.dtype != torch.float32 or tuple(x.shape) != PROBE_SHAPE or not x.is_contiguous():
         raise ValueError(f"the probe copies a contiguous {PROBE_SHAPE} float32 tensor")
+    fn = _probe_kernel()
     out = torch.empty_like(x)
-    fn = library("probe").fma_copy_probe_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
+    # the launch goes to the runtime's current device: switch only if needed
+    if x.device.index == torch.cuda.current_device():
         err = fn(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe kernel launch failed: CUDA error {err}")
     launch_probe.launches += 1

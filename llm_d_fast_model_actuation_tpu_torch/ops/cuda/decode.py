@@ -19,6 +19,14 @@ Layout contract (shared with the engine's pool):
   seq_lens:       [batch] int32 — cache entries < seq_len are attended
                   (scatter-first)
 
+The kernel's host-side plan is stated here in plain Python, mirroring
+``csrc/decode.cu`` (the CPU tests hold the two together): the query heads
+of a KV head are built in ``nsplit(group)`` splits of interleaved
+:data:`TILE`-token tiles, one CTA per (sequence, KV head, split) -- two
+splits a CTA at group 1 -- grouped into a cluster of
+``cluster_size(group)`` CTAs, each with a ring of ``stages(head_dim,
+group)`` shared-memory stages (:func:`launch_plan`).
+
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors; it never falls back.
 """
@@ -32,6 +40,64 @@ import torch
 NEG_INF = -1e30
 
 _HEAD_DIMS = (64, 128, 256)
+
+#: tokens per tile, one per lane (kTile in csrc/decode.cu)
+TILE = 32
+#: warps over one (sequence, KV head): group x nsplit (kMaxWarps)
+MAX_WARPS = 16
+#: CTAs of one (sequence, KV head) at most: the portable cluster size
+#: (kMaxCluster)
+MAX_CLUSTER = 8
+#: page-table entries a producer warp holds in shared memory at once
+#: (kTableChunk)
+TABLE_CHUNK = 1024
+#: producer warps of a CTA, which copy the K/V rows (kProducers)
+PRODUCERS = 2
+#: head_dim -> tiles the K/V ring holds (Ring<>::kTiles)
+RING_TILES = {64: 12, 128: 6, 256: 4}
+
+
+def nsplit(group: int) -> int:
+    """Splits of one (sequence, KV head): split s takes every nsplit-th
+    tile from tile s."""
+    return MAX_WARPS // group
+
+
+def cluster_size(group: int) -> int:
+    """CTAs of one (sequence, KV head), one cluster."""
+    return min(nsplit(group), MAX_CLUSTER)
+
+
+def splits_per_cta(group: int) -> int:
+    return nsplit(group) // cluster_size(group)
+
+
+def stages(head_dim: int, group: int) -> int:
+    """Ring stages: a stage holds one tile per split of the CTA."""
+    return RING_TILES[head_dim] // splits_per_cta(group)
+
+
+def smem_bytes(head_dim: int, group: int) -> int:
+    """Dynamic shared memory of one CTA: the K/V ring (bf16), each
+    consumer warp's (m, l, acc) in fp32, each producer warp's page-table
+    chunk, and a full and an empty mbarrier per stage."""
+    spc, st = splits_per_cta(group), stages(head_dim, group)
+    warps = group * spc
+    return (st * 2 * spc * TILE * head_dim * 2 + warps * (2 + head_dim) * 4 + PRODUCERS * TABLE_CHUNK * 4
+            + 2 * st * 8)
+
+
+def launch_plan(batch: int, kv_heads: int, head_dim: int, group: int) -> dict:
+    """The launch ``csrc/decode.cu`` makes: grid (cluster, kv_heads,
+    batch) in clusters of (cluster, 1, 1), ``group x splits_per_cta``
+    consumer warps and :data:`PRODUCERS` producer warps per CTA, and its
+    shared memory."""
+    c = cluster_size(group)
+    return {
+        "grid": (c, kv_heads, batch), "cluster": c, "nsplit": nsplit(group),
+        "splits_per_cta": splits_per_cta(group), "stages": stages(head_dim, group),
+        "threads": 32 * (group * splits_per_cta(group) + PRODUCERS), "smem": smem_bytes(head_dim, group),
+    }
 
 
 def paged_decode_attention_inline_plain(
@@ -110,8 +176,8 @@ def _check_common(q, k_pages, v_pages, page_table, lens, extra=()) -> None:
     num_pages, ps, kvh, _ = k_pages.shape
     if d not in _HEAD_DIMS:
         raise ValueError(f"decode kernel takes head_dim in {_HEAD_DIMS}, got {d}")
-    if h % kvh or h // kvh > 16:
-        raise ValueError(f"decode kernel needs heads % kv_heads == 0 and a group <= 16 ({h}/{kvh})")
+    if h % kvh or h // kvh > MAX_WARPS:
+        raise ValueError(f"decode kernel needs heads % kv_heads == 0 and a group <= {MAX_WARPS} ({h}/{kvh})")
     bf16 = torch.bfloat16
     _check("q", q, bf16, (b, h, d))
     _check("k_pages", k_pages, bf16, (num_pages, ps, kvh, d))
@@ -125,19 +191,37 @@ def _check_common(q, k_pages, v_pages, page_table, lens, extra=()) -> None:
             raise ValueError("all decode inputs must be on one device")
 
 
-def _call(symbol: str, argtypes, q, tensors, scalars) -> torch.Tensor:
-    """Launch ``symbol`` of the decode library on q's current stream: the
-    pointers of q, ``tensors`` and a new output, then ``scalars`` and the
-    stream. Returns the output."""
-    from .build import library
+_fns = None
 
-    fn = getattr(library("decode"), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+
+def _kernels():
+    """The library's two launch functions, built and bound on first use:
+    argument types are set once."""
+    global _fns
+    if _fns is None:
+        from .build import library
+
+        lib = library("decode")
+        inline, scatter_first = lib.fma_paged_decode_inline_bf16, lib.fma_paged_decode_bf16
+        inline.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        scatter_first.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        inline.restype = scatter_first.restype = ctypes.c_int
+        _fns = inline, scatter_first
+    return _fns
+
+
+def _call(fn, q, tensors, scalars) -> torch.Tensor:
+    """Launch ``fn`` on q's current stream: the pointers of q, ``tensors``
+    and a new output, then ``scalars`` and the stream. Returns the
+    output."""
     out = torch.empty_like(q)
-    ptrs = [t.data_ptr() for t in (q, *tensors, out)]
-    with torch.cuda.device(q.device):
-        err = fn(*ptrs, *scalars, torch.cuda.current_stream().cuda_stream)
+    args = (q.data_ptr(), *(t.data_ptr() for t in tensors), out.data_ptr(), *scalars)
+    # the launch goes to the runtime's current device: switch only if needed
+    if q.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
     return out
@@ -148,9 +232,7 @@ def _launch_inline(q, k_pages, v_pages, k_new, v_new, page_table, positions) -> 
     b, h, d = q.shape
     _, ps, kvh, _ = k_pages.shape
     out = _call(
-        "fma_paged_decode_inline_bf16",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-        q, (k_pages, v_pages, k_new, v_new, page_table, positions),
+        _kernels()[0], q, (k_pages, v_pages, k_new, v_new, page_table, positions),
         (b, h, kvh, d, ps, page_table.shape[1], d**-0.5),
     )
     paged_decode_attention_inline.launches += 1
@@ -162,9 +244,7 @@ def _launch_scatter_first(q, k_pages, v_pages, page_table, seq_lens) -> torch.Te
     b, h, d = q.shape
     _, ps, kvh, _ = k_pages.shape
     out = _call(
-        "fma_paged_decode_bf16",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-        q, (k_pages, v_pages, page_table, seq_lens),
+        _kernels()[1], q, (k_pages, v_pages, page_table, seq_lens),
         (b, h, kvh, d, ps, page_table.shape[1], d**-0.5),
     )
     paged_decode_attention.launches += 1

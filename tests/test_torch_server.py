@@ -170,3 +170,25 @@ def test_tensor_parallel_on_cuda_needs_the_cards(monkeypatch):
     assert tserver.mesh_from_options(tserver.parse_engine_options(OPTS + " --device cpu")) is None
     mesh = tserver.mesh_from_options(tserver.parse_engine_options(OPTS + " --tensor-parallel-size 2 --device cpu"))
     assert [str(d) for d in mesh.devices] == ["cpu", "cpu"]  # a single other device is every rank's
+
+
+@pytest.mark.parametrize("opts,refused", [
+    ("--page-size 12 --packed-serving on --device cuda", True),
+    ("--page-size 12 --packed-serving on --tensor-parallel-size 2 --device cuda:0,cuda:0", True),
+    ("--page-size 12 --packed-serving off --device cuda", False),  # decode takes any page size
+    ("--page-size 12 --packed-serving on --device cpu", False),  # the plain versions do too
+    ("--page-size 16 --packed-serving on --device cuda", False),
+])
+def test_packed_page_size_is_checked_at_start(opts, refused):
+    """On the card the packed path's ragged kernel takes only the page
+    sizes in ``ops/cuda/ragged.py:PAGE_SIZES``: another is refused when
+    the options are parsed, naming them, not at the first packed step."""
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda.ragged import PAGE_SIZES
+
+    opts = OPTS.replace("--page-size 8 ", "") + " " + opts
+    if refused:
+        with pytest.raises(ValueError, match=r"--page-size in \(8, 16, 32, 64\)"):
+            tserver.parse_engine_options(opts)
+        assert PAGE_SIZES == (8, 16, 32, 64)
+    else:
+        assert tserver.parse_engine_options(opts).page_size in (12, 16)
