@@ -45,10 +45,40 @@ exits non-zero and never prints the final ``ok`` line):
      llama3-8b with seeded random weights; four greedy completions
      (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then
      a fifth sharing a 512-token prefix (the prefix-cache suffix path);
-     the kernels' launch counters must show every decode step and cold
-     prefill went through them;
-  5. sleep   — level-1 sleep, ``memory_reserved`` under 1 GiB while
-     asleep, wake, and identical greedy tokens after the wake;
+     the launch counts must show every decode step and cold prefill went
+     through the kernels, and every decode chunk must be a replay of one
+     of the four CUDA graphs the engine captured when it started
+     (``graph_replays`` equal to the chunks run). A wrapper's counter
+     counts its eager launches (the prefills, the warm-up runs before
+     the captures, which count as decode steps too); what the replays
+     launched is read from each captured graph's kernel nodes through
+     the CUDA driver (each graph must hold L x T nodes of the path's
+     decode kernel), times its replays. The counts are set to 0 before
+     the engine starts;
+  5. sleep   — three level-1 sleep/wake cycles: ``memory_reserved``
+     under 1 GiB while asleep, nothing of the engine's arenas mapped, the
+     card's free memory within 1 GiB of its free memory before the server
+     started, identical greedy tokens after the wake, no graph captured
+     again and every state tensor at its old address; ``wake_s`` and
+     ``wake_map_s`` (the CUDA driver's mapping calls) beside the reference's
+     bar scaled to this state (``WAKE_BAR_S``, reported). Then one
+     level-2 sleep and wake: nothing mapped while asleep, the weights
+     drawn anew from the seed into the same tensors (the same per-layer
+     sums), the pool zero, under 3 GiB of ordinary memory at the wake's
+     peak (``LEVEL2_WAKE_PEAK``), no state moved and no graph captured
+     again;
+  graphs — a llama3-8b engine at full width and depth built directly,
+     eight requests of the serve traffic's lengths (two of them sampled,
+     seeded) prefilled; then for T = 8 and T = 1, sampled and greedy, one
+     chunk replayed from its graph and, on a copy of the state as it was,
+     the same chunk run eagerly: tokens, logprobs, alternatives, KV pages
+     and scheduler state must be bit-equal. Then TPOT and tokens/s of the
+     eight requests over 64 tokens with the graphs and without them, in
+     turns (on, off, off, on), with the same tokens each time; the device
+     time of a replayed step (CUDA events) and its kernels by kind
+     (``torch.profiler``, whose count of the decode kernel's runs in the
+     replay must equal the graph's kernel nodes, L x T); and the capture seconds and the graph pool's
+     reserved bytes;
   6. serve_packed — the same traffic through a second server with
      ``--packed-serving on``, started after the first is shut down and its
      memory freed: every packed step runs the ragged kernel in each layer,
@@ -60,13 +90,16 @@ exits non-zero and never prints the final ``ok`` line):
      weight and its KV-head half of the page pool. Every
      packed step runs the ragged kernel once per rank in each layer
      through the sharded op, the unsharded op never runs; then one
-     level-1 sleep and wake (0 bytes reserved while asleep, the same
-     ``bytes_offloaded`` as one rank, identical tokens after the wake).
-     Two ranks on one card add launches and remove none, so its times
-     are for reading beside phase 6's, not a claim;
+     level-1 sleep and wake (0 bytes reserved while asleep, nothing of the
+     arena mapped and the card's free memory back as in phase 5, the same
+     ``bytes_offloaded`` as one rank, identical tokens and state addresses
+     after the wake). Its chunk runs eagerly (a graph belongs to one
+     device). Two ranks on one card add launches and remove none, so its
+     times are for reading beside phase 6's, not a claim;
   8. serve_reference — the same traffic through a server with
      ``--attention-impl reference``: every decode step runs the
-     scatter-first decode kernel in each layer. Phases 6 to 8 print, per
+     scatter-first decode kernel in each layer. Phases 6 and 8 replay
+     a captured graph for every decode chunk, as phase 4 does. Phases 6 to 8 print, per
      completion, the first position where its greedy tokens leave phase
      4's (``first_difference_from_bucketed``);
   9. model_parity — on phase 8's weights at full width: ``mixed_step``
@@ -111,6 +144,9 @@ REL_TOL = 1.6e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 GIB = 1 << 30
+# the reference's GPU wake claim, about 3 s for 64 GiB (SURVEY.md section 6),
+# scaled to Llama-3-8B's 20.36 GB of weights and KV: reported, not gated
+WAKE_BAR_S = 3.0 * 20_355_489_792 / (64 * GIB)
 
 
 def emit(obj) -> None:
@@ -748,17 +784,104 @@ def read_counts() -> dict:
 
 
 def start_service(torch, opts: str):
-    """An EngineService and its HTTP server on a free port; the kernel
-    counts are set to 0 just before, so the engine's probe launch counts."""
+    """An EngineService and its HTTP server on a free port, and the card's
+    free bytes just before it started (after the previous phase's memory
+    was given back). The kernel counts are set to 0 just before, so the
+    engine's probe launch and the warm-up runs before its graph captures
+    count."""
     from llm_d_fast_model_actuation_tpu_torch.engine import server as srv
 
+    free_memory(torch)
+    free_before = torch.cuda.mem_get_info()[0]
     reset_counts()
     t0 = time.monotonic()
     service = srv.EngineService(srv.parse_engine_options(opts))
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     server = srv.serve(service, "127.0.0.1", 0)
-    return service, server, init_s
+    return service, server, init_s, free_before
+
+
+def mapped_bytes(eng) -> int:
+    return sum(a.mapped_bytes for a in eng.arenas.values())
+
+
+def state_ptrs(eng) -> list:
+    """(object, address) of every tensor of the engine's device state: the
+    weights, the RoPE tables, the page pool, the scheduler and noise
+    buffers."""
+    tensors = list(eng.model.parameters()) + list(eng.model.buffers()) + eng.pool.tensors() + eng.sched_tensors()
+    return [(id(t), t.data_ptr()) for t in tensors]
+
+
+def graph_stats(eng) -> dict:
+    """The engine's chunk graphs: captures, replays against the chunks the
+    serving path ran, capture seconds, and what its arenas map."""
+    return {"graph_captures": eng.graph_captures, "graph_replays": eng.graph_replays,
+            "decode_chunks": eng.decode_chunks, "eager_chunks": eng.decode_chunks - eng.graph_replays,
+            "capture_s": eng.capture_s, "mapped_bytes": mapped_bytes(eng),
+            "reserved_va_bytes": sum(a.reserved_va_bytes for a in eng.arenas.values())}
+
+
+# the ported kernels a captured chunk holds, by the mangled name the CUDA
+# driver gives a graph's kernel node (decode_kernel<HEAD_DIM, INLINE>)
+GRAPH_KERNELS = {"decode_inline": ("decode_kernel", "ELb1E"), "decode_scatter_first": ("decode_kernel", "ELb0E")}
+
+
+def graph_kernels(by_name: dict) -> dict:
+    """Kernel nodes or launches by kernel name, summed per ported kernel
+    of the captured chunk, keyed as ``kernel_wrappers()``."""
+    return {key: sum(n for name, n in by_name.items() if all(m in name for m in marks))
+            for key, marks in GRAPH_KERNELS.items()}
+
+
+def path_counts(eng) -> dict:
+    """A serve phase's kernel launches: the wrappers' counts, which are
+    eager launches, plus what the engine's graph replays launched, read
+    from each captured graph's kernel nodes (``engine/graphs.py``) times
+    its replays; the two parts of each decode count under ``eager`` and
+    ``replayed``."""
+    counts = read_counts()
+    replayed = graph_kernels(eng.graphs.replayed_launches() if eng.graphs else {})
+    counts["eager"] = {k: counts[k] for k in GRAPH_KERNELS}
+    counts["replayed"] = replayed
+    for k, n in replayed.items():
+        counts[k] += n
+    return counts
+
+
+def check_replays(eng, counts: dict, key: str) -> None:
+    """Every decode chunk the serving path ran was a graph replay; each
+    captured graph holds L x T nodes of the path's decode kernel
+    (``key``) and none of the other's; the replays launched it L x their
+    decode steps and the eager runs (the warm-ups before the captures) L
+    x theirs."""
+    if eng.graph_captures != 4 or eng.decode_chunks == 0 or eng.graph_replays != eng.decode_chunks:
+        raise AssertionError(f"not every decode chunk replayed a captured graph: {graph_stats(eng)}")
+    L = eng.cfg.model.num_layers
+    for (T, sampled), program in eng.graphs.programs.items():
+        nodes = graph_kernels(program.kernels)
+        if nodes[key] != L * T or sum(nodes.values()) != L * T:
+            raise AssertionError(f"the captured T={T} chunk (sampled={sampled}) holds decode kernel nodes {nodes}, "
+                                 f"want {L} x {T} of {key}")
+    replay_steps = sum(p.steps * p.replays for p in eng.graphs.programs.values())
+    eager_steps = eng.decode_steps - replay_steps
+    if replay_steps == 0 or counts["replayed"][key] != L * replay_steps or counts["eager"][key] != L * eager_steps:
+        raise AssertionError(f"{key} launches {counts['eager'][key]} eager and {counts['replayed'][key]} replayed, "
+                             f"want {L} x {eager_steps} and {L} x {replay_steps} (> 0) decode steps")
+
+
+def check_asleep(torch, eng, free_before: int) -> dict:
+    """While asleep: nothing of the engine's arenas is mapped, and the
+    card's free memory is within 1 GiB of what it was before the server
+    started (memory the arenas map is invisible to ``memory_reserved``)."""
+    free = torch.cuda.mem_get_info()[0]
+    if mapped_bytes(eng) != 0:
+        raise AssertionError(f"{mapped_bytes(eng)} bytes of the arena are still mapped while asleep")
+    if free < free_before - GIB:
+        raise AssertionError(f"{(free_before - free) / GIB:.2f} GiB less free while asleep than before the server started")
+    return {"mapped_while_asleep_bytes": mapped_bytes(eng), "free_while_asleep_bytes": free,
+            "free_before_server_bytes": free_before}
 
 
 def stop_service(torch, service, server) -> None:
@@ -842,20 +965,23 @@ def check_probe_launch(counts: dict) -> None:
 def serve_and_sleep(torch, smi: str) -> dict:
     # the reference EngineConfig's default pool: 2048 pages x 16 tokens
     opts = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
-    service, server, init_s = start_service(torch, opts)
+    service, server, init_s, free_before = start_service(torch, opts)
     port = server.server_address[1]
     try:
         eng = service.engine
         L = eng.cfg.model.num_layers
         vocab = eng.cfg.model.vocab_size
         torch.cuda.reset_peak_memory_stats()
-        steps0, cold0 = eng.decode_steps, eng.cold_prefills
+        warmup_steps, cold0 = eng.decode_steps, eng.cold_prefills
         traffic = run_traffic(torch, port, vocab)
-        counts = read_counts()
-        steps = eng.decode_steps - steps0
+        counts = path_counts(eng)
+        # the counts were set to 0 before the engine started: its warm-up
+        # runs before the graph captures launched kernels too
+        steps = eng.decode_steps
         colds = eng.cold_prefills - cold0
         check_probe_launch(counts)
-        if counts["decode_inline"] != L * steps or steps == 0:
+        check_replays(eng, counts, "decode_inline")
+        if counts["decode_inline"] != L * steps or steps == warmup_steps:
             raise AssertionError(f"decode kernel launches {counts['decode_inline']} != {L} x {steps} decode steps")
         if counts["prefill"] != L * colds or colds != 4:
             raise AssertionError(f"prefill kernel launches {counts['prefill']} != {L} x {colds} cold prefills (want 4)")
@@ -868,7 +994,8 @@ def serve_and_sleep(torch, smi: str) -> dict:
             "phase": "serve", "model": "llama3-8b", "layers": L,
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "init_s": init_s, **traffic["summary"],
-            "decode_steps": steps, "decode_launches": counts["decode_inline"],
+            "decode_steps": steps, "warmup_decode_steps": warmup_steps,
+            "decode_launches": counts["decode_inline"], **graph_stats(eng),
             "cold_prefills": colds, "prefill_launches": counts["prefill"],
             "prefill_launches_by_seq": counts["prefill_by_seq"],
             "launches": counts,
@@ -881,11 +1008,13 @@ def serve_and_sleep(torch, smi: str) -> dict:
         #    request 1 (a prefix-cache hit, the path every repeat takes)
         probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
         before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        ptrs, captures = state_ptrs(eng), eng.graph_captures
         cycles = []
         for _ in range(3):
             info = post(port, "/sleep?level=1")
             if not get(port, "/is_sleeping")["is_sleeping"]:
                 raise AssertionError("/is_sleeping is false after /sleep")
+            asleep = check_asleep(torch, eng, free_before)
             reserved = torch.cuda.memory_reserved()
             allocated = torch.cuda.memory_allocated()
             if reserved >= GIB:
@@ -906,18 +1035,26 @@ def serve_and_sleep(torch, smi: str) -> dict:
             after = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
             if after != before:
                 raise AssertionError(f"tokens changed across sleep/wake: {before[:8]} vs {after[:8]}")
+            if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+                raise AssertionError("a sleep/wake cycle re-captured a graph or moved a state tensor")
             nbytes = info["bytes_offloaded"]
             cycles.append({
                 "sleep_s": info["last_sleep_seconds"], "sleep_pin_s": pin_s,
                 "wake_s": woke["last_wake_seconds"],
                 "wake_alloc_s": service.sleeper.stats.last_alloc_seconds,
+                "wake_map_s": service.sleeper.stats.wake_map_s,
                 "wake_gib_per_s": nbytes / GIB / woke["last_wake_seconds"],
                 "reserved_while_asleep_bytes": reserved,
-                "allocated_while_asleep_bytes": allocated,
+                "allocated_while_asleep_bytes": allocated, **asleep,
             })
+        level2 = level2_cycle(torch, service, port, eng, free_before, probe, before, ptrs, captures)
+        check_replays(eng, path_counts(eng), "decode_inline")
         emit({
             "phase": "sleep_wake", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "bytes_offloaded": nbytes, "cycles": cycles, "tokens_identical": True,
+            "graph_captures_unchanged": True, "state_addresses_unchanged": len(ptrs),
+            "wake_bar_s": WAKE_BAR_S, "wake_within_bar": all(c["wake_s"] <= WAKE_BAR_S for c in cycles),
+            "level2": level2, **graph_stats(eng),
         })
         if get(port, "/health")["status"] != "OK":
             raise AssertionError("server is not healthy")
@@ -927,20 +1064,254 @@ def serve_and_sleep(torch, smi: str) -> dict:
         stop_service(torch, service, server)
 
 
+# a level-2 wake draws the weights into the live tensors one fp32 draw at a
+# time; the largest, the embedding's [128256, 4096], is 1.96 GiB, where a
+# second copy of the state would be 18.96 GiB
+LEVEL2_WAKE_PEAK = 3 * GIB
+
+
+def weight_sums(torch, eng) -> list:
+    """A float64 sum of every parameter, layer by layer for stacked ones."""
+    return [[x.sum(dtype=torch.float64).item() for x in (p if p.dim() == 3 else [p])] for p in eng.model.parameters()]
+
+
+def level2_cycle(torch, service, port, eng, free_before, probe, before, ptrs, captures) -> dict:
+    """One level-2 sleep and wake through the server: nothing mapped while
+    asleep; the wake draws the weights anew from the seed into the same
+    tensors (the same numbers: :func:`weight_sums` is unchanged), zeroes
+    the pool, allocates under ``LEVEL2_WAKE_PEAK`` of ordinary memory at
+    its peak, and moves and re-captures nothing; a
+    completion after it is 64 valid tokens (whether they equal the
+    level-1 repeat's is printed: the repeat hit the prefix cache, which
+    the level-2 wake emptied)."""
+    sums = weight_sums(torch, eng)
+    info = post(port, "/sleep?level=2")
+    asleep = check_asleep(torch, eng, free_before)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    woke = post(port, "/wake_up")
+    peak = torch.cuda.max_memory_allocated() - allocated
+    if peak >= LEVEL2_WAKE_PEAK:
+        raise AssertionError(f"the level-2 wake allocated {peak / GIB:.2f} GiB at its peak (limit {LEVEL2_WAKE_PEAK / GIB} GiB)")
+    if weight_sums(torch, eng) != sums:
+        raise AssertionError("the level-2 wake drew other weights than the engine's seed gives")
+    if any(t.view(torch.int16).any().item() for t in eng.pool.tensors()):
+        raise AssertionError("the level-2 wake left a non-zero page in the pool")
+    if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+        raise AssertionError("the level-2 wake re-captured a graph or moved a state tensor")
+    after = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+    if len(after) != 64 or not all(0 <= t < eng.cfg.model.vocab_size for t in after):
+        raise AssertionError(f"bad completion after the level-2 wake {after[:8]}...")
+    return {"sleep_s": info["last_sleep_seconds"], "wake_s": woke["last_wake_seconds"],
+            "wake_map_s": service.sleeper.stats.wake_map_s, "wake_peak_allocated_bytes": peak,
+            "weights_redrawn_equal": True, "pool_zero": True,
+            "tokens_equal_to_level1_repeat": after == before, **asleep}
+
+
+# -- phase graphs: the captured chunk against the eager one -----------------
+
+GRAPH_PROMPT_LENS = (20, 300, 1500, 3000) * 2  # the serve traffic's lengths, 8 slots
+GRAPH_SAMPLED = (1, 6)  # requests that sample (seeded), beside six greedy ones
+
+
+def pool_reserved_bytes(torch, pool) -> int:
+    """Bytes of the caching allocator's segments that belong to the graph
+    memory pool ``pool``."""
+    return sum(g["total_size"] for g in torch.cuda.memory_snapshot() if tuple(g.get("segment_pool_id", ())) == tuple(pool))
+
+
+def graph_parity(torch, eng, T: int, sampled: bool) -> dict:
+    """One chunk of ``T`` steps replayed from its graph, then — on a copy
+    of the state as it was before — run eagerly: tokens, logprobs, top-k
+    alternatives, the KV pool and the scheduler state must be bit-equal."""
+    slots = [s for s, r in eng._running().items() if r.temperature > 0]
+    if eng._dirty:
+        eng._upload_sched()
+    if sampled:
+        eng._draw_chunk_noise(slots, T)
+    state = eng.pool.tensors() + eng.sched_tensors()
+    saved = [t.clone() for t in state]
+    captures, eager0 = eng.graph_captures, read_counts()["decode_inline"]
+    replayed0 = graph_kernels(eng.graphs.replayed_launches())["decode_inline"]
+    replay = [x.clone() for x in flat_outputs(eng.graphs.replay(T, sampled))]
+    after_graph = [t.clone() for t in state]
+    eager_launches = read_counts()["decode_inline"] - eager0
+    replay_launches = graph_kernels(eng.graphs.replayed_launches())["decode_inline"] - replayed0
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    eager = flat_outputs(eng.chunk_eager(T, sampled))
+    torch.cuda.synchronize()
+    equal = {
+        "tokens": torch.equal(replay[0], eager[0]), "logprobs": torch.equal(replay[1], eager[1]),
+        "alternatives": all(torch.equal(a, b) for a, b in zip(replay[2:], eager[2:])),
+        "kv_pages": all(torch.equal(a, b) for a, b in zip(after_graph[:2], state[:2])),
+        "sched_state": all(torch.equal(a, b) for a, b in zip(after_graph[2:], state[2:])),
+    }
+    if not all(equal.values()) or eng.graph_captures != captures:
+        raise AssertionError(f"the replayed T={T} chunk (sampled={sampled}) differs from the eager one: {equal}")
+    if replay_launches != eng.cfg.model.num_layers * T or eager_launches:
+        raise AssertionError(f"the replay ran {replay_launches} decode kernel nodes (want {eng.cfg.model.num_layers} x {T}) "
+                             f"and {eager_launches} eager decode launches (want 0)")
+    del saved, after_graph
+    return {"T": T, "sampled": sampled, "sampled_slots": slots if sampled else [], "bit_equal": equal,
+            "decode_launches_replayed": replay_launches}
+
+
+KERNEL_KINDS = (
+    ("decode attention", ("decode_kernel",)),
+    ("weight products", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
+    ("top-k and sort", ("topk", "sort", "Sort", "radix", "select")),
+)
+
+
+def chunk_device_profile(torch, eng, T: int) -> dict:
+    """The device time of one replayed greedy chunk of ``T`` steps with
+    eight sequences running: its mean over three replays from CUDA events,
+    and its kernels from ``torch.profiler`` (one replay), summed by kind
+    and the largest by name. Each replay advances the running state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk_ms = time_ms(lambda: eng.graphs.replay(T, False), 3, warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.graphs.replay(T, False)
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            kernels.append((e.key, us / 1e3, e.count))
+    # the profiler's count of the decode kernel's runs in that replay, held
+    # against the kernel nodes read from the captured graph
+    ran = sum(c for name, _, c in kernels if "decode_kernel" in name)
+    nodes = graph_kernels(eng.graphs.programs[(T, False)].kernels)["decode_inline"]
+    if ran != nodes or ran != eng.cfg.model.num_layers * T:
+        raise AssertionError(f"the profiled replay ran the decode kernel {ran} times; its graph holds {nodes} "
+                             f"nodes, want {eng.cfg.model.num_layers} x {T}")
+    by_kind = {}
+    for name, ms, _ in kernels:
+        kind = next((k for k, marks in KERNEL_KINDS if any(m in name for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms / T
+    traced = sum(ms for _, ms, _ in kernels)
+    return {
+        "chunk_steps": T, "chunk_device_ms": chunk_ms, "step_device_ms": chunk_ms / T,
+        "decode_kernel_runs_profiled": ran, "decode_kernel_nodes": nodes,
+        "profiled_step_ms": traced / T if kernels else "not measured",
+        "profiled_step_ms_by_kind": by_kind or "not measured",
+        "largest_kernels": [{"name": n[:90], "ms_per_step": ms / T, "launches_per_step": c / T}
+                            for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:12]],
+    }
+
+
+def flat_outputs(out) -> list:
+    toks, lps, alts = out
+    return [toks, lps, *(alts or ())]
+
+
+def timed_run(torch, eng, prompts) -> dict:
+    """Eight requests through ``step()`` to 64 tokens each: batch tokens/s
+    over the whole run, TPOT per request (first token to last), and the
+    mean wall time of a decode step after the first engine step."""
+    reqs = [
+        eng.add_request(p, max_new_tokens=64, **({"temperature": 0.8, "seed": 7 + i} if i in GRAPH_SAMPLED else {}))
+        for i, p in enumerate(prompts)
+    ]
+    done, steps_wall, steps0 = {}, 0.0, None
+    t0 = time.monotonic()
+    while eng.has_work():
+        t_step = time.monotonic()
+        finished = eng.step()
+        torch.cuda.synchronize()
+        now = time.monotonic()
+        if steps0 is None:
+            steps0 = eng.decode_steps  # the first step prefilled all eight
+        else:
+            steps_wall += now - t_step
+        for r in finished:
+            done[r.seq_id] = (r, now)
+    wall = time.monotonic() - t0
+    if sorted(done) != sorted(reqs) or any(len(r.out_tokens) != 64 for r, _ in done.values()):
+        raise AssertionError("a timed request did not finish with 64 tokens")
+    tpot = [(now - r.first_token_time) / 63 for r, now in done.values()]
+    return {"batch_tok_per_s": 8 * 64 / wall, "wall_s": wall, "tpot_s_mean": sum(tpot) / len(tpot),
+            "tpot_s": tpot, "decode_step_ms": 1e3 * steps_wall / max(1, eng.decode_steps - steps0),
+            "tokens": [done[i][0].out_tokens for i in reqs]}
+
+
+def graphs_phase(torch, smi: str) -> dict:
+    """A llama3-8b engine at full width and depth built directly: the
+    captured T = 8 and T = 1 chunks held bit for bit against the eager
+    chunk on the same state, then TPOT and tokens/s with the graphs and
+    without them (on, off, off, on, in this one call)."""
+    import numpy as np
+
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    free_memory(torch)
+    reset_counts()
+    cfg = EngineConfig(model=llama.LlamaConfig.llama3_8b(), max_batch=8, num_pages=2048, prefix_caching=False)
+    t0 = time.monotonic()
+    eng = InferenceEngine(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    arena = eng.arenas[eng.device]
+    pool_bytes = pool_reserved_bytes(torch, eng.graphs.pool)
+    vocab = cfg.model.vocab_size
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in GRAPH_PROMPT_LENS]
+    for i, p in enumerate(prompts):  # room for the parity chunks and the profile's
+        eng.add_request(p, max_new_tokens=200, **({"temperature": 0.8, "seed": 7 + i} if i in GRAPH_SAMPLED else {}))
+    eng.step()  # eight cold prefills and the first chunk
+    if len(eng._running()) != 8:
+        raise AssertionError("the eight requests are not all running")
+    parity = [graph_parity(torch, eng, T, sampled) for T in (8, 1) for sampled in (True, False)]
+    device = chunk_device_profile(torch, eng, 8)
+    eng.abort_all("parity check done")
+    runs, graphs = {}, eng.graphs
+    for name in ("graphs_on", "graphs_off", "graphs_off_2", "graphs_on_2"):
+        eng.graphs = None if name.startswith("graphs_off") else graphs  # off: the eager chunk
+        runs[name] = timed_run(torch, eng, prompts)
+    eng.graphs = graphs
+    tokens = {k: r.pop("tokens") for k, r in runs.items()}
+    if any(t != tokens["graphs_off"] for t in tokens.values()):
+        raise AssertionError("the requests' tokens with the graphs differ from those without them")
+
+    def mean(key, on):
+        vals = [r[key] for k, r in runs.items() if k.startswith("graphs_on") == on]
+        return sum(vals) / len(vals)
+
+    out = {
+        "phase": "graphs", "model": "llama3-8b", "layers": cfg.model.num_layers, "batch": 8,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
+        "capture_s": eng.capture_s, "graph_captures": eng.graph_captures,
+        "graph_pool_reserved_bytes": pool_bytes, "arena_granularity": arena.granularity,
+        "arena_reserved_va_bytes": arena.reserved_va_bytes, "arena_mapped_bytes": arena.mapped_bytes,
+        "arena_blocks": len(arena.blocks), "parity": parity, "device": device, "runs": runs,
+        "tpot_s": {"graphs_on": mean("tpot_s_mean", True), "graphs_off": mean("tpot_s_mean", False)},
+        "batch_tok_per_s": {"graphs_on": mean("batch_tok_per_s", True), "graphs_off": mean("batch_tok_per_s", False)},
+        "decode_step_ms": {"graphs_on": mean("decode_step_ms", True), "graphs_off": mean("decode_step_ms", False)},
+        "tokens_equal_graphs_on_and_off": True,
+    }
+    emit(out)
+    return out
+
+
 def serve_packed(torch, smi: str, bucketed: dict) -> dict:
     """The serve phase's traffic through a packed server: prompts stream
     into mixed steps beside the running decode rows."""
     left_gib = free_memory(torch)
     opts = ("--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda "
             "--packed-serving on")
-    service, server, init_s = start_service(torch, opts)
+    service, server, init_s, _ = start_service(torch, opts)
     try:
         eng = service.engine
         L = eng.cfg.model.num_layers
         torch.cuda.reset_peak_memory_stats()
         traffic = run_traffic(torch, server.server_address[1], eng.cfg.model.vocab_size)
-        counts = read_counts()
+        counts = path_counts(eng)
         check_probe_launch(counts)
+        check_replays(eng, counts, "decode_inline")
         if eng.packed_steps == 0 or counts["ragged"] != L * eng.packed_steps:
             raise AssertionError(f"ragged kernel launches {counts['ragged']} != {L} x {eng.packed_steps} packed steps (> 0)")
         if counts["prefill"] or counts["ragged_sharded"]:
@@ -959,7 +1330,7 @@ def serve_packed(torch, smi: str, bucketed: dict) -> dict:
             "allocated_before_gib": left_gib, "init_s": init_s, **traffic["summary"],
             "bucketed": bucketed["summary"],
             "packed_steps": eng.packed_steps, "packed_tokens_total": eng.packed_tokens_total,
-            "decode_steps": eng.decode_steps, "launches": counts,
+            "decode_steps": eng.decode_steps, "launches": counts, **graph_stats(eng),
             "pad_waste_bytes": eng.pad_waste_bytes, "dispatch_tokens": eng.dispatch_tokens,
             "step_h2d_bytes": eng.step_h2d_bytes,
             "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
@@ -977,11 +1348,13 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
     two ranks, both on card 0. Then one level-1 sleep and wake. Returns
     the phase's numbers and its (stopped) engine, whose two-rank model
     the model-parity phase holds against the one-rank model."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.graphs import graphs_alive
+
     left_gib = free_memory(torch)
     tp = 2
     opts = ("--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --tensor-parallel-size 2 "
             "--device cuda:0,cuda:0 --packed-serving on")
-    service, server, init_s = start_service(torch, opts)
+    service, server, init_s, free_before = start_service(torch, opts)
     port = server.server_address[1]
     try:
         eng = service.engine
@@ -992,7 +1365,7 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         wq = [tuple(m.layers["wq"].shape) for m in eng.model.ranks]
         torch.cuda.reset_peak_memory_stats()
         traffic = run_traffic(torch, port, eng.cfg.model.vocab_size)
-        counts = read_counts()
+        counts = path_counts(eng)  # all eager: the mesh captures no graph
         check_probe_launch(counts)  # two ranks, one distinct device: one probe
         # read now: the sleep/wake probes below add steps of their own
         steps, decode_steps, packed_tokens = eng.packed_steps, eng.decode_steps, eng.packed_tokens_total
@@ -1014,10 +1387,15 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         # request 1 on this same engine (a prefix-cache hit)
         probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
         before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        ptrs = state_ptrs(eng)
         info = post(port, "/sleep?level=1")
+        asleep = check_asleep(torch, eng, free_before)
         reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
         if reserved != 0:
-            raise AssertionError(f"{reserved} bytes still reserved while the two-rank engine sleeps ({allocated} allocated)")
+            raise AssertionError(
+                f"{reserved} bytes still reserved while the two-rank engine sleeps ({allocated} allocated; "
+                f"an engine of this process holds captured graphs: {graphs_alive()})"
+            )
         if info["bytes_offloaded"] != bucketed["bytes_offloaded"]:
             raise AssertionError(
                 f"bytes_offloaded {info['bytes_offloaded']} at tp={tp} != {bucketed['bytes_offloaded']} at tp=1"
@@ -1028,8 +1406,10 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
             raise AssertionError(f"tokens changed across the two-rank sleep/wake: {before[:8]} vs {after[:8]}")
         if [tuple(k.shape) for k, _ in eng.pool.shards] != shard_shapes or any(
             k.device != d or v.device != d for (k, v), d in zip(eng.pool.shards, eng.mesh.devices)
-        ):
-            raise AssertionError("a pool shard did not come back to its rank")
+        ) or state_ptrs(eng) != ptrs:
+            raise AssertionError("a pool shard did not come back to its rank and its addresses")
+        if eng.graph_captures or eng.graph_replays:
+            raise AssertionError("the two-rank engine captured or replayed a graph (its chunk is eager)")
         host_bytes = info["bytes_offloaded"] + sum(t.numel() * t.element_size() for t in eng.model.replicas())
         emit({
             "phase": "serve_tp2_packed", "model": "llama3-8b", "layers": L, "tp": tp,
@@ -1051,8 +1431,9 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
                 "wake_s": woke["last_wake_seconds"],
                 "wake_gib_per_s": host_bytes / GIB / woke["last_wake_seconds"],
                 "reserved_while_asleep_bytes": reserved, "allocated_while_asleep_bytes": allocated,
-                "tokens_identical": True,
+                **asleep, "tokens_identical": True, "state_addresses_unchanged": len(ptrs),
             },
+            **graph_stats(eng),
             "note": "two ranks on one card add launches and remove none: times are for reading, not a claim",
         })
         if get(port, "/health")["status"] != "OK":
@@ -1069,13 +1450,14 @@ def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
     left_gib = free_memory(torch)
     opts = ("--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda "
             "--attention-impl reference")
-    service, server, init_s = start_service(torch, opts)
+    service, server, init_s, _ = start_service(torch, opts)
     try:
         eng = service.engine
         L = eng.cfg.model.num_layers
         traffic = run_traffic(torch, server.server_address[1], eng.cfg.model.vocab_size)
-        counts = read_counts()
+        counts = path_counts(eng)
         check_probe_launch(counts)
+        check_replays(eng, counts, "decode_scatter_first")
         if counts["decode_scatter_first"] != L * eng.decode_steps or eng.decode_steps == 0:
             raise AssertionError(
                 f"scatter-first decode launches {counts['decode_scatter_first']} != {L} x {eng.decode_steps} decode steps"
@@ -1089,7 +1471,7 @@ def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
             "phase": "serve_reference", "model": "llama3-8b", "layers": L,
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "allocated_before_gib": left_gib, "init_s": init_s, **traffic["summary"],
-            "decode_steps": eng.decode_steps, "launches": counts,
+            "decode_steps": eng.decode_steps, "launches": counts, **graph_stats(eng),
             "completions_equal_to_bucketed": f"{same}/{len(traffic['tokens'])} (bf16; not gated)",
             "first_difference_from_bucketed": first_differences(traffic["tokens"], bucketed["tokens"]),
         })
@@ -1308,6 +1690,7 @@ def main() -> int:
         emit({"phase": "kernel", **k, "nvidia_smi": smi})
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
     bucketed = serve_and_sleep(torch, smi)
+    graphs_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)

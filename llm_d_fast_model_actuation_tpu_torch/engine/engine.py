@@ -16,9 +16,13 @@ pool and three kinds of work:
     at ``RAGGED_BLOCK`` alignment, the ragged kernel's layout, on the CPU
     too;
   * the decode chunk — up to ``decode_chunk`` decode+sample steps for the
-    whole slot batch, run as a Python loop whose state (last tokens,
-    positions, budgets, token counts) stays on the device; the host reads
-    back one ``[T, b]`` token block per chunk.
+    whole slot batch (:meth:`InferenceEngine.chunk_body`), whose state
+    (last tokens, positions, budgets, token counts) stays on the device;
+    the host reads back one ``[T, b]`` token block per chunk. On one CUDA
+    device every chunk replays a CUDA graph captured when the engine
+    starts (``engine/graphs.py``, the port of the reference's
+    ``ProgramSet.chunk``); on the CPU and on a mesh the same function runs
+    eagerly (:meth:`InferenceEngine.chunk_eager`).
 
 Decode runs every slot every step (static shapes; empty slots write
 nothing and their outputs are ignored). Host mirrors of the scheduler
@@ -29,6 +33,15 @@ page table uploaded: the ``[b, vocab]`` count and bias rows of a free
 slot are already zero on the device, because its retire was uploaded in
 full. (The reference zeroes them in the mixed program, ``fresh_on``,
 because its retires leave them stale.)
+
+Every device tensor a chunk reads or writes is allocated once, in the
+engine's arenas (``engine/arena.py``), and only ever written in place:
+the weights, the page pool, the RoPE tables, the scheduler buffers (an
+upload copies the host mirrors into them) and the ``[T, b, w]`` Gumbel
+noise buffer, which the host fills from the per-slot generators before
+a sampled chunk runs (:meth:`InferenceEngine._draw_chunk_noise`). A
+sleep releases their memory and a wake maps it back at the same
+addresses, so the captured graphs replay unchanged after a wake.
 
 Tensor parallelism: ``InferenceEngine(cfg, mesh=...)`` (a
 ``parallel/mesh.py:TpMesh``) builds the model and the page pool sharded
@@ -42,7 +55,8 @@ device, where the gathered logits are sampled.
 Not ported yet, and refused rather than ignored (they are not fields of
 the port's ``EngineConfig``): speculative decoding, pipelined decode,
 co-resident variants, parking and migration, multi-host lockstep and AOT
-executables. CUDA graphs for the chunk are later work.
+executables. CUDA graphs for the prefill buckets and the packed step, and
+for the chunk on a mesh (a graph belongs to one device), are later work.
 """
 
 from __future__ import annotations
@@ -57,8 +71,9 @@ import numpy as np
 import torch
 
 from ..models import llama
-from ..models.registry import init_params_for
+from ..models.registry import fill_params_for
 from ..ops.attention import RAGGED_BLOCK, resolve_ragged_impl
+from .arena import Arena
 from .device import resolve_device
 from .kv_cache import OutOfPages, PageAllocator, PagePool
 from .sampling import gumbel, noise_width, sample
@@ -275,7 +290,9 @@ class InferenceEngine:
     :class:`~..models.llama.Llama` already on the device, or a state dict
     (``models/convert.py:params_from_jax``); with a ``mesh`` a
     :class:`~..models.llama.ShardedLlama` on it or its state dict
-    (``params_from_jax(..., mesh=)``). ``device``: None means the card
+    (``params_from_jax(..., mesh=)``). Either is copied into the engine's
+    arenas: a model passed in stays the caller's, and its weights are held
+    twice until the caller drops it. ``device``: None means the card
     and raises without one; the CPU must be asked for. ``mesh``
     (``parallel/mesh.py:serving_mesh``) names the ranks' devices itself:
     rank 0's is the engine's ``device``."""
@@ -323,25 +340,31 @@ class InferenceEngine:
                 from ..ops.cuda.build import check_launch
 
                 check_launch(d)
+        #: the engine's state on each of its devices, at stable addresses
+        self.arenas: Dict[torch.device, Arena] = {
+            d: Arena(d) for d in ([self.device] if mesh is None else mesh.distinct_devices())
+        }
+        self.model = (
+            llama.Llama(m, self.device, arena=self.arenas[self.device]) if mesh is None
+            else llama.ShardedLlama(m, mesh, arenas=self.arenas)
+        )
         if params is None:
-            self.model = self.init_model()
-        elif isinstance(params, (llama.Llama, llama.ShardedLlama)):
-            if isinstance(params, llama.ShardedLlama) != (mesh is not None) or (
-                mesh is not None and params.mesh.devices != mesh.devices
-            ):
-                raise ValueError("the model's mesh differs from the engine's")
-            if params.device != self.device:
-                raise ValueError(f"model is on {params.device}, engine on {self.device}")
-            if dataclasses.replace(params.cfg, attention_impl=impl) != m:
-                raise ValueError("the model's config differs from the engine's")
-            params.cfg = m
-            self.model = params
+            self.draw_params()
         else:
-            self.model = llama.Llama(m, self.device) if mesh is None else llama.ShardedLlama(m, mesh)
+            if isinstance(params, (llama.Llama, llama.ShardedLlama)):
+                if isinstance(params, llama.ShardedLlama) != (mesh is not None) or (
+                    mesh is not None and params.mesh.devices != mesh.devices
+                ):
+                    raise ValueError("the model's mesh differs from the engine's")
+                if params.device != self.device:
+                    raise ValueError(f"model is on {params.device}, engine on {self.device}")
+                if dataclasses.replace(params.cfg, attention_impl=impl) != m:
+                    raise ValueError("the model's config differs from the engine's")
+                params = params.state_dict()
             self.model.load_state_dict(params, strict=True)
         self.pool = PagePool.create(
             m.num_layers, cfg.num_pages, cfg.page_size, m.num_kv_heads,
-            m.head_dim, dtype=m.dtype, device=self.device, mesh=mesh,
+            m.head_dim, dtype=m.dtype, device=self.device, mesh=mesh, arenas=self.arenas,
         )
         self.allocator = PageAllocator(cfg.num_pages)
         if cfg.prefix_caching:
@@ -395,17 +418,35 @@ class InferenceEngine:
         #: stats of the most recent step's packed dispatch (None when the
         #: step dispatched none)
         self.last_step_stats: Optional[Dict[str, Any]] = None
-        self._dev: Optional[Dict[str, torch.Tensor]] = None  # device scheduler tensors
+        #: the device scheduler tensors (static: written in place only)
+        self._dev: Dict[str, Any] = self._alloc_sched()
+        #: the device copies of the host mirrors are stale
         self._dirty = True
         #: True while a SleepManager holds the state offloaded (engine/sleep.py)
         self.asleep = False
+        #: decode chunks the serving path ran, and the CUDA graphs captured
+        #: and replayed for them (engine/graphs.py)
+        self.decode_chunks = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
+        #: seconds the engine's start spent capturing its chunk graphs
+        self.capture_s = 0.0
+        #: the captured chunks (``engine/graphs.py:ChunkGraphs``) on one
+        #: CUDA device; None on the CPU and on a mesh, where chunks run eagerly
+        self.graphs = None
+        if mesh is None and self.device.type == "cuda":
+            from .graphs import ChunkGraphs
 
-    def init_model(self) -> "llama.Llama | llama.ShardedLlama":
-        """Fresh random parameters from the engine seed (also the level-2
-        wake's reinit); on a mesh the same numbers, sliced per rank."""
+            self.graphs = ChunkGraphs(self)
+            self.capture_s = self.graphs.capture()
+
+    def draw_params(self) -> None:
+        """Draw the model's parameters from the engine seed into its live
+        tensors, in place (at start, and at a level-2 wake); on a mesh the
+        same numbers, sliced per rank."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._seed)
-        return init_params_for(self.model_cfg, gen, self.device, mesh=self.mesh)
+        fill_params_for(self.model, gen)
 
     # -- device scheduler state ---------------------------------------------
 
@@ -431,13 +472,13 @@ class InferenceEngine:
             return pt
         return pt[:, :cols] if self.mesh is None else [p[:, :cols] for p in pt]
 
-    def _upload_sched(self) -> None:
-        """Push the host scheduler mirrors to the device."""
-        mirrors = {
+    def _mirrors(self) -> Dict[str, np.ndarray]:
+        """The host mirror of each device scheduler tensor but the page
+        table."""
+        return {
             "lt": self._last_tokens,
             "pos": self._positions,
             "budget": self._budgets,
-            "pt": self._page_table,
             "temps": self._temps,
             "topp": self._topps,
             "counts": self._token_counts,
@@ -446,10 +487,46 @@ class InferenceEngine:
             "eos_on": self._eos_on,
             "bias": self._bias,
         }
-        self._dev = {k: self._to_dev(v) for k, v in mirrors.items() if k != "pt"}
-        self._dev["pt"] = self._to_ranks(self._page_table)
+
+    def _alloc_sched(self) -> Dict[str, Any]:
+        """The device scheduler tensors, allocated once in the arena (tag
+        ``discard``: a wake rewrites them from the mirrors) and zero: the
+        mirrors' shapes and types, the page table once per distinct device
+        of a mesh (handed out per rank), and the ``[decode_chunk, b,
+        noise_width]`` Gumbel noise buffer of a chunk."""
+        arena = self.arenas[self.device]
+        dev: Dict[str, Any] = {
+            k: arena.zeros(a.shape, torch.from_numpy(a).dtype, "discard", k) for k, a in self._mirrors().items()
+        }
+        pt = self._page_table
+        if self.mesh is None:
+            self._pt_bufs = [arena.zeros(pt.shape, torch.int32, "discard", "pt")]
+            dev["pt"] = self._pt_bufs[0]
+        else:
+            bufs = {d: self.arenas[d].zeros(pt.shape, torch.int32, "discard", "pt") for d in self.mesh.distinct_devices()}
+            self._pt_bufs = list(bufs.values())
+            dev["pt"] = [bufs[d] for d in self.mesh.devices]
+        w = noise_width(self.cfg.model.vocab_size)
+        dev["noise"] = arena.zeros((self.cfg.decode_chunk, self.cfg.max_batch, w), torch.float32, "discard", "noise")
+        return dev
+
+    def sched_tensors(self) -> List[torch.Tensor]:
+        """Every device scheduler tensor, the noise buffer included."""
+        return [v for k, v in self._dev.items() if k != "pt"] + self._pt_bufs
+
+    def _copy_table(self) -> None:
+        host = torch.from_numpy(self._page_table)
+        for buf in self._pt_bufs:
+            buf.copy_(host)
+
+    def _upload_sched(self) -> None:
+        """Copy the host scheduler mirrors into the device tensors."""
+        mirrors = self._mirrors()
+        for k, a in mirrors.items():
+            self._dev[k].copy_(torch.from_numpy(a))
+        self._copy_table()
         self.step_h2d_bytes[self._h2d_path] += (
-            sum(a.nbytes for a in mirrors.values()) + self._extra_devices * self._page_table.nbytes
+            sum(a.nbytes for a in mirrors.values()) + (1 + self._extra_devices) * self._page_table.nbytes
         )
         self._dirty = False
 
@@ -458,9 +535,9 @@ class InferenceEngine:
         return "packed" if self.cfg.packed_serving else "bucketed"
 
     def drop_device_sched_state(self) -> None:
-        """Forget the device scheduler tensors (sleep path); the host
-        mirrors stay authoritative and the next dispatch re-uploads them."""
-        self._dev = None
+        """Mark the device scheduler tensors stale (a sleep releases their
+        memory): the host mirrors stay authoritative and the next dispatch
+        copies them in again."""
         self._dirty = True
 
     # -- request lifecycle --------------------------------------------------
@@ -526,6 +603,19 @@ class InferenceEngine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
         self._gens[req.slot] = gen
+
+    def _draw_chunk_noise(self, slots: Seq[int], T: int) -> None:
+        """Fill the noise buffer's first ``T`` steps before a chunk runs:
+        step ``t`` holds what :meth:`_draw_noise` draws for the chunk's
+        step ``t`` — one draw from each listed slot's generator, step by
+        step in the same order, so every seeded stream keeps its values —
+        and zeros in the other rows."""
+        w = noise_width(self.cfg.model.vocab_size)
+        noise = self._dev["noise"]
+        noise[:T].zero_()
+        for t in range(T):
+            for s in slots:
+                noise[t, s] = gumbel(torch.rand(w, generator=self._gens[s], device=self.device))
 
     def _draw_noise(self, slots: Seq[int], rows: int) -> torch.Tensor:
         """[rows, noise_width] Gumbel noise: one draw from each listed
@@ -931,12 +1021,12 @@ class InferenceEngine:
             "decode_rows": len(decode_reqs),
             "prefill_tokens": prefill_tokens,
         }
-        if self._dirty or self._dev is None:
+        if self._dirty:
             self._upload_sched()
         elif admitted:
             # the admissions wrote page-table rows; their slots' count and
             # bias rows are zero on the device since their last retire
-            self._dev["pt"] = self._to_ranks(self._page_table)
+            self._copy_table()
             self.step_h2d_bytes["packed"] += (1 + self._extra_devices) * self._page_table.nbytes
         sampled = [s for s in range(b) if sample_on[s] and self._temps[s] > 0]
         per_step = (tokens[:shape], row_slot[:shape], positions[:shape], count_row[:shape],
@@ -1046,30 +1136,53 @@ class InferenceEngine:
         # the batch's drain tail runs single steps (the reference's
         # drain_tail="single", its choice off-TPU)
         T = self.cfg.decode_chunk if max_remaining >= self.cfg.decode_chunk else 1
-        if self._dirty or self._dev is None:
+        if self._dirty:
             self._upload_sched()
-        d = self._dev
         sampled = [s for s, r in running.items() if r.temperature > 0]
+        if sampled:
+            self._draw_chunk_noise(sampled, T)
+        self.decode_chunks += 1
+        run = self.chunk_eager if self.graphs is None else self.graphs.replay
+        toks, lps, alts = run(T, bool(sampled))
+        return toks, lps, alts, running, T
+
+    @torch.no_grad()
+    def chunk_eager(self, T: int, sampled: bool) -> tuple:
+        """Run :meth:`chunk_body` eagerly (the CPU, a mesh, and the
+        warm-up before a capture); counts its ``T`` decode steps."""
+        out = self.chunk_body(T, sampled)
+        self.decode_steps += T
+        return out
+
+    def chunk_body(self, T: int, sampled: bool) -> tuple:
+        """One decode chunk over the static device state: ``T`` decode and
+        sample steps for every slot; a slot with budget 0 is inactive and
+        writes only the null page. ``sampled``: whether the noise buffer's
+        first ``T`` steps are read (:meth:`_draw_chunk_noise` fills them);
+        otherwise every row is greedy. Writes the last tokens, positions,
+        budgets and token counts back in place, reads nothing on the host,
+        and returns (tokens [T, b], logprobs [T, b], top-k alternatives or
+        None): what a CUDA graph captures (``engine/graphs.py``)."""
+        d = self._dev
         alt_k = self.cfg.logprobs_topk
         eos = self.cfg.eos_token_id
-        b = self.cfg.max_batch
-        rows = torch.arange(b, device=self.device)
         lt, pos, budget, counts = d["lt"], d["pos"], d["budget"], d["counts"]
         toks, lps, avs, ais = [], [], [], []
-        for _ in range(T):
+        for t in range(T):
             active = budget > 0
-            self.decode_steps += 1
             logits = llama.decode_step(self.model, lt, pos, self.pool.as_tuple(), self._table(), active)
             out = sample(
-                logits, d["temps"],
-                self._draw_noise(sampled, b) if sampled else None,
+                logits, d["temps"], d["noise"][t] if sampled else None,
                 top_p=d["topp"], counts=counts, presence_penalty=d["pres"],
                 frequency_penalty=d["freq"], alt_k=alt_k, bias=d["bias"],
             )
             nxt = torch.where(active, out[0], lt)
             a32 = active.to(torch.int32)
             # the emitted token joins the counts the NEXT step penalizes
-            counts.index_put_((rows, nxt.long()), a32, accumulate=True)
+            # (one index per row: a scatter-add, whose index check runs on the
+            # device; index_put_'s accumulate path may read its indices on the
+            # host, which a capture forbids)
+            counts.scatter_add_(1, nxt.long()[:, None], a32[:, None])
             pos = pos + a32
             budget = budget - a32
             if eos >= 0:
@@ -1080,9 +1193,11 @@ class InferenceEngine:
             if alt_k > 0:
                 avs.append(out[2])
                 ais.append(out[3])
-        d.update(lt=lt, pos=pos, budget=budget)
+        d["lt"].copy_(lt)
+        d["pos"].copy_(pos)
+        d["budget"].copy_(budget)
         alts = (torch.stack(avs), torch.stack(ais)) if alt_k > 0 else None
-        return torch.stack(toks), torch.stack(lps), alts, running, T
+        return torch.stack(toks), torch.stack(lps), alts
 
     def _drain_chunk(self, inflight) -> List[Request]:
         """Read one chunk's [T, b] results back (the one host sync per

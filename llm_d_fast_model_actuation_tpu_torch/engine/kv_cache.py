@@ -81,22 +81,28 @@ class PagePool:
         dtype: torch.dtype = torch.bfloat16,
         device: "torch.device | str" = "cpu",
         mesh=None,
+        arenas=None,
     ) -> "PagePool":
         """A zero pool on ``device``, or with a ``mesh``
         (``parallel/mesh.py:TpMesh``) one kv_heads/tp slice per rank on the
-        rank's device."""
+        rank's device. With ``arenas`` (device -> ``engine/arena.py:Arena``,
+        the engine's) each tensor is an allocation of its device's arena,
+        at an address a sleep and wake keep."""
+
+        def zeros(shape, d, name):
+            if arenas is None:
+                return torch.zeros(shape, dtype=dtype, device=d)
+            return arenas[d].zeros(shape, dtype, "offload", name)
+
         if mesh is None:
             shape = cls.pool_shape(num_layers, num_pages, page_size, num_kv_heads, head_dim)
-            return cls(
-                k_pages=torch.zeros(shape, dtype=dtype, device=device),
-                v_pages=torch.zeros(shape, dtype=dtype, device=device),
-            )
+            return cls(k_pages=zeros(shape, device, "k_pages"), v_pages=zeros(shape, device, "v_pages"))
         if num_kv_heads % mesh.tp:
             raise ValueError(f"num_kv_heads={num_kv_heads} is not divisible by tensor_parallel_size {mesh.tp}")
         shape = cls.pool_shape(num_layers, num_pages, page_size, num_kv_heads // mesh.tp, head_dim)
         shards = [
-            (torch.zeros(shape, dtype=dtype, device=d), torch.zeros(shape, dtype=dtype, device=d))
-            for d in mesh.devices
+            (zeros(shape, d, f"k_pages.{r}"), zeros(shape, d, f"v_pages.{r}"))
+            for r, d in enumerate(mesh.devices)
         ]
         return cls(k_pages=shards[0][0], v_pages=shards[0][1], shards=shards)
 

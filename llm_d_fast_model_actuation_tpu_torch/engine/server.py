@@ -192,6 +192,8 @@ def byte_text(ids: List[int]) -> str:
 
 class EngineService:
     """One engine plus its sleep manager, driven by one engine thread.
+    The engine is built, and on one card has captured its chunk graphs,
+    before the service takes a request.
 
     Requests enter through :meth:`submit` (any thread) and are resolved
     through futures. Sleep and wake are handed to the engine thread too
@@ -550,9 +552,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         check_engine_options(args)
     except ValueError as e:
         raise SystemExit(str(e))
-    service = EngineService(args)
+    service = EngineService(args)  # the engine captures its chunk graphs here
     server = serve(service, args.host, args.port)
-    print(f"serving {args.model} on http://{args.host}:{server.server_address[1]}", flush=True)
+    eng = service.engine
+    print(
+        f"serving {args.model} on http://{args.host}:{server.server_address[1]} "
+        f"(capture_s={eng.capture_s:.3f} graph_captures={eng.graph_captures} "
+        f"mapped_bytes={sum(a.mapped_bytes for a in eng.arenas.values())})",
+        flush=True,
+    )
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

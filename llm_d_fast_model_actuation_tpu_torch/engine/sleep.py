@@ -6,15 +6,22 @@ device release, transfer quantization, multi-host staging, hot-swap and
 tracing are not ported yet). Sleep levels (vLLM vocabulary):
 
   level 1 — weights and KV pages are copied into pinned host tensors on a
-            dedicated copy stream, the device tensors are freed and the
-            caching allocator's blocks are returned to the card
-            (``torch.cuda.empty_cache()``); wake copies them back.
-  level 2 — weights and KV are discarded; wake re-initializes them.
+            dedicated copy stream, then their device memory is unmapped
+            and released; wake maps new memory and copies them back.
+  level 2 — weights and KV are released without a copy; wake maps new
+            memory and writes a re-initialized state into it in place.
 
-The state's tensors keep their identity across a cycle: offload and
-restore swap each tensor's storage (``t.data = ...``), so the model
-module, its ``Parameter`` objects and the engine's pool references stay
-valid, and nothing that holds them has to be rebuilt.
+The state lives in the engine's arenas (``engine/arena.py``): device
+memory at addresses reserved when the engine starts. A sleep releases the
+physical memory under every allocation of them — the ``offload`` ones
+(weights, KV) after their copies have landed, the ``discard`` ones (RoPE
+tables, scheduler buffers, the noise buffer) without a copy — and a wake
+maps new memory at the same addresses before anything is copied back.
+So the state's tensors keep their objects, their storage and their
+``data_ptr()`` across a cycle: the model, its ``Parameter`` objects, the
+engine's pool and scheduler buffers stay valid, and the chunk's CUDA
+graphs (``engine/graphs.py``) replay unchanged after a wake. The owner
+rewrites the ``discard`` tensors when it is told the state is back.
 
 **Meshes.** The state of an engine on a tensor-parallel mesh is every
 rank's tensors. Each shard goes to a pinned host tensor of its own and
@@ -38,6 +45,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+
+from .arena import Arena, arena_of
+from .graphs import release_cached_memory
 
 
 def partition_buckets(
@@ -98,28 +108,33 @@ class _Stats:
     #: of last_sleep_seconds, the time spent allocating (pinning) the host
     #: buffers rather than copying into them
     last_pin_seconds: float = 0.0
-    #: of last_wake_seconds, the time spent allocating the device tensors
-    #: rather than copying into them
+    #: of last_wake_seconds, the time spent getting device memory back
+    #: (mapping it, in the arenas) rather than copying into it
     last_alloc_seconds: float = 0.0
+    #: of that, the time in the CUDA driver's cuMemCreate/cuMemMap/cuMemSetAccess
+    wake_map_s: float = 0.0
 
 
 class SleepManager:
     """Owns the awake/asleep state of one engine's device tensors.
 
     ``get_state()`` returns the live state (a nest of dicts/tuples of
-    tensors); ``set_state(None)`` tells the owner its state is offloaded,
-    ``set_state(state)`` that it is back."""
+    tensors, each an allocation of one of ``arenas``); ``set_state(None)``
+    tells the owner its state is released, ``set_state(state)`` that it is
+    back (the owner then rewrites its ``discard`` allocations)."""
 
     def __init__(
         self,
         get_state: Callable[[], Any],
         set_state: Callable[[Any], None],
         device: torch.device,
+        arenas: Sequence[Arena],
         bucket_bytes: Optional[int] = None,
         replicas: Optional[Callable[[], Sequence[torch.Tensor]]] = None,
     ) -> None:
         self._get_state = get_state
         self._set_state = set_state
+        self.arenas = list(arenas)
         #: the engine's (rank 0's) device; each tensor moves to and from
         #: the device it lives on
         self.device = torch.device(device)
@@ -130,8 +145,6 @@ class SleepManager:
         self._level = SleepLevel.AWAKE
         self._state: Any = None
         self._leaves: Optional[List[torch.Tensor]] = None
-        #: (shape, dtype) of each slept tensor, which a level-2 reinit must match
-        self._specs: List[tuple] = []
         self._host: Optional[List[torch.Tensor]] = None
         self._cuda = self.device.type == "cuda"
         #: the dedicated copy stream of both transfer directions, per device
@@ -150,9 +163,22 @@ class SleepManager:
     def devices_released(self) -> bool:
         return False  # device release is not ported yet
 
-    @staticmethod
-    def _empty(t: torch.Tensor) -> torch.Tensor:
-        return torch.empty(0, dtype=t.dtype, device=t.device)
+    def _unmap(self, leaves: Sequence[torch.Tensor]) -> None:
+        for t in leaves:
+            arena_of(self.arenas, t).unmap([t])
+
+    def _map(self, leaves: Sequence[torch.Tensor] = (), tag: Optional[str] = None) -> None:
+        """Map the leaves' memory back, and every arena's blocks with
+        ``tag``; times it."""
+        t0 = time.monotonic()
+        native0 = sum(a.map_seconds for a in self.arenas)
+        for t in leaves:
+            arena_of(self.arenas, t).map([t])
+        if tag is not None:
+            for arena in self.arenas:
+                arena.map(tag=tag)
+        self.stats.last_alloc_seconds += time.monotonic() - t0
+        self.stats.wake_map_s += sum(a.map_seconds for a in self.arenas) - native0
 
     def _copy(self, pairs: Sequence[tuple]) -> None:
         """``dst.copy_(src)`` for every pair. On the card, each device's
@@ -179,7 +205,7 @@ class SleepManager:
 
     def _offload(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
         """Device -> pinned host, bucket by bucket; each bucket's device
-        storage is released as soon as its copies have landed."""
+        memory is released as soon as its copies have landed."""
         host: List[Optional[torch.Tensor]] = [None] * len(leaves)
         self.stats.last_pin_seconds = 0.0
         for bucket in partition_buckets([_nbytes(t) for t in leaves], self.bucket_bytes):
@@ -190,26 +216,17 @@ class SleepManager:
                 )
             self.stats.last_pin_seconds += time.monotonic() - t_pin
             self._copy([(host[i], leaves[i]) for i in bucket])
-            for i in bucket:
-                leaves[i].data = self._empty(leaves[i])
+            self._unmap([leaves[i] for i in bucket])
         return host
 
     def _restore(self, leaves: List[torch.Tensor], host: List[torch.Tensor]) -> None:
-        """Pinned host -> device into the same tensor objects, bucket by
-        bucket; each bucket's host copy is dropped once it has landed."""
-        self.stats.last_alloc_seconds = 0.0
+        """Pinned host -> device into the same tensors, bucket by bucket:
+        each bucket's memory is mapped back first, and its host copy is
+        dropped once it has landed."""
         for bucket in partition_buckets([_nbytes(t) for t in host], self.bucket_bytes):
-            t_alloc = time.monotonic()
-            # allocated on the current stream, which uses them next; each
-            # on the device its (emptied) tensor object stayed on
-            dev = {
-                i: torch.empty(host[i].shape, dtype=host[i].dtype, device=leaves[i].device)
-                for i in bucket
-            }
-            self.stats.last_alloc_seconds += time.monotonic() - t_alloc
-            self._copy([(dev[i], host[i]) for i in bucket])
+            self._map([leaves[i] for i in bucket])
+            self._copy([(leaves[i], host[i]) for i in bucket])
             for i in bucket:
-                leaves[i].data = dev[i]
                 host[i] = None
 
     def sleep(self, level: int = 1) -> Dict[str, Any]:
@@ -227,48 +244,46 @@ class SleepManager:
         t0 = time.monotonic()
         self._state = self._get_state()
         leaves = self._leaves = flatten_state(self._state)
-        self._specs = [(t.shape, t.dtype) for t in leaves]
         repeated = {id(t) for t in self._replicas()} if self._replicas else set()
         nbytes = sum(_nbytes(t) for t in leaves if id(t) not in repeated)
         if level == SleepLevel.L1_HOST_OFFLOAD:
             self._host = self._offload(leaves)
         else:
             self._host = None
-            for t in leaves:
-                t.data = self._empty(t)
+            if self._cuda:
+                torch.cuda.synchronize()  # nothing queued may still read them
+            self._unmap(leaves)
         self._set_state(None)
+        for arena in self.arenas:
+            arena.unmap(tag="discard")
         if self._cuda:
-            # Return the freed blocks to the card, not just to the cache.
-            # cuBLAS keeps a workspace per handle as a live allocation that
-            # can sit inside a large cached segment and keep all of it
-            # reserved; it is re-created by the first product after wake.
-            torch._C._cuda_clearCublasWorkspaces()
-            torch.cuda.empty_cache()
+            # the caching allocator's free blocks go back to the card too
+            for dev in {t.device for t in leaves}:
+                release_cached_memory(dev)
         self._level = level
         self.stats.last_sleep_seconds = time.monotonic() - t0
         self.stats.bytes_offloaded = nbytes if level == SleepLevel.L1_HOST_OFFLOAD else 0
         self.stats.bytes_offloaded_full = self.stats.bytes_offloaded
         return self.describe()
 
-    def wake_up(self, reinit: Optional[Callable[[], Any]] = None) -> Dict[str, Any]:
-        """Restore device state. After a level-2 sleep, ``reinit()`` must
-        return a fresh state of the same structure (e.g. re-initialized
-        weights and a zero pool); its tensors are moved into the live
-        ones."""
+    def wake_up(self, reinit: Optional[Callable[[], None]] = None) -> Dict[str, Any]:
+        """Restore device state. After a level-2 sleep the state's memory
+        is mapped back, and then ``reinit()`` must write a fresh state
+        into the live tensors in place (e.g. weights drawn anew and a zero
+        pool), so the wake never holds the state twice."""
         if self._level == SleepLevel.AWAKE:
             return self.describe()
+        if self._level == SleepLevel.L2_DISCARD and reinit is None:
+            raise ValueError("level-2 wake requires a reinit callback")
         t0 = time.monotonic()
+        self.stats.last_alloc_seconds = self.stats.wake_map_s = 0.0
         leaves = self._leaves
         if self._level == SleepLevel.L1_HOST_OFFLOAD:
             self._restore(leaves, self._host)
         else:
-            if reinit is None:
-                raise ValueError("level-2 wake requires a reinit callback")
-            fresh = flatten_state(reinit())
-            if [(f.shape, f.dtype) for f in fresh] != self._specs:
-                raise ValueError("reinit state does not match the slept state")
-            for t, f in zip(leaves, fresh):
-                t.data = f.data
+            self._map(leaves)
+            reinit()
+        self._map(tag="discard")
         self._host = None
         self._leaves = None
         state, self._state = self._state, None
@@ -294,12 +309,12 @@ class SleepManager:
 
 def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:
     """Wire a SleepManager to an InferenceEngine: the offloadable state is
-    ``{"params": the model's parameters, "kv": the page pool}``. Page
-    tables and host bookkeeping stay put, so a level-1 wake resumes
-    in-flight sequences; the device scheduler tensors are dropped while
-    asleep and re-uploaded by the first chunk after the wake, and the
-    model's RoPE tables are rebuilt at wake: a 2 MiB table left on the
-    card can keep a whole cached allocator segment reserved."""
+    ``{"params": the model's parameters, "kv": the page pool}``, and the
+    engine's arenas hold it. Page tables and host bookkeeping stay put, so
+    a level-1 wake resumes in-flight sequences; the device scheduler
+    tensors are marked stale while asleep and copied in again by the first
+    dispatch after the wake, and the model's RoPE tables are written again
+    at wake."""
 
     def get_state():
         return {
@@ -310,25 +325,21 @@ def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:
     def set_state(state):
         if state is None:
             engine.drop_device_sched_state()
-            engine.model.free_tables()
             engine.asleep = True
         else:
             engine.model.build_tables()
             engine.asleep = False
 
     replicas = getattr(engine.model, "replicas", None)  # a sharded model's repeated norms
-    return SleepManager(get_state, set_state, engine.device, bucket_bytes=bucket_bytes, replicas=replicas)
+    return SleepManager(
+        get_state, set_state, engine.device, engine.arenas.values(), bucket_bytes=bucket_bytes, replicas=replicas
+    )
 
 
-def fresh_state(engine) -> Dict[str, Any]:
+def fresh_state(engine) -> None:
     """A level-2 wake's reinit for ``engine``: parameters drawn anew from
-    the engine seed and a zero pool, in ``attach_sleep``'s structure."""
-    model = engine.init_model()
-    tp = engine.mesh.tp if engine.mesh is not None else 1
-    shape = tuple(engine.pool.pool_shape(
-        engine.cfg.model.num_layers, engine.cfg.num_pages, engine.cfg.page_size,
-        engine.cfg.model.num_kv_heads // tp, engine.cfg.model.head_dim,
-    ))
-    # the slept pool's tensors are empty but keep their dtype and device
-    kv = [torch.zeros(shape, dtype=t.dtype, device=t.device) for t in engine.pool.tensors()]
-    return {"params": dict(model.named_parameters()), "kv": kv}
+    the engine seed into the live tensors and the pool zeroed, in place,
+    once the wake has mapped their memory back."""
+    engine.draw_params()
+    for t in engine.pool.tensors():
+        t.zero_()

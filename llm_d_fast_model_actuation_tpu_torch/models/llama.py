@@ -267,28 +267,37 @@ def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
 
 class Llama(nn.Module):
     """The decoder's parameters (uninitialized until loaded or
-    :func:`init_params` fills them) plus its RoPE table, all on one
-    device. Parameters never require grad: this is a serving model."""
+    :func:`fill_params` fills them) plus its RoPE table, all on one
+    device. Parameters never require grad: this is a serving model.
 
-    def __init__(self, cfg: LlamaConfig, device: "torch.device | str") -> None:
+    With an ``arena`` (``engine/arena.py``, the engine's) every parameter
+    and both RoPE tables are allocations of it, at addresses that a sleep
+    and wake keep; loading and drawing fill that storage in place. Without
+    one they are ordinary tensors (:func:`init_params`, the tests)."""
+
+    def __init__(self, cfg: LlamaConfig, device: "torch.device | str", arena=None) -> None:
         super().__init__()
         if cfg.quantization:
             raise ValueError(
                 f"quantization {cfg.quantization!r} is not supported by the port yet"
             )
         self.cfg = cfg
+
+        def empty(shape, dtype, tag, name):
+            if arena is None:
+                return torch.empty(shape, dtype=dtype, device=device)
+            return arena.empty(shape, dtype, tag, name)
+
         self.layers = nn.ParameterDict()
         for name, shape in param_shapes(cfg).items():
-            p = nn.Parameter(
-                torch.empty(shape, dtype=cfg.dtype, device=device),
-                requires_grad=False,
-            )
+            p = nn.Parameter(empty(shape, cfg.dtype, "offload", name), requires_grad=False)
             if name.startswith("layers."):
                 self.layers[name[len("layers."):]] = p
             else:
                 self.register_parameter(name, p)
-        self.register_buffer("rope_cos", None, persistent=False)
-        self.register_buffer("rope_sin", None, persistent=False)
+        table = (cfg.max_seq_len, cfg.head_dim // 2)
+        self.register_buffer("rope_cos", empty(table, torch.float32, "discard", "rope_cos"), persistent=False)
+        self.register_buffer("rope_sin", empty(table, torch.float32, "discard", "rope_sin"), persistent=False)
         self.build_tables()
 
     @property
@@ -296,19 +305,16 @@ class Llama(nn.Module):
         return self.rope_cos.device
 
     def build_tables(self) -> None:
-        """(Re)build the RoPE tables on the model's device."""
+        """Write the RoPE tables into their storage (at start, and again
+        after a wake, which brings that storage back with no content), bit
+        for bit the same each time."""
         cfg = self.cfg
-        device = self.embed.device
-        self.rope_cos, self.rope_sin = rope_table(
+        cos, sin = rope_table(
             cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-            device=device,
+            device=self.rope_cos.device,
         )
-
-    def free_tables(self) -> None:
-        """Free the RoPE tables (a sleeping model holds no device memory;
-        :meth:`build_tables` restores them, bit for bit)."""
-        self.rope_cos = torch.empty(0, device=self.rope_cos.device)
-        self.rope_sin = torch.empty(0, device=self.rope_sin.device)
+        self.rope_cos.copy_(cos)
+        self.rope_sin.copy_(sin)
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Views of layer ``i``'s weights (the scan body's ``lp``)."""
@@ -324,12 +330,15 @@ class ShardedLlama(nn.Module):
     split weight and a copy of every replicated one. ``cfg`` is the
     GLOBAL config; each rank's own is :func:`shard_config` of it."""
 
-    def __init__(self, cfg: LlamaConfig, mesh: TpMesh) -> None:
+    def __init__(self, cfg: LlamaConfig, mesh: TpMesh, arenas=None) -> None:
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
         local = shard_config(cfg, mesh.tp)
-        self.ranks = nn.ModuleList(Llama(local, d) for d in mesh.devices)
+        # each rank's state in its device's arena (``arenas``: device -> arena)
+        self.ranks = nn.ModuleList(
+            Llama(local, d, arena=None if arenas is None else arenas[d]) for d in mesh.devices
+        )
 
     @property
     def device(self) -> torch.device:
@@ -339,10 +348,6 @@ class ShardedLlama(nn.Module):
     def build_tables(self) -> None:
         for m in self.ranks:
             m.build_tables()
-
-    def free_tables(self) -> None:
-        for m in self.ranks:
-            m.free_tables()
 
     def replicas(self) -> List[torch.Tensor]:
         """The parameters of ranks 1.. that repeat rank 0's (norms and the
@@ -376,20 +381,27 @@ def init_params(
 ) -> "Llama | ShardedLlama":
     """Random-init parameters (serving loads checkpoints; random init is
     for tests and benchmarks), drawn from ``generator``, which must live
-    on ``device``. Same distributions as the reference (normal scaled by
-    fan_in**-0.5, identity norms); not the same numbers — JAX's threefry
-    and torch's Philox differ. Stacked weights are drawn one layer at a
-    time, so the fp32 staging never exceeds one layer's slice.
+    on ``device``: a new model, filled by :func:`fill_params`. With a
+    ``mesh`` (``device`` is then its rank 0's) a :class:`ShardedLlama`."""
+    model: "Llama | ShardedLlama" = Llama(cfg, device) if mesh is None else ShardedLlama(cfg, mesh)
+    fill_params(model, generator)
+    return model
 
-    With a ``mesh`` (``device`` is then its rank 0's) the FULL tensor of
-    each layer is drawn and every rank is copied its slice, so a seed
-    gives a sharded model the very numbers it gives a single-device one."""
-    if mesh is None:
-        model: "Llama | ShardedLlama" = Llama(cfg, device)
-        ranks = [model]
-    else:
-        model = ShardedLlama(cfg, mesh)
-        ranks = list(model.ranks)
+
+def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> None:
+    """Draw ``model``'s parameters from ``generator`` (on the model's
+    device) into its tensors, in place. Same distributions as the
+    reference (normal scaled by fan_in**-0.5, identity norms); not the
+    same numbers — JAX's threefry and torch's Philox differ. Stacked
+    weights are drawn one layer at a time and one draw is staged at a
+    time, so the fp32 staging never exceeds the largest slice (the
+    embedding's, at Llama-3-8B 2.1 GB).
+
+    On a :class:`ShardedLlama` the FULL tensor of each layer is drawn and
+    every rank is copied its slice, so a seed gives a sharded model the
+    very numbers it gives a single-device one."""
+    ranks = list(model.ranks) if isinstance(model, ShardedLlama) else [model]
+    cfg, device = model.cfg, model.device
     tp = len(ranks)
     shapes, dims = param_shapes(cfg), param_tp_dims(cfg)
     fill = 0.0 if cfg.norm_offset else 1.0
@@ -416,7 +428,7 @@ def init_params(
                     for r, p in enumerate(dests):
                         piece = src if tp == 1 else shard(src, dim - 1 if stacked and dim else dim, r, tp)
                         (p[i] if stacked else p).copy_(piece)
-    return model
+                    del src, piece  # the next draw's staging replaces this one, not beside it
 
 
 # -- forward -----------------------------------------------------------------

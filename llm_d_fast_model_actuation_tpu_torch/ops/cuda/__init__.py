@@ -3,7 +3,8 @@
 The counterpart of the JAX package's ``ops/pallas/``: each module holds a
 kernel's launch wrapper beside the plain PyTorch version of the same
 function. A wrapper runs the plain version for CPU tensors and the kernel
-for CUDA tensors, and counts its kernel launches in ``launches``.
+for CUDA tensors, and counts its kernel launches in ``launches`` (eager
+ones: a launch into a CUDA graph capture runs nothing and is not counted).
 """
 
 from .build import launch_probe, launch_probe_plain  # noqa: F401

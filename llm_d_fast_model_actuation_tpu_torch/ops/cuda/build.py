@@ -40,6 +40,8 @@ SOURCES = {
     "prefill": "prefill.cu",
     "ragged": "ragged.cu",
     "probe": "probe.cu",
+    # host code only: the engine's stable-address memory (engine/arena.py)
+    "arena": "arena.cu",
 }
 
 NVCC_FLAGS = [
@@ -179,11 +181,25 @@ def launch_probe(x: torch.Tensor) -> torch.Tensor:
             err = fn(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe kernel launch failed: CUDA error {err}")
-    launch_probe.launches += 1
+    count_launch(launch_probe)
     return out
 
 
 launch_probe.launches = 0
+
+
+def count_launch(wrapper, by: str = "", key=None) -> None:
+    """One launch of ``wrapper``'s kernel: add it to ``wrapper.launches``,
+    and to ``wrapper.<by>[key]`` when ``by`` is named. Not while the
+    current stream is capturing a CUDA graph: a capture records the launch
+    and runs nothing (``engine/graphs.py`` reads what a replay runs from
+    the captured graph itself)."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    wrapper.launches += 1
+    if by:
+        counts = getattr(wrapper, by)
+        counts[key] = counts.get(key, 0) + 1
 
 
 def check_launch(device: torch.device) -> None:

@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from .build import count_launch
+
 NEG_INF = -1e30
 
 _HEAD_DIMS = (64, 128, 256)
@@ -235,7 +237,7 @@ def _launch_inline(q, k_pages, v_pages, k_new, v_new, page_table, positions) -> 
         _kernels()[0], q, (k_pages, v_pages, k_new, v_new, page_table, positions),
         (b, h, kvh, d, ps, page_table.shape[1], d**-0.5),
     )
-    paged_decode_attention_inline.launches += 1
+    count_launch(paged_decode_attention_inline)
     return out
 
 
@@ -247,7 +249,7 @@ def _launch_scatter_first(q, k_pages, v_pages, page_table, seq_lens) -> torch.Te
         _kernels()[1], q, (k_pages, v_pages, page_table, seq_lens),
         (b, h, kvh, d, ps, page_table.shape[1], d**-0.5),
     )
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 

@@ -30,6 +30,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .build import count_launch
+
 NEG_INF = -1e30
 
 _HEAD_DIMS = (64, 128, 256)
@@ -251,9 +253,7 @@ def _launch(q, k, v, seq_lens) -> torch.Tensor:
         raise RuntimeError(f"prefill kernel: a tensor map was refused (CUresult {err - 1000})")
     if err != 0:
         raise RuntimeError(f"prefill kernel launch failed: CUDA error {err}")
-    causal_prefill_attention.launches += 1
-    by_seq = causal_prefill_attention.launches_by_seq
-    by_seq[s] = by_seq.get(s, 0) + 1
+    count_launch(causal_prefill_attention, "launches_by_seq", s)
     return out
 
 

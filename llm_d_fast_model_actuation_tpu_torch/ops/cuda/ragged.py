@@ -51,6 +51,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from .build import count_launch
+
 NEG_INF = -1e30
 
 #: token rows per kernel block (the reference's ``RAGGED_BLOCK``)
@@ -214,9 +216,10 @@ _lib = None
 #: layout's plan serves every call with that layout
 _plans: Dict[tuple, ctypes.Array] = {}
 #: (K base, V base, pool layout) -> the two encoded tensor maps. A map holds its
-#: pool's base address, and a level-1 wake puts new storage into the same
-#: pool tensors, so maps are keyed by base, never by shape alone; a wake
-#: that lands elsewhere encodes new maps. Bounded: cleared when full.
+#: pool's base address, so maps are keyed by base, never by shape alone. An
+#: engine's pool keeps its base across a sleep and wake (engine/arena.py),
+#: so its maps are encoded once; another pool encodes its own. Bounded:
+#: cleared when full.
 _maps: Dict[tuple, ctypes.Array] = {}
 _MAPS_MAX = 1024
 
@@ -346,11 +349,6 @@ def _launch(q, k_pages, v_pages, page_table, row_slot, positions) -> torch.Tenso
     return out
 
 
-def _count(wrapper, rows: int) -> None:
-    wrapper.launches += 1
-    wrapper.launches_by_rows[rows] = wrapper.launches_by_rows.get(rows, 0) + 1
-
-
 def ragged_paged_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -366,7 +364,7 @@ def ragged_paged_attention(
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pages, v_pages, page_table, row_slot, positions)
     out = _launch(q, k_pages, v_pages, page_table, row_slot, positions)
-    _count(ragged_paged_attention, q.shape[0])
+    count_launch(ragged_paged_attention, "launches_by_rows", q.shape[0])
     return out
 
 
@@ -429,7 +427,7 @@ def ragged_paged_attention_sharded(
     outs = []
     for r in range(mesh.tp):
         outs.append(_launch(q_shards[r], k_pages_shards[r], v_pages_shards[r], pt[r], rs[r], pos[r]))
-        _count(ragged_paged_attention_sharded, q_shards[r].shape[0])
+        count_launch(ragged_paged_attention_sharded, "launches_by_rows", q_shards[r].shape[0])
     return outs
 
 

@@ -69,7 +69,8 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 def test_the_walk_covers_the_parallel_package():
     mods = set(_modules())
-    for m in ("parallel", "parallel.mesh", "models.llama", "ops.cuda.ragged", "engine.server"):
+    for m in ("parallel", "parallel.mesh", "models.llama", "ops.cuda.ragged", "engine.server", "engine.arena",
+              "engine.graphs"):
         assert f"llm_d_fast_model_actuation_tpu_torch.{m}" in mods
 
 

@@ -48,6 +48,7 @@ from llm_d_fast_model_actuation_tpu_torch.models.convert import (
 )
 from llm_d_fast_model_actuation_tpu_torch.ops import attention as tattn
 from llm_d_fast_model_actuation_tpu_torch.ops.cuda import ragged as tragged
+from llm_d_fast_model_actuation_tpu_torch.ops.rope import rope_table
 from llm_d_fast_model_actuation_tpu_torch.parallel import mesh as tmesh
 
 TOL = 2e-4  # float32 logits and pages, tp=2 against tp=1 and against JAX
@@ -420,11 +421,11 @@ def test_sharded_sleep_wake(packed, jax_mesh2):
     )
     gold = eng.generate([[3, 1, 4]], max_new_tokens=4)[0]
     objects = list(eng.model.parameters()) + eng.pool.tensors()
-    before = [(id(t), t.device, tuple(t.shape)) for t in objects]
+    before = [(id(t), t.device, tuple(t.shape), t.data_ptr()) for t in objects]
     mgr = tsleep.attach_sleep(eng)
     info = mgr.sleep(1)
-    assert eng.asleep and all(t.numel() == 0 for t in objects)
-    assert all(m.rope_cos.numel() == 0 for m in eng.model.ranks)
+    # every rank's device memory is released, the RoPE tables' too
+    assert eng.asleep and all(a.mapped_bytes == 0 for a in eng.arenas.values())
     # the global size, as the reference counts a sharded state: the same
     # figure as on one device, replicated norms counted once
     assert info["bytes_offloaded"] == jsleep.attach_sleep(jeng).sleep(1)["bytes_offloaded"] > 0
@@ -435,9 +436,11 @@ def test_sharded_sleep_wake(packed, jax_mesh2):
     assert held == info["bytes_offloaded"] + sum(tsleep._nbytes(h) for h, t in zip(mgr._host, mgr._leaves)
                                                  if any(t is r for r in eng.model.replicas()))
     mgr.wake_up()
-    assert [(id(t), t.device, tuple(t.shape)) for t in objects] == before  # each shard back where it was
+    # each shard back where it was, at the same address
+    assert [(id(t), t.device, tuple(t.shape), t.data_ptr()) for t in objects] == before
     assert eng.model.ranks[1].layers["wq"].shape[-1] == tcfg.model.q_dim // 2
-    assert all(m.rope_cos.numel() > 0 for m in eng.model.ranks)
+    assert all(torch.equal(m.rope_cos, rope_table(m.cfg.max_seq_len, m.cfg.head_dim, m.cfg.rope_theta, m.cfg.rope_scaling)[0])
+               for m in eng.model.ranks)
     assert eng.generate([[3, 1, 4]], max_new_tokens=4)[0] == gold
 
 
