@@ -67,6 +67,20 @@ exits non-zero and never prints the final ``ok`` line):
      sums), the pool zero, under 3 GiB of ordinary memory at the wake's
      peak (``LEVEL2_WAKE_PEAK``), no state moved and no graph captured
      again;
+  serve_hf — the phase-4 engine's seeded weights, still on the card,
+     written as a Hugging Face checkpoint in Llama-3-8B's published layout
+     (four safetensors shards, their index, ``config.json`` and a
+     ``generation_config.json`` with eos [128001, 128009]; 16.06 GB, one
+     tensor at a time through the host) into a temporary directory on
+     local disk (refused loudly when no disk has room; deleted at the
+     end), then the port's server on ``--model hf:<dir>`` with phase 4's
+     options: the weights loaded into the arena before the captures
+     (``LoadStats`` printed with its GB/s); the phase-4 traffic with
+     ``ignore_eos`` bit-equal to phase 4's tokens; a string prompt with a
+     string stop, the same request streamed, a chat completion streamed
+     and not, one request with ``logprobs: 2``; a level-1 sleep and wake
+     and a level-2 sleep and wake that reads the directory again, each
+     with identical tokens, no capture and no state moved;
   graphs — a llama3-8b engine at full width and depth built directly,
      eight requests of the serve traffic's lengths (two of them sampled,
      seeded) prefilled; then for T = 8 and T = 1, sampled and greedy, one
@@ -102,13 +116,18 @@ exits non-zero and never prints the final ``ok`` line):
      a captured graph for every decode chunk, as phase 4 does. Phases 6 to 8 print, per
      completion, the first position where its greedy tokens leave phase
      4's (``first_difference_from_bucketed``);
-  9. model_parity — on phase 8's weights at full width: ``mixed_step``
-     over a 300-token prompt against ``prefill`` (last row's logits), and
-     one scatter-first ``decode_step`` against the inline one on the same
-     state, each within a tolerance stated from bf16 rounding; then
-     phase 7's two-rank model (the same seed, so the same weights)
-     against the one-rank model: ``mixed_step`` and ``decode_step``;
-     then (``greedy_divergence``, not gated) one prefill of the one-rank
+  9. model_parity — on phase 8's weights at full width, every bf16 path
+     on one 300-token prompt — ``prefill``, ``mixed_step`` at tp 1 and at
+     tp 2 (phase 7's two-rank model, the same seed), the inline decode at
+     tp 1 and 2 and the scatter-first decode of the next token — against
+     an fp32 oracle of the same bf16 weights (the plain forward, a layer
+     upcast at a time), each within a limit derived beside
+     ``ROUNDING_RMS`` from bf16 rounding, the tp 2 figures within 1.40x
+     of tp 1's, the argmax the oracle's but at a near-tie; the old pairwise
+     figures printed beside, ungated; two planted faults (layer 0's
+     ``w_down`` reduce dropping rank 1's share, and two KV heads swapped
+     in layer 0's cache) must be refused by the same gate; then
+     (``greedy_divergence``, not gated) one prefill of the one-rank
      model over each diverging request's prompt and agreed tokens, and
      the top-2 logit margin where the tokens part;
   10. kernels line — every ported kernel with its TPU source and numbers,
@@ -129,7 +148,9 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -899,18 +920,20 @@ def free_memory(torch) -> float:
     return torch.cuda.memory_allocated() / GIB
 
 
-def run_traffic(torch, port: int, vocab: int) -> dict:
+def run_traffic(torch, port: int, vocab: int, ignore_eos: bool = False) -> dict:
     """The serve phases' traffic: four concurrent greedy completions
     (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then a
-    fifth request sharing a 512-token prefix with the third."""
+    fifth request sharing a 512-token prefix with the third; with
+    ``ignore_eos`` each request asks to decode past eos."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, vocab, n).tolist() for n in (20, 300, 1500, 3000)]
     results = [None] * len(prompts)
+    extra = {"ignore_eos": True} if ignore_eos else {}
 
     def one(i):
-        results[i] = post(port, "/v1/completions", {"prompt": prompts[i], "max_tokens": 64})
+        results[i] = post(port, "/v1/completions", {"prompt": prompts[i], "max_tokens": 64, **extra})
 
     t1 = time.monotonic()
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
@@ -925,7 +948,7 @@ def run_traffic(torch, port: int, vocab: int) -> dict:
     # 200 fresh ids -> a prefix-cache hit
     shared = prompts[2][:512] + rng.integers(0, vocab, 200).tolist()
     t2 = time.monotonic()
-    fifth = post(port, "/v1/completions", {"prompt": shared, "max_tokens": 64})
+    fifth = post(port, "/v1/completions", {"prompt": shared, "max_tokens": 64, **extra})
     fifth_s = time.monotonic() - t2
     torch.cuda.synchronize()
     for r in results + [fifth]:
@@ -962,7 +985,10 @@ def check_probe_launch(counts: dict) -> None:
         raise AssertionError(f"the engine launched the probe kernel {counts['probe']} times at start, want 1")
 
 
-def serve_and_sleep(torch, smi: str) -> dict:
+def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
+    """The ``serve`` and ``sleep_wake`` phases; at the end, with the
+    seeded weights still on the card, they are written to ``ckpt`` as a
+    Hugging Face checkpoint for ``serve_hf``."""
     # the reference EngineConfig's default pool: 2048 pages x 16 tokens
     opts = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
     service, server, init_s, free_before = start_service(torch, opts)
@@ -1058,8 +1084,9 @@ def serve_and_sleep(torch, smi: str) -> dict:
         })
         if get(port, "/health")["status"] != "OK":
             raise AssertionError("server is not healthy")
+        written = write_hf_checkpoint(torch, eng.model, ckpt)
         return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"],
-                "prompts": traffic["request_prompts"], "bytes_offloaded": nbytes}
+                "prompts": traffic["request_prompts"], "bytes_offloaded": nbytes, "checkpoint": written}
     finally:
         stop_service(torch, service, server)
 
@@ -1107,6 +1134,249 @@ def level2_cycle(torch, service, port, eng, free_before, probe, before, ptrs, ca
             "wake_map_s": service.sleeper.stats.wake_map_s, "wake_peak_allocated_bytes": peak,
             "weights_redrawn_equal": True, "pool_zero": True,
             "tokens_equal_to_level1_repeat": after == before, **asleep}
+
+
+# -- phase serve_hf: a Hugging Face checkpoint directory -------------------
+
+#: the published Llama-3-8B checkpoint's largest shard: four shards
+HF_SHARD_BYTES = 5_000_000_000
+#: Llama-3-8B's published config.json and generation_config.json (the
+#: fields the loader reads, and their neighbours)
+HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_act": "silu",
+    "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "vocab_size": 128256, "max_position_embeddings": 8192, "rms_norm_eps": 1e-05,
+    "rope_theta": 500000.0, "rope_scaling": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 128000, "eos_token_id": 128001, "attention_bias": False,
+}
+HF_GENERATION = {"bos_token_id": 128000, "eos_token_id": [128001, 128009]}
+#: names of the layer tensors in the HF layout -> (the port's parameter,
+#: transposed): HF keeps (out, in), the port (in, out)
+HF_LAYER = {
+    "input_layernorm.weight": ("attn_norm", False), "mlp.down_proj.weight": ("w_down", True),
+    "mlp.gate_proj.weight": ("w_gate", True), "mlp.up_proj.weight": ("w_up", True),
+    "post_attention_layernorm.weight": ("mlp_norm", False), "self_attn.k_proj.weight": ("wk", True),
+    "self_attn.o_proj.weight": ("wo", True), "self_attn.q_proj.weight": ("wq", True),
+    "self_attn.v_proj.weight": ("wv", True),
+}
+
+
+def hf_tensors(model) -> list:
+    """(HF name, a function giving the tensor on the card in the HF
+    layout) for every weight of a one-rank Llama-3 ``model``, in the
+    published checkpoint's order."""
+    out = [("model.embed_tokens.weight", lambda: model.embed)]
+    for i in range(model.cfg.num_layers):
+        for suffix, (name, transposed) in HF_LAYER.items():
+            out.append((f"model.layers.{i}.{suffix}",
+                        lambda i=i, name=name, t=transposed: model.layers[name][i].t() if t else model.layers[name][i]))
+    out += [("model.norm.weight", lambda: model.final_norm), ("lm_head.weight", lambda: model.lm_head.t())]
+    return out
+
+
+def checkpoint_dir(need: int) -> str:
+    """A new directory on local disk with ``need`` bytes free (and 1 GiB
+    more): under the checkout's ``build/``, else under the temporary
+    directory; raises, naming what is free, when neither has room."""
+    import tempfile
+
+    free = {}
+    for base in (os.path.join(ROOT, "build"), tempfile.gettempdir()):
+        os.makedirs(base, exist_ok=True)
+        free[base] = shutil.disk_usage(base).free
+        if free[base] >= need + GIB:
+            return tempfile.mkdtemp(prefix="hf-checkpoint-", dir=base)
+    raise RuntimeError(f"no local disk has room for the {need}-byte checkpoint: free bytes {free}")
+
+
+def write_hf_checkpoint(torch, model, path: str) -> dict:
+    """``model``'s weights as a Hugging Face Llama checkpoint in ``path``,
+    in Llama-3-8B's published layout: shards of at most
+    ``HF_SHARD_BYTES`` named ``model-0000k-of-0000n.safetensors``, their
+    index, ``config.json`` and ``generation_config.json``; no tokenizer.
+    One tensor at a time passes through the host."""
+    from llm_d_fast_model_actuation_tpu_torch.models import safetensors
+
+    t0 = time.monotonic()
+    tensors = hf_tensors(model)
+    specs = {name: fn() for name, fn in tensors}  # views on the card, no copy
+    shards, cur, size = [], [], 0
+    for name, _ in tensors:
+        nbytes = specs[name].numel() * specs[name].element_size()
+        if cur and size + nbytes > HF_SHARD_BYTES:
+            shards.append(cur)
+            cur, size = [], 0
+        cur.append(name)
+        size += nbytes
+    shards.append(cur)
+    weight_map, total = {}, 0
+    for k, names in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        entries = [(n, specs[n].dtype, tuple(specs[n].shape)) for n in names]
+        total += safetensors.write_file(os.path.join(path, fname), entries, lambda n: specs[n].contiguous(),
+                                        metadata={"format": "pt"})
+        weight_map.update({n: fname for n in names})
+    data_bytes = sum(specs[n].numel() * specs[n].element_size() for n in weight_map)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": data_bytes}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(HF_CONFIG, f)
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump(HF_GENERATION, f)
+    del specs
+    return {"shards": len(shards), "tensors": len(weight_map), "data_bytes": data_bytes, "file_bytes": total,
+            "write_s": time.monotonic() - t0}
+
+
+def sse(port: int, path: str, body) -> list:
+    """POST a streamed request; its events (JSON objects), checked to end
+    with ``[DONE]``."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(dict(body, stream=True)).encode(),
+        method="POST", headers={"Content-Type": "application/json"},
+    )
+    events = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not r.headers["Content-Type"].startswith("text/event-stream"):
+            raise AssertionError(f"a streamed request answered {r.headers['Content-Type']}")
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                return events
+            events.append(json.loads(line[6:]))
+    raise AssertionError(f"the stream ended without [DONE] after {len(events)} events")
+
+
+def text_traffic(port: int) -> dict:
+    """The string and chat requests of serve_hf, each gated: a string
+    prompt with a string stop (taken from the unstopped text, so it
+    matches), the same request streamed, a chat completion streamed and
+    not, and one request with ``logprobs: 2``."""
+    body = {"prompt": "The quick brown fox", "max_tokens": 24, "ignore_eos": True}
+    # every request below but the first finds the prompt's first page in
+    # the prefix cache, whose path rounds differently from a cold prefill:
+    # the first one fills the cache, the rest compare like with like
+    post(port, "/v1/completions", body)
+    full = post(port, "/v1/completions", body)["choices"][0]
+    text = full["text"]
+    # random weights give random bytes: the stop is the first character
+    # past the second that is not U+FFFD and occurs there first
+    cut = next((k for k in range(2, len(text)) if text[k] != "\ufffd" and text.find(text[k]) == k), None)
+    if cut is None:
+        raise AssertionError(f"no stop string to take from the completion {text!r}")
+    stop = text[cut]
+    stopped = post(port, "/v1/completions", dict(body, stop=stop))["choices"][0]
+    if stopped["finish_reason"] != "stop" or stopped["text"] != text[:cut]:
+        raise AssertionError(f"the string stop {stop!r} gave {stopped} against the text {text!r}")
+    events = sse(port, "/v1/completions", dict(body, stop=stop))
+    chunks = [e for e in events if e.get("choices")]
+    streamed = "".join(e["choices"][0]["text"] for e in chunks)
+    ids = [t for e in chunks for t in e["choices"][0]["token_ids"]]
+    if streamed != stopped["text"] or ids != stopped["token_ids"]:
+        raise AssertionError(f"the streamed completion {streamed!r} {ids} differs from {stopped}")
+    chat = {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 16, "ignore_eos": True}
+    post(port, "/v1/chat/completions", chat)
+    message = post(port, "/v1/chat/completions", chat)["choices"][0]["message"]
+    events = sse(port, "/v1/chat/completions", chat)
+    deltas = [e["choices"][0]["delta"] for e in events if e.get("choices")]
+    if (deltas[0].get("role") != "assistant" or "".join(d["content"] for d in deltas) != message["content"]
+            or events[-1].get("usage", {}).get("completion_tokens") != len(message["token_ids"])):
+        raise AssertionError(f"the streamed chat {deltas[:2]}... differs from {message}")
+    lp = post(port, "/v1/completions", {"prompt": [1, 2, 3], "max_tokens": 8, "logprobs": 2, "ignore_eos": True})
+    lps = lp["choices"][0]["logprobs"]
+    if (len(lps["tokens"]) != 8 or len(lps["top_logprobs"]) != 8 or any(len(d) not in (1, 2) for d in lps["top_logprobs"])
+            or not all(x <= 0.0 for x in lps["token_logprobs"])):
+        raise AssertionError(f"bad logprobs {lps}")
+    return {"string_stop": stop, "stopped_text_chars": len(stopped["text"]), "streamed_equal": True,
+            "chat_tokens": len(message["token_ids"]), "chat_streamed_equal": True, "logprobs_2": True}
+
+
+def serve_hf(torch, smi: str, ckpt: str, written: dict, bucketed: dict) -> dict:
+    """The port's server on ``--model hf:<ckpt>``: the checkpoint written
+    from ``serve``'s weights, loaded into the arena before the captures;
+    the serve traffic's token-id completions (with ``ignore_eos``) must be
+    bit-equal to ``serve``'s; string, chat, streamed and logprobs requests;
+    a level-1 and a level-2 sleep and wake, the level-2 wake reading the
+    directory again."""
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    t0 = time.monotonic()
+    opts = f"--model hf:{ckpt} --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
+    service, server, init_s, free_before = start_service(torch, opts)
+    port = server.server_address[1]
+    try:
+        eng = service.engine
+        L = eng.cfg.model.num_layers
+        if eng.cfg.model != llama.LlamaConfig.llama3_8b() or eng.cfg.eos_token_id != 128001 or eng.cfg.extra_eos_ids != (128009,):
+            raise AssertionError(f"the checkpoint's config resolved to {eng.cfg}")
+        load = service.load_stats.summary()
+        captures = eng.graph_captures
+        traffic = run_traffic(torch, port, eng.cfg.model.vocab_size, ignore_eos=True)
+        if traffic["tokens"] != bucketed["tokens"]:
+            raise AssertionError(f"the checkpoint's completions differ from serve's at "
+                                 f"{first_differences(traffic['tokens'], bucketed['tokens'])}")
+        text = text_traffic(port)
+        counts = path_counts(eng)
+        check_probe_launch(counts)
+        check_replays(eng, counts, "decode_inline")
+        if counts["decode_inline"] != L * eng.decode_steps or counts["prefill"] != L * eng.cold_prefills or eng.cold_prefills < 4:
+            raise AssertionError(f"launches {counts} against {eng.decode_steps} decode steps and {eng.cold_prefills} cold prefills")
+        if counts["ragged"] or counts["ragged_sharded"] or counts["decode_scatter_first"]:
+            raise AssertionError(f"the checkpoint's bucketed path launched kernels off its path: {counts}")
+        # level 1: a repeat of request 1 before and after
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": 64, "ignore_eos": True}
+        before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        ptrs = state_ptrs(eng)
+        info = post(port, "/sleep?level=1")
+        asleep1 = check_asleep(torch, eng, free_before)
+        woke = post(port, "/wake_up")
+        if post(port, "/v1/completions", probe)["choices"][0]["token_ids"] != before:
+            raise AssertionError("the checkpoint's tokens changed across a level-1 sleep")
+        if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+            raise AssertionError("a level-1 cycle re-captured a graph or moved a state tensor")
+        level1 = {"sleep_s": info["last_sleep_seconds"], "wake_s": woke["last_wake_seconds"],
+                  "bytes_offloaded": info["bytes_offloaded"], **asleep1}
+        # level 2: the wake reads the directory again into the same tensors
+        post(port, "/sleep?level=2")
+        asleep2 = check_asleep(torch, eng, free_before)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loads = service.loads
+        woke = post(port, "/wake_up")
+        peak = torch.cuda.max_memory_allocated() - allocated
+        if service.loads != loads + 1:
+            raise AssertionError("the level-2 wake did not read the checkpoint again")
+        reload = service.load_stats.summary()
+        after = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        if after != bucketed["tokens"][0]:  # the prefix cache is empty again: a cold prefill, as serve's first
+            raise AssertionError("the checkpoint's tokens changed across a level-2 sleep")
+        if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+            raise AssertionError("the level-2 wake re-captured a graph or moved a state tensor")
+        if peak >= LEVEL2_WAKE_PEAK:
+            raise AssertionError(f"the level-2 reload allocated {peak / GIB:.2f} GiB at its peak")
+        stats = get(port, "/v1/stats")
+        if stats["load"]["loads"] != 2 or stats["actuations"] != {"sleep": 2, "wake": 2}:
+            raise AssertionError(f"/v1/stats: {stats}")
+        out = {
+            "phase": "serve_hf", "model": "hf:<checkpoint of serve's weights>", "layers": L,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "checkpoint": written,
+            "init_s": init_s, "load": load, "graph_captures_after_start": captures,
+            "tokens_equal_to_serve": True, **traffic["summary"], "text": text,
+            "launches": counts, **graph_stats(eng),
+            "level1": dict(level1, tokens_identical=True, state_addresses_unchanged=len(ptrs),
+                           graph_captures_unchanged=True),
+            "level2": {"wake_s": woke["last_wake_seconds"], "reload": reload, "wake_peak_allocated_bytes": peak,
+                       "graph_captures_before_reload": captures, "graph_captures_after_reload": eng.graph_captures,
+                       "tokens_identical": True, **asleep2},
+            "stats": stats, "seconds": time.monotonic() - t0,
+        }
+        emit(out)
+        return {"counts": counts}
+    finally:
+        stop_service(torch, service, server)
 
 
 # -- phase graphs: the captured chunk against the eager one -----------------
@@ -1480,26 +1750,170 @@ def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
         stop_service(torch, service, server)
 
 
-# Model parity at full width, bf16 on both sides. Stated before the first
-# run, from bf16 rounding: two paths that compute the same function round
-# differently (another product shape picks another cuBLAS tiling; another
-# attention kernel sums in another order), each rounding to bf16 moves a
-# value by at most u = 2**-8 relative, and a layer rounds its hidden state
-# some ten times. If every rounding of 32 layers differed, independently,
-# the hidden state and so the logits would drift by u * sqrt(320) = 0.07 of
-# their norm; far fewer differ, so the limit on ||a - b|| / ||b|| over the
-# vocabulary is 5e-2 for mixed_step against prefill. The two decode
-# branches differ only in the attention's order of summation, one bf16
-# rounding per layer: u * sqrt(32) = 2.2e-2, so the limit is 2e-2. Argmax
-# agreement is reported, not gated (bf16 near-ties can flip it).
+# Model parity at full width: each bf16 path against an fp32 oracle of the
+# same bf16 weights. Stated before the first run, from bf16 rounding.
 #
-# Two ranks against one, on the same weights: every row-parallel product
-# (wo, w_down) is summed as two bf16 halves instead of one fp32
-# accumulation, one more bf16 rounding at each of the 64 reduces, so
-# u * sqrt(64) = 3.1e-2 if every one moved every value; the sum rounds the
-# way the single product does for most values, so the limit is 2e-2 for
-# mixed_step and for decode_step, and the argmax must agree.
-PARITY_TOL = {"mixed_vs_prefill": 5e-2, "scatter_first_vs_inline": 2e-2, "tp2_vs_tp1": 2e-2}
+# The oracle (oracle_logits) is the plain forward in fp32: the bf16 weights
+# upcast one layer at a time, fp32 norms, products, RoPE and attention. Each
+# time a bf16 path rounds a vector to bf16 it moves it by a relative error
+# of RMS s = 1.66e-3: bf16 keeps 8 significant bits, so the spacing is
+# 2**-7 of a value at the bottom of its binade and 2**-8 at the top, the
+# error is uniform within half a spacing (variance spacing**2 / 12), and
+# over values spread evenly in log across a binade the mean of
+# (spacing / value)**2 is 0.541 * 2**-14: s = 2**-7 * sqrt(0.541 / 12).
+# Independent roundings add in quadrature. At least 2 L + 2 of them move
+# the whole hidden state and reach the logits in full: the residual stream
+# is rounded after each of a layer's two residual adds, then the final
+# norm's output and the logits themselves. At most all of a path's
+# roundings do, some R = 10 a layer (the norm outputs, q/k/v, the attention
+# output, the MLP's products, the residual adds) plus those two:
+# s * sqrt(2 L + 2) <= e_p <= s * sqrt(10 L + 2), 1.35e-2 .. 2.98e-2 at
+# L = 32. (The ROADMAP's figure, 2.0e-2 / sqrt(2) = 1.4e-2, read off two
+# paths that decorrelate every rounding, is the bottom of that band: paths
+# that share some roundings differ by less than their distance to the
+# oracle.) The limit is the top of the band, with no factor on it:
+# parity_limit(L) = s * sqrt(10 L + 2), 2.98e-2 at 32 layers, 1.08e-2 at
+# 4. The top counts every rounding at full weight, layer 0's too, where
+# the residual stream is mostly the branches' output (an embedding row is
+# small). Later, a rounding of a branch's output moves the residual stream
+# only by the branch's share of it, so a path sits below the top. The
+# softmax and the stack of random weights can carry an early error
+# further; the quadrature leaves that out, and the gate does not allow for
+# it: a path it pushes past the top is refused.
+#
+# Two ranks add one bf16 rounding at each of the 2 L row-parallel reduces
+# (wo and w_down summed as two bf16 halves). Those are roundings of a
+# branch's output too, so each counts at a weight between 0 and 1: the
+# square of a tp 2 figure is, in expectation, its tp 1 figure's plus
+# between 0 and 2 L s**2. With tp 1 at the band's bottom (2 L + 2
+# roundings), the ratio's expectation lies between 1 and
+# sqrt((4 L + 2) / (2 L + 2)), 1.40 at 32 layers, 1.34 at 4; the ratio
+# limit is that top, tp_ratio_limit(L). One reading is one draw of the
+# roundings, and the tp 2 path draws its own from the first reduce on, so
+# a ratio can fall below 1 (the reduces' weights near 0, the two draws
+# apart); the gate is one-sided and only the top matters.
+#
+# Each path's argmax must equal the oracle's, unless the oracle's own top-2
+# margin is smaller than the path's expected error there: a logit difference
+# moves by about sqrt(2) * e_p * rms(oracle logits), and the margin is
+# exempt under four times that (ARGMAX_TIE_SIGMAS).
+#
+# The pairwise figures of the earlier gate (mixed_step against prefill, the
+# scatter-first decode against the inline one, two ranks against one) are
+# printed beside these, ungated: two bf16 programs against each other sat
+# at the mean of their own spread (parity_spread.py), which is why the gate
+# moved to the oracle.
+ROUNDING_RMS = 2**-7 * (0.541 / 12) ** 0.5
+ROUNDINGS_PER_LAYER = 10
+ARGMAX_TIE_SIGMAS = 4.0
+#: the bf16 paths held to the oracle, and the tp 2 ones' tp 1 partners
+PARITY_PATHS = ("prefill", "mixed_step", "mixed_step_tp2", "decode_inline", "decode_inline_tp2",
+                "decode_scatter_first")
+TP_PAIRS = {"mixed_step_tp2": "mixed_step", "decode_inline_tp2": "decode_inline"}
+#: the old pairwise figures (path, against), printed for reading
+PAIRWISE = {"mixed_vs_prefill": ("mixed_step", "prefill"),
+            "scatter_first_vs_inline": ("decode_scatter_first", "decode_inline"),
+            "tp2_vs_tp1_mixed_step": ("mixed_step_tp2", "mixed_step"),
+            "tp2_vs_tp1_decode_step": ("decode_inline_tp2", "decode_inline")}
+
+
+def parity_band(layers: int) -> tuple:
+    """The predicted band of one path's rel-L2 against the oracle."""
+    return ROUNDING_RMS * (2 * layers + 2) ** 0.5, ROUNDING_RMS * (ROUNDINGS_PER_LAYER * layers + 2) ** 0.5
+
+
+def parity_limit(layers: int) -> float:
+    """The limit of one path's rel-L2: the top of its band."""
+    return parity_band(layers)[1]
+
+
+def tp_ratio_limit(layers: int) -> float:
+    """The limit of a tp 2 figure over its tp 1 partner's: the top of
+    the ratio's expectation, the 2 L reduce roundings at full weight
+    against tp 1 at the band's bottom."""
+    return ((4 * layers + 2) / (2 * layers + 2)) ** 0.5
+
+
+def oracle_logits(torch, model, tokens, rows) -> "torch.Tensor":
+    """The fp32 oracle: the plain forward of a one-rank Llama-family
+    ``model`` over ``tokens`` [s] (causal, one sequence, no cache), each
+    layer's bf16 weights upcast to fp32 when its turn comes, RoPE in
+    float64 then fp32, attention written out; the fp32 logits at the
+    positions ``rows``. The head is upcast a vocabulary slice at a time."""
+    cfg = model.cfg
+    if (cfg.post_norms or cfg.qk_norm or cfg.attn_bias or cfg.embed_scale or cfg.norm_offset
+            or cfg.hidden_activation != "silu" or cfg.rope_scaling):
+        raise ValueError("the oracle computes the plain Llama forward only")
+    f32 = torch.float32
+    dev = model.embed.device
+    s = tokens.shape[0]
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def norm(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.rms_eps) * w.float()
+
+    inv = cfg.rope_theta ** (-torch.arange(0, d, 2, dtype=torch.float64, device=dev) / d)
+    ang = torch.arange(s, dtype=torch.float64, device=dev)[:, None] * inv[None, :]
+    cos, sin = torch.cos(ang).to(f32)[:, None, :], torch.sin(ang).to(f32)[:, None, :]
+
+    def rope(x):
+        x1, x2 = x[..., : d // 2], x[..., d // 2:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+    causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    x = model.embed[tokens.long()].float()
+    with torch.no_grad():
+        for i in range(cfg.num_layers):
+            w = {k: v.float() for k, v in model.layer(i).items()}
+            a = norm(x, w["attn_norm"])
+            q = rope((a @ w["wq"]).view(s, h, d))
+            k = rope((a @ w["wk"]).view(s, kvh, d)).repeat_interleave(h // kvh, dim=1)
+            v = (a @ w["wv"]).view(s, kvh, d).repeat_interleave(h // kvh, dim=1)
+            sc = torch.einsum("qhd,khd->hqk", q, k) / d ** 0.5
+            p = torch.softmax(sc.masked_fill(~causal, float("-inf")), dim=-1)
+            x = x + torch.einsum("hqk,khd->qhd", p, v).reshape(s, h * d) @ w["wo"]
+            m = norm(x, w["mlp_norm"])
+            x = x + (torch.nn.functional.silu(m @ w["w_gate"]) * (m @ w["w_up"])) @ w["w_down"]
+            del w, a, q, k, v, sc, p, m
+        y = norm(x[rows], model.final_norm)
+        head = model.head()
+        step = 32768
+        return torch.cat([y @ head[:, j : j + step].float() for j in range(0, head.shape[1], step)], dim=-1)
+
+
+def parity_figure(torch, logits, oracle) -> dict:
+    """One path against the oracle: rel-L2 over the vocabulary, max abs,
+    argmax agreement, and the oracle's top-2 margin and logit RMS."""
+    top = oracle.topk(2).values
+    return {"rel_l2": ((logits - oracle).norm() / oracle.norm()).item(),
+            "max_abs": (logits - oracle).abs().max().item(),
+            "argmax_equal": bool(logits.argmax() == oracle.argmax()),
+            "oracle_top2_margin": (top[0] - top[1]).item(),
+            "oracle_rms": oracle.pow(2).mean().sqrt().item()}
+
+
+def parity_gate(figures: dict, layers: int) -> list:
+    """The gate: what in ``figures`` (path -> :func:`parity_figure`) breaks
+    the limits derived above for a stack of ``layers``; empty when it
+    holds. A path's rel-L2 stays under :func:`parity_limit`; a tp 2 path
+    within :func:`tp_ratio_limit` of its tp 1 partner; each argmax equals the
+    oracle's unless the oracle's margin lies inside the path's expected
+    error."""
+    limit, ratio_limit = parity_limit(layers), tp_ratio_limit(layers)
+    bad = []
+    for path, f in figures.items():
+        if not f["rel_l2"] <= limit:
+            bad.append(f"{path}: rel_l2 {f['rel_l2']:.4e} > {limit:.4e}")
+        tie = ARGMAX_TIE_SIGMAS * 2 ** 0.5 * f["rel_l2"] * f["oracle_rms"]
+        if not f["argmax_equal"] and not f["oracle_top2_margin"] < tie:
+            bad.append(f"{path}: argmax differs from the oracle's at a margin of {f['oracle_top2_margin']:.4e} "
+                       f"(exempt under {tie:.4e})")
+        partner = TP_PAIRS.get(path)
+        if partner in figures:
+            ratio = f["rel_l2"] / figures[partner]["rel_l2"]
+            if not ratio <= ratio_limit:
+                bad.append(f"{path}: {ratio:.3f} x {partner}'s rel_l2 > {ratio_limit:.3f}")
+    return bad
 
 
 def greedy_divergence(torch, model, max_len: int, bucketed: dict, paths: dict) -> dict:
@@ -1547,89 +1961,169 @@ def greedy_divergence(torch, model, max_len: int, bucketed: dict, paths: dict) -
             "note": "prefill of the one-rank model over prompt + agreed tokens; not gated"}
 
 
-def model_parity(torch, eng, eng_tp2, bucketed: dict, paths: dict) -> dict:
+def parity_logits(torch, one, two, seed: int, n: int = 300, page_size: int = 16) -> dict:
+    """Every bf16 path's logits on one prompt of ``n`` token ids drawn
+    from ``seed``, on the one-rank model ``one`` and the two-rank model
+    ``two`` (the same weights, sliced): ``prefill`` and ``mixed_step``
+    (tp 1 and 2) at position ``n - 1``; then, on the mixed step's cache,
+    the inline decode (tp 1 and 2) and the scatter-first decode of the
+    one-rank model's argmax token ``nxt`` at position ``n``. Returns the
+    logits by path, and what the oracle and the planted faults need: the
+    prompt, ``nxt``, the one-rank model's cache after its decodes, and a
+    function that reruns the two-rank mixed step on a fresh cache."""
     from llm_d_fast_model_actuation_tpu_torch.engine.engine import kv_pages_bucket, prefill_bucket
     from llm_d_fast_model_actuation_tpu_torch.models import llama
 
-    model = eng.model
-    cfg = model.cfg
-    ps, n = 16, 300
-    pages = kv_pages_bucket(n + 1, ps, eng.cfg.pages_per_seq)
-    shape = (cfg.num_layers, pages + 1, ps, cfg.num_kv_heads, cfg.head_dim)
-    pools = [tuple(torch.zeros(shape, dtype=cfg.dtype, device="cuda") for _ in range(2)) for _ in range(2)]
-    pt = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    cfg = one.cfg
+    dev = one.device
+    pages = kv_pages_bucket(n + 1, page_size, -(-cfg.max_seq_len // page_size))
+    shape = (cfg.num_layers, pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
+    tp = two.mesh.tp
+    shard_shape = shape[:3] + (cfg.num_kv_heads // tp,) + shape[4:]
 
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item(), (a - b).abs().max().item(), bool(a.argmax() == b.argmax())
+    def pool(shp=shape, d=dev):
+        return tuple(torch.zeros(shp, dtype=cfg.dtype, device=d) for _ in range(2))
 
+    pt = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev, dtype=torch.int32)
     # prefill over the prompt at its bucket, as the bucketed engine runs it
-    bucket = prefill_bucket(n, eng.cfg.seq_len)
-    tokens = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+    tokens = torch.zeros((1, prefill_bucket(n, cfg.max_seq_len)), dtype=torch.int32, device=dev)
     tokens[0, :n] = prompt
-    lp = llama.prefill(model, tokens, torch.tensor([n], dtype=torch.int32, device="cuda"), pools[0], pt)[0, n - 1]
+    out = {"prefill": llama.prefill(one, tokens, torch.tensor([n], dtype=torch.int32, device=dev), pool(), pt)[0, n - 1]}
     # mixed_step over the same prompt, packed as the engine packs it
     rows = -(-n // 8) * 8
-    slot = torch.full((rows,), -1, dtype=torch.int32, device="cuda")
+    slot = torch.full((rows,), -1, dtype=torch.int32, device=dev)
     slot[:n] = 0
-    pos = torch.zeros((rows,), dtype=torch.int32, device="cuda")
-    pos[:n] = torch.arange(n, dtype=torch.int32, device="cuda")
-    toks = torch.zeros((rows,), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    pos[:n] = torch.arange(n, dtype=torch.int32, device=dev)
+    toks = torch.zeros((rows,), dtype=torch.int32, device=dev)
     toks[:n] = prompt
-    lm = llama.mixed_step(model, toks, slot, pos, pools[1], pt)[n - 1]
-    mixed = rel(lm, lp)
+    cache = pool()
+    out["mixed_step"] = llama.mixed_step(one, toks, slot, pos, cache, pt)[n - 1]
     # one decode step at position n on the mixed step's cache: inline, then
     # scatter-first on the same state (it writes the same K/V again)
-    nxt = lm.argmax().to(torch.int32)[None]
-    at = torch.tensor([n], dtype=torch.int32, device="cuda")
+    nxt = out["mixed_step"].argmax().to(torch.int32)[None]
+    at = torch.tensor([n], dtype=torch.int32, device=dev)
+
+    def decode(model, impl, kv):
+        base = model.cfg
+        try:
+            model.cfg = dataclasses.replace(base, attention_impl=impl)
+            return llama.decode_step(model, nxt, at, kv, pt)[0]
+        finally:
+            model.cfg = base
+
+    out["decode_inline"] = decode(one, "grouped", cache)
+    out["decode_scatter_first"] = decode(one, "reference", cache)
+
+    # the two-rank model on the same prompt and then the same decode step,
+    # with a pool split on its kv_heads axis
+    def mixed_tp2(kv=None):
+        kv = kv or [pool(shard_shape, d) for d in two.mesh.devices]
+        return llama.mixed_step(two, toks, slot, pos, kv, pt)[n - 1], kv
+
+    out["mixed_step_tp2"], cache2 = mixed_tp2()
+    out["decode_inline_tp2"] = decode(two, "grouped", cache2)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"logits": out, "prompt": prompt, "nxt": nxt, "cache": cache, "mixed_tp2": mixed_tp2,
+            "decode": lambda kv: decode(one, "grouped", kv)}
+
+
+def parity_figures(torch, one, run: dict) -> tuple:
+    """The oracle's logits at ``n - 1`` and ``n`` (one forward over the
+    prompt and ``nxt``), every path's :func:`parity_figure` against them
+    and the old pairwise figures."""
+    n = run["prompt"].shape[0]
+    oracle = oracle_logits(torch, one, torch.cat([run["prompt"], run["nxt"]]), [n - 1, n])
+    at = {p: oracle[1] if p.startswith("decode") else oracle[0] for p in PARITY_PATHS}
+    figures = {p: parity_figure(torch, run["logits"][p], at[p]) for p in PARITY_PATHS}
+    pairwise = {}
+    for name, (a, b) in PAIRWISE.items():
+        la, lb = run["logits"][a], run["logits"][b]
+        pairwise[name] = {"rel_l2": ((la - lb).norm() / lb.norm()).item(), "max_abs": (la - lb).abs().max().item(),
+                          "argmax_equal": bool(la.argmax() == lb.argmax())}
+    return oracle, figures, pairwise
+
+
+def planted_faults(torch, one, two, run: dict, oracle, figures: dict) -> dict:
+    """Two faults run through :func:`parity_gate`, which must refuse each:
+    the two-rank mixed step with layer 0's ``w_down`` reduce dropping rank
+    1's share (``TpMesh.all_reduce_sum`` wrapped here, on this mesh only:
+    the forward's reduces run embedding, then per layer ``wo`` and
+    ``w_down``, so it is the third call), and the inline decode step on a
+    cache whose layer 0 has KV heads 0 and 1 swapped. Returns each fault's
+    figure and what the gate said; raises if the gate let one through."""
+    mesh = two.mesh
+    calls = [0]
+    reduce = type(mesh).all_reduce_sum
+
+    def dropping(parts):
+        calls[0] += 1
+        if calls[0] == 3:
+            parts = [parts[0]] + [torch.zeros_like(p) for p in parts[1:]]
+        return reduce(mesh, parts)
+
+    mesh.all_reduce_sum = dropping
     try:
-        model.cfg = dataclasses.replace(cfg, attention_impl="grouped")
-        li = llama.decode_step(model, nxt, at, pools[1], pt)[0]
-        model.cfg = dataclasses.replace(cfg, attention_impl="reference")
-        lr = llama.decode_step(model, nxt, at, pools[1], pt)[0]
+        dropped = run["mixed_tp2"]()[0]
     finally:
-        model.cfg = cfg
-    torch.cuda.synchronize()
-    dec = rel(lr, li)
-    # the two-rank model (same seed: its shards joined are these weights)
-    # on the same prompt and then the same decode step, with a pool split
-    # on its kv_heads axis
-    two = eng_tp2.model
-    tp = two.mesh.tp
+        del mesh.all_reduce_sum
+    k, v = (t.clone() for t in run["cache"])
+    for t in (k, v):
+        t[0, :, :, [0, 1]] = t[0, :, :, [1, 0]]
+    swapped = run["decode"]((k, v))
+    del k, v
+    out = {}
+    layers = one.cfg.num_layers
+    for name, path, logits in (("w_down_reduce_drops_rank1", "mixed_step_tp2", dropped),
+                               ("kv_heads_swapped", "decode_inline", swapped)):
+        f = parity_figure(torch, logits, oracle[1] if path.startswith("decode") else oracle[0])
+        refused = parity_gate(dict(figures, **{path: f}), layers)
+        if not refused:
+            raise AssertionError(f"the parity gate let the planted fault {name} through: {f}")
+        out[name] = {"path": path, **f, "refused": refused}
+    return out
+
+
+def model_parity(torch, eng, eng_tp2, bucketed: dict, paths: dict) -> dict:
+    """Every bf16 path against the fp32 oracle of the same weights, gated
+    by :func:`parity_gate`; the old pairwise figures printed beside them;
+    the two planted faults refused."""
+    one, two = eng.model, eng_tp2.model
+    cfg = one.cfg
     wq2 = torch.cat([m.layers["wq"] for m in two.ranks], dim=-1)
     head2 = torch.cat([m.lm_head for m in two.ranks], dim=-1)
-    if not (torch.equal(wq2, model.layers["wq"]) and torch.equal(head2, model.lm_head)):
+    if not (torch.equal(wq2, one.layers["wq"]) and torch.equal(head2, one.lm_head)):
         raise AssertionError("the two-rank model's shards do not join to the one-rank model's weights")
     del wq2, head2
-    shard_shape = shape[:3] + (cfg.num_kv_heads // tp,) + shape[4:]
-    pool2 = [tuple(torch.zeros(shard_shape, dtype=cfg.dtype, device=d) for _ in range(2)) for d in two.mesh.devices]
-    lm2 = llama.mixed_step(two, toks, slot, pos, pool2, pt)[n - 1]
-    try:
-        two.cfg = dataclasses.replace(two.cfg, attention_impl="grouped")
-        li2 = llama.decode_step(two, nxt, at, pool2, pt)[0]
-    finally:
-        two.cfg = eng_tp2.model_cfg
+    run = parity_logits(torch, one, two, seed=5)
     torch.cuda.synchronize()
-    tp_mixed, tp_dec = rel(lm2, lm), rel(li2, li)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    oracle, figures, pairwise = parity_figures(torch, one, run)
+    oracle_peak = torch.cuda.max_memory_allocated() - base
+    faults = planted_faults(torch, one, two, run, oracle, figures)
+    refused = parity_gate(figures, cfg.num_layers)
     out = {
-        "phase": "model_parity", "model": "llama3-8b", "prompt_tokens": n, "prefill_bucket": bucket,
-        "tolerance_rel_l2": PARITY_TOL,
-        "mixed_vs_prefill": {"rel_l2": mixed[0], "max_abs": mixed[1], "argmax_equal": mixed[2]},
-        "scatter_first_vs_inline": {"rel_l2": dec[0], "max_abs": dec[1], "argmax_equal": dec[2]},
-        "tp2_vs_tp1_mixed_step": {"rel_l2": tp_mixed[0], "max_abs": tp_mixed[1], "argmax_equal": tp_mixed[2]},
-        "tp2_vs_tp1_decode_step": {"rel_l2": tp_dec[0], "max_abs": tp_dec[1], "argmax_equal": tp_dec[2]},
+        "phase": "model_parity", "model": "llama3-8b", "prompt_tokens": run["prompt"].shape[0],
+        "limits": {"rel_l2": parity_limit(cfg.num_layers), "tp2_over_tp1": tp_ratio_limit(cfg.num_layers),
+                   "argmax_tie_sigmas": ARGMAX_TIE_SIGMAS},
+        "predicted_rel_l2": parity_band(cfg.num_layers),
+        "against_fp32_oracle": figures,
+        "tp2_over_tp1": {p: figures[p]["rel_l2"] / figures[q]["rel_l2"] for p, q in TP_PAIRS.items()},
+        "pairwise_not_gated": pairwise,
+        "planted_faults": faults,
+        "oracle_peak_allocated_bytes": oracle_peak,
+        "oracle": "plain fp32 forward, the bf16 weights upcast a layer at a time",
+        "refused": refused,
     }
     emit(out)
-    del pools, pool2
-    emit(greedy_divergence(torch, model, eng.cfg.seq_len, bucketed, paths))
-    if not mixed[0] <= PARITY_TOL["mixed_vs_prefill"]:
-        raise AssertionError(f"mixed_step disagrees with prefill at full width: {mixed}")
-    if not dec[0] <= PARITY_TOL["scatter_first_vs_inline"]:
-        raise AssertionError(f"the scatter-first decode disagrees with the inline one: {dec}")
-    for what, got in (("mixed_step", tp_mixed), ("decode_step", tp_dec)):
-        if not (got[0] <= PARITY_TOL["tp2_vs_tp1"] and got[2]):
-            raise AssertionError(f"two ranks disagree with one rank in {what} at full width: {got}")
+    del run, oracle
+    emit(greedy_divergence(torch, one, eng.cfg.seq_len, bucketed, paths))
+    if refused:
+        raise AssertionError(f"a bf16 path breaks the parity gate against the fp32 oracle: {refused}")
     return out
 
 
@@ -1689,7 +2183,14 @@ def main() -> int:
     for k in dec + pre + rag + rag_sharded + [probe]:
         emit({"phase": "kernel", **k, "nvidia_smi": smi})
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
-    bucketed = serve_and_sleep(torch, smi)
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig, param_shapes
+
+    ckpt = checkpoint_dir(2 * sum(math.prod(s) for s in param_shapes(LlamaConfig.llama3_8b()).values()))
+    try:
+        bucketed = serve_and_sleep(torch, smi, ckpt)
+        hf = serve_hf(torch, smi, ckpt, bucketed["checkpoint"], bucketed)
+    finally:
+        shutil.rmtree(ckpt)
     graphs_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
@@ -1698,7 +2199,7 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
-    runs = (bucketed["counts"], packed["counts"], tp2["counts"], reference["counts"])
+    runs = (bucketed["counts"], hf["counts"], packed["counts"], tp2["counts"], reference["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)

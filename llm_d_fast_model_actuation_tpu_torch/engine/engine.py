@@ -292,7 +292,11 @@ class InferenceEngine:
     :class:`~..models.llama.ShardedLlama` on it or its state dict
     (``params_from_jax(..., mesh=)``). Either is copied into the engine's
     arenas: a model passed in stays the caller's, and its weights are held
-    twice until the caller drops it. ``device``: None means the card
+    twice until the caller drops it. Or a loader: a callable that writes
+    the weights into the engine's own model in place (``load(model)``,
+    e.g. ``models/hf.py:load_params`` of a checkpoint directory), called
+    once before the chunk's graphs are captured — nothing is drawn first
+    — and again by a level-2 wake (:meth:`reload_params`). ``device``: None means the card
     and raises without one; the CPU must be asked for. ``mesh``
     (``parallel/mesh.py:serving_mesh``) names the ranks' devices itself:
     rank 0's is the engine's ``device``."""
@@ -300,7 +304,7 @@ class InferenceEngine:
     def __init__(
         self,
         cfg: EngineConfig,
-        params: "llama.Llama | llama.ShardedLlama | Dict[str, torch.Tensor] | None" = None,
+        params: "llama.Llama | llama.ShardedLlama | Dict[str, torch.Tensor] | Callable | None" = None,
         seed: int = 0,
         device: "torch.device | str | None" = None,
         mesh=None,
@@ -348,8 +352,12 @@ class InferenceEngine:
             llama.Llama(m, self.device, arena=self.arenas[self.device]) if mesh is None
             else llama.ShardedLlama(m, mesh, arenas=self.arenas)
         )
-        if params is None:
-            self.draw_params()
+        #: the loader the weights came from, when they came from one
+        self._load: Optional[Callable[[Any], Any]] = (
+            params if callable(params) and not isinstance(params, torch.nn.Module) else None
+        )
+        if params is None or self._load is not None:
+            self.reload_params()
         else:
             if isinstance(params, (llama.Llama, llama.ShardedLlama)):
                 if isinstance(params, llama.ShardedLlama) != (mesh is not None) or (
@@ -440,10 +448,14 @@ class InferenceEngine:
             self.graphs = ChunkGraphs(self)
             self.capture_s = self.graphs.capture()
 
-    def draw_params(self) -> None:
-        """Draw the model's parameters from the engine seed into its live
-        tensors, in place (at start, and at a level-2 wake); on a mesh the
-        same numbers, sliced per rank."""
+    def reload_params(self) -> None:
+        """Write the model's parameters into its live tensors, in place (at
+        start, and at a level-2 wake): through the engine's loader when it
+        was given one, else drawn from the engine seed (on a mesh the same
+        numbers, sliced per rank)."""
+        if self._load is not None:
+            self._load(self.model)
+            return
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._seed)
         fill_params_for(self.model, gen)

@@ -36,6 +36,7 @@ def sample(
     temperature: torch.Tensor,  # [b] fp32; 0 = greedy
     noise: Optional[torch.Tensor] = None,  # [b, noise_width(vocab)] Gumbel
     top_p: Optional[torch.Tensor] = None,  # [b] fp32; >= 1 = full distribution
+    top_k: int = 0,  # static; 0 = no truncation
     counts: Optional[torch.Tensor] = None,  # [b, vocab] int32 token counts
     presence_penalty: Optional[torch.Tensor] = None,  # [b] fp32
     frequency_penalty: Optional[torch.Tensor] = None,  # [b] fp32
@@ -47,10 +48,12 @@ def sample(
     alt_k] int32) of the same raw distribution.
 
     OpenAI-order chain, as in the reference: logit bias, then repetition
-    penalties (subtract freq*count + pres*[count>0]), then temperature,
-    then top-p truncation. The reported logprob is normalized over the
-    biased and penalized logits before temperature and top-p. ``noise``
-    may be None only when every row is greedy."""
+    penalties (subtract freq*count + pres*[count>0]), then the static
+    ``top_k`` truncation (logits below the k-th largest become -inf), then
+    temperature, then top-p truncation. The reported logprob is
+    normalized over the biased, penalized and top-k-truncated logits
+    before temperature and top-p. ``noise`` may be None only when every
+    row is greedy."""
     if bias is not None:
         logits = logits + bias
     if counts is not None:
@@ -61,6 +64,9 @@ def sample(
         if presence_penalty is not None:
             pen = pen + presence_penalty[:, None] * (cf > 0)
         logits = logits - pen
+    if 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
     norm = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
     greedy = torch.argmax(logits, dim=-1)
     if noise is None:

@@ -1,49 +1,66 @@
-"""A minimal engine HTTP server for the port, on the standard library.
+"""The port's engine HTTP server, on the standard library.
 
-Port of the first surface of ``llm_d_fast_model_actuation_tpu/engine/
-server.py``: one engine thread fed by a submit queue, and the routes
+Port of ``llm_d_fast_model_actuation_tpu/engine/server.py``: one engine
+thread fed by a submit queue, and the routes
 
-  GET  /health, /is_sleeping, /v1/models
-  POST /sleep?level=1|2, /wake_up, /v1/completions (token-id prompts,
-       non-streaming)
+  GET  /health, /is_sleeping, /v1/models, /v1/stats
+  POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions
 
 with the reference's flag names for the flags it keeps, among them
-``--packed-serving on|off``, ``--token-budget``, ``--attention-impl`` and
+``--packed-serving on|off``, ``--token-budget``, ``--attention-impl``,
 ``--tensor-parallel-size N`` (one process drives the ``N`` ranks; with it
 ``--device`` takes a comma-separated list of ``N`` devices, which may name
 one device more than once, and a single ``cuda`` means the first ``N``
-cards).
-The completion response has the reference's JSON keys; its ``text`` is
-the reference's no-tokenizer (byte-level) decoding of the token ids. Not
-ported yet, and answered with a 400 that says so: string prompts (they
-need the tokenizer), ``stream``, ``echo``, ``logprobs``, string stops, and
-the other routes of the reference (chat, metrics, swap, ...). Not ported
-yet and absent from the options: the reference's other engine flags
-(``--pipeline-decode``, ``--speculative-ngram``, ``--quantization``,
-``--sleep-quant``, ``--resident-variants``, multi-host gangs, ...), also
-where the reference combines them with tensor parallelism.
+cards), ``--tokenizer`` and ``--eos-token-id``.
+
+``--model`` takes a named config (random weights from ``--seed``) or
+``hf:<dir>``, a Hugging Face checkpoint directory: its ``config.json``,
+its eos ids (all of them, ``generation_config.json`` too) and its
+tokenizer, and its weights written into the engine's arena before the
+decode chunk's graphs are captured (``models/hf.py``); a level-2 wake
+reads the directory again. The tokenizer is the directory's (or
+``--tokenizer``'s) when it has tokenizer files, which needs
+``transformers``; else the byte-level fallback of the reference.
+
+Requests take token-id or string prompts, token-id or string stops,
+``stream`` (server-sent events, written as chunked responses by the
+handler itself), ``logprobs`` and ``top_logprobs`` of the generated
+tokens, ``echo`` without logprobs, ``n``, ``seed``, ``ignore_eos``,
+``logit_bias`` and ``stop_token_ids``; their JSON and SSE shapes are the
+reference's. Not ported yet, and answered with a 400 that says so:
+``echo`` with ``logprobs`` (prompt logprobs), and the other routes of the
+reference (metrics, swap, ...). Not ported yet and absent from the
+options: the reference's other engine flags (``--pipeline-decode``,
+``--speculative-ngram``, ``--quantization``, ``--sleep-quant``,
+``--resident-variants``, multi-host gangs, ...), also where the reference
+combines them with tensor parallelism.
 
 Run: ``python -m llm_d_fast_model_actuation_tpu_torch.engine.server
---model llama3-8b`` (on the card; ``--device cpu`` to run on the CPU;
-``--tensor-parallel-size 2`` on two cards, or with ``--device
-cuda:0,cuda:0`` as two ranks on one).
+--model llama3-8b`` or ``--model hf:/path/to/model`` (on the card;
+``--device cpu`` to run on the CPU; ``--tensor-parallel-size 2`` on two
+cards, or with ``--device cuda:0,cuda:0`` as two ranks on one).
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
+import math
+import queue
 import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
+from ..models import hf as hf_models
 from ..models import llama
 from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
+from . import tokenizer as tokenizer_mod
 from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
 from .kv_cache import PageAllocator
 from .sleep import attach_sleep, fresh_state
@@ -91,15 +108,14 @@ MODEL_CONFIGS = {
 
 #: routes of the reference server this port does not serve yet
 UNPORTED_ROUTES = (
-    "/v1/chat/completions", "/metrics", "/v1/stats", "/v1/swap",
-    "/v1/prefetch", "/v1/costs", "/v1/actuations", "/v1/parked",
-    "/v1/residents", "/v1/traces",
+    "/metrics", "/v1/swap", "/v1/prefetch", "/v1/costs", "/v1/actuations",
+    "/v1/parked", "/v1/residents", "/v1/traces",
 )
 
 
 def make_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fma-torch-engine", exit_on_error=False)
-    p.add_argument("--model", default="tiny")
+    p.add_argument("--model", default="tiny", help="a named config, or hf:<model-dir>")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--max-model-len", type=int, default=0)
@@ -107,6 +123,13 @@ def make_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eos-token-id", type=int, default=-1)
+    p.add_argument(
+        "--tokenizer", default="",
+        help="HF tokenizer directory (text prompts, chat templates, stop "
+        "strings, response text). Defaults to the hf: model directory when "
+        "it ships tokenizer files; otherwise a byte-level fallback",
+    )
     p.add_argument(
         "--device", default="cuda",
         help="cuda (default) or cpu; with --tensor-parallel-size N > 1 also a "
@@ -150,9 +173,13 @@ def parse_engine_options(options: str) -> argparse.Namespace:
 
 def check_engine_options(args: argparse.Namespace) -> None:
     """The reference's checks of the options the port has; raises
-    ValueError."""
-    if args.model not in MODEL_CONFIGS:
-        raise ValueError(f"unknown model {args.model!r}; known: {sorted(MODEL_CONFIGS)}")
+    ValueError. An ``hf:`` directory is looked at when the engine starts,
+    not here."""
+    if args.model.startswith("hf:"):
+        if not args.model[3:]:
+            raise ValueError("--model hf: needs a directory path")
+    elif args.model not in MODEL_CONFIGS:
+        raise ValueError(f"unknown model {args.model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
     if args.token_budget < 0:
         raise ValueError("--token-budget must be >= 0, or 0 for auto")
     if args.tensor_parallel_size < 1:
@@ -185,15 +212,61 @@ def mesh_from_options(args: argparse.Namespace):
     return serving_mesh(tp, devices)
 
 
-def byte_text(ids: List[int]) -> str:
-    """The reference's no-tokenizer decoding (its ByteTokenizer)."""
-    return bytes(t % 256 for t in ids).decode("utf-8", errors="replace")
+def resolve_model(args: argparse.Namespace):
+    """(model config, eos id, extra eos ids, hf directory or "",
+    tokenizer) for ``args.model``, as the reference's ``_resolve_model``:
+    an ``hf:`` directory gives its config and all its eos ids (the first
+    is the engine's eos, the rest its extra ones) unless
+    ``--eos-token-id`` names one; the tokenizer is ``--tokenizer``'s, else
+    the directory's when it has tokenizer files, else bytes; as a last
+    resort the tokenizer's own eos."""
+    hf_dir = ""
+    eos = args.eos_token_id
+    extra: tuple = ()
+    if args.model.startswith("hf:"):
+        hf_dir = args.model[3:]
+        model_cfg = hf_models.config_from_hf(hf_dir)
+        if eos < 0:
+            ids = hf_models.eos_token_ids_from_hf(hf_dir)
+            if ids:
+                eos, extra = ids[0], tuple(ids[1:])
+    else:
+        model_cfg = MODEL_CONFIGS[args.model]()
+    tok_path = args.tokenizer or (hf_dir if hf_dir and tokenizer_mod.has_tokenizer_files(hf_dir) else "")
+    tok = tokenizer_mod.load_tokenizer(tok_path)
+    if eos < 0 and hf_dir:
+        eos = tok.eos_token_id if tok.eos_token_id is not None else -1
+    return model_cfg, eos, extra, hf_dir, tok
+
+
+class _RateEWMA:
+    """Exponentially decayed event rate (events/second), the reference's:
+    each arrival adds ``1/tau``, the estimate decays by ``exp(-dt/tau)``
+    between observations. Callers hold the service's lock."""
+
+    def __init__(self, tau_s: float = 30.0) -> None:
+        self.tau_s = tau_s
+        self._rate = 0.0
+        self._t: Optional[float] = None
+
+    def _decay(self, now: float) -> None:
+        if self._t is not None and now > self._t:
+            self._rate *= math.exp(-(now - self._t) / self.tau_s)
+        self._t = now if self._t is None or now > self._t else self._t
+
+    def observe(self, now: float) -> None:
+        self._decay(now)
+        self._rate += 1.0 / self.tau_s
+
+    def rate(self, now: float) -> float:
+        self._decay(now)
+        return self._rate
 
 
 class EngineService:
     """One engine plus its sleep manager, driven by one engine thread.
-    The engine is built, and on one card has captured its chunk graphs,
-    before the service takes a request.
+    The engine is built, its weights loaded or drawn, and on one card its
+    chunk graphs captured, before the service takes a request.
 
     Requests enter through :meth:`submit` (any thread) and are resolved
     through futures. Sleep and wake are handed to the engine thread too
@@ -202,30 +275,50 @@ class EngineService:
 
     def __init__(self, args: argparse.Namespace) -> None:
         self.args = args
+        model_cfg, eos, extra_eos, self.hf_dir, self.tokenizer = resolve_model(args)
         self.cfg = EngineConfig(
-            model=MODEL_CONFIGS[args.model](),
+            model=model_cfg,
             max_batch=args.max_batch,
             page_size=args.page_size,
             num_pages=args.num_pages,
             max_seq_len=args.max_model_len,
+            eos_token_id=eos,
+            extra_eos_ids=extra_eos,
             attention_impl=args.attention_impl,
             packed_serving=args.packed_serving == "on",
             token_budget=args.token_budget,
         )
+        #: the most recent load of the checkpoint (at start, then at each
+        #: level-2 wake), and how many there were; None for a named config
+        self.load_stats: Optional[hf_models.LoadStats] = None
+        self.loads = 0
         mesh = mesh_from_options(args)
         self.engine = InferenceEngine(
-            self.cfg, seed=args.seed, device=args.device if mesh is None else None, mesh=mesh
+            self.cfg, params=self._load if self.hf_dir else None, seed=args.seed,
+            device=args.device if mesh is None else None, mesh=mesh,
         )
         self.sleeper = attach_sleep(self.engine)
         self.failure: Optional[str] = None
-        self._mu = threading.Lock()  # guards the two queues below
+        self.started_at = time.monotonic()
+        self._mu = threading.Lock()  # guards the queues and counters below
         self._pending: List[Tuple[Dict[str, Any], concurrent.futures.Future]] = []
         self._admin: List[Tuple[Any, concurrent.futures.Future]] = []
         self._futures: Dict[int, concurrent.futures.Future] = {}
+        self._arrival = _RateEWMA()
+        self._finished_requests = 0
+        self._generated_tokens = 0
+        self._aborted: Dict[str, int] = {}
+        self._actuations: Dict[str, int] = {}
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, name="engine", daemon=True)
         self._thread.start()
+
+    def _load(self, model) -> None:
+        """The engine's loader: the checkpoint directory into ``model``'s
+        tensors, in place."""
+        self.load_stats = hf_models.load_params(self.hf_dir, model)
+        self.loads += 1
 
     # -- engine thread --------------------------------------------------------
 
@@ -271,12 +364,21 @@ class EngineService:
     def _resolve(self, req) -> None:
         req.done_time = time.monotonic()
         fut = self._futures.pop(req.seq_id, None)
-        if fut is None:
+        if not req.error:
+            with self._mu:
+                self._finished_requests += 1
+                self._generated_tokens += len(req.out_tokens)
+        if fut is None or fut.done():
             return
         if req.error:
             fut.set_exception(RuntimeError(req.error))
         else:
             fut.set_result(req)
+
+    def _count_abort(self, cause: str, n: int = 1) -> None:
+        if n > 0:
+            with self._mu:
+                self._aborted[cause] = self._aborted.get(cause, 0) + n
 
     def _fail_all(self, exc: BaseException) -> None:
         with self._mu:
@@ -285,10 +387,11 @@ class EngineService:
         for _, fut in batch:
             fut.set_exception(exc)
         for fut in self._futures.values():
-            fut.set_exception(exc)
+            if not fut.done():
+                fut.set_exception(exc)
         self._futures.clear()
 
-    def _on_loop(self, fn) -> Any:
+    def _on_loop(self, fn, wait: bool = True) -> Any:
         """Run ``fn`` on the engine thread between steps; wait for it."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         with self._mu:
@@ -296,15 +399,17 @@ class EngineService:
                 raise RuntimeError(self.failure)
             self._admin.append((fn, fut))
         self._work.set()
-        return fut.result()
+        return fut.result() if wait else None
 
     # -- API ------------------------------------------------------------------
 
     def submit(self, **kw) -> concurrent.futures.Future:
         """Enqueue one request (``InferenceEngine.add_request`` keywords)."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        kw.setdefault("submit_time", time.monotonic())
+        now = time.monotonic()
+        kw.setdefault("submit_time", now)
         with self._mu:
+            self._arrival.observe(now)
             if self.failure is not None:
                 fut.set_exception(RuntimeError(self.failure))
                 return fut
@@ -312,22 +417,97 @@ class EngineService:
         self._work.set()
         return fut
 
+    def abort(self, fut: concurrent.futures.Future) -> None:
+        """The client went away or its stop string matched: stop
+        generating for the request of ``fut``, at the engine thread's next
+        turn, and fail the future. Does not wait."""
+
+        def drop():
+            with self._mu:
+                kept = [(kw, f) for kw, f in self._pending if f is not fut]
+                gone = len(self._pending) - len(kept)
+                self._pending = kept
+            for sid, f in list(self._futures.items()):
+                if f is fut:
+                    self.engine.abort(sid, "aborted by the client")
+                    del self._futures[sid]
+                    gone += 1
+            self._count_abort("client", gone)
+            if not fut.done():
+                fut.set_exception(RuntimeError("request aborted"))
+
+        try:
+            self._on_loop(drop, wait=False)
+        except RuntimeError:  # the loop has failed: every future has too
+            pass
+
+    def queue_depth(self) -> int:
+        """Waiting and running requests."""
+        eng = self.engine
+        with self._mu:
+            pending = len(self._pending)
+        return pending + len(eng._waiting) + sum(1 for s in eng._slots if s is not None)
+
     def sleep(self, level: int) -> Dict[str, Any]:
         if level not in (1, 2):
             raise ValueError("sleep level must be 1 or 2")
-        return self._on_loop(lambda: self.sleeper.sleep(level))
+
+        def go():
+            before = (self.sleeper.is_sleeping, self.sleeper.level)
+            out = self.sleeper.sleep(level)
+            if not before[0] or self.sleeper.level != before[1]:
+                self._bump_actuation("sleep")
+            return out
+
+        return self._on_loop(go)
 
     def wake_up(self) -> Dict[str, Any]:
         def wake():
+            if not self.sleeper.is_sleeping:
+                return self.sleeper.wake_up()
             if self.sleeper.level == 2:
                 # the KV state is gone: fail whatever was mid-generation,
-                # then rebuild weights and pool in place
-                for req in self.engine.abort_all("level-2 sleep discarded state"):
+                # then write the weights (the checkpoint reread, or drawn
+                # from the seed) and a zero pool in place
+                aborted = self.engine.abort_all("level-2 sleep discarded state")
+                self._count_abort("state_loss", len(aborted))
+                for req in aborted:
                     self._resolve(req)
-                return self.sleeper.wake_up(reinit=lambda: fresh_state(self.engine))
-            return self.sleeper.wake_up()
+                out = self.sleeper.wake_up(reinit=lambda: fresh_state(self.engine))
+            else:
+                out = self.sleeper.wake_up()
+            self._bump_actuation("wake")
+            return out
 
         return self._on_loop(wake)
+
+    def _bump_actuation(self, kind: str) -> None:
+        with self._mu:
+            self._actuations[kind] = self._actuations.get(kind, 0) + 1
+
+    def stats(self) -> Dict[str, Any]:
+        """GET /v1/stats: the reference's fields for the blocks the port
+        has (no SLO targets are configurable, so none is judged and every
+        finished request's tokens are goodput, as the reference counts
+        them with its targets off), and ``load``: the checkpoint's last
+        load (``models/hf.py:LoadStats``) for an ``hf:`` model, else None."""
+        now = time.monotonic()
+        depth = self.queue_depth()
+        with self._mu:
+            return {
+                "model": self.args.model,
+                "queue_depth": depth,
+                "arrival_rate_rps": round(self._arrival.rate(now), 6),
+                "slo": {"ttft_ms": 0.0, "tpot_ms": 0.0, "met": 0, "violated": 0, "attainment": None},
+                "finished_requests": self._finished_requests,
+                "generated_tokens": self._generated_tokens,
+                "goodput_tokens": self._generated_tokens,
+                "aborted": dict(self._aborted),
+                "actuations": dict(self._actuations),
+                "uptime_s": round(now - self.started_at, 3),
+                "is_sleeping": self.sleeper.is_sleeping,
+                "load": None if self.load_stats is None else dict(self.load_stats.summary(), loads=self.loads),
+            }
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -355,25 +535,87 @@ def _lifecycle_usage(req) -> Dict[str, Any]:
     return {"queue_wait_s": qw, "decode_tpot_s": tpot}
 
 
+def _usage(req, completion_tokens: int, ttft: bool = True) -> Dict[str, Any]:
+    out = {"prompt_tokens": len(req.prompt), "completion_tokens": completion_tokens}
+    if ttft:
+        out["time_to_first_token_s"] = (req.first_token_time - req.submit_time) if req.first_token_time else None
+    out.update(_lifecycle_usage(req))
+    return out
+
+
 class BadRequest(ValueError):
     """A client error: answered with HTTP 400 and this message."""
 
 
-def parse_completion(service: EngineService, body: Any) -> Tuple[Dict[str, Any], int]:
-    """Validate a /v1/completions body into add_request keywords and n;
-    everything add_request would reject is a BadRequest here."""
-    if not isinstance(body, dict):
-        raise BadRequest("request body must be a JSON object")
-    for key, what in (("stream", "streaming"), ("echo", "echo"), ("logprobs", "logprobs")):
-        if body.get(key):
-            raise BadRequest(f"{what} is not supported by this server yet")
-    prompt = body.get("prompt")
+def validate_messages(messages: Any) -> List[Dict[str, Any]]:
+    """The reference's chat ``messages`` check."""
+    if not isinstance(messages, list) or not messages:
+        raise BadRequest("messages must be a non-empty list")
+    for m in messages:
+        if not isinstance(m, dict) or "role" not in m or "content" not in m:
+            raise BadRequest("each message needs role and content")
+        if not isinstance(m["content"], str):
+            # content-parts arrays (multimodal) would also crash a chat template
+            raise BadRequest("message content must be a string")
+    return messages
+
+
+@dataclasses.dataclass
+class Generation:
+    """A parsed request: ``add_request`` keywords, the stop strings that
+    the response layer matches on decoded text, and ``n``."""
+
+    kw: Dict[str, Any]
+    stop_texts: Tuple[str, ...]
+    n: int
+
+
+def parse_stop(stop: Any, vocab: int) -> Tuple[tuple, tuple]:
+    """OpenAI ``stop``: a string, a list of strings, or token ids and
+    token-id lists -> (token sequences, stop strings). Token-id stops
+    match in the engine; strings match on decoded text in the response
+    layer (BPE does not round-trip, and a stop can start mid-token)."""
+    if stop is None:
+        return (), ()
+    if isinstance(stop, str):
+        stop = [stop]
+    if not isinstance(stop, list):
+        raise BadRequest("stop must be a string or a list")
+    seqs, texts = [], []
+    for s in stop:
+        if isinstance(s, str):
+            texts.append(s)
+        elif isinstance(s, int) and not isinstance(s, bool):
+            seqs.append((s % vocab,))
+        elif isinstance(s, list) and all(isinstance(t, int) and not isinstance(t, bool) for t in s):
+            seqs.append(tuple(t % vocab for t in s))
+        else:
+            raise BadRequest(f"invalid stop entry {s!r}")
+    return tuple(s for s in seqs if s), tuple(t for t in texts if t)
+
+
+def encode_prompt(service: EngineService, prompt: Any) -> List[int]:
     if isinstance(prompt, str):
-        raise BadRequest("string prompts need a tokenizer, which this server does not have yet; send token ids")
-    if not isinstance(prompt, list) or not all(isinstance(t, int) and not isinstance(t, bool) for t in prompt):
-        raise BadRequest("prompt must be a list of token ids")
+        return service.tokenizer.encode(prompt)
+    if isinstance(prompt, list) and all(isinstance(t, int) and not isinstance(t, bool) for t in prompt):
+        return list(prompt)
+    raise BadRequest("prompt must be a string or a list of token ids")
+
+
+def chat_tokens(service: EngineService, messages: Any) -> List[int]:
+    msgs = validate_messages(messages)
+    try:
+        return service.tokenizer.chat_tokens(msgs)
+    except Exception as e:  # noqa: BLE001 — a template's refusal is the request's fault
+        raise BadRequest(f"chat template failed: {e}")
+
+
+def parse_generation(service: EngineService, body: Dict[str, Any], tokens: List[int]) -> Generation:
+    """Validate a completion or chat body into add_request keywords;
+    everything add_request would reject is a BadRequest here, so a
+    streamed request fails with a 400 before its headers go out."""
     vocab = service.cfg.model.vocab_size
-    tokens = [t % vocab for t in prompt]
+    tokens = [t % vocab for t in tokens]
     if not tokens:
         raise BadRequest("empty prompt")
     try:
@@ -397,6 +639,8 @@ def parse_completion(service: EngineService, body: Any) -> Tuple[Dict[str, Any],
             raise BadRequest(f"{name} must be in [-2, 2], got {v}")
     if not (1 <= n <= service.cfg.max_batch):
         raise BadRequest(f"n must be in 1..{service.cfg.max_batch}")
+    if body.get("stream") and n != 1:
+        raise BadRequest("n > 1 is not supported with stream")
     seed = body.get("seed")
     if seed is not None and (isinstance(seed, bool) or not isinstance(seed, int) or not (-(2**63) <= seed < 2**63)):
         raise BadRequest("seed must be an integer that fits in a signed 64-bit integer")
@@ -407,57 +651,292 @@ def parse_completion(service: EngineService, body: Any) -> Tuple[Dict[str, Any],
         logit_bias = validate_logit_bias(body.get("logit_bias"), vocab)
     except ValueError as e:
         raise BadRequest(str(e))
-    stop = body.get("stop")
-    stop_seqs: List[Tuple[int, ...]] = []
-    if stop is not None:
-        if isinstance(stop, str) or not isinstance(stop, list):
-            raise BadRequest("string stops need a tokenizer; stop must be a list of token ids or token-id lists")
-        for s in stop:
-            if isinstance(s, int) and not isinstance(s, bool):
-                stop_seqs.append((s % vocab,))
-            elif isinstance(s, list) and s and all(isinstance(t, int) for t in s):
-                stop_seqs.append(tuple(t % vocab for t in s))
-            else:
-                raise BadRequest(f"invalid stop entry {s!r} (token ids only)")
+    stop_seqs, stop_texts = parse_stop(body.get("stop"), vocab)
+    sti = body.get("stop_token_ids")
+    if sti is not None:
+        # vLLM's name; single-id stops, stripped from the output like
+        # every other stop here
+        if not isinstance(sti, list):
+            raise BadRequest("stop_token_ids must be a list of ints")
+        for t in sti:
+            if isinstance(t, bool) or not isinstance(t, int):
+                raise BadRequest(f"stop_token_ids entries must be ints, got {t!r}")
+            if not (0 <= t < vocab):
+                raise BadRequest(f"stop_token_ids entry {t} outside vocab [0, {vocab})")
+        stop_seqs = stop_seqs + tuple((t,) for t in sti)
     cfg = service.cfg
     if len(tokens) + max_tokens > cfg.seq_len:
-        raise BadRequest(
-            f"prompt+generation {len(tokens)}+{max_tokens} exceeds max_seq_len {cfg.seq_len}"
-        )
+        raise BadRequest(f"prompt+generation {len(tokens)}+{max_tokens} exceeds max_seq_len {cfg.seq_len}")
     need = PageAllocator.pages_needed(len(tokens) + max_tokens, cfg.page_size)
     if need > cfg.num_pages - 1:
         raise BadRequest(f"request needs {need} pages but the pool only has {cfg.num_pages - 1}")
     kw = dict(
         prompt=tokens, max_new_tokens=max_tokens, temperature=temperature,
-        top_p=top_p, stop_seqs=tuple(stop_seqs), presence_penalty=presence,
+        top_p=top_p, stop_seqs=stop_seqs, presence_penalty=presence,
         frequency_penalty=frequency, seed=seed, ignore_eos=bool(iev),
         logit_bias=logit_bias,
     )
-    return kw, n
+    return Generation(kw, stop_texts, n)
 
 
-def completion_response(service: EngineService, body: Dict[str, Any], reqs) -> Dict[str, Any]:
-    req = reqs[0]
-    ttft = (req.first_token_time - req.submit_time) if req.first_token_time else None
+def parse_logprobs_n(service: EngineService, v: Any, field: str = "logprobs") -> int:
+    """OpenAI completions ``logprobs`` / chat ``top_logprobs``: a bool
+    (the sampled tokens' logprobs only) or how many alternatives per
+    position, bounded by the engine's top-k."""
+    if v is None or isinstance(v, bool):
+        return 0
+    try:
+        n = int(v)
+    except (TypeError, ValueError):
+        raise BadRequest(f"{field} must be a bool or int, got {v!r}")
+    limit = service.cfg.logprobs_topk
+    if n < 0 or n > limit:
+        raise BadRequest(f"{field} must be in [0, {limit}] (engine --logprobs-topk)")
+    return n
+
+
+def _text_stop_watcher(service: EngineService, stop_texts: tuple):
+    """An engine-thread hook that asks the engine to finish a request
+    once its decoded text holds a stop string (the response layer then
+    cuts the text), so the slot is freed early."""
+    filt = tokenizer_mod.TextStopStream(service.tokenizer, stop_texts)
+
+    def on_token(req, t: int) -> None:
+        if filt.push(t)[2]:
+            req.stop_requested = True
+
+    return on_token
+
+
+def gather_n(service: EngineService, gen: Generation, want_alts: bool) -> list:
+    """``n`` submissions of one request (choice ``i`` seeded ``seed + i``,
+    as the reference does); a failure aborts the siblings."""
+    seed = gen.kw["seed"]
+    futs = [
+        service.submit(**dict(
+            gen.kw,
+            seed=None if seed is None else ((seed + i + 2**63) % 2**64) - 2**63,
+            on_token=_text_stop_watcher(service, gen.stop_texts) if gen.stop_texts else None,
+            want_top_logprobs=want_alts,
+        ))
+        for i in range(gen.n)
+    ]
+    try:
+        return [f.result() for f in futs]
+    except BaseException:
+        for f in futs:
+            if not f.done():
+                service.abort(f)
+        raise
+
+
+def _top_dict(service: EngineService, alts, n: int) -> Dict[str, float]:
+    """A completions top_logprobs entry: decoded token -> logprob; the
+    best logprob wins where two ids decode alike."""
+    out: Dict[str, float] = {}
+    for tid, lp in alts[:n]:
+        key = service.tokenizer.decode([tid], skip_special=False)
+        if key not in out or lp > out[key]:
+            out[key] = lp
+    return out
+
+
+def completion_response(service: EngineService, body: Dict[str, Any], gen: Generation, reqs,
+                        logprobs_n: int) -> Dict[str, Any]:
+    tok = service.tokenizer
+    raw_prompt = body.get("prompt")
+    echo = bool(body.get("echo"))
     choices = []
+    total = 0
     for i, r in enumerate(reqs):
-        choices.append({
+        kept, kept_lps, text, matched = tokenizer_mod.truncate_at_text_stop(
+            tok, r.out_tokens, r.out_logprobs, gen.stop_texts
+        )
+        total += len(kept)
+        if echo:
+            # the prompt as the client sent it: a text prompt verbatim, a
+            # token-id prompt as its literal decode, specials included
+            text = (raw_prompt if isinstance(raw_prompt, str)
+                    else tok.decode(gen.kw["prompt"], skip_special=False)) + text
+        choice = {
             "index": i,
-            "token_ids": list(r.out_tokens),
-            "text": byte_text(r.out_tokens),
-            "finish_reason": _finish_reason(service, r),
-        })
+            "token_ids": kept,
+            "text": text,
+            "finish_reason": "stop" if matched else _finish_reason(service, r),
+        }
+        if body.get("logprobs"):
+            choice["logprobs"] = {"tokens": kept, "token_logprobs": kept_lps}
+            if logprobs_n > 0:
+                choice["logprobs"]["top_logprobs"] = [
+                    _top_dict(service, alts, logprobs_n) for alts in r.out_top_logprobs[: len(kept)]
+                ]
+        choices.append(choice)
     return {
         "object": "text_completion",
         "model": body.get("model") or service.args.model,
         "choices": choices,
-        "usage": {
-            "prompt_tokens": len(req.prompt),
-            "completion_tokens": sum(len(r.out_tokens) for r in reqs),
-            "time_to_first_token_s": ttft,
-            **_lifecycle_usage(req),
-        },
+        "usage": _usage(reqs[0], total),
     }
+
+
+def chat_response(service: EngineService, body: Dict[str, Any], gen: Generation, reqs, top_n: int) -> Dict[str, Any]:
+    tok = service.tokenizer
+    choices = []
+    total = 0
+    for i, r in enumerate(reqs):
+        kept, kept_lps, text, matched = tokenizer_mod.truncate_at_text_stop(
+            tok, r.out_tokens, r.out_logprobs, gen.stop_texts
+        )
+        total += len(kept)
+        choice = {
+            "index": i,
+            "message": {"role": "assistant", "content": text, "token_ids": kept},
+            "finish_reason": "stop" if matched else _finish_reason(service, r),
+        }
+        if body.get("logprobs"):
+            choice["logprobs"] = {
+                "content": [
+                    {
+                        "token": tok.decode([tid], skip_special=False),
+                        "logprob": lp,
+                        "top_logprobs": [
+                            {"token": tok.decode([aid], skip_special=False), "logprob": alp}
+                            for aid, alp in alts[:top_n]
+                        ],
+                    }
+                    for tid, lp, alts in zip(kept, kept_lps, r.out_top_logprobs[: len(kept)])
+                ]
+            }
+        choices.append(choice)
+    return {
+        "object": "chat.completion",
+        "model": body.get("model") or service.args.model,
+        "choices": choices,
+        "usage": _usage(reqs[0], total, ttft=False),
+    }
+
+
+def stream_events(service: EngineService, gen: Generation, make_chunk: Callable, usage_chunk: Callable):
+    """The reference's SSE stream as a generator of event payloads (JSON
+    objects, then the ``[DONE]`` terminator): one event per emitted token
+    with its text from an incremental detokenizer, stop strings matched
+    on the decoded text (held back until disambiguated; a match ends the
+    stream and aborts the generation), a final usage event when the
+    request completes, and an error event when it fails. Closing the
+    generator early (the client went away) aborts the request."""
+    tok = service.tokenizer
+    filt = tokenizer_mod.TextStopStream(tok, gen.stop_texts) if gen.stop_texts else None
+    dec = tokenizer_mod.IncrementalDecoder(tok)
+    q: "queue.Queue" = queue.Queue()
+
+    def on_token(req, t: int) -> None:
+        q.put((t, req.done))
+
+    fut = service.submit(**dict(gen.kw, on_token=on_token))
+    fut.add_done_callback(lambda f: q.put(None))
+    index = 0
+    completed = False
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                # the future resolved; the engine thread delivered every
+                # token before it resolved it
+                exc = fut.exception()
+                if exc is not None:
+                    yield {"error": str(exc)}
+                completed = exc is None
+                break
+            t, done = item
+            if filt is not None:
+                text, ids, matched = filt.push(t)
+                if not matched and done:
+                    tail, tids, matched = filt.flush()
+                    text += tail
+                    ids = ids + tids
+                if matched:
+                    if text:
+                        yield make_chunk(text, ids, index)
+                        index += 1
+                    if not done:
+                        service.abort(fut)
+                    completed = done
+                    break
+                if not text and not done:
+                    continue  # held back: the ids stay in the filter
+            else:
+                text = dec.push(t)
+                if done:
+                    text += dec.flush()
+                ids = [t]
+            yield make_chunk(text, ids, index)
+            index += 1
+            if done:
+                completed = True
+                break
+        if completed:
+            try:
+                req = fut.result(timeout=5.0)
+            except (RuntimeError, concurrent.futures.TimeoutError):  # no usage event then
+                req = None
+            if req is not None:
+                yield usage_chunk(_usage(req, len(req.out_tokens)))
+        yield "[DONE]"
+    finally:
+        if not fut.done():
+            service.abort(fut)
+
+
+def completions(service: EngineService, body: Any):
+    """POST /v1/completions: a response object, or an event generator for
+    ``stream``."""
+    if not isinstance(body, dict):
+        raise BadRequest("request body must be a JSON object")
+    gen = parse_generation(service, body, encode_prompt(service, body.get("prompt")))
+    logprobs_n = parse_logprobs_n(service, body.get("logprobs"))
+    echo = bool(body.get("echo"))
+    model = body.get("model") or service.args.model
+    if body.get("stream"):
+        if logprobs_n > 0:
+            raise BadRequest("integer logprobs is not supported with stream")
+        if echo:
+            raise BadRequest("echo is not supported with stream")
+        return stream_events(
+            service, gen,
+            lambda text, ids, index: {"object": "text_completion", "model": model,
+                                      "choices": [{"index": 0, "text": text, "token_ids": ids}]},
+            lambda usage: {"object": "text_completion", "model": model, "choices": [], "usage": usage},
+        )
+    if echo and body.get("logprobs"):
+        raise BadRequest("echo with logprobs (prompt logprobs) is not supported by this server yet")
+    reqs = gather_n(service, gen, logprobs_n > 0)
+    return completion_response(service, body, gen, reqs, logprobs_n)
+
+
+def chat_completions(service: EngineService, body: Any):
+    """POST /v1/chat/completions: a response object, or an event
+    generator for ``stream``; the first streamed delta carries the role."""
+    if not isinstance(body, dict):
+        raise BadRequest("request body must be a JSON object")
+    gen = parse_generation(service, body, chat_tokens(service, body.get("messages")))
+    top_n = parse_logprobs_n(service, body.get("top_logprobs"), "top_logprobs") if body.get("logprobs") else 0
+    model = body.get("model") or service.args.model
+    if body.get("stream"):
+        if top_n > 0:
+            raise BadRequest("top_logprobs is not supported with stream")
+
+        def chunk(text, ids, index):
+            delta: Dict[str, Any] = {"content": text}
+            if index == 0:
+                delta["role"] = "assistant"
+            return {"object": "chat.completion.chunk", "model": model, "choices": [{"index": 0, "delta": delta}]}
+
+        return stream_events(
+            service, gen, chunk,
+            lambda usage: {"object": "chat.completion.chunk", "model": model, "choices": [], "usage": usage},
+        )
+    reqs = gather_n(service, gen, top_n > 0)
+    return chat_response(service, body, gen, reqs, top_n)
 
 
 def make_handler(service: EngineService):
@@ -474,6 +953,26 @@ def make_handler(service: EngineService):
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
+
+        def _stream(self, events) -> None:
+            """Server-sent events as a chunked response, one chunk per
+            event; a write that fails (the client went away) closes the
+            generator, which aborts the request."""
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            try:
+                for ev in events:
+                    data = f"data: {ev if isinstance(ev, str) else json.dumps(ev)}\n\n".encode()
+                    self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+                    self.wfile.flush()
+                self.wfile.write(b"0\r\n\r\n")
+            except OSError:
+                self.close_connection = True
+            finally:
+                events.close()
 
         def _body(self) -> Any:
             n = int(self.headers.get("Content-Length") or 0)
@@ -503,6 +1002,8 @@ def make_handler(service: EngineService):
                     })
                 if method == "GET" and path == "/v1/models":
                     return self._send(200, {"object": "list", "data": [{"id": service.args.model, "object": "model"}]})
+                if method == "GET" and path == "/v1/stats":
+                    return self._send(200, service.stats())
                 if method == "POST" and path == "/sleep":
                     try:
                         level = int(parse_qs(url.query).get("level", ["1"])[0])
@@ -511,16 +1012,19 @@ def make_handler(service: EngineService):
                         raise BadRequest(str(e))
                 if method == "POST" and path == "/wake_up":
                     return self._send(200, service.wake_up())
-                if method == "POST" and path == "/v1/completions":
-                    kw, n = parse_completion(service, body)
-                    futs = [service.submit(**kw) for _ in range(n)]
+                if method == "POST" and path in ("/v1/completions", "/v1/chat/completions"):
+                    run = completions if path == "/v1/completions" else chat_completions
                     try:
-                        reqs = [f.result() for f in futs]
-                    except ValueError as e:
+                        out = run(service, body)
+                    except BadRequest:
+                        raise
+                    except ValueError as e:  # refused at admission
                         raise BadRequest(str(e))
                     except RuntimeError as e:
                         return self._send(500, {"error": str(e)})
-                    return self._send(200, completion_response(service, body, reqs))
+                    if isinstance(out, dict):
+                        return self._send(200, out)
+                    return self._stream(out)
                 return self._send(404, {"error": f"no route {method} {path}"})
             except BadRequest as e:
                 return self._send(400, {"error": str(e)})
@@ -552,13 +1056,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         check_engine_options(args)
     except ValueError as e:
         raise SystemExit(str(e))
-    service = EngineService(args)  # the engine captures its chunk graphs here
+    service = EngineService(args)  # loads the weights and captures the chunk graphs
     server = serve(service, args.host, args.port)
     eng = service.engine
+    load = "" if service.load_stats is None else f" load={json.dumps(service.load_stats.summary())}"
     print(
         f"serving {args.model} on http://{args.host}:{server.server_address[1]} "
         f"(capture_s={eng.capture_s:.3f} graph_captures={eng.graph_captures} "
-        f"mapped_bytes={sum(a.mapped_bytes for a in eng.arenas.values())})",
+        f"mapped_bytes={sum(a.mapped_bytes for a in eng.arenas.values())}){load}",
         flush=True,
     )
     try:

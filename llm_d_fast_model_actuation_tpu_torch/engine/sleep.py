@@ -9,7 +9,8 @@ tracing are not ported yet). Sleep levels (vLLM vocabulary):
             dedicated copy stream, then their device memory is unmapped
             and released; wake maps new memory and copies them back.
   level 2 — weights and KV are released without a copy; wake maps new
-            memory and writes a re-initialized state into it in place.
+            memory and writes a re-initialized state into it in place
+            (the checkpoint reread, for an engine loaded from one).
 
 The state lives in the engine's arenas (``engine/arena.py``): device
 memory at addresses reserved when the engine starts. A sleep releases the
@@ -337,9 +338,10 @@ def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:
 
 
 def fresh_state(engine) -> None:
-    """A level-2 wake's reinit for ``engine``: parameters drawn anew from
-    the engine seed into the live tensors and the pool zeroed, in place,
-    once the wake has mapped their memory back."""
-    engine.draw_params()
+    """A level-2 wake's reinit for ``engine``: parameters written anew
+    into the live tensors (the checkpoint reread when the engine's weights
+    came from a loader, else drawn from the engine seed) and the pool
+    zeroed, in place, once the wake has mapped their memory back."""
+    engine.reload_params()
     for t in engine.pool.tensors():
         t.zero_()

@@ -1,6 +1,9 @@
 """The port stands alone: it imports with JAX and the JAX package blocked,
-and no file of it (nor chip_smoke.py) imports either of them; its kernel
-sources and build stay out of module import."""
+and no file of it (nor chip_smoke.py) imports either of them, nor a
+package the card's machine lacks (ml_dtypes, safetensors, aiohttp,
+prometheus_client); transformers only inside a function, when a model's
+own tokenizer is loaded; its kernel sources and build stay out of module
+import."""
 
 import ast
 import os
@@ -14,7 +17,9 @@ import torch  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "llm_d_fast_model_actuation_tpu_torch"
-FORBIDDEN = ("jax", "llm_d_fast_model_actuation_tpu")
+FORBIDDEN = ("jax", "llm_d_fast_model_actuation_tpu", "ml_dtypes", "safetensors", "aiohttp", "prometheus_client")
+#: importable by the port only lazily, inside a function
+LAZY = ("transformers",)
 
 
 def _modules():
@@ -37,6 +42,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['llm_d_fast_model_actuation_tpu'] = None\n"
+        f"for m in {list(FORBIDDEN[2:] + LAZY)!r}:\n"
+        "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {list(_modules())!r}:\n"
         "    importlib.import_module(m)\n"
@@ -67,10 +74,28 @@ def test_no_file_imports_jax_or_the_jax_package(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "parity_spread.py"],
+)
+def test_transformers_is_imported_only_inside_functions(path):
+    tree = ast.parse((ROOT / path).read_text())
+    lazy = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            lazy.update(id(n) for n in ast.walk(fn))
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
+        for n in names:
+            if any(n == f or n.startswith(f + ".") for f in LAZY):
+                assert id(node) in lazy, f"{path}:{node.lineno} imports {n} at module level"
+
+
 def test_the_walk_covers_the_parallel_package():
     mods = set(_modules())
     for m in ("parallel", "parallel.mesh", "models.llama", "ops.cuda.ragged", "engine.server", "engine.arena",
-              "engine.graphs"):
+              "engine.graphs", "engine.tokenizer", "models.hf", "models.safetensors"):
         assert f"llm_d_fast_model_actuation_tpu_torch.{m}" in mods
 
 
@@ -79,6 +104,7 @@ def test_forbidden_match_is_exact_or_dotted():
     assert _forbidden("llm_d_fast_model_actuation_tpu.engine")
     assert not _forbidden("llm_d_fast_model_actuation_tpu_torch.engine")
     assert not _forbidden("jaxlib_like_name")
+    assert _forbidden("safetensors.torch") and not _forbidden("llm_d_fast_model_actuation_tpu_torch.models.safetensors")
 
 
 def test_kernel_build_finds_the_sources_and_names_libraries_by_content():

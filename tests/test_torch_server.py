@@ -88,12 +88,14 @@ def test_health_models_and_bad_requests(port_server):
     assert _call(port, "POST", "/v1/completions", raw=b"junk")[0] == 400
     assert _call(port, "POST", "/v1/completions", {"prompt": []})[0] == 400
     assert _call(port, "POST", "/v1/completions", {"prompt": [1] * 63, "max_tokens": 10})[0] == 400
-    # what the port does not serve yet is refused, and says so
-    status, err = _call(port, "POST", "/v1/completions", {"prompt": "hi", "max_tokens": 2})
-    assert status == 400 and "tokenizer" in err["error"]
-    status, err = _call(port, "POST", "/v1/completions", {"prompt": [1], "stream": True})
-    assert status == 400 and "not supported" in err["error"]
+    # a string prompt goes through the byte tokenizer; chat validates its
+    # messages; what the port does not serve yet is refused, and says so
+    status, text = _call(port, "POST", "/v1/completions", {"prompt": "hi", "max_tokens": 2})
+    assert status == 200 and text["usage"]["prompt_tokens"] == 2
+    assert _call(port, "POST", "/v1/completions", {"prompt": [1], "stream": True, "n": 2})[0] == 400
     status, err = _call(port, "POST", "/v1/chat/completions", {"messages": []})
+    assert status == 400 and "messages" in err["error"]
+    status, err = _call(port, "POST", "/v1/completions", {"prompt": [1], "echo": True, "logprobs": True})
     assert status == 400 and "not supported" in err["error"]
 
 
