@@ -81,6 +81,32 @@ exits non-zero and never prints the final ``ok`` line):
      and not, one request with ``logprobs: 2``; a level-1 sleep and wake
      and a level-2 sleep and wake that reads the directory again, each
      with identical tokens, no capture and no state moved;
+  launcher — the port's launcher as its own process (``python -m
+     llm_d_fast_model_actuation_tpu_torch.launcher.main``, real mode:
+     the card by NVML, preload on, ``--restart-budget 1``), driven only
+     through its REST API and its children's HTTP: no CUDA context of its
+     own (nvidia-smi lists as many compute processes as before it
+     started; on a machine whose nvidia-smi cannot map a container's pids
+     it lists each as pid 1 with the card's whole use, so rows are
+     counted and memory is read off the card's total); instance ``a``
+     with phase 4's options on card 0's UUID (``CUDA_VISIBLE_DEVICES``
+     its index, one more compute process on that UUID, and the child's
+     own device UUID the same), ``spawn_to_healthy_s`` from the PUT to
+     its ``/health``, phase 4's traffic with greedy tokens bit-equal to
+     phase 4's, its kernel launches read from its ``/v1/device``; ``b``
+     (``--seed 1``) on the same UUID refused with 409 naming ``a`` while
+     ``a`` is awake; ``a`` asleep at level 1 holding under a limit made
+     of its parts (``asleep_limit``: a fresh process's context, cuBLAS
+     and graph memory read rung by rung before ``a`` starts, and bounds
+     on what stays reserved and on the kernels loaded), its own reserved
+     and mapped bytes read from its ``/v1/device``; ``b``
+     admitted (201), serving and asleep; ``a`` awake with identical
+     tokens; a SIGKILL to ``a``'s child gives STOPPED (exit code -9),
+     RESTARTING and RESTARTED on the watch stream, and the restarted
+     child phase 4's tokens again; DELETE of both gives ``terminated``,
+     the compute processes and the card's free memory (within 1 GiB) as
+     before. Then a launcher with ``--no-preload`` spawns one instance,
+     for its ``spawn_to_healthy_s`` (not gated);
   graphs — a llama3-8b engine at full width and depth built directly,
      eight requests of the serve traffic's lengths (two of them sampled,
      seeded) prefilled; then for T = 8 and T = 1, sampled and greedy, one
@@ -134,7 +160,9 @@ exits non-zero and never prints the final ``ok`` line):
      one entry for each shape the serve runs launched it at (prefill by
      sequence bucket, ragged by buffer rows), with that shape's launches.
      Each serve phase sets every count to 0 just before it starts its
-     server and reads them just after its traffic.
+     server and reads them just after its traffic; the launcher's child
+     counts from 0 in its own process (forked from one that launched
+     nothing) and is read through its ``/v1/device`` after the traffic.
 
 With two or more cards the sharded ragged check also runs with its ranks
 on ``cuda:0,cuda:1`` and says so; with one it prints ``"two_cards": "not
@@ -151,10 +179,12 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -164,6 +194,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REL_TOL = 1.6e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+MIB = 1 << 20
 GIB = 1 << 30
 # the reference's GPU wake claim, about 3 s for 64 GiB (SURVEY.md section 6),
 # scaled to Llama-3-8B's 20.36 GB of weights and KV: reported, not gated
@@ -774,16 +805,9 @@ def get(port: int, path: str):
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build, decode, prefill, ragged
+    from llm_d_fast_model_actuation_tpu_torch.ops import cuda
 
-    return {
-        "probe": build.launch_probe,
-        "decode_inline": decode.paged_decode_attention_inline,
-        "decode_scatter_first": decode.paged_decode_attention,
-        "prefill": prefill.causal_prefill_attention,
-        "ragged": ragged.ragged_paged_attention,
-        "ragged_sharded": ragged.ragged_paged_attention_sharded,
-    }
+    return cuda.kernel_wrappers()
 
 
 def reset_counts() -> None:
@@ -796,12 +820,9 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    wrappers = kernel_wrappers()
-    counts = {k: fn.launches for k, fn in wrappers.items()}
-    counts["prefill_by_seq"] = dict(wrappers["prefill"].launches_by_seq)
-    counts["ragged_by_rows"] = dict(wrappers["ragged"].launches_by_rows)
-    counts["ragged_sharded_by_rows"] = dict(wrappers["ragged_sharded"].launches_by_rows)
-    return counts
+    from llm_d_fast_model_actuation_tpu_torch.ops import cuda
+
+    return cuda.kernel_launches()
 
 
 def start_service(torch, opts: str):
@@ -856,19 +877,23 @@ def graph_kernels(by_name: dict) -> dict:
             for key, marks in GRAPH_KERNELS.items()}
 
 
-def path_counts(eng) -> dict:
-    """A serve phase's kernel launches: the wrappers' counts, which are
-    eager launches, plus what the engine's graph replays launched, read
-    from each captured graph's kernel nodes (``engine/graphs.py``) times
-    its replays; the two parts of each decode count under ``eager`` and
-    ``replayed``."""
-    counts = read_counts()
-    replayed = graph_kernels(eng.graphs.replayed_launches() if eng.graphs else {})
+def add_replayed(counts: dict, by_name: dict) -> dict:
+    """Eager launch counts (the wrappers') plus what graph replays
+    launched (``by_name``: kernel nodes by kernel name times replays);
+    the two parts of each decode count under ``eager`` and ``replayed``."""
+    replayed = graph_kernels(by_name)
     counts["eager"] = {k: counts[k] for k in GRAPH_KERNELS}
     counts["replayed"] = replayed
     for k, n in replayed.items():
         counts[k] += n
     return counts
+
+
+def path_counts(eng) -> dict:
+    """A serve phase's kernel launches: the wrappers' counts plus what the
+    engine's graph replays launched, read from each captured graph's
+    kernel nodes (``engine/graphs.py``)."""
+    return add_replayed(read_counts(), eng.graphs.replayed_launches() if eng.graphs else {})
 
 
 def check_replays(eng, counts: dict, key: str) -> None:
@@ -985,13 +1010,16 @@ def check_probe_launch(counts: dict) -> None:
         raise AssertionError(f"the engine launched the probe kernel {counts['probe']} times at start, want 1")
 
 
+# serve's engine options (the reference EngineConfig's default pool: 2048
+# pages x 16 tokens), which the launcher's children run too
+SERVE_OPTS = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
+
+
 def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
     """The ``serve`` and ``sleep_wake`` phases; at the end, with the
     seeded weights still on the card, they are written to ``ckpt`` as a
     Hugging Face checkpoint for ``serve_hf``."""
-    # the reference EngineConfig's default pool: 2048 pages x 16 tokens
-    opts = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
-    service, server, init_s, free_before = start_service(torch, opts)
+    service, server, init_s, free_before = start_service(torch, SERVE_OPTS)
     port = server.server_address[1]
     try:
         eng = service.engine
@@ -1380,6 +1408,382 @@ def serve_hf(torch, smi: str, ckpt: str, written: dict, bucketed: dict) -> dict:
 
 
 # -- phase graphs: the captured chunk against the eager one -----------------
+
+# -- launcher: the port's launcher forks, pins, supervises, time-shares ------
+
+# A sleeping child's share of the card is held to a limit made of its
+# parts, each measured or bounded before the reading:
+#  - a CUDA context, cuBLAS's handles and kernels, and a graph's memory
+#    per kernel node, read rung by rung from a fresh process
+#    (``context_ladder``) in this run;
+#  - the child's captured graphs (kernel nodes from its ``/v1/device``)
+#    at the ladder's bytes per node;
+#  - what its caching allocator keeps reserved while asleep, which the
+#    child reports: at most ASLEEP_RESERVED_LIMIT_BYTES, 1.29x the largest
+#    reading of the in-process sleep phase (149-182 MB: the graph pool
+#    and cuBLAS's workspaces; a child read 149 MB);
+#  - the kernels a serving engine loads beyond the ladder's (the port's
+#    and PyTorch's, lazily): at most ASLEEP_MODULES_LIMIT_BYTES, 2.3x
+#    the 43 MB that one child's share left once the parts above were
+#    taken off (NVIDIA H100 80GB HBM3, 700 W).
+ASLEEP_RESERVED_LIMIT_BYTES = 224 * MIB
+ASLEEP_MODULES_LIMIT_BYTES = 96 * MIB
+#: kernel nodes of the ladder's graph
+LADDER_NODES = 16384
+#: the ladder's process: each rung is read after it prints, and the next
+#: one starts once a line comes on its standard input
+LADDER = r"""
+import json, sys, torch
+def rung(name):
+    torch.cuda.synchronize()
+    print(json.dumps({"rung": name, "reserved": torch.cuda.memory_reserved()}), flush=True)
+    sys.stdin.readline()
+x = torch.zeros(1, device="cuda")
+rung("context")
+a = torch.randn(8, 4096, device="cuda", dtype=torch.bfloat16)
+w = torch.randn(4096, 14336, device="cuda", dtype=torch.bfloat16)
+y = a @ w
+rung("cublas")
+x.add_(1)
+g = torch.cuda.CUDAGraph()
+with torch.cuda.graph(g):
+    for _ in range(int(sys.argv[1])):
+        x.add_(1)
+g.replay()
+rung("graph")
+"""
+
+
+def context_ladder(index: int) -> dict:
+    """A fresh process's share of card ``index``, rung by rung (``LADDER``):
+    for each rung, the card's ``memory.used`` it added and how much of
+    that its caching allocator reserved. Run while nothing else on the
+    card changes."""
+    base = card_used_bytes(index)
+    proc = subprocess.Popen([sys.executable, "-c", LADDER, str(LADDER_NODES)], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    rungs, used, reserved = {}, base, 0
+    try:
+        for _ in range(3):
+            line = proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"the context ladder exited with {proc.wait()} after {rungs}")
+            r = json.loads(line)
+            now = card_used_bytes(index)
+            rungs[r["rung"]] = {"card_bytes": now - used, "reserved_bytes": r["reserved"] - reserved}
+            used, reserved = now, r["reserved"]
+            proc.stdin.write("\n")
+            proc.stdin.flush()
+        if proc.wait(60) != 0:
+            raise RuntimeError(f"the context ladder exited with {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rungs
+
+
+def asleep_limit(ladder: dict, graph_nodes: int) -> dict:
+    """The parts of a sleeping child's limit (see ASLEEP_RESERVED_LIMIT_BYTES)
+    and their sum, ``limit_bytes``."""
+    graph = ladder["graph"]
+    per_node = (graph["card_bytes"] - graph["reserved_bytes"]) / LADDER_NODES
+    parts = {
+        "context_bytes": ladder["context"]["card_bytes"],
+        "cublas_bytes": ladder["cublas"]["card_bytes"] - ladder["cublas"]["reserved_bytes"],
+        "graph_bytes_per_node": per_node, "graph_kernel_nodes": graph_nodes,
+        "graphs_bytes": round(per_node * graph_nodes),
+        "reserved_limit_bytes": ASLEEP_RESERVED_LIMIT_BYTES, "modules_limit_bytes": ASLEEP_MODULES_LIMIT_BYTES,
+    }
+    parts["limit_bytes"] = (parts["context_bytes"] + parts["cublas_bytes"] + parts["graphs_bytes"]
+                            + ASLEEP_RESERVED_LIMIT_BYTES + ASLEEP_MODULES_LIMIT_BYTES)
+    return parts
+
+
+def smi_rows(*args) -> list:
+    out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=30).stdout
+    return [[f.strip() for f in line.split(",")] for line in out.strip().splitlines() if line.strip()]
+
+
+def compute_apps() -> list:
+    """The card's compute processes as nvidia-smi lists them: (pid,
+    gpu_uuid, used MiB). Inside a container whose processes nvidia-smi
+    cannot map (each listed as pid 1 beside the card's whole use), a
+    process still adds a row."""
+    return [(int(p), u, int(m)) for p, u, m in smi_rows("--query-compute-apps=pid,gpu_uuid,used_memory")]
+
+
+def card_used_bytes(index: int) -> int:
+    return int(smi_rows("--query-gpu=memory.used", "-i", str(index))[0][0]) << 20
+
+
+def request(url: str, method: str = "GET", body=None, timeout: float = 600.0, headers=None) -> tuple:
+    """(status, parsed JSON or text) of one HTTP request; an error status
+    is returned, not raised."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode(errors="replace")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Launcher:
+    """The port's launcher as its own process (real mode: NVML ids), its
+    REST API at ``self.url``; stopped with SIGTERM, which stops its
+    children."""
+
+    def __init__(self, *flags: str) -> None:
+        self.log_dir = os.path.join(ROOT, "build", "launcher-logs")
+        os.makedirs(self.log_dir, exist_ok=True)
+        port = free_port()
+        self.url = f"http://127.0.0.1:{port}"
+        self.log = open(os.path.join(self.log_dir, f"launcher-{port}.log"), "wb")
+        t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "llm_d_fast_model_actuation_tpu_torch.launcher.main", "--host", "127.0.0.1",
+             "--port", str(port), "--log-dir", self.log_dir, *flags],
+            cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT,
+        )
+        self.wait(lambda: request(self.url + "/health", timeout=5)[0] == 200, 600, "the launcher's /health")
+        self.ready_s = time.monotonic() - t0
+
+    def wait(self, ok, timeout: float, what: str) -> None:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"the launcher exited with {self.proc.returncode} waiting for {what}: {self.tail()}")
+            try:
+                if ok():
+                    return
+            except OSError:
+                pass
+            time.sleep(0.2)
+        raise TimeoutError(f"{what} within {timeout} s: {self.tail()}")
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name, "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    def instance(self, iid: str) -> dict:
+        status, body = request(f"{self.url}/v2/vllm/instances/{iid}")
+        if status != 200:
+            raise AssertionError(f"GET instance {iid}: {status} {body}")
+        return body
+
+    def child_log(self, iid: str) -> str:
+        return str(request(f"{self.url}/v2/vllm/instances/{iid}/log", headers={"Range": "bytes=0-"})[1])[-3000:]
+
+    def create(self, iid: str, options: str, uuid: str) -> tuple:
+        return request(f"{self.url}/v2/vllm/instances/{iid}", "PUT", {"options": options, "gpu_uuids": [uuid]})
+
+    def spawn(self, iid: str, options: str, uuid: str, port: int) -> tuple:
+        """PUT the instance and wait for its child's /health; (create
+        answer, seconds from the PUT to healthy)."""
+        t0 = time.monotonic()
+        status, body = self.create(iid, options, uuid)
+        if status != 201:
+            raise AssertionError(f"PUT {iid}: {status} {body}")
+        self.wait_child(iid, port)
+        return body, time.monotonic() - t0
+
+    def wait_child(self, iid: str, port: int) -> None:
+        def healthy():
+            if self.instance(iid)["status"] != "running":
+                raise AssertionError(f"instance {iid} stopped while starting: {self.child_log(iid)}")
+            return request(f"http://127.0.0.1:{port}/health", timeout=5)[0] == 200
+
+        self.wait(healthy, 600, f"instance {iid}'s /health")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+def child_counts(port: int) -> tuple:
+    """A launcher child's kernel launches (its own process counts them
+    from 0: it was forked from a process that launched none), eager ones
+    plus those its graph replays ran, keyed as ``path_counts``; and its
+    device answer."""
+    dev = get(port, "/v1/device")
+    counts = dev["launches"]
+    for key in ("prefill_by_seq", "ragged_by_rows", "ragged_sharded_by_rows"):
+        counts[key] = {int(k): v for k, v in counts[key].items()}
+    return add_replayed(counts, dev["replayed"]), dev
+
+
+def await_events(url: str, want: list, timeout: float) -> list:
+    """Read the launcher's watch stream from ``url`` until the event types
+    ``want`` have come in that order (other events between them are kept
+    too)."""
+    events, i = [], 0
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        while i < len(want):
+            line = r.readline()
+            if not line:
+                raise AssertionError(f"the watch stream ended after {events}")
+            events.append(json.loads(line))
+            if events[-1]["type"] == want[i]:
+                i += 1
+    return events
+
+
+def launcher_phase(torch, smi: str, bucketed: dict) -> dict:
+    """The port's launcher started as its own process (real mode, preload
+    on, ``--restart-budget 1``) and driven only through its REST API and
+    its children's HTTP: it holds no CUDA context; instance ``a`` on card
+    0's UUID serves ``serve``'s traffic with ``serve``'s tokens; ``b`` on
+    the same card is refused while ``a`` is awake and admitted once it
+    sleeps; ``a`` wakes with its tokens; a SIGKILL to ``a``'s child gives
+    STOPPED (-9), RESTARTING, RESTARTED and the same tokens again; DELETE
+    leaves no child on the card and its memory back. Then a launcher with
+    ``--no-preload`` spawns once, for its ``spawn_to_healthy_s``."""
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig
+
+    model = LlamaConfig.llama3_8b()
+    free_memory(torch)
+    index, uuid = smi_rows("--query-gpu=index,uuid")[0]
+    index = int(index)
+    apps0 = compute_apps()
+    free_before = torch.cuda.mem_get_info()[0]
+    launcher = Launcher("--restart-budget", "1", "--restart-backoff", "0.5")
+    try:
+        apps1 = compute_apps()
+        if len(apps1) != len(apps0) or launcher.proc.pid in [p for p, _, _ in apps1]:
+            raise AssertionError(f"the launcher (pid {launcher.proc.pid}) holds a CUDA context: {apps0} -> {apps1}")
+        ladder = context_ladder(index)
+        used_base = card_used_bytes(index)
+        port_a = free_port()
+        created, spawn_s = launcher.spawn("a", f"{SERVE_OPTS} --port {port_a}", uuid, port_a)
+        if created["env_vars"]["CUDA_VISIBLE_DEVICES"] != str(index) or created["gpu_uuids"] != [uuid]:
+            raise AssertionError(f"card {index} ({uuid}) pinned as {created['env_vars']}")
+        apps2 = compute_apps()
+        if len(apps2) != len(apps0) + 1 or [u for _, u, _ in apps2].count(uuid) != [u for _, u, _ in apps0].count(uuid) + 1:
+            raise AssertionError(f"instance a added no process on {uuid}: {apps0} -> {apps2}")
+        traffic = run_traffic(torch, port_a, model.vocab_size)
+        if traffic["tokens"] != bucketed["tokens"]:
+            raise AssertionError(f"the launcher's child gave other tokens than serve: "
+                                 f"{first_differences(traffic['tokens'], bucketed['tokens'])}")
+        counts, dev = child_counts(port_a)
+        if dev["uuid"].lower() != uuid.lower() or dev["device"] not in ("cuda", "cuda:0"):
+            raise AssertionError(f"instance a runs on {dev['device']} {dev['uuid']}, asked for {uuid}")
+        L = model.num_layers
+        check_probe_launch(counts)
+        if counts["prefill"] != 4 * L or not counts["replayed"]["decode_inline"] or counts["decode_inline"] % L:
+            raise AssertionError(f"instance a's launches are not serve's path: {counts}")
+        if counts["ragged"] or counts["ragged_sharded"] or counts["decode_scatter_first"]:
+            raise AssertionError(f"instance a launched kernels off the bucketed path: {counts}")
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
+        before = post(port_a, "/v1/completions", probe)["choices"][0]["token_ids"]
+
+        # the GPU exclusivity rule: refused while a is awake, admitted once
+        # it sleeps
+        port_b = free_port()
+        opts_b = f"{SERVE_OPTS.replace('--seed 0', '--seed 1')} --port {port_b}"
+        status, body = launcher.create("b", opts_b, uuid)
+        if status != 409 or "['a']" not in body:
+            raise AssertionError(f"PUT b on a's card while a is awake: {status} {body}")
+        refused = body
+        limit = asleep_limit(ladder, dev["memory"]["graph_kernel_nodes"])
+        post(port_a, "/sleep?level=1")
+        time.sleep(1)
+        asleep_bytes = card_used_bytes(index) - used_base
+        asleep_apps = compute_apps()
+        asleep_memory = get(port_a, "/v1/device")["memory"]
+        # what the child accounts for itself, and the rest: its context
+        rest = asleep_bytes - asleep_memory["reserved_bytes"] - asleep_memory["mapped_bytes"]
+        split = {"card_bytes": asleep_bytes, "child": asleep_memory, "context_bytes": rest,
+                 "context_beyond_ladder_bytes": rest - limit["context_bytes"] - limit["cublas_bytes"] - limit["graphs_bytes"]}
+        emit({"phase": "launcher_asleep", "split": split, "limit": limit, "ladder": ladder})
+        if asleep_memory["mapped_bytes"] or asleep_memory["reserved_bytes"] > ASLEEP_RESERVED_LIMIT_BYTES:
+            raise AssertionError(f"sleeping instance a keeps {asleep_memory} (reserved limit {ASLEEP_RESERVED_LIMIT_BYTES})")
+        if asleep_bytes >= limit["limit_bytes"]:
+            raise AssertionError(f"sleeping instance a holds {asleep_bytes} bytes of the card, limit {limit}")
+        _, spawn_b_s = launcher.spawn("b", opts_b, uuid, port_b)
+        b_tokens = post(port_b, "/v1/completions", probe)["choices"][0]["token_ids"]
+        post(port_b, "/sleep?level=1")
+        woke = post(port_a, "/wake_up")
+        after = post(port_a, "/v1/completions", probe)["choices"][0]["token_ids"]
+        if after != before:
+            raise AssertionError(f"instance a's tokens changed across b's turn: {before[:8]} vs {after[:8]}")
+
+        # supervision: SIGKILL a's child
+        rev = request(f"{launcher.url}/v2/vllm/instances?detail=false")[1]["revision"]
+        pid = launcher.instance("a")["pid"]
+        t0 = time.monotonic()
+        os.kill(pid, signal.SIGKILL)
+        events = await_events(f"{launcher.url}/v2/vllm/instances/watch?since={rev}",
+                              ["STOPPED", "RESTARTING", "RESTARTED"], 120)
+        stopped = next(e for e in events if e["type"] == "STOPPED")["object"]
+        if stopped["exit_code"] != -9 or stopped["instance_id"] != "a":
+            raise AssertionError(f"the SIGKILL gave {stopped}")
+        launcher.wait_child("a", port_a)
+        restart_s = time.monotonic() - t0
+        new_pid = launcher.instance("a")["pid"]
+        again = run_traffic(torch, port_a, model.vocab_size)
+        if again["tokens"] != bucketed["tokens"] or new_pid == pid:
+            raise AssertionError(f"the restarted child (pid {new_pid}) gave other tokens: "
+                                 f"{first_differences(again['tokens'], bucketed['tokens'])}")
+
+        # teardown
+        deleted = {iid: request(f"{launcher.url}/v2/vllm/instances/{iid}", "DELETE")[1]["status"] for iid in ("a", "b")}
+        if set(deleted.values()) != {"terminated"}:
+            raise AssertionError(f"DELETE gave {deleted}")
+        launcher.wait(lambda: len(compute_apps()) == len(apps0), 30, "the children's contexts to leave the card")
+        free_after = torch.cuda.mem_get_info()[0]
+        if free_after < free_before - GIB:
+            raise AssertionError(f"{(free_before - free_after) / GIB:.2f} GiB less free after DELETE than before the phase")
+    finally:
+        launcher.stop()
+
+    # preload's effect: a launcher without it, one spawn
+    plain = Launcher("--no-preload")
+    try:
+        port_c = free_port()
+        _, spawn_plain_s = plain.spawn("c", f"{SERVE_OPTS} --port {port_c}", uuid, port_c)
+        request(f"{plain.url}/v2/vllm/instances/c", "DELETE")
+    finally:
+        plain.stop()
+    emit({
+        "phase": "launcher", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "gpu": {"index": index, "uuid": uuid}, "launcher_ready_s": launcher.ready_s,
+        "launcher_holds_context": False, "compute_apps": {"before": apps0, "launcher": apps1, "a": apps2,
+                                                          "a_asleep": asleep_apps},
+        "spawn_to_healthy_s": spawn_s, "child_device": {k: dev[k] for k in ("device", "name", "uuid")},
+        "tokens_equal_serve": True, **traffic["summary"], "launches": counts,
+        "refused_while_awake": refused, "a_asleep_card_bytes": asleep_bytes,
+        "asleep_limit_bytes": limit["limit_bytes"], "asleep_limit": limit, "asleep_split": split, "ladder": ladder, "b_spawn_to_healthy_s": spawn_b_s, "b_tokens": b_tokens[:8],
+        "a_wake_s": woke["last_wake_seconds"], "a_tokens_identical_after_b": True,
+        "restart_events": [{k: e["object"].get(k) for k in ("revision", "pid", "exit_code", "restart_attempt")} | {"type": e["type"]}
+                           for e in events],
+        "restart_to_healthy_s": restart_s, "restarted_tokens_equal_serve": True,
+        "deleted": deleted, "free_before_bytes": free_before, "free_after_bytes": free_after,
+        "no_preload_spawn_to_healthy_s": spawn_plain_s, "no_preload_launcher_ready_s": plain.ready_s,
+    })
+    return {"counts": counts}
+
 
 GRAPH_PROMPT_LENS = (20, 300, 1500, 3000) * 2  # the serve traffic's lengths, 8 slots
 GRAPH_SAMPLED = (1, 6)  # requests that sample (seeded), beside six greedy ones
@@ -2191,6 +2595,7 @@ def main() -> int:
         hf = serve_hf(torch, smi, ckpt, bucketed["checkpoint"], bucketed)
     finally:
         shutil.rmtree(ckpt)
+    launched = launcher_phase(torch, smi, bucketed)
     graphs_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
@@ -2199,7 +2604,7 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
-    runs = (bucketed["counts"], hf["counts"], packed["counts"], tp2["counts"], reference["counts"])
+    runs = (bucketed["counts"], hf["counts"], launched["counts"], packed["counts"], tp2["counts"], reference["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)

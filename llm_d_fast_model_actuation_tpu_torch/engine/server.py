@@ -6,6 +6,11 @@ thread fed by a submit queue, and the routes
   GET  /health, /is_sleeping, /v1/models, /v1/stats
   POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions
 
+and one of the port's own, ``GET /v1/device``: the card the engine runs
+on as the CUDA runtime names it, the kernel launches of this process and
+its memory (:meth:`EngineService.device_info`), for a caller that did not start the
+process itself, such as a launcher's client.
+
 with the reference's flag names for the flags it keeps, among them
 ``--packed-serving on|off``, ``--token-budget``, ``--attention-impl``,
 ``--tensor-parallel-size N`` (one process drives the ``N`` ranks; with it
@@ -38,7 +43,10 @@ combines them with tensor parallelism.
 Run: ``python -m llm_d_fast_model_actuation_tpu_torch.engine.server
 --model llama3-8b`` or ``--model hf:/path/to/model`` (on the card;
 ``--device cpu`` to run on the CPU; ``--tensor-parallel-size 2`` on two
-cards, or with ``--device cuda:0,cuda:0`` as two ranks on one).
+cards, or with ``--device cuda:0,cuda:0`` as two ranks on one). The
+launcher's child runs :func:`run_server` on the options string of its
+instance, parsed by :func:`parse_engine_options` as the reference parses
+it; it serves until SIGTERM or SIGINT.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ import dataclasses
 import json
 import math
 import queue
+import shlex
+import signal
 import threading
 import time
 import traceback
@@ -56,8 +66,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
+import torch
+
 from ..models import hf as hf_models
 from ..models import llama
+from ..ops.cuda import kernel_launches
 from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
 from . import tokenizer as tokenizer_mod
@@ -162,11 +175,16 @@ def make_arg_parser() -> argparse.ArgumentParser:
 
 
 def parse_engine_options(options: str) -> argparse.Namespace:
-    """Parse an options string; unknown flags and models raise ValueError."""
+    """Parse an instance's options string as the reference does: split as
+    a shell splits it (``shlex``: quotes and escapes, so an ``hf:`` path
+    may hold a space), every unknown flag refused in one message; a bad
+    value or model raises ValueError too."""
     try:
-        args = make_arg_parser().parse_args(options.split())
+        args, unknown = make_arg_parser().parse_known_args(shlex.split(options or ""))
     except (argparse.ArgumentError, SystemExit) as e:
         raise ValueError(f"invalid engine options {options!r}: {e}")
+    if unknown:
+        raise ValueError(f"unknown engine options: {unknown}")
     check_engine_options(args)
     return args
 
@@ -508,6 +526,36 @@ class EngineService:
                 "is_sleeping": self.sleeper.is_sleeping,
                 "load": None if self.load_stats is None else dict(self.load_stats.summary(), loads=self.loads),
             }
+
+    def device_info(self) -> Dict[str, Any]:
+        """GET /v1/device: the engine's device, with the card's name and
+        UUID as the CUDA runtime gives them (the UUID spelled as NVML and
+        a launcher's ``gpu_uuids`` spell it, ``GPU-...``); this process's
+        kernel launches: each wrapper's eager ones
+        (``ops/cuda:kernel_launches``) and, by kernel name, those the
+        replays of the captured chunk graphs ran; and its share of the
+        card that is known here: the caching allocator's reserved and
+        allocated bytes, the arenas' mapped bytes, and the captured
+        graphs' kernel nodes (the rest of its share, the CUDA context,
+        only the card reports)."""
+        eng = self.engine
+        dev = eng.device
+        name = uuid = None
+        memory = {"reserved_bytes": 0, "allocated_bytes": 0}
+        if dev.type == "cuda":
+            props = torch.cuda.get_device_properties(dev)
+            name, uuid = props.name, f"GPU-{props.uuid}"
+            memory = {"reserved_bytes": torch.cuda.memory_reserved(dev),
+                      "allocated_bytes": torch.cuda.memory_allocated(dev)}
+        memory["mapped_bytes"] = sum(a.mapped_bytes for a in eng.arenas.values())
+        programs = eng.graphs.programs.values() if eng.graphs else ()
+        memory["graph_kernel_nodes"] = sum(n for p in programs for n in p.kernels.values())
+        return {
+            "device": str(dev), "name": name, "uuid": uuid,
+            "launches": kernel_launches(),
+            "replayed": eng.graphs.replayed_launches() if eng.graphs else {},
+            "memory": memory,
+        }
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -1004,6 +1052,8 @@ def make_handler(service: EngineService):
                     return self._send(200, {"object": "list", "data": [{"id": service.args.model, "object": "model"}]})
                 if method == "GET" and path == "/v1/stats":
                     return self._send(200, service.stats())
+                if method == "GET" and path == "/v1/device":
+                    return self._send(200, service.device_info())
                 if method == "POST" and path == "/sleep":
                     try:
                         level = int(parse_qs(url.query).get("level", ["1"])[0])
@@ -1050,12 +1100,18 @@ def serve(service: EngineService, host: str, port: int) -> ThreadingHTTPServer:
     return server
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    args = make_arg_parser().parse_args(argv)
+def run_server(args: argparse.Namespace) -> None:
+    """The server's main, and the launcher's child body: check the
+    options, build the service, serve until SIGTERM or SIGINT, then stop
+    the server and the engine thread. Call it from the main thread (it
+    installs the signal handlers)."""
     try:
         check_engine_options(args)
     except ValueError as e:
         raise SystemExit(str(e))
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
     service = EngineService(args)  # loads the weights and captures the chunk graphs
     server = serve(service, args.host, args.port)
     eng = service.engine
@@ -1067,12 +1123,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         flush=True,
     )
     try:
-        threading.Event().wait()
-    except KeyboardInterrupt:
-        pass
+        while not stop.wait(0.5):
+            pass
     finally:
         server.shutdown()
+        server.server_close()
         service.shutdown()
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    run_server(make_arg_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,664 @@
+"""Multi-instance manager: CRUDL over engine instances + revisioned events.
+
+The port of the JAX package's ``launcher/manager.py`` (the reference's
+``VllmMultiProcessManager``, launcher.py:344-515), lifecycle only: a
+monotonically increasing revision stamped on every lifecycle event
+(CREATED / STOPPED / RESTARTING / RESTARTED / DELETED), a duplicate id is
+an error (REST maps it to 409), options are validated before the fork
+(422), stop is graceful-then-kill, a crashed child produces a STOPPED
+event with its exit code through the sentinel watcher, and a
+``RestartPolicy`` brings it back in place.
+
+The GPU exclusivity rule. A ``ChipLedger`` records which cards each live
+instance holds, and a create whose cards overlap a holder is refused
+(``ChipConflict``, 409) unless every overlapping holder is asleep. On a
+TPU a sleeping process still owns its chip, so the JAX manager needs
+"asleep with devices released". CUDA contexts coexist on a card, and a
+level-1 sleep of the port's engine gives its memory back (under 1 GiB
+reserved, nothing of its arenas mapped), so here **a holder that is
+sleeping does not block; an awake or unreachable one does**. That is
+what lets one card time-share engines. A supervised restart is held to
+it too: a restarted child comes up awake, so it does not come back while
+another holder admitted beside it is awake or unreachable.
+
+Not ported yet: the swap, prefetch, residents, migrate and drain verbs
+(each waits on its engine feature), and the Prometheus gauges and spans.
+``fleet_rollup`` aggregates the children's ``/v1/stats`` as the reference
+does, without gauges.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import random
+import socket
+import threading
+import time
+import urllib.error
+import urllib.request
+import uuid as uuidlib
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+from ..api.constants import STATUS_RUNNING
+from ..utils.events import EventBroadcaster
+from .chiptranslator import ChipTranslator
+from .instance import EngineInstance, InstanceConfig, InvalidInstanceConfig
+
+logger = logging.getLogger(__name__)
+
+class ChipConflict(Exception):
+    """Requested cards overlap an instance that is (or may be) awake."""
+
+    def __init__(self, instance_id: str, blockers: List[str]) -> None:
+        super().__init__(
+            f"instance {instance_id}: cards held by awake (or not-yet-probeable) "
+            f"instance(s) {blockers}; a card time-shares only with sleeping holders — sleep them first"
+        )
+        self.instance_id = instance_id
+        self.blockers = blockers
+
+
+class StatsFailed(Exception):
+    """The engine child never answered a stats poll (fleet rollup marks
+    the instance unreachable instead of failing the whole read)."""
+
+    def __init__(self, instance_id: str, status: int, detail: str) -> None:
+        super().__init__(
+            f"stats on instance {instance_id} failed ({status}): {detail}"
+        )
+        self.instance_id = instance_id
+        self.status = status
+        self.detail = detail
+
+
+def _engine_port(instance: "EngineInstance") -> int:
+    from ..engine.server import parse_engine_options
+
+    return parse_engine_options(instance.config.options).port
+
+
+def probe_instance_awake(instance: "EngineInstance", timeout: float = 2.0) -> Optional[bool]:
+    """Whether the instance's engine keeps its cards from another engine,
+    read from its ``/is_sleeping``: True (awake and serving), False
+    (asleep, whatever its ``devices_released`` says: the GPU rule, module
+    docstring), or None (not reachable: still booting, crashed, or
+    options that name no engine port). The exclusivity rule treats None
+    as awake."""
+    try:
+        port = _engine_port(instance)
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/is_sleeping", timeout=timeout
+        ) as resp:
+            body = json.loads(resp.read() or b"{}")
+    except Exception:  # noqa: BLE001 — refused, timed out, not engine options
+        return None
+    return not body.get("is_sleeping", False)
+
+
+class ChipLedger:
+    """Node-local truth of which live instance holds which cards, and which
+    model each holder serves. The reference's ``prefetched``, ``pools``,
+    ``quant`` and ``residents`` blocks are kept, empty: the port's engine
+    has none of the verbs that fill them yet."""
+
+    def __init__(self) -> None:
+        self._held: Dict[str, List[str]] = {}  # instance_id -> chip_ids
+        self._models: Dict[str, str] = {}  # instance_id -> served model
+
+    def overlapping(
+        self, chip_ids: Optional[List[str]], exclude: Optional[str] = None
+    ) -> List[str]:
+        """Instance IDs whose recorded chip sets overlap `chip_ids`."""
+        chips = set(chip_ids or [])
+        # a copy: creates, stops and restarts change the ledger from
+        # other threads
+        return [
+            iid
+            for iid, held in list(self._held.items())
+            if iid != exclude and chips & set(held)
+        ]
+
+    def acquire(self, instance_id: str, chip_ids: Optional[List[str]]) -> List[str]:
+        """Record ownership; returns the list of instance IDs whose chip sets
+        overlap (empty = clean placement)."""
+        overlaps = self.overlapping(chip_ids, exclude=instance_id)
+        self._held[instance_id] = sorted(set(chip_ids or []))
+        return overlaps
+
+    def release(self, instance_id: str) -> None:
+        self._held.pop(instance_id, None)
+        self._models.pop(instance_id, None)
+
+    def set_model(self, instance_id: str, model: str) -> None:
+        """Record which model a holder serves."""
+        if instance_id in self._held:
+            self._models[instance_id] = model
+
+    def holders(self) -> Dict[str, List[str]]:
+        return dict(self._held)
+
+    def models(self) -> Dict[str, str]:
+        return dict(self._models)
+
+
+@dataclass
+class RestartPolicy:
+    """Supervised-restart knobs for crashed engine children.
+
+    ``budget`` restarts per crash loop (0 disables supervision — the
+    launcher then only reports the death, and the dual-pods controller
+    heals by re-pairing). Delays grow ``backoff_s * 2**attempt`` up to
+    ``backoff_max_s``, with up to ``jitter_frac`` random extra so a node
+    full of children crashed by one cause does not restart in lockstep. A
+    child that stays up longer than ``reset_window_s`` earns its crash
+    counter back — the budget bounds crash *loops*, not total restarts."""
+
+    budget: int = 0
+    backoff_s: float = 0.5
+    backoff_max_s: float = 30.0
+    jitter_frac: float = 0.2
+    reset_window_s: float = 300.0
+
+
+@dataclass
+class _RestartState:
+    attempts: int = 0
+    last_crash: float = 0.0
+    timer: Optional[threading.Timer] = None
+    #: set by _cancel_restart under the restart lock; a timer body that
+    #: already started (Timer.cancel is a no-op then) re-checks this
+    #: before forking, so an explicit stop can never race an orphan child
+    cancelled: bool = False
+
+
+class EngineProcessManager:
+    def __init__(
+        self,
+        translator: ChipTranslator,
+        log_dir: str = "",
+        kickoff=None,
+        restart_policy: Optional[RestartPolicy] = None,
+    ) -> None:
+        self.instances: Dict[str, EngineInstance] = {}
+        self.translator = translator
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
+        self.ledger = ChipLedger()
+        self.broadcaster = EventBroadcaster()
+        self._revision = 0
+        # create and the sentinel publish on the loop thread, stop_instance
+        # from the REST handler's executor thread: minting a revision and
+        # appending to the buffer are one atomic step, or a watcher skips
+        self._rev_lock = threading.Lock()
+        self._kickoff = kickoff
+        self.restart_policy = restart_policy
+        self._restart_states: Dict[str, _RestartState] = {}
+        # RLock: _restart_instance holds it across its whole body (so a
+        # concurrent stop_instance serializes against the fork) and its
+        # spawn-failure path re-enters via _restart_allowed/_schedule
+        self._restart_lock = threading.RLock()
+        self._loop = None  # captured from the sentinel callback's loop
+        # fleet_rollup cache: a short TTL keeps back-to-back instance-list
+        # reads from double-polling every child
+        self._fleet_lock = threading.Lock()
+        self._fleet_cache: Optional[tuple] = None  # (monotonic_t, block)
+
+    # -- revisions -----------------------------------------------------------
+
+    @property
+    def revision(self) -> int:
+        return self._revision
+
+    def _publish(self, event_type: str, obj: Dict[str, Any]) -> int:
+        """Mint-and-append atomically (cross-thread safe); returns the
+        revision stamped on the event."""
+        with self._rev_lock:
+            self._revision += 1
+            rev = self._revision
+            obj["revision"] = rev
+            self.broadcaster.publish_nowait(rev, {"type": event_type, "object": obj})
+        return rev
+
+    def _served_model(self, options: str) -> Optional[str]:
+        """The model an options string serves; None for the free-form
+        options of a fake kickoff."""
+        from ..engine.server import parse_engine_options
+
+        try:
+            return parse_engine_options(options).model
+        except ValueError:
+            return None
+
+    def _awake_holders(
+        self, chip_ids: Optional[List[str]], exclude: str
+    ) -> List[str]:
+        """The holders of any of ``chip_ids`` (other than ``exclude``) that
+        keep them from another engine: awake, or not reachable (possibly
+        booting: refusing a race beats two engines filling one card). A
+        sleeping holder does not block."""
+        blockers = []
+        for other in self.ledger.overlapping(chip_ids, exclude=exclude):
+            inst = self.instances.get(other)
+            if inst is None:
+                # stale ledger entry (a failed create); drop, not block
+                self.ledger.release(other)
+                continue
+            if probe_instance_awake(inst) is not False:
+                blockers.append(other)
+        return blockers
+
+    # -- CRUDL ---------------------------------------------------------------
+
+    def create_instance(
+        self, config: InstanceConfig, instance_id: Optional[str] = None
+    ) -> Dict[str, Any]:
+        iid = instance_id or str(uuidlib.uuid4())
+        if iid in self.instances:
+            raise ValueError(f"instance {iid} already exists")
+        if self._kickoff is None:
+            # Real engine path: validate the options string before the fork
+            # so a bad config is a 422 at create time, not a crash later.
+            from ..engine.server import parse_engine_options
+
+            try:
+                parse_engine_options(config.options)
+            except Exception as e:
+                raise InvalidInstanceConfig(f"invalid engine options: {e}")
+        blockers = self._awake_holders(config.chip_ids, exclude=iid)
+        if blockers:
+            raise ChipConflict(iid, blockers)
+        kwargs = {} if self._kickoff is None else {"kickoff": self._kickoff}
+        instance = EngineInstance(
+            iid, config, self.translator, log_dir=self.log_dir, **kwargs
+        )
+        result = instance.start()
+        # record ownership only once the process actually exists — a failed
+        # start must not leak a hold
+        self.ledger.acquire(iid, config.chip_ids)
+        model = self._served_model(config.options)
+        if model is not None:
+            self.ledger.set_model(iid, model)
+        self.instances[iid] = instance
+        instance.last_revision = self._publish("CREATED", dict(result))
+        result["revision"] = instance.last_revision
+        logger.info("created instance %s (rev %s)", iid, instance.last_revision)
+        return result
+
+    def _on_instance_stopped(self, instance_id: str, exitcode) -> None:
+        """Sentinel callback: the child died on its own. Publishes STOPPED
+        with its exit code, then — when a restart policy is armed and the
+        crash-loop budget allows — keeps the ledger's hold (the cards stay
+        earmarked for the comeback; a concurrent create must not take
+        them) and schedules a supervised restart."""
+        instance = self.instances.get(instance_id)
+        if instance is None:
+            return
+        will_restart = self._restart_allowed(instance_id)
+        if not will_restart:
+            self.ledger.release(instance_id)
+        obj = instance.get_status()
+        obj["exit_code"] = exitcode
+        instance.last_revision = self._publish("STOPPED", obj)
+        logger.warning(
+            "instance %s stopped itself (exit code %s)", instance_id, exitcode
+        )
+        if will_restart:
+            try:
+                import asyncio
+
+                self._loop = asyncio.get_running_loop()
+            except RuntimeError:
+                pass
+            self._schedule_restart(instance_id, exitcode)
+
+    # -- crash supervision ---------------------------------------------------
+
+    def _restart_allowed(self, instance_id: str) -> bool:
+        pol = self.restart_policy
+        if pol is None or pol.budget <= 0:
+            return False
+        if instance_id not in self.instances:
+            return False
+        with self._restart_lock:
+            st = self._restart_states.setdefault(instance_id, _RestartState())
+            now = time.monotonic()
+            if st.attempts and now - st.last_crash > pol.reset_window_s:
+                # survived a full window since the last crash: not a loop
+                st.attempts = 0
+            if st.attempts >= pol.budget:
+                logger.error(
+                    "instance %s crash-looped through its restart budget "
+                    "(%d); leaving it stopped", instance_id, pol.budget,
+                )
+                return False
+            return True
+
+    def _schedule_restart(self, instance_id: str, exitcode) -> None:
+        """Publish RESTARTING and arm the backoff timer for one attempt."""
+        pol = self.restart_policy
+        instance = self.instances.get(instance_id)
+        if pol is None or instance is None:
+            return
+        with self._restart_lock:
+            st = self._restart_states.setdefault(instance_id, _RestartState())
+            attempt = st.attempts
+            st.attempts += 1
+            st.last_crash = time.monotonic()
+            delay = min(pol.backoff_max_s, pol.backoff_s * (2 ** attempt))
+            delay *= 1.0 + random.uniform(0.0, max(0.0, pol.jitter_frac))
+            delay = min(delay, pol.backoff_max_s)  # cap is a hard ceiling
+            timer = threading.Timer(
+                delay,
+                self._restart_instance,
+                args=(instance_id, attempt + 1, st, exitcode),
+            )
+            timer.daemon = True
+            st.timer = timer
+        obj = instance.get_status()
+        obj.update(
+            exit_code=exitcode,
+            restart_attempt=attempt + 1,
+            restart_budget=pol.budget,
+            backoff_s=round(delay, 3),
+        )
+        instance.last_revision = self._publish("RESTARTING", obj)
+        logger.warning(
+            "instance %s: supervised restart %d/%d in %.2fs",
+            instance_id, attempt + 1, pol.budget, delay,
+        )
+        timer.start()
+
+    def _restart_instance(
+        self, instance_id: str, attempt: int, st: _RestartState, exitcode
+    ) -> None:
+        """Backoff-timer body: start the child again from the instance's
+        stored options, reconcile the ledger, and re-arm crash detection.
+
+        A restarted child comes up awake, so it is held to the rule a
+        create is held to: while another holder of its cards is awake or
+        unreachable (admitted while this one slept), there is no restart.
+        The hold is released and STOPPED is published again, with the
+        crash's exit code and ``restart_blocked_by``.
+
+        Runs under the restart lock end to end: Timer.cancel is a no-op
+        once this body has started, so an explicit stop_instance racing it
+        serializes on the lock instead — either the restart completes
+        first (and the stop then stops the fresh child and releases the
+        ledger), or the cancel lands first (``st.cancelled``) and no child
+        is started."""
+        with self._restart_lock:
+            if st.cancelled:
+                return  # explicit stop won the race
+            instance = self.instances.get(instance_id)
+            if instance is None:
+                return  # stopped/deleted while the backoff ran
+            if instance.process is not None and instance.process.is_alive():
+                return  # never restart a live child (manual intervention)
+            blockers = self._awake_holders(
+                instance.config.chip_ids, exclude=instance_id
+            )
+            if blockers:
+                self.ledger.release(instance_id)
+                obj = instance.get_status()
+                obj.update(exit_code=exitcode, restart_blocked_by=blockers)
+                instance.last_revision = self._publish("STOPPED", obj)
+                logger.warning(
+                    "instance %s not restarted: its cards are held by "
+                    "awake (or unreachable) %s", instance_id, blockers,
+                )
+                return
+            try:
+                # append to the existing log: the crash forensics above
+                # the restart marker are exactly what the operator needs
+                instance.start(fresh_log=False, restart=True)
+            except Exception as e:  # noqa: BLE001 — spawn failed: retry
+                logger.warning(
+                    "instance %s restart attempt %d failed to spawn: %s",
+                    instance_id, attempt, e,
+                )
+                if self._restart_allowed(instance_id):
+                    self._schedule_restart(instance_id, None)
+                else:
+                    self.ledger.release(instance_id)
+                return
+            # the hold was kept across the crash window; acquire is
+            # idempotent
+            self.ledger.acquire(instance_id, instance.config.chip_ids)
+            model = self._served_model(instance.config.options)
+            if model is not None:
+                self.ledger.set_model(instance_id, model)
+            obj = instance.get_status()
+            obj["restart_attempt"] = attempt
+            instance.last_revision = self._publish("RESTARTED", obj)
+            logger.info(
+                "instance %s restarted (attempt %d, pid %s)",
+                instance_id, attempt,
+                instance.process.pid if instance.process else None,
+            )
+        loop = self._loop
+        if loop is not None and loop.is_running():
+            # crash detection must be re-armed on the event loop thread
+            loop.call_soon_threadsafe(self._rearm_sentinel, instance_id)
+
+    def _rearm_sentinel(self, instance_id: str) -> None:
+        instance = self.instances.get(instance_id)
+        if instance is None:
+            return
+        try:
+            instance.start_sentinel_watcher(self._on_instance_stopped)
+        except RuntimeError:
+            logger.warning(
+                "no running loop; sentinel not re-armed for %s", instance_id
+            )
+
+    def _cancel_restart(self, instance_id: str) -> None:
+        with self._restart_lock:
+            st = self._restart_states.pop(instance_id, None)
+            if st is not None:
+                st.cancelled = True
+                if st.timer is not None:
+                    st.timer.cancel()
+
+    def stop_instance(self, instance_id: str, timeout: float = 10) -> Dict[str, Any]:
+        if instance_id not in self.instances:
+            raise KeyError(instance_id)
+        instance = self.instances[instance_id]
+        instance.cancel_sentinel_watcher()
+        self._cancel_restart(instance_id)  # an explicit stop is not a crash
+        result = instance.stop(timeout=timeout)
+        del self.instances[instance_id]
+        self.ledger.release(instance_id)
+        result["revision"] = self._publish("DELETED", dict(result))
+        logger.info("stopped instance %s", instance_id)
+        return result
+
+    def _poll_instance_stats(
+        self, instance_id: str, timeout: float
+    ) -> Dict[str, Any]:
+        """One GET /v1/stats of a live instance's engine child, no retry."""
+        if instance_id not in self.instances:
+            raise KeyError(instance_id)
+        try:
+            port = _engine_port(self.instances[instance_id])
+        except ValueError as e:
+            raise StatsFailed(instance_id, 400, f"stored options are not engine options: {e}")
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stats", timeout=timeout) as resp:
+                return json.loads(resp.read() or b"{}")
+        except urllib.error.HTTPError as e:
+            raise StatsFailed(instance_id, e.code, e.read().decode(errors="replace")[:500])
+        except (TimeoutError, socket.timeout) as e:
+            raise StatsFailed(instance_id, 504, f"engine timed out: {e}")
+        except Exception as e:  # noqa: BLE001 — refused, reset, ...
+            if isinstance(getattr(e, "reason", None), (TimeoutError, socket.timeout)):
+                raise StatsFailed(instance_id, 504, f"engine timed out: {e}")
+            raise StatsFailed(instance_id, 502, f"engine unreachable: {e}")
+
+    def fleet_rollup(
+        self, timeout: float = 1.5, ttl_s: float = 1.0
+    ) -> Dict[str, Any]:
+        """Aggregate every live engine child's GET /v1/stats into the
+        node-level view (the ``fleet`` block of GET /v2/vllm/instances).
+        Children are polled concurrently with a short per-poll timeout and
+        no retries: an unreachable or free-form-options instance degrades
+        to an ``unreachable`` row, never an error for the whole read. The
+        blocks of verbs the port's engine does not have yet (zero-drain,
+        migration, residents, SLO exemplars) are constant."""
+        now = time.monotonic()
+        with self._fleet_lock:
+            cached = self._fleet_cache
+            if cached is not None and now - cached[0] < ttl_s:
+                return cached[1]
+            ids = list(self.instances)
+        per_instance: Dict[str, Dict[str, Any]] = {}
+        if ids:
+            import concurrent.futures as _cf
+
+            with _cf.ThreadPoolExecutor(
+                max_workers=min(8, len(ids))
+            ) as pool:
+                futs = {
+                    iid: pool.submit(
+                        self._poll_instance_stats, iid, timeout
+                    )
+                    for iid in ids
+                }
+            for iid, fut in futs.items():
+                try:
+                    stats = fut.result()
+                except (StatsFailed, KeyError) as e:
+                    per_instance[iid] = {
+                        "reporting": False,
+                        "error": str(e)[:200],
+                    }
+                    continue
+                per_instance[iid] = {"reporting": True, **stats}
+        met = violated = 0
+        queue_depth = 0
+        arrival = 0.0
+        goodput = generated = finished = 0
+        actuations = 0
+        actuations_per_hour = 0.0
+        aborted: Dict[str, int] = {}
+        reporting = 0
+        for row in per_instance.values():
+            if not row.get("reporting"):
+                continue
+            reporting += 1
+            slo = row.get("slo") or {}
+            met += int(slo.get("met", 0))
+            violated += int(slo.get("violated", 0))
+            queue_depth += int(row.get("queue_depth", 0))
+            arrival += float(row.get("arrival_rate_rps", 0.0))
+            goodput += int(row.get("goodput_tokens", 0))
+            generated += int(row.get("generated_tokens", 0))
+            finished += int(row.get("finished_requests", 0))
+            acts = sum(
+                int(v) for v in (row.get("actuations") or {}).values()
+            )
+            actuations += acts
+            uptime = float(row.get("uptime_s", 0.0))
+            if uptime > 0:
+                actuations_per_hour += acts * 3600.0 / uptime
+            for cause, n in (row.get("aborted") or {}).items():
+                aborted[cause] = aborted.get(cause, 0) + int(n)
+        judged = met + violated
+        fleet = {
+            "instances_total": len(ids),
+            "instances_reporting": reporting,
+            "queue_depth": queue_depth,
+            "arrival_rate_rps": round(arrival, 6),
+            "slo_requests_met": met,
+            "slo_requests_violated": violated,
+            "slo_attainment": round(met / judged, 6) if judged else None,
+            "finished_requests": finished,
+            "generated_tokens": generated,
+            "goodput_tokens": goodput,
+            "actuations": actuations,
+            "actuations_per_hour": round(actuations_per_hour, 3),
+            "aborted": aborted,
+            # the reference's blocks for verbs the port's engine does not
+            # have: nothing to sum, each engine one resident variant
+            "zero_drain": {
+                "preempted": 0, "resumed": 0, "aborted": 0, "migrated": 0,
+                "parked_kv_bytes": 0,
+            },
+            "migration": {
+                "committed": 0, "resumed_local": 0, "state_loss": 0,
+                "requests_out": 0, "requests_in": 0,
+                "bytes_out": 0, "bytes_in": 0,
+            },
+            "residents": {
+                "resident_variants": reporting,
+                "variant_hbm_bytes": 0,
+                "coresident_saved_bytes": 0,
+            },
+            "slo_exemplars": [],
+            "per_instance": per_instance,
+        }
+        with self._fleet_lock:
+            self._fleet_cache = (time.monotonic(), fleet)
+        return fleet
+
+    def stop_all_instances(self, timeout: float = 10) -> Dict[str, Any]:
+        stopped = []
+        for iid in list(self.instances):
+            self.stop_instance(iid, timeout=timeout)
+            stopped.append(iid)
+        return {"status": "all_stopped", "stopped_instances": stopped}
+
+    def get_instance_status(self, instance_id: str) -> Dict[str, Any]:
+        if instance_id not in self.instances:
+            raise KeyError(instance_id)
+        return self.instances[instance_id].get_status()
+
+    def get_all_instances_status(
+        self, include_fleet: bool = False
+    ) -> Dict[str, Any]:
+        statuses = []
+        running = 0
+        for instance in self.instances.values():
+            st = instance.get_status()
+            statuses.append(st)
+            if st["status"] == STATUS_RUNNING:
+                running += 1
+        out: Dict[str, Any] = {
+            "total_instances": len(statuses),
+            "running_instances": running,
+            "instances": statuses,
+            # who holds which cards is the ledger's; what each holder
+            # serves is reported, and the blocks of the verbs the port's
+            # engine does not have yet are empty
+            "ledger": {
+                "models": self.ledger.models(),
+                "prefetched": {},
+                "pools": {},
+                "quant": {},
+                "residents": {},
+            },
+        }
+        if include_fleet:
+            # blocking child polls: only REST's executor-threaded GET
+            # /v2/vllm/instances asks for it — in-process callers on the
+            # event loop (the notifier's lister) must not
+            try:
+                out["fleet"] = self.fleet_rollup()
+            except Exception as e:  # noqa: BLE001 — rollup never fails the read
+                logger.warning("fleet rollup failed: %s", e)
+                out["fleet"] = {"error": str(e)[:200]}
+            out["ledger"]["costs"] = {}  # the port's engine reports no costs
+        return out
+
+    def list_instances(self) -> List[str]:
+        return list(self.instances.keys())
+
+    def get_instance_log_bytes(
+        self, instance_id: str, start: int = 0, end: Optional[int] = None
+    ):
+        if instance_id not in self.instances:
+            raise KeyError(instance_id)
+        return self.instances[instance_id].get_log_bytes(start, end)

@@ -5,6 +5,7 @@ kernel's launch wrapper beside the plain PyTorch version of the same
 function. A wrapper runs the plain version for CPU tensors and the kernel
 for CUDA tensors, and counts its kernel launches in ``launches`` (eager
 ones: a launch into a CUDA graph capture runs nothing and is not counted).
+:func:`kernel_launches` reads them all.
 """
 
 from .build import launch_probe, launch_probe_plain  # noqa: F401
@@ -25,3 +26,27 @@ from .ragged import (  # noqa: F401
     ragged_paged_attention_sharded,
     ragged_paged_attention_sharded_plain,
 )
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, by the name ``chip_smoke.py`` reports it
+    under; its ``launches`` counts its eager launches."""
+    return {
+        "probe": launch_probe,
+        "decode_inline": paged_decode_attention_inline,
+        "decode_scatter_first": paged_decode_attention,
+        "prefill": causal_prefill_attention,
+        "ragged": ragged_paged_attention,
+        "ragged_sharded": ragged_paged_attention_sharded,
+    }
+
+
+def kernel_launches() -> dict:
+    """This process's eager launches by wrapper, and by shape where a
+    wrapper counts them so (prefill by padded sequence, ragged by buffer
+    rows)."""
+    counts = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    counts["prefill_by_seq"] = dict(causal_prefill_attention.launches_by_seq)
+    counts["ragged_by_rows"] = dict(ragged_paged_attention.launches_by_rows)
+    counts["ragged_sharded_by_rows"] = dict(ragged_paged_attention_sharded.launches_by_rows)
+    return counts

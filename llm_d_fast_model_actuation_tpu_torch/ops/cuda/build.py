@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. Builds happen at first use,
 from the sources in the checkout, into ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``); a library is named by the hash of
+the checkout (listed in ``.gitignore``), or the directory
+``FMA_KERNEL_BUILD_DIR`` names (a launcher's ``--compile-cache-dir``,
+shared by its children); a library is named by the hash of
 its source and flags, so an edited source rebuilds and an unchanged one
 is reused. All sources compile in parallel, one ``nvcc`` each.
 
@@ -89,8 +91,14 @@ def source_digest(src: Path) -> str:
     return hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """Where libraries are built and found: ``FMA_KERNEL_BUILD_DIR``, else
+    :data:`BUILD_DIR`."""
+    return Path(os.environ.get("FMA_KERNEL_BUILD_DIR") or BUILD_DIR)
+
+
 def _target(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{source_digest(CSRC / SOURCES[name])}.so"
+    return build_dir() / f"lib{name}-{source_digest(CSRC / SOURCES[name])}.so"
 
 
 def build_all() -> Dict[str, BuiltLibrary]:
@@ -104,7 +112,7 @@ def build_all() -> Dict[str, BuiltLibrary]:
     if not todo:
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.monotonic()
     for n, path in todo.items():

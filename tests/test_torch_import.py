@@ -95,7 +95,8 @@ def test_transformers_is_imported_only_inside_functions(path):
 def test_the_walk_covers_the_parallel_package():
     mods = set(_modules())
     for m in ("parallel", "parallel.mesh", "models.llama", "ops.cuda.ragged", "engine.server", "engine.arena",
-              "engine.graphs", "engine.tokenizer", "models.hf", "models.safetensors"):
+              "engine.graphs", "engine.tokenizer", "models.hf", "models.safetensors", "launcher", "launcher.main",
+              "launcher.rest", "launcher.notifier", "launcher.http11", "native.nvml", "utils.events", "api.constants"):
         assert f"llm_d_fast_model_actuation_tpu_torch.{m}" in mods
 
 
