@@ -81,6 +81,24 @@ exits non-zero and never prints the final ``ok`` line):
      and not, one request with ``logprobs: 2``; a level-1 sleep and wake
      and a level-2 sleep and wake that reads the directory again, each
      with identical tokens, no capture and no state moved;
+  swap — model hot-swap on one service (``--model-pool-mib`` sized from
+     the host's MemAvailable): a sibling checkpoint A' of serve_hf's A
+     (every shard a link but the one holding lm_head, rewritten with
+     lm_head's rows reversed), then ``POST /v1/swap`` A -> A' (cold) -> A (pool
+     hit, by digest only KV and lm_head move) -> A' (the same) ->
+     ``tinyllama-1.1b`` (cold) -> A (pool hit, full transfer); each pool
+     hit's bytes equal to ``plan_swap``'s prediction made just before it,
+     the sibling deltas to 2 x (KV + lm_head); each model's greedy tokens
+     bit-equal to its own before; in every engine no graph captured again
+     and no state tensor moved; pooled engines map nothing (each one's
+     graph pool bytes printed); the two pooled siblings hold less host
+     memory than their nominal sizes; a ``swap.h2d=fail:1`` drill armed
+     over ``/v1/faults`` (503, /health DEGRADED, the outgoing model's
+     tokens, the retry a pool hit, OK again). Then ``swap_states`` A <-> A'
+     called directly with the digests withheld (20.4 GB each way),
+     overlapped and sequential, the states bit-equal (fingerprints on the
+     card) and the times printed (``swap_total_s``, ``overlap_frac``,
+     ``peak_bytes_in_flight``, ``pin_s``); the digests' ``digest_s``;
   launcher — the port's launcher as its own process (``python -m
      llm_d_fast_model_actuation_tpu_torch.launcher.main``, real mode:
      the card by NVML, preload on, ``--restart-budget 1``), driven only
@@ -101,7 +119,10 @@ exits non-zero and never prints the final ``ok`` line):
      on what stays reserved and on the kernels loaded), its own reserved
      and mapped bytes read from its ``/v1/device``; ``b``
      admitted (201), serving and asleep; ``a`` awake with identical
-     tokens; a SIGKILL to ``a``'s child gives STOPPED (exit code -9),
+     tokens; ``a`` swapped to the swap phase's A' and back through
+     ``POST /v2/vllm/instances/a/swap`` (its tokens on A' the swap phase's,
+     the stored ``--model`` rewritten, two SWAPPED events, its own tokens
+     after); a SIGKILL to ``a``'s child gives STOPPED (exit code -9),
      RESTARTING and RESTARTED on the watch stream, and the restarted
      child phase 4's tokens again; DELETE of both gives ``terminated``,
      the compute processes and the card's free memory (within 1 GiB) as
@@ -178,6 +199,7 @@ import gc
 import json
 import math
 import os
+import shlex
 import shutil
 import signal
 import subprocess
@@ -1204,7 +1226,7 @@ def hf_tensors(model) -> list:
 
 def checkpoint_dir(need: int) -> str:
     """A new directory on local disk with ``need`` bytes free (and 1 GiB
-    more): under the checkout's ``build/``, else under the temporary
+    more) in its parent: under the checkout's ``build/``, else under the temporary
     directory; raises, naming what is free, when neither has room."""
     import tempfile
 
@@ -1405,6 +1427,279 @@ def serve_hf(torch, smi: str, ckpt: str, written: dict, bucketed: dict) -> dict:
         return {"counts": counts}
     finally:
         stop_service(torch, service, server)
+
+
+# -- phase swap: model hot-swap between engines on one card ----------------
+
+#: the issue's byte prediction for a delta swap between two Llama-3-8B
+#: siblings that differ in lm_head only: both directions move the KV pool
+#: (2048 pages: 4 GiB) and lm_head (4096 x 128256 bf16), nothing else
+SIBLING_DELTA_BYTES = 2 * (4 * GIB + 4096 * 128256 * 2)
+#: the greedy request each swap phase's model answers before and after
+#: its swaps (the first 20 token ids of the serve traffic's first prompt)
+SWAP_PROBE_MAX_TOKENS = 32
+
+
+def mem_available() -> int:
+    """The host's MemAvailable, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def write_sibling(torch, src: str, dst: str) -> dict:
+    """A sibling checkpoint of ``src`` in ``dst``: every shard a link to
+    ``src``'s but the one holding ``lm_head.weight``, which is written
+    anew with lm_head's rows (the vocabulary) in reverse order; the config
+    and index files copied."""
+    from llm_d_fast_model_actuation_tpu_torch.models import safetensors
+
+    t0 = time.monotonic()
+    os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(src, "model.safetensors.index.json")) as f:
+        target = json.load(f)["weight_map"]["lm_head.weight"]
+    for name in os.listdir(src):
+        if name.endswith(".safetensors") and name != target:
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+        elif name.endswith(".json"):
+            shutil.copy(os.path.join(src, name), os.path.join(dst, name))
+    shard = safetensors.SafetensorsFile(os.path.join(src, target))
+    entries = [(n, safetensors.DTYPES[i.dtype], i.shape) for n, i in sorted(shard.tensors.items(), key=lambda kv: kv[1].begin)]
+
+    def tensor_of(name):
+        t = shard.get(name)
+        return t.flip(0) if name == "lm_head.weight" else t
+
+    nbytes = safetensors.write_file(os.path.join(dst, target), entries, tensor_of, metadata={"format": "pt"})
+    return {"rewritten_shard": target, "shard_bytes": nbytes, "tensors_in_shard": len(entries), "write_s": time.monotonic() - t0}
+
+
+def fingerprint(torch, tensors) -> list:
+    """Per tensor, three int64 sums of its bytes seen as int32 words (the
+    words, the words mixed, and the words weighted by position mod 251),
+    computed on the card in slices: equal contents give equal sums, and a
+    moved, flipped or swapped word changes them."""
+    out = []
+    step = 1 << 26
+    weights = (torch.arange(step, device="cuda", dtype=torch.int64) % 251) + 1
+    for t in tensors:
+        words = t.reshape(-1).view(torch.uint8).view(torch.int32)
+        s = torch.zeros(3, dtype=torch.int64, device="cuda")
+        for k in range(0, words.numel(), step):
+            w = words[k : k + step].to(torch.int64)
+            s[0] += w.sum()
+            s[1] += (w ^ (w >> 7)).sum()
+            s[2] += (w * weights[: w.numel()]).sum()
+        out.append(s)
+    return torch.stack(out).tolist()
+
+
+def engine_state(eng) -> list:
+    """Every tensor a swap moves: the weights and the KV pool."""
+    return list(eng.model.parameters()) + eng.pool.tensors()
+
+
+def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
+    """Hot-swap through ``POST /v1/swap`` on one service: ``hf:A`` (the
+    serve_hf checkpoint) -> ``hf:A'`` (a sibling that differs in lm_head:
+    cold) -> A (pool hit, delta) -> A' (pool hit, delta) ->
+    ``tinyllama-1.1b`` (cold, another architecture) -> A (pool hit, full
+    transfer: a named config has no digests). Gates: each model's greedy
+    tokens bit-equal to its own earlier ones; each pool hit's bytes equal
+    to ``plan_swap``'s prediction, made just before it; no engine
+    re-captures a graph or moves a state tensor; pooled engines map
+    nothing; the two pooled siblings hold less host memory than their
+    nominal sizes; a ``swap.h2d=fail:1`` drill rolls back (503, DEGRADED,
+    both models' tokens, the retry a pool hit, then OK). Then direct
+    ``swap_states`` calls between A and A' with the digests withheld (full
+    20.4 GB each way), overlapped and sequential, bit-equal to each other.
+    Returns the sibling's directory and the probe tokens the launcher
+    phase holds its swaps to, and the phase's kernel launches."""
+    from llm_d_fast_model_actuation_tpu_torch.engine import sleep as sleep_mod
+    from llm_d_fast_model_actuation_tpu_torch.engine.chunk_store import leaf_digest
+
+    t_phase = time.monotonic()
+    sibling = ckpt.rstrip("/") + "-sibling"
+    written = write_sibling(torch, ckpt, sibling)
+    avail = mem_available()
+    pool_mib = int(min(48 * GIB, avail * 0.6)) >> 20
+    if pool_mib << 20 < 32 * GIB:
+        raise RuntimeError(f"MemAvailable {avail} bytes leaves no room for a 32 GiB pool of two 20.4 GB siblings")
+    model_a, model_b, other = f"hf:{ckpt}", f"hf:{sibling}", "tinyllama-1.1b"
+    opts = (f"--model {model_a} --num-pages 2048 --seed 0 --max-batch 8 --device cuda --model-pool-mib {pool_mib} "
+            f"--content-hash on --swap-bucket-mib 256")
+    service, server, init_s, _ = start_service(torch, opts)
+    port = server.server_address[1]
+    probe = {"prompt": bucketed["prompts"][0], "max_tokens": SWAP_PROBE_MAX_TOKENS, "ignore_eos": True}
+    engines = {}  # id -> (engine, graph captures, state addresses)
+    gold, steps = {}, []
+
+    def tokens():
+        return post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+
+    def note_engine():
+        eng = service.engine
+        if id(eng) not in engines:
+            engines[id(eng)] = (eng, eng.graph_captures, state_ptrs(eng))
+
+    def check_engines(where: str):
+        for eng, captures, ptrs in engines.values():
+            if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+                raise AssertionError(f"{where}: an engine re-captured a graph or moved a state tensor")
+        pooled = service.pooled_engines()
+        if any(p["mapped_bytes"] for p in pooled):
+            raise AssertionError(f"{where}: a pooled engine maps card memory: {pooled}")
+        return pooled
+
+    def first_tokens(model: str):
+        # a cold prefill, then the same prompt again through the prefix
+        # cache: the later swaps find the cache warm, so they are held to
+        # the second
+        cold, hit = tokens(), tokens()
+        gold[model] = {"cold": cold, "hit": hit}
+
+    def swap(model: str, tier: str, plan_key: str = ""):
+        plan = None
+        if tier == "pool":
+            entry = service.model_pool.peek(model)
+            rt = service._runtime
+            plan = sleep_mod.plan_swap(rt.sleeper, entry.runtime.sleeper, bucket_bytes=256 * MIB,
+                                       out_digests=rt.digests, in_digests=entry.runtime.digests)
+        previous = service.model
+        out = post(port, "/v1/swap", {"model": model, "request_id": f"swap-{len(steps)}"})
+        if not out.get("swapped") or out["tier"] != tier or out["model"] != model:
+            raise AssertionError(f"swap {previous} -> {model}: want tier {tier}, got {out}")
+        if plan is not None and any(out[k] != plan[k] for k in ("bytes_out", "bytes_in", "bytes_moved", "bytes_deduped",
+                                                               "deduped_leaves", "buckets_out", "buckets_in")):
+            raise AssertionError(f"swap {previous} -> {model} moved other bytes than planned: {out} vs {plan}")
+        note_engine()
+        pooled = check_engines(f"after the swap to {model}")
+        if model in gold:
+            got = tokens()
+            if got != gold[model]["hit"]:
+                raise AssertionError(f"{model}'s tokens changed across its swaps: {got[:8]} vs {gold[model]['hit'][:8]}")
+        else:
+            first_tokens(model)
+        shares = [dict(p, graph_pool_bytes=pool_reserved_bytes(torch, e.runtime.engine.graphs.pool)
+                       if e.runtime.engine.graphs else None)
+                  for p, e in zip(pooled, service.model_pool.entries())]
+        step = {"from": previous, "to": model, **{k: out.get(k) for k in (
+            "tier", "swap_total_s", "transfer_s", "d2h_s", "h2d_s", "overlap_frac", "peak_bytes_in_flight", "pin_s",
+            "handover_s",
+            "build_s", "digest_s", "bytes_out", "bytes_in", "bytes_moved", "bytes_deduped", "deduped_leaves",
+            "buckets_out", "buckets_in")}, "planned_bytes_moved": plan and plan["bytes_moved"],
+            "pool_bytes_used": out["pool"]["bytes_used"], "pooled_engines": shares,
+            "host_mem_available_bytes": mem_available(), "tokens_equal": model in gold and len(steps) > 0}
+        steps.append(step)
+        return out, step
+
+    try:
+        note_engine()
+        first_tokens(model_a)
+        digest_s = service.load_stats.digest_s
+        # each parameter's [copy to the host, sha256] seconds, on 8 threads
+        digest_times = service.load_stats.digest_times
+        # a digest streamed from the card equals the host copy's (the
+        # host path is the one the CPU tests hold to the reference's strings)
+        model = service.engine.model
+        for key, t in (("embed", model.embed), ("final_norm", model.final_norm)):
+            if leaf_digest(t.cpu()) != service._runtime.digests[key]:
+                raise AssertionError(f"the digest of {key} streamed from the card differs from its host copy's")
+        swap(model_b, "cold")
+        _, delta1 = swap(model_a, "pool")
+        _, delta2 = swap(model_b, "pool")
+        for d in (delta1, delta2):
+            if d["bytes_moved"] != SIBLING_DELTA_BYTES:
+                raise AssertionError(f"a sibling delta swap moved {d['bytes_moved']} bytes, want {SIBLING_DELTA_BYTES}")
+        swap(other, "cold")
+        pool = service.model_pool.describe()
+        nominal = {e["model_id"]: e["nbytes"] for e in pool["entries"]}
+        siblings = nominal[model_a] + nominal[model_b]
+        a_model = service.model_pool.peek(model_a).runtime.engine.model
+        shared = sum(p.numel() * p.element_size() for n, p in a_model.named_parameters() if n != "lm_head")
+        if not pool["bytes_used"] <= siblings - shared or pool["chunks"]["dedup_saved_bytes"] < shared:
+            raise AssertionError(f"two pooled siblings hold {pool['bytes_used']} bytes, nominal {siblings}, "
+                                 f"sharing {shared}: {pool}")
+        dedup = {"pool_bytes_used": pool["bytes_used"], "siblings_nominal_bytes": siblings, "shared_weight_bytes": shared,
+                 "dedup_saved_bytes": pool["chunks"]["dedup_saved_bytes"]}
+        swap(model_a, "pool")
+
+        # the rollback drill: swap.h2d fails once, over HTTP
+        armed = post(port, "/v1/faults", {"spec": "swap.h2d=fail:1"})
+        if "swap.h2d" not in armed["armed"]:
+            raise AssertionError(f"/v1/faults did not arm swap.h2d: {armed}")
+        status, body = request(f"http://127.0.0.1:{port}/v1/swap", "POST", {"model": model_b})
+        health = get(port, "/health")
+        if status != 503 or not body.get("rolled_back") or body.get("model") != model_a or health["status"] != "DEGRADED":
+            raise AssertionError(f"the swap.h2d drill answered {status} {body}, /health {health}")
+        if tokens() != gold[model_a]["hit"]:
+            raise AssertionError("the rolled-back swap changed the outgoing model's tokens")
+        check_engines("after the rolled-back swap")
+        retry, _ = swap(model_b, "pool")
+        if get(port, "/health")["status"] != "OK":
+            raise AssertionError("a committed swap did not clear DEGRADED")
+        drill = {"status": status, "health": health, "retry_tier": retry["tier"], "tokens_equal": True}
+        swap(model_a, "pool")
+
+        # full transfers: A <-> A' with the digests withheld, overlapped and
+        # sequential, on the engine thread
+        a_rt = service._runtime
+        b_entry = service.model_pool.take(model_b)
+        b_rt = b_entry.runtime
+        fp_a = fingerprint(torch, engine_state(a_rt.engine))
+
+        def direct(src, dst, overlapped):
+            return service._on_loop(lambda: sleep_mod.swap_states(src.sleeper, dst.sleeper, bucket_bytes=256 * MIB,
+                                                                  overlapped=overlapped))
+
+        full = {}
+        full["a_to_b_overlapped"] = direct(a_rt, b_rt, True)
+        fp_b1 = fingerprint(torch, engine_state(b_rt.engine))
+        full["b_to_a_sequential"] = direct(b_rt, a_rt, False)
+        fp_a1 = fingerprint(torch, engine_state(a_rt.engine))
+        full["a_to_b_sequential"] = direct(a_rt, b_rt, False)
+        fp_b2 = fingerprint(torch, engine_state(b_rt.engine))
+        full["b_to_a_overlapped"] = direct(b_rt, a_rt, True)
+        fp_a2 = fingerprint(torch, engine_state(a_rt.engine))
+        service._pool_park(b_entry.model_id, b_rt, b_entry.nbytes)  # A' back in the pool
+        if fp_b1 != fp_b2 or fp_a1 != fp_a or fp_a2 != fp_a:
+            raise AssertionError("the full transfers overlapped and sequential are not bit-equal")
+        for name, m in full.items():
+            if m["bytes_moved"] != bucketed["bytes_offloaded"] * 2 or m["bytes_deduped"]:
+                raise AssertionError(f"{name} moved {m['bytes_moved']} bytes, want 2 x {bucketed['state_bytes']}")
+        if tokens() != gold[model_a]["hit"]:
+            raise AssertionError("A's tokens changed across the full transfers")
+        check_engines("after the full transfers")
+        replayed: dict = {}
+        for eng, _, _ in engines.values():
+            for name, n in (eng.graphs.replayed_launches() if eng.graphs else {}).items():
+                replayed[name] = replayed.get(name, 0) + n
+        counts = add_replayed(read_counts(), replayed)
+        # every build launched the probe once; every decode step and cold
+        # prefill of every engine went through the kernels
+        decode = sum(eng.cfg.model.num_layers * eng.decode_steps for eng, _, _ in engines.values())
+        prefill = sum(eng.cfg.model.num_layers * eng.cold_prefills for eng, _, _ in engines.values())
+        if (counts["probe"] != service.builds_total or counts["decode_inline"] != decode or counts["prefill"] != prefill
+                or not counts["replayed"]["decode_inline"]):
+            raise AssertionError(f"the swap phase's launches {counts} against {service.builds_total} builds, "
+                                 f"{decode} decode and {prefill} prefill layer-steps")
+        keys = ("swap_total_s", "d2h_s", "h2d_s", "overlap_s", "overlap_frac", "peak_bytes_in_flight", "pin_s",
+                "bytes_out", "bytes_in", "bytes_moved", "buckets_out", "buckets_in")
+        emit({
+            "phase": "swap", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
+            "sibling": written, "model_pool_mib": pool_mib, "host_mem_available_at_start_bytes": avail,
+            "digest_s": digest_s, "digest_times": digest_times, "steps": steps, "sibling_delta_bytes_predicted": SIBLING_DELTA_BYTES,
+            "pooled_siblings": dedup, "rollback_drill": drill,
+            "full_transfer": {k: {f: m[f] for f in keys} for k, m in full.items()}, "full_transfer_bit_equal": True,
+            "engines": len(engines), "graph_captures_unchanged": True, "state_addresses_unchanged": True,
+            "launches": counts, "seconds": time.monotonic() - t_phase,
+        })
+        return {"counts": counts, "sibling": sibling, "gold": gold, "probe": probe, "pool_mib": pool_mib}
+    finally:
+        stop_service(torch, service, server)
+        service._free_pooled(service.model_pool.drain())
 
 
 # -- phase graphs: the captured chunk against the eager one -----------------
@@ -1650,13 +1945,16 @@ def await_events(url: str, want: list, timeout: float) -> list:
     return events
 
 
-def launcher_phase(torch, smi: str, bucketed: dict) -> dict:
+def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
     """The port's launcher started as its own process (real mode, preload
     on, ``--restart-budget 1``) and driven only through its REST API and
     its children's HTTP: it holds no CUDA context; instance ``a`` on card
     0's UUID serves ``serve``'s traffic with ``serve``'s tokens; ``b`` on
     the same card is refused while ``a`` is awake and admitted once it
-    sleeps; ``a`` wakes with its tokens; a SIGKILL to ``a``'s child gives
+    sleeps; ``a`` wakes with its tokens, swaps to the swap phase's sibling
+    checkpoint (its tokens the swap phase's) and back through
+    ``POST /v2/vllm/instances/a/swap`` (the stored ``--model`` rewritten
+    each time, a ``SWAPPED`` event each); a SIGKILL to ``a``'s child gives
     STOPPED (-9), RESTARTING, RESTARTED and the same tokens again; DELETE
     leaves no child on the card and its memory back. Then a launcher with
     ``--no-preload`` spawns once, for its ``spawn_to_healthy_s``."""
@@ -1676,7 +1974,9 @@ def launcher_phase(torch, smi: str, bucketed: dict) -> dict:
         ladder = context_ladder(index)
         used_base = card_used_bytes(index)
         port_a = free_port()
-        created, spawn_s = launcher.spawn("a", f"{SERVE_OPTS} --port {port_a}", uuid, port_a)
+        # serve's options, with a pool that holds the model a swap parks
+        created, spawn_s = launcher.spawn("a", f"{SERVE_OPTS} --model-pool-mib {swapped['pool_mib']} --port {port_a}",
+                                          uuid, port_a)
         if created["env_vars"]["CUDA_VISIBLE_DEVICES"] != str(index) or created["gpu_uuids"] != [uuid]:
             raise AssertionError(f"card {index} ({uuid}) pinned as {created['env_vars']}")
         apps2 = compute_apps()
@@ -1729,6 +2029,25 @@ def launcher_phase(torch, smi: str, bucketed: dict) -> dict:
         if after != before:
             raise AssertionError(f"instance a's tokens changed across b's turn: {before[:8]} vs {after[:8]}")
 
+        # the swap verb: a to the swap phase's sibling checkpoint and back
+        rev = request(f"{launcher.url}/v2/vllm/instances?detail=false")[1]["revision"]
+        sibling = f"hf:{swapped['sibling']}"
+        verbs = {}
+        for target, tier in ((sibling, "cold"), ("llama3-8b", "pool")):
+            status, body = request(f"{launcher.url}/v2/vllm/instances/a/swap", "POST", {"model": target})
+            options = launcher.instance("a")["options"]
+            if (status != 200 or body["swap"]["tier"] != tier or body["model"] != target
+                    or shlex.split(options)[shlex.split(options).index("--model") + 1] != target):
+                raise AssertionError(f"swapping a to {target}: {status} {body}, options {options!r}")
+            verbs[target] = {k: body["swap"][k] for k in ("tier", "swap_total_s", "bytes_moved", "pin_s")}
+            if target == sibling:
+                got = post(port_a, "/v1/completions", swapped["probe"])["choices"][0]["token_ids"]
+                if got != swapped["gold"][sibling]["cold"]:
+                    raise AssertionError(f"a serves the sibling with other tokens than the swap phase: {got[:8]}")
+        swap_events = await_events(f"{launcher.url}/v2/vllm/instances/watch?since={rev}", ["SWAPPED", "SWAPPED"], 60)
+        if post(port_a, "/v1/completions", probe)["choices"][0]["token_ids"] != before:
+            raise AssertionError("instance a's tokens changed across its swaps")
+
         # supervision: SIGKILL a's child
         rev = request(f"{launcher.url}/v2/vllm/instances?detail=false")[1]["revision"]
         pid = launcher.instance("a")["pid"]
@@ -1776,6 +2095,7 @@ def launcher_phase(torch, smi: str, bucketed: dict) -> dict:
         "refused_while_awake": refused, "a_asleep_card_bytes": asleep_bytes,
         "asleep_limit_bytes": limit["limit_bytes"], "asleep_limit": limit, "asleep_split": split, "ladder": ladder, "b_spawn_to_healthy_s": spawn_b_s, "b_tokens": b_tokens[:8],
         "a_wake_s": woke["last_wake_seconds"], "a_tokens_identical_after_b": True,
+        "swap_verb": verbs, "swap_events": [e["type"] for e in swap_events],
         "restart_events": [{k: e["object"].get(k) for k in ("revision", "pid", "exit_code", "restart_attempt")} | {"type": e["type"]}
                            for e in events],
         "restart_to_healthy_s": restart_s, "restarted_tokens_equal_serve": True,
@@ -2589,13 +2909,18 @@ def main() -> int:
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
     from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig, param_shapes
 
-    ckpt = checkpoint_dir(2 * sum(math.prod(s) for s in param_shapes(LlamaConfig.llama3_8b()).values()))
+    # room for the checkpoint and, beside it, the swap phase's sibling: its
+    # one rewritten shard (at most HF_SHARD_BYTES; the others are links)
+    ckpt = checkpoint_dir(2 * sum(math.prod(s) for s in param_shapes(LlamaConfig.llama3_8b()).values())
+                          + HF_SHARD_BYTES)
     try:
         bucketed = serve_and_sleep(torch, smi, ckpt)
         hf = serve_hf(torch, smi, ckpt, bucketed["checkpoint"], bucketed)
+        swapped = swap_phase(torch, smi, ckpt, bucketed)
+        launched = launcher_phase(torch, smi, bucketed, swapped)
     finally:
         shutil.rmtree(ckpt)
-    launched = launcher_phase(torch, smi, bucketed)
+        shutil.rmtree(ckpt.rstrip("/") + "-sibling", ignore_errors=True)
     graphs_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
@@ -2604,7 +2929,8 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
-    runs = (bucketed["counts"], hf["counts"], launched["counts"], packed["counts"], tp2["counts"], reference["counts"])
+    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], packed["counts"], tp2["counts"],
+            reference["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)

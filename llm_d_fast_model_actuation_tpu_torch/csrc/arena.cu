@@ -11,6 +11,12 @@
 // sleep, and a CUDA graph captured before it replays unchanged after it.
 // This is the role vLLM's CuMemAllocator plays for its GPU engine.
 //
+// A hot-swap between two engines on one card hands a block's physical
+// memory from one arena to another without copying a byte: the handle is
+// unmapped from the outgoing engine's address (fma_arena_detach) and mapped
+// at the incoming engine's (fma_arena_attach), and a rollback hands it back
+// the same way.
+//
 // The CUDA driver's functions are handed in by the caller (ctypes looks
 // them up in the libcuda.so.1 that PyTorch has loaded), as the prefill and
 // ragged libraries are handed cuTensorMapEncodeTiled, so nothing links
@@ -208,4 +214,33 @@ extern "C" int fma_arena_unmap(int device, unsigned long long va, unsigned long 
   const CUresult r = g_cu.unmap(static_cast<CUdeviceptr>(va), size);
   if (r != CUDA_SUCCESS) return static_cast<int>(r);
   return static_cast<int>(g_cu.release(static_cast<CUmemGenericAllocationHandle>(handle)));
+}
+
+// Unmap `size` bytes at `va` and keep their physical memory (`handle` stays
+// valid): the first half of a handover to another address.
+extern "C" int fma_arena_detach(int device, unsigned long long va, unsigned long long size) {
+  if (!g_ready) return kNotReady;
+  Scope scope(device);
+  if (scope.error() != CUDA_SUCCESS) return static_cast<int>(scope.error());
+  return static_cast<int>(g_cu.unmap(static_cast<CUdeviceptr>(va), size));
+}
+
+// Map the existing allocation `handle` (`size` bytes, created by
+// fma_arena_map on `device`) at `va`, readable and writable by the device:
+// the second half of a handover. On failure nothing stays mapped at `va`
+// and the handle is untouched.
+extern "C" int fma_arena_attach(int device, unsigned long long va, unsigned long long size,
+                                unsigned long long handle) {
+  if (!g_ready) return kNotReady;
+  Scope scope(device);
+  if (scope.error() != CUDA_SUCCESS) return static_cast<int>(scope.error());
+  const CUdeviceptr ptr = static_cast<CUdeviceptr>(va);
+  CUresult r = g_cu.map(ptr, size, 0, static_cast<CUmemGenericAllocationHandle>(handle), 0);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  CUmemAccessDesc access = {};
+  access.location = device_prop(scope.device()).location;
+  access.flags = CU_MEM_ACCESS_FLAGS_PROT_READWRITE;
+  r = g_cu.set_access(ptr, size, &access, 1);
+  if (r != CUDA_SUCCESS) g_cu.unmap(ptr, size);
+  return static_cast<int>(r);
 }

@@ -26,10 +26,17 @@ memory, which the engine's state can never exceed. A view keeps its arena
 alive (``torch.as_tensor`` holds its source), and the arena gives its
 memory and its range back when the last view is gone.
 
+A hot-swap hands a block's physical memory to a block of the same size in
+another arena (:func:`hand_over`): on the card the allocation handle is
+unmapped from the one address and mapped at the other, so the incoming
+engine finds the outgoing engine's bytes at its own addresses, where its
+captured graphs read them, and zero bytes are copied; a rollback hands it
+back the same way.
+
 On the CPU an arena has the same interface and keeps ordinary storage: it
 only accounts, and an unmapped allocation is overwritten with ``0xff``
 bytes (a NaN or -1 in every element), since the card's memory comes back
-from a wake with no defined content. That is the CPU's version, used when
+from a wake with no defined content; a handover copies the bytes. That is the CPU's version, used when
 the CPU is asked for, as the kernels' plain versions are. On a CUDA device
 an arena that cannot reserve or map raises.
 """
@@ -101,7 +108,9 @@ def _lib():
         lib.fma_arena_free.argtypes = [ctypes.c_int, u64, u64]
         lib.fma_arena_map.argtypes = [ctypes.c_int, u64, u64, p64]
         lib.fma_arena_unmap.argtypes = [ctypes.c_int, u64, u64, u64]
-        for name in ("set_functions", "granularity", "reserve", "free", "map", "unmap"):
+        lib.fma_arena_detach.argtypes = [ctypes.c_int, u64, u64]
+        lib.fma_arena_attach.argtypes = [ctypes.c_int, u64, u64, u64]
+        for name in ("set_functions", "granularity", "reserve", "free", "map", "unmap", "detach", "attach"):
             getattr(lib, f"fma_arena_{name}").restype = ctypes.c_int
         _check(lib.fma_arena_set_functions(fns, len(CU_SYMBOLS)), "hand the arena the CUDA driver's functions")
         _native = lib
@@ -258,6 +267,39 @@ class Arena:
         _check(_lib().fma_arena_free(self.device.index, self.base, self.reserved_va_bytes),
                f"free the address range on {self.device}")
         self.base = 0
+
+
+def hand_over(src_arena: Arena, src: torch.Tensor, dst_arena: Arena, dst: torch.Tensor) -> None:
+    """Move the memory under ``src`` (a mapped allocation of ``src_arena``)
+    to ``dst`` (an unmapped allocation of ``dst_arena`` of the same size on
+    the same device): afterwards ``dst`` holds ``src``'s bytes at its own
+    address and ``src`` is unmapped. On the card the physical allocation
+    changes hands (unmapped at one address, mapped at the other: no byte
+    is copied); on the CPU the bytes are copied. Nothing queued may still
+    use either tensor. Raises if a driver call fails, with ``src`` mapped
+    as before."""
+    sb, db = src_arena.block(src), dst_arena.block(dst)
+    if src_arena.device != dst_arena.device or sb.nbytes != db.nbytes:
+        raise ValueError(f"cannot hand {sb.name or 'a block'} ({sb.nbytes} bytes on {src_arena.device}) "
+                         f"to {db.name or 'a block'} ({db.nbytes} bytes on {dst_arena.device})")
+    if not sb.mapped or db.mapped:
+        raise ValueError("a handover needs a mapped source and an unmapped destination")
+    if src_arena.cuda:
+        lib, index = _lib(), src_arena.device.index
+        t0 = time.perf_counter()
+        err = lib.fma_arena_detach(index, sb.ptr, sb.nbytes)
+        if err == 0:
+            err = lib.fma_arena_attach(index, db.ptr, db.nbytes, sb.handle)
+            if err != 0:  # put it back where it was
+                _check(lib.fma_arena_attach(index, sb.ptr, sb.nbytes, sb.handle),
+                       f"map {sb.name or 'a block'} back after a failed handover")
+        dst_arena.map_seconds += time.perf_counter() - t0
+        _check(err, f"hand {sb.name or 'a block'} over on {src_arena.device}")
+        db.handle, sb.handle = sb.handle, 0
+    else:
+        dst_arena._storage[db.ptr].view(-1).view(torch.uint8).copy_(src_arena._storage[sb.ptr].view(-1).view(torch.uint8))
+        src_arena._storage[sb.ptr].view(-1).view(torch.uint8).fill_(0xFF)
+    db.mapped, sb.mapped = True, False
 
 
 def arena_of(arenas: Iterable[Arena], t: torch.Tensor) -> Arena:

@@ -3,8 +3,10 @@
 Port of ``llm_d_fast_model_actuation_tpu/engine/server.py``: one engine
 thread fed by a submit queue, and the routes
 
-  GET  /health, /is_sleeping, /v1/models, /v1/stats
-  POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions
+  GET  /health, /is_sleeping, /v1/models, /v1/stats, /v1/swap, /v1/faults
+  POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions,
+       /v1/swap, /v1/faults
+  DELETE /v1/faults
 
 and one of the port's own, ``GET /v1/device``: the card the engine runs
 on as the CUDA runtime names it, the kernel launches of this process and
@@ -34,11 +36,27 @@ tokens, ``echo`` without logprobs, ``n``, ``seed``, ``ignore_eos``,
 ``logit_bias`` and ``stop_token_ids``; their JSON and SSE shapes are the
 reference's. Not ported yet, and answered with a 400 that says so:
 ``echo`` with ``logprobs`` (prompt logprobs), and the other routes of the
-reference (metrics, swap, ...). Not ported yet and absent from the
+reference (metrics, prefetch, ...). Not ported yet and absent from the
 options: the reference's other engine flags (``--pipeline-decode``,
 ``--speculative-ngram``, ``--quantization``, ``--sleep-quant``,
 ``--resident-variants``, multi-host gangs, ...), also where the reference
 combines them with tensor parallelism.
+
+**Model hot-swap** (``POST /v1/swap {"model": ..., "request_id": ...}``),
+the reference's verb: the engine changes the model it serves without a
+restart. The outgoing model sleeps into a host pool (``--model-pool-mib``,
+``engine/model_pool.py``) while the incoming one comes back from it
+(``engine/sleep.py:swap_states``: overlapped, and by digest only the delta
+between siblings moves, ``--content-hash``), or is built cold (a named
+config, an ``hf:`` directory, or weights rebuilt from the pool's chunk
+tiers, ``--pool-disk-dir``). Each model keeps its own engine, its arenas
+and its captured graphs, so a swap back re-captures nothing. A failed
+transfer rolls back (503, ``/health`` DEGRADED until the next committed
+swap); ``GET /v1/swap`` is the last committed swap, and a repeated
+``request_id`` replays it. The fault points of ``utils/faults.py`` are armed
+by ``--faults``, ``FMA_FAULTS`` or ``/v1/faults``. Not ported: a swap on a
+tensor-parallel mesh and an Orbax ``checkpoint_dir`` (400s that say so),
+transfer quantization, zero-drain parking and prefetch.
 
 Run: ``python -m llm_d_fast_model_actuation_tpu_torch.engine.server
 --model llama3-8b`` or ``--model hf:/path/to/model`` (on the card;
@@ -54,6 +72,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import queue
@@ -73,10 +92,14 @@ from ..models import llama
 from ..ops.cuda import kernel_launches
 from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
+from ..utils import faults
 from . import tokenizer as tokenizer_mod
+from .chunk_store import ChunkStore, default_disk_dir, flatten_state
 from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
+from .graphs import release_cached_memory
 from .kv_cache import PageAllocator
-from .sleep import attach_sleep, fresh_state
+from .model_pool import HostModelPool
+from .sleep import SleepManager, SwapRolledBack, attach_sleep, fresh_state, swap_states
 
 MODEL_CONFIGS = {
     "tiny": llama.LlamaConfig.tiny,
@@ -121,7 +144,7 @@ MODEL_CONFIGS = {
 
 #: routes of the reference server this port does not serve yet
 UNPORTED_ROUTES = (
-    "/metrics", "/v1/swap", "/v1/prefetch", "/v1/costs", "/v1/actuations",
+    "/metrics", "/v1/prefetch", "/v1/costs", "/v1/actuations",
     "/v1/parked", "/v1/residents", "/v1/traces",
 )
 
@@ -171,6 +194,45 @@ def make_arg_parser() -> argparse.ArgumentParser:
         help="row capacity of the packed buffer (--packed-serving). 0 = "
         "auto (256, floored so every decode slot plus one prefill block fits)",
     )
+    p.add_argument(
+        "--model-pool-mib", type=int, default=4096,
+        help="pinned-host byte budget (MiB) for the slept-model pool backing "
+        "POST /v1/swap: models swapped out stay host-resident up to this "
+        "budget so swapping back re-reads no checkpoint; 0 disables pooling "
+        "(every swap-in is a cold build)",
+    )
+    p.add_argument(
+        "--pool-disk-dir", default="",
+        help="local-disk spill tier below the host model pool: weight chunks "
+        "whose last pooled reference is evicted spill here (atomic rename, "
+        "content-verified reload), so a swap back to an evicted model rebuilds "
+        "from local disk instead of re-reading its checkpoint. Defaults to "
+        "FMA_POOL_SPILL_DIR; empty disables the tier",
+    )
+    p.add_argument(
+        "--pool-disk-mib", type=int, default=4096,
+        help="byte budget (MiB) for the model pool's disk spill tier (LRU "
+        "beyond it); 0 disables the tier",
+    )
+    p.add_argument(
+        "--content-hash", default="on", choices=["on", "off"],
+        help="content-address pooled weights (sha256 per leaf, computed once "
+        "at load): dedupes sibling fine-tune variants in the host pool and "
+        "lets hot-swaps move only the delta between models sharing tensors. "
+        "Off with --tensor-parallel-size > 1",
+    )
+    p.add_argument(
+        "--swap-bucket-mib", type=int, default=256,
+        help="transfer bucket size (MiB) for chunked sleep/wake and "
+        "overlapped hot-swap: bounds the extra card memory and the in-flight "
+        "window to about one bucket per direction (a bucket holds whole "
+        "tensors, so never less than one)",
+    )
+    p.add_argument(
+        "--faults", default="",
+        help="arm fault-injection points at startup (utils/faults.py), e.g. "
+        "'swap.h2d=fail:1'; also the FMA_FAULTS env and POST /v1/faults",
+    )
     return p
 
 
@@ -200,6 +262,13 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError(f"unknown model {args.model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
     if args.token_budget < 0:
         raise ValueError("--token-budget must be >= 0, or 0 for auto")
+    if args.swap_bucket_mib < 1:
+        raise ValueError("--swap-bucket-mib must be >= 1")
+    if args.faults:
+        try:
+            faults.parse_spec(args.faults)
+        except ValueError as e:
+            raise ValueError(f"--faults: {e}")
     if args.tensor_parallel_size < 1:
         raise ValueError("--tensor-parallel-size must be >= 1")
     devices = args.device.split(",")
@@ -230,9 +299,9 @@ def mesh_from_options(args: argparse.Namespace):
     return serving_mesh(tp, devices)
 
 
-def resolve_model(args: argparse.Namespace):
+def resolve_model(args: argparse.Namespace, model_id: str):
     """(model config, eos id, extra eos ids, hf directory or "",
-    tokenizer) for ``args.model``, as the reference's ``_resolve_model``:
+    tokenizer) for ``model_id``, as the reference's ``_resolve_model``:
     an ``hf:`` directory gives its config and all its eos ids (the first
     is the engine's eos, the rest its extra ones) unless
     ``--eos-token-id`` names one; the tokenizer is ``--tokenizer``'s, else
@@ -241,15 +310,15 @@ def resolve_model(args: argparse.Namespace):
     hf_dir = ""
     eos = args.eos_token_id
     extra: tuple = ()
-    if args.model.startswith("hf:"):
-        hf_dir = args.model[3:]
+    if model_id.startswith("hf:"):
+        hf_dir = model_id[3:]
         model_cfg = hf_models.config_from_hf(hf_dir)
         if eos < 0:
             ids = hf_models.eos_token_ids_from_hf(hf_dir)
             if ids:
                 eos, extra = ids[0], tuple(ids[1:])
     else:
-        model_cfg = MODEL_CONFIGS[args.model]()
+        model_cfg = MODEL_CONFIGS[model_id]()
     tok_path = args.tokenizer or (hf_dir if hf_dir and tokenizer_mod.has_tokenizer_files(hf_dir) else "")
     tok = tokenizer_mod.load_tokenizer(tok_path)
     if eos < 0 and hf_dir:
@@ -281,41 +350,69 @@ class _RateEWMA:
         return self._rate
 
 
+@dataclasses.dataclass
+class _ModelRuntime:
+    """Everything model-specific the service owns: swapping models means
+    swapping this bundle. A pooled (slept) runtime keeps its engine, and
+    with it its arenas (their addresses reserved, nothing mapped) and its
+    captured chunk graphs, so a swap back re-captures nothing and reads no
+    checkpoint."""
+
+    model_id: str
+    cfg: EngineConfig
+    tokenizer: Any
+    hf_dir: str
+    engine: Any = None
+    sleeper: Any = None
+    #: flat weight key -> content digest, computed once at load (None for
+    #: a named config's random weights, and with --content-hash off)
+    digests: Optional[Dict[str, str]] = None
+    #: the most recent load of the checkpoint (at the build, then at each
+    #: level-2 wake), and how many there were; None for a named config
+    load_stats: Optional[hf_models.LoadStats] = None
+    loads: int = 0
+
+
 class EngineService:
     """One engine plus its sleep manager, driven by one engine thread.
     The engine is built, its weights loaded or drawn, and on one card its
     chunk graphs captured, before the service takes a request.
 
     Requests enter through :meth:`submit` (any thread) and are resolved
-    through futures. Sleep and wake are handed to the engine thread too
-    and run between engine steps; while asleep the loop does not step and
-    new requests wait."""
+    through futures. Sleep, wake and swap are handed to the engine thread
+    too and run between engine steps; while asleep the loop does not step
+    and new requests wait, and requests that arrive during a swap wait for
+    the incoming model."""
 
     def __init__(self, args: argparse.Namespace) -> None:
         self.args = args
-        model_cfg, eos, extra_eos, self.hf_dir, self.tokenizer = resolve_model(args)
-        self.cfg = EngineConfig(
-            model=model_cfg,
-            max_batch=args.max_batch,
-            page_size=args.page_size,
-            num_pages=args.num_pages,
-            max_seq_len=args.max_model_len,
-            eos_token_id=eos,
-            extra_eos_ids=extra_eos,
-            attention_impl=args.attention_impl,
-            packed_serving=args.packed_serving == "on",
-            token_budget=args.token_budget,
+        faults.load_env()
+        if getattr(args, "faults", ""):
+            faults.arm_spec(args.faults)
+        #: content-addressed weights: digests at load, the pool's dedup and
+        #: the delta swap (off on a mesh, where swap is not ported)
+        self._content_hash = args.content_hash == "on" and args.tensor_parallel_size == 1
+        self._swap_bucket_bytes = args.swap_bucket_mib << 20
+        self.model_pool = HostModelPool(
+            budget_bytes=max(0, args.model_pool_mib) << 20,
+            chunks=ChunkStore(
+                disk_dir=args.pool_disk_dir or default_disk_dir(),
+                disk_budget_bytes=max(0, args.pool_disk_mib) << 20,
+            ) if self._content_hash else None,
         )
-        #: the most recent load of the checkpoint (at start, then at each
-        #: level-2 wake), and how many there were; None for a named config
-        self.load_stats: Optional[hf_models.LoadStats] = None
-        self.loads = 0
-        mesh = mesh_from_options(args)
-        self.engine = InferenceEngine(
-            self.cfg, params=self._load if self.hf_dir else None, seed=args.seed,
-            device=args.device if mesh is None else None, mesh=mesh,
-        )
-        self.sleeper = attach_sleep(self.engine)
+        #: cold runtime builds (checkpoint read or random init); a pool hit
+        #: on swap does not count
+        self.builds_total = 0
+        #: the last committed swap (GET /v1/swap, request_id replay)
+        self.last_swap: Dict[str, Any] = {}
+        #: a recoverable failure healed in-process (a rolled-back swap):
+        #: /health stays 200 but reports DEGRADED until the next committed swap
+        self.degraded: Optional[str] = None
+        #: the transfer figures of the last build (what a cold swap reports)
+        self._last_build_stats: Dict[str, Any] = {}
+        #: each model's resolve_model answer, from its last build
+        self._resolved: Dict[str, tuple] = {}
+        self._runtime = self._build_runtime(args.model)
         self.failure: Optional[str] = None
         self.started_at = time.monotonic()
         self._mu = threading.Lock()  # guards the queues and counters below
@@ -332,11 +429,111 @@ class EngineService:
         self._thread = threading.Thread(target=self._loop, name="engine", daemon=True)
         self._thread.start()
 
-    def _load(self, model) -> None:
-        """The engine's loader: the checkpoint directory into ``model``'s
-        tensors, in place."""
-        self.load_stats = hf_models.load_params(self.hf_dir, model)
-        self.loads += 1
+    # -- model runtimes --------------------------------------------------------
+
+    def _build_runtime(
+        self,
+        model_id: str,
+        staged_params: Optional[Dict[str, Any]] = None,
+        staged_digests: Optional[Dict[str, str]] = None,
+    ) -> _ModelRuntime:
+        """Cold-build an awake runtime for ``model_id``: config, tokenizer,
+        engine (weights from the ``hf:`` directory, from ``staged_params``
+        — a host tree rebuilt from the pool's chunk tiers, flat keys
+        ``layers/wq`` nested — or drawn from ``--seed``), its graphs
+        captured, and its sleeper. Leaves the build's transfer figures in
+        ``_last_build_stats``."""
+        args = self.args
+        if staged_params is None or model_id not in self._resolved:
+            # a build from the tiers reuses the model's config and
+            # tokenizer: its directory may be gone
+            self._resolved[model_id] = resolve_model(args, model_id)
+        model_cfg, eos, extra_eos, hf_dir, tok = self._resolved[model_id]
+        cfg = EngineConfig(
+            model=model_cfg,
+            max_batch=args.max_batch,
+            page_size=args.page_size,
+            num_pages=args.num_pages,
+            max_seq_len=args.max_model_len,
+            eos_token_id=eos,
+            extra_eos_ids=extra_eos,
+            attention_impl=args.attention_impl,
+            packed_serving=args.packed_serving == "on",
+            token_budget=args.token_budget,
+        )
+        rt = _ModelRuntime(model_id=model_id, cfg=cfg, tokenizer=tok, hf_dir=hf_dir)
+        content_hash = self._content_hash
+
+        def load(model) -> None:
+            # the directory into the model's tensors in place; the digests
+            # once, at the first load
+            rt.load_stats = hf_models.load_params(hf_dir, model, want_digests=content_hash and rt.loads == 0)
+            if rt.loads == 0 and content_hash:
+                rt.digests = dict(rt.load_stats.digests) or None
+            rt.loads += 1
+
+        def load_staged(model) -> None:
+            hf_models.place_staged_params(staged_params, model)
+
+        mesh = mesh_from_options(args)
+        t0 = time.monotonic()
+        params = load_staged if staged_params is not None else (load if hf_dir else None)
+        rt.engine = InferenceEngine(
+            cfg, params=params, seed=args.seed,
+            device=args.device if mesh is None else None, mesh=mesh,
+        )
+        if staged_params is not None:
+            # the tiers served this build; a level-2 wake reads the directory
+            rt.engine._load = load if hf_dir else None
+            rt.digests = dict(staged_digests) if content_hash and staged_digests else None
+        rt.sleeper = attach_sleep(rt.engine, bucket_bytes=self._swap_bucket_bytes)
+        state_bytes = sum(t.numel() * t.element_size() for t in rt.engine.model.parameters())
+        state_bytes += rt.engine.pool.nbytes()
+        self._last_build_stats = {
+            "h2d_s": rt.load_stats.h2d_s if rt.load_stats is not None else time.monotonic() - t0,
+            "bytes_in": state_bytes,
+            "digest_s": rt.load_stats.digest_s if rt.load_stats is not None else 0.0,
+            "build_s": time.monotonic() - t0,
+        }
+        self.builds_total += 1
+        return rt
+
+    # the serving runtime's parts (``_runtime`` is set at start and by a
+    # committed swap)
+
+    @property
+    def model(self) -> str:
+        """The name of the model the service serves."""
+        return self._runtime.model_id
+
+    @property
+    def engine(self) -> InferenceEngine:
+        return self._runtime.engine
+
+    @property
+    def sleeper(self) -> SleepManager:
+        return self._runtime.sleeper
+
+    @property
+    def tokenizer(self):
+        return self._runtime.tokenizer
+
+    @property
+    def hf_dir(self) -> str:
+        return self._runtime.hf_dir
+
+    @property
+    def cfg(self) -> EngineConfig:
+        return self._runtime.cfg
+
+    @property
+    def load_stats(self) -> Optional[hf_models.LoadStats]:
+        """The serving model's last checkpoint load (None for a named config)."""
+        return self._runtime.load_stats
+
+    @property
+    def loads(self) -> int:
+        return self._runtime.loads
 
     # -- engine thread --------------------------------------------------------
 
@@ -499,6 +696,234 @@ class EngineService:
 
         return self._on_loop(wake)
 
+    # -- model hot-swap ----------------------------------------------------------
+
+    def swap(self, model: str, checkpoint_dir: str = "", request_id: str = "") -> Dict[str, Any]:
+        """POST /v1/swap: change the model this card serves, on the engine
+        thread between steps (:meth:`_swap_impl`). Raises ValueError for a
+        request the service refuses (a 400), :class:`SwapRolledBack` for a
+        rolled-back transfer (a 503)."""
+        if checkpoint_dir:
+            raise ValueError(
+                "an Orbax checkpoint_dir is not ported yet (ROADMAP queue 1 item 2); "
+                "name a Hugging Face directory as the model, hf:<dir>"
+            )
+        if self.args.tensor_parallel_size > 1:
+            raise ValueError("model hot-swap on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
+        if model.startswith("hf:"):
+            if not model[3:]:
+                raise ValueError("swap model hf: needs a directory path")
+        elif model not in MODEL_CONFIGS:
+            raise ValueError(f"unknown model {model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
+        return self._on_loop(lambda: self._swap_impl(model, request_id))
+
+    def _abort_for_swap(self, previous: str, model: str) -> None:
+        """Fail the queued and the in-flight requests: they target the
+        outgoing model. An idle engine's prefix cache survives the swap
+        (its pages move bit-exact)."""
+        exc = RuntimeError(f"aborted by model swap ({previous} -> {model})")
+        with self._mu:
+            queued, self._pending = self._pending, []
+        for _, fut in queued:
+            if not fut.done():
+                fut.set_exception(exc)
+                self._count_abort("swap")
+        if self.engine.has_work():
+            aborted = self.engine.abort_all(f"model swapped out for {model}")
+            self._count_abort("swap", len(aborted))
+            for req in aborted:
+                fut = self._futures.pop(req.seq_id, None)
+                if fut is not None and not fut.done():
+                    fut.set_exception(exc)
+
+    def _swap_impl(self, model: str, request_id: str = "") -> Dict[str, Any]:
+        """The reference's ``_swap_impl`` (``tier``: ``pool`` for a slept
+        runtime from the pool, ``host`` or ``disk`` for weights rebuilt
+        from the chunk tiers, ``cold`` for a build from the source):
+
+          * a pool hit swaps the two states with :func:`swap_states`
+            (overlapped; by digest only the delta moves); a failed
+            transfer rolls back, re-pools the entry and raises
+            :class:`SwapRolledBack` with the service DEGRADED, and a failed
+            rollback fails the service;
+          * a miss sleeps the outgoing model and builds the incoming one; a
+            failed build wakes the outgoing model again (DEGRADED);
+          * the outgoing runtime is pooled, and what the pool evicts is
+            destroyed (engine, graphs, arena range).
+
+        A ``request_id`` equal to the last committed swap's replays it."""
+        if request_id and self.last_swap.get("request_id") == request_id:
+            # the caller lost the answer: swapping again would swap away
+            return dict(self.last_swap, replayed=True)
+        previous = self.model
+        if model == previous:
+            return {"model": model, "previous_model": previous, "checkpoint_dir": "", "swapped": False,
+                    "pool": self.model_pool.describe()}
+        if self.sleeper.is_sleeping:
+            raise ValueError("engine is sleeping; wake_up before swapping models")
+        t0 = time.monotonic()
+        self._abort_for_swap(previous, model)
+        outgoing = self._runtime
+        entry = self.model_pool.take_match(model)
+        pool_hit = entry is not None
+        tier = "pool" if pool_hit else "cold"
+        if pool_hit:
+            rt = entry.runtime
+            digests = self._content_hash
+            try:
+                metrics = swap_states(
+                    outgoing.sleeper, rt.sleeper, bucket_bytes=self._swap_bucket_bytes,
+                    out_digests=outgoing.digests if digests else None,
+                    in_digests=rt.digests if digests else None,
+                )
+                metrics["d2h_transfer_s"], metrics["h2d_transfer_s"] = metrics["d2h_s"], metrics["h2d_s"]
+                metrics["transfer_s"] = metrics["swap_total_s"]  # swap_states' own wall; the verb's below
+            except ValueError:
+                # refused before any transfer: the entry goes back intact
+                self._free_pooled(self._pool_park(entry.model_id, rt, entry.nbytes))
+                raise
+            except SwapRolledBack as e:
+                self._free_pooled(self._pool_park(entry.model_id, rt, entry.nbytes))
+                self.degraded = f"hot-swap {previous}->{model} rolled back: {e}"
+                raise
+            except Exception as e:
+                # the rollback failed: the state is partially moved
+                self.failure = f"hot-swap {previous}->{model} failed mid-transfer: {type(e).__name__}: {e}"
+                self._fail_all(RuntimeError(self.failure))
+                raise
+        else:
+            tier_params = tier_digests = None
+            if self._content_hash:
+                got = self.model_pool.take_staged_match(model)
+                if got is not None:
+                    tier_params, tier_digests, _key, tier = got
+            self.sleeper.sleep(1)
+            try:
+                rt = self._build_runtime(model, staged_params=tier_params, staged_digests=tier_digests)
+            except Exception as build_exc:
+                # a failed build must not leave the card serving nothing
+                try:
+                    self.sleeper.wake_up()
+                except Exception as wake_exc:
+                    self.failure = (
+                        f"hot-swap {previous}->{model} build failed ({type(build_exc).__name__}: {build_exc}) "
+                        f"and the rollback wake failed ({type(wake_exc).__name__}: {wake_exc})"
+                    )
+                    self._fail_all(RuntimeError(self.failure))
+                    raise RuntimeError(self.failure) from build_exc
+                if tier_params is not None:
+                    # the tiers still hold the weights: keep them reachable
+                    self.model_pool.remember_manifest(
+                        model, tier_digests, sum(t.numel() * t.element_size() for t in flatten_state(tier_params))
+                    )
+                self.degraded = f"hot-swap {previous}->{model} build failed; rolled back to {previous}: {type(build_exc).__name__}: {build_exc}"
+                raise
+            b = self._last_build_stats
+            out_stats = outgoing.sleeper.stats
+            moved = out_stats.bytes_offloaded + b["bytes_in"]
+            metrics = {
+                "swap_total_s": 0.0,  # below
+                "d2h_s": out_stats.last_sleep_seconds,
+                "h2d_s": b["h2d_s"],
+                "d2h_transfer_s": out_stats.last_sleep_seconds - out_stats.last_pin_seconds,
+                "h2d_transfer_s": b["h2d_s"],
+                "overlap_s": 0.0,
+                "overlap_frac": 0.0,
+                "bytes_out": out_stats.bytes_offloaded,
+                "bytes_in": b["bytes_in"],
+                "bytes_moved": moved,
+                "bytes_deduped": 0,
+                "deduped_leaves": 0,
+                "quant": "off",
+                "quant_leaves": 0,
+                "bytes_full": moved,
+                "bytes_saved_quant": 0,
+                "buckets_out": 0,
+                "buckets_in": 0,
+                "bucket_bytes": self._swap_bucket_bytes,
+                "peak_bytes_in_flight": 0,
+                "pin_s": out_stats.last_pin_seconds,
+                "build_s": b["build_s"],
+                "digest_s": b["digest_s"],
+            }
+        # the pool key is the model's name: the reference qualifies it with
+        # an Orbax checkpoint_dir (name@dir), which the port refuses
+        evicted = self._pool_park(previous, outgoing, outgoing.sleeper.stats.bytes_offloaded)
+        self._runtime = rt
+        self._free_pooled(evicted)
+        metrics["swap_total_s"] = time.monotonic() - t0
+        self._bump_actuation("swap")
+        self.degraded = None  # a committed swap heals the failure domain
+        self.last_swap = {
+            "model": model,
+            "previous_model": previous,
+            "request_id": request_id,
+            "checkpoint_dir": "",
+            "swapped": True,
+            "pool_hit": pool_hit,
+            "prefetched": False,
+            "tier": tier,
+            **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in metrics.items()},
+            "builds_total": self.builds_total,
+            "pool": self.model_pool.describe(),
+        }
+        return dict(self.last_swap)
+
+    def _pool_park(self, key: str, runtime: _ModelRuntime, nbytes: int) -> list:
+        """Pool a slept runtime under ``key``, interning its digested
+        weight copies into the chunk store first (a sibling already pooled
+        shares its common tensors instead of holding them twice). Returns
+        the evicted entries, for :meth:`_free_pooled`."""
+        chunk_digests: List[str] = []
+        interned = 0
+        if self._content_hash and self.model_pool.budget_bytes > 0 and runtime.digests:
+            host = runtime.sleeper._host_state
+            if host is not None:
+                runtime.sleeper._host_state, chunk_digests, interned = self.model_pool.intern_tree(
+                    host, runtime.digests, prefix="params"
+                )
+        return self.model_pool.put(
+            key, runtime, nbytes=nbytes, chunk_digests=chunk_digests,
+            weight_digests=runtime.digests if chunk_digests else None, interned_bytes=interned,
+        )
+
+    def _free_pooled(self, victims: list) -> None:
+        """Destroy evicted runtimes: an evicted model is built cold at its
+        next swap-in anyway, so its host copies, its engine, its graphs and
+        its arenas' address ranges all go, and the card's and the pinned
+        host allocator's caches with them."""
+        if not victims:
+            return
+        devices = set()
+        for victim in victims:
+            rt = victim.runtime
+            devices.add(rt.engine.device)
+            rt.sleeper.sleep(2)  # drop the host copies
+            rt.engine = rt.sleeper = None
+            victim.runtime = None
+        gc.collect()  # the engine and its graphs hold each other
+        for dev in devices:
+            if dev.type == "cuda":
+                release_cached_memory(dev)
+        if hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()
+
+    def pooled_engines(self) -> List[Dict[str, Any]]:
+        """Each pooled engine's share of the card that is known here: its
+        arenas' mapped bytes (0 while it sleeps) and its captured graphs'
+        kernel nodes."""
+        out = []
+        for e in self.model_pool.entries():
+            eng = e.runtime.engine
+            programs = eng.graphs.programs.values() if eng.graphs else ()
+            out.append({
+                "model": e.model_id,
+                "mapped_bytes": sum(a.mapped_bytes for a in eng.arenas.values()),
+                "graph_captures": eng.graph_captures,
+                "graph_kernel_nodes": sum(n for p in programs for n in p.kernels.values()),
+            })
+        return out
+
     def _bump_actuation(self, kind: str) -> None:
         with self._mu:
             self._actuations[kind] = self._actuations.get(kind, 0) + 1
@@ -507,13 +932,15 @@ class EngineService:
         """GET /v1/stats: the reference's fields for the blocks the port
         has (no SLO targets are configurable, so none is judged and every
         finished request's tokens are goodput, as the reference counts
-        them with its targets off), and ``load``: the checkpoint's last
-        load (``models/hf.py:LoadStats``) for an ``hf:`` model, else None."""
+        them with its targets off), and two blocks of the port's own:
+        ``load``, the checkpoint's last load (``models/hf.py:LoadStats``)
+        for an ``hf:`` model, else None; and ``pool``, the slept-model pool
+        (``HostModelPool.describe``)."""
         now = time.monotonic()
         depth = self.queue_depth()
         with self._mu:
             return {
-                "model": self.args.model,
+                "model": self.model,
                 "queue_depth": depth,
                 "arrival_rate_rps": round(self._arrival.rate(now), 6),
                 "slo": {"ttft_ms": 0.0, "tpot_ms": 0.0, "met": 0, "violated": 0, "attainment": None},
@@ -525,6 +952,7 @@ class EngineService:
                 "uptime_s": round(now - self.started_at, 3),
                 "is_sleeping": self.sleeper.is_sleeping,
                 "load": None if self.load_stats is None else dict(self.load_stats.summary(), loads=self.loads),
+                "pool": self.model_pool.describe(),
             }
 
     def device_info(self) -> Dict[str, Any]:
@@ -821,7 +1249,7 @@ def completion_response(service: EngineService, body: Dict[str, Any], gen: Gener
         choices.append(choice)
     return {
         "object": "text_completion",
-        "model": body.get("model") or service.args.model,
+        "model": body.get("model") or service.model,
         "choices": choices,
         "usage": _usage(reqs[0], total),
     }
@@ -858,7 +1286,7 @@ def chat_response(service: EngineService, body: Dict[str, Any], gen: Generation,
         choices.append(choice)
     return {
         "object": "chat.completion",
-        "model": body.get("model") or service.args.model,
+        "model": body.get("model") or service.model,
         "choices": choices,
         "usage": _usage(reqs[0], total, ttft=False),
     }
@@ -943,7 +1371,7 @@ def completions(service: EngineService, body: Any):
     gen = parse_generation(service, body, encode_prompt(service, body.get("prompt")))
     logprobs_n = parse_logprobs_n(service, body.get("logprobs"))
     echo = bool(body.get("echo"))
-    model = body.get("model") or service.args.model
+    model = body.get("model") or service.model
     if body.get("stream"):
         if logprobs_n > 0:
             raise BadRequest("integer logprobs is not supported with stream")
@@ -968,7 +1396,7 @@ def chat_completions(service: EngineService, body: Any):
         raise BadRequest("request body must be a JSON object")
     gen = parse_generation(service, body, chat_tokens(service, body.get("messages")))
     top_n = parse_logprobs_n(service, body.get("top_logprobs"), "top_logprobs") if body.get("logprobs") else 0
-    model = body.get("model") or service.args.model
+    model = body.get("model") or service.model
     if body.get("stream"):
         if top_n > 0:
             raise BadRequest("top_logprobs is not supported with stream")
@@ -1042,14 +1470,34 @@ def make_handler(service: EngineService):
                 if method == "GET" and path == "/health":
                     if service.failure is not None:
                         return self._send(503, {"status": "FAILED", "error": service.failure})
+                    if service.degraded is not None:
+                        # healed in-process (a rolled-back swap): still serving
+                        return self._send(200, {"status": "DEGRADED", "reason": service.degraded})
                     return self._send(200, {"status": "OK"})
+                if path == "/v1/swap":
+                    if method == "GET":  # a launcher's recovery read of a timed-out swap
+                        return self._send(200, {**service.last_swap, "degraded": service.degraded})
+                    if method == "POST":
+                        return self._swap(body)
+                if path == "/v1/faults":
+                    if method == "POST":
+                        spec = body.get("spec") if isinstance(body, dict) else None
+                        if not isinstance(spec, str) or not spec:
+                            raise BadRequest("faults requires a 'spec' string")
+                        try:
+                            faults.arm_spec(spec)
+                        except ValueError as e:
+                            raise BadRequest(str(e))
+                    elif method == "DELETE":
+                        faults.reset()
+                    return self._send(200, faults.describe())
                 if method == "GET" and path == "/is_sleeping":
                     return self._send(200, {
                         "is_sleeping": service.sleeper.is_sleeping,
                         "devices_released": service.sleeper.devices_released,
                     })
                 if method == "GET" and path == "/v1/models":
-                    return self._send(200, {"object": "list", "data": [{"id": service.args.model, "object": "model"}]})
+                    return self._send(200, {"object": "list", "data": [{"id": service.model, "object": "model"}]})
                 if method == "GET" and path == "/v1/stats":
                     return self._send(200, service.stats())
                 if method == "GET" and path == "/v1/device":
@@ -1081,11 +1529,35 @@ def make_handler(service: EngineService):
             except Exception as e:  # noqa: BLE001 — the request's boundary
                 return self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
+        def _swap(self, body: Any) -> None:
+            if not isinstance(body, dict):
+                raise BadRequest("request body must be a JSON object")
+            model = body.get("model")
+            if not isinstance(model, str) or not model:
+                raise BadRequest("swap requires a 'model' string")
+            ckpt = body.get("checkpoint_dir") or ""
+            if not isinstance(ckpt, str):
+                raise BadRequest("checkpoint_dir must be a string")
+            rid = body.get("request_id") or ""
+            if not isinstance(rid, str):
+                raise BadRequest("request_id must be a string")
+            try:
+                return self._send(200, service.swap(model, ckpt, request_id=rid))
+            except ValueError as e:
+                raise BadRequest(str(e))
+            except SwapRolledBack as e:
+                # the previous model serves again and the target is still
+                # pooled: retryable, so 503
+                return self._send(503, {"error": str(e), "rolled_back": True, "model": service.model})
+
         def do_GET(self):
             self._route("GET")
 
         def do_POST(self):
             self._route("POST")
+
+        def do_DELETE(self):
+            self._route("DELETE")
 
     return Handler
 

@@ -1,9 +1,12 @@
 """Sleep/wake: move live model state between the card and host memory
 without ending the process.
 
-Port of ``llm_d_fast_model_actuation_tpu/engine/sleep.py`` (levels 1 and 2;
-device release, transfer quantization, multi-host staging, hot-swap and
-tracing are not ported yet). Sleep levels (vLLM vocabulary):
+Port of ``llm_d_fast_model_actuation_tpu/engine/sleep.py``: levels 1 and 2,
+and the overlapped, delta-aware hot-swap between two engines on one card
+(:func:`swap_states`, priced by :func:`plan_swap`). Device release,
+transfer quantization (``--sleep-quant``), multi-host staging, a swap on a
+tensor-parallel mesh and tracing are not ported yet. Sleep levels (vLLM
+vocabulary):
 
   level 1 — weights and KV pages are copied into pinned host tensors on a
             dedicated copy stream, then their device memory is unmapped
@@ -36,6 +39,8 @@ reports the same figure at any ``tp``.
 **Chunked transfers** (``bucket_bytes``): the flattened state is split into
 size-bounded buckets of whole tensors and moved bucket by bucket, each
 bucket's source freed as soon as it lands. ``None`` = one bucket.
+``swap_states`` builds on the same buckets to overlap one model's offload
+with another's restore.
 """
 
 from __future__ import annotations
@@ -43,12 +48,31 @@ from __future__ import annotations
 import enum
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .arena import Arena, arena_of
+from ..utils import faults
+from .arena import Arena, arena_of, hand_over
+from .chunk_store import aligned_digests, flatten_state, map_leaves
 from .graphs import release_cached_memory
+
+
+class SwapRolledBack(RuntimeError):
+    """A mid-transfer hot-swap failure was rolled back: the outgoing model
+    is fully back on the card (awake, serving) and the incoming model's
+    host state is intact (re-poolable). The swap did not happen, but
+    nothing was lost: retryable."""
+
+
+class SwapRollbackFailed(RuntimeError):
+    """A mid-transfer hot-swap failure could NOT be rolled back: the state
+    is partially moved and unrecoverable in-process. The service must fail
+    loudly (``/health``) so that the process is replaced."""
+
+
+#: Default transfer bucket for chunked/overlapped swaps
+DEFAULT_SWAP_BUCKET_BYTES = 256 << 20
 
 
 def partition_buckets(
@@ -80,18 +104,6 @@ class SleepLevel(enum.IntEnum):
     AWAKE = 0
     L1_HOST_OFFLOAD = 1
     L2_DISCARD = 2
-
-
-def flatten_state(state: Any) -> List[torch.Tensor]:
-    """The state's tensors in a fixed order: dict keys sorted (as
-    ``jax.tree.flatten`` orders them), sequences in order."""
-    if isinstance(state, torch.Tensor):
-        return [state]
-    if isinstance(state, dict):
-        return [t for k in sorted(state) for t in flatten_state(state[k])]
-    if isinstance(state, (list, tuple)):
-        return [t for x in state for t in flatten_state(x)]
-    raise TypeError(f"unsupported state node {type(state).__name__}")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -148,8 +160,8 @@ class SleepManager:
         self._leaves: Optional[List[torch.Tensor]] = None
         self._host: Optional[List[torch.Tensor]] = None
         self._cuda = self.device.type == "cuda"
-        #: the dedicated copy stream of both transfer directions, per device
-        self._streams: Dict[torch.device, Any] = {}
+        #: the dedicated copy streams, per (device, index): :meth:`_stream`
+        self._streams: Dict[Tuple[torch.device, int], Any] = {}
         self.stats = _Stats()
 
     @property
@@ -163,6 +175,32 @@ class SleepManager:
     @property
     def devices_released(self) -> bool:
         return False  # device release is not ported yet
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the state is a tensor-parallel mesh's (some of its
+        tensors repeat another rank's)."""
+        return self._replicas is not None
+
+    @property
+    def _host_state(self) -> Any:
+        """The slept state's host copies, as a tree of the state's shape;
+        None while awake or after a level-2 sleep."""
+        return None if self._host is None else map_leaves(self._state, self._host)
+
+    @_host_state.setter
+    def _host_state(self, tree: Any) -> None:
+        self._host = flatten_state(tree)
+
+    def _stream(self, dev: torch.device, i: int = 0):
+        """The ``i``-th dedicated copy stream of ``dev``: 0 serves both
+        directions of a sleep and a wake and a swap's device-to-host
+        copies, 1 a swap's host-to-device copies."""
+        key = (dev, i)
+        stream = self._streams.get(key)
+        if stream is None:
+            stream = self._streams[key] = torch.cuda.Stream(dev)
+        return stream
 
     def _unmap(self, leaves: Sequence[torch.Tensor]) -> None:
         for t in leaves:
@@ -194,15 +232,13 @@ class SleepManager:
             dev = dst.device if dst.is_cuda else src.device
             by_device.setdefault(dev, []).append((dst, src))
         for dev, items in by_device.items():
-            stream = self._streams.get(dev)
-            if stream is None:
-                stream = self._streams[dev] = torch.cuda.Stream(dev)
+            stream = self._stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 for dst, src in items:
                     dst.copy_(src, non_blocking=True)
         for dev in by_device:
-            self._streams[dev].synchronize()
+            self._stream(dev).synchronize()
 
     def _offload(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
         """Device -> pinned host, bucket by bucket; each bucket's device
@@ -306,6 +342,403 @@ class SleepManager:
             "last_wake_seconds": self.stats.last_wake_seconds,
             "last_reacquire_seconds": 0.0,
         }
+
+
+@dataclass
+class _TransferPlan:
+    """Byte-exact schedule of one hot-swap, computed from shapes, dtypes,
+    devices and digests alone: no data read, no byte moved. Shared by the
+    executing :func:`swap_states` and the dry-run :func:`plan_swap`, so a
+    priced swap and the swap it prices can never disagree on bytes."""
+
+    reuse_pairs: List[Tuple[int, int]]  #: (incoming idx, outgoing idx) digest matches
+    move_out: List[int]
+    move_in: List[int]
+    nb_out: List[int]
+    nb_in: List[int]
+    buckets_out: List[List[int]]
+    buckets_in: List[List[int]]
+    bytes_out: int
+    bytes_in: int
+    deduped_bytes: int
+    moved_bytes: int
+
+
+def _plan_transfer(
+    state_out: Any,
+    leaves_out: List[torch.Tensor],
+    state_in: Any,
+    leaves_in: List[torch.Tensor],
+    bucket_bytes: int,
+    out_digests: Optional[Dict[str, str]],
+    in_digests: Optional[Dict[str, str]],
+) -> _TransferPlan:
+    """The planning phase of a hot-swap (see :func:`swap_states`): which
+    leaves move, which are digest-matched away, and how many bytes each
+    direction carries. Pure: reads shapes, dtypes, devices and digests."""
+    nb_out = [_nbytes(t) for t in leaves_out]
+    nb_in = [_nbytes(t) for t in leaves_in]
+    # Delta matching: pair incoming leaves with content-identical live
+    # outgoing leaves by digest; matched pairs leave BOTH directions. A
+    # match also needs an equal shape, dtype and device (the reference's
+    # sharding), so the two blocks are the same size on the same card.
+    reuse_pairs: List[Tuple[int, int]] = []
+    if out_digests and in_digests:
+        by_digest: Dict[str, List[int]] = {}
+        for j, d in enumerate(aligned_digests(state_out, out_digests)):
+            if d is not None:
+                by_digest.setdefault(d, []).append(j)
+        for i, d in enumerate(aligned_digests(state_in, in_digests)):
+            cands = by_digest.get(d) if d is not None else None
+            if not cands:
+                continue
+            j = cands[0]
+            lo, li = leaves_out[j], leaves_in[i]
+            if lo.shape == li.shape and lo.dtype == li.dtype and lo.device == li.device:
+                reuse_pairs.append((i, j))
+                cands.pop(0)
+    reused_in = {i for i, _ in reuse_pairs}
+    reused_out = {j for _, j in reuse_pairs}
+    move_out = [i for i in range(len(leaves_out)) if i not in reused_out]
+    move_in = [i for i in range(len(leaves_in)) if i not in reused_in]
+    buckets_out = [[move_out[k] for k in b] for b in partition_buckets([nb_out[i] for i in move_out], bucket_bytes)]
+    buckets_in = [[move_in[k] for k in b] for b in partition_buckets([nb_in[i] for i in move_in], bucket_bytes)]
+    bytes_out, bytes_in = sum(nb_out), sum(nb_in)
+    deduped = sum(nb_out[j] for j in reused_out) + sum(nb_in[i] for i in reused_in)
+    return _TransferPlan(
+        reuse_pairs=reuse_pairs, move_out=move_out, move_in=move_in, nb_out=nb_out, nb_in=nb_in,
+        buckets_out=buckets_out, buckets_in=buckets_in, bytes_out=bytes_out, bytes_in=bytes_in,
+        deduped_bytes=deduped, moved_bytes=bytes_out + bytes_in - deduped,
+    )
+
+
+def _check_swap_preconditions(out_mgr: SleepManager, in_mgr: SleepManager, quant: Optional[str]) -> None:
+    if quant not in (None, "", "off"):
+        raise ValueError(
+            f"transfer quantization ({quant!r}) is not ported yet (ROADMAP queue 1 item 9); swap with quant off"
+        )
+    if out_mgr.is_sleeping:
+        raise ValueError("swap-out model must be awake")
+    if in_mgr.level != SleepLevel.L1_HOST_OFFLOAD or in_mgr._host is None:
+        raise ValueError(
+            "swap-in model must be asleep at level 1 with host-resident state (level-2 states cannot hot-swap)"
+        )
+    if out_mgr.sharded or in_mgr.sharded:
+        raise ValueError("hot-swap on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
+    if out_mgr.device != in_mgr.device:
+        raise ValueError(f"hot-swap between {out_mgr.device} and {in_mgr.device}: both models must be on one device")
+
+
+def _swap_bytes(plan: _TransferPlan, bucket_bytes: int) -> Dict[str, Any]:
+    """The byte keys of a swap's metrics, as the reference names them."""
+    return {
+        "bytes_out": plan.bytes_out,
+        "bytes_in": plan.bytes_in,
+        "bytes_moved": plan.moved_bytes,
+        "bytes_deduped": plan.deduped_bytes,
+        "deduped_leaves": len(plan.reuse_pairs),
+        "quant": "off",
+        "quant_leaves": 0,
+        "bytes_full": plan.bytes_out + plan.bytes_in,
+        "bytes_saved_quant": 0,
+        "buckets_out": len(plan.buckets_out),
+        "buckets_in": len(plan.buckets_in),
+        "bucket_bytes": bucket_bytes,
+    }
+
+
+def plan_swap(
+    out_mgr: SleepManager,
+    in_mgr: SleepManager,
+    bucket_bytes: Optional[int] = None,
+    out_digests: Optional[Dict[str, str]] = None,
+    in_digests: Optional[Dict[str, str]] = None,
+    quant: Optional[str] = None,
+) -> Dict[str, Any]:
+    """Price a hot-swap WITHOUT moving a byte: the planning code
+    :func:`swap_states` executes (same preconditions, same delta
+    matching), run on a side-effect-free read of the outgoing state, so
+    the predicted bytes equal the executed swap's by construction. Returns
+    the byte keys of the swap's metrics, the bytes that cross PCIe each way
+    (``wire_out``, ``wire_in``) and the leaf counts."""
+    _check_swap_preconditions(out_mgr, in_mgr, quant)
+    bucket_bytes = bucket_bytes or DEFAULT_SWAP_BUCKET_BYTES
+    # the reference prices from a peek that skips its get_state's quiesce;
+    # the port's get_state reads the tensors and quiesces nothing
+    state_out = out_mgr._get_state()
+    leaves_out = flatten_state(state_out)
+    plan = _plan_transfer(state_out, leaves_out, in_mgr._state, in_mgr._leaves, bucket_bytes, out_digests, in_digests)
+    return {
+        **_swap_bytes(plan, bucket_bytes),
+        "wire_out": sum(plan.nb_out[i] for i in plan.move_out),
+        "wire_in": sum(plan.nb_in[i] for i in plan.move_in),
+        "leaves_out": len(leaves_out),
+        "leaves_in": len(in_mgr._leaves),
+    }
+
+
+def swap_states(
+    out_mgr: SleepManager,
+    in_mgr: SleepManager,
+    bucket_bytes: Optional[int] = None,
+    overlapped: bool = True,
+    out_digests: Optional[Dict[str, str]] = None,
+    in_digests: Optional[Dict[str, str]] = None,
+    quant: Optional[str] = None,
+) -> Dict[str, Any]:
+    """Overlapped model hot-swap: stream the awake model behind ``out_mgr``
+    to pinned host memory while ``in_mgr``'s slept (level-1) state streams
+    back to the card, double-buffered over size-bounded buckets.
+
+    Schedule (the reference's): while outgoing bucket k drains on one copy
+    stream, incoming bucket k-1 rides the other copy stream into memory
+    mapped after bucket k-1's copy landed and its blocks were released, so
+    the swap approaches max(sleep, wake) instead of their sum and the
+    extra card memory is about one bucket. Events order the two
+    directions: an outgoing block is unmapped only after its copy's event,
+    and no queued kernel reads it then (the copies wait for the compute
+    stream first). Buckets hold whole tensors, so a bucket is at least one
+    leaf (``peak_bytes_in_flight`` reports the window as it was). The host
+    buffers of the outgoing copies are allocated (pinned) before the
+    transfer starts, and timed apart (``pin_s``). On the CPU the copies
+    run in turn.
+
+    Ends with ``out_mgr`` asleep at level 1 (host-resident, poolable) and
+    ``in_mgr`` awake, every tensor of both at its old address. Bit-exact:
+    whole tensors move, nothing is recomputed.
+
+    **Delta-aware** (``out_digests``/``in_digests``, flat weight key ->
+    content digest, ``engine/chunk_store.py``): leaves the two models share
+    by content never cross PCIe. At commit a matched incoming leaf's block
+    takes over the outgoing leaf's physical memory (``arena.hand_over``:
+    on the card the allocation is unmapped at one address and mapped at
+    the other, no byte copied), and the incoming host copy becomes the
+    outgoing model's slept copy. ``bytes_moved`` counts the bytes that
+    cross PCIe; ``None`` digests give the full transfer.
+
+    **Transactional**: the incoming model's host copies are not touched
+    before the commit, and the outgoing model's copies land before their
+    memory is released. A failure mid-transfer (an out-of-memory map, an
+    injected ``swap.d2h``/``swap.h2d`` fault, a failed handover) is rolled
+    back: handed-over blocks go back, the incoming blocks mapped so far are
+    released, the outgoing blocks already released are mapped again and
+    refilled from their host copies, and :class:`SwapRolledBack` is raised:
+    both models end as they began. Only a failure *during that rollback*
+    raises :class:`SwapRollbackFailed`.
+
+    ``overlapped=False`` runs the same code on a sequential schedule
+    (every outgoing bucket lands before the first incoming one is issued).
+    ``quant`` other than off is refused (transfer quantization is not
+    ported yet)."""
+    _check_swap_preconditions(out_mgr, in_mgr, quant)
+    bucket_bytes = bucket_bytes or DEFAULT_SWAP_BUCKET_BYTES
+    t_begin = time.monotonic()
+    dev = out_mgr.device
+    cuda = out_mgr._cuda
+    state_out = out_mgr._get_state()
+    leaves_out = flatten_state(state_out)
+    state_in, leaves_in, host_in = in_mgr._state, in_mgr._leaves, in_mgr._host
+    plan = _plan_transfer(state_out, leaves_out, state_in, leaves_in, bucket_bytes, out_digests, in_digests)
+    buckets_out, buckets_in = plan.buckets_out, plan.buckets_in
+    bsize_out = [sum(plan.nb_out[i] for i in b) for b in buckets_out]
+    bsize_in = [sum(plan.nb_in[i] for i in b) for b in buckets_in]
+    arena_out = [arena_of(out_mgr.arenas, t) for t in leaves_out]
+    arena_in = [arena_of(in_mgr.arenas, t) for t in leaves_in]
+
+    # the outgoing host copies, allocated before the transfer window
+    t_pin = time.monotonic()
+    host_out: List[Optional[torch.Tensor]] = [None] * len(leaves_out)
+    for i in plan.move_out:
+        host_out[i] = torch.empty(leaves_out[i].shape, dtype=leaves_out[i].dtype, pin_memory=cuda)
+    pin_s = time.monotonic() - t_pin
+    s_out = out_mgr._stream(dev, 0) if cuda else None
+    s_in = out_mgr._stream(dev, 1) if cuda else None
+
+    in_flight = peak_in_flight = 0
+    d2h_t0 = d2h_t1 = h2d_t0 = h2d_t1 = None
+    #: outgoing leaves whose memory was released (a rollback maps and refills them)
+    released_out: List[int] = []
+    #: incoming leaves mapped so far (a rollback releases them)
+    mapped_in: List[int] = []
+    #: (incoming, outgoing) pairs whose block changed hands (a rollback hands them back)
+    handed: List[Tuple[int, int]] = []
+    handover_s = 0.0
+
+    def _event(stream):
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        return ev
+
+    def _issue_d2h(k):
+        nonlocal in_flight, peak_in_flight
+        faults.fire("swap.d2h")
+        bucket = buckets_out[k]
+        ev = None
+        if cuda:
+            s_out.wait_stream(torch.cuda.current_stream(dev))  # every queued write first
+            with torch.cuda.stream(s_out):
+                for i in bucket:
+                    host_out[i].copy_(leaves_out[i], non_blocking=True)
+            ev = _event(s_out)
+        else:
+            for i in bucket:
+                host_out[i].copy_(leaves_out[i])
+        in_flight += bsize_out[k]
+        peak_in_flight = max(peak_in_flight, in_flight)
+        return k, ev
+
+    def _finish_d2h(pending):
+        nonlocal in_flight
+        k, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        bucket = buckets_out[k]
+        released_out.extend(bucket)  # before the unmap: a failed one is mapped again
+        for i in bucket:
+            arena_out[i].unmap([leaves_out[i]])  # the memory the next incoming bucket fills
+        in_flight -= bsize_out[k]
+
+    def _issue_h2d(j):
+        nonlocal in_flight, peak_in_flight, h2d_t0
+        faults.fire("swap.h2d")
+        if h2d_t0 is None:
+            h2d_t0 = time.monotonic()
+        bucket = buckets_in[j]
+        mapped_in.extend(bucket)
+        for i in bucket:
+            arena_in[i].map([leaves_in[i]])
+        ev = None
+        if cuda:
+            with torch.cuda.stream(s_in):
+                for i in bucket:
+                    leaves_in[i].copy_(host_in[i], non_blocking=True)
+            ev = _event(s_in)
+        else:
+            for i in bucket:
+                leaves_in[i].copy_(host_in[i])
+        in_flight += bsize_in[j]
+        peak_in_flight = max(peak_in_flight, in_flight)
+        return j, ev
+
+    def _finish_h2d(pending):
+        nonlocal in_flight
+        j, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        in_flight -= bsize_in[j]
+
+    pend_d2h = pend_h2d = None
+    next_in = 0
+
+    def _rollback() -> None:
+        """Undo every side effect of a partial swap: land what is in
+        flight, hand matched blocks back, release what the incoming model
+        mapped, and map and refill the outgoing leaves already released
+        from their host copies (which landed before the release, by
+        construction). The incoming host copies were never touched."""
+        for pending in (pend_h2d, pend_d2h):
+            if pending is not None and pending[1] is not None:
+                try:
+                    pending[1].synchronize()
+                except Exception:  # noqa: BLE001 — the failed transfer itself
+                    pass
+        if cuda:
+            torch.cuda.synchronize(dev)
+        for i, j in reversed(handed):
+            hand_over(arena_in[i], leaves_in[i], arena_out[j], leaves_out[j])
+        for i in mapped_in:
+            arena_in[i].unmap([leaves_in[i]])
+        for arena in in_mgr.arenas:
+            arena.unmap(tag="discard")
+        for b in partition_buckets([plan.nb_out[i] for i in released_out], bucket_bytes):
+            idx = [released_out[k] for k in b]
+            for i in idx:
+                arena_out[i].map([leaves_out[i]])
+            out_mgr._copy([(leaves_out[i], host_out[i]) for i in idx])
+
+    d2h_t0 = time.monotonic()
+    try:
+        for k in range(len(buckets_out)):
+            cur = _issue_d2h(k)
+            if pend_d2h is not None:
+                _finish_d2h(pend_d2h)
+                pend_d2h = None
+                if overlapped and next_in < len(buckets_in):
+                    if pend_h2d is not None:
+                        _finish_h2d(pend_h2d)
+                        pend_h2d = None
+                    pend_h2d = _issue_h2d(next_in)
+                    next_in += 1
+            pend_d2h = cur
+        if pend_d2h is not None:
+            _finish_d2h(pend_d2h)
+            pend_d2h = None
+        d2h_t1 = time.monotonic()
+        while next_in < len(buckets_in):
+            if pend_h2d is not None:
+                _finish_h2d(pend_h2d)
+                pend_h2d = None
+            pend_h2d = _issue_h2d(next_in)
+            next_in += 1
+        if pend_h2d is not None:
+            _finish_h2d(pend_h2d)
+            pend_h2d = None
+        h2d_t1 = time.monotonic()
+        # the commit's device edits: the incoming model's discard blocks,
+        # then the delta handover, once nothing queued uses either model
+        for arena in in_mgr.arenas:
+            arena.map(tag="discard")
+        t_hand = time.monotonic()
+        if plan.reuse_pairs and cuda:
+            torch.cuda.synchronize(dev)
+        for i, j in plan.reuse_pairs:
+            hand_over(arena_out[j], leaves_out[j], arena_in[i], leaves_in[i])
+            handed.append((i, j))
+        handover_s = time.monotonic() - t_hand
+    except Exception as exc:
+        try:
+            _rollback()
+        except Exception as rb_exc:
+            raise SwapRollbackFailed(
+                f"hot-swap transfer failed ({type(exc).__name__}: {exc}) and the rollback failed "
+                f"({type(rb_exc).__name__}: {rb_exc}); device state is partially moved"
+            ) from rb_exc
+        raise SwapRolledBack(f"hot-swap transfer failed mid-flight; rolled back ({type(exc).__name__}: {exc})") from exc
+    if h2d_t0 is None:  # nothing moved in
+        h2d_t0 = h2d_t1
+
+    # Commit: the matched incoming host copies become the outgoing model's
+    # slept copies; outgoing asleep (poolable), incoming awake.
+    for i, j in plan.reuse_pairs:
+        host_out[j] = host_in[i]
+    out_mgr._state, out_mgr._leaves, out_mgr._host = state_out, leaves_out, host_out
+    out_mgr._set_state(None)
+    for arena in out_mgr.arenas:
+        arena.unmap(tag="discard")
+    out_mgr._level = SleepLevel.L1_HOST_OFFLOAD
+    out_mgr.stats.last_sleep_seconds = d2h_t1 - d2h_t0
+    out_mgr.stats.last_pin_seconds = pin_s
+    out_mgr.stats.bytes_offloaded = out_mgr.stats.bytes_offloaded_full = plan.bytes_out
+    in_mgr._host = in_mgr._leaves = in_mgr._state = None
+    in_mgr._set_state(state_in)
+    in_mgr._level = SleepLevel.AWAKE
+    in_mgr.stats.last_wake_seconds = h2d_t1 - h2d_t0
+    in_mgr.stats.bytes_offloaded = in_mgr.stats.bytes_offloaded_full = 0
+
+    total = time.monotonic() - t_begin
+    # overlap = the intersection of the two directions' windows
+    overlap = max(0.0, min(d2h_t1, h2d_t1) - max(d2h_t0, h2d_t0))
+    return {
+        "swap_total_s": total,
+        "d2h_s": d2h_t1 - d2h_t0,
+        "h2d_s": h2d_t1 - h2d_t0,
+        "overlap_s": overlap,
+        "overlap_frac": overlap / total if total > 0 else 0.0,
+        **_swap_bytes(plan, bucket_bytes),
+        "peak_bytes_in_flight": peak_in_flight,
+        "pin_s": pin_s,
+        "handover_s": handover_s,
+    }
 
 
 def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:

@@ -21,8 +21,11 @@ what lets one card time-share engines. A supervised restart is held to
 it too: a restarted child comes up awake, so it does not come back while
 another holder admitted beside it is awake or unreachable.
 
-Not ported yet: the swap, prefetch, residents, migrate and drain verbs
-(each waits on its engine feature), and the Prometheus gauges and spans.
+The swap verb (:meth:`EngineProcessManager.swap_instance`) forwards to
+the child's ``POST /v1/swap`` with a request id; a timed-out swap is
+recovered through the child's ``GET /v1/swap``, never sent again. Not
+ported yet: the prefetch, residents, migrate and drain verbs (each waits
+on its engine feature), and the Prometheus gauges and spans.
 ``fleet_rollup`` aggregates the children's ``/v1/stats`` as the reference
 does, without gauges.
 """
@@ -49,6 +52,9 @@ from .instance import EngineInstance, InstanceConfig, InvalidInstanceConfig
 
 logger = logging.getLogger(__name__)
 
+#: first backoff (seconds) before re-sending a refused engine connection
+_RETRY_BACKOFF_S = 0.2
+
 class ChipConflict(Exception):
     """Requested cards overlap an instance that is (or may be) awake."""
 
@@ -59,6 +65,16 @@ class ChipConflict(Exception):
         )
         self.instance_id = instance_id
         self.blockers = blockers
+
+
+class SwapFailed(Exception):
+    """The engine child rejected (or never answered) a model hot-swap."""
+
+    def __init__(self, instance_id: str, status: int, detail: str) -> None:
+        super().__init__(f"swap of instance {instance_id} failed ({status}): {detail}")
+        self.instance_id = instance_id
+        self.status = status
+        self.detail = detail
 
 
 class StatsFailed(Exception):
@@ -99,14 +115,17 @@ def probe_instance_awake(instance: "EngineInstance", timeout: float = 2.0) -> Op
 
 
 class ChipLedger:
-    """Node-local truth of which live instance holds which cards, and which
-    model each holder serves. The reference's ``prefetched``, ``pools``,
-    ``quant`` and ``residents`` blocks are kept, empty: the port's engine
-    has none of the verbs that fill them yet."""
+    """Node-local truth of which live instance holds which cards, which
+    model each holder serves, and its model pool's shape and transfer mode
+    from its last swap answer. The reference's ``prefetched`` and
+    ``residents`` blocks are kept, empty: the port's engine has none of the
+    verbs that fill them yet."""
 
     def __init__(self) -> None:
         self._held: Dict[str, List[str]] = {}  # instance_id -> chip_ids
         self._models: Dict[str, str] = {}  # instance_id -> served model
+        self._pools: Dict[str, Dict[str, Any]] = {}
+        self._quant: Dict[str, str] = {}
 
     def overlapping(
         self, chip_ids: Optional[List[str]], exclude: Optional[str] = None
@@ -131,14 +150,42 @@ class ChipLedger:
     def release(self, instance_id: str) -> None:
         self._held.pop(instance_id, None)
         self._models.pop(instance_id, None)
+        self._pools.pop(instance_id, None)
+        self._quant.pop(instance_id, None)
 
     def set_model(self, instance_id: str, model: str) -> None:
         """Record which model a holder serves."""
         if instance_id in self._held:
             self._models[instance_id] = model
 
+    def set_pool(self, instance_id: str, pool: Optional[Dict[str, Any]]) -> None:
+        """Record the holder's pool shape from an engine swap answer (a
+        pool-less answer keeps the last known one)."""
+        if pool is None or instance_id not in self._held:
+            return
+        chunks = pool.get("chunks") or {}
+        self._pools[instance_id] = {
+            "models": list(pool.get("models") or []),
+            "bytes_used": pool.get("bytes_used", 0),
+            "budget_bytes": pool.get("budget_bytes", 0),
+            "dedup_saved_bytes": chunks.get("dedup_saved_bytes", 0),
+            "disk_bytes": chunks.get("disk_bytes", 0),
+            "staged_manifests": list(pool.get("staged_manifests") or []),
+        }
+
+    def set_quant(self, instance_id: str, quant: Optional[str]) -> None:
+        """Record the transfer mode of a holder's last swap answer."""
+        if quant and instance_id in self._held:
+            self._quant[instance_id] = quant
+
     def holders(self) -> Dict[str, List[str]]:
         return dict(self._held)
+
+    def pools(self) -> Dict[str, Dict[str, Any]]:
+        return dict(self._pools)
+
+    def quant(self) -> Dict[str, str]:
+        return dict(self._quant)
 
     def models(self) -> Dict[str, str]:
         return dict(self._models)
@@ -480,23 +527,118 @@ class EngineProcessManager:
         self, instance_id: str, timeout: float
     ) -> Dict[str, Any]:
         """One GET /v1/stats of a live instance's engine child, no retry."""
+        return self._engine_request(instance_id, "GET", "/v1/stats", None, timeout, StatsFailed, retries=0)
+
+    def _engine_request(
+        self,
+        instance_id: str,
+        method: str,
+        api_path: str,
+        body: Optional[Dict[str, Any]],
+        timeout: float,
+        exc_cls,
+        retries: int = 2,
+    ) -> Dict[str, Any]:
+        """Forward a call to a live instance's engine child; failures map
+        onto ``exc_cls(instance_id, status, detail)``: the child's HTTP
+        status, 400 for stored options that name no engine port, 504 for a
+        timeout, 502 for an unreachable child. A refused connection never
+        reached the engine, so it is retried up to ``retries`` times with
+        backoff; a timeout is never retried (the call may be running: a
+        swap sent again could swap twice)."""
         if instance_id not in self.instances:
             raise KeyError(instance_id)
         try:
             port = _engine_port(self.instances[instance_id])
         except ValueError as e:
-            raise StatsFailed(instance_id, 400, f"stored options are not engine options: {e}")
+            raise exc_cls(instance_id, 400, f"stored options are not engine options: {e}")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{api_path}", method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        attempt = 0
+        while True:
+            try:
+                with urllib.request.urlopen(req, timeout=timeout) as resp:
+                    return json.loads(resp.read() or b"{}")
+            except urllib.error.HTTPError as e:
+                raise exc_cls(instance_id, e.code, e.read().decode(errors="replace")[:500])
+            except Exception as e:  # noqa: BLE001 — refused, timed out, reset, ...
+                reason = getattr(e, "reason", e)
+                if isinstance(reason, ConnectionRefusedError) and attempt < retries:
+                    attempt += 1
+                    time.sleep(min(2.0, _RETRY_BACKOFF_S * 2 ** (attempt - 1) * (1.0 + random.random())))
+                    continue
+                if isinstance(reason, (TimeoutError, socket.timeout)):
+                    raise exc_cls(instance_id, 504, f"engine timed out: {e}")
+                raise exc_cls(instance_id, 502, f"engine unreachable: {e}")
+
+    def swap_instance(
+        self, instance_id: str, model: str, checkpoint_dir: str = "", timeout: float = 300
+    ) -> Dict[str, Any]:
+        """Hot-swap the model a live instance serves: forward to its
+        child's ``POST /v1/swap`` (no stop/start: the cards, the process
+        and its ledger hold stay), then bring the stored options and the
+        ledger in line with the model the child serves and publish
+        ``SWAPPED``. A timed-out swap is not sent again: the child's
+        committed-swap record (``GET /v1/swap``) is polled for this call's
+        request id."""
+        if instance_id not in self.instances:
+            raise KeyError(instance_id)
+        instance = self.instances[instance_id]
+        previous = self._served_model(instance.config.options) or ""
+        request_id = uuidlib.uuid4().hex
         try:
-            with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stats", timeout=timeout) as resp:
-                return json.loads(resp.read() or b"{}")
-        except urllib.error.HTTPError as e:
-            raise StatsFailed(instance_id, e.code, e.read().decode(errors="replace")[:500])
-        except (TimeoutError, socket.timeout) as e:
-            raise StatsFailed(instance_id, 504, f"engine timed out: {e}")
-        except Exception as e:  # noqa: BLE001 — refused, reset, ...
-            if isinstance(getattr(e, "reason", None), (TimeoutError, socket.timeout)):
-                raise StatsFailed(instance_id, 504, f"engine timed out: {e}")
-            raise StatsFailed(instance_id, 502, f"engine unreachable: {e}")
+            body = self._engine_request(
+                instance_id, "POST", "/v1/swap",
+                {"model": model, "checkpoint_dir": checkpoint_dir, "request_id": request_id},
+                timeout, SwapFailed,
+            )
+        except SwapFailed as e:
+            if e.status != 504:
+                raise
+            body = self._recover_swap_result(instance_id, request_id, e)
+        from .instance import replace_model_option
+
+        # from the engine's answer: the options describe what the child
+        # serves (a restart rebuilds from them)
+        instance.config.options = replace_model_option(
+            instance.config.options, model, checkpoint_dir=body.get("checkpoint_dir") or checkpoint_dir
+        )
+        self.ledger.set_model(instance_id, model)
+        self.ledger.set_pool(instance_id, body.get("pool"))
+        self.ledger.set_quant(instance_id, body.get("quant"))
+        obj = instance.get_status()
+        obj["swap"] = body
+        instance.last_revision = self._publish("SWAPPED", obj)
+        logger.info("swapped instance %s: %s -> %s (pool_hit=%s, rev %s)", instance_id, previous, model,
+                    body.get("pool_hit"), instance.last_revision)
+        return {"instance_id": instance_id, "model": model, "previous_model": previous, "swap": body,
+                "revision": instance.last_revision}
+
+    def _recover_swap_result(
+        self, instance_id: str, request_id: str, timeout_exc: SwapFailed, window_s: float = 10.0, poll_s: float = 0.5
+    ) -> Dict[str, Any]:
+        """A timed-out swap: poll the child's committed-swap record for
+        ``request_id``. Found: the swap happened once and this is its
+        answer; not within ``window_s``: the timeout, as a 504."""
+        deadline = time.monotonic() + window_s
+        while time.monotonic() < deadline:
+            try:
+                body = self._engine_request(instance_id, "GET", "/v1/swap", None, min(5.0, window_s), SwapFailed,
+                                            retries=1)
+            except SwapFailed:
+                body = {}
+            if body.get("request_id") == request_id:
+                logger.info("swap on instance %s recovered through its request id after a timeout", instance_id)
+                return body
+            time.sleep(poll_s)
+        raise SwapFailed(
+            instance_id, 504,
+            f"swap timed out and no committed record with request id {request_id} appeared within {window_s}s "
+            f"({timeout_exc.detail})",
+        )
 
     def fleet_rollup(
         self, timeout: float = 1.5, ttl_s: float = 1.0
@@ -631,13 +773,13 @@ class EngineProcessManager:
             "running_instances": running,
             "instances": statuses,
             # who holds which cards is the ledger's; what each holder
-            # serves is reported, and the blocks of the verbs the port's
-            # engine does not have yet are empty
+            # serves and its pool are reported, and the blocks of the
+            # verbs the port's engine does not have yet are empty
             "ledger": {
                 "models": self.ledger.models(),
                 "prefetched": {},
-                "pools": {},
-                "quant": {},
+                "pools": self.ledger.pools(),
+                "quant": self.ledger.quant(),
                 "residents": {},
             },
         }

@@ -13,6 +13,8 @@ launcher's surface (launcher.py:568-800) for the routes the port serves:
   DELETE /v2/vllm/instances/{id}            stop (404)
   GET    /v2/vllm/instances/{id}/log        log bytes, ``Range: bytes=``
                                             (206, 416, 400)
+  POST   /v2/vllm/instances/{id}/swap       model hot-swap (404, 422, 400,
+                                            503 rolled back, 504, 502)
   GET    /v2/vllm/instances/watch[?since=N] NDJSON events (410 when N
                                             was evicted)
 
@@ -38,7 +40,7 @@ from urllib.parse import parse_qsl, unquote, urlsplit
 from ..utils.events import RevisionTooOld
 from .http11 import FramingError, read_chunks, read_headers
 from .instance import InstanceConfig, InvalidInstanceConfig, LogRangeNotAvailable
-from .manager import ChipConflict, EngineProcessManager
+from .manager import ChipConflict, EngineProcessManager, SwapFailed
 
 logger = logging.getLogger(__name__)
 
@@ -171,6 +173,7 @@ class LauncherApp:
             ("GET", "/v2/vllm/instances", self.get_all),
             ("GET", "/v2/vllm/instances/{instance_id}", self.get_one),
             ("GET", "/v2/vllm/instances/{instance_id}/log", self.get_log),
+            ("POST", "/v2/vllm/instances/{instance_id}/swap", self.swap_instance),
         ):
             pattern = re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^{}/]+)", path) + "$")
             self.routes.append((method, pattern, handler))
@@ -221,6 +224,7 @@ class LauncherApp:
                     "get_instance_status": "GET /v2/vllm/instances/{instance_id}",
                     "get_all_instances": "GET /v2/vllm/instances",
                     "get_instance_logs": "GET /v2/vllm/instances/{instance_id}/log",
+                    "swap_instance": "POST /v2/vllm/instances/{instance_id}/swap",
                     "watch_instances": "GET /v2/vllm/instances/watch",
                 },
             }
@@ -288,6 +292,33 @@ class LauncherApp:
             return json_response(self.manager.get_instance_status(instance_id))
         except KeyError:
             raise HTTPError(404, f"Instance {instance_id} not found")
+
+    async def swap_instance(self, req: Request) -> Response:
+        """The model hot-swap verb: rebind a live instance to another model
+        over its child's /v1/swap — same cards, same process."""
+        instance_id = req.match_info["instance_id"]
+        try:
+            body = req.json()
+        except ValueError:
+            raise HTTPError(400, "invalid JSON body")
+        model = body.get("model") if isinstance(body, dict) else None
+        if not isinstance(model, str) or not model:
+            raise HTTPError(422, "swap requires a 'model' string")
+        checkpoint_dir = body.get("checkpoint_dir") or ""
+        if not isinstance(checkpoint_dir, str):
+            raise HTTPError(422, "checkpoint_dir must be a string")
+        try:
+            # the swap streams model state for seconds; keep the loop free
+            result = await self._run(self.manager.swap_instance, instance_id, model, checkpoint_dir)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except SwapFailed as e:
+            # the engine refused it (the client's fault), rolled it back
+            # (retryable, 503), timed out unrecovered (504), or is unreachable
+            if 400 <= e.status < 500:
+                raise HTTPError(400, str(e))
+            raise HTTPError(e.status if e.status in (503, 504) else 502, str(e))
+        return json_response(result)
 
     async def watch(self, req: Request) -> StreamResponse:
         since_raw = req.query.get("since")

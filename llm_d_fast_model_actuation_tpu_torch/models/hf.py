@@ -37,7 +37,6 @@ zero-centred norms copy verbatim (``norm_offset``, ``embed_scale``).
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import json
 import math
 import os
@@ -46,6 +45,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
+from ..engine.chunk_store import digest_leaves
 from ..parallel.mesh import shard
 from .llama import Llama, LlamaConfig, ShardedLlama, param_shapes, param_tp_dims
 from .safetensors import DTYPES, SafetensorsFile
@@ -185,13 +185,19 @@ class LoadStats:
     bytes_h2d: int = 0
     shards: int = 0
     tensors: int = 0
+    #: of total_s, the seconds spent computing the digests, and each
+    #: parameter's [copy to the host, sha256] seconds (on the digests'
+    #: thread pool, so they overlap)
+    digest_s: float = 0.0
+    digest_times: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
     #: flat weight key ("layers/wq") -> content digest, as the reference's
     #: ``engine/chunk_store.py:leaf_digest``; only with ``want_digests``
     digests: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def summary(self) -> Dict[str, Any]:
-        """The numbers, without the digests, and the load's rate."""
-        out = {k: v for k, v in dataclasses.asdict(self).items() if k != "digests"}
+        """The numbers, without the digests and their times, and the
+        load's rate."""
+        out = {k: v for k, v in dataclasses.asdict(self).items() if k not in ("digests", "digest_times")}
         out["gb_per_s"] = self.bytes_h2d / 1e9 / self.total_s if self.total_s > 0 else 0.0
         return out
 
@@ -429,36 +435,41 @@ def _param(m: Llama, flat: str) -> torch.Tensor:
     return m.layers[flat[len("layers."):]] if flat.startswith("layers.") else m.get_parameter(flat)
 
 
-_NP_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16", torch.float32: "float32"}
-
-
-def leaf_digest(t: torch.Tensor) -> str:
-    """The reference's ``engine/chunk_store.py:leaf_digest`` of a tensor:
-    sha256 over the numpy dtype's name (bf16 as ``bfloat16``), the shape
-    and the raw bytes, so the strings are equal for equal bits."""
-    h = hashlib.sha256()
-    h.update(_NP_NAMES[t.dtype].encode())
-    h.update(b"|")
-    h.update(",".join(str(d) for d in t.shape).encode())
-    h.update(b"|")
-    host = t.detach().to("cpu").contiguous()
-    if host.numel():
-        h.update(host.reshape(-1).view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
-
-
-def model_digests(model: "Llama | ShardedLlama") -> Dict[str, str]:
-    """:func:`leaf_digest` of every parameter under the reference's flat
-    key (``layers/wq``); a sharded model's slices joined first."""
+def model_digests(model: "Llama | ShardedLlama", times: Optional[Dict[str, List[float]]] = None) -> Dict[str, str]:
+    """:func:`leaf_digest <..engine.chunk_store.leaf_digest>` of every
+    parameter under the reference's flat key (``layers/wq``); a sharded
+    model's slices joined first. The leaves are copied to the host and
+    hashed on a thread pool (``chunk_store.digest_leaves``, which fills
+    ``times``)."""
     ranks = _ranks(model)
     dims = param_tp_dims(model.cfg)
-    out = {}
+    whole = {}
     for flat in param_shapes(model.cfg):
         parts = [_param(m, flat) for m in ranks]
         d = dims[flat]
-        whole = parts[0] if d is None or len(parts) == 1 else torch.cat([p.to("cpu") for p in parts], dim=d)
-        out[flat.replace(".", "/")] = leaf_digest(whole)
-    return out
+        t = parts[0] if d is None or len(parts) == 1 else torch.cat([p.to("cpu") for p in parts], dim=d)
+        whole[flat.replace(".", "/")] = t
+    return digest_leaves(whole, times=times)
+
+
+@torch.no_grad()
+def place_staged_params(params: Dict[str, Any], model: Llama) -> None:
+    """Write a host weight tree (``{"embed": t, "layers": {"wq": t, ...}}``,
+    the reference's nesting, as the model pool rebuilds it from its chunk
+    tiers) into ``model``'s parameters, in place. Every parameter must be
+    there, in its shape and dtype."""
+    if isinstance(model, ShardedLlama):
+        raise ValueError("staged weights are placed on one device only")
+    for flat, shape in param_shapes(model.cfg).items():
+        node: Any = params
+        for part in flat.split("."):
+            if not isinstance(node, dict) or part not in node:
+                raise ValueError(f"staged weights lack {flat.replace('.', '/')}")
+            node = node[part]
+        dest = _param(model, flat)
+        if tuple(node.shape) != tuple(shape) or node.dtype != dest.dtype:
+            raise ValueError(f"staged {flat}: {tuple(node.shape)} {node.dtype}, the model holds {tuple(shape)} {dest.dtype}")
+        dest.copy_(node)
 
 
 @torch.no_grad()
@@ -518,7 +529,9 @@ def load_params(
     st.shards = len(shards)
     del stagers, shards, items
     if want_digests:
-        st.digests = model_digests(model)
+        t_dig = time.perf_counter()
+        st.digests = model_digests(model, times=st.digest_times)
+        st.digest_s = time.perf_counter() - t_dig
     st.total_s = time.perf_counter() - t_begin
     return st
 

@@ -168,7 +168,8 @@ def both(model_dir, fp32):
 def test_the_port_answers_as_the_reference(both, i):
     """Each request's status and JSON (or SSE events) equal the
     reference's field for field, the greedy text equal; ``/v1/stats``
-    over the blocks the port has (its ``load`` block is its own), after
+    over the blocks the port has (its ``load`` and ``pool`` blocks are its
+    own), after
     the same requests. Echo with logprobs is the port's one refusal
     (prompt logprobs are not ported)."""
     port, ref, _ = both
@@ -180,6 +181,8 @@ def test_the_port_answers_as_the_reference(both, i):
     assert status == want_status
     if REQUESTS[i][1] == "/v1/stats":
         assert got.pop("load")["loads"] == 1
+        pool = got.pop("pool")  # the port's own block, as load is
+        assert pool["models"] == [] and pool["budget_bytes"] == 4096 << 20
         shared = {k: want[k] for k in got}
         assert set(got) <= set(want)
         _same(got, shared)
