@@ -98,7 +98,26 @@ exits non-zero and never prints the final ``ok`` line):
      called directly with the digests withheld (20.4 GB each way),
      overlapped and sequential, the states bit-equal (fingerprints on the
      card) and the times printed (``swap_total_s``, ``overlap_frac``,
-     ``peak_bytes_in_flight``, ``pin_s``); the digests' ``digest_s``;
+     ``peak_bytes_in_flight``, ``pin_s``); the digests' ``digest_s``. The
+     service runs ``--exec-pool-mib 120``, one Llama-3-8B graph set: the
+     pooled engines' graph bytes stay under it after every swap, and
+     pooling A beside A' releases A's graphs, which it captures again
+     (exactly its four) at its swap-in, with its tokens; no other engine
+     captures again. Then the prefetch, with A serving: a third sibling
+     A'' (lm_head's rows rolled by half) prefetched and aborted by
+     ``DELETE /v1/prefetch`` while the ``coldload.read`` fault point holds
+     its readers (aborted, nothing pooled); then prefetched while A serves
+     the traffic (TPOT against the same traffic just before), the card's
+     free memory sampled as it stages (not below its value before, less
+     64 MiB of slack), the staged leaves' fingerprints equal to A's with
+     lm_head rolled and their digests equal to A's but lm_head's; the swap
+     to it answers ``tier: "prefetched"``, reads no checkpoint (``loads``
+     0), builds weights with those fingerprints and an lm_head whose
+     digest, hashed from the card, is the staged one (``build_s``,
+     ``h2d_s``, ``capture_s`` printed); then back to A, a pool hit. Every
+     cold build prints its readers, ``read_s``, its load and the captures
+     after it, and how long its digests, hashed beside the captures and
+     serving, still ran once it served;
   launcher — the port's launcher as its own process (``python -m
      llm_d_fast_model_actuation_tpu_torch.launcher.main``, real mode:
      the card by NVML, preload on, ``--restart-budget 1``), driven only
@@ -122,7 +141,11 @@ exits non-zero and never prints the final ``ok`` line):
      tokens; ``a`` swapped to the swap phase's A' and back through
      ``POST /v2/vllm/instances/a/swap`` (its tokens on A' the swap phase's,
      the stored ``--model`` rewritten, two SWAPPED events, its own tokens
-     after); a SIGKILL to ``a``'s child gives STOPPED (exit code -9),
+     after); A'' prefetched through ``POST
+     /v2/vllm/instances/a/prefetch`` (``a`` runs ``--prefetch-mib-s
+     1024``) while ``a`` serves the traffic, the ledger's ``prefetched``
+     block naming it, its state polled to ``completed`` and TPOT beside
+     the same traffic before; a SIGKILL to ``a``'s child gives STOPPED (exit code -9),
      RESTARTING and RESTARTED on the watch stream, and the restarted
      child phase 4's tokens again; DELETE of both gives ``terminated``,
      the compute processes and the card's free memory (within 1 GiB) as
@@ -1343,6 +1366,19 @@ def text_traffic(port: int) -> dict:
             "chat_tokens": len(message["token_ids"]), "chat_streamed_equal": True, "logprobs_2": True}
 
 
+def build_figures(service) -> dict:
+    """The serving engine's build: its load (``load_s``) and the warm-up
+    after it (the chunk graphs' captures, ``capture_s``), and its digests,
+    hashed after the load off the build's path (``digest_s``) and how long
+    joining them waited here (``digest_join_wait_s``)."""
+    t0 = time.monotonic()
+    service._digests(service._runtime)
+    wait = time.monotonic() - t0
+    ls = service.load_stats
+    return {"warmup": service.engine.warmup_stats, "digest_s": ls.digest_s if ls else None,
+            "digest_join_wait_s": wait, "read_s": ls.read_s if ls else None, "workers": ls.workers if ls else None}
+
+
 def serve_hf(torch, smi: str, ckpt: str, written: dict, bucketed: dict) -> dict:
     """The port's server on ``--model hf:<ckpt>``: the checkpoint written
     from ``serve``'s weights, loaded into the arena before the captures;
@@ -1361,6 +1397,7 @@ def serve_hf(torch, smi: str, ckpt: str, written: dict, bucketed: dict) -> dict:
         L = eng.cfg.model.num_layers
         if eng.cfg.model != llama.LlamaConfig.llama3_8b() or eng.cfg.eos_token_id != 128001 or eng.cfg.extra_eos_ids != (128009,):
             raise AssertionError(f"the checkpoint's config resolved to {eng.cfg}")
+        build = build_figures(service)
         load = service.load_stats.summary()
         captures = eng.graph_captures
         traffic = run_traffic(torch, port, eng.cfg.model.vocab_size, ignore_eos=True)
@@ -1413,7 +1450,7 @@ def serve_hf(torch, smi: str, ckpt: str, written: dict, bucketed: dict) -> dict:
         out = {
             "phase": "serve_hf", "model": "hf:<checkpoint of serve's weights>", "layers": L,
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "checkpoint": written,
-            "init_s": init_s, "load": load, "graph_captures_after_start": captures,
+            "init_s": init_s, "load": load, "build": build, "graph_captures_after_start": captures,
             "tokens_equal_to_serve": True, **traffic["summary"], "text": text,
             "launches": counts, **graph_stats(eng),
             "level1": dict(level1, tokens_identical=True, state_addresses_unchanged=len(ptrs),
@@ -1449,11 +1486,20 @@ def mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def write_sibling(torch, src: str, dst: str) -> dict:
+def reverse_rows(t):
+    return t.flip(0)
+
+
+def roll_rows(t):
+    """lm_head's rows (the vocabulary) rolled by half their number."""
+    return t.roll(t.shape[0] // 2, 0)
+
+
+def write_sibling(torch, src: str, dst: str, permute=reverse_rows) -> dict:
     """A sibling checkpoint of ``src`` in ``dst``: every shard a link to
     ``src``'s but the one holding ``lm_head.weight``, which is written
-    anew with lm_head's rows (the vocabulary) in reverse order; the config
-    and index files copied."""
+    anew with lm_head's rows (the vocabulary) permuted by ``permute``
+    (reversed by default); the config and index files copied."""
     from llm_d_fast_model_actuation_tpu_torch.models import safetensors
 
     t0 = time.monotonic()
@@ -1470,7 +1516,7 @@ def write_sibling(torch, src: str, dst: str) -> dict:
 
     def tensor_of(name):
         t = shard.get(name)
-        return t.flip(0) if name == "lm_head.weight" else t
+        return permute(t) if name == "lm_head.weight" else t
 
     nbytes = safetensors.write_file(os.path.join(dst, target), entries, tensor_of, metadata={"format": "pt"})
     return {"rewritten_shard": target, "shard_bytes": nbytes, "tensors_in_shard": len(entries), "write_s": time.monotonic() - t0}
@@ -1479,8 +1525,9 @@ def write_sibling(torch, src: str, dst: str) -> dict:
 def fingerprint(torch, tensors) -> list:
     """Per tensor, three int64 sums of its bytes seen as int32 words (the
     words, the words mixed, and the words weighted by position mod 251),
-    computed on the card in slices: equal contents give equal sums, and a
-    moved, flipped or swapped word changes them."""
+    computed on the card in slices (a host tensor's slices are copied
+    there first): equal contents give equal sums, and a moved, flipped or
+    swapped word changes them."""
     out = []
     step = 1 << 26
     weights = (torch.arange(step, device="cuda", dtype=torch.int64) % 251) + 1
@@ -1488,7 +1535,7 @@ def fingerprint(torch, tensors) -> list:
         words = t.reshape(-1).view(torch.uint8).view(torch.int32)
         s = torch.zeros(3, dtype=torch.int64, device="cuda")
         for k in range(0, words.numel(), step):
-            w = words[k : k + step].to(torch.int64)
+            w = words[k : k + step].to("cuda").to(torch.int64)
             s[0] += w.sum()
             s[1] += (w ^ (w >> 7)).sum()
             s[2] += (w * weights[: w.numel()]).sum()
@@ -1501,6 +1548,39 @@ def engine_state(eng) -> list:
     return list(eng.model.parameters()) + eng.pool.tensors()
 
 
+#: the swap phase's card budget for pooled engines' graphs: one Llama-3-8B
+#: set (79,691,776 B, PERF.md) and tinyllama's fit, two Llama-3-8B sets do
+#: not, so the sequence releases one pooled engine's graphs once
+EXEC_POOL_MIB = 120
+#: what the card's free memory may lose while a prefetch stages beside
+#: serving traffic (the traffic's allocator cache was warmed just before)
+PREFETCH_FREE_SLACK_BYTES = 64 * MIB
+
+
+def progress(what: str, **figures) -> None:
+    """One line on stderr as a long phase goes (with the host's free
+    memory), so a run that is cut shows how far it came."""
+    print(json.dumps({"progress": what, "host_mem_available_bytes": mem_available(), **figures}), file=sys.stderr,
+          flush=True)
+
+
+def staged_leaf(tree: dict, flat: str):
+    node = tree
+    for part in flat.split("."):
+        node = node[part]
+    return node
+
+
+def prefetch_until_done(port: int, timeout: float = 300.0) -> dict:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        body = get(port, "/v1/prefetch")
+        if body["state"] != "running":
+            return body
+        time.sleep(0.1)
+    raise AssertionError("the prefetch did not end in time")
+
+
 def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
     """Hot-swap through ``POST /v1/swap`` on one service: ``hf:A`` (the
     serve_hf checkpoint) -> ``hf:A'`` (a sibling that differs in lm_head:
@@ -1508,33 +1588,45 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
     ``tinyllama-1.1b`` (cold, another architecture) -> A (pool hit, full
     transfer: a named config has no digests). Gates: each model's greedy
     tokens bit-equal to its own earlier ones; each pool hit's bytes equal
-    to ``plan_swap``'s prediction, made just before it; no engine
-    re-captures a graph or moves a state tensor; pooled engines map
-    nothing; the two pooled siblings hold less host memory than their
-    nominal sizes; a ``swap.h2d=fail:1`` drill rolls back (503, DEGRADED,
-    both models' tokens, the retry a pool hit, then OK). Then direct
-    ``swap_states`` calls between A and A' with the digests withheld (full
-    20.4 GB each way), overlapped and sequential, bit-equal to each other.
-    Returns the sibling's directory and the probe tokens the launcher
-    phase holds its swaps to, and the phase's kernel launches."""
+    to ``plan_swap``'s prediction, made just before it; no engine moves a
+    state tensor, and none captures a graph again but the one whose graphs
+    the exec pool released (``--exec-pool-mib`` EXEC_POOL_MIB holds one
+    Llama-3-8B set: pooling A beside A' releases A's), which captures its
+    four again at its swap-in, with its tokens; the pooled engines' graph
+    bytes under the budget; pooled engines map nothing; the two pooled
+    siblings hold less host memory than their nominal sizes; a
+    ``swap.h2d=fail:1`` drill rolls back (503, DEGRADED, both models'
+    tokens, the retry a pool hit, then OK). Then direct ``swap_states``
+    calls between A and A' with the digests withheld (full 20.4 GB each
+    way), overlapped and sequential, bit-equal to each other. Then the
+    prefetch: a third sibling A'' (lm_head's rows rolled) prefetched while
+    A serves the traffic, after a ``DELETE /v1/prefetch`` drill (aborted,
+    nothing pooled): the card's free memory does not fall while it
+    stages, the staged leaves equal A's with lm_head rolled, and the swap
+    to it is ``prefetched``, reads no checkpoint and builds weights equal
+    to the checkpoint. Returns the siblings' directories and the probe
+    tokens the launcher phase holds its swaps to, and the phase's kernel
+    launches."""
     from llm_d_fast_model_actuation_tpu_torch.engine import sleep as sleep_mod
     from llm_d_fast_model_actuation_tpu_torch.engine.chunk_store import leaf_digest
 
     t_phase = time.monotonic()
-    sibling = ckpt.rstrip("/") + "-sibling"
+    sibling, sibling2 = ckpt.rstrip("/") + "-sibling", ckpt.rstrip("/") + "-sibling2"
     written = write_sibling(torch, ckpt, sibling)
+    written2 = write_sibling(torch, ckpt, sibling2, roll_rows)
     avail = mem_available()
     pool_mib = int(min(48 * GIB, avail * 0.6)) >> 20
     if pool_mib << 20 < 32 * GIB:
         raise RuntimeError(f"MemAvailable {avail} bytes leaves no room for a 32 GiB pool of two 20.4 GB siblings")
-    model_a, model_b, other = f"hf:{ckpt}", f"hf:{sibling}", "tinyllama-1.1b"
+    model_a, model_b, other, model_c = f"hf:{ckpt}", f"hf:{sibling}", "tinyllama-1.1b", f"hf:{sibling2}"
     opts = (f"--model {model_a} --num-pages 2048 --seed 0 --max-batch 8 --device cuda --model-pool-mib {pool_mib} "
-            f"--content-hash on --swap-bucket-mib 256")
+            f"--content-hash on --swap-bucket-mib 256 --exec-pool-mib {EXEC_POOL_MIB}")
     service, server, init_s, _ = start_service(torch, opts)
     port = server.server_address[1]
     probe = {"prompt": bucketed["prompts"][0], "max_tokens": SWAP_PROBE_MAX_TOKENS, "ignore_eos": True}
-    engines = {}  # id -> (engine, graph captures, state addresses)
-    gold, steps = {}, []
+    budget = EXEC_POOL_MIB * MIB
+    engines = {}  # id -> [engine, graph captures it should have, state addresses]
+    gold, steps, recaptured = {}, [], []
 
     def tokens():
         return post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
@@ -1542,15 +1634,18 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
     def note_engine():
         eng = service.engine
         if id(eng) not in engines:
-            engines[id(eng)] = (eng, eng.graph_captures, state_ptrs(eng))
+            engines[id(eng)] = [eng, eng.graph_captures, state_ptrs(eng)]
 
     def check_engines(where: str):
         for eng, captures, ptrs in engines.values():
             if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
-                raise AssertionError(f"{where}: an engine re-captured a graph or moved a state tensor")
+                raise AssertionError(f"{where}: an engine captured {eng.graph_captures} graphs, want {captures}, "
+                                     f"or moved a state tensor")
         pooled = service.pooled_engines()
         if any(p["mapped_bytes"] for p in pooled):
             raise AssertionError(f"{where}: a pooled engine maps card memory: {pooled}")
+        if sum(p["graph_pool_bytes"] for p in pooled) > budget or service.exec_pool.bytes_used > budget:
+            raise AssertionError(f"{where}: pooled engines' graphs hold more than {budget} bytes: {pooled}")
         return pooled
 
     def first_tokens(model: str):
@@ -1566,7 +1661,7 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
             entry = service.model_pool.peek(model)
             rt = service._runtime
             plan = sleep_mod.plan_swap(rt.sleeper, entry.runtime.sleeper, bucket_bytes=256 * MIB,
-                                       out_digests=rt.digests, in_digests=entry.runtime.digests)
+                                       out_digests=service._digests(rt), in_digests=service._digests(entry.runtime))
         previous = service.model
         out = post(port, "/v1/swap", {"model": model, "request_id": f"swap-{len(steps)}"})
         if not out.get("swapped") or out["tier"] != tier or out["model"] != model:
@@ -1575,6 +1670,10 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
                                                                "deduped_leaves", "buckets_out", "buckets_in")):
             raise AssertionError(f"swap {previous} -> {model} moved other bytes than planned: {out} vs {plan}")
         note_engine()
+        if tier == "pool" and not out["graphs_kept"]:
+            # the exec pool released its graphs: captured again, all four
+            engines[id(service.engine)][1] += 4
+            recaptured.append({"model": model, "at_step": len(steps), "recapture_s": out["recapture_s"]})
         pooled = check_engines(f"after the swap to {model}")
         if model in gold:
             got = tokens()
@@ -1582,23 +1681,22 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
                 raise AssertionError(f"{model}'s tokens changed across its swaps: {got[:8]} vs {gold[model]['hit'][:8]}")
         else:
             first_tokens(model)
-        shares = [dict(p, graph_pool_bytes=pool_reserved_bytes(torch, e.runtime.engine.graphs.pool)
-                       if e.runtime.engine.graphs else None)
-                  for p, e in zip(pooled, service.model_pool.entries())]
         step = {"from": previous, "to": model, **{k: out.get(k) for k in (
             "tier", "swap_total_s", "transfer_s", "d2h_s", "h2d_s", "overlap_frac", "peak_bytes_in_flight", "pin_s",
-            "handover_s",
-            "build_s", "digest_s", "bytes_out", "bytes_in", "bytes_moved", "bytes_deduped", "deduped_leaves",
+            "handover_s", "build_s", "load_s", "read_s", "workers", "capture_s", "warmup", "graphs_kept",
+            "recapture_s", "bytes_out", "bytes_in", "bytes_moved", "bytes_deduped", "deduped_leaves",
             "buckets_out", "buckets_in")}, "planned_bytes_moved": plan and plan["bytes_moved"],
-            "pool_bytes_used": out["pool"]["bytes_used"], "pooled_engines": shares,
+            "pool_bytes_used": out["pool"]["bytes_used"], "pooled_engines": pooled,
+            "exec_pool": {k: out["exec_pool"][k] for k in ("entries", "bytes_used", "budget_bytes", "evictions")},
             "host_mem_available_bytes": mem_available(), "tokens_equal": model in gold and len(steps) > 0}
         steps.append(step)
+        progress(f"swap {previous} -> {model}", tier=out["tier"], swap_total_s=out["swap_total_s"])
         return out, step
 
     try:
         note_engine()
         first_tokens(model_a)
-        digest_s = service.load_stats.digest_s
+        build = build_figures(service)
         # each parameter's [copy to the host, sha256] seconds, on 8 threads
         digest_times = service.load_stats.digest_times
         # a digest streamed from the card equals the host copy's (the
@@ -1625,6 +1723,11 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
         dedup = {"pool_bytes_used": pool["bytes_used"], "siblings_nominal_bytes": siblings, "shared_weight_bytes": shared,
                  "dedup_saved_bytes": pool["chunks"]["dedup_saved_bytes"]}
         swap(model_a, "pool")
+        # the budget drill: pooling A beside A' released A's graphs, and A
+        # captured its four again when it came back, with its tokens
+        if [r["model"] for r in recaptured] != [model_a] or steps[-1]["graphs_kept"]:
+            raise AssertionError(f"the exec pool released and recaptured {recaptured}, want A's graphs once, at the swap "
+                                 f"back from {other}")
 
         # the rollback drill: swap.h2d fails once, over HTTP
         armed = post(port, "/v1/faults", {"spec": "swap.h2d=fail:1"})
@@ -1672,6 +1775,8 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
         if tokens() != gold[model_a]["hit"]:
             raise AssertionError("A's tokens changed across the full transfers")
         check_engines("after the full transfers")
+
+        prefetch = prefetch_drill(torch, service, port, model_a, model_c, swap)
         replayed: dict = {}
         for eng, _, _ in engines.values():
             for name, n in (eng.graphs.replayed_launches() if eng.graphs else {}).items():
@@ -1689,19 +1794,120 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
                 "bytes_out", "bytes_in", "bytes_moved", "buckets_out", "buckets_in")
         emit({
             "phase": "swap", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
-            "sibling": written, "model_pool_mib": pool_mib, "host_mem_available_at_start_bytes": avail,
-            "digest_s": digest_s, "digest_times": digest_times, "steps": steps, "sibling_delta_bytes_predicted": SIBLING_DELTA_BYTES,
-            "pooled_siblings": dedup, "rollback_drill": drill,
+            "sibling": written, "sibling2": written2, "model_pool_mib": pool_mib, "exec_pool_mib": EXEC_POOL_MIB,
+            "host_mem_available_at_start_bytes": avail, "build": build, "digest_times": digest_times, "steps": steps,
+            "sibling_delta_bytes_predicted": SIBLING_DELTA_BYTES, "pooled_siblings": dedup, "rollback_drill": drill,
+            "exec_pool_drill": {"recaptured": recaptured, "exec_pool": service.exec_pool.describe()},
             "full_transfer": {k: {f: m[f] for f in keys} for k, m in full.items()}, "full_transfer_bit_equal": True,
-            "engines": len(engines), "graph_captures_unchanged": True, "state_addresses_unchanged": True,
-            "launches": counts, "seconds": time.monotonic() - t_phase,
+            "prefetch": prefetch, "engines": len(engines), "graph_captures_as_expected": True,
+            "state_addresses_unchanged": True, "launches": counts, "seconds": time.monotonic() - t_phase,
         })
-        return {"counts": counts, "sibling": sibling, "gold": gold, "probe": probe, "pool_mib": pool_mib}
+        return {"counts": counts, "sibling": sibling, "sibling2": sibling2, "gold": gold, "probe": probe,
+                "pool_mib": pool_mib}
     finally:
         stop_service(torch, service, server)
         service._free_pooled(service.model_pool.drain())
 
 
+def prefetch_drill(torch, service, port: int, model_a: str, model_c: str, swap) -> dict:
+    """With A serving: a ``DELETE /v1/prefetch`` of A'' held at the
+    ``coldload.read`` fault point (aborted, nothing pooled); then A''
+    prefetched while A serves the traffic (TPOT against the same traffic
+    before it), the card's free memory sampled as it stages; the staged
+    leaves' fingerprints against A's weights with lm_head rolled, their
+    digests against A's; the swap to it ``prefetched``, with no checkpoint
+    read, its weights those fingerprints and its lm_head's digest, hashed
+    from the card, the staged one; then back to A (a pool hit)."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.chunk_store import leaf_digest
+    from llm_d_fast_model_actuation_tpu_torch.models.hf import _param
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import param_shapes
+
+    eng_a = service.engine
+    a_digests = service._digests(service._runtime)
+    vocab = eng_a.cfg.model.vocab_size
+    # the first run fills the prefix cache and the traffic's allocator
+    # cache, so the two measured runs take the same path (a prefix hit
+    # and a miss may round differently: ROADMAP queue 3 item 4)
+    run_traffic(torch, port, vocab, ignore_eos=True)
+    before = run_traffic(torch, port, vocab, ignore_eos=True)
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+
+    # the abort drill
+    post(port, "/v1/faults", {"spec": "coldload.read=delay:2"})
+    started = post(port, "/v1/prefetch", {"model": model_c})
+    time.sleep(0.5)
+    status, aborted = request(f"http://127.0.0.1:{port}/v1/prefetch", "DELETE")
+    request(f"http://127.0.0.1:{port}/v1/faults", "DELETE")
+    if (status != 200 or not started["started"] or not aborted.get("aborted") or aborted.get("state") != "aborted"
+            or get(port, "/v1/prefetch")["state"] != "aborted" or service.model_pool.contains_match(model_c)):
+        raise AssertionError(f"the prefetch abort drill: {started} then {status} {aborted}, pool {service.model_pool.models()}")
+
+    samples, host, stop = [], [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(torch.cuda.mem_get_info()[0])
+            host.append(mem_available())
+            time.sleep(0.05)
+
+    progress("prefetch abort drill done", answer=aborted)
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.monotonic()
+    try:
+        started = post(port, "/v1/prefetch", {"model": model_c})
+        during = run_traffic(torch, port, vocab, ignore_eos=True)
+        traffic_end_s = time.monotonic() - t0
+        done = prefetch_until_done(port)
+        prefetch_s = time.monotonic() - t0
+    finally:
+        stop.set()
+        sampler.join()
+    progress("prefetch staged", state=done["state"], prefetch_s=prefetch_s)
+    if done["state"] != "completed" or not started["started"]:
+        raise AssertionError(f"the prefetch of {model_c}: {started} then {done}")
+    if min(samples) < free_before - PREFETCH_FREE_SLACK_BYTES:
+        raise AssertionError(f"the card's free memory fell by {free_before - min(samples)} bytes while the prefetch staged")
+    if during["tokens"] != before["tokens"]:
+        raise AssertionError("A's tokens changed while the prefetch staged")
+    pw = service.model_pool.peek(model_c).runtime
+    flats = list(param_shapes(eng_a.cfg.model))
+    a_model = eng_a.model
+
+    def expected(flat):
+        t = _param(a_model, flat)
+        return t.roll(vocab // 2, 1) if flat == "lm_head" else t  # the checkpoint's rows are lm_head's columns
+
+    want = fingerprint(torch, [expected(f) for f in flats])
+    if fingerprint(torch, [staged_leaf(pw.params_host, f) for f in flats]) != want:
+        raise AssertionError("the staged leaves differ from the checkpoint's")
+    staged_digests = dict(pw.digests)
+    if {k: v for k, v in staged_digests.items() if k != "lm_head"} != {k: v for k, v in a_digests.items() if k != "lm_head"}:
+        raise AssertionError("the staged digests differ from a cold load's")
+
+    out, step = swap(model_c, "prefetched")
+    eng_c = service.engine
+    if not out["prefetched"] or service.loads != 0:
+        raise AssertionError(f"the prefetched swap read the checkpoint ({service.loads} loads): {out}")
+    if fingerprint(torch, [_param(eng_c.model, f) for f in flats]) != want:
+        raise AssertionError("the prefetched engine's weights differ from the checkpoint's")
+    if leaf_digest(eng_c.model.lm_head) != staged_digests["lm_head"] or service._digests(service._runtime) != staged_digests:
+        raise AssertionError("the prefetched engine's digests differ from its staged ones")
+    back, _ = swap(model_a, "pool")
+    return {
+        "tpot_before_s": before["summary"]["decode_tpot_s"], "tpot_during_s": during["summary"]["decode_tpot_s"],
+        "batch_tok_per_s_before": before["summary"]["batch_tok_per_s"],
+        "batch_tok_per_s_during": during["summary"]["batch_tok_per_s"],
+        "prefetch_s": prefetch_s, "traffic_during_s": traffic_end_s, "staged": {k: done.get(k) for k in (
+            "bytes", "read_s", "digest_s", "total_s", "shards", "workers")},
+        "free_before_bytes": free_before, "free_min_while_staging_bytes": min(samples), "free_samples": len(samples),
+        "host_mem_available_min_while_staging_bytes": min(host),
+        "abort": {"started": started["started"], "answer": aborted},
+        "swap": {k: out.get(k) for k in ("tier", "prefetched", "swap_total_s", "build_s", "load_s", "h2d_s", "capture_s",
+                                         "warmup", "pin_s", "bytes_in")},
+        "loads_after_swap": 0, "weights_equal_checkpoint": True, "back_to_a_tier": back["tier"],
+    }
 # -- phase graphs: the captured chunk against the eager one -----------------
 
 # -- launcher: the port's launcher forks, pins, supervises, time-shares ------
@@ -1722,6 +1928,9 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
 #    the 43 MB that one child's share left once the parts above were
 #    taken off (NVIDIA H100 80GB HBM3, 700 W).
 ASLEEP_RESERVED_LIMIT_BYTES = 224 * MIB
+#: the launcher's child stages its prefetch at this rate (--prefetch-mib-s),
+#: beside the swap phase's unthrottled one: 16 GB in about 15 s
+LAUNCHER_PREFETCH_MIB_S = 1024
 ASLEEP_MODULES_LIMIT_BYTES = 96 * MIB
 #: kernel nodes of the ladder's graph
 LADDER_NODES = 16384
@@ -1974,9 +2183,11 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         ladder = context_ladder(index)
         used_base = card_used_bytes(index)
         port_a = free_port()
-        # serve's options, with a pool that holds the model a swap parks
-        created, spawn_s = launcher.spawn("a", f"{SERVE_OPTS} --model-pool-mib {swapped['pool_mib']} --port {port_a}",
-                                          uuid, port_a)
+        # serve's options, with a pool that holds the model a swap parks,
+        # and a prefetch throttled to LAUNCHER_PREFETCH_MIB_S
+        created, spawn_s = launcher.spawn(
+            "a", f"{SERVE_OPTS} --model-pool-mib {swapped['pool_mib']} --prefetch-mib-s {LAUNCHER_PREFETCH_MIB_S} "
+                 f"--port {port_a}", uuid, port_a)
         if created["env_vars"]["CUDA_VISIBLE_DEVICES"] != str(index) or created["gpu_uuids"] != [uuid]:
             raise AssertionError(f"card {index} ({uuid}) pinned as {created['env_vars']}")
         apps2 = compute_apps()
@@ -2048,6 +2259,34 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         if post(port_a, "/v1/completions", probe)["choices"][0]["token_ids"] != before:
             raise AssertionError("instance a's tokens changed across its swaps")
 
+        # the prefetch verb: A'' staged on a's host, throttled, while a
+        # serves the traffic; the ledger's prefetched block names it
+        target = f"hf:{swapped['sibling2']}"
+        plain = run_traffic(torch, port_a, model.vocab_size)  # a's prefix cache holds it all: as the next run
+        t0 = time.monotonic()
+        status, body = request(f"{launcher.url}/v2/vllm/instances/a/prefetch", "POST", {"model": target})
+        if status != 200 or body["prefetch"].get("state") not in ("running", "completed"):
+            raise AssertionError(f"the launcher's prefetch verb answered {status} {body}")
+        hinted = request(f"{launcher.url}/v2/vllm/instances")[1]["ledger"]["prefetched"]
+        throttled = run_traffic(torch, port_a, model.vocab_size)
+        deadline = time.monotonic() + 300
+        while (done := request(f"{launcher.url}/v2/vllm/instances/a/prefetch")[1]["prefetch"])["state"] == "running":
+            if time.monotonic() > deadline:
+                raise AssertionError("the launcher's prefetch did not end in time")
+            time.sleep(0.2)
+        prefetch_s = time.monotonic() - t0
+        ledger = request(f"{launcher.url}/v2/vllm/instances")[1]["ledger"]
+        if done["state"] != "completed" or hinted != {"a": target} or ledger["prefetched"] != {"a": target}:
+            raise AssertionError(f"the launcher's prefetch: {done}, ledger {hinted} then {ledger['prefetched']}")
+        if throttled["tokens"] != plain["tokens"]:
+            raise AssertionError("instance a's tokens changed while it staged a prefetch")
+        prefetch_verb = {"model": "hf:<A''>", "state": done["state"], "prefetch_s": prefetch_s,
+                         "prefetch_mib_s": LAUNCHER_PREFETCH_MIB_S, "staged": {k: done.get(k) for k in (
+                             "bytes", "read_s", "digest_s", "total_s", "workers")},
+                         "tpot_before_s": plain["summary"]["decode_tpot_s"],
+                         "tpot_during_s": throttled["summary"]["decode_tpot_s"],
+                         "ledger_prefetched": {"a": "hf:<A''>"}, "pool_models": ledger["pools"].get("a", {}).get("models")}
+
         # supervision: SIGKILL a's child
         rev = request(f"{launcher.url}/v2/vllm/instances?detail=false")[1]["revision"]
         pid = launcher.instance("a")["pid"]
@@ -2095,7 +2334,7 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         "refused_while_awake": refused, "a_asleep_card_bytes": asleep_bytes,
         "asleep_limit_bytes": limit["limit_bytes"], "asleep_limit": limit, "asleep_split": split, "ladder": ladder, "b_spawn_to_healthy_s": spawn_b_s, "b_tokens": b_tokens[:8],
         "a_wake_s": woke["last_wake_seconds"], "a_tokens_identical_after_b": True,
-        "swap_verb": verbs, "swap_events": [e["type"] for e in swap_events],
+        "swap_verb": verbs, "swap_events": [e["type"] for e in swap_events], "prefetch_verb": prefetch_verb,
         "restart_events": [{k: e["object"].get(k) for k in ("revision", "pid", "exit_code", "restart_attempt")} | {"type": e["type"]}
                            for e in events],
         "restart_to_healthy_s": restart_s, "restarted_tokens_equal_serve": True,
@@ -2888,6 +3127,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build
 
+    t_run = time.monotonic()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
@@ -2909,10 +3149,10 @@ def main() -> int:
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
     from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig, param_shapes
 
-    # room for the checkpoint and, beside it, the swap phase's sibling: its
-    # one rewritten shard (at most HF_SHARD_BYTES; the others are links)
+    # room for the checkpoint and, beside it, the swap phase's two siblings:
+    # each one rewritten shard (at most HF_SHARD_BYTES; the others are links)
     ckpt = checkpoint_dir(2 * sum(math.prod(s) for s in param_shapes(LlamaConfig.llama3_8b()).values())
-                          + HF_SHARD_BYTES)
+                          + 2 * HF_SHARD_BYTES)
     try:
         bucketed = serve_and_sleep(torch, smi, ckpt)
         hf = serve_hf(torch, smi, ckpt, bucketed["checkpoint"], bucketed)
@@ -2920,7 +3160,8 @@ def main() -> int:
         launched = launcher_phase(torch, smi, bucketed, swapped)
     finally:
         shutil.rmtree(ckpt)
-        shutil.rmtree(ckpt.rstrip("/") + "-sibling", ignore_errors=True)
+        for suffix in ("-sibling", "-sibling2"):
+            shutil.rmtree(ckpt.rstrip("/") + suffix, ignore_errors=True)
     graphs_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
@@ -2960,6 +3201,7 @@ def main() -> int:
         raise AssertionError(f"kernels the serve runs never launched: {unused or 'ragged'}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"phase": "total", "seconds": time.monotonic() - t_run})
     # device_ms beside ms where the row has it: decode, ragged and the probe,
     # whose ms is its wrapper's
     emit({"kernels": [{**{k: row.get(k) for k in keys}, **({"device_ms": row["device_ms"]} if "device_ms" in row else {})}

@@ -5,8 +5,10 @@ qualification, ``qualify_digest``, waits with swap on meshes). Weight
 identity is content-addressed instead of model-addressed:
 
   * every parameter of a model loaded from a checkpoint gets a sha256
-    **digest**, computed once at load (``models/hf.py:load_params``), with
-    the reference's string for equal bits (:func:`leaf_digest`);
+    **digest**, computed once after its load, off the build's path
+    (:class:`DigestJob`, joined where the digests are read), or from the
+    host leaves of a prefetch, with the reference's string for equal bits
+    (:func:`leaf_digest`);
   * :class:`ChunkStore` holds host-resident weight chunks keyed by digest,
     **refcounted**, so two pooled fine-tunes of one base hold their common
     tensors in host memory once (``dedup_saved_bytes``);
@@ -88,8 +90,10 @@ def leaf_digest(t: torch.Tensor, times: Optional[List[float]] = None) -> str:
     dtype's name, the shape and the raw bytes, so the strings are equal
     for equal bits. A host tensor's memory is hashed where it lies; a
     tensor on the card streams through a pinned buffer,
-    ``DIGEST_CHUNK_BYTES`` at a time. ``times``, when given, gets the
-    seconds of the copies and of the hash appended."""
+    ``DIGEST_CHUNK_BYTES`` at a time, copied on a stream of its own and
+    waited for by that stream alone (so it may run while another thread
+    captures a CUDA graph). ``times``, when given, gets the seconds of the
+    copies and of the hash appended."""
     h = hashlib.sha256()
     h.update(NP_NAMES[t.dtype].encode())
     h.update(b"|")
@@ -104,34 +108,68 @@ def leaf_digest(t: torch.Tensor, times: Optional[List[float]] = None) -> str:
         flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
         buf = torch.empty(min(DIGEST_CHUNK_BYTES, flat.numel()), dtype=torch.uint8, pin_memory=True)
         view = memoryview(buf.numpy())
-        for off in range(0, flat.numel(), buf.numel()):
-            n = min(buf.numel(), flat.numel() - off)
-            t0 = time.perf_counter()
-            buf[:n].copy_(flat[off : off + n])  # waits for the copy
-            t1 = time.perf_counter()
-            h.update(view[:n])
-            copy_s += t1 - t0
-            hash_s += time.perf_counter() - t1
+        with torch.cuda.stream(torch.cuda.Stream(t.device)):
+            for off in range(0, flat.numel(), buf.numel()):
+                n = min(buf.numel(), flat.numel() - off)
+                t0 = time.perf_counter()
+                buf[:n].copy_(flat[off : off + n])  # waits for the copy
+                t1 = time.perf_counter()
+                h.update(view[:n])
+                copy_s += t1 - t0
+                hash_s += time.perf_counter() - t1
     if times is not None:
         times += [copy_s, hash_s]
     return h.hexdigest()
 
 
+class DigestJob:
+    """:func:`leaf_digest` of each tensor of ``named``, on a thread pool
+    of ``workers`` threads that starts at once: each worker streams its
+    tensor to the host and hashes it, so the leaves are hashed side by
+    side (sha256 of one leaf is serial; hashlib and the copies release the
+    GIL). :meth:`result` waits for them: a build starts the job and goes
+    on, and the digests are joined only where they are read. ``times``
+    gets each key's [copy seconds, hash seconds]; ``seconds`` the job's
+    wall time, once it is done."""
+
+    def __init__(self, named: Dict[str, torch.Tensor], workers: int = DIGEST_WORKERS) -> None:
+        items = list(named.items())
+        self.times: Dict[str, List[float]] = {k: [] for k, _ in items}
+        self.seconds = 0.0
+        self._t0 = time.perf_counter()
+        self._keys = [k for k, _ in items]
+        self._pool = ThreadPoolExecutor(max(1, min(workers, len(items))), thread_name_prefix="leaf-digest")
+        self._futures = [self._pool.submit(leaf_digest, t, self.times[k]) for k, t in items]
+        self._digests: Optional[Dict[str, str]] = None
+        self._mu = threading.Lock()
+
+    def done(self) -> bool:
+        """Whether every leaf is hashed (:meth:`result` would not wait)."""
+        return all(f.done() for f in self._futures)
+
+    def result(self) -> Dict[str, str]:
+        """Every key's digest (waits for the job; raises what a worker
+        raised). Any number of threads may wait on it."""
+        with self._mu:
+            if self._digests is None:
+                try:
+                    self._digests = dict(zip(self._keys, (f.result() for f in self._futures)))
+                finally:
+                    self._pool.shutdown(wait=True)
+                self.seconds = time.perf_counter() - self._t0
+            return self._digests
+
+
 def digest_leaves(
     named: Dict[str, torch.Tensor], workers: int = DIGEST_WORKERS, times: Optional[Dict[str, List[float]]] = None
 ) -> Dict[str, str]:
-    """:func:`leaf_digest` of each tensor of ``named``, on a thread pool:
-    each worker streams its tensor to the host and hashes it, so the
-    leaves are hashed side by side (sha256 of one leaf is serial; hashlib
-    and the copies release the GIL). ``times``, when given, gets each
-    key's [copy seconds, hash seconds]."""
-    items = list(named.items())
-    spent: Dict[str, List[float]] = {k: [] for k, _ in items}
-    n = max(1, min(workers, len(items)))
-    with ThreadPoolExecutor(n, thread_name_prefix="leaf-digest") as ex:
-        out = dict(zip((k for k, _ in items), ex.map(lambda kv: leaf_digest(kv[1], spent[kv[0]]), items)))
+    """:func:`leaf_digest` of each tensor of ``named``, side by side on a
+    :class:`DigestJob`, waited for. ``times``, when given, gets each key's
+    [copy seconds, hash seconds]."""
+    job = DigestJob(named, workers)
+    out = job.result()
     if times is not None:
-        times.update(spent)
+        times.update(job.times)
     return out
 
 

@@ -54,9 +54,13 @@ device, where the gathered logits are sampled.
 
 Not ported yet, and refused rather than ignored (they are not fields of
 the port's ``EngineConfig``): speculative decoding, pipelined decode,
-co-resident variants, parking and migration, multi-host lockstep and AOT
-executables. CUDA graphs for the prefill buckets and the packed step, and
-for the chunk on a mesh (a graph belongs to one device), are later work.
+co-resident variants, parking and migration and multi-host lockstep.
+CUDA graphs for the prefill buckets and the packed step, and for the
+chunk on a mesh (a graph belongs to one device), are later work.
+
+The build (:meth:`InferenceEngine._build`): every arena is mapped, the
+weights are written, then the chunk's graphs are captured and any
+``warmup_buckets`` prefill is run once (``engine/exec_pool.py:warm_up``).
 """
 
 from __future__ import annotations
@@ -296,7 +300,9 @@ class InferenceEngine:
     the weights into the engine's own model in place (``load(model)``,
     e.g. ``models/hf.py:load_params`` of a checkpoint directory), called
     once before the chunk's graphs are captured — nothing is drawn first
-    — and again by a level-2 wake (:meth:`reload_params`). ``device``: None means the card
+    — and again by a level-2 wake (:meth:`reload_params`).
+    ``warmup_buckets``: prefill buckets the build runs once after the
+    load (``--warmup-buckets``). ``device``: None means the card
     and raises without one; the CPU must be asked for. ``mesh``
     (``parallel/mesh.py:serving_mesh``) names the ranks' devices itself:
     rank 0's is the engine's ``device``."""
@@ -308,6 +314,7 @@ class InferenceEngine:
         seed: int = 0,
         device: "torch.device | str | None" = None,
         mesh=None,
+        warmup_buckets: Seq[int] = (),
     ) -> None:
         self.mesh = mesh
         if mesh is not None:
@@ -352,24 +359,6 @@ class InferenceEngine:
             llama.Llama(m, self.device, arena=self.arenas[self.device]) if mesh is None
             else llama.ShardedLlama(m, mesh, arenas=self.arenas)
         )
-        #: the loader the weights came from, when they came from one
-        self._load: Optional[Callable[[Any], Any]] = (
-            params if callable(params) and not isinstance(params, torch.nn.Module) else None
-        )
-        if params is None or self._load is not None:
-            self.reload_params()
-        else:
-            if isinstance(params, (llama.Llama, llama.ShardedLlama)):
-                if isinstance(params, llama.ShardedLlama) != (mesh is not None) or (
-                    mesh is not None and params.mesh.devices != mesh.devices
-                ):
-                    raise ValueError("the model's mesh differs from the engine's")
-                if params.device != self.device:
-                    raise ValueError(f"model is on {params.device}, engine on {self.device}")
-                if dataclasses.replace(params.cfg, attention_impl=impl) != m:
-                    raise ValueError("the model's config differs from the engine's")
-                params = params.state_dict()
-            self.model.load_state_dict(params, strict=True)
         self.pool = PagePool.create(
             m.num_layers, cfg.num_pages, cfg.page_size, m.num_kv_heads,
             m.head_dim, dtype=m.dtype, device=self.device, mesh=mesh, arenas=self.arenas,
@@ -446,7 +435,65 @@ class InferenceEngine:
             from .graphs import ChunkGraphs
 
             self.graphs = ChunkGraphs(self)
-            self.capture_s = self.graphs.capture()
+        #: the loader the weights came from, when they came from one
+        self._load: Optional[Callable[[Any], Any]] = (
+            params if callable(params) and not isinstance(params, torch.nn.Module) else None
+        )
+        if isinstance(params, (llama.Llama, llama.ShardedLlama)):
+            if isinstance(params, llama.ShardedLlama) != (mesh is not None) or (
+                mesh is not None and params.mesh.devices != mesh.devices
+            ):
+                raise ValueError("the model's mesh differs from the engine's")
+            if params.device != self.device:
+                raise ValueError(f"model is on {params.device}, engine on {self.device}")
+            if dataclasses.replace(params.cfg, attention_impl=impl) != m:
+                raise ValueError("the model's config differs from the engine's")
+            params = params.state_dict()
+        self._build(params, warmup_buckets)
+
+    def _build(self, params, warmup_buckets: Seq[int]) -> None:
+        """Write the weights, then warm up on this thread
+        (``engine/exec_pool.py:warm_up``: the chunk's graphs on one card,
+        then the prefill buckets)."""
+        from .exec_pool import warm_up
+
+        t0 = time.monotonic()
+        self._write_params(params)
+        load_s = time.monotonic() - t0
+        #: the warm-up's figures, and the seconds the weights took before it
+        self.warmup_stats = dict(warm_up(self, warmup_buckets), load_s=load_s)
+        self.capture_s = self.warmup_stats["capture_s"]
+
+    def _write_params(self, params) -> None:
+        if params is None or self._load is not None:
+            self.reload_params()
+        else:
+            self.model.load_state_dict(params, strict=True)
+
+    @torch.no_grad()
+    def warm_prefill(self, bucket: int) -> None:
+        """One bucketed prefill of ``bucket`` tokens whose page table is
+        all the null page: it loads what a prefill at that bucket runs,
+        writes only the null page, and its logits are thrown away (the
+        warm-up's, ``--warmup-buckets``)."""
+        llama.prefill(
+            self.model,
+            self._to_ranks(np.zeros((1, bucket), dtype=np.int32)),
+            self._to_ranks(np.array([bucket], dtype=np.int32)),
+            self.pool.as_tuple(),
+            self._to_ranks(np.zeros((1, self.cfg.pages_per_seq), dtype=np.int32)),
+        )
+
+    def recapture(self) -> float:
+        """Capture the chunk's graphs again after they were released (a
+        pooled engine over the exec pool's budget, serving again): the
+        scheduler state uploaded first, every slot inactive, so the
+        warm-ups write only the null page. Returns the seconds."""
+        if self.graphs is None or self.graphs.captured:
+            return 0.0
+        self._upload_sched()
+        self.capture_s = self.graphs.capture()
+        return self.capture_s
 
     def reload_params(self) -> None:
         """Write the model's parameters into its live tensors, in place (at

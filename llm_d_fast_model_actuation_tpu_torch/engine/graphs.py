@@ -35,15 +35,27 @@ its kernel nodes, counted by kernel name through the CUDA driver
 
 Everything a graph reads or writes is the engine's static state in its
 arenas (``engine/arena.py``): a sleep releases it, a wake maps it back at
-the same addresses, and the graphs replay unchanged. A capture that fails
-raises; nothing falls back to the eager chunk. On a tensor-parallel mesh
-the chunk stays eager: a graph belongs to one device, and ranks on two
-cards have never run.
+the same addresses, and the graphs replay unchanged. A new engine
+captures them once its weights are written
+(``engine/exec_pool.py:warm_up``), while other threads of the process
+may still work on the card: the digest job hashing the weights just
+loaded (``engine/chunk_store.py:DigestJob``), a prefetch staging the next
+model. So each capture is ``thread_local`` (what another thread does
+meanwhile, such as pinned allocations and waits on its own events,
+neither breaks nor joins it), on a stream no other thread is handed
+(:func:`capture_stream`).
+
+A pooled engine's graphs may be released (:meth:`ChunkGraphs.release`,
+the exec pool's budget) and are captured again when the engine serves
+again. A capture that fails raises; nothing falls back to the eager
+chunk. On a tensor-parallel mesh the chunk stays eager: a graph belongs
+to one device, and ranks on two cards have never run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 import weakref
 from dataclasses import dataclass
@@ -129,6 +141,25 @@ def kernel_nodes(raw_graph: int) -> Dict[str, int]:
     return counts
 
 
+#: the stream each device's captures run on (:func:`capture_stream`)
+_capture_streams: Dict[torch.device, Any] = {}
+
+
+def capture_stream(device: torch.device):
+    """The stream every capture on ``device`` runs on: one of PyTorch's
+    high-priority streams, drawn once and kept. ``torch.cuda.Stream()``
+    hands out the pool's low-priority streams round robin (the digest
+    job's threads and the loader each draw one), and a capture on a stream
+    another thread also enqueues on would take in that thread's copies and
+    waits, and fail; nothing else in the port draws a high-priority
+    stream."""
+    device = torch.device(device)
+    stream = _capture_streams.get(device)
+    if stream is None:
+        stream = _capture_streams[device] = torch.cuda.Stream(device, priority=-1)
+    return stream
+
+
 def graphs_alive() -> bool:
     """Whether any engine of this process holds captured graphs."""
     return len(_holders) > 0
@@ -147,14 +178,42 @@ def release_cached_memory(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+#: glibc's ``mallopt`` parameter M_TOP_PAD, and the pad the port sets
+_M_TOP_PAD = -2
+MALLOC_TOP_PAD_BYTES = 64 << 20
+_malloc_padded = False
+
+
+def pad_malloc_heaps() -> None:
+    """Have the C library grow, and keep, each thread's malloc heap
+    ``MALLOC_TOP_PAD_BYTES`` at a time (glibc's ``mallopt(M_TOP_PAD)``;
+    once per process, and nothing where the C library has no
+    ``mallopt``). A capture makes the CUDA driver allocate and free many
+    small objects on the capturing thread. With glibc's default pad, a
+    thread other than the main one (the service's engine thread, which
+    runs a swap's build and a re-capture) grows and shrinks its own heap
+    in small steps, and its first captures took 5-6 s against 1.2-1.7 s
+    on the main thread, on an H100's host (``capture_overlap.py``)."""
+    global _malloc_padded
+    if _malloc_padded:
+        return
+    _malloc_padded = True
+    mallopt = getattr(ctypes.CDLL(None), "mallopt", None)
+    if mallopt is not None:
+        mallopt(_M_TOP_PAD, MALLOC_TOP_PAD_BYTES)
+
+
 class ChunkGraphs:
     """The captured chunk programs of one engine on one CUDA device."""
 
     def __init__(self, engine) -> None:
+        pad_malloc_heaps()
         self.engine = engine
         self.programs: Dict[Tuple[int, bool], Program] = {}
         #: the memory pool the captures share (``torch.cuda.graph_pool_handle``)
         self.pool = None
+        #: kernel nodes times replays of graphs released since
+        self.released_launches: Dict[str, int] = {}
 
     def keys(self) -> List[Tuple[int, bool]]:
         lengths = sorted({self.engine.cfg.decode_chunk, 1}, reverse=True)
@@ -162,31 +221,69 @@ class ChunkGraphs:
 
     def capture(self) -> float:
         """Capture every key's graph; returns the seconds it took, warm-up
-        runs included. Only an engine with no request admitted captures."""
-        eng = self.engine
-        if eng.has_work():
+        runs included. Only an engine with no request admitted captures.
+        The card's cached blocks are given back before the first capture,
+        so the workspaces the engine goes on using get segments of their
+        own (module docstring), and again after the last. A capture that
+        fails leaves none captured."""
+        if self.engine.has_work():
             raise RuntimeError("chunk graphs are captured before the engine serves")
         t0 = time.monotonic()
-        release_cached_memory(eng.device)
-        for key in self.keys():
-            self.programs[key] = self._capture(*key)
-        _holders.add(self)
-        release_cached_memory(eng.device)  # keeps the workspaces: the graphs hold them now
+        release_cached_memory(self.engine.device)
+        try:
+            for key in self.keys():
+                self.programs[key] = self._capture(*key)
+        except BaseException:
+            self.release()
+            raise
+        finally:
+            if self.programs:
+                _holders.add(self)
+            release_cached_memory(self.engine.device)  # keeps the workspaces: the graphs hold them now
         return time.monotonic() - t0
 
     def _capture(self, T: int, sampled: bool) -> Program:
         eng = self.engine
-        eng.chunk_eager(T, sampled)  # the warm-up
-        # the graph kept after instantiation, so its nodes can be read
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.device(eng.device), torch.no_grad():
+            eng.chunk_eager(T, sampled)  # the warm-up
+            # the graph kept after instantiation, so its nodes can be read
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool, stream=capture_stream(eng.device),
+                                  capture_error_mode="thread_local"):
                 outputs = eng.chunk_body(T, sampled)
             graph.instantiate()
         eng.graph_captures += 1
         return Program(graph, T, kernel_nodes(graph.raw_cuda_graph()), outputs)
+
+    @property
+    def captured(self) -> bool:
+        return bool(self.programs)
+
+    def pool_bytes(self) -> int:
+        """Card bytes of the caching allocator's segments in the graphs'
+        memory pool (0 with nothing captured)."""
+        if self.pool is None or not self.programs:
+            return 0
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == tuple(self.pool))
+
+    def release(self) -> None:
+        """Drop the captured graphs, their outputs and their memory pool
+        (a pooled engine over the exec pool's budget); the kernel nodes
+        their replays ran stay counted. :meth:`capture` makes them again."""
+        if not self.programs:
+            return
+        for p in self.programs.values():
+            for name, n in p.kernels.items():
+                self.released_launches[name] = self.released_launches.get(name, 0) + n * p.replays
+        self.programs.clear()
+        self.pool = None
+        _holders.discard(self)
+        gc.collect()
+        if self.engine.device.type == "cuda":
+            release_cached_memory(self.engine.device)
 
     def replay(self, T: int, sampled: bool) -> tuple:
         """Replay the chunk of ``T`` steps; returns its static outputs. It
@@ -205,7 +302,7 @@ class ChunkGraphs:
     def replayed_launches(self) -> Dict[str, int]:
         """The kernel launches the replays ran, by kernel name: each
         program's kernel nodes times its replays."""
-        out: Dict[str, int] = {}
+        out: Dict[str, int] = dict(self.released_launches)
         for p in self.programs.values():
             for name, n in p.kernels.items():
                 out[name] = out.get(name, 0) + n * p.replays

@@ -22,8 +22,8 @@ Two tiers, content-addressed:
     a miss.
 
 The pool stores opaque runtime entries (the server's model-runtime
-bundle); the caller frees an evicted entry (the server destroys its
-engine). LRU order is by swap-out recency. An internal mutex makes every
+bundle, or a prefetch's :class:`PrefetchedWeights`); the caller frees an
+evicted entry (the server destroys its engine). LRU order is by swap-out recency. An internal mutex makes every
 operation safe to call from any thread.
 """
 
@@ -43,6 +43,24 @@ from .chunk_store import ChunkStore, aligned_digests, flatten_state, map_leaves,
 
 #: ceiling on remembered manifests of evicted entries
 MAX_MANIFESTS = 64
+
+
+@dataclass
+class PrefetchedWeights:
+    """A pool entry staged by a prefetch (``POST /v1/prefetch``), the
+    reference's ``_PrefetchedWeights``: a model's weights as a host tree in
+    the port's layout and dtype (pinned on the card's host), with their
+    digests and ``nbytes``, and no engine, no device state and no graphs.
+    A swap to it reads no checkpoint: it builds the engine from the tree.
+    Its digested leaves are interned like a slept runtime's, so a
+    prefetched sibling of a pooled model holds only the leaves that
+    differ; evicting it drops references."""
+
+    model_id: str
+    params_host: Optional[Dict[str, Any]]
+    nbytes: int
+    #: flat weight key -> content digest
+    digests: Optional[Dict[str, str]] = None
 
 
 @dataclass
@@ -174,6 +192,13 @@ class HostModelPool:
         # no spill: the model is about to go live
         self._release_refs(entry, spill=False)
         return entry
+
+    def contains_match(self, model_id: str) -> bool:
+        """Whether anything is pooled under this model name, with or
+        without a checkpoint qualifier (a prefetch skips a model already
+        pooled); counts no hit or miss."""
+        with self._mu:
+            return any(key == model_id or key.startswith(model_id + "@") for key in self._entries)
 
     def take_match(self, model_id: str) -> Optional[PoolEntry]:
         """Remove and return the most recently parked entry pooled under

@@ -3,10 +3,11 @@
 Port of ``llm_d_fast_model_actuation_tpu/engine/server.py``: one engine
 thread fed by a submit queue, and the routes
 
-  GET  /health, /is_sleeping, /v1/models, /v1/stats, /v1/swap, /v1/faults
+  GET  /health, /is_sleeping, /v1/models, /v1/stats, /v1/swap, /v1/faults,
+       /v1/prefetch
   POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions,
-       /v1/swap, /v1/faults
-  DELETE /v1/faults
+       /v1/swap, /v1/faults, /v1/prefetch
+  DELETE /v1/faults, /v1/prefetch
 
 and one of the port's own, ``GET /v1/device``: the card the engine runs
 on as the CUDA runtime names it, the kernel launches of this process and
@@ -36,7 +37,7 @@ tokens, ``echo`` without logprobs, ``n``, ``seed``, ``ignore_eos``,
 ``logit_bias`` and ``stop_token_ids``; their JSON and SSE shapes are the
 reference's. Not ported yet, and answered with a 400 that says so:
 ``echo`` with ``logprobs`` (prompt logprobs), and the other routes of the
-reference (metrics, prefetch, ...). Not ported yet and absent from the
+reference (``UNPORTED_ROUTES``: metrics, costs, parked, profile, ...). Not ported yet and absent from the
 options: the reference's other engine flags (``--pipeline-decode``,
 ``--speculative-ngram``, ``--quantization``, ``--sleep-quant``,
 ``--resident-variants``, multi-host gangs, ...), also where the reference
@@ -56,7 +57,24 @@ swap); ``GET /v1/swap`` is the last committed swap, and a repeated
 ``request_id`` replays it. The fault points of ``utils/faults.py`` are armed
 by ``--faults``, ``FMA_FAULTS`` or ``/v1/faults``. Not ported: a swap on a
 tensor-parallel mesh and an Orbax ``checkpoint_dir`` (400s that say so),
-transfer quantization, zero-drain parking and prefetch.
+transfer quantization and zero-drain parking.
+
+**Cold load, prefetch and warm-up.** A checkpoint is read by
+``--load-workers`` readers over its shards (``models/hf.py``), and a
+build's chunk graphs are captured once its weights are written
+(``engine/exec_pool.py:warm_up``, with ``--warmup-buckets`` prefill
+buckets run once); its digests are hashed after the load beside the
+captures and serving, off the build's path, and joined only where they
+are read (pooling, a swap's delta plan, a sleep; ``/v1/stats`` reports
+them once they are done). ``POST /v1/prefetch {"model": "hf:<dir>"}``
+stages a checkpoint on the host (pinned, throttled by
+``--prefetch-mib-s``, abortable by ``DELETE /v1/prefetch``, its state at
+``GET /v1/prefetch``) into the model pool without touching the card, and
+the first swap to it is tier ``prefetched``: no checkpoint read, the
+staged weights copied to the card and the graphs captured after them. Pooled engines keep their graphs
+within ``--exec-pool-mib`` of the card (``ExecutablePool``); over it the
+least recently pooled engine's graphs are released and captured again
+when it serves again.
 
 Run: ``python -m llm_d_fast_model_actuation_tpu_torch.engine.server
 --model llama3-8b`` or ``--model hf:/path/to/model`` (on the card;
@@ -94,11 +112,12 @@ from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
 from ..utils import faults
 from . import tokenizer as tokenizer_mod
-from .chunk_store import ChunkStore, default_disk_dir, flatten_state
+from .chunk_store import ChunkStore, DigestJob, default_disk_dir, flatten_state
 from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
+from .exec_pool import ExecutablePool, exec_key, parse_warmup_buckets
 from .graphs import release_cached_memory
 from .kv_cache import PageAllocator
-from .model_pool import HostModelPool
+from .model_pool import HostModelPool, PrefetchedWeights
 from .sleep import SleepManager, SwapRolledBack, attach_sleep, fresh_state, swap_states
 
 MODEL_CONFIGS = {
@@ -142,11 +161,17 @@ MODEL_CONFIGS = {
     ),
 }
 
-#: routes of the reference server this port does not serve yet
+#: routes of the reference server this port does not serve yet, matched
+#: with everything under them (``/v1/parked/claims/{id}``, ...)
 UNPORTED_ROUTES = (
-    "/metrics", "/v1/prefetch", "/v1/costs", "/v1/actuations",
-    "/v1/parked", "/v1/residents", "/v1/traces",
+    "/metrics", "/v1/costs", "/v1/actuations", "/v1/parked", "/v1/residents",
+    "/v1/traces", "/v1/profile",
 )
+
+
+def unported_route(path: str) -> bool:
+    """Whether ``path`` is one of :data:`UNPORTED_ROUTES` or under one."""
+    return any(path == r or path.startswith(r + "/") for r in UNPORTED_ROUTES)
 
 
 def make_arg_parser() -> argparse.ArgumentParser:
@@ -229,6 +254,34 @@ def make_arg_parser() -> argparse.ArgumentParser:
         "tensors, so never less than one)",
     )
     p.add_argument(
+        "--exec-pool-mib", type=int, default=256,
+        help="card byte budget (MiB) for pooled engines' captured chunk graphs "
+        "(engine/exec_pool.py): over it the least recently pooled engine's "
+        "graphs are released, and captured again when it serves again; 0 "
+        "releases every pooled engine's graphs",
+    )
+    p.add_argument(
+        "--warmup-buckets", default="",
+        help="comma-separated prefill token buckets a build runs once while "
+        "its weights arrive, beside its graph captures (rounded up to the "
+        "engine's power-of-two buckets). Empty runs none",
+    )
+    p.add_argument(
+        "--load-workers", type=int, default=0,
+        help="parallel shard readers for a checkpoint's load and a prefetch "
+        "(0 = auto: min(8, cpu count))",
+    )
+    p.add_argument(
+        "--load-inflight-mib", type=int, default=512,
+        help="pinned staging bytes (MiB) of a checkpoint's load, all readers' "
+        "double buffers together",
+    )
+    p.add_argument(
+        "--prefetch-mib-s", type=int, default=0,
+        help="read rate (MiB/s) of a prefetch (POST /v1/prefetch), so staging "
+        "the next model does not starve the serving one; 0 = unthrottled",
+    )
+    p.add_argument(
         "--faults", default="",
         help="arm fault-injection points at startup (utils/faults.py), e.g. "
         "'swap.h2d=fail:1'; also the FMA_FAULTS env and POST /v1/faults",
@@ -264,6 +317,15 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError("--token-budget must be >= 0, or 0 for auto")
     if args.swap_bucket_mib < 1:
         raise ValueError("--swap-bucket-mib must be >= 1")
+    if args.exec_pool_mib < 0:
+        raise ValueError("--exec-pool-mib must be >= 0")
+    parse_warmup_buckets(args.warmup_buckets)
+    if args.load_workers < 0:
+        raise ValueError("--load-workers must be >= 0 (0 = auto)")
+    if args.load_inflight_mib < 1:
+        raise ValueError("--load-inflight-mib must be >= 1")
+    if args.prefetch_mib_s < 0:
+        raise ValueError("--prefetch-mib-s must be >= 0 (0 = unthrottled)")
     if args.faults:
         try:
             faults.parse_spec(args.faults)
@@ -365,8 +427,12 @@ class _ModelRuntime:
     engine: Any = None
     sleeper: Any = None
     #: flat weight key -> content digest, computed once at load (None for
-    #: a named config's random weights, and with --content-hash off)
+    #: a named config's random weights, and with --content-hash off);
+    #: read through :meth:`EngineService._digests`, which joins the job
     digests: Optional[Dict[str, str]] = None
+    #: the load's digests while they are still being hashed, off the
+    #: build's path (``chunk_store.DigestJob``)
+    digest_job: Any = None
     #: the most recent load of the checkpoint (at the build, then at each
     #: level-2 wake), and how many there were; None for a named config
     load_stats: Optional[hf_models.LoadStats] = None
@@ -393,6 +459,16 @@ class EngineService:
         #: the delta swap (off on a mesh, where swap is not ported)
         self._content_hash = args.content_hash == "on" and args.tensor_parallel_size == 1
         self._swap_bucket_bytes = args.swap_bucket_mib << 20
+        self._warmup_buckets = parse_warmup_buckets(args.warmup_buckets)
+        #: pinned host memory is in use (a prefetch stages into it)
+        self._pin_host = torch.cuda.is_available()
+        #: pooled engines' captured graphs, under a card budget
+        self.exec_pool = ExecutablePool(budget_bytes=max(0, args.exec_pool_mib) << 20)
+        #: the background prefetch (POST /v1/prefetch): one at a time
+        self._prefetch_mu = threading.Lock()
+        self._prefetch_thread: Optional[threading.Thread] = None
+        self._prefetch_abort = threading.Event()
+        self.last_prefetch: Dict[str, Any] = {"state": "idle"}
         self.model_pool = HostModelPool(
             budget_bytes=max(0, args.model_pool_mib) << 20,
             chunks=ChunkStore(
@@ -412,6 +488,8 @@ class EngineService:
         self._last_build_stats: Dict[str, Any] = {}
         #: each model's resolve_model answer, from its last build
         self._resolved: Dict[str, tuple] = {}
+        #: guards a runtime's digests while their job is joined
+        self._digest_mu = threading.Lock()
         self._runtime = self._build_runtime(args.model)
         self.failure: Optional[str] = None
         self.started_at = time.monotonic()
@@ -466,14 +544,19 @@ class EngineService:
 
         def load(model) -> None:
             # the directory into the model's tensors in place; the digests
-            # once, at the first load
-            rt.load_stats = hf_models.load_params(hf_dir, model, want_digests=content_hash and rt.loads == 0)
+            # once, at the first load, hashed from the card beside what
+            # follows (the captures, serving) and joined where read
+            rt.load_stats = hf_models.load_params(
+                hf_dir, model, workers=args.load_workers or None, max_inflight_bytes=args.load_inflight_mib << 20
+            )
             if rt.loads == 0 and content_hash:
-                rt.digests = dict(rt.load_stats.digests) or None
+                rt.digest_job = DigestJob(hf_models.model_leaves(model))
             rt.loads += 1
 
+        staged_stats = hf_models.LoadStats()
+
         def load_staged(model) -> None:
-            hf_models.place_staged_params(staged_params, model)
+            hf_models.place_staged_params(staged_params, model, stats=staged_stats)
 
         mesh = mesh_from_options(args)
         t0 = time.monotonic()
@@ -481,22 +564,48 @@ class EngineService:
         rt.engine = InferenceEngine(
             cfg, params=params, seed=args.seed,
             device=args.device if mesh is None else None, mesh=mesh,
+            warmup_buckets=self._warmup_buckets,
         )
         if staged_params is not None:
-            # the tiers served this build; a level-2 wake reads the directory
+            # the tiers or a prefetch served this build; a level-2 wake
+            # reads the directory
             rt.engine._load = load if hf_dir else None
             rt.digests = dict(staged_digests) if content_hash and staged_digests else None
         rt.sleeper = attach_sleep(rt.engine, bucket_bytes=self._swap_bucket_bytes)
         state_bytes = sum(t.numel() * t.element_size() for t in rt.engine.model.parameters())
         state_bytes += rt.engine.pool.nbytes()
+        if rt.engine.graphs is not None:
+            self.exec_pool.note_compile(rt.engine.capture_s)
+        load = rt.load_stats if staged_params is None else staged_stats
+        warm = rt.engine.warmup_stats
         self._last_build_stats = {
-            "h2d_s": rt.load_stats.h2d_s if rt.load_stats is not None else time.monotonic() - t0,
+            "h2d_s": load.h2d_s if hf_dir or staged_params is not None else warm["load_s"],
             "bytes_in": state_bytes,
-            "digest_s": rt.load_stats.digest_s if rt.load_stats is not None else 0.0,
             "build_s": time.monotonic() - t0,
+            "load_s": warm["load_s"],
+            "read_s": load.read_s if load is not None else 0.0,
+            "workers": load.workers if load is not None else 0,
+            "capture_s": rt.engine.capture_s,
+            "warmup": {k: warm[k] for k in ("programs", "compiled", "compile_s", "capture_s")},
         }
         self.builds_total += 1
         return rt
+
+    def _digests(self, rt: _ModelRuntime) -> Optional[Dict[str, str]]:
+        """A runtime's weight digests, joining their job if it still runs
+        (a sleep or a swap must not unmap what it reads). The job stays on
+        the runtime until it is joined, so every caller waits on it."""
+        job = rt.digest_job
+        if job is not None:
+            digests = job.result()
+            with self._digest_mu:
+                if rt.digest_job is job:
+                    rt.digests = dict(digests) or None
+                    if rt.load_stats is not None:
+                        rt.load_stats.digests = dict(digests)
+                        rt.load_stats.digest_s, rt.load_stats.digest_times = job.seconds, job.times
+                    rt.digest_job = None
+        return rt.digests
 
     # the serving runtime's parts (``_runtime`` is set at start and by a
     # committed swap)
@@ -668,6 +777,7 @@ class EngineService:
             raise ValueError("sleep level must be 1 or 2")
 
         def go():
+            self._digests(self._runtime)  # the digest job reads the card
             before = (self.sleeper.is_sleeping, self.sleeper.level)
             out = self.sleeper.sleep(level)
             if not before[0] or self.sleeper.level != before[1]:
@@ -738,16 +848,22 @@ class EngineService:
 
     def _swap_impl(self, model: str, request_id: str = "") -> Dict[str, Any]:
         """The reference's ``_swap_impl`` (``tier``: ``pool`` for a slept
-        runtime from the pool, ``host`` or ``disk`` for weights rebuilt
-        from the chunk tiers, ``cold`` for a build from the source):
+        runtime from the pool, ``prefetched`` for a prefetch's staged host
+        weights, ``host`` or ``disk`` for weights rebuilt from the chunk
+        tiers, ``cold`` for a build from the source):
 
           * a pool hit swaps the two states with :func:`swap_states`
             (overlapped; by digest only the delta moves); a failed
             transfer rolls back, re-pools the entry and raises
             :class:`SwapRolledBack` with the service DEGRADED, and a failed
-            rollback fails the service;
-          * a miss sleeps the outgoing model and builds the incoming one; a
-            failed build wakes the outgoing model again (DEGRADED);
+            rollback fails the service. An engine whose graphs the exec
+            pool released captures them again once its state is back; a
+            re-capture that fails swaps the two back, as a rollback;
+          * a miss, or prefetched weights, sleeps the outgoing model and
+            builds the incoming one, its graphs captured once its weights
+            are written; a failed build wakes the outgoing model again
+            (DEGRADED), and weights staged on the host (a prefetch's, or
+            rebuilt from the tiers) go back to the pool as prefetched;
           * the outgoing runtime is pooled, and what the pool evicts is
             destroyed (engine, graphs, arena range).
 
@@ -764,17 +880,22 @@ class EngineService:
         t0 = time.monotonic()
         self._abort_for_swap(previous, model)
         outgoing = self._runtime
+        out_digests = self._digests(outgoing)
         entry = self.model_pool.take_match(model)
         pool_hit = entry is not None
-        tier = "pool" if pool_hit else "cold"
-        if pool_hit:
+        prefetched = pool_hit and isinstance(entry.runtime, PrefetchedWeights)
+        tier = "pool" if pool_hit and not prefetched else "cold"
+        warm_stats = None
+        if pool_hit and not prefetched:
             rt = entry.runtime
+            # an engine without graphs (the CPU, a mesh) has none to keep
+            kept = rt.engine.graphs is None or self.exec_pool.take(self._exec_key(entry.model_id, rt)) is not None
             digests = self._content_hash
             try:
                 metrics = swap_states(
                     outgoing.sleeper, rt.sleeper, bucket_bytes=self._swap_bucket_bytes,
-                    out_digests=outgoing.digests if digests else None,
-                    in_digests=rt.digests if digests else None,
+                    out_digests=out_digests if digests else None,
+                    in_digests=self._digests(rt) if digests else None,
                 )
                 metrics["d2h_transfer_s"], metrics["h2d_transfer_s"] = metrics["d2h_s"], metrics["h2d_s"]
                 metrics["transfer_s"] = metrics["swap_total_s"]  # swap_states' own wall; the verb's below
@@ -791,15 +912,45 @@ class EngineService:
                 self.failure = f"hot-swap {previous}->{model} failed mid-transfer: {type(e).__name__}: {e}"
                 self._fail_all(RuntimeError(self.failure))
                 raise
+            # graphs the exec pool released are captured again, now that
+            # the engine's state is mapped and back
+            metrics["graphs_kept"] = kept
+            try:
+                metrics["recapture_s"] = rt.engine.recapture() if not kept else 0.0
+            except Exception as capture_exc:
+                # the incoming model cannot serve: the outgoing one goes
+                # back, as a failed transfer rolls back
+                try:
+                    swap_states(
+                        rt.sleeper, outgoing.sleeper, bucket_bytes=self._swap_bucket_bytes,
+                        out_digests=self._digests(rt) if digests else None,
+                        in_digests=out_digests if digests else None,
+                    )
+                except Exception as e:
+                    self.failure = (
+                        f"hot-swap {previous}->{model}: the re-capture failed ({type(capture_exc).__name__}: "
+                        f"{capture_exc}) and swapping back failed ({type(e).__name__}: {e})"
+                    )
+                    self._fail_all(RuntimeError(self.failure))
+                    raise RuntimeError(self.failure) from capture_exc
+                self._free_pooled(self._pool_park(entry.model_id, rt, entry.nbytes))
+                self.degraded = (f"hot-swap {previous}->{model} rolled back: its graphs' re-capture failed: "
+                                 f"{type(capture_exc).__name__}: {capture_exc}")
+                raise SwapRolledBack(self.degraded) from capture_exc
+            if metrics["recapture_s"]:
+                self.exec_pool.note_compile(metrics["recapture_s"])
         else:
-            tier_params = tier_digests = None
-            if self._content_hash:
+            staged = staged_digests = None
+            if prefetched:
+                tier = "prefetched"
+                staged, staged_digests = entry.runtime.params_host, entry.runtime.digests
+            elif self._content_hash:
                 got = self.model_pool.take_staged_match(model)
                 if got is not None:
-                    tier_params, tier_digests, _key, tier = got
+                    staged, staged_digests, _key, tier = got
             self.sleeper.sleep(1)
             try:
-                rt = self._build_runtime(model, staged_params=tier_params, staged_digests=tier_digests)
+                rt = self._build_runtime(model, staged_params=staged, staged_digests=staged_digests)
             except Exception as build_exc:
                 # a failed build must not leave the card serving nothing
                 try:
@@ -811,14 +962,21 @@ class EngineService:
                     )
                     self._fail_all(RuntimeError(self.failure))
                     raise RuntimeError(self.failure) from build_exc
-                if tier_params is not None:
-                    # the tiers still hold the weights: keep them reachable
-                    self.model_pool.remember_manifest(
-                        model, tier_digests, sum(t.numel() * t.element_size() for t in flatten_state(tier_params))
-                    )
+                if prefetched:
+                    # the staged host weights are untouched by a failed build
+                    self._free_pooled(self._pool_park(entry.model_id, entry.runtime, entry.nbytes))
+                elif staged is not None:
+                    # weights rebuilt from the tiers are untouched too: they
+                    # go back as prefetched host weights, so the retry
+                    # reads no checkpoint
+                    nb = sum(t.numel() * t.element_size() for t in flatten_state(staged))
+                    pw = PrefetchedWeights(model_id=model, params_host=staged, nbytes=nb,
+                                           digests=staged_digests)
+                    self._free_pooled(self._pool_park(model, pw, nb))
                 self.degraded = f"hot-swap {previous}->{model} build failed; rolled back to {previous}: {type(build_exc).__name__}: {build_exc}"
                 raise
             b = self._last_build_stats
+            warm_stats = b["warmup"]
             out_stats = outgoing.sleeper.stats
             moved = out_stats.bytes_offloaded + b["bytes_in"]
             metrics = {
@@ -844,7 +1002,10 @@ class EngineService:
                 "peak_bytes_in_flight": 0,
                 "pin_s": out_stats.last_pin_seconds,
                 "build_s": b["build_s"],
-                "digest_s": b["digest_s"],
+                "load_s": b["load_s"],
+                "read_s": b["read_s"],
+                "workers": b["workers"],
+                "capture_s": b["capture_s"],
             }
         # the pool key is the model's name: the reference qualifies it with
         # an Orbax checkpoint_dir (name@dir), which the port refuses
@@ -861,45 +1022,70 @@ class EngineService:
             "checkpoint_dir": "",
             "swapped": True,
             "pool_hit": pool_hit,
-            "prefetched": False,
+            "prefetched": prefetched,
             "tier": tier,
             **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in metrics.items()},
+            "warmup": warm_stats,
             "builds_total": self.builds_total,
             "pool": self.model_pool.describe(),
+            "exec_pool": self.exec_pool.describe(),
         }
         return dict(self.last_swap)
 
-    def _pool_park(self, key: str, runtime: _ModelRuntime, nbytes: int) -> list:
-        """Pool a slept runtime under ``key``, interning its digested
-        weight copies into the chunk store first (a sibling already pooled
-        shares its common tensors instead of holding them twice). Returns
-        the evicted entries, for :meth:`_free_pooled`."""
+    def _exec_key(self, key: str, runtime: _ModelRuntime) -> str:
+        """The exec pool's key for the graphs of the runtime pooled under
+        ``key``."""
+        return exec_key(key, "chunk", runtime.engine.cfg.decode_chunk)
+
+    def _pool_park(self, key: str, runtime: "_ModelRuntime | PrefetchedWeights", nbytes: int) -> list:
+        """Pool a slept runtime, or a prefetch's staged weights, under
+        ``key``, interning its digested weight copies into the chunk store
+        first (a sibling already pooled shares its common tensors instead
+        of holding them twice); a runtime's captured graphs go to the exec
+        pool, which may release the least recently pooled ones. Returns the
+        evicted entries, for :meth:`_free_pooled`."""
         chunk_digests: List[str] = []
         interned = 0
-        if self._content_hash and self.model_pool.budget_bytes > 0 and runtime.digests:
-            host = runtime.sleeper._host_state
-            if host is not None:
-                runtime.sleeper._host_state, chunk_digests, interned = self.model_pool.intern_tree(
-                    host, runtime.digests, prefix="params"
+        if isinstance(runtime, PrefetchedWeights):
+            digests = runtime.digests
+            if self._content_hash and self.model_pool.budget_bytes > 0 and digests:
+                runtime.params_host, chunk_digests, interned = self.model_pool.intern_tree(
+                    runtime.params_host, digests, prefix=""
                 )
+        else:
+            digests = self._digests(runtime)
+            if self._content_hash and self.model_pool.budget_bytes > 0 and digests:
+                host = runtime.sleeper._host_state
+                if host is not None:
+                    runtime.sleeper._host_state, chunk_digests, interned = self.model_pool.intern_tree(
+                        host, digests, prefix="params"
+                    )
+            graphs = runtime.engine.graphs
+            if graphs is not None and graphs.captured:
+                self.exec_pool.put(self._exec_key(key, runtime), graphs, graphs.pool_bytes())
         return self.model_pool.put(
             key, runtime, nbytes=nbytes, chunk_digests=chunk_digests,
-            weight_digests=runtime.digests if chunk_digests else None, interned_bytes=interned,
+            weight_digests=digests if chunk_digests else None, interned_bytes=interned,
         )
 
     def _free_pooled(self, victims: list) -> None:
         """Destroy evicted runtimes: an evicted model is built cold at its
         next swap-in anyway, so its host copies, its engine, its graphs and
         its arenas' address ranges all go, and the card's and the pinned
-        host allocator's caches with them."""
+        host allocator's caches with them. An evicted prefetch's weights
+        are dropped."""
         if not victims:
             return
         devices = set()
         for victim in victims:
             rt = victim.runtime
-            devices.add(rt.engine.device)
-            rt.sleeper.sleep(2)  # drop the host copies
-            rt.engine = rt.sleeper = None
+            if isinstance(rt, PrefetchedWeights):
+                rt.params_host = None
+            else:
+                self.exec_pool.discard(self._exec_key(victim.model_id, rt))
+                devices.add(rt.engine.device)
+                rt.sleeper.sleep(2)  # drop the host copies
+                rt.engine = rt.sleeper = None
             victim.runtime = None
         gc.collect()  # the engine and its graphs hold each other
         for dev in devices:
@@ -910,10 +1096,13 @@ class EngineService:
 
     def pooled_engines(self) -> List[Dict[str, Any]]:
         """Each pooled engine's share of the card that is known here: its
-        arenas' mapped bytes (0 while it sleeps) and its captured graphs'
-        kernel nodes."""
+        arenas' mapped bytes (0 while it sleeps), its captured graphs'
+        kernel nodes and their memory pool's bytes (0 once the exec pool
+        released them). Prefetched weights have no engine."""
         out = []
         for e in self.model_pool.entries():
+            if isinstance(e.runtime, PrefetchedWeights):
+                continue
             eng = e.runtime.engine
             programs = eng.graphs.programs.values() if eng.graphs else ()
             out.append({
@@ -921,8 +1110,136 @@ class EngineService:
                 "mapped_bytes": sum(a.mapped_bytes for a in eng.arenas.values()),
                 "graph_captures": eng.graph_captures,
                 "graph_kernel_nodes": sum(n for p in programs for n in p.kernels.values()),
+                "graph_pool_bytes": eng.graphs.pool_bytes() if eng.graphs else 0,
             })
         return out
+
+    # -- background checkpoint prefetch ------------------------------------------
+
+    def prefetch(self, model: str, checkpoint_dir: str = "") -> Dict[str, Any]:
+        """POST /v1/prefetch: stage ``model``'s weights on the host into
+        the model pool (:meth:`_prefetch_worker`, on a thread of its own),
+        never touching the card, while the current model keeps serving,
+        so the first swap to it takes the ``prefetched`` tier. Raises
+        ValueError for a request the service refuses (a 400)."""
+        if self.args.tensor_parallel_size > 1:
+            raise ValueError("prefetch on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
+        if not model.startswith("hf:"):
+            raise ValueError(
+                "prefetch requires an hf:<model-dir> model (named configs are random-init, and Orbax "
+                "checkpoints restore straight into device placement on swap)"
+            )
+        if checkpoint_dir:
+            raise ValueError(
+                "prefetch cannot stage an Orbax checkpoint_dir (it reads the hf: directory only); "
+                "swap to the checkpoint directly"
+            )
+        hf_dir = model[3:]
+        if not hf_dir:
+            raise ValueError("prefetch model hf: needs a directory path")
+        if model == self.model:
+            raise ValueError(f"{model} is already the serving model")
+        if self.model_pool.contains_match(model):
+            return {"state": "already_pooled", "model": model, "checkpoint_dir": "", "started": False}
+        if self._content_hash:
+            # the tiers' fast path: an evicted model whose chunks still
+            # resolve stages with no checkpoint read
+            got = self.model_pool.take_staged(model)
+            if got is not None:
+                tree, digests, tier = got
+                nbytes = sum(t.numel() * t.element_size() for t in flatten_state(tree))
+                pw = PrefetchedWeights(model_id=model, params_host=tree, nbytes=nbytes,
+                                       digests=digests)
+                if not self._on_loop(lambda: self._register_prefetch(pw)):
+                    self.last_prefetch = {"state": "completed", "model": model, "checkpoint_dir": "",
+                                          "bytes": nbytes, "source": "tier", "tier": tier,
+                                          "pool": self.model_pool.describe()}
+                    return dict(self.last_prefetch, started=False)
+        model_cfg = hf_models.config_from_hf(hf_dir)
+        est = hf_models.estimate_param_bytes(model_cfg)
+        if est > self.model_pool.budget_bytes:
+            raise ValueError(
+                f"prefetch of {model} (~{est >> 20} MiB staged) exceeds the model pool budget "
+                f"({self.model_pool.budget_bytes >> 20} MiB); raise --model-pool-mib"
+            )
+        with self._prefetch_mu:
+            if self._prefetch_thread is not None and self._prefetch_thread.is_alive():
+                raise ValueError("a prefetch is already in progress (DELETE /v1/prefetch aborts it)")
+            self._prefetch_abort = threading.Event()
+            self.last_prefetch = {"state": "running", "model": model, "checkpoint_dir": "", "bytes": 0}
+            self._prefetch_thread = threading.Thread(
+                target=self._prefetch_worker, args=(model, hf_dir, model_cfg, self._prefetch_abort),
+                daemon=True, name="prefetch",
+            )
+            self._prefetch_thread.start()
+        return dict(self.last_prefetch, started=True)
+
+    def _register_prefetch(self, pw: PrefetchedWeights) -> bool:
+        """Pool a prefetch's weights (on the engine thread: the pool may
+        destroy an evicted engine); True when the pool bounced them."""
+        evicted = self._pool_park(pw.model_id, pw, pw.nbytes)
+        bounced = any(v.runtime is pw for v in evicted)
+        self._free_pooled(evicted)
+        if self._pin_host and hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()  # the duplicates interning dropped
+        return bounced
+
+    def _prefetch_worker(self, model: str, hf_dir: str, model_cfg, abort: threading.Event) -> None:
+        """The prefetch's thread: the checkpoint staged on the host only
+        (``load_params(place=False)``: readers, throttle, abort; no CUDA
+        tensor), its digests hashed from the host leaves, then pooled."""
+        t0 = time.monotonic()
+        lstats = hf_models.LoadStats()
+        try:
+            faults.fire("prefetch.stage")
+            if self._pin_host and hasattr(torch._C, "_host_emptyCache"):
+                # the staging pins the whole model: the pinned blocks that
+                # earlier sleeps and swaps freed go back to the host first
+                self._on_loop(torch._C._host_emptyCache)
+            staged = hf_models.load_params(
+                hf_dir, model_cfg, place=False, workers=self.args.load_workers or None, abort_event=abort,
+                throttle_bytes_per_s=float(max(0, self.args.prefetch_mib_s) << 20), stats=lstats,
+                want_digests=self._content_hash,
+            )
+            nbytes = sum(t.numel() * t.element_size() for t in flatten_state(staged))
+            pw = PrefetchedWeights(model_id=model, params_host=staged, nbytes=nbytes,
+                                   digests=dict(lstats.digests) or None)
+            del staged
+            bounced = self._on_loop(lambda: self._register_prefetch(pw))
+        except hf_models.LoadAborted:
+            self.last_prefetch = {"state": "aborted", "model": model, "checkpoint_dir": "", "bytes": lstats.bytes_read}
+            return
+        except Exception as e:  # noqa: BLE001 — reported by GET /v1/prefetch
+            traceback.print_exc()
+            self.last_prefetch = {"state": "failed", "model": model, "checkpoint_dir": "",
+                                  "error": f"{type(e).__name__}: {e}"}
+            return
+        if bounced:
+            self.last_prefetch = {"state": "rejected", "model": model, "checkpoint_dir": "", "bytes": nbytes,
+                                  "error": "staged bytes exceed the model pool budget"}
+            return
+        self.last_prefetch = {
+            "state": "completed", "model": model, "checkpoint_dir": "", "bytes": nbytes, "quant": "off",
+            "read_s": round(lstats.read_s, 6), "digest_s": round(lstats.digest_s, 6),
+            "total_s": round(time.monotonic() - t0, 6), "shards": lstats.shards, "workers": lstats.workers,
+            "pool": self.model_pool.describe(),
+            # graphs belong to an engine: a prefetch has none to warm
+            "warmup": None, "exec_pool": self.exec_pool.describe(),
+        }
+
+    def prefetch_status(self) -> Dict[str, Any]:
+        return dict(self.last_prefetch)
+
+    def abort_prefetch(self) -> Dict[str, Any]:
+        """DELETE /v1/prefetch: the readers see the abort between tensors
+        and unwind without pooling anything."""
+        with self._prefetch_mu:
+            t = self._prefetch_thread
+            if t is None or not t.is_alive():
+                return {"aborted": False, "state": self.last_prefetch.get("state", "idle")}
+            self._prefetch_abort.set()
+        t.join(timeout=60)
+        return {"aborted": True, **self.last_prefetch}
 
     def _bump_actuation(self, kind: str) -> None:
         with self._mu:
@@ -934,10 +1251,18 @@ class EngineService:
         finished request's tokens are goodput, as the reference counts
         them with its targets off), and two blocks of the port's own:
         ``load``, the checkpoint's last load (``models/hf.py:LoadStats``)
-        for an ``hf:`` model, else None; and ``pool``, the slept-model pool
-        (``HostModelPool.describe``)."""
+        for an ``hf:`` model, else None (``digest_pending`` while the
+        load's digests are still being hashed: ``digest_s`` is then 0); and
+        ``pool``, the slept-model pool (``HostModelPool.describe``). It
+        never waits for the digests."""
         now = time.monotonic()
         depth = self.queue_depth()
+        rt = self._runtime
+        job = rt.digest_job
+        if job is not None and job.done():
+            self._digests(rt)  # joins at once: digest_s is the load's
+        load = None if rt.load_stats is None else dict(
+            rt.load_stats.summary(), loads=rt.loads, digest_pending=rt.digest_job is not None)
         with self._mu:
             return {
                 "model": self.model,
@@ -951,7 +1276,7 @@ class EngineService:
                 "actuations": dict(self._actuations),
                 "uptime_s": round(now - self.started_at, 3),
                 "is_sleeping": self.sleeper.is_sleeping,
-                "load": None if self.load_stats is None else dict(self.load_stats.summary(), loads=self.loads),
+                "load": load,
                 "pool": self.model_pool.describe(),
             }
 
@@ -986,6 +1311,11 @@ class EngineService:
         }
 
     def shutdown(self) -> None:
+        with self._prefetch_mu:
+            t = self._prefetch_thread
+            self._prefetch_abort.set()
+        if t is not None:
+            t.join(timeout=60)
         self._stop.set()
         self._work.set()
         self._thread.join(timeout=30)
@@ -1465,7 +1795,7 @@ def make_handler(service: EngineService):
                 if method == "POST":
                     # always read the body, so the connection stays usable
                     body = self._body()
-                if path in UNPORTED_ROUTES:
+                if unported_route(path):
                     raise BadRequest(f"{path} is not supported by this server yet")
                 if method == "GET" and path == "/health":
                     if service.failure is not None:
@@ -1479,6 +1809,13 @@ def make_handler(service: EngineService):
                         return self._send(200, {**service.last_swap, "degraded": service.degraded})
                     if method == "POST":
                         return self._swap(body)
+                if path == "/v1/prefetch":
+                    if method == "POST":
+                        return self._prefetch(body)
+                    if method == "GET":
+                        return self._send(200, service.prefetch_status())
+                    if method == "DELETE":
+                        return self._send(200, service.abort_prefetch())
                 if path == "/v1/faults":
                     if method == "POST":
                         spec = body.get("spec") if isinstance(body, dict) else None
@@ -1549,6 +1886,20 @@ def make_handler(service: EngineService):
                 # the previous model serves again and the target is still
                 # pooled: retryable, so 503
                 return self._send(503, {"error": str(e), "rolled_back": True, "model": service.model})
+
+        def _prefetch(self, body: Any) -> None:
+            if not isinstance(body, dict):
+                raise BadRequest("request body must be a JSON object")
+            model = body.get("model")
+            if not isinstance(model, str) or not model:
+                raise BadRequest("prefetch requires a 'model' string")
+            ckpt = body.get("checkpoint_dir") or ""
+            if not isinstance(ckpt, str):
+                raise BadRequest("checkpoint_dir must be a string")
+            try:
+                return self._send(200, service.prefetch(model, ckpt))
+            except (ValueError, FileNotFoundError) as e:
+                raise BadRequest(str(e))
 
         def do_GET(self):
             self._route("GET")

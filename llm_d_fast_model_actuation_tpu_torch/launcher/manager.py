@@ -23,9 +23,12 @@ another holder admitted beside it is awake or unreachable.
 
 The swap verb (:meth:`EngineProcessManager.swap_instance`) forwards to
 the child's ``POST /v1/swap`` with a request id; a timed-out swap is
-recovered through the child's ``GET /v1/swap``, never sent again. Not
-ported yet: the prefetch, residents, migrate and drain verbs (each waits
-on its engine feature), and the Prometheus gauges and spans.
+recovered through the child's ``GET /v1/swap``, never sent again. The
+prefetch verb (:meth:`EngineProcessManager.prefetch_instance`) forwards
+to the child's ``/v1/prefetch`` and records the hint in the ledger's
+``prefetched`` block. Not ported yet: the residents, migrate and drain
+verbs (each waits on its engine feature), and the Prometheus gauges and
+spans.
 ``fleet_rollup`` aggregates the children's ``/v1/stats`` as the reference
 does, without gauges.
 """
@@ -77,6 +80,16 @@ class SwapFailed(Exception):
         self.detail = detail
 
 
+class PrefetchFailed(Exception):
+    """The engine child rejected (or never answered) a prefetch verb."""
+
+    def __init__(self, instance_id: str, status: int, detail: str) -> None:
+        super().__init__(f"prefetch on instance {instance_id} failed ({status}): {detail}")
+        self.instance_id = instance_id
+        self.status = status
+        self.detail = detail
+
+
 class StatsFailed(Exception):
     """The engine child never answered a stats poll (fleet rollup marks
     the instance unreachable instead of failing the whole read)."""
@@ -116,14 +129,16 @@ def probe_instance_awake(instance: "EngineInstance", timeout: float = 2.0) -> Op
 
 class ChipLedger:
     """Node-local truth of which live instance holds which cards, which
-    model each holder serves, and its model pool's shape and transfer mode
-    from its last swap answer. The reference's ``prefetched`` and
-    ``residents`` blocks are kept, empty: the port's engine has none of the
-    verbs that fill them yet."""
+    model each holder serves, the model it was asked to prefetch, and its
+    model pool's shape and transfer mode from its last swap or prefetch
+    answer. The reference's ``residents`` block is kept, empty: the port's
+    engine has no co-resident variants yet."""
 
     def __init__(self) -> None:
         self._held: Dict[str, List[str]] = {}  # instance_id -> chip_ids
         self._models: Dict[str, str] = {}  # instance_id -> served model
+        #: instance_id -> the model staged through the prefetch verb
+        self._prefetched: Dict[str, str] = {}
         self._pools: Dict[str, Dict[str, Any]] = {}
         self._quant: Dict[str, str] = {}
 
@@ -150,13 +165,25 @@ class ChipLedger:
     def release(self, instance_id: str) -> None:
         self._held.pop(instance_id, None)
         self._models.pop(instance_id, None)
+        self._prefetched.pop(instance_id, None)
         self._pools.pop(instance_id, None)
         self._quant.pop(instance_id, None)
 
     def set_model(self, instance_id: str, model: str) -> None:
-        """Record which model a holder serves."""
+        """Record which model a holder serves; a swap to the prefetched
+        model consumes the prefetch hint."""
         if instance_id in self._held:
             self._models[instance_id] = model
+            if self._prefetched.get(instance_id) == model:
+                self._prefetched.pop(instance_id, None)
+
+    def set_prefetched(self, instance_id: str, model: Optional[str]) -> None:
+        """Record (or with None, clear) the model a holder has staged
+        through the prefetch verb."""
+        if model is None:
+            self._prefetched.pop(instance_id, None)
+        elif instance_id in self._held:
+            self._prefetched[instance_id] = model
 
     def set_pool(self, instance_id: str, pool: Optional[Dict[str, Any]]) -> None:
         """Record the holder's pool shape from an engine swap answer (a
@@ -189,6 +216,9 @@ class ChipLedger:
 
     def models(self) -> Dict[str, str]:
         return dict(self._models)
+
+    def prefetched(self) -> Dict[str, str]:
+        return dict(self._prefetched)
 
 
 @dataclass
@@ -617,6 +647,40 @@ class EngineProcessManager:
         return {"instance_id": instance_id, "model": model, "previous_model": previous, "swap": body,
                 "revision": instance.last_revision}
 
+    def prefetch_instance(
+        self, instance_id: str, model: str, checkpoint_dir: str = "", timeout: float = 60
+    ) -> Dict[str, Any]:
+        """Have a live instance stage ``model``'s weights on its host (its
+        child's ``POST /v1/prefetch``) while it keeps serving, and record
+        the hint in the ledger: the controller's way of warming the
+        predicted next swap. The hint is advisory: status reads drop it
+        when the staging failed."""
+        body = self._engine_request(
+            instance_id, "POST", "/v1/prefetch", {"model": model, "checkpoint_dir": checkpoint_dir},
+            timeout, PrefetchFailed,
+        )
+        self.ledger.set_prefetched(instance_id, model)
+        self.ledger.set_pool(instance_id, body.get("pool"))
+        logger.info("prefetch on instance %s: %s (state=%s)", instance_id, model, body.get("state"))
+        return {"instance_id": instance_id, "model": model, "prefetch": body}
+
+    def abort_instance_prefetch(self, instance_id: str, timeout: float = 90) -> Dict[str, Any]:
+        """Cancel an instance's prefetch (its child's ``DELETE
+        /v1/prefetch``) and drop the hint, unless there was nothing to
+        abort because it had completed: those weights are still pooled."""
+        body = self._engine_request(instance_id, "DELETE", "/v1/prefetch", None, timeout, PrefetchFailed)
+        if body.get("aborted") or body.get("state") != "completed":
+            self.ledger.set_prefetched(instance_id, None)
+        return {"instance_id": instance_id, "prefetch": body}
+
+    def get_instance_prefetch(self, instance_id: str, timeout: float = 10) -> Dict[str, Any]:
+        """The child's prefetch state (``GET /v1/prefetch``); a staging
+        that ended failed, rejected or aborted drops the hint."""
+        body = self._engine_request(instance_id, "GET", "/v1/prefetch", None, timeout, PrefetchFailed)
+        if body.get("state") in ("failed", "rejected", "aborted"):
+            self.ledger.set_prefetched(instance_id, None)
+        return {"instance_id": instance_id, "prefetch": body}
+
     def _recover_swap_result(
         self, instance_id: str, request_id: str, timeout_exc: SwapFailed, window_s: float = 10.0, poll_s: float = 0.5
     ) -> Dict[str, Any]:
@@ -773,11 +837,11 @@ class EngineProcessManager:
             "running_instances": running,
             "instances": statuses,
             # who holds which cards is the ledger's; what each holder
-            # serves and its pool are reported, and the blocks of the
-            # verbs the port's engine does not have yet are empty
+            # serves, has staged and pools are reported, and the block of
+            # the verb the port's engine does not have yet is empty
             "ledger": {
                 "models": self.ledger.models(),
-                "prefetched": {},
+                "prefetched": self.ledger.prefetched(),
                 "pools": self.ledger.pools(),
                 "quant": self.ledger.quant(),
                 "residents": {},

@@ -15,6 +15,9 @@ launcher's surface (launcher.py:568-800) for the routes the port serves:
                                             (206, 416, 400)
   POST   /v2/vllm/instances/{id}/swap       model hot-swap (404, 422, 400,
                                             503 rolled back, 504, 502)
+  POST   /v2/vllm/instances/{id}/prefetch   stage a model on the child's
+  GET    /v2/vllm/instances/{id}/prefetch   host, its state, abort it
+  DELETE /v2/vllm/instances/{id}/prefetch   (404, 422, 400, 504, 502)
   GET    /v2/vllm/instances/watch[?since=N] NDJSON events (410 when N
                                             was evicted)
 
@@ -40,7 +43,7 @@ from urllib.parse import parse_qsl, unquote, urlsplit
 from ..utils.events import RevisionTooOld
 from .http11 import FramingError, read_chunks, read_headers
 from .instance import InstanceConfig, InvalidInstanceConfig, LogRangeNotAvailable
-from .manager import ChipConflict, EngineProcessManager, SwapFailed
+from .manager import ChipConflict, EngineProcessManager, PrefetchFailed, SwapFailed
 
 logger = logging.getLogger(__name__)
 
@@ -174,6 +177,9 @@ class LauncherApp:
             ("GET", "/v2/vllm/instances/{instance_id}", self.get_one),
             ("GET", "/v2/vllm/instances/{instance_id}/log", self.get_log),
             ("POST", "/v2/vllm/instances/{instance_id}/swap", self.swap_instance),
+            ("POST", "/v2/vllm/instances/{instance_id}/prefetch", self.prefetch_instance),
+            ("GET", "/v2/vllm/instances/{instance_id}/prefetch", self.get_instance_prefetch),
+            ("DELETE", "/v2/vllm/instances/{instance_id}/prefetch", self.abort_instance_prefetch),
         ):
             pattern = re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^{}/]+)", path) + "$")
             self.routes.append((method, pattern, handler))
@@ -225,6 +231,9 @@ class LauncherApp:
                     "get_all_instances": "GET /v2/vllm/instances",
                     "get_instance_logs": "GET /v2/vllm/instances/{instance_id}/log",
                     "swap_instance": "POST /v2/vllm/instances/{instance_id}/swap",
+                    "prefetch_instance": "POST /v2/vllm/instances/{instance_id}/prefetch",
+                    "prefetch_status": "GET /v2/vllm/instances/{instance_id}/prefetch",
+                    "abort_prefetch": "DELETE /v2/vllm/instances/{instance_id}/prefetch",
                     "watch_instances": "GET /v2/vllm/instances/watch",
                 },
             }
@@ -318,6 +327,56 @@ class LauncherApp:
             if 400 <= e.status < 500:
                 raise HTTPError(400, str(e))
             raise HTTPError(e.status if e.status in (503, 504) else 502, str(e))
+        return json_response(result)
+
+    @staticmethod
+    def _prefetch_error(e: PrefetchFailed) -> HTTPError:
+        # the engine's refusal is the client's fault; a timed-out child is
+        # 504, an unreachable one 502
+        if 400 <= e.status < 500:
+            return HTTPError(400, str(e))
+        return HTTPError(504 if e.status == 504 else 502, str(e))
+
+    async def prefetch_instance(self, req: Request) -> Response:
+        """The prefetch verb: stage a model's weights on a live instance's
+        host (its child's /v1/prefetch) while it keeps serving."""
+        instance_id = req.match_info["instance_id"]
+        try:
+            body = req.json()
+        except ValueError:
+            raise HTTPError(400, "invalid JSON body")
+        model = body.get("model") if isinstance(body, dict) else None
+        if not isinstance(model, str) or not model:
+            raise HTTPError(422, "prefetch requires a 'model' string")
+        checkpoint_dir = body.get("checkpoint_dir") or ""
+        if not isinstance(checkpoint_dir, str):
+            raise HTTPError(422, "checkpoint_dir must be a string")
+        try:
+            result = await self._run(self.manager.prefetch_instance, instance_id, model, checkpoint_dir)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except PrefetchFailed as e:
+            raise self._prefetch_error(e)
+        return json_response(result)
+
+    async def get_instance_prefetch(self, req: Request) -> Response:
+        instance_id = req.match_info["instance_id"]
+        try:
+            result = await self._run(self.manager.get_instance_prefetch, instance_id)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except PrefetchFailed as e:
+            raise self._prefetch_error(e)
+        return json_response(result)
+
+    async def abort_instance_prefetch(self, req: Request) -> Response:
+        instance_id = req.match_info["instance_id"]
+        try:
+            result = await self._run(self.manager.abort_instance_prefetch, instance_id)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except PrefetchFailed as e:
+            raise self._prefetch_error(e)
         return json_response(result)
 
     async def watch(self, req: Request) -> StreamResponse:

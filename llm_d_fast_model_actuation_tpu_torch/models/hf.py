@@ -20,11 +20,18 @@ weights go:
   * every header is read and checked first — routing, shapes, dtypes and
     that every layer slice of every weight is present — so a checkpoint
     that would be refused is refused before a byte is written;
-  * each tensor crosses to the device in its own dtype, in row chunks
-    through two pinned staging buffers (at most ``LOAD_INFLIGHT_BYTES`` on
-    the host at a time, never the checkpoint), and is transposed and cast
-    on the device into its destination. fp32 -> bf16 is round to nearest
-    even, the bits of the reference's host cast;
+  * the shards are read by a pool of readers (``workers``, the
+    reference's pipelined loader), each with its own pair of pinned
+    staging buffers and its own copy stream, all of them together at most
+    ``LOAD_INFLIGHT_BYTES`` on the host (never the checkpoint); each
+    tensor crosses to the device in its own dtype, in row chunks, and is
+    transposed and cast on the device into its destination. fp32 -> bf16
+    is round to nearest even, the bits of the reference's host cast. The
+    loader waits on its own events, never on the whole card, so a build
+    captures its graphs meanwhile (``engine/exec_pool.py``);
+  * ``place=False`` stages on the host only (a prefetch): the port's
+    stacked layout in the config's dtype, transposed on the readers, in
+    pinned memory, for :func:`place_staged_params` to copy straight in;
   * on a tensor-parallel model each rank's slice is cut from the mapped
     tensor by ``llama.param_tp_dims``, as ``models/convert.py`` cuts it.
 
@@ -40,13 +47,17 @@ import dataclasses
 import json
 import math
 import os
+import queue
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
 from ..engine.chunk_store import digest_leaves
 from ..parallel.mesh import shard
+from ..utils import faults
 from .llama import Llama, LlamaConfig, ShardedLlama, param_shapes, param_tp_dims
 from .safetensors import DTYPES, SafetensorsFile
 
@@ -68,7 +79,8 @@ ARCHITECTURES: Dict[str, Dict[str, Any]] = {
 #: architectures the reference serves and the port does not yet
 UNPORTED_ARCHITECTURES = {"MixtralForCausalLM": "MoE is not ported yet (ROADMAP queue 1 item 16)"}
 
-#: host bytes in flight while loading: two staging buffers of half each
+#: host bytes in flight while loading: every reader's two staging
+#: buffers together (``--load-inflight-mib``)
 LOAD_INFLIGHT_BYTES = 512 << 20
 
 
@@ -166,14 +178,21 @@ def eos_token_id_from_hf(path: str, default: int = 2) -> int:
 # -- weight loading ----------------------------------------------------------
 
 
+class LoadAborted(RuntimeError):
+    """A cold load or a prefetch was cancelled through its abort event."""
+
+
 @dataclasses.dataclass
 class LoadStats:
-    """A load's phases, as :func:`load_params` returns them, with the
-    reference's field names. ``read_s``: host time copying the
-    mapped checkpoint bytes into the staging buffers (the disk read, as
-    pages are first touched there); ``h2d_s`` and ``convert_s``: device
-    time of the transfers and of the on-device transpose/cast copies (CUDA
-    events; host time on the CPU); ``total_s``: wall time of the call."""
+    """A load's phases, as :func:`load_params` fills them, with the
+    reference's field names. ``read_s``: the wall window from the load's
+    start to the last tensor staged on the host (the disk read, as pages
+    are first touched there, on ``workers`` readers); ``convert_s``: the
+    summed time of the transposing and casting copies (device time from
+    CUDA events on the card, host time on the CPU and for a host-only
+    staging); ``h2d_s``: the wall window of the transfers on the device,
+    from the first issued to the last landed (CUDA events; 0 on the CPU);
+    ``total_s``: wall time of the call."""
 
     total_s: float = 0.0
     read_s: float = 0.0
@@ -185,9 +204,14 @@ class LoadStats:
     bytes_h2d: int = 0
     shards: int = 0
     tensors: int = 0
-    #: of total_s, the seconds spent computing the digests, and each
-    #: parameter's [copy to the host, sha256] seconds (on the digests'
-    #: thread pool, so they overlap)
+    #: readers over the shards
+    workers: int = 0
+    #: whether transfers ran while later tensors were still being read
+    #: (every load onto a device; not a host-only staging)
+    streaming: bool = False
+    #: the seconds spent computing the digests, and each parameter's
+    #: [copy to the host, sha256] seconds (on the digests' thread pool, so
+    #: they overlap)
     digest_s: float = 0.0
     digest_times: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
     #: flat weight key ("layers/wq") -> content digest, as the reference's
@@ -198,7 +222,8 @@ class LoadStats:
         """The numbers, without the digests and their times, and the
         load's rate."""
         out = {k: v for k, v in dataclasses.asdict(self).items() if k not in ("digests", "digest_times")}
-        out["gb_per_s"] = self.bytes_h2d / 1e9 / self.total_s if self.total_s > 0 else 0.0
+        moved = self.bytes_h2d or self.bytes_read
+        out["gb_per_s"] = moved / 1e9 / self.total_s if self.total_s > 0 else 0.0
         return out
 
 
@@ -362,26 +387,33 @@ class _Stager:
     a chunk's host copy fills one buffer while the other's transfer runs,
     so at most two chunks' bytes are in flight. A chunk crosses in the
     checkpoint's dtype; its transpose and cast run on the device, in the
-    copy into the destination. Both copies run on the destination card's
-    current stream, whichever card is current, so the events that time
-    them and free a buffer are recorded there. On the CPU the same steps
-    run with plain buffers, one after the other."""
+    copy into the destination. Both copies run on a copy stream of the
+    stager's own on the destination card, after ``after`` (an event on the
+    card's stream that wrote the destination last), and the events that
+    time them and free a buffer are recorded there: the stager waits on
+    its own events only, never on the card, so it may run while another
+    thread captures a CUDA graph. On the CPU the same steps run with plain
+    buffers, one after the other."""
 
-    def __init__(self, device: torch.device, chunk_bytes: int) -> None:
+    def __init__(self, device: torch.device, chunk_bytes: int, after: Optional[Any] = None) -> None:
         self.device = device
         self.cuda = device.type == "cuda"
         self.chunk_bytes = chunk_bytes
         self.host = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=self.cuda) for _ in range(2)]
         self.dev = [torch.empty(chunk_bytes, dtype=torch.uint8, device=device) for _ in range(2)] if self.cuda else self.host
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        if after is not None:
+            self.stream.wait_event(after)
         self.done: List[Optional[Any]] = [None, None]
         self.turn = 0
         #: (h2d start, h2d end, convert end) events per chunk
         self.marks: List[tuple] = []
-        self.read_s = self.h2d_s = self.convert_s = 0.0
+        self.convert_s = 0.0
 
     def put(self, src: torch.Tensor, dest: torch.Tensor, transpose: bool) -> int:
         """``dest.copy_(src.T if transpose else src)``, chunked by rows of
         ``src``; returns the bytes staged."""
+        faults.fire("coldload.h2d")
         rows = src.shape[0]
         row_bytes = src[0].numel() * src.element_size() if src.dim() > 1 else src.element_size()
         step = max(1, self.chunk_bytes // max(1, row_bytes))
@@ -397,33 +429,33 @@ class _Stager:
         n = piece.numel() * piece.element_size()
         if self.done[b] is not None:
             self.done[b].synchronize()  # the transfer that last read this buffer has landed
-        t0 = time.perf_counter()
         host = self.host[b][:n].view(piece.dtype).view(piece.shape)
         host.copy_(piece)
-        t1 = time.perf_counter()
-        self.read_s += t1 - t0
         staged = self.dev[b][:n].view(piece.dtype).view(piece.shape)
         if self.cuda:
-            stream = torch.cuda.current_stream(self.device)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record(stream)
-            staged.copy_(host, non_blocking=True)
-            ev[1].record(stream)
-            out.copy_(staged.t() if transpose else staged)
-            ev[2].record(stream)
+            with torch.cuda.stream(self.stream):
+                ev[0].record(self.stream)
+                staged.copy_(host, non_blocking=True)
+                ev[1].record(self.stream)
+                out.copy_(staged.t() if transpose else staged)
+                ev[2].record(self.stream)
             self.marks.append(ev)
             self.done[b] = ev[2]
         else:
+            t1 = time.perf_counter()
             out.copy_(staged.t() if transpose else staged)
             self.convert_s += time.perf_counter() - t1
         return n
 
     def finish(self) -> None:
-        """Wait for the last transfers; sum the device times."""
+        """Wait for the last transfers (its own events); sum the device
+        time of the converting copies."""
         if self.cuda:
-            torch.cuda.synchronize(self.device)
-            for e0, e1, e2 in self.marks:
-                self.h2d_s += e0.elapsed_time(e1) / 1e3
+            for ev in self.done:
+                if ev is not None:
+                    ev.synchronize()
+            for _, e1, e2 in self.marks:
                 self.convert_s += e1.elapsed_time(e2) / 1e3
 
 
@@ -435,12 +467,9 @@ def _param(m: Llama, flat: str) -> torch.Tensor:
     return m.layers[flat[len("layers."):]] if flat.startswith("layers.") else m.get_parameter(flat)
 
 
-def model_digests(model: "Llama | ShardedLlama", times: Optional[Dict[str, List[float]]] = None) -> Dict[str, str]:
-    """:func:`leaf_digest <..engine.chunk_store.leaf_digest>` of every
-    parameter under the reference's flat key (``layers/wq``); a sharded
-    model's slices joined first. The leaves are copied to the host and
-    hashed on a thread pool (``chunk_store.digest_leaves``, which fills
-    ``times``)."""
+def model_leaves(model: "Llama | ShardedLlama") -> Dict[str, torch.Tensor]:
+    """Every parameter under the reference's flat key (``layers/wq``); a
+    sharded model's slices joined on the host first."""
     ranks = _ranks(model)
     dims = param_tp_dims(model.cfg)
     whole = {}
@@ -449,17 +478,38 @@ def model_digests(model: "Llama | ShardedLlama", times: Optional[Dict[str, List[
         d = dims[flat]
         t = parts[0] if d is None or len(parts) == 1 else torch.cat([p.to("cpu") for p in parts], dim=d)
         whole[flat.replace(".", "/")] = t
-    return digest_leaves(whole, times=times)
+    return whole
+
+
+def model_digests(model: "Llama | ShardedLlama", times: Optional[Dict[str, List[float]]] = None) -> Dict[str, str]:
+    """:func:`leaf_digest <..engine.chunk_store.leaf_digest>` of every
+    parameter under the reference's flat key (:func:`model_leaves`),
+    hashed on a thread pool (``chunk_store.digest_leaves``, which fills
+    ``times``)."""
+    return digest_leaves(model_leaves(model), times=times)
+
+
+def estimate_param_bytes(cfg: LlamaConfig) -> int:
+    """Host bytes a staged copy of the model occupies (the prefetch's
+    budget check): its parameters in ``cfg.dtype``, from the shapes only."""
+    return sum(math.prod(s) for s in param_shapes(cfg).values()) * cfg.dtype.itemsize
 
 
 @torch.no_grad()
-def place_staged_params(params: Dict[str, Any], model: Llama) -> None:
+def place_staged_params(params: Dict[str, Any], model: Llama, stats: Optional[LoadStats] = None) -> LoadStats:
     """Write a host weight tree (``{"embed": t, "layers": {"wq": t, ...}}``,
-    the reference's nesting, as the model pool rebuilds it from its chunk
-    tiers) into ``model``'s parameters, in place. Every parameter must be
-    there, in its shape and dtype."""
+    the reference's nesting: what :func:`load_params` stages with
+    ``place=False``, or what the model pool rebuilds from its chunk tiers)
+    into ``model``'s parameters, in place: straight copies, on a copy
+    stream of its own on the card, timed by CUDA events, and waited for
+    by their last event. Every parameter must be there, in its shape and
+    dtype. Returns (or fills) the :class:`LoadStats`: ``h2d_s`` and
+    ``bytes_h2d``."""
     if isinstance(model, ShardedLlama):
         raise ValueError("staged weights are placed on one device only")
+    t_begin = time.perf_counter()
+    st = stats if stats is not None else LoadStats()
+    pairs = []
     for flat, shape in param_shapes(model.cfg).items():
         node: Any = params
         for part in flat.split("."):
@@ -469,65 +519,242 @@ def place_staged_params(params: Dict[str, Any], model: Llama) -> None:
         dest = _param(model, flat)
         if tuple(node.shape) != tuple(shape) or node.dtype != dest.dtype:
             raise ValueError(f"staged {flat}: {tuple(node.shape)} {node.dtype}, the model holds {tuple(shape)} {dest.dtype}")
-        dest.copy_(node)
+        pairs.append((dest, node))
+    dev = model.device
+    if dev.type == "cuda":
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            begin.record(stream)
+            for dest, node in pairs:
+                faults.fire("coldload.h2d")
+                dest.copy_(node, non_blocking=True)
+            end.record(stream)
+        end.synchronize()
+        st.h2d_s = begin.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        for dest, node in pairs:
+            faults.fire("coldload.h2d")
+            dest.copy_(node)
+        st.h2d_s = time.perf_counter() - t0
+    st.bytes_h2d = sum(d.numel() * d.element_size() for d, _ in pairs)
+    st.tensors = len(pairs)
+    st.total_s = time.perf_counter() - t_begin
+    return st
+
+
+def _resolve_workers(workers: Optional[int], shards: int) -> int:
+    """``workers`` readers (None or <= 0: up to 8, one per CPU), never more
+    than there are shards."""
+    if workers is None or int(workers) <= 0:
+        workers = min(8, os.cpu_count() or 1)
+    return max(1, min(int(workers), shards))
+
+
+def _run_readers(groups: List[List[_Item]], workers: int, read: Any, stop: threading.Event) -> None:
+    """``read(items, worker)`` for each shard's items, on ``workers``
+    threads that take the next shard as they finish one (in the calling
+    thread for one worker). The first error stops the others (between
+    tensors) and is raised; an abort raises :class:`LoadAborted`."""
+    if workers == 1:
+        for items in groups:
+            read(items, 0)
+        return
+    todo: "queue.Queue[List[_Item]]" = queue.Queue()
+    for items in groups:
+        todo.put(items)
+
+    def worker(index: int) -> None:
+        try:
+            while not stop.is_set():
+                try:
+                    items = todo.get_nowait()
+                except queue.Empty:
+                    return
+                read(items, index)
+        except BaseException:
+            stop.set()  # fail fast: the siblings stop between tensors
+            raise
+
+    err: Optional[BaseException] = None
+    with ThreadPoolExecutor(workers, thread_name_prefix="hf-load-read") as pool:
+        futures = [pool.submit(worker, i) for i in range(workers)]
+        for fut in futures:
+            try:
+                fut.result()
+            except LoadAborted as e:
+                err = err or e
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                # the first real error wins over a sibling's stop
+                if err is None or isinstance(err, LoadAborted):
+                    err = e
+    if err is not None:
+        raise err
 
 
 @torch.no_grad()
 def load_params(
     path: str,
-    model: "Llama | ShardedLlama",
+    target: "Llama | ShardedLlama | LlamaConfig",
     *,
+    workers: Optional[int] = None,
+    place: bool = True,
+    max_inflight_bytes: Optional[int] = None,
+    abort_event: Optional[threading.Event] = None,
+    throttle_bytes_per_s: float = 0.0,
+    stats: Optional[LoadStats] = None,
     want_digests: bool = False,
-) -> LoadStats:
-    """Write the checkpoint under ``path`` into ``model``'s parameters, in
-    place (see the module docstring): every parameter tensor keeps its
-    object and its address. The model's GLOBAL config decides the shapes;
-    its parameters' dtype the cast. Raises before writing anything if the
-    checkpoint does not fit the config or misses a slice. Returns the
-    :class:`LoadStats`; with ``want_digests`` also each parameter's
-    digest."""
+) -> "LoadStats | Dict[str, Any]":
+    """The pipelined loader: the checkpoint under ``path``, read by
+    ``workers`` threads over its shards (None or <= 0: up to 8, one per
+    CPU, never more than shards).
+
+    ``place=True`` (``target`` a model): written into the model's
+    parameters in place (see the module docstring), every parameter tensor
+    keeping its object and its address; each reader stages its tensors
+    through a pair of pinned buffers of its own, the readers' buffers
+    together at most ``max_inflight_bytes`` (default
+    ``LOAD_INFLIGHT_BYTES``). The model's GLOBAL config decides the shapes;
+    its parameters' dtype the cast. Returns the :class:`LoadStats`; with
+    ``want_digests`` also each parameter's digest, hashed from the card
+    after the load.
+
+    ``place=False`` (``target`` a config, or a model for its config):
+    staged on the host only, the prefetch's path — no CUDA tensor is
+    created: a tree in the port's layout (``{"embed": t, "layers": {"wq":
+    (L, in, out), ...}}``, the tree :func:`place_staged_params` takes) in
+    ``cfg.dtype``, transposed and cast on the reader threads, in pinned
+    memory when CUDA is available, so the later transfer is straight
+    copies. With ``want_digests`` its digests
+    are hashed from those host leaves into ``stats``. Returns the tree.
+
+    Either way a checkpoint that does not fit the config or misses a slice
+    raises before anything is read, and a shard its index declares but
+    the directory lacks before that. ``abort_event`` (checked between
+    tensors) raises :class:`LoadAborted`; ``throttle_bytes_per_s`` bounds
+    the read rate; the ``coldload.read`` fault point fires at each shard,
+    ``coldload.h2d`` at each tensor's transfer. ``stats`` (a LoadStats) is
+    filled in place. The values staged do not depend on the schedule: any
+    ``workers`` gives the same bits."""
     t_begin = time.perf_counter()
-    st = LoadStats()
-    cfg = model.cfg
+    st = stats if stats is not None else LoadStats()
+    if place and not isinstance(target, (Llama, ShardedLlama)):
+        raise TypeError("load_params(place=True) writes into a model; pass the model")
+    cfg = target if isinstance(target, LlamaConfig) else target.cfg
     shards, items = _plan(path, cfg)
+    groups = [[it for it in items if it.shard is sh] for sh in shards]
+    groups = [g for g in groups if g]
+    workers = _resolve_workers(workers, len(shards))
+    st.workers, st.shards, st.streaming = workers, len(shards), place
+    stop = threading.Event()
+    mu = threading.Lock()
+    read_end = [t_begin]
+    counts = {"bytes": 0, "tensors": 0, "convert_s": 0.0}
+
+    def check_abort() -> None:
+        if stop.is_set() or (abort_event is not None and abort_event.is_set()):
+            raise LoadAborted(f"load of {path!r} aborted")
+
+    def account(nbytes: int, convert_s: float = 0.0) -> None:
+        with mu:
+            counts["bytes"] += nbytes
+            counts["convert_s"] += convert_s
+            total = counts["bytes"]
+        if throttle_bytes_per_s and throttle_bytes_per_s > 0:
+            ahead = total / throttle_bytes_per_s - (time.perf_counter() - t_begin)
+            while ahead > 0 and not stop.is_set() and not (abort_event is not None and abort_event.is_set()):
+                time.sleep(min(ahead, 0.2))
+                ahead = total / throttle_bytes_per_s - (time.perf_counter() - t_begin)
+
+    def done_reading() -> None:
+        with mu:
+            counts["tensors"] += 1
+            read_end[0] = max(read_end[0], time.perf_counter())
+
+    if not place:
+        try:
+            tree = _stage_host(cfg, groups, workers, stop, check_abort, account, done_reading)
+        finally:
+            # valid on the error paths too: an aborted prefetch reports
+            # what it read
+            st.read_s = read_end[0] - t_begin
+            st.convert_s = counts["convert_s"]
+            st.bytes_read, st.tensors = counts["bytes"], counts["tensors"]
+        if want_digests:
+            t_dig = time.perf_counter()
+            st.digests = digest_leaves(tree, times=st.digest_times)
+            st.digest_s = time.perf_counter() - t_dig
+        st.total_s = time.perf_counter() - t_begin
+        from ..engine.chunk_store import unflatten_tree
+
+        return unflatten_tree(tree)
+
+    model = target
     ranks = _ranks(model)
     tp = len(ranks)
     dims = param_tp_dims(cfg)
-    # a staging buffer holds half the in-flight bytes, or the largest
-    # tensor when that is smaller, and at least one row of the widest
+    devices = list(dict.fromkeys(m.device for m in ranks))
+    # a staging buffer holds the in-flight bytes over (2 x readers), or the
+    # largest tensor when that is smaller, and at least one row of the widest
     specs = [it.shard.specs[it.name] for it in items]
     largest = max((dt.itemsize * math.prod(shape) for dt, shape in specs), default=1)
     widest = max((dt.itemsize * math.prod(shape[1:]) for dt, shape in specs), default=1)
-    chunk = max(widest, min(LOAD_INFLIGHT_BYTES // 2, largest))
-    stagers: Dict[torch.device, _Stager] = {}
-    for m in ranks:
-        if m.device not in stagers:
-            stagers[m.device] = _Stager(m.device, chunk)
-    for it in items:
-        src = it.shard.get(it.name)
-        d = dims[it.flat]
-        if d is not None and it.layer is not None:
-            d -= 1  # the dimension within one layer's slice
-        for r, m in enumerate(ranks):
-            dest = _param(m, it.flat)
-            if it.layer is not None:
-                dest = dest[it.layer]
-            if tp > 1 and d is not None:
-                piece = shard(src, (dest.dim() - 1 - d) if it.transpose else d, r, tp)
-            else:
-                piece = src
-            n = stagers[m.device].put(piece, dest, it.transpose)
-            st.bytes_read += n
-            st.bytes_h2d += n
-        st.tensors += 1
-        del src
-    for s in stagers.values():
-        s.finish()
-        st.read_s += s.read_s
-        st.h2d_s += s.h2d_s
-        st.convert_s += s.convert_s
-    st.shards = len(shards)
-    del stagers, shards, items
+    inflight = int(max_inflight_bytes or LOAD_INFLIGHT_BYTES)
+    chunk = max(widest, min(inflight // (2 * workers), largest))
+    # the copy streams start after whatever the card's stream wrote into
+    # the destination before (an arena's zero fill)
+    begun: Dict[torch.device, Any] = {}
+    for d in devices:
+        if d.type == "cuda":
+            begun[d] = torch.cuda.Event(enable_timing=True)
+            begun[d].record(torch.cuda.current_stream(d))
+    stagers: List[Dict[torch.device, _Stager]] = [{} for _ in range(workers)]
+
+    def read(group: List[_Item], index: int) -> None:
+        faults.fire("coldload.read")
+        mine = stagers[index]
+        for it in group:
+            check_abort()
+            src = it.shard.get(it.name)
+            d = dims[it.flat]
+            if d is not None and it.layer is not None:
+                d -= 1  # the dimension within one layer's slice
+            n = 0
+            for r, m in enumerate(ranks):
+                dest = _param(m, it.flat)
+                if it.layer is not None:
+                    dest = dest[it.layer]
+                piece = shard(src, (dest.dim() - 1 - d) if it.transpose else d, r, tp) if tp > 1 and d is not None else src
+                if m.device not in mine:
+                    mine[m.device] = _Stager(m.device, chunk, begun.get(m.device))
+                n += mine[m.device].put(piece, dest, it.transpose)
+            del src
+            done_reading()
+            account(n)
+
+    try:
+        _run_readers(groups, workers, read, stop)
+    finally:
+        # whatever was issued lands before the buffers go, even on an error
+        for mine in stagers:
+            for s in mine.values():
+                s.finish()
+        st.read_s = read_end[0] - t_begin
+        st.bytes_read = st.bytes_h2d = counts["bytes"]
+        st.tensors = counts["tensors"]
+    all_stagers = [s for mine in stagers for s in mine.values()]
+    st.convert_s = sum(s.convert_s for s in all_stagers)
+    for d, ev in begun.items():
+        # the device's transfer window: from the first chunk issued to the
+        # last landed, on any reader's stream
+        marks = [m for s in all_stagers if s.device == d for m in s.marks]
+        if marks:
+            first = min(ev.elapsed_time(m[0]) for m in marks)
+            last = max(ev.elapsed_time(m[2]) for m in marks)
+            st.h2d_s = max(st.h2d_s, (last - first) / 1e3)
+    del stagers, all_stagers, shards, items, groups
     if want_digests:
         t_dig = time.perf_counter()
         st.digests = model_digests(model, times=st.digest_times)
@@ -535,3 +762,28 @@ def load_params(
     st.total_s = time.perf_counter() - t_begin
     return st
 
+
+def _stage_host(cfg: LlamaConfig, groups, workers, stop, check_abort, account, done_reading) -> Dict[str, torch.Tensor]:
+    """:func:`load_params`'s host-only staging: every parameter a host
+    tensor in ``cfg.dtype`` and the port's layout, keyed ``layers/wq``,
+    each checkpoint tensor transposed and cast into its slice by a reader
+    thread."""
+    pin = torch.cuda.is_available()
+    bufs = {flat: torch.empty(shape, dtype=cfg.dtype, pin_memory=pin) for flat, shape in param_shapes(cfg).items()}
+
+    def read(group: List[_Item], index: int) -> None:
+        faults.fire("coldload.read")
+        for it in group:
+            check_abort()
+            src = it.shard.get(it.name)
+            dest = bufs[it.flat] if it.layer is None else bufs[it.flat][it.layer]
+            t0 = time.perf_counter()
+            dest.copy_(src.t() if it.transpose else src)
+            dt = time.perf_counter() - t0
+            n = src.numel() * src.element_size()
+            del src
+            done_reading()
+            account(n, dt)
+
+    _run_readers(groups, workers, read, stop)
+    return {flat.replace(".", "/"): t for flat, t in bufs.items()}

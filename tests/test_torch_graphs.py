@@ -319,3 +319,21 @@ def test_serving_through_replays_gives_the_eager_engines_tokens(monkeypatch):
     assert eng.graph_captures == 4 and eng.graph_replays == eng.decode_chunks == eager.decode_chunks
     assert eng.decode_steps == eager.decode_steps and _where(eng) == where
     tgraphs._holders.discard(eng.graphs)
+
+
+def test_graphs_pad_the_malloc_heaps_once(monkeypatch):
+    """The first engine with graphs sets glibc's M_TOP_PAD, once per
+    process (a capture's driver allocations on the engine thread)."""
+    calls = []
+
+    class Libc:
+        def mallopt(self, param, value):
+            calls.append((param, value))
+            return 1
+
+    monkeypatch.setattr(tgraphs, "_malloc_padded", False)
+    monkeypatch.setattr(tgraphs.ctypes, "CDLL", lambda name: Libc())
+    eng = _port()
+    tgraphs.ChunkGraphs(eng)
+    tgraphs.ChunkGraphs(eng)
+    assert calls == [(-2, 64 << 20)]

@@ -6,6 +6,7 @@ written into the port's model bit-equal to the reference's tree carried
 across by models/convert.py:params_from_jax, digests string for string;
 and logits and greedy tokens against transformers at fp32."""
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -292,9 +293,10 @@ def test_load_stats_are_the_reference_names():
 def test_stager_records_on_the_destination_cards_stream(monkeypatch):
     """A stager for a card that is not the current one (a second rank, or
     ``--device cuda:1``) records the events that time its copies and free
-    its buffers on that card's stream, where the copies run; an event on
-    the current card's stream would let a buffer be refilled while its
-    transfer is still in flight. The card's calls are stand-ins here, the
+    its buffers on its copy stream on that card, where the copies run; an
+    event on the current card's stream would let a buffer be refilled
+    while its transfer is still in flight. It waits on those events only,
+    never on the whole card. The card's calls are stand-ins here, the
     copies the CPU's own."""
     recorded = []
 
@@ -312,10 +314,14 @@ def test_stager_records_on_the_destination_cards_stream(monkeypatch):
             return 0.0
 
     monkeypatch.setattr(torch.cuda, "Event", Event)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: ("stream", torch.device(device)))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+
+    def no_device_sync(device=None):
+        raise AssertionError("the stager waited on the whole card")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_device_sync)
     stager = thf._Stager(torch.device("cpu"), 64)
-    stager.device, stager.cuda = torch.device("cuda", 1), True
+    stager.device, stager.cuda, stager.stream = torch.device("cuda", 1), True, ("stream", torch.device("cuda", 1))
     src = torch.arange(40 * 4, dtype=torch.float32).view(40, 4)
     dest = torch.zeros(4, 40)
     assert stager.put(src, dest, transpose=True) == src.numel() * 4

@@ -59,7 +59,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "capture_overlap.py"],
 )
 def test_no_file_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -76,7 +76,7 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "parity_spread.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "parity_spread.py", "capture_overlap.py"],
 )
 def test_transformers_is_imported_only_inside_functions(path):
     tree = ast.parse((ROOT / path).read_text())
