@@ -151,6 +151,37 @@ exits non-zero and never prints the final ``ok`` line):
      the compute processes and the card's free memory (within 1 GiB) as
      before. Then a launcher with ``--no-preload`` spawns one instance,
      for its ``spawn_to_healthy_s`` (not gated);
+  dualpods — two Llama-3-8B engines time-sharing the card through the
+     port's control plane: the dual-pods controller and the launcher
+     populator in this process over an ``InMemoryStore`` (no apiserver
+     here), with real HTTP to requester stubs (``requester.main --backend
+     real``: the card by NVML UUID, its memory in use from NVML), to one
+     launcher (real mode, preload; started by the controller's launcher
+     hook for the populator's launcher Pod, every launcher Pod of the one
+     node given its address, as the kubelet would) and to its children.
+     The sleeping budget is the reference's one sleeper, 4096 MiB, and
+     the LauncherConfig holds two instances. ISC ``isc-a`` runs serve's
+     options and seed, ``isc-b`` the same with ``--seed 1``. Step 1:
+     requester r1 (A) is actuated cold (``cold_actuation_s``, its Pod's
+     creation to its ``/ready`` 200) and serves serve's traffic with
+     serve's tokens; 2: r1 deleted, A sleeps, and a requester's memory
+     reading of the card is nvidia-smi's ``memory.used`` within 64 MiB;
+     3: r2 (B) is admitted beside the sleeping A and answers the launcher
+     phase's probe with its seed-1 tokens; r2 is deleted (B's first
+     sleep, which pins 20 GB of host buffers, its seconds printed) and
+     r2b wakes B with the same tokens (``b_warm_actuation_s``); 4: r1b
+     (A) while r2b is bound: the controller does not wake A, r1b's status
+     carries the budget's "above sleeping budget" while B is awake
+     (watched for 3 s), then r2b is deleted, B sleeps and A wakes
+     (``warm_actuation_s``, r2b's deletion to r1b's ``/ready`` 200, beside
+     ``WAKE_BAR_S``, reported), A's tokens bit-equal to step 1's second
+     run (from its prefix cache, as after the wake), no graph captured
+     again, warm faster than cold, one instance per ISC on the launcher;
+     5: r1b and
+     both ISCs deleted, the controller's GC deletes both instances, and
+     the card's compute processes and free memory (within 1 GiB) are as
+     before. Both children's kernel launches are read from their
+     ``/v1/device``;
   graphs — a llama3-8b engine at full width and depth built directly,
      eight requests of the serve traffic's lengths (two of them sampled,
      seeded) prefilled; then for T = 8 and T = 1, sampled and greedy, one
@@ -204,9 +235,10 @@ exits non-zero and never prints the final ``ok`` line):
      one entry for each shape the serve runs launched it at (prefill by
      sequence bucket, ragged by buffer rows), with that shape's launches.
      Each serve phase sets every count to 0 just before it starts its
-     server and reads them just after its traffic; the launcher's child
-     counts from 0 in its own process (forked from one that launched
-     nothing) and is read through its ``/v1/device`` after the traffic.
+     server and reads them just after its traffic; the launcher's and
+     the dualpods phase's children count from 0 in their own processes
+     (forked from one that launched nothing) and are read through their
+     ``/v1/device`` after the traffic.
 
 With two or more cards the sharded ragged check also runs with its ranks
 on ``cuda:0,cuda:1`` and says so; with one it prints ``"two_cards": "not
@@ -2341,7 +2373,383 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         "deleted": deleted, "free_before_bytes": free_before, "free_after_bytes": free_after,
         "no_preload_spawn_to_healthy_s": spawn_plain_s, "no_preload_launcher_ready_s": plain.ready_s,
     })
-    return {"counts": counts}
+    return {"counts": counts, "probe": probe, "b_tokens": b_tokens}
+
+
+#: the controller's sleeping budget: the reference's sleeperLimit (1) x 4096 MiB
+DUALPODS_BUDGET_BYTES = 4096 * MIB
+#: how far the requester's NVML reading may be from nvidia-smi's memory.used
+NVML_SMI_LIMIT_BYTES = 64 * MIB
+#: how long step 4 watches A stay asleep behind the awake B
+BUDGET_HOLD_S = 3.0
+BUDGET_MESSAGE = "above sleeping budget"
+
+
+class RequesterStub:
+    """``requester.main --backend real`` as its own process: the SPI and
+    probes servers of one requester Pod."""
+
+    def __init__(self, name: str, log_dir: str) -> None:
+        self.spi, self.probes = free_port(), free_port()
+        self.log = open(os.path.join(log_dir, f"requester-{name}.log"), "wb")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "llm_d_fast_model_actuation_tpu_torch.requester.main", "--backend", "real",
+             "--host", "127.0.0.1", "--spi-port", str(self.spi), "--probes-port", str(self.probes)],
+            cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                self.cards = request(f"http://127.0.0.1:{self.spi}/v1/dual-pods/accelerators", timeout=5)[1]
+                break
+            except OSError:
+                if self.proc.poll() is not None or time.monotonic() > deadline:
+                    raise RuntimeError(f"requester stub {name} did not serve: {self.tail()}")
+                time.sleep(0.1)
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name, "rb") as f:
+            return f.read()[-2000:].decode(errors="replace")
+
+    def memory(self) -> dict:
+        status, body = request(f"http://127.0.0.1:{self.spi}/v1/dual-pods/accelerator-memory-usage")
+        if status != 200:
+            raise AssertionError(f"the requester's memory query answered {status} {body}")
+        return body
+
+    def ready(self) -> bool:
+        try:
+            return request(f"http://127.0.0.1:{self.probes}/ready", timeout=5)[0] == 200
+        except OSError:
+            return False
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+class ControlPlane:
+    """The port's dual-pods controller and launcher populator over an
+    ``InMemoryStore`` (this machine has no apiserver), on an event loop of
+    their own in a thread, speaking real HTTP to the requester stubs, the
+    launcher and its children (``HttpTransports``). Its launcher hook
+    stands in for the kubelet of the one node: the first launcher Pod
+    starts the launcher process (real mode, preload on), and every
+    launcher Pod of the node is given that process's address, as
+    hostNetwork launcher Pods of one node share the host."""
+
+    NS, NODE = "fma", "node-0"
+
+    def __init__(self, budget: int) -> None:
+        import asyncio
+
+        from llm_d_fast_model_actuation_tpu_torch.api import constants as C
+        from llm_d_fast_model_actuation_tpu_torch.controller.clients import HttpTransports
+        from llm_d_fast_model_actuation_tpu_torch.controller.dualpods import DualPodsConfig, DualPodsController
+        from llm_d_fast_model_actuation_tpu_torch.controller.populator import Populator, PopulatorConfig
+        from llm_d_fast_model_actuation_tpu_torch.controller.store import InMemoryStore
+
+        self.C = C
+        self.asyncio = asyncio
+        self.store = InMemoryStore()
+        self.launcher = None
+        self.launcher_lock = threading.Lock()
+        self.log_dir = os.path.join(ROOT, "build", "launcher-logs")
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.controller = DualPodsController(self.store, HttpTransports(), DualPodsConfig(
+            namespace=self.NS, accelerator_sleeping_memory_limit_bytes=budget, launcher_runtime=self.runtime))
+        self.populator = Populator(self.store, PopulatorConfig(namespace=self.NS, launcher_runtime=self.runtime))
+        self.store.create({"kind": "Node", "metadata": {"name": self.NODE, "labels": {"pool": "h100"}}})
+        self.store.create({"kind": "LauncherConfig", "metadata": {"name": "lc", "namespace": self.NS},
+                           "spec": {"podTemplate": {"spec": {"containers": [{"name": "launcher"}]}},
+                                    "maxInstances": 2}})
+        self.store.create({"kind": "LauncherPopulationPolicy", "metadata": {"name": "lpp", "namespace": self.NS},
+                           "spec": {"enhancedNodeSelector": {"labelSelector": {"matchLabels": {"pool": "h100"}}},
+                                    "countForLauncher": [{"launcherConfigName": "lc", "launcherCount": 1}]}})
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="control-plane", daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 120.0):
+        return self.asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def start(self) -> None:
+        self.run(self.populator.start())
+        self.run(self.controller.start())
+
+    async def runtime(self, pod: dict) -> None:
+        def up() -> int:
+            with self.launcher_lock:
+                if self.launcher is None:
+                    self.launcher = Launcher()
+                return int(self.launcher.url.rsplit(":", 1)[1])
+
+        port = await self.asyncio.to_thread(up)
+
+        def run(p):
+            p["metadata"].setdefault("annotations", {})[self.C.LAUNCHER_PORT_ANNOTATION] = str(port)
+            p.setdefault("status", {})["podIP"] = "127.0.0.1"
+            p["status"]["conditions"] = [{"type": "Ready", "status": "True"}]
+            return p
+
+        await self.asyncio.to_thread(self.store.mutate, "Pod", self.NS, pod["metadata"]["name"], run)
+
+    def add_isc(self, name: str, options: str, port: int) -> None:
+        self.store.create({"kind": "InferenceServerConfig", "metadata": {"name": name, "namespace": self.NS},
+                           "spec": {"modelServerConfig": {"port": port, "options": options},
+                                    "launcherConfigName": "lc"}})
+
+    def add_requester(self, name: str, isc: str, stub: RequesterStub) -> None:
+        C = self.C
+        self.store.create({"kind": "Pod", "metadata": {"name": name, "namespace": self.NS, "annotations": {
+            C.INFERENCE_SERVER_CONFIG_ANNOTATION: isc, C.ADMIN_PORT_ANNOTATION: str(stub.spi)}},
+            "spec": {"nodeName": self.NODE, "containers": [{"name": C.INFERENCE_SERVER_CONTAINER_NAME}]},
+            "status": {"podIP": "127.0.0.1"}})
+
+    def status(self, name: str) -> list:
+        pod = self.store.try_get("Pod", self.NS, name) or {"metadata": {}}
+        raw = (pod["metadata"].get("annotations") or {}).get(self.C.STATUS_ANNOTATION)
+        return json.loads(raw)["Errors"] if raw else []
+
+    def launcher_pods(self) -> list:
+        return self.store.list("Pod", self.NS, selector={self.C.COMPONENT_LABEL: self.C.LAUNCHER_COMPONENT})
+
+    def instances(self) -> dict:
+        status, body = request(f"{self.launcher.url}/v2/vllm/instances")
+        if status != 200:
+            raise AssertionError(f"the launcher's list answered {status} {body}")
+        return {s["instance_id"]: s for s in body["instances"]}
+
+    def by_isc(self) -> dict:
+        out = {}
+        for iid, s in self.instances().items():
+            out.setdefault((s.get("annotations") or {}).get("isc-name"), []).append(iid)
+        return out
+
+    def stop(self) -> None:
+        try:
+            self.run(self.controller.stop())
+            self.run(self.populator.stop())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=30)
+            if self.launcher is not None:
+                self.launcher.stop()
+
+
+def wait_for(ok, timeout: float, what: str, *procs) -> float:
+    """Poll ``ok`` until it holds; the seconds it took. Fails at the
+    timeout, or when one of ``procs`` (the phase's own processes) exits."""
+    t0 = time.monotonic()
+    while not ok():
+        for p in procs:
+            if p is not None and p.poll() is not None:
+                raise RuntimeError(f"{p.args[2] if len(p.args) > 2 else p.args} exited with {p.returncode} "
+                                   f"waiting for {what}")
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{what} within {timeout} s")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def sleeping(port: int) -> bool:
+    return get(port, "/is_sleeping")["is_sleeping"]
+
+
+def sleep_seconds(port: int) -> dict:
+    """A child's last sleep and wake seconds, read from the answer of a
+    ``/sleep`` to a child already asleep or a ``/wake_up`` to one awake
+    (each answers the sleeper's state and changes nothing)."""
+    out = post(port, "/sleep?level=1" if sleeping(port) else "/wake_up")
+    return {k: out[k] for k in ("last_sleep_seconds", "last_wake_seconds")}
+
+
+def dualpods_phase(torch, smi: str, bucketed: dict, launched: dict) -> dict:
+    """Two Llama-3-8B engines time-sharing the card through the port's
+    control plane: requester stubs (NVML) -> dual-pods controller and
+    populator -> launcher -> engine children. ISC ``isc-a`` runs serve's
+    options and seed, ``isc-b`` the same with ``--seed 1``. r1 (A) is
+    actuated cold and serves serve's tokens; deleted, A sleeps, and a
+    requester's NVML reading of the card agrees with nvidia-smi; r2 (B)
+    is admitted beside the sleeping A with the launcher phase's B tokens,
+    then deleted (B's first sleep, which pins its host buffers) and B
+    woken for r2b; r1b (A) while r2b is bound is held back by the
+    sleeping budget (the requester's status says so) until r2b is
+    deleted, then A wakes with its tokens, no graph captured again,
+    faster than cold; the ISCs' deletion lets the controller's GC delete
+    both instances, and the card is back as before the phase."""
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig
+
+    model = LlamaConfig.llama3_8b()
+    free_memory(torch)
+    index, uuid = smi_rows("--query-gpu=index,uuid")[0]
+    index = int(index)
+    apps0, used0 = compute_apps(), card_used_bytes(index)
+    free_before = torch.cuda.mem_get_info()[0]
+    port_a, port_b = free_port(), free_port()
+    plane = ControlPlane(DUALPODS_BUDGET_BYTES)
+    plane.add_isc("isc-a", f"{SERVE_OPTS} --port {port_a}", port_a)
+    plane.add_isc("isc-b", f"{SERVE_OPTS.replace('--seed 0', '--seed 1')} --port {port_b}", port_b)
+    stubs, steps = {}, {}
+    try:
+        plane.start()
+        wait_for(lambda: any((p.get("status") or {}).get("podIP") for p in plane.launcher_pods()), 600,
+                 "the populator's launcher Pod to run")
+        launcher_proc = plane.launcher.proc
+
+        # 1. r1 for A: bound, created, ready (cold)
+        stubs["r1"] = RequesterStub("r1", plane.log_dir)
+        if stubs["r1"].cards != [uuid]:
+            raise AssertionError(f"the real backend names {stubs['r1'].cards}, NVML's card is {uuid}")
+        plane.add_requester("r1", "isc-a", stubs["r1"])
+        cold = wait_for(stubs["r1"].ready, 600, "r1's /ready", launcher_proc, stubs["r1"].proc)
+        traffic = run_traffic(torch, port_a, model.vocab_size)
+        if traffic["tokens"] != bucketed["tokens"]:
+            raise AssertionError(f"A gave other tokens than serve: "
+                                 f"{first_differences(traffic['tokens'], bucketed['tokens'])}")
+        # the same traffic again, now from A's prefix cache, as it will
+        # find the cache after its wake: a hit and a miss round apart in
+        # bf16 (ROADMAP queue 3 item 4), so step 4 compares with this run
+        cached = run_traffic(torch, port_a, model.vocab_size)
+        (iid_a,) = plane.by_isc()["isc-a"]
+        captures_a = get(port_a, "/v1/device")["graph_captures"]
+        steps["1_cold"] = {"cold_actuation_s": cold, "instance": iid_a, "graph_captures": captures_a,
+                           "tokens_equal_serve": True, **traffic["summary"]}
+        emit({"phase": "dualpods_step", "step": 1, **steps["1_cold"]})
+
+        # 2. r1 deleted: A sleeps; a requester's NVML reading against nvidia-smi
+        plane.store.delete("Pod", plane.NS, "r1")
+        stubs.pop("r1").stop()
+        wait_for(lambda: sleeping(port_a) and plane.store.try_get("Pod", plane.NS, "r1") is None, 120,
+                 "A asleep and r1 gone")
+        stubs["r2"] = RequesterStub("r2", plane.log_dir)
+        readings = []
+        for _ in range(3):
+            spi_used = stubs["r2"].memory()[uuid]
+            readings.append({"spi_bytes": spi_used, "nvidia_smi_bytes": card_used_bytes(index)})
+        nearest = min(readings, key=lambda r: abs(r["spi_bytes"] - r["nvidia_smi_bytes"]))
+        if abs(nearest["spi_bytes"] - nearest["nvidia_smi_bytes"]) > NVML_SMI_LIMIT_BYTES:
+            raise AssertionError(f"the requester's NVML reading is not nvidia-smi's within "
+                                 f"{NVML_SMI_LIMIT_BYTES} bytes: {readings}")
+        steps["2_asleep"] = {"readings": readings, "limit_bytes": NVML_SMI_LIMIT_BYTES,
+                             "card_used_before_phase_bytes": used0, "a_asleep_bytes": nearest["nvidia_smi_bytes"] - used0,
+                             "a_first_sleep": sleep_seconds(port_a)}
+        emit({"phase": "dualpods_step", "step": 2, **steps["2_asleep"]})
+
+        # 3. r2 for B: admitted beside the sleeping A
+        plane.add_requester("r2", "isc-b", stubs["r2"])
+        b_cold = wait_for(stubs["r2"].ready, 600, "r2's /ready", launcher_proc, stubs["r2"].proc)
+        b_tokens = post(port_b, "/v1/completions", launched["probe"])["choices"][0]["token_ids"]
+        if b_tokens != launched["b_tokens"] or not sleeping(port_a):
+            raise AssertionError(f"B gave {b_tokens[:8]}, the launcher phase's seed 1 {launched['b_tokens'][:8]}; "
+                                 f"A asleep {sleeping(port_a)}")
+        # B's first sleep pins its host buffers (20 GB; PERF.md §5,
+        # bottleneck 8): r2 goes and r2b wakes B, so that the time-share
+        # below meets a B that has slept before, as it will every time
+        # after the first; the first sleep's seconds are printed
+        t_del = time.monotonic()
+        plane.store.delete("Pod", plane.NS, "r2")
+        stubs.pop("r2").stop()
+        b_unbound = wait_for(lambda: sleeping(port_b) and plane.store.try_get("Pod", plane.NS, "r2") is None, 120,
+                             "B asleep and r2 gone")
+        b_first_sleep = sleep_seconds(port_b)
+        stubs["r2b"] = RequesterStub("r2b", plane.log_dir)
+        plane.add_requester("r2b", "isc-b", stubs["r2b"])
+        b_warm = wait_for(stubs["r2b"].ready, 300, "r2b's /ready", launcher_proc, stubs["r2b"].proc)
+        if post(port_b, "/v1/completions", launched["probe"])["choices"][0]["token_ids"] != b_tokens:
+            raise AssertionError("B's tokens changed across its sleep")
+        steps["3_b"] = {"b_cold_actuation_s": b_cold, "b_tokens_equal_launcher_phase": True,
+                        "b_first_unbind_s": b_unbound, "b_first_sleep": b_first_sleep, "b_warm_actuation_s": b_warm,
+                        "r2_deleted_to_r2b_ready_s": time.monotonic() - t_del, "instances": plane.by_isc()}
+        emit({"phase": "dualpods_step", "step": 3, **steps["3_b"]})
+
+        # 4. r1b for A while r2b is bound: held by the budget until B sleeps
+        stubs["r1b"] = RequesterStub("r1b", plane.log_dir)
+        t_r1b = time.monotonic()
+        plane.add_requester("r1b", "isc-a", stubs["r1b"])
+        try:
+            wait_for(lambda: any(BUDGET_MESSAGE in e for e in plane.status("r1b")), 120, "the budget's status on r1b")
+        except TimeoutError:
+            raise AssertionError(f"r1b's status {plane.status('r1b')}, A asleep {sleeping(port_a)}, "
+                                 f"card memory {stubs['r1b'].memory()}")
+        held = []
+        t_hold = time.monotonic()
+        while time.monotonic() - t_hold < BUDGET_HOLD_S:
+            held.append({"a_asleep": sleeping(port_a), "b_awake": not sleeping(port_b),
+                         "r1b_ready": stubs["r1b"].ready(), "status": plane.status("r1b")})
+            time.sleep(0.25)
+        if not all(h["a_asleep"] and h["b_awake"] and not h["r1b_ready"] and any(BUDGET_MESSAGE in e for e in h["status"])
+                   for h in held):
+            raise AssertionError(f"A was not held asleep behind the awake B: {held}")
+        budget_status = held[-1]["status"]
+        t_del = time.monotonic()
+        plane.store.delete("Pod", plane.NS, "r2b")
+        stubs.pop("r2b").stop()
+        warm = wait_for(stubs["r1b"].ready, 300, "r1b's /ready after r2b's deletion", launcher_proc,
+                        stubs["r1b"].proc)
+        budget_held_s = t_del - t_r1b
+        again = run_traffic(torch, port_a, model.vocab_size)
+        dev_a = get(port_a, "/v1/device")
+        instances = plane.by_isc()
+        problems = []
+        if again["tokens"] != cached["tokens"]:
+            problems.append(f"A's tokens changed: {first_differences(again['tokens'], cached['tokens'])}")
+        if dev_a["graph_captures"] != captures_a:
+            problems.append(f"A captured graphs again: {captures_a} -> {dev_a['graph_captures']}")
+        if not sleeping(port_b) or sleeping(port_a):
+            problems.append(f"B asleep {sleeping(port_b)}, A asleep {sleeping(port_a)}")
+        if not warm < cold:
+            problems.append(f"warm actuation {warm} s is not faster than cold {cold} s")
+        if sorted(instances) != ["isc-a", "isc-b"] or any(len(v) != 1 for v in instances.values()):
+            problems.append(f"the launcher holds {instances}, want one instance per ISC")
+        if plane.status("r1b"):
+            problems.append(f"r1b's status still says {plane.status('r1b')}")
+        if problems:
+            raise AssertionError("; ".join(problems))
+        steps["4_warm"] = {"warm_actuation_s": warm, "wake_bar_s": WAKE_BAR_S, "budget_held_s": budget_held_s,
+                           "a_wake": sleep_seconds(port_a), "b_sleep": sleep_seconds(port_b),
+                           "budget_bytes": DUALPODS_BUDGET_BYTES, "budget_status": budget_status,
+                           "held_samples": len(held), "tokens_equal_step_1": True,
+                           "graph_captures": dev_a["graph_captures"], "instances": instances}
+        emit({"phase": "dualpods_step", "step": 4, **steps["4_warm"]})
+        counts_a, _ = child_counts(port_a)
+        counts_b, _ = child_counts(port_b)
+        for name, counts in (("A", counts_a), ("B", counts_b)):
+            check_probe_launch(counts)
+            if not (counts["prefill"] and counts["replayed"]["decode_inline"]):
+                raise AssertionError(f"child {name} did not run the bucketed path's kernels: {counts}")
+
+        # 5. clean up: r1b deleted, the ISCs deleted, their instances GC'd
+        plane.store.delete("Pod", plane.NS, "r1b")
+        stubs.pop("r1b").stop()
+        wait_for(lambda: sleeping(port_a), 120, "A asleep after r1b")
+        for isc in ("isc-a", "isc-b"):
+            plane.store.delete("InferenceServerConfig", plane.NS, isc)
+        gc_s = wait_for(lambda: not plane.instances(), 120, "the controller's GC of both instances")
+    finally:
+        for stub in stubs.values():
+            stub.stop()
+        plane.stop()
+    wait_for(lambda: len(compute_apps()) == len(apps0), 60, "the children's contexts to leave the card")
+    free_after = torch.cuda.mem_get_info()[0]
+    if free_after < free_before - GIB:
+        raise AssertionError(f"{(free_before - free_after) / GIB:.2f} GiB less free after the phase than before")
+    emit({
+        "phase": "dualpods", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "gpu": {"index": index, "uuid": uuid}, "cold_actuation_s": cold, "warm_actuation_s": warm,
+        "wake_bar_s": WAKE_BAR_S, "b_cold_actuation_s": b_cold, "b_warm_actuation_s": b_warm,
+        "b_first_sleep": b_first_sleep, "budget_held_s": budget_held_s,
+        "gc_s": gc_s, "nvml_vs_smi": steps["2_asleep"], "launches": {"a": counts_a, "b": counts_b},
+        "compute_apps": {"before": apps0, "after": compute_apps()},
+        "free_before_bytes": free_before, "free_after_bytes": free_after,
+    })
+    return {"counts": (counts_a, counts_b)}
 
 
 GRAPH_PROMPT_LENS = (20, 300, 1500, 3000) * 2  # the serve traffic's lengths, 8 slots
@@ -3162,6 +3570,7 @@ def main() -> int:
         shutil.rmtree(ckpt)
         for suffix in ("-sibling", "-sibling2"):
             shutil.rmtree(ckpt.rstrip("/") + suffix, ignore_errors=True)
+    dual = dualpods_phase(torch, smi, bucketed, launched)
     graphs_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
@@ -3170,8 +3579,8 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
-    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], packed["counts"], tp2["counts"],
-            reference["counts"])
+    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], *dual["counts"],
+            packed["counts"], tp2["counts"], reference["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)

@@ -1290,7 +1290,8 @@ class EngineService:
         card that is known here: the caching allocator's reserved and
         allocated bytes, the arenas' mapped bytes, and the captured
         graphs' kernel nodes (the rest of its share, the CUDA context,
-        only the card reports)."""
+        only the card reports); and how many chunk graphs it has captured
+        (a wake must not capture again)."""
         eng = self.engine
         dev = eng.device
         name = uuid = None
@@ -1308,6 +1309,7 @@ class EngineService:
             "launches": kernel_launches(),
             "replayed": eng.graphs.replayed_launches() if eng.graphs else {},
             "memory": memory,
+            "graph_captures": eng.graph_captures,
         }
 
     def shutdown(self) -> None:

@@ -6,8 +6,8 @@ three modes, highest priority first:
 
   1. **chip-map mock** — the same chip-map file the JAX translator reads
      (a ConfigMap-shaped JSON object, node -> lines ``<index> <id>
-     [x,y[,z]]``, keyed by ``NODE_NAME``); coordinates and the
-     ``topology:``, ``origin:`` and ``slice:`` lines are read and ignored;
+     [x,y[,z]]``, keyed by ``NODE_NAME``), read as a gpu-map by
+     ``parallel/topology.py:parse_gpu_map``;
   2. **naive mock** — N synthetic cards with the JAX translator's ids, so
      the same controller fixtures drive either launcher;
   3. **real** — the machine's cards through NVML (``native/nvml.py``),
@@ -25,6 +25,7 @@ import logging
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..parallel.topology import parse_gpu_map, visible_devices_env
 logger = logging.getLogger(__name__)
 
 
@@ -52,7 +53,7 @@ class ChipTranslator:
             path = chip_map_path or os.environ.get("CHIP_MAP_PATH", "")
             if node and path and os.path.exists(path):
                 with open(path) as f:
-                    chips = parse_chip_map(json.load(f)).get(node)
+                    chips = parse_gpu_map(json.load(f)).get(node)
                 if chips is not None:
                     logger.info("chip-map mock: node %s, %s cards", node, len(chips))
                     return cls(chips, mode="chip-map-mock")
@@ -78,26 +79,7 @@ class ChipTranslator:
         told to), sorted as the JAX translator sorts its chips, and the ids
         in request order. KeyError on an unknown id."""
         indices = [self._index[cid] for cid in chip_ids]
-        return {
-            "CUDA_VISIBLE_DEVICES": ",".join(str(i) for i in sorted(indices)),
-            "CUDA_DEVICE_ORDER": "PCI_BUS_ID",
-            "FMA_CHIP_IDS": ",".join(chip_ids),
-        }
-
-
-def parse_chip_map(data: Dict[str, str]) -> Dict[str, List[Tuple[str, int]]]:
-    """node -> [(id, index)] from a chip-map ConfigMap's data, as the JAX
-    package's ``parallel/topology.py:ChipMap.parse`` reads it."""
-    out: Dict[str, List[Tuple[str, int]]] = {}
-    for node, text in data.items():
-        chips = []
-        for line in text.strip().splitlines():
-            parts = line.split()
-            if not parts or parts[0] in ("topology:", "origin:", "slice:"):
-                continue
-            chips.append((parts[1], int(parts[0])))
-        out[node] = chips
-    return out
+        return {**visible_devices_env(sorted(indices)), "FMA_CHIP_IDS": ",".join(chip_ids)}
 
 
 def mock_chip_ids(count: int, topology: str = "", node: str = "mock") -> List[Tuple[str, int]]:

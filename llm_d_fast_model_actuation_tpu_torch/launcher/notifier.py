@@ -33,11 +33,9 @@ from urllib.parse import urlencode, urlsplit
 
 from ..api.constants import INSTANCE_SIGNATURE_ANNOTATION as SIGNATURE_ANNOTATION
 from ..utils.events import RevisionTooOld
-from .http11 import read_chunks, read_headers
+from .http11 import body_chunks, open_request
 
 logger = logging.getLogger(__name__)
-
-MAX_HEADER_LINES = 100
 
 #: `watcher(since_revision)` -> a CONNECTED async iterator of watch events.
 #: Connection (or revision-cursor capture) must be effective at return time.
@@ -201,31 +199,12 @@ class HttpSource:
         self._open.clear()
 
     async def _get(self, path: str) -> Tuple[int, Dict[str, str], asyncio.StreamReader, asyncio.StreamWriter]:
-        reader, writer = await asyncio.open_connection(self._host, self._port)
-        writer.write(
-            f"GET {self._prefix}{path} HTTP/1.1\r\nHost: {self._host}:{self._port}\r\n"
-            "Connection: close\r\n\r\n".encode("latin-1")
-        )
-        await writer.drain()
-        status = int((await reader.readline()).split()[1])
-        return status, await read_headers(reader, MAX_HEADER_LINES), reader, writer
-
-    @staticmethod
-    async def _chunks(headers: Dict[str, str], reader: asyncio.StreamReader) -> AsyncIterator[bytes]:
-        """The response body as it arrives: chunk by chunk when chunked,
-        else what ``Content-Length`` says (or up to EOF)."""
-        if headers.get("transfer-encoding", "").lower() == "chunked":
-            async for chunk in read_chunks(reader):
-                yield chunk
-        elif "content-length" in headers:
-            yield await reader.readexactly(int(headers["content-length"]))
-        else:
-            yield await reader.read()
+        return await open_request("GET", f"http://{self._host}:{self._port}{self._prefix}{path}")
 
     async def lister(self) -> List[Dict[str, Any]]:
         status, headers, reader, writer = await self._get("/v2/vllm/instances")
         try:
-            body = b"".join([c async for c in self._chunks(headers, reader)])
+            body = b"".join([c async for c in body_chunks(headers, reader)])
         finally:
             writer.close()
         if status != 200:
@@ -251,7 +230,7 @@ class HttpSource:
         async def gen() -> AsyncIterator[Any]:
             pending = b""
             try:
-                async for chunk in self._chunks(headers, reader):
+                async for chunk in body_chunks(headers, reader):
                     pending += chunk
                     *lines, pending = pending.split(b"\n")
                     for line in lines:

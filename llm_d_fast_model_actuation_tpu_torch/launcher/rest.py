@@ -37,19 +37,25 @@ import json
 import logging
 import re
 from http import HTTPStatus
-from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
-from urllib.parse import parse_qsl, unquote, urlsplit
+from typing import AsyncIterator, Optional, Tuple
 
 from ..utils.events import RevisionTooOld
-from .http11 import FramingError, read_chunks, read_headers
+from .http11 import (  # noqa: F401 — the server's names, importable from here as before
+    App,
+    BadRequestLine,
+    HTTPError,
+    Request,
+    Response,
+    StreamResponse,
+    json_response,
+    read_request,
+)
 from .instance import InstanceConfig, InvalidInstanceConfig, LogRangeNotAvailable
 from .manager import ChipConflict, EngineProcessManager, PrefetchFailed, SwapFailed
 
 logger = logging.getLogger(__name__)
 
 _RANGE_RE = re.compile(r"^bytes=(\d+)-(\d+)?$")
-MAX_HEADER_LINES = 100
-MAX_BODY_BYTES = 16 << 20
 
 
 def parse_range_header(value: str) -> Tuple[int, Optional[int]]:
@@ -64,108 +70,12 @@ def parse_range_header(value: str) -> Tuple[int, Optional[int]]:
     return start, end
 
 
-class Request:
-    def __init__(self, method: str, target: str, headers: Dict[str, str], body: bytes) -> None:
-        url = urlsplit(target)
-        self.method = method
-        self.path = unquote(url.path)
-        self.query = dict(reversed(parse_qsl(url.query, keep_blank_values=True)))  # first value wins
-        self.headers = headers  # lower-case names
-        self.body = body
-        self.match_info: Dict[str, str] = {}
-
-    def json(self) -> Any:
-        return json.loads(self.body.decode())
-
-
-class Response:
-    def __init__(self, status: int = 200, body: bytes = b"", content_type: str = "application/octet-stream",
-                 headers: Optional[Dict[str, str]] = None) -> None:
-        self.status = status
-        self.body = body
-        self.headers = {"Content-Type": content_type, **(headers or {})}
-
-
-class StreamResponse:
-    """A 200 whose body is written chunked as ``chunks`` yields."""
-
-    def __init__(self, chunks: AsyncIterator[bytes], headers: Dict[str, str]) -> None:
-        self.status = 200
-        self.chunks = chunks
-        self.headers = headers
-
-
-class HTTPError(Exception):
-    """An error answer, with aiohttp's plain-text body (``text``, else
-    ``"<code>: <reason>"``)."""
-
-    def __init__(self, status: int, text: Optional[str] = None, headers: Optional[Dict[str, str]] = None) -> None:
-        super().__init__(text)
-        self.status = status
-        self.text = text if text is not None else f"{status}: {HTTPStatus(status).phrase}"
-        self.headers = headers or {}
-
-    def response(self) -> Response:
-        return Response(self.status, self.text.encode(), "text/plain; charset=utf-8", self.headers)
-
-
-def json_response(data: Any, status: int = 200) -> Response:
-    return Response(status, json.dumps(data).encode(), "application/json; charset=utf-8")
-
-
-class BadRequestLine(FramingError):
-    """The connection did not send an HTTP/1.x request."""
-
-
-async def read_request(reader: asyncio.StreamReader) -> Optional[Request]:
-    """The next request on a connection; None at a clean EOF."""
-    line = await reader.readline()
-    if not line:
-        return None
-    parts = line.decode("latin-1").rstrip("\r\n").split(" ")
-    if len(parts) != 3 or not parts[2].startswith("HTTP/1."):
-        raise BadRequestLine(line[:80])
-    method, target, version = parts
-    headers = {"_version": version, **await read_headers(reader, MAX_HEADER_LINES)}
-    if headers.get("transfer-encoding", "").lower() == "chunked":
-        body = b""
-        async for chunk in read_chunks(reader):
-            body += chunk
-            if len(body) > MAX_BODY_BYTES:
-                raise BadRequestLine(b"body too large")
-    else:
-        n = int(headers.get("content-length") or 0)
-        if n > MAX_BODY_BYTES:
-            raise BadRequestLine(b"body too large")
-        body = await reader.readexactly(n) if n else b""
-    return Request(method, target, headers, body)
-
-
-def _keep_alive(req: Request) -> bool:
-    conn = req.headers.get("connection", "").lower()
-    if req.headers["_version"] == "HTTP/1.0":
-        return conn == "keep-alive"
-    return conn != "close"
-
-
-def _head(status: int, headers: Dict[str, str]) -> bytes:
-    lines = [f"HTTP/1.1 {status} {HTTPStatus(status).phrase}"]
-    lines += [f"{k}: {v}" for k, v in headers.items()]
-    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-
-
-Handler = Callable[[Request], Any]
-
-
-class LauncherApp:
+class LauncherApp(App):
     """The routes over one manager, and the server that answers them."""
 
     def __init__(self, manager: EngineProcessManager) -> None:
         self.manager = manager
-        self.routes: List[Tuple[str, re.Pattern, Handler]] = []
-        self._server: Optional[asyncio.base_events.Server] = None
-        self._connections: set = set()
-        for method, path, handler in (
+        super().__init__([
             ("GET", "/health", self.health),
             ("GET", "/", self.index),
             ("GET", "/v2/vllm/instances/watch", self.watch),
@@ -180,32 +90,7 @@ class LauncherApp:
             ("POST", "/v2/vllm/instances/{instance_id}/prefetch", self.prefetch_instance),
             ("GET", "/v2/vllm/instances/{instance_id}/prefetch", self.get_instance_prefetch),
             ("DELETE", "/v2/vllm/instances/{instance_id}/prefetch", self.abort_instance_prefetch),
-        ):
-            pattern = re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^{}/]+)", path) + "$")
-            self.routes.append((method, pattern, handler))
-
-    # -- routing ---------------------------------------------------------------
-
-    async def dispatch(self, req: Request):
-        allowed = []
-        for method, pattern, handler in self.routes:
-            m = pattern.match(req.path)
-            if m is None:
-                continue
-            if method != req.method:
-                allowed.append(method)
-                continue
-            req.match_info = m.groupdict()
-            try:
-                return await handler(req)
-            except HTTPError as e:
-                return e.response()
-            except Exception:  # noqa: BLE001 — the request's boundary
-                logger.exception("%s %s failed", req.method, req.path)
-                return HTTPError(500).response()
-        if allowed:
-            return HTTPError(405, headers={"Allow": ",".join(allowed)}).response()
-        return HTTPError(404).response()
+        ])
 
     async def _run(self, fn, *args):
         return await asyncio.get_running_loop().run_in_executor(None, fn, *args)
@@ -443,73 +328,8 @@ class LauncherApp:
         if instance is not None:
             instance.start_sentinel_watcher(self.manager._on_instance_stopped)
 
-    # -- the server ------------------------------------------------------------
-
-    async def start(self, host: str, port: int) -> int:
-        """Listen on ``host:port`` (0 picks a free port); returns the port."""
-        self._server = await asyncio.start_server(self._connection, host, port)
-        return self._server.sockets[0].getsockname()[1]
-
     async def close(self) -> None:
         """Stop listening, drop the open connections (watch streams too),
         and stop every instance (the JAX launcher's on_shutdown)."""
-        if self._server is not None:
-            self._server.close()
-        for task in list(self._connections):
-            task.cancel()
-        await asyncio.gather(*self._connections, return_exceptions=True)
-        if self._server is not None:
-            await self._server.wait_closed()
+        await super().close()
         await self._run(self.manager.stop_all_instances)
-
-    async def _connection(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
-        task = asyncio.current_task()
-        self._connections.add(task)
-        try:
-            while True:
-                try:
-                    req = await read_request(reader)
-                except (FramingError, ValueError):
-                    writer.write(_head(400, {"Content-Length": "0", "Connection": "close"}))
-                    break
-                if req is None:
-                    break
-                resp = await self.dispatch(req)
-                if isinstance(resp, StreamResponse):
-                    await self._stream(resp, reader, writer)
-                    break
-                keep = _keep_alive(req)
-                headers = {**resp.headers, "Content-Length": str(len(resp.body))}
-                if not keep:
-                    headers["Connection"] = "close"
-                writer.write(_head(resp.status, headers) + resp.body)
-                await writer.drain()
-                if not keep:
-                    break
-        except (ConnectionError, asyncio.IncompleteReadError):
-            pass
-        finally:
-            self._connections.discard(task)
-            writer.close()
-
-    async def _stream(self, resp: StreamResponse, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
-        """Write ``resp`` chunked until its events end or the client goes
-        away (its side of the connection reaches EOF)."""
-        writer.write(_head(resp.status, {**resp.headers, "Transfer-Encoding": "chunked", "Connection": "close"}))
-        await writer.drain()
-
-        async def pump() -> None:
-            async for chunk in resp.chunks:
-                writer.write(b"%x\r\n%s\r\n" % (len(chunk), chunk))
-                await writer.drain()
-            writer.write(b"0\r\n\r\n")
-            await writer.drain()
-
-        tasks = [asyncio.ensure_future(pump()), asyncio.ensure_future(reader.read())]
-        try:
-            await asyncio.wait(tasks, return_when=asyncio.FIRST_COMPLETED)
-        finally:
-            for t in tasks:
-                t.cancel()
-            await asyncio.gather(*tasks, return_exceptions=True)
-            await resp.chunks.aclose()

@@ -1,14 +1,4 @@
-"""Parallelism: the tensor-parallel mesh and its two collectives."""
-
-from .mesh import (  # noqa: F401
-    AXES,
-    LOGICAL_RULES,
-    MeshPlan,
-    TpMesh,
-    make_mesh,
-    plan_for_devices,
-    serving_mesh,
-    shard,
-    spec_for,
-    tp_dim,
-)
+"""Parallelism: the tensor-parallel mesh and its two collectives
+(``mesh``, which imports torch), and card identity (``topology``, which
+does not: the control plane reads the gpu-map through it). Import the
+module you need; the package itself imports neither."""

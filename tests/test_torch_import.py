@@ -96,8 +96,33 @@ def test_the_walk_covers_the_parallel_package():
     mods = set(_modules())
     for m in ("parallel", "parallel.mesh", "models.llama", "ops.cuda.ragged", "engine.server", "engine.arena",
               "engine.graphs", "engine.tokenizer", "models.hf", "models.safetensors", "launcher", "launcher.main",
-              "launcher.rest", "launcher.notifier", "launcher.http11", "native.nvml", "utils.events", "api.constants"):
+              "launcher.rest", "launcher.notifier", "launcher.http11", "native.nvml", "utils.events", "api.constants",
+              *CONTROL_PLANE):
         assert f"llm_d_fast_model_actuation_tpu_torch.{m}" in mods
+
+
+#: the dual-pods control plane: none of it needs torch
+CONTROL_PLANE = ("api", "api.spi", "api.types", "utils.hashing", "utils.syncbarrier", "parallel.topology",
+                 "requester", "requester.spi", "requester.probes", "requester.allocation", "requester.main",
+                 "controller", "controller.store", "controller.kubestore", "controller.metrics",
+                 "controller.clients", "controller.directpath", "controller.populator", "controller.dualpods",
+                 "controller.__main__", "testing")
+
+
+def test_the_control_plane_imports_without_torch():
+    code = (
+        "import sys\n"
+        f"for m in {list(FORBIDDEN + LAZY) + ['torch']!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {['llm_d_fast_model_actuation_tpu_torch.' + m for m in CONTROL_PLANE]!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_forbidden_match_is_exact_or_dotted():
