@@ -117,7 +117,10 @@ exits non-zero and never prints the final ``ok`` line):
      ``h2d_s``, ``capture_s`` printed); then back to A, a pool hit. Every
      cold build prints its readers, ``read_s``, its load and the captures
      after it, and how long its digests, hashed beside the captures and
-     serving, still ran once it served;
+     serving, still ran once it served. Before each pool hit, ``GET
+     /v1/costs`` prices it: its ``predicted_bytes`` must equal the
+     swap's ``bytes_moved`` (``predicted_s`` printed beside the swap's
+     seconds);
   launcher — the port's launcher as its own process (``python -m
      llm_d_fast_model_actuation_tpu_torch.launcher.main``, real mode:
      the card by NVML, preload on, ``--restart-budget 1``), driven only
@@ -149,8 +152,35 @@ exits non-zero and never prints the final ``ok`` line):
      RESTARTING and RESTARTED on the watch stream, and the restarted
      child phase 4's tokens again; DELETE of both gives ``terminated``,
      the compute processes and the card's free memory (within 1 GiB) as
-     before. Then a launcher with ``--no-preload`` spawns one instance,
-     for its ``spawn_to_healthy_s`` (not gated);
+     before. The detailed instance list after ``a``'s two swaps holds
+     ``a``'s cost-oracle summary under ``ledger.costs`` (its two swaps
+     recorded, every priced one byte-exact). Then a launcher with
+     ``--no-preload`` spawns one instance, for its
+     ``spawn_to_healthy_s`` (not gated);
+  quant — ``--sleep-quant int8`` on one service over the swap phase's
+     checkpoints A, A' and A'' (``quant_phase``): layer 0 of ``w_gate``
+     and ``wq`` quantized on the card and by the host twin at int8 and
+     fp8, payload, scale and dequantized weights bit-equal, one slice's
+     seconds each way; three level-1 cycles, each after serve's traffic:
+     ``bytes_offloaded`` exactly ``QUANT_WAKE_BYTES`` (13,381,672,960)
+     against ``QUANT_FULL_BYTES`` (20,355,489,792), memory while asleep
+     within serve's gates, no capture and no state moved, and from cycle
+     2 on the probe's greedy tokens and a fingerprint of every quantized
+     stack equal to cycle 1's, and after cycle 1 a few layer slices
+     (``QUANT_SAMPLES``) bit-equal to the host twin's int8 round trip of
+     the weights before the first sleep; the wake's seconds and GiB/s
+     beside serve's full-precision wake, the first sleep's ``pin_s``, the
+     first cycle's logprob drift against the full-precision weights (not
+     gated). Then A -> A' (cold), A' -> A (pool, the delta), A -> A' ->
+     A with the content hash off (full, both ways quantized; A then
+     serves cycle 1's tokens and quantized stacks again) and A''
+     prefetched with int8 staging (exactly ``QUANT_PREFETCH_BYTES`` of
+     host memory) and swapped to (``prefetched``; its ``QUANT_SAMPLES``
+     equal to the same round trip): each swap's bytes
+     equal to ``/v1/costs``' prediction read just before it and, for a
+     pool hit, to ``plan_swap``'s; ``bytes_saved_quant``, seconds and
+     the pool's bytes printed. Then each ``/v1/actuations`` record's
+     errors, every priced one byte-exact;
   dualpods — two Llama-3-8B engines time-sharing the card through the
      port's control plane: the dual-pods controller and the launcher
      populator in this process over an ``InMemoryStore`` (no apiserver
@@ -262,6 +292,7 @@ import sys
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -880,6 +911,13 @@ def get(port: int, path: str):
         return json.loads(r.read())
 
 
+def costs_row(port: int, model: str) -> dict:
+    """``GET /v1/costs?model=`` and the candidate row pricing a swap to
+    ``model``."""
+    view = get(port, f"/v1/costs?model={urllib.parse.quote(model, safe='')}")
+    return next(c for c in view["candidates"] if c["model"] == model)
+
+
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from llm_d_fast_model_actuation_tpu_torch.ops import cuda
@@ -1191,7 +1229,8 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
             raise AssertionError("server is not healthy")
         written = write_hf_checkpoint(torch, eng.model, ckpt)
         return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"],
-                "prompts": traffic["request_prompts"], "bytes_offloaded": nbytes, "checkpoint": written}
+                "prompts": traffic["request_prompts"], "bytes_offloaded": nbytes, "checkpoint": written,
+                "wake_cycles": cycles}
     finally:
         stop_service(torch, service, server)
 
@@ -1688,12 +1727,14 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
         gold[model] = {"cold": cold, "hit": hit}
 
     def swap(model: str, tier: str, plan_key: str = ""):
-        plan = None
+        plan = priced = None
         if tier == "pool":
             entry = service.model_pool.peek(model)
             rt = service._runtime
             plan = sleep_mod.plan_swap(rt.sleeper, entry.runtime.sleeper, bucket_bytes=256 * MIB,
                                        out_digests=service._digests(rt), in_digests=service._digests(entry.runtime))
+            # the cost oracle's price of the same swap, read just before it
+            priced = costs_row(port, model)
         previous = service.model
         out = post(port, "/v1/swap", {"model": model, "request_id": f"swap-{len(steps)}"})
         if not out.get("swapped") or out["tier"] != tier or out["model"] != model:
@@ -1701,6 +1742,9 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
         if plan is not None and any(out[k] != plan[k] for k in ("bytes_out", "bytes_in", "bytes_moved", "bytes_deduped",
                                                                "deduped_leaves", "buckets_out", "buckets_in")):
             raise AssertionError(f"swap {previous} -> {model} moved other bytes than planned: {out} vs {plan}")
+        if priced is not None and (priced["tier"] != "pool" or priced["predicted_bytes"] != out["bytes_moved"]):
+            raise AssertionError(f"swap {previous} -> {model} moved {out['bytes_moved']} bytes, /v1/costs "
+                                 f"predicted {priced}")
         note_engine()
         if tier == "pool" and not out["graphs_kept"]:
             # the exec pool released its graphs: captured again, all four
@@ -1718,6 +1762,7 @@ def swap_phase(torch, smi: str, ckpt: str, bucketed: dict) -> dict:
             "handover_s", "build_s", "load_s", "read_s", "workers", "capture_s", "warmup", "graphs_kept",
             "recapture_s", "bytes_out", "bytes_in", "bytes_moved", "bytes_deduped", "deduped_leaves",
             "buckets_out", "buckets_in")}, "planned_bytes_moved": plan and plan["bytes_moved"],
+            "predicted_bytes": priced and priced["predicted_bytes"], "predicted_s": priced and priced["predicted_s"],
             "pool_bytes_used": out["pool"]["bytes_used"], "pooled_engines": pooled,
             "exec_pool": {k: out["exec_pool"][k] for k in ("entries", "bytes_used", "budget_bytes", "evictions")},
             "host_mem_available_bytes": mem_available(), "tokens_equal": model in gold and len(steps) > 0}
@@ -2288,6 +2333,14 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
                 if got != swapped["gold"][sibling]["cold"]:
                     raise AssertionError(f"a serves the sibling with other tokens than the swap phase: {got[:8]}")
         swap_events = await_events(f"{launcher.url}/v2/vllm/instances/watch?since={rev}", ["SWAPPED", "SWAPPED"], 60)
+        # the detailed list lifts the reporting child's cost-oracle summary
+        # into ledger.costs: its swaps are recorded, priced, byte-exact
+        ledger_costs = request(f"{launcher.url}/v2/vllm/instances")[1]["ledger"].get("costs") or {}
+        a_costs = ledger_costs.get("a") or {}
+        prediction = a_costs.get("prediction") or {}
+        if (set(a_costs) != {"bandwidth_gibps", "prediction"} or prediction.get("by_kind", {}).get("swap") != 2
+                or prediction.get("byte_exact_frac") != 1.0):
+            raise AssertionError(f"the launcher's ledger.costs for a: {ledger_costs}")
         if post(port_a, "/v1/completions", probe)["choices"][0]["token_ids"] != before:
             raise AssertionError("instance a's tokens changed across its swaps")
 
@@ -2367,6 +2420,7 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         "asleep_limit_bytes": limit["limit_bytes"], "asleep_limit": limit, "asleep_split": split, "ladder": ladder, "b_spawn_to_healthy_s": spawn_b_s, "b_tokens": b_tokens[:8],
         "a_wake_s": woke["last_wake_seconds"], "a_tokens_identical_after_b": True,
         "swap_verb": verbs, "swap_events": [e["type"] for e in swap_events], "prefetch_verb": prefetch_verb,
+        "ledger_costs_a": a_costs,
         "restart_events": [{k: e["object"].get(k) for k in ("revision", "pid", "exit_code", "restart_attempt")} | {"type": e["type"]}
                            for e in events],
         "restart_to_healthy_s": restart_s, "restarted_tokens_equal_serve": True,
@@ -2374,6 +2428,277 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         "no_preload_spawn_to_healthy_s": spawn_plain_s, "no_preload_launcher_ready_s": plain.ready_s,
     })
     return {"counts": counts, "probe": probe, "b_tokens": b_tokens}
+
+
+# -- phase quant: compressed actuation and the cost oracle ---------------------
+
+#: Llama-3-8B at 2048 pages under --sleep-quant int8 with the hot head, from
+#: the shapes: the seven layer stacks cross as 6,979,321,856 B of int8
+#: payload and 5,505,024 B of f32 scales; embed, lm_head, the norms and the
+#: KV pool at full precision
+QUANT_WAKE_BYTES = 13_381_672_960
+#: the same state at full precision (serve's bytes_offloaded)
+QUANT_FULL_BYTES = 20_355_489_792
+#: a prefetch staged at int8: the parameters only, the stacks as payloads
+QUANT_PREFETCH_BYTES = 9_086_705_664
+#: the leaves a quantized transfer compresses (the hot head kept)
+QUANT_LEAVES = tuple(f"layers.{w}" for w in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+#: layer slices whose weights after a first quantized offload's wake, and
+#: after a prefetch staged at int8, must equal the host twin's int8 round
+#: trip of the full-precision checkpoint's
+QUANT_SAMPLES = (("layers.w_gate", 0), ("layers.wq", 31), ("layers.w_down", 17), ("layers.wv", 5))
+
+
+def quant_reference(torch, params) -> dict:
+    """``QUANT_SAMPLES``' slices of the full-precision weights, rounded as
+    a first int8 offload rounds them, by the host twin."""
+    from llm_d_fast_model_actuation_tpu_torch.models import quant as tq
+
+    return {(n, l): tq.dequantize_leaf_host(*tq.quantize_leaf_host(params[n][l].detach().cpu(), "int8"))
+            for n, l in QUANT_SAMPLES}
+
+
+def check_quant_samples(torch, engine, reference: dict, where: str) -> None:
+    """The card's weights at ``QUANT_SAMPLES`` bit-equal to ``reference``
+    (what the dequantization on the card must have written)."""
+    params = dict(engine.model.named_parameters())
+    for (n, l), want in reference.items():
+        got = params[n][l].detach().cpu()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"{where}: {n}[{l}] on the card is not the host twin's int8 round trip of the "
+                                 f"checkpoint's weights")
+
+
+def quant_twin(torch, eng) -> dict:
+    """Layer 0 of ``w_gate`` and of ``wq`` quantized on the card and by the
+    host twin, at int8 and at fp8: payload, scale and dequantized weights
+    bit-equal, and one layer slice's seconds each way (the second call,
+    synchronized)."""
+    from llm_d_fast_model_actuation_tpu_torch.models import quant as tq
+
+    params = dict(eng.model.named_parameters())
+    out = {}
+    for name in ("layers.w_gate", "layers.wq"):
+        piece = params[name][0:1].detach()
+        host = piece.cpu()
+        for mode in ("int8", "fp8"):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, m = tq.quantize_leaf(piece, mode)
+                torch.cuda.synchronize()
+                quantize_s = time.perf_counter() - t0
+                back = torch.empty_like(piece)
+                t0 = time.perf_counter()
+                tq.dequantize_leaf(p, m, out=back)
+                torch.cuda.synchronize()
+                dequantize_s = time.perf_counter() - t0
+            hp, hm = tq.quantize_leaf_host(host, mode)
+            hback = tq.dequantize_leaf_host(hp, hm)
+            same = torch.equal(p.cpu().view(torch.uint8), hp.view(torch.uint8))
+            if mode == "int8":
+                same = same and torch.equal(m.scale.cpu().view(torch.int32), hm.scale.view(torch.int32))
+            same_back = torch.equal(back.cpu().view(torch.int16), hback.view(torch.int16))
+            if not (same and same_back):
+                raise AssertionError(f"{name}[0] at {mode}: the card's payload/scale equal to the host twin's: {same}, "
+                                     f"dequantized: {same_back}")
+            out[f"{name}[0]:{mode}"] = {"elements": piece.numel(), "bit_equal": True,
+                                        "quantize_s": quantize_s, "dequantize_s": dequantize_s}
+            del p, m, back
+    return out
+
+
+def quant_phase(torch, smi: str, ckpt: str, bucketed: dict, swapped: dict) -> dict:
+    """Compressed actuation (``--sleep-quant int8``) and the cost oracle on
+    one service over the swap phase's checkpoints A, A' and A''
+    (Llama-3-8B, full width and depth). The card's quantization against
+    the host twin (``quant_twin``); three level-1 cycles, each after
+    serve's traffic: ``bytes_offloaded`` exactly ``QUANT_WAKE_BYTES``
+    against ``QUANT_FULL_BYTES``, the memory while asleep within serve's
+    gates, no capture and no state tensor moved, and from cycle 2 on the
+    greedy tokens of a short probe (a cold prefill: no full page to hit
+    the prefix cache) and a fingerprint of every quantized leaf equal to
+    cycle 1's, and after cycle 1 ``QUANT_SAMPLES`` equal to the host
+    twin's round trip (``check_quant_samples``); the wake's seconds and
+    GiB/s beside serve's full-precision wake, the first sleep's
+    ``pin_s``, and the first cycle's logprob
+    drift against the full-precision weights (random weights: reported,
+    not gated). Then swaps, each gated to move what ``/v1/costs``
+    predicted just before it (and, for a pool hit, what ``plan_swap``
+    plans): A -> A' (cold), A' -> A (pool, by digest: the delta), A ->
+    A' -> A with the content hash off (full, both directions quantized
+    with A's cached scales: A's tokens and quantized stacks then equal
+    cycle 1's), then A'' prefetched with int8 staging (its pooled host
+    bytes exactly ``QUANT_PREFETCH_BYTES``) and swapped to
+    (``prefetched``, dequantized on the card; ``QUANT_SAMPLES`` equal to
+    the host twin's round trip, since A'' shares A's layer stacks). Then
+    every ``/v1/actuations`` record's errors."""
+    from llm_d_fast_model_actuation_tpu_torch.engine import sleep as sleep_mod
+
+    t_phase = time.monotonic()
+    model_a, model_b, model_c = f"hf:{ckpt}", f"hf:{swapped['sibling']}", f"hf:{swapped['sibling2']}"
+    opts = (f"--model {model_a} --num-pages 2048 --seed 0 --max-batch 8 --device cuda "
+            f"--model-pool-mib {swapped['pool_mib']} --content-hash on --swap-bucket-mib 256 "
+            f"--exec-pool-mib {EXEC_POOL_MIB} --sleep-quant int8")
+    service, server, init_s, free_before = start_service(torch, opts)
+    port = server.server_address[1]
+    engines = {}
+
+    def note_engine():
+        engines.setdefault(id(service.engine), service.engine)
+
+    try:
+        note_engine()
+        eng = service.engine
+        twin = quant_twin(torch, eng)
+        free_memory(torch)
+        vocab = eng.cfg.model.vocab_size
+        probe = {"prompt": bucketed["prompts"][0][:12], "max_tokens": 32, "logprobs": True, "ignore_eos": True}
+
+        def probed():
+            c = post(port, "/v1/completions", probe)["choices"][0]
+            return c["token_ids"], c["logprobs"]["token_logprobs"]
+
+        fp_tokens, fp_logprobs = probed()
+        params = dict(eng.model.named_parameters())
+        reference = quant_reference(torch, params)
+        ptrs, captures = state_ptrs(eng), eng.graph_captures
+        cycles, first = [], None
+        for c in range(3):
+            traffic = run_traffic(torch, port, vocab)
+            info = post(port, "/sleep?level=1")
+            asleep = check_asleep(torch, eng, free_before)
+            reserved = torch.cuda.memory_reserved()
+            if reserved >= GIB:
+                raise AssertionError(f"{reserved / GIB:.2f} GiB still reserved while asleep after a quantized sleep")
+            if (info["quant"] != "int8" or info["bytes_offloaded"] != QUANT_WAKE_BYTES
+                    or info["bytes_offloaded_full"] != QUANT_FULL_BYTES):
+                raise AssertionError(f"a quantized sleep offloaded {info}, want {QUANT_WAKE_BYTES} of {QUANT_FULL_BYTES}")
+            st = service.sleeper.stats
+            pin_s, sleep_transfer_s = st.last_pin_seconds, st.last_sleep_transfer_s
+            woke = post(port, "/wake_up")
+            tokens, logprobs = probed()
+            prints = fingerprint(torch, [params[n] for n in QUANT_LEAVES])
+            if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+                raise AssertionError("a quantized sleep/wake cycle re-captured a graph or moved a state tensor")
+            if first is None:
+                # the first offload's rounding and the wake's
+                # dequantization on the card, against the host twin
+                check_quant_samples(torch, eng, reference, "after the first quantized wake")
+                first = (tokens, prints)
+                same = [i for i, (a, b) in enumerate(zip(tokens, fp_tokens)) if a == b]
+                drift = {"tokens_equal_fp": tokens == fp_tokens, "first_difference": next(
+                    (i for i, (a, b) in enumerate(zip(tokens, fp_tokens)) if a != b), None),
+                    "max_abs_logprob_drift": max((abs(logprobs[i] - fp_logprobs[i]) for i in same), default=None)}
+            elif (tokens, prints) != first:
+                raise AssertionError(f"quantized cycle {c + 1} changed the tokens or the quantized leaves: lossy more "
+                                     f"than once")
+            cycles.append({"sleep_s": info["last_sleep_seconds"], "sleep_transfer_s": sleep_transfer_s,
+                           "sleep_pin_s": pin_s, "wake_s": woke["last_wake_seconds"],
+                           "wake_gib_per_s": info["bytes_offloaded"] / GIB / woke["last_wake_seconds"],
+                           "wake_map_s": service.sleeper.stats.wake_map_s,
+                           "reserved_while_asleep_bytes": reserved, **asleep,
+                           "traffic_batch_tok_per_s": traffic["summary"]["batch_tok_per_s"]})
+        fp_wakes = [w["wake_s"] for w in bucketed["wake_cycles"]]
+
+        # swaps, each priced by /v1/costs just before it
+        steps = []
+
+        def qswap(model: str, tier: str, with_plan: bool = False):
+            plan = None
+            if with_plan:
+                entry = service.model_pool.peek(model)
+                rt = service._runtime
+                digests = service._content_hash
+                plan = service._on_loop(lambda: sleep_mod.plan_swap(
+                    rt.sleeper, entry.runtime.sleeper, bucket_bytes=256 * MIB,
+                    out_digests=service._digests(rt) if digests else None,
+                    in_digests=service._digests(entry.runtime) if digests else None, quant="int8"))
+            priced = costs_row(port, model)
+            previous = service.model
+            out = post(port, "/v1/swap", {"model": model, "request_id": f"quant-{len(steps)}"})
+            note_engine()
+            if not out.get("swapped") or out["tier"] != tier or priced["tier"] != tier:
+                raise AssertionError(f"quantized swap {previous} -> {model}: want tier {tier}, got {out} (priced {priced})")
+            if out["bytes_moved"] != priced["predicted_bytes"] or (plan and out["bytes_moved"] != plan["bytes_moved"]):
+                raise AssertionError(f"quantized swap {previous} -> {model} moved {out['bytes_moved']} bytes, /v1/costs "
+                                     f"predicted {priced['predicted_bytes']}, the plan {plan and plan['bytes_moved']}")
+            if out["quant"] != "int8":
+                raise AssertionError(f"swap {previous} -> {model} under --sleep-quant int8 reports quant {out['quant']}")
+            step = {"from": previous, "to": model, "tier": tier, **{k: out.get(k) for k in (
+                "bytes_moved", "bytes_out", "bytes_in", "bytes_full", "bytes_saved_quant", "quant_leaves",
+                "bytes_deduped", "swap_total_s", "transfer_s", "d2h_s", "h2d_s", "pin_s", "build_s", "capture_s")},
+                "planned_bytes_moved": plan and plan["bytes_moved"], "predicted_bytes": priced["predicted_bytes"],
+                "predicted_s": priced["predicted_s"], "measured": priced["measured"],
+                "pool_bytes_used": out["pool"]["bytes_used"], "tokens": probed()[0][:8]}
+            steps.append(step)
+            progress(f"quantized swap {previous} -> {model}", tier=tier, bytes_moved=out["bytes_moved"])
+            return out
+
+        qswap(model_b, "cold")
+        delta = qswap(model_a, "pool", with_plan=True)
+        # the full transfers: the digests off, both directions quantized.
+        # A leaves and comes back quantized with the scales its first
+        # offload cached, so it must serve cycle 1's weights again
+        service._on_loop(lambda: setattr(service, "_content_hash", False))
+        try:
+            qswap(model_b, "pool", with_plan=True)
+            qswap(model_a, "pool", with_plan=True)
+        finally:
+            service._on_loop(lambda: setattr(service, "_content_hash", True))
+        round_trip = (probed()[0], fingerprint(torch, [dict(service.engine.model.named_parameters())[n]
+                                                       for n in QUANT_LEAVES]))
+        if round_trip != first:
+            raise AssertionError("A after a quantized A -> A' -> A round trip does not serve its first quantized "
+                                 "wake's tokens and weights")
+        started = post(port, "/v1/prefetch", {"model": model_c})
+        staged = prefetch_until_done(port, timeout=600)
+        entry = service.model_pool.peek(model_c)
+        if (staged["state"] != "completed" or staged.get("quant") != "int8" or staged["bytes"] != QUANT_PREFETCH_BYTES
+                or entry is None or entry.nbytes != QUANT_PREFETCH_BYTES):
+            raise AssertionError(f"the int8 prefetch of A'' staged {staged}, want {QUANT_PREFETCH_BYTES} host bytes")
+        prefetched = qswap(model_c, "prefetched")
+        if prefetched["bytes_in"] != QUANT_FULL_BYTES or not prefetched.get("prefetched"):
+            raise AssertionError(f"the swap to the prefetched A'' built {prefetched['bytes_in']} bytes of state")
+        # A'' shares A's layer stacks: staged at int8 on the host and
+        # dequantized on the card, they are A's first rounding
+        check_quant_samples(torch, service.engine, reference, "after the swap to the int8-prefetched A''")
+        actuations = get(port, "/v1/actuations")
+        records = [{k: r.get(k) for k in ("seq", "kind", "tier", "outcome", "actual_bytes", "predicted_bytes",
+                                          "actual_s", "predicted_s", "measured", "bytes_error_ratio",
+                                          "seconds_error_ratio")} for r in actuations["records"]]
+        if actuations["summary"]["byte_exact_frac"] != 1.0:
+            raise AssertionError(f"the oracle's bytes missed: {actuations['summary']}")
+        replayed: dict = {}
+        for e in engines.values():
+            for name, n in (e.graphs.replayed_launches() if e.graphs else {}).items():
+                replayed[name] = replayed.get(name, 0) + n
+        counts = add_replayed(read_counts(), replayed)
+        decode = sum(e.cfg.model.num_layers * e.decode_steps for e in engines.values())
+        prefill = sum(e.cfg.model.num_layers * e.cold_prefills for e in engines.values())
+        if (counts["probe"] != service.builds_total or counts["decode_inline"] != decode or counts["prefill"] != prefill
+                or not counts["replayed"]["decode_inline"]):
+            raise AssertionError(f"the quant phase's launches {counts} against {service.builds_total} builds, "
+                                 f"{decode} decode and {prefill} prefill layer-steps")
+        emit({
+            "phase": "quant", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
+            "mode": "int8", "hot_head": True, "twin": twin,
+            "bytes_offloaded": QUANT_WAKE_BYTES, "bytes_offloaded_full": QUANT_FULL_BYTES,
+            "bytes_offloaded_share": QUANT_WAKE_BYTES / QUANT_FULL_BYTES, "cycles": cycles,
+            "fp_wake_s": fp_wakes, "fp_wake_gib_per_s": [QUANT_FULL_BYTES / GIB / w for w in fp_wakes],
+            "lossy_once": True, "round_trip_equals_cycle_1": True,
+            "samples_equal_host_twin": [f"{n}[{l}]" for n, l in QUANT_SAMPLES],
+            "graph_captures_unchanged": True, "state_addresses_unchanged": len(ptrs),
+            "first_cycle_drift": drift, "swaps": steps,
+            "delta_bytes_moved": delta["bytes_moved"], "fp_sibling_delta_bytes": SIBLING_DELTA_BYTES,
+            "prefetch": {k: staged.get(k) for k in ("state", "bytes", "quant", "quant_s", "read_s", "total_s")},
+            "prefetch_started": started.get("state"), "actuations": records, "oracle": actuations["summary"],
+            "launches": counts, "seconds": time.monotonic() - t_phase,
+        })
+        return {"counts": counts}
+    finally:
+        stop_service(torch, service, server)
+        service._free_pooled(service.model_pool.drain())
 
 
 #: the controller's sleeping budget: the reference's sleeperLimit (1) x 4096 MiB
@@ -3566,6 +3891,7 @@ def main() -> int:
         hf = serve_hf(torch, smi, ckpt, bucketed["checkpoint"], bucketed)
         swapped = swap_phase(torch, smi, ckpt, bucketed)
         launched = launcher_phase(torch, smi, bucketed, swapped)
+        quant = quant_phase(torch, smi, ckpt, bucketed, swapped)
     finally:
         shutil.rmtree(ckpt)
         for suffix in ("-sibling", "-sibling2"):
@@ -3579,7 +3905,7 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
-    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], *dual["counts"],
+    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], *dual["counts"],
             packed["counts"], tp2["counts"], reference["counts"])
 
     def total(key):

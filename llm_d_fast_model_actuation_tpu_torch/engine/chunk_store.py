@@ -62,8 +62,19 @@ NP_NAMES: Dict[torch.dtype, str] = {
     torch.int32: "int32",
     torch.int64: "int64",
     torch.bool: "bool",
+    torch.float8_e4m3fn: "float8_e4m3fn",
 }
-_TORCH_DTYPES = {v: k for k, v in NP_NAMES.items()}
+#: the numpy dtype name -> torch dtype
+TORCH_DTYPES = {v: k for k, v in NP_NAMES.items()}
+
+#: digest prefix of a chunk whose digest is not the plain content hash of
+#: its bytes: a transfer-quantized payload (``models/quant.py:
+#: transfer_digest``). Its spill blob's header carries the payload's own
+#: :func:`leaf_digest` (``content``), which a reload checks instead of
+#: recomputing the transfer digest; equal ``q:`` digests imply equal
+#: payload bytes, since the transfer digest's preimage includes it. No
+#: content digest starts with it (a content digest is hex).
+QUANT_DIGEST_PREFIX = "q:"
 
 #: threads that hash a model's leaves at once (hashlib releases the GIL)
 DIGEST_WORKERS = 8
@@ -386,6 +397,18 @@ class ChunkStore:
                 return c.data
         return self._load_spilled(digest)
 
+    def peek_tier(self, digest: str) -> Optional[str]:
+        """Which tier could serve ``digest`` now: ``"host"`` (a referenced
+        chunk), ``"disk"`` (a spilled blob is registered; its content is
+        verified only when fetched) or None, without reading, verifying
+        or touching the LRU order (the cost oracle's probe)."""
+        with self._mu:
+            if digest in self._chunks:
+                return "host"
+            if self._disk_enabled() and digest in self._disk:
+                return "disk"
+        return None
+
     # -- disk tier ------------------------------------------------------------
 
     def _disk_enabled(self) -> bool:
@@ -496,10 +519,14 @@ class ChunkStore:
         try:
             # content verify on every reload: a stale blob, bitrot or a
             # collision is a miss, never silently wrong weights
-            dtype = _TORCH_DTYPES[header["dtype"]]
+            dtype = TORCH_DTYPES[header["dtype"]]
             t = torch.frombuffer(raw, dtype=torch.uint8) if raw else torch.empty(0, dtype=torch.uint8)
             t = t.view(dtype).reshape(header["shape"])
-            if header.get("digest") != digest or leaf_digest(t) != digest:
+            if digest.startswith(QUANT_DIGEST_PREFIX):
+                want = header.get("content")
+                if header.get("digest") != digest or not want or leaf_digest(t) != want:
+                    raise ValueError("content digest mismatch")
+            elif header.get("digest") != digest or leaf_digest(t) != digest:
                 raise ValueError("content digest mismatch")
         except Exception:  # noqa: BLE001 — any malformed blob is a miss
             with self._mu:

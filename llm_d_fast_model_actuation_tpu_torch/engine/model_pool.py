@@ -21,6 +21,12 @@ Two tiers, content-addressed:
     (:meth:`take_staged`); any unresolvable chunk makes the whole rebuild
     a miss.
 
+Under ``--sleep-quant`` a pooled model holds int8 or fp8 payloads
+(``models/quant.py``): the server interns them under their transfer
+digests, a digest space of their own, so a quantized sibling dedupes
+against another quantized sibling and never against the full-precision
+tensor it approximates, and ``bytes_used`` counts payload bytes.
+
 The pool stores opaque runtime entries (the server's model-runtime
 bundle, or a prefetch's :class:`PrefetchedWeights`); the caller frees an
 evicted entry (the server destroys its engine). LRU order is by swap-out recency. An internal mutex makes every
@@ -59,8 +65,15 @@ class PrefetchedWeights:
     model_id: str
     params_host: Optional[Dict[str, Any]]
     nbytes: int
-    #: flat weight key -> content digest
+    #: flat weight key -> content digest (None for a quantized staging:
+    #: its payloads intern under transfer digests instead)
     digests: Optional[Dict[str, str]] = None
+    #: staged under ``--sleep-quant``: per leaf of ``params_host`` (in
+    #: ``flatten_state`` order), a ``models/quant.py:TransferQuant`` for a
+    #: payload or None; None when the staging is full precision
+    quant_metas: Optional[List[Any]] = None
+    #: the staged representation: "off" (full precision), "int8" or "fp8"
+    quant_mode: str = "off"
 
 
 @dataclass
@@ -178,6 +191,37 @@ class HostModelPool:
         """Non-consuming :meth:`take`: LRU order and counters untouched."""
         with self._mu:
             return self._entries.get(model_id)
+
+    def peek_match(self, model_id: str) -> Optional[PoolEntry]:
+        """Non-consuming :meth:`take_match` (the same key rule, most
+        recently parked first): the cost oracle prices through it."""
+        with self._mu:
+            for key in reversed(self._entries):
+                if key == model_id or key.startswith(model_id + "@"):
+                    return self._entries[key]
+        return None
+
+    def staged_keys(self) -> List[str]:
+        """Keys of the evicted models' manifests, oldest first."""
+        with self._mu:
+            return list(self._manifests)
+
+    def peek_staged_match(self, model_id: str) -> Optional[Tuple[str, int, str]]:
+        """Non-consuming :meth:`take_staged_match`: ``(key, nbytes,
+        tier)`` of the most recently evicted manifest under this name
+        whose every chunk a tier still holds (``"host"``, or ``"disk"``
+        when any needs a reload), else None. Reads no file, rebuilds
+        nothing."""
+        if self.chunks is None:
+            return None
+        with self._mu:
+            found = [(k, m) for k, m in reversed(self._manifests.items())
+                     if k == model_id or k.startswith(model_id + "@")]
+        for key, (digests, nbytes) in found:
+            tiers = [self.chunks.peek_tier(d) for d in digests.values()]
+            if all(t is not None for t in tiers):
+                return key, int(nbytes), "disk" if "disk" in tiers else "host"
+        return None
 
     def take(self, model_id: str) -> Optional[PoolEntry]:
         """Remove and return the entry for ``model_id`` (a pool hit: the

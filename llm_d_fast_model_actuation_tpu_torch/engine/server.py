@@ -4,7 +4,7 @@ Port of ``llm_d_fast_model_actuation_tpu/engine/server.py``: one engine
 thread fed by a submit queue, and the routes
 
   GET  /health, /is_sleeping, /v1/models, /v1/stats, /v1/swap, /v1/faults,
-       /v1/prefetch
+       /v1/prefetch, /v1/costs, /v1/actuations
   POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions,
        /v1/swap, /v1/faults, /v1/prefetch
   DELETE /v1/faults, /v1/prefetch
@@ -37,11 +37,11 @@ tokens, ``echo`` without logprobs, ``n``, ``seed``, ``ignore_eos``,
 ``logit_bias`` and ``stop_token_ids``; their JSON and SSE shapes are the
 reference's. Not ported yet, and answered with a 400 that says so:
 ``echo`` with ``logprobs`` (prompt logprobs), and the other routes of the
-reference (``UNPORTED_ROUTES``: metrics, costs, parked, profile, ...). Not ported yet and absent from the
-options: the reference's other engine flags (``--pipeline-decode``,
-``--speculative-ngram``, ``--quantization``, ``--sleep-quant``,
-``--resident-variants``, multi-host gangs, ...), also where the reference
-combines them with tensor parallelism.
+reference (``UNPORTED_ROUTES``: metrics, parked, residents, traces,
+profile). Not ported yet and absent from the options: the reference's
+other engine flags (``--pipeline-decode``, ``--speculative-ngram``,
+``--quantization``, ``--resident-variants``, multi-host gangs, ...), also
+where the reference combines them with tensor parallelism.
 
 **Model hot-swap** (``POST /v1/swap {"model": ..., "request_id": ...}``),
 the reference's verb: the engine changes the model it serves without a
@@ -57,7 +57,34 @@ swap); ``GET /v1/swap`` is the last committed swap, and a repeated
 ``request_id`` replays it. The fault points of ``utils/faults.py`` are armed
 by ``--faults``, ``FMA_FAULTS`` or ``/v1/faults``. Not ported: a swap on a
 tensor-parallel mesh and an Orbax ``checkpoint_dir`` (400s that say so),
-transfer quantization and zero-drain parking.
+and zero-drain parking.
+
+**Compressed actuation** (``--sleep-quant int8|fp8``, ``models/quant.py``):
+a level-1 sleep quantizes the layer weight stacks on the card and moves
+only their payloads, a wake dequantizes them on the card into the
+engine's own tensors, a swap moves quantized payloads both ways (a
+full-precision pool entry crosses as a copy quantized on the host), and a
+prefetch stages payloads, so the pool holds about 1.5 times fewer bytes
+per model. Lossy once: the first quantized offload rounds the weights,
+later cycles reproduce the same bits. ``--sleep-quant-hot-head on`` (the
+default) keeps ``embed`` and ``lm_head`` at full precision. The swap
+response, ``GET /v1/swap`` and ``/v1/stats`` (``quant`` block) report the
+mode, ``bytes_full`` and ``bytes_saved_quant``. With
+``--tensor-parallel-size`` above 1 the flag is refused (ROADMAP queue 1
+item 14).
+
+**The cost oracle** (``utils/costs.py``): every sleep, wake, swap window,
+cold load and prefetch feeds per-kind bandwidth EWMAs, and every sleep,
+wake and swap leaves a flight-recorder row with its prediction and its
+actual bytes and seconds. ``GET /v1/costs`` (``?model=`` adds a
+candidate) prices a sleep, a wake and a swap to each candidate (the
+serving model, each pooled or prefetched model, each evicted model the
+chunk tiers still hold) before a byte moves: a pool-tier swap's
+``predicted_bytes`` comes from the ``plan_swap`` that the swap executes,
+so it equals the swap's ``bytes_moved``. ``GET /v1/actuations``
+(``?n=&kind=``) serves the recorder, and ``/v1/stats`` its summary
+(``costs``). The reference's rows for migration, attach and detach wait
+for those verbs (ROADMAP queue 1 items 11 and 12).
 
 **Cold load, prefetch and warm-up.** A checkpoint is read by
 ``--load-workers`` readers over its shards (``models/hf.py``), and a
@@ -93,6 +120,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import queue
 import shlex
 import signal
@@ -107,18 +135,20 @@ import torch
 
 from ..models import hf as hf_models
 from ..models import llama
+from ..models import quant as transfer_quant
 from ..ops.cuda import kernel_launches
 from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
 from ..utils import faults
+from ..utils.costs import CostBook
 from . import tokenizer as tokenizer_mod
-from .chunk_store import ChunkStore, DigestJob, default_disk_dir, flatten_state
+from .chunk_store import ChunkStore, DigestJob, default_disk_dir, flatten_state, map_leaves
 from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
 from .exec_pool import ExecutablePool, exec_key, parse_warmup_buckets
 from .graphs import release_cached_memory
-from .kv_cache import PageAllocator
+from .kv_cache import PageAllocator, PagePool
 from .model_pool import HostModelPool, PrefetchedWeights
-from .sleep import SleepManager, SwapRolledBack, attach_sleep, fresh_state, swap_states
+from .sleep import SleepManager, SwapRolledBack, attach_sleep, fresh_state, plan_swap, swap_states
 
 MODEL_CONFIGS = {
     "tiny": llama.LlamaConfig.tiny,
@@ -164,8 +194,7 @@ MODEL_CONFIGS = {
 #: routes of the reference server this port does not serve yet, matched
 #: with everything under them (``/v1/parked/claims/{id}``, ...)
 UNPORTED_ROUTES = (
-    "/metrics", "/v1/costs", "/v1/actuations", "/v1/parked", "/v1/residents",
-    "/v1/traces", "/v1/profile",
+    "/metrics", "/v1/parked", "/v1/residents", "/v1/traces", "/v1/profile",
 )
 
 
@@ -245,6 +274,21 @@ def make_arg_parser() -> argparse.ArgumentParser:
         "at load): dedupes sibling fine-tune variants in the host pool and "
         "lets hot-swaps move only the delta between models sharing tensors. "
         "Off with --tensor-parallel-size > 1",
+    )
+    p.add_argument(
+        "--sleep-quant", default="off", choices=list(transfer_quant.TRANSFER_MODES),
+        help="compressed actuation: a level-1 sleep quantizes the weight stacks on "
+        "the card to int8 (a scale per output channel) or fp8 (e4m3), only the "
+        "payload crosses PCIe, and a wake dequantizes on the card; swaps and "
+        "prefetches move and stage payloads too. Lossy once: the first "
+        "quantized offload rounds the weights, every later cycle reproduces "
+        "the same bits. off (default) keeps every transfer bit-exact. Refused "
+        "with --tensor-parallel-size > 1",
+    )
+    p.add_argument(
+        "--sleep-quant-hot-head", default="on", choices=["on", "off"],
+        help="keep embed and lm_head at full precision under --sleep-quant (the "
+        "default); off quantizes them too",
     )
     p.add_argument(
         "--swap-bucket-mib", type=int, default=256,
@@ -333,6 +377,14 @@ def check_engine_options(args: argparse.Namespace) -> None:
             raise ValueError(f"--faults: {e}")
     if args.tensor_parallel_size < 1:
         raise ValueError("--tensor-parallel-size must be >= 1")
+    if args.sleep_quant != "off":
+        reason = transfer_quant.transfer_quant_supported(args.sleep_quant)
+        if reason:
+            raise ValueError(f"--sleep-quant {args.sleep_quant}: {reason}")
+        if args.tensor_parallel_size > 1:
+            raise ValueError(
+                "--sleep-quant on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)"
+            )
     devices = args.device.split(",")
     if len(devices) > 1 and len(devices) != args.tensor_parallel_size:
         raise ValueError(
@@ -459,6 +511,12 @@ class EngineService:
         #: the delta swap (off on a mesh, where swap is not ported)
         self._content_hash = args.content_hash == "on" and args.tensor_parallel_size == 1
         self._swap_bucket_bytes = args.swap_bucket_mib << 20
+        #: compressed actuation (--sleep-quant): "off", "int8" or "fp8"
+        self._sleep_quant = args.sleep_quant
+        self._sleep_quant_hot_head = args.sleep_quant_hot_head != "off"
+        #: the cost oracle: bandwidth EWMAs fed by every transfer, and the
+        #: flight recorder of every actuation (GET /v1/costs, /v1/actuations)
+        self.costs = CostBook(capacity=int(os.environ.get("FMA_FLIGHT_RECORDER_CAP", "512") or 512))
         self._warmup_buckets = parse_warmup_buckets(args.warmup_buckets)
         #: pinned host memory is in use (a prefetch stages into it)
         self._pin_host = torch.cuda.is_available()
@@ -491,6 +549,13 @@ class EngineService:
         #: guards a runtime's digests while their job is joined
         self._digest_mu = threading.Lock()
         self._runtime = self._build_runtime(args.model)
+        # the recorder's first row: the initial cold build ("restart" when
+        # a supervising launcher spawned this child again)
+        self._record_actuation(
+            "coldload", args.model, trigger="restart" if os.environ.get("FMA_RESTARTED") else "startup",
+            tier="cold", pred=None, actual_bytes=self._last_build_stats.get("bytes_in", 0),
+            actual_s=self._last_build_stats.get("h2d_s", 0.0),
+        )
         self.failure: Optional[str] = None
         self.started_at = time.monotonic()
         self._mu = threading.Lock()  # guards the queues and counters below
@@ -514,13 +579,16 @@ class EngineService:
         model_id: str,
         staged_params: Optional[Dict[str, Any]] = None,
         staged_digests: Optional[Dict[str, str]] = None,
+        staged_quant: Optional[List[Any]] = None,
     ) -> _ModelRuntime:
         """Cold-build an awake runtime for ``model_id``: config, tokenizer,
         engine (weights from the ``hf:`` directory, from ``staged_params``
         — a host tree rebuilt from the pool's chunk tiers, flat keys
-        ``layers/wq`` nested — or drawn from ``--seed``), its graphs
-        captured, and its sleeper. Leaves the build's transfer figures in
-        ``_last_build_stats``."""
+        ``layers/wq`` nested, or a prefetch's, whose payloads
+        ``staged_quant`` marks: they are dequantized on the card — or
+        drawn from ``--seed``), its graphs captured, and its sleeper.
+        Leaves the build's transfer figures in ``_last_build_stats`` and
+        feeds the load's read and copy windows to the cost oracle."""
         args = self.args
         if staged_params is None or model_id not in self._resolved:
             # a build from the tiers reuses the model's config and
@@ -556,7 +624,7 @@ class EngineService:
         staged_stats = hf_models.LoadStats()
 
         def load_staged(model) -> None:
-            hf_models.place_staged_params(staged_params, model, stats=staged_stats)
+            hf_models.place_staged_params(staged_params, model, stats=staged_stats, quant_metas=staged_quant)
 
         mesh = mesh_from_options(args)
         t0 = time.monotonic()
@@ -571,12 +639,17 @@ class EngineService:
             # reads the directory
             rt.engine._load = load if hf_dir else None
             rt.digests = dict(staged_digests) if content_hash and staged_digests else None
-        rt.sleeper = attach_sleep(rt.engine, bucket_bytes=self._swap_bucket_bytes)
+        rt.sleeper = attach_sleep(
+            rt.engine, bucket_bytes=self._swap_bucket_bytes, quant_mode=self._sleep_quant,
+            quant_hot_head=self._sleep_quant_hot_head, on_transfer=self.costs.observe_transfer,
+        )
         state_bytes = sum(t.numel() * t.element_size() for t in rt.engine.model.parameters())
         state_bytes += rt.engine.pool.nbytes()
         if rt.engine.graphs is not None:
             self.exec_pool.note_compile(rt.engine.capture_s)
         load = rt.load_stats if staged_params is None else staged_stats
+        for figure in load.transfer_figures() if load is not None else ():
+            self.costs.observe_transfer(*figure)
         warm = rt.engine.warmup_stats
         self._last_build_stats = {
             "h2d_s": load.h2d_s if hf_dir or staged_params is not None else warm["load_s"],
@@ -778,10 +851,24 @@ class EngineService:
 
         def go():
             self._digests(self._runtime)  # the digest job reads the card
-            before = (self.sleeper.is_sleeping, self.sleeper.level)
+            was_sleeping, prev_level = self.sleeper.is_sleeping, self.sleeper.level
+            # a level-1 offload is priced; a level-2 sleep discards
+            pred = self._priced(self.price_sleep) if level == 1 and not was_sleeping else None
+            t0 = time.monotonic()
             out = self.sleeper.sleep(level)
-            if not before[0] or self.sleeper.level != before[1]:
+            sleep_s = time.monotonic() - t0
+            if not was_sleeping or self.sleeper.level != prev_level:
                 self._bump_actuation("sleep")
+                priced = pred is not None and int(self.sleeper.level) == 1
+                self._record_actuation(
+                    "sleep", self.model,
+                    # an L1 -> L2 change while asleep drops the host copy
+                    trigger="escalation" if was_sleeping else "client",
+                    tier="host" if int(self.sleeper.level) == 1 else "discard",
+                    pred=pred if priced else None,
+                    actual_bytes=out.get("bytes_offloaded", 0),
+                    actual_s=self.sleeper.stats.last_sleep_transfer_s if priced else (0.0 if was_sleeping else sleep_s),
+                )
             return out
 
         return self._on_loop(go)
@@ -790,6 +877,8 @@ class EngineService:
         def wake():
             if not self.sleeper.is_sleeping:
                 return self.sleeper.wake_up()
+            pred = self._priced(self.price_wake)
+            was_l1 = self.sleeper.level == 1
             if self.sleeper.level == 2:
                 # the KV state is gone: fail whatever was mid-generation,
                 # then write the weights (the checkpoint reread, or drawn
@@ -802,6 +891,14 @@ class EngineService:
             else:
                 out = self.sleeper.wake_up()
             self._bump_actuation("wake")
+            st = self.sleeper.stats
+            self._record_actuation(
+                "wake", self.model, trigger="client", tier="host" if was_l1 else "cold",
+                # a level-2 wake writes fresh weights: outside the pricing
+                pred=pred if was_l1 else None,
+                actual_bytes=st.last_wake_bytes if was_l1 else 0,
+                actual_s=st.last_wake_transfer_s if was_l1 else st.last_wake_seconds,
+            )
             return out
 
         return self._on_loop(wake)
@@ -825,7 +922,44 @@ class EngineService:
                 raise ValueError("swap model hf: needs a directory path")
         elif model not in MODEL_CONFIGS:
             raise ValueError(f"unknown model {model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
-        return self._on_loop(lambda: self._swap_impl(model, request_id))
+        return self._on_loop(lambda: self._priced_swap(model, request_id))
+
+    def _priced_swap(self, model: str, request_id: str) -> Dict[str, Any]:
+        """:meth:`_swap_impl`, priced just before it runs (on the engine
+        thread, so nothing moves in between) and recorded after it: a
+        committed swap with its bytes and seconds, a rolled-back or failed
+        one with none (a refusal moved nothing and is not recorded)."""
+        replay = request_id and self.last_swap.get("request_id") == request_id
+        pred = None if replay or model == self.model else self._priced(lambda: self.price_swap(model))
+
+        def record_failure(outcome: str) -> None:
+            self._record_actuation(
+                "swap", model, trigger="client", tier=pred.get("tier", "") if pred else "",
+                pred=pred, actual_bytes=0, actual_s=0.0, outcome=outcome,
+            )
+
+        try:
+            out = self._swap_impl(model, request_id)
+        except SwapRolledBack:
+            record_failure("rolled_back")
+            raise
+        except ValueError as e:
+            # a refusal moved nothing and leaves no trace; a build that
+            # failed after the outgoing model slept may raise a ValueError
+            # too, and is marked so
+            if getattr(e, "fma_swap_actuated", False):
+                record_failure("failed")
+            raise
+        except Exception:
+            record_failure("failed")
+            raise
+        if out.get("swapped") and not out.get("replayed"):
+            rec = self._record_actuation(
+                "swap", model, trigger="client", tier=out.get("tier", ""), pred=pred,
+                actual_bytes=out.get("bytes_moved", 0), actual_s=out.get("swap_total_s", 0.0),
+            )
+            out["costs"] = self.last_swap["costs"] = rec.as_dict()
+        return out
 
     def _abort_for_swap(self, previous: str, model: str) -> None:
         """Fail the queued and the in-flight requests: they target the
@@ -896,6 +1030,7 @@ class EngineService:
                     outgoing.sleeper, rt.sleeper, bucket_bytes=self._swap_bucket_bytes,
                     out_digests=out_digests if digests else None,
                     in_digests=self._digests(rt) if digests else None,
+                    quant=self._sleep_quant,
                 )
                 metrics["d2h_transfer_s"], metrics["h2d_transfer_s"] = metrics["d2h_s"], metrics["h2d_s"]
                 metrics["transfer_s"] = metrics["swap_total_s"]  # swap_states' own wall; the verb's below
@@ -925,6 +1060,7 @@ class EngineService:
                         rt.sleeper, outgoing.sleeper, bucket_bytes=self._swap_bucket_bytes,
                         out_digests=self._digests(rt) if digests else None,
                         in_digests=out_digests if digests else None,
+                        quant=self._sleep_quant,
                     )
                 except Exception as e:
                     self.failure = (
@@ -940,17 +1076,20 @@ class EngineService:
             if metrics["recapture_s"]:
                 self.exec_pool.note_compile(metrics["recapture_s"])
         else:
-            staged = staged_digests = None
+            staged = staged_digests = staged_quant = None
             if prefetched:
                 tier = "prefetched"
-                staged, staged_digests = entry.runtime.params_host, entry.runtime.digests
+                pw = entry.runtime
+                staged, staged_digests, staged_quant = pw.params_host, pw.digests, pw.quant_metas
             elif self._content_hash:
                 got = self.model_pool.take_staged_match(model)
                 if got is not None:
                     staged, staged_digests, _key, tier = got
             self.sleeper.sleep(1)
             try:
-                rt = self._build_runtime(model, staged_params=staged, staged_digests=staged_digests)
+                rt = self._build_runtime(
+                    model, staged_params=staged, staged_digests=staged_digests, staged_quant=staged_quant
+                )
             except Exception as build_exc:
                 # a failed build must not leave the card serving nothing
                 try:
@@ -974,16 +1113,23 @@ class EngineService:
                                            digests=staged_digests)
                     self._free_pooled(self._pool_park(model, pw, nb))
                 self.degraded = f"hot-swap {previous}->{model} build failed; rolled back to {previous}: {type(build_exc).__name__}: {build_exc}"
+                try:
+                    build_exc.fma_swap_actuated = True  # the flight recorder's mark
+                except AttributeError:
+                    pass
                 raise
             b = self._last_build_stats
             warm_stats = b["warmup"]
             out_stats = outgoing.sleeper.stats
+            # the build streams the whole incoming model; under
+            # --sleep-quant the outgoing offload moved payloads only
             moved = out_stats.bytes_offloaded + b["bytes_in"]
+            full = out_stats.bytes_offloaded_full + b["bytes_in"]
             metrics = {
                 "swap_total_s": 0.0,  # below
                 "d2h_s": out_stats.last_sleep_seconds,
                 "h2d_s": b["h2d_s"],
-                "d2h_transfer_s": out_stats.last_sleep_seconds - out_stats.last_pin_seconds,
+                "d2h_transfer_s": out_stats.last_sleep_transfer_s,
                 "h2d_transfer_s": b["h2d_s"],
                 "overlap_s": 0.0,
                 "overlap_frac": 0.0,
@@ -992,10 +1138,10 @@ class EngineService:
                 "bytes_moved": moved,
                 "bytes_deduped": 0,
                 "deduped_leaves": 0,
-                "quant": "off",
+                "quant": out_stats.last_quant,
                 "quant_leaves": 0,
-                "bytes_full": moved,
-                "bytes_saved_quant": 0,
+                "bytes_full": full,
+                "bytes_saved_quant": max(0, full - moved),
                 "buckets_out": 0,
                 "buckets_in": 0,
                 "bucket_bytes": self._swap_bucket_bytes,
@@ -1043,23 +1189,47 @@ class EngineService:
         first (a sibling already pooled shares its common tensors instead
         of holding them twice); a runtime's captured graphs go to the exec
         pool, which may release the least recently pooled ones. Returns the
-        evicted entries, for :meth:`_free_pooled`."""
+        evicted entries, for :meth:`_free_pooled`.
+
+        Quantized payloads (a runtime slept under --sleep-quant, a
+        quantized prefetch) intern under their transfer digests, a digest
+        space of their own: a quantized sibling dedupes against another
+        quantized sibling, never against the full-precision tensor it
+        approximates; such an entry leaves no eviction manifest. A slept
+        runtime's full-precision leaves (the hot head, the norms) keep
+        their content digests."""
         chunk_digests: List[str] = []
         interned = 0
+        interning = self._content_hash and self.model_pool.budget_bytes > 0
         if isinstance(runtime, PrefetchedWeights):
             digests = runtime.digests
-            if self._content_hash and self.model_pool.budget_bytes > 0 and digests:
-                runtime.params_host, chunk_digests, interned = self.model_pool.intern_tree(
-                    runtime.params_host, digests, prefix=""
-                )
+            if interning and runtime.params_host is not None:
+                if runtime.quant_metas is not None:
+                    qmap = transfer_quant.transfer_digest_map(runtime.params_host, runtime.quant_metas, prefix="")
+                    runtime.params_host, chunk_digests, interned = self.model_pool.intern_tree(
+                        runtime.params_host, qmap, prefix=""
+                    )
+                    digests = None
+                elif digests:
+                    runtime.params_host, chunk_digests, interned = self.model_pool.intern_tree(
+                        runtime.params_host, digests, prefix=""
+                    )
         else:
             digests = self._digests(runtime)
-            if self._content_hash and self.model_pool.budget_bytes > 0 and digests:
-                host = runtime.sleeper._host_state
-                if host is not None:
-                    runtime.sleeper._host_state, chunk_digests, interned = self.model_pool.intern_tree(
-                        host, digests, prefix="params"
-                    )
+            host = runtime.sleeper._host_state
+            metas = runtime.sleeper._quant_meta
+            if interning and host is not None and metas is not None:
+                merged = transfer_quant.transfer_digest_map(host, metas, prefix="params")
+                for k, d in (digests or {}).items():
+                    merged.setdefault(k, d)
+                runtime.sleeper._host_state, chunk_digests, interned = self.model_pool.intern_tree(
+                    host, merged, prefix="params"
+                )
+                digests = None
+            elif interning and host is not None and digests:
+                runtime.sleeper._host_state, chunk_digests, interned = self.model_pool.intern_tree(
+                    host, digests, prefix="params"
+                )
             graphs = runtime.engine.graphs
             if graphs is not None and graphs.captured:
                 self.exec_pool.put(self._exec_key(key, runtime), graphs, graphs.pool_bytes())
@@ -1156,7 +1326,10 @@ class EngineService:
                                           "pool": self.model_pool.describe()}
                     return dict(self.last_prefetch, started=False)
         model_cfg = hf_models.config_from_hf(hf_dir)
-        est = hf_models.estimate_param_bytes(model_cfg)
+        # a quantized staging holds its payload bytes: admit it as such
+        est = hf_models.estimate_param_bytes(
+            model_cfg, transfer_quant=self._sleep_quant, hot_head=self._sleep_quant_hot_head
+        )
         if est > self.model_pool.budget_bytes:
             raise ValueError(
                 f"prefetch of {model} (~{est >> 20} MiB staged) exceeds the model pool budget "
@@ -1187,7 +1360,11 @@ class EngineService:
     def _prefetch_worker(self, model: str, hf_dir: str, model_cfg, abort: threading.Event) -> None:
         """The prefetch's thread: the checkpoint staged on the host only
         (``load_params(place=False)``: readers, throttle, abort; no CUDA
-        tensor), its digests hashed from the host leaves, then pooled."""
+        tensor), its digests hashed from the host leaves, then pooled.
+        Under --sleep-quant the eligible leaves are quantized on the host
+        (the host twin, leaf by leaf) and the pool holds their payloads,
+        interned under transfer digests; the swap to it dequantizes them
+        on the card."""
         t0 = time.monotonic()
         lstats = hf_models.LoadStats()
         try:
@@ -1196,15 +1373,26 @@ class EngineService:
                 # the staging pins the whole model: the pinned blocks that
                 # earlier sleeps and swaps freed go back to the host first
                 self._on_loop(torch._C._host_emptyCache)
+            quant = self._sleep_quant != "off"
             staged = hf_models.load_params(
                 hf_dir, model_cfg, place=False, workers=self.args.load_workers or None, abort_event=abort,
                 throttle_bytes_per_s=float(max(0, self.args.prefetch_mib_s) << 20), stats=lstats,
-                want_digests=self._content_hash,
+                want_digests=self._content_hash and not quant,
             )
-            nbytes = sum(t.numel() * t.element_size() for t in flatten_state(staged))
+            metas = None
+            t_quant = time.monotonic()
+            if quant:
+                staged, metas = self._quantize_staged(staged, abort)
+            quant_s = time.monotonic() - t_quant
+            nbytes = sum(t.numel() * t.element_size() for t in flatten_state(staged)) + sum(
+                m.scale_nbytes for m in metas or () if m is not None
+            )
             pw = PrefetchedWeights(model_id=model, params_host=staged, nbytes=nbytes,
-                                   digests=dict(lstats.digests) or None)
+                                   digests=None if metas is not None else dict(lstats.digests) or None,
+                                   quant_metas=metas, quant_mode=self._sleep_quant if metas is not None else "off")
             del staged
+            for figure in lstats.transfer_figures():
+                self.costs.observe_transfer(*figure)
             bounced = self._on_loop(lambda: self._register_prefetch(pw))
         except hf_models.LoadAborted:
             self.last_prefetch = {"state": "aborted", "model": model, "checkpoint_dir": "", "bytes": lstats.bytes_read}
@@ -1219,13 +1407,32 @@ class EngineService:
                                   "error": "staged bytes exceed the model pool budget"}
             return
         self.last_prefetch = {
-            "state": "completed", "model": model, "checkpoint_dir": "", "bytes": nbytes, "quant": "off",
+            "state": "completed", "model": model, "checkpoint_dir": "", "bytes": nbytes,
+            # the staged representation: "off" = full precision
+            "quant": pw.quant_mode, "quant_s": round(quant_s, 6),
             "read_s": round(lstats.read_s, 6), "digest_s": round(lstats.digest_s, 6),
             "total_s": round(time.monotonic() - t0, 6), "shards": lstats.shards, "workers": lstats.workers,
             "pool": self.model_pool.describe(),
             # graphs belong to an engine: a prefetch has none to warm
             "warmup": None, "exec_pool": self.exec_pool.describe(),
         }
+
+    def _quantize_staged(self, staged: Dict[str, Any], abort: threading.Event) -> Tuple[Dict[str, Any], Optional[list]]:
+        """A prefetch's host tree with its eligible leaves quantized on the
+        host (pinned payloads beside the card), each full-precision leaf
+        dropped once its payload exists; and the aligned metas, or None
+        when nothing was eligible."""
+        plan = transfer_quant.transfer_quant_plan(staged, hot_head=self._sleep_quant_hot_head, prefix="")
+        if not any(plan):
+            return staged, None
+        leaves = flatten_state(staged)
+        metas: List[Any] = [None] * len(leaves)
+        for i, flag in enumerate(plan):
+            if abort.is_set():
+                raise hf_models.LoadAborted("prefetch aborted while quantizing")
+            if flag:
+                leaves[i], metas[i] = transfer_quant.quantize_leaf_host(leaves[i], self._sleep_quant, pin=self._pin_host)
+        return map_leaves(staged, leaves), metas
 
     def prefetch_status(self) -> Dict[str, Any]:
         return dict(self.last_prefetch)
@@ -1245,6 +1452,247 @@ class EngineService:
         with self._mu:
             self._actuations[kind] = self._actuations.get(kind, 0) + 1
 
+    # -- the actuation cost oracle (GET /v1/costs, /v1/actuations) -------------
+
+    @staticmethod
+    def _priced(price: Callable[[], Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+        """A prediction, or None: pricing never blocks the verb."""
+        try:
+            return price()
+        except Exception:  # noqa: BLE001 — the verb runs unpriced
+            return None
+
+    def _model_cfg_cheap(self, model_id: str):
+        """``model_id``'s config without loading its tokenizer: a
+        ``config.json`` read for ``hf:``, the factory for a named one."""
+        if model_id.startswith("hf:"):
+            return hf_models.config_from_hf(model_id[3:])
+        if model_id not in MODEL_CONFIGS:
+            raise ValueError(f"unknown model {model_id!r}")
+        return MODEL_CONFIGS[model_id]()
+
+    def _kv_pool_nbytes(self, model_cfg) -> int:
+        """The page pool a build for ``model_cfg`` creates (part of a cold
+        build's ``bytes_in``)."""
+        return PagePool.estimate_nbytes(
+            model_cfg.num_layers, self.args.num_pages, self.args.page_size, model_cfg.num_kv_heads,
+            model_cfg.head_dim, dtype=model_cfg.dtype,
+        )
+
+    def price_swap(self, model: str, _offload_wire: Optional[int] = None, wait: bool = True) -> Dict[str, Any]:
+        """The reference's pricing of a hot-swap to ``model``, before a
+        byte moves: predicted wire bytes (for a pool-tier candidate from
+        :func:`plan_swap`, the planner :func:`swap_states` runs, so they
+        equal the swap's ``bytes_moved``, delta and quantization
+        included; from the shapes and the manifests for the cold tiers)
+        and predicted seconds (bytes over the measured bandwidths). Reads
+        only: nothing is taken from the pool, nothing moves. With
+        ``wait`` False (a read route on the engine thread) a digest job
+        that still runs is not joined: the row is priced without the
+        delta, as the reference prices it before its digests exist, and
+        carries ``digest_pending: true``."""
+        if model.startswith("hf:"):
+            if not model[3:]:
+                raise ValueError("swap model hf: needs a directory path")
+        elif model not in MODEL_CONFIGS:
+            raise ValueError(f"unknown model {model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
+        book = self.costs.bandwidths
+        out: Dict[str, Any] = {"kind": "swap", "model": model, "checkpoint_dir": ""}
+        if model == self.model:
+            return {**out, "tier": "resident", "predicted_bytes": 0, "predicted_bytes_out": 0,
+                    "predicted_bytes_in": 0, "predicted_s": 0.0, "measured": True}
+        entry = self.model_pool.peek_match(model)
+        prefetched = entry is not None and isinstance(entry.runtime, PrefetchedWeights)
+        if entry is not None and not prefetched:
+            pending = not wait and any(
+                rt.digest_job is not None and not rt.digest_job.done() for rt in (self._runtime, entry.runtime))
+            digests = self._content_hash and not pending
+            p = plan_swap(
+                self.sleeper, entry.runtime.sleeper, bucket_bytes=self._swap_bucket_bytes,
+                out_digests=self._digests(self._runtime) if digests else None,
+                in_digests=self._digests(entry.runtime) if digests else None,
+                quant=self._sleep_quant,
+            )
+            out_s, m1 = book.seconds_for("swap.d2h", p["wire_out"])
+            in_s, m2 = book.seconds_for("swap.h2d", p["wire_in"])
+            if book.has("swap.total"):
+                # the whole verb's effective rate from earlier pool-tier
+                # swaps predicts the wall, its fixed overhead included
+                predicted_s, m_tot = book.seconds_for("swap.total", p["bytes_moved"])
+                m1 = m2 = m_tot
+            else:
+                # one outgoing bucket runs the two directions in turn
+                predicted_s = max(out_s, in_s) if p["buckets_out"] > 1 else out_s + in_s
+            return {
+                **out, "tier": "pool",
+                "predicted_bytes": p["bytes_moved"],
+                "predicted_bytes_out": p["wire_out"],
+                "predicted_bytes_in": p["wire_in"],
+                "predicted_kv_pageout_bytes": 0,
+                "predicted_kv_pagein_bytes": 0,
+                "predicted_bytes_deduped": p["bytes_deduped"],
+                "predicted_deduped_leaves": p["deduped_leaves"],
+                "predicted_bytes_full": p["bytes_full"],
+                "quant": p["quant"],
+                "predicted_s": round(predicted_s, 6),
+                "predicted_d2h_s": round(out_s, 6),
+                "predicted_h2d_s": round(in_s, 6),
+                "measured": bool(m1 and m2),
+                "compile_estimate_s": 0.0,  # a pooled engine keeps its graphs
+                **({"digest_pending": True} if pending else {}),
+            }
+        # the cold tiers: a level-1 offload of the serving model, then a
+        # build that streams a host tree (staged, rebuilt from the tiers,
+        # or read) and creates the page pool, as its bytes_in counts them
+        offload_wire = _offload_wire if _offload_wire is not None else self.sleeper.offload_wire_bytes()
+        d2h_s, m_out = book.seconds_for("sleep.d2h", offload_wire)
+        model_cfg = self._model_cfg_cheap(model)
+        kv_bytes = self._kv_pool_nbytes(model_cfg)
+        read_bytes = 0
+        if prefetched:
+            tier = "prefetched"
+            stream_bytes = params_full = int(entry.nbytes)
+            if entry.runtime.quant_metas is not None:
+                # payloads stream; the built engine holds full precision
+                params_full = hf_models.estimate_param_bytes(model_cfg)
+        else:
+            params_full = hf_models.estimate_param_bytes(model_cfg)
+            staged = self.model_pool.peek_staged_match(model) if self._content_hash else None
+            if staged is not None:
+                _key, stream_bytes, tier = staged
+                read_bytes = stream_bytes if tier == "disk" else 0
+            else:
+                tier = "cold"
+                stream_bytes = read_bytes = params_full
+        h2d_s, m_in = book.seconds_for("coldload.h2d", stream_bytes)
+        read_s, m_read = (0.0, True)
+        if read_bytes:
+            read_s, m_read = book.seconds_for("coldload.read", read_bytes)
+        return {
+            **out, "tier": tier,
+            "predicted_bytes": offload_wire + params_full + kv_bytes,
+            "predicted_bytes_out": offload_wire,
+            "predicted_bytes_in": params_full + kv_bytes,
+            "predicted_kv_pageout_bytes": 0,
+            "predicted_stream_bytes": stream_bytes,
+            # the loaders overlap the read with the copies; the offload
+            # runs first (sleep, then build)
+            "predicted_s": round(d2h_s + max(h2d_s, read_s), 6),
+            "predicted_d2h_s": round(d2h_s, 6),
+            "predicted_h2d_s": round(h2d_s, 6),
+            "predicted_read_s": round(read_s, 6),
+            "measured": bool(m_out and m_in and m_read),
+            "compile_estimate_s": round(self.exec_pool.describe().get("mean_compile_s", 0.0), 6),
+        }
+
+    def price_sleep(self) -> Dict[str, Any]:
+        """The predicted cost of a level-1 sleep of the serving model."""
+        if self.sleeper.is_sleeping:
+            return {"kind": "sleep", "model": self.model, "predicted_bytes": 0, "predicted_s": 0.0, "measured": True}
+        wire = self.sleeper.offload_wire_bytes()
+        sec, measured = self.costs.bandwidths.seconds_for("sleep.d2h", wire)
+        return {"kind": "sleep", "model": self.model, "predicted_bytes": wire, "predicted_kv_pageout_bytes": 0,
+                "predicted_s": round(sec, 6), "measured": measured}
+
+    def price_wake(self) -> Dict[str, Any]:
+        """The predicted cost of waking the serving model: its host
+        payload's copy back for level 1, a checkpoint load for level 2."""
+        sl = self.sleeper
+        if not sl.is_sleeping:
+            return {"kind": "wake", "model": self.model, "predicted_bytes": 0, "predicted_s": 0.0, "measured": True}
+        if int(sl.level) == 1:
+            wire = sl.stats.bytes_offloaded
+            sec, measured = self.costs.bandwidths.seconds_for("wake.h2d", wire)
+            return {"kind": "wake", "model": self.model, "predicted_bytes": wire, "predicted_kv_pagein_bytes": 0,
+                    "predicted_s": round(sec, 6), "measured": measured}
+        est = hf_models.estimate_param_bytes(self.engine.cfg.model)
+        h2d_s, m1 = self.costs.bandwidths.seconds_for("coldload.h2d", est)
+        read_s, m2 = self.costs.bandwidths.seconds_for("coldload.read", est)
+        return {"kind": "wake", "model": self.model, "predicted_bytes": est,
+                "predicted_s": round(max(h2d_s, read_s), 6), "measured": bool(m1 and m2)}
+
+    def costs_view(self, extra: "tuple | list" = ()) -> Dict[str, Any]:
+        """GET /v1/costs: every candidate actuation priced in one call (the
+        serving model, each pooled or prefetched model, each evicted model
+        whose chunks the tiers hold, and the ``extra`` names), with the
+        bandwidths behind the predictions. The reference's rows of the
+        verbs the port does not have (migration, the co-resident attach
+        and detach) are an error row and an empty list."""
+        candidates: List[Dict[str, Any]] = []
+        seen = set()
+        exec_desc = self.exec_pool.describe()
+        try:
+            offload_wire: Optional[int] = self.sleeper.offload_wire_bytes()
+        except Exception:  # noqa: BLE001 — each row prices its own, or says why not
+            offload_wire = None
+
+        def add(model: str) -> None:
+            if model in seen:
+                return
+            seen.add(model)
+            try:
+                candidates.append(self.price_swap(model, _offload_wire=offload_wire, wait=False))
+            except Exception as e:  # noqa: BLE001 — one bad row never fails the view
+                candidates.append({"model": model, "checkpoint_dir": "", "error": f"{type(e).__name__}: {e}"})
+
+        add(self.model)
+        for key in self.model_pool.models() + self.model_pool.staged_keys():
+            add(key.partition("@")[0])
+        for model in extra:
+            add(model)
+        return {
+            "model": self.model,
+            "is_sleeping": self.sleeper.is_sleeping,
+            "quant": self._sleep_quant,
+            "content_hash": self._content_hash,
+            "bandwidth_gibps": self.costs.bandwidths.describe(),
+            "sleep": self._priced_row("sleep", self.price_sleep),
+            "wake": self._priced_row("wake", self.price_wake),
+            "migrate": {"kind": "migrate", "error": "live migration is not ported yet (ROADMAP queue 1 item 12)"},
+            "compile": {"mean_compile_s": exec_desc.get("mean_compile_s", 0.0),
+                        "compiles_total": exec_desc.get("compiles_total", 0)},
+            "candidates": candidates,
+            "coresident": [],
+        }
+
+    @staticmethod
+    def _priced_row(kind: str, price: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
+        try:
+            return price()
+        except Exception as e:  # noqa: BLE001 — one bad row never fails the view
+            return {"kind": kind, "error": f"{type(e).__name__}: {e}"}
+
+    def costs_report(self, extra: "tuple | list" = ()) -> Dict[str, Any]:
+        """:meth:`costs_view` on the engine thread, between steps: nothing
+        moves while the candidates are priced. The digests of the serving
+        and the pooled models are joined here first, on the caller's
+        thread, so the engine loop never waits on hashing (a job that
+        starts in between is priced as pending)."""
+        if self._content_hash:
+            for rt in [self._runtime] + [e.runtime for e in self.model_pool.entries()]:
+                if isinstance(rt, _ModelRuntime):
+                    self._digests(rt)
+        return self._on_loop(lambda: self.costs_view(extra))
+
+    def actuations_view(self, n: int = 0, kind: Optional[str] = None) -> Dict[str, Any]:
+        """GET /v1/actuations: the flight recorder, oldest first, and the
+        oracle's accuracy summary."""
+        return {"records": self.costs.recorder.records(n=n, kind=kind), "summary": self.costs.recorder.summary()}
+
+    def _record_actuation(
+        self, kind: str, model: str, trigger: str, tier: str, pred: Optional[Dict[str, Any]],
+        actual_bytes: int, actual_s: float, outcome: str = "committed",
+    ):
+        """One flight-recorder row per actuation edge, with the prediction
+        made before it when there was one."""
+        return self.costs.record(
+            kind=kind, model=model, trigger=trigger, tier=tier, outcome=outcome,
+            actual_bytes=actual_bytes, actual_s=actual_s,
+            predicted_bytes=None if pred is None else pred.get("predicted_bytes"),
+            predicted_s=None if pred is None else pred.get("predicted_s"),
+            measured=bool(pred and pred.get("measured")),
+        )
+
     def stats(self) -> Dict[str, Any]:
         """GET /v1/stats: the reference's fields for the blocks the port
         has (no SLO targets are configurable, so none is judged and every
@@ -1252,8 +1700,9 @@ class EngineService:
         them with its targets off), and two blocks of the port's own:
         ``load``, the checkpoint's last load (``models/hf.py:LoadStats``)
         for an ``hf:`` model, else None (``digest_pending`` while the
-        load's digests are still being hashed: ``digest_s`` is then 0); and
-        ``pool``, the slept-model pool (``HostModelPool.describe``). It
+        load's digests are still being hashed: ``digest_s`` is then 0);
+        ``pool``, the slept-model pool (``HostModelPool.describe``); and
+        ``quant`` (:meth:`_quant_block`). ``costs`` is the reference's. It
         never waits for the digests."""
         now = time.monotonic()
         depth = self.queue_depth()
@@ -1278,7 +1727,27 @@ class EngineService:
                 "is_sleeping": self.sleeper.is_sleeping,
                 "load": load,
                 "pool": self.model_pool.describe(),
+                # the oracle's bandwidths and its accuracy over the last
+                # records (a launcher lifts it into ledger.costs)
+                "costs": self.costs.summary(),
+                "quant": self._quant_block(),
             }
+
+    def _quant_block(self) -> Dict[str, Any]:
+        """The port's own ``quant`` block of /v1/stats: the mode, what the
+        serving model's last sleep held against its full precision, and
+        the last committed swap's quantization."""
+        st = self.sleeper.stats
+        last = self.last_swap
+        return {
+            "mode": self._sleep_quant,
+            "hot_head": self._sleep_quant_hot_head,
+            "slept": self.sleeper.quant_state(),
+            "bytes_offloaded": st.bytes_offloaded,
+            "bytes_offloaded_full": st.bytes_offloaded_full,
+            "last_swap": {k: last.get(k) for k in ("quant", "quant_leaves", "bytes_full", "bytes_saved_quant")}
+            if last else None,
+        }
 
     def device_info(self) -> Dict[str, Any]:
         """GET /v1/device: the engine's device, with the card's name and
@@ -1839,6 +2308,20 @@ def make_handler(service: EngineService):
                     return self._send(200, {"object": "list", "data": [{"id": service.model, "object": "model"}]})
                 if method == "GET" and path == "/v1/stats":
                     return self._send(200, service.stats())
+                if method == "GET" and path == "/v1/costs":
+                    # ?model= adds a candidate; priced on the engine thread
+                    extra = [m for m in parse_qs(url.query).get("model", []) if m]
+                    try:
+                        return self._send(200, service.costs_report(extra))
+                    except ValueError as e:
+                        raise BadRequest(str(e))
+                if method == "GET" and path == "/v1/actuations":
+                    q = parse_qs(url.query)
+                    try:
+                        n = int(q.get("n", ["0"])[0] or 0)
+                    except ValueError:
+                        raise BadRequest("n must be an integer")
+                    return self._send(200, service.actuations_view(n=n, kind=q.get("kind", [""])[0] or None))
                 if method == "GET" and path == "/v1/device":
                     return self._send(200, service.device_info())
                 if method == "POST" and path == "/sleep":

@@ -3,10 +3,10 @@ without ending the process.
 
 Port of ``llm_d_fast_model_actuation_tpu/engine/sleep.py``: levels 1 and 2,
 and the overlapped, delta-aware hot-swap between two engines on one card
-(:func:`swap_states`, priced by :func:`plan_swap`). Device release,
-transfer quantization (``--sleep-quant``), multi-host staging, a swap on a
-tensor-parallel mesh and tracing are not ported yet. Sleep levels (vLLM
-vocabulary):
+(:func:`swap_states`, priced by :func:`plan_swap`), and compressed
+actuation (``--sleep-quant``). Device release, multi-host staging, a swap
+or a quantized transfer on a tensor-parallel mesh, and tracing are not
+ported yet. Sleep levels (vLLM vocabulary):
 
   level 1 — weights and KV pages are copied into pinned host tensors on a
             dedicated copy stream, then their device memory is unmapped
@@ -41,10 +41,23 @@ size-bounded buckets of whole tensors and moved bucket by bucket, each
 bucket's source freed as soon as it lands. ``None`` = one bucket.
 ``swap_states`` builds on the same buckets to overlap one model's offload
 with another's restore.
+
+**Compressed actuation** (``quant_mode`` int8 or fp8, ``models/quant.py``):
+a level-1 offload quantizes each eligible weight stack on the card (layer
+slice by layer slice, on the compute stream), and only its payload, and
+for int8 its f32 scales, cross PCIe into pinned buffers sized by
+``payload_nbytes``. The wake copies bucket k's payloads into device
+buffers on the copy stream and dequantizes them into the leaves' own
+tensors on the compute stream once an event says they landed, while
+bucket k+1's copies run. Lossy once: the first quantized offload rounds
+the weights, and every later one quantizes with the scales cached at the
+first, to the same bits. ``bytes_offloaded`` counts the payload, and
+``bytes_offloaded_full`` the full precision.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import time
 from dataclasses import dataclass
@@ -52,6 +65,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..models import quant as transfer_quant
 from ..utils import faults
 from .arena import Arena, arena_of, hand_over
 from .chunk_store import aligned_digests, flatten_state, map_leaves
@@ -126,6 +140,15 @@ class _Stats:
     last_alloc_seconds: float = 0.0
     #: of that, the time in the CUDA driver's cuMemCreate/cuMemMap/cuMemSetAccess
     wake_map_s: float = 0.0
+    #: transfer mode of the last level-1 offload: "off" | "int8" | "fp8"
+    last_quant: str = "off"
+    #: wire bytes the last wake moved host -> device
+    last_wake_bytes: int = 0
+    #: the copy window of the last level-1 offload (its pinning excluded):
+    #: what the cost oracle's ``sleep.d2h`` bandwidth divides by
+    last_sleep_transfer_s: float = 0.0
+    #: the last level-1 wake's window (mapping, copies, dequantization)
+    last_wake_transfer_s: float = 0.0
 
 
 class SleepManager:
@@ -144,7 +167,19 @@ class SleepManager:
         arenas: Sequence[Arena],
         bucket_bytes: Optional[int] = None,
         replicas: Optional[Callable[[], Sequence[torch.Tensor]]] = None,
+        quant_mode: str = "off",
+        quant_hot_head: bool = True,
+        on_transfer: Optional[Callable[[str, int, float], None]] = None,
     ) -> None:
+        quant_mode = "" if quant_mode in ("", "off") else quant_mode
+        if quant_mode:
+            reason = transfer_quant.transfer_quant_supported(quant_mode)
+            if reason:
+                raise ValueError(f"--sleep-quant {quant_mode}: {reason}")
+            if replicas is not None:
+                raise ValueError(
+                    "--sleep-quant on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)"
+                )
         self._get_state = get_state
         self._set_state = set_state
         self.arenas = list(arenas)
@@ -162,6 +197,22 @@ class SleepManager:
         self._cuda = self.device.type == "cuda"
         #: the dedicated copy streams, per (device, index): :meth:`_stream`
         self._streams: Dict[Tuple[torch.device, int], Any] = {}
+        #: the cost oracle's feed: ``on_transfer(kind, bytes, seconds)``
+        #: after each transfer window (``sleep.d2h``, ``wake.h2d``,
+        #: ``swap.d2h``, ``swap.h2d``, ``swap.total``, ``quant.dequant``)
+        #: with the wire bytes it moved; a raising callback fails nothing
+        self.on_transfer = on_transfer
+        #: compressed actuation: "" (off), "int8" or "fp8"
+        self.quant_mode = quant_mode
+        #: keep embed and lm_head at full precision under quant_mode
+        self.quant_hot_head = quant_hot_head
+        #: per leaf, TransferQuant or None, aligned with ``_host`` while
+        #: slept quantized (None for a full-precision sleep)
+        self._quant_meta: Optional[List[Any]] = None
+        #: the int8 scales of each leaf's first quantization (host f32),
+        #: aligned with the state's leaves: re-quantizing with them gives
+        #: the same payload bits every cycle
+        self._quant_scales: Optional[List[Any]] = None
         self.stats = _Stats()
 
     @property
@@ -202,6 +253,63 @@ class SleepManager:
             stream = self._streams[key] = torch.cuda.Stream(dev)
         return stream
 
+    def _notify_transfer(self, kind: str, nbytes: int, seconds: float) -> None:
+        """Feed one finished transfer window to the cost oracle; empty
+        windows and a failing callback are dropped."""
+        if self.on_transfer is None or nbytes <= 0 or seconds <= 0:
+            return
+        try:
+            self.on_transfer(kind, nbytes, seconds)
+        except Exception:  # noqa: BLE001 — telemetry never fails an edge
+            pass
+
+    def _quant_plan(self, state: Any) -> Optional[List[bool]]:
+        """Per-leaf quantize-for-transfer flags of ``state``, or None when
+        the mode is off or nothing is eligible."""
+        if not self.quant_mode:
+            return None
+        plan = transfer_quant.transfer_quant_plan(state, hot_head=self.quant_hot_head)
+        return plan if any(plan) else None
+
+    def _cached_scale(self, i: int, leaf: torch.Tensor) -> Optional[torch.Tensor]:
+        """The int8 scale leaf ``i`` was quantized with at its first
+        offload; None before that, or when the state's shape changed."""
+        if self._quant_scales is None or i >= len(self._quant_scales):
+            return None
+        s = self._quant_scales[i]
+        want = tuple(leaf.shape[:-2]) + (1, leaf.shape[-1])
+        return s if s is not None and tuple(s.shape) == want else None
+
+    def _note_wake_quant(self, metas: Optional[List[Any]]) -> None:
+        """After a quantized wake (or a swap's commit): keep the scales, so
+        the next offload quantizes to the same bits, and drop the
+        consumed payload metadata."""
+        if metas is not None and any(m is not None for m in metas):
+            self._quant_scales = [None if m is None else m.scale for m in metas]
+        self._quant_meta = None
+
+    def offload_wire_bytes(self) -> int:
+        """The bytes a level-1 sleep of the live state would move to the
+        host (what ``bytes_offloaded`` will say): payload and scale bytes
+        for the leaves a quantized offload compresses, full precision for
+        the rest, from the shapes alone."""
+        state = self._get_state()
+        plan = self._quant_plan(state)
+        repeated = {id(t) for t in self._replicas()} if self._replicas else set()
+        return sum(
+            transfer_quant.payload_nbytes(t.shape, self.quant_mode) if plan and plan[i] else _nbytes(t)
+            for i, t in enumerate(flatten_state(state))
+            if id(t) not in repeated
+        )
+
+    def quant_state(self) -> str:
+        """Transfer mode of the slept payload ("off" when the host state
+        is full precision, or nothing is slept at level 1)."""
+        for m in self._quant_meta or ():
+            if m is not None:
+                return m.mode
+        return "off"
+
     def _unmap(self, leaves: Sequence[torch.Tensor]) -> None:
         for t in leaves:
             arena_of(self.arenas, t).unmap([t])
@@ -240,31 +348,115 @@ class SleepManager:
         for dev in by_device:
             self._stream(dev).synchronize()
 
-    def _offload(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _offload(
+        self, leaves: List[torch.Tensor], plan: Optional[List[bool]] = None
+    ) -> Tuple[List[torch.Tensor], Optional[List[Any]]]:
         """Device -> pinned host, bucket by bucket; each bucket's device
-        memory is released as soon as its copies have landed."""
+        memory is released as soon as its copies have landed. With
+        ``plan`` (:meth:`_quant_plan`), the flagged leaves are quantized
+        on the card first and only their payloads and scales cross.
+        Returns the host tensors and the aligned TransferQuant-or-None
+        list (None without a plan)."""
         host: List[Optional[torch.Tensor]] = [None] * len(leaves)
-        self.stats.last_pin_seconds = 0.0
-        for bucket in partition_buckets([_nbytes(t) for t in leaves], self.bucket_bytes):
-            t_pin = time.monotonic()
-            for i in bucket:
-                host[i] = torch.empty(
-                    leaves[i].shape, dtype=leaves[i].dtype, pin_memory=self._cuda
-                )
-            self.stats.last_pin_seconds += time.monotonic() - t_pin
-            self._copy([(host[i], leaves[i]) for i in bucket])
-            self._unmap([leaves[i] for i in bucket])
-        return host
+        metas: Optional[List[Any]] = [None] * len(leaves) if plan else None
+        mode = self.quant_mode
 
-    def _restore(self, leaves: List[torch.Tensor], host: List[torch.Tensor]) -> None:
+        def wire_nb(i: int) -> int:
+            if plan and plan[i]:
+                return transfer_quant.payload_nbytes(leaves[i].shape, mode)
+            return _nbytes(leaves[i])
+
+        self.stats.last_pin_seconds = 0.0
+        for bucket in partition_buckets([wire_nb(i) for i in range(len(leaves))], self.bucket_bytes):
+            t_pin = time.monotonic()
+            scales: Dict[int, torch.Tensor] = {}
+            for i in bucket:
+                quantized = plan is not None and plan[i]
+                dtype = transfer_quant.payload_dtype(mode) if quantized else leaves[i].dtype
+                host[i] = torch.empty(leaves[i].shape, dtype=dtype, pin_memory=self._cuda)
+                if quantized and mode == "int8":
+                    shape = tuple(leaves[i].shape[:-2]) + (1, leaves[i].shape[-1])
+                    scales[i] = torch.empty(shape, dtype=torch.float32, pin_memory=self._cuda)
+            self.stats.last_pin_seconds += time.monotonic() - t_pin
+            pairs, payloads = [], []
+            for i in bucket:
+                if plan is not None and plan[i]:
+                    # on the compute stream; the copies below wait for it
+                    p, meta = transfer_quant.quantize_leaf(leaves[i], mode, scale=self._cached_scale(i, leaves[i]))
+                    payloads.append(p)
+                    pairs.append((host[i], p))
+                    if i in scales:
+                        pairs.append((scales[i], meta.scale))
+                        meta.scale = scales[i]
+                    metas[i] = meta
+                else:
+                    pairs.append((host[i], leaves[i]))
+            self._copy(pairs)
+            self._unmap([leaves[i] for i in bucket])
+            del payloads  # their copies have landed
+        return host, metas
+
+    def _restore(
+        self, leaves: List[torch.Tensor], host: List[torch.Tensor], metas: Optional[List[Any]] = None
+    ) -> None:
         """Pinned host -> device into the same tensors, bucket by bucket:
         each bucket's memory is mapped back first, and its host copy is
-        dropped once it has landed."""
+        dropped once it has landed. ``metas`` marks quantized payloads:
+        see :meth:`_restore_quantized`."""
+        if metas is not None and any(m is not None for m in metas):
+            return self._restore_quantized(leaves, host, metas)
         for bucket in partition_buckets([_nbytes(t) for t in host], self.bucket_bytes):
             self._map([leaves[i] for i in bucket])
             self._copy([(leaves[i], host[i]) for i in bucket])
             for i in bucket:
                 host[i] = None
+
+    def _restore_quantized(self, leaves: List[torch.Tensor], host: List[torch.Tensor], metas: List[Any]) -> None:
+        """The compressed wake, bucket by bucket: the bucket's memory is
+        mapped back, its full-precision leaves are copied in and its
+        payloads dequantized into the leaves' own tensors
+        (``models/quant.py:dequantize_into``). On the card the copies run
+        on the copy stream, and the compute stream dequantizes each payload
+        once it landed while the copy stream carries the next ones; at most
+        two buckets' device payloads exist at once (a bucket waits for the
+        dequantization of the one two before it). The dequantization that
+        no copy hid is reported as ``quant.dequant``."""
+        wire = [_nbytes(host[i]) + (metas[i].scale_nbytes if metas[i] is not None else 0) for i in range(len(host))]
+        cuda = self._cuda
+        copy = self._stream(self.device) if cuda else None
+        compute = torch.cuda.current_stream(self.device) if cuda else None
+        if cuda:
+            copy.wait_stream(compute)
+        pending: List[torch.cuda.Event] = []
+        inline_s = 0.0
+        for bucket in partition_buckets(wire, self.bucket_bytes):
+            if len(pending) >= 2:
+                pending.pop(0).synchronize()
+            self._map([leaves[i] for i in bucket])
+            with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
+                for i in bucket:
+                    if metas[i] is None:
+                        leaves[i].copy_(host[i], non_blocking=cuda)
+            for i in bucket:
+                if metas[i] is not None:
+                    t0 = time.monotonic()
+                    transfer_quant.dequantize_into(leaves[i], host[i], metas[i], copy_stream=copy)
+                    inline_s += time.monotonic() - t0
+                host[i] = None  # the pinned allocator keeps it until its copy ran
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(compute)
+                pending.append(done)
+        dq_s = inline_s
+        if cuda:
+            copy.synchronize()
+            t_tail = time.monotonic()
+            for ev in pending:
+                ev.synchronize()
+            dq_s = time.monotonic() - t_tail
+        self._notify_transfer("quant.dequant", sum(w for w, m in zip(wire, metas) if m is not None), dq_s)
+        if cuda:
+            release_cached_memory(self.device)  # the payload buffers go back to the card
 
     def sleep(self, level: int = 1) -> Dict[str, Any]:
         level = SleepLevel(level)
@@ -272,19 +464,27 @@ class SleepManager:
             raise ValueError("sleep level must be 1 or 2")
         if self._level != SleepLevel.AWAKE:
             if level == SleepLevel.L2_DISCARD and self._level == SleepLevel.L1_HOST_OFFLOAD:
-                # escalate 1 -> 2: give the host memory back too
+                # escalate 1 -> 2: give the host memory back too, and the
+                # payload metadata and scales with it (a level-2 wake
+                # writes fresh weights, which stale scales must never
+                # quantize)
                 self._host = None
+                self._quant_meta = self._quant_scales = None
                 self._level = SleepLevel.L2_DISCARD
                 self.stats.bytes_offloaded = 0
                 self.stats.bytes_offloaded_full = 0
+                self.stats.last_quant = "off"
             return self.describe()
         t0 = time.monotonic()
         self._state = self._get_state()
         leaves = self._leaves = flatten_state(self._state)
         repeated = {id(t) for t in self._replicas()} if self._replicas else set()
         nbytes = sum(_nbytes(t) for t in leaves if id(t) not in repeated)
+        off_window = 0.0
         if level == SleepLevel.L1_HOST_OFFLOAD:
-            self._host = self._offload(leaves)
+            off_t0 = time.monotonic()
+            self._host, self._quant_meta = self._offload(leaves, self._quant_plan(self._state))
+            off_window = time.monotonic() - off_t0 - self.stats.last_pin_seconds
         else:
             self._host = None
             if self._cuda:
@@ -299,8 +499,24 @@ class SleepManager:
                 release_cached_memory(dev)
         self._level = level
         self.stats.last_sleep_seconds = time.monotonic() - t0
-        self.stats.bytes_offloaded = nbytes if level == SleepLevel.L1_HOST_OFFLOAD else 0
-        self.stats.bytes_offloaded_full = self.stats.bytes_offloaded
+        self.stats.last_sleep_transfer_s = off_window
+        if level == SleepLevel.L1_HOST_OFFLOAD:
+            self.stats.bytes_offloaded_full = nbytes
+            metas = self._quant_meta
+            if metas is not None:
+                # what the host holds: payload and scale bytes for the
+                # quantized leaves, full precision for the rest
+                self.stats.bytes_offloaded = sum(
+                    _nbytes(h) for h, t in zip(self._host, leaves) if id(t) not in repeated
+                ) + sum(m.scale_nbytes for m in metas if m is not None)
+                self.stats.last_quant = self.quant_mode
+            else:
+                self.stats.bytes_offloaded = nbytes
+                self.stats.last_quant = "off"
+            self._notify_transfer("sleep.d2h", self.stats.bytes_offloaded, off_window)
+        else:
+            self.stats.bytes_offloaded = self.stats.bytes_offloaded_full = 0
+            self.stats.last_quant = "off"
         return self.describe()
 
     def wake_up(self, reinit: Optional[Callable[[], None]] = None) -> Dict[str, Any]:
@@ -315,9 +531,18 @@ class SleepManager:
         t0 = time.monotonic()
         self.stats.last_alloc_seconds = self.stats.wake_map_s = 0.0
         leaves = self._leaves
-        if self._level == SleepLevel.L1_HOST_OFFLOAD:
-            self._restore(leaves, self._host)
+        was_l1 = self._level == SleepLevel.L1_HOST_OFFLOAD
+        if was_l1:
+            metas = self._quant_meta
+            repeated = {id(t) for t in self._replicas()} if self._replicas else set()
+            self.stats.last_wake_bytes = sum(
+                _nbytes(h) for h, t in zip(self._host, leaves) if id(t) not in repeated
+            ) + sum(m.scale_nbytes for m in metas or () if m is not None)
+            self._restore(leaves, self._host, metas)
+            self._note_wake_quant(metas)
         else:
+            # fresh weights: the cached scales describe weights that are gone
+            self._quant_scales = self._quant_meta = None
             self._map(leaves)
             reinit()
         self._map(tag="discard")
@@ -327,6 +552,12 @@ class SleepManager:
         self._set_state(state)
         self._level = SleepLevel.AWAKE
         self.stats.last_wake_seconds = time.monotonic() - t0
+        if was_l1:
+            self.stats.last_wake_transfer_s = self.stats.last_wake_seconds
+            self._notify_transfer("wake.h2d", self.stats.last_wake_bytes, self.stats.last_wake_transfer_s)
+        else:
+            self.stats.last_wake_transfer_s = 0.0
+            self.stats.last_wake_bytes = 0
         return self.describe()
 
     def describe(self) -> Dict[str, Any]:
@@ -337,7 +568,7 @@ class SleepManager:
             "devices_released": False,
             "bytes_offloaded": self.stats.bytes_offloaded,
             "bytes_offloaded_full": self.stats.bytes_offloaded_full,
-            "quant": "off",
+            "quant": self.stats.last_quant,
             "last_sleep_seconds": self.stats.last_sleep_seconds,
             "last_wake_seconds": self.stats.last_wake_seconds,
             "last_reacquire_seconds": 0.0,
@@ -351,32 +582,53 @@ class _TransferPlan:
     executing :func:`swap_states` and the dry-run :func:`plan_swap`, so a
     priced swap and the swap it prices can never disagree on bytes."""
 
+    qmode: str  #: "" or the transfer quantization in effect
+    out_plan: Optional[List[bool]]  #: per outgoing leaf: quantized on the card
+    #: per incoming leaf: a full-precision entry's leaves staged as a
+    #: quantized copy on the host (None when not applicable); only the
+    #: moving leaves are staged
+    in_stage_plan: Optional[List[bool]]
+    in_metas: List[Any]  #: the incoming entry's TransferQuant-or-None (slept quantized)
     reuse_pairs: List[Tuple[int, int]]  #: (incoming idx, outgoing idx) digest matches
     move_out: List[int]
     move_in: List[int]
     nb_out: List[int]
-    nb_in: List[int]
+    nb_in: List[int]  #: full-precision bytes per incoming leaf
+    wnb_out: List[int]  #: wire bytes per outgoing leaf
+    wnb_in: List[int]  #: wire bytes per incoming leaf
     buckets_out: List[List[int]]
     buckets_in: List[List[int]]
     bytes_out: int
     bytes_in: int
+    bytes_full: int
     deduped_bytes: int
     moved_bytes: int
+    quant_leaves: int
+    quant_mode_used: str
 
 
 def _plan_transfer(
+    out_mgr: SleepManager,
+    in_mgr: SleepManager,
     state_out: Any,
     leaves_out: List[torch.Tensor],
-    state_in: Any,
-    leaves_in: List[torch.Tensor],
     bucket_bytes: int,
     out_digests: Optional[Dict[str, str]],
     in_digests: Optional[Dict[str, str]],
+    quant: Optional[str],
 ) -> _TransferPlan:
     """The planning phase of a hot-swap (see :func:`swap_states`): which
-    leaves move, which are digest-matched away, and how many bytes each
-    direction carries. Pure: reads shapes, dtypes, devices and digests."""
+    leaves move, which are digest-matched away, which cross quantized,
+    and how many wire bytes each direction carries. Pure: reads shapes,
+    dtypes, devices and digests."""
+    state_in, leaves_in, host_in = in_mgr._state, in_mgr._leaves, in_mgr._host
+    qmode = quant if quant is not None else (out_mgr.quant_mode or "off")
+    qmode = "" if qmode in ("", "off") else qmode
+    out_plan = out_mgr._quant_plan(state_out) if qmode else None
+    in_metas: List[Any] = list(in_mgr._quant_meta) if in_mgr._quant_meta is not None else [None] * len(leaves_in)
     nb_out = [_nbytes(t) for t in leaves_out]
+    # the incoming leaves' device tensors keep their full-precision shape
+    # and dtype while a quantized payload sleeps in their place
     nb_in = [_nbytes(t) for t in leaves_in]
     # Delta matching: pair incoming leaves with content-identical live
     # outgoing leaves by digest; matched pairs leave BOTH directions. A
@@ -401,22 +653,49 @@ def _plan_transfer(
     reused_out = {j for _, j in reuse_pairs}
     move_out = [i for i in range(len(leaves_out)) if i not in reused_out]
     move_in = [i for i in range(len(leaves_in)) if i not in reused_in]
-    buckets_out = [[move_out[k] for k in b] for b in partition_buckets([nb_out[i] for i in move_out], bucket_bytes)]
-    buckets_in = [[move_in[k] for k in b] for b in partition_buckets([nb_in[i] for i in move_in], bucket_bytes)]
-    bytes_out, bytes_in = sum(nb_out), sum(nb_in)
-    deduped = sum(nb_out[j] for j in reused_out) + sum(nb_in[i] for i in reused_in)
+    move_in_set = set(move_in)
+    # a full-precision incoming entry under quant crosses as a quantized
+    # staging copy of its moving leaves, sized from the shapes alone
+    in_stage_plan = None
+    if qmode and in_mgr._quant_meta is None:
+        in_stage_plan = transfer_quant.transfer_quant_plan(state_in, hot_head=in_mgr.quant_hot_head)
+    wnb_out = [
+        transfer_quant.payload_nbytes(leaves_out[i].shape, qmode) if out_plan and out_plan[i] else nb_out[i]
+        for i in range(len(leaves_out))
+    ]
+
+    def _wire_in(i: int) -> int:
+        if in_metas[i] is not None:  # a payload already
+            return _nbytes(host_in[i]) + in_metas[i].scale_nbytes
+        if in_stage_plan and in_stage_plan[i] and i in move_in_set:
+            return transfer_quant.payload_nbytes(leaves_in[i].shape, qmode)
+        return nb_in[i]
+
+    wnb_in = [_wire_in(i) for i in range(len(leaves_in))]
+    buckets_out = [[move_out[k] for k in b] for b in partition_buckets([wnb_out[i] for i in move_out], bucket_bytes)]
+    buckets_in = [[move_in[k] for k in b] for b in partition_buckets([wnb_in[i] for i in move_in], bucket_bytes)]
+    bytes_out, bytes_in = sum(wnb_out), sum(wnb_in)
+    deduped = sum(wnb_out[j] for j in reused_out) + sum(wnb_in[i] for i in reused_in)
+    quant_leaves = sum(1 for i in move_out if out_plan and out_plan[i]) + sum(
+        1 for i in move_in if in_metas[i] is not None or (in_stage_plan and in_stage_plan[i])
+    )
+    quant_active = (
+        bool(out_plan)
+        or any(m is not None for m in in_metas)
+        or bool(in_stage_plan and any(in_stage_plan[i] for i in move_in))
+    )
+    used = (qmode or next((m.mode for m in in_metas if m is not None), "off")) if quant_active else "off"
     return _TransferPlan(
+        qmode=qmode, out_plan=out_plan, in_stage_plan=in_stage_plan, in_metas=in_metas,
         reuse_pairs=reuse_pairs, move_out=move_out, move_in=move_in, nb_out=nb_out, nb_in=nb_in,
-        buckets_out=buckets_out, buckets_in=buckets_in, bytes_out=bytes_out, bytes_in=bytes_in,
+        wnb_out=wnb_out, wnb_in=wnb_in, buckets_out=buckets_out, buckets_in=buckets_in,
+        bytes_out=bytes_out, bytes_in=bytes_in, bytes_full=sum(nb_out) + sum(nb_in),
         deduped_bytes=deduped, moved_bytes=bytes_out + bytes_in - deduped,
+        quant_leaves=quant_leaves, quant_mode_used=used,
     )
 
 
-def _check_swap_preconditions(out_mgr: SleepManager, in_mgr: SleepManager, quant: Optional[str]) -> None:
-    if quant not in (None, "", "off"):
-        raise ValueError(
-            f"transfer quantization ({quant!r}) is not ported yet (ROADMAP queue 1 item 9); swap with quant off"
-        )
+def _check_swap_preconditions(out_mgr: SleepManager, in_mgr: SleepManager) -> None:
     if out_mgr.is_sleeping:
         raise ValueError("swap-out model must be awake")
     if in_mgr.level != SleepLevel.L1_HOST_OFFLOAD or in_mgr._host is None:
@@ -430,17 +709,18 @@ def _check_swap_preconditions(out_mgr: SleepManager, in_mgr: SleepManager, quant
 
 
 def _swap_bytes(plan: _TransferPlan, bucket_bytes: int) -> Dict[str, Any]:
-    """The byte keys of a swap's metrics, as the reference names them."""
+    """The byte keys of a swap's metrics, as the reference names them:
+    wire bytes, the full-precision total and what quantization saved."""
     return {
         "bytes_out": plan.bytes_out,
         "bytes_in": plan.bytes_in,
         "bytes_moved": plan.moved_bytes,
         "bytes_deduped": plan.deduped_bytes,
         "deduped_leaves": len(plan.reuse_pairs),
-        "quant": "off",
-        "quant_leaves": 0,
-        "bytes_full": plan.bytes_out + plan.bytes_in,
-        "bytes_saved_quant": 0,
+        "quant": plan.quant_mode_used,
+        "quant_leaves": plan.quant_leaves,
+        "bytes_full": plan.bytes_full,
+        "bytes_saved_quant": max(0, plan.bytes_full - (plan.bytes_out + plan.bytes_in)),
         "buckets_out": len(plan.buckets_out),
         "buckets_in": len(plan.buckets_in),
         "bucket_bytes": bucket_bytes,
@@ -457,21 +737,22 @@ def plan_swap(
 ) -> Dict[str, Any]:
     """Price a hot-swap WITHOUT moving a byte: the planning code
     :func:`swap_states` executes (same preconditions, same delta
-    matching), run on a side-effect-free read of the outgoing state, so
-    the predicted bytes equal the executed swap's by construction. Returns
-    the byte keys of the swap's metrics, the bytes that cross PCIe each way
-    (``wire_out``, ``wire_in``) and the leaf counts."""
-    _check_swap_preconditions(out_mgr, in_mgr, quant)
+    matching, same quantized-payload sizing), run on a side-effect-free
+    read of the outgoing state, so the predicted bytes equal the executed
+    swap's by construction. Returns the byte keys of the swap's metrics,
+    the bytes that cross PCIe each way (``wire_out``, ``wire_in``) and the
+    leaf counts."""
+    _check_swap_preconditions(out_mgr, in_mgr)
     bucket_bytes = bucket_bytes or DEFAULT_SWAP_BUCKET_BYTES
     # the reference prices from a peek that skips its get_state's quiesce;
     # the port's get_state reads the tensors and quiesces nothing
     state_out = out_mgr._get_state()
     leaves_out = flatten_state(state_out)
-    plan = _plan_transfer(state_out, leaves_out, in_mgr._state, in_mgr._leaves, bucket_bytes, out_digests, in_digests)
+    plan = _plan_transfer(out_mgr, in_mgr, state_out, leaves_out, bucket_bytes, out_digests, in_digests, quant)
     return {
         **_swap_bytes(plan, bucket_bytes),
-        "wire_out": sum(plan.nb_out[i] for i in plan.move_out),
-        "wire_in": sum(plan.nb_in[i] for i in plan.move_in),
+        "wire_out": sum(plan.wnb_out[i] for i in plan.move_out),
+        "wire_in": sum(plan.wnb_in[i] for i in plan.move_in),
         "leaves_out": len(leaves_out),
         "leaves_in": len(in_mgr._leaves),
     }
@@ -528,9 +809,23 @@ def swap_states(
 
     ``overlapped=False`` runs the same code on a sequential schedule
     (every outgoing bucket lands before the first incoming one is issued).
-    ``quant`` other than off is refused (transfer quantization is not
-    ported yet)."""
-    _check_swap_preconditions(out_mgr, in_mgr, quant)
+
+    **Quantized transfers** (``quant`` int8 or fp8; by default the
+    outgoing manager's mode): the outgoing model's eligible leaves are
+    quantized on the card and only their payloads cross; an incoming model
+    slept quantized moves its payloads, which are dequantized on the card
+    into its leaves once each lands (the compute stream waits for its
+    copy, while the next copies run: ``models/quant.py:
+    dequantize_into``); an incoming
+    model slept at full precision crosses as a quantized staging copy made
+    on the host, its pooled host state untouched before the commit. A
+    rollback refills the outgoing leaves from their payloads with the same
+    scales, so both models come back bit-exact, and a rolled-back first
+    quantized offload keeps the scales it rounded with. Digest-matched
+    leaves still skip both directions. The byte keys count wire bytes;
+    ``bytes_full`` is the full-precision total and ``bytes_saved_quant``
+    the difference."""
+    _check_swap_preconditions(out_mgr, in_mgr)
     bucket_bytes = bucket_bytes or DEFAULT_SWAP_BUCKET_BYTES
     t_begin = time.monotonic()
     dev = out_mgr.device
@@ -538,21 +833,40 @@ def swap_states(
     state_out = out_mgr._get_state()
     leaves_out = flatten_state(state_out)
     state_in, leaves_in, host_in = in_mgr._state, in_mgr._leaves, in_mgr._host
-    plan = _plan_transfer(state_out, leaves_out, state_in, leaves_in, bucket_bytes, out_digests, in_digests)
+    plan = _plan_transfer(out_mgr, in_mgr, state_out, leaves_out, bucket_bytes, out_digests, in_digests, quant)
+    qmode, out_plan, in_metas = plan.qmode, plan.out_plan, plan.in_metas
     buckets_out, buckets_in = plan.buckets_out, plan.buckets_in
-    bsize_out = [sum(plan.nb_out[i] for i in b) for b in buckets_out]
-    bsize_in = [sum(plan.nb_in[i] for i in b) for b in buckets_in]
+    bsize_out = [sum(plan.wnb_out[i] for i in b) for b in buckets_out]
+    bsize_in = [sum(plan.wnb_in[i] for i in b) for b in buckets_in]
     arena_out = [arena_of(out_mgr.arenas, t) for t in leaves_out]
     arena_in = [arena_of(in_mgr.arenas, t) for t in leaves_in]
+    meta_out: List[Any] = [None] * len(leaves_out)
 
-    # the outgoing host copies, allocated before the transfer window
+    # the host staging of a full-precision incoming entry's moving leaves
+    # (its pooled copies stay as they are until the commit)
+    stage_in: List[Optional[torch.Tensor]] = [None] * len(leaves_in)
+    if plan.in_stage_plan is not None:
+        for i in plan.move_in:
+            if plan.in_stage_plan[i]:
+                stage_in[i], in_metas[i] = transfer_quant.quantize_leaf_host(host_in[i], qmode, pin=cuda)
+
+    # the outgoing host copies (payload-sized where quantized), allocated
+    # before the transfer window
     t_pin = time.monotonic()
     host_out: List[Optional[torch.Tensor]] = [None] * len(leaves_out)
+    scale_out: Dict[int, torch.Tensor] = {}
     for i in plan.move_out:
-        host_out[i] = torch.empty(leaves_out[i].shape, dtype=leaves_out[i].dtype, pin_memory=cuda)
+        t = leaves_out[i]
+        if out_plan and out_plan[i]:
+            host_out[i] = torch.empty(t.shape, dtype=transfer_quant.payload_dtype(qmode), pin_memory=cuda)
+            if qmode == "int8":
+                scale_out[i] = torch.empty(tuple(t.shape[:-2]) + (1, t.shape[-1]), dtype=torch.float32, pin_memory=cuda)
+        else:
+            host_out[i] = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
     pin_s = time.monotonic() - t_pin
     s_out = out_mgr._stream(dev, 0) if cuda else None
     s_in = out_mgr._stream(dev, 1) if cuda else None
+    compute = torch.cuda.current_stream(dev) if cuda else None
 
     in_flight = peak_in_flight = 0
     d2h_t0 = d2h_t1 = h2d_t0 = h2d_t1 = None
@@ -563,36 +877,54 @@ def swap_states(
     #: (incoming, outgoing) pairs whose block changed hands (a rollback hands them back)
     handed: List[Tuple[int, int]] = []
     handover_s = 0.0
+    #: the incoming payloads' bytes, and on the CPU their dequantization's
+    #: seconds (it runs inline; on the card its unhidden tail is timed)
+    dequant = [0, 0.0]
 
     def _event(stream):
         ev = torch.cuda.Event()
         ev.record(stream)
         return ev
 
+    def _quantize_out(i: int) -> torch.Tensor:
+        """Leaf ``i``'s payload, quantized where it lies (the compute
+        stream), its meta's scale bound for the host buffer."""
+        p, meta = transfer_quant.quantize_leaf(leaves_out[i], qmode, scale=out_mgr._cached_scale(i, leaves_out[i]))
+        meta_out[i] = meta
+        return p
+
     def _issue_d2h(k):
         nonlocal in_flight, peak_in_flight
         faults.fire("swap.d2h")
         bucket = buckets_out[k]
+        srcs = [(i, _quantize_out(i) if out_plan and out_plan[i] else leaves_out[i]) for i in bucket]
         ev = None
         if cuda:
-            s_out.wait_stream(torch.cuda.current_stream(dev))  # every queued write first
+            s_out.wait_stream(compute)  # every queued write (and quantization) first
             with torch.cuda.stream(s_out):
-                for i in bucket:
-                    host_out[i].copy_(leaves_out[i], non_blocking=True)
+                for i, src in srcs:
+                    host_out[i].copy_(src, non_blocking=True)
+                    if i in scale_out:
+                        scale_out[i].copy_(meta_out[i].scale, non_blocking=True)
             ev = _event(s_out)
         else:
-            for i in bucket:
-                host_out[i].copy_(leaves_out[i])
+            for i, src in srcs:
+                host_out[i].copy_(src)
+                if i in scale_out:
+                    scale_out[i].copy_(meta_out[i].scale)
         in_flight += bsize_out[k]
         peak_in_flight = max(peak_in_flight, in_flight)
-        return k, ev
+        return k, ev, srcs
 
     def _finish_d2h(pending):
         nonlocal in_flight
-        k, ev = pending
+        k, ev, _srcs = pending
         if ev is not None:
             ev.synchronize()
         bucket = buckets_out[k]
+        for i in bucket:
+            if i in scale_out:
+                meta_out[i].scale = scale_out[i]
         released_out.extend(bucket)  # before the unmap: a failed one is mapped again
         for i in bucket:
             arena_out[i].unmap([leaves_out[i]])  # the memory the next incoming bucket fills
@@ -608,14 +940,23 @@ def swap_states(
         for i in bucket:
             arena_in[i].map([leaves_in[i]])
         ev = None
-        if cuda:
-            with torch.cuda.stream(s_in):
-                for i in bucket:
-                    leaves_in[i].copy_(host_in[i], non_blocking=True)
-            ev = _event(s_in)
-        else:
+        with torch.cuda.stream(s_in) if cuda else contextlib.nullcontext():
             for i in bucket:
-                leaves_in[i].copy_(host_in[i])
+                src = stage_in[i] if stage_in[i] is not None else host_in[i]
+                if in_metas[i] is None:
+                    leaves_in[i].copy_(src, non_blocking=cuda)
+        for i in bucket:
+            if in_metas[i] is not None:
+                # on the card the expansion runs on the compute stream once
+                # the payload landed, under the next copies
+                src = stage_in[i] if stage_in[i] is not None else host_in[i]
+                t0 = time.monotonic()
+                transfer_quant.dequantize_into(leaves_in[i], src, in_metas[i], copy_stream=s_in)
+                dequant[0] += _nbytes(src) + in_metas[i].scale_nbytes
+                if not cuda:
+                    dequant[1] += time.monotonic() - t0
+        if cuda:
+            ev = _event(s_in)
         in_flight += bsize_in[j]
         peak_in_flight = max(peak_in_flight, in_flight)
         return j, ev
@@ -635,7 +976,8 @@ def swap_states(
         flight, hand matched blocks back, release what the incoming model
         mapped, and map and refill the outgoing leaves already released
         from their host copies (which landed before the release, by
-        construction). The incoming host copies were never touched."""
+        construction; quantized ones dequantized with the scales they were
+        quantized with). The incoming host copies were never touched."""
         for pending in (pend_h2d, pend_d2h):
             if pending is not None and pending[1] is not None:
                 try:
@@ -644,17 +986,31 @@ def swap_states(
                     pass
         if cuda:
             torch.cuda.synchronize(dev)
+        for i, buf in scale_out.items():
+            if meta_out[i] is not None:
+                meta_out[i].scale = buf  # landed with its payload
         for i, j in reversed(handed):
             hand_over(arena_in[i], leaves_in[i], arena_out[j], leaves_out[j])
         for i in mapped_in:
             arena_in[i].unmap([leaves_in[i]])
         for arena in in_mgr.arenas:
             arena.unmap(tag="discard")
-        for b in partition_buckets([plan.nb_out[i] for i in released_out], bucket_bytes):
+        for b in partition_buckets([plan.wnb_out[i] for i in released_out], bucket_bytes):
             idx = [released_out[k] for k in b]
             for i in idx:
                 arena_out[i].map([leaves_out[i]])
-            out_mgr._copy([(leaves_out[i], host_out[i]) for i in idx])
+            out_mgr._copy([(leaves_out[i], host_out[i]) for i in idx if meta_out[i] is None])
+            for i in idx:
+                if meta_out[i] is not None:
+                    transfer_quant.dequantize_into(leaves_out[i], host_out[i], meta_out[i])
+            if cuda:
+                torch.cuda.synchronize(dev)
+        if any(m is not None for m in meta_out):
+            # a rolled-back first quantized offload already rounded the
+            # refilled leaves: keep the scales it used, so the next
+            # offload quantizes to the same bits instead of recomputing a
+            # perturbed scale from the rounded weights
+            out_mgr._quant_scales = [None if m is None else m.scale for m in meta_out]
 
     d2h_t0 = time.monotonic()
     try:
@@ -683,6 +1039,12 @@ def swap_states(
         if pend_h2d is not None:
             _finish_h2d(pend_h2d)
             pend_h2d = None
+        if cuda and dequant[0]:
+            # the last buckets' dequantization belongs to the wake's window
+            t_dq = time.monotonic()
+            compute.synchronize()
+            dequant[1] = time.monotonic() - t_dq
+        out_mgr._notify_transfer("quant.dequant", *dequant)
         h2d_t1 = time.monotonic()
         # the commit's device edits: the incoming model's discard blocks,
         # then the delta handover, once nothing queued uses either model
@@ -707,27 +1069,45 @@ def swap_states(
     if h2d_t0 is None:  # nothing moved in
         h2d_t0 = h2d_t1
 
-    # Commit: the matched incoming host copies become the outgoing model's
-    # slept copies; outgoing asleep (poolable), incoming awake.
+    # Commit: the matched incoming host copies (and their payload
+    # metadata) become the outgoing model's slept copies; outgoing asleep
+    # (poolable), incoming awake.
     for i, j in plan.reuse_pairs:
         host_out[j] = host_in[i]
+        meta_out[j] = in_metas[i]
     out_mgr._state, out_mgr._leaves, out_mgr._host = state_out, leaves_out, host_out
+    out_mgr._quant_meta = meta_out if any(m is not None for m in meta_out) else None
     out_mgr._set_state(None)
     for arena in out_mgr.arenas:
         arena.unmap(tag="discard")
     out_mgr._level = SleepLevel.L1_HOST_OFFLOAD
-    out_mgr.stats.last_sleep_seconds = d2h_t1 - d2h_t0
+    out_mgr.stats.last_sleep_seconds = out_mgr.stats.last_sleep_transfer_s = d2h_t1 - d2h_t0
     out_mgr.stats.last_pin_seconds = pin_s
-    out_mgr.stats.bytes_offloaded = out_mgr.stats.bytes_offloaded_full = plan.bytes_out
+    out_mgr.stats.bytes_offloaded = sum(_nbytes(h) for h in host_out) + sum(
+        m.scale_nbytes for m in meta_out if m is not None
+    )
+    out_mgr.stats.bytes_offloaded_full = sum(plan.nb_out)
+    out_mgr.stats.last_quant = plan.quant_mode_used if out_mgr._quant_meta is not None else "off"
     in_mgr._host = in_mgr._leaves = in_mgr._state = None
     in_mgr._set_state(state_in)
     in_mgr._level = SleepLevel.AWAKE
-    in_mgr.stats.last_wake_seconds = h2d_t1 - h2d_t0
+    # the incoming model's scales, for its next offload; the payload
+    # metadata is consumed
+    in_mgr._note_wake_quant(in_metas)
+    in_mgr.stats.last_wake_seconds = in_mgr.stats.last_wake_transfer_s = h2d_t1 - h2d_t0
+    in_mgr.stats.last_wake_bytes = plan.bytes_in
     in_mgr.stats.bytes_offloaded = in_mgr.stats.bytes_offloaded_full = 0
 
+    if cuda and plan.quant_mode_used != "off":
+        release_cached_memory(dev)  # the payload buffers go back to the card
     total = time.monotonic() - t_begin
     # overlap = the intersection of the two directions' windows
     overlap = max(0.0, min(d2h_t1, h2d_t1) - max(d2h_t0, h2d_t0))
+    # the cost oracle's bandwidths: each direction's window over the bytes
+    # that crossed it, and the whole verb's effective rate
+    out_mgr._notify_transfer("swap.d2h", sum(plan.wnb_out[i] for i in plan.move_out), d2h_t1 - d2h_t0)
+    out_mgr._notify_transfer("swap.h2d", sum(plan.wnb_in[i] for i in plan.move_in), h2d_t1 - h2d_t0)
+    out_mgr._notify_transfer("swap.total", plan.moved_bytes, total)
     return {
         "swap_total_s": total,
         "d2h_s": d2h_t1 - d2h_t0,
@@ -741,14 +1121,22 @@ def swap_states(
     }
 
 
-def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:
+def attach_sleep(
+    engine,
+    bucket_bytes: Optional[int] = None,
+    quant_mode: str = "off",
+    quant_hot_head: bool = True,
+    on_transfer: Optional[Callable[[str, int, float], None]] = None,
+) -> SleepManager:
     """Wire a SleepManager to an InferenceEngine: the offloadable state is
     ``{"params": the model's parameters, "kv": the page pool}``, and the
     engine's arenas hold it. Page tables and host bookkeeping stay put, so
     a level-1 wake resumes in-flight sequences; the device scheduler
     tensors are marked stale while asleep and copied in again by the first
     dispatch after the wake, and the model's RoPE tables are written again
-    at wake."""
+    at wake. ``quant_mode`` and ``quant_hot_head`` are compressed
+    actuation's (``--sleep-quant``, ``--sleep-quant-hot-head``);
+    ``on_transfer`` feeds the cost oracle."""
 
     def get_state():
         return {
@@ -766,7 +1154,8 @@ def attach_sleep(engine, bucket_bytes: Optional[int] = None) -> SleepManager:
 
     replicas = getattr(engine.model, "replicas", None)  # a sharded model's repeated norms
     return SleepManager(
-        get_state, set_state, engine.device, engine.arenas.values(), bucket_bytes=bucket_bytes, replicas=replicas
+        get_state, set_state, engine.device, engine.arenas.values(), bucket_bytes=bucket_bytes, replicas=replicas,
+        quant_mode=quant_mode, quant_hot_head=quant_hot_head, on_transfer=on_transfer,
     )
 
 

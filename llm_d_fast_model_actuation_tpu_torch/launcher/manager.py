@@ -30,7 +30,8 @@ to the child's ``/v1/prefetch`` and records the hint in the ledger's
 verbs (each waits on its engine feature), and the Prometheus gauges and
 spans.
 ``fleet_rollup`` aggregates the children's ``/v1/stats`` as the reference
-does, without gauges.
+does, without gauges; a detailed instance list lifts each reporting
+child's cost-oracle summary into ``ledger.costs``.
 """
 
 from __future__ import annotations
@@ -827,7 +828,9 @@ class EngineProcessManager:
     ) -> Dict[str, Any]:
         statuses = []
         running = 0
-        for instance in self.instances.values():
+        # a snapshot: a delete on another executor thread may drop an
+        # instance while the list is read
+        for instance in list(self.instances.values()):
             st = instance.get_status()
             statuses.append(st)
             if st["status"] == STATUS_RUNNING:
@@ -856,7 +859,16 @@ class EngineProcessManager:
             except Exception as e:  # noqa: BLE001 — rollup never fails the read
                 logger.warning("fleet rollup failed: %s", e)
                 out["fleet"] = {"error": str(e)[:200]}
-            out["ledger"]["costs"] = {}  # the port's engine reports no costs
+            # the cost oracle's rollup: each reporting child's /v1/stats
+            # carries its bandwidths and prediction accuracy, lifted here
+            # so one detailed read holds demand (fleet), state (ledger)
+            # and cost, from one poll cycle
+            per = (out["fleet"] or {}).get("per_instance") or {}
+            out["ledger"]["costs"] = {
+                iid: row.get("costs")
+                for iid, row in per.items()
+                if row.get("reporting") and row.get("costs") is not None
+            }
         return out
 
     def list_instances(self) -> List[str]:

@@ -55,9 +55,10 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
-from ..engine.chunk_store import digest_leaves
+from ..engine.chunk_store import TORCH_DTYPES, digest_leaves, leaf_paths
 from ..parallel.mesh import shard
 from ..utils import faults
+from . import quant as quant_mod
 from .llama import Llama, LlamaConfig, ShardedLlama, param_shapes, param_tp_dims
 from .safetensors import DTYPES, SafetensorsFile
 
@@ -217,6 +218,14 @@ class LoadStats:
     #: flat weight key ("layers/wq") -> content digest, as the reference's
     #: ``engine/chunk_store.py:leaf_digest``; only with ``want_digests``
     digests: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def transfer_figures(self) -> List[Tuple[str, int, float]]:
+        """``(kind, bytes, seconds)`` of the read and the copy windows, in
+        the cost oracle's kinds (``utils/costs.py``); empty windows left
+        out."""
+        return [(kind, nb, sec) for kind, nb, sec in (
+            ("coldload.read", self.bytes_read, self.read_s), ("coldload.h2d", self.bytes_h2d, self.h2d_s),
+        ) if nb > 0 and sec > 0]
 
     def summary(self) -> Dict[str, Any]:
         """The numbers, without the digests and their times, and the
@@ -489,26 +498,50 @@ def model_digests(model: "Llama | ShardedLlama", times: Optional[Dict[str, List[
     return digest_leaves(model_leaves(model), times=times)
 
 
-def estimate_param_bytes(cfg: LlamaConfig) -> int:
+def estimate_param_bytes(cfg: LlamaConfig, transfer_quant: str = "off", hot_head: bool = True) -> int:
     """Host bytes a staged copy of the model occupies (the prefetch's
-    budget check): its parameters in ``cfg.dtype``, from the shapes only."""
-    return sum(math.prod(s) for s in param_shapes(cfg).values()) * cfg.dtype.itemsize
+    budget check), from the shapes only: its parameters in ``cfg.dtype``,
+    or with ``transfer_quant`` ("int8"/"fp8", ``--sleep-quant``) the
+    leaves a compressed staging quantizes at their payload and scale
+    bytes, so a quantized stage is not over-reserved."""
+    shapes = param_shapes(cfg)
+    itemsize = cfg.dtype.itemsize
+    mode = "" if transfer_quant in ("", "off") else transfer_quant
+    if not mode:
+        return sum(math.prod(s) for s in shapes.values()) * itemsize
+    return sum(
+        quant_mod.payload_nbytes(shape, mode)
+        if quant_mod.quant_eligible(flat.split("."), len(shape), hot_head) else math.prod(shape) * itemsize
+        for flat, shape in shapes.items()
+    )
 
 
 @torch.no_grad()
-def place_staged_params(params: Dict[str, Any], model: Llama, stats: Optional[LoadStats] = None) -> LoadStats:
+def place_staged_params(
+    params: Dict[str, Any], model: Llama, stats: Optional[LoadStats] = None, quant_metas: Optional[List[Any]] = None
+) -> LoadStats:
     """Write a host weight tree (``{"embed": t, "layers": {"wq": t, ...}}``,
     the reference's nesting: what :func:`load_params` stages with
     ``place=False``, or what the model pool rebuilds from its chunk tiers)
     into ``model``'s parameters, in place: straight copies, on a copy
     stream of its own on the card, timed by CUDA events, and waited for
     by their last event. Every parameter must be there, in its shape and
-    dtype. Returns (or fills) the :class:`LoadStats`: ``h2d_s`` and
-    ``bytes_h2d``."""
+    dtype. ``quant_metas`` (TransferQuant-or-None, aligned with the tree's
+    leaves: a prefetch staged under ``--sleep-quant``) marks payloads:
+    each is copied to the card and dequantized there into its parameter,
+    on the same stream. Returns (or fills) the :class:`LoadStats`:
+    ``h2d_s`` and ``bytes_h2d`` (the bytes that crossed)."""
     if isinstance(model, ShardedLlama):
         raise ValueError("staged weights are placed on one device only")
     t_begin = time.perf_counter()
     st = stats if stats is not None else LoadStats()
+    metas: Dict[str, Any] = {}
+    if quant_metas is not None:
+        paths = leaf_paths(params)
+        if len(paths) != len(quant_metas):
+            # never serve raw payloads as weights
+            raise ValueError(f"quantized staging metadata ({len(quant_metas)}) does not align with the tree ({len(paths)} leaves)")
+        metas = {".".join(p): m for p, m in zip(paths, quant_metas) if m is not None}
     pairs = []
     for flat, shape in param_shapes(model.cfg).items():
         node: Any = params
@@ -517,9 +550,18 @@ def place_staged_params(params: Dict[str, Any], model: Llama, stats: Optional[Lo
                 raise ValueError(f"staged weights lack {flat.replace('.', '/')}")
             node = node[part]
         dest = _param(model, flat)
-        if tuple(node.shape) != tuple(shape) or node.dtype != dest.dtype:
-            raise ValueError(f"staged {flat}: {tuple(node.shape)} {node.dtype}, the model holds {tuple(shape)} {dest.dtype}")
-        pairs.append((dest, node))
+        meta = metas.get(flat)
+        dtype = TORCH_DTYPES[meta.orig_dtype] if meta is not None else node.dtype
+        if tuple(node.shape) != tuple(shape) or dtype != dest.dtype:
+            raise ValueError(f"staged {flat}: {tuple(node.shape)} {dtype}, the model holds {tuple(shape)} {dest.dtype}")
+        pairs.append((dest, node, meta))
+
+    def place(dest, node, meta, **kw) -> None:
+        if meta is None:
+            dest.copy_(node, **kw)
+            return
+        quant_mod.dequantize_into(dest, node, meta)  # on the current stream
+
     dev = model.device
     if dev.type == "cuda":
         stream = torch.cuda.Stream(dev)
@@ -527,19 +569,21 @@ def place_staged_params(params: Dict[str, Any], model: Llama, stats: Optional[Lo
         begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(stream):
             begin.record(stream)
-            for dest, node in pairs:
+            for dest, node, meta in pairs:
                 faults.fire("coldload.h2d")
-                dest.copy_(node, non_blocking=True)
+                place(dest, node, meta, non_blocking=True)
             end.record(stream)
         end.synchronize()
         st.h2d_s = begin.elapsed_time(end) / 1e3
     else:
         t0 = time.perf_counter()
-        for dest, node in pairs:
+        for dest, node, meta in pairs:
             faults.fire("coldload.h2d")
-            dest.copy_(node)
+            place(dest, node, meta)
         st.h2d_s = time.perf_counter() - t0
-    st.bytes_h2d = sum(d.numel() * d.element_size() for d, _ in pairs)
+    st.bytes_h2d = sum(
+        n.numel() * n.element_size() + (m.scale_nbytes if m is not None else 0) for _, n, m in pairs
+    )
     st.tensors = len(pairs)
     st.total_s = time.perf_counter() - t_begin
     return st

@@ -1,16 +1,66 @@
-"""Weight products of the model forward.
+"""Weight products of the model forward, and the transfer quantization of
+compressed actuation (``--sleep-quant``).
 
-Port of ``models/quant.py:qmat`` for plain (bf16 or fp32) weights: the
-JAX package leaves ``x @ w`` to XLA, so the port leaves it to
-``torch.matmul``. Weights keep the reference's ``[in, out]`` layout, so
-the product is ``x @ w`` with no transpose. The int8 (W8A16) path and the
-transfer-quantization layer are not ported yet; a quantized weight is
-refused, never silently dequantized.
+Port of ``llm_d_fast_model_actuation_tpu/models/quant.py``:
+
+  * :func:`qmat`, for plain (bf16 or fp32) weights: the JAX package leaves
+    ``x @ w`` to XLA, so the port leaves it to ``torch.matmul``. Weights
+    keep the reference's ``[in, out]`` layout, so the product is ``x @ w``
+    with no transpose. The int8 (W8A16) serving path (``--quantization``)
+    is not ported yet: a quantized weight is refused, never silently
+    dequantized.
+  * the transfer half: how weight bytes cross the PCIe boundary on a
+    sleep, a wake and a swap (``engine/sleep.py``). An eligible leaf is
+    quantized right before it leaves the card (or on the host, when a
+    full-precision pool entry or a prefetch is staged), only the int8 or
+    fp8 payload moves, and the wake dequantizes on the card into the
+    leaf's own tensor. The engine always serves plain ``cfg.dtype``
+    tensors, so nothing is captured again.
+
+Numerics are the reference's, bit for bit, and lossy once. The first
+quantized offload rounds each eligible weight (symmetric int8 with an f32
+scale per output channel, or a dtype round trip through fp8 e4m3); every
+later cycle reproduces the same bits, because the sleeper caches the int8
+scales and ``round(dequant(q, s) / s) == q`` for ``|q| <= 127``, and an
+fp8 round trip is exact. Rounding is half to even (``torch.round``), the
+division f32. The fp8 conversion follows ``ml_dtypes`` (and so
+``jnp.astype``) where torch does not: torch saturates a value above
+e4m3's largest finite 448, ``ml_dtypes`` gives NaN (sign kept) for
+``|x| > 464`` (464 itself rounds to 448), and so does the port, on the
+card and on the host alike.
+
+On the card a leaf is quantized and dequantized one layer slice at a time
+(``leaf[l]``; a 2-D leaf in column blocks): the int8 scale reduces over
+axis ``ndim - 2``, the fan-in, so the slices give the same bits as the
+whole leaf, and no f32 temporary of a whole stack (7.5 GB for
+Llama-3-8B's ``w_gate``) ever exists. These ops are XLA in the reference,
+not Pallas: plain torch ops per slice are their port.
 """
 
 from __future__ import annotations
 
+import hashlib
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
 import torch
+
+#: weight stacks of a llama-family layer tree that a transfer quantizes
+LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+#: transfer quantization modes (--sleep-quant)
+TRANSFER_MODES = ("off", "int8", "fp8")
+
+#: top-level leaves the default "hot head" keeps at full precision
+HOT_HEAD_KEYS = ("embed", "lm_head")
+
+#: ``ml_dtypes``' e4m3fn overflow: a magnitude above this converts to NaN
+FP8_NAN_ABOVE = 464.0
+
+#: elements of one block of a 2-D leaf (column blocks bound the f32
+#: temporaries as the layer slices do for a stack)
+_BLOCK_ELEMS = 1 << 26
 
 
 def qmat(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -21,3 +71,290 @@ def qmat(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             f"(got {type(w).__name__})"
         )
     return torch.matmul(x, w)
+
+
+def fp8_dtype() -> torch.dtype:
+    """The fp8 transfer dtype (e4m3: weight-shaped range, 3 mantissa
+    bits)."""
+    return torch.float8_e4m3fn
+
+
+def transfer_quant_supported(mode: str) -> Optional[str]:
+    """None when ``mode`` can run here, else a reason (the flag's
+    validation)."""
+    if mode in ("", "off"):
+        return None
+    if mode not in TRANSFER_MODES:
+        return f"unknown sleep-quant mode {mode!r} (want {TRANSFER_MODES})"
+    if mode == "fp8" and not hasattr(torch, "float8_e4m3fn"):
+        return f"fp8 transfers need torch.float8_e4m3fn (torch {torch.__version__})"
+    return None
+
+
+@dataclass
+class TransferQuant:
+    """What a wake needs to rebuild one quantized leaf: kept beside the
+    host state (a list aligned with its leaves), never inside it."""
+
+    mode: str  #: "int8" | "fp8"
+    orig_dtype: str  #: numpy dtype name of the full-precision leaf
+    #: f32 scale per output channel, broadcastable: shape[:-2] + (1, out)
+    #: (int8 only). On the device it was computed on until a sleep moves
+    #: it to the host with the payload.
+    scale: Optional[torch.Tensor] = None
+    #: the shard view a mesh leaf was quantized from; always None here
+    #: (one card: ``--sleep-quant`` on a mesh is refused)
+    spec: Optional[str] = None
+    #: the payload's :func:`transfer_digest`, kept once computed: a slept
+    #: payload is never written again, and it moves between models (a
+    #: delta swap hands it on) with this metadata, so it is hashed once
+    digest: Optional[str] = None
+
+    @property
+    def scale_nbytes(self) -> int:
+        return 0 if self.scale is None else self.scale.numel() * self.scale.element_size()
+
+
+def quant_eligible(keys: Sequence[str], ndim: int, hot_head: bool = True) -> bool:
+    """Whether a quantized transfer compresses the floating-point weight at
+    ``keys`` (its path in the weight tree) with ``ndim`` dimensions: the
+    layer matmul weights (:data:`LAYER_WEIGHTS`, ndim 3 or 4), and
+    ``embed`` and ``lm_head`` (ndim 2) when ``hot_head`` is False."""
+    if not keys or ndim < 2:
+        return False
+    if keys[0] == "layers" and keys[-1] in LAYER_WEIGHTS and ndim in (3, 4):
+        return True
+    return not hot_head and keys[-1] in HOT_HEAD_KEYS and ndim == 2
+
+
+def transfer_quant_plan(state: Any, hot_head: bool = True, prefix: str = "params") -> List[bool]:
+    """Which leaves of ``state`` a quantized transfer compresses, aligned
+    with ``flatten_state(state)``: the floating-point weights under
+    ``prefix`` that :func:`quant_eligible` takes. Norms, biases, the KV
+    pool and scheduler tensors never quantize."""
+    cs = _chunk_store()
+    out: List[bool] = []
+    for keys, leaf in zip(cs.leaf_paths(state), cs.flatten_state(state)):
+        if prefix:
+            if not keys or keys[0] != prefix:
+                out.append(False)
+                continue
+            keys = keys[1:]
+        out.append(leaf.dtype.is_floating_point and quant_eligible(keys, leaf.ndim, hot_head))
+    return out
+
+
+def payload_nbytes(shape: Sequence[int], mode: str) -> int:
+    """Wire bytes of one quantized leaf: the 1-byte payload plus the int8
+    path's f32 scale (axis ``ndim-2`` reduced to 1). Shapes only."""
+    elems = math.prod(int(d) for d in shape)
+    scale = (elems // max(1, int(shape[-2]))) * 4 if mode == "int8" else 0
+    return elems + scale
+
+
+def _blocks(shape: Sequence[int]) -> List[Tuple[Any, ...]]:
+    """Index tuples that cut a leaf into pieces whose int8 scales are
+    independent: its layer slices (``[l]``), or for a 2-D leaf column
+    blocks (``[:, a:b]``), each a bounded number of elements."""
+    if len(shape) >= 3:
+        return [(i,) for i in range(int(shape[0]))]
+    if len(shape) < 2:
+        return [(Ellipsis,)]
+    rows, cols = int(shape[0]), int(shape[1])
+    step = max(1, _BLOCK_ELEMS // max(1, rows))
+    return [(slice(None), slice(a, min(cols, a + step))) for a in range(0, cols, step)]
+
+
+def _chunk_store():
+    # imported where used: the engine package imports the model, which
+    # imports this module
+    from ..engine import chunk_store
+
+    return chunk_store
+
+
+def payload_dtype(mode: str) -> torch.dtype:
+    """The dtype of a ``mode`` payload."""
+    return torch.int8 if mode == "int8" else fp8_dtype()
+
+
+def _fp8_fix_overflow(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``ml_dtypes``' overflow rule on an fp8 payload converted from
+    ``src``: NaN (0x7f, or 0xff for a negative value) wherever ``|src| >
+    464`` or ``src`` is NaN, where torch saturated."""
+    bits = dst.view(torch.uint8)
+    bad = ~(src.abs() <= FP8_NAN_ABOVE)
+    nan = torch.where(torch.signbit(src), 0xFF, 0x7F).to(torch.uint8)
+    bits.copy_(torch.where(bad, nan, bits))
+
+
+#: a quiet NaN's bits per dtype, positive and negative, as ``ml_dtypes``
+#: writes an fp8 NaN widened (torch keeps neither the payload nor, for
+#: bf16, the sign)
+_QUIET_NAN = {
+    torch.float32: (torch.int32, 0x7FC00000, -0x400000),
+    torch.bfloat16: (torch.int16, 0x7FC0, -0x40),
+    torch.float16: (torch.int16, 0x7E00, -0x200),
+    torch.float64: (torch.int64, 0x7FF8000000000000, -0x8000000000000),
+}
+
+
+def _fp8_widen(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` from an fp8 payload, with each NaN written as
+    ``ml_dtypes`` widens it (a quiet NaN of the payload's sign)."""
+    dst.copy_(src)
+    ibits, pos, neg = _QUIET_NAN[dst.dtype]
+    raw = src.view(torch.uint8)
+    nan = (raw & 0x7F) == 0x7F
+    bits = dst.view(ibits)
+    bits.copy_(torch.where(nan, torch.where(raw >= 0x80, neg, pos).to(ibits), bits))
+
+
+@torch.no_grad()
+def quantize_leaf(
+    t: torch.Tensor, mode: str, scale: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, TransferQuant]:
+    """Quantize one leaf for transfer, where it lies (on the card when
+    ``t`` is there, so only the payload crosses the boundary), one layer
+    slice at a time. ``scale`` (the sleeper's cached scale from the leaf's
+    first quantization, on any device) makes re-quantization
+    bit-idempotent. ``out`` is the payload tensor to write (allocated
+    beside ``t`` when None). Returns (payload, meta); the meta's scale is
+    on ``t``'s device."""
+    orig = _chunk_store().NP_NAMES[t.dtype]
+    q = out if out is not None else torch.empty(t.shape, dtype=payload_dtype(mode), device=t.device)
+    if mode == "fp8":
+        for idx in _blocks(t.shape):
+            q[idx].copy_(t[idx])
+            _fp8_fix_overflow(q[idx], t[idx])
+        return q, TransferQuant(mode="fp8", orig_dtype=orig)
+    if mode != "int8":
+        raise ValueError(f"unknown transfer quantization mode {mode!r}")
+    want = tuple(t.shape[:-2]) + (1, t.shape[-1])
+    if scale is None:
+        s = torch.empty(want, dtype=torch.float32, device=t.device)
+        for idx in _blocks(t.shape):
+            amax = torch.amax(t[idx].abs(), dim=-2, keepdim=True).float()
+            # a true division by a tensor: on the card, torch divides by a
+            # Python scalar as a product with its reciprocal, which can
+            # round the last bit apart from the reference's quotient
+            s[idx].copy_(torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8))
+    else:
+        s = scale.to(device=t.device, dtype=torch.float32)
+        if tuple(s.shape) != want:
+            raise ValueError(f"cached scale {tuple(s.shape)} does not fit a leaf of {tuple(t.shape)}")
+    tmp = None
+    for idx in _blocks(t.shape):
+        piece = t[idx]
+        if tmp is None or tmp.shape != piece.shape:
+            tmp = torch.empty(piece.shape, dtype=torch.float32, device=t.device)
+        torch.div(piece, s[idx], out=tmp)
+        q[idx].copy_(tmp.round_().clamp_(-127, 127))
+    return q, TransferQuant(mode="int8", orig_dtype=orig, scale=s)
+
+
+def quantize_leaf_host(
+    t: torch.Tensor, mode: str, scale: Optional[torch.Tensor] = None, pin: bool = False
+) -> Tuple[torch.Tensor, TransferQuant]:
+    """Host twin of :func:`quantize_leaf` (the reference's
+    ``quantize_leaf_np``): the staging of a full-precision pool entry or a
+    prefetch, with no round trip through the card. The same ops on the
+    CPU, so the payload's bits equal the card's for the same input;
+    ``pin`` allocates the payload in pinned memory."""
+    if t.device.type != "cpu":
+        raise ValueError(f"the host twin quantizes host tensors, got one on {t.device}")
+    out = torch.empty(t.shape, dtype=payload_dtype(mode), pin_memory=pin)
+    return quantize_leaf(t, mode, scale=None if scale is None else scale.cpu(), out=out)
+
+
+@torch.no_grad()
+def dequantize_leaf(payload: torch.Tensor, meta: TransferQuant, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rebuild the full-precision leaf from a payload where the payload
+    lies (on the card for a wake), one layer slice at a time, into ``out``
+    in place (the arena's own tensor: no second copy of the leaf) or a new
+    tensor when None."""
+    dt = _chunk_store().TORCH_DTYPES[meta.orig_dtype]
+    dst = out if out is not None else torch.empty(payload.shape, dtype=dt, device=payload.device)
+    if meta.mode == "fp8":
+        for idx in _blocks(payload.shape):
+            _fp8_widen(dst[idx], payload[idx])
+        return dst
+    s = meta.scale.to(device=payload.device, dtype=torch.float32)
+    for idx in _blocks(payload.shape):
+        dst[idx].copy_(torch.mul(payload[idx], s[idx]))
+    return dst
+
+
+@torch.no_grad()
+def dequantize_into(
+    dest: torch.Tensor, payload: torch.Tensor, meta: TransferQuant, copy_stream: Optional[Any] = None
+) -> None:
+    """Rebuild a quantized leaf into ``dest``, its own tensor, in place:
+    the one way a wake, a swap, its rollback and a staged placement
+    dequantize. Where ``dest`` lies with the payload (the CPU), it
+    dequantizes there. For the card, the host payload and its scale are
+    first copied into device buffers on ``copy_stream`` (the current
+    stream when None); the current stream waits for those copies and
+    dequantizes, and both buffers go back to the allocator only after
+    that has run (``record_stream``), so a later copy on ``copy_stream``
+    can never overwrite them early."""
+    if dest.device == payload.device:
+        dequantize_leaf(payload, meta, out=dest)
+        return
+    compute = torch.cuda.current_stream(dest.device)
+    copy = compute if copy_stream is None else copy_stream
+    with torch.cuda.stream(copy):
+        buf = payload.to(dest.device, non_blocking=True)
+        scale = None if meta.scale is None else meta.scale.to(dest.device, non_blocking=True)
+    if copy != compute:
+        compute.wait_stream(copy)
+        buf.record_stream(compute)
+        if scale is not None:
+            scale.record_stream(compute)
+    dequantize_leaf(buf, TransferQuant(meta.mode, meta.orig_dtype, scale=scale), out=dest)
+
+
+def dequantize_leaf_host(payload: torch.Tensor, meta: TransferQuant) -> torch.Tensor:
+    """Host twin of :func:`dequantize_leaf`."""
+    if payload.device.type != "cpu":
+        raise ValueError(f"the host twin dequantizes host tensors, got one on {payload.device}")
+    return dequantize_leaf(payload, meta)
+
+
+def transfer_digest(payload: torch.Tensor, meta: TransferQuant, payload_digest: Optional[str] = None) -> str:
+    """Content digest of a quantized chunk (payload, scale, mode and the
+    dtype it dequantizes to), the reference's string: what the tiered
+    pool dedupes quantized entries on. Its own digest space
+    (``QUANT_DIGEST_PREFIX``): a payload never content-matches, and is
+    never handed out as, the full-precision tensor it came from. Host
+    tensors; ``payload_digest`` is the payload's ``leaf_digest`` when the
+    caller hashed it already."""
+    cs = _chunk_store()
+    h = hashlib.sha256()
+    h.update(f"tq|{meta.mode}|{meta.orig_dtype}|".encode())
+    h.update((payload_digest or cs.leaf_digest(payload)).encode())
+    if meta.scale is not None:
+        h.update(cs.leaf_digest(meta.scale).encode())
+    return cs.QUANT_DIGEST_PREFIX + h.hexdigest()
+
+
+def transfer_digest_map(state: Any, metas: Sequence[Optional[TransferQuant]], prefix: str = "params") -> Dict[str, str]:
+    """Flat weight key -> :func:`transfer_digest` for the quantized leaves
+    of a slept or staged tree (``metas`` aligned with its flatten order).
+    The payloads are hashed side by side (``chunk_store.digest_leaves``)."""
+    cs = _chunk_store()
+    picked: Dict[str, Tuple[torch.Tensor, TransferQuant]] = {}
+    for keys, leaf, meta in zip(cs.leaf_paths(state), cs.flatten_state(state), metas):
+        if meta is None:
+            continue
+        if prefix:
+            if not keys or keys[0] != prefix:
+                continue
+            keys = keys[1:]
+        picked["/".join(keys)] = (leaf, meta)
+    todo = {k: leaf for k, (leaf, meta) in picked.items() if meta.digest is None}
+    hashed = cs.digest_leaves(todo) if todo else {}
+    for k, d in hashed.items():
+        leaf, meta = picked[k]
+        meta.digest = transfer_digest(leaf, meta, payload_digest=d)
+    return {k: meta.digest for k, (_, meta) in picked.items()}

@@ -189,8 +189,15 @@ def test_rollback_leaves_both_models_intact(point, monkeypatch):
 
 def test_refusals():
     _, (ta, _, tb, _), _, _ = _pairs()
-    with pytest.raises(ValueError, match="item 9"):
-        tsleep.plan_swap(ta, tb, quant="int8")
+    # a quantized swap runs, with the planner's bytes: the outgoing manager
+    # has no mode of its own, so (as in the reference) only the incoming
+    # full-precision entry's two stacks cross as a host-staged int8 copy
+    planned = tsleep.plan_swap(ta, tb, quant="int8")
+    got = tsleep.swap_states(ta, tb, quant="int8")
+    assert {k: got[k] for k in BYTE_KEYS} == {k: planned[k] for k in BYTE_KEYS}
+    assert got["quant"] == "int8" and got["quant_leaves"] == 2 and got["bytes_saved_quant"] > 0
+    assert ta.is_sleeping and not tb.is_sleeping and tb._quant_scales is not None
+    _, (ta, _, tb, _), _, _ = _pairs()
     with pytest.raises(ValueError, match="awake"):
         tsleep.swap_states(tb, ta)
     tb.sleep(2)
@@ -200,3 +207,10 @@ def test_refusals():
     ta._replicas = lambda: []  # a mesh's state
     with pytest.raises(ValueError, match="item 14"):
         tsleep.plan_swap(ta, tb)
+    # a quantized swap on a mesh is refused too, never silently fp
+    with pytest.raises(ValueError, match="item 14"):
+        tsleep.plan_swap(ta, tb, quant="int8")
+    with pytest.raises(ValueError, match="item 14"):
+        tsleep.swap_states(ta, tb, quant="int8")
+    with pytest.raises(ValueError, match="item 14"):
+        tsleep.SleepManager(lambda: {}, lambda s: None, "cpu", [], replicas=lambda: [], quant_mode="int8")

@@ -646,6 +646,29 @@ def test_a_create_validates_card_options_before_the_fork(tmp_path):
     assert m.instances == {} and m.revision == 0
 
 
+class _DeletesAnother:
+    """An instance whose status read sees another one deleted meanwhile,
+    as a DELETE on the REST server's executor does during a list."""
+
+    def __init__(self, manager, iid, other):
+        self.manager, self.iid, self.other = manager, iid, other
+
+    def get_status(self):
+        self.manager.instances.pop(self.other, None)
+        return {"instance_id": self.iid, "status": "running"}
+
+
+def test_the_list_survives_a_delete_while_it_reads(tmp_path):
+    """The instance list reads a snapshot of the instances: a delete on
+    another thread in the middle of the read never fails it (it answered
+    500 when the controller's garbage collection raced the list)."""
+    m = pmgr.EngineProcessManager(translators()["port"], log_dir=str(tmp_path))
+    m.instances = {"a": _DeletesAnother(m, "a", "b"), "b": _DeletesAnother(m, "b", "a")}
+    out = m.get_all_instances_status()
+    assert [s["instance_id"] for s in out["instances"]] == ["a", "b"] and out["running_instances"] == 2
+    assert m.instances == {}
+
+
 # -- no CUDA at preload ---------------------------------------------------------------
 
 

@@ -183,6 +183,19 @@ def test_the_port_answers_as_the_reference(both, i):
         assert got.pop("load")["loads"] == 1
         pool = got.pop("pool")  # the port's own block, as load is
         assert pool["models"] == [] and pool["budget_bytes"] == 4096 << 20
+        quant = got.pop("quant")  # the port's own block too
+        assert quant["mode"] == "off" and quant["last_swap"] is None
+        # the oracle's summary: the same accuracy figures; the bandwidths
+        # are measured, so only their kinds (a subset: the port's load
+        # times its copies on the card only) compare
+        costs, want_costs = got.pop("costs"), want["costs"]
+        last, want_last = costs["prediction"].pop("last"), dict(want_costs["prediction"]["last"])
+        assert last["kind"] == "coldload" and last["trigger"] == "startup" and last["actual_s"] >= 0
+        for row in (last, want_last):  # the wall clock and the build's seconds
+            del row["t_wall"], row["actual_s"]
+        _same(last, want_last)
+        _same(costs["prediction"], {k: v for k, v in want_costs["prediction"].items() if k != "last"})
+        assert set(costs["bandwidth_gibps"]) <= set(want_costs["bandwidth_gibps"])
         shared = {k: want[k] for k in got}
         assert set(got) <= set(want)
         _same(got, shared)
