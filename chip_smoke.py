@@ -48,7 +48,23 @@ exits non-zero and never prints the final ``ok`` line):
      the launch counts must show every decode step and cold prefill went
      through the kernels, and every decode chunk must be a replay of one
      of the four CUDA graphs the engine captured when it started
-     (``graph_replays`` equal to the chunks run). A wrapper's counter
+     (``graph_replays`` equal to the chunks run). Then on the same
+     engine (``serve_metrics``, ``profile`` and ``echo`` lines):
+     ``/metrics`` parsed by a small parser here (no ``prometheus_client``
+     on the card's machine), one TTFT observation per request and the
+     prompt and generation totals the responses' usage, the exposition
+     rendered in process under CUDA's sync debug mode set to error; a
+     ``/v1/profile`` window (``torch.profiler``) over a fresh 300- and
+     3000-token greedy request of 64 tokens, whose Chrome file holds the
+     engine thread's operators, L x the window's decode steps of
+     decode-kernel events (inside the replayed graphs) and L x its cold
+     prefills of prefill-kernel events (both read from ``/v1/stats``), a
+     second start refused (409), and a small graph captured and replayed
+     while it ran (reported); the 300-token prompt with its own 64 greedy
+     tokens sent back with ``echo`` and ``logprobs``: one entry per
+     prompt token, the first None, the 64 completion positions within
+     ``ECHO_LOGPROB_TOL`` of the decode's logprobs on average, one cold prefill
+     through the prefill kernel. A wrapper's counter
      counts its eager launches (the prefills, the warm-up runs before
      the captures, which count as decode steps too); what the replays
      launched is read from each captured graph's kernel nodes through
@@ -61,7 +77,13 @@ exits non-zero and never prints the final ``ok`` line):
      started, identical greedy tokens after the wake, no graph captured
      again and every state tensor at its old address; ``wake_s`` and
      ``wake_map_s`` (the CUDA driver's mapping calls) beside the reference's
-     bar scaled to this state (``WAKE_BAR_S``, reported). Then one
+     bar scaled to this state (``WAKE_BAR_S``, reported). Each cycle is
+     one trace (a client ``traceparent``): ``engine.wake`` lasts within 5%
+     (or 5 ms) of ``last_wake_seconds`` and its ``wake.h2d`` buckets, like
+     the sleep's ``sleep.d2h`` ones, sum to ``bytes_offloaded``; a fourth
+     cycle runs with tracing off (its wake reported beside the traced
+     ones), and ``fma_engine_actuation_bytes`` is then four times
+     ``bytes_offloaded`` each way. Then one
      level-2 sleep and wake: nothing mapped while asleep, the weights
      drawn anew from the seed into the same tensors (the same per-layer
      sums), the pool zero, under 3 GiB of ordinary memory at the wake's
@@ -154,7 +176,16 @@ exits non-zero and never prints the final ``ok`` line):
      the compute processes and the card's free memory (within 1 GiB) as
      before. The detailed instance list after ``a``'s two swaps holds
      ``a``'s cost-oracle summary under ``ledger.costs`` (its two swaps
-     recorded, every priced one byte-exact). Then a launcher with
+     recorded, every priced one byte-exact). The PUT of ``a`` carries a
+     client ``traceparent``: the launcher's ``/v2/vllm/traces`` holds
+     ``launcher.create_instance`` under it and the child's ``/v1/traces``
+     its ``engine.start`` under that (through the fork server) with
+     ``engine.build_runtime`` below; ``b`` runs ``--slo-ttft-ms 1``, so
+     its probe violates, and ``/v2/vllm/exemplars`` lists exactly it,
+     its ``trace_id`` resolving in ``b``'s ``/v1/traces``; the launcher's
+     ``fma_launcher_rpc_seconds_count`` equals its ``launcher.rpc`` spans
+     verb by verb, and the phase's swaps and prefetch calls; a fault armed
+     and reset through ``/v2/vllm/faults``. Then a launcher with
      ``--no-preload`` spawns one instance, for its
      ``spawn_to_healthy_s`` (not gated);
   quant — ``--sleep-quant int8`` on one service over the swap phase's
@@ -207,6 +238,14 @@ exits non-zero and never prints the final ``ok`` line):
      ``WAKE_BAR_S``, reported), A's tokens bit-equal to step 1's second
      run (from its prefix cache, as after the wake), no graph captured
      again, warm faster than cold, one instance per ISC on the launcher;
+     its trace: the controller's ``/debug/traces`` (its observability
+     port), the launcher's and both children's exports merged, A's wake
+     one trace whose only root is r1b's ``controller.reconcile_bound``,
+     through ``controller.http`` to A's ``engine.wake`` and its ``wake.h2d``
+     buckets (A's ``bytes_offloaded``), and B's sleep, which r2b's
+     deletion starts, a trace of its own from the unbind's
+     ``controller.http`` to B's ``engine.sleep`` and ``sleep.d2h`` (B's
+     bytes); the hops printed in seconds beside ``warm_actuation_s``;
      5: r1b and
      both ISCs deleted, the controller's GC deletes both instances, and
      the card's compute processes and free memory (within 1 GiB) are as
@@ -1100,6 +1139,7 @@ def run_traffic(torch, port: int, vocab: int, ignore_eos: bool = False) -> dict:
         "prompts": prompts,
         "request_prompts": prompts + [shared],  # one per completion in "tokens"
         "tokens": [r["choices"][0]["token_ids"] for r in results + [fifth]],
+        "usages": [r["usage"] for r in results + [fifth]],
         "summary": {
             "ttft_s": {str(len(p)): r["usage"]["time_to_first_token_s"] for p, r in zip(prompts, results)},
             "decode_tpot_s": {str(len(p)): r["usage"]["decode_tpot_s"] for p, r in zip(prompts, results)},
@@ -1123,6 +1163,226 @@ def first_differences(tokens: list, bucketed: list) -> list:
 def check_probe_launch(counts: dict) -> None:
     if counts["probe"] != 1:
         raise AssertionError(f"the engine launched the probe kernel {counts['probe']} times at start, want 1")
+
+
+# -- observability: /metrics, traces, the profile and prompt logprobs ------
+
+#: the tolerance on prompt logprobs against the decode's own, on their
+#: mean over the 64 completion positions: the echo request's bucketed
+#: prefill and the decode chunk compute the same logprob by two bf16
+#: paths. At fp32 on the CPU the two agree within 2e-5 at every position
+#: (tests/test_torch_echo.py, ``ECHO_FP32_TOL``), so what is left on the
+#: card is bf16 rounding, and 0.05 is the reference's tolerance between
+#: its packed and bucketed paths. It holds the mean, not each position:
+#: both packages round the logits to bf16 before widening them, and a
+#: logit in [4, 16) has an ulp of 0.03125 to 0.0625, so two paths whose
+#: hidden states differ by bf16 noise part by one or two ulps at some
+#: positions (up to 0.063, two of 64 over 0.05 on an H100: PERF.md §6). A shifted
+#: target or a wrong normalization is off by nats at every position
+ECHO_LOGPROB_TOL = 0.05
+#: a span that ends with its copies: ``engine.wake`` within 5% (or 5 ms)
+#: of the sleeper's ``last_wake_seconds``
+SPAN_REL_TOL, SPAN_ABS_TOL_S = 0.05, 0.005
+
+
+def parse_exposition(text: str) -> list:
+    """The samples of a Prometheus text exposition (format 0.0.4), as
+    ``(name, labels, value)``: this machine has no ``prometheus_client``."""
+    import re
+
+    label_re = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        if "{" in line:
+            name, rest = line.split("{", 1)
+            body, value = rest.rsplit("}", 1)
+            labels = {k: v.replace('\\"', '"').replace("\\n", "\n").replace("\\\\", "\\")
+                      for k, v in label_re.findall(body)}
+        else:
+            name, value = line.split(" ", 1)
+            labels = {}
+        out.append((name, labels, float(value)))
+    return out
+
+
+def metric(samples: list, name: str, **labels) -> float:
+    """The sum of ``name``'s samples whose labels include ``labels``."""
+    return sum(v for n, lab, v in samples if n == name and all(lab.get(k) == w for k, w in labels.items()))
+
+
+def scrape(url: str) -> list:
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return parse_exposition(r.read().decode())
+
+
+def new_traceparent() -> tuple:
+    """(traceparent header, trace id) of a fresh client span."""
+    trace_id = os.urandom(16).hex()
+    return f"00-{trace_id}-{os.urandom(8).hex()}-01", trace_id
+
+
+def spans(url: str) -> list:
+    """A Chrome trace export (``/v1/traces``, ``/v2/vllm/traces``,
+    ``/debug/traces``) as span dicts: name, ids, wall start and seconds,
+    attributes."""
+    with urllib.request.urlopen(url, timeout=60) as r:
+        events = json.loads(r.read())["traceEvents"]
+    out = []
+    for e in events:
+        args = dict(e["args"])
+        out.append({"name": e["name"], "trace_id": args.pop("trace_id"), "span_id": args.pop("span_id"),
+                    "parent_id": args.pop("parent_id"), "start": e["ts"] / 1e6, "seconds": e["dur"] / 1e6,
+                    "pid": e["pid"], "attrs": args})
+    return out
+
+
+def traced_post(port: int, path: str, traceparent: str, body=None):
+    status, out = request(f"http://127.0.0.1:{port}{path}", "POST", body or {}, headers={"traceparent": traceparent})
+    if status != 200:
+        raise AssertionError(f"POST {path}: {status} {out}")
+    return out
+
+
+def check_serve_metrics(torch, service, port: int, usages: list) -> dict:
+    """``/metrics`` after serve's traffic: it parses, its counters equal
+    the traffic (one TTFT observation per request, the prompt and
+    generation token totals the responses' usage), and the exposition
+    renders in process, with the engine idle, under the sync debug mode
+    set to error (a scrape never waits for the device)."""
+    samples = scrape(f"http://127.0.0.1:{port}/metrics")
+    model = service.model
+    got = {
+        "ttft_count": metric(samples, "fma_engine_time_to_first_token_seconds_count", model=model),
+        "prompt_tokens": metric(samples, "fma_engine_prompt_tokens_total", model=model),
+        "generation_tokens": metric(samples, "fma_engine_generation_tokens_total", model=model),
+        "queue_wait_count": metric(samples, "fma_engine_queue_wait_seconds_count", model=model),
+    }
+    want = {"ttft_count": len(usages), "prompt_tokens": sum(u["prompt_tokens"] for u in usages),
+            "generation_tokens": sum(u["completion_tokens"] for u in usages), "queue_wait_count": len(usages)}
+    if got != want:
+        raise AssertionError(f"/metrics after serve's traffic: {got}, want {want}")
+    sync_free(service.metrics_text)
+    return {"samples": len(samples), "counters": got, "render_sync_free": True}
+
+
+def profile_window(torch, service, port: int, vocab: int) -> dict:
+    """``POST /v1/profile`` on serve's engine, a fresh 300-token and a
+    fresh 3000-token greedy request of 64 tokens, ``DELETE``: the Chrome
+    file holds the engine thread's operators, and the decode kernel's runs
+    (inside the replayed chunk graphs) equal L x the decode steps and the
+    prefill kernel's L x the cold prefills of the window (both read from
+    ``/v1/stats`` before and after); a second start while one runs is a
+    409. A small CUDA graph is captured and replayed while the capture
+    runs (what a build does), its output checked: whether a capture works
+    under an active profile."""
+    import numpy as np
+
+    eng = service.engine
+    L = eng.cfg.model.num_layers
+    rng = np.random.default_rng(7)  # prompts no earlier request sent: cold prefills
+    prompts = [rng.integers(0, vocab, n).tolist() for n in (300, 3000)]
+    log_dir = os.path.join(ROOT, "build", "profile")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    before = get(port, "/v1/stats")["engine"]
+    started = post(port, "/v1/profile", {"log_dir": log_dir})
+    conflict = request(f"http://127.0.0.1:{port}/v1/profile", "POST", {})[0]
+    for p in prompts:
+        post(port, "/v1/completions", {"prompt": p, "max_tokens": 64})
+    x = torch.randn(256, 256, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            y = x @ x
+        graph.replay()
+        torch.cuda.synchronize()
+        capture = "ok" if torch.equal(y, x @ x) else "wrong output"
+    except Exception as e:  # noqa: BLE001 — the finding, reported
+        capture = f"{type(e).__name__}: {e}"
+    after = get(port, "/v1/stats")["engine"]
+    status = get(port, "/v1/profile")
+    stopped = request(f"http://127.0.0.1:{port}/v1/profile", "DELETE")[1]
+    path = os.path.join(log_dir, "trace.json")
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(log_dir, ignore_errors=True)
+    kernels = [e for e in events if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"]
+    decode = [e for e in kernels if "decode_kernel" in e["name"]]
+    prefill = sorted((e for e in kernels if "prefill_kernel" in e["name"]), key=lambda e: e["ts"])
+    engine_tid = service._thread.native_id
+    engine_ops = sum(1 for e in events if e.get("cat") == "cpu_op" and e.get("tid") == engine_tid)
+    steps = after["decode_steps"] - before["decode_steps"]
+    colds = after["cold_prefills"] - before["cold_prefills"]
+    out = {
+        "started": started, "second_start_status": conflict, "status_while_running": status, "stopped": stopped,
+        "trace_bytes": size, "events": len(events), "engine_thread_cpu_ops": engine_ops,
+        "decode_steps": steps, "cold_prefills": colds, "decode_kernel_events": len(decode),
+        "prefill_kernel_events": len(prefill), "layers": L,
+        "decode_kernel_device_ms": sum(e["dur"] for e in decode) / 1e3 / max(1, len(decode)),
+        "prefill_kernel_device_ms": {str(n): sum(e["dur"] for e in prefill[i * L:(i + 1) * L]) / 1e3 / L
+                                     for i, n in enumerate((300, 3000)) if len(prefill) >= (i + 1) * L},
+        "capture_under_profile": capture,
+    }
+    if (conflict != 409 or not status["profiling"] or stopped.get("profiling") is not False or engine_ops == 0
+            or colds != 2 or len(decode) != L * steps or len(prefill) != L * colds or not steps):
+        raise AssertionError(f"the profile window: {out}")
+    return out
+
+
+def echo_logprobs(torch, service, port: int, prompt: list) -> dict:
+    """``serve``'s 300-token prompt and its own 64 greedy tokens (with
+    their logprobs from the decode) sent back with ``echo`` and
+    ``logprobs``: one entry per prompt token, the first None, and at the
+    64 completion positions the decode's logprobs within
+    ``ECHO_LOGPROB_TOL`` on average (the largest error and the positions
+    over it printed). The echo request bypasses the prefix cache: a cold
+    prefill, through the prefill kernel."""
+    L = service.engine.cfg.model.num_layers
+    own = post(port, "/v1/completions", {"prompt": prompt, "max_tokens": 64, "logprobs": 1})["choices"][0]
+    toks, lps = own["logprobs"]["tokens"], own["logprobs"]["token_logprobs"]
+    full = prompt + toks
+    before, launches = get(port, "/v1/stats")["engine"], read_counts()["prefill"]
+    out = post(port, "/v1/completions", {"prompt": full, "max_tokens": 1, "echo": True, "logprobs": 1})
+    after, launched = get(port, "/v1/stats")["engine"], read_counts()["prefill"] - launches
+    lp = out["choices"][0]["logprobs"]
+    plp = lp["token_logprobs"][: len(full)]
+    errs = [abs(a - b) for a, b in zip(plp[len(prompt):], lps)]
+    res = {"prompt_tokens": len(full), "entries": len(plp), "first": plp[0],
+           "max_abs_err": max(errs), "mean_abs_err": sum(errs) / len(errs), "tol": ECHO_LOGPROB_TOL,
+           "positions_over_tol": sum(e > ECHO_LOGPROB_TOL for e in errs),
+           "cold_prefills": after["cold_prefills"] - before["cold_prefills"], "prefill_launches": launched,
+           "decode_logprobs_first": lps[:4], "echo_logprobs_first": plp[len(prompt):len(prompt) + 4]}
+    if (len(toks) != 64 or lp["tokens"][: len(full)] != full or plp[0] is not None
+            or any(v is None for v in plp[1:]) or res["mean_abs_err"] > ECHO_LOGPROB_TOL
+            or res["cold_prefills"] != 1 or launched != L):
+        raise AssertionError(f"echo with logprobs: {res}")
+    return res
+
+
+def wake_spans(port: int, trace_id: str, woke: dict, nbytes: int) -> dict:
+    """A traced sleep/wake cycle's spans: ``engine.wake`` lasts within
+    ``SPAN_REL_TOL`` (or ``SPAN_ABS_TOL_S``) of the sleeper's
+    ``last_wake_seconds`` (its bucket spans end with their copies, not at
+    enqueue), and the ``wake.h2d`` and ``sleep.d2h`` buckets' bytes sum to
+    ``bytes_offloaded``, each bucket under its verb's span."""
+    got = spans(f"http://127.0.0.1:{port}/v1/traces?trace_id={trace_id}")
+    wake = [s for s in got if s["name"] == "engine.wake"]
+    sleep = [s for s in got if s["name"] == "engine.sleep"]
+    if len(wake) != 1 or len(sleep) != 1:
+        raise AssertionError(f"trace {trace_id}: {[s['name'] for s in got]}")
+    h2d = [s for s in got if s["name"] == "wake.h2d" and s["parent_id"] == wake[0]["span_id"]]
+    d2h = [s for s in got if s["name"] == "sleep.d2h" and s["parent_id"] == sleep[0]["span_id"]]
+    want = woke["last_wake_seconds"]
+    out = {"engine_wake_s": wake[0]["seconds"], "last_wake_seconds": want,
+           "wake_h2d_bytes": sum(s["attrs"]["bytes"] for s in h2d), "wake_buckets": len(h2d),
+           "sleep_d2h_bytes": sum(s["attrs"]["bytes"] for s in d2h), "sleep_buckets": len(d2h),
+           "bucket_h2d_s": sum(s["seconds"] for s in h2d)}
+    if (abs(out["engine_wake_s"] - want) > max(SPAN_ABS_TOL_S, SPAN_REL_TOL * want)
+            or out["wake_h2d_bytes"] != nbytes or out["sleep_d2h_bytes"] != nbytes):
+        raise AssertionError(f"the wake's spans: {out}, bytes_offloaded {nbytes}")
+    return out
 
 
 # serve's engine options (the reference EngineConfig's default pool: 2048
@@ -1171,6 +1431,10 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
             "prefix_cache": eng.prefix_cache.stats(),
             "peak_allocated_gib": torch.cuda.max_memory_allocated() / GIB,
         })
+        emit({"phase": "serve_metrics", **check_serve_metrics(torch, service, port, traffic["usages"])})
+        emit({"phase": "profile", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              **profile_window(torch, service, port, vocab)})
+        emit({"phase": "echo", "nvidia_smi": smi, **echo_logprobs(torch, service, port, traffic["prompts"][1])})
 
         # -- sleep / wake, three cycles (the spread of one transfer per call
         #    is too wide to read): the reference output is a repeat of
@@ -1180,7 +1444,9 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
         ptrs, captures = state_ptrs(eng), eng.graph_captures
         cycles = []
         for _ in range(3):
-            info = post(port, "/sleep?level=1")
+            # each cycle one trace: its sleep and wake under a client span
+            traceparent, trace_id = new_traceparent()
+            info = traced_post(port, "/sleep?level=1", traceparent)
             if not get(port, "/is_sleeping")["is_sleeping"]:
                 raise AssertionError("/is_sleeping is false after /sleep")
             asleep = check_asleep(torch, eng, free_before)
@@ -1198,7 +1464,7 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
                     ])
                 )
             pin_s = service.sleeper.stats.last_pin_seconds
-            woke = post(port, "/wake_up")
+            woke = traced_post(port, "/wake_up", traceparent)
             if get(port, "/is_sleeping")["is_sleeping"]:
                 raise AssertionError("/is_sleeping is true after /wake_up")
             after = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
@@ -1215,7 +1481,25 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
                 "wake_gib_per_s": nbytes / GIB / woke["last_wake_seconds"],
                 "reserved_while_asleep_bytes": reserved,
                 "allocated_while_asleep_bytes": allocated, **asleep,
+                "spans": wake_spans(port, trace_id, woke, nbytes),
             })
+        # tracing's cost on a wake: one more cycle with tracing off (the
+        # process's switch), beside the traced ones; reported, not gated
+        from llm_d_fast_model_actuation_tpu_torch.utils import tracing
+
+        tracing.disable()
+        try:
+            post(port, "/sleep?level=1")
+            untraced_wake_s = post(port, "/wake_up")["last_wake_seconds"]
+        finally:
+            tracing.enable()
+        if post(port, "/v1/completions", probe)["choices"][0]["token_ids"] != before:
+            raise AssertionError("tokens changed across the untraced sleep/wake cycle")
+        # the actuation byte counters: four level-1 cycles so far
+        samples = scrape(f"http://127.0.0.1:{port}/metrics")
+        moved = {d: metric(samples, "fma_engine_actuation_bytes", mode="off", dir=d) for d in ("d2h", "h2d")}
+        if moved != {"d2h": 4 * nbytes, "h2d": 4 * nbytes}:
+            raise AssertionError(f"fma_engine_actuation_bytes after four cycles of {nbytes} bytes: {moved}")
         level2 = level2_cycle(torch, service, port, eng, free_before, probe, before, ptrs, captures)
         check_replays(eng, path_counts(eng), "decode_inline")
         emit({
@@ -1223,6 +1507,8 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
             "bytes_offloaded": nbytes, "cycles": cycles, "tokens_identical": True,
             "graph_captures_unchanged": True, "state_addresses_unchanged": len(ptrs),
             "wake_bar_s": WAKE_BAR_S, "wake_within_bar": all(c["wake_s"] <= WAKE_BAR_S for c in cycles),
+            "tracing_cost": {"traced_wake_s": [c["wake_s"] for c in cycles], "untraced_wake_s": untraced_wake_s},
+            "actuation_bytes_metric": moved,
             "level2": level2, **graph_stats(eng),
         })
         if get(port, "/health")["status"] != "OK":
@@ -2171,14 +2457,15 @@ class Launcher:
     def child_log(self, iid: str) -> str:
         return str(request(f"{self.url}/v2/vllm/instances/{iid}/log", headers={"Range": "bytes=0-"})[1])[-3000:]
 
-    def create(self, iid: str, options: str, uuid: str) -> tuple:
-        return request(f"{self.url}/v2/vllm/instances/{iid}", "PUT", {"options": options, "gpu_uuids": [uuid]})
+    def create(self, iid: str, options: str, uuid: str, headers=None) -> tuple:
+        return request(f"{self.url}/v2/vllm/instances/{iid}", "PUT", {"options": options, "gpu_uuids": [uuid]},
+                       headers=headers)
 
-    def spawn(self, iid: str, options: str, uuid: str, port: int) -> tuple:
+    def spawn(self, iid: str, options: str, uuid: str, port: int, headers=None) -> tuple:
         """PUT the instance and wait for its child's /health; (create
         answer, seconds from the PUT to healthy)."""
         t0 = time.monotonic()
-        status, body = self.create(iid, options, uuid)
+        status, body = self.create(iid, options, uuid, headers=headers)
         if status != 201:
             raise AssertionError(f"PUT {iid}: {status} {body}")
         self.wait_child(iid, port)
@@ -2231,6 +2518,69 @@ def await_events(url: str, want: list, timeout: float) -> list:
     return events
 
 
+def launcher_create_trace(url: str, port: int, trace_id: str, traceparent: str) -> dict:
+    """The create's trace across the fork server: the launcher holds
+    ``launcher.create_instance`` under the client's span, and the child
+    ``engine.start`` under it (propagated as the child body's argument),
+    with ``engine.build_runtime`` under that."""
+    client_span = traceparent.split("-")[2]
+    mine = spans(f"{url}/v2/vllm/traces?trace_id={trace_id}")
+    child = spans(f"http://127.0.0.1:{port}/v1/traces?trace_id={trace_id}")
+    create = [s for s in mine if s["name"] == "launcher.create_instance"]
+    start = [s for s in child if s["name"] == "engine.start"]
+    build = [s for s in child if s["name"] == "engine.build_runtime"]
+    if (len(create) != 1 or create[0]["parent_id"] != client_span or len(start) != 1
+            or start[0]["parent_id"] != create[0]["span_id"] or len(build) != 1
+            or build[0]["parent_id"] != start[0]["span_id"]):
+        raise AssertionError(f"the create's trace: launcher {[(s['name'], s['parent_id']) for s in mine]}, "
+                             f"child {[(s['name'], s['parent_id']) for s in child]}")
+    return {"launcher.create_instance_s": create[0]["seconds"], "engine.start_s": start[0]["seconds"],
+            "engine.build_runtime_s": build[0]["seconds"], "child_spans": len(child),
+            "child_pid": start[0]["pid"], "launcher_pid": create[0]["pid"]}
+
+
+def launcher_exemplars(url: str, port: int, requests: int) -> dict:
+    """``/v2/vllm/exemplars`` lists each request of the child judged
+    against ``--slo-ttft-ms 1``, and each exemplar's trace is in that
+    child's ``/v1/traces``."""
+    status, body = request(f"{url}/v2/vllm/exemplars")
+    mine = [e for e in body.get("slo_exemplars", []) if e.get("instance") == "b"] if status == 200 else []
+    resolved = [bool(spans(f"http://127.0.0.1:{port}/v1/traces?trace_id={e['trace_id']}")) for e in mine]
+    if status != 200 or len(mine) != requests or not all(resolved) or body.get("slo_requests_violated") != requests:
+        raise AssertionError(f"/v2/vllm/exemplars: {status} {body}")
+    return {"exemplars": len(mine), "violated": body["slo_requests_violated"], "attainment": body["slo_attainment"],
+            "legs": mine[0]["legs"], "trace_resolved": True}
+
+
+def launcher_rpcs(url: str, calls: dict) -> dict:
+    """``fma_launcher_rpc_seconds_count`` on the launcher's ``/metrics``:
+    by verb, one observation per ``launcher.rpc`` span the launcher
+    recorded (each ended once), and for the verbs the phase sent through
+    the launcher (``calls``) the number it sent."""
+    samples = scrape(f"{url}/metrics")
+    counted: dict = {}
+    for n, lab, v in samples:
+        if n == "fma_launcher_rpc_seconds_count" and lab.get("outcome") != "refused":
+            counted[lab["verb"]] = counted.get(lab["verb"], 0) + int(v)
+    recorded: dict = {}
+    for s in spans(f"{url}/v2/vllm/traces"):
+        if s["name"] == "launcher.rpc":
+            recorded[s["attrs"]["verb"]] = recorded.get(s["attrs"]["verb"], 0) + 1
+    if counted != recorded or any(counted.get(verb) != n for verb, n in calls.items()):
+        raise AssertionError(f"launcher rpc counts {counted}, spans {recorded}, the phase's calls {calls}")
+    return counted
+
+
+def launcher_faults(url: str) -> dict:
+    """``/v2/vllm/faults``: a point armed and described, then reset."""
+    armed = request(f"{url}/v2/vllm/faults", "POST", {"spec": "instance.spawn=fail:1"})
+    reset = request(f"{url}/v2/vllm/faults", "DELETE")
+    if (armed[0] != 200 or "instance.spawn" not in armed[1]["armed"] or reset[0] != 200 or reset[1]["armed"]
+            or request(f"{url}/v2/vllm/faults")[1]["armed"]):
+        raise AssertionError(f"the launcher's faults: armed {armed}, reset {reset}")
+    return {"armed": armed[1]["armed"], "after_reset": reset[1]["armed"]}
+
+
 def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
     """The port's launcher started as its own process (real mode, preload
     on, ``--restart-budget 1``) and driven only through its REST API and
@@ -2261,10 +2611,13 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         used_base = card_used_bytes(index)
         port_a = free_port()
         # serve's options, with a pool that holds the model a swap parks,
-        # and a prefetch throttled to LAUNCHER_PREFETCH_MIB_S
+        # and a prefetch throttled to LAUNCHER_PREFETCH_MIB_S; the PUT
+        # carries a client span, which the fork server's child joins
+        traceparent, create_trace = new_traceparent()
         created, spawn_s = launcher.spawn(
             "a", f"{SERVE_OPTS} --model-pool-mib {swapped['pool_mib']} --prefetch-mib-s {LAUNCHER_PREFETCH_MIB_S} "
-                 f"--port {port_a}", uuid, port_a)
+                 f"--port {port_a}", uuid, port_a, headers={"traceparent": traceparent})
+        create_spans = launcher_create_trace(launcher.url, port_a, create_trace, traceparent)
         if created["env_vars"]["CUDA_VISIBLE_DEVICES"] != str(index) or created["gpu_uuids"] != [uuid]:
             raise AssertionError(f"card {index} ({uuid}) pinned as {created['env_vars']}")
         apps2 = compute_apps()
@@ -2289,7 +2642,9 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         # the GPU exclusivity rule: refused while a is awake, admitted once
         # it sleeps
         port_b = free_port()
-        opts_b = f"{SERVE_OPTS.replace('--seed 0', '--seed 1')} --port {port_b}"
+        # b judges every request against a 1 ms TTFT target: each violates
+        # and leaves an exemplar
+        opts_b = f"{SERVE_OPTS.replace('--seed 0', '--seed 1')} --slo-ttft-ms 1 --port {port_b}"
         status, body = launcher.create("b", opts_b, uuid)
         if status != 409 or "['a']" not in body:
             raise AssertionError(f"PUT b on a's card while a is awake: {status} {body}")
@@ -2312,6 +2667,7 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         _, spawn_b_s = launcher.spawn("b", opts_b, uuid, port_b)
         b_tokens = post(port_b, "/v1/completions", probe)["choices"][0]["token_ids"]
         post(port_b, "/sleep?level=1")
+        exemplars = launcher_exemplars(launcher.url, port_b, 1)
         woke = post(port_a, "/wake_up")
         after = post(port_a, "/v1/completions", probe)["choices"][0]["token_ids"]
         if after != before:
@@ -2355,7 +2711,9 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         hinted = request(f"{launcher.url}/v2/vllm/instances")[1]["ledger"]["prefetched"]
         throttled = run_traffic(torch, port_a, model.vocab_size)
         deadline = time.monotonic() + 300
+        prefetch_gets = 1
         while (done := request(f"{launcher.url}/v2/vllm/instances/a/prefetch")[1]["prefetch"])["state"] == "running":
+            prefetch_gets += 1
             if time.monotonic() > deadline:
                 raise AssertionError("the launcher's prefetch did not end in time")
             time.sleep(0.2)
@@ -2389,6 +2747,10 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         if again["tokens"] != bucketed["tokens"] or new_pid == pid:
             raise AssertionError(f"the restarted child (pid {new_pid}) gave other tokens: "
                                  f"{first_differences(again['tokens'], bucketed['tokens'])}")
+
+        rpcs = launcher_rpcs(launcher.url, {"POST /v1/swap": 2, "POST /v1/prefetch": 1,
+                                            "GET /v1/prefetch": prefetch_gets})
+        faults_round_trip = launcher_faults(launcher.url)
 
         # teardown
         deleted = {iid: request(f"{launcher.url}/v2/vllm/instances/{iid}", "DELETE")[1]["status"] for iid in ("a", "b")}
@@ -2426,6 +2788,7 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         "restart_to_healthy_s": restart_s, "restarted_tokens_equal_serve": True,
         "deleted": deleted, "free_before_bytes": free_before, "free_after_bytes": free_after,
         "no_preload_spawn_to_healthy_s": spawn_plain_s, "no_preload_launcher_ready_s": plain.ready_s,
+        "create_trace": create_spans, "exemplars": exemplars, "rpc_seconds": rpcs, "faults": faults_round_trip,
     })
     return {"counts": counts, "probe": probe, "b_tokens": b_tokens}
 
@@ -2800,6 +3163,11 @@ class ControlPlane:
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever, name="control-plane", daemon=True)
         self.thread.start()
+        # the controllers' observability port: /metrics and /debug/traces
+        from llm_d_fast_model_actuation_tpu_torch.controller.metrics import serve_metrics
+
+        self.obs = serve_metrics(0, "127.0.0.1")
+        self.obs_url = f"http://127.0.0.1:{self.obs.server_address[1]}"
 
     def run(self, coro, timeout: float = 120.0):
         return self.asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
@@ -2864,6 +3232,8 @@ class ControlPlane:
         finally:
             self.loop.call_soon_threadsafe(self.loop.stop)
             self.thread.join(timeout=30)
+            self.obs.shutdown()
+            self.obs.server_close()
             if self.launcher is not None:
                 self.launcher.stop()
 
@@ -2888,11 +3258,90 @@ def sleeping(port: int) -> bool:
 
 
 def sleep_seconds(port: int) -> dict:
-    """A child's last sleep and wake seconds, read from the answer of a
+    """A child's last sleep and wake seconds and its last offload's bytes
+    (a wake leaves them), read from the answer of a
     ``/sleep`` to a child already asleep or a ``/wake_up`` to one awake
     (each answers the sleeper's state and changes nothing)."""
     out = post(port, "/sleep?level=1" if sleeping(port) else "/wake_up")
-    return {k: out[k] for k in ("last_sleep_seconds", "last_wake_seconds")}
+    return {k: out[k] for k in ("last_sleep_seconds", "last_wake_seconds", "bytes_offloaded")}
+
+
+def merged_trace(plane: "ControlPlane", ports: tuple, trace_id: str) -> list:
+    """One trace's spans from every process that records them: the
+    controller's ``/debug/traces``, the launcher's ``/v2/vllm/traces`` and
+    each child's ``/v1/traces``."""
+    urls = [f"{plane.obs_url}/debug/traces", f"{plane.launcher.url}/v2/vllm/traces",
+            *(f"http://127.0.0.1:{p}/v1/traces" for p in ports)]
+    return [s for url in urls for s in spans(f"{url}?trace_id={trace_id}")]
+
+
+def trace_path(got: list, names: tuple) -> list:
+    """The spans of one parent-to-child chain through ``names``, or []."""
+    by_id = {s["span_id"]: s for s in got}
+    for leaf in (s for s in got if s["name"] == names[-1]):
+        chain = [leaf]
+        while len(chain) < len(names) and chain[-1]["parent_id"] in by_id:
+            chain.append(by_id[chain[-1]["parent_id"]])
+        if [s["name"] for s in reversed(chain)] == list(names):
+            return list(reversed(chain))
+    return []
+
+
+def warm_actuation_trace(plane, port_a: int, port_b: int, a_wake: dict, b_sleep: dict,
+                         t_del: float, t_ready: float) -> dict:
+    """Step 4's warm actuation, read from the spans of every process. A's
+    wake is one trace from r1b's ``controller.reconcile_bound`` (its only
+    root; every other span's parent in it) through ``controller.http`` to
+    A's ``engine.wake`` and its ``wake.h2d`` buckets, whose bytes are A's
+    ``bytes_offloaded``. B's sleep, which r2b's deletion starts, is the
+    unbind's call to B's admin port (``controller.http`` to B's
+    ``engine.sleep`` and its ``sleep.d2h`` buckets, B's
+    ``bytes_offloaded``): a trace of its own, as in the reference, whose
+    controller opens no span around the unbind and sleeps B without the
+    launcher. The hops, in seconds on the wall clock the exports share,
+    from r2b's deletion to r1b's readiness."""
+    wake = max((s for s in spans(f"http://127.0.0.1:{port_a}/v1/traces") if s["name"] == "engine.wake"),
+               key=lambda s: s["start"])
+    # B's last sleep that moved its state (a /sleep to a child already
+    # asleep records an engine.sleep with no bucket under it)
+    b_spans = spans(f"http://127.0.0.1:{port_b}/v1/traces")
+    moved = {s["parent_id"] for s in b_spans if s["name"] == "sleep.d2h"}
+    sleep = max((s for s in b_spans if s["name"] == "engine.sleep" and s["span_id"] in moved), key=lambda s: s["start"])
+    w = merged_trace(plane, (port_a, port_b), wake["trace_id"])
+    b = merged_trace(plane, (port_a, port_b), sleep["trace_id"])
+    ids = {s["span_id"] for s in w}
+    roots = [s["name"] for s in w if s["parent_id"] not in ids]
+    wake_path = trace_path(w, ("controller.reconcile_bound", "controller.http", "engine.wake"))
+    h2d = [s for s in w if s["name"] == "wake.h2d" and s["parent_id"] == wake["span_id"]]
+    sleep_path = trace_path(b, ("controller.http", "engine.sleep"))
+    d2h = [s for s in b if s["name"] == "sleep.d2h" and s["parent_id"] == sleep["span_id"]]
+    problems = []
+    if {s["trace_id"] for s in w} != {wake["trace_id"]} or roots != ["controller.reconcile_bound"]:
+        problems.append(f"A's wake trace has roots {roots}")
+    if not wake_path or not h2d or sum(s["attrs"]["bytes"] for s in h2d) != a_wake["bytes_offloaded"]:
+        problems.append(f"A's wake path {[s['name'] for s in wake_path]}, h2d bytes "
+                        f"{sum(s['attrs']['bytes'] for s in h2d)} of {a_wake['bytes_offloaded']}")
+    if not sleep_path or sum(s["attrs"]["bytes"] for s in d2h) != b_sleep["bytes_offloaded"]:
+        problems.append(f"B's sleep path {[s['name'] for s in sleep_path]}, d2h bytes "
+                        f"{sum(s['attrs']['bytes'] for s in d2h)} of {b_sleep['bytes_offloaded']}")
+    if problems:
+        raise AssertionError("; ".join(problems) + f": {[(s['name'], s['pid']) for s in w + b]}")
+    reconcile, wake_http = wake_path[0], wake_path[1]
+    sleep_http = sleep_path[0]
+    end = lambda s: s["start"] + s["seconds"]  # noqa: E731
+    return {
+        "trace_id": wake["trace_id"], "spans": len(w), "processes": len({s["pid"] for s in w}),
+        "b_sleep_trace_id": sleep["trace_id"],
+        "deleted_to_b_sleep_call_s": sleep_http["start"] - t_del,
+        "b_controller_http_sleep_s": sleep_http["seconds"], "b_engine_sleep_s": sleep["seconds"],
+        "b_sleep_d2h_s": sum(s["seconds"] for s in d2h), "b_sleep_buckets": len(d2h),
+        "b_sleep_end_to_a_reconcile_s": reconcile["start"] - end(sleep_http),
+        "a_reconcile_bound_s": reconcile["seconds"], "a_controller_http_wake_s": wake_http["seconds"],
+        "a_engine_wake_s": wake["seconds"], "a_wake_h2d_s": sum(s["seconds"] for s in h2d),
+        "a_wake_buckets": len(h2d), "a_wake_bytes": sum(s["attrs"]["bytes"] for s in h2d),
+        "a_reconcile_end_to_ready_s": t_ready - end(reconcile),
+        "deleted_to_ready_s": t_ready - t_del,
+    }
 
 
 def dualpods_phase(torch, smi: str, bucketed: dict, launched: dict) -> dict:
@@ -3013,11 +3462,12 @@ def dualpods_phase(torch, smi: str, bucketed: dict, launched: dict) -> dict:
                    for h in held):
             raise AssertionError(f"A was not held asleep behind the awake B: {held}")
         budget_status = held[-1]["status"]
-        t_del = time.monotonic()
+        t_del, t_del_wall = time.monotonic(), time.time()
         plane.store.delete("Pod", plane.NS, "r2b")
         stubs.pop("r2b").stop()
         warm = wait_for(stubs["r1b"].ready, 300, "r1b's /ready after r2b's deletion", launcher_proc,
                         stubs["r1b"].proc)
+        t_ready_wall = time.time()
         budget_held_s = t_del - t_r1b
         again = run_traffic(torch, port_a, model.vocab_size)
         dev_a = get(port_a, "/v1/device")
@@ -3037,8 +3487,10 @@ def dualpods_phase(torch, smi: str, bucketed: dict, launched: dict) -> dict:
             problems.append(f"r1b's status still says {plane.status('r1b')}")
         if problems:
             raise AssertionError("; ".join(problems))
+        a_wake, b_sleep = sleep_seconds(port_a), sleep_seconds(port_b)
+        hops = warm_actuation_trace(plane, port_a, port_b, a_wake, b_sleep, t_del_wall, t_ready_wall)
         steps["4_warm"] = {"warm_actuation_s": warm, "wake_bar_s": WAKE_BAR_S, "budget_held_s": budget_held_s,
-                           "a_wake": sleep_seconds(port_a), "b_sleep": sleep_seconds(port_b),
+                           "a_wake": a_wake, "b_sleep": b_sleep, "hops": hops,
                            "budget_bytes": DUALPODS_BUDGET_BYTES, "budget_status": budget_status,
                            "held_samples": len(held), "tokens_equal_step_1": True,
                            "graph_captures": dev_a["graph_captures"], "instances": instances}
@@ -3071,6 +3523,7 @@ def dualpods_phase(torch, smi: str, bucketed: dict, launched: dict) -> dict:
         "wake_bar_s": WAKE_BAR_S, "b_cold_actuation_s": b_cold, "b_warm_actuation_s": b_warm,
         "b_first_sleep": b_first_sleep, "budget_held_s": budget_held_s,
         "gc_s": gc_s, "nvml_vs_smi": steps["2_asleep"], "launches": {"a": counts_a, "b": counts_b},
+        "warm_actuation_hops": steps["4_warm"]["hops"],
         "compute_apps": {"before": apps0, "after": compute_apps()},
         "free_before_bytes": free_before, "free_after_bytes": free_after,
     })

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Protocol
 from ..api import constants as C
 from ..api import spi as spiapi
 from ..launcher.http11 import fetch
+from ..utils import tracing
 from .metrics import HTTP_LATENCY
 
 
@@ -83,13 +84,19 @@ def observe_http_latency(purpose: str, method: str):
 
 class _Http:
     """One choke point for every controller-originated call: a connection
-    per call, a 30 s limit, the latency histogram. (The JAX package's copy
-    also opens a tracing span here and sends its traceparent; the port's
-    tracing waits on ROADMAP queue 1 item 4.)"""
+    per call, a 30 s limit, the latency histogram, and a
+    ``controller.http`` span whose ``traceparent`` goes with the call, so
+    the launcher's, the engine's and the SPI's side of the hop join the
+    same trace."""
 
     async def call(self, method: str, url: str, purpose: str, json_body=None):
-        with observe_http_latency(purpose, method):
-            return await fetch(method, url, json_body, timeout=30.0)
+        with tracing.span("controller.http", purpose=purpose, method=method) as sp:
+            tp = sp.traceparent()
+            with observe_http_latency(purpose, method):
+                status, body = await fetch(method, url, json_body, headers={"traceparent": tp} if tp else None,
+                                           timeout=30.0)
+            sp.set(status=status)
+            return status, body
 
 
 class HttpLauncherHandle:

@@ -34,9 +34,15 @@ logic kept as it is. Ported by meaning for NVIDIA cards:
     query, which NVML answers with every process's use of the card. A
     wake held back by it, or by a failed query, writes why into the
     requester's status (the JAX package only retries), so a wait on the
-    budget is visible; the status clears once the engine serves;
-  * the JAX package's tracing spans (``controller.reconcile_bound``)
-    wait on the port of ``utils/tracing.py`` (ROADMAP queue 1 item 4).
+    budget is visible; the status clears once the engine serves.
+
+The JAX package's spans are kept: ``controller.reconcile_bound`` around
+the bound path and the direct one, with every call under it a
+``controller.http`` child that sends its ``traceparent`` on
+(``clients.py``), so one reconcile pass of an actuation is one trace
+through the launcher and the engine. The unbind path (a sleep when a
+requester goes) opens no span, as in the reference: its engine call is a
+trace of its own.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from typing import Any, Awaitable, Callable, Dict, List, Optional, Set, Tuple
 
 from ..api import constants as C
 from ..api.types import InferenceServerConfig, LauncherConfig
+from ..utils import tracing
 from ..utils.hashing import canonical_json, instance_id_for
 from . import metrics as M
 from .clients import InstanceNotFound, Transports
@@ -888,6 +895,23 @@ class DualPodsController:
         isc_name: str,
         sd: ServerData,
     ) -> None:
+        """:meth:`_reconcile_bound_impl` under a ``controller.reconcile_bound``
+        span: every HTTP call inside (launcher, engine admin, SPI, all
+        through ``clients.py``) is a child span that carries the trace on,
+        so one pass of one actuation is one trace."""
+        with tracing.span("controller.reconcile_bound", requester=req["metadata"]["name"],
+                          provider=provider["metadata"]["name"], isc=isc_name, path=sd.path or ""):
+            await self._reconcile_bound_impl(ns, req, provider, isc, isc_name, sd)
+
+    async def _reconcile_bound_impl(
+        self,
+        ns: str,
+        req: Dict[str, Any],
+        provider: Dict[str, Any],
+        isc: InferenceServerConfig,
+        isc_name: str,
+        sd: ServerData,
+    ) -> None:
         pname = provider["metadata"]["name"]
         self.recover_instance_state(provider, sd)
         handle = self.transports.launcher(provider)
@@ -1189,6 +1213,17 @@ class DualPodsController:
                 sleepers = [p for p in sleepers if p["metadata"]["name"] != vname]
 
     async def _reconcile_bound_direct(
+        self,
+        ns: str,
+        req: Dict[str, Any],
+        provider: Dict[str, Any],
+        sd: ServerData,
+    ) -> None:
+        with tracing.span("controller.reconcile_bound", requester=req["metadata"]["name"],
+                          provider=provider["metadata"]["name"], isc="direct", path=sd.path or ""):
+            await self._reconcile_bound_direct_impl(ns, req, provider, sd)
+
+    async def _reconcile_bound_direct_impl(
         self,
         ns: str,
         req: Dict[str, Any],

@@ -77,6 +77,7 @@ import torch
 from ..models import llama
 from ..models.registry import fill_params_for
 from ..ops.attention import RAGGED_BLOCK, resolve_ragged_impl
+from ..utils import tracing
 from .arena import Arena
 from .device import resolve_device
 from .kv_cache import OutOfPages, PageAllocator, PagePool
@@ -196,6 +197,12 @@ class Request:
     #: the raw distribution (filled only when `want_top_logprobs`)
     out_top_logprobs: List[list] = field(default_factory=list)
     want_top_logprobs: bool = False
+    #: OpenAI ``echo`` + ``logprobs``: the logprob of every PROMPT token
+    #: under the model (the first entry None: nothing precedes it).
+    #: Requesting it bypasses the prefix cache, whose pages skip exactly
+    #: the forward that gives these numbers
+    want_prompt_logprobs: bool = False
+    prompt_logprobs: List[Optional[float]] = field(default_factory=list)
     #: per-request RNG seed: with it, a sampled request's output depends
     #: only on (seed, params, prompt, sampling knobs), not on its batch
     #: neighbours. None = a stream derived from the engine seed and seq_id.
@@ -238,6 +245,12 @@ class Request:
     streamed: int = 0
     #: external early-stop request: finish at the next emitted token
     stop_requested: bool = False
+    #: the request's lifecycle trace collector (``tracing.RequestTrace``)
+    #: or None, the ``--trace-requests 0`` default: every hook is then one
+    #: ``is None`` check
+    trace: Optional[Any] = None
+    #: stamped when the trace is finished (the usage block reports it)
+    trace_id: str = ""
 
 
 def validate_logit_bias(lb, vocab_size: int) -> "Dict[int, float] | None":
@@ -424,6 +437,8 @@ class InferenceEngine:
         #: decode chunks the serving path ran, and the CUDA graphs captured
         #: and replayed for them (engine/graphs.py)
         self.decode_chunks = 0
+        #: decode steps the serving path's chunks ran, replayed or eager
+        self.chunk_steps = 0
         self.graph_captures = 0
         self.graph_replays = 0
         #: seconds the engine's start spent capturing its chunk graphs
@@ -612,10 +627,12 @@ class InferenceEngine:
         frequency_penalty: float = 0.0,
         on_token: Optional[Callable[[Request, int], None]] = None,
         want_top_logprobs: bool = False,
+        want_prompt_logprobs: bool = False,
         seed: Optional[int] = None,
         ignore_eos: bool = False,
         logit_bias: "Dict[int, float] | None" = None,
         submit_time: Optional[float] = None,
+        trace: Optional[Any] = None,
     ) -> int:
         if not prompt:
             raise ValueError("empty prompt")
@@ -647,9 +664,11 @@ class InferenceEngine:
             frequency_penalty=float(frequency_penalty),
             on_token=on_token,
             want_top_logprobs=want_top_logprobs,
+            want_prompt_logprobs=want_prompt_logprobs,
             seed=seed,
             ignore_eos=ignore_eos,
             logit_bias=logit_bias or {},
+            trace=trace,
         )
         if submit_time is not None:
             req.submit_time = submit_time
@@ -709,7 +728,7 @@ class InferenceEngine:
         need = PageAllocator.pages_needed(total, self.cfg.page_size)
         shared: List[int] = []
         hashes: List[str] = []
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not req.want_prompt_logprobs:
             shared, req.cached_tokens, hashes = self.prefix_cache.match(req.prompt)
             # hold the shared pages BEFORE allocating: eviction inside the
             # allocation path must not reclaim what was just matched
@@ -733,7 +752,12 @@ class InferenceEngine:
             self.prefix_cache.commit(hashes)
         req.slot = slot
         if req.first_sched_time is None:
+            # every admission (bucketed prefill, packed segments, the echo
+            # fallback) comes through here: the one stamp that closes the
+            # queue wait
             req.first_sched_time = time.monotonic()
+            if req.trace is not None:
+                req.trace.add("request.queue", req.submit_time, req.first_sched_time, depth=len(self._waiting))
         self._slots[slot] = req
         self._init_slot_gen(req)
         self._eos_on[slot] = 0 if req.ignore_eos else 1
@@ -810,10 +834,29 @@ class InferenceEngine:
         self.pad_waste_bytes["bucketed"] += (bucket - n) * self._pad_token_bytes
         self.dispatch_tokens["bucketed"] += n
 
+    #: logits rows per log-softmax in :meth:`_prompt_lps`: a Llama-3 row is
+    #: 0.5 MB in fp32, so a chunk holds 128 MB and the prompt's whole matrix
+    #: of log-probabilities is never made
+    PLP_ROWS = 256
+
+    def _prompt_lps(self, logits: torch.Tensor, targets: List[int]) -> torch.Tensor:
+        """The log-probability of ``targets[i]`` (the NEXT prompt token)
+        under row ``i`` of ``logits`` [s, vocab] fp32, for the first
+        ``len(targets)`` rows: each chunk's log-softmax gathered at its
+        targets, on the logits' device."""
+        tgt = torch.as_tensor(targets, dtype=torch.int64).to(logits.device)
+        parts = []
+        for r0 in range(0, len(targets), self.PLP_ROWS):
+            rows = logits[r0 : r0 + self.PLP_ROWS][: len(targets) - r0]
+            t = tgt[r0 : r0 + rows.shape[0]]
+            parts.append(rows.gather(-1, t[:, None])[:, 0] - torch.logsumexp(rows, dim=-1))
+        return torch.cat(parts) if parts else logits.new_zeros((0,))
+
     def _run_prefill(self, req: Request) -> None:
         n = len(req.prompt)
         k = req.cached_tokens
         limit = self.cfg.max_prefill_tokens or (n - k)
+        plp: List[torch.Tensor] = []
         if k == 0 and n <= limit:
             # single cold segment: the flash-style causal prefill
             bucket = self._prefill_bucket(n)
@@ -829,6 +872,9 @@ class InferenceEngine:
                 self._to_ranks(self._page_table[req.slot : req.slot + 1]),
             )
             last = n
+            if req.want_prompt_logprobs:
+                # position i predicts prompt token i + 1
+                plp.append(self._prompt_lps(logits[0], req.prompt[1:]))
         else:
             # prefix-cache hit and/or chunked prefill: run [k, n) in
             # segments of <= limit tokens; only the final one samples
@@ -836,6 +882,10 @@ class InferenceEngine:
             while pos < n:
                 seg = req.prompt[pos : min(n, pos + limit)]
                 logits = self._run_suffix_segment(req, pos, seg)
+                if req.want_prompt_logprobs:
+                    # a segment's last row predicts the next segment's first
+                    # token; the prompt's last row predicts nothing
+                    plp.append(self._prompt_lps(logits[0], req.prompt[pos + 1 : pos + len(seg) + 1]))
                 last = len(seg)
                 pos += len(seg)
         out = self._sample_last(req, logits, last)
@@ -850,6 +900,8 @@ class InferenceEngine:
         if req.want_top_logprobs and self.cfg.logprobs_topk > 0:
             av_h, ai_h = out[2].cpu().numpy(), out[3].cpu().numpy()
             alts = [(int(ai_h[0, j]), float(av_h[0, j])) for j in range(av_h.shape[1])]
+        if req.want_prompt_logprobs:
+            req.prompt_logprobs = [None] + [float(v) for v in torch.cat(plp).cpu().tolist()]
         first = int(tok_h[0])
         req.pos = n
         self._emit(req, first, float(lp_h[0]), alts)
@@ -861,6 +913,12 @@ class InferenceEngine:
     def _emit(self, req: Request, token: int, logprob: float = 0.0, alts: Optional[list] = None) -> None:
         if req.first_token_time is None:
             req.first_token_time = time.monotonic()
+            if req.trace is not None and req.first_sched_time is not None:
+                req.trace.add(
+                    "request.prefill", req.first_sched_time, req.first_token_time,
+                    prompt_tokens=len(req.prompt), cached_tokens=req.cached_tokens,
+                    packed=bool(self.cfg.packed_serving),
+                )
         req.out_tokens.append(token)
         req.out_logprobs.append(logprob)
         req.out_top_logprobs.append(alts or [])
@@ -1041,6 +1099,17 @@ class InferenceEngine:
         admitted = False
         while self._waiting and T - rows_used >= qb:
             req = self._waiting[0]
+            if req.want_prompt_logprobs:
+                # echo requests need the bucketed prefill's full logits:
+                # the bucketed fallback, in this step
+                if not self._admit(req):
+                    break
+                self._waiting.pop(0)
+                self._run_prefill(req)
+                if req.done:
+                    self._retire(req)
+                    finished.append(req)
+                continue
             if not self._admit(req):
                 break
             self._waiting.pop(0)
@@ -1094,12 +1163,15 @@ class InferenceEngine:
         self.step_h2d_bytes["packed"] += (
             sum(a.nbytes for a in per_step) + self._extra_devices * sum(a.nbytes for a in per_step[:3])
         )
-        out = self._mixed(shape, kvp, *per_step, sampled)
-        tok_h, lp_h = out[0].cpu().numpy(), out[1].cpu().numpy()
-        av_h = ai_h = None
         emitting = [r for r, _, _ in segments] + decode_reqs
-        if len(out) > 2 and any(r.want_top_logprobs for r in emitting):
-            av_h, ai_h = out[2].cpu().numpy(), out[3].cpu().numpy()
+        av_h = ai_h = None
+        # one span per packed step, closed after the step's host read
+        with tracing.span("step.packed", rows=shape, tokens=valid, decode_rows=len(decode_reqs),
+                          prefill_tokens=prefill_tokens):
+            out = self._mixed(shape, kvp, *per_step, sampled)
+            tok_h, lp_h = out[0].cpu().numpy(), out[1].cpu().numpy()
+            if len(out) > 2 and any(r.want_top_logprobs for r in emitting):
+                av_h, ai_h = out[2].cpu().numpy(), out[3].cpu().numpy()
 
         def alts_for(req: Request):
             if not req.want_top_logprobs or av_h is None:
@@ -1201,6 +1273,7 @@ class InferenceEngine:
         if sampled:
             self._draw_chunk_noise(sampled, T)
         self.decode_chunks += 1
+        self.chunk_steps += T
         run = self.chunk_eager if self.graphs is None else self.graphs.replay
         toks, lps, alts = run(T, bool(sampled))
         return toks, lps, alts, running, T

@@ -41,6 +41,8 @@ import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..utils import tracing
+
 def parse_warmup_buckets(spec: str) -> Tuple[int, ...]:
     """``--warmup-buckets``: comma-separated positive prefill token
     buckets (rounded up to the engine's power-of-two buckets when
@@ -223,16 +225,29 @@ def warm_up(engine, buckets=()) -> Dict[str, Any]:
     thread once its weights are written: its chunk graphs captured, then
     each prefill bucket run once. A capture that fails fails the build.
     Returns ``programs`` and ``compiled``, ``compile_s`` (the seconds of it
-    all, the reference's key) and ``capture_s`` (the captures')."""
+    all, the reference's key), ``capture_s`` (the captures') and
+    ``program_s``, each program's seconds (``chunk``: the captures;
+    ``prefill``: every bucket's run together).
+
+    Spans, with the reference's names: ``warmup.overlap`` over it all
+    and one ``warmup.compile`` per program under it. The port compiles
+    nothing: the chunk's span (``program="chunk"``) times the graph
+    captures, a prefill bucket's its run."""
     plan = warmup_plan(engine, buckets)
-    stats: Dict[str, Any] = {"programs": len(plan), "compiled": 0, "compile_s": 0.0, "capture_s": 0.0}
+    stats: Dict[str, Any] = {"programs": len(plan), "compiled": 0, "compile_s": 0.0, "capture_s": 0.0,
+                             "program_s": {}}
     t0 = time.monotonic()
-    if any(program != "prefill" for program, _ in plan):
-        stats["capture_s"] = engine.graphs.capture()
-        stats["compiled"] += len(engine.graphs.keys())
-    for program, bucket in plan:
-        if program == "prefill":
-            engine.warm_prefill(bucket)
-            stats["compiled"] += 1
+    with tracing.span("warmup.overlap", programs=len(plan)):
+        if any(program != "prefill" for program, _ in plan):
+            with tracing.span("warmup.compile", program="chunk"):
+                stats["capture_s"] = stats["program_s"]["chunk"] = engine.graphs.capture()
+            stats["compiled"] += len(engine.graphs.keys())
+        for program, bucket in plan:
+            if program == "prefill":
+                t_run = time.monotonic()
+                with tracing.span("warmup.compile", program=program, bucket=bucket):
+                    engine.warm_prefill(bucket)
+                stats["program_s"]["prefill"] = stats["program_s"].get("prefill", 0.0) + time.monotonic() - t_run
+                stats["compiled"] += 1
     stats["compile_s"] = time.monotonic() - t0
     return stats

@@ -4,10 +4,11 @@ Port of ``llm_d_fast_model_actuation_tpu/engine/server.py``: one engine
 thread fed by a submit queue, and the routes
 
   GET  /health, /is_sleeping, /v1/models, /v1/stats, /v1/swap, /v1/faults,
-       /v1/prefetch, /v1/costs, /v1/actuations
+       /v1/prefetch, /v1/costs, /v1/actuations, /metrics, /v1/traces,
+       /v1/profile
   POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions,
-       /v1/swap, /v1/faults, /v1/prefetch
-  DELETE /v1/faults, /v1/prefetch
+       /v1/swap, /v1/faults, /v1/prefetch, /v1/profile
+  DELETE /v1/faults, /v1/prefetch, /v1/profile
 
 and one of the port's own, ``GET /v1/device``: the card the engine runs
 on as the CUDA runtime names it, the kernel launches of this process and
@@ -33,12 +34,13 @@ reads the directory again. The tokenizer is the directory's (or
 Requests take token-id or string prompts, token-id or string stops,
 ``stream`` (server-sent events, written as chunked responses by the
 handler itself), ``logprobs`` and ``top_logprobs`` of the generated
-tokens, ``echo`` without logprobs, ``n``, ``seed``, ``ignore_eos``,
-``logit_bias`` and ``stop_token_ids``; their JSON and SSE shapes are the
-reference's. Not ported yet, and answered with a 400 that says so:
-``echo`` with ``logprobs`` (prompt logprobs), and the other routes of the
-reference (``UNPORTED_ROUTES``: metrics, parked, residents, traces,
-profile). Not ported yet and absent from the options: the reference's
+tokens, ``echo`` (with ``logprobs``, the prompt's logprobs too: the
+request bypasses the prefix cache and runs the bucketed prefill, also on
+the packed path), ``n``, ``seed``, ``ignore_eos``, ``logit_bias`` and
+``stop_token_ids``; their JSON and SSE shapes are the reference's. Not
+ported yet, and answered with a 400 that says so: the other routes of the
+reference (``UNPORTED_ROUTES``: parked, residents). Not ported yet and
+absent from the options: the reference's
 other engine flags (``--pipeline-decode``, ``--speculative-ngram``,
 ``--quantization``, ``--resident-variants``, multi-host gangs, ...), also
 where the reference combines them with tensor parallelism.
@@ -103,6 +105,28 @@ within ``--exec-pool-mib`` of the card (``ExecutablePool``); over it the
 least recently pooled engine's graphs are released and captured again
 when it serves again.
 
+**Observability.** ``GET /metrics`` is the reference's catalog in the
+Prometheus text format (``engine/metrics.py``, written by hand in
+``utils/prom.py``; the families of features the port lacks are left
+out), its gauges refreshed from host-side counters at the scrape, which
+never reads the device. ``GET /v1/traces`` (``?format=chrome|tree``,
+``trace_id``, ``clear``) exports this process's spans
+(``utils/tracing.py``): ``engine.start`` (parented on
+``FMA_TRACEPARENT``), ``engine.build_runtime``, ``engine.sleep``,
+``engine.wake``, ``engine.swap``, ``engine.prefetch`` with the cost
+oracle's ``predicted_bytes`` and ``predicted_s``, the bucket spans of
+``engine/sleep.py``, the loader's and the warm-up's, ``step.packed``, and
+the request traces: ``--trace-requests`` head-samples them, a client's
+``traceparent`` forces one, and a request that violated an SLO
+(``--slo-ttft-ms``, ``--slo-tpot-ms``) or was aborted keeps its spans
+(tail-keep); ``/v1/stats.slo_exemplars`` lists the last violations with
+their trace ids. Every admin route runs under the caller's
+``traceparent``, carried to the engine thread. ``POST /v1/profile``
+starts a ``torch.profiler`` capture (CPU and CUDA activities, started and
+stopped on the engine thread, whose operators it then records), one at a
+time (409 otherwise); ``DELETE`` stops it and writes its Chrome trace
+under ``log_dir``; ``GET`` says whether one runs.
+
 Run: ``python -m llm_d_fast_model_actuation_tpu_torch.engine.server
 --model llama3-8b`` or ``--model hf:/path/to/model`` (on the card;
 ``--device cpu`` to run on the CPU; ``--tensor-parallel-size 2`` on two
@@ -116,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextvars
 import dataclasses
 import gc
 import json
@@ -127,6 +152,7 @@ import signal
 import threading
 import time
 import traceback
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
@@ -139,8 +165,10 @@ from ..models import quant as transfer_quant
 from ..ops.cuda import kernel_launches
 from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
-from ..utils import faults
+from ..utils import faults, tracing
 from ..utils.costs import CostBook
+from ..utils.prom import exposition
+from . import metrics as fm
 from . import tokenizer as tokenizer_mod
 from .chunk_store import ChunkStore, DigestJob, default_disk_dir, flatten_state, map_leaves
 from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_logit_bias
@@ -192,10 +220,9 @@ MODEL_CONFIGS = {
 }
 
 #: routes of the reference server this port does not serve yet, matched
-#: with everything under them (``/v1/parked/claims/{id}``, ...)
-UNPORTED_ROUTES = (
-    "/metrics", "/v1/parked", "/v1/residents", "/v1/traces", "/v1/profile",
-)
+#: with everything under them (``/v1/parked/claims/{id}``, ...): zero-drain
+#: parking (ROADMAP queue 1 item 11) and co-resident variants (item 12)
+UNPORTED_ROUTES = ("/v1/parked", "/v1/residents")
 
 
 def unported_route(path: str) -> bool:
@@ -326,6 +353,28 @@ def make_arg_parser() -> argparse.ArgumentParser:
         "the next model does not starve the serving one; 0 = unthrottled",
     )
     p.add_argument(
+        "--slo-ttft-ms", type=float, default=0.0,
+        help="TTFT SLO target in milliseconds (submit -> first token). Finished "
+        "requests are judged against it (fma_engine_slo_requests_total{slo=ttft}) "
+        "and only SLO-met requests count toward fma_engine_goodput_tokens_total; "
+        "0 disables",
+    )
+    p.add_argument(
+        "--slo-tpot-ms", type=float, default=0.0,
+        help="time-per-output-token SLO target in milliseconds (mean inter-token "
+        "time after the first token); judged per finished request like "
+        "--slo-ttft-ms; 0 disables",
+    )
+    p.add_argument(
+        "--trace-requests", type=float, default=0.0,
+        help="head-sampling fraction [0, 1] for per-request lifecycle traces "
+        "(request.* spans: queue, prefill and decode legs, kept in a trace ring "
+        "of their own served by GET /v1/traces). SLO-violated and aborted "
+        "requests keep their spans whatever the fraction (tail-keep), and a "
+        "client traceparent traces its request. 0 (default) records nothing "
+        "per request",
+    )
+    p.add_argument(
         "--faults", default="",
         help="arm fault-injection points at startup (utils/faults.py), e.g. "
         "'swap.h2d=fail:1'; also the FMA_FAULTS env and POST /v1/faults",
@@ -377,6 +426,12 @@ def check_engine_options(args: argparse.Namespace) -> None:
             raise ValueError(f"--faults: {e}")
     if args.tensor_parallel_size < 1:
         raise ValueError("--tensor-parallel-size must be >= 1")
+    if args.slo_ttft_ms < 0:
+        raise ValueError("--slo-ttft-ms must be >= 0 (0 = off)")
+    if args.slo_tpot_ms < 0:
+        raise ValueError("--slo-tpot-ms must be >= 0 (0 = off)")
+    if not 0.0 <= args.trace_requests <= 1.0:
+        raise ValueError("--trace-requests must be in [0, 1]")
     if args.sleep_quant != "off":
         reason = transfer_quant.transfer_quant_supported(args.sleep_quant)
         if reason:
@@ -438,6 +493,11 @@ def resolve_model(args: argparse.Namespace, model_id: str):
     if eos < 0 and hf_dir:
         eos = tok.eos_token_id if tok.eos_token_id is not None else -1
     return model_cfg, eos, extra, hf_dir, tok
+
+
+class ProfileConflict(Exception):
+    """POST /v1/profile while a capture runs (the profiler is process
+    global: one capture at a time), or DELETE with none: a 409."""
 
 
 class _RateEWMA:
@@ -548,7 +608,26 @@ class EngineService:
         self._resolved: Dict[str, tuple] = {}
         #: guards a runtime's digests while their job is joined
         self._digest_mu = threading.Lock()
-        self._runtime = self._build_runtime(args.model)
+        # request-lifecycle SLO and goodput accounting: targets in seconds
+        # (0 = off), counters guarded by _mu
+        self._slo_ttft_s = max(0.0, getattr(args, "slo_ttft_ms", 0.0) or 0.0) / 1e3
+        self._slo_tpot_s = max(0.0, getattr(args, "slo_tpot_ms", 0.0) or 0.0) / 1e3
+        self._slo_met = self._slo_violated = self._goodput_tokens = 0
+        #: request traces: head sampling at submit, tail-keep at the finish;
+        #: each retained violation with its legs (/v1/stats.slo_exemplars)
+        tracing.configure_request_sampling(getattr(args, "trace_requests", 0.0) or 0.0)
+        self._slo_exemplars: deque = deque(maxlen=int(os.environ.get("FMA_SLO_EXEMPLARS", "16") or 16))
+        #: the running torch.profiler capture (POST/DELETE /v1/profile)
+        self._profile_mu = threading.Lock()
+        self._profile: Any = None
+        self._profile_dir: Optional[str] = None
+        #: cumulative counters of the engines and pools, as last mirrored
+        #: into Prometheus counters (the scrape adds what they grew by)
+        self._seen: Dict[str, float] = {}
+        # the startup span parents on FMA_TRACEPARENT when the spawning
+        # launcher passed one: the first build joins the create's trace
+        with tracing.span("engine.start", parent=tracing.env_context(), model=args.model, pid=os.getpid()):
+            self._runtime = self._build_runtime(args.model)
         # the recorder's first row: the initial cold build ("restart" when
         # a supervising launcher spawned this child again)
         self._record_actuation(
@@ -575,6 +654,19 @@ class EngineService:
     # -- model runtimes --------------------------------------------------------
 
     def _build_runtime(
+        self,
+        model_id: str,
+        staged_params: Optional[Dict[str, Any]] = None,
+        staged_digests: Optional[Dict[str, str]] = None,
+        staged_quant: Optional[List[Any]] = None,
+    ) -> _ModelRuntime:
+        """:meth:`_build_runtime_impl` under an ``engine.build_runtime``
+        span, ended (with the error) when the build raises."""
+        with tracing.span("engine.build_runtime", model=model_id, checkpoint_dir="",
+                          staged=staged_params is not None):
+            return self._build_runtime_impl(model_id, staged_params, staged_digests, staged_quant)
+
+    def _build_runtime_impl(
         self,
         model_id: str,
         staged_params: Optional[Dict[str, Any]] = None,
@@ -650,7 +742,14 @@ class EngineService:
         load = rt.load_stats if staged_params is None else staged_stats
         for figure in load.transfer_figures() if load is not None else ():
             self.costs.observe_transfer(*figure)
+        if load is not None and (hf_dir or staged_params is not None):
+            for phase, v in (("read", load.read_s), ("convert", load.convert_s), ("h2d", load.h2d_s),
+                             ("total", load.total_s)):
+                fm.ENGINE_COLDLOAD_PHASE_SECONDS.labels(model=model_id, phase=phase).set(v)
+            fm.ENGINE_COLDLOAD_OVERLAP_FRAC.labels(model=model_id).set(load.overlap_frac)
         warm = rt.engine.warmup_stats
+        for program, secs in (warm.get("program_s") or {}).items():
+            fm.ENGINE_WARMUP_SECONDS.labels(program=program).set(secs)
         self._last_build_stats = {
             "h2d_s": load.h2d_s if hf_dir or staged_params is not None else warm["load_s"],
             "bytes_in": state_bytes,
@@ -731,6 +830,7 @@ class EngineService:
                         break
                     for req in self.engine.step():
                         self._resolve(req)
+                    self._observe_step()
             except Exception as e:  # noqa: BLE001 — the loop's boundary
                 traceback.print_exc()
                 with self._mu:
@@ -761,10 +861,12 @@ class EngineService:
     def _resolve(self, req) -> None:
         req.done_time = time.monotonic()
         fut = self._futures.pop(req.seq_id, None)
-        if not req.error:
-            with self._mu:
-                self._finished_requests += 1
-                self._generated_tokens += len(req.out_tokens)
+        # observed before the future resolves: the usage block reads the
+        # trace id the trace's finish stamps
+        if req.error:
+            self._finish_request_trace(req, req.done_time, aborted=True)
+        else:
+            self._observe_finished(req)
         if fut is None or fut.done():
             return
         if req.error:
@@ -774,8 +876,124 @@ class EngineService:
 
     def _count_abort(self, cause: str, n: int = 1) -> None:
         if n > 0:
+            fm.ENGINE_ABORTS.labels(model=self.model, reason=cause).inc(n)
             with self._mu:
                 self._aborted[cause] = self._aborted.get(cause, 0) + n
+
+    # -- request observation (the engine thread) -------------------------------
+
+    def _observe_finished(self, req) -> None:
+        """A finished request's metrics, its SLO judgment (each enabled
+        target on its own; goodput counts its tokens only when none was
+        violated, so with no target set every request's count), its trace
+        and, when it violated a target, an exemplar."""
+        m = self.model
+        now = req.done_time if req.done_time is not None else time.monotonic()
+        ttft = None if req.first_token_time is None else req.first_token_time - req.submit_time
+        if ttft is not None:
+            fm.ENGINE_TTFT.labels(model=m).observe(ttft)
+        if req.first_sched_time is not None:
+            fm.ENGINE_QUEUE_WAIT.labels(model=m).observe(max(0.0, req.first_sched_time - req.submit_time))
+        fm.ENGINE_E2E_LATENCY.labels(model=m).observe(now - req.submit_time)
+        fm.ENGINE_PROMPT_TOKENS.labels(model=m).inc(len(req.prompt))
+        gen = len(req.out_tokens)
+        fm.ENGINE_GENERATED_TOKENS.labels(model=m).inc(gen)
+        met_all, evaluated, violated_slos = True, False, []
+        if self._slo_ttft_s > 0:
+            ok = ttft is not None and ttft <= self._slo_ttft_s
+            fm.ENGINE_SLO_REQUESTS.labels(model=m, slo="ttft", outcome="met" if ok else "violated").inc()
+            if not ok:
+                violated_slos.append("ttft")
+            met_all, evaluated = met_all and ok, True
+        if self._slo_tpot_s > 0:
+            if req.first_token_time is not None and gen > 1:
+                ok = (now - req.first_token_time) / (gen - 1) <= self._slo_tpot_s
+            else:
+                # one token (or none) has no inter-token time to judge
+                ok = req.first_token_time is not None
+            fm.ENGINE_SLO_REQUESTS.labels(model=m, slo="tpot", outcome="met" if ok else "violated").inc()
+            if not ok:
+                violated_slos.append("tpot")
+            met_all, evaluated = met_all and ok, True
+        if met_all:
+            fm.ENGINE_GOODPUT_TOKENS.labels(model=m).inc(gen)
+        violated = evaluated and not met_all
+        trace_id = self._finish_request_trace(req, now, violated=violated)
+        with self._mu:
+            self._finished_requests += 1
+            self._generated_tokens += gen
+            if met_all:
+                self._goodput_tokens += gen
+            if evaluated:
+                if met_all:
+                    self._slo_met += 1
+                else:
+                    self._slo_violated += 1
+            if violated and trace_id:
+                self._slo_exemplars.append({
+                    "trace_id": trace_id, "model": m, "violated": violated_slos,
+                    "ttft_s": None if ttft is None else round(ttft, 6),
+                    "legs": {k: round(v, 6) for k, v in _request_legs(req, now).items()},
+                })
+
+    def _finish_request_trace(self, req, now: float, violated: bool = False, aborted: bool = False) -> str:
+        """Close a request's lifecycle trace: keep it when it was
+        head-sampled or violated an SLO or was aborted (with
+        ``--trace-requests 0`` such a request gets a trace made here from
+        its stamps), with one span for the whole decode window, never one
+        per step; stamp ``req.trace_id``. Returns the trace id when the
+        spans were kept, else ""."""
+        if getattr(req, "_trace_done", False):
+            return req.trace_id
+        req._trace_done = True
+        tr = req.trace
+        if tr is None:
+            if not (violated or aborted) or not tracing.enabled():
+                return ""
+            tr = tracing.RequestTrace(sampled=True)
+            if req.first_sched_time is not None:
+                tr.add("request.queue", req.submit_time, req.first_sched_time)
+                tr.add("request.prefill", req.first_sched_time,
+                       req.first_token_time if req.first_token_time is not None else now,
+                       prompt_tokens=len(req.prompt), cached_tokens=req.cached_tokens, synthesized=True)
+        if req.first_token_time is not None and now > req.first_token_time:
+            tr.add("request.decode", req.first_token_time, now, tokens=len(req.out_tokens),
+                   finish_reason=req.finish_reason or "")
+        keep = tr.sampled or violated or aborted
+        tid = tr.finish(req.submit_time, now, keep, outcome="aborted" if aborted else "finished",
+                        violated=bool(violated), prompt_tokens=len(req.prompt), tokens=len(req.out_tokens),
+                        preempt_s=0.0)
+        req.trace = None
+        req.trace_id = tid if keep else ""
+        return req.trace_id
+
+    def _observe_step(self) -> None:
+        """After each engine step: KV usage, decode-slot occupancy, the
+        packed step's tokens, and the engine's cumulative per-path byte
+        counters mirrored into their counters."""
+        eng = self.engine
+        m = self.model
+        alloc = eng.allocator
+        total = max(1, alloc.num_pages - 1)
+        fm.ENGINE_KV_USAGE.labels(model=m).set((total - alloc.available) / total)
+        fm.ENGINE_SLOT_OCCUPANCY.labels(model=m).set(
+            sum(1 for s in eng._slots if s is not None) / max(1, eng.cfg.max_batch))
+        stats = eng.last_step_stats
+        if stats is not None and stats.get("mode") == "packed":
+            fm.ENGINE_PACKED_TOKENS.labels(model=m).observe(stats["tokens"])
+        for family, totals in ((fm.ENGINE_PAD_WASTE_BYTES, eng.pad_waste_bytes),
+                               (fm.ENGINE_STEP_H2D_BYTES, eng.step_h2d_bytes)):
+            for path, value in totals.items():
+                self._mirror(family.labels(model=m, path=path), f"{family.name}/{path}", value)
+
+    def _mirror(self, child, key: str, total: float) -> None:
+        """Add what the cumulative ``total`` grew by since the last call
+        to the counter ``child``; a total that went back (a swap installed
+        an engine whose counters start at 0) restarts the mirror."""
+        seen = self._seen.get(key, 0)
+        if total > seen:
+            child.inc(total - seen)
+        self._seen[key] = total
 
     def _fail_all(self, exc: BaseException) -> None:
         with self._mu:
@@ -789,22 +1007,31 @@ class EngineService:
         self._futures.clear()
 
     def _on_loop(self, fn, wait: bool = True) -> Any:
-        """Run ``fn`` on the engine thread between steps; wait for it."""
+        """Run ``fn`` on the engine thread between steps, in a copy of the
+        caller's context (its span is the parent of ``fn``'s); wait for
+        it."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
+        ctx = contextvars.copy_context()
         with self._mu:
             if self.failure is not None:
                 raise RuntimeError(self.failure)
-            self._admin.append((fn, fut))
+            self._admin.append((lambda: ctx.run(fn), fut))
         self._work.set()
         return fut.result() if wait else None
 
     # -- API ------------------------------------------------------------------
 
-    def submit(self, **kw) -> concurrent.futures.Future:
-        """Enqueue one request (``InferenceEngine.add_request`` keywords)."""
+    def submit(self, trace_ctx: "tracing.SpanContext | None" = None, **kw) -> concurrent.futures.Future:
+        """Enqueue one request (``InferenceEngine.add_request`` keywords).
+        ``trace_ctx``, a client's ``traceparent``, traces the request
+        (whatever ``--trace-requests`` says) under the client's span; with
+        neither, nothing per request is recorded."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         now = time.monotonic()
         kw.setdefault("submit_time", now)
+        if tracing.enabled() and (trace_ctx is not None or tracing.request_sampling() > 0.0):
+            kw["trace"] = tracing.RequestTrace(sampled=trace_ctx is not None or tracing.sample_request(),
+                                               parent=trace_ctx)
         with self._mu:
             self._arrival.observe(now)
             if self.failure is not None:
@@ -855,8 +1082,19 @@ class EngineService:
             # a level-1 offload is priced; a level-2 sleep discards
             pred = self._priced(self.price_sleep) if level == 1 and not was_sleeping else None
             t0 = time.monotonic()
-            out = self.sleeper.sleep(level)
+            with tracing.span("engine.sleep", level=level, model=self.model) as sp:
+                if pred is not None:
+                    sp.set(predicted_bytes=pred.get("predicted_bytes"), predicted_s=pred.get("predicted_s"))
+                out = self.sleeper.sleep(level)
             sleep_s = time.monotonic() - t0
+            if out.get("bytes_offloaded") and not was_sleeping:
+                fm.ENGINE_ACTUATION_BYTES.labels(mode=out.get("quant", "off") or "off", dir="d2h").inc(
+                    out["bytes_offloaded"])
+            if not was_sleeping:
+                if int(self.sleeper.level) == 1:
+                    fm.ENGINE_ACTUATION_SECONDS.labels(kind="sleep", phase="d2h").observe(
+                        max(0.0, self.sleeper.stats.last_sleep_transfer_s))
+                fm.ENGINE_ACTUATION_SECONDS.labels(kind="sleep", phase="total").observe(sleep_s)
             if not was_sleeping or self.sleeper.level != prev_level:
                 self._bump_actuation("sleep")
                 priced = pred is not None and int(self.sleeper.level) == 1
@@ -887,11 +1125,20 @@ class EngineService:
                 self._count_abort("state_loss", len(aborted))
                 for req in aborted:
                     self._resolve(req)
-                out = self.sleeper.wake_up(reinit=lambda: fresh_state(self.engine))
-            else:
-                out = self.sleeper.wake_up()
+            with tracing.span("engine.wake", model=self.model) as sp:
+                if pred is not None:
+                    sp.set(predicted_bytes=pred.get("predicted_bytes"), predicted_s=pred.get("predicted_s"))
+                if was_l1:
+                    out = self.sleeper.wake_up()
+                else:
+                    out = self.sleeper.wake_up(reinit=lambda: fresh_state(self.engine))
             self._bump_actuation("wake")
             st = self.sleeper.stats
+            if was_l1 and st.last_wake_bytes:
+                fm.ENGINE_ACTUATION_BYTES.labels(mode=st.last_quant or "off", dir="h2d").inc(st.last_wake_bytes)
+            if was_l1 and st.last_wake_transfer_s > 0:
+                fm.ENGINE_ACTUATION_SECONDS.labels(kind="wake", phase="h2d").observe(st.last_wake_transfer_s)
+            fm.ENGINE_ACTUATION_SECONDS.labels(kind="wake", phase="total").observe(max(0.0, st.last_wake_seconds))
             self._record_actuation(
                 "wake", self.model, trigger="client", tier="host" if was_l1 else "cold",
                 # a level-2 wake writes fresh weights: outside the pricing
@@ -938,21 +1185,36 @@ class EngineService:
                 pred=pred, actual_bytes=0, actual_s=0.0, outcome=outcome,
             )
 
-        try:
-            out = self._swap_impl(model, request_id)
-        except SwapRolledBack:
-            record_failure("rolled_back")
-            raise
-        except ValueError as e:
-            # a refusal moved nothing and leaves no trace; a build that
-            # failed after the outgoing model slept may raise a ValueError
-            # too, and is marked so
-            if getattr(e, "fma_swap_actuated", False):
+        def recovery(path: str) -> None:
+            fm.ENGINE_RECOVERIES.labels(path=path, outcome="rolled_back" if self.failure is None
+                                        else "rollback_failed").inc()
+
+        with tracing.span("engine.swap", model=model, previous=self.model, request_id=request_id) as sp:
+            if pred is not None:
+                sp.set(predicted_bytes=pred.get("predicted_bytes"), predicted_s=pred.get("predicted_s"),
+                       predicted_tier=pred.get("tier"))
+            try:
+                out = self._swap_impl(model, request_id)
+            except SwapRolledBack:
+                recovery("swap")
+                record_failure("rolled_back")
+                raise
+            except ValueError as e:
+                # a refusal moved nothing and leaves no trace; a build that
+                # failed after the outgoing model slept may raise a
+                # ValueError too, and is marked so
+                if getattr(e, "fma_swap_actuated", False):
+                    recovery("swap_cold")
+                    record_failure("failed")
+                raise
+            except Exception as e:
+                recovery("swap_cold" if getattr(e, "fma_swap_actuated", False) else "swap")
                 record_failure("failed")
-            raise
-        except Exception:
-            record_failure("failed")
-            raise
+                raise
+            if out.get("swapped") and not out.get("replayed"):
+                sp.set(pool_hit=bool(out.get("pool_hit")), tier=out.get("tier", ""),
+                       bytes_moved=out.get("bytes_moved", 0))
+                self._observe_swap(model, out)
         if out.get("swapped") and not out.get("replayed"):
             rec = self._record_actuation(
                 "swap", model, trigger="client", tier=out.get("tier", ""), pred=pred,
@@ -1178,6 +1440,22 @@ class EngineService:
         }
         return dict(self.last_swap)
 
+    def _observe_swap(self, model: str, out: Dict[str, Any]) -> None:
+        """A committed swap's metrics."""
+        fm.ENGINE_SWAP_SECONDS.labels(model=model).observe(out.get("swap_total_s", 0.0))
+        fm.ENGINE_SWAPS.labels(model=model, source="pool" if out.get("pool_hit") else "cold").inc()
+        if out.get("pool_hit"):
+            fm.ENGINE_POOL_HITS.inc()
+        fm.ENGINE_SWAP_OVERLAP_FRAC.labels(model=model).set(out.get("overlap_frac", 0.0))
+        fm.ENGINE_SWAP_INFLIGHT_BYTES.labels(model=model).set(out.get("peak_bytes_in_flight", 0))
+        fm.ENGINE_SWAP_DELTA_BYTES.labels(model=model, kind="moved").set(out.get("bytes_moved", 0))
+        fm.ENGINE_SWAP_DELTA_BYTES.labels(model=model, kind="deduped").set(out.get("bytes_deduped", 0))
+        mode = out.get("quant", "off") or "off"
+        fm.ENGINE_ACTUATION_BYTES.labels(mode=mode, dir="d2h").inc(out.get("bytes_out", 0))
+        fm.ENGINE_ACTUATION_BYTES.labels(mode=mode, dir="h2d").inc(out.get("bytes_in", 0))
+        for phase, key in (("d2h", "d2h_transfer_s"), ("h2d", "h2d_transfer_s"), ("total", "swap_total_s")):
+            fm.ENGINE_ACTUATION_SECONDS.labels(kind="swap", phase=phase).observe(max(0.0, out.get(key, 0.0)))
+
     def _exec_key(self, key: str, runtime: _ModelRuntime) -> str:
         """The exec pool's key for the graphs of the runtime pooled under
         ``key``."""
@@ -1321,6 +1599,8 @@ class EngineService:
                 pw = PrefetchedWeights(model_id=model, params_host=tree, nbytes=nbytes,
                                        digests=digests)
                 if not self._on_loop(lambda: self._register_prefetch(pw)):
+                    fm.ENGINE_PREFETCHES.labels(outcome="completed").inc()
+                    fm.ENGINE_PREFETCH_BYTES.set(nbytes)
                     self.last_prefetch = {"state": "completed", "model": model, "checkpoint_dir": "",
                                           "bytes": nbytes, "source": "tier", "tier": tier,
                                           "pool": self.model_pool.describe()}
@@ -1341,7 +1621,8 @@ class EngineService:
             self._prefetch_abort = threading.Event()
             self.last_prefetch = {"state": "running", "model": model, "checkpoint_dir": "", "bytes": 0}
             self._prefetch_thread = threading.Thread(
-                target=self._prefetch_worker, args=(model, hf_dir, model_cfg, self._prefetch_abort),
+                target=self._prefetch_worker,
+                args=(model, hf_dir, model_cfg, self._prefetch_abort, tracing.current_context()),
                 daemon=True, name="prefetch",
             )
             self._prefetch_thread.start()
@@ -1357,7 +1638,21 @@ class EngineService:
             torch._C._host_emptyCache()  # the duplicates interning dropped
         return bounced
 
-    def _prefetch_worker(self, model: str, hf_dir: str, model_cfg, abort: threading.Event) -> None:
+    def _prefetch_worker(self, model: str, hf_dir: str, model_cfg, abort: threading.Event,
+                         trace_ctx: "tracing.SpanContext | None" = None) -> None:
+        """:meth:`_prefetch_body` under an ``engine.prefetch`` span, a child
+        of the caller's (handed over: the thread has no context of its
+        own)."""
+        with tracing.span("engine.prefetch", parent=trace_ctx, model=model) as sp:
+            self._prefetch_body(model, hf_dir, model_cfg, abort)
+            sp.set(state=self.last_prefetch.get("state", ""), bytes=self.last_prefetch.get("bytes", 0))
+        state = self.last_prefetch.get("state")
+        if state in ("completed", "aborted", "failed", "rejected"):
+            fm.ENGINE_PREFETCHES.labels(outcome=state).inc()
+        if state == "completed":
+            fm.ENGINE_PREFETCH_BYTES.set(self.last_prefetch.get("bytes", 0))
+
+    def _prefetch_body(self, model: str, hf_dir: str, model_cfg, abort: threading.Event) -> None:
         """The prefetch's thread: the checkpoint staged on the host only
         (``load_params(place=False)``: readers, throttle, abort; no CUDA
         tensor), its digests hashed from the host leaves, then pooled.
@@ -1648,7 +1943,7 @@ class EngineService:
             "bandwidth_gibps": self.costs.bandwidths.describe(),
             "sleep": self._priced_row("sleep", self.price_sleep),
             "wake": self._priced_row("wake", self.price_wake),
-            "migrate": {"kind": "migrate", "error": "live migration is not ported yet (ROADMAP queue 1 item 12)"},
+            "migrate": {"kind": "migrate", "error": "live migration is not ported yet (ROADMAP queue 1 item 11)"},
             "compile": {"mean_compile_s": exec_desc.get("mean_compile_s", 0.0),
                         "compiles_total": exec_desc.get("compiles_total", 0)},
             "candidates": candidates,
@@ -1684,20 +1979,28 @@ class EngineService:
         actual_bytes: int, actual_s: float, outcome: str = "committed",
     ):
         """One flight-recorder row per actuation edge, with the prediction
-        made before it when there was one."""
-        return self.costs.record(
+        made before it when there was one; the prediction and its error
+        go on the oracle's gauges too."""
+        rec = self.costs.record(
             kind=kind, model=model, trigger=trigger, tier=tier, outcome=outcome,
             actual_bytes=actual_bytes, actual_s=actual_s,
             predicted_bytes=None if pred is None else pred.get("predicted_bytes"),
             predicted_s=None if pred is None else pred.get("predicted_s"),
             measured=bool(pred and pred.get("measured")),
         )
+        if rec.predicted_bytes is not None:
+            fm.ENGINE_PREDICTED_BYTES.labels(kind=kind).set(rec.predicted_bytes)
+        if rec.seconds_error_ratio is not None and rec.measured:
+            fm.ENGINE_COST_ERROR.labels(kind=kind).set(rec.seconds_error_ratio)
+        return rec
 
     def stats(self) -> Dict[str, Any]:
         """GET /v1/stats: the reference's fields for the blocks the port
-        has (no SLO targets are configurable, so none is judged and every
-        finished request's tokens are goodput, as the reference counts
-        them with its targets off), and two blocks of the port's own:
+        has (``slo`` with ``--slo-ttft-ms``/``--slo-tpot-ms``, goodput and
+        ``slo_exemplars``), and blocks of the port's own: ``engine``, the
+        serving engine's step counters (its serving chunks' decode steps,
+        replayed or eager, its cold prefills, packed steps, chunks and
+        graph replays; a swap's incoming engine starts at 0), and
         ``load``, the checkpoint's last load (``models/hf.py:LoadStats``)
         for an ``hf:`` model, else None (``digest_pending`` while the
         load's digests are still being hashed: ``digest_s`` is then 0);
@@ -1712,15 +2015,32 @@ class EngineService:
             self._digests(rt)  # joins at once: digest_s is the load's
         load = None if rt.load_stats is None else dict(
             rt.load_stats.summary(), loads=rt.loads, digest_pending=rt.digest_job is not None)
+        eng = self.engine
         with self._mu:
+            judged = self._slo_met + self._slo_violated
             return {
                 "model": self.model,
                 "queue_depth": depth,
                 "arrival_rate_rps": round(self._arrival.rate(now), 6),
-                "slo": {"ttft_ms": 0.0, "tpot_ms": 0.0, "met": 0, "violated": 0, "attainment": None},
+                "slo": {
+                    "ttft_ms": self._slo_ttft_s * 1e3,
+                    "tpot_ms": self._slo_tpot_s * 1e3,
+                    "met": self._slo_met,
+                    "violated": self._slo_violated,
+                    "attainment": round(self._slo_met / judged, 6) if judged else None,
+                },
                 "finished_requests": self._finished_requests,
                 "generated_tokens": self._generated_tokens,
-                "goodput_tokens": self._generated_tokens,
+                "goodput_tokens": self._goodput_tokens,
+                # the last SLO violations, each with its kept trace and legs
+                "slo_exemplars": list(self._slo_exemplars),
+                "engine": {
+                    "decode_steps": eng.chunk_steps,
+                    "decode_chunks": eng.decode_chunks,
+                    "graph_replays": eng.graph_replays,
+                    "cold_prefills": eng.cold_prefills,
+                    "packed_steps": eng.packed_steps,
+                },
                 "aborted": dict(self._aborted),
                 "actuations": dict(self._actuations),
                 "uptime_s": round(now - self.started_at, 3),
@@ -1748,6 +2068,82 @@ class EngineService:
             "last_swap": {k: last.get(k) for k in ("quant", "quant_leaves", "bytes_full", "bytes_saved_quant")}
             if last else None,
         }
+
+    # -- observability: /metrics and /v1/profile ---------------------------------
+
+    def metrics_text(self) -> str:
+        """GET /metrics: the gauges a scrape refreshes (queue depth, the
+        arrival rate decayed to now, prefix-cache hits, the pools), the
+        pools' cumulative counters mirrored into theirs, then the whole
+        registry in the Prometheus text format. Host-side counters only:
+        nothing here reads the device."""
+        m = self.model
+        fm.ENGINE_QUEUE_DEPTH.labels(model=m).set(self.queue_depth())
+        with self._mu:
+            fm.ENGINE_ARRIVAL_RATE.labels(model=m).set(self._arrival.rate(time.monotonic()))
+        pc = self.engine.prefix_cache
+        if pc is not None:
+            fm.ENGINE_PREFIX_HIT_TOKENS.labels(model=m).set(pc.hit_tokens)
+        pool = self.model_pool
+        fm.ENGINE_POOL_BYTES.set(pool.bytes_used)
+        fm.ENGINE_POOL_MODELS.set(len(pool))
+        self._mirror(fm.ENGINE_POOL_EVICTIONS, "pool_evictions", pool.evictions)
+        if pool.chunks is not None:
+            cd = pool.chunks.describe()
+            for tier in ("host", "disk"):
+                fm.ENGINE_POOL_TIER_BYTES.labels(tier=tier).set(cd[f"{tier}_bytes"])
+                fm.ENGINE_POOL_TIER_CHUNKS.labels(tier=tier).set(cd[f"{tier}_chunks"])
+            fm.ENGINE_POOL_DEDUP_SAVED.set(cd["dedup_saved_bytes"])
+            for event, key in (("dedup_hit", "dedup_hits"), ("disk_spill", "disk_spills"), ("disk_hit", "disk_hits"),
+                               ("disk_eviction", "disk_evictions"), ("verify_failure", "verify_failures")):
+                self._mirror(fm.ENGINE_POOL_TIER_EVENTS.labels(event=event), f"tier/{event}", cd[key])
+        ex = self.exec_pool
+        fm.ENGINE_EXEC_POOL_BYTES.set(ex.bytes_used)
+        fm.ENGINE_EXEC_POOL_ENTRIES.set(len(ex))
+        self._mirror(fm.ENGINE_EXEC_POOL_HITS, "exec_hits", ex.hits)
+        self._mirror(fm.ENGINE_EXEC_POOL_MISSES, "exec_misses", ex.misses)
+        self._mirror(fm.ENGINE_EXEC_POOL_EVICTIONS, "exec_evictions", ex.evictions)
+        return exposition()
+
+    def start_profile(self, log_dir: str = "") -> Dict[str, Any]:
+        """POST /v1/profile: start a ``torch.profiler`` capture of CPU and
+        CUDA activity. The profiler is process global, so one capture at a
+        time (:class:`ProfileConflict`). It is started and stopped on the
+        engine thread, between steps: the operators it records are that
+        thread's (the serving ones); the card's kernels, replays of CUDA
+        graphs included, come from CUPTI, whichever thread launched them."""
+        with self._profile_mu:
+            if self._profile_dir is not None:
+                raise ProfileConflict(
+                    f"a profile capture is already running (log_dir={self._profile_dir}); DELETE /v1/profile stops it"
+                )
+            log_dir = log_dir or os.path.join(
+                os.environ.get("TMPDIR") or "/tmp", f"fma-profile-{os.getpid()}-{int(time.time())}")
+            os.makedirs(log_dir, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.engine.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            self._on_loop(prof.start)
+            self._profile, self._profile_dir = prof, log_dir
+        return {"profiling": True, "log_dir": log_dir}
+
+    def stop_profile(self) -> Dict[str, Any]:
+        """DELETE /v1/profile: stop the capture and write its Chrome trace
+        (``trace.json``) under its ``log_dir``. The state clears only once
+        the stop succeeded, so a failed stop can be sent again."""
+        with self._profile_mu:
+            if self._profile_dir is None:
+                raise ProfileConflict("no profile capture is running")
+            prof = self._profile
+            self._on_loop(prof.stop)
+            prof.export_chrome_trace(os.path.join(self._profile_dir, "trace.json"))
+            log_dir, self._profile, self._profile_dir = self._profile_dir, None, None
+        return {"profiling": False, "log_dir": log_dir}
+
+    def profile_status(self) -> Dict[str, Any]:
+        with self._profile_mu:
+            return {"profiling": self._profile_dir is not None, "log_dir": self._profile_dir or ""}
 
     def device_info(self) -> Dict[str, Any]:
         """GET /v1/device: the engine's device, with the card's name and
@@ -1800,8 +2196,9 @@ def _finish_reason(service: EngineService, req) -> str:
 
 
 def _lifecycle_usage(req) -> Dict[str, Any]:
-    """The reference's per-request usage extras: queue wait and decode
-    TPOT."""
+    """The reference's per-request usage extras: queue wait, decode TPOT
+    and, when the request's trace was kept, its ``trace_id`` (what
+    ``GET /v1/traces?trace_id=`` takes)."""
     qw = None
     if req.first_sched_time is not None:
         qw = max(0.0, req.first_sched_time - req.submit_time)
@@ -1809,7 +2206,26 @@ def _lifecycle_usage(req) -> Dict[str, Any]:
     n = len(req.out_tokens)
     if req.first_token_time is not None and req.done_time is not None and n > 1:
         tpot = max(0.0, (req.done_time - req.first_token_time) / (n - 1))
-    return {"queue_wait_s": qw, "decode_tpot_s": tpot}
+    out = {"queue_wait_s": qw, "decode_tpot_s": tpot}
+    if req.trace_id:
+        out["trace_id"] = req.trace_id
+    return out
+
+
+def _request_legs(req, now: float) -> Dict[str, float]:
+    """Submit to done split into the legs an SLO exemplar reports: queue
+    (to the first slot), prefill (to the first token) and decode; the
+    reference's preempt and migrate legs are 0 (no parking is ported)."""
+    if req.first_sched_time is None:
+        queue, prefill, decode = max(0.0, now - req.submit_time), 0.0, 0.0
+    else:
+        queue = max(0.0, req.first_sched_time - req.submit_time)
+        if req.first_token_time is not None:
+            prefill = max(0.0, req.first_token_time - req.first_sched_time)
+            decode = max(0.0, now - req.first_token_time)
+        else:
+            prefill, decode = max(0.0, now - req.first_sched_time), 0.0
+    return {"queue": queue, "prefill": prefill, "decode": decode, "preempt": 0.0, "migrate": 0.0}
 
 
 def _usage(req, completion_tokens: int, ttft: bool = True) -> Dict[str, Any]:
@@ -1985,9 +2401,12 @@ def _text_stop_watcher(service: EngineService, stop_texts: tuple):
     return on_token
 
 
-def gather_n(service: EngineService, gen: Generation, want_alts: bool) -> list:
+def gather_n(service: EngineService, gen: Generation, want_alts: bool, want_plp: bool = False,
+             trace_ctx: "tracing.SpanContext | None" = None) -> list:
     """``n`` submissions of one request (choice ``i`` seeded ``seed + i``,
-    as the reference does); a failure aborts the siblings."""
+    as the reference does); a failure aborts the siblings. Prompt logprobs
+    and the client's trace go to choice 0 only: the prompt's scores are
+    the same for every choice, and its usage is the response's."""
     seed = gen.kw["seed"]
     futs = [
         service.submit(**dict(
@@ -1995,6 +2414,8 @@ def gather_n(service: EngineService, gen: Generation, want_alts: bool) -> list:
             seed=None if seed is None else ((seed + i + 2**63) % 2**64) - 2**63,
             on_token=_text_stop_watcher(service, gen.stop_texts) if gen.stop_texts else None,
             want_top_logprobs=want_alts,
+            want_prompt_logprobs=want_plp and i == 0,
+            trace_ctx=trace_ctx if i == 0 else None,
         ))
         for i in range(gen.n)
     ]
@@ -2042,11 +2463,16 @@ def completion_response(service: EngineService, body: Dict[str, Any], gen: Gener
             "finish_reason": "stop" if matched else _finish_reason(service, r),
         }
         if body.get("logprobs"):
-            choice["logprobs"] = {"tokens": kept, "token_logprobs": kept_lps}
+            # echo + logprobs: the arrays cover the prompt too, its first
+            # entry None (nothing precedes it)
+            prompt = gen.kw["prompt"]
+            choice["logprobs"] = {
+                "tokens": (prompt + kept) if echo else kept,
+                "token_logprobs": (reqs[0].prompt_logprobs + kept_lps) if echo else kept_lps,
+            }
             if logprobs_n > 0:
-                choice["logprobs"]["top_logprobs"] = [
-                    _top_dict(service, alts, logprobs_n) for alts in r.out_top_logprobs[: len(kept)]
-                ]
+                tops = [_top_dict(service, alts, logprobs_n) for alts in r.out_top_logprobs[: len(kept)]]
+                choice["logprobs"]["top_logprobs"] = ([{} for _ in prompt] + tops) if echo else tops
         choices.append(choice)
     return {
         "object": "text_completion",
@@ -2093,7 +2519,8 @@ def chat_response(service: EngineService, body: Dict[str, Any], gen: Generation,
     }
 
 
-def stream_events(service: EngineService, gen: Generation, make_chunk: Callable, usage_chunk: Callable):
+def stream_events(service: EngineService, gen: Generation, make_chunk: Callable, usage_chunk: Callable,
+                  trace_ctx: "tracing.SpanContext | None" = None):
     """The reference's SSE stream as a generator of event payloads (JSON
     objects, then the ``[DONE]`` terminator): one event per emitted token
     with its text from an incremental detokenizer, stop strings matched
@@ -2109,7 +2536,7 @@ def stream_events(service: EngineService, gen: Generation, make_chunk: Callable,
     def on_token(req, t: int) -> None:
         q.put((t, req.done))
 
-    fut = service.submit(**dict(gen.kw, on_token=on_token))
+    fut = service.submit(trace_ctx=trace_ctx, **dict(gen.kw, on_token=on_token))
     fut.add_done_callback(lambda f: q.put(None))
     index = 0
     completed = False
@@ -2164,9 +2591,9 @@ def stream_events(service: EngineService, gen: Generation, make_chunk: Callable,
             service.abort(fut)
 
 
-def completions(service: EngineService, body: Any):
+def completions(service: EngineService, body: Any, trace_ctx: "tracing.SpanContext | None" = None):
     """POST /v1/completions: a response object, or an event generator for
-    ``stream``."""
+    ``stream``. ``trace_ctx``: the client's ``traceparent``."""
     if not isinstance(body, dict):
         raise BadRequest("request body must be a JSON object")
     gen = parse_generation(service, body, encode_prompt(service, body.get("prompt")))
@@ -2183,14 +2610,13 @@ def completions(service: EngineService, body: Any):
             lambda text, ids, index: {"object": "text_completion", "model": model,
                                       "choices": [{"index": 0, "text": text, "token_ids": ids}]},
             lambda usage: {"object": "text_completion", "model": model, "choices": [], "usage": usage},
+            trace_ctx,
         )
-    if echo and body.get("logprobs"):
-        raise BadRequest("echo with logprobs (prompt logprobs) is not supported by this server yet")
-    reqs = gather_n(service, gen, logprobs_n > 0)
+    reqs = gather_n(service, gen, logprobs_n > 0, want_plp=echo and bool(body.get("logprobs")), trace_ctx=trace_ctx)
     return completion_response(service, body, gen, reqs, logprobs_n)
 
 
-def chat_completions(service: EngineService, body: Any):
+def chat_completions(service: EngineService, body: Any, trace_ctx: "tracing.SpanContext | None" = None):
     """POST /v1/chat/completions: a response object, or an event
     generator for ``stream``; the first streamed delta carries the role."""
     if not isinstance(body, dict):
@@ -2211,8 +2637,9 @@ def chat_completions(service: EngineService, body: Any):
         return stream_events(
             service, gen, chunk,
             lambda usage: {"object": "chat.completion.chunk", "model": model, "choices": [], "usage": usage},
+            trace_ctx,
         )
-    reqs = gather_n(service, gen, top_n > 0)
+    reqs = gather_n(service, gen, top_n > 0, trace_ctx=trace_ctx)
     return chat_response(service, body, gen, reqs, top_n)
 
 
@@ -2224,9 +2651,11 @@ def make_handler(service: EngineService):
             pass
 
         def _send(self, status: int, obj: Any) -> None:
-            data = json.dumps(obj).encode()
+            self._send_bytes(status, json.dumps(obj).encode(), "application/json")
+
+        def _send_bytes(self, status: int, data: bytes, ctype: str) -> None:
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
@@ -2260,6 +2689,12 @@ def make_handler(service: EngineService):
                 raise BadRequest("invalid JSON body")
 
         def _route(self, method: str) -> None:
+            # every route runs under the caller's traceparent, if it sent
+            # one: an admin verb's spans join the caller's trace
+            with tracing.use_context(tracing.context_from_headers(self.headers)):
+                self._dispatch(method)
+
+        def _dispatch(self, method: str) -> None:
             url = urlparse(self.path)
             path = url.path.rstrip("/") or "/"
             try:
@@ -2324,6 +2759,29 @@ def make_handler(service: EngineService):
                     return self._send(200, service.actuations_view(n=n, kind=q.get("kind", [""])[0] or None))
                 if method == "GET" and path == "/v1/device":
                     return self._send(200, service.device_info())
+                if method == "GET" and path == "/metrics":
+                    return self._send_bytes(200, service.metrics_text().encode(),
+                                            "text/plain; version=0.0.4; charset=utf-8")
+                if method == "GET" and path == "/v1/traces":
+                    q = parse_qs(url.query)
+                    status, text, ctype = tracing.export_http(
+                        q.get("format", ["chrome"])[0], trace_id=q.get("trace_id", [""])[0] or None,
+                        clear=q.get("clear", [""])[0] in ("1", "true"),
+                    )
+                    return self._send_bytes(status, text.encode(), ctype)
+                if path == "/v1/profile":
+                    if method == "GET":
+                        return self._send(200, service.profile_status())
+                    try:
+                        if method == "POST":
+                            log_dir = (body.get("log_dir") or "") if isinstance(body, dict) else ""
+                            if not isinstance(log_dir, str):
+                                raise BadRequest("log_dir must be a string")
+                            return self._send(200, service.start_profile(log_dir))
+                        if method == "DELETE":
+                            return self._send(200, service.stop_profile())
+                    except ProfileConflict as e:
+                        return self._send(409, {"error": str(e)})
                 if method == "POST" and path == "/sleep":
                     try:
                         level = int(parse_qs(url.query).get("level", ["1"])[0])
@@ -2335,7 +2793,7 @@ def make_handler(service: EngineService):
                 if method == "POST" and path in ("/v1/completions", "/v1/chat/completions"):
                     run = completions if path == "/v1/completions" else chat_completions
                     try:
-                        out = run(service, body)
+                        out = run(service, body, tracing.current_context())
                     except BadRequest:
                         raise
                     except ValueError as e:  # refused at admission

@@ -4,9 +4,9 @@ without ending the process.
 Port of ``llm_d_fast_model_actuation_tpu/engine/sleep.py``: levels 1 and 2,
 and the overlapped, delta-aware hot-swap between two engines on one card
 (:func:`swap_states`, priced by :func:`plan_swap`), and compressed
-actuation (``--sleep-quant``). Device release, multi-host staging, a swap
-or a quantized transfer on a tensor-parallel mesh, and tracing are not
-ported yet. Sleep levels (vLLM vocabulary):
+actuation (``--sleep-quant``), with the reference's spans. Device
+release, multi-host staging, and a swap or a quantized transfer on a
+tensor-parallel mesh are not ported yet. Sleep levels (vLLM vocabulary):
 
   level 1 — weights and KV pages are copied into pinned host tensors on a
             dedicated copy stream, then their device memory is unmapped
@@ -53,6 +53,14 @@ bucket k+1's copies run. Lossy once: the first quantized offload rounds
 the weights, and every later one quantizes with the scales cached at the
 first, to the same bits. ``bytes_offloaded`` counts the payload, and
 ``bytes_offloaded_full`` the full precision.
+
+**Spans** (``utils/tracing.py``): one ``sleep.d2h`` or ``wake.h2d`` per
+bucket, children of the caller's span (``engine.sleep``/``engine.wake``),
+each closed once its bucket's copies have landed, never at enqueue; a
+swap records ``swap.transfer`` with ``swap.d2h``/``swap.h2d`` per bucket,
+``swap.delta``, ``swap.quant`` and ``swap.rollback`` under it. Each loop
+reads ``tracing.enabled()`` once: with tracing off it creates no span
+object.
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..models import quant as transfer_quant
-from ..utils import faults
+from ..utils import faults, tracing
 from .arena import Arena, arena_of, hand_over
 from .chunk_store import aligned_digests, flatten_state, map_leaves
 from .graphs import release_cached_memory
@@ -367,7 +375,11 @@ class SleepManager:
             return _nbytes(leaves[i])
 
         self.stats.last_pin_seconds = 0.0
+        traced = tracing.enabled()
+        parent = tracing.current_context() if traced else None
         for bucket in partition_buckets([wire_nb(i) for i in range(len(leaves))], self.bucket_bytes):
+            sp = tracing.begin("sleep.d2h", parent=parent, activate=False, bytes=sum(wire_nb(i) for i in bucket),
+                               leaves=len(bucket)) if traced else None
             t_pin = time.monotonic()
             scales: Dict[int, torch.Tensor] = {}
             for i in bucket:
@@ -392,6 +404,8 @@ class SleepManager:
                 else:
                     pairs.append((host[i], leaves[i]))
             self._copy(pairs)
+            if sp is not None:
+                sp.end()  # the bucket's copies have landed
             self._unmap([leaves[i] for i in bucket])
             del payloads  # their copies have landed
         return host, metas
@@ -405,9 +419,15 @@ class SleepManager:
         see :meth:`_restore_quantized`."""
         if metas is not None and any(m is not None for m in metas):
             return self._restore_quantized(leaves, host, metas)
+        traced = tracing.enabled()
+        parent = tracing.current_context() if traced else None
         for bucket in partition_buckets([_nbytes(t) for t in host], self.bucket_bytes):
+            sp = tracing.begin("wake.h2d", parent=parent, activate=False, bytes=sum(_nbytes(host[i]) for i in bucket),
+                               leaves=len(bucket)) if traced else None
             self._map([leaves[i] for i in bucket])
             self._copy([(leaves[i], host[i]) for i in bucket])
+            if sp is not None:
+                sp.end()  # landed: _copy waited for the copy stream
             for i in bucket:
                 host[i] = None
 
@@ -428,10 +448,19 @@ class SleepManager:
         if cuda:
             copy.wait_stream(compute)
         pending: List[torch.cuda.Event] = []
+        #: each bucket's span, closed once its dequantization has run
+        spans: List[Any] = []
+        traced = tracing.enabled()
+        parent = tracing.current_context() if traced else None
         inline_s = 0.0
         for bucket in partition_buckets(wire, self.bucket_bytes):
             if len(pending) >= 2:
                 pending.pop(0).synchronize()
+                if traced:
+                    spans.pop(0).end()
+            if traced:
+                spans.append(tracing.begin("wake.h2d", parent=parent, activate=False,
+                                           bytes=sum(wire[i] for i in bucket), leaves=len(bucket), quant=True))
             self._map([leaves[i] for i in bucket])
             with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
                 for i in bucket:
@@ -447,12 +476,16 @@ class SleepManager:
                 done = torch.cuda.Event()
                 done.record(compute)
                 pending.append(done)
+            elif traced:
+                spans.pop(0).end()  # the CPU's copies and expansions ran inline
         dq_s = inline_s
         if cuda:
             copy.synchronize()
             t_tail = time.monotonic()
             for ev in pending:
                 ev.synchronize()
+                if traced:
+                    spans.pop(0).end()
             dq_s = time.monotonic() - t_tail
         self._notify_transfer("quant.dequant", sum(w for w, m in zip(wire, metas) if m is not None), dq_s)
         if cuda:
@@ -827,6 +860,11 @@ def swap_states(
     the difference."""
     _check_swap_preconditions(out_mgr, in_mgr)
     bucket_bytes = bucket_bytes or DEFAULT_SWAP_BUCKET_BYTES
+    # the transfer's root span, not made current (it ends on the error
+    # paths too); bucket spans only when tracing is on
+    root = tracing.begin("swap.transfer", activate=False, overlapped=overlapped)
+    traced = root is not tracing.NOOP_SPAN
+    root_ctx = root.context() if traced else None
     t_begin = time.monotonic()
     dev = out_mgr.device
     cuda = out_mgr._cuda
@@ -841,6 +879,14 @@ def swap_states(
     arena_out = [arena_of(out_mgr.arenas, t) for t in leaves_out]
     arena_in = [arena_of(in_mgr.arenas, t) for t in leaves_in]
     meta_out: List[Any] = [None] * len(leaves_out)
+    if traced and plan.reuse_pairs:
+        tracing.begin("swap.delta", parent=root_ctx, activate=False, leaves_shared=len(plan.reuse_pairs),
+                      bytes_deduped=plan.deduped_bytes, bytes_moved=plan.moved_bytes).end()
+    if traced and plan.quant_mode_used != "off":
+        wire = plan.bytes_out + plan.bytes_in
+        tracing.begin("swap.quant", parent=root_ctx, activate=False, mode=plan.quant_mode_used,
+                      leaves=plan.quant_leaves, bytes_wire=wire, bytes_full=plan.bytes_full,
+                      bytes_saved=max(0, plan.bytes_full - wire)).end()
 
     # the host staging of a full-precision incoming entry's moving leaves
     # (its pooled copies stay as they are until the commit)
@@ -893,9 +939,18 @@ def swap_states(
         meta_out[i] = meta
         return p
 
+    def _bucket_span(name: str, k: int, nbytes: int):
+        return tracing.begin(name, parent=root_ctx, activate=False, bucket=k, bytes=nbytes) if traced else None
+
     def _issue_d2h(k):
         nonlocal in_flight, peak_in_flight
-        faults.fire("swap.d2h")
+        sp = _bucket_span("swap.d2h", k, bsize_out[k])
+        try:
+            faults.fire("swap.d2h")
+        except Exception as e:
+            if sp is not None:
+                sp.set(error=f"{type(e).__name__}: {e}").end()
+            raise
         bucket = buckets_out[k]
         srcs = [(i, _quantize_out(i) if out_plan and out_plan[i] else leaves_out[i]) for i in bucket]
         ev = None
@@ -914,13 +969,15 @@ def swap_states(
                     scale_out[i].copy_(meta_out[i].scale)
         in_flight += bsize_out[k]
         peak_in_flight = max(peak_in_flight, in_flight)
-        return k, ev, srcs
+        return k, ev, srcs, sp
 
     def _finish_d2h(pending):
         nonlocal in_flight
-        k, ev, _srcs = pending
+        k, ev, _srcs, sp = pending
         if ev is not None:
             ev.synchronize()
+        if sp is not None:
+            sp.end()  # the bucket's copies have landed
         bucket = buckets_out[k]
         for i in bucket:
             if i in scale_out:
@@ -932,7 +989,13 @@ def swap_states(
 
     def _issue_h2d(j):
         nonlocal in_flight, peak_in_flight, h2d_t0
-        faults.fire("swap.h2d")
+        sp = _bucket_span("swap.h2d", j, bsize_in[j])
+        try:
+            faults.fire("swap.h2d")
+        except Exception as e:
+            if sp is not None:
+                sp.set(error=f"{type(e).__name__}: {e}").end()
+            raise
         if h2d_t0 is None:
             h2d_t0 = time.monotonic()
         bucket = buckets_in[j]
@@ -959,13 +1022,15 @@ def swap_states(
             ev = _event(s_in)
         in_flight += bsize_in[j]
         peak_in_flight = max(peak_in_flight, in_flight)
-        return j, ev
+        return j, ev, sp
 
     def _finish_h2d(pending):
         nonlocal in_flight
-        j, ev = pending
+        j, ev, sp = pending
         if ev is not None:
             ev.synchronize()
+        if sp is not None:
+            sp.end()  # landed (a quantized bucket's expansion may still run)
         in_flight -= bsize_in[j]
 
     pend_d2h = pend_h2d = None
@@ -984,6 +1049,8 @@ def swap_states(
                     pending[1].synchronize()
                 except Exception:  # noqa: BLE001 — the failed transfer itself
                     pass
+            if pending is not None and pending[-1] is not None and not pending[-1].ended:
+                pending[-1].set(error="rolled_back").end()
         if cuda:
             torch.cuda.synchronize(dev)
         for i, buf in scale_out.items():
@@ -1058,13 +1125,18 @@ def swap_states(
             handed.append((i, j))
         handover_s = time.monotonic() - t_hand
     except Exception as exc:
+        rb_sp = tracing.begin("swap.rollback", parent=root_ctx, activate=False, error=f"{type(exc).__name__}: {exc}")
         try:
             _rollback()
         except Exception as rb_exc:
+            rb_sp.set(rollback_failed=True).end()
+            root.set(error="rollback_failed").end()
             raise SwapRollbackFailed(
                 f"hot-swap transfer failed ({type(exc).__name__}: {exc}) and the rollback failed "
                 f"({type(rb_exc).__name__}: {rb_exc}); device state is partially moved"
             ) from rb_exc
+        rb_sp.end()
+        root.set(error="rolled_back").end()
         raise SwapRolledBack(f"hot-swap transfer failed mid-flight; rolled back ({type(exc).__name__}: {exc})") from exc
     if h2d_t0 is None:  # nothing moved in
         h2d_t0 = h2d_t1
@@ -1103,6 +1175,11 @@ def swap_states(
     total = time.monotonic() - t_begin
     # overlap = the intersection of the two directions' windows
     overlap = max(0.0, min(d2h_t1, h2d_t1) - max(d2h_t0, h2d_t0))
+    root.set(
+        bytes_out=plan.bytes_out, bytes_in=plan.bytes_in, bytes_moved=plan.moved_bytes,
+        bytes_deduped=plan.deduped_bytes, buckets_out=len(buckets_out), buckets_in=len(buckets_in),
+        overlap_frac=round(overlap / total, 6) if total > 0 else 0.0, peak_bytes_in_flight=peak_in_flight,
+    ).end()
     # the cost oracle's bandwidths: each direction's window over the bytes
     # that crossed it, and the whole verb's effective rate
     out_mgr._notify_transfer("swap.d2h", sum(plan.wnb_out[i] for i in plan.move_out), d2h_t1 - d2h_t0)

@@ -24,7 +24,9 @@ GPU deltas:
   modules. It is started by exec, so it inherits none of the launcher's
   sockets (no need for the reference's ``_close_inherited_sockets``), nor
   its later environment: the ``FMA_RESTARTED`` stamp of a supervised
-  restart travels as an argument (:func:`child_main`).
+  restart and the trace context of the create or restart
+  (``FMA_TRACEPARENT``, which the reference stamps into the launcher's
+  environment around its fork) travel as arguments (:func:`child_main`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 from ..api import constants
+from ..utils import prom, tracing
 from .chiptranslator import ChipTranslator
 
 logger = logging.getLogger(__name__)
@@ -155,17 +158,33 @@ def engine_kickoff(config: InstanceConfig, log_path: str) -> None:
         os.close(fd)
     for k, v in (config.env_vars or {}).items():
         os.environ[k] = str(v)
+    # the instance's own FMA_TRACING / FMA_TRACE_BUFFER win over the
+    # state the fork server had (FMA_TRACEPARENT stays for engine.start)
+    tracing.reset_after_fork()
     from ..engine.server import parse_engine_options, run_server
 
     run_server(parse_engine_options(config.options))
 
 
-def child_main(kickoff, config: InstanceConfig, log_path: str, restart: bool) -> None:
+def child_main(kickoff, config: InstanceConfig, log_path: str, restart: bool,
+               traceparent: Optional[str] = None) -> None:
     """What the fork server's child runs: the supervised-restart stamp
-    (``FMA_RESTARTED=1``, which the reference sets in the launcher's
-    environment around its fork), then ``kickoff``."""
+    (``FMA_RESTARTED=1``) and the launcher's trace context
+    (``FMA_TRACEPARENT``, the parent of the engine's ``engine.start``
+    span), both of which the reference sets in the launcher's environment
+    around its fork, then ``kickoff``. The fork copied the fork server's
+    span rings and metric registry: the rings are dropped
+    (``tracing.reset_after_fork``) before the context is set, and the
+    launcher's families leave the registry (they belong to the
+    launcher's ``/metrics``)."""
     if restart:
         os.environ["FMA_RESTARTED"] = "1"
+    tracing.reset_after_fork()
+    if traceparent:
+        os.environ[tracing.TRACEPARENT_ENV] = traceparent
+    else:
+        os.environ.pop(tracing.TRACEPARENT_ENV, None)
+    prom.unregister("fma_launcher_")
     kickoff(config, log_path)
 
 
@@ -233,7 +252,9 @@ class EngineInstance:
                 f.write(b"\n--- supervised restart ---\n")
         self.process = CONTEXT.Process(
             target=child_main,
-            args=(self._kickoff, self.config, self._log_file_path, restart),
+            # the current span (launcher.create_instance or
+            # launcher.restart) is the child's parent
+            args=(self._kickoff, self.config, self._log_file_path, restart, tracing.current_traceparent()),
         )
         self.process.start()
         return self._make_state(constants.STATUS_STARTED)

@@ -27,11 +27,19 @@ recovered through the child's ``GET /v1/swap``, never sent again. The
 prefetch verb (:meth:`EngineProcessManager.prefetch_instance`) forwards
 to the child's ``/v1/prefetch`` and records the hint in the ledger's
 ``prefetched`` block. Not ported yet: the residents, migrate and drain
-verbs (each waits on its engine feature), and the Prometheus gauges and
-spans.
+verbs (each waits on its engine feature).
 ``fleet_rollup`` aggregates the children's ``/v1/stats`` as the reference
-does, without gauges; a detailed instance list lifts each reporting
+does, onto the ``fma_launcher_fleet_*`` gauges, its ``slo_exemplars``
+lifted from the children's; a detailed instance list lifts each reporting
 child's cost-oracle summary into ``ledger.costs``.
+
+Observability, the reference's: the spans ``launcher.create_instance``
+(current across the fork, so the child's ``engine.start`` parents on it),
+``launcher.restart``, ``launcher.swap`` and ``launcher.rpc`` around each
+call to a child (its ``traceparent`` sent with the call), and the
+families ``fma_launcher_rpc_seconds{verb,outcome}`` (one observation per
+attempt) and ``fma_launcher_fleet_*`` (the fleet's resident-variant
+gauges wait on co-resident variants, ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -50,11 +58,60 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 from ..api.constants import STATUS_RUNNING
+from ..utils import faults, tracing
 from ..utils.events import EventBroadcaster
+from ..utils.prom import Gauge, Histogram
 from .chiptranslator import ChipTranslator
 from .instance import EngineInstance, InstanceConfig, InvalidInstanceConfig
 
 logger = logging.getLogger(__name__)
+
+#: Launcher -> engine-child admin RPC latency, one observation per HTTP
+#: attempt; ``outcome``: ok / http_<code> / refused (retried) / timeout /
+#: unreachable. Served by the launcher's GET /metrics.
+LAUNCHER_RPC_SECONDS = Histogram(
+    "fma_launcher_rpc_seconds",
+    "Latency of launcher -> engine-child admin RPCs",
+    ["verb", "outcome"],
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 2, 5, 15, 60, 300),
+)
+
+# The fleet rollup's node-level aggregates over every live child's GET
+# /v1/stats, refreshed by fleet_rollup() on instance-list and /metrics reads.
+LAUNCHER_FLEET_INSTANCES = Gauge(
+    "fma_launcher_fleet_instances",
+    "Engine instances by stats-poll outcome",
+    ["state"],  # reporting | unreachable
+)
+LAUNCHER_FLEET_QUEUE_DEPTH = Gauge(
+    "fma_launcher_fleet_queue_depth",
+    "Waiting + in-flight requests summed over reporting instances",
+)
+LAUNCHER_FLEET_ARRIVAL_RATE = Gauge(
+    "fma_launcher_fleet_arrival_rate",
+    "Summed per-instance request arrival-rate EWMAs (requests/s)",
+)
+LAUNCHER_FLEET_SLO_ATTAINMENT = Gauge(
+    "fma_launcher_fleet_slo_attainment",
+    "Fraction of SLO-judged requests that met every configured target "
+    "across the fleet (1.0 when nothing has been judged yet)",
+)
+LAUNCHER_FLEET_GOODPUT_TOKENS = Gauge(
+    "fma_launcher_fleet_goodput_tokens",
+    "Cumulative generated tokens from SLO-met requests, fleet-wide",
+)
+LAUNCHER_FLEET_ACTUATIONS_PER_HOUR = Gauge(
+    "fma_launcher_fleet_actuations_per_hour",
+    "Summed per-instance actuation rates (swap+sleep+wake per uptime "
+    "hour)",
+)
+
+#: the launcher families the port leaves out until their feature is
+#: ported, by ROADMAP item
+UNPORTED_FAMILIES = {
+    "fma_launcher_fleet_resident_variants": 12,
+    "fma_launcher_fleet_coresident_saved_bytes": 12,
+}
 
 #: first backoff (seconds) before re-sending a refused engine connection
 _RETRY_BACKOFF_S = 0.2
@@ -334,6 +391,15 @@ class EngineProcessManager:
     def create_instance(
         self, config: InstanceConfig, instance_id: Optional[str] = None
     ) -> Dict[str, Any]:
+        """:meth:`_create_instance_impl` under ``launcher.create_instance``:
+        the span is current across the fork, so the child's
+        ``engine.start`` joins this trace."""
+        with tracing.span("launcher.create_instance", instance=instance_id or ""):
+            return self._create_instance_impl(config, instance_id)
+
+    def _create_instance_impl(
+        self, config: InstanceConfig, instance_id: Optional[str] = None
+    ) -> Dict[str, Any]:
         iid = instance_id or str(uuidlib.uuid4())
         if iid in self.instances:
             raise ValueError(f"instance {iid} already exists")
@@ -490,9 +556,11 @@ class EngineProcessManager:
                 )
                 return
             try:
-                # append to the existing log: the crash forensics above
-                # the restart marker are exactly what the operator needs
-                instance.start(fresh_log=False, restart=True)
+                with tracing.span("launcher.restart", instance=instance_id, attempt=attempt):
+                    faults.fire("instance.spawn")
+                    # append to the existing log: the crash forensics
+                    # above the restart marker are what the operator needs
+                    instance.start(fresh_log=False, restart=True)
             except Exception as e:  # noqa: BLE001 — spawn failed: retry
                 logger.warning(
                     "instance %s restart attempt %d failed to spawn: %s",
@@ -583,26 +651,47 @@ class EngineProcessManager:
             port = _engine_port(self.instances[instance_id])
         except ValueError as e:
             raise exc_cls(instance_id, 400, f"stored options are not engine options: {e}")
+        verb = f"{method} {api_path}"
+        # the child adopts the traceparent sent: its verb's spans hang off
+        # this one, across the process boundary
+        rpc_sp = tracing.begin("launcher.rpc", instance=instance_id, verb=verb)
+        headers = {"Content-Type": "application/json"}
+        tp = rpc_sp.traceparent()
+        if tp:
+            headers["traceparent"] = tp
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}{api_path}", method=method,
-            data=None if body is None else json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"},
+            data=None if body is None else json.dumps(body).encode(), headers=headers,
         )
+
+        def done(outcome: str, t0: float, end: bool = True) -> None:
+            LAUNCHER_RPC_SECONDS.labels(verb=verb, outcome=outcome).observe(time.monotonic() - t0)
+            if end:
+                rpc_sp.set(outcome=outcome, attempts=attempt + 1).end()
+
         attempt = 0
         while True:
+            t0 = time.monotonic()
             try:
+                faults.fire("launcher.rpc")
                 with urllib.request.urlopen(req, timeout=timeout) as resp:
-                    return json.loads(resp.read() or b"{}")
+                    out = json.loads(resp.read() or b"{}")
+                done("ok", t0)
+                return out
             except urllib.error.HTTPError as e:
+                done(f"http_{e.code}", t0)
                 raise exc_cls(instance_id, e.code, e.read().decode(errors="replace")[:500])
             except Exception as e:  # noqa: BLE001 — refused, timed out, reset, ...
                 reason = getattr(e, "reason", e)
                 if isinstance(reason, ConnectionRefusedError) and attempt < retries:
+                    done("refused", t0, end=False)
                     attempt += 1
                     time.sleep(min(2.0, _RETRY_BACKOFF_S * 2 ** (attempt - 1) * (1.0 + random.random())))
                     continue
                 if isinstance(reason, (TimeoutError, socket.timeout)):
+                    done("timeout", t0)
                     raise exc_cls(instance_id, 504, f"engine timed out: {e}")
+                done("unreachable", t0)
                 raise exc_cls(instance_id, 502, f"engine unreachable: {e}")
 
     def swap_instance(
@@ -615,6 +704,12 @@ class EngineProcessManager:
         ``SWAPPED``. A timed-out swap is not sent again: the child's
         committed-swap record (``GET /v1/swap``) is polled for this call's
         request id."""
+        with tracing.span("launcher.swap", instance=instance_id, model=model):
+            return self._swap_instance_impl(instance_id, model, checkpoint_dir, timeout)
+
+    def _swap_instance_impl(
+        self, instance_id: str, model: str, checkpoint_dir: str = "", timeout: float = 300
+    ) -> Dict[str, Any]:
         if instance_id not in self.instances:
             raise KeyError(instance_id)
         instance = self.instances[instance_id]
@@ -709,12 +804,15 @@ class EngineProcessManager:
         self, timeout: float = 1.5, ttl_s: float = 1.0
     ) -> Dict[str, Any]:
         """Aggregate every live engine child's GET /v1/stats into the
-        node-level view (the ``fleet`` block of GET /v2/vllm/instances).
-        Children are polled concurrently with a short per-poll timeout and
-        no retries: an unreachable or free-form-options instance degrades
-        to an ``unreachable`` row, never an error for the whole read. The
+        node-level view (the ``fleet`` block of GET /v2/vllm/instances)
+        and mirror it onto the ``fma_launcher_fleet_*`` gauges. Children
+        are polled concurrently with a short per-poll timeout and no
+        retries: an unreachable or free-form-options instance degrades to
+        an ``unreachable`` row, never an error for the whole read. The
         blocks of verbs the port's engine does not have yet (zero-drain,
-        migration, residents, SLO exemplars) are constant."""
+        migration, residents) are constant; ``slo_exemplars`` are the
+        children's, each with the instance it came from (its trace is in
+        that child's ``GET /v1/traces?trace_id=``)."""
         now = time.monotonic()
         with self._fleet_lock:
             cached = self._fleet_cache
@@ -751,11 +849,15 @@ class EngineProcessManager:
         actuations = 0
         actuations_per_hour = 0.0
         aborted: Dict[str, int] = {}
+        slo_exemplars: List[Dict[str, Any]] = []
         reporting = 0
-        for row in per_instance.values():
+        for iid, row in per_instance.items():
             if not row.get("reporting"):
                 continue
             reporting += 1
+            for ex in row.get("slo_exemplars") or []:
+                if isinstance(ex, dict):
+                    slo_exemplars.append({"instance": iid, **ex})
             slo = row.get("slo") or {}
             met += int(slo.get("met", 0))
             violated += int(slo.get("violated", 0))
@@ -774,6 +876,7 @@ class EngineProcessManager:
             for cause, n in (row.get("aborted") or {}).items():
                 aborted[cause] = aborted.get(cause, 0) + int(n)
         judged = met + violated
+        attainment = round(met / judged, 6) if judged else None
         fleet = {
             "instances_total": len(ids),
             "instances_reporting": reporting,
@@ -781,7 +884,7 @@ class EngineProcessManager:
             "arrival_rate_rps": round(arrival, 6),
             "slo_requests_met": met,
             "slo_requests_violated": violated,
-            "slo_attainment": round(met / judged, 6) if judged else None,
+            "slo_attainment": attainment,
             "finished_requests": finished,
             "generated_tokens": generated,
             "goodput_tokens": goodput,
@@ -804,9 +907,16 @@ class EngineProcessManager:
                 "variant_hbm_bytes": 0,
                 "coresident_saved_bytes": 0,
             },
-            "slo_exemplars": [],
+            "slo_exemplars": slo_exemplars[-16:],
             "per_instance": per_instance,
         }
+        LAUNCHER_FLEET_INSTANCES.labels(state="reporting").set(reporting)
+        LAUNCHER_FLEET_INSTANCES.labels(state="unreachable").set(len(ids) - reporting)
+        LAUNCHER_FLEET_QUEUE_DEPTH.set(queue_depth)
+        LAUNCHER_FLEET_ARRIVAL_RATE.set(arrival)
+        LAUNCHER_FLEET_SLO_ATTAINMENT.set(attainment if attainment is not None else 1.0)
+        LAUNCHER_FLEET_GOODPUT_TOKENS.set(goodput)
+        LAUNCHER_FLEET_ACTUATIONS_PER_HOUR.set(actuations_per_hour)
         with self._fleet_lock:
             self._fleet_cache = (time.monotonic(), fleet)
         return fleet

@@ -20,14 +20,25 @@ launcher's surface (launcher.py:568-800) for the routes the port serves:
   DELETE /v2/vllm/instances/{id}/prefetch   (404, 422, 400, 504, 502)
   GET    /v2/vllm/instances/watch[?since=N] NDJSON events (410 when N
                                             was evicted)
+  GET    /metrics                           Prometheus text (the fleet
+                                            rollup refreshed first)
+  GET    /v2/vllm/traces                    this process's spans
+                                            (?format=chrome|tree,
+                                            trace_id, clear)
+  GET    /v2/vllm/exemplars                 the fleet's SLO exemplars
+  GET    /v2/vllm/faults                    the launcher's fault points:
+  POST   /v2/vllm/faults                    described, armed ({"spec"}),
+  DELETE /v2/vllm/faults                    reset
 
 The same status codes, JSON bodies and plain-text error bodies as the
 JAX launcher. The HTTP/1.1 server is a small one of its own: keep-alive,
 ``Content-Length`` or chunked request bodies, and the watch stream
 written chunked, one event a chunk, flushed as it comes. Blocking manager
 calls (a create forks and may probe other engines; a stop waits on the
-child) run on the loop's executor; sentinel watchers are armed on the
-loop thread, as the JAX launcher arms them.
+child) run on the loop's executor, under the caller's ``traceparent``
+(``tracing.run_traced``: a context variable does not follow a call into
+the executor, so the worker adopts the header itself); sentinel watchers
+are armed on the loop thread, as the JAX launcher arms them.
 """
 
 from __future__ import annotations
@@ -39,7 +50,9 @@ import re
 from http import HTTPStatus
 from typing import AsyncIterator, Optional, Tuple
 
+from ..utils import faults, tracing
 from ..utils.events import RevisionTooOld
+from ..utils.prom import exposition
 from .http11 import (  # noqa: F401 — the server's names, importable from here as before
     App,
     BadRequestLine,
@@ -77,6 +90,12 @@ class LauncherApp(App):
         self.manager = manager
         super().__init__([
             ("GET", "/health", self.health),
+            ("GET", "/metrics", self.metrics),
+            ("GET", "/v2/vllm/traces", self.traces),
+            ("GET", "/v2/vllm/exemplars", self.exemplars),
+            ("GET", "/v2/vllm/faults", self.faults_get),
+            ("POST", "/v2/vllm/faults", self.faults_arm),
+            ("DELETE", "/v2/vllm/faults", self.faults_reset),
             ("GET", "/", self.index),
             ("GET", "/v2/vllm/instances/watch", self.watch),
             ("POST", "/v2/vllm/instances", self.create_instance),
@@ -95,10 +114,74 @@ class LauncherApp(App):
     async def _run(self, fn, *args):
         return await asyncio.get_running_loop().run_in_executor(None, fn, *args)
 
+    async def _traced(self, req: Request, fn, *args):
+        """A blocking manager verb on the executor, under the caller's
+        ``traceparent``: the launcher's spans join the caller's trace, and
+        the fork and the engine hop carry it on."""
+        return await tracing.run_traced(asyncio.get_running_loop(), req.headers, lambda: fn(*args))
+
     # -- handlers --------------------------------------------------------------
 
     async def health(self, req: Request) -> Response:
         return json_response({"status": "OK"})
+
+    async def metrics(self, req: Request) -> Response:
+        """This process's families (``fma_launcher_rpc_seconds`` and the
+        fleet gauges), the fleet rollup refreshed first on the executor (it
+        polls the children over HTTP); a failed rollup leaves the gauges
+        as they were."""
+        try:
+            await self._run(self.manager.fleet_rollup)
+        except Exception:  # noqa: BLE001 — stale gauges beat a failed scrape
+            logger.warning("fleet rollup during scrape failed", exc_info=True)
+        return Response(200, exposition().encode(), "text/plain; version=0.0.4; charset=utf-8")
+
+    async def traces(self, req: Request) -> Response:
+        """The launcher's spans (create, restart, swap and each
+        ``launcher.rpc``); each child exports its own at ``/v1/traces``,
+        and the Chrome exports of several processes merge into one
+        timeline."""
+        status, body, ctype = tracing.export_http(
+            req.query.get("format", "chrome"), trace_id=req.query.get("trace_id") or None,
+            clear=req.query.get("clear") in ("1", "true"),
+        )
+        return Response(status, body.encode(), ctype)
+
+    async def exemplars(self, req: Request) -> Response:
+        """The fleet's SLO-violation exemplars, each with its trace id and
+        the instance whose ``/v1/traces`` holds it."""
+        try:
+            fleet = await self._run(self.manager.fleet_rollup)
+        except Exception as e:  # noqa: BLE001 — a degraded poll, not a 500
+            raise HTTPError(503, str(e))
+        return json_response({
+            "slo_exemplars": fleet.get("slo_exemplars") or [],
+            "slo_attainment": fleet.get("slo_attainment"),
+            "slo_requests_violated": fleet.get("slo_requests_violated", 0),
+        })
+
+    async def faults_get(self, req: Request) -> Response:
+        return json_response(faults.describe())
+
+    async def faults_arm(self, req: Request) -> Response:
+        """Arm the launcher's fault points (``launcher.rpc``,
+        ``instance.spawn``) for tests and drills."""
+        try:
+            body = req.json()
+        except ValueError:
+            raise HTTPError(400, "invalid JSON body")
+        spec = body.get("spec") if isinstance(body, dict) else None
+        if not isinstance(spec, str) or not spec:
+            raise HTTPError(400, "faults requires a 'spec' string")
+        try:
+            faults.arm_spec(spec)
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        return json_response(faults.describe())
+
+    async def faults_reset(self, req: Request) -> Response:
+        faults.reset()
+        return json_response(faults.describe())
 
     async def index(self, req: Request) -> Response:
         return json_response(
@@ -108,6 +191,7 @@ class LauncherApp(App):
                 "endpoints": {
                     "index": "GET /",
                     "health": "GET /health",
+                    "metrics": "GET /metrics",
                     "create_instance": "POST /v2/vllm/instances",
                     "create_named_instance": "PUT /v2/vllm/instances/{instance_id}",
                     "delete_instance": "DELETE /v2/vllm/instances/{instance_id}",
@@ -120,6 +204,9 @@ class LauncherApp(App):
                     "prefetch_status": "GET /v2/vllm/instances/{instance_id}/prefetch",
                     "abort_prefetch": "DELETE /v2/vllm/instances/{instance_id}/prefetch",
                     "watch_instances": "GET /v2/vllm/instances/watch",
+                    "faults": "GET/POST/DELETE /v2/vllm/faults",
+                    "traces": "GET /v2/vllm/traces",
+                    "exemplars": "GET /v2/vllm/exemplars",
                 },
             }
         )
@@ -135,7 +222,7 @@ class LauncherApp(App):
         try:
             # create forks and may probe overlapping engines over HTTP (2 s
             # timeout each): keep the event loop free
-            result = await self._run(self.manager.create_instance, config, instance_id)
+            result = await self._traced(req, self.manager.create_instance, config, instance_id)
         except InvalidInstanceConfig as e:
             raise HTTPError(422, str(e))
         except ChipConflict as e:
@@ -163,7 +250,7 @@ class LauncherApp(App):
             inst.cancel_sentinel_watcher()  # must run on the loop thread
         try:
             # stop() waits on SIGTERM/join for seconds; keep the loop live
-            result = await self._run(self.manager.stop_instance, instance_id)
+            result = await self._traced(req, self.manager.stop_instance, instance_id)
         except KeyError:
             raise HTTPError(404, f"Instance {instance_id} not found")
         return json_response(result)
@@ -203,7 +290,7 @@ class LauncherApp(App):
             raise HTTPError(422, "checkpoint_dir must be a string")
         try:
             # the swap streams model state for seconds; keep the loop free
-            result = await self._run(self.manager.swap_instance, instance_id, model, checkpoint_dir)
+            result = await self._traced(req, self.manager.swap_instance, instance_id, model, checkpoint_dir)
         except KeyError:
             raise HTTPError(404, f"Instance {instance_id} not found")
         except SwapFailed as e:
@@ -237,7 +324,7 @@ class LauncherApp(App):
         if not isinstance(checkpoint_dir, str):
             raise HTTPError(422, "checkpoint_dir must be a string")
         try:
-            result = await self._run(self.manager.prefetch_instance, instance_id, model, checkpoint_dir)
+            result = await self._traced(req, self.manager.prefetch_instance, instance_id, model, checkpoint_dir)
         except KeyError:
             raise HTTPError(404, f"Instance {instance_id} not found")
         except PrefetchFailed as e:
@@ -247,7 +334,7 @@ class LauncherApp(App):
     async def get_instance_prefetch(self, req: Request) -> Response:
         instance_id = req.match_info["instance_id"]
         try:
-            result = await self._run(self.manager.get_instance_prefetch, instance_id)
+            result = await self._traced(req, self.manager.get_instance_prefetch, instance_id)
         except KeyError:
             raise HTTPError(404, f"Instance {instance_id} not found")
         except PrefetchFailed as e:
@@ -257,7 +344,7 @@ class LauncherApp(App):
     async def abort_instance_prefetch(self, req: Request) -> Response:
         instance_id = req.match_info["instance_id"]
         try:
-            result = await self._run(self.manager.abort_instance_prefetch, instance_id)
+            result = await self._traced(req, self.manager.abort_instance_prefetch, instance_id)
         except KeyError:
             raise HTTPError(404, f"Instance {instance_id} not found")
         except PrefetchFailed as e:

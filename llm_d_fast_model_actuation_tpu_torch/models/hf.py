@@ -57,7 +57,7 @@ import torch
 
 from ..engine.chunk_store import TORCH_DTYPES, digest_leaves, leaf_paths
 from ..parallel.mesh import shard
-from ..utils import faults
+from ..utils import faults, tracing
 from . import quant as quant_mod
 from .llama import Llama, LlamaConfig, ShardedLlama, param_shapes, param_tp_dims
 from .safetensors import DTYPES, SafetensorsFile
@@ -199,6 +199,11 @@ class LoadStats:
     read_s: float = 0.0
     convert_s: float = 0.0
     h2d_s: float = 0.0
+    #: the time the read and the transfers were both in flight, the
+    #: transfers' window placed on the load's clock by the event recorded
+    #: at its start (0 on the CPU and for a host-only staging)
+    overlap_s: float = 0.0
+    overlap_frac: float = 0.0
     #: checkpoint bytes read (a tensor once per rank slice it feeds)
     bytes_read: int = 0
     #: bytes moved host -> device, in the checkpoint's dtypes
@@ -563,6 +568,9 @@ def place_staged_params(
         quant_mod.dequantize_into(dest, node, meta)  # on the current stream
 
     dev = model.device
+    stage_sp = tracing.begin("coldload.place_staged", activate=False, leaves=len(pairs))
+    h2d_sp = tracing.begin("coldload.h2d", parent=stage_sp.context(), activate=False,
+                           leaves=len(pairs)) if stage_sp is not tracing.NOOP_SPAN else None
     if dev.type == "cuda":
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -584,6 +592,9 @@ def place_staged_params(
     st.bytes_h2d = sum(
         n.numel() * n.element_size() + (m.scale_nbytes if m is not None else 0) for _, n, m in pairs
     )
+    if h2d_sp is not None:
+        h2d_sp.set(bytes=st.bytes_h2d, device_s=round(st.h2d_s, 6)).end()  # after the copies landed
+    stage_sp.set(bytes=st.bytes_h2d).end()
     st.tensors = len(pairs)
     st.total_s = time.perf_counter() - t_begin
     return st
@@ -638,8 +649,21 @@ def _run_readers(groups: List[List[_Item]], workers: int, read: Any, stop: threa
         raise err
 
 
+def load_params(path: str, target: "Llama | ShardedLlama | LlamaConfig", *, stats: Optional[LoadStats] = None,
+                **kw) -> "LoadStats | Dict[str, Any]":
+    """:func:`_load_params` under a ``coldload.load`` span (not made
+    current: the reader threads are handed its context, and each reads
+    its shards under a ``coldload.read_shard``, the copies under a
+    ``coldload.h2d`` that closes once they have landed)."""
+    st = stats if stats is not None else LoadStats()
+    with tracing.begin("coldload.load", activate=False, path=path, place=kw.get("place", True)) as sp:
+        out = _load_params(path, target, stats=st, load_ctx=sp.context(), **kw)
+        sp.set(shards=st.shards, workers=st.workers, streaming=st.streaming, bytes_read=st.bytes_read)
+    return out
+
+
 @torch.no_grad()
-def load_params(
+def _load_params(
     path: str,
     target: "Llama | ShardedLlama | LlamaConfig",
     *,
@@ -650,6 +674,7 @@ def load_params(
     throttle_bytes_per_s: float = 0.0,
     stats: Optional[LoadStats] = None,
     want_digests: bool = False,
+    load_ctx: Optional[tracing.SpanContext] = None,
 ) -> "LoadStats | Dict[str, Any]":
     """The pipelined loader: the checkpoint under ``path``, read by
     ``workers`` threads over its shards (None or <= 0: up to 8, one per
@@ -719,7 +744,7 @@ def load_params(
 
     if not place:
         try:
-            tree = _stage_host(cfg, groups, workers, stop, check_abort, account, done_reading)
+            tree = _stage_host(cfg, groups, workers, stop, check_abort, account, done_reading, load_ctx)
         finally:
             # valid on the error paths too: an aborted prefetch reports
             # what it read
@@ -757,6 +782,10 @@ def load_params(
     stagers: List[Dict[torch.device, _Stager]] = [{} for _ in range(workers)]
 
     def read(group: List[_Item], index: int) -> None:
+        with _shard_span(load_ctx, group):
+            read_shard(group, index)
+
+    def read_shard(group: List[_Item], index: int) -> None:
         faults.fire("coldload.read")
         mine = stagers[index]
         for it in group:
@@ -778,6 +807,10 @@ def load_params(
             done_reading()
             account(n)
 
+    # the copies' span: from the first read to the last copy landed (the
+    # copies are issued as the readers stage; device_s is their window on
+    # the card)
+    h2d_sp = tracing.begin("coldload.h2d", parent=load_ctx, activate=False) if load_ctx is not None else None
     try:
         _run_readers(groups, workers, read, stop)
     finally:
@@ -785,6 +818,8 @@ def load_params(
         for mine in stagers:
             for s in mine.values():
                 s.finish()
+        if h2d_sp is not None:
+            h2d_sp.set(bytes=counts["bytes"], leaves=counts["tensors"]).end()
         st.read_s = read_end[0] - t_begin
         st.bytes_read = st.bytes_h2d = counts["bytes"]
         st.tensors = counts["tensors"]
@@ -798,16 +833,28 @@ def load_params(
             first = min(ev.elapsed_time(m[0]) for m in marks)
             last = max(ev.elapsed_time(m[2]) for m in marks)
             st.h2d_s = max(st.h2d_s, (last - first) / 1e3)
+            st.overlap_s = max(st.overlap_s, min(st.read_s, last / 1e3) - max(0.0, first / 1e3))
     del stagers, all_stagers, shards, items, groups
     if want_digests:
         t_dig = time.perf_counter()
         st.digests = model_digests(model, times=st.digest_times)
         st.digest_s = time.perf_counter() - t_dig
     st.total_s = time.perf_counter() - t_begin
+    st.overlap_frac = st.overlap_s / st.total_s if st.total_s > 0 else 0.0
     return st
 
 
-def _stage_host(cfg: LlamaConfig, groups, workers, stop, check_abort, account, done_reading) -> Dict[str, torch.Tensor]:
+def _shard_span(load_ctx, group: List[_Item]):
+    """A reader's ``coldload.read_shard`` span, under the load's span
+    (handed over: a reader thread has no context of its own)."""
+    if load_ctx is None:
+        return tracing.NOOP_SPAN
+    return tracing.begin("coldload.read_shard", parent=load_ctx, activate=False,
+                         shard=os.path.basename(group[0].shard.path) if group else "")
+
+
+def _stage_host(cfg: LlamaConfig, groups, workers, stop, check_abort, account, done_reading,
+                load_ctx=None) -> Dict[str, torch.Tensor]:
     """:func:`load_params`'s host-only staging: every parameter a host
     tensor in ``cfg.dtype`` and the port's layout, keyed ``layers/wq``,
     each checkpoint tensor transposed and cast into its slice by a reader
@@ -816,6 +863,10 @@ def _stage_host(cfg: LlamaConfig, groups, workers, stop, check_abort, account, d
     bufs = {flat: torch.empty(shape, dtype=cfg.dtype, pin_memory=pin) for flat, shape in param_shapes(cfg).items()}
 
     def read(group: List[_Item], index: int) -> None:
+        with _shard_span(load_ctx, group):
+            read_shard(group, index)
+
+    def read_shard(group: List[_Item], index: int) -> None:
         faults.fire("coldload.read")
         for it in group:
             check_abort()

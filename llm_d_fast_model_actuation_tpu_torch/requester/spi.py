@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 from ..api import spi as spiapi
 from ..launcher.http11 import App, Request, Response, json_response, text_response
+from ..utils import tracing
 
 
 class LogSink:
@@ -107,11 +108,15 @@ class SpiServer:
             return json_response({k: int(v) for k, v in usage.items()})
 
         async def become_ready(request: Request) -> Response:
-            self.ready.set(True)
+            # the readiness relay closes the actuation the controller
+            # measures: a span of that trace (its traceparent rides the call)
+            with tracing.span("spi.become_ready", parent=tracing.context_from_headers(request.headers)):
+                self.ready.set(True)
             return text_response("OK\n")
 
         async def become_unready(request: Request) -> Response:
-            self.ready.set(False)
+            with tracing.span("spi.become_unready", parent=tracing.context_from_headers(request.headers)):
+                self.ready.set(False)
             return text_response("OK\n")
 
         async def set_log(request: Request) -> Response:

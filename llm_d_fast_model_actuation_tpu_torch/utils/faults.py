@@ -5,18 +5,17 @@ The port's own copy of ``llm_d_fast_model_actuation_tpu/utils/faults.py``
 swap is only trustworthy if its failure paths are deterministically
 testable, so each recovery-relevant transfer edge has a *named injection
 point*: production code calls :func:`fire` at the edge, which is a no-op
-until a test (or an operator running a fault drill) arms the point. The
-port fires ``swap.d2h`` and ``swap.h2d`` (``engine/sleep.py:swap_states``);
-the other names are the reference's, kept so a spec written for it parses
-here too.
+until a test (or an operator running a fault drill) arms the point.
 
 Known points (the reference's set, in its ``describe()``; arbitrary names
-are accepted so tests can add their own): ``swap.d2h`` (a hot-swap's
-outgoing bucket issue) and ``swap.h2d`` (its incoming bucket issue), fired
-here; ``kvsave.d2h``, ``kvrestore.h2d``, ``migrate.export``,
-``migrate.import``, ``migrate.ack``, ``coldload.read``, ``coldload.h2d``,
-``prefetch.stage``, ``launcher.rpc`` and ``instance.spawn``, which name
-edges the port has not ported yet.
+are accepted so tests can add their own). Fired by the port: ``swap.d2h``
+(a hot-swap's outgoing bucket issue) and ``swap.h2d`` (its incoming
+bucket issue), ``coldload.read`` (a reader's shard), ``coldload.h2d`` (a
+tensor's transfer), ``prefetch.stage``, ``launcher.rpc`` (each launcher
+to engine call) and ``instance.spawn`` (a supervised restart's spawn).
+Not fired, they name edges the port has not ported yet: ``kvsave.d2h``,
+``kvrestore.h2d``, ``migrate.export``, ``migrate.import`` and
+``migrate.ack``.
 
 Modes (per point): **fail** raises :class:`FaultError` the next ``count``
 times the point fires (fail-once is ``count=1``, fail-N is ``count=N``,

@@ -45,18 +45,29 @@ def _call(port: int, method: str, path: str):
     ("POST", "/v1/parked/abort"),
     ("GET", "/v1/parked/claims/x"),
     ("GET", "/v1/parked/m"),
-    ("POST", "/v1/profile"),
+    ("POST", "/v1/residents"),
 ])
 def test_an_unported_route_answers_400(served, method, path):
     status, body = _call(served, method, path)
     assert status == 400 and body == {"error": f"{path} is not supported by this server yet"}
 
 
+@pytest.mark.parametrize("method,path", [("GET", "/v1/profile"), ("GET", "/metrics"), ("GET", "/v1/traces")])
+def test_a_ported_observability_route_is_served(served, method, path):
+    """``/v1/profile``, ``/metrics`` and ``/v1/traces`` left the unported
+    routes: each answers 200."""
+    req = urllib.request.Request(f"http://127.0.0.1:{served}{path}", method=method)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200 and r.read()
+    assert not tserver.unported_route(path)
+
+
 def test_a_prefix_is_not_a_route(served):
     """Matching is by path segment: a route that merely starts with an
     unported one's letters is no route at all."""
-    assert tserver.unported_route("/v1/parked") and tserver.unported_route("/v1/profile/x")
+    assert tserver.unported_route("/v1/parked") and tserver.unported_route("/v1/residents/x")
     assert not tserver.unported_route("/v1/parkedx") and not tserver.unported_route("/v1/prefetch")
+    assert not tserver.unported_route("/v1/profile") and tserver.UNPORTED_ROUTES == ("/v1/parked", "/v1/residents")
     assert _call(served, "GET", "/v1/parkedx")[0] == 404
 
 

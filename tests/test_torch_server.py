@@ -89,14 +89,17 @@ def test_health_models_and_bad_requests(port_server):
     assert _call(port, "POST", "/v1/completions", {"prompt": []})[0] == 400
     assert _call(port, "POST", "/v1/completions", {"prompt": [1] * 63, "max_tokens": 10})[0] == 400
     # a string prompt goes through the byte tokenizer; chat validates its
-    # messages; what the port does not serve yet is refused, and says so
+    # messages; echo with logprobs answers the prompt's logprobs too
     status, text = _call(port, "POST", "/v1/completions", {"prompt": "hi", "max_tokens": 2})
     assert status == 200 and text["usage"]["prompt_tokens"] == 2
     assert _call(port, "POST", "/v1/completions", {"prompt": [1], "stream": True, "n": 2})[0] == 400
     status, err = _call(port, "POST", "/v1/chat/completions", {"messages": []})
     assert status == 400 and "messages" in err["error"]
-    status, err = _call(port, "POST", "/v1/completions", {"prompt": [1], "echo": True, "logprobs": True})
-    assert status == 400 and "not supported" in err["error"]
+    status, echo = _call(port, "POST", "/v1/completions", {"prompt": [1, 2], "echo": True, "logprobs": True,
+                                                           "max_tokens": 1})
+    lp = echo["choices"][0]["logprobs"]
+    assert status == 200 and lp["tokens"][:2] == [1, 2] and lp["token_logprobs"][0] is None
+    assert len(lp["token_logprobs"]) == 3 and all(v <= 0 for v in lp["token_logprobs"][1:])
 
 
 def test_sleep_wake_over_http(port_server):

@@ -52,9 +52,9 @@ REQUESTS = [
     ("POST", "/v1/chat/completions", {"messages": [{"role": "user"}]}, None),
     ("GET", "/v1/models", None, False),
     ("GET", "/v1/stats", None, False),
-    # after the stats: the reference serves it, the port refuses it
+    # after the stats: echo with logprobs, the prompt's logprobs too
     ("POST", "/v1/completions", {"prompt": [5, 6, 7], "max_tokens": 5, "ignore_eos": True, "logprobs": True,
-                                 "echo": True}, None),
+                                 "echo": True}, False),
     ("POST", "/v1/completions", {"prompt": [5, 6, 7], "max_tokens": 5, "ignore_eos": True, "echo": True}, False),
 ]
 #: per-request timings: their values differ from run to run
@@ -170,14 +170,10 @@ def test_the_port_answers_as_the_reference(both, i):
     reference's field for field, the greedy text equal; ``/v1/stats``
     over the blocks the port has (its ``load`` and ``pool`` blocks are its
     own), after
-    the same requests. Echo with logprobs is the port's one refusal
-    (prompt logprobs are not ported)."""
+    the same requests. Echo with logprobs answers the prompt's logprobs
+    as the reference does, within the same 1e-4."""
     port, ref, _ = both
     (status, got), (want_status, want) = port[i], ref[i]
-    body = REQUESTS[i][2] or {}
-    if body.get("echo") and body.get("logprobs"):
-        assert want_status == 200 and status == 400
-        return
     assert status == want_status
     if REQUESTS[i][1] == "/v1/stats":
         assert got.pop("load")["loads"] == 1
@@ -185,6 +181,8 @@ def test_the_port_answers_as_the_reference(both, i):
         assert pool["models"] == [] and pool["budget_bytes"] == 4096 << 20
         quant = got.pop("quant")  # the port's own block too
         assert quant["mode"] == "off" and quant["last_swap"] is None
+        engine = got.pop("engine")  # and its step counters
+        assert engine["cold_prefills"] >= 1 and engine["decode_steps"] >= 1
         # the oracle's summary: the same accuracy figures; the bandwidths
         # are measured, so only their kinds (a subset: the port's load
         # times its copies on the card only) compare
