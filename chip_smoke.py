@@ -212,6 +212,34 @@ exits non-zero and never prints the final ``ok`` line):
      pool hit, to ``plan_swap``'s; ``bytes_saved_quant``, seconds and
      the pool's bytes printed. Then each ``/v1/actuations`` record's
      errors, every priced one byte-exact;
+  zero_drain — ``--zero-drain on --content-hash on`` on one service of
+     the checkpoint (``zero_drain_phase``): eight streamed completions
+     (four greedy, four seeded; prompts of 300 to 3000 token ids, 128
+     tokens each) run uninterrupted, then again through a swap to the
+     sibling A' and back, and again through a level-1 sleep and wake, each
+     taken once every stream is mid-decode: every stream's tokens
+     bit-equal to the uninterrupted run's, each delivered once; no
+     ``swap`` abort and ``preempted`` equal to ``resumed``; the page-out's
+     bytes the parked pages times a page's bytes, and each actuation's
+     recorded price (the ``/v1/costs`` arithmetic) equal to its bytes; the
+     sleep offloads the weights alone; no graph captured, no state tensor
+     moved. Then a ``kvrestore.h2d`` drill (the parked streams end with
+     ``state_loss``, a fresh request is served) and a ``kvsave.d2h`` drill
+     (the swap falls back to the abort path). The pin, page-out, page-in
+     and resume seconds and bytes are printed;
+  migrate — the port's launcher runs two instances of the checkpoint
+     with ``--zero-drain on`` (``b`` created while ``a`` sleeps, then
+     ``a`` woken through its own ``/wake_up``): four streams (prompts of
+     260 to 500 token ids, two greedy, two seeded) run uninterrupted on
+     ``b``, then on ``a``, which ``POST /v2/vllm/instances/a/migrate``
+     hands to ``b`` mid-decode: every token delivered once through
+     ``a``'s streams and bit-equal to ``b``'s uninterrupted run; one
+     migration per role in ``fma_engine_migrations_total``; the KV ``b``
+     paged in equal to the KV ``a`` exported. Then new arrivals on ``a``
+     and ``POST /v2/vllm/instances/a/drain``: ``a``'s queue depth 0, the
+     arrivals finished through its proxies. The export, import and
+     release seconds, the wire's KV bytes and the peak host memory of
+     the launcher and both children are printed;
   dualpods — two Llama-3-8B engines time-sharing the card through the
      port's control plane: the dual-pods controller and the launcher
      populator in this process over an ``InMemoryStore`` (no apiserver
@@ -262,7 +290,8 @@ exits non-zero and never prints the final ``ok`` line):
      time of a replayed step (CUDA events) and its kernels by kind
      (``torch.profiler``, whose count of the decode kernel's runs in the
      replay must equal the graph's kernel nodes, L x T); and the capture seconds and the graph pool's
-     reserved bytes;
+     reserved bytes. It runs first of the model phases, right after the
+     kernel checks, so its profiler window is the process's first;
   6. serve_packed — the same traffic through a second server with
      ``--packed-serving on``, started after the first is shut down and its
      memory freed: every packed step runs the ragged kernel in each layer,
@@ -3064,6 +3093,343 @@ def quant_phase(torch, smi: str, ckpt: str, bucketed: dict, swapped: dict) -> di
         service._free_pooled(service.model_pool.drain())
 
 
+#: the zero_drain phase's streams: prompt lengths (each in a timed prefill
+#: bucket, 512, 2048 or 4096), the first four greedy, the last four seeded
+ZD_PROMPT_LENS = (300, 1100, 2100, 3000, 400, 1500, 2600, 2000)
+ZD_SAMPLED = 4
+#: tokens each stream of the zero_drain and migrate phases decodes
+ZD_NEW_TOKENS = 128
+#: the migrate phase's streams (each prompt in the 512 bucket), two greedy
+#: and two seeded
+MIG_PROMPT_LENS = (260, 350, 420, 500)
+MIG_SAMPLED = 2
+#: the arrivals the drain moves (one greedy, one seeded)
+MIG_ARRIVAL_LENS = (300, 450)
+
+
+def stream_bodies(vocab: int, lens: tuple, sampled: int, seed: int) -> list:
+    """Completion bodies of random token ids: the first ``len(lens) -
+    sampled`` greedy, the rest seeded, each decoding ZD_NEW_TOKENS past
+    eos."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    greedy = len(lens) - sampled
+    return [{"prompt": rng.integers(0, vocab, n).tolist(), "max_tokens": ZD_NEW_TOKENS, "ignore_eos": True,
+             **({} if i < greedy else {"temperature": 0.8, "top_p": 0.95, "seed": 1000 + i})}
+            for i, n in enumerate(lens)]
+
+
+class Streams:
+    """Concurrent streamed completions, each read on a thread of its own:
+    the token ids its events carried, in order, and its error event."""
+
+    def __init__(self, port: int, bodies: list) -> None:
+        self.tokens = [[] for _ in bodies]
+        self.errors = [None] * len(bodies)
+        self.threads = [threading.Thread(target=self._read, args=(i, port, b), daemon=True)
+                        for i, b in enumerate(bodies)]
+        for t in self.threads:
+            t.start()
+
+    def _read(self, i: int, port: int, body: dict) -> None:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                     data=json.dumps(dict(body, stream=True)).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=900) as r:
+                for line in r:
+                    line = line.decode().strip()
+                    if line == "data: [DONE]":
+                        return
+                    if line.startswith("data: "):
+                        ev = json.loads(line[6:])
+                        if "error" in ev:
+                            self.errors[i] = ev["error"]
+                        for ch in ev.get("choices") or ():
+                            self.tokens[i].extend(ch.get("token_ids") or ())
+        except Exception as e:  # noqa: BLE001 — reported by the caller's gate
+            self.errors[i] = f"{type(e).__name__}: {e}"
+
+    def wait_tokens(self, n: int, timeout: float = 300.0) -> None:
+        """Until every stream delivered ``n`` tokens: all are mid-decode."""
+        deadline = time.monotonic() + timeout
+        while min(len(t) for t in self.tokens) < n:
+            if time.monotonic() > deadline or any(self.errors):
+                raise AssertionError(f"the streams never reached {n} tokens each: "
+                                     f"{[len(t) for t in self.tokens]}, {self.errors}")
+            time.sleep(0.002)
+
+    def join(self, timeout: float = 900.0) -> "Streams":
+        for t in self.threads:
+            t.join(timeout)
+        return self
+
+
+def check_streams(streams: Streams, gold: list, where: str) -> None:
+    """Every stream ended without an error, each token delivered once, and
+    bit-equal to the uninterrupted run's."""
+    if any(streams.errors):
+        raise AssertionError(f"{where}: a stream failed: {streams.errors}")
+    for i, (got, want) in enumerate(zip(streams.tokens, gold)):
+        if got != want:
+            at = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+            raise AssertionError(f"{where}: stream {i} ({len(got)} tokens) leaves the uninterrupted run's "
+                                 f"({len(want)}) at token {at}")
+
+
+def last_record(port: int, kind: str) -> dict:
+    return get(port, f"/v1/actuations?kind={kind}&n=1")["records"][-1]
+
+
+def priced_exactly(rec: dict, where: str) -> None:
+    if rec["predicted_bytes"] is None or rec["predicted_bytes"] != rec["actual_bytes"]:
+        raise AssertionError(f"{where}: the oracle predicted {rec['predicted_bytes']} bytes, "
+                             f"{rec['actual_bytes']} moved: {rec}")
+
+
+def zero_drain_phase(torch, smi: str, ckpt: str, swapped: dict) -> dict:
+    """Zero-drain actuation on one service of the checkpoint (``--zero-drain
+    on --content-hash on``): eight streams (four greedy, four seeded;
+    prompts of 300 to 3000 tokens, 128 new tokens each) run once
+    uninterrupted, then again through (a) a swap to the swap phase's
+    sibling and back and (b) a level-1 sleep and wake, each taken while
+    every stream is mid-decode. Gates: every stream's tokens bit-equal to
+    the uninterrupted run's, each delivered once; no ``swap`` abort, and
+    preempted == resumed; the page-out's bytes equal the parked pages
+    (``parked_page_ids``) times a page's bytes, and each actuation's price
+    (the ``/v1/costs`` arithmetic, made on the engine thread just before
+    it) equals its bytes; the sleep moves the weights alone; the engine
+    captures no graph and moves no state tensor. Then two drills: a
+    ``kvrestore.h2d`` failure ends the parked streams with ``state_loss``
+    and the engine serves a fresh request; a ``kvsave.d2h`` failure falls
+    back to the abort path. Prints the pin, page-out, page-in and resume
+    seconds and bytes."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.kv_cache import PagePool
+
+    t_phase = time.monotonic()
+    model_a, model_b = f"hf:{ckpt}", f"hf:{swapped['sibling']}"
+    opts = (f"--model {model_a} --num-pages 2048 --seed 0 --max-batch 8 --device cuda "
+            f"--model-pool-mib {swapped['pool_mib']} --content-hash on --swap-bucket-mib 256 --exec-pool-mib 512 "
+            "--zero-drain on")
+    service, server, init_s, _ = start_service(torch, opts)
+    port = server.server_address[1]
+    engines = {}
+    try:
+        eng = service.engine
+        engines[id(eng)] = eng
+        m = eng.cfg.model
+        page_nbytes = PagePool.page_nbytes(m.num_layers, eng.cfg.page_size, m.num_kv_heads, m.head_dim, dtype=m.dtype)
+        weights = sum(t.numel() * t.element_size() for t in eng.model.parameters())
+        bodies = stream_bodies(m.vocab_size, ZD_PROMPT_LENS, ZD_SAMPLED, seed=15)
+        t0 = time.monotonic()
+        gold = Streams(port, bodies).join()
+        gold_s = time.monotonic() - t0
+        if any(gold.errors) or any(len(t) != ZD_NEW_TOKENS for t in gold.tokens):
+            raise AssertionError(f"the uninterrupted run failed: {gold.errors}")
+        gold = gold.tokens
+        # pool both models (the first pinning) and empty A's prefix cache
+        # (a park clears it), so the streams prefill cold, as the gold did
+        warm = [post(port, "/v1/swap", {"model": model_b}), post(port, "/v1/swap", {"model": model_a})]
+        engines[id(service.engine)] = service.engine
+        captures, ptrs = eng.graph_captures, state_ptrs(eng)
+        if service.engine is not eng:
+            raise AssertionError("the swap back installed another engine")
+
+        # (a) a swap to the sibling and back under the eight live streams
+        s = Streams(port, bodies)
+        s.wait_tokens(2)
+        out = post(port, "/v1/swap", {"model": model_b})
+        zd = out["zero_drain"]
+        bundle = service.model_pool.peek(model_a).runtime.parked
+        used = sum(-(-pr.req.pos // eng.cfg.page_size) for pr in bundle.live)
+        if zd["parked"] != len(bodies) or len(bundle.live) != len(bodies):
+            raise AssertionError(f"the swap parked {zd['parked']} requests ({len(bundle.live)} live), "
+                                 f"want all {len(bodies)} live")
+        if not zd["kv_pageout_bytes"] == len(bundle.page_ids) * page_nbytes == used * page_nbytes:
+            raise AssertionError(f"the page-out moved {zd['kv_pageout_bytes']} bytes, want {used} pages x "
+                                 f"{page_nbytes}")
+        priced_exactly(out["costs"], "the preempting swap")
+        delivered = [len(t) for t in s.tokens]
+        engines[id(service.engine)] = service.engine
+        back = post(port, "/v1/swap", {"model": model_a})
+        if back["zero_drain"]["resumed"] != len(bodies) or back["kv_pagein_bytes"] != zd["kv_pageout_bytes"]:
+            raise AssertionError(f"the swap back resumed {back['zero_drain']}, want {len(bodies)} streams and "
+                                 f"{zd['kv_pageout_bytes']} bytes")
+        priced_exactly(back["costs"], "the resuming swap")
+        s.join()
+        check_streams(s, gold, "swap cycle")
+        swap_cycle = {
+            "parked": zd["parked"], "kv_pageout_bytes": zd["kv_pageout_bytes"], "pages": len(bundle.page_ids),
+            "kv_pin_s": zd["kv_pin_s"], "kv_pageout_s": zd["kv_pageout_s"],
+            "kv_pagein_bytes": back["kv_pagein_bytes"], "kv_pagein_s": back["zero_drain"]["kv_pagein_s"],
+            "swap_out_s": out["swap_total_s"], "swap_back_s": back["swap_total_s"],
+            "bytes_moved": [out["bytes_moved"], back["bytes_moved"]],
+            "tokens_at_park": delivered, "predicted_bytes": [out["costs"]["predicted_bytes"],
+                                                             back["costs"]["predicted_bytes"]],
+        }
+        del bundle
+
+        # (b) a level-1 sleep and a wake under the eight live streams
+        s = Streams(port, bodies)
+        s.wait_tokens(2)
+        slept = post(port, "/sleep?level=1")
+        if slept["bytes_offloaded"] != weights or slept["zero_drain"]["parked"] != len(bodies):
+            raise AssertionError(f"the sleep offloaded {slept['bytes_offloaded']} bytes (the weights are {weights}) "
+                                 f"and parked {slept.get('zero_drain')}")
+        priced_exactly(last_record(port, "sleep"), "the parking sleep")
+        woke = post(port, "/wake_up")
+        if woke["zero_drain"]["resumed"] != len(bodies) or woke["zero_drain"]["kv_pagein_bytes"] != \
+                slept["zero_drain"]["kv_pageout_bytes"]:
+            raise AssertionError(f"the wake resumed {woke.get('zero_drain')}, the sleep parked {slept['zero_drain']}")
+        priced_exactly(last_record(port, "wake"), "the resuming wake")
+        s.join()
+        check_streams(s, gold, "sleep cycle")
+        sleep_cycle = {**slept["zero_drain"], **woke["zero_drain"], "bytes_offloaded": slept["bytes_offloaded"],
+                       "sleep_s": slept["last_sleep_seconds"], "wake_s": woke["last_wake_seconds"]}
+        if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+            raise AssertionError(f"the engine captured {eng.graph_captures - captures} graphs or moved a state "
+                                 "tensor over the two cycles")
+        stats = get(port, "/v1/stats")
+        zds = stats["zero_drain"]
+        if stats["aborted"].get("swap", 0) or zds["preempted"] != zds["resumed"] or zds["aborted"]:
+            raise AssertionError(f"the cycles aborted requests: {stats['aborted']}, {zds}")
+
+        # drill: a page-in that fails ends the parked streams (state_loss)
+        s = Streams(port, bodies[:2])
+        s.wait_tokens(2)
+        post(port, "/sleep?level=1")
+        post(port, "/v1/faults", {"spec": "kvrestore.h2d=fail:1"})
+        woke_drill = post(port, "/wake_up")
+        s.join()
+        if not all(e and "zero-drain KV restore" in e for e in s.errors):
+            raise AssertionError(f"the kvrestore.h2d drill left streams {s.errors}")
+        fresh = post(port, "/v1/completions", {"prompt": bodies[0]["prompt"][:20], "max_tokens": 16})
+        if len(fresh["choices"][0]["token_ids"]) != 16:
+            raise AssertionError("the engine did not serve after the kvrestore.h2d drill")
+        # drill: a page-out that fails falls back to the abort path
+        s = Streams(port, bodies[:2])
+        s.wait_tokens(2)
+        post(port, "/v1/faults", {"spec": "kvsave.d2h=fail:1"})
+        out_drill = post(port, "/v1/swap", {"model": model_b})
+        s.join()
+        if "fallback" not in out_drill["zero_drain"] or not all(e and "aborted by model swap" in e for e in s.errors):
+            raise AssertionError(f"the kvsave.d2h drill: {out_drill['zero_drain']}, streams {s.errors}")
+        request(f"http://127.0.0.1:{port}/v1/faults", "DELETE")
+        post(port, "/v1/swap", {"model": model_a})
+        drills = {"kvrestore_h2d": {"aborted": len(s.errors), "wake": woke_drill.get("zero_drain"),
+                                    "stats": get(port, "/v1/stats")["zero_drain"]},
+                  "kvsave_d2h": out_drill["zero_drain"]}
+
+        replayed: dict = {}
+        for e in engines.values():
+            for name, n in (e.graphs.replayed_launches() if e.graphs else {}).items():
+                replayed[name] = replayed.get(name, 0) + n
+        counts = add_replayed(read_counts(), replayed)
+        if not counts["replayed"]["decode_inline"] or not counts["prefill"]:
+            raise AssertionError(f"the zero_drain phase launched no decode or prefill kernel: {counts}")
+        emit({
+            "phase": "zero_drain", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
+            "streams": {"prompt_tokens": list(ZD_PROMPT_LENS), "new_tokens": ZD_NEW_TOKENS, "sampled": ZD_SAMPLED},
+            "uninterrupted_s": gold_s, "warm_swaps_s": [w["swap_total_s"] for w in warm],
+            "page_nbytes": page_nbytes, "weights_bytes": weights,
+            "swap_cycle": swap_cycle, "sleep_cycle": sleep_cycle, "drills": drills,
+            "tokens_bit_equal": True, "graph_captures_unchanged": True, "state_addresses_unchanged": len(ptrs),
+            "stats": get(port, "/v1/stats")["zero_drain"], "launches": counts,
+            "seconds": time.monotonic() - t_phase,
+        })
+        return {"counts": counts}
+    finally:
+        stop_service(torch, service, server)
+        service._free_pooled(service.model_pool.drain())
+
+
+def migrate_phase(torch, smi: str, ckpt: str) -> dict:
+    """Live migration through the port's launcher (its own process): two
+    instances of the checkpoint on card 0 (``--zero-drain on --content-hash
+    on``), ``b`` admitted while ``a`` sleeps, then ``a`` woken through its
+    own ``POST /wake_up`` (the exclusivity rule is applied at create, as
+    ever). Four streams (prompts of 260 to 500 tokens, 128 new tokens, two
+    greedy, two seeded) run once uninterrupted on ``b``, then on ``a``,
+    where ``POST /v2/vllm/instances/a/migrate`` hands them to ``b``
+    mid-decode. Gates: every token delivered once through ``a``'s
+    streams, bit-equal to the uninterrupted run's; one migration per role
+    in ``fma_engine_migrations_total``; the KV ``b`` paged in equals the
+    KV ``a`` exported. Then new arrivals on ``a`` and ``POST
+    /v2/vllm/instances/a/drain``: ``a``'s queue depth is 0 after it and
+    the arrivals finish through its proxies. Prints the export, import and
+    release seconds, the wire's bytes and the peak host memory."""
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig
+
+    t_phase = time.monotonic()
+    free_memory(torch)
+    _, uuid = smi_rows("--query-gpu=index,uuid")[0]
+    opts = (f"--model hf:{ckpt} --num-pages 2048 --seed 0 --max-batch 8 --content-hash on --zero-drain on "
+            "--swap-bucket-mib 256")
+    port_a, port_b = free_port(), free_port()
+    launcher = Launcher()
+    try:
+        _, spawn_a = launcher.spawn("a", f"{opts} --port {port_a}", uuid, port_a)
+        post(port_a, "/sleep?level=1")
+        _, spawn_b = launcher.spawn("b", f"{opts} --port {port_b}", uuid, port_b)
+        post(port_a, "/wake_up")
+        vocab = LlamaConfig.llama3_8b().vocab_size
+        bodies = stream_bodies(vocab, MIG_PROMPT_LENS, MIG_SAMPLED, seed=16)
+        gold = Streams(port_b, bodies).join()
+        if any(gold.errors) or any(len(t) != ZD_NEW_TOKENS for t in gold.tokens):
+            raise AssertionError(f"the uninterrupted run on b failed: {gold.errors}")
+        s = Streams(port_a, bodies)
+        s.wait_tokens(2)
+        status, mig = request(f"{launcher.url}/v2/vllm/instances/a/migrate", "POST", {})
+        if status != 200 or mig["dest_id"] != "b" or mig["migrated"] != len(bodies):
+            raise AssertionError(f"migrate a: {status} {mig}")
+        if not 0 < mig["kv_bytes"] == mig["import"]["kv_bytes"]:
+            raise AssertionError(f"b paged in {mig['import']['kv_bytes']} bytes, a exported {mig['kv_bytes']}")
+        s.join()
+        check_streams(s, gold.tokens, "migrate")
+        # each leg's seconds as the two engines saw them (the drain's pass
+        # overwrites them)
+        legs = {"a_export": get(port_a, "/v1/stats")["migration_legs"]["export"],
+                "b_import": get(port_b, "/v1/stats")["migration_legs"]["import"]}
+        roles = {"source": metric(scrape(f"http://127.0.0.1:{port_a}/metrics"), "fma_engine_migrations_total",
+                                  role="source", outcome="committed"),
+                 "destination": metric(scrape(f"http://127.0.0.1:{port_b}/metrics"), "fma_engine_migrations_total",
+                                       role="destination", outcome="imported")}
+        if roles != {"source": 1, "destination": 1}:
+            raise AssertionError(f"fma_engine_migrations_total per role: {roles}")
+        # drain: new arrivals on a, then passes until a is idle
+        arrivals = Streams(port_a, stream_bodies(vocab, MIG_ARRIVAL_LENS, 1, seed=17))
+        arrivals.wait_tokens(1)
+        status, drained = request(f"{launcher.url}/v2/vllm/instances/a/drain", "POST", {})
+        depth = get(port_a, "/v1/stats")["queue_depth"]
+        if status != 200 or not drained.get("drained") or depth != 0:
+            raise AssertionError(f"drain a: {status} {drained}, queue_depth {depth}")
+        arrivals.join()
+        if any(arrivals.errors) or any(len(t) != ZD_NEW_TOKENS for t in arrivals.tokens):
+            raise AssertionError(f"the arrivals drained away failed: {arrivals.errors}")
+        counts_a, dev_a = child_counts(port_a)
+        counts_b, dev_b = child_counts(port_b)
+        stats_a, stats_b = get(port_a, "/v1/stats"), get(port_b, "/v1/stats")
+        emit({
+            "phase": "migrate", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "spawn_s": {"a": spawn_a, "b": spawn_b},
+            "streams": {"prompt_tokens": list(MIG_PROMPT_LENS), "new_tokens": ZD_NEW_TOKENS, "sampled": MIG_SAMPLED},
+            "migrate": {k: mig[k] for k in ("requests", "migrated", "proxied", "bytes", "kv_bytes", "wire_kv_bytes",
+                                            "seconds")},
+            "legs": legs,
+            "tokens_bit_equal": True, "migrations_per_role": roles,
+            "drain": {k: drained[k] for k in ("passes", "migrated", "bytes")}, "queue_depth_after_drain": depth,
+            "peak_rss_bytes": {"launcher": mig["launcher_peak_rss_bytes"], "a": dev_a["peak_rss_bytes"],
+                               "b": dev_b["peak_rss_bytes"]},
+            "zero_drain": {"a": stats_a["zero_drain"], "b": stats_b["zero_drain"]},
+            "migration": {"a": stats_a["migration"], "b": stats_b["migration"]},
+            "launches": {"a": counts_a, "b": counts_b}, "seconds": time.monotonic() - t_phase,
+        })
+        return {"counts": [counts_a, counts_b]}
+    finally:
+        launcher.stop()
+
+
 #: the controller's sleeping budget: the reference's sleeperLimit (1) x 4096 MiB
 DUALPODS_BUDGET_BYTES = 4096 * MIB
 #: how far the requester's NVML reading may be from nvidia-smi's memory.used
@@ -4333,6 +4699,11 @@ def main() -> int:
     for k in dec + pre + rag + rag_sharded + [probe]:
         emit({"phase": "kernel", **k, "nvidia_smi": smi})
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
+    # first of the model phases: its profiled replay is then the process's
+    # first profiler window (after the serve phases' large one, the
+    # profiler has twice recorded one decode kernel fewer than the replay
+    # ran)
+    graphs_phase(torch, smi)
     from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig, param_shapes
 
     # room for the checkpoint and, beside it, the swap phase's two siblings:
@@ -4345,12 +4716,13 @@ def main() -> int:
         swapped = swap_phase(torch, smi, ckpt, bucketed)
         launched = launcher_phase(torch, smi, bucketed, swapped)
         quant = quant_phase(torch, smi, ckpt, bucketed, swapped)
+        zero_drain = zero_drain_phase(torch, smi, ckpt, swapped)
+        migrated = migrate_phase(torch, smi, ckpt)
     finally:
         shutil.rmtree(ckpt)
         for suffix in ("-sibling", "-sibling2"):
             shutil.rmtree(ckpt.rstrip("/") + suffix, ignore_errors=True)
     dual = dualpods_phase(torch, smi, bucketed, launched)
-    graphs_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)
@@ -4358,8 +4730,9 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
-    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], *dual["counts"],
-            packed["counts"], tp2["counts"], reference["counts"])
+    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"],
+            zero_drain["counts"], *migrated["counts"], *dual["counts"], packed["counts"], tp2["counts"],
+            reference["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)

@@ -52,9 +52,16 @@ table, tokens, positions) is uploaded once per distinct device of the
 mesh, everything else (counts, bias, sampling knobs) lives on rank 0's
 device, where the gathered logits are sampled.
 
+Zero-drain parking (:meth:`InferenceEngine.park_requests`,
+:meth:`InferenceEngine.resume_parked`, ``engine/parked.py``): the running
+and queued requests go to a host bundle, the KV pool's memory goes back to
+the card at addresses the arena keeps, and the bundle is seated again
+bit-exact after a wake, a swap back, or in another engine of the same
+weights (live migration, ``engine/server.py``).
+
 Not ported yet, and refused rather than ignored (they are not fields of
 the port's ``EngineConfig``): speculative decoding, pipelined decode,
-co-resident variants, parking and migration and multi-host lockstep.
+co-resident variants and multi-host lockstep.
 CUDA graphs for the prefill buckets and the packed step, and for the
 chunk on a mesh (a graph belongs to one device), are later work.
 
@@ -251,6 +258,16 @@ class Request:
     trace: Optional[Any] = None
     #: stamped when the trace is finished (the usage block reports it)
     trace_id: str = ""
+    #: a migrated-in request's origin trace context ({trace_id, span_id}):
+    #: its spans here join the source's trace
+    trace_parent: Optional[Dict[str, str]] = None
+    #: an unseeded request migrated in while waiting: the stream seed the
+    #: exporting engine would have drawn from (``parked.key_kind``)
+    rng_key_data: Optional[Any] = None
+    #: seconds spent parked by zero-drain actuations, and the part of them
+    #: before the first token (the exemplars' ``preempt`` leg)
+    preempt_s: float = 0.0
+    preempt_pre_token_s: float = 0.0
 
 
 def validate_logit_bias(lb, vocab_size: int) -> "Dict[int, float] | None":
@@ -434,6 +451,15 @@ class InferenceEngine:
         self._dirty = True
         #: True while a SleepManager holds the state offloaded (engine/sleep.py)
         self.asleep = False
+        #: zero-drain actuation (engine/parked.py): True while a park has
+        #: released the KV pool's memory (its addresses kept); the sleeper's
+        #: state then leaves the pool out, and the state's return rebuilds it
+        #: (:meth:`rebuild_kv_pool`)
+        self.kv_detached = False
+        #: set by the service when --zero-drain applies to this engine: a
+        #: pricing peek at the sleeper's state then leaves the pool out, as
+        #: the park that precedes the offload will
+        self.zero_drain_park = False
         #: decode chunks the serving path ran, and the CUDA graphs captured
         #: and replayed for them (engine/graphs.py)
         self.decode_chunks = 0
@@ -676,8 +702,25 @@ class InferenceEngine:
         self._waiting.append(req)
         return req.seq_id
 
+    def stream_seed(self, req: Request) -> int:
+        """The seed of ``req``'s generator: its own, else the one it was
+        migrated in with, else derived from the engine seed and its id."""
+        if req.seed is not None:
+            return int(req.seed)
+        key = req.rng_key_data
+        if key is not None and np.asarray(key).dtype == np.uint64:
+            return int(np.asarray(key).reshape(-1)[0])
+        return _stream_seed(self._seed, req.seq_id)
+
+    def new_seq_id(self) -> int:
+        """A fresh request id: a migrated-in request is given one before it
+        is seated (two engines' ids are unrelated)."""
+        sid = self._next_seq_id
+        self._next_seq_id += 1
+        return sid
+
     def _init_slot_gen(self, req: Request) -> None:
-        seed = req.seed if req.seed is not None else _stream_seed(self._seed, req.seq_id)
+        seed = self.stream_seed(req)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
         self._gens[req.slot] = gen
@@ -996,6 +1039,8 @@ class InferenceEngine:
         Returns requests that finished."""
         if self.asleep:
             raise EngineAsleep("engine state is offloaded (sleeping)")
+        if self.kv_detached:
+            raise RuntimeError("the KV pool is detached by a park; rebuild_kv_pool() before serving")
         self.last_step_stats = None
         finished: List[Request] = []
         if self.cfg.packed_serving:
@@ -1399,6 +1444,235 @@ class InferenceEngine:
             # the KV content backing the index is gone
             self.allocator.free(self.prefix_cache.clear())
         return aborted
+
+    # -- zero-drain park and resume (engine/parked.py) -------------------------
+
+    def parked_page_ids(self) -> List[int]:
+        """The unique pool pages a park would page out now: the first
+        ``ceil(pos / page_size)`` pages of every request mid-decode, in
+        order of first use (a shared prefix page once). The cost oracle
+        prices a park from this list, and the park gathers it, so the
+        predicted and the moved bytes agree by construction."""
+        out: List[int] = []
+        seen: set = set()
+        for req in self._slots:
+            if req is None or req.done or req.prefilling:
+                continue
+            used = PageAllocator.pages_needed(req.pos, self.cfg.page_size) if req.pos > 0 else 0
+            for p in req.pages[:used]:
+                if p not in seen:
+                    seen.add(p)
+                    out.append(p)
+        return out
+
+    def key_data(self, req: Request) -> np.ndarray:
+        """The key a parked ``req`` carries: its slot generator's state
+        when it samples, :func:`~.parked.greedy_key` when it does not."""
+        from .parked import greedy_key
+
+        if req.temperature > 0 and self._gens[req.slot] is not None:
+            return self._gens[req.slot].get_state().numpy().copy()
+        return greedy_key()
+
+    @torch.no_grad()
+    def park_requests(self, bucket_bytes: "int | None" = None):
+        """Preempt every running and queued request into a host
+        :class:`~.parked.ParkedRequests` bundle and release the KV pool's
+        memory (``kv_detached``): the engine is then empty, an actuation
+        can sleep or swap it without aborting anything, and
+        :meth:`resume_parked` seats the bundle again afterwards.
+
+        The page-out (fault point ``kvsave.d2h``) runs before any
+        scheduler state is touched, so a failed page-out raises with the
+        engine still serving and the caller takes the abort path. A decode
+        chunk is never in flight between steps here (each step reads its
+        chunk back), so the emitted tokens and the generators' states
+        agree. Returns ``(bundle, finished)``; ``finished`` is always
+        empty (the reference's pipelined drain may finish requests).
+
+        Requests mid-prefill (packed serving) go back to the waiting
+        queue without KV: a prefill is a function of the prompt and draws
+        nothing before its last segment, so running it again gives the
+        same tokens. The prefix cache restarts empty."""
+        from . import parked as parked_mod
+
+        if self.mesh is not None:
+            raise ValueError("zero-drain parking on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
+        live_reqs = [r for r in self._slots if r is not None and not r.done and not r.prefilling]
+        demote = [r for r in self._slots if r is not None and not r.done and r.prefilling]
+        page_ids = self.parked_page_ids()
+        k_host = v_host = None
+        kv_nbytes, pageout_s, pin_s = 0, 0.0, 0.0
+        if page_ids:
+            # the faultable transfer first: nothing below runs unless every
+            # live page landed; its window excludes the pinning, so the
+            # kvsave.d2h bandwidth sees the copies alone
+            t0 = time.monotonic()
+            k_host, v_host, pin_s = parked_mod.gather_pages_d2h(
+                self.pool, page_ids, bucket_bytes=bucket_bytes, span_name="swap.kv_pageout")
+            pageout_s = time.monotonic() - t0 - pin_s
+            kv_nbytes = k_host.numel() * k_host.element_size() + v_host.numel() * v_host.element_size()
+        bundle = parked_mod.ParkedRequests(page_ids=page_ids, k_host=k_host, v_host=v_host, kv_nbytes=kv_nbytes,
+                                           pageout_s=pageout_s, pin_s=pin_s)
+        meta_nbytes = 0
+        for r in live_reqs:
+            used = PageAllocator.pages_needed(r.pos, self.cfg.page_size)
+            pr = parked_mod.ParkedRequest(req=r, old_pages=list(r.pages[:used]),
+                                          counts_row=np.array(self._token_counts[r.slot], copy=True),
+                                          key_data=self.key_data(r))
+            meta_nbytes += pr.counts_row.nbytes + pr.key_data.nbytes
+            bundle.live.append(pr)
+        if self.prefix_cache is not None:
+            # its references and index die with the pool; resumed pages take
+            # fresh references
+            for r in live_reqs + demote:
+                self.prefix_cache.release(r.pages)
+            self.prefix_cache.clear()
+        for r in demote:
+            r.prefilling = False
+            r.pos = 0
+            r.cached_tokens = 0
+            r.shared_pages = 0
+            r.pages = []
+            r.slot = -1
+            r._prefix_hashes = ()
+            if hasattr(r, "_blocked_state"):
+                del r._blocked_state
+            bundle.waiting.append(r)
+        for r in live_reqs:
+            r.slot = -1
+            r.pages = []
+        bundle.waiting.extend(self._waiting)
+        bundle.nbytes = kv_nbytes + meta_nbytes
+        # detach: the scheduler is wiped whole; the pool's memory goes back
+        # to the card and the allocator is made anew when it is rebuilt
+        b = self.cfg.max_batch
+        self._slots = [None] * b
+        self._gens = [None] * b
+        self._waiting = []
+        for a, v in ((self._page_table, 0), (self._positions, 0), (self._last_tokens, 0), (self._temps, 0.0),
+                     (self._topps, 1.0), (self._pres, 0.0), (self._freqs, 0.0), (self._token_counts, 0),
+                     (self._budgets, 0), (self._eos_on, 1), (self._bias, 0.0)):
+            a[:] = v
+        self._dirty = True
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # nothing queued may still read the pool
+        self.arenas[self.device].unmap(self.pool.tensors())
+        self.kv_detached = True
+        return bundle, []
+
+    def rebuild_kv_pool(self) -> None:
+        """An empty pool after a park released it: its memory mapped again
+        at the same addresses (the captured graphs read them), zeroed, and
+        a fresh allocator. Called when the sleeper's state comes back
+        without the pool, and by the rollback paths."""
+        self.arenas[self.device].map(self.pool.tensors())
+        for t in self.pool.tensors():
+            t.zero_()
+        self.allocator = PageAllocator(self.cfg.num_pages)
+        self.kv_detached = False
+        self._dirty = True
+
+    def resume_parked(self, bundle, bucket_bytes: "int | None" = None) -> Tuple[int, int]:
+        """Seat a parked bundle into this engine (awake, its pool
+        rebuilt): allocate pages, page the KV back in (fault point
+        ``kvrestore.h2d``), write the page tables through the old -> new
+        page map (pages shared by live requests stay shared), and restore
+        every per-slot mirror and generator; the next dispatch uploads the
+        whole scheduler state, so each stream goes on mid-decode. A
+        request may land in another slot: the chunk runs every slot alike.
+
+        Returns ``(live_resumed, kv_pagein_bytes)``. On a page-in failure
+        everything is unwound (pages freed, no slot seated, the waiting
+        requests queued again: they carried no KV) and
+        :class:`~.parked.ParkedResumeFailed` is raised, so the caller
+        aborts the live requests with cause ``state_loss``; the engine
+        serves on with an empty pool."""
+        from . import parked as parked_mod
+
+        if self.kv_detached:
+            raise parked_mod.ParkedResumeFailed("resume before the KV pool was rebuilt")
+        old2new: Dict[int, int] = {}
+        seated: List[tuple] = []
+        moved = 0
+        try:
+            for pr in bundle.live:
+                r = pr.req
+                need = PageAllocator.pages_needed(len(r.prompt) + r.max_new_tokens, self.cfg.page_size)
+                new_pages: List[int] = []
+                fresh: List[int] = []  # allocated for this request
+                fresh_old: List[int] = []  # ... and entered in old2new
+                try:
+                    for j in range(need):
+                        old = pr.old_pages[j] if j < len(pr.old_pages) else None
+                        if old is not None and old in old2new:
+                            new_pages.append(old2new[old])
+                            continue
+                        got = self._alloc_pages(1)[0]
+                        fresh.append(got)
+                        if old is not None:
+                            old2new[old] = got
+                            fresh_old.append(old)
+                        new_pages.append(got)
+                except BaseException:
+                    # this request's own pages; seated ones are unwound below
+                    self.allocator.free(fresh)
+                    for old in fresh_old:
+                        old2new.pop(old, None)
+                    raise
+                if self.prefix_cache is not None:
+                    # one reference per sequence, as an admission takes
+                    self.prefix_cache.acquire(new_pages)
+                seated.append((pr, new_pages))
+            if bundle.page_ids:
+                pairs = [(i, old2new[p]) for i, p in enumerate(bundle.page_ids) if p in old2new]
+                moved = parked_mod.scatter_pages_h2d(self.pool, pairs, bundle.k_host, bundle.v_host,
+                                                     bucket_bytes=bucket_bytes, span_name="wake.kv_pagein")
+        except BaseException as e:
+            for _, new_pages in seated:
+                if self.prefix_cache is not None:
+                    self.allocator.free(self.prefix_cache.release(new_pages))
+                else:
+                    self.allocator.free(new_pages)
+            self._waiting.extend(bundle.waiting)
+            self._dirty = True
+            raise parked_mod.ParkedResumeFailed(f"{type(e).__name__}: {e}") from e
+        # nothing below can fail: host bookkeeping
+        for pr, new_pages in seated:
+            r = pr.req
+            slot = self._free_slot()
+            assert slot is not None, "the parked batch exceeds max_batch"
+            r.slot = slot
+            r.pages = new_pages
+            r.shared_pages = 0
+            r._prefix_hashes = ()
+            self._slots[slot] = r
+            row = np.zeros((self.cfg.pages_per_seq,), dtype=np.int32)
+            row[: len(new_pages)] = new_pages
+            self._page_table[slot] = row
+            self._positions[slot] = r.pos
+            self._last_tokens[slot] = r.out_tokens[-1] if r.out_tokens else 0
+            self._temps[slot] = r.temperature
+            self._topps[slot] = r.top_p
+            self._pres[slot] = r.presence_penalty
+            self._freqs[slot] = r.frequency_penalty
+            self._token_counts[slot] = pr.counts_row
+            self._budgets[slot] = r.max_new_tokens - len(r.out_tokens)
+            self._eos_on[slot] = 0 if r.ignore_eos else 1
+            self._bias[slot] = 0.0
+            for t, v in r.logit_bias.items():
+                self._bias[slot, t] = v
+            if r.temperature > 0 and parked_mod.key_kind(pr.key_data) == "torch":
+                gen = torch.Generator(device=self.device)
+                gen.set_state(torch.from_numpy(np.ascontiguousarray(pr.key_data, dtype=np.uint8)))
+                self._gens[slot] = gen
+            else:
+                # a greedy stream draws nothing (the service refuses a
+                # sampled one whose key is the reference's)
+                self._init_slot_gen(r)
+        self._waiting = list(bundle.waiting) + self._waiting
+        self._dirty = True
+        return len(seated), moved
 
     # -- convenience --------------------------------------------------------
 

@@ -6,9 +6,6 @@ the port's hand-written kinds (``utils/prom.py``). ``engine/server.py``
 updates them and serves them at ``GET /metrics``. A family whose feature
 the port does not have yet is not registered:
 
-  * ``fma_engine_preempted_requests``, ``fma_engine_kv_pageout_bytes``,
-    ``fma_engine_migrations`` and ``fma_engine_migrate_bytes`` (zero-drain
-    parking and live migration, ROADMAP queue 1 item 11);
   * ``fma_engine_resident_variants``, ``fma_engine_variant_hbm_bytes``,
     ``fma_engine_coresident_saved_bytes``, ``fma_engine_resident_events``
     and ``fma_engine_routed_requests`` (co-resident variants, item 12);
@@ -25,10 +22,6 @@ from ..utils.prom import Counter, Gauge, Histogram
 
 #: families left out until their feature is ported, by ROADMAP item
 UNPORTED_FAMILIES = {
-    "fma_engine_preempted_requests": 11,
-    "fma_engine_kv_pageout_bytes": 11,
-    "fma_engine_migrations": 11,
-    "fma_engine_migrate_bytes": 11,
     "fma_engine_resident_variants": 12,
     "fma_engine_variant_hbm_bytes": 12,
     "fma_engine_coresident_saved_bytes": 12,
@@ -72,6 +65,42 @@ ENGINE_ABORTS = Counter(
     "Requests aborted, by cause: client (disconnect), swap (actuation "
     "preempted queued/in-flight work), state_loss (level-2 wake)",
     ["model", "reason"],
+)
+# Zero-drain actuation (engine/parked.py): instead of aborting, --zero-drain
+# parks the victim model's live requests (KV pages paged out beside the
+# slept weights) and resumes them bit-exact after the wake or the swap back.
+# Every preempted request ends one way; the byte counter is the parked KV's.
+ENGINE_PREEMPTED = Counter(
+    "fma_engine_preempted_requests_total",
+    "Requests preempted by a zero-drain actuation, by final outcome "
+    "(resumed = re-seated and continued; aborted = parked state lost — "
+    "KV restore failure, parked-model eviction, or client disconnect "
+    "while parked; migrated = handed off to a sibling instance and "
+    "continued there)",
+    ["model", "outcome"],
+)
+ENGINE_KV_PAGEOUT = Counter(
+    "fma_engine_kv_pageout_bytes_total",
+    "Parked-KV bytes moved by zero-drain preempt/resume, by direction "
+    "(d2h = page-out at park, h2d = page-in at resume)",
+    ["dir"],
+)
+# Live request migration: a parked bundle handed to a sibling over the wire
+# and resumed mid-decode there. Source outcomes: committed | resumed_local |
+# state_loss; destination outcomes: imported | rolled_back.
+ENGINE_MIGRATIONS = Counter(
+    "fma_engine_migrations_total",
+    "Live request migrations, by role (source|destination) and terminal "
+    "outcome (committed | resumed_local | state_loss | imported | "
+    "rolled_back)",
+    ["role", "outcome"],
+)
+ENGINE_MIGRATE_BYTES = Counter(
+    "fma_engine_migrate_bytes_total",
+    "Parked-bundle KV bytes moved by live request migration, by "
+    "direction (export = serialized to the wire on the source, import = "
+    "paged into the destination pool)",
+    ["dir"],
 )
 ENGINE_KV_USAGE = Gauge(
     "fma_engine_kv_cache_usage_ratio",

@@ -29,7 +29,12 @@ tensor it approximates, and ``bytes_used`` counts payload bytes.
 
 The pool stores opaque runtime entries (the server's model-runtime
 bundle, or a prefetch's :class:`PrefetchedWeights`); the caller frees an
-evicted entry (the server destroys its engine). LRU order is by swap-out recency. An internal mutex makes every
+evicted entry (the server destroys its engine). Under ``--zero-drain`` a
+pooled runtime carries the requests its swap parked
+(``engine/parked.py:ParkedRequests``): the server counts the bundle's
+bytes in the entry's ``nbytes`` beside the slept weights, refuses a park
+that would overrun the budget (the swap then aborts instead), and ends
+an evicted runtime's parked requests with ``state_loss``. LRU order is by swap-out recency. An internal mutex makes every
 operation safe to call from any thread.
 """
 

@@ -5,10 +5,11 @@ thread fed by a submit queue, and the routes
 
   GET  /health, /is_sleeping, /v1/models, /v1/stats, /v1/swap, /v1/faults,
        /v1/prefetch, /v1/costs, /v1/actuations, /metrics, /v1/traces,
-       /v1/profile
+       /v1/profile, /v1/parked/{model}, /v1/parked/claims/{id}
   POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions,
-       /v1/swap, /v1/faults, /v1/prefetch, /v1/profile
-  DELETE /v1/faults, /v1/prefetch, /v1/profile
+       /v1/swap, /v1/faults, /v1/prefetch, /v1/profile, /v1/parked,
+       /v1/parked/release, /v1/parked/abort
+  DELETE /v1/faults, /v1/prefetch, /v1/profile, /v1/parked/claims/{id}
 
 and one of the port's own, ``GET /v1/device``: the card the engine runs
 on as the CUDA runtime names it, the kernel launches of this process and
@@ -39,7 +40,7 @@ request bypasses the prefix cache and runs the bucketed prefill, also on
 the packed path), ``n``, ``seed``, ``ignore_eos``, ``logit_bias`` and
 ``stop_token_ids``; their JSON and SSE shapes are the reference's. Not
 ported yet, and answered with a 400 that says so: the other routes of the
-reference (``UNPORTED_ROUTES``: parked, residents). Not ported yet and
+reference (``UNPORTED_ROUTES``: residents). Not ported yet and
 absent from the options: the reference's
 other engine flags (``--pipeline-decode``, ``--speculative-ngram``,
 ``--quantization``, ``--resident-variants``, multi-host gangs, ...), also
@@ -58,8 +59,36 @@ transfer rolls back (503, ``/health`` DEGRADED until the next committed
 swap); ``GET /v1/swap`` is the last committed swap, and a repeated
 ``request_id`` replays it. The fault points of ``utils/faults.py`` are armed
 by ``--faults``, ``FMA_FAULTS`` or ``/v1/faults``. Not ported: a swap on a
-tensor-parallel mesh and an Orbax ``checkpoint_dir`` (400s that say so),
-and zero-drain parking.
+tensor-parallel mesh and an Orbax ``checkpoint_dir`` (400s that say so).
+
+**Zero-drain actuation** (``--zero-drain on``, ``engine/parked.py``): a
+swap or a level-1 sleep parks the running and queued requests instead of
+aborting them (their live KV pages to the host, the pool's memory back to
+the card, the bundle pooled beside the slept weights and counted against
+``--model-pool-mib``), and the wake or the swap back seats them again:
+each stream goes on bit-exact, and ``reason="swap"`` aborts stay at zero.
+A park that would overrun the pool budget, or whose page-out fails, falls
+back to the abort path; a page-in that fails aborts the parked requests
+with ``state_loss``, as does a level-2 sleep or the eviction of a parked
+model. The swap response carries a ``zero_drain`` block and
+``kv_pageout_bytes``/``kv_pagein_bytes``; ``/v1/stats.zero_drain`` counts
+preempted, resumed, aborted and migrated requests. Refused with
+``--tensor-parallel-size`` above 1 (ROADMAP queue 1 item 14).
+
+**Live migration** (the reference's verbs, driven by the launcher's
+``migrate`` and ``drain``): ``GET /v1/parked/{model}`` parks every stream
+and exports the bundle as the reference's wire document under a
+single-use fence (the engine serves new arrivals again at once), ``POST
+/v1/parked`` checks and seats one on a sibling of the same weights (its
+digests' fingerprint, or the same checkpoint directory, and the page
+size) and answers with a claim per stream, ``POST /v1/parked/release``
+commits (the source's proxy threads then carry each claim's tokens into
+the original response, every token exactly once), ``POST
+/v1/parked/abort`` resumes the bundle at home; ``GET
+/v1/parked/claims/{id}`` is the destination's view of one stream, and
+``DELETE`` aborts it. A bundle of the reference's seats here and one of
+the port's there; a sampled stream whose generator key is the other
+package's is refused (409), since neither can continue the other's.
 
 **Compressed actuation** (``--sleep-quant int8|fp8``, ``models/quant.py``):
 a level-1 sleep quantizes the layer weight stacks on the card and moves
@@ -83,10 +112,13 @@ candidate) prices a sleep, a wake and a swap to each candidate (the
 serving model, each pooled or prefetched model, each evicted model the
 chunk tiers still hold) before a byte moves: a pool-tier swap's
 ``predicted_bytes`` comes from the ``plan_swap`` that the swap executes,
-so it equals the swap's ``bytes_moved``. ``GET /v1/actuations``
-(``?n=&kind=``) serves the recorder, and ``/v1/stats`` its summary
-(``costs``). The reference's rows for migration, attach and detach wait
-for those verbs (ROADMAP queue 1 items 11 and 12).
+so it equals the swap's ``bytes_moved``; under zero-drain a park's
+page-out and a resume's page-in are priced from the pages themselves
+(``parked_page_ids`` x page bytes) and added to the swap's and the
+sleep's. ``GET /v1/actuations`` (``?n=&kind=``) serves the recorder, and
+``/v1/stats`` its summary (``costs``). The ``migrate`` row prices an
+export of the live work (``price_migrate``); the reference's rows for
+attach and detach wait for those verbs (ROADMAP queue 1 item 12).
 
 **Cold load, prefetch and warm-up.** A checkpoint is read by
 ``--load-workers`` readers over its shards (``models/hf.py``), and a
@@ -155,8 +187,9 @@ import traceback
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
-from urllib.parse import parse_qs, urlparse
+from urllib.parse import parse_qs, unquote, urlparse
 
+import numpy as np
 import torch
 
 from ..models import hf as hf_models
@@ -220,9 +253,8 @@ MODEL_CONFIGS = {
 }
 
 #: routes of the reference server this port does not serve yet, matched
-#: with everything under them (``/v1/parked/claims/{id}``, ...): zero-drain
-#: parking (ROADMAP queue 1 item 11) and co-resident variants (item 12)
-UNPORTED_ROUTES = ("/v1/parked", "/v1/residents")
+#: with everything under them: co-resident variants (ROADMAP queue 1 item 12)
+UNPORTED_ROUTES = ("/v1/residents",)
 
 
 def unported_route(path: str) -> bool:
@@ -375,6 +407,14 @@ def make_arg_parser() -> argparse.ArgumentParser:
         "per request",
     )
     p.add_argument(
+        "--zero-drain", default="off", choices=["on", "off"],
+        help="zero-drain actuation: a swap or a level-1 sleep preempts the live "
+        "requests (their KV pages paged out beside the slept weights, the "
+        "scheduler rows and generator state kept) instead of aborting them, and "
+        "resumes them bit-exact after the wake or the swap back; also what live "
+        "migration (/v1/parked) needs. off (default) keeps the abort path",
+    )
+    p.add_argument(
         "--faults", default="",
         help="arm fault-injection points at startup (utils/faults.py), e.g. "
         "'swap.h2d=fail:1'; also the FMA_FAULTS env and POST /v1/faults",
@@ -432,6 +472,8 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError("--slo-tpot-ms must be >= 0 (0 = off)")
     if not 0.0 <= args.trace_requests <= 1.0:
         raise ValueError("--trace-requests must be in [0, 1]")
+    if args.zero_drain == "on" and args.tensor_parallel_size > 1:
+        raise ValueError("--zero-drain on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
     if args.sleep_quant != "off":
         reason = transfer_quant.transfer_quant_supported(args.sleep_quant)
         if reason:
@@ -495,6 +537,19 @@ def resolve_model(args: argparse.Namespace, model_id: str):
     return model_cfg, eos, extra, hf_dir, tok
 
 
+class MigrationRejected(Exception):
+    """A migration verb refused before anything moved (weights that are not
+    the same, no room, a spent fence, a sleeping engine, zero-drain off,
+    the other package's generator key): a 409."""
+
+
+class MigrationFailed(Exception):
+    """A migration leg failed after its checks, and was recovered: the
+    source resumed the streams at home, or the destination rolled back
+    clean (a lost ack: the import is seated, and a retry replays its ack):
+    a 500."""
+
+
 class ProfileConflict(Exception):
     """POST /v1/profile while a capture runs (the profiler is process
     global: one capture at a time), or DELETE with none: a 409."""
@@ -549,6 +604,10 @@ class _ModelRuntime:
     #: level-2 wake), and how many there were; None for a named config
     load_stats: Optional[hf_models.LoadStats] = None
     loads: int = 0
+    #: the requests a zero-drain park took off this runtime's engine
+    #: (``engine/parked.py:ParkedRequests``): pooled with its slept weights,
+    #: seated again when it serves again
+    parked: Any = None
 
 
 class EngineService:
@@ -574,6 +633,8 @@ class EngineService:
         #: compressed actuation (--sleep-quant): "off", "int8" or "fp8"
         self._sleep_quant = args.sleep_quant
         self._sleep_quant_hot_head = args.sleep_quant_hot_head != "off"
+        #: zero-drain actuation (--zero-drain): parks instead of aborts
+        self._zero_drain = getattr(args, "zero_drain", "off") == "on"
         #: the cost oracle: bandwidth EWMAs fed by every transfer, and the
         #: flight recorder of every actuation (GET /v1/costs, /v1/actuations)
         self.costs = CostBook(capacity=int(os.environ.get("FMA_FLIGHT_RECORDER_CAP", "512") or 512))
@@ -646,6 +707,29 @@ class EngineService:
         self._generated_tokens = 0
         self._aborted: Dict[str, int] = {}
         self._actuations: Dict[str, int] = {}
+        # zero-drain accounting (under _mu): every preempted request ends
+        # one way, preempted == resumed + aborted + migrated
+        self._zd = {"preempted": 0, "resumed": 0, "aborted": 0, "migrated": 0}
+        self._zd_parked_bytes = 0
+        # live migration: the exported bundle held under its fence until a
+        # release or an abort spends it; the acks stored by fence (a retried
+        # import replays its ack instead of seating twice); the claims of
+        # streams migrated in; the proxies of streams migrated out, by
+        # id(future), so a client that hangs up is one abort on each side
+        self._migration: Optional[Dict[str, Any]] = None
+        self._migration_gen = 0
+        self._spent_fences: set = set()
+        self._import_acks: Dict[str, Dict[str, Any]] = {}
+        self._imported_claims: Dict[str, Dict[str, Any]] = {}
+        self._mig = {
+            "exported": 0, "imported": 0, "committed": 0, "resumed_local": 0, "rolled_back": 0, "state_loss": 0,
+            "requests_out": 0, "requests_in": 0, "bytes_out": 0, "bytes_in": 0,
+        }
+        self._proxied: Dict[int, Dict[str, Any]] = {}
+        #: the port's own: the last export's and import's seconds by leg
+        #: (park, encode, serialize and send; read, identity, decode, seat)
+        #: and wire bytes, in /v1/stats.migration_legs
+        self._mig_last: Dict[str, Dict[str, Any]] = {"export": {}, "import": {}}
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, name="engine", daemon=True)
@@ -735,6 +819,7 @@ class EngineService:
             rt.engine, bucket_bytes=self._swap_bucket_bytes, quant_mode=self._sleep_quant,
             quant_hot_head=self._sleep_quant_hot_head, on_transfer=self.costs.observe_transfer,
         )
+        rt.engine.zero_drain_park = self._zero_drain
         state_bytes = sum(t.numel() * t.element_size() for t in rt.engine.model.parameters())
         state_bytes += rt.engine.pool.nbytes()
         if rt.engine.graphs is not None:
@@ -936,13 +1021,17 @@ class EngineService:
                     "legs": {k: round(v, 6) for k, v in _request_legs(req, now).items()},
                 })
 
-    def _finish_request_trace(self, req, now: float, violated: bool = False, aborted: bool = False) -> str:
+    def _finish_request_trace(self, req, now: float, violated: bool = False, aborted: bool = False,
+                              migrated: bool = False, outcome: str = "") -> str:
         """Close a request's lifecycle trace: keep it when it was
-        head-sampled or violated an SLO or was aborted (with
-        ``--trace-requests 0`` such a request gets a trace made here from
-        its stamps), with one span for the whole decode window, never one
-        per step; stamp ``req.trace_id``. Returns the trace id when the
-        spans were kept, else ""."""
+        head-sampled or violated an SLO or was aborted or migrated (with
+        ``--trace-requests 0`` a violated or aborted request gets a trace
+        made here from its stamps), with one span for the whole decode
+        window, never one per step (none for a stream migrated out: its
+        decode goes on at the destination, which records it); stamp
+        ``req.trace_id``. ``outcome``: the root's, by default "aborted" or
+        "finished". Returns the trace id when the spans were kept, else
+        ""."""
         if getattr(req, "_trace_done", False):
             return req.trace_id
         req._trace_done = True
@@ -956,13 +1045,13 @@ class EngineService:
                 tr.add("request.prefill", req.first_sched_time,
                        req.first_token_time if req.first_token_time is not None else now,
                        prompt_tokens=len(req.prompt), cached_tokens=req.cached_tokens, synthesized=True)
-        if req.first_token_time is not None and now > req.first_token_time:
+        if req.first_token_time is not None and now > req.first_token_time and not migrated:
             tr.add("request.decode", req.first_token_time, now, tokens=len(req.out_tokens),
                    finish_reason=req.finish_reason or "")
-        keep = tr.sampled or violated or aborted
-        tid = tr.finish(req.submit_time, now, keep, outcome="aborted" if aborted else "finished",
+        keep = tr.sampled or violated or aborted or migrated
+        tid = tr.finish(req.submit_time, now, keep, outcome=outcome or ("aborted" if aborted else "finished"),
                         violated=bool(violated), prompt_tokens=len(req.prompt), tokens=len(req.out_tokens),
-                        preempt_s=0.0)
+                        preempt_s=round(req.preempt_s, 6))
         req.trace = None
         req.trace_id = tid if keep else ""
         return req.trace_id
@@ -1056,6 +1145,13 @@ class EngineService:
                     self.engine.abort(sid, "aborted by the client")
                     del self._futures[sid]
                     gone += 1
+            rec = self._proxied.pop(id(fut), None)
+            if rec is not None:
+                # a stream migrated out: its one client abort is counted
+                # here, and the destination is told to abort its claim (it
+                # counts its own); a parked one is dropped at its resume
+                gone += 1
+                self._abort_claims_async(rec["dest"], [rec["claim"]])
             self._count_abort("client", gone)
             if not fut.done():
                 fut.set_exception(RuntimeError("request aborted"))
@@ -1077,15 +1173,50 @@ class EngineService:
             raise ValueError("sleep level must be 1 or 2")
 
         def go():
-            self._digests(self._runtime)  # the digest job reads the card
+            rt = self._runtime
+            self._digests(rt)  # the digest job reads the card
             was_sleeping, prev_level = self.sleeper.is_sleeping, self.sleeper.level
             # a level-1 offload is priced; a level-2 sleep discards
             pred = self._priced(self.price_sleep) if level == 1 and not was_sleeping else None
             t0 = time.monotonic()
+            parked = None
+            #: a park that fell back: the offload then moves the whole pool
+            #: the prediction left out, so the record goes unpriced
+            fallback = False
             with tracing.span("engine.sleep", level=level, model=self.model) as sp:
                 if pred is not None:
                     sp.set(predicted_bytes=pred.get("predicted_bytes"), predicted_s=pred.get("predicted_s"))
-                out = self.sleeper.sleep(level)
+                if level == 1 and not was_sleeping and self._zero_drain:
+                    # page the live requests' KV out compactly first: the
+                    # offload then moves the weights alone, and the wake
+                    # seats the bundle again; a failed park keeps the whole
+                    # pool's offload, which keeps the requests across the
+                    # sleep as well
+                    parked = self._park_current(park_pending=False)
+                    if parked is not None:
+                        rt.parked = parked
+                    fallback = parked is None
+                try:
+                    out = self.sleeper.sleep(level)
+                except Exception as e:
+                    if parked is not None and rt.parked is parked:
+                        # an offload has no rollback: the parked requests end
+                        # cleanly (state_loss), and the engine gets its pool
+                        # back in case it can still serve
+                        rt.parked = None
+                        try:
+                            if rt.engine.kv_detached:
+                                rt.engine.rebuild_kv_pool()
+                        except Exception:  # noqa: BLE001 — the abort below stands either way
+                            traceback.print_exc()
+                        self._abort_parked_bundle(
+                            parked, self.model, f"preempted requests lost: level-1 offload failed ({type(e).__name__}: {e})")
+                    raise
+                if int(self.sleeper.level) == 2 and rt.parked is not None:
+                    # a level-2 edge drops the host state a parked bundle
+                    # would resume against
+                    b, rt.parked = rt.parked, None
+                    self._abort_parked_bundle(b, self.model, "preempted requests lost: level-2 sleep discarded the parked state")
             sleep_s = time.monotonic() - t0
             if out.get("bytes_offloaded") and not was_sleeping:
                 fm.ENGINE_ACTUATION_BYTES.labels(mode=out.get("quant", "off") or "off", dir="d2h").inc(
@@ -1097,16 +1228,27 @@ class EngineService:
                 fm.ENGINE_ACTUATION_SECONDS.labels(kind="sleep", phase="total").observe(sleep_s)
             if not was_sleeping or self.sleeper.level != prev_level:
                 self._bump_actuation("sleep")
-                priced = pred is not None and int(self.sleeper.level) == 1
+                priced = pred is not None and int(self.sleeper.level) == 1 and not fallback
                 self._record_actuation(
                     "sleep", self.model,
                     # an L1 -> L2 change while asleep drops the host copy
                     trigger="escalation" if was_sleeping else "client",
                     tier="host" if int(self.sleeper.level) == 1 else "discard",
                     pred=pred if priced else None,
-                    actual_bytes=out.get("bytes_offloaded", 0),
-                    actual_s=self.sleeper.stats.last_sleep_transfer_s if priced else (0.0 if was_sleeping else sleep_s),
+                    # a park's page-out is part of what this sleep moved,
+                    # in its bytes and in its transfer window
+                    actual_bytes=out.get("bytes_offloaded", 0) + (parked.kv_nbytes if parked else 0),
+                    actual_s=(self.sleeper.stats.last_sleep_transfer_s + (parked.pageout_s if parked else 0.0))
+                    if priced else (0.0 if was_sleeping else sleep_s),
+                    extra={"preempted": parked.preempted} if parked else None,
                 )
+            if parked is not None:
+                # the port's own: what the park moved, its pinning apart
+                out = dict(out, zero_drain={"parked": parked.preempted, "kv_pageout_bytes": parked.kv_nbytes,
+                                            "kv_pageout_s": round(parked.pageout_s, 6),
+                                            "kv_pin_s": round(parked.pin_s, 6)})
+            elif fallback:
+                out = dict(out, zero_drain={"parked": 0, "fallback": "park failed (kv page-out)"})
             return out
 
         return self._on_loop(go)
@@ -1132,6 +1274,10 @@ class EngineService:
                     out = self.sleeper.wake_up()
                 else:
                     out = self.sleeper.wake_up(reinit=lambda: fresh_state(self.engine))
+                # zero-drain: the parked KV pages back into the rebuilt pool
+                # and the streams go on mid-decode (a failed page-in ends
+                # them with state_loss inside; the engine serves either way)
+                resumed, pagein, resume_s, _dropped, short = self._resume_parked(self._runtime)
             self._bump_actuation("wake")
             st = self.sleeper.stats
             if was_l1 and st.last_wake_bytes:
@@ -1139,16 +1285,916 @@ class EngineService:
             if was_l1 and st.last_wake_transfer_s > 0:
                 fm.ENGINE_ACTUATION_SECONDS.labels(kind="wake", phase="h2d").observe(st.last_wake_transfer_s)
             fm.ENGINE_ACTUATION_SECONDS.labels(kind="wake", phase="total").observe(max(0.0, st.last_wake_seconds))
+            priced = was_l1 and not short
             self._record_actuation(
                 "wake", self.model, trigger="client", tier="host" if was_l1 else "cold",
-                # a level-2 wake writes fresh weights: outside the pricing
-                pred=pred if was_l1 else None,
-                actual_bytes=st.last_wake_bytes if was_l1 else 0,
-                actual_s=st.last_wake_transfer_s if was_l1 else st.last_wake_seconds,
+                # a level-2 wake writes fresh weights, and a page-in that
+                # fell short of the bundle moved less than priced: outside
+                # the pricing
+                pred=pred if priced else None,
+                actual_bytes=st.last_wake_bytes + pagein if was_l1 else 0,
+                actual_s=st.last_wake_transfer_s + resume_s if priced else (
+                    st.last_wake_transfer_s if was_l1 else st.last_wake_seconds),
+                extra={"resumed": resumed} if resumed else None,
             )
+            if resumed or short:
+                out = dict(out, zero_drain={"resumed": resumed, "kv_pagein_bytes": pagein,
+                                            "kv_pagein_s": round(resume_s, 6),
+                                            **({"restore_shortfall": True} if short else {})})
             return out
 
         return self._on_loop(wake)
+
+    # -- zero-drain actuation: preempt, park, resume (engine/parked.py) ---------
+
+    def _park_pageout_bytes(self) -> int:
+        """The bytes a park of the serving engine would page out now: one
+        page's bytes (``PagePool.page_nbytes``) times the live pages
+        (``parked_page_ids``), the park's own arithmetic, so the predicted
+        and the moved bytes agree exactly. 0 with zero-drain off."""
+        if not self._zero_drain:
+            return 0
+        eng = self.engine
+        m = eng.cfg.model
+        per_page = PagePool.page_nbytes(m.num_layers, eng.cfg.page_size, m.num_kv_heads, m.head_dim, dtype=m.dtype)
+        return per_page * len(eng.parked_page_ids())
+
+    def _park_current(self, park_pending: bool):
+        """Park the serving engine's live work into a bundle (on the
+        engine thread, between steps): page the live KV out (fault point
+        ``kvsave.d2h``), detach the scheduler, and move the displaced
+        futures (and with ``park_pending`` the submissions still queued
+        here) into the bundle. Returns None, the engine untouched, when the
+        page-out failed: the caller takes the abort path."""
+        eng = self.engine
+        t0 = time.monotonic()
+        try:
+            bundle, _ = eng.park_requests(bucket_bytes=self._swap_bucket_bytes)
+        except Exception:  # noqa: BLE001 — the abort path takes over
+            traceback.print_exc()
+            return None
+        t1 = time.monotonic()
+        for r in [pr.req for pr in bundle.live] + list(bundle.waiting):
+            fut = self._futures.pop(r.seq_id, None)
+            if fut is not None:
+                bundle.futures[r.seq_id] = fut
+            # the parked window [t0, resume] goes to the request's preempt leg
+            r._park_t0, r._park_t1, r._park_pre_token = t0, t1, r.first_token_time is None
+            if r.trace is not None:
+                r.trace.add("request.preempt", t0, t1, kv_bytes=bundle.kv_nbytes)
+        if park_pending:
+            # queued submissions target the outgoing model: they park too
+            with self._mu:
+                bundle.pending, self._pending = self._pending, []
+        if bundle.kv_nbytes:
+            fm.ENGINE_KV_PAGEOUT.labels(dir="d2h").inc(bundle.kv_nbytes)
+            # the gather's copy window alone (its pinning excluded)
+            self.costs.observe_transfer("kvsave.d2h", bundle.kv_nbytes, bundle.pageout_s)
+        with self._mu:
+            self._zd["preempted"] += bundle.preempted
+            self._zd_parked_bytes += bundle.kv_nbytes
+        return bundle
+
+    def _abort_parked_bundle(self, bundle, model: str, why: str) -> int:
+        """A bundle that can never resume (its KV restore failed, its model
+        was evicted, a level-2 sleep dropped its state): every displaced
+        future fails with the ``state_loss`` cause, never a wedged slot."""
+        exc = RuntimeError(why)
+        now = time.monotonic()
+        n = 0
+        for r in [pr.req for pr in bundle.live] + list(bundle.waiting):
+            fut = bundle.futures.get(r.seq_id)
+            if fut is not None and not fut.done():
+                fut.set_exception(exc)
+            self._finish_request_trace(r, now, aborted=True, outcome="state_loss")
+            n += 1
+        for kw, fut in bundle.pending:
+            if not fut.done():
+                fut.set_exception(exc)
+            if kw.get("trace") is not None:
+                kw["trace"].finish(kw.get("submit_time", now), now, keep=True, outcome="state_loss")
+            n += 1
+        if n:
+            self._count_abort("state_loss", n)
+            fm.ENGINE_PREEMPTED.labels(model=model, outcome="aborted").inc(n)
+        with self._mu:
+            self._zd["aborted"] += n
+            self._zd_parked_bytes -= bundle.kv_nbytes
+        return n
+
+    def _abort_parked(self, rt: _ModelRuntime, model: str, why: str) -> None:
+        """:meth:`_abort_parked_bundle` of ``rt``'s bundle, if it has one."""
+        if rt is not None and rt.parked is not None:
+            b, rt.parked = rt.parked, None
+            self._abort_parked_bundle(b, model, why)
+
+    def _resume_parked(self, rt: _ModelRuntime) -> tuple:
+        """Seat a runtime's parked bundle into its engine (awake, its pool
+        rebuilt): page the KV in (fault point ``kvrestore.h2d``), give the
+        futures and the queued submissions back, and let the loop go on.
+        Returns ``(resumed, pagein_bytes, seconds, dropped, shortfall)``:
+        ``dropped`` counts parked requests whose clients left meanwhile;
+        ``shortfall`` is set whenever the page-in moved fewer bytes than
+        the bundle holds (dropped clients, or a failed restore), so the
+        caller records the actuation unpriced. A failed restore ends the
+        live requests with ``state_loss`` and leaves the engine serving;
+        the re-queued waiting and pending ones, which carried no KV, count
+        as resumed, so preempted == resumed + aborted + migrated holds."""
+        from .parked import ParkedResumeFailed
+
+        bundle = rt.parked
+        if bundle is None:
+            return 0, 0, 0.0, 0, False
+        rt.parked = None
+        with self._mu:
+            self._zd_parked_bytes -= bundle.kv_nbytes
+        model = rt.model_id
+
+        def dead(seq_id: int) -> bool:
+            fut = bundle.futures.get(seq_id)
+            return fut is not None and fut.done()
+
+        # clients that went away while parked: dropped before seating
+        gone = [pr.req for pr in bundle.live if dead(pr.req.seq_id)] + [r for r in bundle.waiting if dead(r.seq_id)]
+        bundle.live = [pr for pr in bundle.live if not dead(pr.req.seq_id)]
+        bundle.waiting = [r for r in bundle.waiting if not dead(r.seq_id)]
+        if gone:
+            self._count_abort("client", len(gone))
+            fm.ENGINE_PREEMPTED.labels(model=model, outcome="aborted").inc(len(gone))
+            with self._mu:
+                self._zd["aborted"] += len(gone)
+            now = time.monotonic()
+            for r in gone:
+                self._finish_request_trace(r, now, aborted=True)
+        t0 = time.monotonic()
+        try:
+            n_live, moved = rt.engine.resume_parked(bundle, bucket_bytes=self._swap_bucket_bytes)
+        except ParkedResumeFailed as e:
+            # unwound inside the engine; the live requests' KV is gone
+            exc = RuntimeError(f"preempted request aborted: zero-drain KV restore failed ({e})")
+            tloss = time.monotonic()
+            for pr in bundle.live:
+                fut = bundle.futures.get(pr.req.seq_id)
+                if fut is not None and not fut.done():
+                    fut.set_exception(exc)
+                self._finish_request_trace(pr.req, tloss, aborted=True, outcome="state_loss")
+            for r in bundle.waiting:
+                fut = bundle.futures.get(r.seq_id)
+                if fut is not None and not fut.done():
+                    self._futures[r.seq_id] = fut
+            with self._mu:
+                self._pending.extend(bundle.pending)
+            nlost, requeued = len(bundle.live), len(bundle.waiting) + len(bundle.pending)
+            if nlost:
+                self._count_abort("state_loss", nlost)
+                fm.ENGINE_PREEMPTED.labels(model=model, outcome="aborted").inc(nlost)
+            if requeued:
+                fm.ENGINE_PREEMPTED.labels(model=model, outcome="resumed").inc(requeued)
+            with self._mu:
+                self._zd["aborted"] += nlost
+                self._zd["resumed"] += requeued
+            fm.ENGINE_RECOVERIES.labels(path="kvrestore", outcome="rolled_back").inc()
+            self.degraded = f"zero-drain resume aborted {nlost} preempted request(s) with state_loss: {e}"
+            self._work.set()
+            return 0, 0, time.monotonic() - t0, len(gone), True
+        t3 = time.monotonic()
+        resume_s = t3 - t0
+        if moved:
+            fm.ENGINE_KV_PAGEOUT.labels(dir="h2d").inc(moved)
+            self.costs.observe_transfer("kvrestore.h2d", moved, resume_s)
+        for r in [pr.req for pr in bundle.live] + list(bundle.waiting):
+            pt0 = getattr(r, "_park_t0", None)
+            if pt0 is not None:
+                r.preempt_s += max(0.0, t3 - pt0)
+                if r._park_pre_token:
+                    r.preempt_pre_token_s += max(0.0, t3 - pt0)
+                if r.trace is not None:
+                    r.trace.add("request.park", r._park_t1, t0)
+                    r.trace.add("request.resume", t0, t3, kv_bytes=moved)
+                r._park_t0 = None
+        for seq_id, fut in bundle.futures.items():
+            if not fut.done():
+                self._futures[seq_id] = fut
+        with self._mu:
+            self._pending.extend(bundle.pending)
+        resumed = n_live + len(bundle.waiting) + len(bundle.pending)
+        if resumed:
+            fm.ENGINE_PREEMPTED.labels(model=model, outcome="resumed").inc(resumed)
+        with self._mu:
+            self._zd["resumed"] += resumed
+        self._work.set()
+        return resumed, moved, resume_s, len(gone), bool(gone)
+
+    def _unpark_current(self, rt: _ModelRuntime) -> None:
+        """The rollback leg of a failed actuation that had parked: the
+        requests go back to serving (the pool rebuilt first if the park's
+        release still holds)."""
+        if rt.parked is None:
+            return
+        try:
+            if rt.engine.kv_detached:
+                rt.engine.rebuild_kv_pool()
+        except Exception as e:  # noqa: BLE001 — the requests end cleanly instead
+            self._abort_parked(rt, rt.model_id, f"preempted requests lost: the KV pool could not be rebuilt ({e})")
+            return
+        self._resume_parked(rt)
+
+    # -- live request migration: the fenced handoff of a parked bundle to a
+    # sibling (the launcher's migrate and drain verbs drive it) ---------------
+    #
+    #   source GET  /v1/parked/{model}   export_parked:   park, encode
+    #   dest   POST /v1/parked           import_parked:   check, seat
+    #   source POST /v1/parked/release   release_parked:  commit, proxy
+    #   source POST /v1/parked/abort     abort_migration: resume at home
+    #
+    # The export mints a single-use fence; the import stores its ack under
+    # it (a retried import replays the ack, never seats twice), and release
+    # or abort spend it once (a second is a 409). Clients only ever resolve
+    # through the source's own futures: after the release a watcher thread
+    # per stream carries the destination's claim into them.
+
+    def _migration_identity(self) -> Dict[str, Any]:
+        """What both ends of a handoff compare: the model, its checkpoint
+        directory and a fingerprint over its weight digests. Random weights
+        (no digests, no directory) have no identity to prove and are
+        refused."""
+        from . import parked as parked_mod
+
+        rt = self._runtime
+        digests = self._digests(rt) if self._content_hash else None
+        if not digests and not rt.hf_dir:
+            raise MigrationRejected(
+                "no provable weight identity (no content digests and no checkpoint): migration between "
+                "random-init engines is refused")
+        return {
+            "model": self.model,
+            "checkpoint_dir": rt.hf_dir,
+            "weight_fingerprint": parked_mod.weight_fingerprint(digests) if digests else "",
+            "page_size": int(self.args.page_size),
+            "vocab_size": int(self.engine.cfg.model.vocab_size),
+            "max_model_len": int(self.args.max_model_len or 0),
+        }
+
+    def _check_identity(self, theirs: Dict[str, Any]) -> None:
+        """The import's identity gate: the fingerprints decide when both
+        sides have one, else the checkpoint directory must be the same."""
+        mine = self._migration_identity()
+        if theirs.get("model") != mine["model"]:
+            raise MigrationRejected(f"model identity mismatch: bundle is {theirs.get('model')!r}, "
+                                    f"serving {mine['model']!r}")
+        fp_t, fp_m = theirs.get("weight_fingerprint") or "", mine["weight_fingerprint"]
+        if fp_t and fp_m:
+            if fp_t != fp_m:
+                raise MigrationRejected("weight fingerprint mismatch: same model name, different weights "
+                                        "(refusing to seat KV onto foreign weights)")
+        elif not mine["checkpoint_dir"] or (theirs.get("checkpoint_dir") or "") != mine["checkpoint_dir"]:
+            raise MigrationRejected("no comparable weight identity (enable --content-hash or serve both "
+                                    "instances from the same checkpoint)")
+        if int(theirs.get("page_size", -1)) != mine["page_size"]:
+            raise MigrationRejected(f"page_size mismatch ({theirs.get('page_size')} != {mine['page_size']}): "
+                                    "KV pages are not portable")
+
+    @staticmethod
+    def _encode_pending(kw: Dict[str, Any]) -> Dict[str, Any]:
+        """A queued submission as the reference's wire spec. Its future and
+        streaming hook stay at the source (the proxy resolves them), and its
+        submit time too: the importer stamps its own."""
+        spec = {
+            "prompt": [int(t) for t in kw["prompt"]],
+            "max_tokens": int(kw.get("max_new_tokens", 16)),
+            "temperature": float(kw.get("temperature", 0.0)),
+            "top_p": float(kw.get("top_p", 1.0)),
+            "stop_seqs": [list(s) for s in kw.get("stop_seqs") or ()],
+            "presence_penalty": float(kw.get("presence_penalty", 0.0)),
+            "frequency_penalty": float(kw.get("frequency_penalty", 0.0)),
+            "want_top_logprobs": bool(kw.get("want_top_logprobs", False)),
+            "want_prompt_logprobs": bool(kw.get("want_prompt_logprobs", False)),
+            "seed": None if kw.get("seed") is None else int(kw["seed"]),
+            "ignore_eos": bool(kw.get("ignore_eos", False)),
+            "logit_bias": {str(t): float(v) for t, v in (kw.get("logit_bias") or {}).items()},
+            "variant": 0,
+        }
+        if kw.get("trace") is not None:
+            ctx = kw["trace"].context()
+            spec["trace"] = {"trace_id": ctx.trace_id, "span_id": ctx.span_id}
+        return spec
+
+    @staticmethod
+    def _decode_pending(spec: Dict[str, Any]) -> Dict[str, Any]:
+        """A wire spec as a queued submission's ``add_request`` keywords;
+        its trace joins the origin's."""
+        if int(spec.get("variant", 0) or 0):
+            raise ValueError("a submission of a co-resident variant: co-resident variants are not ported yet")
+        kw = {
+            "prompt": [int(t) for t in spec["prompt"]],
+            "max_new_tokens": int(spec["max_tokens"]),
+            "temperature": float(spec["temperature"]),
+            "top_p": float(spec["top_p"]),
+            "stop_seqs": tuple(tuple(int(t) for t in s) for s in spec.get("stop_seqs", ())),
+            "presence_penalty": float(spec["presence_penalty"]),
+            "frequency_penalty": float(spec["frequency_penalty"]),
+            "want_top_logprobs": bool(spec["want_top_logprobs"]),
+            "want_prompt_logprobs": bool(spec["want_prompt_logprobs"]),
+            "seed": None if spec["seed"] is None else int(spec["seed"]),
+            "ignore_eos": bool(spec["ignore_eos"]),
+            "logit_bias": {int(t): float(v) for t, v in spec.get("logit_bias", {}).items()} or None,
+            "submit_time": time.monotonic(),
+        }
+        tr = spec.get("trace")
+        if isinstance(tr, dict) and tr.get("trace_id") and tracing.enabled():
+            # migrated-in work is always kept (the handoff's forensics)
+            kw["trace"] = tracing.RequestTrace(
+                sampled=True, parent=tracing.SpanContext(str(tr["trace_id"]), str(tr.get("span_id", ""))))
+        return kw
+
+    def _key_nbytes(self, req) -> int:
+        eng = self.engine
+        if req.temperature > 0 and req.slot >= 0 and eng._gens[req.slot] is not None:
+            return eng._gens[req.slot].get_state().numel()
+        return 8  # parked.greedy_key: two uint32 words
+
+    def price_migrate(self) -> Dict[str, Any]:
+        """The predicted cost of exporting the serving engine's live work:
+        its live KV pages (the park's own arithmetic) plus each live
+        request's scheduler rows (a ``[vocab]`` int32 counts row and its
+        key), at the ``migrate.export`` bandwidth. What ``/v1/costs``
+        shows, so a launcher can pick a cheap moment to drain."""
+        eng = self.engine
+        park = self._park_pageout_bytes()
+        live = [r for r in eng._slots if r is not None and not r.done and not r.prefilling]
+        meta = sum(int(eng.cfg.model.vocab_size) * 4 + self._key_nbytes(r) for r in live)
+        predicted = park + meta
+        s, measured = self.costs.bandwidths.seconds_for("migrate.export", predicted)
+        with self._mu:
+            pending = len(self._pending)
+        return {
+            "kind": "migrate", "model": self.model, "enabled": self._zero_drain,
+            "predicted_bytes": predicted, "predicted_kv_bytes": park, "predicted_s": round(s, 6),
+            "measured": measured, "requests": len(live) + len(eng._waiting) + pending,
+        }
+
+    def _export_failed(self, bundle, model: str, t0: float, e: BaseException) -> None:
+        """An export leg failed after the park: the bundle never left, so it
+        resumes here (on the engine thread)."""
+        rt = self._runtime
+        rt.parked = bundle
+        self._unpark_current(rt)
+        with self._mu:
+            self._mig["resumed_local"] += 1
+        fm.ENGINE_MIGRATIONS.labels(role="source", outcome="resumed_local").inc()
+        self._record_actuation("migrate", model, trigger="export", tier="wire", pred=None, actual_bytes=0,
+                               actual_s=time.monotonic() - t0, outcome="resumed_local",
+                               extra={"error": f"{type(e).__name__}: {e}"})
+
+    def export_parked(self, model: str) -> Dict[str, Any]:
+        """GET /v1/parked/{model}: park every stream and encode the bundle
+        for a sibling. The pool is rebuilt at once, so new arrivals are
+        served during the handoff, and the bundle is held under a fence
+        until a release or an abort. Fault point ``migrate.export`` fires
+        after the park; its recovery is a resume at home (nothing left the
+        process). The encoding runs off the engine thread."""
+        from . import parked as parked_mod
+
+        if model != self.model:
+            raise MigrationRejected(f"model {model!r} is not the serving model (serving {self.model!r})")
+        if not self._zero_drain:
+            raise MigrationRejected("zero-drain parking is off (--zero-drain off): nothing can be parked for migration")
+        identity = self._migration_identity()
+        t0 = time.monotonic()
+        with tracing.span("migrate.export", model=model) as sp:
+
+            def park():
+                t_park = time.monotonic()
+                if self.sleeper.is_sleeping:
+                    raise MigrationRejected("instance is sleeping; wake it before migrating")
+                if self._migration is not None:
+                    raise MigrationRejected(f"a migration is already in flight (fence {self._migration['token']})")
+                pred = self._priced(self.price_migrate)
+                bundle = self._park_current(park_pending=True)
+                if bundle is None:
+                    raise MigrationFailed("zero-drain park failed; nothing was displaced (streams still live)")
+                try:
+                    faults.fire("migrate.export")
+                    # the pool again now: new arrivals serve during the
+                    # handoff, and an abort resumes into it
+                    self.engine.rebuild_kv_pool()
+                except Exception as e:  # noqa: BLE001 — resumed at home
+                    self._export_failed(bundle, model, t0, e)
+                    raise MigrationFailed(f"export failed ({e}); streams resumed locally") from e
+                import uuid
+
+                self._migration_gen += 1
+                token = f"mig-{self._migration_gen}-{uuid.uuid4().hex[:12]}"
+                self._migration = {"token": token, "gen": self._migration_gen, "bundle": bundle, "model": model,
+                                   "pred": pred, "t0": t0, "requests": bundle.preempted, "nbytes": 0}
+                self._mig_last["export"] = {"park_s": round(time.monotonic() - t_park, 6),
+                                            "kv_pageout_s": round(bundle.pageout_s, 6),
+                                            "kv_pin_s": round(bundle.pin_s, 6), "kv_bytes": bundle.kv_nbytes}
+                self._work.set()
+                return bundle, self._migration
+
+            bundle, mig = self._on_loop(park)
+            token = mig["token"]
+            t_enc = time.monotonic()
+            try:
+                doc = parked_mod.encode_wire(bundle, identity, chunk_bytes=self._swap_bucket_bytes)
+                eng = self.engine
+                for r, spec in zip(bundle.waiting, doc["requests"]["waiting"]):
+                    if r.seed is None:
+                        # the stream this engine would have drawn from (its
+                        # seed, the request's id): the importer's ids differ
+                        spec["rng_key_data"] = parked_mod.pack_array(np.array([eng.stream_seed(r)], dtype=np.uint64))
+                doc["requests"]["pending"] = [self._encode_pending(kw) for kw, _ in bundle.pending]
+            except Exception as e:  # noqa: BLE001 — resumed at home
+
+                def home():
+                    self._migration = None
+                    self._spent_fences.add(token)
+                    self._export_failed(bundle, model, t0, e)
+
+                self._on_loop(home)
+                raise MigrationFailed(f"export failed ({e}); streams resumed locally") from e
+            doc["fence"] = {"token": token, "gen": mig["gen"], "source_model": model}
+            self._mig_last["export"]["encode_s"] = round(time.monotonic() - t_enc, 6)
+            nbytes = mig["nbytes"] = int(doc["nbytes"])
+            encode_s = time.monotonic() - t0
+            if nbytes:
+                self.costs.observe_transfer("migrate.export", nbytes, encode_s)
+            fm.ENGINE_MIGRATE_BYTES.labels(dir="export").inc(nbytes)
+            with self._mu:
+                self._mig["exported"] += 1
+                self._mig["bytes_out"] += nbytes
+            sp.set(nbytes=nbytes, requests=bundle.preempted, fence=token, encode_s=round(encode_s, 6))
+            return doc
+
+    def import_parked(self, doc: Dict[str, Any]) -> Dict[str, Any]:
+        """POST /v1/parked: check and seat a sibling's bundle. Everything
+        is checked before the engine changes (the wire version and every
+        KV chunk's digest, off the engine thread; the weights' identity;
+        the generator keys; the slots and pages), so a refusal leaves the
+        destination untouched, and a seat that fails takes the foreign
+        requests out again. The ack is stored under the fence before the
+        ``migrate.ack`` fault point fires, so a retry after a lost ack
+        replays it instead of seating twice."""
+        from . import parked as parked_mod
+        from .engine import Request
+
+        fence = doc.get("fence") or {}
+        token = str(fence.get("token") or "")
+        if not token:
+            raise ValueError("parked import without a fence token")
+        with self._mu:
+            replay = self._import_acks.get(token)
+        if replay is not None:
+            return dict(replay)
+        if token in self._spent_fences:
+            raise MigrationRejected(f"fence token {token!r} already spent (double-resume refused)")
+        if self.sleeper.is_sleeping:
+            raise MigrationRejected("instance is sleeping; wake it before importing")
+        t0 = time.monotonic()
+        self._check_identity(doc.get("identity") or {})
+        last = {"identity_s": round(time.monotonic() - t0, 6)}
+        with tracing.span("migrate.import", model=self.model, fence=token) as sp:
+            # every chunk's digest (a ValueError: a 400)
+            t_dec = time.monotonic()
+            bundle, pending_specs = parked_mod.decode_wire(doc, Request, pin=self._pin_host)
+            last["decode_s"] = round(time.monotonic() - t_dec, 6)
+            pending_kws = [self._decode_pending(spec) for spec in pending_specs]
+            self._check_keys(bundle)
+            try:
+                faults.fire("migrate.import")
+            except faults.FaultError as e:
+                with self._mu:
+                    self._mig["rolled_back"] += 1
+                fm.ENGINE_MIGRATIONS.labels(role="destination", outcome="rolled_back").inc()
+                raise MigrationFailed(f"import failed before seating ({e}); destination clean") from e
+
+            def seat():
+                import uuid
+
+                with self._mu:
+                    if token in self._import_acks:
+                        return dict(self._import_acks[token]), 0
+                eng = self.engine
+                if self.sleeper.is_sleeping or eng.kv_detached:
+                    raise MigrationRejected("the engine is sleeping or mid-actuation; retry after it settles")
+                free_slots = sum(1 for s in eng._slots if s is None)
+                if len(bundle.live) > free_slots:
+                    raise MigrationRejected(f"no capacity: {len(bundle.live)} live streams need slots, "
+                                            f"{free_slots} free")
+                # sharing-blind: a resume allocates each stream's whole budget
+                need = sum(PageAllocator.pages_needed(len(pr.req.prompt) + pr.req.max_new_tokens, eng.cfg.page_size)
+                           for pr in bundle.live)
+                if need > eng.allocator.available:
+                    raise MigrationRejected(f"no capacity: bundle needs up to {need} KV pages, "
+                                            f"{eng.allocator.available} free")
+                # this engine's ids; the claims map (source seq_id -> claim
+                # id) lets the source proxy each stream to its client
+                claims: Dict[str, str] = {}
+                recs: List[tuple] = []
+                for r in [pr.req for pr in bundle.live] + list(bundle.waiting):
+                    old = int(r.seq_id)
+                    r.seq_id = eng.new_seq_id()
+                    cid = uuid.uuid4().hex
+                    claims[str(old)] = cid
+                    recs.append((cid, r))
+                waiting = list(bundle.waiting)
+                try:
+                    n_live, moved = eng.resume_parked(bundle, bucket_bytes=self._swap_bucket_bytes)
+                except parked_mod.ParkedResumeFailed as e:
+                    # the engine queued the waiting ones again: right at
+                    # home, wrong here (the source still owns them)
+                    drop = {id(r) for r in waiting}
+                    eng._waiting = [r for r in eng._waiting if id(r) not in drop]
+                    with self._mu:
+                        self._mig["rolled_back"] += 1
+                    fm.ENGINE_MIGRATIONS.labels(role="destination", outcome="rolled_back").inc()
+                    raise MigrationFailed(f"import seat failed ({e}); destination rolled back clean") from e
+                t_seat = time.monotonic()
+                for cid, r in recs:
+                    fut: concurrent.futures.Future = concurrent.futures.Future()
+                    self._futures[r.seq_id] = fut
+                    self._imported_claims[cid] = {"req": r, "fut": fut}
+                    if r.trace_parent and tracing.enabled():
+                        # the origin's trace: same trace id, parented on the
+                        # source's lifecycle root, always kept
+                        r.trace = tracing.RequestTrace(sampled=True, parent=tracing.SpanContext(
+                            str(r.trace_parent["trace_id"]), str(r.trace_parent.get("span_id", ""))))
+                        r.trace.add("request.resume", t0, t_seat, migrated=True, fence=token)
+                for i, kw in enumerate(pending_kws):
+                    fut = concurrent.futures.Future()
+                    cid = uuid.uuid4().hex
+                    claims[f"p{i}"] = cid
+                    self._imported_claims[cid] = {"req": None, "fut": fut}
+                    with self._mu:
+                        self._pending.append((kw, fut))
+                ack = {
+                    "ok": True, "fence_token": token, "model": self.model, "seated": n_live,
+                    "waiting": len(waiting), "pending": len(pending_kws), "requests": len(recs) + len(pending_kws),
+                    "kv_bytes": moved, "claims": claims,
+                }
+                with self._mu:
+                    self._import_acks[token] = dict(ack)
+                self._work.set()
+                return ack, moved
+
+            t_seat = time.monotonic()
+            ack, moved = self._on_loop(seat)
+            self._mig_last["import"] = dict(last, seat_s=round(time.monotonic() - t_seat, 6), kv_pagein_bytes=moved)
+            if moved:
+                # this window holds the decode and the digests too: the
+                # kvrestore.h2d bandwidth sees transfer windows only
+                fm.ENGINE_KV_PAGEOUT.labels(dir="h2d").inc(moved)
+            import_s = time.monotonic() - t0
+            nbytes = int(doc.get("nbytes", 0))
+            if nbytes:
+                self.costs.observe_transfer("migrate.import", nbytes, import_s)
+            fm.ENGINE_MIGRATE_BYTES.labels(dir="import").inc(nbytes)
+            n_req = ack["requests"]
+            with self._mu:
+                self._mig["imported"] += 1
+                self._mig["bytes_in"] += nbytes
+                self._mig["requests_in"] += n_req
+            fm.ENGINE_MIGRATIONS.labels(role="destination", outcome="imported").inc()
+            self._record_actuation("migrate", self.model, trigger="import", tier="wire", pred=None,
+                                   actual_bytes=nbytes, actual_s=import_s, outcome="imported",
+                                   extra={"requests": n_req, "fence": token})
+            sp.set(nbytes=nbytes, requests=n_req, seated=ack["seated"])
+            try:
+                faults.fire("migrate.ack")
+            except faults.FaultError as e:
+                # the seat stands and its ack replays on the retry: only the
+                # answer is lost
+                raise MigrationFailed(f"import ack lost ({e}); retry the import (fenced, idempotent)") from e
+            return ack
+
+    def _check_keys(self, bundle) -> None:
+        """Refuse (409) a sampled stream whose generator key this engine
+        cannot continue: the reference's threefry key, or the generator
+        state of another kind of device. A greedy stream draws nothing."""
+        from .parked import key_kind
+
+        own = torch.Generator(device=self.engine.device).get_state().numel()
+        for pr in bundle.live:
+            if pr.req.temperature <= 0:
+                continue
+            if key_kind(pr.key_data) != "torch":
+                raise MigrationRejected("a sampled stream carries the reference package's generator key, which "
+                                        "this engine cannot continue (refusing rather than resampling it)")
+            if pr.key_data.size != own:
+                raise MigrationRejected(f"a sampled stream's generator state has {pr.key_data.size} bytes, this "
+                                        f"device's {own}: it was parked on another kind of device")
+        for r in bundle.waiting:
+            if r.temperature > 0 and key_kind(r.rng_key_data) == "jax":
+                raise MigrationRejected("a sampled waiting request carries the reference package's generator "
+                                        "key, which this engine cannot continue")
+
+    def release_parked(self, token: str, dest: str = "", claims: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+        """POST /v1/parked/release: the destination acked the import:
+        commit. Spends the fence (a second release, or an abort after it,
+        is a 409) and hands every displaced stream to a watcher thread that
+        carries the destination's claim into the original future and
+        streaming hook: the client never reconnects, and each token arrives
+        once because only this side resolves these futures."""
+
+        def spend():
+            mig = self._migration
+            if mig is None or mig["token"] != token:
+                raise MigrationRejected(f"fence token {token!r} is not the in-flight migration (spent or unknown)")
+            self._migration = None
+            self._spent_fences.add(token)
+            return mig
+
+        mig = self._on_loop(spend)
+        bundle, model = mig["bundle"], mig["model"]
+        claims = dict(claims or {})
+        with tracing.span("migrate.release", model=model, fence=token):
+            watchers = lost = gone = 0
+            gone_claims: List[str] = []
+            now = time.monotonic()
+            # (Request or None, the pending submission's keywords or None,
+            # future, claim id)
+            streams = [(r, None, bundle.futures.get(r.seq_id), claims.get(str(int(r.seq_id))))
+                       for r in [pr.req for pr in bundle.live] + list(bundle.waiting)]
+            streams += [(None, kw, fut, claims.get(f"p{i}")) for i, (kw, fut) in enumerate(bundle.pending)]
+            for r, kw, fut, cid in streams:
+                if fut is None or fut.done():
+                    # the client left while the bundle was away: one client
+                    # abort here, and the destination is told to abort its
+                    # claim (it counts its own)
+                    gone += 1
+                    if cid:
+                        gone_claims.append(cid)
+                    self._finish_migrated(r, kw, mig["t0"], now, dest, "aborted")
+                    continue
+                if not cid:
+                    fut.set_exception(RuntimeError("migrated stream lost: destination acked no claim for it"))
+                    self._count_abort("state_loss")
+                    lost += 1
+                    self._finish_migrated(r, kw, mig["t0"], now, dest, "state_loss")
+                    continue
+                self._finish_migrated(r, kw, mig["t0"], now, dest, "migrated")
+                self._start_claim_watcher(dest, cid, r if r is not None else self._pending_proxy_req(kw), fut)
+                watchers += 1
+            n = bundle.preempted
+            migrated = n - lost - gone
+            if gone:
+                self._count_abort("client", gone)
+            if lost or gone:
+                fm.ENGINE_PREEMPTED.labels(model=model, outcome="aborted").inc(lost + gone)
+            if migrated:
+                fm.ENGINE_PREEMPTED.labels(model=model, outcome="migrated").inc(migrated)
+            with self._mu:
+                self._zd["migrated"] += migrated
+                self._zd["aborted"] += lost + gone
+                self._zd_parked_bytes -= bundle.kv_nbytes
+                self._mig["committed"] += 1
+                self._mig["requests_out"] += migrated
+            if gone_claims:
+                self._abort_claims_async(dest, gone_claims)
+            fm.ENGINE_MIGRATIONS.labels(role="source", outcome="committed").inc()
+            self._record_actuation("migrate", model, trigger="migrate", tier="wire", pred=mig["pred"],
+                                   actual_bytes=mig["nbytes"], actual_s=time.monotonic() - mig["t0"],
+                                   outcome="committed",
+                                   extra={"requests": n, "proxied": watchers, "fence": token, "dest": dest or None})
+            return {"ok": True, "fence_token": token, "model": model, "migrated": migrated, "proxied": watchers}
+
+    def _finish_migrated(self, req, kw, t0: float, now: float, dest: str, outcome: str) -> None:
+        """The source's close of a stream handed away: a ``request.migrate``
+        span over the handoff, then its lifecycle root with ``outcome``,
+        always kept (the destination's spans carry the same trace id)."""
+        tr = req.trace if req is not None else kw.get("trace")
+        if tr is None:
+            return
+        tr.add("request.migrate", t0, now, dest=dest or "", outcome=outcome)
+        if req is not None:
+            tr.sampled = True
+            self._finish_request_trace(req, now, migrated=True, outcome=outcome)
+        else:
+            tr.finish(kw.get("submit_time", now), now, keep=True, outcome=outcome)
+
+    def abort_migration(self, token: str) -> Dict[str, Any]:
+        """POST /v1/parked/abort: the handoff failed after the export (the
+        import failed twice, or the destination is gone): spend the fence
+        and resume the bundle at home, the recovery of every single fault.
+        Only a second fault (the page-in failing too) ends in
+        ``state_loss``."""
+
+        def go():
+            mig = self._migration
+            if mig is None or mig["token"] != token:
+                raise MigrationRejected(f"fence token {token!r} is not the in-flight migration (spent or unknown)")
+            self._migration = None
+            self._spent_fences.add(token)
+            model = mig["model"]
+            resumed = moved = dropped = 0
+            seconds, shortfall = 0.0, True
+            with tracing.span("migrate.abort", model=model, fence=token):
+                rt = self._runtime
+                rt.parked = mig["bundle"]
+                try:
+                    if rt.engine.kv_detached:
+                        rt.engine.rebuild_kv_pool()
+                except Exception:  # noqa: BLE001 — a double fault: aborted below
+                    traceback.print_exc()
+                if not rt.engine.kv_detached:
+                    resumed, moved, seconds, dropped, shortfall = self._resume_parked(rt)
+                self._abort_parked(rt, model, "preempted request aborted: migration aborted and the KV pool could "
+                                              "not be rebuilt (state_loss)")
+                outcome = "resumed_local"
+                if shortfall and resumed == 0 and mig["requests"] > dropped:
+                    outcome = "state_loss"
+                with self._mu:
+                    self._mig[outcome] += 1
+                fm.ENGINE_MIGRATIONS.labels(role="source", outcome=outcome).inc()
+                self._record_actuation("migrate", model, trigger="abort", tier="wire", pred=None,
+                                       actual_bytes=moved, actual_s=seconds, outcome=outcome,
+                                       extra={"resumed": resumed, "dropped": dropped, "fence": token})
+            return {"ok": outcome == "resumed_local", "outcome": outcome, "fence_token": token, "model": model,
+                    "resumed": resumed}
+
+        return self._on_loop(go)
+
+    def _find_live_request(self, fut):
+        """The engine's Request of ``fut``, once it is admitted."""
+        seq = next((sid for sid, f in list(self._futures.items()) if f is fut), None)
+        if seq is None:
+            return None
+        eng = self.engine
+        return next((r for r in list(eng._slots) + list(eng._waiting) if r is not None and r.seq_id == seq), None)
+
+    def claim_view(self, claim_id: str, wait_s: float = 0.0, have: int = -1) -> Dict[str, Any]:
+        """GET /v1/parked/claims/{id}: the destination's view of one stream
+        migrated in, long-polled: waits up to ``wait_s`` until it finishes
+        or holds more than ``have`` tokens a stop sequence can no longer
+        strip (the engine's own hold-back rule), so the source's proxy
+        never streams what the engine would have held back."""
+        from . import parked as parked_mod
+        from .engine import _stop_holdback
+
+        rec = self._imported_claims.get(claim_id)
+        if rec is None:
+            raise ValueError(f"unknown claim {claim_id!r}")
+        deadline = time.monotonic() + max(0.0, min(float(wait_s), 30.0))
+        while True:
+            fut = rec["fut"]
+            if fut.done():
+                try:
+                    req = fut.result()
+                except Exception as e:  # noqa: BLE001 — the proxy reports it
+                    return {"done": True, "error": f"{type(e).__name__}: {e}"}
+                return {"done": True, "request": parked_mod.encode_request(req), "finish_reason": req.finish_reason}
+            req = rec.get("req")
+            if req is None:
+                # a queued submission: a Request exists once it is admitted
+                req = rec["req"] = self._find_live_request(fut)
+            toks: List[int] = []
+            if req is not None:
+                out = list(req.out_tokens)
+                hold = _stop_holdback(out, req.stop_seqs)
+                toks = out[: len(out) - hold] if hold else out
+            if len(toks) > have or time.monotonic() >= deadline:
+                return {"done": False, "tokens": [int(t) for t in toks]}
+            time.sleep(0.02)
+
+    def abort_claim(self, claim_id: str) -> Dict[str, Any]:
+        """DELETE /v1/parked/claims/{id}: the source's client left: stop
+        generating for the stream here too, through the usual abort (this
+        side counts its own one client abort)."""
+        rec = self._imported_claims.pop(claim_id, None)
+        if rec is None:
+            raise ValueError(f"unknown claim {claim_id!r}")
+        fut = rec["fut"]
+        aborted = not fut.done()
+        if aborted:
+            self.abort(fut)
+        return {"ok": True, "claim_id": claim_id, "aborted": aborted}
+
+    @staticmethod
+    def _pending_proxy_req(kw: Dict[str, Any]):
+        """A host Request standing in for a queued submission handed away:
+        the watcher streams into it and resolves the original future with
+        it, as the serving loop would have."""
+        from .engine import Request
+
+        req = Request(seq_id=-1, prompt=list(kw["prompt"]), max_new_tokens=int(kw.get("max_new_tokens", 16)),
+                      temperature=float(kw.get("temperature", 0.0)))
+        req.top_p = float(kw.get("top_p", 1.0))
+        req.stop_seqs = tuple(tuple(int(t) for t in s) for s in kw.get("stop_seqs") or ())
+        req.seed = kw.get("seed")
+        req.ignore_eos = bool(kw.get("ignore_eos", False))
+        req.want_top_logprobs = bool(kw.get("want_top_logprobs", False))
+        req.on_token = kw.get("on_token")
+        req.submit_time = kw.get("submit_time", req.submit_time)
+        return req
+
+    def _claim_fetch(self, dest: str, claim_id: str, have: int, wait_s: float) -> Dict[str, Any]:
+        """One claim view from the destination engine over HTTP (a seam:
+        tests put an in-process call here)."""
+        import urllib.request
+
+        url = f"{dest.rstrip('/')}/v1/parked/claims/{claim_id}?have={int(have)}&wait_s={wait_s:g}"
+        with urllib.request.urlopen(url, timeout=wait_s + 10.0) as resp:
+            return json.loads(resp.read().decode())
+
+    def _claim_abort(self, dest: str, claim_id: str) -> None:
+        """Tell the destination a stream's client left (DELETE its claim; a
+        seam like :meth:`_claim_fetch`)."""
+        import urllib.request
+
+        url = f"{dest.rstrip('/')}/v1/parked/claims/{claim_id}"
+        urllib.request.urlopen(urllib.request.Request(url, method="DELETE"), timeout=10.0).close()
+
+    def _abort_claims_async(self, dest: str, claim_ids: List[str]) -> None:
+        """Claim aborts off the caller's thread, best effort: a destination
+        that is gone then only decodes a dead stream to its end."""
+        if not dest or not claim_ids:
+            return
+
+        def run() -> None:
+            for cid in claim_ids:
+                try:
+                    self._claim_abort(dest, cid)
+                except Exception:  # noqa: BLE001 — best effort
+                    pass
+
+        threading.Thread(target=run, name="migrate-claim-abort", daemon=True).start()
+
+    def _start_claim_watcher(self, dest: str, claim_id: str, req, fut) -> None:
+        # registered before the thread starts: a client leaving meanwhile
+        # finds the proxy in abort()
+        self._proxied[id(fut)] = {"dest": dest, "claim": claim_id}
+        threading.Thread(target=self._watch_claim, args=(dest, claim_id, req, fut),
+                         name=f"migrate-claim-{claim_id[:8]}", daemon=True).start()
+
+    @staticmethod
+    def _proxy_stream(req, done: bool) -> None:
+        """Deliver the proxied tokens through the original hook, as the
+        engine does: ``req.done`` is True on the last one only (the SSE
+        writer ends on it); the claim's tokens are safe already."""
+        if req.on_token is None:
+            req.streamed = len(req.out_tokens)
+            req.done = done
+            return
+        tail = req.out_tokens[req.streamed:]
+        try:
+            for i, t in enumerate(tail):
+                req.done = done and i == len(tail) - 1
+                req.on_token(req, t)
+                req.streamed += 1
+        finally:
+            req.done = done
+
+    def _watch_claim(self, dest: str, claim_id: str, req, fut) -> None:
+        """The source's proxy of one stream handed away: poll the
+        destination's claim, forward the new tokens through the original
+        hook, and resolve the original future with the finished request. A
+        destination that aborts the stream, or stays unreachable for a
+        minute, ends it with ``state_loss``, never a silent hang."""
+        from . import parked as parked_mod
+
+        try:
+            backoff, first_fail = 0.1, None
+            while not self._stop.is_set():
+                if fut.done():
+                    return  # the client left; abort() counted it
+                try:
+                    view = self._claim_fetch(dest, claim_id, len(req.out_tokens), 5.0)
+                except Exception as e:  # noqa: BLE001 — retried, then state_loss
+                    now = time.monotonic()
+                    first_fail = first_fail or now
+                    if now - first_fail > 60.0:
+                        if not fut.done():
+                            fut.set_exception(RuntimeError(f"migrated stream lost: destination unreachable ({e})"))
+                            self._count_abort("state_loss")
+                        return
+                    time.sleep(backoff)
+                    backoff = min(2.0, backoff * 2)
+                    continue
+                first_fail, backoff = None, 0.1
+                if view.get("done"):
+                    if view.get("error"):
+                        if not fut.done():
+                            fut.set_exception(RuntimeError(f"migrated stream aborted on the destination: "
+                                                           f"{view['error']}"))
+                            self._count_abort("state_loss")
+                        return
+                    final = parked_mod.decode_request(view["request"], type(req))
+                    for k in ("out_tokens", "out_logprobs", "out_top_logprobs", "prompt_logprobs", "pos",
+                              "cached_tokens", "stop_requested"):
+                        setattr(req, k, getattr(final, k))
+                    req.finish_reason = view.get("finish_reason", "")
+                    req.done_time = time.monotonic()
+                    self._proxy_stream(req, done=True)
+                    if not fut.done():
+                        fut.set_result(req)
+                    return
+                toks = view.get("tokens") or []
+                if len(toks) > len(req.out_tokens):
+                    req.out_tokens = [int(t) for t in toks]
+                    self._proxy_stream(req, done=False)
+        finally:
+            self._proxied.pop(id(fut), None)
 
     # -- model hot-swap ----------------------------------------------------------
 
@@ -1216,9 +2262,16 @@ class EngineService:
                        bytes_moved=out.get("bytes_moved", 0))
                 self._observe_swap(model, out)
         if out.get("swapped") and not out.get("replayed"):
+            zd = out.get("zero_drain") or {}
+            if zd.get("restore_shortfall") or zd.get("fallback"):
+                # the swap did not park or resume as priced (a fallback moved
+                # the whole pool the price left out; a page-in fell short):
+                # recorded unpriced
+                pred = None
             rec = self._record_actuation(
                 "swap", model, trigger="client", tier=out.get("tier", ""), pred=pred,
                 actual_bytes=out.get("bytes_moved", 0), actual_s=out.get("swap_total_s", 0.0),
+                extra={"preempted": zd.get("parked", 0), "resumed": zd.get("resumed", 0)} if zd else None,
             )
             out["costs"] = self.last_swap["costs"] = rec.as_dict()
         return out
@@ -1274,9 +2327,28 @@ class EngineService:
         if self.sleeper.is_sleeping:
             raise ValueError("engine is sleeping; wake_up before swapping models")
         t0 = time.monotonic()
-        self._abort_for_swap(previous, model)
         outgoing = self._runtime
         out_digests = self._digests(outgoing)
+        # zero-drain: park the outgoing model's live work instead of aborting
+        # it, unless the parked state would overrun the pool budget (it would
+        # be evicted, and aborted, at once) or the page-out fails: those take
+        # the abort path
+        parked, fallback = None, ""
+        if self._zero_drain:
+            est = self._park_pageout_bytes() + self.sleeper.offload_wire_bytes()
+            if est > self.model_pool.budget_bytes:
+                fallback = (f"park rejected: ~{est >> 20} MiB parked state exceeds --model-pool-mib "
+                            f"({self.model_pool.budget_bytes >> 20} MiB)")
+            else:
+                parked = self._park_current(park_pending=True)
+                if parked is None:
+                    fallback = "park failed (kv page-out)"
+        if parked is None:
+            self._abort_for_swap(previous, model)
+        else:
+            # rides with the slept runtime into the pool; every failure below
+            # resumes it or aborts it (state_loss)
+            outgoing.parked = parked
         entry = self.model_pool.take_match(model)
         pool_hit = entry is not None
         prefetched = pool_hit and isinstance(entry.runtime, PrefetchedWeights)
@@ -1297,16 +2369,21 @@ class EngineService:
                 metrics["d2h_transfer_s"], metrics["h2d_transfer_s"] = metrics["d2h_s"], metrics["h2d_s"]
                 metrics["transfer_s"] = metrics["swap_total_s"]  # swap_states' own wall; the verb's below
             except ValueError:
-                # refused before any transfer: the entry goes back intact
+                # refused before any transfer: the entry goes back intact,
+                # and a park's requests go back to serving
                 self._free_pooled(self._pool_park(entry.model_id, rt, entry.nbytes))
+                self._unpark_current(outgoing)
                 raise
             except SwapRolledBack as e:
                 self._free_pooled(self._pool_park(entry.model_id, rt, entry.nbytes))
+                self._unpark_current(outgoing)
                 self.degraded = f"hot-swap {previous}->{model} rolled back: {e}"
                 raise
             except Exception as e:
-                # the rollback failed: the state is partially moved
+                # the rollback failed: the state is partially moved (parked
+                # futures are not the engine's: they end here)
                 self.failure = f"hot-swap {previous}->{model} failed mid-transfer: {type(e).__name__}: {e}"
+                self._abort_parked(outgoing, previous, self.failure)
                 self._fail_all(RuntimeError(self.failure))
                 raise
             # graphs the exec pool released are captured again, now that
@@ -1329,9 +2406,11 @@ class EngineService:
                         f"hot-swap {previous}->{model}: the re-capture failed ({type(capture_exc).__name__}: "
                         f"{capture_exc}) and swapping back failed ({type(e).__name__}: {e})"
                     )
+                    self._abort_parked(outgoing, previous, self.failure)
                     self._fail_all(RuntimeError(self.failure))
                     raise RuntimeError(self.failure) from capture_exc
                 self._free_pooled(self._pool_park(entry.model_id, rt, entry.nbytes))
+                self._unpark_current(outgoing)
                 self.degraded = (f"hot-swap {previous}->{model} rolled back: its graphs' re-capture failed: "
                                  f"{type(capture_exc).__name__}: {capture_exc}")
                 raise SwapRolledBack(self.degraded) from capture_exc
@@ -1361,8 +2440,12 @@ class EngineService:
                         f"hot-swap {previous}->{model} build failed ({type(build_exc).__name__}: {build_exc}) "
                         f"and the rollback wake failed ({type(wake_exc).__name__}: {wake_exc})"
                     )
+                    self._abort_parked(outgoing, previous, self.failure)
                     self._fail_all(RuntimeError(self.failure))
                     raise RuntimeError(self.failure) from build_exc
+                # the rollback wake rebuilt the pool: the parked requests
+                # go back to serving
+                self._unpark_current(outgoing)
                 if prefetched:
                     # the staged host weights are untouched by a failed build
                     self._free_pooled(self._pool_park(entry.model_id, entry.runtime, entry.nbytes))
@@ -1416,10 +2499,38 @@ class EngineService:
                 "capture_s": b["capture_s"],
             }
         # the pool key is the model's name: the reference qualifies it with
-        # an Orbax checkpoint_dir (name@dir), which the port refuses
-        evicted = self._pool_park(previous, outgoing, outgoing.sleeper.stats.bytes_offloaded)
+        # an Orbax checkpoint_dir (name@dir), which the port refuses. The
+        # parked bundle is host state the pool counts with the weights
+        evicted = self._pool_park(previous, outgoing,
+                                  outgoing.sleeper.stats.bytes_offloaded + (parked.nbytes if parked else 0))
         self._runtime = rt
         self._free_pooled(evicted)
+        # a swap back to a parked runtime pages its KV in and its streams go
+        # on mid-decode (a failed page-in ends them with state_loss; the
+        # swap commits either way)
+        zd_resumed, zd_pagein, zd_pagein_s, zd_dropped, zd_short = self._resume_parked(rt)
+        zero_drain = None
+        if self._zero_drain:
+            # the parked KV is actuation payload: in the byte totals the
+            # oracle predicts and the record scores
+            pageout = parked.kv_nbytes if parked else 0
+            metrics["kv_pageout_bytes"], metrics["kv_pagein_bytes"] = pageout, zd_pagein
+            metrics["bytes_out"] += pageout
+            metrics["bytes_in"] += zd_pagein
+            metrics["bytes_moved"] += pageout + zd_pagein
+            metrics["bytes_full"] += pageout + zd_pagein
+            zero_drain = {
+                "parked": parked.preempted if parked else 0,
+                "resumed": zd_resumed,
+                "kv_pageout_bytes": pageout,
+                "kv_pagein_bytes": zd_pagein,
+                "kv_pageout_s": round(parked.pageout_s, 6) if parked else 0.0,
+                "kv_pin_s": round(parked.pin_s, 6) if parked else 0.0,
+                "kv_pagein_s": round(zd_pagein_s, 6),
+                **({"dropped": zd_dropped} if zd_dropped else {}),
+                **({"restore_shortfall": True} if zd_short else {}),
+                **({"fallback": fallback} if fallback else {}),
+            }
         metrics["swap_total_s"] = time.monotonic() - t0
         self._bump_actuation("swap")
         self.degraded = None  # a committed swap heals the failure domain
@@ -1432,6 +2543,7 @@ class EngineService:
             "pool_hit": pool_hit,
             "prefetched": prefetched,
             "tier": tier,
+            **({"zero_drain": zero_drain} if zero_drain is not None else {}),
             **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in metrics.items()},
             "warmup": warm_stats,
             "builds_total": self.builds_total,
@@ -1530,6 +2642,9 @@ class EngineService:
             if isinstance(rt, PrefetchedWeights):
                 rt.params_host = None
             else:
+                # the parked requests' KV goes with the evicted entry
+                self._abort_parked(rt, victim.model_id, f"preempted requests lost: parked model {victim.model_id} "
+                                   "evicted from the pool")
                 self.exec_pool.discard(self._exec_key(victim.model_id, rt))
                 devices.add(rt.engine.device)
                 rt.sleeper.sleep(2)  # drop the host copies
@@ -1808,23 +2923,27 @@ class EngineService:
                 in_digests=self._digests(entry.runtime) if digests else None,
                 quant=self._sleep_quant,
             )
-            out_s, m1 = book.seconds_for("swap.d2h", p["wire_out"])
-            in_s, m2 = book.seconds_for("swap.h2d", p["wire_in"])
+            # zero-drain: the outgoing park's page-out, and a parked
+            # candidate's page-in, ride the two directions
+            park_out = self._park_pageout_bytes()
+            park_in = entry.runtime.parked.kv_nbytes if entry.runtime.parked is not None else 0
+            out_s, m1 = book.seconds_for("swap.d2h", p["wire_out"] + park_out)
+            in_s, m2 = book.seconds_for("swap.h2d", p["wire_in"] + park_in)
             if book.has("swap.total"):
                 # the whole verb's effective rate from earlier pool-tier
                 # swaps predicts the wall, its fixed overhead included
-                predicted_s, m_tot = book.seconds_for("swap.total", p["bytes_moved"])
+                predicted_s, m_tot = book.seconds_for("swap.total", p["bytes_moved"] + park_out + park_in)
                 m1 = m2 = m_tot
             else:
                 # one outgoing bucket runs the two directions in turn
                 predicted_s = max(out_s, in_s) if p["buckets_out"] > 1 else out_s + in_s
             return {
                 **out, "tier": "pool",
-                "predicted_bytes": p["bytes_moved"],
-                "predicted_bytes_out": p["wire_out"],
-                "predicted_bytes_in": p["wire_in"],
-                "predicted_kv_pageout_bytes": 0,
-                "predicted_kv_pagein_bytes": 0,
+                "predicted_bytes": p["bytes_moved"] + park_out + park_in,
+                "predicted_bytes_out": p["wire_out"] + park_out,
+                "predicted_bytes_in": p["wire_in"] + park_in,
+                "predicted_kv_pageout_bytes": park_out,
+                "predicted_kv_pagein_bytes": park_in,
                 "predicted_bytes_deduped": p["bytes_deduped"],
                 "predicted_deduped_leaves": p["deduped_leaves"],
                 "predicted_bytes_full": p["bytes_full"],
@@ -1840,7 +2959,8 @@ class EngineService:
         # build that streams a host tree (staged, rebuilt from the tiers,
         # or read) and creates the page pool, as its bytes_in counts them
         offload_wire = _offload_wire if _offload_wire is not None else self.sleeper.offload_wire_bytes()
-        d2h_s, m_out = book.seconds_for("sleep.d2h", offload_wire)
+        park_out = self._park_pageout_bytes()
+        d2h_s, m_out = book.seconds_for("sleep.d2h", offload_wire + park_out)
         model_cfg = self._model_cfg_cheap(model)
         kv_bytes = self._kv_pool_nbytes(model_cfg)
         read_bytes = 0
@@ -1865,10 +2985,10 @@ class EngineService:
             read_s, m_read = book.seconds_for("coldload.read", read_bytes)
         return {
             **out, "tier": tier,
-            "predicted_bytes": offload_wire + params_full + kv_bytes,
-            "predicted_bytes_out": offload_wire,
+            "predicted_bytes": offload_wire + park_out + params_full + kv_bytes,
+            "predicted_bytes_out": offload_wire + park_out,
             "predicted_bytes_in": params_full + kv_bytes,
-            "predicted_kv_pageout_bytes": 0,
+            "predicted_kv_pageout_bytes": park_out,
             "predicted_stream_bytes": stream_bytes,
             # the loaders overlap the read with the copies; the offload
             # runs first (sleep, then build)
@@ -1884,9 +3004,12 @@ class EngineService:
         """The predicted cost of a level-1 sleep of the serving model."""
         if self.sleeper.is_sleeping:
             return {"kind": "sleep", "model": self.model, "predicted_bytes": 0, "predicted_s": 0.0, "measured": True}
+        # zero-drain: the offload leaves the pool out (the sleeper's peek)
+        # and the park pages the live pages out instead
         wire = self.sleeper.offload_wire_bytes()
-        sec, measured = self.costs.bandwidths.seconds_for("sleep.d2h", wire)
-        return {"kind": "sleep", "model": self.model, "predicted_bytes": wire, "predicted_kv_pageout_bytes": 0,
+        park = self._park_pageout_bytes()
+        sec, measured = self.costs.bandwidths.seconds_for("sleep.d2h", wire + park)
+        return {"kind": "sleep", "model": self.model, "predicted_bytes": wire + park, "predicted_kv_pageout_bytes": park,
                 "predicted_s": round(sec, 6), "measured": measured}
 
     def price_wake(self) -> Dict[str, Any]:
@@ -1897,9 +3020,11 @@ class EngineService:
             return {"kind": "wake", "model": self.model, "predicted_bytes": 0, "predicted_s": 0.0, "measured": True}
         if int(sl.level) == 1:
             wire = sl.stats.bytes_offloaded
-            sec, measured = self.costs.bandwidths.seconds_for("wake.h2d", wire)
-            return {"kind": "wake", "model": self.model, "predicted_bytes": wire, "predicted_kv_pagein_bytes": 0,
-                    "predicted_s": round(sec, 6), "measured": measured}
+            # a parked bundle's KV pages back in with the wake
+            park_in = self._runtime.parked.kv_nbytes if self._runtime.parked is not None else 0
+            sec, measured = self.costs.bandwidths.seconds_for("wake.h2d", wire + park_in)
+            return {"kind": "wake", "model": self.model, "predicted_bytes": wire + park_in,
+                    "predicted_kv_pagein_bytes": park_in, "predicted_s": round(sec, 6), "measured": measured}
         est = hf_models.estimate_param_bytes(self.engine.cfg.model)
         h2d_s, m1 = self.costs.bandwidths.seconds_for("coldload.h2d", est)
         read_s, m2 = self.costs.bandwidths.seconds_for("coldload.read", est)
@@ -1911,8 +3036,8 @@ class EngineService:
         serving model, each pooled or prefetched model, each evicted model
         whose chunks the tiers hold, and the ``extra`` names), with the
         bandwidths behind the predictions. The reference's rows of the
-        verbs the port does not have (migration, the co-resident attach
-        and detach) are an error row and an empty list."""
+        verbs the port does not have (the co-resident attach and detach)
+        are an empty list."""
         candidates: List[Dict[str, Any]] = []
         seen = set()
         exec_desc = self.exec_pool.describe()
@@ -1943,7 +3068,7 @@ class EngineService:
             "bandwidth_gibps": self.costs.bandwidths.describe(),
             "sleep": self._priced_row("sleep", self.price_sleep),
             "wake": self._priced_row("wake", self.price_wake),
-            "migrate": {"kind": "migrate", "error": "live migration is not ported yet (ROADMAP queue 1 item 11)"},
+            "migrate": self._priced_row("migrate", self.price_migrate),
             "compile": {"mean_compile_s": exec_desc.get("mean_compile_s", 0.0),
                         "compiles_total": exec_desc.get("compiles_total", 0)},
             "candidates": candidates,
@@ -1976,7 +3101,7 @@ class EngineService:
 
     def _record_actuation(
         self, kind: str, model: str, trigger: str, tier: str, pred: Optional[Dict[str, Any]],
-        actual_bytes: int, actual_s: float, outcome: str = "committed",
+        actual_bytes: int, actual_s: float, outcome: str = "committed", extra: Optional[Dict[str, Any]] = None,
     ):
         """One flight-recorder row per actuation edge, with the prediction
         made before it when there was one; the prediction and its error
@@ -1986,7 +3111,7 @@ class EngineService:
             actual_bytes=actual_bytes, actual_s=actual_s,
             predicted_bytes=None if pred is None else pred.get("predicted_bytes"),
             predicted_s=None if pred is None else pred.get("predicted_s"),
-            measured=bool(pred and pred.get("measured")),
+            measured=bool(pred and pred.get("measured")), extra=extra,
         )
         if rec.predicted_bytes is not None:
             fm.ENGINE_PREDICTED_BYTES.labels(kind=kind).set(rec.predicted_bytes)
@@ -2005,8 +3130,10 @@ class EngineService:
         for an ``hf:`` model, else None (``digest_pending`` while the
         load's digests are still being hashed: ``digest_s`` is then 0);
         ``pool``, the slept-model pool (``HostModelPool.describe``); and
-        ``quant`` (:meth:`_quant_block`). ``costs`` is the reference's. It
-        never waits for the digests."""
+        ``quant`` (:meth:`_quant_block`); ``migration_legs``, the last
+        export's and import's seconds by leg. ``costs``, ``zero_drain``
+        and ``migration`` are the reference's. It never waits for the
+        digests."""
         now = time.monotonic()
         depth = self.queue_depth()
         rt = self._runtime
@@ -2047,6 +3174,15 @@ class EngineService:
                 "is_sleeping": self.sleeper.is_sleeping,
                 "load": load,
                 "pool": self.model_pool.describe(),
+                # zero-drain: what actuations preempted and how each ended,
+                # and the KV bytes parked now (a launcher sums them)
+                "zero_drain": {"enabled": self._zero_drain, **self._zd,
+                               "parked_kv_bytes": max(0, self._zd_parked_bytes)},
+                # live migration, per role, and the fence in flight
+                "migration": {**self._mig, "in_flight": self._migration is not None,
+                              "imported_claims": len(self._imported_claims)},
+                # the port's own: the last export's and import's legs
+                "migration_legs": {k: dict(v) for k, v in self._mig_last.items()},
                 # the oracle's bandwidths and its accuracy over the last
                 # records (a launcher lifts it into ledger.costs)
                 "costs": self.costs.summary(),
@@ -2155,8 +3291,10 @@ class EngineService:
         card that is known here: the caching allocator's reserved and
         allocated bytes, the arenas' mapped bytes, and the captured
         graphs' kernel nodes (the rest of its share, the CUDA context,
-        only the card reports); and how many chunk graphs it has captured
-        (a wake must not capture again)."""
+        only the card reports); how many chunk graphs it has captured (a
+        wake must not capture again); and this process's peak resident
+        host memory (``peak_rss_bytes``: a migration's wire is held
+        whole)."""
         eng = self.engine
         dev = eng.device
         name = uuid = None
@@ -2175,6 +3313,7 @@ class EngineService:
             "replayed": eng.graphs.replayed_launches() if eng.graphs else {},
             "memory": memory,
             "graph_captures": eng.graph_captures,
+            "peak_rss_bytes": peak_rss_bytes(),
         }
 
     def shutdown(self) -> None:
@@ -2186,6 +3325,13 @@ class EngineService:
         self._stop.set()
         self._work.set()
         self._thread.join(timeout=30)
+
+
+def peak_rss_bytes() -> int:
+    """This process's peak resident host memory (``getrusage``)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 def _finish_reason(service: EngineService, req) -> str:
@@ -2214,8 +3360,13 @@ def _lifecycle_usage(req) -> Dict[str, Any]:
 
 def _request_legs(req, now: float) -> Dict[str, float]:
     """Submit to done split into the legs an SLO exemplar reports: queue
-    (to the first slot), prefill (to the first token) and decode; the
-    reference's preempt and migrate legs are 0 (no parking is ported)."""
+    (to the first slot), prefill (to the first token), decode, and the
+    seconds spent parked (``preempt``), carved out of the first three (the
+    part before the first token from the queue, then the prefill; the rest
+    from the decode), so the legs partition the wall time. The reference's
+    ``migrate`` leg is 0 there too."""
+    pre = max(0.0, req.preempt_pre_token_s)
+    total_pre = max(0.0, req.preempt_s)
     if req.first_sched_time is None:
         queue, prefill, decode = max(0.0, now - req.submit_time), 0.0, 0.0
     else:
@@ -2225,7 +3376,11 @@ def _request_legs(req, now: float) -> Dict[str, float]:
             decode = max(0.0, now - req.first_token_time)
         else:
             prefill, decode = max(0.0, now - req.first_sched_time), 0.0
-    return {"queue": queue, "prefill": prefill, "decode": decode, "preempt": 0.0, "migrate": 0.0}
+    take = min(queue, pre)
+    queue -= take
+    prefill = max(0.0, prefill - (pre - take))
+    decode = max(0.0, decode - (total_pre - pre))
+    return {"queue": queue, "prefill": prefill, "decode": decode, "preempt": total_pre, "migrate": 0.0}
 
 
 def _usage(req, completion_tokens: int, ttft: bool = True) -> Dict[str, Any]:
@@ -2681,12 +3836,16 @@ def make_handler(service: EngineService):
                 events.close()
 
         def _body(self) -> Any:
+            t0 = time.monotonic()
             n = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(n) if n else b""
             try:
                 return json.loads(raw or b"{}")
             except ValueError:
                 raise BadRequest("invalid JSON body")
+            finally:
+                # the read and the parse, for a migration's import figures
+                self._read_s, self._read_bytes = round(time.monotonic() - t0, 6), n
 
         def _route(self, method: str) -> None:
             # every route runs under the caller's traceparent, if it sent
@@ -2703,6 +3862,8 @@ def make_handler(service: EngineService):
                     body = self._body()
                 if unported_route(path):
                     raise BadRequest(f"{path} is not supported by this server yet")
+                if path == "/v1/parked" or path.startswith("/v1/parked/"):
+                    return self._parked(method, path, url.query, body if method == "POST" else None)
                 if method == "GET" and path == "/health":
                     if service.failure is not None:
                         return self._send(503, {"status": "FAILED", "error": service.failure})
@@ -2829,6 +3990,58 @@ def make_handler(service: EngineService):
                 # the previous model serves again and the target is still
                 # pooled: retryable, so 503
                 return self._send(503, {"error": str(e), "rolled_back": True, "model": service.model})
+
+        def _parked(self, method: str, path: str, query: str, body: Any) -> None:
+            """The migration routes: 409 for a refusal with nothing
+            displaced, 500 for a leg that failed and was recovered, 400 for
+            a malformed request or a corrupt wire document."""
+            try:
+                if method == "POST" and path == "/v1/parked":
+                    if not isinstance(body, dict):
+                        raise BadRequest("request body must be a JSON object")
+                    try:
+                        ack = service.import_parked(body)
+                    except ValueError as e:  # the wire version, a chunk's digest
+                        raise BadRequest(str(e))
+                    service._mig_last["import"].update(read_s=self._read_s, wire_bytes=self._read_bytes)
+                    return self._send(200, ack)
+                if method == "POST" and path in ("/v1/parked/release", "/v1/parked/abort"):
+                    token = body.get("fence_token") if isinstance(body, dict) else None
+                    if not isinstance(token, str) or not token:
+                        raise BadRequest(f"{path.rsplit('/', 1)[1]} requires a 'fence_token' string")
+                    if path.endswith("/abort"):
+                        return self._send(200, service.abort_migration(token))
+                    dest, claims = body.get("dest") or "", body.get("claims") or {}
+                    if not isinstance(dest, str) or not isinstance(claims, dict):
+                        raise BadRequest("'dest' must be a string and 'claims' an object")
+                    return self._send(200, service.release_parked(token, dest=dest, claims=claims))
+                if path.startswith("/v1/parked/claims/") and method in ("GET", "DELETE"):
+                    cid = unquote(path[len("/v1/parked/claims/"):])
+                    try:
+                        if method == "DELETE":
+                            return self._send(200, service.abort_claim(cid))
+                        q = parse_qs(query)
+                        try:
+                            wait_s, have = float(q.get("wait_s", ["0"])[0]), int(q.get("have", ["-1"])[0])
+                        except ValueError:
+                            raise BadRequest("wait_s/have must be numeric")
+                        return self._send(200, service.claim_view(cid, wait_s=wait_s, have=have))
+                    except ValueError as e:  # an unknown claim
+                        return self._send(404, {"error": str(e)})
+                if method == "GET" and path.startswith("/v1/parked/"):
+                    doc = service.export_parked(unquote(path[len("/v1/parked/"):]))
+                    t0 = time.monotonic()
+                    data = json.dumps(doc).encode()
+                    t1 = time.monotonic()
+                    self._send_bytes(200, data, "application/json")
+                    service._mig_last["export"].update(serialize_s=round(t1 - t0, 6),
+                                                       send_s=round(time.monotonic() - t1, 6), wire_bytes=len(data))
+                    return None
+            except MigrationRejected as e:
+                return self._send(409, {"error": str(e)})
+            except MigrationFailed as e:
+                return self._send(500, {"error": str(e)})
+            return self._send(404, {"error": f"no route {method} {path}"})
 
         def _prefetch(self, body: Any) -> None:
             if not isinstance(body, dict):

@@ -178,6 +178,7 @@ class SleepManager:
         quant_mode: str = "off",
         quant_hot_head: bool = True,
         on_transfer: Optional[Callable[[str, int, float], None]] = None,
+        peek_state: Optional[Callable[[], Any]] = None,
     ) -> None:
         quant_mode = "" if quant_mode in ("", "off") else quant_mode
         if quant_mode:
@@ -189,6 +190,9 @@ class SleepManager:
                     "--sleep-quant on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)"
                 )
         self._get_state = get_state
+        #: the state a pricing read sees: ``get_state``'s, unless the owner
+        #: knows what the edge will leave out (a zero-drain park's pool)
+        self._peek_state = peek_state or get_state
         self._set_state = set_state
         self.arenas = list(arenas)
         #: the engine's (rank 0's) device; each tensor moves to and from
@@ -301,7 +305,7 @@ class SleepManager:
         host (what ``bytes_offloaded`` will say): payload and scale bytes
         for the leaves a quantized offload compresses, full precision for
         the rest, from the shapes alone."""
-        state = self._get_state()
+        state = self._peek_state()
         plan = self._quant_plan(state)
         repeated = {id(t) for t in self._replicas()} if self._replicas else set()
         return sum(
@@ -778,8 +782,9 @@ def plan_swap(
     _check_swap_preconditions(out_mgr, in_mgr)
     bucket_bytes = bucket_bytes or DEFAULT_SWAP_BUCKET_BYTES
     # the reference prices from a peek that skips its get_state's quiesce;
-    # the port's get_state reads the tensors and quiesces nothing
-    state_out = out_mgr._get_state()
+    # the port's peek reads the tensors and quiesces nothing (under a
+    # pending zero-drain park it leaves the pool out, as the swap will)
+    state_out = out_mgr._peek_state()
     leaves_out = flatten_state(state_out)
     plan = _plan_transfer(out_mgr, in_mgr, state_out, leaves_out, bucket_bytes, out_digests, in_digests, quant)
     return {
@@ -1213,26 +1218,41 @@ def attach_sleep(
     dispatch after the wake, and the model's RoPE tables are written again
     at wake. ``quant_mode`` and ``quant_hot_head`` are compressed
     actuation's (``--sleep-quant``, ``--sleep-quant-hot-head``);
-    ``on_transfer`` feeds the cost oracle."""
+    ``on_transfer`` feeds the cost oracle.
+
+    Zero-drain (``engine/parked.py``): while a park has released the pool
+    (``engine.kv_detached``) the state is the weights alone, and when such
+    a state comes back the pool is rebuilt (mapped once, at its addresses,
+    and zeroed) for the parked requests to be paged into. A pricing peek
+    leaves the pool out as well while a park is pending
+    (``engine.zero_drain_park``)."""
+
+    def weights():
+        return {"params": dict(engine.model.named_parameters())}
 
     def get_state():
-        return {
-            "params": dict(engine.model.named_parameters()),
-            "kv": engine.pool.tensors(),
-        }
+        state = weights()
+        if not engine.kv_detached:
+            state["kv"] = engine.pool.tensors()
+        return state
+
+    def peek_state():
+        return weights() if engine.zero_drain_park else get_state()
 
     def set_state(state):
         if state is None:
             engine.drop_device_sched_state()
             engine.asleep = True
         else:
+            if "kv" not in state:
+                engine.rebuild_kv_pool()
             engine.model.build_tables()
             engine.asleep = False
 
     replicas = getattr(engine.model, "replicas", None)  # a sharded model's repeated norms
     return SleepManager(
         get_state, set_state, engine.device, engine.arenas.values(), bucket_bytes=bucket_bytes, replicas=replicas,
-        quant_mode=quant_mode, quant_hot_head=quant_hot_head, on_transfer=on_transfer,
+        quant_mode=quant_mode, quant_hot_head=quant_hot_head, on_transfer=on_transfer, peek_state=peek_state,
     )
 
 
@@ -1240,7 +1260,9 @@ def fresh_state(engine) -> None:
     """A level-2 wake's reinit for ``engine``: parameters written anew
     into the live tensors (the checkpoint reread when the engine's weights
     came from a loader, else drawn from the engine seed) and the pool
-    zeroed, in place, once the wake has mapped their memory back."""
+    zeroed, in place, once the wake has mapped their memory back (a pool
+    a park released is rebuilt, zero, when the state comes back)."""
     engine.reload_params()
-    for t in engine.pool.tensors():
-        t.zero_()
+    if not engine.kv_detached:
+        for t in engine.pool.tensors():
+            t.zero_()

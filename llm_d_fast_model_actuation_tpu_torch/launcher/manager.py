@@ -26,16 +26,27 @@ the child's ``POST /v1/swap`` with a request id; a timed-out swap is
 recovered through the child's ``GET /v1/swap``, never sent again. The
 prefetch verb (:meth:`EngineProcessManager.prefetch_instance`) forwards
 to the child's ``/v1/prefetch`` and records the hint in the ledger's
-``prefetched`` block. Not ported yet: the residents, migrate and drain
-verbs (each waits on its engine feature).
+``prefetched`` block. The migrate verb
+(:meth:`EngineProcessManager.migrate_instance`) hands an instance's live
+streams to a sibling that serves the same model (its child's ``GET
+/v1/parked/{model}``, the sibling's ``POST /v1/parked``, the child's
+``POST /v1/parked/release``; one fenced retry of an import that failed
+with a 5xx, and the fence aborted on a refusal or a timeout, so the
+streams resume at home), publishing ``MIGRATED``; the drain verb
+(:meth:`EngineProcessManager.drain_instance`) repeats migrate passes until
+the child's queue is empty, publishing ``DRAINED``. Neither creates an
+instance: the GPU exclusivity rule is applied at create, as before. Not
+ported yet: the residents verbs (co-resident variants, item 12).
 ``fleet_rollup`` aggregates the children's ``/v1/stats`` as the reference
-does, onto the ``fma_launcher_fleet_*`` gauges, its ``slo_exemplars``
-lifted from the children's; a detailed instance list lifts each reporting
+does (their ``zero_drain`` and ``migration`` blocks summed), onto the
+``fma_launcher_fleet_*`` gauges, its ``slo_exemplars`` lifted from the
+children's; a detailed instance list lifts each reporting
 child's cost-oracle summary into ``ledger.costs``.
 
 Observability, the reference's: the spans ``launcher.create_instance``
 (current across the fork, so the child's ``engine.start`` parents on it),
-``launcher.restart``, ``launcher.swap`` and ``launcher.rpc`` around each
+``launcher.restart``, ``launcher.swap``, ``launcher.migrate``,
+``launcher.drain`` and ``launcher.rpc`` around each
 call to a child (its ``traceparent`` sent with the call), and the
 families ``fma_launcher_rpc_seconds{verb,outcome}`` (one observation per
 attempt) and ``fma_launcher_fleet_*`` (the fleet's resident-variant
@@ -48,6 +59,7 @@ import json
 import logging
 import os
 import random
+import resource
 import socket
 import threading
 import time
@@ -156,6 +168,32 @@ class StatsFailed(Exception):
         super().__init__(
             f"stats on instance {instance_id} failed ({status}): {detail}"
         )
+        self.instance_id = instance_id
+        self.status = status
+        self.detail = detail
+
+
+class MigrateFailed(Exception):
+    """A migration step failed or was refused. A 409 is the engine's
+    refusal (weights not the same, no room, a spent fence, no sibling):
+    nothing was displaced. Any other status means the engines recovered
+    already (the source resumed its streams at home, or the fence was
+    aborted): the streams survived, the handoff did not."""
+
+    def __init__(self, instance_id: str, status: int, detail: str) -> None:
+        super().__init__(f"migrate on instance {instance_id} failed ({status}): {detail}")
+        self.instance_id = instance_id
+        self.status = status
+        self.detail = detail
+
+
+class DrainFailed(Exception):
+    """A drain pass could not move the instance's remaining live work to a
+    sibling (none eligible, a migrate pass failed, or arrivals outran the
+    passes)."""
+
+    def __init__(self, instance_id: str, status: int, detail: str) -> None:
+        super().__init__(f"drain of instance {instance_id} failed ({status}): {detail}")
         self.instance_id = instance_id
         self.status = status
         self.detail = detail
@@ -800,6 +838,193 @@ class EngineProcessManager:
             f"({timeout_exc.detail})",
         )
 
+    # -- live request migration and node drain ---------------------------------
+
+    def _parsed_opts(self, instance_id: str):
+        """A live instance's engine options, or None when they are not
+        engine options (a fake kickoff's)."""
+        from ..engine.server import parse_engine_options
+
+        try:
+            return parse_engine_options(self.instances[instance_id].config.options)
+        except (ValueError, KeyError):
+            return None
+
+    def _resolve_migration_dest(self, instance_id: str, model: str, dest_id: Optional[str]) -> str:
+        """The sibling a migration lands on, named or the first other live
+        instance whose options serve ``model``. Only that is checked here:
+        the engines hold the bundle to the weights' identity and the page
+        geometry at the import."""
+        if dest_id is not None:
+            if dest_id == instance_id:
+                raise MigrateFailed(instance_id, 400, "destination must be a different instance")
+            if dest_id not in self.instances:
+                raise MigrateFailed(instance_id, 404, f"no such destination instance {dest_id}")
+            opts = self._parsed_opts(dest_id)
+            if opts is None or opts.model != model:
+                raise MigrateFailed(instance_id, 409, f"destination {dest_id} does not serve {model!r}; migration "
+                                                      "needs a sibling with provable weight identity")
+            return dest_id
+        for other in self.instances:
+            if other == instance_id:
+                continue
+            opts = self._parsed_opts(other)
+            if opts is not None and opts.model == model:
+                return other
+        raise MigrateFailed(instance_id, 409, f"no sibling instance serves {model!r}; nothing to migrate to")
+
+    def _abort_migration_on_source(self, instance_id: str, token: str, timeout: float) -> None:
+        """The fenced abort after a failed import, best effort: the source
+        resumes the bundle at home. A failure here is logged: the import's
+        failure stays the error, and the bundle stays fenced on the source
+        for a later ``POST /v1/parked/abort``."""
+        if not token:
+            return
+        try:
+            self._engine_request(instance_id, "POST", "/v1/parked/abort", {"fence_token": token}, timeout,
+                                 MigrateFailed)
+        except (MigrateFailed, KeyError) as e:
+            logger.error("migration abort on source %s failed (%s); the bundle stays fenced under token %s: "
+                         "POST /v1/parked/abort when the engine is reachable again", instance_id, e, token)
+
+    def migrate_instance(self, instance_id: str, dest_id: Optional[str] = None, timeout: float = 300) -> Dict[str, Any]:
+        """:meth:`_migrate_instance_impl` under a ``launcher.migrate`` span."""
+        with tracing.span("launcher.migrate", instance=instance_id, dest=dest_id or ""):
+            return self._migrate_instance_impl(instance_id, dest_id, timeout)
+
+    def _migrate_instance_impl(self, instance_id: str, dest_id: Optional[str], timeout: float) -> Dict[str, Any]:
+        """Hand an instance's live work to a sibling serving the same model:
+        export the fenced bundle (the child's ``GET /v1/parked/{model}``),
+        import it on the sibling (``POST /v1/parked``), release the source
+        (``POST /v1/parked/release``), whose proxies then carry every stream
+        from the sibling's claims. The engines' recoveries decide the rest:
+
+        * an export that fails: the bundle never left, the child resumed it;
+        * an import refused (409, 400) or timed out (504, never sent again):
+          the fence is aborted, so the source resumes at home;
+        * an import that failed otherwise: one blind retry (the fence makes
+          it idempotent: a seated import replays its ack), then the abort."""
+        from urllib.parse import quote
+
+        if instance_id not in self.instances:
+            raise KeyError(instance_id)
+        opts = self._parsed_opts(instance_id)
+        if opts is None:
+            raise MigrateFailed(instance_id, 400, "stored options are not engine options")
+        model = opts.model
+        dest = self._resolve_migration_dest(instance_id, model, dest_id)
+        t0 = time.monotonic()
+        doc = self._engine_request(instance_id, "GET", f"/v1/parked/{quote(model, safe='')}", None, timeout,
+                                   MigrateFailed)
+        export_s = time.monotonic() - t0
+        token = str((doc.get("fence") or {}).get("token") or "")
+        t1 = time.monotonic()
+        try:
+            ack = self._engine_request(dest, "POST", "/v1/parked", doc, timeout, MigrateFailed)
+        except MigrateFailed as e:
+            if e.status in (400, 409, 504):
+                # refused with nothing displaced, or maybe still running:
+                # never sent again, the source resumes
+                self._abort_migration_on_source(instance_id, token, timeout)
+                raise
+            try:
+                ack = self._engine_request(dest, "POST", "/v1/parked", doc, timeout, MigrateFailed)
+            except MigrateFailed:
+                self._abort_migration_on_source(instance_id, token, timeout)
+                raise
+        import_s = time.monotonic() - t1
+        dest_opts = self._parsed_opts(dest)
+        dest_url = f"http://127.0.0.1:{dest_opts.port}" if dest_opts else ""
+        t2 = time.monotonic()
+        rel = self._engine_request(instance_id, "POST", "/v1/parked/release",
+                                   {"fence_token": token, "dest": dest_url, "claims": ack.get("claims") or {}},
+                                   timeout, MigrateFailed)
+        result = {
+            "instance_id": instance_id,
+            "dest_id": dest,
+            "model": model,
+            "fence_token": token,
+            "requests": int(ack.get("requests", 0)),
+            "migrated": int(rel.get("migrated", 0)),
+            "proxied": int(rel.get("proxied", 0)),
+            "bytes": int(doc.get("nbytes", 0)),
+            # the port's own: the exported KV, and the wire's KV payload
+            # (base64, about 4/3 of it)
+            "kv_bytes": int((doc.get("kv") or {}).get("nbytes", 0)),
+            "wire_kv_bytes": sum(len(ch.get("k", "")) + len(ch.get("v", "")) for ch in (doc.get("kv") or {}).get(
+                "chunks", ())),
+            "import": {k: v for k, v in ack.items() if k != "claims"},
+            "release": rel,
+            # the port's own: this process's peak resident memory (the wire
+            # is parsed and sent again whole)
+            "launcher_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "seconds": {"export": round(export_s, 6), "import": round(import_s, 6),
+                        "release": round(time.monotonic() - t2, 6)},
+        }
+        obj = self.instances[instance_id].get_status()
+        obj["migration"] = {k: result[k] for k in ("dest_id", "model", "fence_token", "requests", "migrated",
+                                                   "proxied", "bytes")}
+        result["revision"] = self._publish("MIGRATED", obj)
+        logger.info("migrated instance %s -> %s: %d request(s), %d byte(s), %d stream(s) proxied (rev %s)",
+                    instance_id, dest, result["requests"], result["bytes"], result["proxied"], result["revision"])
+        return result
+
+    def drain_instance(self, instance_id: str, timeout: float = 300, max_passes: int = 8) -> Dict[str, Any]:
+        """:meth:`_drain_instance_impl` under a ``launcher.drain`` span."""
+        with tracing.span("launcher.drain", instance=instance_id):
+            return self._drain_instance_impl(instance_id, timeout, max_passes)
+
+    def _drain_instance_impl(self, instance_id: str, timeout: float, max_passes: int) -> Dict[str, Any]:
+        """Migrate passes until the instance reports no queued or running
+        work, then call it drained: the streams moved keep flowing through
+        its proxies, arrivals between passes go with the next pass, and the
+        instance is left idle, safe to stop. Streams it only proxies are
+        not its work."""
+        if instance_id not in self.instances:
+            raise KeyError(instance_id)
+        passes: List[Dict[str, Any]] = []
+        drained = False
+        depth = 0
+        for _ in range(max_passes + 1):
+            try:
+                stats = self._poll_instance_stats(instance_id, min(timeout, 10.0))
+            except (StatsFailed, KeyError) as e:
+                raise DrainFailed(instance_id, 502, f"stats poll failed: {e}")
+            depth = int(stats.get("queue_depth", 0))
+            if depth == 0:
+                drained = True
+                break
+            if len(passes) >= max_passes:
+                break
+            try:
+                res = self.migrate_instance(instance_id, timeout=timeout)
+            except MigrateFailed as e:
+                if e.status == 409 and len(passes) + 1 < max_passes:
+                    # a refused pass displaced nothing: a busy sibling may
+                    # have room by the next one
+                    passes.append({"refused": e.detail[:200]})
+                    time.sleep(0.2)
+                    continue
+                raise DrainFailed(instance_id, e.status, f"migrate pass {len(passes) + 1} failed: {e.detail}")
+            passes.append({k: res[k] for k in ("dest_id", "requests", "migrated", "bytes")})
+        if not drained:
+            raise DrainFailed(instance_id, 409, f"{depth} request(s) still live after {len(passes)} migrate "
+                                                "pass(es); arrivals may outrun the drain: stop routing new work "
+                                                "to this instance and retry")
+        result = {
+            "instance_id": instance_id,
+            "drained": True,
+            "passes": passes,
+            "migrated": sum(p.get("migrated", 0) for p in passes),
+            "bytes": sum(p.get("bytes", 0) for p in passes),
+        }
+        obj = self.instances[instance_id].get_status()
+        obj["drain"] = {"passes": len(passes), "migrated": result["migrated"], "bytes": result["bytes"]}
+        result["revision"] = self._publish("DRAINED", obj)
+        logger.info("drained instance %s: %d pass(es), %d stream(s) migrated (rev %s)", instance_id, len(passes),
+                    result["migrated"], result["revision"])
+        return result
+
     def fleet_rollup(
         self, timeout: float = 1.5, ttl_s: float = 1.0
     ) -> Dict[str, Any]:
@@ -809,8 +1034,10 @@ class EngineProcessManager:
         are polled concurrently with a short per-poll timeout and no
         retries: an unreachable or free-form-options instance degrades to
         an ``unreachable`` row, never an error for the whole read. The
-        blocks of verbs the port's engine does not have yet (zero-drain,
-        migration, residents) are constant; ``slo_exemplars`` are the
+        children's ``zero_drain`` and ``migration`` blocks are summed (did
+        an actuation or a handoff drop a stream, fleet-wide, in one read);
+        the ``residents`` block, whose verbs the port's engine does not
+        have yet, is constant; ``slo_exemplars`` are the
         children's, each with the instance it came from (its trace is in
         that child's ``GET /v1/traces?trace_id=``)."""
         now = time.monotonic()
@@ -849,6 +1076,9 @@ class EngineProcessManager:
         actuations = 0
         actuations_per_hour = 0.0
         aborted: Dict[str, int] = {}
+        zero_drain = {"preempted": 0, "resumed": 0, "aborted": 0, "migrated": 0, "parked_kv_bytes": 0}
+        mig = {"committed": 0, "resumed_local": 0, "state_loss": 0, "requests_out": 0, "requests_in": 0,
+               "bytes_out": 0, "bytes_in": 0}
         slo_exemplars: List[Dict[str, Any]] = []
         reporting = 0
         for iid, row in per_instance.items():
@@ -875,6 +1105,10 @@ class EngineProcessManager:
                 actuations_per_hour += acts * 3600.0 / uptime
             for cause, n in (row.get("aborted") or {}).items():
                 aborted[cause] = aborted.get(cause, 0) + int(n)
+            for block, total in (("zero_drain", zero_drain), ("migration", mig)):
+                got = row.get(block) or {}
+                for k in total:
+                    total[k] += int(got.get(k, 0))
         judged = met + violated
         attainment = round(met / judged, 6) if judged else None
         fleet = {
@@ -891,17 +1125,11 @@ class EngineProcessManager:
             "actuations": actuations,
             "actuations_per_hour": round(actuations_per_hour, 3),
             "aborted": aborted,
-            # the reference's blocks for verbs the port's engine does not
-            # have: nothing to sum, each engine one resident variant
-            "zero_drain": {
-                "preempted": 0, "resumed": 0, "aborted": 0, "migrated": 0,
-                "parked_kv_bytes": 0,
-            },
-            "migration": {
-                "committed": 0, "resumed_local": 0, "state_loss": 0,
-                "requests_out": 0, "requests_in": 0,
-                "bytes_out": 0, "bytes_in": 0,
-            },
+            # zero-drain preemption and live migration, summed over the
+            # children's /v1/stats blocks
+            "zero_drain": zero_drain,
+            "migration": mig,
+            # the co-resident verbs wait: each engine one resident variant
             "residents": {
                 "resident_variants": reporting,
                 "variant_hbm_bytes": 0,

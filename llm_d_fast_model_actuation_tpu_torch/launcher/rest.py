@@ -18,6 +18,10 @@ launcher's surface (launcher.py:568-800) for the routes the port serves:
   POST   /v2/vllm/instances/{id}/prefetch   stage a model on the child's
   GET    /v2/vllm/instances/{id}/prefetch   host, its state, abort it
   DELETE /v2/vllm/instances/{id}/prefetch   (404, 422, 400, 504, 502)
+  POST   /v2/vllm/instances/{id}/migrate    hand the live streams to a
+                                            sibling ({"dest_id"} optional;
+                                            404, 422, 409, 400, 504, 502)
+  POST   /v2/vllm/instances/{id}/drain      migrate until idle (as migrate)
   GET    /v2/vllm/instances/watch[?since=N] NDJSON events (410 when N
                                             was evicted)
   GET    /metrics                           Prometheus text (the fleet
@@ -64,7 +68,7 @@ from .http11 import (  # noqa: F401 — the server's names, importable from here
     read_request,
 )
 from .instance import InstanceConfig, InvalidInstanceConfig, LogRangeNotAvailable
-from .manager import ChipConflict, EngineProcessManager, PrefetchFailed, SwapFailed
+from .manager import ChipConflict, DrainFailed, EngineProcessManager, MigrateFailed, PrefetchFailed, SwapFailed
 
 logger = logging.getLogger(__name__)
 
@@ -109,6 +113,8 @@ class LauncherApp(App):
             ("POST", "/v2/vllm/instances/{instance_id}/prefetch", self.prefetch_instance),
             ("GET", "/v2/vllm/instances/{instance_id}/prefetch", self.get_instance_prefetch),
             ("DELETE", "/v2/vllm/instances/{instance_id}/prefetch", self.abort_instance_prefetch),
+            ("POST", "/v2/vllm/instances/{instance_id}/migrate", self.migrate_instance),
+            ("POST", "/v2/vllm/instances/{instance_id}/drain", self.drain_instance),
         ])
 
     async def _run(self, fn, *args):
@@ -203,6 +209,8 @@ class LauncherApp(App):
                     "prefetch_instance": "POST /v2/vllm/instances/{instance_id}/prefetch",
                     "prefetch_status": "GET /v2/vllm/instances/{instance_id}/prefetch",
                     "abort_prefetch": "DELETE /v2/vllm/instances/{instance_id}/prefetch",
+                    "migrate_instance": "POST /v2/vllm/instances/{instance_id}/migrate",
+                    "drain_instance": "POST /v2/vllm/instances/{instance_id}/drain",
                     "watch_instances": "GET /v2/vllm/instances/watch",
                     "faults": "GET/POST/DELETE /v2/vllm/faults",
                     "traces": "GET /v2/vllm/traces",
@@ -299,6 +307,53 @@ class LauncherApp(App):
             if 400 <= e.status < 500:
                 raise HTTPError(400, str(e))
             raise HTTPError(e.status if e.status in (503, 504) else 502, str(e))
+        return json_response(result)
+
+    @staticmethod
+    def _migrate_error(e: "MigrateFailed | DrainFailed") -> HTTPError:
+        # the engines' 409 is a refusal with nothing displaced, kept as it
+        # is so an orchestrator can act on it; 404 a destination that is
+        # not there; 504 a timeout (the engines recovered already); any
+        # other failure is the gateway's
+        if e.status in (404, 409, 504):
+            return HTTPError(e.status, str(e))
+        if 400 <= e.status < 500:
+            return HTTPError(400, str(e))
+        return HTTPError(502, str(e))
+
+    async def migrate_instance(self, req: Request) -> Response:
+        """The live-migration verb: hand an instance's running and queued
+        requests to a sibling serving the same model, fenced, the streams
+        flowing on. Body: an optional ``dest_id`` (default the first
+        sibling that serves the model)."""
+        instance_id = req.match_info["instance_id"]
+        try:
+            body = req.json() if req.body.strip() else {}
+        except ValueError:
+            raise HTTPError(400, "invalid JSON body")
+        dest_id = body.get("dest_id") if isinstance(body, dict) else None
+        if dest_id is not None and (not isinstance(dest_id, str) or not dest_id):
+            raise HTTPError(422, "dest_id must be a non-empty string")
+        try:
+            # the export and the import move KV for seconds: off the loop
+            result = await self._traced(req, self.manager.migrate_instance, instance_id, dest_id)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except MigrateFailed as e:
+            raise self._migrate_error(e)
+        return json_response(result)
+
+    async def drain_instance(self, req: Request) -> Response:
+        """The drain verb: migrate passes until the instance has no live
+        work, leaving it idle and safe to stop while every stream moved
+        flows on through its proxies."""
+        instance_id = req.match_info["instance_id"]
+        try:
+            result = await self._traced(req, self.manager.drain_instance, instance_id)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except (DrainFailed, MigrateFailed) as e:
+            raise self._migrate_error(e)
         return json_response(result)
 
     @staticmethod

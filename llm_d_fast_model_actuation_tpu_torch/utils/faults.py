@@ -12,10 +12,12 @@ are accepted so tests can add their own). Fired by the port: ``swap.d2h``
 (a hot-swap's outgoing bucket issue) and ``swap.h2d`` (its incoming
 bucket issue), ``coldload.read`` (a reader's shard), ``coldload.h2d`` (a
 tensor's transfer), ``prefetch.stage``, ``launcher.rpc`` (each launcher
-to engine call) and ``instance.spawn`` (a supervised restart's spawn).
-Not fired, they name edges the port has not ported yet: ``kvsave.d2h``,
-``kvrestore.h2d``, ``migrate.export``, ``migrate.import`` and
-``migrate.ack``.
+to engine call), ``instance.spawn`` (a supervised restart's spawn),
+``kvsave.d2h`` and ``kvrestore.h2d`` (each chunk of a zero-drain park's
+page-out and of its resume's page-in, ``engine/parked.py``), and
+``migrate.export`` (after a migration's park), ``migrate.import`` (before
+an import is seated) and ``migrate.ack`` (after it is seated, its ack
+stored: the lost-ack drill).
 
 Modes (per point): **fail** raises :class:`FaultError` the next ``count``
 times the point fires (fail-once is ``count=1``, fail-N is ``count=N``,

@@ -1,13 +1,16 @@
 """The port's metrics held against the JAX package's: the engine's and the
 launcher's families equal the reference's by name, type, label names,
 buckets and help text, less the named families that wait on ROADMAP
-queue 1 items 11-13; every registered engine family is exercised by one
-scripted run of the CPU service and its exposition parses with
+queue 1 items 12 and 13; every registered engine family is exercised by
+one scripted run of the CPU service (and of a zero-drain service, for the
+parking and migration families) and its exposition parses with
 ``prometheus_client``'s parser; the debug server; the lifecycle metrics
 (queue wait once per request, the SLO split and goodput, the arrival
 EWMA); and the launcher's fleet rollup onto its gauges."""
 
 import json
+import threading
+import time
 import urllib.request
 
 import pytest
@@ -44,7 +47,7 @@ def _port_families() -> dict:
 def test_the_families_equal_the_jax_packages_less_the_named_ones():
     jax, port = _jax_families(), _port_families()
     assert set(UNPORTED) <= set(jax) and not set(UNPORTED) & set(port)
-    assert set(UNPORTED.values()) == {11, 12, 13}
+    assert set(UNPORTED.values()) == {12, 13}
     assert {k: v for k, v in jax.items() if k not in UNPORTED} == port
 
 
@@ -82,7 +85,9 @@ def dirs(tmp_path_factory):
 def test_every_registered_engine_family_is_exercised(dirs, tmp_path):
     """A bucketed build's warm-up, then one scripted run of a packed CPU
     service from a Hugging Face directory (requests, an echo, an abort, two sleep/wake cycles, a cold
-    swap, a pool hit, a rolled-back swap, a prefetch of a third) leaves a sample in
+    swap, a pool hit, a rolled-back swap, a prefetch of a third), and a
+    zero-drain service of the second directory that exports a live stream
+    and resumes it at home, leave a sample in
     every engine family, labelled families with a child, and the counters
     the traffic moves at the traffic's numbers; the exposition parses with
     prometheus_client's parser into exactly the registered families."""
@@ -125,6 +130,22 @@ def test_every_registered_engine_family_is_exercised(dirs, tmp_path):
         assert svc.prefetch(c)["started"]
         svc._prefetch_thread.join(timeout=120)
         assert svc.prefetch_status()["state"] == "completed"
+        # parking and migration: a live stream parked into an export, then
+        # resumed at home by the fence's abort
+        zd = tserver.EngineService(tserver.parse_engine_options(
+            f"--model {b} --device cpu --num-pages 64 --page-size 8 --max-batch 2 --max-model-len 64 "
+            "--zero-drain on"))
+        try:
+            started = threading.Event()
+            live = zd.submit(prompt=[1, 2, 3], max_new_tokens=16,
+                             on_token=lambda req, tok: (started.set(), time.sleep(0.05)))
+            assert started.wait(timeout=60)
+            doc = zd.export_parked(b)
+            assert doc["kv"]["nbytes"] > 0
+            assert zd.abort_migration(doc["fence"]["token"])["outcome"] == "resumed_local"
+            assert len(live.result(timeout=120).out_tokens) == 16
+        finally:
+            zd.shutdown()
         text = _scrape(port)
         families = {f.name: f for f in text_string_to_metric_families(text)}
         registered = {m.name for m in prom.REGISTRY}

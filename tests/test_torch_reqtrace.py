@@ -1,12 +1,17 @@
 """Request-lifecycle tracing in the port, the tests of
-``tests/test_reqtrace.py`` that involve no parking: the request ring is
-apart from the actuation ring, ``--trace-requests 0`` records nothing for
-a met request, a client traceparent forces a trace, and tail-keep keeps a
-violated request's trace with an SLO exemplar whose legs partition its
-wall time. The engine-backed cases run the port's CPU service beside the
-JAX package's on the same prompt and compare the span trees' shapes."""
+``tests/test_reqtrace.py``: the request ring is apart from the actuation
+ring, ``--trace-requests 0`` records nothing for a met request, a client
+traceparent forces a trace, and tail-keep keeps a violated request's trace
+with an SLO exemplar whose legs partition its wall time. The
+engine-backed cases run the port's CPU service beside the JAX package's
+on the same prompt and compare the span trees' shapes. The migration
+cases: a stream migrated to a sibling keeps one trace id across the two
+engines, and a client that leaves before or after the release is one
+client abort on each side."""
 
 import json
+import threading
+import time
 
 import pytest
 
@@ -190,3 +195,143 @@ def test_head_sampling_traces_every_request_at_one(services):
     req = t.submit(prompt=[1, 2, 3], max_new_tokens=3).result(timeout=120)
     assert req.trace_id and {s.name for s in tracing.request_snapshot(req.trace_id)} == {
         "request.lifecycle", "request.queue", "request.prefill", "request.decode"}
+
+
+# -- migrated streams (zero-drain parking, live migration) ---------------------
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    from tests.conftest import build_tiny_hf_model_dir
+
+    return build_tiny_hf_model_dir(str(tmp_path_factory.mktemp("reqtrace") / "m"))
+
+
+@pytest.fixture
+def pair(ckpt):
+    """Two port services of one checkpoint, the source's claim verbs wired
+    to the destination in process."""
+    src, dst = (tserver.EngineService(tserver.parse_engine_options(
+        f"--model hf:{ckpt} {OPTS} --zero-drain on --device cpu")) for _ in range(2))
+    src._claim_fetch = lambda dest, cid, have, wait_s: dst.claim_view(cid, wait_s=wait_s, have=have)
+    src._claim_abort = lambda dest, cid: dst.abort_claim(cid)
+    yield src, dst
+    src.shutdown()
+    dst.shutdown()
+
+
+def _live_stream(svc, prompt, max_tokens=8, **kw):
+    toks: list = []
+    started = threading.Event()
+
+    def slow(req, tok):
+        toks.append(tok)
+        started.set()
+        time.sleep(0.05)
+
+    fut = svc.submit(prompt=list(prompt), max_new_tokens=max_tokens, on_token=slow, **kw)
+    assert started.wait(timeout=60), "the stream never produced a token"
+    return fut, toks
+
+
+def _counter(name: str, **labels) -> float:
+    from llm_d_fast_model_actuation_tpu_torch.utils.prom import REGISTRY
+
+    for m in REGISTRY:
+        if m.name == name[: -len("_total")]:
+            child = m._children.get(tuple(labels[k] for k in m.labelnames))
+            return child.value if child is not None else 0.0
+    return 0.0
+
+
+def _wait_counter(name, floor, timeout=30.0, **labels):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if _counter(name, **labels) >= floor:
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"{name}{labels} never reached {floor} (at {_counter(name, **labels)})")
+
+
+def _balance(svc) -> None:
+    zd = svc.stats()["zero_drain"]
+    assert zd["preempted"] == zd["resumed"] + zd["aborted"] + zd["migrated"], zd
+
+
+def test_migrated_stream_spans_share_origin_trace_id(pair, ckpt):
+    """One timeline for a stream that lived on two engines: the trace
+    context rides the bundle, so the destination's resume and decode spans
+    and the source's migrate span carry the same trace id."""
+    src, dst = pair
+    trace_id = "ab" * 16
+    fut, toks = _live_stream(src, [1, 2, 3], trace_ctx=tracing.SpanContext(trace_id, "cd" * 8))
+    doc = src.export_parked(f"hf:{ckpt}")
+    ack = dst.import_parked(doc)
+    rel = src.release_parked(doc["fence"]["token"], dest="local", claims=ack["claims"])
+    assert rel["ok"] and rel["migrated"] == 1
+    req = fut.result(timeout=120)
+    assert req.out_tokens and toks == req.out_tokens
+    spans = tracing.request_snapshot(trace_id)
+    assert {s.trace_id for s in spans} == {trace_id}
+    names = [s.name for s in spans]
+    assert "request.preempt" in names and "request.migrate" in names
+    resume = next(s for s in spans if s.name == "request.resume")
+    assert resume.attrs.get("migrated") is True
+    roots = [s for s in spans if s.name == "request.lifecycle"]
+    assert {r.attrs.get("outcome") for r in roots} == {"migrated", "finished"}
+    assert next(s for s in spans if s.name == "request.migrate").attrs["outcome"] == "migrated"
+
+
+def test_client_drop_before_release_counts_one_abort_per_side(pair, ckpt):
+    """The client leaves while the bundle is away: the source counts one
+    client abort and one aborted outcome (no state_loss), and the
+    destination, told through its claim, counts its own one."""
+    src, dst = pair
+    model = f"hf:{ckpt}"
+    fut, _ = _live_stream(src, [1, 2, 3], max_tokens=48)
+    doc = src.export_parked(model)
+    ack = dst.import_parked(doc)
+    client0 = _counter("fma_engine_aborted_requests_total", model=model, reason="client")
+    loss0 = _counter("fma_engine_aborted_requests_total", model=model, reason="state_loss")
+    aborted0 = _counter("fma_engine_preempted_requests_total", model=model, outcome="aborted")
+    assert fut.cancel()
+    rel = src.release_parked(doc["fence"]["token"], dest="http://dst", claims=ack["claims"])
+    assert rel["migrated"] == 0 and rel["proxied"] == 0
+    assert _counter("fma_engine_aborted_requests_total", model=model, reason="client") - client0 == 1
+    assert _counter("fma_engine_preempted_requests_total", model=model, outcome="aborted") - aborted0 == 1
+    _balance(src)
+    # both services count under the same model label, process-wide: the
+    # total settling at exactly 2 pins one abort on each side
+    _wait_counter("fma_engine_aborted_requests_total", client0 + 2, model=model, reason="client")
+    time.sleep(0.3)
+    assert _counter("fma_engine_aborted_requests_total", model=model, reason="client") - client0 == 2
+    assert _counter("fma_engine_aborted_requests_total", model=model, reason="state_loss") == loss0
+    s = src.stats()["zero_drain"]
+    assert s["migrated"] == 0 and s["aborted"] == 1
+
+
+def test_client_drop_after_release_counts_one_abort_per_side(pair, ckpt):
+    """The client leaves after the handoff committed: the watcher stops,
+    the source counts its one client abort from its proxy registry, the
+    destination its own from the claim abort; the outcome stays the
+    ``migrated`` counted at the release."""
+    src, dst = pair
+    model = f"hf:{ckpt}"
+    fut, _ = _live_stream(src, [1, 2, 3], max_tokens=48)
+    doc = src.export_parked(model)
+    ack = dst.import_parked(doc)
+    client0 = _counter("fma_engine_aborted_requests_total", model=model, reason="client")
+    loss0 = _counter("fma_engine_aborted_requests_total", model=model, reason="state_loss")
+    mig0 = _counter("fma_engine_preempted_requests_total", model=model, outcome="migrated")
+    rel = src.release_parked(doc["fence"]["token"], dest="http://dst", claims=ack["claims"])
+    assert rel["migrated"] == 1 and rel["proxied"] == 1
+    assert _counter("fma_engine_preempted_requests_total", model=model, outcome="migrated") - mig0 == 1
+    src.abort(fut)
+    _wait_counter("fma_engine_aborted_requests_total", client0 + 2, model=model, reason="client")
+    time.sleep(0.3)
+    assert _counter("fma_engine_aborted_requests_total", model=model, reason="client") - client0 == 2
+    assert _counter("fma_engine_aborted_requests_total", model=model, reason="state_loss") == loss0
+    assert fut.done()
+    _balance(src)
+    s = src.stats()["zero_drain"]
+    assert s["migrated"] == 1 and s["aborted"] == 0

@@ -1,6 +1,6 @@
 """Routes of the reference server the port does not serve yet answer 400
 with the port's message, not a 404 ("no route"), whatever lies under
-them; and a swap whose build fails from the disk tier leaves the weights
+them; the migration routes, ported, answer as the reference's; and a swap whose build fails from the disk tier leaves the weights
 it rebuilt in the pool as prefetched, so the next swap reads neither the
 checkpoint nor the tier again (the reference's behaviour)."""
 
@@ -40,16 +40,26 @@ def _call(port: int, method: str, path: str):
         return e.code, json.loads(e.read())
 
 
-@pytest.mark.parametrize("method,path", [
-    ("POST", "/v1/parked/release"),
-    ("POST", "/v1/parked/abort"),
-    ("GET", "/v1/parked/claims/x"),
-    ("GET", "/v1/parked/m"),
-    ("POST", "/v1/residents"),
-])
+@pytest.mark.parametrize("method,path", [("POST", "/v1/residents"), ("GET", "/v1/residents/x")])
 def test_an_unported_route_answers_400(served, method, path):
     status, body = _call(served, method, path)
     assert status == 400 and body == {"error": f"{path} is not supported by this server yet"}
+
+
+@pytest.mark.parametrize("method,path,status,message", [
+    ("POST", "/v1/parked/release", 400, "release requires a 'fence_token' string"),
+    ("POST", "/v1/parked/abort", 400, "abort requires a 'fence_token' string"),
+    ("GET", "/v1/parked/claims/x", 404, "unknown claim 'x'"),
+    ("GET", "/v1/parked/tiny", 409, "zero-drain parking is off"),
+])
+def test_a_ported_parked_route_answers(served, method, path, status, message):
+    """The migration routes left the unported ones: with ``--zero-drain
+    off`` (the default) each answers as the reference's does, a 400 for a
+    body without a fence, a 404 for an unknown claim, a 409 for an export
+    with nothing to park."""
+    got, body = _call(served, method, path)
+    assert got == status and message in body["error"]
+    assert not tserver.unported_route(path)
 
 
 @pytest.mark.parametrize("method,path", [("GET", "/v1/profile"), ("GET", "/metrics"), ("GET", "/v1/traces")])
@@ -65,10 +75,10 @@ def test_a_ported_observability_route_is_served(served, method, path):
 def test_a_prefix_is_not_a_route(served):
     """Matching is by path segment: a route that merely starts with an
     unported one's letters is no route at all."""
-    assert tserver.unported_route("/v1/parked") and tserver.unported_route("/v1/residents/x")
-    assert not tserver.unported_route("/v1/parkedx") and not tserver.unported_route("/v1/prefetch")
-    assert not tserver.unported_route("/v1/profile") and tserver.UNPORTED_ROUTES == ("/v1/parked", "/v1/residents")
-    assert _call(served, "GET", "/v1/parkedx")[0] == 404
+    assert tserver.unported_route("/v1/residents") and tserver.unported_route("/v1/residents/x")
+    assert not tserver.unported_route("/v1/residentsx") and not tserver.unported_route("/v1/prefetch")
+    assert not tserver.unported_route("/v1/profile") and tserver.UNPORTED_ROUTES == ("/v1/residents",)
+    assert _call(served, "GET", "/v1/residentsx")[0] == 404
 
 
 def test_a_build_that_fails_from_the_disk_tier_leaves_prefetched_weights(tmp_path, monkeypatch):

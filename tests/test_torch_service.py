@@ -183,6 +183,8 @@ def test_the_port_answers_as_the_reference(both, i):
         assert quant["mode"] == "off" and quant["last_swap"] is None
         engine = got.pop("engine")  # and its step counters
         assert engine["cold_prefills"] >= 1 and engine["decode_steps"] >= 1
+        # and its migration legs (none ran)
+        assert got.pop("migration_legs") == {"export": {}, "import": {}}
         # the oracle's summary: the same accuracy figures; the bandwidths
         # are measured, so only their kinds (a subset: the port's load
         # times its copies on the card only) compare
