@@ -40,7 +40,11 @@ exits non-zero and never prints the final ``ok`` line):
      a CTA at group 1, and of 8, 4, 3 and 2), page sizes 8, 12 and 64, and
      batch 1 at 4095; ragged
      also with six sequences' decode rows in one CTA's window and a run
-     over several CTAs, and a 512-token segment at position 7680;
+     over several CTAs, and a 512-token segment at position 7680; and
+     (``kernel_check``) ragged at 256 rows with two whole segments masked
+     between live runs, as a multi-variant pass has them: within the
+     limit, the masked rows zero, and the packed step's K/V write of the
+     masked rows going to the null page only;
   4. serve   — the port's HTTP server in process, full-width full-depth
      llama3-8b with seeded random weights; four greedy completions
      (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then
@@ -60,7 +64,8 @@ exits non-zero and never prints the final ``ok`` line):
      decode-kernel events (inside the replayed graphs) and L x its cold
      prefills of prefill-kernel events (both read from ``/v1/stats``), a
      second start refused (409), and a small graph captured and replayed
-     while it ran (reported); the 300-token prompt with its own 64 greedy
+     while it ran (reported), the traffic between two pads of spins as in
+     ``graphs``; the 300-token prompt with its own 64 greedy
      tokens sent back with ``echo`` and ``logprobs``: one entry per
      prompt token, the first None, the 64 completion positions within
      ``ECHO_LOGPROB_TOL`` of the decode's logprobs on average, one cold prefill
@@ -240,6 +245,28 @@ exits non-zero and never prints the final ``ok`` line):
      arrivals finished through its proxies. The export, import and
      release seconds, the wire's KV bytes and the peak host memory of
      the launcher and both children are printed;
+  coresident — co-resident sibling variants on one launcher child of the
+     checkpoint (``--packed-serving on --token-budget 72
+     --resident-variants 3 --variant-hbm-mib 2048 --prefix-caching off``):
+     A' and A'' prefetched through the launcher, priced by ``/v1/costs``
+     and attached through its residents verb, each moving and mapping
+     exactly lm_head's 1,050,673,152 bytes; the resident ledger (device
+     bytes, duplicated bytes, saved) and the launcher's fleet gauges; a
+     non-sibling and an over-cap attach refused (409); each sibling's own
+     lm_head served (a greedy request alone on each model: A' 's first
+     token is the base's mirrored in the vocabulary, A'' 's rolled by half,
+     at the base's logprob); nine concurrent
+     streams over the three models (the passes and the kernels' launches
+     counted per pass), base-only traffic on the captured graphs; detach
+     refused while its variant streams, a sleep, a swap and an export
+     refused while one is attached; the detaches give the card back its
+     bytes, and a level-1 sleep and wake after them hold serve's gates.
+     Then ``coresident_engine``: an engine of the checkpoint built in
+     process with A' and A'' attached, the same nine requests added at
+     once, interleaved and then routed to one model at a time: each
+     request's tokens and logprobs bit-equal to its model's run, and each
+     greedy request's first token on A' and A'' the base's mapped through
+     the sibling's permutation of the vocabulary;
   dualpods — two Llama-3-8B engines time-sharing the card through the
      port's control plane: the dual-pods controller and the launcher
      populator in this process over an ``InMemoryStore`` (no apiserver
@@ -290,8 +317,13 @@ exits non-zero and never prints the final ``ok`` line):
      time of a replayed step (CUDA events) and its kernels by kind
      (``torch.profiler``, whose count of the decode kernel's runs in the
      replay must equal the graph's kernel nodes, L x T); and the capture seconds and the graph pool's
-     reserved bytes. It runs first of the model phases, right after the
-     kernel checks, so its profiler window is the process's first;
+     reserved bytes. Its profiled replay runs between two pads of 5000
+     uncounted spin kernels of about 50 us each, which take the device
+     records that a later profiler window loses at its edges (876 first
+     records at most so far); the same profiled replay runs again at the
+     end of the
+     script on a fresh engine (``graphs_profile_again``), after every other
+     profiler window, under the same gate;
   6. serve_packed — the same traffic through a second server with
      ``--packed-serving on``, started after the first is shut down and its
      memory freed: every packed step runs the ragged kernel in each layer,
@@ -857,6 +889,72 @@ def check_ragged(torch, gen) -> tuple:
     return out_rows, sharded_rows
 
 
+def check_ragged_masked(torch, gen) -> dict:
+    """The ragged kernel over a multi-variant pass's buffer: the packed
+    serve's 256-row layout with two whole segments masked (their rows'
+    slot -1) between live runs, slot 2's decode row and slot 0's 120-row
+    prompt segment, against the plain version within ``REL_TOL``, the
+    masked rows zero in both; the live rows beside the same buffer
+    unmasked (bit-equal expected: a row's arithmetic reads its own
+    sequence only; reported). Then the packed step's K/V write
+    (``llama._row_targets``, ``_scatter_rows``) with the same rows: a
+    masked row writes nothing but the null page."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import kv_pages_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import ragged as mod
+
+    h, kvh, d, ps, max_batch, pps = 32, 8, 128, 16, 8, 8192 // 16
+    dev, bf16, rows = "cuda", torch.bfloat16, 256
+    segments = [(1, 20, 1), (2, 300, 1), (3, 1500, 1), (0, 2768, 120), (4, 0, 64)]
+    masked = (2, 0)
+    need = {s: -(-(p0 + n) // ps) for s, p0, n in segments}
+    num_pages = sum(need.values()) + 1
+    perm = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(7)) + 1).tolist()
+    table = torch.zeros((max_batch, pps), dtype=torch.int32)
+    for s_, n in need.items():
+        table[s_, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    kvp = kv_pages_bucket(max(p0 + n for _, p0, n in segments), ps, pps)
+    pt = table.to(dev)[:, :kvp]
+    slot, pos = pack(torch, segments, rows, dev)
+    live = slot.clone()
+    for m in masked:
+        live[slot == m] = -1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf16)
+
+    k_pool, v_pool, q = rnd(num_pages, ps, kvh, d), rnd(num_pages, ps, kvh, d), rnd(rows, h, d)
+    out = mod.ragged_paged_attention(q, k_pool, v_pool, pt, live, pos)
+    ref = mod.ragged_paged_attention_plain(q, k_pool, v_pool, pt, live, pos)
+    full = mod.ragged_paged_attention(q, k_pool, v_pool, pt, slot, pos)
+    torch.cuda.synchronize()
+    err, rel = errors(out, ref)
+    gone = (slot >= 0) & (live < 0)
+    if not rel <= REL_TOL:
+        raise AssertionError(f"ragged kernel disagrees with its plain version with masked segments: {rel}")
+    if out[gone].abs().max().item() != 0 or ref[gone].abs().max().item() != 0:
+        raise AssertionError("a masked row of the ragged kernel's output is not zero")
+    kept = live >= 0
+    # the K/V write: only the live rows' (page, offset) and the null page change
+    new = rnd(rows, kvh, d)
+    pool = k_pool.clone()
+    llama._scatter_rows(pool, new, llama._row_targets(pt, live, pos, ps))
+    changed = (pool != k_pool).flatten(2).any(-1)  # [pages, page_size]
+    want = torch.zeros_like(changed)
+    phys, off = llama._row_targets(pt, live, pos, ps)
+    want[phys[kept], off[kept]] = True
+    if not torch.equal(changed[1:], want[1:]):
+        raise AssertionError("a masked row of the packed step wrote K/V outside the null page")
+    return {
+        "check": "ragged_masked_segments", "rows": rows, "segments": [list(x) for x in segments],
+        "masked_slots": list(masked), "masked_rows": int(gone.sum()), "live_rows": int(kept.sum()),
+        "max_abs_err": err, "max_row_rel_err": rel, "masked_rows_zero": True,
+        "live_rows_bit_equal_unmasked": bool(torch.equal(out[kept], full[kept])),
+        "kv_written_only_by_live_rows": True,
+    }
+
+
 # ragged_case's layouts: (segments, rows, table pages per sequence; None:
 # as many as the longest sequence needs)
 RAGGED_LAYOUTS = {
@@ -1305,7 +1403,9 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
     ``/v1/stats`` before and after); a second start while one runs is a
     409. A small CUDA graph is captured and replayed while the capture
     runs (what a build does), its output checked: whether a capture works
-    under an active profile."""
+    under an active profile. The traffic runs between two pads of spins
+    launched here (``profile_pad``), which take the records a later
+    window loses at its edges."""
     import numpy as np
 
     eng = service.engine
@@ -1317,6 +1417,8 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
     before = get(port, "/v1/stats")["engine"]
     started = post(port, "/v1/profile", {"log_dir": log_dir})
     conflict = request(f"http://127.0.0.1:{port}/v1/profile", "POST", {})[0]
+    profile_pad(torch)
+    torch.cuda.synchronize()
     for p in prompts:
         post(port, "/v1/completions", {"prompt": p, "max_tokens": 64})
     x = torch.randn(256, 256, device="cuda")
@@ -1329,6 +1431,8 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
         capture = "ok" if torch.equal(y, x @ x) else "wrong output"
     except Exception as e:  # noqa: BLE001 — the finding, reported
         capture = f"{type(e).__name__}: {e}"
+    profile_pad(torch)
+    torch.cuda.synchronize()
     after = get(port, "/v1/stats")["engine"]
     status = get(port, "/v1/profile")
     stopped = request(f"http://127.0.0.1:{port}/v1/profile", "DELETE")[1]
@@ -1340,6 +1444,7 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
     kernels = [e for e in events if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"]
     decode = [e for e in kernels if "decode_kernel" in e["name"]]
     prefill = sorted((e for e in kernels if "prefill_kernel" in e["name"]), key=lambda e: e["ts"])
+    pads = pad_spins_lost(sorted((e["ts"], e["name"]) for e in kernels), PROFILE_PAD_KERNELS)
     engine_tid = service._thread.native_id
     engine_ops = sum(1 for e in events if e.get("cat") == "cpu_op" and e.get("tid") == engine_tid)
     steps = after["decode_steps"] - before["decode_steps"]
@@ -1352,11 +1457,11 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
         "decode_kernel_device_ms": sum(e["dur"] for e in decode) / 1e3 / max(1, len(decode)),
         "prefill_kernel_device_ms": {str(n): sum(e["dur"] for e in prefill[i * L:(i + 1) * L]) / 1e3 / L
                                      for i, n in enumerate((300, 3000)) if len(prefill) >= (i + 1) * L},
-        "capture_under_profile": capture,
+        "capture_under_profile": capture, **pads,
     }
     if (conflict != 409 or not status["profiling"] or stopped.get("profiling") is not False or engine_ops == 0
             or colds != 2 or len(decode) != L * steps or len(prefill) != L * colds or not steps):
-        raise AssertionError(f"the profile window: {out}")
+        raise AssertionError(f"{pad_loss_note(pads)}the profile window: {out}")
     return out
 
 
@@ -3127,6 +3232,7 @@ class Streams:
     def __init__(self, port: int, bodies: list) -> None:
         self.tokens = [[] for _ in bodies]
         self.errors = [None] * len(bodies)
+        self.usage = [None] * len(bodies)
         self.threads = [threading.Thread(target=self._read, args=(i, port, b), daemon=True)
                         for i, b in enumerate(bodies)]
         for t in self.threads:
@@ -3146,6 +3252,8 @@ class Streams:
                         ev = json.loads(line[6:])
                         if "error" in ev:
                             self.errors[i] = ev["error"]
+                        if ev.get("usage"):
+                            self.usage[i] = ev["usage"]
                         for ch in ev.get("choices") or ():
                             self.tokens[i].extend(ch.get("token_ids") or ())
         except Exception as e:  # noqa: BLE001 — reported by the caller's gate
@@ -3186,6 +3294,388 @@ def priced_exactly(rec: dict, where: str) -> None:
     if rec["predicted_bytes"] is None or rec["predicted_bytes"] != rec["actual_bytes"]:
         raise AssertionError(f"{where}: the oracle predicted {rec['predicted_bytes']} bytes, "
                              f"{rec['actual_bytes']} moved: {rec}")
+
+
+#: the coresident phase's streams, the base's, A' 's and A'' 's in turn
+#: (each model's third one seeded), 64 new tokens each
+CO_PROMPT_LENS = (20, 1500, 3000, 300, 2000, 700, 60, 2500, 1100)
+CO_NEW_TOKENS = 64
+#: coresident_engine's: its four runs each prefill the nine prompts
+CO_ENGINE_NEW_TOKENS = 16
+#: the delta of each sibling: lm_head, 4096 x 128256 bf16
+CO_DELTA_BYTES = 4096 * 128256 * 2
+#: the card's free memory after a detach, against before it, less the delta
+CO_FREE_SLACK_BYTES = 64 * MIB
+#: a sibling's first logprob against the base's on the same steps: its
+#: logits are the base's permuted, so only the log-sum-exp's order differs
+CO_HEAD_LP_TOL = 1e-4
+#: the prompts of the coresident phase's head check, each request alone
+CO_HEAD_PROMPT_LENS = (20, 60, 300)
+
+
+def base_token(m: int, token: int, vocab: int) -> int:
+    """The base's vocabulary index of model ``m``'s token: A' (1) has
+    lm_head's vocabulary reversed, A'' (2) rolled by half."""
+    return (token, vocab - 1 - token, (token - vocab // 2) % vocab)[m]
+
+
+def check_sibling_heads(rows: list, vocab: int, where: str) -> list:
+    """Each sibling served its own lm_head, a check apart from the passes
+    and the arena copies that the bit-equal gates share. Per greedy prompt
+    on the same steps, ``rows`` hold each model's first (token, logprob)
+    and ``ties``, the base's tokens at its best logprob (more than one
+    where the best logits tie): each sibling's token maps back to one of
+    them, at the base's logprob."""
+    for i, r in enumerate(rows):
+        t0, lp0 = r["first"][0]
+        for m in (1, 2):
+            t, lp = r["first"][m]
+            if base_token(m, t, vocab) not in r["ties"] or abs(lp - lp0) > CO_HEAD_LP_TOL:
+                raise AssertionError(f"{where}: prompt {i} on model {m} gave token {t} (the base's "
+                                     f"{base_token(m, t, vocab)}) at logprob {lp}; the base's best are "
+                                     f"{sorted(r['ties'])} at {lp0}")
+    return [{"first": r["first"], "ties": sorted(r["ties"])} for r in rows]
+
+
+def http_heads(port: int, models: tuple, vocab: int) -> list:
+    """``check_sibling_heads``' rows over HTTP: one greedy token of each
+    prompt on each model, each request alone (the same steps); the base's
+    ties are its token and its best with that token banned
+    (``logit_bias``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(19)
+    rows = []
+    for n in CO_HEAD_PROMPT_LENS:
+        prompt = rng.integers(0, vocab, n).tolist()
+
+        def first(model, bias=None):
+            body = {"prompt": prompt, "max_tokens": 1, "model": model, "logprobs": 1, "ignore_eos": True}
+            if bias:
+                body["logit_bias"] = bias
+            ch = post(port, "/v1/completions", body)["choices"][0]
+            return ch["token_ids"][0], ch["logprobs"]["token_logprobs"][0]
+
+        got = [first(m) for m in models]
+        banned = first(models[0], {str(got[0][0]): -100.0})[0]
+        rows.append({"first": got, "ties": {got[0][0], banned}})
+    return rows
+
+
+def coresident_bodies(vocab: int, models: tuple) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(18)
+    out = []
+    for i, n in enumerate(CO_PROMPT_LENS):
+        body = {"prompt": rng.integers(0, vocab, n).tolist(), "max_tokens": CO_NEW_TOKENS, "ignore_eos": True,
+                "model": models[i % 3]}
+        if i // 3 == 2:
+            body.update(temperature=0.8, top_p=0.95, seed=2000 + i)
+        out.append(body)
+    return out
+
+
+def timing(streams: "Streams", which: list) -> dict:
+    """Mean TTFT and decode TPOT of the listed streams (their usage)."""
+    use = [streams.usage[i] for i in which]
+    return {"ttft_s": sum(u["time_to_first_token_s"] for u in use) / len(use),
+            "tpot_s": sum(u["decode_tpot_s"] for u in use) / len(use), "requests": len(use)}
+
+
+def engine_figures(port: int) -> dict:
+    """The child's step counters and its kernel launches (eager, and what
+    its graph replays ran)."""
+    counts, dev = child_counts(port)
+    eng = get(port, "/v1/stats")["engine"]
+    return {**eng, "ragged": counts["ragged"], "decode_eager": counts["eager"]["decode_inline"],
+            "decode_replayed": counts["replayed"]["decode_inline"], "mapped_bytes": dev["memory"]["mapped_bytes"],
+            "counts": counts}
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if isinstance(after[k], (int, float)) and k in before}
+
+
+def coresident_phase(torch, smi: str, ckpt: str, swapped: dict) -> dict:
+    """Co-resident sibling variants on one launcher child of the checkpoint
+    A (``--packed-serving on --token-budget 72 --resident-variants 3
+    --variant-hbm-mib 2048 --prefix-caching off``: one packed buffer shape,
+    and no prefix-cache hit between the runs compared): A' and A''
+    prefetched into its pool, then attached through the launcher's
+    residents verb. Gates: each attach moves and maps exactly its price
+    (lm_head, 1,050,673,152 bytes); the ledger's device bytes twice that
+    and its duplicated bytes twice the weights; the launcher's fleet
+    gauges the same; ``tinyllama-1.1b`` (no digests the tiers hold: no
+    sibling) and then a third attach (the cap) refused with a 409; each
+    sibling's own lm_head served (``http_heads``). Nine
+    concurrent streams (three per model, each model's third seeded): the
+    routed steps and chunks run one pass per resident with rows in them,
+    the ragged and decode kernels launched L x passes (their tokens are
+    held bit for bit in ``coresident_engine``); base-only traffic replays
+    the captured graphs and captures none; TTFT and TPOT of both. A detach while its
+    variant streams is a 409, and a sleep, a swap and an export are
+    refused; after the drain both detaches free exactly what was mapped
+    (the card's free memory within 64 MiB); then a level-1 sleep maps
+    nothing and a wake serves the same tokens."""
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig, param_shapes
+
+    t_phase = time.monotonic()
+    cfg = LlamaConfig.llama3_8b()
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    weights = 2 * sum(math.prod(v) for v in param_shapes(cfg).values())
+    free_memory(torch)
+    _, uuid = smi_rows("--query-gpu=index,uuid")[0]
+    base, sib1, sib2 = f"hf:{ckpt}", f"hf:{swapped['sibling']}", f"hf:{swapped['sibling2']}"
+    port = free_port()
+    opts = (f"--model {base} --num-pages 2048 --seed 0 --max-batch 8 --device cuda --packed-serving on "
+            f"--token-budget 72 --resident-variants 3 --variant-hbm-mib 2048 --zero-drain off --content-hash on "
+            f"--prefix-caching off --model-pool-mib {swapped['pool_mib']} --port {port}")
+    launcher = Launcher()
+    url = f"{launcher.url}/v2/vllm/instances/r"
+    try:
+        _, spawn_s = launcher.spawn("r", opts, uuid, port)
+        t0 = time.monotonic()
+        for m in (sib1, sib2):
+            status, body = request(f"{url}/prefetch", "POST", {"model": m})
+            done = prefetch_until_done(port)
+            if status != 200 or done["state"] != "completed":
+                raise AssertionError(f"prefetch {m} through the launcher: {status} {body} {done}")
+        prefetch_s = time.monotonic() - t0
+        rows = {r["model"]: r for r in get(port, "/v1/costs")["coresident"]}
+        priced = {m: rows[m].get("predicted_bytes") for m in (sib1, sib2)}
+        if priced != {sib1: CO_DELTA_BYTES, sib2: CO_DELTA_BYTES}:
+            raise AssertionError(f"the coresident prices are {priced}, want {CO_DELTA_BYTES} each: {rows}")
+        attached, free0 = [], torch.cuda.mem_get_info()[0]
+        for i, m in enumerate((sib1, sib2)):
+            before = get(port, "/v1/device")["memory"]["mapped_bytes"]
+            status, body = request(f"{url}/residents", "POST", {"model": m})
+            if status != 200 or not body["residents"]["attached"]:
+                raise AssertionError(f"attach {m}: {status} {body}")
+            res = body["residents"]
+            grew = get(port, "/v1/device")["memory"]["mapped_bytes"] - before
+            rec = res["costs"]
+            if not rec["predicted_bytes"] == rec["actual_bytes"] == res["wire_bytes"] == grew == CO_DELTA_BYTES:
+                raise AssertionError(f"attach {m}: priced {rec['predicted_bytes']}, moved {rec['actual_bytes']}, "
+                                     f"mapped {grew}, want {CO_DELTA_BYTES}")
+            attached.append({"model": m, "handle": res["handle"], "attach_s": res["attach_s"],
+                             "predicted_s": rec["predicted_s"], "source_tier": res["source_tier"], "mapped": grew})
+            if i == 0:
+                # a model the tiers hold no digests of is no sibling
+                status, body = request(f"{url}/residents", "POST", {"model": "tinyllama-1.1b"})
+                if status != 409:
+                    raise AssertionError(f"attach tinyllama-1.1b: {status} {body}")
+                not_sibling = str(body)[:300]
+        free1 = torch.cuda.mem_get_info()[0]
+        ledger = res["ledger"]
+        if not (ledger["bytes_device"] == 2 * CO_DELTA_BYTES and ledger["bytes_if_duplicated"] == 2 * weights
+                and ledger["bytes_saved"] == 2 * weights - 2 * CO_DELTA_BYTES):
+            raise AssertionError(f"the resident ledger: {ledger}, want device {2 * CO_DELTA_BYTES}, duplicated "
+                                 f"{2 * weights}")
+        status, capped = request(f"{url}/residents", "POST", {"model": f"hf:{ckpt}-sibling3"})
+        if status != 409 or "cap" not in str(capped):
+            raise AssertionError(f"a third attach: {status} {capped}")
+        samples = scrape(f"{launcher.url}/metrics")
+        gauges = {"resident_variants": metric(samples, "fma_launcher_fleet_resident_variants"),
+                  "coresident_saved_bytes": metric(samples, "fma_launcher_fleet_coresident_saved_bytes")}
+        if gauges != {"resident_variants": 3, "coresident_saved_bytes": ledger["bytes_saved"]}:
+            raise AssertionError(f"the launcher's fleet gauges {gauges}, the ledger {ledger}")
+        listed = request(launcher.url + "/v2/vllm/instances")[1]["ledger"]["residents"].get("r", {})
+        if listed.get("residents") != sorted([sib1, sib2]):
+            raise AssertionError(f"the launcher's ledger block: {listed}")
+        heads = check_sibling_heads(http_heads(port, (base, sib1, sib2), vocab), vocab, "coresident")
+
+        # all nine at once; their tokens are gated bit for bit on a fixed
+        # schedule in coresident_engine: over HTTP the arrivals' order and
+        # the steps they share vary, and a decode row in a packed step
+        # rounds apart from one in a chunk
+        bodies = coresident_bodies(vocab, (base, sib1, sib2))
+        before = engine_figures(port)
+        t0 = time.monotonic()
+        mixed = Streams(port, bodies).join()
+        mixed_s = time.monotonic() - t0
+        if any(mixed.errors) or any(len(t) != CO_NEW_TOKENS for t in mixed.tokens):
+            raise AssertionError(f"the interleaved streams failed: {mixed.errors}")
+        d = delta(engine_figures(port), before)
+        if not (d["variant_steps"] > 0 and d["variant_chunks"] > 0 and d["ragged"] == L * d["packed_passes"]
+                and d["packed_passes"] > d["packed_steps"]
+                and d["decode_eager"] == L * d["variant_decode_forwards"]
+                and d["decode_replayed"] == L * (d["decode_steps"] - d["variant_chunk_steps"])
+                and d["graph_replays"] + d["variant_chunks"] == d["decode_chunks"] and d["graph_captures"] == 0):
+            raise AssertionError(f"the interleaved run's passes and launches: {d}")
+        routed_ix = [i for i, b in enumerate(bodies) if b["model"] != base]
+        # base-only traffic with the variants attached: the plain path
+        base_bodies = [dict(b, model=base) for b in bodies]
+        before = engine_figures(port)
+        base_run = Streams(port, base_bodies).join()
+        if any(base_run.errors):
+            raise AssertionError(f"base-only traffic failed: {base_run.errors}")
+        b = delta(engine_figures(port), before)
+        if not (b["decode_chunks"] > 0 and b["graph_replays"] == b["decode_chunks"] and b["variant_chunks"] == 0
+                and b["variant_steps"] == 0 and b["packed_passes"] == b["packed_steps"] and b["graph_captures"] == 0
+                and b["decode_eager"] == 0 and b["ragged"] == L * b["packed_steps"]):
+            raise AssertionError(f"base-only traffic left the plain path: {b}")
+
+        # detach-first
+        s = Streams(port, [bodies[1]])  # A' 's 1500-id prompt
+        s.wait_tokens(2)
+        refused = {"detach_live": request(f"{url}/residents", "DELETE", {"model": sib1}),
+                   "sleep": request(f"http://127.0.0.1:{port}/sleep?level=1", "POST", {}),
+                   "swap": request(f"http://127.0.0.1:{port}/v1/swap", "POST", {"model": sib2}),
+                   "export": request(f"http://127.0.0.1:{port}/v1/parked/{urllib.parse.quote(base, safe='')}")}
+        s.join()
+        if (refused["detach_live"][0] != 409 or refused["sleep"][0] != 400 or refused["swap"][0] != 400
+                or refused["export"][0] != 409 or not all("detach" in str(v[1]) for v in refused.values())):
+            raise AssertionError(f"the detach-first refusals: {refused}")
+        if s.errors[0] or len(s.tokens[0]) != CO_NEW_TOKENS:
+            raise AssertionError(f"the stream beside the refusals: {s.errors}")
+        mapped0, free2 = get(port, "/v1/device")["memory"]["mapped_bytes"], torch.cuda.mem_get_info()[0]
+        detached = []
+        for m in (sib1, sib2):
+            status, body = request(f"{url}/residents", "DELETE", {"model": m})
+            if status != 200 or body["residents"]["freed_bytes"] != CO_DELTA_BYTES:
+                raise AssertionError(f"detach {m}: {status} {body}")
+            detached.append(body["residents"]["detach_s"])
+        mapped1, free3 = get(port, "/v1/device")["memory"]["mapped_bytes"], torch.cuda.mem_get_info()[0]
+        if mapped0 - mapped1 != 2 * CO_DELTA_BYTES or abs(free3 - free2 - 2 * CO_DELTA_BYTES) > CO_FREE_SLACK_BYTES \
+                or abs(free0 - free1 - 2 * CO_DELTA_BYTES) > CO_FREE_SLACK_BYTES:
+            raise AssertionError(f"the detaches unmapped {mapped0 - mapped1} bytes and freed {free3 - free2} of the "
+                                 f"card, the attaches took {free0 - free1}; want {2 * CO_DELTA_BYTES}")
+        # serve's sleep gates with no variant left
+        captures = get(port, "/v1/stats")["engine"]["graph_captures"]
+        gold = Streams(port, [bodies[0]]).join()
+        post(port, "/sleep?level=1")
+        asleep = get(port, "/v1/device")["memory"]
+        if asleep["mapped_bytes"] or asleep["reserved_bytes"] > ASLEEP_RESERVED_LIMIT_BYTES:
+            raise AssertionError(f"asleep after the detaches the child keeps {asleep}")
+        woke = post(port, "/wake_up")
+        probe = Streams(port, [bodies[0]]).join()
+        if probe.tokens[0] != gold.tokens[0] or get(port, "/v1/stats")["engine"]["graph_captures"] != captures:
+            raise AssertionError("the wake after the detaches serves other tokens or captured graphs again")
+        counts, _ = child_counts(port)
+        emit({
+            "phase": "coresident", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "spawn_s": spawn_s,
+            "prefetch_s": prefetch_s, "attach": attached, "ledger": ledger, "fleet_gauges": gauges,
+            "refused": {"cap": str(capped)[:200], "not_sibling": not_sibling,
+                        **{k: str(v[1])[:160] for k, v in refused.items()}},
+            "streams": {"prompt_tokens": list(CO_PROMPT_LENS), "new_tokens": CO_NEW_TOKENS, "interleaved_s": mixed_s},
+            "routed": timing(mixed, routed_ix), "base_in_interleaved": timing(mixed, [0, 3, 6]),
+            "base_only": timing(base_run, list(range(len(bodies)))),
+            "interleaved_run": {k: v for k, v in d.items() if k != "counts"},
+            "base_only_run": {k: v for k, v in b.items() if k != "counts"},
+            "sibling_heads": heads, "detach_s": detached, "freed_card_bytes": free3 - free2, "attached_card_bytes": free0 - free1,
+            "sleep_wake": {"asleep": asleep, "wake_s": woke.get("last_wake_seconds")},
+            "seconds": time.monotonic() - t_phase,
+        })
+        return {"counts": counts}
+    finally:
+        launcher.stop()
+
+
+def coresident_engine(torch, smi: str, ckpt: str) -> dict:
+    """The co-resident passes bit for bit, on an engine of the checkpoint
+    built here (``--token-budget 72``: one packed buffer shape; no prefix
+    cache) with two siblings attached, A' (lm_head's vocabulary reversed)
+    and A'' (rolled by half). The coresident phase's nine requests (three
+    per model, each model's third seeded) are added at once, so the steps
+    are the same in every run: interleaved, then the same nine routed to
+    one model at a time. Each request's tokens and logprobs must equal the
+    run where its model is the only one routed (one pass a step, the same
+    steps and buffer shapes). Each greedy request's first token on A' and
+    A'' maps back to the base's in the single-model runs, at its logprob
+    (``check_sibling_heads``; the base's top logprobs give its ties). The
+    interleaved run's launches: the ragged
+    kernel L x the packed passes, the decode kernel eagerly L x the
+    multi-variant chunks' decode forwards, replayed for the rest."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from llm_d_fast_model_actuation_tpu_torch.models import hf as hf_models
+
+    t_phase = time.monotonic()
+    free_memory(torch)
+    model = hf_models.config_from_hf(ckpt)
+    cfg = EngineConfig(model=model, max_batch=8, num_pages=2048, packed_serving=True, token_budget=72,
+                       prefix_caching=False)
+    eng = InferenceEngine(cfg, params=lambda m: hf_models.load_params(ckpt, m), device="cuda")
+    try:
+        head = eng.model.lm_head
+        handles = [0, eng.attach_variant({"lm_head": head.flip(1).contiguous()}, "a1"),
+                   eng.attach_variant({"lm_head": head.roll(head.shape[1] // 2, 1).contiguous()}, "a2")]
+        bodies = coresident_bodies(model.vocab_size, (0, 1, 2))
+        L = model.num_layers
+
+        def run(route) -> tuple:
+            ids = [eng.add_request(b["prompt"], max_new_tokens=CO_ENGINE_NEW_TOKENS, ignore_eos=True,
+                                   temperature=b.get("temperature", 0.0), top_p=b.get("top_p", 1.0),
+                                   seed=b.get("seed"), want_top_logprobs=True, variant=handles[route(b)])
+                   for b in bodies]
+            done, t0 = {}, time.monotonic()
+            while eng.has_work():
+                for r in eng.step():
+                    done[r.seq_id] = r
+            reqs = [done[i] for i in ids]
+            return ([(r.out_tokens, r.out_logprobs) for r in reqs], time.monotonic() - t0,
+                    [r.out_top_logprobs[0] for r in reqs])
+
+        solo = {m: run(lambda b, m=m: m) for m in range(3)}
+        before = {k: getattr(eng, k) for k in ("packed_passes", "packed_steps", "variant_steps", "variant_chunks",
+                                                 "variant_decode_forwards", "graph_replays", "decode_chunks")}
+        reset_counts()
+        mixed, mixed_s, _ = run(lambda b: b["model"])
+        counts = path_counts(eng)
+        d = {k: getattr(eng, k) - v for k, v in before.items()}
+        for i, b in enumerate(bodies):
+            if mixed[i] != solo[b["model"]][0][i]:
+                got, want = mixed[i][0], solo[b["model"]][0][i][0]
+                at = next((k for k, (x, y) in enumerate(zip(got, want)) if x != y), None)
+                raise AssertionError(f"request {i} (model {b['model']}) interleaved leaves its model's run at "
+                                     f"token {at} (logprobs equal: {mixed[i][1] == solo[b['model']][0][i][1]})")
+        if not (d["variant_steps"] > 0 and d["variant_chunks"] > 0
+                and counts["ragged"] == L * d["packed_passes"] and d["packed_passes"] > d["packed_steps"]
+                and counts["eager"]["decode_inline"] == L * d["variant_decode_forwards"]
+                and d["graph_replays"] + d["variant_chunks"] == d["decode_chunks"]):
+            raise AssertionError(f"the interleaved run's passes {d} and launches {counts}")
+        heads = check_sibling_heads(
+            [{"first": [(solo[m][0][i][0][0], solo[m][0][i][1][0]) for m in range(3)],
+              "ties": {t for t, lp in solo[0][2][i] if lp >= solo[0][0][i][1][0] - CO_HEAD_LP_TOL}}
+             for i, b in enumerate(bodies) if "temperature" not in b], model.vocab_size, "coresident_engine")
+        for h in handles[1:]:
+            eng.detach_variant(h)
+        out = {"phase": "coresident_engine", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+               "tokens_and_logprobs_bit_equal": True, "sibling_heads": heads, "requests": len(bodies), "interleaved_s": mixed_s,
+               "single_model_s": [solo[m][1] for m in range(3)], "passes": d,
+               "launches": {k: counts[k] for k in ("ragged", "eager", "replayed")},
+               "seconds": time.monotonic() - t_phase}
+        emit(out)
+        return {"counts": counts}
+    finally:
+        del eng
+        free_memory(torch)
+
+
+def profile_again(torch, smi: str) -> dict:
+    """The graphs phase's profiled replay once more, now after the serve
+    phases' profiler windows and the coresident phase, in this process:
+    a fresh engine as ``graphs_phase`` builds it, eight requests running,
+    the gate of ``chunk_device_profile`` unchanged."""
+    import numpy as np
+
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    free_memory(torch)
+    cfg = EngineConfig(model=llama.LlamaConfig.llama3_8b(), max_batch=8, num_pages=2048, prefix_caching=False)
+    eng = InferenceEngine(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    for n in GRAPH_PROMPT_LENS:
+        eng.add_request(rng.integers(0, cfg.model.vocab_size, n).tolist(), max_new_tokens=200)
+    eng.step()
+    out = {"phase": "graphs_profile_again", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           **chunk_device_profile(torch, eng, 8)}
+    eng.abort_all("profile done")
+    del eng
+    free_memory(torch)
+    emit(out)
+    return out
 
 
 def zero_drain_phase(torch, smi: str, ckpt: str, swapped: dict) -> dict:
@@ -3943,6 +4433,47 @@ def graph_parity(torch, eng, T: int, sampled: bool) -> dict:
             "decode_launches_replayed": replay_launches}
 
 
+#: spin kernels launched at each edge of a profiler window whose kernels
+#: are counted, and each one's cycles (about 50 us at the H100's 1.98 GHz:
+#: about 0.25 s a pad)
+PROFILE_PAD_KERNELS = 5000
+PROFILE_PAD_CYCLES = 100_000
+#: the most device records a later profiler window has lost so far: its
+#: first 876 (a late window of ``profile_windows.py``, about 44 ms of
+#: spins) and, at its end, the last 17 decode kernels of serve's window
+#: with the kernels after them; each pad is sized above both
+PROFILE_LOSS_SEEN = 876
+
+
+def profile_pad(torch, n: int = PROFILE_PAD_KERNELS) -> None:
+    """``n`` uncounted spin kernels at an edge of a profiler window. A
+    window after the process's first loses device records at an edge (its
+    first ones, or its last ones), and these are what it loses."""
+    for _ in range(n):
+        torch.cuda._sleep(PROFILE_PAD_CYCLES)
+
+
+def pad_spins_lost(records: list, n: int) -> dict:
+    """Of a window's device records ``(start, name)`` in time order, the
+    pad spins that were not recorded at each edge: those before the first
+    other record belong to the lead pad, those after the last to the
+    trailing one."""
+    spin = [i for i, (_, name) in enumerate(records) if "spin_kernel" in name]
+    other = [i for i, (_, name) in enumerate(records) if "spin_kernel" not in name]
+    lead = sum(1 for i in spin if other and i < other[0])
+    trail = sum(1 for i in spin if other and i > other[-1])
+    return {"pad_spins": n, "lead_spins_lost": n - lead, "trail_spins_lost": n - trail,
+            "largest_loss_seen": PROFILE_LOSS_SEEN}
+
+
+def pad_loss_note(pads: dict) -> str:
+    """What a failed count says when a whole pad was lost: the known loss
+    at a window's edge, now past the pad."""
+    n = pads["pad_spins"]
+    edges = [e for e in ("lead", "trail") if n and pads[f"{e}_spins_lost"] == n]
+    return (f"the window lost every spin of its {' and '.join(edges)} pad: the known loss at a later window's "
+            f"edge (at most {PROFILE_LOSS_SEEN} first records before), now past the pad; " if edges else "")
+
 KERNEL_KINDS = (
     ("decode attention", ("decode_kernel",)),
     ("weight products", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
@@ -3950,29 +4481,43 @@ KERNEL_KINDS = (
 )
 
 
-def chunk_device_profile(torch, eng, T: int) -> dict:
+def chunk_device_profile(torch, eng, T: int, pad: int = PROFILE_PAD_KERNELS) -> dict:
     """The device time of one replayed greedy chunk of ``T`` steps with
     eight sequences running: its mean over three replays from CUDA events,
-    and its kernels from ``torch.profiler`` (one replay), summed by kind
-    and the largest by name. Each replay advances the running state."""
+    and its kernels from ``torch.profiler`` (one replay between two pads of
+    ``pad`` spins), summed by kind and the largest by name. Each replay
+    advances the running state."""
     from torch.profiler import ProfilerActivity, profile
 
     chunk_ms = time_ms(lambda: eng.graphs.replay(T, False), 3, warmup=1)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profile_pad(torch, pad)
         eng.graphs.replay(T, False)
+        profile_pad(torch, pad)
         torch.cuda.synchronize()
     kernels = []
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if us > 0:
+        if "spin" not in e.key and us > 0:
             kernels.append((e.key, us / 1e3, e.count))
+    # the device records in time order: the first ones name what a window
+    # that starts late would lose
+    device = sorted((ev for ev in prof.events() if getattr(ev, "device_type", None) is not None
+                     and "CUDA" in str(ev.device_type) and ev.time_range.elapsed_us() >= 0),
+                    key=lambda ev: ev.time_range.start)
+    first = [ev.name[:60] for ev in device[:4]]
+    pads = pad_spins_lost([(ev.time_range.start, ev.name) for ev in device], pad)
     # the profiler's count of the decode kernel's runs in that replay, held
     # against the kernel nodes read from the captured graph
     ran = sum(c for name, _, c in kernels if "decode_kernel" in name)
-    nodes = graph_kernels(eng.graphs.programs[(T, False)].kernels)["decode_inline"]
+    program = eng.graphs.programs[(T, False)]
+    nodes = graph_kernels(program.kernels)["decode_inline"]
+    records = {"kernel_records": sum(c for _, _, c in kernels), "kernel_nodes": sum(program.kernels.values()),
+               "first_device_records": first, **pads}
     if ran != nodes or ran != eng.cfg.model.num_layers * T:
-        raise AssertionError(f"the profiled replay ran the decode kernel {ran} times; its graph holds {nodes} "
-                             f"nodes, want {eng.cfg.model.num_layers} x {T}")
+        raise AssertionError(f"{pad_loss_note(pads)}the profiled replay ran the decode kernel {ran} times; its graph "
+                             f"holds {nodes} nodes, want {eng.cfg.model.num_layers} x {T}; {records}")
     by_kind = {}
     for name, ms, _ in kernels:
         kind = next((k for k, marks in KERNEL_KINDS if any(m in name for m in marks)), "other")
@@ -3980,7 +4525,7 @@ def chunk_device_profile(torch, eng, T: int) -> dict:
     traced = sum(ms for _, ms, _ in kernels)
     return {
         "chunk_steps": T, "chunk_device_ms": chunk_ms, "step_device_ms": chunk_ms / T,
-        "decode_kernel_runs_profiled": ran, "decode_kernel_nodes": nodes,
+        "decode_kernel_runs_profiled": ran, "decode_kernel_nodes": nodes, **records,
         "profiled_step_ms": traced / T if kernels else "not measured",
         "profiled_step_ms_by_kind": by_kind or "not measured",
         "largest_kernels": [{"name": n[:90], "ms_per_step": ms / T, "launches_per_step": c / T}
@@ -4698,11 +5243,10 @@ def main() -> int:
     rag, rag_sharded = check_ragged(torch, gen)
     for k in dec + pre + rag + rag_sharded + [probe]:
         emit({"phase": "kernel", **k, "nvidia_smi": smi})
+    emit({"phase": "kernel_check", **check_ragged_masked(torch, gen), "nvidia_smi": smi})
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
-    # first of the model phases: its profiled replay is then the process's
-    # first profiler window (after the serve phases' large one, the
-    # profiler has twice recorded one decode kernel fewer than the replay
-    # ran)
+    # first of the model phases; its profiled replay runs again at the end
+    # (profile_again), after every other profiler window
     graphs_phase(torch, smi)
     from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig, param_shapes
 
@@ -4718,6 +5262,8 @@ def main() -> int:
         quant = quant_phase(torch, smi, ckpt, bucketed, swapped)
         zero_drain = zero_drain_phase(torch, smi, ckpt, swapped)
         migrated = migrate_phase(torch, smi, ckpt)
+        coresident = coresident_phase(torch, smi, ckpt, swapped)
+        co_engine = coresident_engine(torch, smi, ckpt)
     finally:
         shutil.rmtree(ckpt)
         for suffix in ("-sibling", "-sibling2"):
@@ -4730,9 +5276,11 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
+    profile_again(torch, smi)
     runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"],
-            zero_drain["counts"], *migrated["counts"], *dual["counts"], packed["counts"], tp2["counts"],
-            reference["counts"])
+            zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], *dual["counts"],
+            packed["counts"],
+            tp2["counts"], reference["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)
@@ -4740,7 +5288,12 @@ def main() -> int:
     untimed = sorted({s for c in runs for s in c["prefill_by_seq"]} - set(PREFILL_SEQS))
     if untimed:
         raise AssertionError(f"the serve run launched prefill at untimed lengths {untimed}")
-    by_rows = packed["counts"]["ragged_by_rows"]
+    # the ragged kernel's launches by buffer size: the packed serve's and
+    # the coresident child's (one shape, 72 rows)
+    by_rows = dict(packed["counts"]["ragged_by_rows"])
+    for run in (coresident, co_engine):
+        for k, n in run["counts"]["ragged_by_rows"].items():
+            by_rows[k] = by_rows.get(k, 0) + n
     kernels = [dict(dec[0], launches=total("decode_inline")),
                dict(dec[1], launches=total("decode_scatter_first"))]
     for k in pre:  # one entry per bucket the serve runs launched

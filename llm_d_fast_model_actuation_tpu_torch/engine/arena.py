@@ -17,11 +17,16 @@ Each allocation carries a tag:
   * ``offload`` — weights and the KV pool: copied to pinned host memory
     by a level-1 sleep and back into the same tensors at wake;
   * ``discard`` — RoPE tables, scheduler buffers, the noise buffer:
-    released without a copy and written anew after the wake.
+    released without a copy and written anew after the wake;
+  * ``variant`` — a co-resident sibling's changed leaves (the engine's
+    ``attach_variant``): written once at the attach, and given back one
+    by one at its detach (:meth:`Arena.release`), which unmaps the block
+    and keeps its addresses for the next allocation of the same size. A
+    sleep never holds one (it is refused while a variant is attached).
 
 Allocations are laid out one after another from the start of the range,
-each rounded up to the device's granularity, and are never freed one by
-one: an arena lives as long as its engine. The range is the card's whole
+each rounded up to the device's granularity, and only ``variant`` blocks
+are freed one by one: an arena lives as long as its engine. The range is the card's whole
 memory, which the engine's state can never exceed. A view keeps its arena
 alive (``torch.as_tensor`` holds its source), and the arena gives its
 memory and its range back when the last view is gone.
@@ -51,7 +56,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
-TAGS = ("offload", "discard")
+TAGS = ("offload", "discard", "variant")
 
 #: the CUDA driver functions ``csrc/arena.cu`` is handed, in its order (the
 #: versioned names are the ones ``cuda.h`` maps the plain names to)
@@ -148,6 +153,9 @@ class Arena:
         self._by_ptr: Dict[int, Block] = {}
         #: the CPU arena's storage per block (the card's is the range)
         self._storage: Dict[int, torch.Tensor] = {}
+        #: released ``variant`` blocks, whose addresses a later allocation
+        #: of the same size takes again
+        self._free: List[Block] = []
         #: seconds spent in the CUDA driver's create/map/set-access calls
         self.map_seconds = 0.0
         self._next = 0
@@ -197,8 +205,13 @@ class Arena:
         if numel == 0:
             raise ValueError("an arena allocation holds at least one element")
         nbytes = round_up(numel * dtype.itemsize, self.granularity)
-        block = Block(name, tag, self._next, nbytes)
-        self._next += nbytes
+        reuse = next((b for b in self._free if b.nbytes == nbytes), None) if tag == "variant" else None
+        if reuse is not None:
+            self._free.remove(reuse)
+            block = Block(name, tag, reuse.offset, nbytes)
+        else:
+            block = Block(name, tag, self._next, nbytes)
+            self._next += nbytes
         if self.cuda:
             self._map(block)
             window = _Window(self, self.base + block.offset, nbytes)
@@ -213,6 +226,21 @@ class Arena:
 
     def zeros(self, shape: Sequence[int], dtype: torch.dtype, tag: str, name: str = "") -> torch.Tensor:
         return self.empty(shape, dtype, tag, name).zero_()
+
+    def release(self, t: torch.Tensor) -> int:
+        """Give a ``variant`` block's memory back to the card: unmap it
+        and forget it, its addresses kept for the next allocation of its
+        size. The caller drops every view of it and makes sure no queued
+        work reads it. Returns the block's bytes."""
+        b = self.block(t)
+        if b.tag != "variant":
+            raise ValueError(f"only variant blocks are released one by one, not {b.name or 'a block'} ({b.tag})")
+        self.unmap([t])
+        self.blocks.remove(b)
+        del self._by_ptr[b.ptr]
+        self._storage.pop(b.ptr, None)
+        self._free.append(b)
+        return b.nbytes
 
     # -- release and map again ----------------------------------------------
 

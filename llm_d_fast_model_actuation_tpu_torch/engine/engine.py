@@ -59,9 +59,20 @@ the card at addresses the arena keeps, and the bundle is seated again
 bit-exact after a wake, a swap back, or in another engine of the same
 weights (live migration, ``engine/server.py``).
 
+Co-resident sibling variants (:meth:`InferenceEngine.attach_variant`):
+a sibling fine-tune's changed leaves live in the arena beside the base's
+weights (tag ``variant``), and a request routed to it (``variant=``)
+shares the packed step and the decode chunk with the base's. A step or
+chunk with a routed row runs one pass per resident that has a row in it
+(``llama.VariantView``: the delta leaves over the base's own tensors),
+each with the other residents' rows masked (a packed row's slot -1, a
+chunk slot inactive), merges the logits row by row and samples once.
+Those steps run eagerly; base-only traffic keeps the plain step and the
+captured chunk graphs.
+
 Not ported yet, and refused rather than ignored (they are not fields of
-the port's ``EngineConfig``): speculative decoding, pipelined decode,
-co-resident variants and multi-host lockstep.
+the port's ``EngineConfig``): speculative decoding, pipelined decode and
+multi-host lockstep.
 CUDA graphs for the prefill buckets and the packed step, and for the
 chunk on a mesh (a graph belongs to one device), are later work.
 
@@ -268,6 +279,10 @@ class Request:
     #: before the first token (the exemplars' ``preempt`` leg)
     preempt_s: float = 0.0
     preempt_pre_token_s: float = 0.0
+    #: the co-resident variant whose weights serve this request
+    #: (:meth:`InferenceEngine.attach_variant`'s handle); 0 is the base.
+    #: Routed requests need packed serving and skip the prefix cache
+    variant: int = 0
 
 
 def validate_logit_bias(lb, vocab_size: int) -> "Dict[int, float] | None":
@@ -476,6 +491,25 @@ class InferenceEngine:
             from .graphs import ChunkGraphs
 
             self.graphs = ChunkGraphs(self)
+        #: co-resident sibling variants: handle -> {"delta": {flat key:
+        #: arena tensor}, "view": llama.VariantView, "nbytes", "label"}.
+        #: Handle 0 is the base and never appears here; a handle is stable
+        #: while its variant is attached (requests and the service hold it)
+        self._variants: Dict[int, Dict[str, Any]] = {}
+        #: the multi-variant passes' order: ``_variant_order[v - 1]`` is the
+        #: handle of pass v (the base is pass 0)
+        self._variant_order: List[int] = []
+        self._next_variant_handle = 1
+        self.variant_attaches = 0
+        self.variant_detaches = 0
+        #: packed forwards run (one per plain packed step, one per pass of a
+        #: multi-variant step) and decode chunks run as multi-variant twins
+        self.packed_passes = 0
+        self.variant_steps = 0
+        self.variant_chunks = 0
+        #: decode steps those twins ran, and their forwards (T per pass)
+        self.variant_chunk_steps = 0
+        self.variant_decode_forwards = 0
         #: the loader the weights came from, when they came from one
         self._load: Optional[Callable[[Any], Any]] = (
             params if callable(params) and not isinstance(params, torch.nn.Module) else None
@@ -640,6 +674,116 @@ class InferenceEngine:
         copies them in again."""
         self._dirty = True
 
+    # -- co-resident sibling variants ----------------------------------------
+
+    def variant_hbm_bytes(self) -> int:
+        """Device bytes of the attached variants' delta leaves (what
+        ``--variant-hbm-mib`` budgets; each leaf's arena block is that
+        rounded up to the granularity)."""
+        return sum(v["nbytes"] for v in self._variants.values())
+
+    def variant_handles(self) -> Dict[int, str]:
+        """handle -> label of every attached variant."""
+        return {h: v["label"] for h, v in self._variants.items()}
+
+    def _variant_live(self, handle: int) -> bool:
+        if any(r.variant == handle for r in self._waiting):
+            return True
+        return any(r is not None and not r.done and r.variant == handle for r in self._slots)
+
+    def _base_leaf(self, key: str) -> torch.Tensor:
+        """The base's tensor under a flat key (``lm_head``, ``layers/wq``)."""
+        try:
+            return self.model.get_parameter(key.replace("/", "."))
+        except AttributeError:
+            raise KeyError(key) from None
+
+    @torch.no_grad()
+    def attach_variant(self, delta: Dict[str, Any], label: str = "") -> int:
+        """Make a sibling variant co-resident: copy its changed leaves
+        (flat keys, host tensors or arrays of the base leaves' shapes and
+        types) into the arena under the tag ``variant``, beside the base's
+        weights, and return the handle requests route by. Each leaf is
+        checked against the base leaf it replaces first. Waits until the
+        copies landed, so the caller's clock times the transfer."""
+        if not self.cfg.packed_serving:
+            raise ValueError("co-resident variants require packed serving: the bucketed path runs the base")
+        if self.mesh is not None:
+            raise ValueError("co-resident variants on a tensor-parallel mesh are not ported yet (ROADMAP queue 1 item 14)")
+        if self.asleep:
+            raise EngineAsleep("engine state is offloaded (sleeping)")
+        if not delta:
+            raise ValueError("variant delta is empty: an identical sibling needs no co-residency, "
+                             "route its requests to the base")
+        host: Dict[str, torch.Tensor] = {}
+        for key, leaf in delta.items():
+            try:
+                base = self._base_leaf(key)
+            except KeyError:
+                raise ValueError(f"variant delta key {key!r} not in params")
+            t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(leaf))
+            if tuple(t.shape) != tuple(base.shape) or t.dtype != base.dtype:
+                raise ValueError(f"variant delta leaf {key!r} is {t.dtype}{tuple(t.shape)}, "
+                                 f"base is {base.dtype}{tuple(base.shape)}")
+            host[key] = t
+        handle = self._next_variant_handle
+        arena = self.arenas[self.device]
+        dev: Dict[str, torch.Tensor] = {}
+        try:
+            for key, t in host.items():
+                d = arena.empty(t.shape, t.dtype, "variant", f"variant{handle}:{key}")
+                dev[key] = d
+                d.copy_(t, non_blocking=t.is_pinned())
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except BaseException:
+            for d in dev.values():
+                arena.release(d)
+            raise
+        self._next_variant_handle += 1
+        self._variants[handle] = {
+            "delta": dev, "view": llama.VariantView(self.model, dev),
+            "nbytes": sum(t.numel() * t.element_size() for t in dev.values()),
+            "label": label or f"variant-{handle}",
+        }
+        self._variant_order.append(handle)
+        self.variant_attaches += 1
+        return handle
+
+    def detach_variant(self, handle: int) -> int:
+        """Drop a variant's delta leaves and give their memory back to the
+        card. Refused while a live or waiting request routes to it.
+        Returns the leaves' bytes."""
+        v = self._variants.get(handle)
+        if v is None:
+            raise KeyError(f"no resident variant with handle {handle}")
+        if self._variant_live(handle):
+            raise ValueError(f"resident variant {handle} has live requests; drain before detach")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # no queued pass reads the leaves
+        del self._variants[handle]
+        self._variant_order.remove(handle)
+        arena = self.arenas[self.device]
+        for t in v["delta"].values():
+            arena.release(t)
+        v["delta"].clear()
+        self.variant_detaches += 1
+        return int(v["nbytes"])
+
+    def _variant_pass_index(self) -> Dict[int, int]:
+        """handle -> its pass in the multi-variant step and chunk (the base
+        is pass 0)."""
+        return {h: i + 1 for i, h in enumerate(self._variant_order)}
+
+    def _passes(self, index: np.ndarray, live: np.ndarray) -> List[Tuple[Any, int]]:
+        """The passes a multi-variant dispatch runs: (model, pass index)
+        for each resident with a live row (``index`` per row, ``live`` the
+        rows that count), base first. A resident without a row is skipped:
+        its pass's outputs would be overwritten by the merge or dropped."""
+        present = set(int(v) for v in np.unique(index[live]))
+        models = [self.model] + [self._variants[h]["view"] for h in self._variant_order]
+        return [(models[v], v) for v in range(len(models)) if v in present]
+
     # -- request lifecycle --------------------------------------------------
 
     def add_request(
@@ -659,9 +803,18 @@ class InferenceEngine:
         logit_bias: "Dict[int, float] | None" = None,
         submit_time: Optional[float] = None,
         trace: Optional[Any] = None,
+        variant: int = 0,
     ) -> int:
         if not prompt:
             raise ValueError("empty prompt")
+        if variant:
+            if variant not in self._variants:
+                raise ValueError(f"unknown resident variant {variant}")
+            if not self.cfg.packed_serving:
+                raise ValueError("per-request variant routing requires packed serving")
+            if want_prompt_logprobs:
+                # echo takes the bucketed prefill, which runs the base
+                raise ValueError("echo (prompt logprobs) is not supported for variant-routed requests")
         if min(prompt) < 0 or max(prompt) >= self.cfg.model.vocab_size:
             raise ValueError("prompt token id outside vocab")
         if seed is not None and not (-(2**63) <= int(seed) < 2**63):
@@ -695,6 +848,7 @@ class InferenceEngine:
             ignore_eos=ignore_eos,
             logit_bias=logit_bias or {},
             trace=trace,
+            variant=int(variant),
         )
         if submit_time is not None:
             req.submit_time = submit_time
@@ -771,7 +925,9 @@ class InferenceEngine:
         need = PageAllocator.pages_needed(total, self.cfg.page_size)
         shared: List[int] = []
         hashes: List[str] = []
-        if self.prefix_cache is not None and not req.want_prompt_logprobs:
+        if self.prefix_cache is not None and not req.want_prompt_logprobs and req.variant == 0:
+            # a routed request neither matches nor registers: the cached
+            # pages hold the base's KV
             shared, req.cached_tokens, hashes = self.prefix_cache.match(req.prompt)
             # hold the shared pages BEFORE allocating: eviction inside the
             # allocation path must not reclaim what was just matched
@@ -932,7 +1088,7 @@ class InferenceEngine:
                 last = len(seg)
                 pos += len(seg)
         out = self._sample_last(req, logits, last)
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and req.variant == 0:
             # the full prompt pages now hold prompt KV: make them reusable
             self.prefix_cache.register(
                 req.prompt, req.pages, req.shared_pages,
@@ -1104,6 +1260,9 @@ class InferenceEngine:
         count_row = np.zeros((T,), dtype=np.int32)
         sample_rows = np.zeros((b,), dtype=np.int32)
         sample_on = np.zeros((b,), dtype=np.int32)
+        #: each row's pass (the co-resident variant it runs as; 0 = base)
+        tok_pass = np.zeros((T,), dtype=np.int32)
+        pass_of = self._variant_pass_index() if self._variants else {}
         rows_used = 0
         decode_reqs: List[Request] = []
         segments: List[Tuple[Request, int, bool]] = []
@@ -1117,6 +1276,8 @@ class InferenceEngine:
             row_slot[start : start + take] = req.slot
             positions[start : start + take] = np.arange(req.pos, req.pos + take)
             count_row[start : start + take] = 1
+            if req.variant:
+                tok_pass[start : start + take] = pass_of[req.variant]
             final = req.pos + take >= len(req.prompt)
             if final:
                 # the segment's last row predicts the first generated token
@@ -1134,6 +1295,8 @@ class InferenceEngine:
             positions[rows_used] = req.pos
             sample_rows[slot] = rows_used
             sample_on[slot] = 1
+            if req.variant:
+                tok_pass[rows_used] = pass_of[req.variant]
             decode_reqs.append(req)
             rows_used += qb
         # 2. one segment of each in-flight chunked prefill, in slot order
@@ -1182,7 +1345,11 @@ class InferenceEngine:
         max_kv = int(positions[:shape][valid_rows].max()) + 1
         kvp = kv_pages_bucket(max_kv, self.cfg.page_size, self.cfg.pages_per_seq)
         prefill_tokens = sum(take for _, take, _ in segments)
+        # any routed row switches the step to the multi-variant twin
+        passes = self._passes(tok_pass[:shape], valid_rows) if tok_pass[:shape].any() else None
         self.packed_steps += 1
+        self.packed_passes += 1 if passes is None else len(passes)
+        self.variant_steps += passes is not None
         self.packed_tokens_total += valid
         self.pad_waste_bytes["packed"] += (shape - valid) * self._pad_token_bytes
         self.dispatch_tokens["packed"] += valid
@@ -1193,6 +1360,7 @@ class InferenceEngine:
             "pad_rows": shape - valid,
             "decode_rows": len(decode_reqs),
             "prefill_tokens": prefill_tokens,
+            "passes": 1 if passes is None else len(passes),
         }
         if self._dirty:
             self._upload_sched()
@@ -1207,13 +1375,15 @@ class InferenceEngine:
         # tokens, row_slot and positions go to every device of a mesh
         self.step_h2d_bytes["packed"] += (
             sum(a.nbytes for a in per_step) + self._extra_devices * sum(a.nbytes for a in per_step[:3])
+            + (tok_pass[:shape].nbytes if passes is not None else 0)
         )
         emitting = [r for r, _, _ in segments] + decode_reqs
         av_h = ai_h = None
         # one span per packed step, closed after the step's host read
         with tracing.span("step.packed", rows=shape, tokens=valid, decode_rows=len(decode_reqs),
                           prefill_tokens=prefill_tokens):
-            out = self._mixed(shape, kvp, *per_step, sampled)
+            out = self._mixed(shape, kvp, *per_step, sampled,
+                              passes=None if passes is None else (passes, tok_pass[:shape]))
             tok_h, lp_h = out[0].cpu().numpy(), out[1].cpu().numpy()
             if len(out) > 2 and any(r.want_top_logprobs for r in emitting):
                 av_h, ai_h = out[2].cpu().numpy(), out[3].cpu().numpy()
@@ -1237,7 +1407,7 @@ class InferenceEngine:
             if not final:
                 continue
             req.prefilling = False
-            if self.prefix_cache is not None:
+            if self.prefix_cache is not None and req.variant == 0:
                 # the whole prompt's KV is in its pages now: reusable
                 self.prefix_cache.register(
                     req.prompt, req.pages, req.shared_pages,
@@ -1270,14 +1440,22 @@ class InferenceEngine:
 
     @torch.no_grad()
     def _mixed(self, shape, kvp, tokens, row_slot, positions, count_row, sample_rows,
-               sample_on, temps, topps, pres, freqs, sampled):
+               sample_on, temps, topps, pres, freqs, sampled, passes=None):
         """The mixed forward and its sampling tail, on the device: add the
         streamed prompt rows to their slots' counts BEFORE sampling (the
         final segment's sample sees the whole prompt, as a bucketed
         prefill does), run ``llama.mixed_step`` over the [shape] buffer
         against the page table's first ``kvp`` columns, sample one row per
         slot, and add each sampling slot's emitted token to its counts.
-        Only the ``sampled`` slots draw from their generators."""
+        Only the ``sampled`` slots draw from their generators.
+
+        ``passes`` (the multi-variant twin): ``(passes, tok_pass)``, the
+        :meth:`_passes` to run and each row's pass. Pass v runs
+        ``mixed_step`` with its variant's leaves and every other row's
+        slot set to -1, exactly a padding row (it attends to nothing of
+        its own and writes only the null page), so each row's KV is written
+        once, by its own weights; the logits merge row by row and the
+        sampling tail runs once on the merged logits."""
         d = self._dev
         b = self.cfg.max_batch
         tok_r, slot_r, pos_r = self._to_ranks(tokens), self._to_ranks(row_slot), self._to_ranks(positions)
@@ -1288,9 +1466,13 @@ class InferenceEngine:
         counts.index_put_(
             (slot_d.long().clamp(min=0), tok_d.long()), self._to_dev(count_row), accumulate=True
         )
-        logits = llama.mixed_step(
-            self.model, tok_r, slot_r, pos_r, self.pool.as_tuple(), self._table(kvp)
-        )
+        if passes is None:
+            logits = llama.mixed_step(self.model, tok_r, slot_r, pos_r, self.pool.as_tuple(), self._table(kvp))
+        else:
+            run, tok_pass = passes
+            tp = self._to_dev(tok_pass)
+            logits = self._merged(run, tp, lambda model, mine: llama.mixed_step(
+                model, tok_r, torch.where(mine, slot_r, -1), pos_r, self.pool.as_tuple(), self._table(kvp)))
         out = sample(
             logits[self._to_dev(sample_rows).long()],
             self._to_dev(temps),
@@ -1302,6 +1484,18 @@ class InferenceEngine:
         rows = torch.arange(b, device=self.device)
         counts.index_put_((rows, out[0].long()), self._to_dev(sample_on), accumulate=True)
         return out
+
+    @staticmethod
+    def _merged(passes, index: torch.Tensor, forward) -> torch.Tensor:
+        """Run ``forward(model, mine)`` once per pass, ``mine`` the rows
+        whose pass it is, and merge the logits row by row (the first pass
+        run fills the rows no pass owns, which nobody reads)."""
+        logits = None
+        for model, v in passes:
+            mine = index == v
+            lg = forward(model, mine)
+            logits = lg if logits is None else torch.where(mine[:, None], lg, logits)
+        return logits
 
     @torch.no_grad()
     def _dispatch_chunk(self, running: Dict[int, Request]):
@@ -1319,19 +1513,36 @@ class InferenceEngine:
             self._draw_chunk_noise(sampled, T)
         self.decode_chunks += 1
         self.chunk_steps += T
+        if any(r.variant for r in running.values()):
+            # a routed slot: the multi-variant twin, eagerly; the captured
+            # graphs run the base alone
+            pass_of = self._variant_pass_index()
+            slot_pass = np.zeros((self.cfg.max_batch,), dtype=np.int32)
+            live = np.zeros((self.cfg.max_batch,), dtype=bool)
+            for slot, r in running.items():
+                slot_pass[slot] = pass_of[r.variant] if r.variant else 0
+                live[slot] = True
+            self.variant_chunks += 1
+            self.step_h2d_bytes[self._h2d_path] += slot_pass.nbytes
+            passes = (self._passes(slot_pass, live), self._to_dev(slot_pass))
+            self.variant_chunk_steps += T
+            self.variant_decode_forwards += T * len(passes[0])
+            toks, lps, alts = self.chunk_eager(T, bool(sampled), passes)
+            return toks, lps, alts, running, T
         run = self.chunk_eager if self.graphs is None else self.graphs.replay
         toks, lps, alts = run(T, bool(sampled))
         return toks, lps, alts, running, T
 
     @torch.no_grad()
-    def chunk_eager(self, T: int, sampled: bool) -> tuple:
-        """Run :meth:`chunk_body` eagerly (the CPU, a mesh, and the
-        warm-up before a capture); counts its ``T`` decode steps."""
-        out = self.chunk_body(T, sampled)
-        self.decode_steps += T
+    def chunk_eager(self, T: int, sampled: bool, passes=None) -> tuple:
+        """Run :meth:`chunk_body` eagerly (the CPU, a mesh, the warm-up
+        before a capture, and the multi-variant twin); counts its decode
+        forwards, ``T`` per pass."""
+        out = self.chunk_body(T, sampled, passes)
+        self.decode_steps += T * (1 if passes is None else len(passes[0]))
         return out
 
-    def chunk_body(self, T: int, sampled: bool) -> tuple:
+    def chunk_body(self, T: int, sampled: bool, passes=None) -> tuple:
         """One decode chunk over the static device state: ``T`` decode and
         sample steps for every slot; a slot with budget 0 is inactive and
         writes only the null page. ``sampled``: whether the noise buffer's
@@ -1339,7 +1550,13 @@ class InferenceEngine:
         otherwise every row is greedy. Writes the last tokens, positions,
         budgets and token counts back in place, reads nothing on the host,
         and returns (tokens [T, b], logprobs [T, b], top-k alternatives or
-        None): what a CUDA graph captures (``engine/graphs.py``)."""
+        None): what a CUDA graph captures (``engine/graphs.py``).
+
+        ``passes`` (the multi-variant twin, never captured): ``(passes,
+        slot_pass)``, the :meth:`_passes` to run and each slot's pass; each
+        step runs one decode forward per pass with the slots of other passes
+        inactive (their K/V go to the null page), merges the logits by slot
+        and samples once."""
         d = self._dev
         alt_k = self.cfg.logprobs_topk
         eos = self.cfg.eos_token_id
@@ -1347,7 +1564,11 @@ class InferenceEngine:
         toks, lps, avs, ais = [], [], [], []
         for t in range(T):
             active = budget > 0
-            logits = llama.decode_step(self.model, lt, pos, self.pool.as_tuple(), self._table(), active)
+            if passes is None:
+                logits = llama.decode_step(self.model, lt, pos, self.pool.as_tuple(), self._table(), active)
+            else:
+                logits = self._merged(passes[0], passes[1], lambda model, mine: llama.decode_step(
+                    model, lt, pos, self.pool.as_tuple(), self._table(), active & mine))
             out = sample(
                 logits, d["temps"], d["noise"][t] if sampled else None,
                 top_p=d["topp"], counts=counts, presence_penalty=d["pres"],

@@ -4,13 +4,9 @@ The port of the catalog at the top of the JAX package's
 ``engine/server.py``: the same names, help text, labels and buckets, on
 the port's hand-written kinds (``utils/prom.py``). ``engine/server.py``
 updates them and serves them at ``GET /metrics``. A family whose feature
-the port does not have yet is not registered:
-
-  * ``fma_engine_resident_variants``, ``fma_engine_variant_hbm_bytes``,
-    ``fma_engine_coresident_saved_bytes``, ``fma_engine_resident_events``
-    and ``fma_engine_routed_requests`` (co-resident variants, item 12);
-  * ``fma_engine_spec_proposed_tokens`` and
-    ``fma_engine_spec_accepted_tokens`` (speculative decoding, item 13).
+the port does not have yet is not registered: ``fma_engine_spec_proposed_tokens``
+and ``fma_engine_spec_accepted_tokens`` (speculative decoding, ROADMAP
+queue 1 item 13).
 
 Every update is host-side (counters the engine keeps, stamps on the
 host), so a scrape never reads the device.
@@ -22,11 +18,6 @@ from ..utils.prom import Counter, Gauge, Histogram
 
 #: families left out until their feature is ported, by ROADMAP item
 UNPORTED_FAMILIES = {
-    "fma_engine_resident_variants": 12,
-    "fma_engine_variant_hbm_bytes": 12,
-    "fma_engine_coresident_saved_bytes": 12,
-    "fma_engine_resident_events": 12,
-    "fma_engine_routed_requests": 12,
     "fma_engine_spec_proposed_tokens": 13,
     "fma_engine_spec_accepted_tokens": 13,
 }
@@ -352,4 +343,34 @@ ENGINE_STEP_H2D_BYTES = Counter(
     "edges; bucketed = prefill/suffix/spec dispatch inputs + a "
     "bucketed engine's scheduler uploads)",
     ["model", "path"],
+)
+
+# Co-resident sibling variants: one shared base tensor set on the card plus
+# per-variant deltas, routed per request inside the packed step (sibling
+# traffic then actuates with zero swaps). The gauges expose the
+# --variant-hbm-mib budget's accounting and what the shared base saves.
+ENGINE_RESIDENT_VARIANTS = Gauge(
+    "fma_engine_resident_variants",
+    "Device-resident model variants (the base model counts as 1)",
+)
+ENGINE_VARIANT_HBM_BYTES = Gauge(
+    "fma_engine_variant_hbm_bytes",
+    "Device bytes held by co-resident variant deltas (the "
+    "--variant-hbm-mib budget's numerator)",
+)
+ENGINE_CORESIDENT_SAVED_BYTES = Gauge(
+    "fma_engine_coresident_saved_bytes",
+    "Device bytes the shared base is saving vs full per-variant "
+    "copies (sum over residents of base bytes minus their delta)",
+)
+ENGINE_RESIDENT_EVENTS = Counter(
+    "fma_engine_resident_events_total",
+    "Resident-set changes by event",
+    ["event"],  # attach | detach | reject
+)
+ENGINE_ROUTED_REQUESTS = Counter(
+    "fma_engine_routed_requests_total",
+    "Requests routed per-request to a co-resident variant (label = the "
+    "variant model; base-model requests are not counted here)",
+    ["model"],
 )

@@ -2,8 +2,9 @@
 content-addressed chunk store.
 
 Port of ``llm_d_fast_model_actuation_tpu/engine/model_pool.py``
-(``HostModelPool``; the co-resident ``ResidentSetLedger`` waits for the
-co-resident variants). The hot-swap path (``POST /v1/swap``) lets N models
+(``HostModelPool``, and ``ResidentSetLedger``, the accounting of the
+co-resident sibling variants: the card's bytes of a resident set against
+full copies). The hot-swap path (``POST /v1/swap``) lets N models
 time-share one card: the model swapped out goes to sleep (level 1, its
 state in pinned host memory) and is *pooled* here, keyed by model id and
 bounded by a host byte budget. A later swap back is a host -> card
@@ -228,6 +229,17 @@ class HostModelPool:
                 return key, int(nbytes), "disk" if "disk" in tiers else "host"
         return None
 
+    def staged_manifest_match(self, model_id: str) -> Optional[Tuple[str, Dict[str, str]]]:
+        """A copy of the most recently evicted manifest under this model
+        name, with or without a checkpoint qualifier, left in place (the
+        co-resident attach diffs it against the base; the model stays
+        rebuildable for a later swap): ``(key, manifest)``."""
+        with self._mu:
+            for k in reversed(self._manifests):
+                if k == model_id or k.startswith(model_id + "@"):
+                    return k, dict(self._manifests[k][0])
+        return None
+
     def take(self, model_id: str) -> Optional[PoolEntry]:
         """Remove and return the entry for ``model_id`` (a pool hit: the
         caller wakes it, so it leaves the pool), or None (a miss)."""
@@ -411,3 +423,97 @@ class HostModelPool:
         if self.chunks is not None:
             out["chunks"] = self.chunks.describe()
         return out
+
+
+class ResidentSetLedger:
+    """Device-tier refcounts for co-resident sibling variants (the
+    reference's, line for line).
+
+    The engine holds one device copy of every base leaf plus per-variant
+    delta leaves; this ledger mirrors that sharing on the host side so
+    observability can answer the question directly: how many device bytes
+    do N co-resident siblings occupy against N full copies?
+
+    ``attach(model, shared, deltas)`` records a variant whose digest diff
+    against the live base splits its leaves into ``shared`` (digest ->
+    nbytes held by the base tensor, device bytes NOT paid again) and
+    ``deltas`` (digest -> nbytes of the variant's own device leaf).
+    Refcounts let two attached variants share an identical delta leaf in
+    the accounting even though the engine uploads each delta privately:
+    the ledger reports what sharing the base saves (``bytes_if_duplicated``
+    minus ``bytes_device``).
+
+    Thread-safe: attach and detach run on the engine thread, /metrics and
+    /v1/stats read from others.
+    """
+
+    def __init__(self) -> None:
+        self._mu = threading.Lock()
+        #: digest -> [refs, nbytes] across base-shared leaves
+        self._shared: Dict[str, List[int]] = {}
+        #: model_id -> (shared_digests {d: nbytes}, delta_digests {d: nbytes})
+        self._members: Dict[str, Tuple[Dict[str, int], Dict[str, int]]] = {}
+
+    def attach(self, model_id: str, shared: Dict[str, int], deltas: Dict[str, int]) -> None:
+        with self._mu:
+            self._members.pop(model_id, None)
+            self._members[model_id] = (dict(shared), dict(deltas))
+            for d, n in shared.items():
+                ref = self._shared.get(d)
+                if ref is None:
+                    self._shared[d] = [1, int(n)]
+                else:
+                    ref[0] += 1
+
+    def detach(self, model_id: str) -> None:
+        with self._mu:
+            got = self._members.pop(model_id, None)
+            if got is None:
+                return
+            shared, _deltas = got
+            for d in shared:
+                ref = self._shared.get(d)
+                if ref is None:
+                    continue
+                ref[0] -= 1
+                if ref[0] <= 0:
+                    del self._shared[d]
+
+    def members(self) -> List[str]:
+        with self._mu:
+            return list(self._members)
+
+    def bytes_device(self) -> int:
+        """Actual variant device bytes: the delta leaves only; the shared
+        base leaves are the live engine's own tensors, never paid again."""
+        with self._mu:
+            return sum(sum(deltas.values()) for _shared, deltas in self._members.values())
+
+    def bytes_if_duplicated(self) -> int:
+        """What the same resident set would cost as full per-variant
+        copies: every member's shared and delta bytes."""
+        with self._mu:
+            return sum(sum(shared.values()) + sum(deltas.values()) for shared, deltas in self._members.values())
+
+    def bytes_saved(self) -> int:
+        """Device bytes co-residency avoids paying again (the saved-bytes
+        gauge): the duplicated cost minus the delta residency."""
+        return max(0, self.bytes_if_duplicated() - self.bytes_device())
+
+    def describe(self) -> Dict[str, Any]:
+        with self._mu:
+            members = {
+                m: {
+                    "shared_bytes": sum(shared.values()),
+                    "delta_bytes": sum(deltas.values()),
+                    "shared_leaves": len(shared),
+                    "delta_leaves": len(deltas),
+                }
+                for m, (shared, deltas) in self._members.items()
+            }
+        return {
+            "members": members,
+            "bytes_device": self.bytes_device(),
+            "bytes_if_duplicated": self.bytes_if_duplicated(),
+            "bytes_saved": self.bytes_saved(),
+        }

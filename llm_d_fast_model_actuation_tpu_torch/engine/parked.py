@@ -291,7 +291,9 @@ def key_kind(key: Optional[np.ndarray]) -> str:
 #: Request fields that travel verbatim. ``stop_seqs``, ``logit_bias`` and
 #: ``out_top_logprobs`` are written out explicitly; pages and slot never
 #: travel (the importer's resume maps old pages to new ones). ``variant``
-#: is the reference's co-resident variant index, always 0 here.
+#: is the co-resident variant the request routes to (0: the base); both
+#: ends refuse a migration while a variant is attached, so it is 0 in
+#: every bundle a service exports, and an importer refuses any other.
 _REQ_WIRE_FIELDS = (
     "prompt", "max_new_tokens", "temperature", "top_p",
     "presence_penalty", "frequency_penalty", "want_top_logprobs",
@@ -353,8 +355,6 @@ def decode_request(spec: Dict[str, Any], request_cls: Any) -> Any:
     """Rebuild an engine Request from its spec. Its seq_id is the
     exporter's: the importing service gives it one of its own before
     seating it (two engines' ids are unrelated)."""
-    if int(spec.get("variant", 0) or 0):
-        raise ValueError("a request of a co-resident variant: co-resident variants are not ported yet")
     req = request_cls(
         seq_id=int(spec["seq_id"]),
         prompt=[int(t) for t in spec["prompt"]],
@@ -375,6 +375,7 @@ def decode_request(spec: Dict[str, Any], request_cls: Any) -> Any:
     req.cached_tokens = int(spec["cached_tokens"])
     req.streamed = int(spec["streamed"])
     req.stop_requested = bool(spec["stop_requested"])
+    req.variant = int(spec.get("variant", 0) or 0)
     req.stop_seqs = tuple(tuple(int(t) for t in s) for s in spec["stop_seqs"])
     req.logit_bias = {int(t): float(v) for t, v in spec["logit_bias"].items()}
     req.out_top_logprobs = [[(int(t), float(v)) for t, v in alts] for alts in spec["out_top_logprobs"]]

@@ -5,11 +5,12 @@ thread fed by a submit queue, and the routes
 
   GET  /health, /is_sleeping, /v1/models, /v1/stats, /v1/swap, /v1/faults,
        /v1/prefetch, /v1/costs, /v1/actuations, /metrics, /v1/traces,
-       /v1/profile, /v1/parked/{model}, /v1/parked/claims/{id}
+       /v1/profile, /v1/parked/{model}, /v1/parked/claims/{id}, /v1/residents
   POST /sleep?level=1|2, /wake_up, /v1/completions, /v1/chat/completions,
        /v1/swap, /v1/faults, /v1/prefetch, /v1/profile, /v1/parked,
-       /v1/parked/release, /v1/parked/abort
-  DELETE /v1/faults, /v1/prefetch, /v1/profile, /v1/parked/claims/{id}
+       /v1/parked/release, /v1/parked/abort, /v1/residents
+  DELETE /v1/faults, /v1/prefetch, /v1/profile, /v1/parked/claims/{id},
+       /v1/residents
 
 and one of the port's own, ``GET /v1/device``: the card the engine runs
 on as the CUDA runtime names it, the kernel launches of this process and
@@ -18,6 +19,9 @@ process itself, such as a launcher's client.
 
 with the reference's flag names for the flags it keeps, among them
 ``--packed-serving on|off``, ``--token-budget``, ``--attention-impl``,
+``--prefix-caching``, ``--decode-chunk``, ``--drain-tail`` (``single``:
+``chunk`` is refused), ``--max-prefill-tokens``, ``--logprobs-topk``,
+``--arrival-ewma-tau-s``,
 ``--tensor-parallel-size N`` (one process drives the ``N`` ranks; with it
 ``--device`` takes a comma-separated list of ``N`` devices, which may name
 one device more than once, and a single ``cuda`` means the first ``N``
@@ -38,13 +42,29 @@ handler itself), ``logprobs`` and ``top_logprobs`` of the generated
 tokens, ``echo`` (with ``logprobs``, the prompt's logprobs too: the
 request bypasses the prefix cache and runs the bucketed prefill, also on
 the packed path), ``n``, ``seed``, ``ignore_eos``, ``logit_bias`` and
-``stop_token_ids``; their JSON and SSE shapes are the reference's. Not
-ported yet, and answered with a 400 that says so: the other routes of the
-reference (``UNPORTED_ROUTES``: residents). Not ported yet and
-absent from the options: the reference's
-other engine flags (``--pipeline-decode``, ``--speculative-ngram``,
-``--quantization``, ``--resident-variants``, multi-host gangs, ...), also
-where the reference combines them with tensor parallelism.
+``stop_token_ids``; their JSON and SSE shapes are the reference's. A
+request's ``model`` routes it: the serving model (or none) is the base, an
+attached co-resident variant is that variant, and any other name is a 400
+that names the live set. Not ported yet and absent from the options: the
+reference's other engine flags (``--pipeline-decode``,
+``--speculative-ngram``, ``--quantization``, ``--checkpoint-dir``,
+``--sleep-release-devices``, multi-host gangs:
+``tests/test_torch_flags.py`` lists them), also where the reference
+combines them with tensor parallelism.
+
+**Co-resident sibling variants** (``--resident-variants N`` with
+``--packed-serving on`` and ``--content-hash on``; ``--variant-hbm-mib``
+budgets their bytes): ``POST /v1/residents {"model": ...}`` attaches a
+sibling of the serving model, whose weights the pool, a prefetch or the
+disk tier holds, as a variant beside it: only the leaves whose digests
+differ from the base's go to the card (into the engine's arena), and a
+completion whose ``model`` names it is routed to it inside the packed step
+(``InferenceEngine.attach_variant``). ``DELETE /v1/residents`` detaches one
+(409 while a request of it is live), ``GET`` lists the set with its
+``ResidentSetLedger`` (``engine/model_pool.py``). The cap and the budget
+refuse an attach with a 409; a sleep, a swap and a migration are refused
+while a variant is attached. Refused with ``--tensor-parallel-size`` above
+1 (ROADMAP queue 1 item 14).
 
 **Model hot-swap** (``POST /v1/swap {"model": ..., "request_id": ...}``),
 the reference's verb: the engine changes the model it serves without a
@@ -117,8 +137,9 @@ page-out and a resume's page-in are priced from the pages themselves
 (``parked_page_ids`` x page bytes) and added to the swap's and the
 sleep's. ``GET /v1/actuations`` (``?n=&kind=``) serves the recorder, and
 ``/v1/stats`` its summary (``costs``). The ``migrate`` row prices an
-export of the live work (``price_migrate``); the reference's rows for
-attach and detach wait for those verbs (ROADMAP queue 1 item 12).
+export of the live work (``price_migrate``); the ``coresident`` rows price
+an attach of each candidate (its delta's bytes from the digest diff, at
+the ``coresident.h2d`` bandwidth) and a detach of each resident.
 
 **Cold load, prefetch and warm-up.** A checkpoint is read by
 ``--load-workers`` readers over its shards (``models/hf.py``), and a
@@ -208,7 +229,7 @@ from .engine import ATTENTION_IMPLS, EngineConfig, InferenceEngine, validate_log
 from .exec_pool import ExecutablePool, exec_key, parse_warmup_buckets
 from .graphs import release_cached_memory
 from .kv_cache import PageAllocator, PagePool
-from .model_pool import HostModelPool, PrefetchedWeights
+from .model_pool import HostModelPool, PrefetchedWeights, ResidentSetLedger
 from .sleep import SleepManager, SwapRolledBack, attach_sleep, fresh_state, plan_swap, swap_states
 
 MODEL_CONFIGS = {
@@ -253,8 +274,8 @@ MODEL_CONFIGS = {
 }
 
 #: routes of the reference server this port does not serve yet, matched
-#: with everything under them: co-resident variants (ROADMAP queue 1 item 12)
-UNPORTED_ROUTES = ("/v1/residents",)
+#: with everything under them: none is left
+UNPORTED_ROUTES: Tuple[str, ...] = ()
 
 
 def unported_route(path: str) -> bool:
@@ -306,6 +327,49 @@ def make_arg_parser() -> argparse.ArgumentParser:
         "--token-budget", type=int, default=0,
         help="row capacity of the packed buffer (--packed-serving). 0 = "
         "auto (256, floored so every decode slot plus one prefill block fits)",
+    )
+    p.add_argument(
+        "--prefix-caching", default="on", choices=["on", "off"],
+        help="automatic prefix caching: page-aligned KV reuse across requests "
+        "sharing a prompt prefix",
+    )
+    p.add_argument(
+        "--decode-chunk", type=int, default=0,
+        help="decode steps per chunk, one host read each (0 = auto: 8 on the card "
+        "and the CPU)",
+    )
+    p.add_argument(
+        "--drain-tail", default="auto", choices=["auto", "single", "chunk"],
+        help="accepted so that the reference's flag set parses: the port's drain "
+        "tail is single T=1 steps (auto and single are the same); chunk, one full "
+        "chunk with its surplus steps frozen, is refused",
+    )
+    p.add_argument(
+        "--max-prefill-tokens", type=int, default=0,
+        help="chunked prefill: segment prompts longer than this; 0 = off",
+    )
+    p.add_argument(
+        "--logprobs-topk", type=int, default=5,
+        help="top-k alternative logprobs computed per token on the device (OpenAI "
+        "logprobs/top_logprobs; 0 disables)",
+    )
+    p.add_argument(
+        "--arrival-ewma-tau-s", type=float, default=30.0,
+        help="time constant (seconds) of the request arrival-rate EWMA "
+        "(fma_engine_request_arrival_rate)",
+    )
+    p.add_argument(
+        "--resident-variants", type=int, default=1,
+        help="co-resident sibling variants: the most model variants on the card at "
+        "once, the base included. N > 1 enables POST /v1/residents (a sibling's "
+        "changed leaves beside the shared base tensors) and per-request routing "
+        "by the completion's model inside the packed step. 1 (default) keeps the "
+        "one-resident engine. Needs --packed-serving on and --content-hash on",
+    )
+    p.add_argument(
+        "--variant-hbm-mib", type=int, default=0,
+        help="card byte budget (MiB) for co-resident variant deltas: an attach over "
+        "it is refused (409), the caller takes the swap path; 0 = no budget",
     )
     p.add_argument(
         "--model-pool-mib", type=int, default=4096,
@@ -448,6 +512,30 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError(f"unknown model {args.model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
     if args.token_budget < 0:
         raise ValueError("--token-budget must be >= 0, or 0 for auto")
+    if args.decode_chunk < 0:
+        raise ValueError("--decode-chunk must be >= 1, or 0 for auto")
+    if args.max_prefill_tokens < 0:
+        raise ValueError("--max-prefill-tokens must be >= 0")
+    if args.drain_tail == "chunk":
+        raise ValueError("--drain-tail chunk (one full chunk with its surplus steps frozen) is not ported; "
+                         "the port's drain tail is single")
+    if args.arrival_ewma_tau_s <= 0:
+        raise ValueError("--arrival-ewma-tau-s must be > 0")
+    if args.resident_variants < 1:
+        raise ValueError("--resident-variants must be >= 1")
+    if args.variant_hbm_mib < 0:
+        raise ValueError("--variant-hbm-mib must be >= 0")
+    if args.resident_variants > 1:
+        if args.packed_serving != "on":
+            raise ValueError(
+                "--resident-variants > 1 requires --packed-serving on: per-request variant routing lives "
+                "inside the packed mixed-batch step (the bucketed path always runs the base)")
+        if args.content_hash != "on":
+            raise ValueError("--resident-variants > 1 requires --content-hash on: the shared-base/delta "
+                             "split is the digest diff")
+        if args.tensor_parallel_size > 1:
+            raise ValueError("--resident-variants > 1 on a tensor-parallel mesh is not ported yet "
+                             "(ROADMAP queue 1 item 14)")
     if args.swap_bucket_mib < 1:
         raise ValueError("--swap-bucket-mib must be >= 1")
     if args.exec_pool_mib < 0:
@@ -548,6 +636,12 @@ class MigrationFailed(Exception):
     source resumed the streams at home, or the destination rolled back
     clean (a lost ack: the import is seated, and a retry replays its ack):
     a 500."""
+
+
+class ResidentRejected(Exception):
+    """POST /v1/residents refused by the cap, the ``--variant-hbm-mib``
+    budget or an unresolvable sibling, or a detach refused while the
+    variant has live work: a 409, and the caller takes the swap path."""
 
 
 class ProfileConflict(Exception):
@@ -702,7 +796,7 @@ class EngineService:
         self._pending: List[Tuple[Dict[str, Any], concurrent.futures.Future]] = []
         self._admin: List[Tuple[Any, concurrent.futures.Future]] = []
         self._futures: Dict[int, concurrent.futures.Future] = {}
-        self._arrival = _RateEWMA()
+        self._arrival = _RateEWMA(args.arrival_ewma_tau_s)
         self._finished_requests = 0
         self._generated_tokens = 0
         self._aborted: Dict[str, int] = {}
@@ -730,6 +824,16 @@ class EngineService:
         #: (park, encode, serialize and send; read, identity, decode, seat)
         #: and wire bytes, in /v1/stats.migration_legs
         self._mig_last: Dict[str, Dict[str, Any]] = {"export": {}, "import": {}}
+        # co-resident sibling variants: resident id -> {handle, nbytes,
+        # source tier, ...} for every variant attached through
+        # /v1/residents (the base is handle 0 and never an entry), each
+        # handle's id, the cap (the base included), the card byte budget,
+        # and the shared-base accounting
+        self._residents: Dict[str, Dict[str, Any]] = {}
+        self._variant_models: Dict[int, str] = {}
+        self._resident_variants_cap = max(1, args.resident_variants)
+        self._variant_hbm_budget = max(0, args.variant_hbm_mib) << 20
+        self.resident_ledger = ResidentSetLedger()
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, name="engine", daemon=True)
@@ -782,6 +886,11 @@ class EngineService:
             attention_impl=args.attention_impl,
             packed_serving=args.packed_serving == "on",
             token_budget=args.token_budget,
+            # 0 = auto: 8 off the TPU, the reference's choice there
+            decode_chunk=args.decode_chunk or 8,
+            prefix_caching=args.prefix_caching == "on",
+            max_prefill_tokens=args.max_prefill_tokens,
+            logprobs_topk=max(0, args.logprobs_topk),
         )
         rt = _ModelRuntime(model_id=model_id, cfg=cfg, tokenizer=tok, hf_dir=hf_dir)
         content_hash = self._content_hash
@@ -971,8 +1080,12 @@ class EngineService:
         """A finished request's metrics, its SLO judgment (each enabled
         target on its own; goodput counts its tokens only when none was
         violated, so with no target set every request's count), its trace
-        and, when it violated a target, an exemplar."""
+        and, when it violated a target, an exemplar. A routed request
+        counts under its variant's name."""
         m = self.model
+        if req.variant:
+            m = self._variant_models.get(req.variant, m)
+            fm.ENGINE_ROUTED_REQUESTS.labels(model=m).inc()
         now = req.done_time if req.done_time is not None else time.monotonic()
         ttft = None if req.first_token_time is None else req.first_token_time - req.submit_time
         if ttft is not None:
@@ -1173,6 +1286,9 @@ class EngineService:
             raise ValueError("sleep level must be 1 or 2")
 
         def go():
+            # the slept state has no variant dimension; a detach is the
+            # delta's offload (nothing moves: the tiers hold every chunk)
+            self._refuse_with_residents("sleeping")
             rt = self._runtime
             self._digests(rt)  # the digest job reads the card
             was_sleeping, prev_level = self.sleeper.is_sleeping, self.sleeper.level
@@ -1572,7 +1688,7 @@ class EngineService:
             "seed": None if kw.get("seed") is None else int(kw["seed"]),
             "ignore_eos": bool(kw.get("ignore_eos", False)),
             "logit_bias": {str(t): float(v) for t, v in (kw.get("logit_bias") or {}).items()},
-            "variant": 0,
+            "variant": int(kw.get("variant", 0) or 0),
         }
         if kw.get("trace") is not None:
             ctx = kw["trace"].context()
@@ -1583,8 +1699,6 @@ class EngineService:
     def _decode_pending(spec: Dict[str, Any]) -> Dict[str, Any]:
         """A wire spec as a queued submission's ``add_request`` keywords;
         its trace joins the origin's."""
-        if int(spec.get("variant", 0) or 0):
-            raise ValueError("a submission of a co-resident variant: co-resident variants are not ported yet")
         kw = {
             "prompt": [int(t) for t in spec["prompt"]],
             "max_new_tokens": int(spec["max_tokens"]),
@@ -1599,6 +1713,7 @@ class EngineService:
             "ignore_eos": bool(spec["ignore_eos"]),
             "logit_bias": {int(t): float(v) for t, v in spec.get("logit_bias", {}).items()} or None,
             "submit_time": time.monotonic(),
+            "variant": int(spec.get("variant", 0) or 0),
         }
         tr = spec.get("trace")
         if isinstance(tr, dict) and tr.get("trace_id") and tracing.enabled():
@@ -1657,6 +1772,7 @@ class EngineService:
 
         if model != self.model:
             raise MigrationRejected(f"model {model!r} is not the serving model (serving {self.model!r})")
+        self._refuse_with_residents("migrating the base", MigrationRejected)
         if not self._zero_drain:
             raise MigrationRejected("zero-drain parking is off (--zero-drain off): nothing can be parked for migration")
         identity = self._migration_identity()
@@ -1751,6 +1867,15 @@ class EngineService:
             raise MigrationRejected(f"fence token {token!r} already spent (double-resume refused)")
         if self.sleeper.is_sleeping:
             raise MigrationRejected("instance is sleeping; wake it before importing")
+        self._refuse_with_residents("importing a parked bundle", MigrationRejected)
+        # a variant handle names a resident of the engine that attached it,
+        # and none is attached here: only base requests may be seated
+        specs = doc.get("requests") or {}
+        routed = sorted({int(s.get("variant", 0) or 0) for part in ("live", "waiting", "pending")
+                         for s in specs.get(part) or ()} - {0})
+        if routed:
+            raise ValueError(f"parked requests route to co-resident variant handles {routed}: a handle belongs "
+                             "to the engine that attached it, and only base requests migrate")
         t0 = time.monotonic()
         self._check_identity(doc.get("identity") or {})
         last = {"identity_s": round(time.monotonic() - t0, 6)}
@@ -2198,6 +2323,261 @@ class EngineService:
 
     # -- model hot-swap ----------------------------------------------------------
 
+    # -- co-resident sibling variants (/v1/residents) ---------------------------
+
+    def _resident_id(self, model: str, checkpoint_dir: str = "") -> str:
+        """A resident's routing identity: the pool key ``model@checkpoint``
+        when a checkpoint qualifies it, else the model name (what a
+        completion's ``model`` names)."""
+        return f"{model}@{checkpoint_dir}" if checkpoint_dir else model
+
+    def _base_resident_id(self) -> str:
+        """The serving base's identity in the same namespace (variant 0)."""
+        return self._resident_id(self.model)
+
+    @staticmethod
+    def _no_checkpoint_dir(checkpoint_dir: str) -> None:
+        if checkpoint_dir:
+            raise ValueError("checkpoint_dir (an Orbax checkpoint) is not ported (ROADMAP queue 1 item 2); "
+                             "name an hf: directory")
+
+    def _resident_source(self, model: str) -> Tuple[Optional[Dict[str, str]], str]:
+        """A candidate's flat digest map, read without taking anything from
+        the tiers: ``(digests, tier)``, the tier ``pool`` (a slept pooled
+        runtime), ``prefetched`` (a prefetch's staged weights) or ``disk``
+        (an evicted model's manifest, whose chunks the tiers may serve), or
+        ``(None, "cold")``: an attach never reads a checkpoint."""
+        entry = self.model_pool.peek_match(model)
+        if entry is not None:
+            rt = entry.runtime
+            digests = self._digests(rt) if isinstance(rt, _ModelRuntime) else rt.digests
+            if digests:
+                return dict(digests), "prefetched" if isinstance(rt, PrefetchedWeights) else "pool"
+        got = self.model_pool.staged_manifest_match(model)
+        if got is not None and got[1]:
+            return got[1], "disk"
+        return None, "cold"
+
+    def _variant_delta_keys(self, digests: Dict[str, str]) -> Tuple[List[str], int, int]:
+        """The digest diff of a candidate against the serving base:
+        ``(delta_keys, delta_bytes, shared_bytes)``, the bytes those of the
+        base's own leaves (an attach holds each delta leaf to the base
+        leaf's shape and type, so the figure is exact). A key only one side
+        has is a structural mismatch: not a sibling."""
+        base = self._digests(self._runtime)
+        if not base:
+            raise ValueError("the serving model carries no content digests (random weights, or "
+                             "--content-hash off): co-residency needs the digest diff")
+        drift = set(base).symmetric_difference(digests)
+        if drift:
+            raise ValueError(f"variant is not a sibling of {self.model}: {len(drift)} weight keys differ "
+                             f"structurally (e.g. {sorted(drift)[:4]})")
+        delta_keys: List[str] = []
+        delta_bytes = shared_bytes = 0
+        for k, d in digests.items():
+            t = self.engine._base_leaf(k)
+            n = t.numel() * t.element_size()
+            if base.get(k) != d:
+                delta_keys.append(k)
+                delta_bytes += n
+            else:
+                shared_bytes += n
+        return delta_keys, delta_bytes, shared_bytes
+
+    def price_attach(self, model: str, checkpoint_dir: str = "") -> Dict[str, Any]:
+        """The price of a co-resident attach before a byte moves: the
+        delta's bytes from the digest diff and its seconds at the
+        ``coresident.h2d`` bandwidth (the host-to-card family's before its
+        first measurement). Reads only."""
+        self._no_checkpoint_dir(checkpoint_dir)
+        digests, tier = self._resident_source(model)
+        rid = self._resident_id(model, checkpoint_dir)
+        out: Dict[str, Any] = {"kind": "attach", "model": rid, "checkpoint_dir": checkpoint_dir,
+                               "tier": "coresident", "source_tier": tier}
+        if rid in self._residents:
+            return {**out, "predicted_bytes": 0, "predicted_s": 0.0, "measured": True, "attached": True}
+        if digests is None:
+            raise ValueError(f"{model!r} is not resolvable from the pool or disk tiers; prefetch it first "
+                             "(POST /v1/prefetch) or swap")
+        delta_keys, delta_bytes, shared_bytes = self._variant_delta_keys(digests)
+        sec, measured = self.costs.bandwidths.seconds_for("coresident.h2d", delta_bytes)
+        return {**out, "predicted_bytes": delta_bytes, "predicted_s": round(sec, 6),
+                "predicted_delta_leaves": len(delta_keys), "predicted_shared_bytes": shared_bytes,
+                "measured": measured}
+
+    def price_detach(self, model: str) -> Dict[str, Any]:
+        """A detach moves nothing: the delta's host copy never left the
+        tiers."""
+        return {"kind": "detach", "model": model, "tier": "coresident", "predicted_bytes": 0,
+                "predicted_s": 0.0, "measured": True}
+
+    def residents_view(self) -> Dict[str, Any]:
+        """GET /v1/residents: the resident set, its budget and the
+        shared-base accounting (what a launcher's ledger carries)."""
+        rows = {m: dict(info) for m, info in self._residents.items()}
+        return {
+            "base": self.model,
+            "resident_variants": 1 + len(rows),
+            "resident_variants_cap": self._resident_variants_cap,
+            "variant_hbm_budget_bytes": self._variant_hbm_budget,
+            "variant_hbm_bytes": self.engine.variant_hbm_bytes(),
+            "residents": rows,
+            "ledger": self.resident_ledger.describe(),
+        }
+
+    def attach_resident(self, model: str, checkpoint_dir: str = "") -> Dict[str, Any]:
+        """POST /v1/residents: attach ``model`` as a sibling variant of the
+        serving base, on the engine thread between steps: only its delta
+        leaves go to the card, every other leaf is the base's own tensor,
+        and completions naming it are routed to it from then on. Over the
+        cap or the budget, or not resolvable from the tiers, it is refused
+        with :class:`ResidentRejected` (a 409)."""
+        pred = self._priced(lambda: self.price_attach(model, checkpoint_dir))
+        with tracing.span("engine.attach_resident", model=model, base=self.model) as sp:
+            if pred is not None:
+                sp.set(predicted_bytes=pred.get("predicted_bytes"), predicted_s=pred.get("predicted_s"))
+            try:
+                out = self._on_loop(lambda: self._attach_resident_impl(model, checkpoint_dir, pred))
+            except ResidentRejected as e:
+                fm.ENGINE_RESIDENT_EVENTS.labels(event="reject").inc()
+                self._record_actuation("attach", model, trigger="client", tier="coresident", pred=pred,
+                                       actual_bytes=0, actual_s=0.0, outcome="rejected", extra={"reason": str(e)})
+                raise
+            sp.set(handle=out.get("handle"))
+            return out
+
+    def _attach_resident_impl(self, model: str, checkpoint_dir: str,
+                              pred: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+        if self._resident_variants_cap <= 1:
+            raise ValueError("co-residency is off (--resident-variants 1); restart with --resident-variants N "
+                             "and --packed-serving on")
+        self._no_checkpoint_dir(checkpoint_dir)
+        rid = self._resident_id(model, checkpoint_dir)
+        if self.sleeper.is_sleeping:
+            raise ValueError("engine is sleeping; wake_up before attaching residents")
+        if rid == self._base_resident_id():
+            raise ValueError(f"{rid!r} is the live base model (variant 0); nothing to attach")
+        if rid in self._residents:
+            # idempotent: the resident set is declarative state
+            return {**self.residents_view(), "model": rid, "handle": self._residents[rid]["handle"],
+                    "attached": False}
+        if 1 + len(self._residents) >= self._resident_variants_cap:
+            raise ResidentRejected(f"resident-set cap reached ({self._resident_variants_cap} including the base); "
+                                   "detach a variant or use the swap path")
+        digests, tier = self._resident_source(model)
+        if digests is None:
+            raise ResidentRejected(f"{rid!r} is not resolvable from the pool or disk tiers; prefetch it first "
+                                   "(POST /v1/prefetch) or swap")
+        delta_keys, delta_bytes, shared_bytes = self._variant_delta_keys(digests)
+        if not delta_keys:
+            raise ValueError(f"{rid!r} is byte-identical to the live base (empty digest diff); route to the base "
+                             "instead")
+        used = self.engine.variant_hbm_bytes()
+        if self._variant_hbm_budget and used + delta_bytes > self._variant_hbm_budget:
+            raise ResidentRejected(f"variant delta ~{delta_bytes >> 20} MiB would exceed --variant-hbm-mib "
+                                   f"({self._variant_hbm_budget >> 20} MiB, {used >> 20} MiB in use); detach a "
+                                   "variant or use the swap path")
+        chunks = self.model_pool.chunks
+        delta: Dict[str, Any] = {}
+        for k in delta_keys:
+            t = chunks.fetch(digests[k]) if chunks is not None else None
+            if t is None:
+                raise ResidentRejected(f"variant leaf {k!r} is not resolvable from the host/disk tiers (evicted "
+                                       f"past the disk budget, or staged quantized); prefetch {rid!r} or use the "
+                                       "swap path")
+            delta[k] = t
+        t0 = time.monotonic()
+        handle = self.engine.attach_variant(delta, label=rid)
+        dt = time.monotonic() - t0
+        wire = sum(t.numel() * t.element_size() for t in delta.values())
+        self.costs.observe_transfer("coresident.h2d", wire, dt)
+        # shared leaves sized from the base's tensors, summed per digest:
+        # two content-equal leaves are two tensors on the card
+        shared_map: Dict[str, int] = {}
+        for k, d in digests.items():
+            if k not in delta:
+                t = self.engine._base_leaf(k)
+                shared_map[d] = shared_map.get(d, 0) + t.numel() * t.element_size()
+        delta_map: Dict[str, int] = {}
+        for k, t in delta.items():
+            delta_map[digests[k]] = delta_map.get(digests[k], 0) + t.numel() * t.element_size()
+        self.resident_ledger.attach(rid, shared=shared_map, deltas=delta_map)
+        self._residents[rid] = {
+            "handle": handle, "model": model, "checkpoint_dir": checkpoint_dir, "nbytes": wire,
+            "delta_leaves": len(delta), "shared_bytes": shared_bytes, "source_tier": tier,
+            "attached_at": time.time(),
+        }
+        self._variant_models[handle] = rid
+        self._bump_actuation("attach")
+        fm.ENGINE_RESIDENT_EVENTS.labels(event="attach").inc()
+        self._observe_residents()
+        rec = self._record_actuation(
+            "attach", rid, trigger="client", tier="coresident", pred=pred, actual_bytes=wire, actual_s=dt,
+            extra={"source_tier": tier, "handle": handle, "delta_leaves": len(delta), "shared_bytes": shared_bytes},
+        )
+        return {**self.residents_view(), "model": rid, "handle": handle, "attached": True, "wire_bytes": wire,
+                "attach_s": round(dt, 6), "source_tier": tier, "costs": rec.as_dict()}
+
+    def detach_resident(self, model: str, checkpoint_dir: str = "") -> Dict[str, Any]:
+        """DELETE /v1/residents: drop a variant's delta leaves from the
+        card. Moves nothing: the tiers still hold every chunk by content,
+        so attaching it again is another delta-only upload. Refused (409)
+        while a request of it is live or queued."""
+        rid = self._resident_id(model, checkpoint_dir)
+        pred = self.price_detach(rid)
+        with tracing.span("engine.detach_resident", model=rid) as sp:
+
+            def go():
+                info = self._residents.get(rid)
+                if info is None:
+                    raise ValueError(f"{rid!r} is not an attached resident; attached: {sorted(self._residents)}")
+                handle = info["handle"]
+                t0 = time.monotonic()
+                try:
+                    freed = self.engine.detach_variant(handle)
+                except ValueError as e:
+                    raise ResidentRejected(str(e))
+                dt = time.monotonic() - t0
+                del self._residents[rid]
+                self._variant_models.pop(handle, None)
+                self.resident_ledger.detach(rid)
+                return handle, freed, dt
+
+            handle, freed, dt = self._on_loop(go)
+            self._bump_actuation("detach")
+            fm.ENGINE_RESIDENT_EVENTS.labels(event="detach").inc()
+            self._observe_residents()
+            rec = self._record_actuation("detach", rid, trigger="client", tier="coresident", pred=pred,
+                                         actual_bytes=0, actual_s=dt, extra={"handle": handle, "freed_bytes": freed})
+            sp.set(freed_bytes=freed)
+            return {**self.residents_view(), "model": rid, "detached": True, "freed_bytes": freed,
+                    "detach_s": round(dt, 6), "costs": rec.as_dict()}
+
+    def _observe_residents(self) -> None:
+        """Mirror the resident set into its gauges."""
+        fm.ENGINE_RESIDENT_VARIANTS.set(1 + len(self._residents))
+        fm.ENGINE_VARIANT_HBM_BYTES.set(self.engine.variant_hbm_bytes())
+        fm.ENGINE_CORESIDENT_SAVED_BYTES.set(self.resident_ledger.bytes_saved())
+
+    def _refuse_with_residents(self, what: str, exc=ValueError) -> None:
+        """The reference's detach-first refusal of a verb that would tear
+        the base down under its residents."""
+        if self._residents:
+            raise exc(f"co-resident variants attached ({sorted(self._residents)}); detach them "
+                      f"(DELETE /v1/residents) before {what}")
+
+    def resolve_request_model(self, model: Optional[str]) -> int:
+        """A completion's ``model`` as a variant handle: the base (none,
+        the serving model, 0), an attached resident, or a ValueError (a
+        400) that names the live set."""
+        if not model or model == self.model or model == self._base_resident_id():
+            return 0
+        info = self._residents.get(model)
+        if info is not None:
+            return info["handle"]
+        raise ValueError(f"model {model!r} is not resident on this engine (base: {self._base_resident_id()!r}, "
+                         f"residents: {sorted(self._residents)}); attach it via POST /v1/residents or swap")
+
     def swap(self, model: str, checkpoint_dir: str = "", request_id: str = "") -> Dict[str, Any]:
         """POST /v1/swap: change the model this card serves, on the engine
         thread between steps (:meth:`_swap_impl`). Raises ValueError for a
@@ -2326,6 +2706,8 @@ class EngineService:
                     "pool": self.model_pool.describe()}
         if self.sleeper.is_sleeping:
             raise ValueError("engine is sleeping; wake_up before swapping models")
+        # every resident's shared leaves are the base's tensors
+        self._refuse_with_residents("swapping the base")
         t0 = time.monotonic()
         outgoing = self._runtime
         out_digests = self._digests(outgoing)
@@ -3035,9 +3417,9 @@ class EngineService:
         """GET /v1/costs: every candidate actuation priced in one call (the
         serving model, each pooled or prefetched model, each evicted model
         whose chunks the tiers hold, and the ``extra`` names), with the
-        bandwidths behind the predictions. The reference's rows of the
-        verbs the port does not have (the co-resident attach and detach)
-        are an empty list."""
+        bandwidths behind the predictions, and the reference's ``coresident``
+        rows (with ``--resident-variants`` above 1): each candidate priced
+        as an attach, each resident as a detach."""
         candidates: List[Dict[str, Any]] = []
         seen = set()
         exec_desc = self.exec_pool.describe()
@@ -3060,6 +3442,16 @@ class EngineService:
             add(key.partition("@")[0])
         for model in extra:
             add(model)
+        coresident: List[Dict[str, Any]] = []
+        if self._resident_variants_cap > 1:
+            for model in sorted(seen - {self.model}):
+                try:
+                    coresident.append(self.price_attach(model))
+                except Exception as e:  # noqa: BLE001 — one bad row never fails the view
+                    coresident.append({"kind": "attach", "model": model, "checkpoint_dir": "",
+                                       "error": f"{type(e).__name__}: {e}"})
+            for model in sorted(self._residents):
+                coresident.append(self.price_detach(model))
         return {
             "model": self.model,
             "is_sleeping": self.sleeper.is_sleeping,
@@ -3072,7 +3464,7 @@ class EngineService:
             "compile": {"mean_compile_s": exec_desc.get("mean_compile_s", 0.0),
                         "compiles_total": exec_desc.get("compiles_total", 0)},
             "candidates": candidates,
-            "coresident": [],
+            "coresident": coresident,
         }
 
     @staticmethod
@@ -3167,6 +3559,16 @@ class EngineService:
                     "graph_replays": eng.graph_replays,
                     "cold_prefills": eng.cold_prefills,
                     "packed_steps": eng.packed_steps,
+                    # the port's own: packed forwards (one per pass of a
+                    # multi-variant step), the steps and chunks run as
+                    # multi-variant twins and the decode forwards of those
+                    # chunks, and the graphs captured
+                    "packed_passes": eng.packed_passes,
+                    "variant_steps": eng.variant_steps,
+                    "variant_chunks": eng.variant_chunks,
+                    "variant_chunk_steps": eng.variant_chunk_steps,
+                    "variant_decode_forwards": eng.variant_decode_forwards,
+                    "graph_captures": eng.graph_captures,
                 },
                 "aborted": dict(self._aborted),
                 "actuations": dict(self._actuations),
@@ -3187,6 +3589,15 @@ class EngineService:
                 # records (a launcher lifts it into ledger.costs)
                 "costs": self.costs.summary(),
                 "quant": self._quant_block(),
+                # the co-resident set and what the shared base saves (a
+                # launcher's ledger row)
+                **({"residents": {
+                    "cap": self._resident_variants_cap,
+                    "attached": sorted(self._residents),
+                    "variant_hbm_bytes": eng.variant_hbm_bytes(),
+                    "variant_hbm_budget_bytes": self._variant_hbm_budget,
+                    "saved_bytes": self.resident_ledger.bytes_saved(),
+                }} if self._residents or self._resident_variants_cap > 1 else {}),
             }
 
     def _quant_block(self) -> Dict[str, Any]:
@@ -3746,12 +4157,26 @@ def stream_events(service: EngineService, gen: Generation, make_chunk: Callable,
             service.abort(fut)
 
 
+def route(service: EngineService, body: Dict[str, Any]) -> int:
+    """The variant a completion's ``model`` routes to (0: the base); an
+    unknown name is a 400 that names the live set, so a router never gets
+    the wrong weights under the name it sent."""
+    model = body.get("model")
+    if model is not None and not isinstance(model, str):
+        raise BadRequest("model must be a string")
+    try:
+        return service.resolve_request_model(model)
+    except ValueError as e:
+        raise BadRequest(str(e))
+
+
 def completions(service: EngineService, body: Any, trace_ctx: "tracing.SpanContext | None" = None):
     """POST /v1/completions: a response object, or an event generator for
     ``stream``. ``trace_ctx``: the client's ``traceparent``."""
     if not isinstance(body, dict):
         raise BadRequest("request body must be a JSON object")
     gen = parse_generation(service, body, encode_prompt(service, body.get("prompt")))
+    gen.kw["variant"] = route(service, body)
     logprobs_n = parse_logprobs_n(service, body.get("logprobs"))
     echo = bool(body.get("echo"))
     model = body.get("model") or service.model
@@ -3777,6 +4202,7 @@ def chat_completions(service: EngineService, body: Any, trace_ctx: "tracing.Span
     if not isinstance(body, dict):
         raise BadRequest("request body must be a JSON object")
     gen = parse_generation(service, body, chat_tokens(service, body.get("messages")))
+    gen.kw["variant"] = route(service, body)
     top_n = parse_logprobs_n(service, body.get("top_logprobs"), "top_logprobs") if body.get("logprobs") else 0
     model = body.get("model") or service.model
     if body.get("stream"):
@@ -3901,7 +4327,13 @@ def make_handler(service: EngineService):
                         "devices_released": service.sleeper.devices_released,
                     })
                 if method == "GET" and path == "/v1/models":
-                    return self._send(200, {"object": "list", "data": [{"id": service.model, "object": "model"}]})
+                    # the base and every attached co-resident: what a
+                    # completion's model may name without an actuation
+                    data = [{"id": service.model, "object": "model"}]
+                    data += [{"id": m, "object": "model", "coresident": True} for m in sorted(service._residents)]
+                    return self._send(200, {"object": "list", "data": data})
+                if path == "/v1/residents":
+                    return self._residents(method, url.query, body if method == "POST" else None)
                 if method == "GET" and path == "/v1/stats":
                     return self._send(200, service.stats())
                 if method == "GET" and path == "/v1/costs":
@@ -4042,6 +4474,41 @@ def make_handler(service: EngineService):
             except MigrationFailed as e:
                 return self._send(500, {"error": str(e)})
             return self._send(404, {"error": f"no route {method} {path}"})
+
+        def _residents(self, method: str, query: str, body: Any) -> None:
+            """The co-resident verbs: a refusal by the cap, the budget, an
+            unresolvable sibling or a live request is a 409 (the caller
+            takes the swap path), a malformed or impossible one a 400."""
+            if method == "GET":
+                return self._send(200, service.residents_view())
+            if method == "POST":
+                if not isinstance(body, dict):
+                    raise BadRequest("request body must be a JSON object")
+                model, ckpt = body.get("model"), body.get("checkpoint_dir") or ""
+                if not isinstance(model, str) or not model:
+                    raise BadRequest("residents requires a 'model' string")
+            elif method == "DELETE":
+                q = parse_qs(query)
+                model, ckpt = q.get("model", [""])[0], q.get("checkpoint_dir", [""])[0]
+                if not model and int(self.headers.get("Content-Length") or 0):
+                    got = self._body()
+                    if not isinstance(got, dict):
+                        raise BadRequest("request body must be a JSON object")
+                    model, ckpt = got.get("model") or "", got.get("checkpoint_dir") or ""
+                if not isinstance(model, str) or not model:
+                    raise BadRequest("detach requires a 'model' (query or body)")
+            else:
+                return self._send(404, {"error": f"no route {method} /v1/residents"})
+            if not isinstance(ckpt, str):
+                raise BadRequest("checkpoint_dir must be a string")
+            try:
+                if method == "POST":
+                    return self._send(200, service.attach_resident(model, ckpt))
+                return self._send(200, service.detach_resident(model, ckpt))
+            except ResidentRejected as e:
+                return self._send(409, {"error": str(e)})
+            except ValueError as e:
+                raise BadRequest(str(e))
 
         def _prefetch(self, body: Any) -> None:
             if not isinstance(body, dict):

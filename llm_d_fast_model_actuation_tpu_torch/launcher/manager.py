@@ -35,10 +35,14 @@ with a 5xx, and the fence aborted on a refusal or a timeout, so the
 streams resume at home), publishing ``MIGRATED``; the drain verb
 (:meth:`EngineProcessManager.drain_instance`) repeats migrate passes until
 the child's queue is empty, publishing ``DRAINED``. Neither creates an
-instance: the GPU exclusivity rule is applied at create, as before. Not
-ported yet: the residents verbs (co-resident variants, item 12).
+instance: the GPU exclusivity rule is applied at create, as before. The
+residents verbs (:meth:`EngineProcessManager.attach_instance_resident`,
+``detach_instance_resident``, ``get_instance_residents``) forward to the
+child's ``/v1/residents`` and keep each holder's resident set in the
+ledger (``ChipLedger.set_residents``); the engine's 409 (the cap, the
+budget, a live variant) reaches the caller as a 409.
 ``fleet_rollup`` aggregates the children's ``/v1/stats`` as the reference
-does (their ``zero_drain`` and ``migration`` blocks summed), onto the
+does (their ``zero_drain``, ``migration`` and ``residents`` blocks summed), onto the
 ``fma_launcher_fleet_*`` gauges, its ``slo_exemplars`` lifted from the
 children's; a detailed instance list lifts each reporting
 child's cost-oracle summary into ``ledger.costs``.
@@ -49,8 +53,7 @@ Observability, the reference's: the spans ``launcher.create_instance``
 ``launcher.drain`` and ``launcher.rpc`` around each
 call to a child (its ``traceparent`` sent with the call), and the
 families ``fma_launcher_rpc_seconds{verb,outcome}`` (one observation per
-attempt) and ``fma_launcher_fleet_*`` (the fleet's resident-variant
-gauges wait on co-resident variants, ROADMAP queue 1 item 12).
+attempt) and ``fma_launcher_fleet_*``.
 """
 
 from __future__ import annotations
@@ -118,12 +121,20 @@ LAUNCHER_FLEET_ACTUATIONS_PER_HOUR = Gauge(
     "hour)",
 )
 
+LAUNCHER_FLEET_RESIDENT_VARIANTS = Gauge(
+    "fma_launcher_fleet_resident_variants",
+    "Device-resident model variants summed over reporting instances "
+    "(base included per instance)",
+)
+LAUNCHER_FLEET_CORESIDENT_SAVED_BYTES = Gauge(
+    "fma_launcher_fleet_coresident_saved_bytes",
+    "HBM bytes saved fleet-wide by co-resident variants sharing their "
+    "base's device tensors (vs one full copy per variant)",
+)
+
 #: the launcher families the port leaves out until their feature is
-#: ported, by ROADMAP item
-UNPORTED_FAMILIES = {
-    "fma_launcher_fleet_resident_variants": 12,
-    "fma_launcher_fleet_coresident_saved_bytes": 12,
-}
+#: ported, by ROADMAP item: none is left
+UNPORTED_FAMILIES: Dict[str, int] = {}
 
 #: first backoff (seconds) before re-sending a refused engine connection
 _RETRY_BACKOFF_S = 0.2
@@ -155,6 +166,18 @@ class PrefetchFailed(Exception):
 
     def __init__(self, instance_id: str, status: int, detail: str) -> None:
         super().__init__(f"prefetch on instance {instance_id} failed ({status}): {detail}")
+        self.instance_id = instance_id
+        self.status = status
+        self.detail = detail
+
+
+class ResidentsFailed(Exception):
+    """The engine child rejected (or never answered) a resident-set verb.
+    Status 409 carries the engine's refusal (the cap, the budget, a detach
+    while live): the caller's cue to take the swap path."""
+
+    def __init__(self, instance_id: str, status: int, detail: str) -> None:
+        super().__init__(f"residents verb on instance {instance_id} failed ({status}): {detail}")
         self.instance_id = instance_id
         self.status = status
         self.detail = detail
@@ -227,8 +250,7 @@ class ChipLedger:
     """Node-local truth of which live instance holds which cards, which
     model each holder serves, the model it was asked to prefetch, and its
     model pool's shape and transfer mode from its last swap or prefetch
-    answer. The reference's ``residents`` block is kept, empty: the port's
-    engine has no co-resident variants yet."""
+    answer, and its resident set from its last residents answer."""
 
     def __init__(self) -> None:
         self._held: Dict[str, List[str]] = {}  # instance_id -> chip_ids
@@ -237,6 +259,9 @@ class ChipLedger:
         self._prefetched: Dict[str, str] = {}
         self._pools: Dict[str, Dict[str, Any]] = {}
         self._quant: Dict[str, str] = {}
+        #: instance_id -> the resident-set summary of the holder's last
+        #: /v1/residents answer
+        self._residents: Dict[str, Dict[str, Any]] = {}
 
     def overlapping(
         self, chip_ids: Optional[List[str]], exclude: Optional[str] = None
@@ -264,6 +289,7 @@ class ChipLedger:
         self._prefetched.pop(instance_id, None)
         self._pools.pop(instance_id, None)
         self._quant.pop(instance_id, None)
+        self._residents.pop(instance_id, None)
 
     def set_model(self, instance_id: str, model: str) -> None:
         """Record which model a holder serves; a swap to the prefetched
@@ -300,6 +326,26 @@ class ChipLedger:
         """Record the transfer mode of a holder's last swap answer."""
         if quant and instance_id in self._held:
             self._quant[instance_id] = quant
+
+    def set_residents(self, instance_id: str, view: Optional[Dict[str, Any]]) -> None:
+        """Record a holder's resident set from an engine /v1/residents
+        answer, compacted to what a scheduler reads: membership, budget
+        and use, and what sharing the base saves."""
+        if view is None or instance_id not in self._held:
+            return
+        ledger = view.get("ledger") or {}
+        self._residents[instance_id] = {
+            "base": view.get("base"),
+            "resident_variants": int(view.get("resident_variants", 1)),
+            "resident_variants_cap": int(view.get("resident_variants_cap", 1)),
+            "residents": sorted(view.get("residents") or {}),
+            "variant_hbm_bytes": int(view.get("variant_hbm_bytes", 0)),
+            "variant_hbm_budget_bytes": int(view.get("variant_hbm_budget_bytes", 0)),
+            "bytes_saved": int(ledger.get("bytes_saved", 0)),
+        }
+
+    def residents(self) -> Dict[str, Dict[str, Any]]:
+        return dict(self._residents)
 
     def holders(self) -> Dict[str, List[str]]:
         return dict(self._held)
@@ -815,6 +861,44 @@ class EngineProcessManager:
             self.ledger.set_prefetched(instance_id, None)
         return {"instance_id": instance_id, "prefetch": body}
 
+    def attach_instance_resident(
+        self, instance_id: str, model: str, checkpoint_dir: str = "", timeout: float = 120
+    ) -> Dict[str, Any]:
+        """Have a live instance put ``model``'s delta leaves beside its base
+        (its child's ``POST /v1/residents``) and route requests naming it
+        from then on: the swap-free alternative to :meth:`swap_instance`
+        for a sibling's traffic. The engine's refusal (the cap, the budget,
+        a sibling it cannot resolve) is a 409 :class:`ResidentsFailed`."""
+        with tracing.span("launcher.attach_resident", instance=instance_id, model=model):
+            body = self._engine_request(
+                instance_id, "POST", "/v1/residents", {"model": model, "checkpoint_dir": checkpoint_dir},
+                timeout, ResidentsFailed,
+            )
+        self.ledger.set_residents(instance_id, body)
+        logger.info("attached resident on instance %s: %s (handle=%s, wire_bytes=%s)", instance_id,
+                    body.get("model", model), body.get("handle"), body.get("wire_bytes"))
+        return {"instance_id": instance_id, "residents": body}
+
+    def detach_instance_resident(
+        self, instance_id: str, model: str, checkpoint_dir: str = "", timeout: float = 60
+    ) -> Dict[str, Any]:
+        """Drop a variant's delta from an instance's card (its child's
+        ``DELETE /v1/residents``): nothing moves, the tiers keep every
+        chunk, so attaching it again is delta-only."""
+        body = self._engine_request(
+            instance_id, "DELETE", "/v1/residents", {"model": model, "checkpoint_dir": checkpoint_dir},
+            timeout, ResidentsFailed,
+        )
+        self.ledger.set_residents(instance_id, body)
+        return {"instance_id": instance_id, "residents": body}
+
+    def get_instance_residents(self, instance_id: str, timeout: float = 10) -> Dict[str, Any]:
+        """The child's resident set (``GET /v1/residents``); refreshes the
+        ledger's block."""
+        body = self._engine_request(instance_id, "GET", "/v1/residents", None, timeout, ResidentsFailed)
+        self.ledger.set_residents(instance_id, body)
+        return {"instance_id": instance_id, "residents": body}
+
     def _recover_swap_result(
         self, instance_id: str, request_id: str, timeout_exc: SwapFailed, window_s: float = 10.0, poll_s: float = 0.5
     ) -> Dict[str, Any]:
@@ -1035,9 +1119,9 @@ class EngineProcessManager:
         retries: an unreachable or free-form-options instance degrades to
         an ``unreachable`` row, never an error for the whole read. The
         children's ``zero_drain`` and ``migration`` blocks are summed (did
-        an actuation or a handoff drop a stream, fleet-wide, in one read);
-        the ``residents`` block, whose verbs the port's engine does not
-        have yet, is constant; ``slo_exemplars`` are the
+        an actuation or a handoff drop a stream, fleet-wide, in one read),
+        and their ``residents`` blocks (the variants on the cards, their
+        delta bytes, what the shared bases save); ``slo_exemplars`` are the
         children's, each with the instance it came from (its trace is in
         that child's ``GET /v1/traces?trace_id=``)."""
         now = time.monotonic()
@@ -1081,6 +1165,7 @@ class EngineProcessManager:
                "bytes_out": 0, "bytes_in": 0}
         slo_exemplars: List[Dict[str, Any]] = []
         reporting = 0
+        resident_variants = variant_hbm_bytes = coresident_saved_bytes = 0
         for iid, row in per_instance.items():
             if not row.get("reporting"):
                 continue
@@ -1109,6 +1194,10 @@ class EngineProcessManager:
                 got = row.get(block) or {}
                 for k in total:
                     total[k] += int(got.get(k, 0))
+            res = row.get("residents") or {}
+            resident_variants += 1 + len(res.get("attached") or [])
+            variant_hbm_bytes += int(res.get("variant_hbm_bytes", 0))
+            coresident_saved_bytes += int(res.get("saved_bytes", 0))
         judged = met + violated
         attainment = round(met / judged, 6) if judged else None
         fleet = {
@@ -1129,11 +1218,13 @@ class EngineProcessManager:
             # children's /v1/stats blocks
             "zero_drain": zero_drain,
             "migration": mig,
-            # the co-resident verbs wait: each engine one resident variant
+            # co-residency (the children's /v1/stats residents): the
+            # variants on the cards fleet-wide, their delta bytes, and
+            # what sharing the base tensors saved
             "residents": {
-                "resident_variants": reporting,
-                "variant_hbm_bytes": 0,
-                "coresident_saved_bytes": 0,
+                "resident_variants": resident_variants,
+                "variant_hbm_bytes": variant_hbm_bytes,
+                "coresident_saved_bytes": coresident_saved_bytes,
             },
             "slo_exemplars": slo_exemplars[-16:],
             "per_instance": per_instance,
@@ -1145,6 +1236,8 @@ class EngineProcessManager:
         LAUNCHER_FLEET_SLO_ATTAINMENT.set(attainment if attainment is not None else 1.0)
         LAUNCHER_FLEET_GOODPUT_TOKENS.set(goodput)
         LAUNCHER_FLEET_ACTUATIONS_PER_HOUR.set(actuations_per_hour)
+        LAUNCHER_FLEET_RESIDENT_VARIANTS.set(resident_variants)
+        LAUNCHER_FLEET_CORESIDENT_SAVED_BYTES.set(coresident_saved_bytes)
         with self._fleet_lock:
             self._fleet_cache = (time.monotonic(), fleet)
         return fleet
@@ -1178,14 +1271,13 @@ class EngineProcessManager:
             "running_instances": running,
             "instances": statuses,
             # who holds which cards is the ledger's; what each holder
-            # serves, has staged and pools are reported, and the block of
-            # the verb the port's engine does not have yet is empty
+            # serves, has staged, pools and keeps co-resident are reported
             "ledger": {
                 "models": self.ledger.models(),
                 "prefetched": self.ledger.prefetched(),
                 "pools": self.ledger.pools(),
                 "quant": self.ledger.quant(),
-                "residents": {},
+                "residents": self.ledger.residents(),
             },
         }
         if include_fleet:

@@ -22,6 +22,10 @@ launcher's surface (launcher.py:568-800) for the routes the port serves:
                                             sibling ({"dest_id"} optional;
                                             404, 422, 409, 400, 504, 502)
   POST   /v2/vllm/instances/{id}/drain      migrate until idle (as migrate)
+  POST   /v2/vllm/instances/{id}/residents  attach a co-resident sibling,
+  GET    /v2/vllm/instances/{id}/residents  the resident set, detach one
+  DELETE /v2/vllm/instances/{id}/residents  (404, 422, 409 refused by the
+                                            engine, 400, 504, 502)
   GET    /v2/vllm/instances/watch[?since=N] NDJSON events (410 when N
                                             was evicted)
   GET    /metrics                           Prometheus text (the fleet
@@ -68,7 +72,8 @@ from .http11 import (  # noqa: F401 — the server's names, importable from here
     read_request,
 )
 from .instance import InstanceConfig, InvalidInstanceConfig, LogRangeNotAvailable
-from .manager import ChipConflict, DrainFailed, EngineProcessManager, MigrateFailed, PrefetchFailed, SwapFailed
+from .manager import (ChipConflict, DrainFailed, EngineProcessManager, MigrateFailed, PrefetchFailed,
+                      ResidentsFailed, SwapFailed)
 
 logger = logging.getLogger(__name__)
 
@@ -115,6 +120,9 @@ class LauncherApp(App):
             ("DELETE", "/v2/vllm/instances/{instance_id}/prefetch", self.abort_instance_prefetch),
             ("POST", "/v2/vllm/instances/{instance_id}/migrate", self.migrate_instance),
             ("POST", "/v2/vllm/instances/{instance_id}/drain", self.drain_instance),
+            ("POST", "/v2/vllm/instances/{instance_id}/residents", self.attach_instance_resident),
+            ("GET", "/v2/vllm/instances/{instance_id}/residents", self.get_instance_residents),
+            ("DELETE", "/v2/vllm/instances/{instance_id}/residents", self.detach_instance_resident),
         ])
 
     async def _run(self, fn, *args):
@@ -211,6 +219,9 @@ class LauncherApp(App):
                     "abort_prefetch": "DELETE /v2/vllm/instances/{instance_id}/prefetch",
                     "migrate_instance": "POST /v2/vllm/instances/{instance_id}/migrate",
                     "drain_instance": "POST /v2/vllm/instances/{instance_id}/drain",
+                    "attach_resident": "POST /v2/vllm/instances/{instance_id}/residents",
+                    "residents_status": "GET /v2/vllm/instances/{instance_id}/residents",
+                    "detach_resident": "DELETE /v2/vllm/instances/{instance_id}/residents",
                     "watch_instances": "GET /v2/vllm/instances/watch",
                     "faults": "GET/POST/DELETE /v2/vllm/faults",
                     "traces": "GET /v2/vllm/traces",
@@ -404,6 +415,56 @@ class LauncherApp(App):
             raise HTTPError(404, f"Instance {instance_id} not found")
         except PrefetchFailed as e:
             raise self._prefetch_error(e)
+        return json_response(result)
+
+    @staticmethod
+    def _residents_error(e: ResidentsFailed) -> HTTPError:
+        # the engine's 409 is its refusal (the cap, the budget, a live
+        # variant), kept as such: a scheduler takes the swap path on it
+        if e.status == 409:
+            return HTTPError(409, str(e))
+        if 400 <= e.status < 500:
+            return HTTPError(400, str(e))
+        return HTTPError(504 if e.status == 504 else 502, str(e))
+
+    async def _residents_write(self, req: Request, verb) -> Response:
+        """The attach and detach verbs' body and checks (the child's POST
+        and DELETE /v1/residents)."""
+        instance_id = req.match_info["instance_id"]
+        try:
+            body = req.json()
+        except ValueError:
+            raise HTTPError(400, "invalid JSON body")
+        model = body.get("model") if isinstance(body, dict) else None
+        if not isinstance(model, str) or not model:
+            raise HTTPError(422, "residents requires a 'model' string")
+        checkpoint_dir = body.get("checkpoint_dir") or ""
+        if not isinstance(checkpoint_dir, str):
+            raise HTTPError(422, "checkpoint_dir must be a string")
+        try:
+            result = await self._traced(req, verb, instance_id, model, checkpoint_dir)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except ResidentsFailed as e:
+            raise self._residents_error(e)
+        return json_response(result)
+
+    async def attach_instance_resident(self, req: Request) -> Response:
+        """The co-residency attach verb: a sibling's delta beside the
+        instance's base, routed per request from then on."""
+        return await self._residents_write(req, self.manager.attach_instance_resident)
+
+    async def detach_instance_resident(self, req: Request) -> Response:
+        return await self._residents_write(req, self.manager.detach_instance_resident)
+
+    async def get_instance_residents(self, req: Request) -> Response:
+        instance_id = req.match_info["instance_id"]
+        try:
+            result = await self._traced(req, self.manager.get_instance_residents, instance_id)
+        except KeyError:
+            raise HTTPError(404, f"Instance {instance_id} not found")
+        except ResidentsFailed as e:
+            raise self._residents_error(e)
         return json_response(result)
 
     async def watch(self, req: Request) -> StreamResponse:

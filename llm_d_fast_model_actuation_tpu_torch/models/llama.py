@@ -324,6 +324,44 @@ class Llama(nn.Module):
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
 
+class VariantView:
+    """A sibling variant of a :class:`Llama` that shares its tensors: the
+    surface the forwards read (``cfg``, ``embed``, ``final_norm``,
+    ``lm_head``, the RoPE tables, ``layers``, :meth:`layer`,
+    :meth:`head`), where each name resolves to the variant's delta leaf
+    first (``delta``: the reference's flat keys, ``lm_head``,
+    ``layers/w_down``, ... -> a tensor of the base leaf's shape and dtype)
+    and to the base model's own tensor otherwise. Nothing is copied: a
+    pass through the view reads the base's addresses for every shared
+    leaf, and the base's tensors, which its captured graphs read, are
+    never written."""
+
+    def __init__(self, base: Llama, delta: Dict[str, torch.Tensor]) -> None:
+        self.base = base
+        self.cfg = base.cfg
+        self.delta = dict(delta)
+        self.layers = {name: self.delta.get(f"layers/{name}", p) for name, p in base.layers.items()}
+
+    def __getattr__(self, name: str):
+        # the top-level leaves (embed, final_norm, lm_head) and the RoPE
+        # tables; only reached for names the instance does not hold
+        if name in ("base", "delta"):
+            raise AttributeError(name)
+        if name in self.delta:
+            return self.delta[name]
+        return getattr(self.base, name)
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    def layer(self, i: int) -> Dict[str, torch.Tensor]:
+        return {name: p[i] for name, p in self.layers.items()}
+
+    def head(self) -> torch.Tensor:
+        return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+
+
 class ShardedLlama(nn.Module):
     """The decoder on a tensor-parallel mesh: ``mesh.tp`` :class:`Llama`
     modules, rank ``r`` on ``mesh.devices[r]`` holding its slice of every

@@ -59,7 +59,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "capture_overlap.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "capture_overlap.py",
+                                                                  "profile_windows.py"],
 )
 def test_no_file_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -76,7 +77,8 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "parity_spread.py", "capture_overlap.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py", "parity_spread.py", "capture_overlap.py", "profile_windows.py"],
 )
 def test_transformers_is_imported_only_inside_functions(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -106,7 +108,7 @@ CONTROL_PLANE = ("api", "api.spi", "api.types", "utils.hashing", "utils.syncbarr
                  "requester", "requester.spi", "requester.probes", "requester.allocation", "requester.main",
                  "controller", "controller.store", "controller.kubestore", "controller.metrics",
                  "controller.clients", "controller.directpath", "controller.populator", "controller.dualpods",
-                 "controller.__main__", "testing")
+                 "controller.__main__", "controller.chipmap_tool", "admission", "testing")
 
 
 def test_the_control_plane_imports_without_torch():

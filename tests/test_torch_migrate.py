@@ -309,20 +309,59 @@ def test_tampered_kv_chunk_refused(pair, ckpts):
 
 
 def test_residents_pin_detach_first_contract(pair, ckpts):
-    """Co-resident variants are not ported yet (ROADMAP queue 1 item 12),
-    so the reference's detach-first refusals cannot arise; what holds
-    meanwhile: ``/v1/residents`` is refused and an export or an import
-    never meets a variant (a request of one is refused at decode)."""
-    from llm_d_fast_model_actuation_tpu_torch.engine import server as tserver
+    """The reference's detach-first refusals: while a co-resident variant
+    is attached, an export and an import are refused (409, nothing
+    displaced), and so are a swap and a sleep; a parked request's
+    ``variant`` travels on the wire as the reference carries it."""
+    from llm_d_fast_model_actuation_tpu_torch.engine import parked as tparked
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import Request
 
     src, dst = pair
-    assert tserver.unported_route("/v1/residents")
     f, _ = _live_stream(src, [1, 2, 3])
     doc = json.loads(json.dumps(src.export_parked(f"hf:{ckpts[0]}")))
     doc["requests"]["live"][0]["variant"] = 1
-    with pytest.raises(ValueError, match="co-resident"):
+    assert tparked.decode_request(doc["requests"]["live"][0], Request).variant == 1
+    dst._residents["hf:/sibling"] = {"handle": 1}  # an attached variant, as the registry holds it
+    try:
+        with pytest.raises(MigrationRejected, match=r"detach them \(DELETE /v1/residents\) before importing"):
+            dst.import_parked(doc)
+        with pytest.raises(MigrationRejected, match="before migrating the base"):
+            dst.export_parked(f"hf:{ckpts[0]}")
+        with pytest.raises(ValueError, match="before swapping the base"):
+            dst.swap(f"hf:{ckpts[1]}")
+        with pytest.raises(ValueError, match="before sleeping"):
+            dst.sleep(1)
+    finally:
+        dst._residents.clear()
+    assert dst.queue_depth() == 0
+    assert src.abort_migration(doc["fence"]["token"])["outcome"] == "resumed_local"
+    f.result(timeout=120)
+    _balance(src)
+
+
+@pytest.mark.parametrize("part", ["live", "waiting", "pending"])
+def test_a_parked_request_of_a_variant_is_refused(pair, ckpts, part):
+    """A variant handle names a resident of the engine that attached it: a
+    bundle with a live, waiting or queued request routed to one is a 400
+    on a destination with no residents, nothing is seated, and the
+    destination still serves."""
+    src, dst = pair
+    gold = _gold(dst, [4, 5, 6])
+    f, _ = _live_stream(src, [1, 2, 3])
+    doc = json.loads(json.dumps(src.export_parked(f"hf:{ckpts[0]}")))
+    live = doc["requests"]["live"][0]
+    if part == "live":
+        live["variant"] = 1
+    elif part == "waiting":
+        extra = {k: v for k, v in live.items() if k not in ("old_pages", "counts_row", "key_data")}
+        doc["requests"]["waiting"].append(dict(extra, seq_id=live["seq_id"] + 1000, variant=1))
+    else:
+        doc["requests"]["pending"].append(dst._encode_pending({"prompt": [7, 8], "variant": 1}))
+    assert not dst._residents
+    with pytest.raises(ValueError, match=r"co-resident variant handles \[1\]"):
         dst.import_parked(doc)
     assert dst.queue_depth() == 0
+    assert _gold(dst, [4, 5, 6]) == gold
     assert src.abort_migration(doc["fence"]["token"])["outcome"] == "resumed_local"
     f.result(timeout=120)
     _balance(src)

@@ -9,6 +9,8 @@ parking and migration families) and its exposition parses with
 EWMA); and the launcher's fleet rollup onto its gauges."""
 
 import json
+import os
+import shutil
 import threading
 import time
 import urllib.request
@@ -47,7 +49,7 @@ def _port_families() -> dict:
 def test_the_families_equal_the_jax_packages_less_the_named_ones():
     jax, port = _jax_families(), _port_families()
     assert set(UNPORTED) <= set(jax) and not set(UNPORTED) & set(port)
-    assert set(UNPORTED.values()) == {12, 13}
+    assert set(UNPORTED.values()) == {13}
     assert {k: v for k, v in jax.items() if k not in UNPORTED} == port
 
 
@@ -87,7 +89,8 @@ def test_every_registered_engine_family_is_exercised(dirs, tmp_path):
     service from a Hugging Face directory (requests, an echo, an abort, two sleep/wake cycles, a cold
     swap, a pool hit, a rolled-back swap, a prefetch of a third), and a
     zero-drain service of the second directory that exports a live stream
-    and resumes it at home, leave a sample in
+    and resumes it at home, and a co-resident attach, routed request and
+    detach on two siblings of the first, leave a sample in
     every engine family, labelled families with a child, and the counters
     the traffic moves at the traffic's numbers; the exposition parses with
     prometheus_client's parser into exactly the registered families."""
@@ -105,6 +108,30 @@ def test_every_registered_engine_family_is_exercised(dirs, tmp_path):
         "--slo-ttft-ms 60000 --slo-tpot-ms 60000"))
     server = tserver.serve(svc, "127.0.0.1", 0)
     port = server.server_address[1]
+    # co-residency, before the deltas start and under models of its own:
+    # two siblings of A (lm_head changed), one serving, the other pooled,
+    # attached, a request routed to it, detached
+    from safetensors.torch import load_file, save_file
+
+    sibs = []
+    for i, fn in enumerate((lambda t: t.flip(0), lambda t: t.roll(t.shape[0] // 2, 0))):
+        sibs.append(str(tmp_path / f"sibling-{i}"))
+        shutil.copytree(dirs[0], sibs[-1])
+        t = load_file(os.path.join(sibs[-1], "model.safetensors"))
+        t["lm_head.weight"] = fn(t["lm_head.weight"]).contiguous()
+        save_file(t, os.path.join(sibs[-1], "model.safetensors"), metadata={"format": "pt"})
+    s1, s2 = (f"hf:{d}" for d in sibs)
+    co = tserver.EngineService(tserver.parse_engine_options(
+        f"--model {s1} --device cpu --num-pages 64 --page-size 8 --max-batch 2 --max-model-len 64 "
+        "--packed-serving on --resident-variants 2"))
+    try:
+        co.swap(s2)
+        co.swap(s1)
+        handle = co.attach_resident(s2)["handle"]
+        assert co.submit(prompt=[1, 2, 3], max_new_tokens=2, variant=handle).result(timeout=120).out_tokens
+        co.detach_resident(s2)
+    finally:
+        co.shutdown()
     # the registry is the process's: families without a model label count
     # what other services of this process did too, so those are deltas
     before = _scrape(port)

@@ -1,6 +1,6 @@
-"""Routes of the reference server the port does not serve yet answer 400
-with the port's message, not a 404 ("no route"), whatever lies under
-them; the migration routes, ported, answer as the reference's; and a swap whose build fails from the disk tier leaves the weights
+"""Every route of the reference server is served now (the last one,
+``/v1/residents``, in the co-resident slice), and matching an unported
+route is by path segment; the migration routes answer as the reference's; and a swap whose build fails from the disk tier leaves the weights
 it rebuilt in the pool as prefetched, so the next swap reads neither the
 checkpoint nor the tier again (the reference's behaviour)."""
 
@@ -42,8 +42,15 @@ def _call(port: int, method: str, path: str):
 
 @pytest.mark.parametrize("method,path", [("POST", "/v1/residents"), ("GET", "/v1/residents/x")])
 def test_an_unported_route_answers_400(served, method, path):
+    """The last unported route, ``/v1/residents``, is served now: a POST
+    without a model is the reference's 400, and nothing lies under it (a
+    404, "no route"); the list of unported routes is empty."""
     status, body = _call(served, method, path)
-    assert status == 400 and body == {"error": f"{path} is not supported by this server yet"}
+    if method == "POST":
+        assert status == 400 and body == {"error": "residents requires a 'model' string"}
+    else:
+        assert status == 404 and body == {"error": f"no route {method} {path}"}
+    assert not tserver.unported_route(path) and tserver.UNPORTED_ROUTES == ()
 
 
 @pytest.mark.parametrize("method,path,status,message", [
@@ -75,9 +82,14 @@ def test_a_ported_observability_route_is_served(served, method, path):
 def test_a_prefix_is_not_a_route(served):
     """Matching is by path segment: a route that merely starts with an
     unported one's letters is no route at all."""
-    assert tserver.unported_route("/v1/residents") and tserver.unported_route("/v1/residents/x")
-    assert not tserver.unported_route("/v1/residentsx") and not tserver.unported_route("/v1/prefetch")
-    assert not tserver.unported_route("/v1/profile") and tserver.UNPORTED_ROUTES == ("/v1/residents",)
+    unported = tserver.UNPORTED_ROUTES
+    try:
+        tserver.UNPORTED_ROUTES = ("/v1/residents",)
+        assert tserver.unported_route("/v1/residents") and tserver.unported_route("/v1/residents/x")
+        assert not tserver.unported_route("/v1/residentsx") and not tserver.unported_route("/v1/prefetch")
+    finally:
+        tserver.UNPORTED_ROUTES = unported
+    assert not tserver.unported_route("/v1/profile") and tserver.UNPORTED_ROUTES == ()
     assert _call(served, "GET", "/v1/residentsx")[0] == 404
 
 
