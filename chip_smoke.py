@@ -370,6 +370,28 @@ exits non-zero and never prints the final ``ok`` line):
      (forked from one that launched nothing) and are read through their
      ``/v1/device`` after the traffic.
 
+Weight-only int8, n-gram speculation and pipelined decode:
+``kernel_check`` (``w8a16``) holds the W8A16 kernel at Llama-3-8B's five
+products at 1, 8 and 64 rows against its plain version (error over the
+largest plain value under 7.81e-3, the same bits on a second launch),
+with its device time from a CUDA graph, bf16 ``torch.matmul``'s time and
+the bound; ``serve_int8`` (after ``quant``) serves llama3-8b at
+``--quantization int8`` (parameters exactly 8,561,882,112 B, every chunk
+a replay whose graph holds (7 L + 1) x T W8A16 nodes, a level-1 cycle of
+exactly 12,856,849,408 B with the same tokens and addresses, the prefill
+and decode paths against an fp32 oracle of the quantized weights, a
+swap to the sibling checkpoint and back each priced to the byte), and
+reports the replayed step's kernels by kind; ``speculative`` runs one
+greedy stream with ``--speculative-ngram 4`` and without (proposals
+made, ``/metrics`` equal to ``/v1/stats``, every emitted token the
+argmax of a teacher-forced cold prefill or a near-tie); ``pipeline``
+runs eight streams with ``--pipeline-decode`` off and on (tokens
+bit-equal, a level-1 sleep with a chunk in flight losing none); the
+``launcher`` line's ``refusals`` are the three pairs of options that do
+not compose, each a 422 in the reference's words. The ``kernels`` line
+carries one W8A16 entry per product shape at 8 rows, with the
+``serve_int8`` run's launches of that shape.
+
 With two or more cards the sharded ragged check also runs with its ranks
 on ``cuda:0,cuda:1`` and says so; with one it prints ``"two_cards": "not
 run"``. The last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -1098,6 +1120,7 @@ def reset_counts() -> None:
     wrappers["prefill"].launches_by_seq.clear()
     wrappers["ragged"].launches_by_rows.clear()
     wrappers["ragged_sharded"].launches_by_rows.clear()
+    wrappers["w8a16"].launches_by_shape.clear()
 
 
 def read_counts() -> dict:
@@ -2316,7 +2339,6 @@ def prefetch_drill(torch, service, port: int, model_a: str, model_c: str, swap) 
     read, its weights those fingerprints and its lm_head's digest, hashed
     from the card, the staged one; then back to A (a pool hit)."""
     from llm_d_fast_model_actuation_tpu_torch.engine.chunk_store import leaf_digest
-    from llm_d_fast_model_actuation_tpu_torch.models.hf import _param
     from llm_d_fast_model_actuation_tpu_torch.models.llama import param_shapes
 
     eng_a = service.engine
@@ -2373,7 +2395,7 @@ def prefetch_drill(torch, service, port: int, model_a: str, model_c: str, swap) 
     a_model = eng_a.model
 
     def expected(flat):
-        t = _param(a_model, flat)
+        t = a_model.get_parameter(flat)
         return t.roll(vocab // 2, 1) if flat == "lm_head" else t  # the checkpoint's rows are lm_head's columns
 
     want = fingerprint(torch, [expected(f) for f in flats])
@@ -2387,7 +2409,7 @@ def prefetch_drill(torch, service, port: int, model_a: str, model_c: str, swap) 
     eng_c = service.engine
     if not out["prefetched"] or service.loads != 0:
         raise AssertionError(f"the prefetched swap read the checkpoint ({service.loads} loads): {out}")
-    if fingerprint(torch, [_param(eng_c.model, f) for f in flats]) != want:
+    if fingerprint(torch, [eng_c.model.get_parameter(f) for f in flats]) != want:
         raise AssertionError("the prefetched engine's weights differ from the checkpoint's")
     if leaf_digest(eng_c.model.lm_head) != staged_digests["lm_head"] or service._digests(service._runtime) != staged_digests:
         raise AssertionError("the prefetched engine's digests differ from its staged ones")
@@ -2885,6 +2907,7 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         rpcs = launcher_rpcs(launcher.url, {"POST /v1/swap": 2, "POST /v1/prefetch": 1,
                                             "GET /v1/prefetch": prefetch_gets})
         faults_round_trip = launcher_faults(launcher.url)
+        refusals = launcher_refusals(launcher, uuid)
 
         # teardown
         deleted = {iid: request(f"{launcher.url}/v2/vllm/instances/{iid}", "DELETE")[1]["status"] for iid in ("a", "b")}
@@ -2923,6 +2946,7 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         "deleted": deleted, "free_before_bytes": free_before, "free_after_bytes": free_after,
         "no_preload_spawn_to_healthy_s": spawn_plain_s, "no_preload_launcher_ready_s": plain.ready_s,
         "create_trace": create_spans, "exemplars": exemplars, "rpc_seconds": rpcs, "faults": faults_round_trip,
+        "refusals": refusals,
     })
     return {"counts": counts, "probe": probe, "b_tokens": b_tokens}
 
@@ -4476,7 +4500,7 @@ def pad_loss_note(pads: dict) -> str:
 
 KERNEL_KINDS = (
     ("decode attention", ("decode_kernel",)),
-    ("weight products", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "Kernel2")),
+    ("weight products", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "Kernel2", "w8a16")),
     ("top-k and sort", ("topk", "sort", "Sort", "radix", "select")),
 )
 
@@ -4952,14 +4976,14 @@ def parity_figure(torch, logits, oracle) -> dict:
             "oracle_rms": oracle.pow(2).mean().sqrt().item()}
 
 
-def parity_gate(figures: dict, layers: int) -> list:
+def parity_gate(figures: dict, layers: int, limit: "float | None" = None) -> list:
     """The gate: what in ``figures`` (path -> :func:`parity_figure`) breaks
     the limits derived above for a stack of ``layers``; empty when it
     holds. A path's rel-L2 stays under :func:`parity_limit`; a tp 2 path
     within :func:`tp_ratio_limit` of its tp 1 partner; each argmax equals the
     oracle's unless the oracle's margin lies inside the path's expected
     error."""
-    limit, ratio_limit = parity_limit(layers), tp_ratio_limit(layers)
+    limit, ratio_limit = limit or parity_limit(layers), tp_ratio_limit(layers)
     bad = []
     for path, f in figures.items():
         if not f["rel_l2"] <= limit:
@@ -5187,6 +5211,516 @@ def model_parity(torch, eng, eng_tp2, bucketed: dict, paths: dict) -> dict:
     return out
 
 
+# -- W8A16 serving, n-gram speculation and pipelined decode ------------------
+
+#: Llama-3-8B's weight products (in, out), and how many of each one decode
+#: step of the batch runs a layer (wq and wo, wk and wv, w_gate and w_up,
+#: w_down); lm_head's once a step
+W8A16_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
+W8A16_PER_LAYER = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 4096): 1}
+W8A16_ROWS = (1, 8, 64)
+#: the kernel's error over the largest plain value: two bf16 steps (2^-7),
+#: as the plain version rounds its product and then the scaled product
+W8A16_TOL = 7.81e-3
+W8A16_SOURCE = "llm_d_fast_model_actuation_tpu_torch/csrc/w8a16.cu"
+W8A16_REPLACES = "none: the JAX package's int8 product is XLA (llm_d_fast_model_actuation_tpu/models/quant.py:38)"
+
+
+def check_w8a16(torch, gen) -> list:
+    """The W8A16 kernel at each of Llama-3-8B's five products at 1, 8 and
+    64 rows, against its plain version: the error over the largest plain
+    value under ``W8A16_TOL``, the same bits from a second launch (no
+    atomics), one launch under CUDA's sync debug mode; ``ms`` through the
+    wrapper, ``device_ms`` from a CUDA graph, the plain version's and
+    bf16 ``torch.matmul``'s (the library yardstick) times, and the bound
+    from the int8 weight, scale, x and y bytes or the flops."""
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import w8a16 as mod
+
+    rows = []
+    for K, N in W8A16_SHAPES:
+        q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        # a weight's scales: amax / 127 of a column of std K^-0.5
+        s = (torch.rand((1, N), generator=gen, device="cuda") + 3.0) * (K**-0.5 / 127)
+        w = q.to(torch.bfloat16)
+        for M in W8A16_ROWS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+
+            def kernel():
+                return mod.w8a16_matmul(x, q, s)
+
+            y, ref = kernel(), mod.w8a16_matmul_plain(x, q, s)
+            max_abs, _ = errors(y, ref)
+            rel = max_abs / ref.float().abs().max().item()
+            same = torch.equal(y, kernel())
+            if not rel < W8A16_TOL or not same:
+                raise AssertionError(f"W8A16 at [{M}, {K}] @ [{K}, {N}]: error {rel:.3e} of the largest plain value "
+                                     f"(limit {W8A16_TOL}), bit-stable {same}")
+            if M == 8:
+                sync_free(kernel)
+            bound, by = bound_ms(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+            rows.append({"name": f"w8a16[in={K},out={N}]", "route": "cuda", "source": W8A16_SOURCE, "replaces": W8A16_REPLACES,
+                         "rows": M, "in": K, "out": N, "plan": list(mod.launch_plan(M, K, N)),
+                         "max_abs_err": max_abs, "rel_err": rel, "bit_stable": same,
+                         "ms": time_ms(kernel, 20), "device_ms": graph_ms(kernel, 20),
+                         "plain_ms": time_ms(lambda: mod.w8a16_matmul_plain(x, q, s), 20),
+                         "library_ms": time_ms(lambda: torch.matmul(x, w), 20), "library": "torch.matmul bf16",
+                         "bound_ms": bound, "bound_by": by})
+            del x, y, ref
+        del q, s, w
+    return rows
+
+
+def w8a16_nodes(program) -> int:
+    """The W8A16 product's kernel nodes in a captured chunk (its split
+    reduction, ``w8a16_reduce``, is not counted)."""
+    return sum(n for name, n in program.kernels.items() if "w8a16_kernel" in name)
+
+
+def w8a16_launches(eng, counts: dict) -> dict:
+    """The W8A16 kernel's launches in a serve run, by product shape
+    ``"<in>x<out>"``: the wrapper's eager ones plus the replayed ones, each
+    replayed decode step one launch of lm_head and ``W8A16_PER_LAYER`` of
+    the others a layer; every captured chunk must hold ``(7 L + 1) x T``
+    nodes."""
+    L = eng.cfg.model.num_layers
+    per_step = {f"{k}x{n}": c * L for (k, n), c in W8A16_PER_LAYER.items()}
+    per_step["4096x128256"] = 1
+    for (T, sampled), program in eng.graphs.programs.items():
+        if w8a16_nodes(program) != sum(per_step.values()) * T:
+            raise AssertionError(f"the captured T={T} chunk (sampled={sampled}) holds {w8a16_nodes(program)} W8A16 "
+                                 f"nodes, want (7 x {L} + 1) x {T}")
+    replay_steps = sum(p.steps * p.replays for p in eng.graphs.programs.values())
+    eager = counts["w8a16_by_shape"]
+    return {k: eager.get(k, 0) + n * replay_steps for k, n in per_step.items()}
+
+
+#: Llama-3-8B's parameters under --quantization int8: the int8 stacks and
+#: lm_head 7,504,658,432 B, their f32 scales 6,018,048 B, the bf16
+#: embedding and norms 1,051,205,632 B
+INT8_PARAM_BYTES = 8_561_882_112
+#: a level-1 sleep of that engine: the parameters and the 2048 x 16-token
+#: KV pool (4,294,967,296 B)
+INT8_SLEEP_BYTES = 12_856_849_408
+#: the roundings a layer of an int8 path adds to the bf16 path's ten,
+#: against the oracle of its own quantized weights: each of the seven
+#: products rounded before its scale, and the scale rounded to bf16
+INT8_ROUNDINGS_PER_LAYER = ROUNDINGS_PER_LAYER + 2 * 7
+
+
+def int8_parity_limit(layers: int) -> float:
+    """The top of an int8 path's rel-L2 band against the fp32 oracle of
+    its quantized weights: ``ROUNDING_RMS`` over the bf16 path's roundings
+    and the products' and scales' (``INT8_ROUNDINGS_PER_LAYER``), the
+    head's two more."""
+    return ROUNDING_RMS * (INT8_ROUNDINGS_PER_LAYER * layers + 4) ** 0.5
+
+
+class Dequantized:
+    """A one-rank int8 model seen as the fp32 weights it holds (``q x s``,
+    exact in fp32), a layer at a time: what :func:`oracle_logits` reads."""
+
+    class Head:
+        def __init__(self, leaf):
+            self.q, self.s = leaf["q"], leaf["s"]
+            self.shape = self.q.shape
+
+        def __getitem__(self, idx):
+            return self.q[idx].float() * self.s[idx]
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+        self.embed, self.final_norm = model.embed, model.final_norm
+
+    def layer(self, i: int) -> dict:
+        return {k: v["q"].float() * v["s"] if isinstance(v, dict) else v for k, v in self.model.layer(i).items()}
+
+    def head(self):
+        return self.Head(self.model.head())
+
+
+def int8_parity(torch, model, seed: int = 5, n: int = 300) -> dict:
+    """The int8 model's bucketed prefill at ``n - 1`` (its products the
+    plain version: 512 rows) and the inline decode of its argmax at ``n``
+    (the W8A16 kernel: one row) on one prompt, against the fp32 oracle of
+    the same quantized weights, gated at :func:`int8_parity_limit`."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    cfg, dev = model.cfg, model.device
+    ps = 16
+    pages = -(-(n + 1) // ps)
+    kv = tuple(torch.zeros((cfg.num_layers, pages + 1, ps, cfg.num_kv_heads, cfg.head_dim), dtype=cfg.dtype,
+                           device=dev) for _ in range(2))
+    pt = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev, dtype=torch.int32)
+    tokens = torch.zeros((1, prefill_bucket(n, cfg.max_seq_len)), dtype=torch.int32, device=dev)
+    tokens[0, :n] = prompt
+    pre = llama.prefill(model, tokens, torch.tensor([n], dtype=torch.int32, device=dev), kv, pt)[0, n - 1]
+    nxt = pre.argmax().to(torch.int32)[None]
+    dec = llama.decode_step(model, nxt, torch.tensor([n], dtype=torch.int32, device=dev), kv, pt)[0]
+    del kv
+    oracle = oracle_logits(torch, Dequantized(model), torch.cat([prompt, nxt]), [n - 1, n])
+    figures = {"prefill": parity_figure(torch, pre, oracle[0]), "decode_inline": parity_figure(torch, dec, oracle[1])}
+    limit = int8_parity_limit(cfg.num_layers)
+    refused = parity_gate(figures, cfg.num_layers, limit=limit)
+    if refused:
+        raise AssertionError(f"an int8 path breaks the parity gate against the oracle of its quantized weights: "
+                             f"{refused}")
+    return {"against_fp32_oracle": figures, "limit_rel_l2": limit,
+            "predicted_rel_l2": [ROUNDING_RMS * (2 * cfg.num_layers + 4) ** 0.5, limit],
+            "oracle": "plain fp32 forward of q x s, a layer dequantized at a time"}
+
+
+def int8_profile(torch, eng, prompts) -> dict:
+    """On the engine thread: eight greedy requests of the serve lengths
+    prefilled, then :func:`chunk_device_profile` of a replayed T = 8
+    chunk (the kernels by kind, the W8A16 products among the weight
+    products), then the requests aborted."""
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=200)
+    eng.step()
+    try:
+        return chunk_device_profile(torch, eng, 8)
+    finally:
+        eng.abort_all("profile done")
+
+
+def serve_int8(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
+    """Llama-3-8B at full width and depth under ``--quantization int8``,
+    bucketed, seeded as ``serve`` (the same underlying weights, quantized):
+    its parameter bytes exactly ``INT8_PARAM_BYTES``; the serve traffic,
+    every decode chunk a replay whose graph holds the W8A16 kernel's
+    (7 L + 1) x T nodes; the replayed step's device time by kernel kind;
+    one level-1 cycle of exactly ``INT8_SLEEP_BYTES``, capturing nothing
+    and moving no state tensor, the tokens after the wake those before;
+    both paths against the fp32 oracle of the quantized weights; then a
+    swap to the ``serve_hf`` checkpoint's sibling (cold: read, staged bf16,
+    quantized on the card) and back (the pool), each moving the bytes
+    ``/v1/costs`` priced just before it, with no delta (content hashing is
+    off). Reports TTFT, TPOT, the wake's seconds and the first greedy
+    divergence from the bf16 ``serve``."""
+    import numpy as np
+
+    t_phase = time.monotonic()
+    sibling = f"hf:{swapped['sibling']}"
+    opts = f"{SERVE_OPTS} --quantization int8 --model-pool-mib {swapped['pool_mib']}"
+    service, server, init_s, free_before = start_service(torch, opts)
+    port = server.server_address[1]
+    try:
+        eng = service.engine
+        L, vocab = eng.cfg.model.num_layers, eng.cfg.model.vocab_size
+        nbytes = sum(p.numel() * p.element_size() for p in eng.model.parameters())
+        if nbytes != INT8_PARAM_BYTES or service._content_hash:
+            raise AssertionError(f"the int8 engine holds {nbytes} parameter bytes, want {INT8_PARAM_BYTES} "
+                                 f"(content hashing {service._content_hash})")
+        traffic = run_traffic(torch, port, vocab)
+        counts = path_counts(eng)
+        check_probe_launch(counts)
+        check_replays(eng, counts, "decode_inline")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, vocab, n).tolist() for n in GRAPH_PROMPT_LENS]
+        # the probe repeats request 1: its first run registers the prompt
+        # (the profile's abort cleared the prefix cache), every later one
+        # is a prefix-cache hit, the path each repeat takes
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
+        post(port, "/v1/completions", probe)
+        before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        ptrs, captures = state_ptrs(eng), eng.graph_captures
+        info = post(port, "/sleep?level=1")
+        asleep = check_asleep(torch, eng, free_before)
+        woke = post(port, "/wake_up")
+        after = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        if info["bytes_offloaded"] != INT8_SLEEP_BYTES or after != before:
+            raise AssertionError(f"the int8 level-1 cycle moved {info['bytes_offloaded']} bytes (want "
+                                 f"{INT8_SLEEP_BYTES}), tokens equal after the wake: {after == before}")
+        if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+            raise AssertionError("the int8 sleep/wake cycle re-captured a graph or moved a state tensor")
+        counts = path_counts(eng)
+        check_replays(eng, counts, "decode_inline")
+        by_shape = w8a16_launches(eng, counts)
+        # after the counts: the profile replays graphs outside the serving path
+        device = service._on_loop(lambda: int8_profile(torch, eng, prompts))
+        parity = int8_parity(torch, eng.model)
+        # the swap to the sibling checkpoint and back, each priced first
+        swaps = []
+        for model in (sibling, "llama3-8b"):
+            priced = costs_row(port, model)
+            out = post(port, "/v1/swap", {"model": model, "request_id": f"int8-{model}"})
+            if priced["predicted_bytes"] != out["bytes_moved"] or out["bytes_deduped"] or out["deduped_leaves"]:
+                raise AssertionError(f"the int8 swap to {model} moved {out['bytes_moved']} bytes "
+                                     f"({out['bytes_deduped']} deduped), /v1/costs priced {priced['predicted_bytes']}")
+            swaps.append({"model": model, "tier": out["tier"], "bytes_moved": out["bytes_moved"],
+                          "predicted_bytes": priced["predicted_bytes"], "swap_total_s": out.get("swap_total_s"),
+                          "predicted_s": priced.get("predicted_s"),
+                          "tokens": post(port, "/v1/completions", probe)["choices"][0]["token_ids"][:8]})
+        back = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        if [s["tier"] for s in swaps] != ["cold", "pool"] or back != before:
+            raise AssertionError(f"the int8 swaps: tiers {[s['tier'] for s in swaps]}, tokens back equal {back == before}")
+        out = {
+            "phase": "serve_int8", "model": "llama3-8b", "quantization": "int8", "layers": L,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
+            "param_bytes": nbytes, **traffic["summary"], **graph_stats(eng),
+            "w8a16_launches_by_shape": by_shape, "launches": counts,
+            "replayed_step": device, "weight_products_ms_per_step": (device.get("profiled_step_ms_by_kind") or {}).get(
+                "weight products") if isinstance(device.get("profiled_step_ms_by_kind"), dict) else "not measured",
+            "sleep": {"bytes_offloaded": info["bytes_offloaded"], "sleep_s": info["last_sleep_seconds"],
+                      "wake_s": woke["last_wake_seconds"],
+                      "wake_gib_per_s": info["bytes_offloaded"] / GIB / woke["last_wake_seconds"], **asleep},
+            "tokens_identical_after_wake": True, "graph_captures_unchanged": True,
+            "parity": parity, "swaps": swaps,
+            "first_difference_from_bf16_serve": first_differences(traffic["tokens"], bucketed["tokens"]),
+            "seconds": time.monotonic() - t_phase,
+        }
+        emit(out)
+        return {"counts": counts, "by_shape": by_shape}
+    finally:
+        stop_service(torch, service, server)
+        service._free_pooled(service.model_pool.drain())
+        # the serving engine's pinned host copies (its level-1 cycle's)
+        # go back to the host now, not when a later phase empties the cache
+        service._runtime = eng = None
+        gc.collect()
+        torch._C._host_emptyCache()
+
+
+#: the refusals the launcher answers at create with 422, each in the
+#: reference's words
+REFUSED_PAIRS = {
+    "--packed-serving on --pipeline-decode on": "--packed-serving is incompatible with --pipeline-decode",
+    "--quantization int8 --resident-variants 2 --packed-serving on":
+        "--resident-variants > 1 is incompatible with --quantization",
+    "--quantization int8 --sleep-quant int8": "--sleep-quant composes with full-precision serving only",
+}
+
+
+def launcher_refusals(launcher, uuid: str) -> dict:
+    """``PUT /v2/vllm/instances/<id>`` with each pair of options that do
+    not compose: a 422 naming the reference's reason, and no instance."""
+    out = {}
+    for i, (pair, words) in enumerate(REFUSED_PAIRS.items()):
+        status, body = launcher.create(f"refused-{i}", f"{SERVE_OPTS} --port {free_port()} {pair}", uuid)
+        if status != 422 or words not in json.dumps(body):
+            raise AssertionError(f"the launcher answered {status} {body} to {pair!r}, want 422 naming {words!r}")
+        if request(f"{launcher.url}/v2/vllm/instances/refused-{i}")[0] != 404:
+            raise AssertionError(f"a refused instance exists: {pair!r}")
+        out[pair] = {"status": status, "body": body}
+    return out
+
+
+SPEC_K = 4
+SPEC_NEW_TOKENS = 256
+#: the repeated pattern of the speculative stream's prompt, and its repeats
+SPEC_PATTERN, SPEC_REPEATS = 24, 12
+
+
+def cold_logits(torch, model, ids: list, max_len: int):
+    """One cold bucketed prefill of the one-rank ``model`` over ``ids``:
+    the fp32 logits at every position ``[len(ids), vocab]``."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    cfg, dev = model.cfg, model.device
+    n, ps = len(ids), 16
+    pages = -(-n // ps)
+    kv = tuple(torch.zeros((cfg.num_layers, pages + 1, ps, cfg.num_kv_heads, cfg.head_dim), dtype=cfg.dtype,
+                           device=dev) for _ in range(2))
+    pt = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    x = torch.zeros((1, prefill_bucket(n, max_len)), dtype=torch.int32, device=dev)
+    x[0, :n] = torch.tensor(ids, dtype=torch.int32, device=dev)
+    return llama.prefill(model, x, torch.tensor([n], dtype=torch.int32, device=dev), kv, pt)[0, :n]
+
+
+def teacher_forced(torch, model, prompt: list, out: list, max_len: int) -> dict:
+    """Every emitted token against a cold prefill over prompt + output: the
+    argmax there, or a near-tie. A near-tie is a top-2 gap inside the
+    bf16 rounding noise of a logit as ``parity_gate`` derives it
+    (``ARGMAX_TIE_SIGMAS`` x sqrt 2 x the bf16 band's top x the row's
+    logit RMS); raises on any other token."""
+    L = model.cfg.num_layers
+    logits = cold_logits(torch, model, prompt + out, max_len)[len(prompt) - 1 : len(prompt) - 1 + len(out)]
+    chose = torch.tensor(out, dtype=torch.long, device=logits.device)
+    top = logits.max(dim=-1)
+    gap = top.values - logits.gather(-1, chose[:, None])[:, 0]
+    tie = ARGMAX_TIE_SIGMAS * 2**0.5 * parity_limit(L) * logits.pow(2).mean(-1).sqrt()
+    argmax = top.indices == chose
+    bad = (~argmax & (gap > tie)).nonzero().flatten().tolist()
+    if bad:
+        raise AssertionError(f"emitted tokens at positions {bad[:8]} are not the cold prefill's argmax nor a near-tie: "
+                             f"gaps {gap[bad[:8]].tolist()} against {tie[bad[:8]].tolist()}")
+    return {"positions": len(out), "argmax": int(argmax.sum().item()), "near_ties": int((~argmax).sum().item()),
+            "largest_tie_gap": float(gap[~argmax].max().item()) if (~argmax).any() else 0.0}
+
+
+def speculative_phase(torch, smi: str) -> dict:
+    """One greedy stream of ``SPEC_NEW_TOKENS`` on the bf16 llama3-8b
+    server with ``--speculative-ngram SPEC_K``, its prompt a repeated
+    pattern, then the same stream with speculation off on the same engine
+    (its config between requests). Gated: proposals made, ``/metrics``'s
+    two families equal to ``/v1/stats``, every emitted token the argmax of
+    a teacher-forced cold prefill or a near-tie. Reported: the acceptance
+    rate, forwards per emitted token, TPOT with and without, and the first
+    divergence from the stream without speculation (the reference's own
+    caveat: the verify and the chunk round apart at argmax ties)."""
+    import numpy as np
+
+    t_phase = time.monotonic()
+    service, server, init_s, _ = start_service(torch, f"{SERVE_OPTS} --speculative-ngram {SPEC_K}")
+    port = server.server_address[1]
+    try:
+        eng = service.engine
+        vocab = eng.cfg.model.vocab_size
+        pattern = np.random.default_rng(3).integers(0, vocab, SPEC_PATTERN).tolist()
+        body = {"prompt": pattern * SPEC_REPEATS, "max_tokens": SPEC_NEW_TOKENS, "ignore_eos": True}
+        steps0, chunks0 = eng.chunk_steps, eng.decode_chunks
+        spec = post(port, "/v1/completions", body)
+        stats = get(port, "/v1/stats")["engine"]
+        samples = scrape(f"http://127.0.0.1:{port}/metrics")
+        scraped = {k: metric(samples, f"fma_engine_spec_{k}_tokens", model="llama3-8b")
+                   for k in ("proposed", "accepted")}
+        if not stats["spec_proposed"] > 0 or scraped != {"proposed": stats["spec_proposed"],
+                                                         "accepted": stats["spec_accepted"]}:
+            raise AssertionError(f"speculation: /v1/stats {stats}, /metrics {scraped}")
+        steps = eng.chunk_steps - steps0
+        forwards = stats["spec_rounds"] + steps + 1  # verify rounds, chunk steps, the prefill
+        service._on_loop(lambda: setattr(eng, "cfg", dataclasses.replace(eng.cfg, speculative_ngram=0)))
+        plain = post(port, "/v1/completions", body)
+        tokens = spec["choices"][0]["token_ids"]
+        forced = teacher_forced(torch, eng.model, body["prompt"], tokens, eng.cfg.seq_len)
+        out = {
+            "phase": "speculative", "model": "llama3-8b", "k": SPEC_K, "new_tokens": SPEC_NEW_TOKENS,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
+            "spec_proposed": stats["spec_proposed"], "spec_accepted": stats["spec_accepted"],
+            "spec_rounds": stats["spec_rounds"], "metrics": scraped,
+            "acceptance_rate": stats["spec_accepted"] / stats["spec_proposed"],
+            "chunk_steps": steps, "decode_chunks": eng.decode_chunks - chunks0,
+            "forwards_per_token": forwards / len(tokens),
+            "tpot_s": {"speculative": spec["usage"]["decode_tpot_s"], "off": plain["usage"]["decode_tpot_s"]},
+            "ttft_s": {"speculative": spec["usage"]["time_to_first_token_s"],
+                       "off": plain["usage"]["time_to_first_token_s"]},
+            "first_difference_from_off": first_differences([tokens], [plain["choices"][0]["token_ids"]])[0],
+            "teacher_forced": forced, "seconds": time.monotonic() - t_phase,
+        }
+        emit(out)
+        return out
+    finally:
+        stop_service(torch, service, server)
+
+
+#: the pipeline phase's streams: a greedy wave of the serve lengths, then
+#: a seeded sampled wave admitted while a chunk is in flight
+PIPE_WAVE1 = (20, 300, 1500, 3000)
+PIPE_WAVE2 = (16, 400, 1800, 2500)
+
+
+def pipeline_run(torch, eng, pipeline: bool, wave1: list, wave2: list) -> dict:
+    """The two waves through ``step()`` with ``pipeline_decode`` set as
+    asked (64 and 48 tokens): the tokens by request, TPOT per request
+    (its first token to its last read), and the device's gap between
+    consecutive replayed chunks from CUDA events around each replay."""
+    eng.cfg = dataclasses.replace(eng.cfg, pipeline_decode=pipeline)
+    real, marks = eng.graphs.replay, []
+
+    def replay(T, sampled):
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(T, sampled)
+        b = torch.cuda.Event(enable_timing=True)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    eng.graphs.replay = replay
+    try:
+        ids = [eng.add_request(p, max_new_tokens=64) for p in wave1]
+        done = {}
+
+        def step():
+            for r in eng.step():
+                done[r.seq_id] = (r, time.monotonic())
+
+        step()
+        step()
+        if pipeline and eng._inflight is None:
+            raise AssertionError("no chunk in flight when the second wave came")
+        ids += [eng.add_request(p, max_new_tokens=48, temperature=0.8, seed=7 + i) for i, p in enumerate(wave2)]
+        while eng.has_work():
+            step()
+        torch.cuda.synchronize()
+    finally:
+        del eng.graphs.replay
+    gaps = sorted(b.elapsed_time(a2) for (_, b), (a2, _) in zip(marks, marks[1:]))
+    tpot = [(t - r.first_token_time) / (len(r.out_tokens) - 1) for r, t in done.values()]
+    return {"tokens": [done[i][0].out_tokens for i in ids], "chunks": len(marks),
+            "tpot_s_mean": sum(tpot) / len(tpot), "chunk_gap_ms_median": gaps[len(gaps) // 2],
+            "chunk_gap_ms_mean": sum(gaps) / len(gaps)}
+
+
+def pipeline_phase(torch, smi: str) -> dict:
+    """A llama3-8b engine at full width and depth built directly, every
+    chunk a replay of its graphs: the two waves with ``pipeline_decode``
+    off, on, on, off (one engine, its config between runs), the tokens
+    bit-equal across the modes (a drain that read an output a later
+    replay overwrote would emit another chunk's tokens); then a level-1
+    sleep issued while a pipelined chunk is in flight, which reads it
+    first: after the wake the stream finishes with the tokens of the same
+    request run alone without pipelining. Reports TPOT and the device gap
+    between chunks in both modes."""
+    import numpy as np
+
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from llm_d_fast_model_actuation_tpu_torch.engine.sleep import attach_sleep
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    t_phase = time.monotonic()
+    free_memory(torch)
+    cfg = EngineConfig(model=llama.LlamaConfig.llama3_8b(), max_batch=8, num_pages=2048, prefix_caching=False)
+    eng = InferenceEngine(cfg, seed=0, device="cuda")
+    vocab = cfg.model.vocab_size
+    rng = np.random.default_rng(4)
+    wave1 = [rng.integers(0, vocab, n).tolist() for n in PIPE_WAVE1]
+    wave2 = [rng.integers(0, vocab, n).tolist() for n in PIPE_WAVE2]
+    runs = {name: pipeline_run(torch, eng, name.startswith("on"), wave1, wave2)
+            for name in ("off", "on", "on_2", "off_2")}
+    tokens = {k: r.pop("tokens") for k, r in runs.items()}
+    if any(t != tokens["off"] for t in tokens.values()):
+        raise AssertionError("the pipelined streams' tokens differ from the sequential ones")
+    # a level-1 sleep with a pipelined chunk in flight
+    eng.cfg = dataclasses.replace(eng.cfg, pipeline_decode=False)
+    gold = eng.generate([wave1[1]], max_new_tokens=40)[0]
+    eng.cfg = dataclasses.replace(eng.cfg, pipeline_decode=True)
+    sleeper = attach_sleep(eng)
+    eng.add_request(wave1[1], max_new_tokens=40)
+    eng.step()
+    if eng._inflight is None:
+        raise AssertionError("no chunk in flight before the sleep")
+    slept = sleeper.sleep(1)
+    if eng._inflight is not None:
+        raise AssertionError("the sleep left a chunk in flight")
+    sleeper.wake_up()
+    done = []
+    while eng.has_work():
+        done.extend(eng.step())
+    if not done or done[0].out_tokens != gold:
+        raise AssertionError("the stream slept with a chunk in flight lost or changed tokens")
+
+    def mean(key, on):
+        vals = [r[key] for k, r in runs.items() if k.startswith("on") == on]
+        return sum(vals) / len(vals)
+
+    out = {
+        "phase": "pipeline", "model": "llama3-8b", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "runs": runs, "tokens_bit_equal": True, "sleep_in_flight": {"bytes_offloaded": slept["bytes_offloaded"],
+                                                                   "tokens_equal_alone": True},
+        "tpot_s": {"on": mean("tpot_s_mean", True), "off": mean("tpot_s_mean", False)},
+        "chunk_gap_ms_median": {"on": mean("chunk_gap_ms_median", True), "off": mean("chunk_gap_ms_median", False)},
+        "seconds": time.monotonic() - t_phase,
+    }
+    emit(out)
+    del eng, sleeper
+    return out
+
+
 def check_build_probe(torch) -> dict:
     """The probe kernel against its plain version, and its numbers."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build
@@ -5245,6 +5779,8 @@ def main() -> int:
         emit({"phase": "kernel", **k, "nvidia_smi": smi})
     emit({"phase": "kernel_check", **check_ragged_masked(torch, gen), "nvidia_smi": smi})
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
+    w8 = check_w8a16(torch, gen)
+    emit({"phase": "kernel_check", "kernel": "w8a16", "checks": w8, "nvidia_smi": smi})
     # first of the model phases; its profiled replay runs again at the end
     # (profile_again), after every other profiler window
     graphs_phase(torch, smi)
@@ -5260,6 +5796,7 @@ def main() -> int:
         swapped = swap_phase(torch, smi, ckpt, bucketed)
         launched = launcher_phase(torch, smi, bucketed, swapped)
         quant = quant_phase(torch, smi, ckpt, bucketed, swapped)
+        int8 = serve_int8(torch, smi, bucketed, swapped)
         zero_drain = zero_drain_phase(torch, smi, ckpt, swapped)
         migrated = migrate_phase(torch, smi, ckpt)
         coresident = coresident_phase(torch, smi, ckpt, swapped)
@@ -5269,6 +5806,8 @@ def main() -> int:
         for suffix in ("-sibling", "-sibling2"):
             shutil.rmtree(ckpt.rstrip("/") + suffix, ignore_errors=True)
     dual = dualpods_phase(torch, smi, bucketed, launched)
+    speculative_phase(torch, smi)
+    pipeline_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)
@@ -5277,7 +5816,7 @@ def main() -> int:
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
     profile_again(torch, smi)
-    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"],
+    runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], int8["counts"],
             zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], *dual["counts"],
             packed["counts"],
             tp2["counts"], reference["counts"])
@@ -5309,6 +5848,9 @@ def main() -> int:
     for k in rag_sharded:
         if k["devices"] == ["cuda:0"] * 2 and sharded_by_rows.get(k["rows"]):
             kernels.append(dict(k, launches=sharded_by_rows[k["rows"]]))
+    for k in w8:  # one entry per product shape, at a decode step's 8 rows
+        if k["rows"] == 8:
+            kernels.append(dict(k, launches=int8["by_shape"][f"{k['in']}x{k['out']}"]))
     kernels.append(dict(probe, launches=total("probe")))
     unused = [k["name"] for k in kernels if not k["launches"] > 0]
     if unused or not by_rows or not sharded_by_rows:

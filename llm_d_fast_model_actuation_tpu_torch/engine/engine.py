@@ -70,11 +70,30 @@ chunk slot inactive), merges the logits row by row and samples once.
 Those steps run eagerly; base-only traffic keeps the plain step and the
 captured chunk graphs.
 
-Not ported yet, and refused rather than ignored (they are not fields of
-the port's ``EngineConfig``): speculative decoding, pipelined decode and
-multi-host lockstep.
-CUDA graphs for the prefill buckets and the packed step, and for the
-chunk on a mesh (a graph belongs to one device), are later work.
+N-gram speculative decoding (``speculative_ngram``,
+:meth:`InferenceEngine._spec_round`): with one greedy, unpenalized
+base-model stream in flight and nothing waiting, up to ``K`` tokens are
+proposed by prompt lookup and verified in one ``prefill_continue``
+forward, run eagerly, never while a chunk is in flight.
+
+Pipelined decode (``pipeline_decode``): chunk k+1 is dispatched before
+chunk k is read, so the host's read and emit overlap the card's next
+chunk. A replayed chunk returns its graph's static outputs, which the next
+replay overwrites: so each dispatched chunk's outputs are copied at once,
+on the same stream, into pinned host memory, and the drain waits on that
+copy's event alone (:meth:`InferenceEngine._stage_outputs`). A request
+finished by the host (a stop sequence, an abort) is retired only once the
+chunk that may still write its pages has drained.
+
+Weight-only int8 (``model.quantization == "int8"``, ``models/quant.py``):
+the model's layer stacks and ``lm_head`` are int8 with their scales, and
+every decode-sized product runs the W8A16 kernel, inside the captured
+chunk graphs too.
+
+Not ported yet, and refused rather than ignored: multi-host lockstep.
+CUDA graphs for the prefill buckets, the speculative verify and the packed
+step, and for the chunk on a mesh (a graph belongs to one device), are
+later work.
 
 The build (:meth:`InferenceEngine._build`): every arena is mapped, the
 weights are written, then the chunk's graphs are captured and any
@@ -138,6 +157,19 @@ class EngineConfig:
     #: row capacity of the packed buffer; 0 = auto (256, floored so every
     #: slot can decode and one prefill block always fits)
     token_budget: int = 0
+    #: n-gram (prompt-lookup) speculative decoding: propose up to this many
+    #: tokens from the context's most recent n-gram and verify them in ONE
+    #: forward over the paged cache. Every emitted token is the verify
+    #: forward's own greedy argmax, so quality equals greedy decoding;
+    #: bitwise equality with the chunk is NOT guaranteed at argmax ties
+    #: (the two forwards round in different orders, the standard caveat).
+    #: Engages for one greedy base-model stream only; 0 = off.
+    speculative_ngram: int = 0
+    #: double-buffered decode: dispatch chunk k+1 before reading chunk k's
+    #: results, overlapping the card's compute with the host's read and
+    #: emit; token delivery lags one chunk. Incompatible with
+    #: ``packed_serving``. Off by default.
+    pipeline_decode: bool = False
 
     @property
     def seq_len(self) -> int:
@@ -327,6 +359,21 @@ def _stream_seed(engine_seed: int, seq_id: int) -> int:
     return int.from_bytes(h[:8], "little") & ((1 << 63) - 1)
 
 
+@dataclass
+class _Chunk:
+    """A dispatched decode chunk: its [T, b] tokens and logprobs, top-k
+    alternatives or None (device tensors, or under pipelined decode their
+    copies), the event its copies' completion records (None: read the
+    tensors directly), the requests it runs by slot, and its T."""
+
+    toks: Any
+    lps: Any
+    alts: Any
+    ready: Any = None
+    running: Dict[int, "Request"] = field(default_factory=dict)
+    T: int = 1
+
+
 class EngineAsleep(RuntimeError):
     """The engine's device state is offloaded; wake_up() before serving."""
 
@@ -375,6 +422,12 @@ class InferenceEngine:
         self._extra_devices = len(mesh.distinct_devices()) - 1 if mesh is not None else 0
         if cfg.token_budget < 0:
             raise ValueError("token_budget must be >= 0, or 0 for auto")
+        if cfg.speculative_ngram < 0:
+            raise ValueError("speculative_ngram must be >= 0")
+        if cfg.packed_serving and cfg.pipeline_decode:
+            # a packed step would race the in-flight chunk for the same slots
+            raise ValueError("packed_serving is incompatible with pipeline_decode")
+        llama.quantized_names(cfg.model)  # an unknown quantization raises here
         self.cfg = cfg
         # the engine's attention_impl overrides the model's (per engine,
         # as in the reference)
@@ -510,6 +563,20 @@ class InferenceEngine:
         #: decode steps those twins ran, and their forwards (T per pass)
         self.variant_chunk_steps = 0
         self.variant_decode_forwards = 0
+        #: speculative decoding: tokens proposed and accepted, verify
+        #: forwards run, and the hysteresis of fully rejected rounds
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rounds = 0
+        self._spec_miss_streak = 0
+        self._spec_cooldown = 0
+        #: pipelined decode: the dispatched but unread chunk, the requests
+        #: whose retire waits for it (:meth:`_defer_retire`), and those
+        #: finished outside a step (:meth:`drain_inflight`), handed to the
+        #: next step
+        self._inflight: Optional[_Chunk] = None
+        self._pending_retire: List[Request] = []
+        self._orphan_finished: List[Request] = []
         #: the loader the weights came from, when they came from one
         self._load: Optional[Callable[[Any], Any]] = (
             params if callable(params) and not isinstance(params, torch.nn.Module) else None
@@ -710,6 +777,9 @@ class InferenceEngine:
             raise ValueError("co-resident variants require packed serving: the bucketed path runs the base")
         if self.mesh is not None:
             raise ValueError("co-resident variants on a tensor-parallel mesh are not ported yet (ROADMAP queue 1 item 14)")
+        if self.cfg.model.quantization:
+            raise ValueError("co-resident variants are incompatible with quantization: variant deltas are matched "
+                             "against full-precision leaf digests")
         if self.asleep:
             raise EngineAsleep("engine state is offloaded (sleeping)")
         if not delta:
@@ -1186,6 +1256,130 @@ class InferenceEngine:
         req.slot = -1
         self._dirty = True
 
+    # -- speculative (n-gram, prompt-lookup) decoding -------------------------
+
+    def _spec_candidate(self) -> Optional[Request]:
+        """The one request a verify round may run for: speculation engages
+        only where it is exact and simple, exactly one greedy, unpenalized,
+        unbiased base-model sequence decoding and nothing waiting."""
+        if self.cfg.speculative_ngram <= 0 or self._waiting:
+            return None
+        # a mid-prefill slot (packed serving) has no sampled token yet
+        active = [r for r in self._slots if r is not None and not r.done and not r.prefilling]
+        if len(active) != 1:
+            return None
+        r = active[0]
+        # at temperature 0 sampling is the argmax whatever top_p says, but
+        # penalties and a bias move it, and the verify forward applies none
+        if r.temperature != 0.0 or r.presence_penalty != 0.0 or r.frequency_penalty != 0.0 or r.logit_bias:
+            return None
+        if r.variant != 0:
+            # the verify forward runs the base's weights
+            return None
+        return r
+
+    def _propose_ngram(self, req: Request, k: int) -> List[int]:
+        """Prompt lookup: the tokens that followed the most recent earlier
+        occurrence of the context's trailing 3-gram, else 2-gram, at most
+        ``k``, over a window of the last ``1024 + k`` tokens."""
+        lookback = 1024 + k
+        out = req.out_tokens
+        ctx = out[-lookback:] if len(out) >= lookback else req.prompt[-(lookback - len(out)):] + out
+        for m in (3, 2):
+            if len(ctx) <= m:
+                continue
+            tail = ctx[-m:]
+            for i in range(len(ctx) - m - 1, -1, -1):
+                if ctx[i : i + m] == tail:
+                    props = ctx[i + m : i + m + k]
+                    if props:
+                        return props
+        return []
+
+    @torch.no_grad()
+    def _verify(self, tokens: np.ndarray, start: np.ndarray, window_len: np.ndarray, table: np.ndarray):
+        """The verify forward: the window through ``prefill_continue``,
+        then at every window position the greedy token, its log-probability
+        and the top-k alternatives (host arrays)."""
+        logits = llama.prefill_continue(
+            self.model, self._to_ranks(tokens), self._to_ranks(start), self._to_ranks(window_len),
+            self.pool.as_tuple(), self._to_ranks(table),
+        )[0]
+        norm = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+        toks = logits.argmax(dim=-1)
+        lps = norm.gather(-1, toks[:, None])[:, 0]
+        if self.cfg.logprobs_topk > 0:
+            avs, ais = torch.topk(norm, self.cfg.logprobs_topk, dim=-1)
+        else:
+            avs = norm.new_zeros((norm.shape[0], 0))
+            ais = toks.new_zeros((norm.shape[0], 0))
+        return toks.cpu().numpy(), lps.cpu().numpy(), avs.cpu().numpy(), ais.cpu().numpy()
+
+    def _spec_round(self, req: Request) -> bool:
+        """One verify round; False to fall back to the chunk. The window
+        ``[t0, q1..qk]`` runs through :meth:`_verify`: ``o[i]`` is the greedy
+        token after ``window[:i+1]``. ``q[i+1]`` is accepted while ``o[i]``
+        equals it; the first mismatch emits ``o[i]`` instead, and a window
+        accepted whole emits ``o[k]`` as a bonus: up to k + 1 tokens per
+        forward. The rejected tokens' KV lies beyond the request's position,
+        where no attention looks, and is overwritten as decoding reaches it.
+        After four fully rejected rounds in a row the chunk path runs for
+        32 rounds."""
+        k = min(self.cfg.speculative_ngram, req.max_new_tokens - len(req.out_tokens), self.cfg.seq_len - req.pos - 1)
+        if k <= 0:
+            return False
+        if self._spec_cooldown > 0:
+            self._spec_cooldown -= 1
+            return False
+        props = self._propose_ngram(req, k)
+        if not props:
+            return False
+        window = [int(self._last_tokens[req.slot])] + list(props)
+        tokens = np.zeros((1, self._prefill_bucket(len(window))), dtype=np.int32)
+        tokens[0, : len(window)] = window
+        start = np.array([req.pos], dtype=np.int32)
+        window_len = np.array([len(window)], dtype=np.int32)
+        table = self._page_table[req.slot : req.slot + 1]
+        self.step_h2d_bytes["bucketed"] += tokens.nbytes + start.nbytes + window_len.nbytes + table.nbytes
+        o, o_lp, o_av, o_ai = self._verify(tokens, start, window_len, table)
+        self.spec_rounds += 1
+        self.spec_proposed += len(props)
+
+        def alts(i):
+            if not req.want_top_logprobs:
+                return None
+            return [(int(o_ai[i, j]), float(o_av[i, j])) for j in range(o_av.shape[1])]
+
+        accepted = 0
+        emitted: List[Tuple[int, float, Optional[list]]] = []
+        for i, q in enumerate(props):
+            if int(o[i]) != q:
+                emitted.append((int(o[i]), float(o_lp[i]), alts(i)))  # the corrected token
+                break
+            accepted += 1
+            emitted.append((q, float(o_lp[i]), alts(i)))
+        else:
+            i = len(props)
+            emitted.append((int(o[i]), float(o_lp[i]), alts(i)))  # the bonus token
+        self.spec_accepted += accepted
+        if accepted == 0:
+            self._spec_miss_streak += 1
+            if self._spec_miss_streak >= 4:
+                self._spec_cooldown = 32
+                self._spec_miss_streak = 0
+        else:
+            self._spec_miss_streak = 0
+        for t, lp, alt in emitted:
+            req.pos += 1
+            self._positions[req.slot] = req.pos
+            self._last_tokens[req.slot] = t
+            self._budgets[req.slot] = max(0, req.max_new_tokens - len(req.out_tokens) - 1)
+            self._emit(req, t, lp, alt)
+            if req.done:
+                break
+        self._dirty = True  # the device scheduler state is stale
+        return True
+
     # -- the engine loop body ----------------------------------------------
 
     def step(self) -> List[Request]:
@@ -1198,7 +1392,8 @@ class InferenceEngine:
         if self.kv_detached:
             raise RuntimeError("the KV pool is detached by a park; rebuild_kv_pool() before serving")
         self.last_step_stats = None
-        finished: List[Request] = []
+        finished: List[Request] = list(self._orphan_finished)
+        self._orphan_finished.clear()
         if self.cfg.packed_serving:
             # prompts stream into one mixed forward beside a decode row
             # per running sequence, then the step falls through to the
@@ -1215,9 +1410,48 @@ class InferenceEngine:
                 if req.done:
                     self._retire(req)
                     finished.append(req)
+        # speculation never overlaps an in-flight chunk: a verify forward
+        # would race the chunk's decode of the same slot
+        spec_req = self._spec_candidate() if self._inflight is None else None
+        if spec_req is not None and self._spec_round(spec_req):
+            if spec_req.done:
+                self._retire(spec_req)
+                finished.append(spec_req)
+            return finished
+        if not self.cfg.pipeline_decode:
+            running = self._running()
+            if running:
+                finished.extend(self._drain_chunk(self._dispatch_chunk(running)))
+            return finished
+        # Pipelined decode: chunk k+1 is dispatched BEFORE chunk k is read.
+        # A chunk dispatched after a request's finish became known never
+        # writes its slot (a host finish freezes the budget mirror and marks
+        # the state dirty, and a dirty state drains before it uploads), so a
+        # finished request's pages may be written only by the ONE chunk
+        # already in flight: its retire waits until that chunk drains.
+        if self._inflight is not None:
+            running = self._running()
+            nxt = None
+            if running and not self._dirty and not self._waiting:
+                # the end-of-batch tail: when every running request's budget
+                # fits in the chunk in flight, it finishes them all, and a
+                # chunk k+1 would run wholly frozen: skip it
+                if any(r.max_new_tokens - len(r.out_tokens) > self._inflight.T for r in running.values()):
+                    nxt = self._dispatch_chunk(running)
+            inflight, self._inflight = self._inflight, None
+            ready, self._pending_retire = self._pending_retire, []
+            finished.extend(self._drain_chunk(inflight, defer_retire=True))
+            for r in ready:  # the chunk that could still write these slots has drained
+                self._retire(r)
+            self._inflight = nxt
+            if nxt is None:
+                for r in self._pending_retire:
+                    self._retire(r)
+                self._pending_retire = []
+            return finished
         running = self._running()
         if running:
-            finished.extend(self._drain_chunk(self._dispatch_chunk(running)))
+            self._inflight = self._dispatch_chunk(running)
         return finished
 
     def _running(self) -> Dict[int, Request]:
@@ -1527,11 +1761,36 @@ class InferenceEngine:
             passes = (self._passes(slot_pass, live), self._to_dev(slot_pass))
             self.variant_chunk_steps += T
             self.variant_decode_forwards += T * len(passes[0])
-            toks, lps, alts = self.chunk_eager(T, bool(sampled), passes)
-            return toks, lps, alts, running, T
-        run = self.chunk_eager if self.graphs is None else self.graphs.replay
-        toks, lps, alts = run(T, bool(sampled))
-        return toks, lps, alts, running, T
+            out = self.chunk_eager(T, bool(sampled), passes)
+        else:
+            run = self.chunk_eager if self.graphs is None else self.graphs.replay
+            out = run(T, bool(sampled))
+        if self.cfg.pipeline_decode:
+            return _Chunk(*self._stage_outputs(*out), running=running, T=T)
+        return _Chunk(*out, running=running, T=T)
+
+    def _stage_outputs(self, toks, lps, alts) -> tuple:
+        """A pipelined chunk's outputs, copied out at its dispatch: a
+        replayed chunk returns its graph's static output tensors, which
+        the next replay (chunk k+1, dispatched before this one is read)
+        overwrites. On the card they are copied on the same stream into
+        pinned host memory, and an event recorded after the copies is
+        what the drain waits for (not the chunk after it); on the CPU
+        they are cloned. The noise buffer needs no such copy: the host
+        fills it for chunk k+1 with ops queued on the same stream, after
+        chunk k's reads of it. Returns (toks, lps, alts, ready event or
+        None)."""
+        outs = [toks, lps] + ([] if alts is None else list(alts))
+        if toks.device.type != "cuda":
+            got = [t.clone() for t in outs]
+            ready = None
+        else:
+            got = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+            for h, t in zip(got, outs):
+                h.copy_(t, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(toks.device))
+        return got[0], got[1], (None if alts is None else (got[2], got[3])), ready
 
     @torch.no_grad()
     def chunk_eager(self, T: int, sampled: bool, passes=None) -> tuple:
@@ -1597,18 +1856,25 @@ class InferenceEngine:
         alts = (torch.stack(avs), torch.stack(ais)) if alt_k > 0 else None
         return torch.stack(toks), torch.stack(lps), alts
 
-    def _drain_chunk(self, inflight) -> List[Request]:
+    def _drain_chunk(self, inflight: "_Chunk", defer_retire: bool = False) -> List[Request]:
         """Read one chunk's [T, b] results back (the one host sync per
-        chunk) and emit its tokens."""
-        toks_dev, lps_dev, alts_dev, running, T = inflight
-        toks = toks_dev.cpu().numpy()
-        lps = lps_dev.cpu().numpy()
+        chunk) and emit its tokens. ``defer_retire`` (pipelined): a request
+        it finishes is retired only after the next chunk, already in flight,
+        has drained (:meth:`_defer_retire`)."""
+        if inflight.ready is not None:
+            inflight.ready.synchronize()  # this chunk's copies, not the chunk after it
+        running, T = inflight.running, inflight.T
+        toks = inflight.toks.cpu().numpy()
+        lps = inflight.lps.cpu().numpy()
+        alts_dev = inflight.alts
         if alts_dev is not None and any(r.want_top_logprobs for r in running.values()):
             avs, ais = alts_dev[0].cpu().numpy(), alts_dev[1].cpu().numpy()
         else:
             avs = ais = None
         finished: List[Request] = []
-        running = dict(running)
+        # aborted between dispatch and drain: its tokens are frozen repeats,
+        # and the abort handled its retire
+        running = {slot: r for slot, r in running.items() if not r.done}
         for t in range(T):
             for slot, req in list(running.items()):
                 tok = int(toks[t, slot])
@@ -1623,13 +1889,38 @@ class InferenceEngine:
                 # stale budget would un-freeze finished slots on device
                 self._budgets[slot] = req.max_new_tokens - len(req.out_tokens)
                 if req.done:
-                    self._retire(req)
+                    if defer_retire:
+                        self._defer_retire(req)
+                    else:
+                        self._retire(req)
                     finished.append(req)
                     del running[slot]
         return finished
 
+    def _defer_retire(self, req: Request) -> None:
+        """A finished request whose pages a chunk still in flight may yet
+        write: its slot frozen at the next upload, its pages freed (and its
+        prompt registered) only once that chunk has drained."""
+        self._budgets[req.slot] = 0
+        self._dirty = True
+        self._pending_retire.append(req)
+
+    def drain_inflight(self) -> None:
+        """Read a dispatched but unread chunk and retire what waited for it:
+        before a sleep, a park or a migration's export, whose state would
+        otherwise lose the chunk's tokens. The requests it finishes go to
+        the next :meth:`step`, so one consumer (the service loop) resolves
+        them."""
+        if self._inflight is not None:
+            inflight, self._inflight = self._inflight, None
+            self._orphan_finished.extend(self._drain_chunk(inflight))
+        for r in self._pending_retire:
+            self._retire(r)
+        self._pending_retire = []
+
     def has_work(self) -> bool:
-        return bool(self._waiting) or any(s is not None for s in self._slots)
+        return (bool(self._waiting) or any(s is not None for s in self._slots)
+                or self._inflight is not None or bool(self._orphan_finished))
 
     def abort(self, seq_id: int, reason: str = "aborted") -> bool:
         """Abort one request: waiting requests are dropped, running ones
@@ -1642,7 +1933,15 @@ class InferenceEngine:
                 return True
         for req in self._slots:
             if req is not None and req.seq_id == seq_id:
-                self._retire(req)
+                if req.done:
+                    # finished on its own, its retire deferred (pipelined):
+                    # the finish stands, and a second retire would free its
+                    # pages twice
+                    return False
+                if self._inflight is not None:
+                    self._defer_retire(req)  # the chunk in flight may still write its pages
+                else:
+                    self._retire(req)
                 req.done = True
                 req.error = reason
                 return True
@@ -1652,6 +1951,10 @@ class InferenceEngine:
         """Fail every waiting and running request and reset the scheduler
         (slots, page tables, allocator, prefix cache) — used when a
         level-2 sleep discarded the KV cache."""
+        # a dispatched chunk's results no longer matter; requests whose
+        # retire was deferred still hold their slots and retire below
+        self._inflight = None
+        self._pending_retire = []
         aborted = list(self._waiting)
         self._waiting.clear()
         for req in list(self._slots):
@@ -1705,11 +2008,11 @@ class InferenceEngine:
 
         The page-out (fault point ``kvsave.d2h``) runs before any
         scheduler state is touched, so a failed page-out raises with the
-        engine still serving and the caller takes the abort path. A decode
-        chunk is never in flight between steps here (each step reads its
-        chunk back), so the emitted tokens and the generators' states
-        agree. Returns ``(bundle, finished)``; ``finished`` is always
-        empty (the reference's pipelined drain may finish requests).
+        engine still serving and the caller takes the abort path. A chunk
+        in flight (pipelined decode) is read first (:meth:`drain_inflight`),
+        so the emitted tokens and the generators' states agree. Returns
+        ``(bundle, finished)``: ``finished`` are the requests that drain
+        finished (never parked; the caller resolves them).
 
         Requests mid-prefill (packed serving) go back to the waiting
         queue without KV: a prefill is a function of the prompt and draws
@@ -1719,6 +2022,7 @@ class InferenceEngine:
 
         if self.mesh is not None:
             raise ValueError("zero-drain parking on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
+        self.drain_inflight()
         live_reqs = [r for r in self._slots if r is not None and not r.done and not r.prefilling]
         demote = [r for r in self._slots if r is not None and not r.done and r.prefilling]
         page_ids = self.parked_page_ids()
@@ -1780,7 +2084,8 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)  # nothing queued may still read the pool
         self.arenas[self.device].unmap(self.pool.tensors())
         self.kv_detached = True
-        return bundle, []
+        finished, self._orphan_finished = self._orphan_finished, []
+        return bundle, finished
 
     def rebuild_kv_pool(self) -> None:
         """An empty pool after a park released it: its memory mapped again

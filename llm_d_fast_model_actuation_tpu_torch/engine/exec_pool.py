@@ -68,13 +68,14 @@ def parse_warmup_buckets(spec: str) -> Tuple[int, ...]:
 # -- identity -----------------------------------------------------------------
 
 
-def exec_key(owner: str, program: str, bucket: int) -> str:
+def exec_key(owner: str, program: str, bucket: int, quantization: str = "") -> str:
     """The pool's key for ``program`` at ``bucket`` of the engine pooled
-    under ``owner``, its model-pool key: a graph holds that engine's
-    arenas' addresses, and no other engine may replay it. (The
+    under ``owner``, its model-pool key, and the weights' ``quantization``
+    (a W8A16 graph runs other kernels than a bf16 one): a graph holds that
+    engine's arenas' addresses, and no other engine may replay it. (The
     reference's ``exec_signature``, a hash of the engine config, has no
     use here: no two engines share a graph.)"""
-    return f"{owner}/{program}@{int(bucket)}"
+    return f"{owner}/{program}@{int(bucket)}" + (f"/{quantization}" if quantization else "")
 
 
 def warmup_plan(engine, buckets) -> List[Tuple[str, int]]:

@@ -4,9 +4,8 @@ The port of the catalog at the top of the JAX package's
 ``engine/server.py``: the same names, help text, labels and buckets, on
 the port's hand-written kinds (``utils/prom.py``). ``engine/server.py``
 updates them and serves them at ``GET /metrics``. A family whose feature
-the port does not have yet is not registered: ``fma_engine_spec_proposed_tokens``
-and ``fma_engine_spec_accepted_tokens`` (speculative decoding, ROADMAP
-queue 1 item 13).
+the port does not have yet would not be registered and would be named in
+:data:`UNPORTED_FAMILIES`; none is left.
 
 Every update is host-side (counters the engine keeps, stamps on the
 host), so a scrape never reads the device.
@@ -17,10 +16,7 @@ from __future__ import annotations
 from ..utils.prom import Counter, Gauge, Histogram
 
 #: families left out until their feature is ported, by ROADMAP item
-UNPORTED_FAMILIES = {
-    "fma_engine_spec_proposed_tokens": 13,
-    "fma_engine_spec_accepted_tokens": 13,
-}
+UNPORTED_FAMILIES: dict = {}
 
 #: Scheduling pressure: waiting + in-flight requests. The HPA's per-pod
 #: scaling signal (deploy/hpa/hpa.yaml); labeled by model because two
@@ -101,6 +97,16 @@ ENGINE_KV_USAGE = Gauge(
 ENGINE_PREFIX_HIT_TOKENS = Gauge(
     "fma_engine_prefix_cache_hit_tokens",
     "Prompt tokens served from the prefix cache instead of prefill",
+    ["model"],
+)
+ENGINE_SPEC_PROPOSED = Gauge(
+    "fma_engine_spec_proposed_tokens",
+    "Tokens proposed by n-gram speculative decoding",
+    ["model"],
+)
+ENGINE_SPEC_ACCEPTED = Gauge(
+    "fma_engine_spec_accepted_tokens",
+    "Proposed tokens accepted by the verify forward",
     ["model"],
 )
 

@@ -21,7 +21,14 @@ with the reference's flag names for the flags it keeps, among them
 ``--packed-serving on|off``, ``--token-budget``, ``--attention-impl``,
 ``--prefix-caching``, ``--decode-chunk``, ``--drain-tail`` (``single``:
 ``chunk`` is refused), ``--max-prefill-tokens``, ``--logprobs-topk``,
-``--arrival-ewma-tau-s``,
+``--arrival-ewma-tau-s``, ``--quantization int8`` (weight-only W8A16: the
+layer stacks and ``lm_head`` held as int8 with a scale per output
+channel, decode's products through the hand-written W8A16 kernel; content
+hashing is off with it, and a swap, a prefetch and ``/v1/costs`` build or
+price the incoming model quantized), ``--speculative-ngram K`` (n-gram
+prompt-lookup speculation on a lone greedy stream, its counters in
+``/v1/stats.engine`` and ``/metrics``), ``--pipeline-decode on`` (chunk
+k+1 dispatched before chunk k is read),
 ``--tensor-parallel-size N`` (one process drives the ``N`` ranks; with it
 ``--device`` takes a comma-separated list of ``N`` devices, which may name
 one device more than once, and a single ``cuda`` means the first ``N``
@@ -46,11 +53,13 @@ the packed path), ``n``, ``seed``, ``ignore_eos``, ``logit_bias`` and
 request's ``model`` routes it: the serving model (or none) is the base, an
 attached co-resident variant is that variant, and any other name is a 400
 that names the live set. Not ported yet and absent from the options: the
-reference's other engine flags (``--pipeline-decode``,
-``--speculative-ngram``, ``--quantization``, ``--checkpoint-dir``,
+reference's other engine flags (``--checkpoint-dir``,
 ``--sleep-release-devices``, multi-host gangs:
 ``tests/test_torch_flags.py`` lists them), also where the reference
-combines them with tensor parallelism.
+combines them with tensor parallelism. The reference's refusals of the
+pairs that do not compose are the port's: ``--packed-serving on`` with
+``--pipeline-decode on``, and ``--quantization`` with ``--resident-variants``
+above 1 or with ``--sleep-quant``.
 
 **Co-resident sibling variants** (``--resident-variants N`` with
 ``--packed-serving on`` and ``--content-hash on``; ``--variant-hbm-mib``
@@ -317,6 +326,20 @@ def make_arg_parser() -> argparse.ArgumentParser:
         "the others inline (auto = grouped); the kernels follow the device",
     )
     p.add_argument(
+        "--quantization", default="", choices=["", "int8"],
+        help="weight-only quantization (int8 = W8A16 per-output-channel; halves decode's HBM weight reads)",
+    )
+    p.add_argument(
+        "--pipeline-decode", choices=["on", "off"], default="off",
+        help="double-buffer decode chunks: dispatch chunk k+1 before reading chunk k (overlaps the card's "
+        "compute with the host's read and emit; token delivery lags one chunk)",
+    )
+    p.add_argument(
+        "--speculative-ngram", type=int, default=0,
+        help="n-gram (prompt-lookup) speculative decoding: verify up to N proposed tokens per forward on the "
+        "single-sequence greedy path; 0 = off",
+    )
+    p.add_argument(
         "--packed-serving", choices=["on", "off"], default="off",
         help="token-packed mixed-batch serving: whenever prompt work is "
         "pending, one forward over a flat [token-budget] buffer packs "
@@ -516,6 +539,11 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError("--decode-chunk must be >= 1, or 0 for auto")
     if args.max_prefill_tokens < 0:
         raise ValueError("--max-prefill-tokens must be >= 0")
+    if args.speculative_ngram < 0:
+        raise ValueError("--speculative-ngram must be >= 0")
+    if args.packed_serving == "on" and args.pipeline_decode == "on":
+        raise ValueError("--packed-serving is incompatible with --pipeline-decode (a packed step would race the "
+                         "in-flight chunk)")
     if args.drain_tail == "chunk":
         raise ValueError("--drain-tail chunk (one full chunk with its surplus steps frozen) is not ported; "
                          "the port's drain tail is single")
@@ -530,6 +558,9 @@ def check_engine_options(args: argparse.Namespace) -> None:
             raise ValueError(
                 "--resident-variants > 1 requires --packed-serving on: per-request variant routing lives "
                 "inside the packed mixed-batch step (the bucketed path always runs the base)")
+        if args.quantization:
+            raise ValueError("--resident-variants > 1 is incompatible with --quantization (variant deltas are "
+                             "content-matched against full-precision leaf digests)")
         if args.content_hash != "on":
             raise ValueError("--resident-variants > 1 requires --content-hash on: the shared-base/delta "
                              "split is the digest diff")
@@ -566,6 +597,9 @@ def check_engine_options(args: argparse.Namespace) -> None:
         reason = transfer_quant.transfer_quant_supported(args.sleep_quant)
         if reason:
             raise ValueError(f"--sleep-quant {args.sleep_quant}: {reason}")
+        if args.quantization:
+            raise ValueError("--sleep-quant composes with full-precision serving only: a --quantization int8 "
+                             "engine already holds (and moves) int8 weights")
         if args.tensor_parallel_size > 1:
             raise ValueError(
                 "--sleep-quant on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)"
@@ -598,6 +632,14 @@ def mesh_from_options(args: argparse.Namespace):
     return serving_mesh(tp, devices)
 
 
+def quantized_config(args: argparse.Namespace, model_cfg):
+    """``model_cfg`` at the engine's ``--quantization``: every model an
+    engine builds, swaps to or prices is held quantized when it is."""
+    if args.quantization and model_cfg.quantization != args.quantization:
+        return dataclasses.replace(model_cfg, quantization=args.quantization)
+    return model_cfg
+
+
 def resolve_model(args: argparse.Namespace, model_id: str):
     """(model config, eos id, extra eos ids, hf directory or "",
     tokenizer) for ``model_id``, as the reference's ``_resolve_model``:
@@ -618,6 +660,7 @@ def resolve_model(args: argparse.Namespace, model_id: str):
                 eos, extra = ids[0], tuple(ids[1:])
     else:
         model_cfg = MODEL_CONFIGS[model_id]()
+    model_cfg = quantized_config(args, model_cfg)
     tok_path = args.tokenizer or (hf_dir if hf_dir and tokenizer_mod.has_tokenizer_files(hf_dir) else "")
     tok = tokenizer_mod.load_tokenizer(tok_path)
     if eos < 0 and hf_dir:
@@ -722,7 +765,7 @@ class EngineService:
             faults.arm_spec(args.faults)
         #: content-addressed weights: digests at load, the pool's dedup and
         #: the delta swap (off on a mesh, where swap is not ported)
-        self._content_hash = args.content_hash == "on" and args.tensor_parallel_size == 1
+        self._content_hash = args.content_hash == "on" and args.tensor_parallel_size == 1 and not args.quantization
         self._swap_bucket_bytes = args.swap_bucket_mib << 20
         #: compressed actuation (--sleep-quant): "off", "int8" or "fp8"
         self._sleep_quant = args.sleep_quant
@@ -891,6 +934,8 @@ class EngineService:
             prefix_caching=args.prefix_caching == "on",
             max_prefill_tokens=args.max_prefill_tokens,
             logprobs_topk=max(0, args.logprobs_topk),
+            speculative_ngram=args.speculative_ngram,
+            pipeline_decode=args.pipeline_decode == "on",
         )
         rt = _ModelRuntime(model_id=model_id, cfg=cfg, tokenizer=tok, hf_dir=hf_dir)
         content_hash = self._content_hash
@@ -1445,10 +1490,12 @@ class EngineService:
         eng = self.engine
         t0 = time.monotonic()
         try:
-            bundle, _ = eng.park_requests(bucket_bytes=self._swap_bucket_bytes)
+            bundle, finished = eng.park_requests(bucket_bytes=self._swap_bucket_bytes)
         except Exception:  # noqa: BLE001 — the abort path takes over
             traceback.print_exc()
             return None
+        for req in finished:  # the pipelined drain finished these: never parked
+            self._resolve(req)
         t1 = time.monotonic()
         for r in [pr.req for pr in bundle.live] + list(bundle.waiting):
             fut = self._futures.pop(r.seq_id, None)
@@ -2953,7 +3000,7 @@ class EngineService:
     def _exec_key(self, key: str, runtime: _ModelRuntime) -> str:
         """The exec pool's key for the graphs of the runtime pooled under
         ``key``."""
-        return exec_key(key, "chunk", runtime.engine.cfg.decode_chunk)
+        return exec_key(key, "chunk", runtime.engine.cfg.decode_chunk, runtime.engine.cfg.model.quantization)
 
     def _pool_park(self, key: str, runtime: "_ModelRuntime | PrefetchedWeights", nbytes: int) -> list:
         """Pool a slept runtime, or a prefetch's staged weights, under
@@ -3102,8 +3149,10 @@ class EngineService:
                                           "bytes": nbytes, "source": "tier", "tier": tier,
                                           "pool": self.model_pool.describe()}
                     return dict(self.last_prefetch, started=False)
+        # the staging is unquantized (a --quantization engine quantizes it
+        # on the card at the swap); a quantized staging holds its payload
+        # bytes: admit it as such
         model_cfg = hf_models.config_from_hf(hf_dir)
-        # a quantized staging holds its payload bytes: admit it as such
         est = hf_models.estimate_param_bytes(
             model_cfg, transfer_quant=self._sleep_quant, hot_head=self._sleep_quant_hot_head
         )
@@ -3258,10 +3307,10 @@ class EngineService:
         """``model_id``'s config without loading its tokenizer: a
         ``config.json`` read for ``hf:``, the factory for a named one."""
         if model_id.startswith("hf:"):
-            return hf_models.config_from_hf(model_id[3:])
+            return hf_models.config_from_hf(model_id[3:], quantization=self.args.quantization)
         if model_id not in MODEL_CONFIGS:
             raise ValueError(f"unknown model {model_id!r}")
-        return MODEL_CONFIGS[model_id]()
+        return quantized_config(self.args, MODEL_CONFIGS[model_id]())
 
     def _kv_pool_nbytes(self, model_cfg) -> int:
         """The page pool a build for ``model_cfg`` creates (part of a cold
@@ -3569,6 +3618,11 @@ class EngineService:
                     "variant_chunk_steps": eng.variant_chunk_steps,
                     "variant_decode_forwards": eng.variant_decode_forwards,
                     "graph_captures": eng.graph_captures,
+                    # n-gram speculation (the reference's counters), and
+                    # the port's count of verify forwards
+                    "spec_proposed": eng.spec_proposed,
+                    "spec_accepted": eng.spec_accepted,
+                    "spec_rounds": eng.spec_rounds,
                 },
                 "aborted": dict(self._aborted),
                 "actuations": dict(self._actuations),
@@ -3631,6 +3685,9 @@ class EngineService:
         pc = self.engine.prefix_cache
         if pc is not None:
             fm.ENGINE_PREFIX_HIT_TOKENS.labels(model=m).set(pc.hit_tokens)
+        if self.engine.cfg.speculative_ngram > 0:
+            fm.ENGINE_SPEC_PROPOSED.labels(model=m).set(self.engine.spec_proposed)
+            fm.ENGINE_SPEC_ACCEPTED.labels(model=m).set(self.engine.spec_accepted)
         pool = self.model_pool
         fm.ENGINE_POOL_BYTES.set(pool.bytes_used)
         fm.ENGINE_POOL_MODELS.set(len(pool))

@@ -1231,6 +1231,9 @@ def attach_sleep(
         return {"params": dict(engine.model.named_parameters())}
 
     def get_state():
+        # a dispatched but unread chunk (pipelined decode) would lose its
+        # tokens with the state: read it first
+        engine.drain_inflight()
         state = weights()
         if not engine.kv_detached:
             state["kv"] = engine.pool.tensors()

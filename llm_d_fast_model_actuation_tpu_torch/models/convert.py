@@ -41,20 +41,26 @@ def params_from_jax(
 ) -> Dict[str, torch.Tensor]:
     """The reference's parameter pytree (numpy leaves) -> a state dict
     for :class:`~.llama.Llama` (``layers.<name>`` for the stacked layer
-    weights), on ``device``. Quantized leaves are refused.
+    weights), on ``device``. A quantized leaf ``{"q", "s"}`` (a
+    ``--quantization int8`` tree) carries across as it is, as
+    ``<name>.q`` and ``<name>.s``.
 
     With a ``mesh`` (``parallel/mesh.py:TpMesh``) and the model's GLOBAL
     ``cfg``: the state dict of a :class:`~.llama.ShardedLlama`
     (``ranks.<r>.<name>``), each numpy array sliced by the logical-axes
     table before it leaves the host, so rank ``r``'s tensor holds what the
     reference's sharded array holds on its ``r``-th device, on
-    ``mesh.devices[r]``."""
+    ``mesh.devices[r]`` (a quantized ``cfg`` splits a scale only along its
+    output axis, ``llama.param_tp_dims``)."""
     flat: Dict[str, Any] = {}
     for name, leaf in tree.items():
         for key, sub in ({f"layers.{k}": v for k, v in leaf.items()} if name == "layers" else {name: leaf}).items():
             if isinstance(sub, dict):
-                raise ValueError(f"quantized weight {key} is not supported")
-            flat[key] = sub
+                if set(sub) != {"q", "s"}:
+                    raise ValueError(f"weight {key} is a dict but not a quantized leaf {{'q', 's'}}: {sorted(sub)}")
+                flat[f"{key}.q"], flat[f"{key}.s"] = sub["q"], sub["s"]
+            else:
+                flat[key] = sub
     if mesh is None:
         return {name: _leaf(a).to(device) for name, a in flat.items()}
     if cfg is None:

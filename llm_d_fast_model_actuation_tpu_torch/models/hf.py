@@ -59,7 +59,15 @@ from ..engine.chunk_store import TORCH_DTYPES, digest_leaves, leaf_paths
 from ..parallel.mesh import shard
 from ..utils import faults, tracing
 from . import quant as quant_mod
-from .llama import Llama, LlamaConfig, ShardedLlama, param_shapes, param_tp_dims
+from .llama import (
+    Llama,
+    LlamaConfig,
+    ShardedLlama,
+    param_dtype,
+    param_shapes,
+    param_tp_dims,
+    quantized_names,
+)
 from .safetensors import DTYPES, SafetensorsFile
 
 #: HF ``architectures[0]`` -> config-knob overrides for the shared forward
@@ -477,10 +485,6 @@ def _ranks(model: "Llama | ShardedLlama") -> List[Llama]:
     return list(model.ranks) if isinstance(model, ShardedLlama) else [model]
 
 
-def _param(m: Llama, flat: str) -> torch.Tensor:
-    return m.layers[flat[len("layers."):]] if flat.startswith("layers.") else m.get_parameter(flat)
-
-
 def model_leaves(model: "Llama | ShardedLlama") -> Dict[str, torch.Tensor]:
     """Every parameter under the reference's flat key (``layers/wq``); a
     sharded model's slices joined on the host first."""
@@ -488,7 +492,7 @@ def model_leaves(model: "Llama | ShardedLlama") -> Dict[str, torch.Tensor]:
     dims = param_tp_dims(model.cfg)
     whole = {}
     for flat in param_shapes(model.cfg):
-        parts = [_param(m, flat) for m in ranks]
+        parts = [m.get_parameter(flat) for m in ranks]
         d = dims[flat]
         t = parts[0] if d is None or len(parts) == 1 else torch.cat([p.to("cpu") for p in parts], dim=d)
         whole[flat.replace(".", "/")] = t
@@ -504,16 +508,18 @@ def model_digests(model: "Llama | ShardedLlama", times: Optional[Dict[str, List[
 
 
 def estimate_param_bytes(cfg: LlamaConfig, transfer_quant: str = "off", hot_head: bool = True) -> int:
-    """Host bytes a staged copy of the model occupies (the prefetch's
-    budget check), from the shapes only: its parameters in ``cfg.dtype``,
-    or with ``transfer_quant`` ("int8"/"fp8", ``--sleep-quant``) the
-    leaves a compressed staging quantizes at their payload and scale
-    bytes, so a quantized stage is not over-reserved."""
+    """Bytes of the model's parameters, from the shapes only: in
+    ``cfg.dtype``, a ``cfg.quantization`` int8 weight at its int8 and
+    scale bytes (what an engine of ``cfg`` holds, a cold build's
+    ``bytes_in``), or with ``transfer_quant`` ("int8"/"fp8",
+    ``--sleep-quant``) the leaves a compressed staging quantizes at their
+    payload and scale bytes, so a quantized stage is not over-reserved
+    (the prefetch's budget check; a prefetch stages ``cfg`` unquantized)."""
     shapes = param_shapes(cfg)
     itemsize = cfg.dtype.itemsize
     mode = "" if transfer_quant in ("", "off") else transfer_quant
     if not mode:
-        return sum(math.prod(s) for s in shapes.values()) * itemsize
+        return sum(math.prod(s) * param_dtype(cfg, n).itemsize for n, s in shapes.items())
     return sum(
         quant_mod.payload_nbytes(shape, mode)
         if quant_mod.quant_eligible(flat.split("."), len(shape), hot_head) else math.prod(shape) * itemsize
@@ -536,6 +542,11 @@ def place_staged_params(
     each is copied to the card and dequantized there into its parameter,
     on the same stream. Returns (or fills) the :class:`LoadStats`:
     ``h2d_s`` and ``bytes_h2d`` (the bytes that crossed)."""
+    if quantized_names(model.cfg):
+        if quant_metas is not None:
+            raise ValueError("transfer-quantized staging and a quantized model do not mix (--sleep-quant is refused "
+                             "with --quantization)")
+        return _place_quantized(params, model, stats)
     if isinstance(model, ShardedLlama):
         raise ValueError("staged weights are placed on one device only")
     t_begin = time.perf_counter()
@@ -554,7 +565,7 @@ def place_staged_params(
             if not isinstance(node, dict) or part not in node:
                 raise ValueError(f"staged weights lack {flat.replace('.', '/')}")
             node = node[part]
-        dest = _param(model, flat)
+        dest = model.get_parameter(flat)
         meta = metas.get(flat)
         dtype = TORCH_DTYPES[meta.orig_dtype] if meta is not None else node.dtype
         if tuple(node.shape) != tuple(shape) or dtype != dest.dtype:
@@ -596,6 +607,74 @@ def place_staged_params(
         h2d_sp.set(bytes=st.bytes_h2d, device_s=round(st.h2d_s, 6)).end()  # after the copies landed
     stage_sp.set(bytes=st.bytes_h2d).end()
     st.tensors = len(pairs)
+    st.total_s = time.perf_counter() - t_begin
+    return st
+
+
+@torch.no_grad()
+def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stats: Optional[LoadStats] = None
+                     ) -> LoadStats:
+    """A host weight tree in the model dtype (the unquantized staging)
+    into a ``--quantization int8`` model: each plain leaf copied to every
+    rank (its slice on a mesh), each quantized weight copied to rank 0's
+    device one layer slice at a time and quantized there
+    (:func:`~.quant.quantize_weight`, over the whole fan-in before any
+    split), its ``q`` and ``s`` cut per rank as ``param_tp_dims`` says.
+    The reference stages unquantized and quantizes once at the end
+    (its ``hf.py:_quantize_and_repin``). ``bytes_h2d`` counts the bytes
+    that crossed: the staged tree's."""
+    t_begin = time.perf_counter()
+    st = stats if stats is not None else LoadStats()
+    ranks = _ranks(model)
+    tp = len(ranks)
+    cfg = model.cfg
+    plain = dataclasses.replace(cfg, quantization="")
+    quant = set(quantized_names(cfg))
+    dims = param_tp_dims(plain)
+    dev = model.device
+    moved = 0
+
+    def node_of(flat: str) -> torch.Tensor:
+        node: Any = params
+        for part in flat.split("."):
+            if not isinstance(node, dict) or part not in node:
+                raise ValueError(f"staged weights lack {flat.replace('.', '/')}")
+            node = node[part]
+        return node
+
+    t0 = time.perf_counter()
+    for flat, shape in param_shapes(plain).items():
+        node = node_of(flat)
+        if tuple(node.shape) != tuple(shape) or node.dtype != cfg.dtype:
+            raise ValueError(f"staged {flat}: {tuple(node.shape)} {node.dtype}, the model takes "
+                             f"{tuple(shape)} {cfg.dtype}")
+        faults.fire("coldload.h2d")
+        moved += node.numel() * node.element_size()
+        d = dims[flat]
+        if flat not in quant:
+            for r, m in enumerate(ranks):
+                piece = node if tp == 1 or d is None else shard(node, d, r, tp)
+                m.get_parameter(flat).copy_(piece, non_blocking=True)
+            continue
+        stacked = len(shape) == 3
+        ds = d - 1 if stacked and d else d  # the split axis of one [in, out] slice
+        for i in range(shape[0] if stacked else 1):
+            w = (node[i] if stacked else node).to(dev, non_blocking=True)
+            qd = quant_mod.quantize_weight(w)
+            del w
+            for r, m in enumerate(ranks):
+                qp = qd["q"] if tp == 1 else shard(qd["q"], ds, r, tp)
+                sp = qd["s"] if tp == 1 or ds != 1 else shard(qd["s"], ds, r, tp)
+                q_dst, s_dst = m.get_parameter(f"{flat}.q"), m.get_parameter(f"{flat}.s")
+                (q_dst[i] if stacked else q_dst).copy_(qp)
+                (s_dst[i] if stacked else s_dst).copy_(sp)
+            del qd
+    for m in ranks:
+        if m.device.type == "cuda":
+            torch.cuda.synchronize(m.device)
+    st.h2d_s = time.perf_counter() - t0
+    st.bytes_h2d = moved
+    st.tensors = len(param_shapes(plain))
     st.total_s = time.perf_counter() - t_begin
     return st
 
@@ -712,6 +791,24 @@ def _load_params(
     if place and not isinstance(target, (Llama, ShardedLlama)):
         raise TypeError("load_params(place=True) writes into a model; pass the model")
     cfg = target if isinstance(target, LlamaConfig) else target.cfg
+    if quantized_names(cfg):
+        # staged unquantized (the checkpoint's bf16), quantized once on the
+        # card as it is placed (:func:`_place_quantized`), as the reference
+        # does; a host tree (place=False) is the unquantized one
+        cfg = dataclasses.replace(cfg, quantization="")
+        if place:
+            tree = _load_params(path, cfg, workers=workers, place=False, max_inflight_bytes=max_inflight_bytes,
+                                abort_event=abort_event, throttle_bytes_per_s=throttle_bytes_per_s, stats=st,
+                                load_ctx=load_ctx)
+            read = (st.read_s, st.convert_s, st.bytes_read)
+            _place_quantized(tree, target, st)
+            st.read_s, st.convert_s, st.bytes_read = read
+            st.total_s = time.perf_counter() - t_begin
+            if want_digests:
+                t_dig = time.perf_counter()
+                st.digests = model_digests(target, times=st.digest_times)
+                st.digest_s = time.perf_counter() - t_dig
+            return st
     shards, items = _plan(path, cfg)
     groups = [[it for it in items if it.shard is sh] for sh in shards]
     groups = [g for g in groups if g]
@@ -796,7 +893,7 @@ def _load_params(
                 d -= 1  # the dimension within one layer's slice
             n = 0
             for r, m in enumerate(ranks):
-                dest = _param(m, it.flat)
+                dest = m.get_parameter(it.flat)
                 if it.layer is not None:
                     dest = dest[it.layer]
                 piece = shard(src, (dest.dim() - 1 - d) if it.transpose else d, r, tp) if tp > 1 and d is not None else src

@@ -58,7 +58,7 @@ from ..ops.attention import (
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_table
 from ..parallel.mesh import TpMesh, shard, tp_dim
-from .quant import qmat
+from .quant import LAYER_WEIGHTS, qmat, quantize_weight, quantized_axes
 
 #: one device's k and v pages; a sharded model takes one pair per rank
 Cache = Tuple[torch.Tensor, torch.Tensor]
@@ -87,7 +87,9 @@ class LlamaConfig:
     #: the new K/V inline and write all layers once after the loop. The
     #: kernel is chosen by the device of the tensors, not by this field.
     attention_impl: str = "reference"
-    #: weight-only quantization: only "" (plain weights) is ported yet
+    #: weight-only quantization: "" (plain weights) or "int8" (W8A16: every
+    #: layer weight stack and ``lm_head`` held as int8 with an f32 scale per
+    #: output channel, ``models/quant.py``)
     quantization: str = ""
     # -- Gemma-family knobs (llama-neutral defaults; one shared forward) --
     #: MLP gate activation: "silu" (llama) or "gelu" (gemma GeGLU, tanh form)
@@ -175,9 +177,51 @@ class LlamaConfig:
         return self.num_kv_heads * self.head_dim
 
 
+#: the weight-only quantization modes (``--quantization``)
+QUANTIZATION_MODES = ("", "int8")
+
+
+def quantized_names(cfg: LlamaConfig) -> Tuple[str, ...]:
+    """The flat names of the weights ``cfg.quantization`` holds quantized:
+    none, or under "int8" every layer weight stack and an untied
+    ``lm_head``. Raises for an unknown mode."""
+    if cfg.quantization not in QUANTIZATION_MODES:
+        raise ValueError(f"unknown quantization {cfg.quantization!r}; known: {QUANTIZATION_MODES}")
+    if not cfg.quantization:
+        return ()
+    return tuple(f"layers.{n}" for n in LAYER_WEIGHTS) + (() if cfg.tie_embeddings else ("lm_head",))
+
+
 def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     """Flat parameter name -> shape, in the reference's names and stacked
-    layouts (``layers.<name>`` for the per-layer stacks)."""
+    layouts (``layers.<name>`` for the per-layer stacks). A quantized
+    weight is two leaves, ``<name>.q`` (the weight's shape, int8) and
+    ``<name>.s`` (the fan-in axis reduced to 1, f32): the reference's
+    ``{"q", "s"}`` leaf (:func:`param_dtype`)."""
+    quant = set(quantized_names(cfg))
+    shapes = _plain_shapes(cfg)
+    if not quant:
+        return shapes
+    out: Dict[str, Tuple[int, ...]] = {}
+    for name, shape in shapes.items():
+        if name in quant:
+            out[f"{name}.q"] = shape
+            out[f"{name}.s"] = shape[:-2] + (1, shape[-1])
+        else:
+            out[name] = shape
+    return out
+
+
+def param_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
+    """The dtype of the parameter ``name`` (:func:`param_shapes`): int8 and
+    f32 for a quantized weight's ``q`` and ``s``, else ``cfg.dtype``."""
+    base, _, leaf = name.rpartition(".")
+    if leaf in ("q", "s") and base in quantized_names(cfg):
+        return torch.int8 if leaf == "q" else torch.float32
+    return cfg.dtype
+
+
+def _plain_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     h, L = cfg.hidden_size, cfg.num_layers
     shapes = {
         "embed": (cfg.vocab_size, h),
@@ -243,10 +287,23 @@ def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 def param_tp_dims(cfg: LlamaConfig) -> Dict[str, Optional[int]]:
     """Flat parameter name (as in :func:`param_shapes`) -> the dimension
-    split over ``tp``, or None for a replicated parameter."""
+    split over ``tp``, or None for a replicated parameter. A quantized
+    weight's ``q`` splits as the weight does, its scale only along its
+    output axis (``quant.quantized_axes``): with ``q`` for a
+    column-parallel weight, whole on every rank for a row-parallel one."""
     axes = param_logical_axes(cfg)
-    flat = {f"layers.{k}": v for k, v in axes.pop("layers").items()}
-    flat.update(axes)
+    if quantized_names(cfg):
+        axes = quantized_axes(axes)
+    flat: Dict[str, Any] = {}
+
+    def walk(node, prefix: str) -> None:
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[prefix + k] = v
+
+    walk(axes, "")
     return {name: tp_dim(ax) for name, ax in flat.items()}
 
 
@@ -265,6 +322,39 @@ def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
     )
 
 
+class LayerStacks(nn.Module):
+    """The per-layer weight stacks of a :class:`Llama` (its ``layers``):
+    a parameter per plain stack and, for a quantized one, an
+    ``nn.ParameterDict`` with its ``q`` and ``s``, so the state dict names
+    them ``layers.wq`` and ``layers.wq.q``/``layers.wq.s``, the reference's
+    tree paths. Indexed and iterated like a dict, in registration order."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._order: List[str] = []
+
+    def __getitem__(self, name: str):
+        return self._parameters[name] if name in self._parameters else self._modules[name]
+
+    def items(self) -> List[Tuple[str, Any]]:
+        return [(k, self[k]) for k in self._order]
+
+    def put(self, name: str, value: "nn.Parameter | nn.ParameterDict") -> None:
+        if isinstance(value, nn.Parameter):
+            self.register_parameter(name, value)
+        else:
+            self.add_module(name, value)
+        self._order.append(name)
+
+
+def _leaf(p: Any, i: Optional[int] = None) -> Any:
+    """A stored weight as a forward takes it: the tensor, or a quantized
+    one's ``{"q", "s"}``, sliced at layer ``i`` when given."""
+    if isinstance(p, nn.ParameterDict):
+        return {k: (p[k] if i is None else p[k][i]) for k in ("q", "s")}
+    return p if i is None else p[i]
+
+
 class Llama(nn.Module):
     """The decoder's parameters (uninitialized until loaded or
     :func:`fill_params` fills them) plus its RoPE table, all on one
@@ -277,10 +367,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device: "torch.device | str", arena=None) -> None:
         super().__init__()
-        if cfg.quantization:
-            raise ValueError(
-                f"quantization {cfg.quantization!r} is not supported by the port yet"
-            )
         self.cfg = cfg
 
         def empty(shape, dtype, tag, name):
@@ -288,11 +374,22 @@ class Llama(nn.Module):
                 return torch.empty(shape, dtype=dtype, device=device)
             return arena.empty(shape, dtype, tag, name)
 
-        self.layers = nn.ParameterDict()
+        quant = set(quantized_names(cfg))
+        self.layers = LayerStacks()
+        groups: Dict[str, nn.ParameterDict] = {}
         for name, shape in param_shapes(cfg).items():
-            p = nn.Parameter(empty(shape, cfg.dtype, "offload", name), requires_grad=False)
-            if name.startswith("layers."):
-                self.layers[name[len("layers."):]] = p
+            p = nn.Parameter(empty(shape, param_dtype(cfg, name), "offload", name), requires_grad=False)
+            base, _, leaf = name.rpartition(".")
+            if base in quant:
+                if base not in groups:
+                    groups[base] = nn.ParameterDict()
+                    if base.startswith("layers."):
+                        self.layers.put(base[len("layers."):], groups[base])
+                    else:
+                        self.add_module(base, groups[base])
+                groups[base][leaf] = p
+            elif name.startswith("layers."):
+                self.layers.put(name[len("layers."):], p)
             else:
                 self.register_parameter(name, p)
         table = (cfg.max_seq_len, cfg.head_dim // 2)
@@ -316,12 +413,13 @@ class Llama(nn.Module):
         self.rope_cos.copy_(cos)
         self.rope_sin.copy_(sin)
 
-    def layer(self, i: int) -> Dict[str, torch.Tensor]:
-        """Views of layer ``i``'s weights (the scan body's ``lp``)."""
-        return {name: p[i] for name, p in self.layers.items()}
+    def layer(self, i: int) -> Dict[str, Any]:
+        """Views of layer ``i``'s weights (the scan body's ``lp``); a
+        quantized stack's as ``{"q", "s"}``."""
+        return {name: _leaf(p, i) for name, p in self.layers.items()}
 
-    def head(self) -> torch.Tensor:
-        return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+    def head(self) -> Any:
+        return self.embed.t() if self.cfg.tie_embeddings else _leaf(self.lm_head)
 
 
 class VariantView:
@@ -337,6 +435,8 @@ class VariantView:
     never written."""
 
     def __init__(self, base: Llama, delta: Dict[str, torch.Tensor]) -> None:
+        if quantized_names(base.cfg):
+            raise ValueError("a sibling variant is base-precision only (co-residency with --quantization is refused)")
         self.base = base
         self.cfg = base.cfg
         self.delta = dict(delta)
@@ -411,6 +511,15 @@ def shard_params(
     return out
 
 
+def _draw_order(cfg: LlamaConfig) -> List[str]:
+    """The order :func:`fill_params` draws the weights in, a plain model's
+    parameter registration order (its top-level leaves, then the layer
+    stacks), the order the draws have always had: a quantized model draws
+    the same bf16 weights in the same order, then quantizes them."""
+    names = list(_plain_shapes(cfg))
+    return [n for n in names if not n.startswith("layers.")] + [n for n in names if n.startswith("layers.")]
+
+
 def init_params(
     cfg: LlamaConfig,
     generator: torch.Generator,
@@ -437,16 +546,27 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
 
     On a :class:`ShardedLlama` the FULL tensor of each layer is drawn and
     every rank is copied its slice, so a seed gives a sharded model the
-    very numbers it gives a single-device one."""
+    very numbers it gives a single-device one.
+
+    A quantized weight (``cfg.quantization``) is drawn as the plain model
+    draws it, rounded to ``cfg.dtype`` and quantized one layer slice at a
+    time (:func:`~.quant.quantize_weight`), so a quantized and a plain
+    model of one seed hold the same underlying weights. The scale is
+    taken over the whole fan-in before any split: a row-parallel weight's
+    ranks share one scale."""
     ranks = list(model.ranks) if isinstance(model, ShardedLlama) else [model]
     cfg, device = model.cfg, model.device
     tp = len(ranks)
-    shapes, dims = param_shapes(cfg), param_tp_dims(cfg)
+    plain = dataclasses.replace(cfg, quantization="")
+    shapes, dims = param_shapes(plain), param_tp_dims(plain)
+    quant = set(quantized_names(cfg))
     fill = 0.0 if cfg.norm_offset else 1.0
     with torch.no_grad():
-        # rank 0's registration order: the order the draws have always had
-        for name, _ in ranks[0].named_parameters():
+        for name in _draw_order(plain):
             short = name.split(".")[-1]
+            if name in quant:
+                _draw_quantized(ranks, name, shapes[name], dims[name], generator, device)
+                continue
             dests = [m.get_parameter(name) for m in ranks]
             if "norm" in short:
                 for p in dests:
@@ -467,6 +587,31 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
                         piece = src if tp == 1 else shard(src, dim - 1 if stacked and dim else dim, r, tp)
                         (p[i] if stacked else p).copy_(piece)
                     del src, piece  # the next draw's staging replaces this one, not beside it
+
+
+def _draw_quantized(ranks: List[Llama], name: str, shape, dim: Optional[int], generator, device) -> None:
+    """One quantized weight of :func:`fill_params`: each layer slice drawn
+    whole as the plain model draws it, rounded to the model dtype,
+    quantized, and its ``q`` and ``s`` cut per rank (``s`` only where the
+    split is its output axis)."""
+    cfg = ranks[0].cfg
+    tp = len(ranks)
+    stacked = len(shape) == 3
+    d = dim - 1 if stacked and dim else dim  # the split axis of one [in, out] slice
+    qs = [ranks[r].get_parameter(f"{name}.q") for r in range(tp)]
+    ss = [ranks[r].get_parameter(f"{name}.s") for r in range(tp)]
+    for i in range(shape[0] if stacked else 1):
+        src = torch.randn(shape[-2:], generator=generator, device=device, dtype=torch.float32).mul_(shape[-2] ** -0.5)
+        w = src.to(cfg.dtype)
+        del src
+        qd = quantize_weight(w)
+        del w
+        for r in range(tp):
+            qp = qd["q"] if tp == 1 else shard(qd["q"], d, r, tp)
+            sp = qd["s"] if tp == 1 or d != 1 else shard(qd["s"], d, r, tp)
+            (qs[r][i] if stacked else qs[r]).copy_(qp)
+            (ss[r][i] if stacked else ss[r]).copy_(sp)
+        del qd
 
 
 # -- forward -----------------------------------------------------------------

@@ -1,14 +1,26 @@
-"""Weight products of the model forward, and the transfer quantization of
-compressed actuation (``--sleep-quant``).
+"""Weight products of the model forward, weight-only int8 serving
+(``--quantization int8``), and the transfer quantization of compressed
+actuation (``--sleep-quant``).
 
 Port of ``llm_d_fast_model_actuation_tpu/models/quant.py``:
 
-  * :func:`qmat`, for plain (bf16 or fp32) weights: the JAX package leaves
-    ``x @ w`` to XLA, so the port leaves it to ``torch.matmul``. Weights
-    keep the reference's ``[in, out]`` layout, so the product is ``x @ w``
-    with no transpose. The int8 (W8A16) serving path (``--quantization``)
-    is not ported yet: a quantized weight is refused, never silently
-    dequantized.
+  * :func:`qmat`, the model forward's every weight product. For a plain
+    (bf16 or fp32) weight the JAX package leaves ``x @ w`` to XLA, so the
+    port leaves it to ``torch.matmul``. Weights keep the reference's
+    ``[in, out]`` layout, so the product is ``x @ w`` with no transpose.
+  * the serving half of weight-only int8 (W8A16, ``--quantization int8``):
+    :func:`quantize_weight` and :func:`quantize_params` turn every layer
+    weight stack and ``lm_head`` into ``{"q": int8[..., out], "s":
+    f32[..., 1, out]}``, a symmetric scale per output channel over the
+    fan-in axis (embeddings and norms stay bf16), and :func:`qmat` on
+    such a leaf computes ``(x @ q.to(x.dtype)) * s.to(x.dtype)``, the
+    reference's rounding. On the card, at the rows of a decode step and
+    of a speculative verify window (:data:`W8A16_MAX_ROWS`), that is the
+    hand-written kernel ``csrc/w8a16.cu`` (``ops/cuda/w8a16.py``), which
+    reads each int8 weight byte once and never writes a dequantized
+    weight: the flag exists to halve decode's weight reads. Larger
+    products (prefill buckets, packed buffers) and the CPU take the plain
+    version, as the JAX package leaves them to XLA.
   * the transfer half: how weight bytes cross the PCIe boundary on a
     sleep, a wake and a swap (``engine/sleep.py``). An eligible leaf is
     quantized right before it leaves the card (or on the host, when a
@@ -46,7 +58,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-#: weight stacks of a llama-family layer tree that a transfer quantizes
+from ..ops.cuda.w8a16 import w8a16_matmul, w8a16_matmul_plain
+
+#: weight stacks of a llama-family layer tree that int8 serving and a
+#: transfer quantize
 LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 #: transfer quantization modes (--sleep-quant)
@@ -63,14 +78,94 @@ FP8_NAN_ABOVE = 464.0
 _BLOCK_ELEMS = 1 << 26
 
 
-def qmat(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for a plain weight."""
+#: rows of ``x`` (all axes but the last) up to which a product with a
+#: quantized weight on the card runs the W8A16 kernel: a decode step's
+#: (``max_batch``, 8 at the chip's configuration) and a speculative verify
+#: window's (its prefill bucket, 16). Up to there the kernel reads the
+#: weight's int8 bytes once where the plain version reads them, writes a
+#: bf16 copy and reads that again; its CUDA-core arithmetic grows with the
+#: rows, and at 64 rows it is slower than the plain version on an H100
+#: (``PERF.md``), so larger products (prefill buckets, packed buffers) stay
+#: ``torch.matmul``, as the JAX package leaves them to XLA.
+W8A16_MAX_ROWS = 16
+
+
+def is_quantized(w: Any) -> bool:
+    """Whether ``w`` is a quantized leaf ``{"q": int8, "s": f32}``."""
+    return isinstance(w, dict) and "q" in w and "s" in w
+
+
+def qmat(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ w`` for a plain or a quantized weight (``x @ q`` rounded to
+    ``x.dtype``, then times ``s`` rounded to ``x.dtype``): a bf16 ``x`` on
+    the card with at most :data:`W8A16_MAX_ROWS` rows launches the W8A16
+    kernel, any other product of a quantized weight takes its plain
+    version."""
+    if is_quantized(w):
+        q, s = w["q"], w["s"]
+        if x.is_cuda and x.dtype == torch.bfloat16 and x.numel() <= W8A16_MAX_ROWS * x.shape[-1]:
+            return w8a16_matmul(x, q, s)
+        return w8a16_matmul_plain(x, q, s)
     if not isinstance(w, torch.Tensor):
-        raise TypeError(
-            "quantized weights are not supported by the port yet "
-            f"(got {type(w).__name__})"
-        )
+        raise TypeError(f"a weight is a tensor or a quantized leaf {{'q', 's'}}, got {type(w).__name__}")
     return torch.matmul(x, w)
+
+
+@torch.no_grad()
+def quantize_weight(w: torch.Tensor, q_out: Optional[torch.Tensor] = None,
+                    s_out: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Symmetric int8 with an f32 scale per output channel, reduced over
+    the fan-in axis (``ndim - 2``) only, so a layer stack ``[L, in, out]``
+    keeps a scale per layer (``[L, 1, out]``) and slicing a layer slices
+    its scale: the reference's ``quantize_weight``, bit for bit (the same
+    formula as the transfer's :func:`quantize_leaf`, whose slice-at-a-time
+    code it runs, where ``w`` lies). ``q_out``/``s_out`` are the tensors to
+    write in place (an engine's arena tensors), else new ones."""
+    q, meta = quantize_leaf(w, "int8", out=q_out)
+    s = meta.scale
+    if s_out is not None:
+        s_out.copy_(s)
+        s = s_out
+    return {"q": q, "s": s}
+
+
+def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's ``quantize_params`` on a nested weight tree
+    (``{"embed", "layers": {"wq", ...}, "lm_head", ...}``): every stack
+    of :data:`LAYER_WEIGHTS` (3-D) and ``lm_head`` becomes a quantized
+    leaf; the embedding and the norms stay as they are."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in LAYER_WEIGHTS:
+        w = layers.get(name)
+        if w is not None and not is_quantized(w):
+            if w.ndim != 3:
+                raise ValueError(f"layers/{name}: a dense stack is 3-D, got {tuple(w.shape)} (MoE is not ported)")
+            layers[name] = quantize_weight(w)
+    out["layers"] = layers
+    head = params.get("lm_head")
+    if head is not None and not is_quantized(head):
+        out["lm_head"] = quantize_weight(head)
+    return out
+
+
+def quantized_axes(axes: Dict[str, Any]) -> Dict[str, Any]:
+    """The logical-axes tree of :func:`quantize_params`' structure (the
+    reference's ``quantized_axes``): ``q`` keeps the weight's axes; the
+    scale keeps every axis but the fan-in (size 1 there), so it is split
+    only where its output axis is: with its ``q`` for a column-parallel
+    weight, whole on every rank for a row-parallel one."""
+    out = dict(axes)
+    layers = dict(axes["layers"])
+    for name in LAYER_WEIGHTS:
+        ax = layers.get(name)
+        if ax is not None and len(ax) == 3:
+            layers[name] = {"q": ax, "s": ax[:-2] + (None, ax[-1])}
+    out["layers"] = layers
+    if "lm_head" in axes:
+        ax = axes["lm_head"]
+        out["lm_head"] = {"q": ax, "s": (None, ax[-1])}
+    return out
 
 
 def fp8_dtype() -> torch.dtype:

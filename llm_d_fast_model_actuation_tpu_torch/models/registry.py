@@ -1,15 +1,22 @@
-"""Model-family dispatch: random init by config type.
+"""Model-family dispatch: random init and weight quantization by config
+type.
 
-Port of ``models/registry.py:init_params_for`` for the dense Llama family;
-the MoE family is not ported yet and is refused. The draw goes into a
-model that already exists (the engine's, in its arenas), in place.
+Port of ``models/registry.py`` for the dense Llama family; the MoE family
+is not ported yet and is refused. The draw goes into a model that already
+exists (the engine's, in its arenas), in place, and quantizes there when
+the config asks for it (``llama.fill_params``). The reference's
+``logical_axes_for`` of a quantized config is ``llama.param_tp_dims``
+here, which applies ``quant.quantized_axes`` itself.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
 from . import llama
+from .quant import quantize_params
 
 
 def fill_params_for(model: "llama.Llama | llama.ShardedLlama", generator: torch.Generator) -> None:
@@ -17,3 +24,12 @@ def fill_params_for(model: "llama.Llama | llama.ShardedLlama", generator: torch.
     if not isinstance(cfg, llama.LlamaConfig) or getattr(cfg, "num_experts", 0) > 1:
         raise ValueError(f"unsupported model config {type(cfg).__name__} (dense Llama only)")
     llama.fill_params(model, generator)
+
+
+def maybe_quantize(cfg: llama.LlamaConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """Apply the config's weight quantization to a nested weight tree
+    (runtime quantization: bf16 checkpoints stay bf16 on disk, the card
+    holds the int8 form); raises for an unknown mode."""
+    if not llama.quantized_names(cfg):
+        return params
+    return quantize_params(params)

@@ -42,6 +42,7 @@ SOURCES = {
     "prefill": "prefill.cu",
     "ragged": "ragged.cu",
     "probe": "probe.cu",
+    "w8a16": "w8a16.cu",
     # host code only: the engine's stable-address memory (engine/arena.py)
     "arena": "arena.cu",
 }

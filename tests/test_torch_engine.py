@@ -182,11 +182,12 @@ def test_engine_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_unported_engine_options_are_refused():
     _, tcfg = _cfgs()
-    for field in ("speculative_ngram", "pipeline_decode"):
-        with pytest.raises(TypeError):
-            dataclasses.replace(tcfg, **{field: 1})
-    with pytest.raises(ValueError):
-        tllama.Llama(dataclasses.replace(tcfg.model, quantization="int8"), "cpu")
+    with pytest.raises(ValueError, match="packed_serving is incompatible with pipeline_decode"):
+        tengine.InferenceEngine(dataclasses.replace(tcfg, packed_serving=True, pipeline_decode=True), device="cpu")
+    with pytest.raises(ValueError, match="unknown quantization"):
+        tllama.Llama(dataclasses.replace(tcfg.model, quantization="int4"), "cpu")
+    with pytest.raises(ValueError, match="speculative_ngram"):
+        tengine.InferenceEngine(dataclasses.replace(tcfg, speculative_ngram=-1), device="cpu")
     with pytest.raises(ValueError):
         tengine.InferenceEngine(dataclasses.replace(tcfg, attention_impl="flash"), device="cpu")
 
