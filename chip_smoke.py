@@ -312,8 +312,8 @@ exits non-zero and never prints the final ``ok`` line):
      chunk replayed from its graph and, on a copy of the state as it was,
      the same chunk run eagerly: tokens, logprobs, alternatives, KV pages
      and scheduler state must be bit-equal. Then TPOT and tokens/s of the
-     eight requests over 64 tokens with the graphs and without them, in
-     turns (on, off, off, on), with the same tokens each time; the device
+     eight requests over 64 tokens with the graphs and without them (on,
+     then off), with the same tokens each time; the device
      time of a replayed step (CUDA events) and its kernels by kind
      (``torch.profiler``, whose count of the decode kernel's runs in the
      replay must equal the graph's kernel nodes, L x T); and the capture seconds and the graph pool's
@@ -390,7 +390,29 @@ bit-equal, a level-1 sleep with a chunk in flight losing none); the
 ``launcher`` line's ``refusals`` are the three pairs of options that do
 not compose, each a 422 in the reference's words. The ``kernels`` line
 carries one W8A16 entry per product shape at 8 rows, with the
-``serve_int8`` run's launches of that shape.
+``serve_int8`` and ``serve_moe`` runs' launches of that shape.
+
+The Mixtral MoE family, after ``pipeline``: ``kernel_check``
+(``w8a16_experts``) holds the batched W8A16 kernel at Mixtral-8x7B's two
+expert-stack shapes (E = 8; 4096 -> 14336 with one x for every expert,
+14336 -> 4096 with an x per expert) at 1, 8 and 64 rows as the 2-D one
+is held; ``serve_moe`` serves ``mixtral-8x7b`` at ``--quantization
+int8``, full width and depth, random weights (parameters exactly
+46,870,172,672 B, every chunk a replay whose graph holds L x T decode
+and (7 L + 1) x T W8A16 nodes, the host's MemAvailable checked before
+one level-1 cycle of exactly 51,165,139,968 B priced to the byte, with
+the same tokens and addresses after the wake, the replayed step's
+kernels by kind), then a 4-layer int8 model built in process whose
+prefill and decode are held against an fp32 oracle of its quantized
+weights routed as they routed (the share of routing decisions that fp32
+routing would change printed beside); ``serve_moe_hf`` writes a 2-layer,
+full-width Mixtral checkpoint in Mixtral's tensor names from an
+in-process bf16 service (6.33 GB, deleted at the end) and serves it
+with ``--model hf:<dir>`` in bf16 and in int8: tokens, parameter bytes
+and weights equal to the in-process services', the int8 build's peak
+beyond its arena under one layer's bf16 expert stacks. The ``kernels``
+line carries one batched entry per expert-stack shape at 8 rows. Every
+phase line carries ``at_s``, its seconds since the script started.
 
 With two or more cards the sharded ragged check also runs with its ranks
 on ``cuda:0,cuda:1`` and says so; with one it prints ``"two_cards": "not
@@ -431,7 +453,14 @@ GIB = 1 << 30
 WAKE_BAR_S = 3.0 * 20_355_489_792 / (64 * GIB)
 
 
+#: the script's start on the monotonic clock: every phase line carries
+#: its seconds since then (``at_s``)
+START = time.monotonic()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.monotonic() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1121,6 +1150,7 @@ def reset_counts() -> None:
     wrappers["ragged"].launches_by_rows.clear()
     wrappers["ragged_sharded"].launches_by_rows.clear()
     wrappers["w8a16"].launches_by_shape.clear()
+    wrappers["w8a16_experts"].launches_by_shape.clear()
 
 
 def read_counts() -> dict:
@@ -1249,11 +1279,11 @@ def free_memory(torch) -> float:
     return torch.cuda.memory_allocated() / GIB
 
 
-def run_traffic(torch, port: int, vocab: int, ignore_eos: bool = False) -> dict:
+def run_traffic(torch, port: int, vocab: int, ignore_eos: bool = False, max_tokens: int = 64) -> dict:
     """The serve phases' traffic: four concurrent greedy completions
-    (prompts of 20, 300, 1500 and 3000 token ids, 64 tokens each), then a
-    fifth request sharing a 512-token prefix with the third; with
-    ``ignore_eos`` each request asks to decode past eos."""
+    (prompts of 20, 300, 1500 and 3000 token ids, ``max_tokens`` (64)
+    tokens each), then a fifth request sharing a 512-token prefix with
+    the third; with ``ignore_eos`` each request asks to decode past eos."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -1262,7 +1292,7 @@ def run_traffic(torch, port: int, vocab: int, ignore_eos: bool = False) -> dict:
     extra = {"ignore_eos": True} if ignore_eos else {}
 
     def one(i):
-        results[i] = post(port, "/v1/completions", {"prompt": prompts[i], "max_tokens": 64, **extra})
+        results[i] = post(port, "/v1/completions", {"prompt": prompts[i], "max_tokens": max_tokens, **extra})
 
     t1 = time.monotonic()
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
@@ -1277,12 +1307,12 @@ def run_traffic(torch, port: int, vocab: int, ignore_eos: bool = False) -> dict:
     # 200 fresh ids -> a prefix-cache hit
     shared = prompts[2][:512] + rng.integers(0, vocab, 200).tolist()
     t2 = time.monotonic()
-    fifth = post(port, "/v1/completions", {"prompt": shared, "max_tokens": 64, **extra})
+    fifth = post(port, "/v1/completions", {"prompt": shared, "max_tokens": max_tokens, **extra})
     fifth_s = time.monotonic() - t2
     torch.cuda.synchronize()
     for r in results + [fifth]:
         ids = r["choices"][0]["token_ids"]
-        if len(ids) != 64 or not all(0 <= t < vocab for t in ids):
+        if len(ids) != max_tokens or not all(0 <= t < vocab for t in ids):
             raise AssertionError(f"bad completion {ids[:8]}...")
     completion = sum(r["usage"]["completion_tokens"] for r in results)
     return {
@@ -1748,15 +1778,41 @@ HF_LAYER = {
 }
 
 
+#: Mixtral-8x7B's published config.json at two of its 32 layers (the
+#: fields the loader reads, and their neighbours); generation_config.json
+MIXTRAL_HF_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "hidden_act": "silu",
+    "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32, "num_hidden_layers": 2,
+    "num_key_value_heads": 8, "vocab_size": 32000, "max_position_embeddings": 32768, "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0, "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 1, "eos_token_id": 2, "num_local_experts": 8, "num_experts_per_tok": 2,
+    "router_aux_loss_coef": 0.02, "output_router_logits": False,
+}
+MIXTRAL_HF_GENERATION = {"bos_token_id": 1, "eos_token_id": 2}
+#: Mixtral's layer tensors in the HF layout: the attention trunk's as
+#: Llama's, the router and each expert's w1/w3/w2 (gate, up, down)
+MIXTRAL_HF_LAYER = {k: v for k, v in HF_LAYER.items() if not k.startswith("mlp.")}
+MIXTRAL_HF_EXPERT = {"w1.weight": "w_gate", "w2.weight": "w_down", "w3.weight": "w_up"}
+
+
 def hf_tensors(model) -> list:
     """(HF name, a function giving the tensor on the card in the HF
-    layout) for every weight of a one-rank Llama-3 ``model``, in the
-    published checkpoint's order."""
+    layout) for every weight of a one-rank Llama-3 or Mixtral ``model``,
+    in the published checkpoint's order."""
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import is_moe
+
+    moe = is_moe(model.cfg)
     out = [("model.embed_tokens.weight", lambda: model.embed)]
     for i in range(model.cfg.num_layers):
-        for suffix, (name, transposed) in HF_LAYER.items():
+        for suffix, (name, transposed) in (MIXTRAL_HF_LAYER if moe else HF_LAYER).items():
             out.append((f"model.layers.{i}.{suffix}",
                         lambda i=i, name=name, t=transposed: model.layers[name][i].t() if t else model.layers[name][i]))
+        if moe:
+            out.append((f"model.layers.{i}.block_sparse_moe.gate.weight", lambda i=i: model.layers["router"][i].t()))
+            for e in range(model.cfg.num_experts):
+                for suffix, name in MIXTRAL_HF_EXPERT.items():
+                    out.append((f"model.layers.{i}.block_sparse_moe.experts.{e}.{suffix}",
+                                lambda i=i, e=e, name=name: model.layers[name][i, e].t()))
     out += [("model.norm.weight", lambda: model.final_norm), ("lm_head.weight", lambda: model.lm_head.t())]
     return out
 
@@ -1776,12 +1832,13 @@ def checkpoint_dir(need: int) -> str:
     raise RuntimeError(f"no local disk has room for the {need}-byte checkpoint: free bytes {free}")
 
 
-def write_hf_checkpoint(torch, model, path: str) -> dict:
+def write_hf_checkpoint(torch, model, path: str, config: dict = HF_CONFIG, generation: dict = HF_GENERATION) -> dict:
     """``model``'s weights as a Hugging Face Llama checkpoint in ``path``,
-    in Llama-3-8B's published layout: shards of at most
-    ``HF_SHARD_BYTES`` named ``model-0000k-of-0000n.safetensors``, their
-    index, ``config.json`` and ``generation_config.json``; no tokenizer.
-    One tensor at a time passes through the host."""
+    in Llama-3-8B's published layout (or, with Mixtral's ``config``, in
+    Mixtral's tensor names): shards of at most ``HF_SHARD_BYTES`` named
+    ``model-0000k-of-0000n.safetensors``, their index, ``config.json``
+    and ``generation_config.json``; no tokenizer. One tensor at a time
+    passes through the host."""
     from llm_d_fast_model_actuation_tpu_torch.models import safetensors
 
     t0 = time.monotonic()
@@ -1807,9 +1864,9 @@ def write_hf_checkpoint(torch, model, path: str) -> dict:
     with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
         json.dump({"metadata": {"total_size": data_bytes}, "weight_map": weight_map}, f)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(HF_CONFIG, f)
+        json.dump(config, f)
     with open(os.path.join(path, "generation_config.json"), "w") as f:
-        json.dump(HF_GENERATION, f)
+        json.dump(generation, f)
     del specs
     return {"shards": len(shards), "tensors": len(weight_map), "data_bytes": data_bytes, "file_bytes": total,
             "write_s": time.monotonic() - t0}
@@ -3321,8 +3378,12 @@ def priced_exactly(rec: dict, where: str) -> None:
 
 
 #: the coresident phase's streams, the base's, A' 's and A'' 's in turn
-#: (each model's third one seeded), 64 new tokens each
-CO_PROMPT_LENS = (20, 1500, 3000, 300, 2000, 700, 60, 2500, 1100)
+#: (each model's third one seeded), 64 new tokens each; the prompts are
+#: about a quarter of what they were before the MoE phases joined the
+#: script (20-3000 ids, 11,180 in all), to keep it within its time limit:
+#: both co-resident phases spend most of their time prefilling them in
+#: 72-token packed steps, one pass per resident
+CO_PROMPT_LENS = (20, 375, 750, 300, 500, 350, 60, 625, 275)
 CO_NEW_TOKENS = 64
 #: coresident_engine's: its four runs each prefill the nine prompts
 CO_ENGINE_NEW_TOKENS = 16
@@ -4596,7 +4657,9 @@ def graphs_phase(torch, smi: str) -> dict:
     """A llama3-8b engine at full width and depth built directly: the
     captured T = 8 and T = 1 chunks held bit for bit against the eager
     chunk on the same state, then TPOT and tokens/s with the graphs and
-    without them (on, off, off, on, in this one call)."""
+    without them (on, then off, in this one call: two turns, where there
+    were four before the MoE phases joined the script, for its time
+    limit)."""
     import numpy as np
 
     from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine
@@ -4623,7 +4686,7 @@ def graphs_phase(torch, smi: str) -> dict:
     device = chunk_device_profile(torch, eng, 8)
     eng.abort_all("parity check done")
     runs, graphs = {}, eng.graphs
-    for name in ("graphs_on", "graphs_off", "graphs_off_2", "graphs_on_2"):
+    for name in ("graphs_on", "graphs_off"):
         eng.graphs = None if name.startswith("graphs_off") else graphs  # off: the eager chunk
         runs[name] = timed_run(torch, eng, prompts)
     eng.graphs = graphs
@@ -4697,6 +4760,12 @@ def serve_packed(torch, smi: str, bucketed: dict) -> dict:
         stop_service(torch, service, server)
 
 
+#: new tokens of each request of the two-rank serve's traffic (the other
+#: serves' 64 cut to fit the script's time limit; its tokens are compared
+#: with the bucketed serve's for reading only)
+TP2_MAX_TOKENS = 32
+
+
 def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
     """The serve phases' traffic through a tensor-parallel packed server:
     two ranks, both on card 0. Then one level-1 sleep and wake. Returns
@@ -4718,7 +4787,9 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         shard_shapes = [tuple(k.shape) for k, _ in eng.pool.shards]
         wq = [tuple(m.layers["wq"].shape) for m in eng.model.ranks]
         torch.cuda.reset_peak_memory_stats()
-        traffic = run_traffic(torch, port, eng.cfg.model.vocab_size)
+        # 32 tokens a request, where the other serves take 64: two ranks
+        # on one card run their steps eagerly, and the time limit is shared
+        traffic = run_traffic(torch, port, eng.cfg.model.vocab_size, max_tokens=TP2_MAX_TOKENS)
         counts = path_counts(eng)  # all eager: the mesh captures no graph
         check_probe_launch(counts)  # two ranks, one distinct device: one probe
         # read now: the sleep/wake probes below add steps of their own
@@ -4739,7 +4810,7 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         peak = torch.cuda.max_memory_allocated() / GIB
         # one level-1 sleep and wake; the reference output is a repeat of
         # request 1 on this same engine (a prefix-cache hit)
-        probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": TP2_MAX_TOKENS}
         before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
         ptrs = state_ptrs(eng)
         info = post(port, "/sleep?level=1")
@@ -5721,6 +5792,408 @@ def pipeline_phase(torch, smi: str) -> dict:
     return out
 
 
+#: the batched W8A16 product at Mixtral-8x7B's expert stacks: (experts,
+#: in, out, one x shared by every expert): the gate and up products read
+#: one x, the down product an x per expert
+W8A16_EXPERT_SHAPES = ((8, 4096, 14336, True), (8, 14336, 4096, False))
+W8A16_EXPERTS_REPLACES = ("none: the JAX package's expert product is XLA "
+                          "(llm_d_fast_model_actuation_tpu/models/moe.py:153)")
+
+
+def check_w8a16_experts(torch, gen) -> list:
+    """The batched W8A16 kernel at Mixtral-8x7B's two expert-stack shapes
+    (E = 8; 4096 -> 14336 with one shared x, 14336 -> 4096 with an x per
+    expert) at 1, 8 and 64 rows, against its plain version, as
+    :func:`check_w8a16` holds the 2-D product: the error over the largest
+    plain value under ``W8A16_TOL``, the same bits from a second launch,
+    one launch under CUDA's sync debug mode; ``ms``, ``device_ms``, the
+    plain version's time, bf16 ``torch.matmul`` over the same experts
+    (the library yardstick, a batched product), and the bound from the
+    int8 weights, scales, x and y bytes or the flops."""
+    from llm_d_fast_model_actuation_tpu_torch.ops.cuda import w8a16 as mod
+
+    rows = []
+    for E, K, N, shared in W8A16_EXPERT_SHAPES:
+        q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda", dtype=torch.int8)
+        s = (torch.rand((E, 1, N), generator=gen, device="cuda") + 3.0) * (K**-0.5 / 127)
+        w = q.to(torch.bfloat16)
+        for M in W8A16_ROWS:
+            x = torch.randn((M, K) if shared else (E, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+
+            def kernel():
+                return mod.w8a16_matmul_experts(x, q, s)
+
+            y, ref = kernel(), mod.w8a16_matmul_experts_plain(x, q, s)
+            max_abs, _ = errors(y, ref)
+            rel = max_abs / ref.float().abs().max().item()
+            same = torch.equal(y, kernel())
+            if not rel < W8A16_TOL or not same:
+                raise AssertionError(f"batched W8A16 at E={E} [{M}, {K}] @ [{K}, {N}] (x shared {shared}): error "
+                                     f"{rel:.3e} of the largest plain value (limit {W8A16_TOL}), bit-stable {same}")
+            if M == 8:
+                sync_free(kernel)
+            bound, by = bound_ms(E * K * N + 4 * E * N + 2 * x.numel() + 2 * E * M * N, 2 * E * M * K * N)
+            rows.append({"name": f"w8a16_experts[E={E},in={K},out={N}]", "route": "cuda", "source": W8A16_SOURCE,
+                         "replaces": W8A16_EXPERTS_REPLACES, "rows": M, "experts": E, "in": K, "out": N,
+                         "x_shared": shared, "plan": list(mod.launch_plan(M, K, N, E)),
+                         "max_abs_err": max_abs, "rel_err": rel, "bit_stable": same,
+                         "ms": time_ms(kernel, 20), "device_ms": graph_ms(kernel, 20),
+                         "plain_ms": time_ms(lambda: mod.w8a16_matmul_experts_plain(x, q, s), 20),
+                         "library_ms": time_ms(lambda: torch.matmul(x, w), 20),
+                         "library": "torch.matmul bf16 over the experts", "bound_ms": bound, "bound_by": by})
+            del x, y, ref
+        del q, s, w
+    return rows
+
+
+MOE_OPTS = "--model mixtral-8x7b --quantization int8 --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
+#: Mixtral-8x7B under --quantization int8: the int8 stacks and lm_head
+#: 46,570,405,888 B, their f32 scales (a scale per expert and output
+#: channel) 34,993,152 B, the bf16 embedding, routers and norms
+#: 264,773,632 B
+MOE_PARAM_BYTES = 46_870_172_672
+#: a level-1 sleep of that engine: the parameters and the 2048 x 16-token
+#: KV pool (4,294,967,296 B)
+MOE_SLEEP_BYTES = 51_165_139_968
+#: host memory the sleep needs beside its pinned copies
+MOE_SLEEP_HOST_SLACK_BYTES = 2 * GIB
+#: the W8A16 launches of one Mixtral decode step a layer, by product shape:
+#: the attention trunk's four (2-D), the three expert stacks' (batched)
+MOE_W8A16_PER_LAYER = {"4096x4096": 2, "4096x1024": 2}
+MOE_W8A16_EXPERTS_PER_LAYER = {"8x4096x14336": 2, "8x14336x4096": 1}
+#: the layers of the in-process MoE parity model and of the checkpoint
+MOE_PARITY_LAYERS = 4
+MOE_HF_LAYERS = 2
+#: one layer's bf16 expert stacks (3 x 8 x 4096 x 14336 x 2 B): the most
+#: an int8 load may hold on the card beyond the int8 parameters
+MOE_LAYER_STACK_BYTES = 2_818_572_288
+#: the roundings an MoE int8 layer adds to the dense int8 layer's: the
+#: router's logits rounded to bf16, and the experts' weighted sum rounded
+MOE_INT8_ROUNDINGS_PER_LAYER = INT8_ROUNDINGS_PER_LAYER + 2
+
+
+def moe_w8a16_launches(eng, counts: dict) -> dict:
+    """The W8A16 kernel's launches in an MoE serve run by product shape
+    (the 2-D ones ``"<in>x<out>"``, the batched ones ``"<E>x<in>x<out>"``):
+    the wrappers' eager ones plus the replayed ones. Every captured chunk
+    must hold ``(7 L + 1) x T`` W8A16 nodes: four attention products and
+    three expert products a layer, and lm_head."""
+    L = eng.cfg.model.num_layers
+    per_step = {k: c * L for k, c in MOE_W8A16_PER_LAYER.items()}
+    per_step[f"4096x{eng.cfg.model.vocab_size}"] = 1
+    per_step_experts = {k: c * L for k, c in MOE_W8A16_EXPERTS_PER_LAYER.items()}
+    for (T, sampled), program in eng.graphs.programs.items():
+        if w8a16_nodes(program) != (7 * L + 1) * T:
+            raise AssertionError(f"the captured T={T} chunk (sampled={sampled}) holds {w8a16_nodes(program)} W8A16 "
+                                 f"nodes, want (7 x {L} + 1) x {T}")
+    replay_steps = sum(p.steps * p.replays for p in eng.graphs.programs.values())
+    eager, eager_e = counts["w8a16_by_shape"], counts["w8a16_experts_by_shape"]
+    return {"w8a16": {k: eager.get(k, 0) + n * replay_steps for k, n in per_step.items()},
+            "w8a16_experts": {k: eager_e.get(k, 0) + n * replay_steps for k, n in per_step_experts.items()}}
+
+
+def moe_parity_limit(layers: int) -> float:
+    """The top of an MoE int8 path's rel-L2 band against the fp32 oracle
+    of its quantized weights, routed as the path routed: as
+    :func:`int8_parity_limit` with ``MOE_INT8_ROUNDINGS_PER_LAYER``."""
+    return ROUNDING_RMS * (MOE_INT8_ROUNDINGS_PER_LAYER * layers + 4) ** 0.5
+
+
+def moe_oracle_logits(torch, model, tokens, rows, routes) -> tuple:
+    """The fp32 oracle of a one-rank MoE ``model`` (:func:`oracle_logits`'
+    forward with the MoE FFN): each token's FFN the weighted sum of the
+    experts ``routes[layer]`` [s, k] name (the bf16 path's choice), its
+    weights the softmax of the oracle's own fp32 router logits at those
+    experts. Returns the fp32 logits at ``rows`` and the share of the
+    (token, layer) decisions whose expert set differs from the oracle's
+    own fp32 top-k (ties to the lower index)."""
+    cfg = model.cfg
+    f32 = torch.float32
+    dev = model.embed.device
+    s = tokens.shape[0]
+    h, kvh, d, k = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.experts_per_token
+
+    def norm(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.rms_eps) * w.float()
+
+    inv = cfg.rope_theta ** (-torch.arange(0, d, 2, dtype=torch.float64, device=dev) / d)
+    ang = torch.arange(s, dtype=torch.float64, device=dev)[:, None] * inv[None, :]
+    cos, sin = torch.cos(ang).to(f32)[:, None, :], torch.sin(ang).to(f32)[:, None, :]
+
+    def rope(x):
+        x1, x2 = x[..., : d // 2], x[..., d // 2:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+    causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    x = model.embed[tokens.long()].float()
+    differ = 0
+    with torch.no_grad():
+        for i in range(cfg.num_layers):
+            w = {n: v.float() for n, v in model.layer(i).items()}
+            a = norm(x, w["attn_norm"])
+            q = rope((a @ w["wq"]).view(s, h, d))
+            kk = rope((a @ w["wk"]).view(s, kvh, d)).repeat_interleave(h // kvh, dim=1)
+            v = (a @ w["wv"]).view(s, kvh, d).repeat_interleave(h // kvh, dim=1)
+            sc = torch.einsum("qhd,khd->hqk", q, kk) / d ** 0.5
+            p = torch.softmax(sc.masked_fill(~causal, float("-inf")), dim=-1)
+            x = x + torch.einsum("hqk,khd->qhd", p, v).reshape(s, h * d) @ w["wo"]
+            m = norm(x, w["mlp_norm"])
+            logits = m @ w["router"]
+            own = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :k]
+            idx = routes[i].to(dev)
+            differ += int((own.sort(-1).values != idx.sort(-1).values).any(-1).sum())
+            wts = torch.softmax(logits.gather(-1, idx), dim=-1)
+            y = torch.zeros_like(x)
+            for e in range(cfg.num_experts):
+                hit = idx == e  # [s, k]
+                sel = hit.any(-1).nonzero()[:, 0]
+                if sel.numel():
+                    me = m[sel]
+                    out = (torch.nn.functional.silu(me @ w["w_gate"][e]) * (me @ w["w_up"][e])) @ w["w_down"][e]
+                    y[sel] += (wts * hit).sum(-1)[sel, None] * out
+            x = x + y
+            del w, a, q, kk, v, sc, p, m
+        yr = norm(x[rows], model.final_norm)
+        head = model.head()
+        step = 32768
+        logits = torch.cat([yr @ head[:, j : j + step].float() for j in range(0, head.shape[1], step)], dim=-1)
+    return logits, differ / (s * cfg.num_layers)
+
+
+def moe_parity(torch, seed: int = 5, n: int = 300) -> dict:
+    """Mixtral-8x7B at ``MOE_PARITY_LAYERS`` layers and full width under
+    int8, drawn in process: its bucketed prefill at ``n - 1`` (the plain
+    products) and the inline decode of its argmax at ``n`` (the W8A16
+    kernels, one row) on one prompt, each layer's routing recorded, held
+    against the fp32 oracle of the same quantized weights routed as they
+    were routed, gated at :func:`moe_parity_limit`; beside it the share of
+    (token, layer) routing decisions that fp32 routing would change."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama, moe
+
+    free_memory(torch)
+    cfg = dataclasses.replace(moe.MoeConfig.mixtral_8x7b(), num_layers=MOE_PARITY_LAYERS, quantization="int8")
+    model = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    ps = 16
+    pages = -(-(n + 1) // ps)
+    kv = tuple(torch.zeros((cfg.num_layers, pages + 1, ps, cfg.num_kv_heads, cfg.head_dim), dtype=cfg.dtype,
+                           device="cuda") for _ in range(2))
+    pt = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    tokens = torch.zeros((1, prefill_bucket(n, cfg.max_seq_len)), dtype=torch.int32, device="cuda")
+    tokens[0, :n] = prompt
+    recorded = []
+    plain_route = moe.route
+
+    def recording(cfg_, router, x):
+        idx, probs = plain_route(cfg_, router, x)
+        recorded.append(idx)
+        return idx, probs
+
+    moe.route = recording
+    try:
+        pre = llama.prefill(model, tokens, torch.tensor([n], dtype=torch.int32, device="cuda"), kv, pt)[0, n - 1]
+        nxt = pre.argmax().to(torch.int32)[None]
+        launches = kernel_wrappers()["w8a16_experts"].launches
+        dec = llama.decode_step(model, nxt, torch.tensor([n], dtype=torch.int32, device="cuda"), kv, pt)[0]
+        launches = kernel_wrappers()["w8a16_experts"].launches - launches
+    finally:
+        moe.route = plain_route
+    del kv
+    L = cfg.num_layers
+    if len(recorded) != 2 * L or launches != 3 * L:
+        raise AssertionError(f"the parity run routed {len(recorded)} times (want {2 * L}) and launched the batched "
+                             f"W8A16 kernel {launches} times in its decode step (want {3 * L})")
+    routes = [torch.cat([recorded[i][:n], recorded[L + i]]) for i in range(L)]
+    oracle, differ = moe_oracle_logits(torch, Dequantized(model), torch.cat([prompt, nxt]), [n - 1, n], routes)
+    figures = {"prefill": parity_figure(torch, pre, oracle[0]), "decode_inline": parity_figure(torch, dec, oracle[1])}
+    limit = moe_parity_limit(L)
+    refused = parity_gate(figures, L, limit=limit)
+    del model
+    free_memory(torch)
+    if refused:
+        raise AssertionError(f"an MoE int8 path breaks the parity gate against the oracle of its quantized weights: "
+                             f"{refused}")
+    return {"layers": L, "against_fp32_oracle": figures, "limit_rel_l2": limit,
+            "predicted_rel_l2": [ROUNDING_RMS * (2 * L + 4) ** 0.5, limit],
+            "routing_decisions_fp32_would_change": differ,
+            "oracle": "plain fp32 forward of q x s, a layer dequantized at a time, routed as the bf16 path routed"}
+
+
+def serve_moe(torch, smi: str) -> dict:
+    """Mixtral-8x7B at full width and depth under ``--quantization int8``
+    (random weights from ``--seed``), bucketed: its parameter bytes
+    exactly ``MOE_PARAM_BYTES``; the serve traffic, every decode chunk a
+    replay whose graph holds L x T decode nodes and (7 L + 1) x T W8A16
+    nodes; the replayed step's device time by kernel kind; one level-1
+    cycle of exactly ``MOE_SLEEP_BYTES`` (the host's MemAvailable checked
+    for room first), priced by ``/v1/costs`` to the byte, capturing
+    nothing and moving no state tensor, the tokens after the wake those
+    before; then :func:`moe_parity` at reduced depth. Reports TTFT, TPOT
+    and the wake's seconds and GB/s."""
+    import numpy as np
+
+    t_phase = time.monotonic()
+    service, server, init_s, free_before = start_service(torch, MOE_OPTS)
+    port = server.server_address[1]
+    try:
+        eng = service.engine
+        L, vocab = eng.cfg.model.num_layers, eng.cfg.model.vocab_size
+        nbytes = sum(p.numel() * p.element_size() for p in eng.model.parameters())
+        if nbytes != MOE_PARAM_BYTES:
+            raise AssertionError(f"the Mixtral int8 engine holds {nbytes} parameter bytes, want {MOE_PARAM_BYTES}")
+        traffic = run_traffic(torch, port, vocab)
+        counts = path_counts(eng)
+        check_probe_launch(counts)
+        check_replays(eng, counts, "decode_inline")
+        by_shape = moe_w8a16_launches(eng, counts)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, vocab, n).tolist() for n in GRAPH_PROMPT_LENS]
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": 16}
+        post(port, "/v1/completions", probe)
+        before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        ptrs, captures = state_ptrs(eng), eng.graph_captures
+        host = mem_available()
+        if host < MOE_SLEEP_BYTES + MOE_SLEEP_HOST_SLACK_BYTES:
+            raise AssertionError(f"the host has {host} bytes available, the level-1 sleep needs {MOE_SLEEP_BYTES} "
+                                 f"and {MOE_SLEEP_HOST_SLACK_BYTES} beside them")
+        info = post(port, "/sleep?level=1")
+        priced_exactly(last_record(port, "sleep"), "the Mixtral level-1 sleep")
+        asleep = check_asleep(torch, eng, free_before)
+        woke = post(port, "/wake_up")
+        priced_exactly(last_record(port, "wake"), "the Mixtral wake")
+        after = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        if info["bytes_offloaded"] != MOE_SLEEP_BYTES or after != before:
+            raise AssertionError(f"the Mixtral level-1 cycle moved {info['bytes_offloaded']} bytes (want "
+                                 f"{MOE_SLEEP_BYTES}), tokens equal after the wake: {after == before}")
+        if eng.graph_captures != captures or state_ptrs(eng) != ptrs:
+            raise AssertionError("the Mixtral sleep/wake cycle re-captured a graph or moved a state tensor")
+        counts = path_counts(eng)
+        check_replays(eng, counts, "decode_inline")
+        by_shape = moe_w8a16_launches(eng, counts)
+        # after the counts: the profile replays graphs outside the serving path
+        device = service._on_loop(lambda: int8_profile(torch, eng, prompts))
+        out = {
+            "phase": "serve_moe", "model": "mixtral-8x7b", "quantization": "int8", "layers": L,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "init_s": init_s,
+            "param_bytes": nbytes, **traffic["summary"], **graph_stats(eng),
+            "w8a16_launches_by_shape": by_shape, "launches": counts, "replayed_step": device,
+            "sleep": {"bytes_offloaded": info["bytes_offloaded"], "sleep_s": info["last_sleep_seconds"],
+                      "wake_s": woke["last_wake_seconds"], "host_available_bytes": host,
+                      "wake_gb_per_s": info["bytes_offloaded"] / 1e9 / woke["last_wake_seconds"], **asleep},
+            "tokens_identical_after_wake": True, "graph_captures_unchanged": True,
+        }
+    finally:
+        stop_service(torch, service, server)
+        # the pinned host copies of the level-1 cycle go back to the host now
+        service._runtime = eng = None
+        gc.collect()
+        torch._C._host_emptyCache()
+    out["parity"] = moe_parity(torch)
+    out["seconds"] = time.monotonic() - t_phase
+    emit(out)
+    return {"counts": counts, "by_shape": by_shape}
+
+
+def moe_hf_model(name: str):
+    """Mixtral-8x7B at ``MOE_HF_LAYERS`` layers under the server's name
+    ``name``: the model an ``hf:`` directory of ``MIXTRAL_HF_CONFIG``
+    holds, offered to the server for the in-process engines."""
+    from llm_d_fast_model_actuation_tpu_torch.engine import server as srv
+    from llm_d_fast_model_actuation_tpu_torch.models import moe
+
+    srv.MODEL_CONFIGS[name] = lambda: dataclasses.replace(moe.MoeConfig.mixtral_8x7b(), num_layers=MOE_HF_LAYERS)
+
+
+def moe_tokens(port: int, prompts: list) -> list:
+    """Greedy completions of ``prompts`` one at a time (each alone in the
+    batch, at slot 0), 32 tokens each, past eos."""
+    return [post(port, "/v1/completions", {"prompt": p, "max_tokens": 32, "ignore_eos": True})["choices"][0]
+            ["token_ids"] for p in prompts]
+
+
+def serve_moe_hf(torch, smi: str) -> dict:
+    """A ``MOE_HF_LAYERS``-layer, full-width Mixtral checkpoint in
+    Mixtral's HF tensor names (6.33 GB), written from an in-process bf16
+    engine's seeded weights and served with ``--model hf:<dir>``: its
+    greedy tokens bit-equal to the in-process engine's; then under
+    ``--quantization int8`` the parameter bytes, the weights' fingerprints
+    and the tokens equal to an in-process int8 engine of the same seed,
+    and that engine's build (the load, staged in bf16 on the host and
+    quantized on the card a layer's [E, in, out] slice at a time, then the
+    captures) holding at most one layer's bf16 expert stacks
+    (``MOE_LAYER_STACK_BYTES``) on the card beyond its parameters. The
+    checkpoint is deleted at the end."""
+    import numpy as np
+
+    from llm_d_fast_model_actuation_tpu_torch.engine import server as srv
+
+    t_phase = time.monotonic()
+    name = "mixtral-8x7b-2-layers"
+    moe_hf_model(name)
+    base = "--num-pages 512 --seed 0 --max-batch 8 --device cuda"
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 32000, n).tolist() for n in (20, 300, 1500)]
+    ckpt = checkpoint_dir(2 * 6_329_376_768)
+    runs = {}
+    try:
+        for quant in ("", " --quantization int8"):
+            service, server, init_s, _ = start_service(torch, f"--model {name} {base}{quant}")
+            try:
+                eng = service.engine
+                if not quant:
+                    written = write_hf_checkpoint(torch, eng.model, ckpt, MIXTRAL_HF_CONFIG, MIXTRAL_HF_GENERATION)
+                runs[f"in_process{quant}"] = {
+                    "tokens": moe_tokens(server.server_address[1], prompts),
+                    "param_bytes": sum(p.numel() * p.element_size() for p in eng.model.parameters()),
+                    "fingerprint": fingerprint(torch, list(eng.model.parameters())), "init_s": init_s}
+            finally:
+                stop_service(torch, service, server)
+                service._runtime = eng = None
+            service = server = None
+            free_memory(torch)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            service, server, init_s, _ = start_service(torch, f"--model hf:{ckpt} {base}{quant}")
+            try:
+                eng = service.engine
+                # the build's peak beyond what was allocated before it: the
+                # load's temporaries (the parameters and the KV pool are
+                # the arena's, which the allocator does not count), and the
+                # captures' graph pools
+                beyond = torch.cuda.max_memory_allocated() - held
+                runs[f"hf{quant}"] = {"build_peak_beyond_params_bytes": beyond,
+                    "tokens": moe_tokens(server.server_address[1], prompts),
+                    "param_bytes": sum(p.numel() * p.element_size() for p in eng.model.parameters()),
+                    "fingerprint": fingerprint(torch, list(eng.model.parameters())), "init_s": init_s,
+                    "load": service.load_stats.summary()}
+            finally:
+                stop_service(torch, service, server)
+                service._runtime = eng = None
+        for quant in ("", " --quantization int8"):
+            a, b = runs[f"in_process{quant}"], runs[f"hf{quant}"]
+            if a["tokens"] != b["tokens"] or a["param_bytes"] != b["param_bytes"] or a["fingerprint"] != b["fingerprint"]:
+                raise AssertionError(f"hf:<Mixtral checkpoint>{quant or ' (bf16)'}: tokens equal "
+                                     f"{a['tokens'] == b['tokens']}, parameter bytes {b['param_bytes']} against "
+                                     f"{a['param_bytes']}, weights equal {a['fingerprint'] == b['fingerprint']}")
+        beyond = runs["hf --quantization int8"]["build_peak_beyond_params_bytes"]
+        if not beyond <= MOE_LAYER_STACK_BYTES:
+            raise AssertionError(f"the int8 load held {beyond} bytes beyond its parameters, more than one layer's bf16 "
+                                 f"expert stacks ({MOE_LAYER_STACK_BYTES})")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        srv.MODEL_CONFIGS.pop(name, None)
+    out = {"phase": "serve_moe_hf", "model": "hf:<2-layer Mixtral-8x7B checkpoint>", "layers": MOE_HF_LAYERS,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "checkpoint": written,
+           "tokens_bit_equal": {"bf16": True, "int8": True}, "int8_build_peak_beyond_params_bytes": beyond,
+           "int8_build_peak_limit_bytes": MOE_LAYER_STACK_BYTES,
+           "runs": {k: {kk: vv for kk, vv in v.items() if kk not in ("tokens", "fingerprint")} for k, v in runs.items()},
+           "seconds": time.monotonic() - t_phase}
+    emit(out)
+    return out
+
+
 def check_build_probe(torch) -> dict:
     """The probe kernel against its plain version, and its numbers."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build
@@ -5808,6 +6281,12 @@ def main() -> int:
     dual = dualpods_phase(torch, smi, bucketed, launched)
     speculative_phase(torch, smi)
     pipeline_phase(torch, smi)
+    # the MoE family, every earlier engine stopped and its pinned memory
+    # given back
+    w8_experts = check_w8a16_experts(torch, gen)
+    emit({"phase": "kernel_check", "kernel": "w8a16_experts", "checks": w8_experts, "nvidia_smi": smi})
+    moe = serve_moe(torch, smi)
+    serve_moe_hf(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)
@@ -5818,7 +6297,7 @@ def main() -> int:
     profile_again(torch, smi)
     runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], int8["counts"],
             zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], *dual["counts"],
-            packed["counts"],
+            moe["counts"], packed["counts"],
             tp2["counts"], reference["counts"])
 
     def total(key):
@@ -5850,7 +6329,11 @@ def main() -> int:
             kernels.append(dict(k, launches=sharded_by_rows[k["rows"]]))
     for k in w8:  # one entry per product shape, at a decode step's 8 rows
         if k["rows"] == 8:
-            kernels.append(dict(k, launches=int8["by_shape"][f"{k['in']}x{k['out']}"]))
+            shape = f"{k['in']}x{k['out']}"
+            kernels.append(dict(k, launches=int8["by_shape"][shape] + moe["by_shape"]["w8a16"].get(shape, 0)))
+    for k in w8_experts:  # the batched product, one entry per expert-stack shape
+        if k["rows"] == 8:
+            kernels.append(dict(k, launches=moe["by_shape"]["w8a16_experts"][f"{k['experts']}x{k['in']}x{k['out']}"]))
     kernels.append(dict(probe, launches=total("probe")))
     unused = [k["name"] for k in kernels if not k["launches"] > 0]
     if unused or not by_rows or not sharded_by_rows:

@@ -15,8 +15,11 @@
 // dequantized weight exists anywhere.
 //
 // Bound: at decode's rows (M <= 16) bytes. A step of Llama-3-8B reads
-// 7.5 GB of int8 weights, 2.24 ms at 3.35 TB/s; 2 M flops per weight
-// byte stay far below the card's ratio of operations to bytes.
+// 7.5 GB of int8 weights, 2.24 ms at 3.35 TB/s; a step of Mixtral-8x7B,
+// whose dense-compute FFN runs every expert on every token, 46.6 GB,
+// 13.9 ms; 2 M flops per weight byte stay far below the card's ratio of
+// operations to bytes. (The reference's MoE product is XLA too:
+// llm_d_fast_model_actuation_tpu/models/moe.py:_qeinsum.)
 //
 // Design (simple, CUDA cores; tensor cores, TMA and wgmma are later work):
 //   * a CTA owns kTileN = 256 output columns and one split of K (grid
@@ -38,6 +41,14 @@
 //     epilogue. No atomics: the result does not depend on the schedule.
 //   * rows beyond MB (8) loop inside the CTA: each block of rows reads
 //     the CTA's slice of q again, from L2.
+//   * the batched entry (fma_w8a16_bf16_experts) runs the same plan on
+//     every expert of an MoE layer's stack, the expert in the grid's z
+//     (grid [ceil(N / 256), splits, E]): expert e reads q[e] [K, N], s[e]
+//     [N], and x at e times x's expert stride (0 when every expert reads
+//     one x: the gate and up products), and writes y[e] [M, N]; the
+//     partials are [splits, E, M, N] and one reduction pass covers all
+//     E x M x N outputs. The 2-D entry is the batched one at E = 1, with
+//     the same arithmetic, so its bits are those it always had.
 // It allocates nothing and never synchronizes: the wrapper
 // (ops/cuda/w8a16.py) allocates y and the partials with torch.empty, so
 // a launch can be captured in a CUDA graph (the engine's decode chunks).
@@ -92,9 +103,17 @@ __device__ __forceinline__ void reduce_round(float* v, int offset, bool upper) {
 template <int MB>
 __global__ void __launch_bounds__(kThreads) w8a16_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    float* __restrict__ part, __nv_bfloat16* __restrict__ y, int M, int K, int N, int k_split) {
+    float* __restrict__ part, __nv_bfloat16* __restrict__ y, int M, int K, int N, int k_split,
+    long long x_estride) {
   extern __shared__ float xs[];  // [MB][k_split], this split's slice of MB rows of x
   constexpr int kVals = MB * kCols;
+  // this CTA's expert: its x, q, s and y; its partials' slab of [splits, E, M, N]
+  const size_t e = blockIdx.z, mn = static_cast<size_t>(M) * N;
+  x += e * static_cast<size_t>(x_estride);
+  q += e * K * static_cast<size_t>(N);
+  s += e * N;
+  y += e * mn;
+  if (part != nullptr) part += (static_cast<size_t>(blockIdx.y) * gridDim.z + e) * mn;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = lane & (kGroups - 1), kl = lane >> 2;
   const int n0 = blockIdx.x * kTileN + (warp * kGroups + group) * kCols;
@@ -149,61 +168,75 @@ __global__ void __launch_bounds__(kThreads) w8a16_kernel(
       if (!cols_in || m >= rows) continue;
       const size_t at = static_cast<size_t>(m0 + m) * N + n;
       if (part != nullptr)
-        part[static_cast<size_t>(blockIdx.y) * M * N + at] = acc[i];
+        part[at] = acc[i];
       else
         y[at] = epilogue(acc[i], s[n]);
     }
   }
 }
 
-// Sums the splits' partials in split order and applies the epilogue.
+// Sums the splits' partials in split order and applies the epilogue, over
+// all E x M x N outputs (E experts; output i belongs to expert i / (M N)).
 __global__ void w8a16_reduce(const float* __restrict__ part, const float* __restrict__ s,
-                             __nv_bfloat16* __restrict__ y, int M, int N, int splits) {
-  const size_t total = static_cast<size_t>(M) * N;
+                             __nv_bfloat16* __restrict__ y, int E, int M, int N, int splits) {
+  const size_t mn = static_cast<size_t>(M) * N, total = mn * E;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float acc = 0.f;
     for (int sp = 0; sp < splits; ++sp) acc += part[sp * total + i];
-    y[i] = epilogue(acc, s[i % N]);
+    y[i] = epilogue(acc, s[(i / mn) * N + i % N]);
   }
 }
 
 template <int MB>
-cudaError_t launch(const void* x, const void* q, const void* s, void* part, void* y, int M, int K, int N,
-                   int k_split, int splits, cudaStream_t stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, splits);
+cudaError_t launch(const void* x, const void* q, const void* s, void* part, void* y, int E, long long x_estride,
+                   int M, int K, int N, int k_split, int splits, cudaStream_t stream) {
+  const dim3 grid((N + kTileN - 1) / kTileN, splits, E);
   const size_t smem = static_cast<size_t>(MB) * k_split * sizeof(float);
   w8a16_kernel<MB><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      splits > 1 ? static_cast<float*>(part) : nullptr, static_cast<__nv_bfloat16*>(y), M, K, N, k_split);
+      splits > 1 ? static_cast<float*>(part) : nullptr, static_cast<__nv_bfloat16*>(y), M, K, N, k_split,
+      x_estride);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// y = bf16(bf16(x @ q) * bf16(s)) on `stream`, the plan (rows a pass
-// `mb`, K a split `k_split`, `splits`) from ops/cuda/w8a16.py:launch_plan.
-// `part` is [splits, M, N] f32 scratch when splits > 1 (else unused).
-// Returns the first launch error (0 = launched).
-extern "C" int fma_w8a16_bf16(const void* x, const void* q, const void* s, void* part, void* y, int M, int K,
-                              int N, int mb, int k_split, int splits, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % kCols || k_split % kKStep || splits < 1 ||
-      static_cast<long long>(k_split) * (splits - 1) >= K || static_cast<long long>(k_split) * splits < K ||
-      K % kKStep || static_cast<size_t>(mb) * k_split * sizeof(float) > 48 * 1024)
+// y[e] = bf16(bf16(x[e] @ q[e]) * bf16(s[e])) for the E experts of q [E, K,
+// N] and s [E, N], x[e] at e * x_estride elements of x (0: one shared x),
+// y [E, M, N], on `stream`; the plan (rows a pass `mb`, K a split
+// `k_split`, `splits`, the same for every expert) from
+// ops/cuda/w8a16.py:launch_plan. `part` is [splits, E, M, N] f32 scratch
+// when splits > 1 (else unused). Returns the first launch error (0 =
+// launched).
+extern "C" int fma_w8a16_bf16_experts(const void* x, const void* q, const void* s, void* part, void* y, int E,
+                                      long long x_estride, int M, int K, int N, int mb, int k_split, int splits,
+                                      void* stream) {
+  if (E <= 0 || E > 65535 || x_estride < 0 || M <= 0 || K <= 0 || N <= 0 || N % kCols || k_split % kKStep ||
+      splits < 1 || static_cast<long long>(k_split) * (splits - 1) >= K ||
+      static_cast<long long>(k_split) * splits < K || K % kKStep ||
+      static_cast<size_t>(mb) * k_split * sizeof(float) > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (mb) {
-    case 1: err = launch<1>(x, q, s, part, y, M, K, N, k_split, splits, st); break;
-    case 2: err = launch<2>(x, q, s, part, y, M, K, N, k_split, splits, st); break;
-    case 4: err = launch<4>(x, q, s, part, y, M, K, N, k_split, splits, st); break;
-    case 8: err = launch<8>(x, q, s, part, y, M, K, N, k_split, splits, st); break;
+    case 1: err = launch<1>(x, q, s, part, y, E, x_estride, M, K, N, k_split, splits, st); break;
+    case 2: err = launch<2>(x, q, s, part, y, E, x_estride, M, K, N, k_split, splits, st); break;
+    case 4: err = launch<4>(x, q, s, part, y, E, x_estride, M, K, N, k_split, splits, st); break;
+    case 8: err = launch<8>(x, q, s, part, y, E, x_estride, M, K, N, k_split, splits, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(M) * N;
+  const size_t total = static_cast<size_t>(M) * N * E;
   const int blocks = static_cast<int>((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
   w8a16_reduce<<<blocks, 256, 0, st>>>(static_cast<const float*>(part), static_cast<const float*>(s),
-                                        static_cast<__nv_bfloat16*>(y), M, N, splits);
+                                        static_cast<__nv_bfloat16*>(y), E, M, N, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// y = bf16(bf16(x @ q) * bf16(s)): the batched entry at one expert.
+// `part` is [splits, M, N] f32 scratch when splits > 1 (else unused).
+extern "C" int fma_w8a16_bf16(const void* x, const void* q, const void* s, void* part, void* y, int M, int K,
+                              int N, int mb, int k_split, int splits, void* stream) {
+  return fma_w8a16_bf16_experts(x, q, s, part, y, 1, 0, M, K, N, mb, k_split, splits, stream);
 }

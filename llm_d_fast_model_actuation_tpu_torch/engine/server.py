@@ -225,6 +225,7 @@ import torch
 from ..models import hf as hf_models
 from ..models import llama
 from ..models import quant as transfer_quant
+from ..models.moe import MoeConfig
 from ..ops.cuda import kernel_launches
 from ..ops.cuda.ragged import PAGE_SIZES
 from ..parallel.mesh import serving_mesh
@@ -245,6 +246,8 @@ MODEL_CONFIGS = {
     "tiny": llama.LlamaConfig.tiny,
     "llama3-8b": llama.LlamaConfig.llama3_8b,
     "llama3-70b": llama.LlamaConfig.llama3_70b,
+    "tiny-moe": MoeConfig.tiny_moe,
+    "mixtral-8x7b": MoeConfig.mixtral_8x7b,
     "tiny-gemma": llama.LlamaConfig.tiny_gemma,
     "gemma3-4b": llama.LlamaConfig.gemma3_4b,
     "qwen2-7b": lambda: llama.LlamaConfig(

@@ -16,6 +16,7 @@ import torch
 
 from ..parallel.mesh import shard
 from .llama import LlamaConfig, param_tp_dims
+from .moe import moe_config
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -43,7 +44,8 @@ def params_from_jax(
     for :class:`~.llama.Llama` (``layers.<name>`` for the stacked layer
     weights), on ``device``. A quantized leaf ``{"q", "s"}`` (a
     ``--quantization int8`` tree) carries across as it is, as
-    ``<name>.q`` and ``<name>.s``.
+    ``<name>.q`` and ``<name>.s`` (an MoE expert stack's scale is ``[L,
+    E, 1, out]``, a scale per expert).
 
     With a ``mesh`` (``parallel/mesh.py:TpMesh``) and the model's GLOBAL
     ``cfg``: the state dict of a :class:`~.llama.ShardedLlama`
@@ -78,13 +80,15 @@ def config_from_jax(cfg: Any) -> LlamaConfig:
     (its ``dtype`` mapped by name). ``attention_impl`` carries across: in
     the port it selects only the decode step's cache-write strategy
     (``"reference"`` = scatter-first), while the kernel is picked by the
-    device of the tensors."""
+    device of the tensors. A reference ``MoeConfig`` (it has
+    ``num_experts``) becomes the port's :class:`~.moe.MoeConfig`."""
     kw = {}
     for f in dataclasses.fields(LlamaConfig):
         v = getattr(cfg, f.name)
         if f.name == "dtype":
             v = _DTYPES[np.dtype(v).name]
         kw[f.name] = v
-    if getattr(cfg, "num_experts", 0) > 1:
-        raise ValueError("MoE configs are not supported by the port yet")
-    return LlamaConfig(**kw)
+    port = LlamaConfig(**kw)
+    if hasattr(cfg, "num_experts"):
+        return moe_config(port, num_experts=cfg.num_experts, experts_per_token=cfg.experts_per_token)
+    return port

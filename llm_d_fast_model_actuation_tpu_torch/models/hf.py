@@ -1,11 +1,13 @@
 """Hugging Face checkpoint import: ``config.json`` and the weight shards
 of a model directory, written into a model's own tensors.
 
-Port of ``llm_d_fast_model_actuation_tpu/models/hf.py``, dense families
-only: ``LlamaForCausalLM`` (Llama 2/3, TinyLlama), ``MistralForCausalLM``,
-``Qwen2ForCausalLM`` (q/k/v biases), ``Qwen3ForCausalLM`` (per-head q/k
-norms) and ``GemmaForCausalLM``; ``MixtralForCausalLM`` is refused by name
-(MoE is not ported). The config, eos, shard-layout, routing and
+Port of ``llm_d_fast_model_actuation_tpu/models/hf.py``, every family the
+reference reads: ``LlamaForCausalLM`` (Llama 2/3, TinyLlama),
+``MistralForCausalLM``, ``Qwen2ForCausalLM`` (q/k/v biases),
+``Qwen3ForCausalLM`` (per-head q/k norms), ``GemmaForCausalLM`` and
+``MixtralForCausalLM`` (the MoE family, ``models/moe.py``: each layer's
+``block_sparse_moe.gate`` is the router, each expert's ``w1``/``w3``/``w2``
+its slice ``[l, e]`` of ``w_gate``/``w_up``/``w_down``). The config, eos, shard-layout, routing and
 completeness rules are the reference's; the loader differs in where the
 weights go:
 
@@ -36,8 +38,9 @@ weights go:
     tensor by ``llama.param_tp_dims``, as ``models/convert.py`` cuts it.
 
 HF stores per-layer ``model.layers.{i}.<name>.weight`` as (out, in); the
-port's stacked layouts are (L, in, out), so a layer's tensor is written
-transposed into slice ``i``. The rotate-half RoPE layout and Gemma's
+port's stacked layouts are (L, in, out) (and (L, E, in, out) for expert
+stacks), so a layer's tensor is written transposed into slice ``i`` (an
+expert's into ``[i, e]``). The rotate-half RoPE layout and Gemma's
 zero-centred norms copy verbatim (``norm_offset``, ``embed_scale``).
 """
 
@@ -63,11 +66,13 @@ from .llama import (
     Llama,
     LlamaConfig,
     ShardedLlama,
+    is_moe,
     param_dtype,
     param_shapes,
     param_tp_dims,
     quantized_names,
 )
+from .moe import EXPERT_WEIGHTS, moe_config
 from .safetensors import DTYPES, SafetensorsFile
 
 #: HF ``architectures[0]`` -> config-knob overrides for the shared forward
@@ -83,10 +88,8 @@ ARCHITECTURES: Dict[str, Dict[str, Any]] = {
         # gemma ties embeddings by default, and config.json omits defaults
         "tie_embeddings": True,
     },
+    "MixtralForCausalLM": {},
 }
-
-#: architectures the reference serves and the port does not yet
-UNPORTED_ARCHITECTURES = {"MixtralForCausalLM": "MoE is not ported yet (ROADMAP queue 1 item 16)"}
 
 #: host bytes in flight while loading: every reader's two staging
 #: buffers together (``--load-inflight-mib``)
@@ -114,12 +117,11 @@ def _int_list(v: Any) -> list:
 def config_from_hf(path: str, **overrides: Any) -> LlamaConfig:
     """A :class:`~.llama.LlamaConfig` from an HF model directory's
     ``config.json``; ``overrides`` force fields (``dtype``,
-    ``max_seq_len``, ...)."""
+    ``max_seq_len``, ...); a :class:`~.moe.MoeConfig` for Mixtral, with its
+    ``num_local_experts`` and ``num_experts_per_tok``."""
     hf = _read_config(path)
     archs = hf.get("architectures") or []
     arch = archs[0] if archs else "LlamaForCausalLM"
-    if arch in UNPORTED_ARCHITECTURES:
-        raise ValueError(f"architecture {arch!r} is not supported by the port: {UNPORTED_ARCHITECTURES[arch]}")
     if arch not in ARCHITECTURES:
         raise ValueError(f"unsupported architecture {arch!r}; supported: {sorted(ARCHITECTURES)}")
     heads = int(hf["num_attention_heads"])
@@ -161,8 +163,12 @@ def config_from_hf(path: str, **overrides: Any) -> LlamaConfig:
     arch_defaults = dict(ARCHITECTURES[arch])
     fields["tie_embeddings"] = bool(hf.get("tie_word_embeddings", arch_defaults.pop("tie_embeddings", False)))
     fields.update(arch_defaults)
+    base = LlamaConfig()
+    if arch == "MixtralForCausalLM":
+        base = moe_config(base, num_experts=int(hf["num_local_experts"]),
+                          experts_per_token=int(hf["num_experts_per_tok"]))
     fields.update(overrides)
-    return dataclasses.replace(LlamaConfig(), **fields)
+    return dataclasses.replace(base, **fields)
 
 
 def eos_token_ids_from_hf(path: str) -> list:
@@ -309,6 +315,14 @@ _LAYER_MAP: Dict[str, Tuple[str, bool]] = {
     "post_attention_layernorm.weight": ("mlp_norm", False),
 }
 
+#: Mixtral's block-sparse FFN: an expert's suffix -> (the port's stack,
+#: transpose?)
+_EXPERT_MAP: Dict[str, Tuple[str, bool]] = {
+    "w1.weight": ("w_gate", True),
+    "w2.weight": ("w_down", True),
+    "w3.weight": ("w_up", True),
+}
+
 #: harmless checkpoint extras (precomputed buffers, not weights)
 _IGNORED_SUFFIXES = ("rotary_emb.inv_freq",)
 
@@ -319,11 +333,13 @@ _TOP_MAP: Dict[str, Tuple[str, bool]] = {
 }
 
 
-def _route(name: str, tie_embeddings: bool) -> Optional[Tuple[str, Optional[int], bool]]:
-    """An HF tensor name -> (the port's flat parameter name, layer or
-    None, transpose?); None for tensors ignored on purpose (precomputed
-    buffers, a tied lm_head); ValueError for anything unrecognized — a
-    silently dropped weight would serve wrong logits."""
+def _route(name: str, tie_embeddings: bool) -> Optional[Tuple[str, Optional[Tuple[int, ...]], bool]]:
+    """An HF tensor name -> (the port's flat parameter name, the slice it
+    writes — ``(layer,)``, ``(layer, expert)`` or None for a whole
+    parameter — transpose?); None for tensors ignored on purpose
+    (precomputed buffers, a tied lm_head); ValueError for anything
+    unrecognized, an unknown expert tensor too — a silently dropped weight
+    would serve wrong logits."""
     if name in _TOP_MAP:
         ours, transpose = _TOP_MAP[name]
         if ours == "lm_head" and tie_embeddings:
@@ -338,15 +354,26 @@ def _route(name: str, tie_embeddings: bool) -> Optional[Tuple[str, Optional[int]
         raise ValueError(f"unrecognized checkpoint tensor {name!r}")
     if suffix in _LAYER_MAP:
         ours, transpose = _LAYER_MAP[suffix]
-        return f"layers.{ours}", int(idx), transpose
+        return f"layers.{ours}", (int(idx),), transpose
+    if suffix == "block_sparse_moe.gate.weight":
+        return "layers.router", (int(idx),), True
+    if suffix.startswith("block_sparse_moe.experts."):
+        e, _, w = suffix[len("block_sparse_moe.experts."):].partition(".")
+        if not e.isdigit() or w not in _EXPERT_MAP:
+            raise ValueError(f"unrecognized expert tensor {name!r}")
+        ours, transpose = _EXPERT_MAP[w]
+        return f"layers.{ours}", (int(idx), int(e)), transpose
     if suffix.endswith(_IGNORED_SUFFIXES):
         return None
     raise ValueError(f"unrecognized checkpoint tensor {name!r}")
 
 
-def _want_slices(flat: str, shape: Tuple[int, ...]) -> Set[tuple]:
+def _want_slices(flat: str, shape: Tuple[int, ...], moe: bool) -> Set[tuple]:
     """Every slice the model expects a checkpoint tensor to write for this
-    parameter: one per layer of a stacked one, ``("*",)`` for the rest."""
+    parameter: one per layer of a stacked one, one per layer and expert of
+    an MoE expert stack, ``("*",)`` for the rest."""
+    if moe and flat.startswith("layers.") and flat[len("layers."):] in EXPERT_WEIGHTS:
+        return {(l, e) for l in range(shape[0]) for e in range(shape[1])}
     if flat.startswith("layers."):
         return {(l,) for l in range(shape[0])}
     return {("*",)}
@@ -359,7 +386,9 @@ class _Item:
     shard: _Shard
     name: str
     flat: str
-    layer: Optional[int]
+    #: the slice it writes (``(layer,)`` or ``(layer, expert)``), None for
+    #: a whole parameter
+    index: Optional[Tuple[int, ...]]
     transpose: bool
 
 
@@ -369,7 +398,7 @@ def _plan(path: str, cfg: LlamaConfig) -> Tuple[List[_Shard], List[_Item]]:
     is written by some tensor — all before a byte of weight is copied."""
     kind, files = _shard_files(path)
     shapes = param_shapes(cfg)
-    want = {k: _want_slices(k, s) for k, s in shapes.items()}
+    want = {k: _want_slices(k, s, is_moe(cfg)) for k, s in shapes.items()}
     staged: Dict[str, set] = {k: set() for k in shapes}
     shards, items = [], []
     for fname in files:
@@ -379,21 +408,22 @@ def _plan(path: str, cfg: LlamaConfig) -> Tuple[List[_Shard], List[_Item]]:
             route = _route(name, cfg.tie_embeddings)
             if route is None:
                 continue
-            flat, layer, transpose = route
-            if flat not in shapes:
+            flat, index, transpose = route
+            if flat not in shapes or index is not None and {len(k) for k in want[flat]} != {len(index)}:
                 # a tensor the config does not expect (biases with
-                # attn_bias off, q_norm without qk_norm, a layer past the
-                # stack) would be silently dropped weight otherwise
+                # attn_bias off, q_norm without qk_norm, an expert tensor
+                # in a dense model or a dense FFN in an MoE one) would be
+                # silently dropped weight otherwise
                 raise ValueError(f"checkpoint tensor {name} has no place in the model config (architecture mismatch?)")
-            if layer is not None and layer >= shapes[flat][0]:
-                raise ValueError(f"checkpoint tensor {name} has no place in the model config (layer {layer} of "
-                                 f"{shapes[flat][0]})")
+            if index is not None and any(i >= n for i, n in zip(index, shapes[flat])):
+                raise ValueError(f"checkpoint tensor {name} has no place in the model config (slice {index} of "
+                                 f"{shapes[flat][:len(index)]})")
             got = tuple(reversed(shape)) if transpose else tuple(shape)
-            expect = shapes[flat][1:] if layer is not None else shapes[flat]
+            expect = shapes[flat][len(index):] if index is not None else shapes[flat]
             if got != tuple(expect):
                 raise ValueError(f"{flat}: checkpoint shape {got} != model {tuple(expect)} (tensor {name})")
-            staged[flat].add(("*",) if layer is None else (layer,))
-            items.append(_Item(sh, name, flat, layer, transpose))
+            staged[flat].add(("*",) if index is None else index)
+            items.append(_Item(sh, name, flat, index, transpose))
     problems = []
     for flat in shapes:
         absent = want[flat] - staged[flat]
@@ -656,15 +686,19 @@ def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stat
                 piece = node if tp == 1 or d is None else shard(node, d, r, tp)
                 m.get_parameter(flat).copy_(piece, non_blocking=True)
             continue
-        stacked = len(shape) == 3
-        ds = d - 1 if stacked and d else d  # the split axis of one [in, out] slice
+        stacked = len(shape) >= 3
+        ds = d - 1 if stacked and d else d  # the split axis of one layer's slice
+        out_axis = len(shape) - (2 if stacked else 1)  # the slice's output axis
         for i in range(shape[0] if stacked else 1):
+            # a layer's slice ([in, out], or an MoE layer's [E, in, out],
+            # quantized an expert at a time): never a whole stack in bf16
+            # on the card
             w = (node[i] if stacked else node).to(dev, non_blocking=True)
             qd = quant_mod.quantize_weight(w)
             del w
             for r, m in enumerate(ranks):
                 qp = qd["q"] if tp == 1 else shard(qd["q"], ds, r, tp)
-                sp = qd["s"] if tp == 1 or ds != 1 else shard(qd["s"], ds, r, tp)
+                sp = qd["s"] if tp == 1 or ds != out_axis else shard(qd["s"], ds, r, tp)
                 q_dst, s_dst = m.get_parameter(f"{flat}.q"), m.get_parameter(f"{flat}.s")
                 (q_dst[i] if stacked else q_dst).copy_(qp)
                 (s_dst[i] if stacked else s_dst).copy_(sp)
@@ -889,13 +923,13 @@ def _load_params(
             check_abort()
             src = it.shard.get(it.name)
             d = dims[it.flat]
-            if d is not None and it.layer is not None:
-                d -= 1  # the dimension within one layer's slice
+            if d is not None and it.index is not None:
+                d -= len(it.index)  # the dimension within the slice
             n = 0
             for r, m in enumerate(ranks):
                 dest = m.get_parameter(it.flat)
-                if it.layer is not None:
-                    dest = dest[it.layer]
+                if it.index is not None:
+                    dest = dest[it.index]
                 piece = shard(src, (dest.dim() - 1 - d) if it.transpose else d, r, tp) if tp > 1 and d is not None else src
                 if m.device not in mine:
                     mine[m.device] = _Stager(m.device, chunk, begun.get(m.device))
@@ -968,7 +1002,7 @@ def _stage_host(cfg: LlamaConfig, groups, workers, stop, check_abort, account, d
         for it in group:
             check_abort()
             src = it.shard.get(it.name)
-            dest = bufs[it.flat] if it.layer is None else bufs[it.flat][it.layer]
+            dest = bufs[it.flat] if it.index is None else bufs[it.flat][it.index]
             t0 = time.perf_counter()
             dest.copy_(src.t() if it.transpose else src)
             dt = time.perf_counter() - t0

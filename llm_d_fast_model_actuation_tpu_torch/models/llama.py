@@ -177,6 +177,14 @@ class LlamaConfig:
         return self.num_kv_heads * self.head_dim
 
 
+def is_moe(cfg: Any) -> bool:
+    """Whether ``cfg`` is of the MoE family (``models/moe.py``): its layers
+    hold a router and expert stacks, and its FFN is :func:`~.moe.moe_ffn`."""
+    from .moe import MoeConfig  # moe.py imports this module
+
+    return isinstance(cfg, MoeConfig)
+
+
 #: the weight-only quantization modes (``--quantization``)
 QUANTIZATION_MODES = ("", "int8")
 
@@ -231,10 +239,19 @@ def _plain_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
         "layers.wv": (L, h, cfg.kv_dim),
         "layers.wo": (L, cfg.q_dim, h),
         "layers.mlp_norm": (L, h),
-        "layers.w_gate": (L, h, cfg.intermediate_size),
-        "layers.w_up": (L, h, cfg.intermediate_size),
-        "layers.w_down": (L, cfg.intermediate_size, h),
     }
+    f = cfg.intermediate_size
+    if is_moe(cfg):
+        # the MoE family: a router, and the FFN's stacks per expert
+        E = cfg.num_experts
+        shapes["layers.router"] = (L, h, E)
+        shapes["layers.w_gate"] = (L, E, h, f)
+        shapes["layers.w_up"] = (L, E, h, f)
+        shapes["layers.w_down"] = (L, E, f, h)
+    else:
+        shapes["layers.w_gate"] = (L, h, f)
+        shapes["layers.w_up"] = (L, h, f)
+        shapes["layers.w_down"] = (L, f, h)
     if cfg.post_norms:
         shapes["layers.post_attn_norm"] = (L, h)
         shapes["layers.post_ffn_norm"] = (L, h)
@@ -253,7 +270,8 @@ def _plain_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
 
 def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
     """Logical axis names of every parameter, in the reference's nested
-    structure (its ``param_logical_axes``, the same table)."""
+    structure (its ``param_logical_axes``, the same table; an MoE config's
+    is the reference's ``models/moe.py`` table)."""
     layers = {
         "attn_norm": ("layers", "embed"),
         "wq": ("layers", "embed", "heads"),
@@ -265,6 +283,13 @@ def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
         "w_up": ("layers", "embed", "mlp"),
         "w_down": ("layers", "mlp", "embed"),
     }
+    if is_moe(cfg):
+        # the reference's models/moe.py:param_logical_axes: the router
+        # replicated, the experts' f split over tp as the dense FFN's
+        layers["router"] = ("layers", "embed", None)
+        layers["w_gate"] = ("layers", "expert", "embed", "mlp")
+        layers["w_up"] = ("layers", "expert", "embed", "mlp")
+        layers["w_down"] = ("layers", "expert", "mlp", "embed")
     if cfg.post_norms:
         layers["post_attn_norm"] = ("layers", "embed")
         layers["post_ffn_norm"] = ("layers", "embed")
@@ -551,7 +576,9 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
     A quantized weight (``cfg.quantization``) is drawn as the plain model
     draws it, rounded to ``cfg.dtype`` and quantized one layer slice at a
     time (:func:`~.quant.quantize_weight`), so a quantized and a plain
-    model of one seed hold the same underlying weights. The scale is
+    model of one seed hold the same underlying weights. An MoE expert
+    stack ``[L, E, in, out]`` is drawn a layer's ``[E, in, out]`` at a
+    time, with the fan-in's scaling. The scale is
     taken over the whole fan-in before any split: a row-parallel weight's
     ranks share one scale."""
     ranks = list(model.ranks) if isinstance(model, ShardedLlama) else [model]
@@ -577,10 +604,10 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
             else:
                 shape, dim = shapes[name], dims[name]
                 fan_in = shape[-2] if short != "embed" else shape[-1]
-                stacked = len(shape) == 3
+                stacked = len(shape) >= 3
                 for i in range(shape[0] if stacked else 1):
                     src = torch.randn(
-                        shape[-2:], generator=generator, device=device,
+                        shape[1:] if stacked else shape, generator=generator, device=device,
                         dtype=torch.float32,
                     ).mul_(fan_in**-0.5)
                     for r, p in enumerate(dests):
@@ -596,19 +623,21 @@ def _draw_quantized(ranks: List[Llama], name: str, shape, dim: Optional[int], ge
     split is its output axis)."""
     cfg = ranks[0].cfg
     tp = len(ranks)
-    stacked = len(shape) == 3
-    d = dim - 1 if stacked and dim else dim  # the split axis of one [in, out] slice
+    stacked = len(shape) >= 3
+    d = dim - 1 if stacked and dim else dim  # the split axis of one layer's slice
+    out_axis = len(shape) - (2 if stacked else 1)  # the slice's output axis
     qs = [ranks[r].get_parameter(f"{name}.q") for r in range(tp)]
     ss = [ranks[r].get_parameter(f"{name}.s") for r in range(tp)]
     for i in range(shape[0] if stacked else 1):
-        src = torch.randn(shape[-2:], generator=generator, device=device, dtype=torch.float32).mul_(shape[-2] ** -0.5)
+        src = torch.randn(shape[1:] if stacked else shape, generator=generator, device=device,
+                          dtype=torch.float32).mul_(shape[-2] ** -0.5)
         w = src.to(cfg.dtype)
         del src
         qd = quantize_weight(w)
         del w
         for r in range(tp):
             qp = qd["q"] if tp == 1 else shard(qd["q"], d, r, tp)
-            sp = qd["s"] if tp == 1 or d != 1 else shard(qd["s"], d, r, tp)
+            sp = qd["s"] if tp == 1 or d != out_axis else shard(qd["s"], d, r, tp)
             (qs[r][i] if stacked else qs[r]).copy_(qp)
             (ss[r][i] if stacked else ss[r]).copy_(sp)
         del qd
@@ -694,6 +723,16 @@ def _mlp(cfg: LlamaConfig, x, gate, up, down):
     return qmat(a.to(x.dtype) * qmat(x, up), down)
 
 
+def _ffn(cfg: LlamaConfig, lp, x):
+    """The layer's FFN by family, as the reference's ``llama.py:_ffn``:
+    the dense gated MLP, or the MoE family's routed experts."""
+    if is_moe(cfg):
+        from .moe import moe_ffn
+
+        return moe_ffn(cfg, lp, x)
+    return _mlp(cfg, x, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
 def _project_qkv(model: Llama, lp, x, positions):
     """x: [b, s, hidden] -> q [b,s,heads,hd], k/v [b,s,kvh,hd], roped
     (the module's own heads: all of them, or one rank's)."""
@@ -767,7 +806,9 @@ def _layer_tail(mesh, ms, lps, x, attn):
     """The rest of a layer after attention. ``wo`` and ``w_down`` are
     row-parallel on a mesh: each rank's product is a partial sum, reduced
     FIRST; the post-norm and the residual then run on the full sum,
-    replicated on every rank."""
+    replicated on every rank. An MoE FFN's output is reduced where the
+    dense one's is: each rank routes the same replicated input with the
+    replicated router and sums its experts' partial down products."""
     cfg = ms[0].cfg
     o = _reduce(mesh, _each(mesh, lambda r: qmat(attn[r], lps[r]["wo"])))
 
@@ -775,7 +816,7 @@ def _layer_tail(mesh, ms, lps, x, attn):
         lp = lps[r]
         xr = x[r] + _post(cfg, lp, "post_attn_norm", o[r])
         h = _norm(cfg, xr, lp["mlp_norm"])
-        return xr, _mlp(cfg, h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return xr, _ffn(cfg, lp, h)
 
     mid = _each(mesh, mlp)
     y = _reduce(mesh, [m[1] for m in mid])

@@ -41,8 +41,9 @@ e4m3's largest finite 448, ``ml_dtypes`` gives NaN (sign kept) for
 ``|x| > 464`` (464 itself rounds to 448), and so does the port, on the
 card and on the host alike.
 
-On the card a leaf is quantized and dequantized one layer slice at a time
-(``leaf[l]``; a 2-D leaf in column blocks): the int8 scale reduces over
+On the card a leaf is quantized and dequantized one ``[in, out]`` slice at
+a time (``leaf[l]``, ``leaf[l, e]`` of an MoE expert stack; a 2-D leaf in
+column blocks): the int8 scale reduces over
 axis ``ndim - 2``, the fan-in, so the slices give the same bits as the
 whole leaf, and no f32 temporary of a whole stack (7.5 GB for
 Llama-3-8B's ``w_gate``) ever exists. These ops are XLA in the reference,
@@ -52,13 +53,19 @@ not Pallas: plain torch ops per slice are their port.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.cuda.w8a16 import w8a16_matmul, w8a16_matmul_plain
+from ..ops.cuda.w8a16 import (
+    w8a16_matmul,
+    w8a16_matmul_experts,
+    w8a16_matmul_experts_plain,
+    w8a16_matmul_plain,
+)
 
 #: weight stacks of a llama-family layer tree that int8 serving and a
 #: transfer quantize
@@ -111,6 +118,27 @@ def qmat(x: torch.Tensor, w: Any) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def qeinsum(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """The expert products of an MoE layer (the reference's ``moe.py:
+    _qeinsum``), expert major: ``x [rows, in]`` (one input every expert
+    reads) or ``[E, rows, in]`` (an input per expert) times an expert
+    stack ``w [E, in, out]``, plain or ``{"q", "s"}`` with ``s [E, 1,
+    out]``, gives ``[E, rows, out]``, each product rounded to ``x.dtype``
+    and a quantized one then times its scale rounded to ``x.dtype``. A
+    bf16 ``x`` on the card with at most :data:`W8A16_MAX_ROWS` rows and a
+    quantized stack launches the batched W8A16 kernel, one launch for all
+    E experts; any other product of a quantized stack takes its plain
+    version, and a plain stack is ``torch.matmul``."""
+    if is_quantized(w):
+        q, s = w["q"], w["s"]
+        if x.is_cuda and x.dtype == torch.bfloat16 and x.shape[-2] <= W8A16_MAX_ROWS:
+            return w8a16_matmul_experts(x, q, s)
+        return w8a16_matmul_experts_plain(x, q, s)
+    if not isinstance(w, torch.Tensor):
+        raise TypeError(f"a weight is a tensor or a quantized leaf {{'q', 's'}}, got {type(w).__name__}")
+    return torch.matmul(x, w)
+
+
 @torch.no_grad()
 def quantize_weight(w: torch.Tensor, q_out: Optional[torch.Tensor] = None,
                     s_out: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -119,7 +147,9 @@ def quantize_weight(w: torch.Tensor, q_out: Optional[torch.Tensor] = None,
     keeps a scale per layer (``[L, 1, out]``) and slicing a layer slices
     its scale: the reference's ``quantize_weight``, bit for bit (the same
     formula as the transfer's :func:`quantize_leaf`, whose slice-at-a-time
-    code it runs, where ``w`` lies). ``q_out``/``s_out`` are the tensors to
+    code it runs, where ``w`` lies). An expert stack ``[E, in, out]`` or
+    ``[L, E, in, out]`` keeps a scale per expert too, and is quantized an
+    expert slice at a time. ``q_out``/``s_out`` are the tensors to
     write in place (an engine's arena tensors), else new ones."""
     q, meta = quantize_leaf(w, "int8", out=q_out)
     s = meta.scale
@@ -132,15 +162,17 @@ def quantize_weight(w: torch.Tensor, q_out: Optional[torch.Tensor] = None,
 def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """The reference's ``quantize_params`` on a nested weight tree
     (``{"embed", "layers": {"wq", ...}, "lm_head", ...}``): every stack
-    of :data:`LAYER_WEIGHTS` (3-D) and ``lm_head`` becomes a quantized
-    leaf; the embedding and the norms stay as they are."""
+    of :data:`LAYER_WEIGHTS` (3-D, or an MoE layer's 4-D expert stacks
+    ``[L, E, in, out]``, a scale per expert) and ``lm_head`` becomes a
+    quantized leaf; the embedding, the norms and an MoE router stay as
+    they are."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in LAYER_WEIGHTS:
         w = layers.get(name)
         if w is not None and not is_quantized(w):
-            if w.ndim != 3:
-                raise ValueError(f"layers/{name}: a dense stack is 3-D, got {tuple(w.shape)} (MoE is not ported)")
+            if w.ndim not in (3, 4):
+                raise ValueError(f"layers/{name}: a layer stack is 3-D, or 4-D for experts; got {tuple(w.shape)}")
             layers[name] = quantize_weight(w)
     out["layers"] = layers
     head = params.get("lm_head")
@@ -159,7 +191,7 @@ def quantized_axes(axes: Dict[str, Any]) -> Dict[str, Any]:
     layers = dict(axes["layers"])
     for name in LAYER_WEIGHTS:
         ax = layers.get(name)
-        if ax is not None and len(ax) == 3:
+        if ax is not None and len(ax) in (3, 4):
             layers[name] = {"q": ax, "s": ax[:-2] + (None, ax[-1])}
     out["layers"] = layers
     if "lm_head" in axes:
@@ -249,10 +281,11 @@ def payload_nbytes(shape: Sequence[int], mode: str) -> int:
 
 def _blocks(shape: Sequence[int]) -> List[Tuple[Any, ...]]:
     """Index tuples that cut a leaf into pieces whose int8 scales are
-    independent: its layer slices (``[l]``), or for a 2-D leaf column
-    blocks (``[:, a:b]``), each a bounded number of elements."""
+    independent: its ``[in, out]`` slices (``[l]`` of a layer stack,
+    ``[l, e]`` of an MoE expert stack), or for a 2-D leaf column blocks
+    (``[:, a:b]``), each a bounded number of elements."""
     if len(shape) >= 3:
-        return [(i,) for i in range(int(shape[0]))]
+        return list(itertools.product(*(range(int(n)) for n in shape[:-2])))
     if len(shape) < 2:
         return [(Ellipsis,)]
     rows, cols = int(shape[0]), int(shape[1])

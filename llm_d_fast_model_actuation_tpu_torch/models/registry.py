@@ -1,8 +1,10 @@
 """Model-family dispatch: random init and weight quantization by config
 type.
 
-Port of ``models/registry.py`` for the dense Llama family; the MoE family
-is not ported yet and is refused. The draw goes into a model that already
+Port of ``models/registry.py``: the dense Llama family and the MoE family
+(``models/moe.py``), which share one model class and one draw: an MoE
+config's layers hold a router and expert stacks (``llama.param_shapes``),
+drawn a layer at a time like the dense stacks. The draw goes into a model that already
 exists (the engine's, in its arenas), in place, and quantizes there when
 the config asks for it (``llama.fill_params``). The reference's
 ``logical_axes_for`` of a quantized config is ``llama.param_tp_dims``
@@ -21,8 +23,8 @@ from .quant import quantize_params
 
 def fill_params_for(model: "llama.Llama | llama.ShardedLlama", generator: torch.Generator) -> None:
     cfg = model.cfg
-    if not isinstance(cfg, llama.LlamaConfig) or getattr(cfg, "num_experts", 0) > 1:
-        raise ValueError(f"unsupported model config {type(cfg).__name__} (dense Llama only)")
+    if not isinstance(cfg, llama.LlamaConfig):
+        raise ValueError(f"unsupported model config {type(cfg).__name__} (the Llama and MoE families)")
     llama.fill_params(model, generator)
 
 

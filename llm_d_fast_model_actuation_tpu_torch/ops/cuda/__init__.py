@@ -26,7 +26,12 @@ from .ragged import (  # noqa: F401
     ragged_paged_attention_sharded,
     ragged_paged_attention_sharded_plain,
 )
-from .w8a16 import w8a16_matmul, w8a16_matmul_plain  # noqa: F401
+from .w8a16 import (  # noqa: F401
+    w8a16_matmul,
+    w8a16_matmul_experts,
+    w8a16_matmul_experts_plain,
+    w8a16_matmul_plain,
+)
 
 
 def kernel_wrappers() -> dict:
@@ -40,16 +45,18 @@ def kernel_wrappers() -> dict:
         "ragged": ragged_paged_attention,
         "ragged_sharded": ragged_paged_attention_sharded,
         "w8a16": w8a16_matmul,
+        "w8a16_experts": w8a16_matmul_experts,
     }
 
 
 def kernel_launches() -> dict:
     """This process's eager launches by wrapper, and by shape where a
     wrapper counts them so (prefill by padded sequence, ragged by buffer
-    rows, the W8A16 product by weight shape)."""
+    rows, the W8A16 products by weight shape)."""
     counts = {k: fn.launches for k, fn in kernel_wrappers().items()}
     counts["prefill_by_seq"] = dict(causal_prefill_attention.launches_by_seq)
     counts["ragged_by_rows"] = dict(ragged_paged_attention.launches_by_rows)
     counts["ragged_sharded_by_rows"] = dict(ragged_paged_attention_sharded.launches_by_rows)
     counts["w8a16_by_shape"] = dict(w8a16_matmul.launches_by_shape)
+    counts["w8a16_experts_by_shape"] = dict(w8a16_matmul_experts.launches_by_shape)
     return counts

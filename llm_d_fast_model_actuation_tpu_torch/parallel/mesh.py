@@ -222,7 +222,7 @@ def make_mesh(
     """A mesh for ``plan`` over ``devices``. Only ``tp`` is realised: any
     other axis above 1 raises, naming where it is planned."""
     for axis, item in (("dp", "queue 1 item 15 (multi-host gangs)"), ("pp", "queue 1 item 15"),
-                       ("sp", "queue 1 item 16 (ring attention)"), ("ep", "queue 1 item 16 (MoE)")):
+                       ("sp", "queue 1 item 16 (ring attention)"), ("ep", "queue 1 item 16 (expert parallelism)")):
         if getattr(plan, axis) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={getattr(plan, axis)} is not ported yet: only tp is "

@@ -42,6 +42,8 @@ FAMILIES = {
         "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
         "original_max_position_embeddings": 32}}),
     "mistral_window": (transformers.MistralConfig, transformers.MistralForCausalLM, {"sliding_window": 64}),
+    "mixtral": (transformers.MixtralConfig, transformers.MixtralForCausalLM,
+                {"num_local_experts": 4, "num_experts_per_tok": 2}),
 }
 
 
@@ -89,20 +91,22 @@ def _break(d, how):
     fn = next((f for f in sorted(os.listdir(d)) if f.endswith(".safetensors")), None)
     if how == "unknown_architecture":
         _edit_config(d, architectures=["FalconForCausalLM"])
-    elif how == "mixtral":
-        _edit_config(d, architectures=["MixtralForCausalLM"], num_local_experts=2, num_experts_per_tok=1)
     elif how == "rope_scaling":
         _edit_config(d, rope_scaling={"rope_type": "yarn", "factor": 4.0})
     elif how == "no_weights":
         for f in os.listdir(d):
             if f.endswith(".safetensors"):
                 os.remove(os.path.join(d, f))
-    elif how in ("missing_layer_slice", "unrecognized_tensor"):
+    elif how in ("missing_layer_slice", "unrecognized_tensor", "unrecognized_expert_tensor", "missing_expert_slice"):
         sd = st.load_file(os.path.join(d, fn))
         if how == "missing_layer_slice":
             del sd["model.layers.1.mlp.gate_proj.weight"]
-        else:
+        elif how == "unrecognized_tensor":
             sd["model.layers.0.self_attn.q_proj.bias"] = torch.zeros(TINY["hidden_size"])
+        elif how == "missing_expert_slice":
+            del sd["model.layers.1.block_sparse_moe.experts.2.w3.weight"]
+        else:
+            sd["model.layers.0.block_sparse_moe.experts.1.w4.weight"] = torch.zeros(4, 4)
         st.save_file(sd, os.path.join(d, fn))
     elif how == "missing_declared_shard":
         with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
@@ -112,25 +116,25 @@ def _break(d, how):
 
 @pytest.mark.parametrize("how,error,match", [
     ("unknown_architecture", ValueError, "unsupported architecture"),
-    ("mixtral", ValueError, "MixtralForCausalLM"),
     ("rope_scaling", ValueError, "rope_scaling"),
     ("no_weights", FileNotFoundError, "safetensors"),
     ("missing_layer_slice", ValueError, "slices never staged"),
     ("missing_declared_shard", FileNotFoundError, "not present"),
     ("unrecognized_tensor", ValueError, "no place in the model config"),
+    ("unrecognized_expert_tensor", ValueError, "unrecognized expert tensor"),
+    ("missing_expert_slice", ValueError, "slices never staged"),
 ])
 def test_refusals_match_the_reference(tmp_path, how, error, match):
     """Each broken directory is refused by the port as by the reference
-    (Mixtral, which the reference serves, is refused by name), and a
-    refused load writes nothing into the model."""
-    d, _ = _save(tmp_path)
+    (the expert cases on a Mixtral directory), and a refused load writes
+    nothing into the model."""
+    d, _ = _save(tmp_path, "mixtral" if "expert" in how else "llama")
     _break(d, how)
-    if how in ("unknown_architecture", "mixtral", "rope_scaling"):
+    if how in ("unknown_architecture", "rope_scaling"):
         with pytest.raises(error, match=match):
             thf.config_from_hf(d)
-        if how != "mixtral":
-            with pytest.raises(error, match=match):
-                jhf.config_from_hf(d)
+        with pytest.raises(error, match=match):
+            jhf.config_from_hf(d)
         return
     cfg = thf.config_from_hf(d)
     model = tllama.Llama(cfg, "cpu")
@@ -144,12 +148,13 @@ def test_refusals_match_the_reference(tmp_path, how, error, match):
 
 
 @pytest.mark.parametrize("layout", ["single_fp32", "sharded_fp32", "sharded_bf16", "bin", "qwen2", "qwen3",
-                                    "gemma", "llama_tied"])
+                                    "gemma", "llama_tied", "mixtral"])
 def test_load_params_is_bit_equal_to_the_reference(tmp_path, layout):
     """The port's load into a bf16 model equals the reference's tree in
     bf16, bit for bit: fp32 checkpoints cast on the way (round to nearest
     even), bf16 ones copied; one safetensors file, an indexed set of
-    shards, a pytorch_model.bin; every dense family's names and knobs."""
+    shards, a pytorch_model.bin; every family's names and knobs, Mixtral's
+    router and expert slices too."""
     if layout.startswith("sharded"):
         d = build_sharded_hf_model_dir(str(tmp_path / "m"),
                                        torch_dtype=torch.bfloat16 if layout.endswith("bf16") else None)
@@ -264,7 +269,7 @@ def _hf_logits_and_tokens(model, cfg, prompt, new):
     return logits, eng.generate([prompt], max_new_tokens=new)[0]
 
 
-@pytest.mark.parametrize("family", ["llama", "qwen2", "gemma"])
+@pytest.mark.parametrize("family", ["llama", "qwen2", "gemma", "mixtral"])
 def test_logits_and_greedy_tokens_match_transformers_fp32(tmp_path, family):
     """At fp32, the loaded model's logits equal transformers' to 2e-3
     (the reference test's tolerance: fp32 sums in another order) and its
