@@ -371,12 +371,16 @@ exits non-zero and never prints the final ``ok`` line):
      ``/v1/device`` after the traffic.
 
 Weight-only int8, n-gram speculation and pipelined decode:
-``kernel_check`` (``w8a16``) holds the W8A16 kernel at Llama-3-8B's five
-products at 1, 8 and 64 rows against its plain version (error over the
-largest plain value under 7.81e-3, the same bits on a second launch),
-with its device time from a CUDA graph, bf16 ``torch.matmul``'s time and
-the bound; ``serve_int8`` (after ``quant``) serves llama3-8b at
-``--quantization int8`` (parameters exactly 8,561,882,112 B, every chunk
+``kernel_check`` (``w8a16``) holds the W8A16 kernel (tensor cores,
+``mma.sync`` on bf16 fragments converted in registers from the int8
+bytes) at Llama-3-8B's five products at 1, 8, 16 and 64 rows (64 is
+``models/quant.py:W8A16_MAX_ROWS``, the largest product routed to it)
+against its plain version (error over the largest plain value under
+7.81e-3, the same bits on a second launch), with its device time from a
+CUDA graph, bf16 ``torch.matmul``'s time, ``torch._weight_int8pack_mm``'s
+on a transposed copy of the weight where this PyTorch has a CUDA kernel
+for it (else null, said once) and the bound; ``serve_int8`` (after
+``quant``) serves llama3-8b at ``--quantization int8`` (parameters exactly 8,561,882,112 B, every chunk
 a replay whose graph holds (7 L + 1) x T W8A16 nodes, a level-1 cycle of
 exactly 12,856,849,408 B with the same tokens and addresses, the prefill
 and decode paths against an fp32 oracle of the quantized weights, a
@@ -395,9 +399,9 @@ carries one W8A16 entry per product shape at 8 rows, with the
 The Mixtral MoE family, after ``pipeline``: ``kernel_check``
 (``w8a16_experts``) holds the batched W8A16 kernel at Mixtral-8x7B's two
 expert-stack shapes (E = 8; 4096 -> 14336 with one x for every expert,
-14336 -> 4096 with an x per expert) at 1, 8 and 64 rows as the 2-D one
-is held; ``serve_moe`` serves ``mixtral-8x7b`` at ``--quantization
-int8``, full width and depth, random weights (parameters exactly
+14336 -> 4096 with an x per expert) at the same rows as the 2-D one is
+held (``torch._weight_int8pack_mm`` once an expert); ``serve_moe``
+serves ``mixtral-8x7b`` at ``--quantization int8``, full width and depth, random weights (parameters exactly
 46,870,172,672 B, every chunk a replay whose graph holds L x T decode
 and (7 L + 1) x T W8A16 nodes, the host's MemAvailable checked before
 one level-1 cycle of exactly 51,165,139,968 B priced to the byte, with
@@ -493,10 +497,12 @@ def graph_ms(fn, n: int) -> float:
     replays are timed with CUDA events (no host time in it)."""
     import torch
 
+    from llm_d_fast_model_actuation_tpu_torch.engine.arena import capture_guard
+
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture_guard(), torch.cuda.graph(graph):
         for _ in range(n):
             fn()
     graph.replay()
@@ -1461,6 +1467,8 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
     window loses at its edges."""
     import numpy as np
 
+    from llm_d_fast_model_actuation_tpu_torch.engine.arena import capture_guard
+
     eng = service.engine
     L = eng.cfg.model.num_layers
     rng = np.random.default_rng(7)  # prompts no earlier request sent: cold prefills
@@ -1477,7 +1485,7 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
     x = torch.randn(256, 256, device="cuda")
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph):
+        with capture_guard(), torch.cuda.graph(graph):
             y = x @ x
         graph.replay()
         torch.cuda.synchronize()
@@ -5289,7 +5297,9 @@ def model_parity(torch, eng, eng_tp2, bucketed: dict, paths: dict) -> dict:
 #: w_down); lm_head's once a step
 W8A16_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
 W8A16_PER_LAYER = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 4096): 1}
-W8A16_ROWS = (1, 8, 64)
+#: a decode step's 1 and 8, a speculative verify window's 16, and
+#: models/quant.py:W8A16_MAX_ROWS (64), the largest product routed to it
+W8A16_ROWS = (1, 8, 16, 64)
 #: the kernel's error over the largest plain value: two bf16 steps (2^-7),
 #: as the plain version rounds its product and then the scaled product
 W8A16_TOL = 7.81e-3
@@ -5297,14 +5307,38 @@ W8A16_SOURCE = "llm_d_fast_model_actuation_tpu_torch/csrc/w8a16.cu"
 W8A16_REPLACES = "none: the JAX package's int8 product is XLA (llm_d_fast_model_actuation_tpu/models/quant.py:38)"
 
 
+def int8pack_ms(torch, x, q, s):
+    """The second yardstick: ``torch._weight_int8pack_mm``, the one PyTorch
+    call that computes a W8A16 product (``x @ q.T * scales``, q [N, K]),
+    timed on a transposed copy of q (one call an expert for a stack),
+    outside any path of the port; None where the card's PyTorch has no
+    CUDA kernel for it or the call refuses these inputs (``main`` says
+    so once)."""
+    if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
+        return None
+    qt = q.transpose(-1, -2).contiguous()
+    sc = s.reshape(q.shape[:-2] + (q.shape[-1],)).to(x.dtype)
+    if q.ndim == 2:
+        def call():
+            return torch._weight_int8pack_mm(x, qt, sc)
+    else:
+        def call():
+            return [torch._weight_int8pack_mm(x if x.ndim == 2 else x[e], qt[e], sc[e]) for e in range(q.shape[0])]
+    try:
+        return time_ms(call, 20)
+    except RuntimeError:
+        return None
+
+
 def check_w8a16(torch, gen) -> list:
-    """The W8A16 kernel at each of Llama-3-8B's five products at 1, 8 and
-    64 rows, against its plain version: the error over the largest plain
+    """The W8A16 kernel at each of Llama-3-8B's five products at each of
+    ``W8A16_ROWS``, against its plain version: the error over the largest plain
     value under ``W8A16_TOL``, the same bits from a second launch (no
     atomics), one launch under CUDA's sync debug mode; ``ms`` through the
     wrapper, ``device_ms`` from a CUDA graph, the plain version's and
-    bf16 ``torch.matmul``'s (the library yardstick) times, and the bound
-    from the int8 weight, scale, x and y bytes or the flops."""
+    bf16 ``torch.matmul``'s (the library yardstick) times,
+    :func:`int8pack_ms`, and the bound from the int8 weight, scale, x and
+    y bytes or the flops."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import w8a16 as mod
 
     rows = []
@@ -5335,7 +5369,7 @@ def check_w8a16(torch, gen) -> list:
                          "ms": time_ms(kernel, 20), "device_ms": graph_ms(kernel, 20),
                          "plain_ms": time_ms(lambda: mod.w8a16_matmul_plain(x, q, s), 20),
                          "library_ms": time_ms(lambda: torch.matmul(x, w), 20), "library": "torch.matmul bf16",
-                         "bound_ms": bound, "bound_by": by})
+                         "int8pack_ms": int8pack_ms(torch, x, q, s), "bound_ms": bound, "bound_by": by})
             del x, y, ref
         del q, s, w
     return rows
@@ -5803,13 +5837,13 @@ W8A16_EXPERTS_REPLACES = ("none: the JAX package's expert product is XLA "
 def check_w8a16_experts(torch, gen) -> list:
     """The batched W8A16 kernel at Mixtral-8x7B's two expert-stack shapes
     (E = 8; 4096 -> 14336 with one shared x, 14336 -> 4096 with an x per
-    expert) at 1, 8 and 64 rows, against its plain version, as
+    expert) at each of ``W8A16_ROWS``, against its plain version, as
     :func:`check_w8a16` holds the 2-D product: the error over the largest
     plain value under ``W8A16_TOL``, the same bits from a second launch,
     one launch under CUDA's sync debug mode; ``ms``, ``device_ms``, the
     plain version's time, bf16 ``torch.matmul`` over the same experts
-    (the library yardstick, a batched product), and the bound from the
-    int8 weights, scales, x and y bytes or the flops."""
+    (the library yardstick, a batched product), :func:`int8pack_ms`, and
+    the bound from the int8 weights, scales, x and y bytes or the flops."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import w8a16 as mod
 
     rows = []
@@ -5840,7 +5874,8 @@ def check_w8a16_experts(torch, gen) -> list:
                          "ms": time_ms(kernel, 20), "device_ms": graph_ms(kernel, 20),
                          "plain_ms": time_ms(lambda: mod.w8a16_matmul_experts_plain(x, q, s), 20),
                          "library_ms": time_ms(lambda: torch.matmul(x, w), 20),
-                         "library": "torch.matmul bf16 over the experts", "bound_ms": bound, "bound_by": by})
+                         "library": "torch.matmul bf16 over the experts", "int8pack_ms": int8pack_ms(torch, x, q, s),
+                         "bound_ms": bound, "bound_by": by})
             del x, y, ref
         del q, s, w
     return rows
@@ -6254,6 +6289,10 @@ def main() -> int:
     emit({"phase": "kernel_variants", "checks": check_variants(torch, gen)})
     w8 = check_w8a16(torch, gen)
     emit({"phase": "kernel_check", "kernel": "w8a16", "checks": w8, "nvidia_smi": smi})
+    if any(k["int8pack_ms"] is None for k in w8):
+        has = torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA")
+        emit({"phase": "note", "int8pack_ms": "null: " + ("the call refused some shapes" if has else
+                                                          "this PyTorch has no CUDA kernel for aten::_weight_int8pack_mm")})
     # first of the model phases; its profiled replay runs again at the end
     # (profile_again), after every other profiler window
     graphs_phase(torch, smi)

@@ -48,8 +48,10 @@ an arena that cannot reserve or map raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import sys
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence
@@ -125,6 +127,34 @@ def _lib():
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"arena: could not {what}: CUDA error {err}")
+
+
+# An arena's end of life synchronizes the card and unmaps its range, and a
+# device-wide synchronize on any thread invalidates a CUDA graph capture in
+# progress on another. The last view of an engine's state can go on any
+# thread (a stopped service's digest workers, a finished request's
+# handler), so captures and arena teardowns exclude each other.
+_capture_lock = threading.RLock()
+_capture_thread = threading.local()
+#: arenas whose last view went inside a capture on the capturing thread
+_deferred: List["Arena"] = []
+
+
+@contextlib.contextmanager
+def capture_guard():
+    """Held around a CUDA graph capture: an arena whose last view goes
+    meanwhile on another thread waits for the capture's end to give its
+    memory back, and one whose last view goes on the capturing thread
+    gives it back when the capture ends. Captures on several threads run
+    one at a time."""
+    with _capture_lock:
+        _capture_thread.active = True
+        try:
+            yield
+        finally:
+            _capture_thread.active = False
+            while _deferred:
+                _deferred.pop()._give_back()
 
 
 class _Window:
@@ -290,6 +320,13 @@ class Arena:
         # the last view is gone; nothing can read the range any more
         if not self.cuda or not self.base or sys.is_finalizing():
             return
+        if getattr(_capture_thread, "active", False):
+            _deferred.append(self)  # this thread is capturing: given back at its end
+            return
+        with _capture_lock:
+            self._give_back()
+
+    def _give_back(self) -> None:
         torch.cuda.synchronize(self.device)
         self.unmap()
         _check(_lib().fma_arena_free(self.device.index, self.base, self.reserved_va_bytes),

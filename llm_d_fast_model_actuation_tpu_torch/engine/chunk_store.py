@@ -158,6 +158,12 @@ class DigestJob:
         """Whether every leaf is hashed (:meth:`result` would not wait)."""
         return all(f.done() for f in self._futures)
 
+    def close(self) -> None:
+        """Drop the leaves not yet started and wait for those being
+        hashed: a stopped service's workers must not outlive it, holding
+        its engine's tensors."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
     def result(self) -> Dict[str, str]:
         """Every key's digest (waits for the job; raises what a worker
         raised). Any number of threads may wait on it."""

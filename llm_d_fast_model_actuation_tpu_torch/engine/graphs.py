@@ -63,6 +63,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from .arena import capture_guard
+
 #: engines that hold captured graphs, for :func:`graphs_alive`
 _holders: "weakref.WeakSet[ChunkGraphs]" = weakref.WeakSet()
 
@@ -250,9 +252,18 @@ class ChunkGraphs:
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            with torch.cuda.graph(graph, pool=self.pool, stream=capture_stream(eng.device),
-                                  capture_error_mode="thread_local"):
-                outputs = eng.chunk_body(T, sampled)
+            # an arena's teardown synchronizes the card, which would
+            # invalidate the capture: none runs beside it (capture_guard),
+            # and no collection runs inside it
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with capture_guard(), torch.cuda.graph(graph, pool=self.pool, stream=capture_stream(eng.device),
+                                                       capture_error_mode="thread_local"):
+                    outputs = eng.chunk_body(T, sampled)
+            finally:
+                if collecting:
+                    gc.enable()
             graph.instantiate()
         eng.graph_captures += 1
         return Program(graph, T, kernel_nodes(graph.raw_cuda_graph()), outputs)

@@ -3796,6 +3796,10 @@ class EngineService:
         self._stop.set()
         self._work.set()
         self._thread.join(timeout=30)
+        for rt in [self._runtime] + [e.runtime for e in self.model_pool.entries()]:
+            job = getattr(rt, "digest_job", None)
+            if job is not None:
+                job.close()
 
 
 def peak_rss_bytes() -> int:

@@ -14,13 +14,14 @@ Port of ``llm_d_fast_model_actuation_tpu/models/quant.py``:
     f32[..., 1, out]}``, a symmetric scale per output channel over the
     fan-in axis (embeddings and norms stay bf16), and :func:`qmat` on
     such a leaf computes ``(x @ q.to(x.dtype)) * s.to(x.dtype)``, the
-    reference's rounding. On the card, at the rows of a decode step and
-    of a speculative verify window (:data:`W8A16_MAX_ROWS`), that is the
-    hand-written kernel ``csrc/w8a16.cu`` (``ops/cuda/w8a16.py``), which
-    reads each int8 weight byte once and never writes a dequantized
-    weight: the flag exists to halve decode's weight reads. Larger
-    products (prefill buckets, packed buffers) and the CPU take the plain
-    version, as the JAX package leaves them to XLA.
+    reference's rounding. On the card, at the rows of a decode step, of a
+    speculative verify window and of a prefill bucket up to
+    :data:`W8A16_MAX_ROWS`, that is the hand-written tensor-core kernel
+    ``csrc/w8a16.cu`` (``ops/cuda/w8a16.py``), which reads each int8
+    weight byte once and never writes a dequantized weight: the flag
+    exists to halve decode's weight reads. Larger products (longer
+    prefill buckets, packed buffers) and the CPU take the plain version,
+    as the JAX package leaves them to XLA.
   * the transfer half: how weight bytes cross the PCIe boundary on a
     sleep, a wake and a swap (``engine/sleep.py``). An eligible leaf is
     quantized right before it leaves the card (or on the host, when a
@@ -86,15 +87,31 @@ _BLOCK_ELEMS = 1 << 26
 
 
 #: rows of ``x`` (all axes but the last) up to which a product with a
-#: quantized weight on the card runs the W8A16 kernel: a decode step's
-#: (``max_batch``, 8 at the chip's configuration) and a speculative verify
-#: window's (its prefill bucket, 16). Up to there the kernel reads the
-#: weight's int8 bytes once where the plain version reads them, writes a
-#: bf16 copy and reads that again; its CUDA-core arithmetic grows with the
-#: rows, and at 64 rows it is slower than the plain version on an H100
-#: (``PERF.md``), so larger products (prefill buckets, packed buffers) stay
-#: ``torch.matmul``, as the JAX package leaves them to XLA.
-W8A16_MAX_ROWS = 16
+#: quantized weight on the card runs the W8A16 kernel. The kernel reads
+#: the weight's int8 bytes once where the plain version reads them, writes
+#: a bf16 copy and reads that again; on the tensor cores its time grows
+#: with the rows only past one pass of 32. Timed by ``w8a16_ab.py`` on an
+#: NVIDIA H100 80GB HBM3 at 700 W (weights cold in L2) at Llama-3-8B's
+#: five products and Mixtral-8x7B's two expert stacks, it is faster than
+#: the plain version at all seven at 1, 8, 16, 32 and 64 rows (at 64 the
+#: closest is 4096 -> 1024, 0.0169 ms against 0.0243), and not at 128
+#: (4096 -> 1024, 0.0287 ms against 0.0251). So 64: a decode step's rows
+#: (``max_batch``), a speculative verify window's (16) and prefill buckets
+#: up to 64 take the kernel; larger products (longer prefill buckets,
+#: packed buffers) stay ``torch.matmul``, as the JAX package leaves them
+#: to XLA.
+W8A16_MAX_ROWS = 64
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def w8a16_routed(x: torch.Tensor, rows: int) -> bool:
+    """Whether a product of ``x`` (``rows`` rows) with a quantized weight
+    launches the W8A16 kernel: a bf16 ``x`` on the card with at most
+    :data:`W8A16_MAX_ROWS` rows."""
+    return _on_card(x) and x.dtype == torch.bfloat16 and rows <= W8A16_MAX_ROWS
 
 
 def is_quantized(w: Any) -> bool:
@@ -110,7 +127,7 @@ def qmat(x: torch.Tensor, w: Any) -> torch.Tensor:
     version."""
     if is_quantized(w):
         q, s = w["q"], w["s"]
-        if x.is_cuda and x.dtype == torch.bfloat16 and x.numel() <= W8A16_MAX_ROWS * x.shape[-1]:
+        if w8a16_routed(x, x.numel() // max(1, x.shape[-1])):
             return w8a16_matmul(x, q, s)
         return w8a16_matmul_plain(x, q, s)
     if not isinstance(w, torch.Tensor):
@@ -131,7 +148,7 @@ def qeinsum(x: torch.Tensor, w: Any) -> torch.Tensor:
     version, and a plain stack is ``torch.matmul``."""
     if is_quantized(w):
         q, s = w["q"], w["s"]
-        if x.is_cuda and x.dtype == torch.bfloat16 and x.shape[-2] <= W8A16_MAX_ROWS:
+        if w8a16_routed(x, x.shape[-2]):
             return w8a16_matmul_experts(x, q, s)
         return w8a16_matmul_experts_plain(x, q, s)
     if not isinstance(w, torch.Tensor):

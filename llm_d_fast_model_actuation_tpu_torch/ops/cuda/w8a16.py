@@ -19,18 +19,22 @@ E experts, each expert the 2-D product's plan on its own slice.
 
 The kernel reads each int8 weight byte once and never writes a
 dequantized weight; the plain version, ``torch.matmul(x, q.to(x.dtype))
-* s.to(x.dtype)``, materializes the bf16 weight. Its host-side plan
-(rows per pass, the split of K) is :func:`launch_plan`, mirrored in the
-kernel's source and tested on the CPU. The wrapper takes the plain
-version for CPU tensors and launches the kernel for CUDA tensors (bf16
-only), or raises; it never falls back. It allocates its output and the
-split partials with ``torch.empty`` and does not synchronize, so a
-launch can be captured in a CUDA graph.
+* s.to(x.dtype)``, materializes the bf16 weight. It multiplies on the
+tensor cores (``mma.sync.m16n8k16``, bf16 fragments converted in
+registers from the int8 bytes, f32 sums), so its time is its bytes' up to
+well past decode's rows. Its host-side plan (rows per pass, the split of
+K) is :func:`launch_plan`, mirrored in the kernel's source and tested on
+the CPU (``tests/test_torch_w8a16_plan.py`` emulates the decomposition).
+The wrapper takes the plain version for CPU tensors and launches the
+kernel for CUDA tensors (bf16 only), or raises; it never falls back. It
+allocates its output and the split partials with ``torch.empty`` and does
+not synchronize, so a launch can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -38,39 +42,60 @@ import torch
 
 from .build import count_launch
 
-#: output columns of one CTA (kTileN)
-TILE_N = 256
-#: a split's K is a multiple of this (kKStep: 8 k-lanes x 4 rows in flight)
-K_STEP = 32
-#: rows of x one pass of a CTA holds in shared memory at most
-MAX_MB = 8
-#: shared memory of one CTA's rows of x, f32 (no opt-in above 48 KiB)
-SMEM_BYTES = 32 * 1024
-#: CTAs the plan aims at: two resident on each of the H100's 132 SMs
-TARGET_CTAS = 2 * 132
+#: output channels of one CTA (kTileN): a warp's 8 lane groups x 16
+#: channels, one 16-byte load of a q row each
+TILE_N = 128
+#: K of one mma step (kStepK); K must be a multiple of it
+STEP_K = 16
+#: warps of a CTA (kWarps), taking its K steps in turn
+WARPS = 4
+#: a split's K is a multiple of this (kSplitK: every warp one step)
+K_STEP = WARPS * STEP_K
+#: rows of x one pass of a CTA holds in its mma tiles at most (4 n-tiles
+#: of 8); more rows loop over passes
+MAX_MB = 32
+#: SMs of an H100
+SMS = 132
+#: CTAs of the kernel an SM holds at once, by rows a pass: the registers
+#: its ``__launch_bounds__`` give a lane (128, 170 and 255)
+RESIDENT = {8: 4, 16: 3, 32: 2}
+#: the least K of a split: four of each warp's steps, two rounds of its ring
+MIN_SPLIT_K = 256
+#: a CTA's fixed cost (its launch, the ring's first loads, the hand-over of
+#: the warps' sums and the epilogue), counted in K of streaming
+OVERHEAD_K = 256
 
 
+@functools.lru_cache(maxsize=1024)
 def launch_plan(M: int, K: int, N: int, experts: int = 1) -> Tuple[int, int, int]:
     """(mb, k_split, splits) for ``[M, K] @ [K, N]`` in each of
-    ``experts`` experts: ``mb`` rows of x a pass (the power of two up to 8
-    that covers M, or 8), K cut into ``splits`` ranges of ``k_split`` (a
-    multiple of :data:`K_STEP`) so that the ``ceil(N / 256)`` column tiles
-    times the experts times the splits fill :data:`TARGET_CTAS` without
-    passing it (a second wave of a few CTAs would double the time), and
-    each split's rows of x fit :data:`SMEM_BYTES`. Every expert runs the
-    same plan; with E = 8 the experts alone give Mixtral's products more
-    column tiles than the target, and the split is then the one the
-    shared memory forces."""
-    if K % K_STEP or N % 8:
-        raise ValueError(f"the W8A16 kernel takes K % {K_STEP} == 0 and N % 8 == 0, got K={K}, N={N}")
+    ``experts`` experts: ``mb`` rows of x a pass (8, 16 or
+    :data:`MAX_MB`: one, two or four n-tiles of 8), K cut into ``splits``
+    ranges of ``k_split`` (a multiple of :data:`K_STEP`, at least
+    :data:`MIN_SPLIT_K` unless K is shorter). The ``ceil(N / 128)``
+    column tiles times the experts times the splits run in waves of
+    ``SMS x RESIDENT[mb]`` CTAs; the split taken is the one whose waves
+    times a CTA's work (its K plus :data:`OVERHEAD_K`) is least, the fewer
+    splits on a tie: one wave as full as it gets for a small product, no
+    split, or the split that evens out the last wave, for a large one.
+    Every expert runs the same plan, and every row count of one pass
+    (M <= 8 at decode) the same split. Kept per shape: a decode step asks
+    225 times."""
+    if K % STEP_K or N % 16:
+        raise ValueError(f"the W8A16 kernel takes K % {STEP_K} == 0 and N % 16 == 0, got K={K}, N={N}")
     if experts < 1:
         raise ValueError(f"the W8A16 kernel takes at least one expert, got {experts}")
-    mb = min(MAX_MB, 1 << max(0, (M - 1).bit_length()))
+    mb = 8 if M <= 8 else 16 if M <= 16 else MAX_MB
     tiles = -(-N // TILE_N) * experts
-    want = max(1, min(K // K_STEP, TARGET_CTAS // tiles))
-    k_split = -(-K // want // K_STEP) * K_STEP
-    k_split = min(k_split, SMEM_BYTES // (4 * mb) // K_STEP * K_STEP)
-    return mb, k_split, -(-K // k_split)
+    slots = SMS * RESIDENT[mb]
+    best = None
+    for want in range(1, max(1, K // MIN_SPLIT_K) + 1):
+        k_split = -(-K // want // K_STEP) * K_STEP
+        splits = -(-K // k_split)
+        cost = -(-tiles * splits // slots) * (k_split + OVERHEAD_K)
+        if best is None or cost < best[0]:
+            best = (cost, k_split, splits)
+    return mb, best[1], best[2]
 
 
 def w8a16_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -107,6 +132,20 @@ def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
         raise ValueError(f"s must be a contiguous float32 [1, {N}], got {s.dtype} {tuple(s.shape)}")
     if q.device != x.device or s.device != x.device:
         raise ValueError("x, q and s must be on one device")
+    _check_aligned(q, s)
+
+
+def _check_aligned(q: torch.Tensor, s: torch.Tensor) -> None:
+    # the kernel reads q and s 16 bytes at a time
+    if q.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError(f"q and s must be 16-byte aligned, got addresses {q.data_ptr():#x} and {s.data_ptr():#x}")
+
+
+def _aligned_x(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at an address the kernel's 8-byte loads take (a view
+    at an odd offset is copied)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def w8a16_matmul_experts_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -171,7 +210,7 @@ def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     K, N = q.shape
     lead = tuple(x.shape[:-1])
     M = math.prod(lead)
-    x2 = x.reshape(M, K).contiguous()
+    x2 = _aligned_x(x.reshape(M, K))
     y = torch.empty(lead + (N,), dtype=x.dtype, device=x.device)
     if M == 0:
         return y
@@ -196,13 +235,14 @@ def _check_experts(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
         raise ValueError(f"s must be a contiguous float32 [{E}, 1, {N}], got {s.dtype} {tuple(s.shape)}")
     if q.device != x.device or s.device != x.device:
         raise ValueError("x, q and s must be on one device")
+    _check_aligned(q, s)
 
 
 def _launch_experts(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     _check_experts(x, q, s)
     E, K, N = q.shape
     M = x.shape[-2]
-    x = x.contiguous()
+    x = _aligned_x(x)
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y

@@ -22,6 +22,7 @@ instead:
 
 import contextlib
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ import torch
 
 from llm_d_fast_model_actuation_tpu.engine import engine as jengine
 from llm_d_fast_model_actuation_tpu.models import llama as jllama
+from llm_d_fast_model_actuation_tpu_torch.engine import arena as tarena
 from llm_d_fast_model_actuation_tpu_torch.engine import engine as tengine
 from llm_d_fast_model_actuation_tpu_torch.engine import graphs as tgraphs
 from llm_d_fast_model_actuation_tpu_torch.engine import sleep as tsleep
@@ -337,3 +339,71 @@ def test_graphs_pad_the_malloc_heaps_once(monkeypatch):
     tgraphs.ChunkGraphs(eng)
     tgraphs.ChunkGraphs(eng)
     assert calls == [(-2, 64 << 20)]
+
+
+def _card_arena(monkeypatch, events: list) -> Arena:
+    """An arena that takes the card's end of life, recording on which
+    thread it gave its memory back and whether a capture was then held."""
+    arena = Arena("cpu")
+    arena.cuda, arena.base = True, 1
+
+    def give_back(self):
+        events.append(("give_back", threading.current_thread().name,
+                       bool(getattr(tarena._capture_thread, "active", False))))
+        self.base = 0
+
+    monkeypatch.setattr(Arena, "_give_back", give_back)
+    return arena
+
+
+def test_an_arena_dropped_beside_a_capture_waits_for_its_end(monkeypatch):
+    """An arena's teardown synchronizes the card, which invalidates a
+    capture on another thread: one whose last view goes on another thread
+    during a capture gives its memory back only after the capture."""
+    events = []
+    holder = {"arena": _card_arena(monkeypatch, events)}
+    capturing, dropped = threading.Event(), threading.Event()
+
+    def drop():
+        capturing.wait()
+        dropped.set()
+        holder.pop("arena")
+
+    t = threading.Thread(target=drop, name="dropper")
+    t.start()
+    with tarena.capture_guard():
+        capturing.set()
+        dropped.wait()
+        t.join(timeout=0.5)
+        assert t.is_alive() and events == []
+        events.append(("capture_end", threading.current_thread().name, True))
+    t.join(timeout=10)
+    assert not t.is_alive()
+    assert [e[0] for e in events] == ["capture_end", "give_back"] and events[1][1:] == ("dropper", False)
+
+
+def test_an_arena_dropped_inside_a_capture_is_given_back_at_its_end(monkeypatch):
+    """On the capturing thread itself the teardown is put off to the
+    capture's end, and runs there once."""
+    events = []
+    arena = _card_arena(monkeypatch, events)
+    with tarena.capture_guard():
+        del arena
+        assert events == [] and len(tarena._deferred) == 1
+    assert events == [("give_back", threading.current_thread().name, False)] and tarena._deferred == []
+    with tarena.capture_guard():
+        pass
+    assert len(events) == 1
+
+
+def test_a_digest_job_closed_leaves_no_worker_running():
+    """A stopped service closes its load's digest job: the leaves not yet
+    started are dropped, the started ones finish, and no worker outlives
+    it holding the engine's tensors."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.chunk_store import DigestJob
+
+    leaves = {f"w{i}": torch.arange(1 << 16, dtype=torch.float32) + i for i in range(64)}
+    job = DigestJob(leaves, workers=2)
+    job.close()
+    assert all(f.done() for f in job._futures)
+    assert job._pool._threads and not [t for t in job._pool._threads if t.is_alive()]

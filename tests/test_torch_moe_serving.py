@@ -111,16 +111,19 @@ def test_qeinsum_plain_version_matches_the_references(dtype, shared):
 
 
 @pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
-@pytest.mark.parametrize("M", [1, 3, 8, 16, 64])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 32, 64, 128])
 def test_the_batched_launch_plan_covers_mixtral(K, N, M):
     E = 8
     mb, k_split, splits = w8a16.launch_plan(M, K, N, E)
-    assert mb in (1, 2, 4, 8) and (mb >= M or mb == w8a16.MAX_MB) and (mb == 1 or mb // 2 < M)
+    assert mb in (8, 16, 32) and (mb >= M or mb == w8a16.MAX_MB) and (mb == 8 or mb // 2 < M)
     assert k_split % w8a16.K_STEP == 0 and k_split * (splits - 1) < K <= k_split * splits
-    assert mb * k_split * 4 <= w8a16.SMEM_BYTES
+    assert k_split >= min(K, w8a16.MIN_SPLIT_K)
     tiles = -(-N // w8a16.TILE_N) * E
-    # enough CTAs to fill the card, counting every expert's column tiles
-    assert tiles * splits >= min(w8a16.TARGET_CTAS // 2, tiles * (K // w8a16.K_STEP))
+    # at least half a wave of CTAs, counting every expert's column tiles
+    assert tiles * splits >= min(w8a16.SMS * w8a16.RESIDENT[mb] // 2, tiles * (K // w8a16.MIN_SPLIT_K))
+    # one row takes decode's plan (no two long splits at one row)
+    if M <= 8:
+        assert w8a16.launch_plan(M, K, N, E) == w8a16.launch_plan(8, K, N, E)
     # one expert is the 2-D plan
     assert w8a16.launch_plan(M, K, N, 1) == w8a16.launch_plan(M, K, N)
     with pytest.raises(ValueError):

@@ -121,15 +121,20 @@ def test_qmat_plain_version_matches_the_jax_qmat(dtype):
 
 
 @pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)])
-@pytest.mark.parametrize("M", [1, 3, 8, 16, 64])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 32, 64, 128])
 def test_w8a16_launch_plan_covers_llama3_8b(K, N, M):
     mb, k_split, splits = w8a16.launch_plan(M, K, N)
-    assert mb in (1, 2, 4, 8) and (mb >= M or mb == w8a16.MAX_MB) and (mb == 1 or mb // 2 < M)
+    # rows a pass: the fewest n-tiles of 8 (one, two or four) that hold M
+    assert mb in (8, 16, 32) and (mb >= M or mb == w8a16.MAX_MB) and (mb == 8 or mb // 2 < M)
     assert k_split % w8a16.K_STEP == 0 and k_split * (splits - 1) < K <= k_split * splits
-    assert mb * k_split * 4 <= w8a16.SMEM_BYTES
+    assert k_split >= min(K, w8a16.MIN_SPLIT_K)
     tiles = -(-N // w8a16.TILE_N)
-    # enough CTAs to fill the card where K allows it; a split at most K
-    assert tiles * splits >= min(w8a16.TARGET_CTAS // 2, tiles * (K // w8a16.K_STEP))
+    # at least half a wave of CTAs where K allows it
+    assert tiles * splits >= min(w8a16.SMS * w8a16.RESIDENT[mb] // 2, tiles * (K // w8a16.MIN_SPLIT_K))
+    # every row count of one pass takes decode's plan: one row no longer
+    # falls back to two long splits
+    if M <= 8:
+        assert w8a16.launch_plan(M, K, N) == w8a16.launch_plan(8, K, N)
     with pytest.raises(ValueError):
         w8a16.launch_plan(M, K + 8, N)
 
