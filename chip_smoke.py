@@ -415,8 +415,36 @@ in-process bf16 service (6.33 GB, deleted at the end) and serves it
 with ``--model hf:<dir>`` in bf16 and in int8: tokens, parameter bytes
 and weights equal to the in-process services', the int8 build's peak
 beyond its arena under one layer's bf16 expert stacks. The ``kernels``
-line carries one batched entry per expert-stack shape at 8 rows. Every
-phase line carries ``at_s``, its seconds since the script started.
+line carries one batched entry per expert-stack shape at 8 rows.
+
+Expert parallelism and training, after ``serve_moe_hf``, every engine
+before them stopped: ``serve_moe_ep`` builds the 4-layer int8 Mixtral on
+``MeshPlan(tp=2, ep=2)``, four ranks on card 0 (each rank E/ep = 4
+experts and its tp half of attention and of the pool), serves the serve
+mix's four prompts 16 tokens each (the counts read right after: the W8A16
+kernels at the ranks' shapes, the batched one at E = 4, which
+``kernel_check`` also holds at those shapes), then the same model on one
+rank; a prefill of 8 x 300 ids and one decode step of the 8 rows on both,
+each block held to the fp32 oracle of the quantized weights routed as
+that path routed (one rank under its band's top, the mesh under its own,
+one ``wo`` rounding a layer more, and within ``moe_ep_ratio_limit`` of
+one rank's), and where the two engines' greedy tokens part, the one-rank
+logits' gap inside the tie exemption. ``train`` runs ``models/train.py``
+at Llama-3-8B's full size: seeded bf16 weights drawn on the card,
+``forward_train`` and the serving prefill (the prefill kernel) on 256
+ids held to the fp32 oracle, three AdamW steps with remat on 2 x 1024
+ids (one row padded after 777), the losses finite, each step's ms,
+tokens/s, share of 989 TF/s and the peak allocated bytes; then the
+optimizer state dropped and an engine built from the trained weights
+serving four greedy completions through its captured chunks, every
+token the oracle's argmax or a near-tie. ``train_mesh`` (Llama-3-8B
+widths, 4 layers, ``MeshPlan(sp=2, tp=2)``, one row of 4096 ids) and
+``train_moe`` (Mixtral widths, 2 layers, ``MeshPlan(dp=2, ep=2)``, 4 x
+512 ids) each take one step on the mesh, four ranks on the card, and
+the same step on one rank from the same seed: the loss, AdamW's first
+moment and the update within ``MESH_*``; ``train_mesh`` also holds layer
+0's ring attention in f32 to the dense function. Every phase line
+carries ``at_s``, its seconds since the script started.
 
 With two or more cards the sharded ragged check also runs with its ranks
 on ``cuda:0,cuda:1`` and says so; with one it prints ``"two_cards": "not
@@ -5213,7 +5241,7 @@ def parity_figures(torch, one, run: dict) -> tuple:
 def planted_faults(torch, one, two, run: dict, oracle, figures: dict) -> dict:
     """Two faults run through :func:`parity_gate`, which must refuse each:
     the two-rank mixed step with layer 0's ``w_down`` reduce dropping rank
-    1's share (``TpMesh.all_reduce_sum`` wrapped here, on this mesh only:
+    1's share (``Mesh.all_reduce_sum`` wrapped here, on this mesh only:
     the forward's reduces run embedding, then per layer ``wo`` and
     ``w_down``, so it is the third call), and the inline decode step on a
     cache whose layer 0 has KV heads 0 and 1 swapped. Returns each fault's
@@ -5342,7 +5370,7 @@ def check_w8a16(torch, gen) -> list:
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import w8a16 as mod
 
     rows = []
-    for K, N in W8A16_SHAPES:
+    for K, N in W8A16_SHAPES + W8A16_EP_SHAPES:
         q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
         # a weight's scales: amax / 127 of a column of std K^-0.5
         s = (torch.rand((1, N), generator=gen, device="cuda") + 3.0) * (K**-0.5 / 127)
@@ -5847,7 +5875,7 @@ def check_w8a16_experts(torch, gen) -> list:
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import w8a16 as mod
 
     rows = []
-    for E, K, N, shared in W8A16_EXPERT_SHAPES:
+    for E, K, N, shared in W8A16_EXPERT_SHAPES + W8A16_EP_EXPERT_SHAPES:
         q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda", dtype=torch.int8)
         s = (torch.rand((E, 1, N), generator=gen, device="cuda") + 3.0) * (K**-0.5 / 127)
         w = q.to(torch.bfloat16)
@@ -6003,7 +6031,6 @@ def moe_parity(torch, seed: int = 5, n: int = 300) -> dict:
     against the fp32 oracle of the same quantized weights routed as they
     were routed, gated at :func:`moe_parity_limit`; beside it the share of
     (token, layer) routing decisions that fp32 routing would change."""
-    from llm_d_fast_model_actuation_tpu_torch.engine.engine import prefill_bucket
     from llm_d_fast_model_actuation_tpu_torch.models import llama, moe
 
     free_memory(torch)
@@ -6016,31 +6043,17 @@ def moe_parity(torch, seed: int = 5, n: int = 300) -> dict:
     pt = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda", dtype=torch.int32)
-    tokens = torch.zeros((1, prefill_bucket(n, cfg.max_seq_len)), dtype=torch.int32, device="cuda")
-    tokens[0, :n] = prompt
-    recorded = []
-    plain_route = moe.route
-
-    def recording(cfg_, router, x):
-        idx, probs = plain_route(cfg_, router, x)
-        recorded.append(idx)
-        return idx, probs
-
-    moe.route = recording
-    try:
-        pre = llama.prefill(model, tokens, torch.tensor([n], dtype=torch.int32, device="cuda"), kv, pt)[0, n - 1]
-        nxt = pre.argmax().to(torch.int32)[None]
-        launches = kernel_wrappers()["w8a16_experts"].launches
-        dec = llama.decode_step(model, nxt, torch.tensor([n], dtype=torch.int32, device="cuda"), kv, pt)[0]
-        launches = kernel_wrappers()["w8a16_experts"].launches - launches
-    finally:
-        moe.route = plain_route
+    # the prefill's n rows take the plain products: the batched kernel's
+    # launches are the decode step's
+    launches = kernel_wrappers()["w8a16_experts"].launches
+    pre, dec, nxt, routes = moe_logits_and_routes(torch, model, prompt[None], kv, pt)
+    launches = kernel_wrappers()["w8a16_experts"].launches - launches
+    pre, dec, nxt, routes = pre[0], dec[0], nxt, routes[0]
     del kv
     L = cfg.num_layers
-    if len(recorded) != 2 * L or launches != 3 * L:
-        raise AssertionError(f"the parity run routed {len(recorded)} times (want {2 * L}) and launched the batched "
-                             f"W8A16 kernel {launches} times in its decode step (want {3 * L})")
-    routes = [torch.cat([recorded[i][:n], recorded[L + i]]) for i in range(L)]
+    if launches != 3 * L:
+        raise AssertionError(f"the parity run launched the batched W8A16 kernel {launches} times in its decode "
+                             f"step (want {3 * L})")
     oracle, differ = moe_oracle_logits(torch, Dequantized(model), torch.cat([prompt, nxt]), [n - 1, n], routes)
     figures = {"prefill": parity_figure(torch, pre, oracle[0]), "decode_inline": parity_figure(torch, dec, oracle[1])}
     limit = moe_parity_limit(L)
@@ -6229,6 +6242,573 @@ def serve_moe_hf(torch, smi: str) -> dict:
     return out
 
 
+# -- training, the full mesh and expert parallelism ---------------------------
+
+#: the train phase: Llama-3-8B at full width and depth, three AdamW steps
+#: on one batch of two rows of 1024 ids, the second padded after 777
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ_LENS, TRAIN_STEPS = 2, 1024, (1024, 777), 3
+#: the ids of row 0 on which the training forward and the serving prefill
+#: are held to the fp32 oracle; the prefill runs at the 512 bucket, as the
+#: engine runs a prompt of 257 to 512 ids
+TRAIN_PARITY_IDS, TRAIN_PARITY_BUCKET = 256, 512
+#: fine-tune-then-serve: the serve mix's prompt lengths, 16 new ids each
+TRAIN_SERVE_LENS, TRAIN_SERVE_NEW = (20, 300, 1500, 3000), 16
+#: the mesh phases' steps against one rank's (bf16 both): the loss within
+#: 1% of it; adamw's first moment, 0.1 x the gradient rounded to bf16,
+#: within 0.1 of it in rel-L2 over all leaves (bf16 rounding of the
+#: gradients is of order 1e-2; a gradient summed twice or not at all over
+#: a replica is off by 0.5 to 1); the step's update within 0.5 in rel-L2
+#: (Adam's first step is g / |g| elementwise, so elements whose gradient
+#: sits within the paths' rounding of 0 flip sign between them: a share f
+#: of flips gives about 2 sqrt(f))
+MESH_LOSS_RTOL, MESH_MU_REL_L2, MESH_UPDATE_REL_L2 = 1e-2, 0.1, 0.5
+#: the ring against the dense attention in f32 at s = 4096: max abs
+#: error over outputs of order 1 (f32 sums in another order)
+RING_F32_ATOL = 1e-4
+#: train_mesh: Llama-3-8B widths at 4 layers, sp 2 x tp 2, one row of 4096
+TRAIN_MESH_LAYERS, TRAIN_MESH_SEQ = 4, 4096
+#: train_moe: Mixtral-8x7B widths at 2 layers, dp 2 x ep 2, four rows of 512
+TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 2, 4, 512
+#: serve_moe_ep's mesh: tp 2 x ep 2, four ranks on card 0; its parity:
+#: a prefill of 8 prompts of 300 ids and one decode step of the 8 rows
+MOE_EP_PLAN = {"tp": 2, "ep": 2}
+MOE_EP_PARITY_ROWS, MOE_EP_PARITY_IDS = 8, 300
+#: the W8A16 products of a Mixtral rank at tp 2 (a decode step's, <= 64 rows):
+#: wq, wk and wv, wo, lm_head; and its expert stacks at ep 2 (E = 4)
+W8A16_EP_SHAPES = ((4096, 2048), (4096, 512), (2048, 4096), (4096, 16000))
+W8A16_EP_EXPERT_SHAPES = ((4, 4096, 7168, True), (4, 7168, 4096, False))
+
+
+def rows_parity(torch, logits, oracle, layers: int, limit: float) -> dict:
+    """A block of rows ``logits`` [n, vocab] against the oracle's: the
+    block's rel-L2 (the rows' RMS, where the predicted band applies: one
+    row's figure spreads about it) under ``limit``, and every row's
+    argmax the oracle's unless the oracle's top-2 margin there lies inside
+    the path's expected error (:func:`parity_gate`'s exemption, at the
+    block's rel-L2). The rows' own rel-L2 are printed, not gated."""
+    whole = ((logits - oracle).norm() / oracle.norm()).item()
+    rel = (logits - oracle).norm(dim=-1) / oracle.norm(dim=-1)
+    top = oracle.topk(2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    tie = ARGMAX_TIE_SIGMAS * 2 ** 0.5 * whole * oracle.pow(2).mean(-1).sqrt()
+    agree = logits.argmax(-1) == oracle.argmax(-1)
+    bad = (~agree & ~(margin < tie)).nonzero()[:, 0].tolist()
+    refused = [f"rel_l2 {whole:.4e} > {limit:.4e}"] if not whole <= limit else []
+    refused += [f"row {i}: argmax differs from the oracle's at a margin of {margin[i].item():.4e} (exempt under "
+                f"{tie[i].item():.4e})" for i in bad]
+    return {"rows": oracle.shape[0], "rel_l2": whole, "row_rel_l2_max": rel.max().item(),
+            "row_rel_l2_median": rel.median().item(), "argmax_equal_rows": int(agree.sum()),
+            "near_ties_exempt": int((~agree).sum()) - len(bad), "limit_rel_l2": limit, "refused": refused}
+
+
+def greedy_against_oracle(torch, model, prompts: list, outs: list, limit: float) -> dict:
+    """Greedy completions held against the fp32 oracle of ``model``,
+    teacher-forced on the completions: at each generated position the
+    oracle's argmax must be the token, unless the oracle's top-2 margin
+    lies inside the path's expected error there (the tie exemption of
+    :func:`parity_gate`). Returns the counts and the refusals."""
+    checked = exempt = 0
+    refused = []
+    for i, (p, out) in enumerate(zip(prompts, outs)):
+        ids = torch.tensor(p + out[:-1], dtype=torch.int32, device="cuda")
+        rows = list(range(len(p) - 1, len(p) - 1 + len(out)))
+        lg = oracle_logits(torch, model, ids, rows)
+        for j, tok in enumerate(out):
+            checked += 1
+            top = lg[j].topk(2)
+            if int(top.indices[0]) == tok:
+                continue
+            tie = ARGMAX_TIE_SIGMAS * 2 ** 0.5 * limit * lg[j].pow(2).mean().sqrt().item()
+            margin = (top.values[0] - lg[j, tok]).item()
+            if margin < tie:
+                exempt += 1
+            else:
+                refused.append(f"completion {i} position {j}: token {tok} is {margin:.4e} under the oracle's top "
+                               f"(exempt under {tie:.4e})")
+        del lg
+    return {"tokens_checked": checked, "near_ties_exempt": exempt, "refused": refused}
+
+
+def train_phase(torch, smi: str) -> dict:
+    """``models/train.py`` at Llama-3-8B's full size on the card: seeded
+    random bf16 weights drawn on the card, three AdamW steps with remat on
+    one batch (``TRAIN_*``); ``forward_train`` and the serving prefill
+    (the prefill kernel) on row 0's first ids held to the fp32 oracle;
+    then fine-tune-then-serve: the gradients and the optimizer state
+    freed, an engine built from the trained parameters serving four
+    greedy completions through its captured decode chunks, held to the
+    oracle of the trained weights. Reports the losses, each step's ms and
+    tokens/s, the share of 989 TF/s that 6 N T plus remat's 2 N T make,
+    and the peak allocated bytes."""
+    import numpy as np
+
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from llm_d_fast_model_actuation_tpu_torch.models import llama, train
+
+    t_phase = time.monotonic()
+    free_memory(torch)
+    cfg = llama.LlamaConfig.llama3_8b()
+    n_params = sum(math.prod(s) for s in llama.param_shapes(cfg).values())
+    free = torch.cuda.mem_get_info()[0]
+    need = 4 * 2 * n_params  # bf16 parameters, gradients and both moments
+    if free < need:
+        raise AssertionError(f"the card has {free} bytes free, training Llama-3-8B needs {need} beside activations")
+    torch.cuda.reset_peak_memory_stats()
+    model = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = dict(model.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen, device="cuda", dtype=torch.int32)
+    seq_lens = torch.tensor(TRAIN_SEQ_LENS, dtype=torch.int32, device="cuda")
+    limit = parity_limit(cfg.num_layers)
+
+    # the training forward and the serving prefill against the oracle
+    n = TRAIN_PARITY_IDS
+    ids = tokens[0, :n]
+    with torch.no_grad():
+        fwd = train.forward_train(params, cfg, ids[None], torch.tensor([n], device="cuda"), remat=False)[0]
+        ps = 16
+        pages = TRAIN_PARITY_BUCKET // ps
+        kv = tuple(torch.zeros((cfg.num_layers, pages + 1, ps, cfg.num_kv_heads, cfg.head_dim), dtype=cfg.dtype,
+                               device="cuda") for _ in range(2))
+        padded = torch.zeros((1, TRAIN_PARITY_BUCKET), dtype=torch.int32, device="cuda")
+        padded[0, :n] = ids
+        pt = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
+        served = llama.prefill(model, padded, torch.tensor([n], dtype=torch.int32, device="cuda"), kv, pt)[0, :n]
+        del kv
+        oracle = oracle_logits(torch, model, ids, list(range(n)))
+    parity = {"forward_train": rows_parity(torch, fwd, oracle, cfg.num_layers, limit),
+              "serving_prefill": rows_parity(torch, served, oracle, cfg.num_layers, limit),
+              "forward_train_vs_serving_rel_l2": ((fwd - served).norm() / served.norm()).item()}
+    del fwd, served, oracle
+    refused = parity["forward_train"]["refused"] + parity["serving_prefill"]["refused"]
+    if refused:
+        emit({"phase": "train", "parity": parity})
+        raise AssertionError(f"training's forward or the serving prefill breaks the oracle gate: {refused[:8]}")
+
+    # three steps
+    state = train.make_train_state(params)
+    losses, step_ms, allocator = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = train.train_step(state, cfg, tokens, seq_lens)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        st = torch.cuda.memory_stats()
+        # cudaMalloc calls and the retries after freeing the cache, so far
+        allocator.append({"device_allocs": st.get("num_device_alloc"), "alloc_retries": st.get("num_alloc_retries")})
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or state.step != TRAIN_STEPS:
+        raise AssertionError(f"training: losses {losses}, step {state.step} (want {TRAIN_STEPS} finite)")
+    T = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6 + 2) * n_params * T
+    best = min(step_ms) / 1e3
+
+    # fine-tune-then-serve: drop the optimizer state, serve the trained weights
+    trained = state.params
+    del state, metrics, model, params
+    free_memory(torch)
+    # the counts read below are the serving path's alone: the engine's probe
+    # and warm-ups, its prefills and its decode chunks
+    reset_counts()
+    eng = InferenceEngine(EngineConfig(model=cfg, max_batch=8, num_pages=1024, prefix_caching=False),
+                          params=trained, device="cuda")
+    del trained
+    free_memory(torch)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, k).tolist() for k in TRAIN_SERVE_LENS]
+    t0 = time.monotonic()
+    outs = eng.generate(prompts, max_new_tokens=TRAIN_SERVE_NEW)
+    serve_s = time.monotonic() - t0
+    counts = path_counts(eng)
+    check_probe_launch(counts)
+    check_replays(eng, counts, "decode_inline")
+    L = cfg.num_layers
+    launches = {"decode_steps": eng.decode_steps, "cold_prefills": eng.cold_prefills,
+                **{k: v for k, v in counts.items() if not isinstance(v, dict)}}
+    if (counts["decode_inline"] != L * eng.decode_steps or counts["prefill"] != L * eng.cold_prefills
+            or eng.cold_prefills < len(prompts)):
+        emit({"phase": "train", "serve_launches": launches})
+        raise AssertionError(f"the trained weights' serving launches {counts} against {eng.decode_steps} decode "
+                             f"steps and {eng.cold_prefills} cold prefills (want >= {len(prompts)})")
+    if counts["ragged"] or counts["ragged_sharded"] or counts["decode_scatter_first"]:
+        emit({"phase": "train", "serve_launches": launches})
+        raise AssertionError(f"the trained weights' bucketed serving launched kernels off its path: {counts}")
+    served = greedy_against_oracle(torch, eng.model, prompts, outs, limit)
+    out = {
+        "phase": "train", "model": "llama3-8b", "layers": cfg.num_layers, "params": n_params,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "seq_lens": list(TRAIN_SEQ_LENS), "remat": True,
+        "optimizer": "adamw lr 3e-4 wd 0.01, one leaf (a stacked leaf one layer view) at a time",
+        "losses": losses, "step": TRAIN_STEPS, "step_ms": step_ms, "tokens_per_s": [T / (ms / 1e3) for ms in step_ms],
+        "flops_per_step_8NT": flops, "share_of_989_tflops": flops / best / PEAK_BF16_FLOPS,
+        "peak_allocated_bytes": peak, "allocator_after_each_step": allocator, "parity": parity,
+        "serve": {"prompt_lens": list(TRAIN_SERVE_LENS), "new_tokens": TRAIN_SERVE_NEW, "seconds": serve_s,
+                  **graph_stats(eng), "launches": launches, "against_fp32_oracle": served},
+    }
+    del eng
+    free_memory(torch)
+    out["seconds"] = time.monotonic() - t_phase
+    emit(out)
+    if served["refused"]:
+        raise AssertionError(f"the trained weights' greedy completions break the oracle gate: {served['refused'][:8]}")
+    return {"counts": counts}
+
+
+def step_against(torch, mesh_state, one_state, before: dict, losses: tuple) -> dict:
+    """A mesh step against one rank's from the same state (both whole, on
+    the card): the loss, adamw's first moment and the update, and whether
+    each holds its limit (``MESH_*``; the caller raises after it prints
+    them)."""
+    def rel(a, b):
+        num = sum((a[k].float() - b[k].float()).pow(2).sum() for k in b)
+        den = sum(b[k].float().pow(2).sum() for k in b)
+        return (num / den).sqrt().item()
+
+    mu = rel(mesh_state["mu"], one_state["mu"])
+    d_mesh = {k: mesh_state["params"][k].float() - before[k].float() for k in before}
+    d_one = {k: one_state["params"][k].float() - before[k].float() for k in before}
+    upd = rel(d_mesh, d_one)
+    del d_mesh, d_one
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    out = {"loss_mesh": losses[0], "loss_one_rank": losses[1], "loss_rel_diff": loss_rel, "mu_rel_l2": mu,
+           "update_rel_l2": upd, "limits": {"loss_rel": MESH_LOSS_RTOL, "mu_rel_l2": MESH_MU_REL_L2,
+                                            "update_rel_l2": MESH_UPDATE_REL_L2}}
+    out["held"] = loss_rel <= MESH_LOSS_RTOL and mu <= MESH_MU_REL_L2 and upd <= MESH_UPDATE_REL_L2
+    return out
+
+
+def mesh_step(torch, cfg, params: dict, tokens, seq_lens, plan: dict) -> tuple:
+    """One ``train_step`` on ``MeshPlan(**plan)`` with every rank on card
+    0, from a sharded copy of ``params``; returns its loss, the whole
+    updated parameters and first moment, and the step's ms."""
+    from llm_d_fast_model_actuation_tpu_torch.models import train
+    from llm_d_fast_model_actuation_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+    p = MeshPlan(**plan)
+    mesh = make_mesh(p, ["cuda:0"] * p.size)
+    state = train.make_train_state(train.shard_train_params(params, cfg, mesh))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state, m = train.train_step(state, cfg, tokens, seq_lens, mesh=mesh)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    whole = {"params": train.unshard_train_params(state.params, cfg, mesh, "cuda"),
+             "mu": train.unshard_train_params(state.opt_state.mu, cfg, mesh, "cuda")}
+    loss = m["loss"].item()
+    del state, m
+    free_memory(torch)
+    return loss, whole, ms
+
+
+def one_rank_step(torch, cfg, params: dict, tokens, seq_lens) -> tuple:
+    from llm_d_fast_model_actuation_tpu_torch.models import train
+
+    state = train.make_train_state(params)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state, m = train.train_step(state, cfg, tokens, seq_lens)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    out = {"params": state.params, "mu": state.opt_state.mu}
+    return m["loss"].item(), out, ms
+
+
+def ring_against_dense(torch, model, tokens, seq_lens, mesh) -> dict:
+    """Layer 0's attention over ``tokens`` [1, s] as the ring over the
+    mesh's ``sp`` ranks (each rank its chunk of the sequence and its
+    ``tp`` slice of the heads) against the dense function, both in f32."""
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+    from llm_d_fast_model_actuation_tpu_torch.ops.attention import dense_causal_attention
+    from llm_d_fast_model_actuation_tpu_torch.ops.ring_attention import ring_prefill_attention
+
+    cfg = model.cfg
+    s = tokens.shape[1]
+    with torch.no_grad():
+        lp = model.layer(0)
+        x = llama._embed_tokens(model, tokens)
+        h = llama._norm(cfg, x, lp["attn_norm"])
+        pos = torch.arange(s, device="cuda")[None]
+        q, k, v = (t.float() for t in llama._project_qkv(model, lp, h, pos))
+        dense = dense_causal_attention(q, k, v, seq_lens)
+        sp, tp = mesh.shape["sp"], mesh.shape["tp"]
+        c, hq, hk = s // sp, cfg.num_heads // tp, cfg.num_kv_heads // tp
+
+        def part(t, r, heads):
+            i, j = mesh.index(r, "sp"), mesh.index(r, "tp")
+            return t[:, i * c:(i + 1) * c, j * heads:(j + 1) * heads].contiguous()
+
+        ring = ring_prefill_attention([part(q, r, hq) for r in range(mesh.size)],
+                                      [part(k, r, hk) for r in range(mesh.size)],
+                                      [part(v, r, hk) for r in range(mesh.size)],
+                                      mesh.replicate(seq_lens), mesh)
+        err = max((ring[r] - part(dense, r, hq)).abs().max().item() for r in range(mesh.size))
+    if not err <= RING_F32_ATOL:
+        raise AssertionError(f"layer 0's ring attention in f32 is {err:.3e} off the dense function (limit "
+                             f"{RING_F32_ATOL})")
+    return {"max_abs_err": err, "atol": RING_F32_ATOL, "seq": s, "sp": sp, "tp": tp}
+
+
+def train_mesh_phase(torch, smi: str) -> dict:
+    """Llama-3-8B widths at ``TRAIN_MESH_LAYERS`` layers on ``MeshPlan(sp=2,
+    tp=2)``, four ranks on the card (the JAX dry run's 4-device plan): one
+    step on one row of ``TRAIN_MESH_SEQ`` ids (2048 a sp rank) against the
+    same step on one rank from the same seed (:func:`step_against`), and
+    layer 0's ring in f32 against the dense attention."""
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+    from llm_d_fast_model_actuation_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+    t_phase = time.monotonic()
+    free_memory(torch)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=TRAIN_MESH_LAYERS)
+    model = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    params = dict(model.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_MESH_SEQ), generator=gen, device="cuda", dtype=torch.int32)
+    seq_lens = torch.tensor([TRAIN_MESH_SEQ], dtype=torch.int32, device="cuda")
+    plan = {"sp": 2, "tp": 2}
+    mesh = make_mesh(MeshPlan(**plan), ["cuda:0"] * 4)
+    ring = ring_against_dense(torch, model, tokens, seq_lens, mesh)
+    before = {k: v.clone() for k, v in params.items()}
+    loss_m, whole_m, ms_m = mesh_step(torch, cfg, params, tokens, seq_lens, plan)
+    loss_1, whole_1, ms_1 = one_rank_step(torch, cfg, params, tokens, seq_lens)
+    figures = step_against(torch, whole_m, whole_1, before, (loss_m, loss_1))
+    del model, params, before, whole_m, whole_1
+    free_memory(torch)
+    out = {"phase": "train_mesh", "model": "llama3-8b", "layers": cfg.num_layers, "mesh": plan,
+           "devices": ["cuda:0"] * 4, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "batch": 1, "seq": TRAIN_MESH_SEQ, "step_ms": {"mesh": ms_m, "one_rank": ms_1},
+           "against_one_rank": figures, "ring_vs_dense_f32": ring, "seconds": time.monotonic() - t_phase}
+    emit(out)
+    if not figures["held"]:
+        raise AssertionError(f"the sp x tp step differs from one rank's: {figures}")
+    return out
+
+
+def train_moe_phase(torch, smi: str) -> dict:
+    """Mixtral-8x7B widths at ``TRAIN_MOE_LAYERS`` layers on ``MeshPlan(dp=2,
+    ep=2)`` (the reference test's mesh), four ranks on the card: one step
+    on ``TRAIN_MOE_BATCH`` rows of ``TRAIN_MOE_SEQ`` ids against the same
+    step on one rank (:func:`step_against`)."""
+    from llm_d_fast_model_actuation_tpu_torch.models import llama, moe
+
+    t_phase = time.monotonic()
+    free_memory(torch)
+    cfg = dataclasses.replace(moe.MoeConfig.mixtral_8x7b(), num_layers=TRAIN_MOE_LAYERS)
+    model = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    params = dict(model.state_dict())
+    n_params = sum(p.numel() for p in params.values())
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_MOE_BATCH, TRAIN_MOE_SEQ), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    seq_lens = torch.tensor([TRAIN_MOE_SEQ, TRAIN_MOE_SEQ - 100, TRAIN_MOE_SEQ, 300], dtype=torch.int32, device="cuda")
+    plan = {"dp": 2, "ep": 2}
+    before = {k: v.clone() for k, v in params.items()}
+    loss_m, whole_m, ms_m = mesh_step(torch, cfg, params, tokens, seq_lens, plan)
+    loss_1, whole_1, ms_1 = one_rank_step(torch, cfg, params, tokens, seq_lens)
+    figures = step_against(torch, whole_m, whole_1, before, (loss_m, loss_1))
+    del model, params, before, whole_m, whole_1
+    free_memory(torch)
+    out = {"phase": "train_moe", "model": "mixtral-8x7b", "layers": cfg.num_layers, "params": n_params,
+           "mesh": plan, "devices": ["cuda:0"] * 4, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "batch": TRAIN_MOE_BATCH, "seq": TRAIN_MOE_SEQ, "step_ms": {"mesh": ms_m, "one_rank": ms_1},
+           "against_one_rank": figures, "seconds": time.monotonic() - t_phase}
+    emit(out)
+    if not figures["held"]:
+        raise AssertionError(f"the dp x ep step differs from one rank's: {figures}")
+    return out
+
+
+def moe_logits_and_routes(torch, model, prompts, caches, pt) -> tuple:
+    """The bucketed prefill at ``n - 1`` of ``prompts`` [B, n] and one
+    inline decode step of their argmax tokens at ``n`` (B rows: the W8A16
+    kernels at a decode step's rows) of an MoE ``model`` (one rank or a
+    mesh, on fresh ``caches``, ``pt`` [B, pages]), each layer's routing
+    recorded (rank 0's: every rank of a mesh routes the same replicated
+    rows, which is checked). Returns the prefill and decode logits [B,
+    vocab], the decoded tokens, and each row's routes by layer."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama, moe
+
+    cfg = model.cfg
+    B, n = prompts.shape
+    ranks = 1 if not isinstance(model, llama.ShardedLlama) else model.mesh.size
+    bucket = prefill_bucket(n, cfg.max_seq_len)
+    tokens = torch.zeros((B, bucket), dtype=torch.int32, device="cuda")
+    tokens[:, :n] = prompts
+    recorded = []
+    plain_route = moe.route
+
+    def recording(cfg_, router, x):
+        idx, probs = plain_route(cfg_, router, x)
+        recorded.append(idx)
+        return idx, probs
+
+    lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    moe.route = recording
+    try:
+        with torch.no_grad():
+            pre = llama.prefill(model, tokens, lens, caches, pt)[:, n - 1]
+            nxt = pre.argmax(-1).to(torch.int32)
+            dec = llama.decode_step(model, nxt, lens, caches, pt)
+    finally:
+        moe.route = plain_route
+    L = cfg.num_layers
+    if len(recorded) != 2 * L * ranks:
+        raise AssertionError(f"the MoE forward routed {len(recorded)} times, want {2 * L * ranks}")
+    for i in range(0, len(recorded), ranks):
+        if any(not torch.equal(recorded[i], recorded[i + r]) for r in range(1, ranks)):
+            raise AssertionError("the ranks of the mesh routed the same rows apart")
+    rank0 = recorded[::ranks]
+    routes = [[torch.cat([rank0[i][b * bucket:b * bucket + n], rank0[L + i][b:b + 1]]) for i in range(L)]
+              for b in range(B)]
+    return pre, dec, nxt, routes
+
+
+def moe_ep_parity_limit(layers: int) -> float:
+    """The top of the tp 2 x ep 2 int8 path's band: :func:`moe_parity_limit`'s
+    roundings and one more a layer, the bf16 sum of ``wo``'s two row
+    halves (its FFN partials are summed in f32 and rounded once, as one
+    rank rounds them; each half's product rounds half the magnitude, so
+    two halves weigh one rounding)."""
+    return ROUNDING_RMS * ((MOE_INT8_ROUNDINGS_PER_LAYER + 1) * layers + 4) ** 0.5
+
+
+def moe_ep_ratio_limit(layers: int) -> float:
+    """The limit of the ep path's rel-L2 over the one-rank path's: the
+    ``L`` ``wo`` sums at full weight against one rank at the band's bottom
+    (``2 L + 2`` roundings), as :func:`tp_ratio_limit` counts the dense
+    tp 2 path's ``2 L``."""
+    return ((3 * layers + 2) / (2 * layers + 2)) ** 0.5
+
+
+def serve_moe_ep(torch, smi: str) -> dict:
+    """Mixtral-8x7B at ``MOE_PARITY_LAYERS`` layers and full width under
+    int8 on ``MeshPlan(tp=2, ep=2)``, four ranks on the card (each holding
+    E/ep = 4 experts and its tp half of attention), against the same model
+    on one rank (same seed): the serve mix's four greedy completions, the
+    mesh's counts read right after them (the W8A16 expert kernel at E = 4);
+    then both paths' prefill and decode logits held to the fp32 oracle of
+    the quantized weights routed as each path routed, and where the
+    completions part, the one-rank logits' top-2 margin inside the tie
+    exemption."""
+    import numpy as np
+
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine, prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama, moe
+    from llm_d_fast_model_actuation_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+    t_phase = time.monotonic()
+    free_memory(torch)
+    cfg = dataclasses.replace(moe.MoeConfig.mixtral_8x7b(), num_layers=MOE_PARITY_LAYERS, quantization="int8")
+    ecfg = EngineConfig(model=cfg, max_batch=8, num_pages=1024, prefix_caching=False)
+    plan = MeshPlan(**MOE_EP_PLAN)
+    mesh = make_mesh(plan, ["cuda:0"] * plan.size)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, k).tolist() for k in TRAIN_SERVE_LENS]
+    reset_counts()
+    eng = InferenceEngine(ecfg, seed=5, mesh=mesh)
+    t0 = time.monotonic()
+    ep_out = eng.generate(prompts, max_new_tokens=TRAIN_SERVE_NEW)
+    torch.cuda.synchronize()
+    ep_s = time.monotonic() - t0
+    counts = read_counts()
+    check_probe_launch(counts)
+    by_shape = {"w8a16": dict(counts["w8a16_by_shape"]), "w8a16_experts": dict(counts["w8a16_experts_by_shape"])}
+    for key, shapes in (("w8a16", [f"{K}x{N}" for K, N in W8A16_EP_SHAPES]),
+                        ("w8a16_experts", [f"{E}x{K}x{N}" for E, K, N, _ in W8A16_EP_EXPERT_SHAPES])):
+        if any(not by_shape[key].get(k) for k in shapes) or set(by_shape[key]) - set(shapes):
+            raise AssertionError(f"the ep mesh launched {key} at {by_shape[key]}, want {shapes} (E = 4) only")
+    one = InferenceEngine(ecfg, seed=5, device="cuda")
+    t0 = time.monotonic()
+    one_out = one.generate(prompts, max_new_tokens=TRAIN_SERVE_NEW)
+    torch.cuda.synchronize()
+    one_s = time.monotonic() - t0
+    if not torch.equal(eng.model.ranks[0].layers["router"], one.model.layers["router"]):
+        raise AssertionError("the mesh and the one-rank engine drew different routers from one seed")
+
+    # both paths' logits against the oracle: a prefill and a decode step of
+    # MOE_EP_PARITY_ROWS sequences, the block of rows gated (rows_parity)
+    B, n = MOE_EP_PARITY_ROWS, MOE_EP_PARITY_IDS
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = torch.randint(0, cfg.vocab_size, (B, n), generator=gen, device="cuda", dtype=torch.int32)
+    ps = 16
+    per = -(-(n + 1) // ps)
+    shape = (cfg.num_layers, B * per + 1, ps, cfg.num_kv_heads, cfg.head_dim)
+    pt = torch.arange(1, B * per + 1, dtype=torch.int32, device="cuda").reshape(B, per)
+
+    def pool(kvh):
+        return tuple(torch.zeros(shape[:3] + (kvh,) + shape[4:], dtype=cfg.dtype, device="cuda") for _ in range(2))
+
+    paths = {"one_rank": moe_logits_and_routes(torch, one.model, batch, pool(cfg.num_kv_heads), pt),
+             "ep_mesh": moe_logits_and_routes(torch, eng.model, batch,
+                                              [pool(cfg.num_kv_heads // plan.tp) for _ in range(plan.size)], pt)}
+    L = cfg.num_layers
+    limits = {"one_rank": moe_parity_limit(L), "ep_mesh": moe_ep_parity_limit(L)}
+    figures, differ = {}, {}
+    for name, (pre, dec, nxt, routes) in paths.items():
+        oracle = torch.empty((2, B, cfg.vocab_size), dtype=torch.float32, device="cuda")
+        share = 0.0
+        for b in range(B):
+            o, d = moe_oracle_logits(torch, Dequantized(one.model), torch.cat([batch[b], nxt[b:b + 1]]),
+                                     [n - 1, n], routes[b])
+            oracle[:, b] = o
+            share += d / B
+        differ[name] = share
+        figures[f"prefill_{name}"] = rows_parity(torch, pre, oracle[0], L, limits[name])
+        figures[f"decode_inline_{name}"] = rows_parity(torch, dec, oracle[1], L, limits[name])
+        del oracle
+    del paths
+    refused = [f"{k}: {r}" for k, f in figures.items() for r in f["refused"]]
+    ratio_limit = moe_ep_ratio_limit(L)
+    ratios = {k: figures[f"{k}_ep_mesh"]["rel_l2"] / figures[f"{k}_one_rank"]["rel_l2"]
+              for k in ("prefill", "decode_inline")}
+    refused += [f"{k}: ep {r:.3f} x one rank's rel_l2 > {ratio_limit:.3f}" for k, r in ratios.items()
+                if not r <= ratio_limit]
+    limit = limits["one_rank"]
+
+    # where the greedy completions part: a near-tie of the one-rank logits
+    parts = []
+    for i, (a, b) in enumerate(zip(ep_out, one_out)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ids = prompts[i] + b[:j]
+        m = len(ids)
+        pages_m = -(-m // ps)
+        kv = tuple(torch.zeros(shape[:1] + (pages_m + 1,) + shape[2:], dtype=cfg.dtype, device="cuda")
+                   for _ in range(2))
+        x = torch.zeros((1, prefill_bucket(m, cfg.max_seq_len)), dtype=torch.int32, device="cuda")
+        x[0, :m] = torch.tensor(ids, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            lg = llama.prefill(one.model, x, torch.tensor([m], dtype=torch.int32, device="cuda"), kv,
+                               torch.arange(1, pages_m + 1, dtype=torch.int32, device="cuda")[None])[0, m - 1]
+        tie = ARGMAX_TIE_SIGMAS * 2 ** 0.5 * limit * lg.pow(2).mean().sqrt().item()
+        gap = (lg[b[j]] - lg[a[j]]).item()
+        parts.append({"completion": i, "position": j, "logit_gap": gap, "exempt_under": tie})
+        if not abs(gap) < tie:
+            refused.append(f"completion {i} parts at position {j} by {gap:.4e} (exempt under {tie:.4e})")
+        del kv, lg
+    steps = TRAIN_SERVE_NEW * len(prompts)
+    out = {"phase": "serve_moe_ep", "model": "mixtral-8x7b", "quantization": "int8", "layers": L,
+           "mesh": MOE_EP_PLAN, "devices": ["cuda:0"] * plan.size, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi, "experts_per_rank": cfg.num_experts // plan.ep,
+           "generate_s": {"ep_mesh": ep_s, "one_rank": one_s}, "new_tokens": steps,
+           "tokens_equal_one_rank": ep_out == one_out, "parted": parts,
+           "against_fp32_oracle": figures, "ep_over_one_rank": ratios, "ratio_limit": ratio_limit,
+           "routing_decisions_fp32_would_change": differ, "w8a16_launches_by_shape": by_shape,
+           "launches": {k: v for k, v in counts.items() if not isinstance(v, dict)},
+           "note": "the mesh runs its chunks eagerly (a graph belongs to one device); the one-rank engine replays"}
+    del eng, one
+    free_memory(torch)
+    out["seconds"] = time.monotonic() - t_phase
+    emit(out)
+    if refused:
+        raise AssertionError(f"ep serving breaks the oracle gate: {refused}")
+    return {"counts": counts, "by_shape": by_shape}
+
+
 def check_build_probe(torch) -> dict:
     """The probe kernel against its plain version, and its numbers."""
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import build
@@ -6326,6 +6906,11 @@ def main() -> int:
     emit({"phase": "kernel_check", "kernel": "w8a16_experts", "checks": w8_experts, "nvidia_smi": smi})
     moe = serve_moe(torch, smi)
     serve_moe_hf(torch, smi)
+    moe_ep = serve_moe_ep(torch, smi)
+    # training, every engine before it stopped: the card's memory is its
+    trained = train_phase(torch, smi)
+    train_mesh_phase(torch, smi)
+    train_moe_phase(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)
@@ -6336,7 +6921,7 @@ def main() -> int:
     profile_again(torch, smi)
     runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], int8["counts"],
             zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], *dual["counts"],
-            moe["counts"], packed["counts"],
+            moe["counts"], moe_ep["counts"], trained["counts"], packed["counts"],
             tp2["counts"], reference["counts"])
 
     def total(key):
@@ -6369,10 +6954,12 @@ def main() -> int:
     for k in w8:  # one entry per product shape, at a decode step's 8 rows
         if k["rows"] == 8:
             shape = f"{k['in']}x{k['out']}"
-            kernels.append(dict(k, launches=int8["by_shape"][shape] + moe["by_shape"]["w8a16"].get(shape, 0)))
-    for k in w8_experts:  # the batched product, one entry per expert-stack shape
+            kernels.append(dict(k, launches=int8["by_shape"].get(shape, 0) + sum(
+                run["by_shape"]["w8a16"].get(shape, 0) for run in (moe, moe_ep))))
+    for k in w8_experts:  # the batched product, one entry per expert-stack shape (E = 4: the ep ranks')
         if k["rows"] == 8:
-            kernels.append(dict(k, launches=moe["by_shape"]["w8a16_experts"][f"{k['experts']}x{k['in']}x{k['out']}"]))
+            shape = f"{k['experts']}x{k['in']}x{k['out']}"
+            kernels.append(dict(k, launches=sum(run["by_shape"]["w8a16_experts"].get(shape, 0) for run in (moe, moe_ep))))
     kernels.append(dict(probe, launches=total("probe")))
     unused = [k["name"] for k in kernels if not k["launches"] > 0]
     if unused or not by_rows or not sharded_by_rows:

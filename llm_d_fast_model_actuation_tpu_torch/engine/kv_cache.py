@@ -84,7 +84,7 @@ class PagePool:
         arenas=None,
     ) -> "PagePool":
         """A zero pool on ``device``, or with a ``mesh``
-        (``parallel/mesh.py:TpMesh``) one kv_heads/tp slice per rank on the
+        (``parallel/mesh.py:Mesh``) one kv_heads/tp slice per rank on the
         rank's device. With ``arenas`` (device -> ``engine/arena.py:Arena``,
         the engine's) each tensor is an allocation of its device's arena,
         at an address a sleep and wake keep."""

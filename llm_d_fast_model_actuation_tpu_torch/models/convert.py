@@ -1,6 +1,7 @@
-"""Carry weights and configs across from the JAX package, name for name.
+"""Carry weights, training states and configs across from the JAX
+package, name for name.
 
-Both functions take plain data, never JAX objects: the JAX parameter
+The functions take plain data, never JAX objects: the JAX parameter
 pytree after ``np.asarray`` on every leaf, and any object with the JAX
 ``LlamaConfig``'s field names. So this module imports neither JAX nor
 the JAX package (nor ``ml_dtypes``, which the GPU machine lacks).
@@ -14,8 +15,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..parallel.mesh import shard
-from .llama import LlamaConfig, param_tp_dims
+from ..parallel.mesh import shard_for
+from .llama import LlamaConfig, param_specs
 from .moe import moe_config
 
 _DTYPES = {
@@ -47,13 +48,14 @@ def params_from_jax(
     ``<name>.q`` and ``<name>.s`` (an MoE expert stack's scale is ``[L,
     E, 1, out]``, a scale per expert).
 
-    With a ``mesh`` (``parallel/mesh.py:TpMesh``) and the model's GLOBAL
-    ``cfg``: the state dict of a :class:`~.llama.ShardedLlama`
-    (``ranks.<r>.<name>``), each numpy array sliced by the logical-axes
-    table before it leaves the host, so rank ``r``'s tensor holds what the
-    reference's sharded array holds on its ``r``-th device, on
-    ``mesh.devices[r]`` (a quantized ``cfg`` splits a scale only along its
-    output axis, ``llama.param_tp_dims``)."""
+    With a ``mesh`` (``parallel/mesh.py:Mesh``, ``tp`` and ``ep``) and
+    the model's GLOBAL ``cfg``: the state dict of a
+    :class:`~.llama.ShardedLlama` (``ranks.<r>.<name>``), each numpy array
+    sliced by the logical-axes table before it leaves the host, so rank
+    ``r``'s tensor holds what the reference's sharded array holds on its
+    ``r``-th device, on ``mesh.devices[r]`` (an MoE expert stack split
+    over ``ep``; a quantized ``cfg`` splits a scale over ``tp`` only along
+    its output axis, ``llama.param_specs``)."""
     flat: Dict[str, Any] = {}
     for name, leaf in tree.items():
         for key, sub in ({f"layers.{k}": v for k, v in leaf.items()} if name == "layers" else {name: leaf}).items():
@@ -67,12 +69,30 @@ def params_from_jax(
         return {name: _leaf(a).to(device) for name, a in flat.items()}
     if cfg is None:
         raise ValueError("slicing for a mesh needs the model's config (cfg=)")
-    dims = param_tp_dims(cfg)
+    specs = param_specs(cfg)
     return {
-        f"ranks.{r}.{name}": _leaf(shard(np.asarray(a), dims[name], r, mesh.tp)).to(d)
+        f"ranks.{r}.{name}": _leaf(shard_for(np.asarray(a), specs[name], mesh, r)).to(d)
         for r, d in enumerate(mesh.devices)
         for name, a in flat.items()
     }
+
+
+def train_state_from_jax(step: Any, params: Dict[str, Any], adam: Any, device: "torch.device | str" = "cpu"):
+    """A JAX ``train.TrainState`` -> the port's
+    (``models/train.py:TrainState``), as plain data: ``step`` and the
+    parameter pytree with numpy leaves, and ``adam`` the optax adamw
+    state's ``ScaleByAdamState`` (``state.opt_state[0]``) with numpy
+    leaves (its ``count``, and ``mu`` and ``nu`` of the parameters'
+    structure). Every tree becomes a flat state dict on ``device``
+    (:func:`params_from_jax`)."""
+    from .train import AdamState, TrainState
+
+    return TrainState(
+        step=int(np.asarray(step)),
+        params=params_from_jax(params, device),
+        opt_state=AdamState(count=int(np.asarray(adam.count)), mu=params_from_jax(adam.mu, device),
+                            nu=params_from_jax(adam.nu, device)),
+    )
 
 
 def config_from_jax(cfg: Any) -> LlamaConfig:

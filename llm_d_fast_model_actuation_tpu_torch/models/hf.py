@@ -34,8 +34,10 @@ weights go:
   * ``place=False`` stages on the host only (a prefetch): the port's
     stacked layout in the config's dtype, transposed on the readers, in
     pinned memory, for :func:`place_staged_params` to copy straight in;
-  * on a tensor-parallel model each rank's slice is cut from the mapped
-    tensor by ``llama.param_tp_dims``, as ``models/convert.py`` cuts it.
+  * on a mesh (``tp``, and ``ep`` for the MoE family) each rank's slice
+    is cut from the mapped tensor by ``llama.param_specs``, as
+    ``models/convert.py`` cuts it; an expert goes to the ``ep`` ranks
+    that hold it.
 
 HF stores per-layer ``model.layers.{i}.<name>.weight`` as (out, in); the
 port's stacked layouts are (L, in, out) (and (L, E, in, out) for expert
@@ -59,7 +61,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 import torch
 
 from ..engine.chunk_store import TORCH_DTYPES, digest_leaves, leaf_paths
-from ..parallel.mesh import shard
+from ..parallel.mesh import Mesh, join_for, shard_for
 from ..utils import faults, tracing
 from . import quant as quant_mod
 from .llama import (
@@ -69,7 +71,7 @@ from .llama import (
     is_moe,
     param_dtype,
     param_shapes,
-    param_tp_dims,
+    param_specs,
     quantized_names,
 )
 from .moe import EXPERT_WEIGHTS, moe_config
@@ -515,16 +517,38 @@ def _ranks(model: "Llama | ShardedLlama") -> List[Llama]:
     return list(model.ranks) if isinstance(model, ShardedLlama) else [model]
 
 
+def _mesh(model: "Llama | ShardedLlama") -> Optional[Mesh]:
+    return model.mesh if isinstance(model, ShardedLlama) else None
+
+
+def _local_index(index: Tuple[int, ...], spec, shape, mesh: Optional[Mesh], rank: int) -> Optional[Tuple[int, ...]]:
+    """Where the checkpoint's slice ``index`` (the leading coordinates of
+    a stacked parameter, ``(layer,)`` or ``(layer, expert)``) lies in rank
+    ``rank``'s own parameter of ``shape``, whose leading dimensions
+    ``spec`` splits; None when the rank holds none of it (an expert of
+    another ``ep`` rank)."""
+    out = []
+    for i, axis, n in zip(index, spec, shape):
+        if mesh is not None and axis is not None and mesh.shape[axis] > 1:
+            i -= mesh.index(rank, axis) * n
+            if not 0 <= i < n:
+                return None
+        out.append(i)
+    return tuple(out)
+
+
 def model_leaves(model: "Llama | ShardedLlama") -> Dict[str, torch.Tensor]:
     """Every parameter under the reference's flat key (``layers/wq``); a
     sharded model's slices joined on the host first."""
     ranks = _ranks(model)
-    dims = param_tp_dims(model.cfg)
+    specs = param_specs(model.cfg)
     whole = {}
     for flat in param_shapes(model.cfg):
         parts = [m.get_parameter(flat) for m in ranks]
-        d = dims[flat]
-        t = parts[0] if d is None or len(parts) == 1 else torch.cat([p.to("cpu") for p in parts], dim=d)
+        if len(parts) == 1 or all(a is None for a in specs[flat]):
+            t = parts[0]
+        else:
+            t = join_for([p.to("cpu") for p in parts], specs[flat], model.mesh)
         whole[flat.replace(".", "/")] = t
     return whole
 
@@ -649,18 +673,17 @@ def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stat
     rank (its slice on a mesh), each quantized weight copied to rank 0's
     device one layer slice at a time and quantized there
     (:func:`~.quant.quantize_weight`, over the whole fan-in before any
-    split), its ``q`` and ``s`` cut per rank as ``param_tp_dims`` says.
+    split), its ``q`` and ``s`` cut per rank by ``param_specs``.
     The reference stages unquantized and quantizes once at the end
     (its ``hf.py:_quantize_and_repin``). ``bytes_h2d`` counts the bytes
     that crossed: the staged tree's."""
     t_begin = time.perf_counter()
     st = stats if stats is not None else LoadStats()
-    ranks = _ranks(model)
-    tp = len(ranks)
+    ranks, mesh = _ranks(model), _mesh(model)
     cfg = model.cfg
     plain = dataclasses.replace(cfg, quantization="")
     quant = set(quantized_names(cfg))
-    dims = param_tp_dims(plain)
+    specs, qspecs = param_specs(plain), param_specs(cfg)
     dev = model.device
     moved = 0
 
@@ -680,15 +703,13 @@ def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stat
                              f"{tuple(shape)} {cfg.dtype}")
         faults.fire("coldload.h2d")
         moved += node.numel() * node.element_size()
-        d = dims[flat]
         if flat not in quant:
             for r, m in enumerate(ranks):
-                piece = node if tp == 1 or d is None else shard(node, d, r, tp)
-                m.get_parameter(flat).copy_(piece, non_blocking=True)
+                m.get_parameter(flat).copy_(shard_for(node, specs[flat], mesh, r), non_blocking=True)
             continue
         stacked = len(shape) >= 3
-        ds = d - 1 if stacked and d else d  # the split axis of one layer's slice
-        out_axis = len(shape) - (2 if stacked else 1)  # the slice's output axis
+        # one layer slice's specs: s splits over tp only where that is its output axis
+        q_spec, s_spec = (qspecs[f"{flat}.{k}"][1:] if stacked else qspecs[f"{flat}.{k}"] for k in ("q", "s"))
         for i in range(shape[0] if stacked else 1):
             # a layer's slice ([in, out], or an MoE layer's [E, in, out],
             # quantized an expert at a time): never a whole stack in bf16
@@ -697,8 +718,7 @@ def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stat
             qd = quant_mod.quantize_weight(w)
             del w
             for r, m in enumerate(ranks):
-                qp = qd["q"] if tp == 1 else shard(qd["q"], ds, r, tp)
-                sp = qd["s"] if tp == 1 or ds != out_axis else shard(qd["s"], ds, r, tp)
+                qp, sp = shard_for(qd["q"], q_spec, mesh, r), shard_for(qd["s"], s_spec, mesh, r)
                 q_dst, s_dst = m.get_parameter(f"{flat}.q"), m.get_parameter(f"{flat}.s")
                 (q_dst[i] if stacked else q_dst).copy_(qp)
                 (s_dst[i] if stacked else s_dst).copy_(sp)
@@ -892,9 +912,8 @@ def _load_params(
         return unflatten_tree(tree)
 
     model = target
-    ranks = _ranks(model)
-    tp = len(ranks)
-    dims = param_tp_dims(cfg)
+    ranks, mesh = _ranks(model), _mesh(model)
+    pspecs = param_specs(cfg)
     devices = list(dict.fromkeys(m.device for m in ranks))
     # a staging buffer holds the in-flight bytes over (2 x readers), or the
     # largest tensor when that is smaller, and at least one row of the widest
@@ -922,15 +941,19 @@ def _load_params(
         for it in group:
             check_abort()
             src = it.shard.get(it.name)
-            d = dims[it.flat]
-            if d is not None and it.index is not None:
-                d -= len(it.index)  # the dimension within the slice
+            spec = pspecs[it.flat]
+            rest = spec[len(it.index or ()):]  # the slice's own dimensions
+            if it.transpose:  # the checkpoint holds the slice as (out, in)
+                rest = rest[::-1]
             n = 0
             for r, m in enumerate(ranks):
                 dest = m.get_parameter(it.flat)
                 if it.index is not None:
-                    dest = dest[it.index]
-                piece = shard(src, (dest.dim() - 1 - d) if it.transpose else d, r, tp) if tp > 1 and d is not None else src
+                    at = _local_index(it.index, spec, dest.shape, mesh, r)
+                    if at is None:
+                        continue
+                    dest = dest[at]
+                piece = shard_for(src, rest, mesh, r)
                 if m.device not in mine:
                     mine[m.device] = _Stager(m.device, chunk, begun.get(m.device))
                 n += mine[m.device].put(piece, dest, it.transpose)

@@ -35,6 +35,17 @@ the vocab axis to rank 0, where sampling runs. Norms, ``q_norm``/``k_norm``
 and the RoPE tables are replicated. A plain :class:`Llama` runs through
 the same functions as a single rank with no mesh: no collective and no
 copy.
+
+**Expert parallelism.** On a ``tp`` x ``ep`` mesh (the MoE family) the
+ranks are ``tp * ep`` modules in the mesh's rank order; a rank holds its
+E/ep experts of every expert stack (``q`` and ``s`` alike under int8), a
+whole router, and its ``tp`` slice of everything else, replicated over
+``ep`` as the reference replicates it. Each rank routes every row over
+all E experts and weights its own; the FFN's partials are reduced over
+``tp`` and ``ep`` in f32 and rounded once (:func:`_layer_tail`). The
+forwards' ``tp`` reduces run within each ``ep`` group. ``models/train.py``
+runs the same layer functions under autograd on ``dp`` x ``sp`` x ``tp``
+x ``ep`` meshes.
 """
 
 from __future__ import annotations
@@ -57,7 +68,7 @@ from ..ops.attention import (
 )
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_table
-from ..parallel.mesh import TpMesh, shard, tp_dim
+from ..parallel.mesh import Mesh, replica_of, shard_for, spec_for
 from .quant import LAYER_WEIGHTS, qmat, quantize_weight, quantized_axes
 
 #: one device's k and v pages; a sharded model takes one pair per rank
@@ -244,7 +255,7 @@ def _plain_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     if is_moe(cfg):
         # the MoE family: a router, and the FFN's stacks per expert
         E = cfg.num_experts
-        shapes["layers.router"] = (L, h, E)
+        shapes["layers.router"] = (L, h, cfg.router_experts or E)
         shapes["layers.w_gate"] = (L, E, h, f)
         shapes["layers.w_up"] = (L, E, h, f)
         shapes["layers.w_down"] = (L, E, f, h)
@@ -310,12 +321,10 @@ def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
     return axes
 
 
-def param_tp_dims(cfg: LlamaConfig) -> Dict[str, Optional[int]]:
-    """Flat parameter name (as in :func:`param_shapes`) -> the dimension
-    split over ``tp``, or None for a replicated parameter. A quantized
-    weight's ``q`` splits as the weight does, its scale only along its
-    output axis (``quant.quantized_axes``): with ``q`` for a
-    column-parallel weight, whole on every rank for a row-parallel one."""
+def _flat_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Flat parameter name (as in :func:`param_shapes`) -> its logical
+    axes; a quantized weight's ``q`` and ``s`` as ``quant.quantized_axes``
+    gives them."""
     axes = param_logical_axes(cfg)
     if quantized_names(cfg):
         axes = quantized_axes(axes)
@@ -329,22 +338,39 @@ def param_tp_dims(cfg: LlamaConfig) -> Dict[str, Optional[int]]:
                 flat[prefix + k] = v
 
     walk(axes, "")
-    return {name: tp_dim(ax) for name, ax in flat.items()}
+    return flat
 
 
-def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
-    """One rank's LOCAL config on a ``tp`` mesh: heads, KV heads, MLP width
-    and vocabulary divided by ``tp``; raises if one does not divide."""
+def param_specs(cfg: LlamaConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Flat parameter name -> the mesh axis of each dimension (None =
+    replicated): the reference's ``PartitionSpec`` of every weight, from
+    the logical-axes table. An MoE expert stack splits its expert axis
+    over ``ep`` and its ``mlp`` axis over ``tp``; a quantized stack's
+    scale splits over ``ep`` with its ``q``."""
+    return {name: spec_for(ax) for name, ax in _flat_axes(cfg).items()}
+
+
+def shard_config(cfg: LlamaConfig, tp: int, ep: int = 1) -> LlamaConfig:
+    """One rank's LOCAL config on a ``tp`` x ``ep`` mesh: heads, KV heads,
+    MLP width and vocabulary divided by ``tp``, an MoE config's experts by
+    ``ep``; raises if one does not divide."""
     for name in ("num_kv_heads", "num_heads", "intermediate_size", "vocab_size"):
         if getattr(cfg, name) % tp:
             raise ValueError(f"{name}={getattr(cfg, name)} is not divisible by tensor_parallel_size {tp}")
-    return dataclasses.replace(
+    local = dataclasses.replace(
         cfg,
         num_heads=cfg.num_heads // tp,
         num_kv_heads=cfg.num_kv_heads // tp,
         intermediate_size=cfg.intermediate_size // tp,
         vocab_size=cfg.vocab_size // tp,
     )
+    if ep > 1:
+        if not is_moe(cfg):
+            raise ValueError(f"ep={ep} splits experts, and {type(cfg).__name__} has none")
+        if cfg.num_experts % ep:
+            raise ValueError(f"num_experts={cfg.num_experts} is not divisible by ep={ep}")
+        local = dataclasses.replace(local, num_experts=cfg.num_experts // ep, router_experts=cfg.num_experts)
+    return local
 
 
 class LayerStacks(nn.Module):
@@ -488,16 +514,21 @@ class VariantView:
 
 
 class ShardedLlama(nn.Module):
-    """The decoder on a tensor-parallel mesh: ``mesh.tp`` :class:`Llama`
+    """The decoder on a ``tp`` x ``ep`` mesh: ``mesh.size`` :class:`Llama`
     modules, rank ``r`` on ``mesh.devices[r]`` holding its slice of every
-    split weight and a copy of every replicated one. ``cfg`` is the
-    GLOBAL config; each rank's own is :func:`shard_config` of it."""
+    split weight and a copy of every replicated one (an ``ep`` rank holds
+    its E/ep experts, and the attention weights whole for its ``tp``
+    coordinate, as the reference replicates them over ``ep``). ``cfg`` is
+    the GLOBAL config; each rank's own is :func:`shard_config` of it."""
 
-    def __init__(self, cfg: LlamaConfig, mesh: TpMesh, arenas=None) -> None:
+    def __init__(self, cfg: LlamaConfig, mesh: Mesh, arenas=None) -> None:
         super().__init__()
+        for axis in ("dp", "sp", "pp"):
+            if mesh.shape[axis] > 1:
+                raise ValueError(f"a serving model splits over tp and ep only; {mesh} has {axis}={mesh.shape[axis]}")
         self.cfg = cfg
         self.mesh = mesh
-        local = shard_config(cfg, mesh.tp)
+        local = shard_config(cfg, mesh.tp, mesh.shape["ep"])
         # each rank's state in its device's arena (``arenas``: device -> arena)
         self.ranks = nn.ModuleList(
             Llama(local, d, arena=None if arenas is None else arenas[d]) for d in mesh.devices
@@ -513,26 +544,29 @@ class ShardedLlama(nn.Module):
             m.build_tables()
 
     def replicas(self) -> List[torch.Tensor]:
-        """The parameters of ranks 1.. that repeat rank 0's (norms and the
-        like): the reference holds each of them as ONE replicated array."""
-        dims = param_tp_dims(self.cfg)
+        """The parameters that repeat an earlier rank's (norms and the
+        like; on an ``ep`` mesh also the attention weights of every ``ep``
+        rank past the first): the reference holds each of them as ONE
+        replicated array."""
+        specs = param_specs(self.cfg)
         return [
-            p for m in list(self.ranks)[1:] for name, p in m.named_parameters() if dims[name] is None
+            p for r, m in enumerate(self.ranks) for name, p in m.named_parameters()
+            if replica_of(specs[name], self.mesh, r) != r
         ]
 
 
 def shard_params(
-    state: Dict[str, torch.Tensor], cfg: LlamaConfig, mesh: TpMesh
+    state: Dict[str, torch.Tensor], cfg: LlamaConfig, mesh: Mesh
 ) -> Dict[str, torch.Tensor]:
     """A full model's state dict (``Llama.state_dict()`` names) -> the
     state dict of a :class:`ShardedLlama` on ``mesh``: rank ``r``'s slice of
     each split weight (a contiguous copy) and a copy of each replicated
     one, on ``mesh.devices[r]``, under ``ranks.<r>.<name>``."""
-    dims = param_tp_dims(cfg)
+    specs = param_specs(cfg)
     out: Dict[str, torch.Tensor] = {}
     for r, d in enumerate(mesh.devices):
         for name, t in state.items():
-            out[f"ranks.{r}.{name}"] = shard(t, dims[name], r, mesh.tp).to(d, copy=True).contiguous()
+            out[f"ranks.{r}.{name}"] = shard_for(t, specs[name], mesh, r).to(d, copy=True).contiguous()
     return out
 
 
@@ -549,7 +583,7 @@ def init_params(
     cfg: LlamaConfig,
     generator: torch.Generator,
     device: "torch.device | str",
-    mesh: Optional[TpMesh] = None,
+    mesh: Optional[Mesh] = None,
 ) -> "Llama | ShardedLlama":
     """Random-init parameters (serving loads checkpoints; random init is
     for tests and benchmarks), drawn from ``generator``, which must live
@@ -582,17 +616,17 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
     taken over the whole fan-in before any split: a row-parallel weight's
     ranks share one scale."""
     ranks = list(model.ranks) if isinstance(model, ShardedLlama) else [model]
+    mesh = model.mesh if isinstance(model, ShardedLlama) else None
     cfg, device = model.cfg, model.device
-    tp = len(ranks)
     plain = dataclasses.replace(cfg, quantization="")
-    shapes, dims = param_shapes(plain), param_tp_dims(plain)
+    shapes, specs = param_shapes(plain), param_specs(plain)
     quant = set(quantized_names(cfg))
     fill = 0.0 if cfg.norm_offset else 1.0
     with torch.no_grad():
         for name in _draw_order(plain):
             short = name.split(".")[-1]
             if name in quant:
-                _draw_quantized(ranks, name, shapes[name], dims[name], generator, device)
+                _draw_quantized(ranks, mesh, name, shapes[name], param_specs(cfg), generator, device)
                 continue
             dests = [m.get_parameter(name) for m in ranks]
             if "norm" in short:
@@ -602,32 +636,32 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
                 for p in dests:
                     p.zero_()
             else:
-                shape, dim = shapes[name], dims[name]
+                shape = shapes[name]
                 fan_in = shape[-2] if short != "embed" else shape[-1]
                 stacked = len(shape) >= 3
+                spec = specs[name][1:] if stacked else specs[name]  # one layer slice's
                 for i in range(shape[0] if stacked else 1):
                     src = torch.randn(
                         shape[1:] if stacked else shape, generator=generator, device=device,
                         dtype=torch.float32,
                     ).mul_(fan_in**-0.5)
                     for r, p in enumerate(dests):
-                        piece = src if tp == 1 else shard(src, dim - 1 if stacked and dim else dim, r, tp)
+                        piece = shard_for(src, spec, mesh, r)
                         (p[i] if stacked else p).copy_(piece)
                     del src, piece  # the next draw's staging replaces this one, not beside it
 
 
-def _draw_quantized(ranks: List[Llama], name: str, shape, dim: Optional[int], generator, device) -> None:
+def _draw_quantized(ranks: List[Llama], mesh: Optional[Mesh], name: str, shape, specs, generator, device) -> None:
     """One quantized weight of :func:`fill_params`: each layer slice drawn
     whole as the plain model draws it, rounded to the model dtype,
-    quantized, and its ``q`` and ``s`` cut per rank (``s`` only where the
-    split is its output axis)."""
+    quantized, and its ``q`` and ``s`` cut per rank by their specs
+    (``specs``: :func:`param_specs` of the quantized config; ``s`` is
+    split over ``tp`` only where the split is its output axis)."""
     cfg = ranks[0].cfg
-    tp = len(ranks)
     stacked = len(shape) >= 3
-    d = dim - 1 if stacked and dim else dim  # the split axis of one layer's slice
-    out_axis = len(shape) - (2 if stacked else 1)  # the slice's output axis
-    qs = [ranks[r].get_parameter(f"{name}.q") for r in range(tp)]
-    ss = [ranks[r].get_parameter(f"{name}.s") for r in range(tp)]
+    q_spec, s_spec = (specs[f"{name}.{k}"][1:] if stacked else specs[f"{name}.{k}"] for k in ("q", "s"))
+    qs = [ranks[r].get_parameter(f"{name}.q") for r in range(len(ranks))]
+    ss = [ranks[r].get_parameter(f"{name}.s") for r in range(len(ranks))]
     for i in range(shape[0] if stacked else 1):
         src = torch.randn(shape[1:] if stacked else shape, generator=generator, device=device,
                           dtype=torch.float32).mul_(shape[-2] ** -0.5)
@@ -635,9 +669,8 @@ def _draw_quantized(ranks: List[Llama], name: str, shape, dim: Optional[int], ge
         del src
         qd = quantize_weight(w)
         del w
-        for r in range(tp):
-            qp = qd["q"] if tp == 1 else shard(qd["q"], d, r, tp)
-            sp = qd["s"] if tp == 1 or d != out_axis else shard(qd["s"], d, r, tp)
+        for r in range(len(ranks)):
+            qp, sp = shard_for(qd["q"], q_spec, mesh, r), shard_for(qd["s"], s_spec, mesh, r)
             (qs[r][i] if stacked else qs[r]).copy_(qp)
             (ss[r][i] if stacked else ss[r]).copy_(sp)
         del qd
@@ -667,28 +700,29 @@ def _ranks(model, cache):
     """(mesh, per-rank modules, per-rank caches) of a model and the cache
     it was handed: a sharded model takes one (k, v) pair per rank."""
     if isinstance(model, ShardedLlama):
-        if len(cache) != model.mesh.tp or isinstance(cache[0], torch.Tensor):
+        if len(cache) != model.mesh.size or isinstance(cache[0], torch.Tensor):
             raise ValueError(f"a model on {model.mesh} takes one (k_pages, v_pages) pair per rank")
         return model.mesh, list(model.ranks), list(cache)
     return None, [model], [cache]
 
 
-def _each(mesh: Optional[TpMesh], fn: Callable[[int], Any]) -> List[Any]:
+def _each(mesh: Optional[Mesh], fn: Callable[[int], Any]) -> List[Any]:
     """``fn(rank)`` for every rank, in rank order."""
-    return [fn(r) for r in range(1 if mesh is None else mesh.tp)]
+    return [fn(r) for r in range(1 if mesh is None else mesh.size)]
 
 
-def _replicated(mesh: Optional[TpMesh], *tensors):
+def _replicated(mesh: Optional[Mesh], *tensors):
     """Per-rank copies of the forward's replicated inputs (tokens,
     positions, page table, ...; each one tensor, or already a list with
     one tensor per rank)."""
     if mesh is None:
         return [[t] for t in tensors]
-    return [[None] * mesh.tp if t is None else mesh.replicate(t) for t in tensors]
+    return [[None] * mesh.size if t is None else mesh.replicate(t) for t in tensors]
 
 
-def _reduce(mesh: Optional[TpMesh], parts):
-    return parts if mesh is None else mesh.all_reduce_sum(parts)
+def _reduce(mesh: Optional[Mesh], parts):
+    """The sum of the ranks' partials over ``tp``."""
+    return parts if mesh is None else mesh.all_reduce_sum(parts)  # its default axis, tp
 
 
 def _embed_tokens(model: Llama, tokens, rank: int = 0, tp: int = 1):
@@ -710,8 +744,9 @@ def _embed_tokens(model: Llama, tokens, rank: int = 0, tp: int = 1):
 
 
 def _embed(mesh, ms, tokens):
-    tp = len(ms)
-    return _reduce(mesh, _each(mesh, lambda r: _embed_tokens(ms[r], tokens[r], r, tp)))
+    if mesh is None:
+        return [_embed_tokens(ms[0], tokens[0])]
+    return _reduce(mesh, _each(mesh, lambda r: _embed_tokens(ms[r], tokens[r], mesh.index(r, "tp"), mesh.tp)))
 
 
 def _mlp(cfg: LlamaConfig, x, gate, up, down):
@@ -723,13 +758,15 @@ def _mlp(cfg: LlamaConfig, x, gate, up, down):
     return qmat(a.to(x.dtype) * qmat(x, up), down)
 
 
-def _ffn(cfg: LlamaConfig, lp, x):
+def _ffn(cfg: LlamaConfig, lp, x, expert0: int = 0, partial: bool = False):
     """The layer's FFN by family, as the reference's ``llama.py:_ffn``:
-    the dense gated MLP, or the MoE family's routed experts."""
+    the dense gated MLP, or the MoE family's routed experts (on an ``ep``
+    rank its experts from ``expert0`` on, and with ``partial`` the f32
+    sum before its one rounding, :func:`~.moe.moe_ffn`)."""
     if is_moe(cfg):
         from .moe import moe_ffn
 
-        return moe_ffn(cfg, lp, x)
+        return moe_ffn(cfg, lp, x, expert0=expert0, partial=partial)
     return _mlp(cfg, x, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
@@ -795,11 +832,16 @@ def _scatter_decode(pages, new, page_table, positions, page_size):
 
 def _logits(mesh, ms, x):
     """Final norm and the head product: fp32 logits over the whole
-    vocabulary, on rank 0. Each rank's product covers its own slice of
-    the vocabulary (column-parallel); the slices are gathered in the
-    model dtype and widened once."""
-    parts = _each(mesh, lambda r: qmat(_norm(ms[r].cfg, x[r], ms[r].final_norm), ms[r].head()))
-    return (parts[0] if mesh is None else mesh.gather(parts, dim=-1)).float()
+    vocabulary, on rank 0. Each rank of rank 0's ``tp`` group computes the
+    product over its own slice of the vocabulary (column-parallel); the
+    slices are gathered in the model dtype and widened once."""
+    def head(r):
+        return qmat(_norm(ms[r].cfg, x[r], ms[r].final_norm), ms[r].head())
+
+    if mesh is None:
+        return head(0).float()
+    group = mesh.group(0, "tp")
+    return mesh.gather([head(r) if r in group else None for r in range(mesh.size)], dim=-1).float()
 
 
 def _layer_tail(mesh, ms, lps, x, attn):
@@ -808,18 +850,33 @@ def _layer_tail(mesh, ms, lps, x, attn):
     FIRST; the post-norm and the residual then run on the full sum,
     replicated on every rank. An MoE FFN's output is reduced where the
     dense one's is: each rank routes the same replicated input with the
-    replicated router and sums its experts' partial down products."""
+    replicated router and sums its experts' partial down products. On an
+    ``ep`` mesh each rank's experts are a slice of E, and its partial is
+    the f32 sum before the FFN's one rounding: the partials are reduced
+    over ``tp`` and ``ep`` in f32 and rounded once, where the reference's
+    f32 contraction over E puts its ``psum``."""
     cfg = ms[0].cfg
     o = _reduce(mesh, _each(mesh, lambda r: qmat(attn[r], lps[r]["wo"])))
+    ep = 1 if mesh is None else mesh.shape["ep"]
 
     def mlp(r):
         lp = lps[r]
         xr = x[r] + _post(cfg, lp, "post_attn_norm", o[r])
         h = _norm(cfg, xr, lp["mlp_norm"])
+        if ep > 1:
+            return xr, _ffn(cfg, lp, h, expert0=mesh.index(r, "ep") * cfg.num_experts, partial=True)
         return xr, _ffn(cfg, lp, h)
 
     mid = _each(mesh, mlp)
-    y = _reduce(mesh, [m[1] for m in mid])
+    if ep > 1:
+        sums = mesh.all_reduce_sum([m[1] for m in mid], ("tp", "ep"))
+        rounded: Dict[int, torch.Tensor] = {}  # ranks that share a sum round it once
+        for t in sums:
+            if id(t) not in rounded:
+                rounded[id(t)] = t.to(mid[0][0].dtype)
+        y = [rounded[id(t)] for t in sums]
+    else:
+        y = _reduce(mesh, [m[1] for m in mid])
     return _each(mesh, lambda r: mid[r][0] + _post(cfg, lps[r], "post_ffn_norm", y[r]))
 
 

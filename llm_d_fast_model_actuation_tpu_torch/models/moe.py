@@ -49,6 +49,10 @@ EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
 class MoeConfig(LlamaConfig):
     num_experts: int = 8
     experts_per_token: int = 2
+    #: the router's width when this config is one expert-parallel rank's
+    #: (``llama.shard_config``: ``num_experts`` is then the rank's E/ep
+    #: experts, and the router stays whole); 0 means ``num_experts``
+    router_experts: int = 0
 
     @classmethod
     def mixtral_8x7b(cls) -> "MoeConfig":
@@ -116,7 +120,9 @@ def route(cfg: MoeConfig, router: torch.Tensor, x: torch.Tensor) -> Tuple[torch.
     return idx[..., :k], torch.softmax(vals[..., :k], dim=-1)
 
 
-def moe_ffn(cfg: MoeConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def moe_ffn(
+    cfg: MoeConfig, lp: Dict[str, Any], x: torch.Tensor, expert0: int = 0, partial: bool = False
+) -> torch.Tensor:
     """The reference's ``moe_ffn``: the top-k routed expert FFN, dense
     compute, on ``x [..., h]`` with one layer's ``lp`` (``router [h, E]``,
     the expert stacks ``[E, h, f]``/``[E, f, h]``, plain or ``{"q",
@@ -128,15 +134,25 @@ def moe_ffn(cfg: MoeConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor
 
     The expert products run in the layout the W8A16 kernel takes, expert
     major (``[E, rows, ...]``); on a tensor-parallel rank ``f`` is the
-    rank's slice and the result a partial sum the caller reduces."""
+    rank's slice and the result a partial sum the caller reduces. On an
+    expert-parallel rank the stacks hold the experts ``expert0 ..
+    expert0 + E/ep - 1`` while the router is whole: every row is routed
+    over all E experts and weights its own ones. ``partial`` returns the
+    f32 sum unrounded, for the caller to reduce over the mesh and round
+    once."""
     lead, h = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, h)
     idx, probs = route(cfg, lp["router"], x2)
-    weights = torch.zeros((x2.shape[0], cfg.num_experts), dtype=torch.float32, device=x.device)
-    weights.scatter_(-1, idx, probs)  # [rows, E]
+    weights = torch.zeros((x2.shape[0], lp["router"].shape[-1]), dtype=torch.float32, device=x.device)
+    weights = weights.scatter(-1, idx, probs)  # [rows, E]
+    local = cfg.num_experts
+    if local != weights.shape[-1]:
+        weights = weights[:, expert0:expert0 + local]
     g = qeinsum(x2, lp["w_gate"])  # [E, rows, f]
     u = qeinsum(x2, lp["w_up"])
     act = F.silu(g.float()).to(x.dtype) * u
     y = qeinsum(act, lp["w_down"])  # [E, rows, h]
     out = (y.float() * weights.t()[:, :, None]).sum(0)
+    if partial:
+        return out.reshape(lead + (h,))
     return out.to(x.dtype).reshape(lead + (h,))

@@ -7,7 +7,7 @@ config's layers hold a router and expert stacks (``llama.param_shapes``),
 drawn a layer at a time like the dense stacks. The draw goes into a model that already
 exists (the engine's, in its arenas), in place, and quantizes there when
 the config asks for it (``llama.fill_params``). The reference's
-``logical_axes_for`` of a quantized config is ``llama.param_tp_dims``
+``logical_axes_for`` of a quantized config is ``llama.param_specs``
 here, which applies ``quant.quantized_axes`` itself.
 """
 

@@ -10,7 +10,9 @@ All softmax math is fp32 regardless of the io dtype.
 Dispatch is by the device of the tensors: a CPU tensor runs the plain
 PyTorch version, a CUDA tensor runs the hand-written kernel
 (``ops/cuda/``) or raises. ``paged_suffix_attention`` has no kernel in
-the reference either (it is XLA there), so it is plain PyTorch on both.
+the reference either (it is XLA there), so it is plain PyTorch on both;
+so is ``dense_causal_attention``, training's attention, for the reason
+its docstring gives.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .cuda import (
 __all__ = [
     "RAGGED_BLOCK",
     "causal_prefill_attention",
+    "dense_causal_attention",
     "paged_decode_attention",
     "paged_decode_attention_inline",
     "paged_suffix_attention",
@@ -52,6 +55,41 @@ def resolve_ragged_impl(impl: str, mesh) -> str:
     reference's interpret-mode column does not exist here."""
     del impl  # the cache-write strategy of the decode step only
     return "ragged" if mesh is None else "ragged_sharded"
+
+
+def dense_causal_attention(
+    q: torch.Tensor,  # [batch, seq, heads, head_dim]
+    k: torch.Tensor,  # [batch, seq, kv_heads, head_dim]
+    v: torch.Tensor,  # [batch, seq, kv_heads, head_dim]
+    seq_lens: torch.Tensor,  # [batch] int: valid prefix length per row
+) -> torch.Tensor:
+    """Causal self-attention over a right-padded batch, differentiable:
+    the torch counterpart of the XLA branch of the reference's
+    ``ops/attention.py:causal_prefill_attention`` (GQA by repeating K/V,
+    the query scaled in f32, f32 logits masked to ``NEG_INF``, the
+    softmax as ``exp(l - max) / sum``, the product with V in f32, the
+    result rounded to ``q.dtype``).
+
+    Training calls it (``models/train.py``), as the JAX package's
+    training runs that XLA function: ``jax.grad`` cannot pass through its
+    Pallas kernel (``pallas_call`` has no transpose rule, and no kernel
+    there has a ``custom_vjp``). Serving keeps the hand-written prefill
+    kernel (:func:`causal_prefill_attention`)."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    k = k.repeat_interleave(h // kvh, dim=2)
+    v = v.repeat_interleave(h // kvh, dim=2)
+    qf = q.float() * d**-0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    pos = torch.arange(s, device=q.device)
+    causal = pos[None, :, None] >= pos[None, None, :]  # [1, q, k]
+    valid = pos[None, None, :] < seq_lens.to(q.device)[:, None, None]  # [b, 1, k]
+    mask = (causal & valid)[:, None, :, :]  # [b, 1, q, k]
+    logits = torch.where(mask, logits, torch.full((), NEG_INF, device=q.device))
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
 
 
 def paged_suffix_attention(

@@ -374,8 +374,8 @@ ragged_paged_attention.launches_by_rows = {}
 
 def _check_shards(mesh, q_shards, k_pages_shards, v_pages_shards) -> None:
     for name, shards in (("q", q_shards), ("k_pages", k_pages_shards), ("v_pages", v_pages_shards)):
-        if len(shards) != mesh.tp:
-            raise ValueError(f"{len(shards)} {name} shards for a mesh of {mesh.tp}")
+        if len(shards) != mesh.size:
+            raise ValueError(f"{len(shards)} {name} shards for a mesh of {mesh.size}")
         for r, x in enumerate(shards):
             if x.device != mesh.devices[r]:
                 raise ValueError(f"rank {r}'s {name} shard is on {x.device}, its rank on {mesh.devices[r]}")
@@ -396,7 +396,7 @@ def ragged_paged_attention_sharded_plain(
     pt, rs, pos = mesh.replicate(page_table), mesh.replicate(row_slot), mesh.replicate(positions)
     return [
         ragged_paged_attention_plain(q_shards[r], k_pages_shards[r], v_pages_shards[r], pt[r], rs[r], pos[r])
-        for r in range(mesh.tp)
+        for r in range(mesh.size)
     ]
 
 
@@ -410,7 +410,7 @@ def ragged_paged_attention_sharded(
     positions,  # [T] int32, likewise
 ) -> List[torch.Tensor]:
     """Ragged paged attention on a tensor-parallel mesh (``parallel/mesh.py:
-    TpMesh``): the ragged kernel launched once per rank, on that rank's
+    Mesh`` of ``tp``): the ragged kernel launched once per rank, on that rank's
     device (its current stream), over the rank's query heads and KV-head
     slice of the pool. The page table and the row metadata are replicated (a copy
     per device). Returns the per-rank outputs ``[T, heads/tp, head_dim]``,
@@ -425,7 +425,7 @@ def ragged_paged_attention_sharded(
         )
     pt, rs, pos = mesh.replicate(page_table), mesh.replicate(row_slot), mesh.replicate(positions)
     outs = []
-    for r in range(mesh.tp):
+    for r in range(mesh.size):
         outs.append(_launch(q_shards[r], k_pages_shards[r], v_pages_shards[r], pt[r], rs[r], pos[r]))
         count_launch(ragged_paged_attention_sharded, "launches_by_rows", q_shards[r].shape[0])
     return outs

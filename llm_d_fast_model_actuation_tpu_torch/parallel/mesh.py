@@ -1,4 +1,4 @@
-"""Device meshes and named-axis sharding rules, tensor parallelism only.
+"""Device meshes, named-axis sharding rules and the mesh's collectives.
 
 Port of ``llm_d_fast_model_actuation_tpu/parallel/mesh.py``. There the
 mesh is declarative: tensors carry logical axis names, the rules map
@@ -6,21 +6,29 @@ them to mesh axes, and XLA's partitioner derives every slice and inserts
 every collective. PyTorch has no such partitioner, so the port keeps the
 same tables (``AXES``, ``LOGICAL_RULES``, the per-weight logical axes in
 ``models/llama.py:param_logical_axes``) and writes out by hand what the
-partitioner derives from them: :func:`tp_dim` answers "which dimension of
-this weight is split over ``tp``", :func:`shard` cuts that slice, and
-:class:`TpMesh` carries the two collectives the forward needs.
+partitioner derives from them: :func:`spec_for` answers "which mesh axis
+splits each dimension of this weight", :func:`shard_for` cuts a rank's
+slice, and :class:`Mesh` carries the collectives.
 
-Only the ``tp`` axis is realised. One process drives all ``tp`` ranks (the
-reference's single-process mesh); a rank is an index into an ordered list
-of devices, **and a device may appear more than once**: two ranks on one
-card run every line of the sharded path except the copy between cards,
-which is how a one-card machine (and the CPU tests, mesh ``cpu,cpu``)
-exercises it.
+Four of the five axes are realised: ``dp``, ``sp``, ``tp`` and ``ep``
+(``pp`` raises). One process drives every rank (the reference's
+single-process mesh); a rank is an index into an ordered list of devices,
+**and a device may appear more than once**: ranks on one card run every
+line of the sharded path except the copy between cards, which is how a
+one-card machine (and the CPU tests, mesh ``cpu,cpu``) exercises it.
+Ranks take their coordinates in ``AXES`` order, the row-major reshape of
+the device list (``ep`` innermost), as the reference's ``make_mesh``
+lays out a flat device list.
 
-The collectives are plain functions on a list of per-rank tensors and are
-deterministic: a fixed rank order, so a run repeats bit for bit. They move
-bytes as copies through rank 0. NCCL replaces them in a later change, and
-nothing else in the port may depend on how they move bytes.
+The collectives are plain functions on a list of per-rank tensors over
+one named axis or a set of axes: the groups of ranks that share every
+other coordinate. They are deterministic (a fixed rank order, so a run
+repeats bit for bit) and move bytes as copies through the group's first
+rank. They are also differentiable: plain tensor ops (``+``, ``.to``,
+``cat``) with no in-place write into a shared result and no
+``torch.no_grad``, so autograd carries their transposes as ``jax.grad``
+carries those of ``psum`` and ``ppermute`` (the all-reduce's transpose
+is an all-reduce, the ring shift's the shift the other way).
 
 Streams: a rank's work goes to its device's current stream; the ranks
 have no streams of their own. Ranks on two cards run side by side as it
@@ -95,17 +103,6 @@ def spec_for(
     return tuple(rules.get(ax) for ax in logical_axes)
 
 
-def tp_dim(logical_axes: Optional[Sequence[Optional[str]]]) -> Optional[int]:
-    """The dimension of a tensor with these logical axes that is split
-    over ``tp``; None when the tensor is replicated."""
-    if logical_axes is None:
-        return None
-    dims = [i for i, ax in enumerate(spec_for(logical_axes)) if ax == "tp"]
-    if len(dims) > 1:
-        raise ValueError(f"{tuple(logical_axes)} splits more than one dimension over tp")
-    return dims[0] if dims else None
-
-
 def shard(x, dim: Optional[int], rank: int, tp: int):
     """Rank ``rank``'s slice of ``x`` (a tensor or a numpy array) along
     ``dim``: the ``rank``-th of ``tp`` equal contiguous pieces, as
@@ -134,15 +131,29 @@ def plan_for_devices(
 
 
 PerRank = List[torch.Tensor]
+AxisNames = Union[str, Sequence[str]]
 
 
-class TpMesh:
-    """An ordered list of ``tp`` devices, one per rank (a device may
-    repeat), and the two collectives of the tensor-parallel forward."""
+def _axis_tuple(axes: AxisNames) -> Tuple[str, ...]:
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    for a in names:
+        if a not in AXES:
+            raise ValueError(f"unknown mesh axis {a!r}; axes are {AXES}")
+    return names
 
-    def __init__(self, devices: Sequence[Union[str, torch.device]]) -> None:
+
+class Mesh:
+    """An ordered list of devices, one per rank (a device may repeat),
+    laid out as ``plan``'s five axes, and the collectives over them.
+    ``shape`` maps each axis to its size, as the reference's
+    ``Mesh.shape`` does."""
+
+    def __init__(self, plan: MeshPlan, devices: Sequence[Union[str, torch.device]]) -> None:
         if not devices:
             raise ValueError("a mesh needs at least one device")
+        if plan.size != len(devices):
+            raise ValueError(f"mesh plan {plan} needs {plan.size} devices, have {len(devices)}")
+        self.plan = plan
         self.devices: List[torch.device] = [torch.device(d) for d in devices]
         for d in self.devices:
             if d.type not in ("cuda", "cpu"):
@@ -152,17 +163,58 @@ class TpMesh:
             torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
             for d in self.devices
         ]
+        self.shape: Dict[str, int] = dict(zip(AXES, plan.axis_sizes()))
+        # row-major coordinates in AXES order, the last axis fastest
+        self._coords: List[Tuple[int, ...]] = []
+        for r in range(plan.size):
+            c, rest = [], r
+            for n in reversed(plan.axis_sizes()):
+                c.append(rest % n)
+                rest //= n
+            self._coords.append(tuple(reversed(c)))
+        self._groups: Dict[Tuple[str, ...], List[List[int]]] = {}
+
+    @property
+    def size(self) -> int:
+        """The number of ranks."""
+        return len(self.devices)
 
     @property
     def tp(self) -> int:
-        return len(self.devices)
+        return self.plan.tp
 
     def distinct_devices(self) -> List[torch.device]:
         """The mesh's devices, each once, in rank order."""
         return list(dict.fromkeys(self.devices))
 
     def __repr__(self) -> str:
-        return f"TpMesh({[str(d) for d in self.devices]})"
+        return f"Mesh({self.plan.describe()}: {[str(d) for d in self.devices]})"
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s coordinate on every axis."""
+        return dict(zip(AXES, self._coords[rank]))
+
+    def index(self, rank: int, axis: str) -> int:
+        """Rank ``rank``'s coordinate on ``axis`` (the reference's
+        ``jax.lax.axis_index`` inside a ``shard_map``)."""
+        return self._coords[rank][AXES.index(axis)]
+
+    def groups(self, axes: AxisNames) -> List[List[int]]:
+        """The ranks that share every coordinate off ``axes``, one list per
+        group, each ordered by its coordinates on ``axes`` (row-major in
+        ``AXES`` order), the groups by their first rank."""
+        key = _axis_tuple(axes)
+        if key not in self._groups:  # every collective asks: computed once an axis set
+            on = [AXES.index(a) for a in key]
+            out: Dict[Tuple[int, ...], List[int]] = {}
+            for r, c in enumerate(self._coords):
+                out.setdefault(tuple(v for i, v in enumerate(c) if i not in on), []).append(r)
+            self._groups[key] = list(out.values())
+        return self._groups[key]
+
+    def group(self, rank: int, axes: AxisNames) -> List[int]:
+        """The group of :meth:`groups` that holds ``rank``."""
+        return next(g for g in self.groups(axes) if rank in g)
 
     # -- replicated inputs ----------------------------------------------------
 
@@ -171,8 +223,7 @@ class TpMesh:
         share it, every other device gets one copy. A per-rank list is
         taken as given."""
         if not isinstance(x, torch.Tensor):
-            if len(x) != self.tp:
-                raise ValueError(f"{len(x)} per-rank tensors for a mesh of {self.tp}")
+            self._check(x)
             return list(x)
         copies = {x.device: x}
         for d in self.devices:
@@ -183,59 +234,134 @@ class TpMesh:
     # -- collectives ----------------------------------------------------------
 
     def _check(self, parts: Sequence[torch.Tensor]) -> None:
-        if len(parts) != self.tp:
-            raise ValueError(f"{len(parts)} per-rank tensors for a mesh of {self.tp}")
+        if len(parts) != self.size:
+            raise ValueError(f"{len(parts)} per-rank tensors for a mesh of {self.size}")
 
-    def all_reduce_sum(self, parts: Sequence[torch.Tensor]) -> PerRank:
-        """The sum of every rank's partial, on every rank. Each partial is
-        brought to rank 0's device, added there in rank order in the
-        tensors' own dtype (bf16 partials give a bf16 sum, as the
-        reference's partitioner reduces the bf16 product), and the sum
-        copied back to each rank; ranks on rank 0's device share the one
-        sum tensor (the copies vanish), so nobody may write into it.
-        Deterministic: the order never changes."""
+    def all_reduce_sum(self, parts: Sequence[torch.Tensor], axes: AxisNames = "tp") -> PerRank:
+        """The sum of the partials over each group of ``axes``, on every
+        rank of the group. Each partial is brought to the group's first
+        rank's device, added there in rank order in the tensors' own dtype
+        (bf16 partials give a bf16 sum, as the reference's partitioner
+        reduces the bf16 product), and the sum copied back to each rank;
+        ranks on that device share the one sum tensor (the copies vanish),
+        so nobody may write into it. Deterministic: the order never
+        changes."""
         self._check(parts)
-        if self.tp == 1:
-            return list(parts)
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p.to(self.devices[0])
-        return [total.to(d) for d in self.devices]
+        out: List[Any] = list(parts)
+        for g in self.groups(axes):
+            if len(g) == 1:
+                continue
+            home = self.devices[g[0]]
+            total = parts[g[0]]
+            for r in g[1:]:
+                total = total + parts[r].to(home)
+            for r in g:
+                out[r] = total.to(self.devices[r])
+        return out
 
-    def gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
-        """The per-rank slices joined along ``dim`` in rank order, on rank
-        0 only (where sampling runs)."""
+    def gather(self, parts: Sequence[torch.Tensor], dim: int, axes: AxisNames = "tp") -> torch.Tensor:
+        """Rank 0's group's slices joined along ``dim`` in rank order, on
+        rank 0 only (where sampling runs)."""
         self._check(parts)
-        if self.tp == 1:
+        g = self.group(0, axes)
+        if len(g) == 1:
             return parts[0]
-        return torch.cat([p.to(self.devices[0]) for p in parts], dim=dim)
+        return torch.cat([parts[r].to(self.devices[0]) for r in g], dim=dim)
 
-    def all_gather(self, parts: Sequence[torch.Tensor], dim: int) -> PerRank:
-        """:meth:`gather`, copied to every rank."""
-        whole = self.gather(parts, dim)
-        return [whole.to(d) for d in self.devices]
+    def all_gather(self, parts: Sequence[torch.Tensor], dim: int, axes: AxisNames = "tp") -> PerRank:
+        """Each group's slices joined along ``dim`` in rank order, on every
+        rank of the group."""
+        self._check(parts)
+        out: List[Any] = list(parts)
+        for g in self.groups(axes):
+            if len(g) == 1:
+                continue
+            home = self.devices[g[0]]
+            whole = torch.cat([parts[r].to(home) for r in g], dim=dim)
+            for r in g:
+                out[r] = whole.to(self.devices[r])
+        return out
+
+    def ring_shift(self, parts: Sequence[torch.Tensor], axis: str) -> PerRank:
+        """The reference's ``ppermute`` with ``[(i, (i + 1) % n)]``: along
+        ``axis``, the rank at coordinate i hands its tensor to the rank at
+        i + 1 mod n, so each rank ends with its predecessor's."""
+        self._check(parts)
+        out: List[Any] = list(parts)
+        for g in self.groups(axis):
+            n = len(g)
+            for i, r in enumerate(g):
+                dst = g[(i + 1) % n]
+                out[dst] = parts[r].to(self.devices[dst])
+        return out
+
+
+def shard_for(x, spec: Sequence[Optional[str]], mesh: Optional[Mesh], rank: int):
+    """Rank ``rank``'s slice of ``x`` (a tensor or a numpy array) under
+    ``spec`` (a mesh axis or None per dimension, :func:`spec_for`): each
+    split dimension cut into its axis' size of equal contiguous pieces,
+    the piece at the rank's coordinate on that axis, as ``NamedSharding``
+    cuts them. No mesh, or a spec of Nones, returns ``x`` whole. A spec
+    that splits two dimensions over one axis raises, as a
+    ``PartitionSpec`` does."""
+    named = [a for a in spec if a is not None]
+    if len(named) != len(set(named)):
+        raise ValueError(f"{tuple(spec)} splits more than one dimension over one mesh axis")
+    if mesh is None:
+        return x
+    for dim, axis in enumerate(spec):
+        if axis is not None and mesh.shape[axis] > 1:
+            x = shard(x, dim, mesh.index(rank, axis), mesh.shape[axis])
+    return x
+
+
+def join_for(parts: Sequence[torch.Tensor], spec: Sequence[Optional[str]], mesh: Mesh) -> torch.Tensor:
+    """The inverse of :func:`shard_for`: the whole tensor from the ranks'
+    slices ``parts`` (one per rank), joined on the slices' own devices
+    (bring them to one first)."""
+    axes = [(d, a) for d, a in enumerate(spec) if a is not None and mesh.shape[a] > 1]
+    if not axes:
+        return parts[0]
+    pieces = {
+        tuple(mesh.index(r, a) for _, a in axes): parts[r]
+        for r in mesh.group(0, [a for _, a in axes])
+    }
+    for k in reversed(range(len(axes))):
+        merged: Dict[Tuple[int, ...], List[torch.Tensor]] = {}
+        for key in sorted(pieces):
+            merged.setdefault(key[:k], []).append(pieces[key])
+        pieces = {key: torch.cat(v, dim=axes[k][0]) for key, v in merged.items()}
+    return pieces[()]
+
+
+def replica_of(spec: Sequence[Optional[str]], mesh: Mesh, rank: int) -> int:
+    """The first rank that holds the same slice under ``spec`` as ``rank``
+    (itself when no earlier rank does): the ranks that agree on every
+    axis the spec splits over."""
+    on = [a for a in spec if a is not None]
+    c = mesh.coords(rank)
+    return next(r for r in range(mesh.size) if all(mesh.index(r, a) == c[a] for a in on))
 
 
 def make_mesh(
     plan: MeshPlan, devices: Sequence[Union[str, torch.device]]
-) -> TpMesh:
-    """A mesh for ``plan`` over ``devices``. Only ``tp`` is realised: any
-    other axis above 1 raises, naming where it is planned."""
-    for axis, item in (("dp", "queue 1 item 15 (multi-host gangs)"), ("pp", "queue 1 item 15"),
-                       ("sp", "queue 1 item 16 (ring attention)"), ("ep", "queue 1 item 16 (expert parallelism)")):
-        if getattr(plan, axis) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={getattr(plan, axis)} is not ported yet: only tp is "
-                f"realised (ROADMAP.md {item})"
-            )
+) -> Mesh:
+    """A :class:`Mesh` for ``plan`` over ``devices``. ``pp`` above 1
+    raises: a pipeline over layers runs a stage per host (ROADMAP.md
+    queue 1 item 15, multi-host gangs)."""
+    if plan.pp > 1:
+        raise NotImplementedError(
+            f"mesh axis pp={plan.pp} is not ported yet: dp, sp, tp and ep are "
+            "realised (ROADMAP.md queue 1 item 15, pipeline stages across hosts)"
+        )
     if plan.size != len(devices):
         raise ValueError(f"mesh plan {plan} needs {plan.size} devices, have {len(devices)}")
-    return TpMesh(devices)
+    return Mesh(plan, devices)
 
 
 def serving_mesh(
     tp: int, devices: Optional[Sequence[Union[str, torch.device]]] = None
-) -> TpMesh:
+) -> Mesh:
     """The engine's tp mesh. ``devices=None`` takes the first ``tp`` CUDA
     devices and raises when there are fewer; an explicit list is taken as
     given (it may name one device more than once) and must have ``tp``

@@ -1,7 +1,7 @@
 """The port stands alone: it imports with JAX and the JAX package blocked,
 and no file of it (nor chip_smoke.py) imports either of them, nor a
 package the card's machine lacks (ml_dtypes, safetensors, aiohttp,
-prometheus_client); transformers only inside a function, when a model's
+prometheus_client, optax); transformers only inside a function, when a model's
 own tokenizer is loaded; its kernel sources and build stay out of module
 import."""
 
@@ -17,7 +17,8 @@ import torch  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "llm_d_fast_model_actuation_tpu_torch"
-FORBIDDEN = ("jax", "llm_d_fast_model_actuation_tpu", "ml_dtypes", "safetensors", "aiohttp", "prometheus_client")
+FORBIDDEN = ("jax", "llm_d_fast_model_actuation_tpu", "ml_dtypes", "safetensors", "aiohttp", "prometheus_client",
+             "optax")
 #: importable by the port only lazily, inside a function
 LAZY = ("transformers",)
 
@@ -96,7 +97,7 @@ def test_transformers_is_imported_only_inside_functions(path):
 
 def test_the_walk_covers_the_parallel_package():
     mods = set(_modules())
-    for m in ("parallel", "parallel.mesh", "models.llama", "ops.cuda.ragged", "engine.server", "engine.arena",
+    for m in ("parallel", "parallel.mesh", "models.llama", "models.train", "ops.ring_attention", "ops.cuda.ragged", "engine.server", "engine.arena",
               "engine.graphs", "engine.tokenizer", "models.hf", "models.safetensors", "launcher", "launcher.main",
               "launcher.rest", "launcher.notifier", "launcher.http11", "native.nvml", "utils.events", "api.constants",
               *CONTROL_PLANE):

@@ -13,8 +13,9 @@ the CPU, at ``tiny_moe`` size.
   JAX engine's, batched equals single; routing depends on the input; a
   level-1 and a level-2 cycle give the same tokens; a ``--sleep-quant
   int8`` cycle moves the reference's payload bits; packed serving
-  against bucketed; tp 2 on a ``cpu,cpu`` mesh against tp 1; ``ep``
-  refused, naming what it waits on.
+  against bucketed; tp 2 on a ``cpu,cpu`` mesh against tp 1; ``pp``
+  and an uneven ``ep`` refused, naming what they wait on (``ep`` itself:
+  ``tests/test_torch_moe_ep.py``).
 """
 
 import dataclasses
@@ -90,8 +91,9 @@ def test_parameter_layout_and_axes_equal_the_references():
             want[key] = tuple(sub.shape)
     assert tllama.param_shapes(config_from_jax(cfg)) == want
     assert tllama.param_logical_axes(config_from_jax(cfg)) == logical_axes_for(cfg)
-    dims = tllama.param_tp_dims(config_from_jax(cfg))
-    assert dims["layers.router"] is None and dims["layers.w_gate"] == 3 and dims["layers.w_down"] == 2
+    specs = tllama.param_specs(config_from_jax(cfg))
+    assert "tp" not in specs["layers.router"] and specs["layers.w_gate"].index("tp") == 3
+    assert specs["layers.w_down"].index("tp") == 2
 
 
 def _ffn_inputs(dtype, rows=6, seed=0):
@@ -241,5 +243,12 @@ def test_tp2_on_a_cpu_mesh_matches_tp1():
 
 
 def test_expert_parallelism_is_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 16 \\(expert parallelism\\)"):
-        tmesh.make_mesh(tmesh.MeshPlan(ep=2), ["cpu", "cpu"])
+    """ep is realised (tests/test_torch_moe_ep.py); what stays refused
+    names its item: pp (queue 1 item 15), and ep over a model whose
+    experts it cannot split evenly."""
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tmesh.make_mesh(tmesh.MeshPlan(pp=2, ep=2), ["cpu"] * 4)
+    mesh = tmesh.make_mesh(tmesh.MeshPlan(ep=2), ["cpu", "cpu"])
+    bad = dataclasses.replace(tmoe.MoeConfig.tiny_moe(), num_experts=3)
+    with pytest.raises(ValueError, match="num_experts=3 is not divisible by ep=2"):
+        tllama.ShardedLlama(bad, mesh)

@@ -153,7 +153,7 @@ def test_rank_slices_equal_the_jax_shards(name, jax_mesh2):
             assert got.is_contiguous()
         split += shards[order[0]].shape != arr.shape
     # the split parameters are those the logical-axes table sends to tp
-    assert split == sum(d is not None for d in tllama.param_tp_dims(cfg).values()) >= 8
+    assert split == sum("tp" in s for s in tllama.param_specs(cfg).values()) >= 8
 
 
 def test_pool_shard_shape_equals_the_jax_pool(jax_mesh2):
@@ -562,10 +562,19 @@ def test_indivisible_sizes_raise(field):
 
 @pytest.mark.parametrize("axis", ["dp", "pp", "sp", "ep"])
 def test_only_tp_is_realised(axis):
+    """A dense serving model splits over tp alone: the mesh refuses pp
+    (naming its ROADMAP item), and the model refuses dp and sp (training
+    axes) and ep (it has no experts)."""
     plan = tmesh.MeshPlan(**{axis: 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmesh.make_mesh(plan, ["cpu", "cpu"])
     assert plan.size == 2 and plan.describe() == f"{axis}=2"
+    if axis == "pp":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmesh.make_mesh(plan, ["cpu", "cpu"])
+        return
+    mesh = tmesh.make_mesh(plan, ["cpu", "cpu"])
+    assert mesh.shape[axis] == 2 and mesh.tp == 1 and mesh.size == 2
+    with pytest.raises(ValueError, match="splits experts" if axis == "ep" else "tp and ep only"):
+        tllama.ShardedLlama(tllama.LlamaConfig.tiny(), mesh)
 
 
 def test_serving_mesh_needs_its_cards(monkeypatch):
@@ -594,10 +603,11 @@ def test_tables_and_plans_equal_the_reference():
         tmesh.plan_for_devices(6, tp=4)
     for axes in (("layers", "embed", "heads"), ("vocab", "embed"), ("embed",), ("layers", None)):
         assert tmesh.spec_for(axes) == tuple(jmesh.spec_for(axes))
-    assert tmesh.tp_dim(("layers", "embed", "heads")) == 2 and tmesh.tp_dim(("vocab", "embed")) == 0
-    assert tmesh.tp_dim(("layers", "embed")) is None and tmesh.tp_dim(None) is None
-    with pytest.raises(ValueError):
-        tmesh.tp_dim(("heads", "mlp"))
+    assert tmesh.spec_for(("layers", "embed", "heads")).index("tp") == 2
+    assert tmesh.spec_for(("vocab", "embed")).index("tp") == 0
+    assert "tp" not in tmesh.spec_for(("layers", "embed"))
+    with pytest.raises(ValueError, match="more than one dimension"):
+        tmesh.shard_for(np.zeros((2, 4)), tmesh.spec_for(("heads", "mlp")), tmesh.serving_mesh(2, ["cpu"] * 2), 0)
     with pytest.raises(ValueError, match="not divisible"):
         tmesh.shard(np.zeros((3, 4)), 0, 0, 2)
 
