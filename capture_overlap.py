@@ -11,7 +11,7 @@ Three parts (the first two by default), each in turns:
 
 * ``recapture``: the engine's four chunk captures alone and beside the
   weights' digest job at 8 and at 4 threads. Each condition releases the
-  graphs and captures them again (``InferenceEngine.recapture``, on the
+  graphs and captures them again (``InferenceEngine.on_reacquire``, on the
   calling thread); the digest job (``chunk_store.DigestJob``) hashes the
   engine's 16 GB of weights from the card and starts just before the
   captures.
@@ -148,7 +148,7 @@ def recapture_part(torch, eng, rounds: int, parts: Breakdown) -> list:
             parts.take()
             job = DigestJob(leaves, workers=workers) if workers else None
             t0 = time.monotonic()
-            capture_s = eng.recapture()
+            capture_s = eng.on_reacquire()
             digest_s = None
             if job is not None:
                 job.result()
@@ -188,7 +188,7 @@ def threads_part(torch, eng, rounds: int, parts: Breakdown) -> list:
         eng.graphs.release()
         parts.take()
         c0 = time.thread_time()
-        out["capture_s"] = eng.recapture()
+        out["capture_s"] = eng.on_reacquire()
         out["capture_thread_cpu_s"] = time.thread_time() - c0
         out.update(parts.take())
         return out

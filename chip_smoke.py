@@ -192,12 +192,12 @@ exits non-zero and never prints the final ``ok`` line):
      verb by verb, and the phase's swaps and prefetch calls; a fault armed
      and reset through ``/v2/vllm/faults``. Then a launcher with
      ``--no-preload`` spawns one instance, for its
-     ``spawn_to_healthy_s`` (not gated);
+     ``spawn_to_healthy_s`` (not gated): the ``release`` phase's child;
   quant — ``--sleep-quant int8`` on one service over the swap phase's
      checkpoints A, A' and A'' (``quant_phase``): layer 0 of ``w_gate``
      and ``wq`` quantized on the card and by the host twin at int8 and
      fp8, payload, scale and dequantized weights bit-equal, one slice's
-     seconds each way; three level-1 cycles, each after serve's traffic:
+     seconds each way; two level-1 cycles, each after serve's traffic:
      ``bytes_offloaded`` exactly ``QUANT_WAKE_BYTES`` (13,381,672,960)
      against ``QUANT_FULL_BYTES`` (20,355,489,792), memory while asleep
      within serve's gates, no capture and no state moved, and from cycle
@@ -306,6 +306,28 @@ exits non-zero and never prints the final ``ok`` line):
      the card's compute processes and free memory (within 1 GiB) are as
      before. Both children's kernel launches are read from their
      ``/v1/device``;
+  orbax — ``serve``'s seeded weights drawn again on the card and written
+     by the port's ``save_params`` as an Orbax checkpoint (OCDBT, zarr v2,
+     zstd; 16.06 GB, after the Hugging Face checkpoints are deleted), then
+     served with ``--checkpoint-dir``: ``serve``'s traffic with
+     ``serve``'s tokens, every byte restored, the manifest's digests those
+     of the served weights (hashed from the card), the bucketed path's
+     launches; a level-2 sleep whose wake restores the checkpoint again,
+     ``serve``'s first tokens once more; the write's, the restore's (GB/s
+     beside ``serve_hf``'s load) and the wake's seconds, and libzstd's
+     version. The launcher phase also gates that its child (the default
+     ``--sleep-release-devices auto``) reports ``devices_released`` false;
+  release — a launcher child with ``--sleep-release-devices always`` (the
+     launcher phase's spawn without preload, once its children are gone):
+     asleep it reports its devices released, maps nothing, holds no graph
+     node and at most 32 MiB in its allocator, and takes at most the
+     launcher phase's unreleased child's share of the card less what its
+     release gave back (64 MiB of slack); printed beside it, the ladder's
+     context plus 96 MiB it was asked to stay under (the CUDA driver keeps most
+     of a destroyed graph's memory: the ladder's ``graph_destroyed`` rung),
+     and an earlier unreleased sleep's 1,159,725,056 B; its wake captures one set of
+     graphs again (``last_reacquire_seconds`` against ``WAKE_BAR_S``,
+     reported) and serves ``serve``'s tokens, every chunk replayed;
   graphs — a llama3-8b engine at full width and depth built directly,
      eight requests of the serve traffic's lengths (two of them sampled,
      seeded) prefilled; then for T = 8 and T = 1, sampled and greedy, one
@@ -2068,9 +2090,243 @@ def serve_hf(torch, smi: str, ckpt: str, written: dict, bucketed: dict) -> dict:
             "stats": stats, "seconds": time.monotonic() - t0,
         }
         emit(out)
-        return {"counts": counts}
+        return {"counts": counts, "load": load}
     finally:
         stop_service(torch, service, server)
+
+
+# -- phase orbax: an Orbax checkpoint written and served by the port --------
+
+
+def orbax_phase(torch, smi: str, bucketed: dict, hf: dict) -> dict:
+    """``serve``'s seeded weights drawn again on the card and written by
+    the port's ``save_params`` as an Orbax checkpoint (OCDBT, zarr v2,
+    zstd), then served with ``--checkpoint-dir``: ``serve``'s traffic
+    with ``serve``'s tokens, every byte of the model restored, the
+    manifest's digests those of the served weights, the bucketed path's
+    launches; then a level-2 sleep, whose wake restores the checkpoint
+    again, and ``serve``'s first tokens once more."""
+    from llm_d_fast_model_actuation_tpu_torch.models import checkpoint as ckpt_mod
+    from llm_d_fast_model_actuation_tpu_torch.models import hf as hf_models
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+    from llm_d_fast_model_actuation_tpu_torch.native import zstd
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    nbytes = sum(math.prod(s) * cfg.dtype.itemsize for s in llama.param_shapes(cfg).values())
+    free_memory(torch)
+    directory = checkpoint_dir(nbytes)
+    try:
+        t0 = time.monotonic()
+        model = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")  # serve's --seed 0
+        torch.cuda.synchronize()
+        draw_s = time.monotonic() - t0
+        written = ckpt_mod.save_params(directory, cfg, model)
+        write_s = time.monotonic() - t0 - draw_s
+        del model
+        service, server, init_s, free_before = start_service(torch, f"{SERVE_OPTS} --checkpoint-dir {directory}")
+        port = server.server_address[1]
+        try:
+            eng = service.engine
+            L = eng.cfg.model.num_layers
+            load = service.load_stats.summary()
+            if load["bytes_h2d"] != nbytes or service.load_stats.digests != written["digests"]:
+                raise AssertionError(f"the restore moved {load['bytes_h2d']} of {nbytes} bytes, or its manifest's "
+                                     f"digests are not the written ones")
+            captures, cold0 = eng.graph_captures, eng.cold_prefills
+            traffic = run_traffic(torch, port, cfg.vocab_size)
+            if traffic["tokens"] != bucketed["tokens"]:
+                raise AssertionError(f"the Orbax checkpoint's completions differ from serve's at "
+                                     f"{first_differences(traffic['tokens'], bucketed['tokens'])}")
+            counts = path_counts(eng)
+            colds = eng.cold_prefills - cold0
+            check_probe_launch(counts)
+            check_replays(eng, counts, "decode_inline")
+            if counts["decode_inline"] != L * eng.decode_steps or counts["prefill"] != L * colds or colds != 4:
+                raise AssertionError(f"launches {counts} against {eng.decode_steps} decode steps and {colds} cold prefills")
+            if counts["ragged"] or counts["ragged_sharded"] or counts["decode_scatter_first"]:
+                raise AssertionError(f"the Orbax checkpoint's bucketed path launched kernels off its path: {counts}")
+            # the manifest against the served weights, hashed from the card
+            t_dig = time.monotonic()
+            served = hf_models.model_digests(eng.model)
+            digest_s = time.monotonic() - t_dig
+            if served != written["digests"] or service._digests(service._runtime) != served:
+                raise AssertionError("the manifest's digests are not those of the served weights")
+            # level 2: the wake restores the checkpoint again
+            probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
+            post(port, "/sleep?level=2")
+            check_asleep(torch, eng, free_before)
+            loads = service.loads
+            woke = post(port, "/wake_up")
+            if service.loads != loads + 1:
+                raise AssertionError("the level-2 wake did not restore the checkpoint again")
+            reload = service.load_stats.summary()
+            if post(port, "/v1/completions", probe)["choices"][0]["token_ids"] != bucketed["tokens"][0]:
+                raise AssertionError("the Orbax checkpoint's tokens changed across a level-2 sleep")
+            if eng.graph_captures != captures:
+                raise AssertionError("the level-2 wake re-captured a graph")
+            stored = written["stored_bytes"]
+            emit({
+                "phase": "orbax", "model": "llama3-8b --checkpoint-dir <serve's weights>", "layers": L,
+                "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "libzstd": zstd.version(),
+                "bytes": nbytes, "stored_bytes": stored, "stored_frac": stored / nbytes,
+                "draw_s": draw_s, "write_s": write_s, "write_gb_per_s": nbytes / 1e9 / write_s,
+                "write": {k: written[k] for k in ("copy_s", "buffer_wait_s", "drain_wait_s")},
+                "restore_s": load["total_s"], "restore_gb_per_s": nbytes / 1e9 / load["total_s"],
+                "restore": load, "hf_load_gb_per_s": hf["load"]["gb_per_s"], "hf_load_s": hf["load"]["total_s"],
+                "init_s": init_s, "tokens_equal_to_serve": True, **traffic["summary"],
+                "launches": counts, **graph_stats(eng), "digests_equal": len(served), "digest_s": digest_s,
+                "level2": {"wake_s": woke["last_wake_seconds"], "reload": reload, "tokens_identical": True},
+            })
+            return {"counts": counts}
+        finally:
+            stop_service(torch, service, server)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+# -- phase release: a launcher child's device release on sleep --------------
+
+#: a released sleep keeps at most this much in the caching allocator
+RELEASED_RESERVED_LIMIT_BYTES = 32 * MIB
+#: the share of the card a released child was asked to keep to at most:
+#: a fresh process's context and this much; not reachable on this CUDA
+#: driver, which keeps most of a destroyed graph's memory with the
+#: context (the ladder's ``graph_destroyed`` rung reads how much), so it
+#: is reported beside the gated limit (``released_limit``)
+RELEASED_BEYOND_CONTEXT_BYTES = 96 * MIB
+#: an unreleased level-1 sleep's share of the card in an earlier split
+#: (context, graphs, allocator, cuBLAS, the rest; NVIDIA H100 80GB HBM3, 700 W)
+UNRELEASED_ASLEEP_BYTES = 1_159_725_056
+
+
+#: the released sleep's stream: fewer prompt ids than a page holds
+RELEASE_STREAM_PROMPT = 12
+
+
+def released_limit(ladder: dict, graph_nodes: int) -> dict:
+    """The parts of a released child's limit, from this run's ladder and
+    the child's kernel nodes before its sleep, and their sum,
+    ``limit_bytes``: a fresh process's context; cuBLAS's handles and
+    kernels; what the driver keeps of a destroyed graph per kernel node
+    (the ``graph`` rung less what ``graph_destroyed`` gave back, beyond
+    the allocator's) times those nodes; at most
+    RELEASED_RESERVED_LIMIT_BYTES in the allocator; and the kernels a
+    serving engine loads (ASLEEP_MODULES_LIMIT_BYTES)."""
+    graph, gone = ladder["graph"], ladder["graph_destroyed"]
+    per_node = ((graph["card_bytes"] - graph["reserved_bytes"])
+                + (gone["card_bytes"] - gone["reserved_bytes"])) / LADDER_NODES
+    parts = {
+        "context_bytes": ladder["context"]["card_bytes"],
+        "cublas_bytes": ladder["cublas"]["card_bytes"] - ladder["cublas"]["reserved_bytes"],
+        "retained_graph_bytes_per_node": per_node, "graph_kernel_nodes": graph_nodes,
+        "retained_graphs_bytes": round(per_node * graph_nodes),
+        "reserved_limit_bytes": RELEASED_RESERVED_LIMIT_BYTES, "modules_limit_bytes": ASLEEP_MODULES_LIMIT_BYTES,
+    }
+    parts["limit_bytes"] = (parts["context_bytes"] + parts["cublas_bytes"] + parts["retained_graphs_bytes"]
+                            + RELEASED_RESERVED_LIMIT_BYTES + ASLEEP_MODULES_LIMIT_BYTES)
+    return parts
+
+
+def release_phase(torch, smi: str, bucketed: dict, launcher: "Launcher", index: int, uuid: str, ladder: dict,
+                  unreleased_bytes: int, unreleased_memory: dict) -> dict:
+    """A launcher child started with ``serve``'s options and
+    ``--sleep-release-devices always``, asleep while a greedy stream is
+    mid-decode (its prompt, like the request before it, shares no page
+    with ``serve``'s traffic): it reports its devices released, maps
+    nothing, holds no graph node and at most
+    ``RELEASED_RESERVED_LIMIT_BYTES`` in its allocator, and takes at most
+    ``released_limit`` of the card, made of this run's ladder and the
+    child's kernel nodes before the sleep; beside it, the ladder's context
+    plus ``RELEASED_BEYOND_CONTEXT_BYTES``, reported. Its wake captures one
+    set of graphs again on a blank scheduler state, the stream goes on
+    bit-equal to its uninterrupted run, and the child serves ``serve``'s
+    tokens through replays. The launcher phase runs it once its children
+    are gone, on its launcher without preload, whose spawn it times
+    (``unreleased_bytes`` and ``unreleased_memory``: its child ``a``'s
+    share of the card and ``/v1/device`` memory asleep, reported)."""
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig
+
+    model = LlamaConfig.llama3_8b()
+    used_base = card_used_bytes(index)
+    port = free_port()
+    try:
+        _, spawn_s = launcher.spawn("r", f"{SERVE_OPTS} --sleep-release-devices always --port {port}", uuid, port)
+        # one request before the sleep, which loads the serving kernels: its
+        # prompt shares no page with the traffic's (a prefix-cache hit
+        # rounds apart from a miss, and the traffic after the wake must
+        # run as serve's did)
+        post(port, "/v1/completions", {"prompt": [1] * 20, "max_tokens": 16})  # the 32 bucket, as serve's first
+        # a stream shorter than a page (no prefix-cache hit), run whole
+        # once: what it must give when a released sleep interrupts it
+        body = stream_bodies(model.vocab_size, (RELEASE_STREAM_PROMPT,), 0, seed=21)
+        gold = Streams(port, body).join()
+        if any(gold.errors) or len(gold.tokens[0]) != ZD_NEW_TOKENS:
+            raise AssertionError(f"the uninterrupted stream failed: {gold.errors}")
+        counts0, dev0 = child_counts(port)
+        captures, nodes = dev0["graph_captures"], dev0["memory"]["graph_kernel_nodes"]
+        awake_bytes = card_used_bytes(index) - used_base
+        stream = Streams(port, body)
+        stream.wait_tokens(2)
+        info = post(port, "/sleep?level=1")
+        at_sleep = len(stream.tokens[0])
+        if not at_sleep < ZD_NEW_TOKENS:
+            raise AssertionError(f"the stream ended before the released sleep ({at_sleep} tokens)")
+        time.sleep(1)
+        asleep_bytes = card_used_bytes(index) - used_base
+        dev = get(port, "/v1/device")
+        memory = dev["memory"]
+        flag = get(port, "/is_sleeping")
+        if not (info["devices_released"] and dev["devices_released"] and flag == {"is_sleeping": True,
+                                                                              "devices_released": True}):
+            raise AssertionError(f"the child's sleep did not release its device: {info} {flag}")
+        if memory["mapped_bytes"] or memory["graph_kernel_nodes"] or memory["reserved_bytes"] > RELEASED_RESERVED_LIMIT_BYTES:
+            raise AssertionError(f"the released child keeps {memory}")
+        released = dev["released"]
+        limit = released_limit(ladder, nodes)
+        if asleep_bytes > limit["limit_bytes"]:
+            raise AssertionError(f"the released child holds {asleep_bytes} bytes of the card, more than {limit}")
+        asked = ladder["context"]["card_bytes"] + RELEASED_BEYOND_CONTEXT_BYTES
+        t0 = time.monotonic()
+        woke = post(port, "/wake_up")
+        wake_call_s = time.monotonic() - t0
+        if woke["devices_released"] or get(port, "/v1/device")["graph_captures"] != captures + 4:
+            raise AssertionError(f"the released wake did not capture one set of graphs again: {woke}")
+        check_streams(stream.join(), gold.tokens, "released sleep mid-stream")
+        stats0 = get(port, "/v1/stats")["engine"]
+        traffic = run_traffic(torch, port, model.vocab_size)
+        if traffic["tokens"] != bucketed["tokens"]:
+            raise AssertionError(f"the released child's completions differ from serve's at "
+                                 f"{first_differences(traffic['tokens'], bucketed['tokens'])}")
+        stats1 = get(port, "/v1/stats")["engine"]
+        counts, _ = child_counts(port)
+        chunks = stats1["decode_chunks"] - stats0["decode_chunks"]
+        replays = stats1["graph_replays"] - stats0["graph_replays"]
+        # eager decode launches after the wake: the re-capture's warm-ups
+        # alone, as many as the start's (every chunk replayed)
+        eager0, eager = counts0["eager"]["decode_inline"], counts["eager"]["decode_inline"]
+        if not chunks or replays != chunks or eager != 2 * eager0:
+            raise AssertionError(f"after the released wake {chunks} chunks ran, {replays} replayed; eager decode "
+                                 f"launches {eager0} -> {eager}")
+        check_probe_launch(counts)
+        emit({
+            "phase": "release", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "spawn_to_healthy_s": spawn_s, "awake_card_bytes": awake_bytes,
+            "released_card_bytes": asleep_bytes, "unreleased_card_bytes": unreleased_bytes,
+            "unreleased_pr9_card_bytes": UNRELEASED_ASLEEP_BYTES, "limit": limit,
+            "asked_limit_bytes": asked, "asked_limit_met": asleep_bytes <= asked,
+            "ladder": ladder, "memory": memory, "released": released,
+            "unreleased_memory": unreleased_memory,
+            "sleep_s": info["last_sleep_seconds"], "wake_s": woke["last_wake_seconds"], "wake_call_s": wake_call_s,
+            "last_reacquire_seconds": woke["last_reacquire_seconds"], "wake_bar_s": WAKE_BAR_S,
+            "graph_captures": {"before": captures, "after": captures + 4},
+            "chunks_after_wake": chunks, "replays_after_wake": replays, "tokens_equal_to_serve": True,
+            "stream": {"prompt_tokens": RELEASE_STREAM_PROMPT, "new_tokens": ZD_NEW_TOKENS,
+                       "delivered_at_sleep": at_sleep, "equal_to_uninterrupted": True},
+            "eager_decode_launches": {"start": eager0, "after_wake": eager},
+        })
+        return {"counts": counts, "spawn_s": spawn_s}
+    finally:
+        request(f"{launcher.url}/v2/vllm/instances/r", "DELETE")
 
 
 # -- phase swap: model hot-swap between engines on one card ----------------
@@ -2541,8 +2797,9 @@ def prefetch_drill(torch, service, port: int, model_a: str, model_c: str, swap) 
 #    taken off (NVIDIA H100 80GB HBM3, 700 W).
 ASLEEP_RESERVED_LIMIT_BYTES = 224 * MIB
 #: the launcher's child stages its prefetch at this rate (--prefetch-mib-s),
-#: beside the swap phase's unthrottled one: 16 GB in about 15 s
-LAUNCHER_PREFETCH_MIB_S = 1024
+#: beside the swap phase's unthrottled one (raised from 1024 to save time
+#: within the 1200 s limit)
+LAUNCHER_PREFETCH_MIB_S = 2048
 ASLEEP_MODULES_LIMIT_BYTES = 96 * MIB
 #: kernel nodes of the ladder's graph
 LADDER_NODES = 16384
@@ -2567,6 +2824,11 @@ with torch.cuda.graph(g):
         x.add_(1)
 g.replay()
 rung("graph")
+del g
+import gc
+gc.collect()
+torch.cuda.empty_cache()
+rung("graph_destroyed")
 """
 
 
@@ -2580,7 +2842,7 @@ def context_ladder(index: int) -> dict:
                             stdout=subprocess.PIPE, text=True)
     rungs, used, reserved = {}, base, 0
     try:
-        for _ in range(3):
+        for _ in range(4):
             line = proc.stdout.readline()
             if not line:
                 raise RuntimeError(f"the context ladder exited with {proc.wait()} after {rungs}")
@@ -2842,7 +3104,8 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
     each time, a ``SWAPPED`` event each); a SIGKILL to ``a``'s child gives
     STOPPED (-9), RESTARTING, RESTARTED and the same tokens again; DELETE
     leaves no child on the card and its memory back. Then a launcher with
-    ``--no-preload`` spawns once, for its ``spawn_to_healthy_s``."""
+    ``--no-preload`` spawns once, for its ``spawn_to_healthy_s``: the
+    device-release child (``release_phase``)."""
     from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig
 
     model = LlamaConfig.llama3_8b()
@@ -2899,7 +3162,9 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
             raise AssertionError(f"PUT b on a's card while a is awake: {status} {body}")
         refused = body
         limit = asleep_limit(ladder, dev["memory"]["graph_kernel_nodes"])
-        post(port_a, "/sleep?level=1")
+        # the default --sleep-release-devices (auto) releases nothing on a GPU
+        if post(port_a, "/sleep?level=1")["devices_released"] or get(port_a, "/is_sleeping")["devices_released"]:
+            raise AssertionError("instance a (--sleep-release-devices auto) released its device on sleep")
         time.sleep(1)
         asleep_bytes = card_used_bytes(index) - used_base
         asleep_apps = compute_apps()
@@ -3013,12 +3278,12 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
     finally:
         launcher.stop()
 
-    # preload's effect: a launcher without it, one spawn
+    # preload's effect: a launcher without it, whose one spawn is the
+    # device-release child
     plain = Launcher("--no-preload")
     try:
-        port_c = free_port()
-        _, spawn_plain_s = plain.spawn("c", f"{SERVE_OPTS} --port {port_c}", uuid, port_c)
-        request(f"{plain.url}/v2/vllm/instances/c", "DELETE")
+        released = release_phase(torch, smi, bucketed, plain, index, uuid, ladder, asleep_bytes, asleep_memory)
+        spawn_plain_s = released["spawn_s"]
     finally:
         plain.stop()
     emit({
@@ -3041,7 +3306,7 @@ def launcher_phase(torch, smi: str, bucketed: dict, swapped: dict) -> dict:
         "create_trace": create_spans, "exemplars": exemplars, "rpc_seconds": rpcs, "faults": faults_round_trip,
         "refusals": refusals,
     })
-    return {"counts": counts, "probe": probe, "b_tokens": b_tokens}
+    return {"counts": counts, "probe": probe, "b_tokens": b_tokens, "release_counts": released["counts"]}
 
 
 # -- phase quant: compressed actuation and the cost oracle ---------------------
@@ -3122,11 +3387,16 @@ def quant_twin(torch, eng) -> dict:
     return out
 
 
+#: the quantized level-1 cycles: the second shows the first rounded once
+#: (once three; cut for the 1200 s limit)
+QUANT_CYCLES = 2
+
+
 def quant_phase(torch, smi: str, ckpt: str, bucketed: dict, swapped: dict) -> dict:
     """Compressed actuation (``--sleep-quant int8``) and the cost oracle on
     one service over the swap phase's checkpoints A, A' and A''
     (Llama-3-8B, full width and depth). The card's quantization against
-    the host twin (``quant_twin``); three level-1 cycles, each after
+    the host twin (``quant_twin``); ``QUANT_CYCLES`` level-1 cycles, each after
     serve's traffic: ``bytes_offloaded`` exactly ``QUANT_WAKE_BYTES``
     against ``QUANT_FULL_BYTES``, the memory while asleep within serve's
     gates, no capture and no state tensor moved, and from cycle 2 on the
@@ -3178,7 +3448,7 @@ def quant_phase(torch, smi: str, ckpt: str, bucketed: dict, swapped: dict) -> di
         reference = quant_reference(torch, params)
         ptrs, captures = state_ptrs(eng), eng.graph_captures
         cycles, first = [], None
-        for c in range(3):
+        for c in range(QUANT_CYCLES):
             traffic = run_traffic(torch, port, vocab)
             info = post(port, "/sleep?level=1")
             asleep = check_asleep(torch, eng, free_before)
@@ -6897,6 +7167,9 @@ def main() -> int:
         shutil.rmtree(ckpt)
         for suffix in ("-sibling", "-sibling2"):
             shutil.rmtree(ckpt.rstrip("/") + suffix, ignore_errors=True)
+    # an Orbax checkpoint of serve's weights, once the Hugging Face ones
+    # are gone (their disk is its)
+    orbax = orbax_phase(torch, smi, bucketed, hf)
     dual = dualpods_phase(torch, smi, bucketed, launched)
     speculative_phase(torch, smi)
     pipeline_phase(torch, smi)
@@ -6920,7 +7193,8 @@ def main() -> int:
     del eng, eng_tp2
     profile_again(torch, smi)
     runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], int8["counts"],
-            zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], *dual["counts"],
+            zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], orbax["counts"],
+            *dual["counts"], launched["release_counts"],
             moe["counts"], moe_ep["counts"], trained["counts"], packed["counts"],
             tp2["counts"], reference["counts"])
 

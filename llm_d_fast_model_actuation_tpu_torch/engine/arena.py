@@ -157,6 +157,22 @@ def capture_guard():
                 _deferred.pop()._give_back()
 
 
+def excluding_captures():
+    """Held around a call that waits on the whole card (a device-wide
+    synchronize, ``cudaFree`` under ``empty_cache``): such a call on any
+    thread invalidates a CUDA graph capture in progress on another, so it
+    takes the captures' lock and waits for a capture to end first."""
+    return _capture_lock
+
+
+def synchronize(device: "torch.device | str | None" = None) -> None:
+    """``torch.cuda.synchronize(device)``, never beside a capture
+    (:func:`excluding_captures`). Every device-wide synchronize of the
+    port goes through here; an arena's teardown takes the same lock."""
+    with _capture_lock:
+        torch.cuda.synchronize(device)
+
+
 class _Window:
     """A mapped byte range as ``__cuda_array_interface__``: what
     ``torch.as_tensor`` views without a copy. It holds the arena, so the

@@ -105,6 +105,7 @@ weights are written, then the chunk's graphs are captured and any
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import time
@@ -118,6 +119,7 @@ from ..models import llama
 from ..models.registry import fill_params_for
 from ..ops.attention import RAGGED_BLOCK, resolve_ragged_impl
 from ..utils import tracing
+from . import arena as arena_mod
 from .arena import Arena
 from .device import resolve_device
 from .kv_cache import OutOfPages, PageAllocator, PagePool
@@ -635,16 +637,44 @@ class InferenceEngine:
             self._to_ranks(np.zeros((1, self.cfg.pages_per_seq), dtype=np.int32)),
         )
 
-    def recapture(self) -> float:
-        """Capture the chunk's graphs again after they were released (a
-        pooled engine over the exec pool's budget, serving again): the
-        scheduler state uploaded first, every slot inactive, so the
-        warm-ups write only the null page. Returns the seconds."""
+    def on_reacquire(self) -> float:
+        """Capture the chunk's graphs again after they were released: at a
+        device-releasing sleep's wake (``engine/device.py:
+        reacquire_devices``), and at the exec pool's swap-in of a pooled
+        engine whose graphs went over its budget. The chunk is then
+        replayed, not run eagerly; requests may be mid-stream (the captures
+        run on :meth:`blank_scheduler`). A capture that fails raises.
+        Returns the seconds (0 with the graphs kept)."""
         if self.graphs is None or self.graphs.captured:
             return 0.0
-        self._upload_sched()
         self.capture_s = self.graphs.capture()
         return self.capture_s
+
+    @contextlib.contextmanager
+    def blank_scheduler(self):
+        """While held, the device scheduler state is that of an engine with
+        no request in any slot (every slot inactive, page tables on the
+        null page), whatever requests are mid-stream: the chunk graphs'
+        warm-ups and captures run on it and write only the null page. The
+        host mirrors are kept, and the next dispatch uploads them again."""
+        blank = self._blank_sched()
+        saved = [(a, a.copy()) for a, _ in blank]
+        try:
+            for a, v in blank:
+                a[:] = v
+            self._upload_sched()
+            yield
+        finally:
+            for a, old in saved:
+                a[:] = old
+            self._dirty = True
+
+    def _blank_sched(self) -> List[Tuple[np.ndarray, Any]]:
+        """The host scheduler mirrors and the values of an engine with no
+        request in any slot."""
+        return [(self._page_table, 0), (self._positions, 0), (self._last_tokens, 0), (self._temps, 0.0),
+                (self._topps, 1.0), (self._pres, 0.0), (self._freqs, 0.0), (self._token_counts, 0),
+                (self._budgets, 0), (self._eos_on, 1), (self._bias, 0.0)]
 
     def reload_params(self) -> None:
         """Write the model's parameters into its live tensors, in place (at
@@ -814,7 +844,7 @@ class InferenceEngine:
                 dev[key] = d
                 d.copy_(t, non_blocking=t.is_pinned())
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                arena_mod.synchronize(self.device)
         except BaseException:
             for d in dev.values():
                 arena.release(d)
@@ -839,7 +869,7 @@ class InferenceEngine:
         if self._variant_live(handle):
             raise ValueError(f"resident variant {handle} has live requests; drain before detach")
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # no queued pass reads the leaves
+            arena_mod.synchronize(self.device)  # no queued pass reads the leaves
         del self._variants[handle]
         self._variant_order.remove(handle)
         arena = self.arenas[self.device]
@@ -2084,13 +2114,11 @@ class InferenceEngine:
         self._slots = [None] * b
         self._gens = [None] * b
         self._waiting = []
-        for a, v in ((self._page_table, 0), (self._positions, 0), (self._last_tokens, 0), (self._temps, 0.0),
-                     (self._topps, 1.0), (self._pres, 0.0), (self._freqs, 0.0), (self._token_counts, 0),
-                     (self._budgets, 0), (self._eos_on, 1), (self._bias, 0.0)):
+        for a, v in self._blank_sched():
             a[:] = v
         self._dirty = True
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # nothing queued may still read the pool
+            arena_mod.synchronize(self.device)  # nothing queued may still read the pool
         self.arenas[self.device].unmap(self.pool.tensors())
         self.kv_detached = True
         finished, self._orphan_finished = self._orphan_finished, []

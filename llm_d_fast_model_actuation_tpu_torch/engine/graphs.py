@@ -63,7 +63,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from .arena import capture_guard
+from .arena import capture_guard, excluding_captures
 
 #: engines that hold captured graphs, for :func:`graphs_alive`
 _holders: "weakref.WeakSet[ChunkGraphs]" = weakref.WeakSet()
@@ -173,7 +173,7 @@ def release_cached_memory(device: torch.device) -> None:
     captured graphs: a workspace is a live allocation that pins its
     segment, and a captured product holds its address (cuBLAS makes a new
     one at its next product)."""
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), excluding_captures():
         torch.cuda.synchronize()
         if not graphs_alive():
             torch._C._cuda_clearCublasWorkspaces()
@@ -223,18 +223,20 @@ class ChunkGraphs:
 
     def capture(self) -> float:
         """Capture every key's graph; returns the seconds it took, warm-up
-        runs included. Only an engine with no request admitted captures.
+        runs included. The warm-ups and captures run on the engine's
+        :meth:`~.engine.InferenceEngine.blank_scheduler` (every slot
+        inactive: they write only the null page), so an engine may capture
+        with requests mid-stream.
         The card's cached blocks are given back before the first capture,
         so the workspaces the engine goes on using get segments of their
         own (module docstring), and again after the last. A capture that
         fails leaves none captured."""
-        if self.engine.has_work():
-            raise RuntimeError("chunk graphs are captured before the engine serves")
         t0 = time.monotonic()
         release_cached_memory(self.engine.device)
         try:
-            for key in self.keys():
-                self.programs[key] = self._capture(*key)
+            with self.engine.blank_scheduler():
+                for key in self.keys():
+                    self.programs[key] = self._capture(*key)
         except BaseException:
             self.release()
             raise

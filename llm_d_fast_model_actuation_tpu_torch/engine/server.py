@@ -53,10 +53,23 @@ the packed path), ``n``, ``seed``, ``ignore_eos``, ``logit_bias`` and
 request's ``model`` routes it: the serving model (or none) is the base, an
 attached co-resident variant is that variant, and any other name is a 400
 that names the live set. Not ported yet and absent from the options: the
-reference's other engine flags (``--checkpoint-dir``,
-``--sleep-release-devices``, multi-host gangs:
-``tests/test_torch_flags.py`` lists them), also where the reference
-combines them with tensor parallelism. The reference's refusals of the
+reference's multi-host gang flags (``tests/test_torch_flags.py`` lists
+them), also where the reference combines them with tensor parallelism.
+
+**Orbax checkpoints** (``--checkpoint-dir``, and ``checkpoint_dir`` in a
+swap or an attach): the weights restored from the directory the JAX
+package's ``models/checkpoint.py:save_params`` writes, read by the port's
+own OCDBT/zarr/zstd reader (``models/checkpoint.py``), their digests from
+its manifest; a level-2 wake restores them again. A pooled model's key is
+``name@dir`` (a swap naming no checkpoint takes the model from any). A
+prefetch refuses one, as the reference's does.
+
+**Device release** (``--sleep-release-devices``, the reference's flag):
+``always`` makes every client sleep give back the card's memory beyond
+the CUDA context, and its wake capture the chunk graphs again
+(``engine/device.py``); ``auto`` is off on a GPU, as the reference's is
+off the TPU, and ``never`` is off. Zero-drain parking is off for a
+releasing sleep, as in the reference. The reference's refusals of the
 pairs that do not compose are the port's: ``--packed-serving on`` with
 ``--pipeline-decode on``, and ``--quantization`` with ``--resident-variants``
 above 1 or with ``--sleep-quant``.
@@ -222,6 +235,7 @@ from urllib.parse import parse_qs, unquote, urlparse
 import numpy as np
 import torch
 
+from ..models import checkpoint as checkpoint_mod
 from ..models import hf as hf_models
 from ..models import llama
 from ..models import quant as transfer_quant
@@ -505,6 +519,22 @@ def make_arg_parser() -> argparse.ArgumentParser:
         "migration (/v1/parked) needs. off (default) keeps the abort path",
     )
     p.add_argument(
+        "--sleep-release-devices",
+        default="auto",
+        choices=["auto", "always", "never"],
+        help="tear down the TPU client on sleep so other instances can use "
+        "the chip (auto = on for TPU, off elsewhere). On a GPU: a sleep "
+        "gives back the card memory beyond the CUDA context (the captured "
+        "graphs, the allocator's cache, cuBLAS's workspaces) and the wake "
+        "captures the graphs again; auto is off",
+    )
+    p.add_argument(
+        "--checkpoint-dir",
+        default="",
+        help="load weights from this Orbax checkpoint (and reload from it "
+        "on level-2 wake) instead of random init",
+    )
+    p.add_argument(
         "--faults", default="",
         help="arm fault-injection points at startup (utils/faults.py), e.g. "
         "'swap.h2d=fail:1'; also the FMA_FAULTS env and POST /v1/faults",
@@ -731,6 +761,8 @@ class _ModelRuntime:
     cfg: EngineConfig
     tokenizer: Any
     hf_dir: str
+    #: the Orbax checkpoint the weights come from ("" for none)
+    checkpoint_dir: str = ""
     engine: Any = None
     sleeper: Any = None
     #: flat weight key -> content digest, computed once at load (None for
@@ -748,6 +780,18 @@ class _ModelRuntime:
     #: (``engine/parked.py:ParkedRequests``): pooled with its slept weights,
     #: seated again when it serves again
     parked: Any = None
+
+    @property
+    def key(self) -> str:
+        """The runtime's pool key: its model name, qualified by its
+        checkpoint (:func:`_pool_key`)."""
+        return _pool_key(self.model_id, self.checkpoint_dir)
+
+
+def _pool_key(model: str, checkpoint_dir: str) -> str:
+    """Identity of a pooled model: the same model name restored from a
+    different checkpoint is a different set of weights (the reference's)."""
+    return f"{model}@{checkpoint_dir}" if checkpoint_dir else model
 
 
 class EngineService:
@@ -775,6 +819,11 @@ class EngineService:
         self._sleep_quant_hot_head = args.sleep_quant_hot_head != "off"
         #: zero-drain actuation (--zero-drain): parks instead of aborts
         self._zero_drain = getattr(args, "zero_drain", "off") == "on"
+        #: device release on sleep (--sleep-release-devices), resolved
+        #: before the first build, as the reference resolves it: auto is on
+        #: for a TPU only, so off here; a releasing sleep parks nothing
+        #: (the built engines' zero_drain_park flag reads this answer)
+        self.release_on_sleep = getattr(args, "sleep_release_devices", "auto") == "always"
         #: the cost oracle: bandwidth EWMAs fed by every transfer, and the
         #: flight recorder of every actuation (GET /v1/costs, /v1/actuations)
         self.costs = CostBook(capacity=int(os.environ.get("FMA_FLIGHT_RECORDER_CAP", "512") or 512))
@@ -828,7 +877,7 @@ class EngineService:
         # the startup span parents on FMA_TRACEPARENT when the spawning
         # launcher passed one: the first build joins the create's trace
         with tracing.span("engine.start", parent=tracing.env_context(), model=args.model, pid=os.getpid()):
-            self._runtime = self._build_runtime(args.model)
+            self._runtime = self._build_runtime(args.model, checkpoint_dir=args.checkpoint_dir)
         # the recorder's first row: the initial cold build ("restart" when
         # a supervising launcher spawned this child again)
         self._record_actuation(
@@ -893,12 +942,13 @@ class EngineService:
         staged_params: Optional[Dict[str, Any]] = None,
         staged_digests: Optional[Dict[str, str]] = None,
         staged_quant: Optional[List[Any]] = None,
+        checkpoint_dir: str = "",
     ) -> _ModelRuntime:
         """:meth:`_build_runtime_impl` under an ``engine.build_runtime``
         span, ended (with the error) when the build raises."""
-        with tracing.span("engine.build_runtime", model=model_id, checkpoint_dir="",
+        with tracing.span("engine.build_runtime", model=model_id, checkpoint_dir=checkpoint_dir,
                           staged=staged_params is not None):
-            return self._build_runtime_impl(model_id, staged_params, staged_digests, staged_quant)
+            return self._build_runtime_impl(model_id, staged_params, staged_digests, staged_quant, checkpoint_dir)
 
     def _build_runtime_impl(
         self,
@@ -906,9 +956,11 @@ class EngineService:
         staged_params: Optional[Dict[str, Any]] = None,
         staged_digests: Optional[Dict[str, str]] = None,
         staged_quant: Optional[List[Any]] = None,
+        checkpoint_dir: str = "",
     ) -> _ModelRuntime:
         """Cold-build an awake runtime for ``model_id``: config, tokenizer,
-        engine (weights from the ``hf:`` directory, from ``staged_params``
+        engine (weights from the Orbax ``checkpoint_dir``, whose manifest
+        gives the digests, from the ``hf:`` directory, from ``staged_params``
         — a host tree rebuilt from the pool's chunk tiers, flat keys
         ``layers/wq`` nested, or a prefetch's, whose payloads
         ``staged_quant`` marks: they are dequantized on the card — or
@@ -940,8 +992,16 @@ class EngineService:
             speculative_ngram=args.speculative_ngram,
             pipeline_decode=args.pipeline_decode == "on",
         )
-        rt = _ModelRuntime(model_id=model_id, cfg=cfg, tokenizer=tok, hf_dir=hf_dir)
+        rt = _ModelRuntime(model_id=model_id, cfg=cfg, tokenizer=tok, hf_dir=hf_dir, checkpoint_dir=checkpoint_dir)
         content_hash = self._content_hash
+
+        def load_checkpoint(model) -> None:
+            # each chunk straight into its slot; the digests are the
+            # manifest's, written at save time (none without one)
+            rt.load_stats = checkpoint_mod.load_params(checkpoint_dir, model, stats=hf_models.LoadStats())
+            if rt.loads == 0 and content_hash:
+                rt.digests = dict(rt.load_stats.digests) or None
+            rt.loads += 1
 
         def load(model) -> None:
             # the directory into the model's tensors in place; the digests
@@ -959,9 +1019,12 @@ class EngineService:
         def load_staged(model) -> None:
             hf_models.place_staged_params(staged_params, model, stats=staged_stats, quant_metas=staged_quant)
 
+        if checkpoint_dir:
+            load = load_checkpoint
+        source = bool(hf_dir or checkpoint_dir)
         mesh = mesh_from_options(args)
         t0 = time.monotonic()
-        params = load_staged if staged_params is not None else (load if hf_dir else None)
+        params = load_staged if staged_params is not None else (load if source else None)
         rt.engine = InferenceEngine(
             cfg, params=params, seed=args.seed,
             device=args.device if mesh is None else None, mesh=mesh,
@@ -970,21 +1033,26 @@ class EngineService:
         if staged_params is not None:
             # the tiers or a prefetch served this build; a level-2 wake
             # reads the directory
-            rt.engine._load = load if hf_dir else None
+            rt.engine._load = load if source else None
             rt.digests = dict(staged_digests) if content_hash and staged_digests else None
         rt.sleeper = attach_sleep(
             rt.engine, bucket_bytes=self._swap_bucket_bytes, quant_mode=self._sleep_quant,
             quant_hot_head=self._sleep_quant_hot_head, on_transfer=self.costs.observe_transfer,
         )
-        rt.engine.zero_drain_park = self._zero_drain
+        rt.engine.zero_drain_park = self._zero_drain and not self.release_on_sleep
         state_bytes = sum(t.numel() * t.element_size() for t in rt.engine.model.parameters())
         state_bytes += rt.engine.pool.nbytes()
         if rt.engine.graphs is not None:
             self.exec_pool.note_compile(rt.engine.capture_s)
         load = rt.load_stats if staged_params is None else staged_stats
-        for figure in load.transfer_figures() if load is not None else ():
-            self.costs.observe_transfer(*figure)
-        if load is not None and (hf_dir or staged_params is not None):
+        if checkpoint_dir and staged_params is None:
+            # a restore reads and lands each chunk in one window, as the
+            # reference's Orbax restore does: priced as the cold H2D
+            self.costs.observe_transfer("coldload.h2d", load.bytes_h2d, load.total_s)
+        else:
+            for figure in load.transfer_figures() if load is not None else ():
+                self.costs.observe_transfer(*figure)
+        if load is not None and (source or staged_params is not None):
             for phase, v in (("read", load.read_s), ("convert", load.convert_s), ("h2d", load.h2d_s),
                              ("total", load.total_s)):
                 fm.ENGINE_COLDLOAD_PHASE_SECONDS.labels(model=model_id, phase=phase).set(v)
@@ -993,7 +1061,8 @@ class EngineService:
         for program, secs in (warm.get("program_s") or {}).items():
             fm.ENGINE_WARMUP_SECONDS.labels(program=program).set(secs)
         self._last_build_stats = {
-            "h2d_s": load.h2d_s if hf_dir or staged_params is not None else warm["load_s"],
+            "h2d_s": (load.total_s if checkpoint_dir and staged_params is None else load.h2d_s)
+            if source or staged_params is not None else warm["load_s"],
             "bytes_in": state_bytes,
             "build_s": time.monotonic() - t0,
             "load_s": warm["load_s"],
@@ -1044,6 +1113,11 @@ class EngineService:
     @property
     def hf_dir(self) -> str:
         return self._runtime.hf_dir
+
+    @property
+    def checkpoint_dir(self) -> str:
+        """The serving model's Orbax checkpoint ("" for none)."""
+        return self._runtime.checkpoint_dir
 
     @property
     def cfg(self) -> EngineConfig:
@@ -1350,7 +1424,7 @@ class EngineService:
             with tracing.span("engine.sleep", level=level, model=self.model) as sp:
                 if pred is not None:
                     sp.set(predicted_bytes=pred.get("predicted_bytes"), predicted_s=pred.get("predicted_s"))
-                if level == 1 and not was_sleeping and self._zero_drain:
+                if level == 1 and not was_sleeping and self._zero_drain and not self.release_on_sleep:
                     # page the live requests' KV out compactly first: the
                     # offload then moves the weights alone, and the wake
                     # seats the bundle again; a failed park keeps the whole
@@ -1361,7 +1435,7 @@ class EngineService:
                         rt.parked = parked
                     fallback = parked is None
                 try:
-                    out = self.sleeper.sleep(level)
+                    out = self.sleeper.sleep(level, release=True) if self.release_on_sleep else self.sleeper.sleep(level)
                 except Exception as e:
                     if parked is not None and rt.parked is parked:
                         # an offload has no rollback: the parked requests end
@@ -1688,13 +1762,13 @@ class EngineService:
 
         rt = self._runtime
         digests = self._digests(rt) if self._content_hash else None
-        if not digests and not rt.hf_dir:
+        if not digests and not (rt.checkpoint_dir or rt.hf_dir):
             raise MigrationRejected(
                 "no provable weight identity (no content digests and no checkpoint): migration between "
                 "random-init engines is refused")
         return {
             "model": self.model,
-            "checkpoint_dir": rt.hf_dir,
+            "checkpoint_dir": rt.checkpoint_dir or rt.hf_dir,
             "weight_fingerprint": parked_mod.weight_fingerprint(digests) if digests else "",
             "page_size": int(self.args.page_size),
             "vocab_size": int(self.engine.cfg.model.vocab_size),
@@ -2383,20 +2457,17 @@ class EngineService:
 
     def _base_resident_id(self) -> str:
         """The serving base's identity in the same namespace (variant 0)."""
-        return self._resident_id(self.model)
+        return self._resident_id(self.model, self.checkpoint_dir)
 
-    @staticmethod
-    def _no_checkpoint_dir(checkpoint_dir: str) -> None:
-        if checkpoint_dir:
-            raise ValueError("checkpoint_dir (an Orbax checkpoint) is not ported (ROADMAP queue 1 item 2); "
-                             "name an hf: directory")
-
-    def _resident_source(self, model: str) -> Tuple[Optional[Dict[str, str]], str]:
+    def _resident_source(self, model: str, checkpoint_dir: str = "") -> Tuple[Optional[Dict[str, str]], str]:
         """A candidate's flat digest map, read without taking anything from
         the tiers: ``(digests, tier)``, the tier ``pool`` (a slept pooled
         runtime), ``prefetched`` (a prefetch's staged weights) or ``disk``
         (an evicted model's manifest, whose chunks the tiers may serve), or
-        ``(None, "cold")``: an attach never reads a checkpoint."""
+        ``(None, "cold")``: an attach never reads a checkpoint. A
+        ``checkpoint_dir`` names the model pooled from that checkpoint
+        (``name@dir``) and no other."""
+        model = _pool_key(model, checkpoint_dir)
         entry = self.model_pool.peek_match(model)
         if entry is not None:
             rt = entry.runtime
@@ -2439,8 +2510,7 @@ class EngineService:
         delta's bytes from the digest diff and its seconds at the
         ``coresident.h2d`` bandwidth (the host-to-card family's before its
         first measurement). Reads only."""
-        self._no_checkpoint_dir(checkpoint_dir)
-        digests, tier = self._resident_source(model)
+        digests, tier = self._resident_source(model, checkpoint_dir)
         rid = self._resident_id(model, checkpoint_dir)
         out: Dict[str, Any] = {"kind": "attach", "model": rid, "checkpoint_dir": checkpoint_dir,
                                "tier": "coresident", "source_tier": tier}
@@ -2501,7 +2571,6 @@ class EngineService:
         if self._resident_variants_cap <= 1:
             raise ValueError("co-residency is off (--resident-variants 1); restart with --resident-variants N "
                              "and --packed-serving on")
-        self._no_checkpoint_dir(checkpoint_dir)
         rid = self._resident_id(model, checkpoint_dir)
         if self.sleeper.is_sleeping:
             raise ValueError("engine is sleeping; wake_up before attaching residents")
@@ -2514,7 +2583,7 @@ class EngineService:
         if 1 + len(self._residents) >= self._resident_variants_cap:
             raise ResidentRejected(f"resident-set cap reached ({self._resident_variants_cap} including the base); "
                                    "detach a variant or use the swap path")
-        digests, tier = self._resident_source(model)
+        digests, tier = self._resident_source(model, checkpoint_dir)
         if digests is None:
             raise ResidentRejected(f"{rid!r} is not resolvable from the pool or disk tiers; prefetch it first "
                                    "(POST /v1/prefetch) or swap")
@@ -2632,12 +2701,9 @@ class EngineService:
         """POST /v1/swap: change the model this card serves, on the engine
         thread between steps (:meth:`_swap_impl`). Raises ValueError for a
         request the service refuses (a 400), :class:`SwapRolledBack` for a
-        rolled-back transfer (a 503)."""
-        if checkpoint_dir:
-            raise ValueError(
-                "an Orbax checkpoint_dir is not ported yet (ROADMAP queue 1 item 2); "
-                "name a Hugging Face directory as the model, hf:<dir>"
-            )
+        rolled-back transfer (a 503). A ``checkpoint_dir`` restores the
+        model's weights from that Orbax checkpoint; without one a model
+        pooled from any checkpoint of that name is taken."""
         if self.args.tensor_parallel_size > 1:
             raise ValueError("model hot-swap on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
         if model.startswith("hf:"):
@@ -2645,15 +2711,16 @@ class EngineService:
                 raise ValueError("swap model hf: needs a directory path")
         elif model not in MODEL_CONFIGS:
             raise ValueError(f"unknown model {model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
-        return self._on_loop(lambda: self._priced_swap(model, request_id))
+        return self._on_loop(lambda: self._priced_swap(model, request_id, checkpoint_dir))
 
-    def _priced_swap(self, model: str, request_id: str) -> Dict[str, Any]:
+    def _priced_swap(self, model: str, request_id: str, checkpoint_dir: str = "") -> Dict[str, Any]:
         """:meth:`_swap_impl`, priced just before it runs (on the engine
         thread, so nothing moves in between) and recorded after it: a
         committed swap with its bytes and seconds, a rolled-back or failed
         one with none (a refusal moved nothing and is not recorded)."""
         replay = request_id and self.last_swap.get("request_id") == request_id
-        pred = None if replay or model == self.model else self._priced(lambda: self.price_swap(model))
+        same = model == self.model and (not checkpoint_dir or checkpoint_dir == self.checkpoint_dir)
+        pred = None if replay or same else self._priced(lambda: self.price_swap(model, checkpoint_dir=checkpoint_dir))
 
         def record_failure(outcome: str) -> None:
             self._record_actuation(
@@ -2670,7 +2737,7 @@ class EngineService:
                 sp.set(predicted_bytes=pred.get("predicted_bytes"), predicted_s=pred.get("predicted_s"),
                        predicted_tier=pred.get("tier"))
             try:
-                out = self._swap_impl(model, request_id)
+                out = self._swap_impl(model, request_id, checkpoint_dir)
             except SwapRolledBack:
                 recovery("swap")
                 record_failure("rolled_back")
@@ -2725,7 +2792,7 @@ class EngineService:
                 if fut is not None and not fut.done():
                     fut.set_exception(exc)
 
-    def _swap_impl(self, model: str, request_id: str = "") -> Dict[str, Any]:
+    def _swap_impl(self, model: str, request_id: str = "", checkpoint_dir: str = "") -> Dict[str, Any]:
         """The reference's ``_swap_impl`` (``tier``: ``pool`` for a slept
         runtime from the pool, ``prefetched`` for a prefetch's staged host
         weights, ``host`` or ``disk`` for weights rebuilt from the chunk
@@ -2751,9 +2818,9 @@ class EngineService:
             # the caller lost the answer: swapping again would swap away
             return dict(self.last_swap, replayed=True)
         previous = self.model
-        if model == previous:
-            return {"model": model, "previous_model": previous, "checkpoint_dir": "", "swapped": False,
-                    "pool": self.model_pool.describe()}
+        if model == previous and (not checkpoint_dir or checkpoint_dir == self.checkpoint_dir):
+            return {"model": model, "previous_model": previous, "checkpoint_dir": self.checkpoint_dir,
+                    "swapped": False, "pool": self.model_pool.describe()}
         if self.sleeper.is_sleeping:
             raise ValueError("engine is sleeping; wake_up before swapping models")
         # every resident's shared leaves are the base's tensors
@@ -2781,7 +2848,11 @@ class EngineService:
             # rides with the slept runtime into the pool; every failure below
             # resumes it or aborts it (state_loss)
             outgoing.parked = parked
-        entry = self.model_pool.take_match(model)
+        # the pool key carries the checkpoint: a swap that names one takes
+        # that model only; one that names none takes the model from any
+        # source (a swap back to a pooled X@/ckpt must not cold-build)
+        key = _pool_key(model, checkpoint_dir)
+        entry = self.model_pool.take(key) if checkpoint_dir else self.model_pool.take_match(model)
         pool_hit = entry is not None
         prefetched = pool_hit and isinstance(entry.runtime, PrefetchedWeights)
         tier = "pool" if pool_hit and not prefetched else "cold"
@@ -2822,7 +2893,7 @@ class EngineService:
             # the engine's state is mapped and back
             metrics["graphs_kept"] = kept
             try:
-                metrics["recapture_s"] = rt.engine.recapture() if not kept else 0.0
+                metrics["recapture_s"] = rt.engine.on_reacquire() if not kept else 0.0
             except Exception as capture_exc:
                 # the incoming model cannot serve: the outgoing one goes
                 # back, as a failed transfer rolls back
@@ -2855,13 +2926,17 @@ class EngineService:
                 pw = entry.runtime
                 staged, staged_digests, staged_quant = pw.params_host, pw.digests, pw.quant_metas
             elif self._content_hash:
-                got = self.model_pool.take_staged_match(model)
+                got = self.model_pool.take_staged_match(key)
                 if got is not None:
-                    staged, staged_digests, _key, tier = got
+                    staged, staged_digests, matched, tier = got
+                    # weights rebuilt from the tiers keep their checkpoint
+                    # (a level-2 wake reads it)
+                    checkpoint_dir = matched[len(model) + 1:] if matched.startswith(model + "@") else ""
             self.sleeper.sleep(1)
             try:
                 rt = self._build_runtime(
-                    model, staged_params=staged, staged_digests=staged_digests, staged_quant=staged_quant
+                    model, staged_params=staged, staged_digests=staged_digests, staged_quant=staged_quant,
+                    checkpoint_dir=checkpoint_dir,
                 )
             except Exception as build_exc:
                 # a failed build must not leave the card serving nothing
@@ -2888,7 +2963,7 @@ class EngineService:
                     nb = sum(t.numel() * t.element_size() for t in flatten_state(staged))
                     pw = PrefetchedWeights(model_id=model, params_host=staged, nbytes=nb,
                                            digests=staged_digests)
-                    self._free_pooled(self._pool_park(model, pw, nb))
+                    self._free_pooled(self._pool_park(_pool_key(model, checkpoint_dir), pw, nb))
                 self.degraded = f"hot-swap {previous}->{model} build failed; rolled back to {previous}: {type(build_exc).__name__}: {build_exc}"
                 try:
                     build_exc.fma_swap_actuated = True  # the flight recorder's mark
@@ -2930,10 +3005,10 @@ class EngineService:
                 "workers": b["workers"],
                 "capture_s": b["capture_s"],
             }
-        # the pool key is the model's name: the reference qualifies it with
-        # an Orbax checkpoint_dir (name@dir), which the port refuses. The
-        # parked bundle is host state the pool counts with the weights
-        evicted = self._pool_park(previous, outgoing,
+        # the pool key is the model's name qualified by its checkpoint
+        # (name@dir). The parked bundle is host state the pool counts with
+        # the weights
+        evicted = self._pool_park(outgoing.key, outgoing,
                                   outgoing.sleeper.stats.bytes_offloaded + (parked.nbytes if parked else 0))
         self._runtime = rt
         self._free_pooled(evicted)
@@ -2970,7 +3045,7 @@ class EngineService:
             "model": model,
             "previous_model": previous,
             "request_id": request_id,
-            "checkpoint_dir": "",
+            "checkpoint_dir": rt.checkpoint_dir,
             "swapped": True,
             "pool_hit": pool_hit,
             "prefetched": prefetched,
@@ -3323,7 +3398,8 @@ class EngineService:
             model_cfg.head_dim, dtype=model_cfg.dtype,
         )
 
-    def price_swap(self, model: str, _offload_wire: Optional[int] = None, wait: bool = True) -> Dict[str, Any]:
+    def price_swap(self, model: str, _offload_wire: Optional[int] = None, wait: bool = True,
+                   checkpoint_dir: str = "") -> Dict[str, Any]:
         """The reference's pricing of a hot-swap to ``model``, before a
         byte moves: predicted wire bytes (for a pool-tier candidate from
         :func:`plan_swap`, the planner :func:`swap_states` runs, so they
@@ -3341,11 +3417,12 @@ class EngineService:
         elif model not in MODEL_CONFIGS:
             raise ValueError(f"unknown model {model!r}; known: {sorted(MODEL_CONFIGS)} or hf:<model-dir>")
         book = self.costs.bandwidths
-        out: Dict[str, Any] = {"kind": "swap", "model": model, "checkpoint_dir": ""}
-        if model == self.model:
+        out: Dict[str, Any] = {"kind": "swap", "model": model, "checkpoint_dir": checkpoint_dir}
+        if model == self.model and (not checkpoint_dir or checkpoint_dir == self.checkpoint_dir):
             return {**out, "tier": "resident", "predicted_bytes": 0, "predicted_bytes_out": 0,
                     "predicted_bytes_in": 0, "predicted_s": 0.0, "measured": True}
-        entry = self.model_pool.peek_match(model)
+        key = _pool_key(model, checkpoint_dir)
+        entry = self.model_pool.peek(key) if checkpoint_dir else self.model_pool.peek_match(model)
         prefetched = entry is not None and isinstance(entry.runtime, PrefetchedWeights)
         if entry is not None and not prefetched:
             pending = not wait and any(
@@ -3406,7 +3483,7 @@ class EngineService:
                 params_full = hf_models.estimate_param_bytes(model_cfg)
         else:
             params_full = hf_models.estimate_param_bytes(model_cfg)
-            staged = self.model_pool.peek_staged_match(model) if self._content_hash else None
+            staged = self.model_pool.peek_staged_match(key) if self._content_hash else None
             if staged is not None:
                 _key, stream_bytes, tier = staged
                 read_bytes = stream_bytes if tier == "disk" else 0
@@ -3780,6 +3857,8 @@ class EngineService:
         memory["graph_kernel_nodes"] = sum(n for p in programs for n in p.kernels.values())
         return {
             "device": str(dev), "name": name, "uuid": uuid,
+            # a releasing sleep's flag and what it gave back beyond the context
+            "devices_released": self.sleeper.devices_released, "released": dict(self.sleeper.last_release),
             "launches": kernel_launches(),
             "replayed": eng.graphs.replayed_launches() if eng.graphs else {},
             "memory": memory,

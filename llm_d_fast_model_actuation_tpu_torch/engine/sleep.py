@@ -4,9 +4,12 @@ without ending the process.
 Port of ``llm_d_fast_model_actuation_tpu/engine/sleep.py``: levels 1 and 2,
 and the overlapped, delta-aware hot-swap between two engines on one card
 (:func:`swap_states`, priced by :func:`plan_swap`), and compressed
-actuation (``--sleep-quant``), with the reference's spans. Device
-release, multi-host staging, and a swap or a quantized transfer on a
-tensor-parallel mesh are not ported yet. Sleep levels (vLLM vocabulary):
+actuation (``--sleep-quant``), with the reference's spans, and device
+release (``sleep(level, release=True)``: the graphs, the allocator's
+cache and cuBLAS's workspaces given back while asleep, the graphs
+captured again at the wake; ``engine/device.py``). Multi-host staging,
+and a swap or a quantized transfer on a tensor-parallel mesh, are not
+ported yet. Sleep levels (vLLM vocabulary):
 
   level 1 — weights and KV pages are copied into pinned host tensors on a
             dedicated copy stream, then their device memory is unmapped
@@ -75,8 +78,10 @@ import torch
 
 from ..models import quant as transfer_quant
 from ..utils import faults, tracing
+from . import arena as arena_mod
 from .arena import Arena, arena_of, hand_over
 from .chunk_store import aligned_digests, flatten_state, map_leaves
+from .device import reacquire_devices, release_devices
 from .graphs import release_cached_memory
 
 
@@ -157,6 +162,10 @@ class _Stats:
     last_sleep_transfer_s: float = 0.0
     #: the last level-1 wake's window (mapping, copies, dequantization)
     last_wake_transfer_s: float = 0.0
+    #: the last released wake's re-capture of the engine's graphs
+    last_reacquire_seconds: float = 0.0
+    #: sleeps that released the device (``sleep(release=True)``)
+    releases_total: int = 0
 
 
 class SleepManager:
@@ -179,6 +188,8 @@ class SleepManager:
         quant_hot_head: bool = True,
         on_transfer: Optional[Callable[[str, int, float], None]] = None,
         peek_state: Optional[Callable[[], Any]] = None,
+        on_release: Optional[Callable[[], Any]] = None,
+        on_reacquire: Optional[Callable[[], Any]] = None,
     ) -> None:
         quant_mode = "" if quant_mode in ("", "off") else quant_mode
         if quant_mode:
@@ -226,6 +237,14 @@ class SleepManager:
         #: the same payload bits every cycle
         self._quant_scales: Optional[List[Any]] = None
         self.stats = _Stats()
+        #: device release (``engine/device.py``): what a releasing sleep
+        #: gives back once the state is off the card, and what its wake
+        #: takes again once the state is back
+        self._on_release = on_release
+        self._on_reacquire = on_reacquire
+        self._released = False
+        #: what the last releasing sleep gave back (``release_devices``)
+        self.last_release: Dict[str, Any] = {}
 
     @property
     def is_sleeping(self) -> bool:
@@ -237,7 +256,9 @@ class SleepManager:
 
     @property
     def devices_released(self) -> bool:
-        return False  # device release is not ported yet
+        """Whether the sleep gave the device's memory back beyond the
+        context (its graphs, the allocator's cache, cuBLAS's workspaces)."""
+        return self._released
 
     @property
     def sharded(self) -> bool:
@@ -495,11 +516,20 @@ class SleepManager:
         if cuda:
             release_cached_memory(self.device)  # the payload buffers go back to the card
 
-    def sleep(self, level: int = 1) -> Dict[str, Any]:
+    def sleep(self, level: int = 1, release: bool = False) -> Dict[str, Any]:
+        """Offload (level 1) or discard (level 2) the state; with
+        ``release`` also give the device memory back beyond the context
+        (the reference's device release, with the GPU's meaning:
+        ``engine/device.py``). A sleep while asleep only escalates the
+        level (and releases, if asked and not yet released)."""
         level = SleepLevel(level)
         if level == SleepLevel.AWAKE:
             raise ValueError("sleep level must be 1 or 2")
+        if release and self._on_release is None:
+            raise ValueError("this sleep manager has no device to release")
         if self._level != SleepLevel.AWAKE:
+            if release and not self._released:
+                self._release()
             if level == SleepLevel.L2_DISCARD and self._level == SleepLevel.L1_HOST_OFFLOAD:
                 # escalate 1 -> 2: give the host memory back too, and the
                 # payload metadata and scales with it (a level-2 wake
@@ -525,7 +555,8 @@ class SleepManager:
         else:
             self._host = None
             if self._cuda:
-                torch.cuda.synchronize()  # nothing queued may still read them
+                for dev in {t.device for t in leaves}:
+                    arena_mod.synchronize(dev)  # nothing queued may still read them
             self._unmap(leaves)
         self._set_state(None)
         for arena in self.arenas:
@@ -534,6 +565,8 @@ class SleepManager:
             # the caching allocator's free blocks go back to the card too
             for dev in {t.device for t in leaves}:
                 release_cached_memory(dev)
+        if release:
+            self._release()
         self._level = level
         self.stats.last_sleep_seconds = time.monotonic() - t0
         self.stats.last_sleep_transfer_s = off_window
@@ -588,6 +621,13 @@ class SleepManager:
         state, self._state = self._state, None
         self._set_state(state)
         self._level = SleepLevel.AWAKE
+        if self._released:
+            # the graphs again, on the state at its addresses: a capture
+            # that fails raises (the engine would otherwise run eagerly)
+            t_re = time.monotonic()
+            self._released = False
+            self._on_reacquire()
+            self.stats.last_reacquire_seconds = time.monotonic() - t_re
         self.stats.last_wake_seconds = time.monotonic() - t0
         if was_l1:
             self.stats.last_wake_transfer_s = self.stats.last_wake_seconds
@@ -597,18 +637,23 @@ class SleepManager:
             self.stats.last_wake_bytes = 0
         return self.describe()
 
+    def _release(self) -> None:
+        self.last_release = dict(self._on_release() or {})
+        self._released = True
+        self.stats.releases_total += 1
+
     def describe(self) -> Dict[str, Any]:
         """The reference's ``SleepManager.describe`` keys."""
         return {
             "is_sleeping": self.is_sleeping,
             "level": int(self._level),
-            "devices_released": False,
+            "devices_released": self._released,
             "bytes_offloaded": self.stats.bytes_offloaded,
             "bytes_offloaded_full": self.stats.bytes_offloaded_full,
             "quant": self.stats.last_quant,
             "last_sleep_seconds": self.stats.last_sleep_seconds,
             "last_wake_seconds": self.stats.last_wake_seconds,
-            "last_reacquire_seconds": 0.0,
+            "last_reacquire_seconds": self.stats.last_reacquire_seconds,
         }
 
 
@@ -1057,7 +1102,7 @@ def swap_states(
             if pending is not None and pending[-1] is not None and not pending[-1].ended:
                 pending[-1].set(error="rolled_back").end()
         if cuda:
-            torch.cuda.synchronize(dev)
+            arena_mod.synchronize(dev)
         for i, buf in scale_out.items():
             if meta_out[i] is not None:
                 meta_out[i].scale = buf  # landed with its payload
@@ -1076,7 +1121,7 @@ def swap_states(
                 if meta_out[i] is not None:
                     transfer_quant.dequantize_into(leaves_out[i], host_out[i], meta_out[i])
             if cuda:
-                torch.cuda.synchronize(dev)
+                arena_mod.synchronize(dev)
         if any(m is not None for m in meta_out):
             # a rolled-back first quantized offload already rounded the
             # refilled leaves: keep the scales it used, so the next
@@ -1124,7 +1169,7 @@ def swap_states(
             arena.map(tag="discard")
         t_hand = time.monotonic()
         if plan.reuse_pairs and cuda:
-            torch.cuda.synchronize(dev)
+            arena_mod.synchronize(dev)
         for i, j in plan.reuse_pairs:
             hand_over(arena_out[j], leaves_out[j], arena_in[i], leaves_in[i])
             handed.append((i, j))
@@ -1256,6 +1301,7 @@ def attach_sleep(
     return SleepManager(
         get_state, set_state, engine.device, engine.arenas.values(), bucket_bytes=bucket_bytes, replicas=replicas,
         quant_mode=quant_mode, quant_hot_head=quant_hot_head, on_transfer=on_transfer, peek_state=peek_state,
+        on_release=lambda: release_devices([engine]), on_reacquire=lambda: reacquire_devices([engine]),
     )
 
 

@@ -669,22 +669,14 @@ def place_staged_params(
 def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stats: Optional[LoadStats] = None
                      ) -> LoadStats:
     """A host weight tree in the model dtype (the unquantized staging)
-    into a ``--quantization int8`` model: each plain leaf copied to every
-    rank (its slice on a mesh), each quantized weight copied to rank 0's
-    device one layer slice at a time and quantized there
-    (:func:`~.quant.quantize_weight`, over the whole fan-in before any
-    split), its ``q`` and ``s`` cut per rank by ``param_specs``.
-    The reference stages unquantized and quantizes once at the end
-    (its ``hf.py:_quantize_and_repin``). ``bytes_h2d`` counts the bytes
-    that crossed: the staged tree's."""
+    into a ``--quantization int8`` model, a leaf at a time
+    (:func:`place_quantized_leaf`). The reference stages unquantized and
+    quantizes once at the end (its ``hf.py:_quantize_and_repin``).
+    ``bytes_h2d`` counts the bytes that crossed: the staged tree's."""
     t_begin = time.perf_counter()
     st = stats if stats is not None else LoadStats()
-    ranks, mesh = _ranks(model), _mesh(model)
     cfg = model.cfg
     plain = dataclasses.replace(cfg, quantization="")
-    quant = set(quantized_names(cfg))
-    specs, qspecs = param_specs(plain), param_specs(cfg)
-    dev = model.device
     moved = 0
 
     def node_of(flat: str) -> torch.Tensor:
@@ -696,17 +688,45 @@ def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stat
         return node
 
     t0 = time.perf_counter()
-    for flat, shape in param_shapes(plain).items():
+    for flat in param_shapes(plain):
         node = node_of(flat)
-        if tuple(node.shape) != tuple(shape) or node.dtype != cfg.dtype:
-            raise ValueError(f"staged {flat}: {tuple(node.shape)} {node.dtype}, the model takes "
-                             f"{tuple(shape)} {cfg.dtype}")
         faults.fire("coldload.h2d")
         moved += node.numel() * node.element_size()
-        if flat not in quant:
-            for r, m in enumerate(ranks):
-                m.get_parameter(flat).copy_(shard_for(node, specs[flat], mesh, r), non_blocking=True)
-            continue
+        place_quantized_leaf(model, flat, node, sync=False)
+    for m in _ranks(model):
+        if m.device.type == "cuda":
+            # the copies and quantizations ran on the current stream: wait
+            # for it alone, never the whole card
+            torch.cuda.current_stream(m.device).synchronize()
+    st.h2d_s = time.perf_counter() - t0
+    st.bytes_h2d = moved
+    st.tensors = len(param_shapes(plain))
+    st.total_s = time.perf_counter() - t_begin
+    return st
+
+
+@torch.no_grad()
+def place_quantized_leaf(model: "Llama | ShardedLlama", flat: str, node: torch.Tensor, sync: bool = True) -> None:
+    """One unquantized host leaf ``flat`` into a ``--quantization int8``
+    model: a plain leaf copied to every rank (its slice on a mesh), a
+    quantized weight copied to rank 0's device one layer slice at a time
+    and quantized there (:func:`~.quant.quantize_weight`, over the whole
+    fan-in before any split), its ``q`` and ``s`` cut per rank by
+    ``param_specs``. With ``sync`` it returns once the copies landed
+    (the load's own events: never a wait on the whole card)."""
+    ranks, mesh = _ranks(model), _mesh(model)
+    cfg = model.cfg
+    plain = dataclasses.replace(cfg, quantization="")
+    shape = param_shapes(plain)[flat]
+    if tuple(node.shape) != tuple(shape) or node.dtype != cfg.dtype:
+        raise ValueError(f"staged {flat}: {tuple(node.shape)} {node.dtype}, the model takes "
+                         f"{tuple(shape)} {cfg.dtype}")
+    dev = model.device
+    if flat not in set(quantized_names(cfg)):
+        for r, m in enumerate(ranks):
+            m.get_parameter(flat).copy_(shard_for(node, param_specs(plain)[flat], mesh, r), non_blocking=True)
+    else:
+        qspecs = param_specs(cfg)
         stacked = len(shape) >= 3
         # one layer slice's specs: s splits over tp only where that is its output axis
         q_spec, s_spec = (qspecs[f"{flat}.{k}"][1:] if stacked else qspecs[f"{flat}.{k}"] for k in ("q", "s"))
@@ -723,14 +743,10 @@ def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stat
                 (q_dst[i] if stacked else q_dst).copy_(qp)
                 (s_dst[i] if stacked else s_dst).copy_(sp)
             del qd
-    for m in ranks:
-        if m.device.type == "cuda":
-            torch.cuda.synchronize(m.device)
-    st.h2d_s = time.perf_counter() - t0
-    st.bytes_h2d = moved
-    st.tensors = len(param_shapes(plain))
-    st.total_s = time.perf_counter() - t_begin
-    return st
+    if sync:
+        for m in ranks:
+            if m.device.type == "cuda":
+                torch.cuda.current_stream(m.device).synchronize()
 
 
 def _resolve_workers(workers: Optional[int], shards: int) -> int:

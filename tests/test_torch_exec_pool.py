@@ -198,9 +198,10 @@ OPTS = "--num-pages 32 --page-size 8 --max-batch 2 --max-model-len 64 --seed 0 -
 
 @pytest.fixture
 def stand_in_graphs(monkeypatch):
-    """Every engine gets chunk graphs, as on one card; a capture is a
-    stand-in that reruns the chunk's body into its outputs on a replay,
-    and each set's memory pool counts ``GRAPH_POOL_BYTES``."""
+    """Every engine gets chunk graphs, as on one card; a capture runs the
+    chunk eagerly (the warm-up) and is a stand-in that reruns the chunk's
+    body into its outputs on a replay, and each set's memory pool counts
+    ``GRAPH_POOL_BYTES``."""
     built = []
     real_build = InferenceEngine._build
 
@@ -210,6 +211,7 @@ def stand_in_graphs(monkeypatch):
         real_build(self, params, buckets)
 
     def capture(self, T, sampled):
+        self.engine.chunk_eager(T, sampled)  # the warm-up, as on the card
         g = _RerunGraph(self.engine, T, sampled)
         self.engine.graph_captures += 1
         return tgraphs.Program(g, T, {}, g.outputs)

@@ -11,8 +11,6 @@ from llm_d_fast_model_actuation_tpu_torch.engine import server as tserver
 
 #: the reference's flags the port does not have yet, by ROADMAP queue 1 item
 UNPORTED_FLAGS = {
-    "--checkpoint-dir": 2,  # Orbax checkpoints
-    "--sleep-release-devices": 6,  # device release
     "--coordinator-address": 15,  # multi-host gangs
     "--num-processes": 15,
     "--process-id": 15,
@@ -35,7 +33,7 @@ def test_the_flag_set_is_the_references_less_the_named_ones():
 @pytest.mark.parametrize("flag", ["--prefix-caching", "--decode-chunk", "--drain-tail", "--max-prefill-tokens",
                                   "--logprobs-topk", "--arrival-ewma-tau-s", "--resident-variants",
                                   "--variant-hbm-mib", "--quantization", "--speculative-ngram",
-                                  "--pipeline-decode"])
+                                  "--pipeline-decode", "--checkpoint-dir", "--sleep-release-devices"])
 def test_a_ported_flag_keeps_the_references_default_and_choices(flag):
     ref, port = _flags(jserver.make_arg_parser())[flag], _flags(tserver.make_arg_parser())[flag]
     assert port.choices == ref.choices and port.type == ref.type

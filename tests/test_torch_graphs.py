@@ -262,9 +262,24 @@ def test_a_replay_adds_its_steps_and_its_captured_launches(monkeypatch):
     assert graphs.replayed_launches() == {"decode_kernel": 18, "gemm": 24} and wrapper.launches == before
     with pytest.raises(RuntimeError, match="no chunk graph"):
         graphs.replay(1, True)
-    eng.add_request([1, 2], max_new_tokens=2)
-    with pytest.raises(RuntimeError, match="before the engine serves"):
-        graphs.capture()
+    # a capture with a request mid-stream runs on a blank device scheduler
+    # state; the host mirrors stay the request's and go up at the next step
+    eng.add_request([1, 2], max_new_tokens=4)
+    eng.step()
+    budgets, table = eng._budgets.copy(), eng._page_table.copy()
+    seen = []
+
+    def capture(self, T, sampled):
+        d = self.engine._dev
+        seen.append((int(d["budget"].abs().sum()), int(d["pt"].abs().sum())))
+        return tgraphs.Program(_FakeGraph(), T, {}, ("outputs",))
+
+    graphs.programs.clear()
+    monkeypatch.setattr(tgraphs.ChunkGraphs, "_capture", capture)
+    graphs.capture()
+    tgraphs._holders.discard(graphs)
+    assert seen == [(0, 0)] * 4 and budgets.any() and table.any()
+    assert (eng._budgets == budgets).all() and (eng._page_table == table).all() and eng._dirty
     assert graphs.keys() == [(8, False), (8, True), (1, False), (1, True)]
 
 
@@ -407,3 +422,55 @@ def test_a_digest_job_closed_leaves_no_worker_running():
     job.close()
     assert all(f.done() for f in job._futures)
     assert job._pool._threads and not [t for t in job._pool._threads if t.is_alive()]
+
+
+def test_a_level2_sleep_beside_a_capture_synchronizes_after_its_end(monkeypatch):
+    """A level-2 sleep waits for the whole card before it unmaps the
+    state; on the card that synchronize would invalidate a capture in
+    progress on another thread, so it waits for the capture's end
+    (``arena.synchronize``, under the captures' lock)."""
+    eng = _port()
+    mgr = tsleep.attach_sleep(eng)
+    mgr._cuda = True  # the card's path, its device calls stood in for
+    capturing = threading.Event()
+    events = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: events.append(
+        ("synchronize", threading.current_thread().name, capturing.is_set())))
+    monkeypatch.setattr(tsleep, "release_cached_memory", lambda device: None)
+    t = threading.Thread(target=lambda: mgr.sleep(2), name="sleeper")
+    with tarena.capture_guard():
+        capturing.set()
+        t.start()
+        t.join(timeout=0.5)
+        assert t.is_alive() and events == []
+        capturing.clear()
+    t.join(timeout=10)
+    assert not t.is_alive() and mgr.level == 2
+    assert events and all(e == ("synchronize", "sleeper", False) for e in events)
+
+
+def test_every_device_wide_synchronize_is_taken_under_the_capture_lock():
+    """No ``torch.cuda.synchronize`` in the port outside the captures'
+    lock: only ``arena.synchronize`` and an arena's teardown (both under
+    the lock) and ``graphs.release_cached_memory`` (inside
+    ``excluding_captures``) call it; every other site waits on its own
+    stream or event, or goes through ``arena.synchronize``."""
+    import ast
+    import pathlib
+
+    pkg = pathlib.Path(tarena.__file__).resolve().parents[1]
+    found = []
+    for path in sorted(pkg.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Call) and ast.unparse(node.func) == "torch.cuda.synchronize":
+                    found.append((str(path.relative_to(pkg)), fn.name))
+    allowed = {("engine/arena.py", "synchronize"), ("engine/arena.py", "_give_back"),
+               ("engine/graphs.py", "release_cached_memory")}
+    assert set(found) == allowed, sorted(set(found) - allowed)
+    src = (pkg / "engine" / "graphs.py").read_text()
+    body = src[src.index("def release_cached_memory"):src.index("#: glibc's")]
+    assert "excluding_captures()" in body.split("torch.cuda.synchronize()")[0]

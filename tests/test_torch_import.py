@@ -1,7 +1,8 @@
 """The port stands alone: it imports with JAX and the JAX package blocked,
 and no file of it (nor chip_smoke.py) imports either of them, nor a
 package the card's machine lacks (ml_dtypes, safetensors, aiohttp,
-prometheus_client, optax); transformers only inside a function, when a model's
+prometheus_client, optax; orbax, tensorstore and zstandard: the port
+reads and writes Orbax checkpoints itself); transformers only inside a function, when a model's
 own tokenizer is loaded; its kernel sources and build stay out of module
 import."""
 
@@ -18,7 +19,7 @@ import torch  # noqa: F401
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "llm_d_fast_model_actuation_tpu_torch"
 FORBIDDEN = ("jax", "llm_d_fast_model_actuation_tpu", "ml_dtypes", "safetensors", "aiohttp", "prometheus_client",
-             "optax")
+             "optax", "orbax", "tensorstore", "zstandard")
 #: importable by the port only lazily, inside a function
 LAZY = ("transformers",)
 

@@ -286,12 +286,18 @@ def test_a_swap_keeps_an_idle_prefix_cache_and_aborts_the_outgoing_models_reques
         svc.shutdown()
 
 
-def test_refusals():
+def test_refusals(tmp_path):
+    # an Orbax checkpoint of another shape: refused with the reference's
+    # message, the serving model woken again
+    from llm_d_fast_model_actuation_tpu_torch.models import checkpoint
+
+    gemma = llama.LlamaConfig.tiny_gemma()
+    checkpoint.save_params(str(tmp_path), gemma, llama.init_params(gemma, torch.Generator().manual_seed(0), "cpu"))
     svc = _port("tiny")
     http = tserver.serve(svc, "127.0.0.1", 0)
     port = http.server_address[1]
     try:
-        for body, needle in (({"model": "tiny", "checkpoint_dir": "/ckpt"}, "item 2"),
+        for body, needle in (({"model": "tiny", "checkpoint_dir": str(tmp_path)}, "different model shape"),
                              ({"model": "nope"}, "unknown model"), ({}, "'model' string"),
                              ({"model": "hf:"}, "directory")):
             status, out = _call(port, "POST", "/v1/swap", body)
