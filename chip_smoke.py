@@ -76,7 +76,7 @@ exits non-zero and never prints the final ``ok`` line):
      the CUDA driver (each graph must hold L x T nodes of the path's
      decode kernel), times its replays. The counts are set to 0 before
      the engine starts;
-  5. sleep   — three level-1 sleep/wake cycles: ``memory_reserved``
+  5. sleep   — two level-1 sleep/wake cycles: ``memory_reserved``
      under 1 GiB while asleep, nothing of the engine's arenas mapped, the
      card's free memory within 1 GiB of its free memory before the server
      started, identical greedy tokens after the wake, no graph captured
@@ -467,6 +467,28 @@ the same step on one rank from the same seed: the loss, AdamW's first
 moment and the update within ``MESH_*``; ``train_mesh`` also holds layer
 0's ring attention in f32 to the dense function. Every phase line
 carries ``at_s``, its seconds since the script started.
+
+Multi-node gangs, after ``model_parity``: ``gang`` first serves the
+serve mix (16 new tokens a request) through a one-process tp 2 engine on
+``cuda:0,cuda:0``, bucketed, in this process; then starts Llama-3-8B at
+full size, tp 2, as a gang of TWO engine processes through ``python -m
+llm_d_fast_model_actuation_tpu_torch.engine.server`` (``--num-processes 2
+--process-id 0|1 --coordinator-address``, both with ``--device cuda:0``,
+one rank and half the weights each, joined by a Gloo group:
+``engine/multihost.py``), drives the same mix through the leader's
+``/v1/completions`` (the follower refuses one) and holds the greedy
+tokens bit-equal to the one-process engine's, the prefix-cache hit
+included; each member's launches (``/v1/device``) are L per decode step
+and per cold prefill and one probe, and equal between the members (they
+run in lockstep). A lone 32-token request gives a gang decode step's
+ms, the seconds inside the Gloo calls and the host-staged bytes per
+step on each member. One level-1 ``/sleep`` and ``/wake_up`` through
+the leader: both members unmap their arenas and map them back (their
+bytes printed per process, the card's free memory read here) and the
+first token is unchanged. Last, with ``FMA_GANG_HEARTBEAT_TIMEOUT=2``, a
+SIGKILL of the follower must make the leader exit 13
+(``EXIT_GANG_PEER_LOST``) within a minute; its seconds are printed. The
+members' logs go to ``build/gang-logs``.
 
 With two or more cards the sharded ragged check also runs with its ranks
 on ``cuda:0,cuda:1`` and says so; with one it prints ``"two_cards": "not
@@ -1503,9 +1525,14 @@ def check_serve_metrics(torch, service, port: int, usages: list) -> dict:
     return {"samples": len(samples), "counters": got, "render_sync_free": True}
 
 
+#: new tokens of each request of the profile window (64 until the gang
+#: phase joined the script, for its time limit)
+PROFILE_MAX_TOKENS = 32
+
+
 def profile_window(torch, service, port: int, vocab: int) -> dict:
     """``POST /v1/profile`` on serve's engine, a fresh 300-token and a
-    fresh 3000-token greedy request of 64 tokens, ``DELETE``: the Chrome
+    fresh 3000-token greedy request of ``PROFILE_MAX_TOKENS``, ``DELETE``: the Chrome
     file holds the engine thread's operators, and the decode kernel's runs
     (inside the replayed chunk graphs) equal L x the decode steps and the
     prefill kernel's L x the cold prefills of the window (both read from
@@ -1531,7 +1558,7 @@ def profile_window(torch, service, port: int, vocab: int) -> dict:
     profile_pad(torch)
     torch.cuda.synchronize()
     for p in prompts:
-        post(port, "/v1/completions", {"prompt": p, "max_tokens": 64})
+        post(port, "/v1/completions", {"prompt": p, "max_tokens": PROFILE_MAX_TOKENS})
     x = torch.randn(256, 256, device="cuda")
     graph = torch.cuda.CUDAGraph()
     try:
@@ -1633,6 +1660,9 @@ def wake_spans(port: int, trace_id: str, woke: dict, nbytes: int) -> dict:
 # serve's engine options (the reference EngineConfig's default pool: 2048
 # pages x 16 tokens), which the launcher's children run too
 SERVE_OPTS = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --device cuda"
+#: serve's level-1 cycles (three until the gang phase joined the script,
+#: for its time limit)
+SERVE_CYCLES = 2
 
 
 def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
@@ -1681,14 +1711,14 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
               **profile_window(torch, service, port, vocab)})
         emit({"phase": "echo", "nvidia_smi": smi, **echo_logprobs(torch, service, port, traffic["prompts"][1])})
 
-        # -- sleep / wake, three cycles (the spread of one transfer per call
-        #    is too wide to read): the reference output is a repeat of
+        # -- sleep / wake, SERVE_CYCLES cycles (the spread of one transfer per
+        #    call is too wide to read): the reference output is a repeat of
         #    request 1 (a prefix-cache hit, the path every repeat takes)
         probe = {"prompt": traffic["prompts"][0], "max_tokens": 64}
         before = post(port, "/v1/completions", probe)["choices"][0]["token_ids"]
         ptrs, captures = state_ptrs(eng), eng.graph_captures
         cycles = []
-        for _ in range(3):
+        for _ in range(SERVE_CYCLES):
             # each cycle one trace: its sleep and wake under a client span
             traceparent, trace_id = new_traceparent()
             info = traced_post(port, "/sleep?level=1", traceparent)
@@ -1740,11 +1770,13 @@ def serve_and_sleep(torch, smi: str, ckpt: str) -> dict:
             tracing.enable()
         if post(port, "/v1/completions", probe)["choices"][0]["token_ids"] != before:
             raise AssertionError("tokens changed across the untraced sleep/wake cycle")
-        # the actuation byte counters: four level-1 cycles so far
+        # the actuation byte counters: SERVE_CYCLES and the untraced level-1
+        # cycle so far
         samples = scrape(f"http://127.0.0.1:{port}/metrics")
         moved = {d: metric(samples, "fma_engine_actuation_bytes", mode="off", dir=d) for d in ("d2h", "h2d")}
-        if moved != {"d2h": 4 * nbytes, "h2d": 4 * nbytes}:
-            raise AssertionError(f"fma_engine_actuation_bytes after four cycles of {nbytes} bytes: {moved}")
+        n = SERVE_CYCLES + 1
+        if moved != {"d2h": n * nbytes, "h2d": n * nbytes}:
+            raise AssertionError(f"fma_engine_actuation_bytes after {n} cycles of {nbytes} bytes: {moved}")
         level2 = level2_cycle(torch, service, port, eng, free_before, probe, before, ptrs, captures)
         check_replays(eng, path_counts(eng), "decode_inline")
         emit({
@@ -3390,6 +3422,9 @@ def quant_twin(torch, eng) -> dict:
 #: the quantized level-1 cycles: the second shows the first rounded once
 #: (once three; cut for the 1200 s limit)
 QUANT_CYCLES = 2
+#: new tokens of each request of the serve mix before each quantized sleep
+#: (64 until the gang phase joined the script, for its time limit)
+QUANT_TRAFFIC_TOKENS = 32
 
 
 def quant_phase(torch, smi: str, ckpt: str, bucketed: dict, swapped: dict) -> dict:
@@ -3449,7 +3484,7 @@ def quant_phase(torch, smi: str, ckpt: str, bucketed: dict, swapped: dict) -> di
         ptrs, captures = state_ptrs(eng), eng.graph_captures
         cycles, first = [], None
         for c in range(QUANT_CYCLES):
-            traffic = run_traffic(torch, port, vocab)
+            traffic = run_traffic(torch, port, vocab, max_tokens=QUANT_TRAFFIC_TOKENS)
             info = post(port, "/sleep?level=1")
             asleep = check_asleep(torch, eng, free_before)
             reserved = torch.cuda.memory_reserved()
@@ -3684,13 +3719,13 @@ def priced_exactly(rec: dict, where: str) -> None:
 
 
 #: the coresident phase's streams, the base's, A' 's and A'' 's in turn
-#: (each model's third one seeded), 64 new tokens each; the prompts are
+#: (each model's third one seeded), CO_NEW_TOKENS new tokens each; the prompts are
 #: about a quarter of what they were before the MoE phases joined the
 #: script (20-3000 ids, 11,180 in all), to keep it within its time limit:
 #: both co-resident phases spend most of their time prefilling them in
 #: 72-token packed steps, one pass per resident
 CO_PROMPT_LENS = (20, 375, 750, 300, 500, 350, 60, 625, 275)
-CO_NEW_TOKENS = 64
+CO_NEW_TOKENS = 32  # 64 until the gang phase joined the script, for its time limit
 #: coresident_engine's: its four runs each prefill the nine prompts
 CO_ENGINE_NEW_TOKENS = 16
 #: the delta of each sibling: lm_head, 4096 x 128256 bf16
@@ -5069,7 +5104,7 @@ def serve_packed(torch, smi: str, bucketed: dict) -> dict:
 #: new tokens of each request of the two-rank serve's traffic (the other
 #: serves' 64 cut to fit the script's time limit; its tokens are compared
 #: with the bucketed serve's for reading only)
-TP2_MAX_TOKENS = 32
+TP2_MAX_TOKENS = 16  # 32 until the gang phase joined the script, for its time limit
 
 
 def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
@@ -5093,7 +5128,7 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         shard_shapes = [tuple(k.shape) for k, _ in eng.pool.shards]
         wq = [tuple(m.layers["wq"].shape) for m in eng.model.ranks]
         torch.cuda.reset_peak_memory_stats()
-        # 32 tokens a request, where the other serves take 64: two ranks
+        # 16 tokens a request, where the other serves take 64: two ranks
         # on one card run their steps eagerly, and the time limit is shared
         traffic = run_traffic(torch, port, eng.cfg.model.vocab_size, max_tokens=TP2_MAX_TOKENS)
         counts = path_counts(eng)  # all eager: the mesh captures no graph
@@ -5172,6 +5207,229 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         return {"counts": counts, "summary": traffic["summary"], "tokens": traffic["tokens"]}, eng
     finally:
         stop_service(torch, service, server)
+
+
+#: the gang phase's traffic: the serve mix at 16 new tokens a request (as
+#: serve_moe_ep takes): both engines run their chunks eagerly
+GANG_MAX_TOKENS = 16
+#: the lone request that times a gang decode step
+GANG_LONE_TOKENS = 32
+#: the gang's FMA_GANG_HEARTBEAT_TIMEOUT: how long the leader waits on a
+#: silent follower before it exits 13
+GANG_HB_TIMEOUT_S = 2
+GANG_OPTS = "--model llama3-8b --num-pages 2048 --seed 0 --max-batch 8 --tensor-parallel-size 2"
+#: each member's one device; the one-process engine's two ranks share it
+GANG_DEVICE = "cuda:0"
+
+
+def gang_coordinator_port() -> int:
+    """A free port whose heartbeat port (+ HEARTBEAT_PORT_OFFSET) is free
+    too."""
+    import socket
+
+    from llm_d_fast_model_actuation_tpu_torch.engine.multihost import HEARTBEAT_PORT_OFFSET
+
+    for _ in range(64):
+        port = free_port()
+        if port + HEARTBEAT_PORT_OFFSET > 65535:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("0.0.0.0", port + HEARTBEAT_PORT_OFFSET))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no coordinator port with a free heartbeat port")
+
+
+class GangMember:
+    """One engine process of a two-process gang on card 0, started through
+    the server's module entry point; its log under ``build/gang-logs``."""
+
+    def __init__(self, index: int, coordinator_port: int) -> None:
+        log_dir = os.path.join(ROOT, "build", "gang-logs")
+        os.makedirs(log_dir, exist_ok=True)
+        self.index = index
+        self.port = free_port()
+        self.log = open(os.path.join(log_dir, f"member-{index}-{self.port}.log"), "wb")
+        env = dict(os.environ, FMA_GANG_HEARTBEAT_TIMEOUT=str(GANG_HB_TIMEOUT_S))
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "llm_d_fast_model_actuation_tpu_torch.engine.server", *GANG_OPTS.split(),
+             "--device", GANG_DEVICE, "--num-processes", "2", "--process-id", str(index),
+             "--coordinator-address", f"127.0.0.1:{coordinator_port}", "--host", "127.0.0.1",
+             "--port", str(self.port)],
+            cwd=ROOT, env=env, stdout=self.log, stderr=subprocess.STDOUT,
+        )
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name, "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    def healthy(self) -> bool:
+        try:
+            return request(f"http://127.0.0.1:{self.port}/health", timeout=5)[0] == 200
+        except OSError:
+            return False
+
+    def stats(self) -> dict:
+        return get(self.port, "/v1/stats")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def sum_counts(a: dict, b: dict) -> dict:
+    """Two processes' launch counts, key by key (dicts of counts summed
+    within)."""
+    out = {}
+    for k in set(a) | set(b):
+        x, y = a.get(k, 0), b.get(k, 0)
+        out[k] = sum_counts(x or {}, y or {}) if isinstance(x, dict) or isinstance(y, dict) else x + y
+    return out
+
+
+def gang_exchange_figures(before: list, after: list, steps: int) -> list:
+    """Each member's exchanges through host memory over a window of
+    ``steps`` decode steps: per step, the ms inside the Gloo calls and in
+    the staging, the exchanges and the bytes sent and received."""
+    out = []
+    for b, a in zip(before, after):
+        d = {k: a[k] - b[k] for k in ("exchanges", "bytes", "gloo_s", "stage_s")}
+        out.append({"gloo_ms_per_step": d["gloo_s"] * 1e3 / steps, "stage_ms_per_step": d["stage_s"] * 1e3 / steps,
+                    "exchanges_per_step": d["exchanges"] / steps, "bytes_per_step": d["bytes"] / steps, **d})
+    return out
+
+
+def gang_phase(torch, smi: str) -> dict:
+    """Llama-3-8B at full size served by a two-process tp 2 gang on card 0,
+    held bit for bit to a one-process tp 2 engine on the same weights;
+    its level-1 cycle; its teardown when the follower dies."""
+    t_phase = time.monotonic()
+    free_memory(torch)
+    service, server, one_init_s, _ = start_service(torch, f"{GANG_OPTS} --device {GANG_DEVICE},{GANG_DEVICE}")
+    try:
+        eng = service.engine
+        if eng.mesh is None or eng.mesh.tp != 2 or eng.mesh.spans_processes or eng.cfg.packed_serving:
+            raise AssertionError("the reference is not a one-process two-rank bucketed engine")
+        L, vocab = eng.cfg.model.num_layers, eng.cfg.model.vocab_size
+        one = run_traffic(torch, server.server_address[1], vocab, max_tokens=GANG_MAX_TOKENS)
+        lone_body = {"prompt": one["prompts"][0], "max_tokens": GANG_LONE_TOKENS, "ignore_eos": True}
+        one_lone = post(server.server_address[1], "/v1/completions", lone_body)
+    finally:
+        stop_service(torch, service, server)
+        del service, server, eng
+    free_memory(torch)
+    free_before = torch.cuda.mem_get_info()[0]
+    coordinator = gang_coordinator_port()
+    t0 = time.monotonic()
+    follower, leader = members = [GangMember(1, coordinator), GangMember(0, coordinator)]
+    try:
+        try:
+            wait_for(lambda: all(m.healthy() for m in members), 600, "the gang's /health", follower.proc, leader.proc)
+        except RuntimeError as e:  # a member exited: its log says why
+            raise RuntimeError(f"{e}: {[m.tail() for m in members]}") from e
+        start_s = time.monotonic() - t0
+        status, body = request(f"http://127.0.0.1:{follower.port}/v1/completions", "POST",
+                               {"prompt": [1, 2, 3], "max_tokens": 1})
+        if status == 200:
+            raise AssertionError(f"the follower served a completion: {body}")
+        traffic = run_traffic(torch, leader.port, vocab, max_tokens=GANG_MAX_TOKENS)
+        if traffic["tokens"] != one["tokens"]:
+            raise AssertionError(f"the gang's greedy tokens differ from the one-process tp 2 engine's: first "
+                                 f"differences {first_differences(traffic['tokens'], one['tokens'])}")
+        stats = [m.stats() for m in (leader, follower)]
+        #: the traffic's exchanges through host memory, on each member
+        traffic_exchanges = [st["gang"]["exchanges"] for st in stats]
+        if stats[0]["gang"]["prefix_hits"] < 1:
+            raise AssertionError("the fifth request did not hit the leader's prefix cache")
+        counts = [child_counts(m.port)[0] for m in (leader, follower)]
+        for m, c, st in zip((leader, follower), counts, stats):
+            check_probe_launch(c)
+            e = st["engine"]
+            if e["decode_steps"] == 0 or c["decode_inline"] != L * e["decode_steps"] \
+                    or c["prefill"] != L * e["cold_prefills"] or c["ragged"] or c["ragged_sharded"] \
+                    or c["decode_scatter_first"] or e["graph_replays"]:
+                raise AssertionError(f"gang member {m.index} launched {c} over {e}")
+        if any(counts[0][k] != counts[1][k] for k in ("decode_inline", "prefill", "prefill_by_seq")):
+            raise AssertionError(f"the members' launches differ: {counts}")
+        # a lone request: a gang decode step and its exchanges
+        before = [m.stats() for m in (leader, follower)]
+        lone = post(leader.port, "/v1/completions", lone_body)
+        if lone["choices"][0]["token_ids"] != one_lone["choices"][0]["token_ids"]:
+            raise AssertionError("the gang's lone request's tokens differ from the one-process engine's")
+        after = [m.stats() for m in (leader, follower)]
+        steps = after[0]["engine"]["decode_steps"] - before[0]["engine"]["decode_steps"]
+        if steps != GANG_LONE_TOKENS - 1 or after[1]["engine"]["decode_steps"] - before[1]["engine"]["decode_steps"] != steps:
+            raise AssertionError(f"the lone request ran {steps} decode steps on the leader, want {GANG_LONE_TOKENS - 1} on both")
+        tpot_ms = lone["usage"]["decode_tpot_s"] * 1e3
+        exchanges = gang_exchange_figures([b["gang"]["exchanges"] for b in before],
+                                          [a["gang"]["exchanges"] for a in after], steps)
+        # one level-1 cycle through the leader
+        probe = {"prompt": traffic["prompts"][0], "max_tokens": 1}
+        first = post(leader.port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        mapped = [m.stats()["gang"]["mapped_bytes"] for m in (leader, follower)]
+        free_awake = torch.cuda.mem_get_info()[0]
+        slept = post(leader.port, "/sleep?level=1")
+        asleep_s = wait_for(lambda: sleeping(follower.port), 120, "the follower's sleep", follower.proc, leader.proc)
+        free_asleep = torch.cuda.mem_get_info()[0]
+        asleep = [m.stats()["gang"] for m in (leader, follower)]
+        if any(g["mapped_bytes"] for g in asleep) or any(not g["bytes_offloaded"] for g in asleep):
+            raise AssertionError(f"a member kept its arenas mapped or offloaded nothing: {asleep}")
+        woke = post(leader.port, "/wake_up")
+        awake_s = wait_for(lambda: not sleeping(follower.port), 120, "the follower's wake", follower.proc,
+                           leader.proc)
+        again = post(leader.port, "/v1/completions", probe)["choices"][0]["token_ids"]
+        woken = [m.stats()["gang"] for m in (leader, follower)]
+        if again != first or [g["mapped_bytes"] for g in woken] != mapped:
+            raise AssertionError(f"the gang's wake changed its first token ({first} -> {again}) or its mapping "
+                                 f"({mapped} -> {[g['mapped_bytes'] for g in woken]})")
+        frames = after[0]["gang"]["frames"]
+        # the follower dies: the leader must exit EXIT_GANG_PEER_LOST
+        from llm_d_fast_model_actuation_tpu_torch.engine.multihost import EXIT_GANG_PEER_LOST
+
+        t_kill = time.monotonic()
+        follower.proc.send_signal(signal.SIGKILL)
+        try:
+            rc = leader.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the leader outlived its follower by 60 s: {leader.tail()}")
+        death_s = time.monotonic() - t_kill
+        if rc != EXIT_GANG_PEER_LOST:
+            raise AssertionError(f"the leader exited {rc} when its follower died, want {EXIT_GANG_PEER_LOST}: "
+                                 f"{leader.tail()}")
+    finally:
+        for m in members:
+            m.stop()
+    emit({
+        "phase": "gang", "model": "llama3-8b", "layers": L, "tp": 2, "processes": 2, "device": f"{GANG_DEVICE} x 2",
+        "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "transport": "Gloo over TCP on 127.0.0.1, host-staged uint8 (NCCL refuses two ranks on one device)",
+        "one_process_init_s": one_init_s, "one_process": one["summary"], "gang_start_s": start_s,
+        **traffic["summary"], "tokens_equal_to_one_process": f"{len(traffic['tokens'])}/{len(one['tokens'])}",
+        "launches": {"leader": counts[0], "follower": counts[1]},
+        "engine": {"leader": stats[0]["engine"], "follower": stats[1]["engine"]},
+        "decode_step": {"tpot_ms": tpot_ms, "one_process_tpot_ms": one_lone["usage"]["decode_tpot_s"] * 1e3,
+                        "steps": steps, "window": "a lone 20-id request, 32 tokens, its prefill included in the "
+                        "exchanges", "leader": exchanges[0], "follower": exchanges[1],
+                        "gloo_share_of_step": exchanges[0]["gloo_ms_per_step"] / tpot_ms},
+        "frames": frames, "traffic_exchanges": {"leader": traffic_exchanges[0], "follower": traffic_exchanges[1]},
+        "sleep_wake": {"bytes_offloaded": {"leader": asleep[0]["bytes_offloaded"],
+                                           "follower": asleep[1]["bytes_offloaded"]},
+                       "wake_bytes": {"leader": woken[0]["last_wake_bytes"], "follower": woken[1]["last_wake_bytes"]},
+                       "mapped_bytes_awake": mapped, "card_free_gib": {"before_gang": free_before / GIB,
+                       "awake": free_awake / GIB, "asleep": free_asleep / GIB},
+                       "leader_sleep_s": slept["last_sleep_seconds"], "follower_asleep_after_s": asleep_s,
+                       "leader_wake_s": woke["last_wake_seconds"], "follower_awake_after_s": awake_s,
+                       "first_token_unchanged": True},
+        "death": {"heartbeat_timeout_s": GANG_HB_TIMEOUT_S, "leader_exit": rc, "seconds": death_s},
+        "seconds": time.monotonic() - t_phase,
+    })
+    return {"counts": sum_counts(counts[0], counts[1]), "tokens": traffic["tokens"]}
 
 
 def serve_reference(torch, smi: str, bucketed: dict) -> tuple:
@@ -7191,12 +7449,13 @@ def main() -> int:
                  {"serve_packed": packed["tokens"], "serve_tp2_packed": tp2["tokens"],
                   "serve_reference": reference["tokens"]})
     del eng, eng_tp2
+    gang = gang_phase(torch, smi)
     profile_again(torch, smi)
     runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], int8["counts"],
             zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], orbax["counts"],
             *dual["counts"], launched["release_counts"],
             moe["counts"], moe_ep["counts"], trained["counts"], packed["counts"],
-            tp2["counts"], reference["counts"])
+            tp2["counts"], reference["counts"], gang["counts"])
 
     def total(key):
         return sum(c[key] for c in runs)

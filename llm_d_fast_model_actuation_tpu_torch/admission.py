@@ -11,11 +11,11 @@ without an apiserver.
 
 Ported by meaning for GPUs: the reference checks an ISC's TPU slice
 topology against its chip count (the global slice holds chips x hosts
-chips). A host's NVIDIA cards have no slice topology, and an engine spans
-one host until multi-host gangs are ported (ROADMAP queue 1 item 15), so
-an ISC that names a topology or more than one host is refused with the
-messages ``api/types.py:AcceleratorSpec.validate`` gives the controller;
-``chips`` counts cards.
+chips). A host's NVIDIA cards have no slice topology, so an ISC that names
+one is refused with the message ``api/types.py:AcceleratorSpec.validate``
+gives the controller; ``chips`` counts cards, and with more than one host
+(a gang, ``controller/gang.py``) it is the gang's global count, which
+must divide over the hosts.
 """
 
 from __future__ import annotations
@@ -104,8 +104,10 @@ def validate_isc(obj: Dict[str, Any]) -> List[str]:
     if not isinstance(hosts, int) or hosts < 1:
         errors.append("spec.modelServerConfig.accelerator.hosts must be >= 1")
         hosts = 1
-    # the reference's slice-topology rule, for cards: no topology, one host
-    errors += AcceleratorSpec(topology=acc.get("topology", "") or "", hosts=hosts).validate()
+    # the reference's slice-topology rule, for cards: no topology, and a
+    # gang's cards divide over its hosts
+    errors += AcceleratorSpec(chips=chips if isinstance(chips, int) and chips >= 1 else hosts,
+                              topology=acc.get("topology", "") or "", hosts=hosts).validate()
     for section in ("labels", "annotations", "env_vars"):
         val = msc.get(section)
         if val is not None and not (

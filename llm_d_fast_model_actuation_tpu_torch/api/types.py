@@ -10,9 +10,11 @@ The JAX package's objects with the same ``from_dict``/``to_dict`` shapes
 verbatim). Ported by meaning: an :class:`AcceleratorSpec`'s ``chips``
 counts cards, and the TPU slice topology (the JAX package's
 ``SliceTopology``) has no GPU counterpart — a set of cards on one host
-serves together whatever their indices. An ISC that names a topology, or
-more than one host, is refused by :meth:`AcceleratorSpec.validate`, and
-the controller writes the refusal into the requester's status.
+serves together whatever their indices. An ISC that names a topology is
+refused by :meth:`AcceleratorSpec.validate`, and the controller writes the
+refusal into the requester's status. One that names more than one host
+is a gang (``controller/gang.py``): ``chips`` is then the gang's global
+card count, an equal share on each host.
 
 Quantities are plain ints/strings; the k8s ``resource.Quantity`` grammar is
 handled by :func:`parse_quantity`.
@@ -142,13 +144,15 @@ class Status:
 class AcceleratorSpec:
     """The cards one engine instance needs."""
 
-    #: Number of cards (the engine's tensor-parallel degree).
+    #: Number of cards (the engine's tensor-parallel degree): over every
+    #: host of a gang, ``chips / hosts`` on each.
     chips: int = 1
     #: A TPU slice topology in the JAX package; a card has none, so a
     #: non-empty value is refused (:meth:`validate`). Kept so an ISC
     #: written for the JAX package parses and is refused by name.
     topology: str = ""
-    #: Hosts the engine spans; only 1 runs here (:meth:`validate`).
+    #: Hosts the engine spans: above 1 a gang of one engine process per
+    #: host (``parallel/multihost.py``).
     hosts: int = 1
     #: Whether the ISC explicitly declared an accelerator spec. Only then is
     #: placement validated against it (an absent spec accepts whatever the
@@ -163,10 +167,10 @@ class AcceleratorSpec:
                 f"accelerator.topology={self.topology} is refused: a GPU has no "
                 "slice topology; give the number of cards in accelerator.chips"
             )
-        if self.hosts > 1:
+        if self.hosts > 1 and self.chips % self.hosts:
             errors.append(
-                f"accelerator.hosts={self.hosts} is refused: an engine spans one "
-                "host until multi-host gangs are ported (ROADMAP queue 1, item 15)"
+                f"accelerator.chips={self.chips} does not divide over accelerator.hosts={self.hosts}: "
+                "a gang's hosts hold equal shares of its cards"
             )
         return errors
 

@@ -20,9 +20,10 @@ reference's sleeping budget of one sleeper (4096 MiB):
         --namespace default --kube-api-url http://127.0.0.1:8080 \\
         --accelerator-sleeping-memory-limit-bytes 4294967296
 
-The JAX package's ``--disable-slice-gangs`` has no counterpart: multi-host
-gangs wait on ROADMAP queue 1 item 15, and an ISC asking for more than one
-host is refused into its requesters' status.
+The dual-pods controller runs the slice-gang coordinator beside it
+(``controller/gang.py``: an ISC asking for more than one host is served by
+a gang of engine processes, one per node) unless ``--disable-slice-gangs``
+is given, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -50,6 +51,11 @@ def main(argv=None) -> None:
     _common(dpc)
     dpc.add_argument("--sleeper-limit", type=int, default=1)
     dpc.add_argument("--accelerator-sleeping-memory-limit-bytes", type=int, default=0)
+    dpc.add_argument(
+        "--disable-slice-gangs",
+        action="store_true",
+        help="don't run the slice-gang coordinator (multi-host ISCs will never actuate)",
+    )
 
     pop = sub.add_parser("launcher-populator", help="proactive launcher population")
     _common(pop)
@@ -91,6 +97,7 @@ def main(argv=None) -> None:
     async def run() -> None:
         if hasattr(store, "start"):
             await store.start()
+        gang = None
         if args.cmd == "dual-pods-controller":
             from .clients import HttpTransports
             from .dualpods import DualPodsConfig, DualPodsController
@@ -104,6 +111,10 @@ def main(argv=None) -> None:
                     accelerator_sleeping_memory_limit_bytes=args.accelerator_sleeping_memory_limit_bytes,
                 ),
             )
+            if not args.disable_slice_gangs:
+                from .gang import SliceGangCoordinator
+
+                gang = SliceGangCoordinator(store, args.namespace)
         else:
             from .populator import Populator, PopulatorConfig
 
@@ -117,6 +128,8 @@ def main(argv=None) -> None:
                 ),
             )
         await ctl.start()
+        if gang is not None:
+            await gang.start()
         # readiness = initial batch processed (knows-processed-sync):
         # destructive decisions are safe only after one pass over the world
         await ctl.initial_sync.wait()
@@ -126,6 +139,8 @@ def main(argv=None) -> None:
         try:
             await asyncio.Event().wait()  # serve forever
         finally:
+            if gang is not None:
+                await gang.stop()
             await ctl.stop()
             if hasattr(store, "stop"):
                 await store.stop()

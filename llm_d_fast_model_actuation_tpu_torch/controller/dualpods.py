@@ -26,10 +26,14 @@ logic kept as it is. Ported by meaning for NVIDIA cards:
 
   * accelerators are card UUIDs, a flat set: placement validation checks
     the card count only (the ICI contiguity and slice-shape checks have
-    no GPU meaning), and an ISC that names a topology or more than one
-    host is refused into the requester's status
-    (``AcceleratorSpec.validate``; multi-host gangs wait on ROADMAP
-    queue 1 item 15, so there is no gang hook);
+    no GPU meaning), and an ISC that names a topology is refused into the
+    requester's status (``AcceleratorSpec.validate``);
+  * a multi-node ISC (``accelerator.hosts`` > 1, ``accelerator.chips``
+    the gang's global card count) is actuated as the JAX package actuates
+    a multi-host one: each requester publishes its cards, waits for the
+    slice-gang coordinator's stamp (``controller/gang.py``) and merges its
+    coordination env into the engine instance's, whose identity the env
+    is part of (``utils/hashing.py:instance_id_for``);
   * the memory budget before a wake reads the requester SPI's memory
     query, which NVML answers with every process's use of the card. A
     wake held back by it, or by a failed query, writes why into the
@@ -533,7 +537,11 @@ class DualPodsController:
             await self._set_status(ns, name, acc_errors)
             return
 
-        engine_cfg, instance_id = self._desired_instance(isc, isc_name, sd.chip_ids)
+        gang_env: Optional[Dict[str, str]] = None
+        if isc.spec.engine_server_config.accelerator.hosts > 1:
+            gang_env = await self._await_gang_assignment(ns, name, sd)
+
+        engine_cfg, instance_id = self._desired_instance(isc, isc_name, sd.chip_ids, extra_env=gang_env)
         sd.instance_id = instance_id
         sd.server_port = isc.spec.engine_server_config.port
         sd.engine_config = engine_cfg
@@ -552,24 +560,51 @@ class DualPodsController:
     ) -> List[str]:
         """ISC ``accelerator`` vs the requester-reported card set: what a
         GPU cannot honour (:meth:`AcceleratorSpec.validate`), then the card
-        count (the reference's GPU count check, inference-server.go:384-399).
+        count (the reference's GPU count check, inference-server.go:384-399;
+        in a gang each member's share, ``chips`` over ``hosts``).
         """
         spec = isc.spec.engine_server_config.accelerator
         if not spec.specified:
             return []  # no declared requirements: scheduler placement stands
         errors = spec.validate()
-        if spec.chips and len(chip_ids) != spec.chips:
+        want = spec.chips // spec.hosts if spec.chips and spec.hosts > 1 else spec.chips
+        if want and len(chip_ids) != want:
             errors.append(
                 f"accelerator.chips={spec.chips} but requester reports "
                 f"{len(chip_ids)} chip(s)"
+                + (f" (a member of a {spec.hosts}-host gang holds {want})" if spec.hosts > 1 else "")
             )
         return errors
+
+    async def _await_gang_assignment(self, ns: str, req_name: str, sd: "ServerData") -> Dict[str, str]:
+        """Multi-node ISC: publish this requester's cards so the slice-gang
+        coordinator (``controller/gang.py``) can plan, then wait for the
+        gang stamp. Its env makes the engine child join the gang's process
+        group."""
+        from .gang import gang_env_of
+
+        chips = ",".join(sorted(sd.chip_ids or []))
+
+        def publish(pod):
+            ann = pod["metadata"].setdefault("annotations", {})
+            if ann.get(C.ACCELERATORS_ANNOTATION) == chips:
+                return None
+            ann[C.ACCELERATORS_ANNOTATION] = chips
+            return pod
+
+        await self._amutate("Pod", ns, req_name, publish)
+        pod = self.store.try_get("Pod", ns, req_name)
+        env = gang_env_of(pod) if pod is not None else None
+        if env is None:
+            raise Retry("waiting for slice-gang assignment", after=0.5)
+        return env
 
     def _desired_instance(
         self,
         isc: InferenceServerConfig,
         isc_name: str,
         chip_ids: List[str],
+        extra_env: Optional[Dict[str, str]] = None,
     ) -> Tuple[Dict[str, Any], str]:
         """Desired instance config + deterministic ID
         (computeDesiredInstanceState, inference-server.go:1015-1057)."""
@@ -577,13 +612,13 @@ class DualPodsController:
         cfg = {
             "options": esc.options,
             "gpu_uuids": sorted(chip_ids),
-            "env_vars": dict(esc.env_vars),
+            "env_vars": {**esc.env_vars, **(extra_env or {})},
             "annotations": {
                 ISC_NAME_ANNOTATION: isc_name,
                 INFERENCE_PORT_ANNOTATION: str(esc.port),
             },
         }
-        iid = instance_id_for(esc, chip_ids)
+        iid = instance_id_for(esc, chip_ids, extra_env=extra_env)
         return cfg, iid
 
     # ------------------------------------------------------ launcher selection
@@ -1398,7 +1433,10 @@ class DualPodsController:
             chips = cfg.get("gpu_uuids", [])
         except json.JSONDecodeError:
             return True
-        return instance_id_for(isc.spec.engine_server_config, chips) != instance_id
+        from .gang import gang_env_from_instance_env
+
+        return instance_id_for(isc.spec.engine_server_config, chips,
+                               extra_env=gang_env_from_instance_env(cfg.get("env_vars"))) != instance_id
 
     # --------------------------------------------------------------- sweeping
 
@@ -1462,7 +1500,10 @@ class DualPodsController:
                 if isc_obj is not None:
                     isc = InferenceServerConfig.from_dict(isc_obj)
                     chips = st.get("gpu_uuids") or []
-                    obsolete = instance_id_for(isc.spec.engine_server_config, chips) != iid
+                    from .gang import gang_env_from_instance_env
+
+                    obsolete = instance_id_for(isc.spec.engine_server_config, chips,
+                                               extra_env=gang_env_from_instance_env(st.get("env_vars"))) != iid
                 if obsolete:
                     try:
                         await self.transports.launcher(pod).delete_instance(iid)

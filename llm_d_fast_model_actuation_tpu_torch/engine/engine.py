@@ -93,7 +93,20 @@ the model's layer stacks and ``lm_head`` are int8 with their scales, and
 every decode-sized product runs the W8A16 kernel, inside the captured
 chunk graphs too.
 
-Not ported yet, and refused rather than ignored: multi-host lockstep.
+Multi-node gangs (``engine/multihost.py``): the engine's mesh may span
+processes (``parallel/mesh.py``), each holding its own ranks. Process 0,
+the leader, runs this engine as it is, and ``self.lockstep`` (its
+``LockstepLeader``) broadcasts one control frame before each prefill,
+suffix prefill and chunk forward; the followers replay each through
+:meth:`InferenceEngine.prefill_forward`, :meth:`InferenceEngine.
+suffix_forward` and :meth:`InferenceEngine.chunk_eager`. Sampling runs on
+the leader alone, where the logits are gathered: inside a chunk each
+step's tokens go to the followers as bytes (:meth:`InferenceEngine.
+chunk_body`). A leader runs no speculation and refuses a request with a
+logit bias, penalties or a variant (the frame carries none of them); the
+service builds a gang's engine without packing or pipelining. A gang's
+chunk runs eagerly, as every mesh chunk does.
+
 CUDA graphs for the prefill buckets, the speculative verify and the packed
 step, and for the chunk on a mesh (a graph belongs to one device), are
 later work.
@@ -418,16 +431,19 @@ class InferenceEngine:
             for axis, why in (("dp", "a data-parallel replica is an engine of its own (one per launcher instance)"),
                               ("sp", "sp splits a training batch's sequence (models/train.py); a prompt prefills on "
                                      "its tp ranks"),
-                              ("pp", "pipeline stages are not ported (ROADMAP.md queue 1 item 15)")):
+                              ("pp", "pipeline stages are not ported (ROADMAP.md queue 1 item 15, pipeline "
+                                     "stages across hosts)")):
                 if mesh.shape[axis] > 1:
                     raise ValueError(f"the engine serves on a tp x ep mesh; {axis}={mesh.shape[axis]} refused: {why}")
+            # rank 0's device, or in a gang this process's first rank's
+            first = mesh.devices[mesh.local_ranks[0]]
             if device is not None:
-                dev, rank0 = torch.device(device), mesh.devices[0]
-                if dev.type != rank0.type or dev.index not in (None, rank0.index):
+                dev = torch.device(device)
+                if dev.type != first.type or dev.index not in (None, first.index):
                     raise ValueError(f"device {device} is not rank 0 of {mesh}; leave it out with a mesh")
             for d in mesh.distinct_devices():
                 resolve_device(d)
-            device = mesh.devices[0]
+            device = first
         self.device = resolve_device(device)
         #: devices beyond the first that every replicated upload also goes to
         self._extra_devices = len(mesh.distinct_devices()) - 1 if mesh is not None else 0
@@ -602,6 +618,10 @@ class InferenceEngine:
             if dataclasses.replace(params.cfg, attention_impl=impl) != m:
                 raise ValueError("the model's config differs from the engine's")
             params = params.state_dict()
+        #: a gang leader's ``engine/multihost.py:LockstepLeader``, which
+        #: broadcasts a frame before each prefill, suffix prefill and chunk
+        #: forward; None otherwise (a follower replays the frames)
+        self.lockstep: Optional[Any] = None
         self._build(params, warmup_buckets)
 
     def _build(self, params, warmup_buckets: Seq[int]) -> None:
@@ -635,6 +655,7 @@ class InferenceEngine:
             self._to_ranks(np.array([bucket], dtype=np.int32)),
             self.pool.as_tuple(),
             self._to_ranks(np.zeros((1, self.cfg.pages_per_seq), dtype=np.int32)),
+            last_only=True,
         )
 
     def on_reacquire(self) -> float:
@@ -702,7 +723,7 @@ class InferenceEngine:
         if self.mesh is None:
             return self._to_dev(a)
         copies = {d: torch.from_numpy(a).to(d, copy=True) for d in self.mesh.distinct_devices()}
-        return [copies[d] for d in self.mesh.devices]
+        return self.mesh.per_rank(lambda r: copies[self.mesh.devices[r]])
 
     def _table(self, cols: Optional[int] = None):
         """The device page table as the forwards take it, optionally cut
@@ -710,7 +731,7 @@ class InferenceEngine:
         pt = self._dev["pt"]
         if cols is None:
             return pt
-        return pt[:, :cols] if self.mesh is None else [p[:, :cols] for p in pt]
+        return pt[:, :cols] if self.mesh is None else [None if p is None else p[:, :cols] for p in pt]
 
     def _mirrors(self) -> Dict[str, np.ndarray]:
         """The host mirror of each device scheduler tensor but the page
@@ -745,7 +766,7 @@ class InferenceEngine:
         else:
             bufs = {d: self.arenas[d].zeros(pt.shape, torch.int32, "discard", "pt") for d in self.mesh.distinct_devices()}
             self._pt_bufs = list(bufs.values())
-            dev["pt"] = [bufs[d] for d in self.mesh.devices]
+            dev["pt"] = self.mesh.per_rank(lambda r: bufs[self.mesh.devices[r]])
         w = noise_width(self.cfg.model.vocab_size)
         dev["noise"] = arena.zeros((self.cfg.decode_chunk, self.cfg.max_batch, w), torch.float32, "discard", "noise")
         return dev
@@ -916,6 +937,16 @@ class InferenceEngine:
     ) -> int:
         if not prompt:
             raise ValueError("empty prompt")
+        if self.lockstep is not None:
+            # the lockstep frame carries none of these: followers would
+            # run the unrouted, unbiased, unpenalized forward
+            if variant:
+                raise ValueError("per-request variant routing is not supported for multi-host gangs (the lockstep "
+                                 "frame has no variant dimension)")
+            if logit_bias:
+                raise ValueError("logit_bias is not supported for multi-host gangs")
+            if presence_penalty or frequency_penalty:
+                raise ValueError("repetition penalties are not supported for multi-host gangs")
         if variant:
             if variant not in self._variants:
                 raise ValueError(f"unknown resident variant {variant}")
@@ -1129,13 +1160,42 @@ class InferenceEngine:
         tokens = np.zeros((1, bucket), dtype=np.int32)
         tokens[0, : len(seg)] = seg
         self._count_bucketed(bucket, len(seg))
+        if self.lockstep is not None:
+            self.lockstep.prefill_suffix(req, bucket, start_pos, len(seg),
+                                         advance_key=start_pos + len(seg) == len(req.prompt),
+                                         want_plp=req.want_prompt_logprobs)
+        return self.suffix_forward(tokens, start_pos, len(seg), req.slot, last_only=not req.want_prompt_logprobs)
+
+    def prefill_forward(self, tokens: np.ndarray, n: int, slot: int, last_only: bool) -> Optional[torch.Tensor]:
+        """The bucketed cold prefill forward of ``tokens`` [1, bucket] (the
+        first ``n`` valid) into slot ``slot``'s pages (its page-table row):
+        the leader's, and a gang follower's replay of it
+        (``engine/multihost.py``). Returns the logits (position n-1's
+        alone with ``last_only``), None on a gang process that does not
+        hold rank 0."""
+        return llama.prefill(
+            self.model,
+            self._to_ranks(tokens),
+            self._to_ranks(np.array([n], dtype=np.int32)),
+            self.pool.as_tuple(),
+            self._to_ranks(self._page_table[slot : slot + 1]),
+            last_only=last_only,
+        )
+
+    def suffix_forward(
+        self, tokens: np.ndarray, start: int, n: int, slot: int, last_only: bool
+    ) -> Optional[torch.Tensor]:
+        """The ``prefill_continue`` forward of a segment ``tokens`` [1,
+        bucket] (the first ``n`` valid) at absolute position ``start`` of
+        slot ``slot``'s sequence, as :meth:`prefill_forward`."""
         return llama.prefill_continue(
             self.model,
             self._to_ranks(tokens),
-            self._to_ranks(np.array([start_pos], dtype=np.int32)),
-            self._to_ranks(np.array([len(seg)], dtype=np.int32)),
+            self._to_ranks(np.array([start], dtype=np.int32)),
+            self._to_ranks(np.array([n], dtype=np.int32)),
             self.pool.as_tuple(),
-            self._to_ranks(self._page_table[req.slot : req.slot + 1]),
+            self._to_ranks(self._page_table[slot : slot + 1]),
+            last_only=last_only,
         )
 
     def _count_bucketed(self, bucket: int, n: int) -> None:
@@ -1172,14 +1232,10 @@ class InferenceEngine:
             tokens[0, :n] = req.prompt
             self.cold_prefills += 1
             self._count_bucketed(bucket, n)
-            logits = llama.prefill(
-                self.model,
-                self._to_ranks(tokens),
-                self._to_ranks(np.array([n], dtype=np.int32)),
-                self.pool.as_tuple(),
-                self._to_ranks(self._page_table[req.slot : req.slot + 1]),
-            )
-            last = n
+            if self.lockstep is not None:
+                self.lockstep.prefill(req, bucket, req.want_prompt_logprobs)
+            logits = self.prefill_forward(tokens, n, req.slot, last_only=not req.want_prompt_logprobs)
+            last = n if req.want_prompt_logprobs else 1
             if req.want_prompt_logprobs:
                 # position i predicts prompt token i + 1
                 plp.append(self._prompt_lps(logits[0], req.prompt[1:]))
@@ -1194,7 +1250,7 @@ class InferenceEngine:
                     # a segment's last row predicts the next segment's first
                     # token; the prompt's last row predicts nothing
                     plp.append(self._prompt_lps(logits[0], req.prompt[pos + 1 : pos + len(seg) + 1]))
-                last = len(seg)
+                last = len(seg) if req.want_prompt_logprobs else 1
                 pos += len(seg)
         out = self._sample_last(req, logits, last)
         if self.prefix_cache is not None and req.variant == 0:
@@ -1301,7 +1357,7 @@ class InferenceEngine:
         """The one request a verify round may run for: speculation engages
         only where it is exact and simple, exactly one greedy, unpenalized,
         unbiased base-model sequence decoding and nothing waiting."""
-        if self.cfg.speculative_ngram <= 0 or self._waiting:
+        if self.cfg.speculative_ngram <= 0 or self._waiting or self.lockstep is not None:
             return None
         # a mid-prefill slot (packed serving) has no sampled token yet
         active = [r for r in self._slots if r is not None and not r.done and not r.prefilling]
@@ -1779,6 +1835,8 @@ class InferenceEngine:
         # the batch's drain tail runs single steps (the reference's
         # drain_tail="single", its choice off-TPU)
         T = self.cfg.decode_chunk if max_remaining >= self.cfg.decode_chunk else 1
+        if self.lockstep is not None:
+            self.lockstep.chunk(T, self._dirty)
         if self._dirty:
             self._upload_sched()
         sampled = [s for s, r in running.items() if r.temperature > 0]
@@ -1850,6 +1908,12 @@ class InferenceEngine:
         and returns (tokens [T, b], logprobs [T, b], top-k alternatives or
         None): what a CUDA graph captures (``engine/graphs.py``).
 
+        On a gang's mesh rank 0's process (the leader) samples, and each
+        step's tokens go to every other process as bytes
+        (``Mesh.broadcast``), whose logits are None: each then takes the
+        same next token, position and budget, and returns zero logprobs
+        and no alternatives (a follower reads no output).
+
         ``passes`` (the multi-variant twin, never captured): ``(passes,
         slot_pass)``, the :meth:`_passes` to run and each slot's pass; each
         step runs one decode forward per pass with the slots of other passes
@@ -1867,12 +1931,18 @@ class InferenceEngine:
             else:
                 logits = self._merged(passes[0], passes[1], lambda model, mine: llama.decode_step(
                     model, lt, pos, self.pool.as_tuple(), self._table(), active & mine))
-            out = sample(
-                logits, d["temps"], d["noise"][t] if sampled else None,
-                top_p=d["topp"], counts=counts, presence_penalty=d["pres"],
-                frequency_penalty=d["freq"], alt_k=alt_k, bias=d["bias"],
-            )
-            nxt = torch.where(active, out[0], lt)
+            if logits is None:  # a gang follower: the leader's tokens
+                nxt = self.mesh.broadcast(None, like=lt)
+                out = (None, torch.zeros(lt.shape, dtype=torch.float32, device=lt.device), None, None)
+            else:
+                out = sample(
+                    logits, d["temps"], d["noise"][t] if sampled else None,
+                    top_p=d["topp"], counts=counts, presence_penalty=d["pres"],
+                    frequency_penalty=d["freq"], alt_k=alt_k, bias=d["bias"],
+                )
+                nxt = torch.where(active, out[0], lt)
+                if self.mesh is not None and self.mesh.spans_processes:
+                    nxt = self.mesh.broadcast(nxt, like=lt)
             a32 = active.to(torch.int32)
             # the emitted token joins the counts the NEXT step penalizes
             # (one index per row: a scatter-add, whose index check runs on the
@@ -1886,13 +1956,13 @@ class InferenceEngine:
             lt = nxt
             toks.append(nxt)
             lps.append(out[1])
-            if alt_k > 0:
+            if alt_k > 0 and out[2] is not None:
                 avs.append(out[2])
                 ais.append(out[3])
         d["lt"].copy_(lt)
         d["pos"].copy_(pos)
         d["budget"].copy_(budget)
-        alts = (torch.stack(avs), torch.stack(ais)) if alt_k > 0 else None
+        alts = (torch.stack(avs), torch.stack(ais)) if avs else None
         return torch.stack(toks), torch.stack(lps), alts
 
     def _drain_chunk(self, inflight: "_Chunk", defer_retire: bool = False) -> List[Request]:

@@ -85,7 +85,7 @@ class PagePool:
     ) -> "PagePool":
         """A zero pool on ``device``, or with a ``mesh``
         (``parallel/mesh.py:Mesh``) one kv_heads/tp slice per rank on the
-        rank's device. With ``arenas`` (device -> ``engine/arena.py:Arena``,
+        rank's device (None for a rank another process of a gang holds). With ``arenas`` (device -> ``engine/arena.py:Arena``,
         the engine's) each tensor is an allocation of its device's arena,
         at an address a sleep and wake keep."""
 
@@ -100,20 +100,21 @@ class PagePool:
         if num_kv_heads % mesh.tp:
             raise ValueError(f"num_kv_heads={num_kv_heads} is not divisible by tensor_parallel_size {mesh.tp}")
         shape = cls.pool_shape(num_layers, num_pages, page_size, num_kv_heads // mesh.tp, head_dim)
-        shards = [
-            (zeros(shape, d, f"k_pages.{r}"), zeros(shape, d, f"v_pages.{r}"))
-            for r, d in enumerate(mesh.devices)
-        ]
-        return cls(k_pages=shards[0][0], v_pages=shards[0][1], shards=shards)
+        shards = mesh.per_rank(lambda r: (zeros(shape, mesh.devices[r], f"k_pages.{r}"),
+                                          zeros(shape, mesh.devices[r], f"v_pages.{r}")))
+        first = next(p for p in shards if p is not None)
+        return cls(k_pages=first[0], v_pages=first[1], shards=shards)
 
     def tensors(self) -> List[torch.Tensor]:
-        """Every tensor of the pool: k then v, rank by rank."""
+        """Every tensor of the pool: k then v, rank by rank (a gang
+        member's own ranks')."""
         if self.shards is None:
             return [self.k_pages, self.v_pages]
-        return [t for pair in self.shards for t in pair]
+        return [t for pair in self.shards if pair is not None for t in pair]
 
     def nbytes(self) -> int:
-        """Bytes the pool holds over all ranks: the global figure."""
+        """Bytes the pool holds over all ranks: the global figure (a gang
+        member's: its own ranks')."""
         return sum(t.numel() * t.element_size() for t in self.tensors())
 
     def as_tuple(self) -> "Tuple[torch.Tensor, torch.Tensor] | Sequence[Tuple[torch.Tensor, torch.Tensor]]":

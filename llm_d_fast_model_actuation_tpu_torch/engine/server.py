@@ -52,9 +52,28 @@ the packed path), ``n``, ``seed``, ``ignore_eos``, ``logit_bias`` and
 ``stop_token_ids``; their JSON and SSE shapes are the reference's. A
 request's ``model`` routes it: the serving model (or none) is the base, an
 attached co-resident variant is that variant, and any other name is a 400
-that names the live set. Not ported yet and absent from the options: the
-reference's multi-host gang flags (``tests/test_torch_flags.py`` lists
-them), also where the reference combines them with tensor parallelism.
+that names the live set.
+
+**Multi-node gangs** (``--num-processes N --process-id P
+--coordinator-address HOST:PORT``, or the ``FMA_NUM_PROCESSES``,
+``FMA_PROCESS_ID`` and ``FMA_COORDINATOR_ADDRESS`` env a gang's
+controller stamps, ``controller/gang.py``): one tensor-parallel engine
+whose ranks are spread over N processes, one per node, each opening its
+own devices (``--device`` names this process's: local devices x N =
+``--tensor-parallel-size``). Each member joins the gang's Gloo group
+before it touches a device (``engine/multihost.py:join_gang``; no
+one-process fallback), starts the gang watchdog (``GangWatchdog``:
+``FMA_GANG_HEARTBEAT_TIMEOUT``, 20 s, 0 off; ``FMA_GANG_JOIN_GRACE``,
+60 s), and builds the same engine. Process 0 leads: it serves the HTTP
+API and broadcasts a lockstep frame before each forward, a level-1 sleep
+and wake, and its shutdown; the others replay them (``_run_follower``; a
+replay that fails fails their ``/health``) and refuse completions and
+admin verbs. Refused for gangs, with the reference's reasons:
+``--packed-serving on``, ``--resident-variants`` above 1,
+``--sleep-quant``, ``--zero-drain on``, a level-2 sleep, hot-swap and
+prefetch; the port also refuses ``--sleep-release-devices always`` (the
+reference raises at the sleep) and ``--pipeline-decode``, speculation,
+logit bias and penalties are off or refused in a gang.
 
 **Orbax checkpoints** (``--checkpoint-dir``, and ``checkpoint_dir`` in a
 swap or an attach): the weights restored from the directory the JAX
@@ -539,7 +558,31 @@ def make_arg_parser() -> argparse.ArgumentParser:
         help="arm fault-injection points at startup (utils/faults.py), e.g. "
         "'swap.h2d=fail:1'; also the FMA_FAULTS env and POST /v1/faults",
     )
+    # Multi-node gangs (parallel/multihost.py, engine/multihost.py): N
+    # engine processes, one per node, form one torch.distributed group.
+    # Defaults come from the FMA_NUM_PROCESSES / FMA_PROCESS_ID /
+    # FMA_COORDINATOR_ADDRESS env the gang coordinator ships.
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=-1)
+    p.add_argument("--coordinator-address", default="")
     return p
+
+
+def resolve_distributed(args: argparse.Namespace) -> Optional[Dict[str, Any]]:
+    """Flags > gang env > one process, as the reference resolves them.
+    Returns the gang's ``coordinator_address``, ``num_processes`` and
+    ``process_id``, or None for one process."""
+    num = args.num_processes or int(os.environ.get("FMA_NUM_PROCESSES", "0") or 0)
+    if num <= 1:
+        return None
+    pid = args.process_id if args.process_id >= 0 else int(os.environ.get("FMA_PROCESS_ID", "-1") or -1)
+    addr = args.coordinator_address or os.environ.get("FMA_COORDINATOR_ADDRESS", "")
+    if pid < 0 or pid >= num or not addr:
+        raise ValueError(
+            f"multi-host engine needs process-id in [0,{num}) and a coordinator address (got id={pid}, "
+            f"addr={addr!r})"
+        )
+    return {"coordinator_address": addr, "num_processes": num, "process_id": pid}
 
 
 def parse_engine_options(options: str) -> argparse.Namespace:
@@ -561,6 +604,8 @@ def check_engine_options(args: argparse.Namespace) -> None:
     """The reference's checks of the options the port has; raises
     ValueError. An ``hf:`` directory is looked at when the engine starts,
     not here."""
+    dist = resolve_distributed(args)
+    gang = dist["num_processes"] if dist else 1
     if args.model.startswith("hf:"):
         if not args.model[3:]:
             raise ValueError("--model hf: needs a directory path")
@@ -577,6 +622,10 @@ def check_engine_options(args: argparse.Namespace) -> None:
     if args.packed_serving == "on" and args.pipeline_decode == "on":
         raise ValueError("--packed-serving is incompatible with --pipeline-decode (a packed step would race the "
                          "in-flight chunk)")
+    if args.packed_serving == "on" and gang > 1:
+        raise ValueError("--packed-serving is incompatible with multi-host gangs (the per-step packing layout is "
+                         "too large for the lockstep control frame); sharded single-process meshes via "
+                         "--tensor-parallel-size compose fine")
     if args.drain_tail == "chunk":
         raise ValueError("--drain-tail chunk (one full chunk with its surplus steps frozen) is not ported; "
                          "the port's drain tail is single")
@@ -597,6 +646,9 @@ def check_engine_options(args: argparse.Namespace) -> None:
         if args.content_hash != "on":
             raise ValueError("--resident-variants > 1 requires --content-hash on: the shared-base/delta "
                              "split is the digest diff")
+        if gang > 1:
+            raise ValueError("--resident-variants > 1 is not supported for multi-host gangs (the lockstep frame "
+                             "has no variant dimension)")
         if args.tensor_parallel_size > 1:
             raise ValueError("--resident-variants > 1 on a tensor-parallel mesh is not ported yet "
                              "(ROADMAP queue 1 item 14)")
@@ -624,6 +676,9 @@ def check_engine_options(args: argparse.Namespace) -> None:
         raise ValueError("--slo-tpot-ms must be >= 0 (0 = off)")
     if not 0.0 <= args.trace_requests <= 1.0:
         raise ValueError("--trace-requests must be in [0, 1]")
+    if args.zero_drain == "on" and gang > 1:
+        raise ValueError("--zero-drain is not supported for multi-host gangs (parked request bundles are "
+                         "process-local; gang actuation keeps today's abort semantics)")
     if args.zero_drain == "on" and args.tensor_parallel_size > 1:
         raise ValueError("--zero-drain on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
     if args.sleep_quant != "off":
@@ -633,15 +688,28 @@ def check_engine_options(args: argparse.Namespace) -> None:
         if args.quantization:
             raise ValueError("--sleep-quant composes with full-precision serving only: a --quantization int8 "
                              "engine already holds (and moves) int8 weights")
+        if gang > 1:
+            raise ValueError("--sleep-quant is not supported for multi-host gangs (gang offloads stage per-shard "
+                             "and reassemble bit-for-bit); single-process --tensor-parallel-size meshes compose "
+                             "fine")
         if args.tensor_parallel_size > 1:
             raise ValueError(
                 "--sleep-quant on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)"
             )
+    if gang > 1:
+        if args.tensor_parallel_size % gang:
+            # an engine of one rank per member would serve alone on each:
+            # a gang is one engine over every member's cards
+            raise ValueError(f"--tensor-parallel-size {args.tensor_parallel_size} does not divide over a gang of "
+                             f"{gang} processes (each holds tp / N ranks)")
+        if args.sleep_release_devices == "always":
+            raise ValueError("device release is not supported for multi-host gangs: a released member would have "
+                             "to reacquire its devices in lockstep")
     devices = args.device.split(",")
-    if len(devices) > 1 and len(devices) != args.tensor_parallel_size:
+    if len(devices) > 1 and len(devices) * gang != args.tensor_parallel_size:
         raise ValueError(
             f"--device names {len(devices)} devices for --tensor-parallel-size "
-            f"{args.tensor_parallel_size}"
+            f"{args.tensor_parallel_size}" + (f" over {gang} processes" if gang > 1 else "")
         )
     on_card = any(d.split(":")[0] != "cpu" for d in devices)
     if args.packed_serving == "on" and on_card and args.page_size not in PAGE_SIZES:
@@ -651,18 +719,20 @@ def check_engine_options(args: argparse.Namespace) -> None:
         )
 
 
-def mesh_from_options(args: argparse.Namespace):
+def mesh_from_options(args: argparse.Namespace, group=None):
     """The tensor-parallel mesh the options ask for; None for one rank. A
     device list is taken as given; a single ``cuda`` means the first N
     cards and raises when there are fewer; a single other device is every
-    rank's."""
+    rank's. With a gang's process ``group`` the devices are this
+    process's, ``tp`` over the group's size of them (``make_mesh``)."""
     tp = args.tensor_parallel_size
     if tp == 1:
         return None
+    local = tp // resolve_distributed(args)["num_processes"] if group is not None else tp
     devices = args.device.split(",")
     if len(devices) == 1:
-        devices = None if devices[0] == "cuda" else devices * tp
-    return serving_mesh(tp, devices)
+        devices = None if devices[0] == "cuda" else devices * local
+    return serving_mesh(tp, devices, group=group)
 
 
 def quantized_config(args: argparse.Namespace, model_cfg):
@@ -874,10 +944,41 @@ class EngineService:
         #: cumulative counters of the engines and pools, as last mirrored
         #: into Prometheus counters (the scrape adds what they grew by)
         self._seen: Dict[str, float] = {}
+        #: this member's gang (``engine/multihost.py:Gang``), None for one
+        #: process; process 0 leads, the others follow
+        self.gang = None
+        self.process_id = 0
+        self.is_follower = False
+        self.watchdog = None
+        dist = resolve_distributed(args)
+        if dist is not None:
+            from .multihost import GangWatchdog, join_gang
+
+            # before any device is touched: every member joins the group,
+            # and the join blocks until all have, so a member that serves
+            # means the whole gang formed
+            self.gang = join_gang(**dist)
+            self.process_id = dist["process_id"]
+            self.is_follower = self.process_id > 0
+            hb_timeout = float(os.environ.get("FMA_GANG_HEARTBEAT_TIMEOUT", "20") or 0)
+            if hb_timeout > 0:
+                # right after the join, before the build: members answer
+                # probes through a long weight load; 0 disables it (tests
+                # that kill members deliberately)
+                self.watchdog = GangWatchdog(
+                    process_id=self.process_id, num_processes=dist["num_processes"],
+                    coordinator_address=dist["coordinator_address"], timeout=hb_timeout,
+                    join_grace=float(os.environ.get("FMA_GANG_JOIN_GRACE", "60") or 60),
+                )
+                self.watchdog.start()
         # the startup span parents on FMA_TRACEPARENT when the spawning
         # launcher passed one: the first build joins the create's trace
         with tracing.span("engine.start", parent=tracing.env_context(), model=args.model, pid=os.getpid()):
             self._runtime = self._build_runtime(args.model, checkpoint_dir=args.checkpoint_dir)
+        if self.gang is not None and not self.is_follower:
+            from .multihost import LockstepLeader
+
+            self.engine.lockstep = LockstepLeader(self.engine, self.gang.frames)
         # the recorder's first row: the initial cold build ("restart" when
         # a supervising launcher spawned this child again)
         self._record_actuation(
@@ -931,7 +1032,8 @@ class EngineService:
         self.resident_ledger = ResidentSetLedger()
         self._work = threading.Event()
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._loop, name="engine", daemon=True)
+        self._thread = threading.Thread(target=self._run_follower if self.is_follower else self._loop,
+                                        name="engine", daemon=True)
         self._thread.start()
 
     # -- model runtimes --------------------------------------------------------
@@ -990,7 +1092,9 @@ class EngineService:
             max_prefill_tokens=args.max_prefill_tokens,
             logprobs_topk=max(0, args.logprobs_topk),
             speculative_ngram=args.speculative_ngram,
-            pipeline_decode=args.pipeline_decode == "on",
+            # ignored in a gang, as the reference ignores it: a follower
+            # replays each chunk as its frame comes
+            pipeline_decode=args.pipeline_decode == "on" and self.gang is None,
         )
         rt = _ModelRuntime(model_id=model_id, cfg=cfg, tokenizer=tok, hf_dir=hf_dir, checkpoint_dir=checkpoint_dir)
         content_hash = self._content_hash
@@ -1022,7 +1126,7 @@ class EngineService:
         if checkpoint_dir:
             load = load_checkpoint
         source = bool(hf_dir or checkpoint_dir)
-        mesh = mesh_from_options(args)
+        mesh = mesh_from_options(args, group=None if self.gang is None else self.gang.collectives)
         t0 = time.monotonic()
         params = load_staged if staged_params is not None else (load if source else None)
         rt.engine = InferenceEngine(
@@ -1153,6 +1257,22 @@ class EngineService:
                     self.failure = f"{type(e).__name__}: {e}"
                 self._fail_all(RuntimeError(self.failure))
                 return
+
+    def _run_follower(self) -> None:
+        """A gang follower's engine thread: replay the leader's frames until
+        it shuts down (``engine/multihost.py:follower_loop``). A replay that
+        raises fails ``/health``, so the crash relay heals the gang."""
+        from .multihost import follower_loop
+
+        try:
+            follower_loop(self.engine, self.sleeper, self.gang.frames)
+            if self.watchdog is not None:
+                # the leader's SHUTDOWN arrived: its disappearance is on purpose
+                self.watchdog.stop()
+        except Exception as e:  # noqa: BLE001 — the loop's boundary
+            traceback.print_exc()
+            with self._mu:
+                self.failure = f"{type(e).__name__}: {e}"
 
     def _run_admin(self) -> None:
         with self._mu:
@@ -1336,6 +1456,9 @@ class EngineService:
         it."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         ctx = contextvars.copy_context()
+        if self.is_follower:
+            # its engine thread replays frames and takes no admin work
+            raise ValueError("multi-host gang follower: the gang is driven by its leader (process 0)")
         with self._mu:
             if self.failure is not None:
                 raise RuntimeError(self.failure)
@@ -1351,6 +1474,10 @@ class EngineService:
         (whatever ``--trace-requests`` says) under the client's span; with
         neither, nothing per request is recorded."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
+        if self.is_follower:
+            fut.set_exception(RuntimeError("multi-host gang follower: requests are served by the gang leader "
+                                           "(process 0)"))
+            return fut
         now = time.monotonic()
         kw.setdefault("submit_time", now)
         if tracing.enabled() and (trace_ctx is not None or tracing.request_sampling() > 0.0):
@@ -1404,8 +1531,16 @@ class EngineService:
         return pending + len(eng._waiting) + sum(1 for s in eng._slots if s is not None)
 
     def sleep(self, level: int) -> Dict[str, Any]:
+        if self.is_follower:
+            # a follower cannot leave the lockstep on its own: the leader's
+            # frame sleeps the whole gang
+            return {"deferred": True, "reason": "gang follower; sleep is driven by the leader"}
         if level not in (1, 2):
+            # checked BEFORE any frame: a bad level must never reach a follower
             raise ValueError("sleep level must be 1 or 2")
+        if self.gang is not None and level >= 2:
+            raise ValueError("level-2 sleep is not supported for multi-host gangs (followers cannot replay the "
+                             "reinit)")
 
         def go():
             # the slept state has no variant dimension; a detach is the
@@ -1434,6 +1569,8 @@ class EngineService:
                     if parked is not None:
                         rt.parked = parked
                     fallback = parked is None
+                if self.engine.lockstep is not None and not was_sleeping:
+                    self.engine.lockstep.sleep(level, self.release_on_sleep)
                 try:
                     out = self.sleeper.sleep(level, release=True) if self.release_on_sleep else self.sleeper.sleep(level)
                 except Exception as e:
@@ -1492,9 +1629,14 @@ class EngineService:
         return self._on_loop(go)
 
     def wake_up(self) -> Dict[str, Any]:
+        if self.is_follower:
+            return {"deferred": True, "reason": "gang follower; wake is driven by the leader"}
+
         def wake():
             if not self.sleeper.is_sleeping:
                 return self.sleeper.wake_up()
+            if self.engine.lockstep is not None:
+                self.engine.lockstep.wake()
             pred = self._priced(self.price_wake)
             was_l1 = self.sleeper.level == 1
             if self.sleeper.level == 2:
@@ -2704,6 +2846,8 @@ class EngineService:
         rolled-back transfer (a 503). A ``checkpoint_dir`` restores the
         model's weights from that Orbax checkpoint; without one a model
         pooled from any checkpoint of that name is taken."""
+        if self.gang is not None:
+            raise ValueError("model hot-swap is not supported for multi-host gangs")
         if self.args.tensor_parallel_size > 1:
             raise ValueError("model hot-swap on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
         if model.startswith("hf:"):
@@ -3192,6 +3336,8 @@ class EngineService:
         never touching the card, while the current model keeps serving,
         so the first swap to it takes the ``prefetched`` tier. Raises
         ValueError for a request the service refuses (a 400)."""
+        if self.gang is not None:
+            raise ValueError("prefetch is not supported for multi-host gangs")
         if self.args.tensor_parallel_size > 1:
             raise ValueError("prefetch on a tensor-parallel mesh is not ported yet (ROADMAP queue 1 item 14)")
         if not model.startswith("hf:"):
@@ -3652,8 +3798,9 @@ class EngineService:
         load's digests are still being hashed: ``digest_s`` is then 0);
         ``pool``, the slept-model pool (``HostModelPool.describe``); and
         ``quant`` (:meth:`_quant_block`); ``migration_legs``, the last
-        export's and import's seconds by leg. ``costs``, ``zero_drain``
-        and ``migration`` are the reference's. It never waits for the
+        export's and import's seconds by leg; on a gang member only,
+        ``gang`` (:meth:`_gang_block`). ``costs``, ``zero_drain`` and
+        ``migration`` are the reference's. It never waits for the
         digests."""
         now = time.monotonic()
         depth = self.queue_depth()
@@ -3706,6 +3853,7 @@ class EngineService:
                 },
                 "aborted": dict(self._aborted),
                 "actuations": dict(self._actuations),
+                **({} if self.gang is None else {"gang": self._gang_block()}),
                 "uptime_s": round(now - self.started_at, 3),
                 "is_sleeping": self.sleeper.is_sleeping,
                 "load": load,
@@ -3829,6 +3977,26 @@ class EngineService:
         with self._profile_mu:
             return {"profiling": self._profile_dir is not None, "log_dir": self._profile_dir or ""}
 
+    def _gang_block(self) -> Dict[str, Any]:
+        """A gang member's place, whether a follower still replays, its
+        mesh's exchanges through host memory (count, bytes, seconds in the
+        Gloo calls and staging), the leader's frames (sent, seconds in
+        their broadcasts), the prefix cache's hits, and what its last
+        sleep and wake moved and its arenas map now."""
+        eng = self.engine
+        lead = eng.lockstep
+        return {
+            "process_id": self.process_id, "num_processes": self.gang.num_processes,
+            "role": "follower" if self.is_follower else "leader",
+            "replaying": self.is_follower and self._thread.is_alive(),
+            "exchanges": dict(eng.mesh.exchange_stats),
+            "frames": None if lead is None else {"sent": lead.frames, "seconds": round(lead.frame_s, 6)},
+            "prefix_hits": eng.prefix_cache.hits if eng.prefix_cache is not None else 0,
+            "bytes_offloaded": self.sleeper.stats.bytes_offloaded,
+            "last_wake_bytes": self.sleeper.stats.last_wake_bytes,
+            "mapped_bytes": sum(a.mapped_bytes for a in eng.arenas.values()),
+        }
+
     def device_info(self) -> Dict[str, Any]:
         """GET /v1/device: the engine's device, with the card's name and
         UUID as the CUDA runtime gives them (the UUID spelled as NVML and
@@ -3874,7 +4042,20 @@ class EngineService:
             t.join(timeout=60)
         self._stop.set()
         self._work.set()
-        self._thread.join(timeout=30)
+        if not self.is_follower:
+            # a follower's thread waits in the frame broadcast and ends
+            # with the leader's SHUTDOWN frame, or with the process
+            self._thread.join(timeout=30)
+        if self.engine.lockstep is not None:
+            try:
+                self.engine.lockstep.shutdown()
+            except Exception:  # noqa: BLE001 — the shutdown goes on
+                traceback.print_exc()
+        if self.watchdog is not None:
+            # only AFTER the SHUTDOWN frame: returning from its broadcast
+            # means the followers have it, and stopping the responder
+            # earlier would let them read the leader as dead
+            self.watchdog.stop()
         for rt in [self._runtime] + [e.runtime for e in self.model_pool.entries()]:
             job = getattr(rt, "digest_job", None)
             if job is not None:

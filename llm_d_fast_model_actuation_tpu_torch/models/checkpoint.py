@@ -50,7 +50,7 @@ from ..native import zstd
 from ..parallel.mesh import Mesh
 from ..utils import faults, tracing
 from . import ocdbt
-from .llama import Llama, LlamaConfig, ShardedLlama, param_shapes, param_specs, quantized_names
+from .llama import Llama, LlamaConfig, ShardedLlama, held_ranks, param_shapes, param_specs, quantized_names
 
 CONFIG_FILE = "config.json"
 PARAMS_DIR = "params"
@@ -310,10 +310,6 @@ class _Buffers:
         self.free.setdefault(buf.numel(), []).append(buf)
 
 
-def _ranks_of(model: "Llama | ShardedLlama") -> List[Llama]:
-    return list(model.ranks) if isinstance(model, ShardedLlama) else [model]
-
-
 def _rank_box(shape: Tuple[int, ...], spec, mesh: Optional[Mesh], rank: int, local: Tuple[int, ...]) -> List[int]:
     """The first global coordinate of rank ``rank``'s slice, dimension by
     dimension (0 where the dimension is whole)."""
@@ -339,10 +335,10 @@ def _load_into(arrays: Dict[str, ocdbt.ZarrArray], model: "Llama | ShardedLlama"
     ``model``'s parameters of those names, on each card by a copy stream
     of the load's own, a buffer reused once its copies on every card
     landed."""
-    ranks = _ranks_of(model)
+    ranks = held_ranks(model)
     mesh = model.mesh if isinstance(model, ShardedLlama) else None
     specs = param_specs(model.cfg)
-    devices = list(dict.fromkeys(m.device for m in ranks))
+    devices = list(dict.fromkeys(m.device for _, m in ranks))
     cuda = any(d.type == "cuda" for d in devices)
     streams, begun = {}, {}
     for d in devices:
@@ -401,7 +397,7 @@ def _load_into(arrays: Dict[str, ocdbt.ZarrArray], model: "Llama | ShardedLlama"
             region = arrays[flat].region(idx)
             faults.fire("coldload.h2d")
             copied = {}  # card -> the event after this chunk's last copy on its stream
-            for r, m in enumerate(ranks):
+            for r, m in ranks:
                 dest = m.get_parameter(flat)
                 start = _rank_box(arrays[flat].shape, specs[flat], mesh, r, tuple(dest.shape))
                 cut = _intersect(region, start, tuple(dest.shape))

@@ -53,7 +53,8 @@ def params_from_jax(
     :class:`~.llama.ShardedLlama` (``ranks.<r>.<name>``), each numpy array
     sliced by the logical-axes table before it leaves the host, so rank
     ``r``'s tensor holds what the reference's sharded array holds on its
-    ``r``-th device, on ``mesh.devices[r]`` (an MoE expert stack split
+    ``r``-th device, on ``mesh.devices[r]``, for each rank this process
+    holds (a gang member carries its own ranks' slices; an MoE expert stack split
     over ``ep``; a quantized ``cfg`` splits a scale over ``tp`` only along
     its output axis, ``llama.param_specs``)."""
     flat: Dict[str, Any] = {}
@@ -71,8 +72,8 @@ def params_from_jax(
         raise ValueError("slicing for a mesh needs the model's config (cfg=)")
     specs = param_specs(cfg)
     return {
-        f"ranks.{r}.{name}": _leaf(shard_for(np.asarray(a), specs[name], mesh, r)).to(d)
-        for r, d in enumerate(mesh.devices)
+        f"ranks.{r}.{name}": _leaf(shard_for(np.asarray(a), specs[name], mesh, r)).to(mesh.devices[r])
+        for r in mesh.local_ranks
         for name, a in flat.items()
     }
 

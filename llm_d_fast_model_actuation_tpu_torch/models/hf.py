@@ -68,6 +68,7 @@ from .llama import (
     Llama,
     LlamaConfig,
     ShardedLlama,
+    held_ranks,
     is_moe,
     param_dtype,
     param_shapes,
@@ -513,10 +514,6 @@ class _Stager:
                 self.convert_s += e1.elapsed_time(e2) / 1e3
 
 
-def _ranks(model: "Llama | ShardedLlama") -> List[Llama]:
-    return list(model.ranks) if isinstance(model, ShardedLlama) else [model]
-
-
 def _mesh(model: "Llama | ShardedLlama") -> Optional[Mesh]:
     return model.mesh if isinstance(model, ShardedLlama) else None
 
@@ -540,11 +537,13 @@ def _local_index(index: Tuple[int, ...], spec, shape, mesh: Optional[Mesh], rank
 def model_leaves(model: "Llama | ShardedLlama") -> Dict[str, torch.Tensor]:
     """Every parameter under the reference's flat key (``layers/wq``); a
     sharded model's slices joined on the host first."""
-    ranks = _ranks(model)
+    if isinstance(model, ShardedLlama) and model.mesh.spans_processes:
+        raise ValueError("a gang member holds only its own ranks' slices; the whole leaves are nowhere")
+    ranks = held_ranks(model)
     specs = param_specs(model.cfg)
     whole = {}
     for flat in param_shapes(model.cfg):
-        parts = [m.get_parameter(flat) for m in ranks]
+        parts = [m.get_parameter(flat) for _, m in ranks]
         if len(parts) == 1 or all(a is None for a in specs[flat]):
             t = parts[0]
         else:
@@ -693,7 +692,7 @@ def _place_quantized(params: Dict[str, Any], model: "Llama | ShardedLlama", stat
         faults.fire("coldload.h2d")
         moved += node.numel() * node.element_size()
         place_quantized_leaf(model, flat, node, sync=False)
-    for m in _ranks(model):
+    for _, m in held_ranks(model):
         if m.device.type == "cuda":
             # the copies and quantizations ran on the current stream: wait
             # for it alone, never the whole card
@@ -714,7 +713,7 @@ def place_quantized_leaf(model: "Llama | ShardedLlama", flat: str, node: torch.T
     fan-in before any split), its ``q`` and ``s`` cut per rank by
     ``param_specs``. With ``sync`` it returns once the copies landed
     (the load's own events: never a wait on the whole card)."""
-    ranks, mesh = _ranks(model), _mesh(model)
+    ranks, mesh = held_ranks(model), _mesh(model)
     cfg = model.cfg
     plain = dataclasses.replace(cfg, quantization="")
     shape = param_shapes(plain)[flat]
@@ -723,7 +722,7 @@ def place_quantized_leaf(model: "Llama | ShardedLlama", flat: str, node: torch.T
                          f"{tuple(shape)} {cfg.dtype}")
     dev = model.device
     if flat not in set(quantized_names(cfg)):
-        for r, m in enumerate(ranks):
+        for r, m in ranks:
             m.get_parameter(flat).copy_(shard_for(node, param_specs(plain)[flat], mesh, r), non_blocking=True)
     else:
         qspecs = param_specs(cfg)
@@ -737,14 +736,14 @@ def place_quantized_leaf(model: "Llama | ShardedLlama", flat: str, node: torch.T
             w = (node[i] if stacked else node).to(dev, non_blocking=True)
             qd = quant_mod.quantize_weight(w)
             del w
-            for r, m in enumerate(ranks):
+            for r, m in ranks:
                 qp, sp = shard_for(qd["q"], q_spec, mesh, r), shard_for(qd["s"], s_spec, mesh, r)
                 q_dst, s_dst = m.get_parameter(f"{flat}.q"), m.get_parameter(f"{flat}.s")
                 (q_dst[i] if stacked else q_dst).copy_(qp)
                 (s_dst[i] if stacked else s_dst).copy_(sp)
             del qd
     if sync:
-        for m in ranks:
+        for _, m in ranks:
             if m.device.type == "cuda":
                 torch.cuda.current_stream(m.device).synchronize()
 
@@ -928,9 +927,9 @@ def _load_params(
         return unflatten_tree(tree)
 
     model = target
-    ranks, mesh = _ranks(model), _mesh(model)
+    ranks, mesh = held_ranks(model), _mesh(model)
     pspecs = param_specs(cfg)
-    devices = list(dict.fromkeys(m.device for m in ranks))
+    devices = list(dict.fromkeys(m.device for _, m in ranks))
     # a staging buffer holds the in-flight bytes over (2 x readers), or the
     # largest tensor when that is smaller, and at least one row of the widest
     specs = [it.shard.specs[it.name] for it in items]
@@ -962,7 +961,7 @@ def _load_params(
             if it.transpose:  # the checkpoint holds the slice as (out, in)
                 rest = rest[::-1]
             n = 0
-            for r, m in enumerate(ranks):
+            for r, m in ranks:
                 dest = m.get_parameter(it.flat)
                 if it.index is not None:
                     at = _local_index(it.index, spec, dest.shape, mesh, r)

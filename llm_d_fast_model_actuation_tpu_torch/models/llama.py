@@ -513,13 +513,40 @@ class VariantView:
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
 
+class RankModules(nn.Module):
+    """A :class:`ShardedLlama`'s per-rank modules, indexed by global rank:
+    ``[r]`` and iteration give None for a rank another process of a gang
+    holds. Each module is registered under its rank's number, so the
+    state dict names are ``ranks.<r>.<name>`` as a ``ModuleList``'s."""
+
+    def __init__(self, modules: Dict[int, nn.Module], size: int) -> None:
+        super().__init__()
+        for r, m in modules.items():
+            self.add_module(str(r), m)
+        self._size = size
+
+    def __getitem__(self, rank: int) -> Optional[nn.Module]:
+        return self._modules.get(str(rank))
+
+    def __iter__(self):
+        return (self._modules.get(str(r)) for r in range(self._size))
+
+    def __len__(self) -> int:
+        return self._size
+
+    def held(self) -> List[Tuple[int, nn.Module]]:
+        """(rank, module) of every rank this process holds."""
+        return [(int(k), m) for k, m in self._modules.items()]
+
+
 class ShardedLlama(nn.Module):
     """The decoder on a ``tp`` x ``ep`` mesh: ``mesh.size`` :class:`Llama`
     modules, rank ``r`` on ``mesh.devices[r]`` holding its slice of every
     split weight and a copy of every replicated one (an ``ep`` rank holds
     its E/ep experts, and the attention weights whole for its ``tp``
     coordinate, as the reference replicates them over ``ep``). ``cfg`` is
-    the GLOBAL config; each rank's own is :func:`shard_config` of it."""
+    the GLOBAL config; each rank's own is :func:`shard_config` of it. On a
+    gang's mesh only this process's ranks are built (:class:`RankModules`)."""
 
     def __init__(self, cfg: LlamaConfig, mesh: Mesh, arenas=None) -> None:
         super().__init__()
@@ -530,17 +557,19 @@ class ShardedLlama(nn.Module):
         self.mesh = mesh
         local = shard_config(cfg, mesh.tp, mesh.shape["ep"])
         # each rank's state in its device's arena (``arenas``: device -> arena)
-        self.ranks = nn.ModuleList(
-            Llama(local, d, arena=None if arenas is None else arenas[d]) for d in mesh.devices
-        )
+        self.ranks = RankModules({
+            r: Llama(local, mesh.devices[r], arena=None if arenas is None else arenas[mesh.devices[r]])
+            for r in mesh.local_ranks
+        }, mesh.size)
 
     @property
     def device(self) -> torch.device:
-        """Rank 0's device: where tokens go in and logits come out."""
-        return self.mesh.devices[0]
+        """Rank 0's device: where tokens go in and logits come out (in a
+        gang, this process's first rank's)."""
+        return self.mesh.devices[self.mesh.local_ranks[0]]
 
     def build_tables(self) -> None:
-        for m in self.ranks:
+        for _, m in self.ranks.held():
             m.build_tables()
 
     def replicas(self) -> List[torch.Tensor]:
@@ -550,7 +579,7 @@ class ShardedLlama(nn.Module):
         replicated array."""
         specs = param_specs(self.cfg)
         return [
-            p for r, m in enumerate(self.ranks) for name, p in m.named_parameters()
+            p for r, m in self.ranks.held() for name, p in m.named_parameters()
             if replica_of(specs[name], self.mesh, r) != r
         ]
 
@@ -561,10 +590,12 @@ def shard_params(
     """A full model's state dict (``Llama.state_dict()`` names) -> the
     state dict of a :class:`ShardedLlama` on ``mesh``: rank ``r``'s slice of
     each split weight (a contiguous copy) and a copy of each replicated
-    one, on ``mesh.devices[r]``, under ``ranks.<r>.<name>``."""
+    one, on ``mesh.devices[r]``, under ``ranks.<r>.<name>``, for each
+    rank this process holds."""
     specs = param_specs(cfg)
     out: Dict[str, torch.Tensor] = {}
-    for r, d in enumerate(mesh.devices):
+    for r in mesh.local_ranks:
+        d = mesh.devices[r]
         for name, t in state.items():
             out[f"ranks.{r}.{name}"] = shard_for(t, specs[name], mesh, r).to(d, copy=True).contiguous()
     return out
@@ -594,6 +625,12 @@ def init_params(
     return model
 
 
+def held_ranks(model: "Llama | ShardedLlama") -> List[Tuple[int, nn.Module]]:
+    """(rank, module) of every rank this process holds (a gang member
+    holds its own ranks only); a plain model is rank 0."""
+    return model.ranks.held() if isinstance(model, ShardedLlama) else [(0, model)]
+
+
 def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> None:
     """Draw ``model``'s parameters from ``generator`` (on the model's
     device) into its tensors, in place. Same distributions as the
@@ -605,7 +642,8 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
 
     On a :class:`ShardedLlama` the FULL tensor of each layer is drawn and
     every rank is copied its slice, so a seed gives a sharded model the
-    very numbers it gives a single-device one.
+    very numbers it gives a single-device one (and each process of a gang
+    draws the same numbers and keeps its own ranks' slices).
 
     A quantized weight (``cfg.quantization``) is drawn as the plain model
     draws it, rounded to ``cfg.dtype`` and quantized one layer slice at a
@@ -615,7 +653,7 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
     time, with the fan-in's scaling. The scale is
     taken over the whole fan-in before any split: a row-parallel weight's
     ranks share one scale."""
-    ranks = list(model.ranks) if isinstance(model, ShardedLlama) else [model]
+    ranks = held_ranks(model)
     mesh = model.mesh if isinstance(model, ShardedLlama) else None
     cfg, device = model.cfg, model.device
     plain = dataclasses.replace(cfg, quantization="")
@@ -628,12 +666,12 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
             if name in quant:
                 _draw_quantized(ranks, mesh, name, shapes[name], param_specs(cfg), generator, device)
                 continue
-            dests = [m.get_parameter(name) for m in ranks]
+            dests = [(r, m.get_parameter(name)) for r, m in ranks]
             if "norm" in short:
-                for p in dests:
+                for _, p in dests:
                     p.fill_(fill)
             elif short in ("bq", "bk", "bv"):
-                for p in dests:
+                for _, p in dests:
                     p.zero_()
             else:
                 shape = shapes[name]
@@ -645,23 +683,23 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
                         shape[1:] if stacked else shape, generator=generator, device=device,
                         dtype=torch.float32,
                     ).mul_(fan_in**-0.5)
-                    for r, p in enumerate(dests):
+                    for r, p in dests:
                         piece = shard_for(src, spec, mesh, r)
                         (p[i] if stacked else p).copy_(piece)
                     del src, piece  # the next draw's staging replaces this one, not beside it
 
 
-def _draw_quantized(ranks: List[Llama], mesh: Optional[Mesh], name: str, shape, specs, generator, device) -> None:
+def _draw_quantized(ranks: List[Tuple[int, Llama]], mesh: Optional[Mesh], name: str, shape, specs, generator, device) -> None:
     """One quantized weight of :func:`fill_params`: each layer slice drawn
     whole as the plain model draws it, rounded to the model dtype,
     quantized, and its ``q`` and ``s`` cut per rank by their specs
     (``specs``: :func:`param_specs` of the quantized config; ``s`` is
     split over ``tp`` only where the split is its output axis)."""
-    cfg = ranks[0].cfg
+    cfg = ranks[0][1].cfg
     stacked = len(shape) >= 3
     q_spec, s_spec = (specs[f"{name}.{k}"][1:] if stacked else specs[f"{name}.{k}"] for k in ("q", "s"))
-    qs = [ranks[r].get_parameter(f"{name}.q") for r in range(len(ranks))]
-    ss = [ranks[r].get_parameter(f"{name}.s") for r in range(len(ranks))]
+    qs = [m.get_parameter(f"{name}.q") for _, m in ranks]
+    ss = [m.get_parameter(f"{name}.s") for _, m in ranks]
     for i in range(shape[0] if stacked else 1):
         src = torch.randn(shape[1:] if stacked else shape, generator=generator, device=device,
                           dtype=torch.float32).mul_(shape[-2] ** -0.5)
@@ -669,10 +707,10 @@ def _draw_quantized(ranks: List[Llama], mesh: Optional[Mesh], name: str, shape, 
         del src
         qd = quantize_weight(w)
         del w
-        for r in range(len(ranks)):
+        for j, (r, _) in enumerate(ranks):
             qp, sp = shard_for(qd["q"], q_spec, mesh, r), shard_for(qd["s"], s_spec, mesh, r)
-            (qs[r][i] if stacked else qs[r]).copy_(qp)
-            (ss[r][i] if stacked else ss[r]).copy_(sp)
+            (qs[j][i] if stacked else qs[j]).copy_(qp)
+            (ss[j][i] if stacked else ss[j]).copy_(sp)
         del qd
 
 
@@ -700,15 +738,22 @@ def _ranks(model, cache):
     """(mesh, per-rank modules, per-rank caches) of a model and the cache
     it was handed: a sharded model takes one (k, v) pair per rank."""
     if isinstance(model, ShardedLlama):
-        if len(cache) != model.mesh.size or isinstance(cache[0], torch.Tensor):
+        if len(cache) != model.mesh.size or isinstance(_first(cache), torch.Tensor):
             raise ValueError(f"a model on {model.mesh} takes one (k_pages, v_pages) pair per rank")
         return model.mesh, list(model.ranks), list(cache)
     return None, [model], [cache]
 
 
+def _first(per_rank: Sequence[Any]) -> Any:
+    """The first entry this process holds (a gang's per-rank lists carry
+    None for another process's ranks)."""
+    return next(x for x in per_rank if x is not None)
+
+
 def _each(mesh: Optional[Mesh], fn: Callable[[int], Any]) -> List[Any]:
-    """``fn(rank)`` for every rank, in rank order."""
-    return [fn(r) for r in range(1 if mesh is None else mesh.size)]
+    """``fn(rank)`` for every rank this process holds, in rank order (None
+    for a gang's other ranks)."""
+    return [fn(0)] if mesh is None else mesh.per_rank(fn)
 
 
 def _replicated(mesh: Optional[Mesh], *tensors):
@@ -834,14 +879,29 @@ def _logits(mesh, ms, x):
     """Final norm and the head product: fp32 logits over the whole
     vocabulary, on rank 0. Each rank of rank 0's ``tp`` group computes the
     product over its own slice of the vocabulary (column-parallel); the
-    slices are gathered in the model dtype and widened once."""
+    slices are gathered in the model dtype and widened once. In a gang
+    every process but rank 0's gives its slices and gets None: sampling
+    runs on rank 0, and the engine sends the sampled tokens on
+    (``engine/engine.py:chunk_body``)."""
     def head(r):
         return qmat(_norm(ms[r].cfg, x[r], ms[r].final_norm), ms[r].head())
 
     if mesh is None:
         return head(0).float()
     group = mesh.group(0, "tp")
-    return mesh.gather([head(r) if r in group else None for r in range(mesh.size)], dim=-1).float()
+    out = mesh.gather(mesh.per_rank(lambda r: head(r) if r in group else None), dim=-1)
+    return None if out is None else out.float()
+
+
+def _last_rows(mesh, x, lens):
+    """Each row's hidden state at its last valid position (``lens`` - 1),
+    [b, 1, d]: all of a prefill that the head needs when the caller
+    samples there and reads no prompt log-probabilities."""
+    def last(r):
+        at = (lens[r].long() - 1)[:, None, None].expand(-1, 1, x[r].shape[-1])
+        return x[r].gather(1, at)
+
+    return _each(mesh, last)
 
 
 def _layer_tail(mesh, ms, lps, x, attn):
@@ -855,7 +915,7 @@ def _layer_tail(mesh, ms, lps, x, attn):
     the f32 sum before the FFN's one rounding: the partials are reduced
     over ``tp`` and ``ep`` in f32 and rounded once, where the reference's
     f32 contraction over E puts its ``psum``."""
-    cfg = ms[0].cfg
+    cfg = _first(ms).cfg
     o = _reduce(mesh, _each(mesh, lambda r: qmat(attn[r], lps[r]["wo"])))
     ep = 1 if mesh is None else mesh.shape["ep"]
 
@@ -869,14 +929,15 @@ def _layer_tail(mesh, ms, lps, x, attn):
 
     mid = _each(mesh, mlp)
     if ep > 1:
-        sums = mesh.all_reduce_sum([m[1] for m in mid], ("tp", "ep"))
+        sums = mesh.all_reduce_sum([None if m is None else m[1] for m in mid], ("tp", "ep"))
         rounded: Dict[int, torch.Tensor] = {}  # ranks that share a sum round it once
+        dtype = _first(mid)[0].dtype
         for t in sums:
-            if id(t) not in rounded:
-                rounded[id(t)] = t.to(mid[0][0].dtype)
-        y = [rounded[id(t)] for t in sums]
+            if t is not None and id(t) not in rounded:
+                rounded[id(t)] = t.to(dtype)
+        y = [None if t is None else rounded[id(t)] for t in sums]
     else:
-        y = _reduce(mesh, [m[1] for m in mid])
+        y = _reduce(mesh, [None if m is None else m[1] for m in mid])
     return _each(mesh, lambda r: mid[r][0] + _post(cfg, lps[r], "post_ffn_norm", y[r]))
 
 
@@ -887,15 +948,18 @@ def prefill(
     seq_lens: torch.Tensor,  # [b] int32
     cache: "Cache | Sequence[Cache]",  # k/v pages [L, P, ps, kvh, hd], written in place
     page_table: torch.Tensor,  # [b, pages_per_seq] int32
+    last_only: bool = False,
 ) -> torch.Tensor:
     """Prefill a batch of prompts, writing their KV into the pool.
     Returns logits [b, s, vocab] fp32; the caller reads them at
-    seq_lens-1."""
+    seq_lens-1. With ``last_only`` only that position goes through the
+    final norm and the head: logits [b, 1, vocab] (on a mesh the head's
+    gather then moves one row, not the bucket's)."""
     mesh, ms, caches = _ranks(model, cache)
-    cfg = ms[0].cfg
+    cfg = _first(ms).cfg
     tokens, seq_lens, page_table = _replicated(mesh, tokens, seq_lens, page_table)
-    b, s = tokens[0].shape
-    page_size = caches[0][0].shape[2]
+    b, s = _first(tokens).shape
+    page_size = _first(caches)[0].shape[2]
 
     def prepare(r):
         positions = torch.arange(s, dtype=torch.int64, device=tokens[r].device).expand(b, s)
@@ -904,7 +968,7 @@ def prefill(
     pv = _each(mesh, prepare)
     x = _embed(mesh, ms, tokens)
     for i in range(cfg.num_layers):
-        lps = [m.layer(i) for m in ms]
+        lps = [None if m is None else m.layer(i) for m in ms]
 
         def attend(r):
             positions, valid = pv[r]
@@ -916,7 +980,7 @@ def prefill(
             return causal_prefill_attention(q, k, v, seq_lens[r]).reshape(b, s, cfg.q_dim)
 
         x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
-    return _logits(mesh, ms, x)
+    return _logits(mesh, ms, _last_rows(mesh, x, seq_lens) if last_only else x)
 
 
 @torch.no_grad()
@@ -927,16 +991,18 @@ def prefill_continue(
     suffix_lens: torch.Tensor,  # [b] int32 — valid suffix length per row
     cache: "Cache | Sequence[Cache]",  # written in place
     page_table: torch.Tensor,  # [b, pages_per_seq] int32
+    last_only: bool = False,
 ) -> torch.Tensor:
     """Prefill a prompt SUFFIX against a pool whose first ``start`` tokens
     are already present (prefix-cache hits, chunked prefill): writes only
     the suffix's KV, then attends over the paged cache. Returns logits
-    [b, s, vocab] fp32; the caller samples at suffix_lens-1."""
+    [b, s, vocab] fp32; the caller samples at suffix_lens-1. With
+    ``last_only``, that position's alone, [b, 1, vocab], as :func:`prefill`."""
     mesh, ms, caches = _ranks(model, cache)
-    cfg = ms[0].cfg
+    cfg = _first(ms).cfg
     tokens, start, suffix_lens, page_table = _replicated(mesh, tokens, start, suffix_lens, page_table)
-    b, s = tokens[0].shape
-    page_size = caches[0][0].shape[2]
+    b, s = _first(tokens).shape
+    page_size = _first(caches)[0].shape[2]
 
     def prepare(r):
         ar = torch.arange(s, dtype=torch.int64, device=tokens[r].device)
@@ -945,7 +1011,7 @@ def prefill_continue(
     pv = _each(mesh, prepare)
     x = _embed(mesh, ms, tokens)
     for i in range(cfg.num_layers):
-        lps = [m.layer(i) for m in ms]
+        lps = [None if m is None else m.layer(i) for m in ms]
 
         def attend(r):
             positions, valid = pv[r]
@@ -958,7 +1024,7 @@ def prefill_continue(
             return attn.reshape(b, s, cfg.q_dim)
 
         x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
-    return _logits(mesh, ms, x)
+    return _logits(mesh, ms, _last_rows(mesh, x, suffix_lens) if last_only else x)
 
 
 @torch.no_grad()
@@ -983,17 +1049,17 @@ def mixed_step(
     sample. Padding rows write only the null page and produce values
     nobody reads."""
     mesh, ms, caches = _ranks(model, cache)
-    cfg = ms[0].cfg
+    cfg = _first(ms).cfg
     tokens, row_slot, positions, page_table = _replicated(mesh, tokens, row_slot, positions, page_table)
-    (T,) = tokens[0].shape
-    page_size = caches[0][0].shape[2]
+    (T,) = _first(tokens).shape
+    page_size = _first(caches)[0].shape[2]
     prep = _each(mesh, lambda r: (
         _row_targets(page_table[r], row_slot[r], positions[r], page_size),
         positions[r].long()[None],
     ))
     x = _embed(mesh, ms, tokens)  # [T, hidden] per rank
     for i in range(cfg.num_layers):
-        lps = [m.layer(i) for m in ms]
+        lps = [None if m is None else m.layer(i) for m in ms]
 
         def project_and_write(r):
             targets, pos = prep[r]
@@ -1045,15 +1111,15 @@ def decode_step(
     if model.cfg.attention_impl == "reference":
         return _decode_step_scatter_first(model, tokens, positions, cache, page_table, active)
     mesh, ms, caches = _ranks(model, cache)
-    cfg = ms[0].cfg
+    cfg = _first(ms).cfg
     tokens, positions, page_table, active = _replicated(mesh, tokens, positions, page_table, active)
-    b = tokens[0].shape[0]
-    page_size = caches[0][0].shape[2]
+    b = _first(tokens).shape[0]
+    page_size = _first(caches)[0].shape[2]
     pos2 = _each(mesh, lambda r: positions[r].long()[:, None])
     x = _embed(mesh, ms, tokens)  # [b, hidden] per rank
     kv_all: List[Tuple[list, list]] = [([], []) for _ in ms]
     for i in range(cfg.num_layers):
-        lps = [m.layer(i) for m in ms]
+        lps = [None if m is None else m.layer(i) for m in ms]
 
         def attend(r):
             k_pages, v_pages = caches[r]
@@ -1090,10 +1156,10 @@ def _decode_step_scatter_first(model, tokens, positions, cache, page_table, acti
     the null page 0 (the reference drops them) and attend through their
     unmasked table; their logits are ignored."""
     mesh, ms, caches = _ranks(model, cache)
-    cfg = ms[0].cfg
+    cfg = _first(ms).cfg
     tokens, positions, page_table, active = _replicated(mesh, tokens, positions, page_table, active)
-    b = tokens[0].shape[0]
-    page_size = caches[0][0].shape[2]
+    b = _first(tokens).shape[0]
+    page_size = _first(caches)[0].shape[2]
 
     def prepare(r):
         table = page_table[r]
@@ -1104,7 +1170,7 @@ def _decode_step_scatter_first(model, tokens, positions, cache, page_table, acti
     prep = _each(mesh, prepare)
     x = _embed(mesh, ms, tokens)  # [b, hidden] per rank
     for i in range(cfg.num_layers):
-        lps = [m.layer(i) for m in ms]
+        lps = [None if m is None else m.layer(i) for m in ms]
 
         def attend(r):
             seq_lens, table, pos2 = prep[r]

@@ -11,14 +11,21 @@ splits each dimension of this weight", :func:`shard_for` cuts a rank's
 slice, and :class:`Mesh` carries the collectives.
 
 Four of the five axes are realised: ``dp``, ``sp``, ``tp`` and ``ep``
-(``pp`` raises). One process drives every rank (the reference's
-single-process mesh); a rank is an index into an ordered list of devices,
+(``pp`` raises). A rank is an index into an ordered list of devices,
 **and a device may appear more than once**: ranks on one card run every
 line of the sharded path except the copy between cards, which is how a
 one-card machine (and the CPU tests, mesh ``cpu,cpu``) exercises it.
 Ranks take their coordinates in ``AXES`` order, the row-major reshape of
 the device list (``ep`` innermost), as the reference's ``make_mesh``
 lays out a flat device list.
+
+One process drives every rank (the reference's single-process mesh), or
+a GANG of processes drives them together (``group``, a
+``torch.distributed`` process group: the reference's multi-host mesh
+over ``jax.distributed``, ``engine/multihost.py``). In a gang the global
+device list is each process's local devices in process order, process
+``p`` holds ranks ``[p * L, (p + 1) * L)``, and a per-rank list carries
+``None`` for a rank of another process (:meth:`Mesh.per_rank`).
 
 The collectives are plain functions on a list of per-rank tensors over
 one named axis or a set of axes: the groups of ranks that share every
@@ -29,6 +36,16 @@ rank. They are also differentiable: plain tensor ops (``+``, ``.to``,
 ``torch.no_grad``, so autograd carries their transposes as ``jax.grad``
 carries those of ``psum`` and ``ppermute`` (the all-reduce's transpose
 is an all-reduce, the ring shift's the shift the other way).
+
+Across a gang's processes a collective moves BYTES only: each process's
+tensors are viewed as ``uint8``, staged through host memory and
+exchanged over the group (Gloo), which never does the arithmetic; every
+process then adds the same gathered partials in the same rank order and
+dtype as the one-process mesh, so a gang is bit-equal to the one-process
+mesh of the same plan. NCCL is not the transport: it refuses two ranks of
+one communicator on one device, and a gang rehearsed on one card puts
+both of its processes there (``chip_smoke.py``'s ``gang`` phase). The
+exchange is not differentiable (a gang serves; it does not train).
 
 Streams: a rank's work goes to its device's current stream; the ranks
 have no streams of their own. Ranks on two cards run side by side as it
@@ -146,9 +163,13 @@ class Mesh:
     """An ordered list of devices, one per rank (a device may repeat),
     laid out as ``plan``'s five axes, and the collectives over them.
     ``shape`` maps each axis to its size, as the reference's
-    ``Mesh.shape`` does."""
+    ``Mesh.shape`` does. ``group`` (a ``torch.distributed`` process
+    group, Gloo) makes it a gang's mesh: ``devices`` is then the GLOBAL
+    list, and this process holds the ranks of :attr:`local_ranks`."""
 
-    def __init__(self, plan: MeshPlan, devices: Sequence[Union[str, torch.device]]) -> None:
+    def __init__(
+        self, plan: MeshPlan, devices: Sequence[Union[str, torch.device]], group: Any = None
+    ) -> None:
         if not devices:
             raise ValueError("a mesh needs at least one device")
         if plan.size != len(devices):
@@ -173,6 +194,24 @@ class Mesh:
                 rest //= n
             self._coords.append(tuple(reversed(c)))
         self._groups: Dict[Tuple[str, ...], List[List[int]]] = {}
+        #: the gang's process group, or None for one process
+        self.process_group = group
+        self.num_processes, self.process_index = 1, 0
+        if group is not None:
+            import torch.distributed as dist
+
+            self.num_processes, self.process_index = dist.get_world_size(group), dist.get_rank(group)
+            if plan.size % self.num_processes:
+                raise ValueError(f"{plan.size} ranks do not divide over {self.num_processes} processes")
+        per = plan.size // self.num_processes
+        #: the ranks this process holds, in rank order
+        self.local_ranks: List[int] = list(range(self.process_index * per, (self.process_index + 1) * per))
+        self._local = set(self.local_ranks)
+        #: the cross-process exchanges: count, bytes sent and received
+        #: through host memory, seconds inside the group's calls and
+        #: seconds staging between the devices and host memory (the
+        #: latter waits for the work queued before the exchange)
+        self.exchange_stats: Dict[str, float] = {"exchanges": 0, "bytes": 0, "gloo_s": 0.0, "stage_s": 0.0}
 
     @property
     def size(self) -> int:
@@ -183,12 +222,28 @@ class Mesh:
     def tp(self) -> int:
         return self.plan.tp
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the ranks are held by more than one process (a gang)."""
+        return self.num_processes > 1
+
+    def is_local(self, rank: int) -> bool:
+        """Whether this process holds ``rank``."""
+        return rank in self._local
+
+    def per_rank(self, fn) -> List[Any]:
+        """``fn(rank)`` for each rank this process holds, in rank order,
+        and None for every other rank."""
+        return [fn(r) if r in self._local else None for r in range(self.size)]
+
     def distinct_devices(self) -> List[torch.device]:
-        """The mesh's devices, each once, in rank order."""
-        return list(dict.fromkeys(self.devices))
+        """This process's devices, each once, in rank order (every device
+        of a one-process mesh)."""
+        return list(dict.fromkeys(self.devices[r] for r in self.local_ranks))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.plan.describe()}: {[str(d) for d in self.devices]})"
+        gang = f", process {self.process_index} of {self.num_processes}" if self.spans_processes else ""
+        return f"Mesh({self.plan.describe()}: {[str(d) for d in self.devices]}{gang})"
 
     def coords(self, rank: int) -> Dict[str, int]:
         """Rank ``rank``'s coordinate on every axis."""
@@ -220,22 +275,81 @@ class Mesh:
 
     def replicate(self, x: "torch.Tensor | Sequence[torch.Tensor]") -> PerRank:
         """One tensor per rank holding ``x``: ranks on ``x``'s own device
-        share it, every other device gets one copy. A per-rank list is
-        taken as given."""
+        share it, every other device gets one copy (in a gang, every rank
+        of this process; the others are None, their process holds the
+        same ``x``). A per-rank list is taken as given."""
         if not isinstance(x, torch.Tensor):
             self._check(x)
             return list(x)
         copies = {x.device: x}
-        for d in self.devices:
+        for d in self.distinct_devices():
             if d not in copies:
                 copies[d] = x.to(d)
-        return [copies[d] for d in self.devices]
+        return self.per_rank(lambda r: copies[self.devices[r]])
 
     # -- collectives ----------------------------------------------------------
 
     def _check(self, parts: Sequence[torch.Tensor]) -> None:
         if len(parts) != self.size:
             raise ValueError(f"{len(parts)} per-rank tensors for a mesh of {self.size}")
+
+    def _home(self, g: List[int]) -> torch.device:
+        """Where a group's result is formed on this process: the group's
+        first rank's device when this process holds it, else the device of
+        its first rank here."""
+        return self.devices[next(r for r in g if r in self._local)]
+
+    def _exchange(self, parts: Sequence[Optional[torch.Tensor]], ranks: Sequence[int], to_first: bool = False):
+        """The tensors of ``ranks`` on this process: its own as given, every
+        other process's received as bytes. Each process sends its ranks'
+        tensors of ``ranks`` (in rank order, as ``uint8`` in host memory)
+        to all the others, or with ``to_first`` to process 0 alone (the
+        others then get only their own). Every tensor of ``ranks`` has the
+        shape and dtype of this process's first one (the collectives' parts
+        are equal shards). A failed exchange raises."""
+        import time
+
+        import torch.distributed as dist
+
+        out: Dict[int, torch.Tensor] = {r: parts[r] for r in ranks if r in self._local}
+        mine = [out[r] for r in sorted(out)]
+        if not mine:
+            raise ValueError(f"process {self.process_index} holds none of ranks {list(ranks)}")
+        like = mine[0]
+        for t in mine:
+            if t.shape != like.shape or t.dtype != like.dtype:
+                raise ValueError("a collective across processes needs parts of one shape and dtype")
+        owners = [[r for r in ranks if r // len(self.local_ranks) == p] for p in range(self.num_processes)]
+        if len({len(o) for o in owners}) != 1:
+            raise ValueError(f"ranks {list(ranks)} are not spread evenly over {self.num_processes} processes")
+        st = self.exchange_stats
+        t0 = time.perf_counter()
+        send = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in mine]).cpu()
+        t1 = time.perf_counter()
+        if to_first:
+            got = [torch.empty_like(send) for _ in range(self.num_processes)] if self.process_index == 0 else None
+            dist.gather(send, got, dst=dist.get_global_rank(self.process_group, 0), group=self.process_group)
+        else:
+            got = [torch.empty_like(send) for _ in range(self.num_processes)]
+            dist.all_gather(got, send, group=self.process_group)
+        t2 = time.perf_counter()
+        moved = send.numel()
+        if got is not None:
+            per = like.numel() * like.element_size()
+            home = like.device
+            for p, held in enumerate(owners):
+                if p == self.process_index:
+                    continue
+                moved += got[p].numel()
+                buf = got[p].to(home)
+                for i, r in enumerate(held):
+                    out[r] = buf[i * per:(i + 1) * per].view(like.dtype).reshape(like.shape)
+        t3 = time.perf_counter()
+        st["exchanges"] += 1
+        st["bytes"] += moved
+        st["gloo_s"] += t2 - t1
+        st["stage_s"] += (t1 - t0) + (t3 - t2)
+        return out
 
     def all_reduce_sum(self, parts: Sequence[torch.Tensor], axes: AxisNames = "tp") -> PerRank:
         """The sum of the partials over each group of ``axes``, on every
@@ -245,9 +359,22 @@ class Mesh:
         reduces the bf16 product), and the sum copied back to each rank;
         ranks on that device share the one sum tensor (the copies vanish),
         so nobody may write into it. Deterministic: the order never
-        changes."""
+        changes. In a gang every process forms the sums of its own ranks'
+        groups from every partial's bytes, in the same order and dtype."""
         self._check(parts)
         out: List[Any] = list(parts)
+        if self.spans_processes:
+            multi = [g for g in self.groups(axes) if len(g) > 1]
+            got = self._exchange(parts, [r for g in multi for r in g]) if multi else {}
+            for g in multi:
+                home = self._home(g)
+                total = got[g[0]].to(home)
+                for r in g[1:]:
+                    total = total + got[r].to(home)
+                for r in g:
+                    if r in self._local:
+                        out[r] = total.to(self.devices[r])
+            return out
         for g in self.groups(axes):
             if len(g) == 1:
                 continue
@@ -259,13 +386,19 @@ class Mesh:
                 out[r] = total.to(self.devices[r])
         return out
 
-    def gather(self, parts: Sequence[torch.Tensor], dim: int, axes: AxisNames = "tp") -> torch.Tensor:
+    def gather(self, parts: Sequence[torch.Tensor], dim: int, axes: AxisNames = "tp") -> Optional[torch.Tensor]:
         """Rank 0's group's slices joined along ``dim`` in rank order, on
-        rank 0 only (where sampling runs)."""
+        rank 0 only (where sampling runs); in a gang, None on every process
+        but rank 0's, whose slices go to it as bytes."""
         self._check(parts)
         g = self.group(0, axes)
         if len(g) == 1:
             return parts[0]
+        if self.spans_processes:
+            got = self._exchange(parts, g, to_first=True)
+            if not self.is_local(0):
+                return None
+            return torch.cat([got[r].to(self.devices[0]) for r in g], dim=dim)
         return torch.cat([parts[r].to(self.devices[0]) for r in g], dim=dim)
 
     def all_gather(self, parts: Sequence[torch.Tensor], dim: int, axes: AxisNames = "tp") -> PerRank:
@@ -273,13 +406,14 @@ class Mesh:
         rank of the group."""
         self._check(parts)
         out: List[Any] = list(parts)
-        for g in self.groups(axes):
-            if len(g) == 1:
-                continue
-            home = self.devices[g[0]]
-            whole = torch.cat([parts[r].to(home) for r in g], dim=dim)
+        multi = [g for g in self.groups(axes) if len(g) > 1]
+        got = self._exchange(parts, [r for g in multi for r in g]) if self.spans_processes and multi else parts
+        for g in multi:
+            home = self._home(g)
+            whole = torch.cat([got[r].to(home) for r in g], dim=dim)
             for r in g:
-                out[r] = whole.to(self.devices[r])
+                if r in self._local:
+                    out[r] = whole.to(self.devices[r])
         return out
 
     def ring_shift(self, parts: Sequence[torch.Tensor], axis: str) -> PerRank:
@@ -288,11 +422,41 @@ class Mesh:
         i + 1 mod n, so each rank ends with its predecessor's."""
         self._check(parts)
         out: List[Any] = list(parts)
-        for g in self.groups(axis):
+        groups = self.groups(axis)
+        got = self._exchange(parts, [r for g in groups for r in g]) if self.spans_processes else parts
+        for g in groups:
             n = len(g)
             for i, r in enumerate(g):
                 dst = g[(i + 1) % n]
-                out[dst] = parts[r].to(self.devices[dst])
+                if dst in self._local:
+                    out[dst] = got[r].to(self.devices[dst])
+        return out
+
+    def broadcast(self, x: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on this process: in a gang the process holding
+        rank 0 sends its bytes, and every other process receives them into
+        a tensor of ``like``'s shape and dtype on ``like``'s device (its
+        ``x`` is ignored); on one process, ``x`` itself."""
+        if not self.spans_processes:
+            return x
+        import time
+
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        if self.is_local(0):
+            buf = x.to(like.dtype).contiguous().reshape(-1).view(torch.uint8).cpu()
+        else:
+            buf = torch.empty(like.numel() * like.element_size(), dtype=torch.uint8)
+        t1 = time.perf_counter()
+        dist.broadcast(buf, src=dist.get_global_rank(self.process_group, 0), group=self.process_group)
+        t2 = time.perf_counter()
+        out = x if self.is_local(0) else buf.to(like.device).view(like.dtype).reshape(like.shape)
+        st = self.exchange_stats
+        st["exchanges"] += 1
+        st["bytes"] += buf.numel()
+        st["gloo_s"] += t2 - t1
+        st["stage_s"] += (t1 - t0) + (time.perf_counter() - t2)
         return out
 
 
@@ -344,33 +508,56 @@ def replica_of(spec: Sequence[Optional[str]], mesh: Mesh, rank: int) -> int:
 
 
 def make_mesh(
-    plan: MeshPlan, devices: Sequence[Union[str, torch.device]]
+    plan: MeshPlan, devices: Sequence[Union[str, torch.device]], group: Any = None
 ) -> Mesh:
-    """A :class:`Mesh` for ``plan`` over ``devices``. ``pp`` above 1
-    raises: a pipeline over layers runs a stage per host (ROADMAP.md
-    queue 1 item 15, multi-host gangs)."""
+    """A :class:`Mesh` for ``plan`` over ``devices``. With a gang's
+    process ``group``, ``devices`` are this process's own and the global
+    list is every process's in process order (a gang's members run with
+    the same options, so each names its own the same way): they must
+    number ``plan.size`` over the group's size. ``pp`` above 1 raises: a
+    pipeline over layers runs a stage per host (ROADMAP.md queue 1 item
+    15, pipeline stages across hosts)."""
     if plan.pp > 1:
         raise NotImplementedError(
             f"mesh axis pp={plan.pp} is not ported yet: dp, sp, tp and ep are "
             "realised (ROADMAP.md queue 1 item 15, pipeline stages across hosts)"
         )
+    devices = list(devices)
+    if group is not None:
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        if plan.size != len(devices) * n:
+            raise ValueError(
+                f"mesh plan {plan} needs {plan.size} devices, have {len(devices)} local devices x {n} processes"
+            )
+        return Mesh(plan, devices * n, group=group)
     if plan.size != len(devices):
         raise ValueError(f"mesh plan {plan} needs {plan.size} devices, have {len(devices)}")
     return Mesh(plan, devices)
 
 
 def serving_mesh(
-    tp: int, devices: Optional[Sequence[Union[str, torch.device]]] = None
+    tp: int, devices: Optional[Sequence[Union[str, torch.device]]] = None, group: Any = None
 ) -> Mesh:
     """The engine's tp mesh. ``devices=None`` takes the first ``tp`` CUDA
-    devices and raises when there are fewer; an explicit list is taken as
-    given (it may name one device more than once) and must have ``tp``
-    entries."""
+    devices (in a gang, this process's share of them) and raises when
+    there are fewer; an explicit list is taken as given (it may name one
+    device more than once) and must have ``tp`` entries, or in a gang
+    ``tp`` over the ``group``'s processes (:func:`make_mesh`)."""
     if tp < 1:
         raise ValueError("tensor_parallel_size must be >= 1")
     if devices is None:
+        n = 1
+        if group is not None:
+            import torch.distributed as dist
+
+            n = dist.get_world_size(group)
+        if tp % n:
+            raise ValueError(f"tensor_parallel_size {tp} does not divide over {n} processes")
+        need = tp // n
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have < tp:
-            raise ValueError(f"tensor_parallel_size {tp} needs {tp} devices, have {have}")
-        devices = [torch.device("cuda", i) for i in range(tp)]
-    return make_mesh(MeshPlan(tp=tp), list(devices))
+        if have < need:
+            raise ValueError(f"tensor_parallel_size {tp} needs {need} devices, have {have}")
+        devices = [torch.device("cuda", i) for i in range(need)]
+    return make_mesh(MeshPlan(tp=tp), list(devices), group=group)

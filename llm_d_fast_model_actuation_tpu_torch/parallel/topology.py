@@ -14,8 +14,13 @@ node to lines ``<index> <uuid>``. :func:`parse_gpu_map` is the one parser
 of it, read by the launcher's translator (``launcher/chiptranslator.py``)
 and by the direct path (``controller/directpath.py``). It also reads the
 JAX package's chip-map (``<index> <id> <x,y[,z]>`` and its
-``topology:``, ``origin:`` and ``slice:`` lines): coordinates and those
-lines are ignored, so one fixture drives either package.
+``topology:``, ``origin:`` and ``slice:`` lines), so one fixture drives
+either package. Coordinates and the ``topology:`` line have no card
+meaning and are ignored. The other two place a node in a multi-node gang
+(``parallel/multihost.py``), and :func:`gang_places` reads them:
+``origin: a[,b...]`` is the node's place in the gang order (absent: the
+zero corner), and ``slice: <id>`` names the NVLink/InfiniBand domain the
+node's cards sit in (absent: ""); a gang never spans two domains.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 
 from ..api import constants as C
 
-#: lines of the JAX package's chip-map that a card has no use for
+#: lines of the JAX package's chip-map that are not cards
 _SKIPPED = ("topology:", "origin:", "slice:")
 
 
@@ -40,6 +45,24 @@ def parse_gpu_map(data: Dict[str, str]) -> Dict[str, List[Tuple[str, int]]]:
                 continue
             cards.append((parts[1], int(parts[0])))
         out[node] = cards
+    return out
+
+
+def gang_places(data: Dict[str, str]) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """node -> (origin, domain) from a gpu-map ConfigMap's ``origin:`` and
+    ``slice:`` lines: ``()`` for an absent origin (the zero corner of any
+    rank) and ``""`` for an absent domain."""
+    out: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    for node, text in data.items():
+        origin: Tuple[int, ...] = ()
+        domain = ""
+        for line in text.strip().splitlines():
+            parts = line.split()
+            if len(parts) > 1 and parts[0] == "origin:":
+                origin = tuple(int(x) for x in parts[1].split(","))
+            elif len(parts) > 1 and parts[0] == "slice:":
+                domain = parts[1]
+        out[node] = (origin, domain)
     return out
 
 

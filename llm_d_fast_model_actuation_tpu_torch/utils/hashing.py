@@ -35,7 +35,7 @@ def sha256_hex(*parts: str) -> str:
     return h.hexdigest()
 
 
-def instance_id_for(engine_config: Any, chip_ids: Sequence[str]) -> str:
+def instance_id_for(engine_config: Any, chip_ids: Sequence[str], extra_env: Any = None) -> str:
     """Deterministic engine-instance ID from (config, chip set).
 
     Format "I<base64url(sha256)>i" — the reference's shape
@@ -43,12 +43,19 @@ def instance_id_for(engine_config: Any, chip_ids: Sequence[str]) -> str:
     Chip order is normalized: the same chips in any order are the same
     instance.
 
-    The JAX package also hashes in a slice gang's coordination env; an
-    engine here spans one host, and without that env the two IDs are the
-    same bytes.
+    ``extra_env`` (a gang's coordination env, which carries its unique
+    gang id, ``controller/gang.py``) is hashed in when present, as the JAX
+    package hashes it: a process that joined one gang's process group can
+    never serve another, so instances of different gangs are never the
+    same instance, and a sleeping member of a dead gang is left for
+    reclaim, not woken. None keeps one-node IDs as they were; the bytes
+    hashed are the JAX package's either way.
     """
     cfg = engine_config.to_dict() if hasattr(engine_config, "to_dict") else engine_config
-    payload = canonical_json({"config": cfg, "chips": sorted(chip_ids)})
+    body = {"config": cfg, "chips": sorted(chip_ids)}
+    if extra_env:
+        body["gang_env"] = dict(extra_env)
+    payload = canonical_json(body)
     digest = hashlib.sha256(payload.encode()).digest()
     return "I" + base64.urlsafe_b64encode(digest).decode().rstrip("=") + "i"
 

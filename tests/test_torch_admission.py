@@ -88,13 +88,17 @@ def test_crd_validation_without_a_topology_is_the_references(obj):
 
 def test_the_accelerator_rule_is_the_gpus():
     """The reference checks a TPU slice topology against chips x hosts;
-    cards have none, and an engine spans one host until item 15."""
+    cards have none, so a topology is refused, and a gang of hosts is
+    accepted when its global card count divides over them."""
     assert tadm.validate_isc(_isc({"chips": 8})) == []
     errs = tadm.validate_isc(_isc({"chips": 8, "topology": "2x4"}))
     assert len(errs) == 1 and "a GPU has no slice topology" in errs[0]
     errs = tadm.validate_isc(_isc({"chips": 8, "topology": "4x4", "hosts": 2}))
-    assert any("item 15" in e for e in errs) and any("topology" in e for e in errs)
+    assert len(errs) == 1 and "a GPU has no slice topology" in errs[0]
     assert jadm.validate_isc(_isc({"chips": 8, "topology": "4x4", "hosts": 2})) == []
+    assert tadm.validate_isc(_isc({"chips": 16, "hosts": 2})) == []
+    errs = tadm.validate_isc(_isc({"chips": 3, "hosts": 2}))
+    assert len(errs) == 1 and "does not divide over accelerator.hosts=2" in errs[0]
 
 
 def test_review_shape():

@@ -651,26 +651,35 @@ def test_scenarios_cover_two_iscs_time_sharing_one_card():
 
 @pytest.mark.parametrize("accelerator,field", [
     ({"chips": 4, "topology": "2x2"}, "accelerator.topology=2x2"),
-    ({"chips": 1, "hosts": 2}, "accelerator.hosts=2"),
+    ({"chips": 2, "hosts": 2}, "accelerator.hosts=2"),
 ])
 def test_an_isc_a_gpu_cannot_honour_is_refused_into_the_status(accelerator, field):
+    """A topology is refused into the requester's status; a gang
+    (``accelerator.hosts`` 2, one card each) is accepted: its requester
+    publishes its card for the slice-gang coordinator and waits for the
+    stamp, and nothing is actuated before it."""
     spec = ptypes.AcceleratorSpec.from_dict(accelerator)
-    (msg,) = spec.validate()
-    assert msg.startswith(field) and "refused" in msg
-    if "hosts" in accelerator:
-        assert "item 15" in msg
     h = ptesting.Harness()
     h.add_lc("lc1")
     h.add_isc("iscA", "lc1", accelerator=accelerator)
+    n = accelerator["chips"] // accelerator.get("hosts", 1)
 
     async def body():
-        h.add_requester("reqA", "iscA", chips=[U0, U1, U2, ptesting.gpu_uuid(3)][: accelerator["chips"]])
+        h.add_requester("reqA", "iscA", chips=[U0, U1, U2, ptesting.gpu_uuid(3)][:n])
         await asyncio.sleep(0.4)
 
     ptesting.run_scenario(h, body)
-    status = json.loads(h.store.get("Pod", h.ns, "reqA")["metadata"]["annotations"][PC.STATUS_ANNOTATION])
-    assert status["Errors"] == [msg]
+    ann = h.store.get("Pod", h.ns, "reqA")["metadata"]["annotations"]
     assert h.launcher_pods() == []  # nothing actuated
+    if "hosts" in accelerator:
+        assert spec.validate() == [] and field == f"accelerator.hosts={spec.hosts}"
+        assert ann[PC.ACCELERATORS_ANNOTATION] == U0
+        assert not json.loads(ann.get(PC.STATUS_ANNOTATION) or "{}").get("Errors")
+        return
+    (msg,) = spec.validate()
+    assert msg.startswith(field) and "refused" in msg
+    status = json.loads(ann[PC.STATUS_ANNOTATION])
+    assert status["Errors"] == [msg]
 
 
 def test_the_card_count_is_checked_as_the_jax_controller_checks_it():

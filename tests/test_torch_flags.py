@@ -1,7 +1,7 @@
 """The port's engine flags against the reference's ``make_arg_parser``, as
 tests/test_torch_routes.py holds the routes: every flag of the reference is
-the port's, or named here with the ROADMAP queue 1 item that ports it;
-the port adds only ``--device``. The six serving flags (ROADMAP queue 3
+the port's (a flag still to port would be named here with the ROADMAP
+queue 1 item that ports it; none is left); the port adds only ``--device``. The six serving flags (ROADMAP queue 3
 item 11) and the two of co-residency reach the engine they build."""
 
 import pytest
@@ -10,11 +10,7 @@ from llm_d_fast_model_actuation_tpu.engine import server as jserver
 from llm_d_fast_model_actuation_tpu_torch.engine import server as tserver
 
 #: the reference's flags the port does not have yet, by ROADMAP queue 1 item
-UNPORTED_FLAGS = {
-    "--coordinator-address": 15,  # multi-host gangs
-    "--num-processes": 15,
-    "--process-id": 15,
-}
+UNPORTED_FLAGS: dict = {}
 #: the port's own: the card or the CPU, and a rank per device on a mesh
 PORT_ONLY = {"--device"}
 

@@ -194,6 +194,41 @@ def test_a_seed_gives_a_mesh_the_numbers_it_gives_one_device():
 # -- (b) the forwards ------------------------------------------------------------
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_last_only_prefills_give_the_sampled_row(name):
+    """``last_only``: a prefill's and a suffix prefill's logits at each
+    row's last valid position alone, [b, 1, vocab], equal to that row of
+    the JAX logits on one rank and on two; the pages are written as by a
+    full prefill."""
+    jcfg, jparams, one, two = _models(name)
+    rng = np.random.default_rng(2)
+    b, rows = 2, np.arange(2)
+    tokens = rng.integers(0, jcfg.vocab_size, (b, 16)).astype(np.int32)
+    lens, suf_lens = np.array([8, 5], dtype=np.int32), np.array([8, 3], dtype=np.int32)
+    pt = _table(b)
+    jcache, c1, c2 = _pools(jcfg, b * PPS + 1)
+    T = torch.from_numpy
+
+    jl, jcache = jllama.prefill(jparams, jcfg, jnp.asarray(tokens[:, :8]), jnp.asarray(lens), jcache, jnp.asarray(pt))
+    for model, cache in ((one, c1), (two, c2)):
+        got = tllama.prefill(model, T(tokens[:, :8]), T(lens), cache, T(pt), last_only=True)
+        assert got.shape == (b, 1, jcfg.vocab_size) and got.dtype == torch.float32
+        _close(got[:, 0], np.asarray(jl)[rows, lens - 1])
+    _pools_close(jcache, c1, c2)
+
+    suf = np.zeros((b, 8), dtype=np.int32)
+    for r in range(b):
+        suf[r, : suf_lens[r]] = tokens[r, lens[r] : lens[r] + suf_lens[r]]
+    jl, jcache = jllama.prefill_continue(
+        jparams, jcfg, jnp.asarray(suf), jnp.asarray(lens), jnp.asarray(suf_lens), jcache, jnp.asarray(pt)
+    )
+    for model, cache in ((one, c1), (two, c2)):
+        got = tllama.prefill_continue(model, T(suf), T(lens), T(suf_lens), cache, T(pt), last_only=True)
+        assert got.shape == (b, 1, jcfg.vocab_size)
+        _close(got[:, 0], np.asarray(jl)[rows, suf_lens - 1])
+    _pools_close(jcache, c1, c2)
+
+
 @pytest.mark.parametrize("name", NAMES + ["tiny_qwen"])
 def test_prefill_continue_and_decode_tp2_match_tp1_and_jax(name):
     jcfg, jparams, one, two = _models(name)
