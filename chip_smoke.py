@@ -431,9 +431,9 @@ the same tokens and addresses after the wake, the replayed step's
 kernels by kind), then a 4-layer int8 model built in process whose
 prefill and decode are held against an fp32 oracle of its quantized
 weights routed as they routed (the share of routing decisions that fp32
-routing would change printed beside); ``serve_moe_hf`` writes a 2-layer,
+routing would change printed beside); ``serve_moe_hf`` writes a 1-layer,
 full-width Mixtral checkpoint in Mixtral's tensor names from an
-in-process bf16 service (6.33 GB, deleted at the end) and serves it
+in-process bf16 service (3.43 GB, deleted at the end) and serves it
 with ``--model hf:<dir>`` in bf16 and in int8: tokens, parameter bytes
 and weights equal to the in-process services', the int8 build's peak
 beyond its arena under one layer's bf16 expert stacks. The ``kernels``
@@ -451,7 +451,11 @@ each block held to the fp32 oracle of the quantized weights routed as
 that path routed (one rank under its band's top, the mesh under its own,
 one ``wo`` rounding a layer more, and within ``moe_ep_ratio_limit`` of
 one rank's), and where the two engines' greedy tokens part, the one-rank
-logits' gap inside the tie exemption. ``train`` runs ``models/train.py``
+logits' gap inside the tie exemption; then the same model on
+``MeshPlan(pp=2, ep=2)`` (two stages of two layers, each stage's two
+ranks E/ep experts), held to the same gates (its W8A16 kernels at the
+tp 1 shapes, the batched one at E = 4 over the whole ``f``, which
+``kernel_check`` also holds). ``train`` runs ``models/train.py``
 at Llama-3-8B's full size: seeded bf16 weights drawn on the card,
 ``forward_train`` and the serving prefill (the prefill kernel) on 256
 ids held to the fp32 oracle, three AdamW steps with remat on 2 x 1024
@@ -464,12 +468,34 @@ widths, 4 layers, ``MeshPlan(sp=2, tp=2)``, one row of 4096 ids) and
 ``train_moe`` (Mixtral widths, 2 layers, ``MeshPlan(dp=2, ep=2)``, 4 x
 512 ids) each take one step on the mesh, four ranks on the card, and
 the same step on one rank from the same seed: the loss, AdamW's first
-moment and the update within ``MESH_*``; ``train_mesh`` also holds layer
-0's ring attention in f32 to the dense function. Every phase line
-carries ``at_s``, its seconds since the script started.
+moment and the update within ``MESH_*``; ``train_mesh`` also takes the
+step on ``MeshPlan(pp=2, tp=2)`` (two stages of two layers) against the
+same one-rank step, and holds layer 0's ring attention in f32 to the
+dense function. Every phase line carries ``at_s``, its seconds since the
+script started.
+
+Pipeline stages, after ``train_moe``: ``serve_pp`` builds Llama-3-8B at
+full size from seed 0 through ``InferenceEngine(cfg, mesh=...)`` (the
+server has no ``pp`` flag, as the reference's has none) on
+``MeshPlan(pp=2)`` and ``MeshPlan(pp=2, tp=2)``, every rank on card 0
+(each stage 16 layers of the weights and of the pool), and on one rank
+from the same seed. The four serve prompts, 16 new tokens each,
+bucketed: greedy tokens identical to the one-rank engine's on both
+meshes (on ``pp`` 2 x ``tp`` 2, to a ``tp`` 2 engine's where it parts
+from one rank's, as ``tp`` 2 alone does at a bf16 near-tie); a prefill
+of 8 x 300 ids and one decode step on each model, ``pp`` 2's logits
+bit-equal to one rank's (every layer runs the same kernels at the same
+shapes), the largest difference printed; L x tp decode launches a step
+and L x tp prefill launches a cold prefill. Then one packed run on ``pp``
+2 against a one-rank packed engine (tokens identical, L ragged launches
+a packed step) and one level-1 sleep and wake on ``pp`` 2:
+``bytes_offloaded`` the one-rank state's, nothing mapped asleep, the
+same first tokens and state addresses after the wake. Each model's
+eager decode step (8 rows, after a 300-id prefill) is timed, median of
+``PP_TIMED_STEPS``.
 
 Multi-node gangs, after ``model_parity``: ``gang`` first serves the
-serve mix (16 new tokens a request) through a one-process tp 2 engine on
+serve mix (8 new tokens a request) through a one-process tp 2 engine on
 ``cuda:0,cuda:0``, bucketed, in this process; then starts Llama-3-8B at
 full size, tp 2, as a gang of TWO engine processes through ``python -m
 llm_d_fast_model_actuation_tpu_torch.engine.server`` (``--num-processes 2
@@ -480,7 +506,7 @@ one rank and half the weights each, joined by a Gloo group:
 tokens bit-equal to the one-process engine's, the prefix-cache hit
 included; each member's launches (``/v1/device``) are L per decode step
 and per cold prefill and one probe, and equal between the members (they
-run in lockstep). A lone 32-token request gives a gang decode step's
+run in lockstep). A lone 16-token request gives a gang decode step's
 ms, the seconds inside the Gloo calls and the host-staged bytes per
 step on each member. One level-1 ``/sleep`` and ``/wake_up`` through
 the leader: both members unmap their arenas and map them back (their
@@ -1868,11 +1894,16 @@ HF_LAYER = {
 }
 
 
-#: Mixtral-8x7B's published config.json at two of its 32 layers (the
-#: fields the loader reads, and their neighbours); generation_config.json
+#: serve_moe_hf's depth: the full width at one of Mixtral-8x7B's 32
+#: layers (two until the pipeline phase joined the script, for its time
+#: limit)
+MOE_HF_LAYERS = 1
+#: Mixtral-8x7B's published config.json at ``MOE_HF_LAYERS`` of its 32
+#: layers (the fields the loader reads, and their neighbours);
+#: generation_config.json
 MIXTRAL_HF_CONFIG = {
     "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "hidden_act": "silu",
-    "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32, "num_hidden_layers": 2,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32, "num_hidden_layers": MOE_HF_LAYERS,
     "num_key_value_heads": 8, "vocab_size": 32000, "max_position_embeddings": 32768, "rms_norm_eps": 1e-05,
     "rope_theta": 1000000.0, "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
     "bos_token_id": 1, "eos_token_id": 2, "num_local_experts": 8, "num_experts_per_tok": 2,
@@ -5209,11 +5240,11 @@ def serve_tp2_packed(torch, smi: str, bucketed: dict, packed: dict) -> tuple:
         stop_service(torch, service, server)
 
 
-#: the gang phase's traffic: the serve mix at 16 new tokens a request (as
-#: serve_moe_ep takes): both engines run their chunks eagerly
-GANG_MAX_TOKENS = 16
+#: the gang phase's traffic: the serve mix at 8 new tokens a request: both
+#: engines run their chunks eagerly
+GANG_MAX_TOKENS = 8  # 16 until the pipeline phase joined the script, for its time limit
 #: the lone request that times a gang decode step
-GANG_LONE_TOKENS = 32
+GANG_LONE_TOKENS = 16  # 32 until the pipeline phase joined the script
 #: the gang's FMA_GANG_HEARTBEAT_TIMEOUT: how long the leader waits on a
 #: silent follower before it exits 13
 GANG_HB_TIMEOUT_S = 2
@@ -6170,7 +6201,7 @@ def launcher_refusals(launcher, uuid: str) -> dict:
 
 
 SPEC_K = 4
-SPEC_NEW_TOKENS = 256
+SPEC_NEW_TOKENS = 128  # 256 until the pipeline phase joined the script, for its time limit
 #: the repeated pattern of the speculative stream's prompt, and its repeats
 SPEC_PATTERN, SPEC_REPEATS = 24, 12
 
@@ -6403,7 +6434,7 @@ def check_w8a16_experts(torch, gen) -> list:
     from llm_d_fast_model_actuation_tpu_torch.ops.cuda import w8a16 as mod
 
     rows = []
-    for E, K, N, shared in W8A16_EXPERT_SHAPES + W8A16_EP_EXPERT_SHAPES:
+    for E, K, N, shared in W8A16_EXPERT_SHAPES + W8A16_EP_EXPERT_SHAPES + W8A16_PP_EP_EXPERT_SHAPES:
         q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda", dtype=torch.int8)
         s = (torch.rand((E, 1, N), generator=gen, device="cuda") + 3.0) * (K**-0.5 / 127)
         w = q.to(torch.bfloat16)
@@ -6454,7 +6485,6 @@ MOE_W8A16_PER_LAYER = {"4096x4096": 2, "4096x1024": 2}
 MOE_W8A16_EXPERTS_PER_LAYER = {"8x4096x14336": 2, "8x14336x4096": 1}
 #: the layers of the in-process MoE parity model and of the checkpoint
 MOE_PARITY_LAYERS = 4
-MOE_HF_LAYERS = 2
 #: one layer's bf16 expert stacks (3 x 8 x 4096 x 14336 x 2 B): the most
 #: an int8 load may hold on the card beyond the int8 parameters
 MOE_LAYER_STACK_BYTES = 2_818_572_288
@@ -6691,7 +6721,7 @@ def moe_tokens(port: int, prompts: list) -> list:
 
 def serve_moe_hf(torch, smi: str) -> dict:
     """A ``MOE_HF_LAYERS``-layer, full-width Mixtral checkpoint in
-    Mixtral's HF tensor names (6.33 GB), written from an in-process bf16
+    Mixtral's HF tensor names (3.43 GB at one layer), written from an in-process bf16
     engine's seeded weights and served with ``--model hf:<dir>``: its
     greedy tokens bit-equal to the in-process engine's; then under
     ``--quantization int8`` the parameter bytes, the weights' fingerprints
@@ -6706,12 +6736,15 @@ def serve_moe_hf(torch, smi: str) -> dict:
     from llm_d_fast_model_actuation_tpu_torch.engine import server as srv
 
     t_phase = time.monotonic()
-    name = "mixtral-8x7b-2-layers"
+    name = f"mixtral-8x7b-{MOE_HF_LAYERS}-layers"
     moe_hf_model(name)
     base = "--num-pages 512 --seed 0 --max-batch 8 --device cuda"
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, 32000, n).tolist() for n in (20, 300, 1500)]
-    ckpt = checkpoint_dir(2 * 6_329_376_768)
+    from llm_d_fast_model_actuation_tpu_torch.models import llama, moe
+
+    shapes = llama.param_shapes(dataclasses.replace(moe.MoeConfig.mixtral_8x7b(), num_layers=MOE_HF_LAYERS))
+    ckpt = checkpoint_dir(2 * 2 * sum(math.prod(s) for s in shapes.values()))  # bf16, and room to spare
     runs = {}
     try:
         for quant in ("", " --quantization int8"):
@@ -6760,7 +6793,7 @@ def serve_moe_hf(torch, smi: str) -> dict:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         srv.MODEL_CONFIGS.pop(name, None)
-    out = {"phase": "serve_moe_hf", "model": "hf:<2-layer Mixtral-8x7B checkpoint>", "layers": MOE_HF_LAYERS,
+    out = {"phase": "serve_moe_hf", "model": f"hf:<{MOE_HF_LAYERS}-layer Mixtral-8x7B checkpoint>", "layers": MOE_HF_LAYERS,
            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "checkpoint": written,
            "tokens_bit_equal": {"bf16": True, "int8": True}, "int8_build_peak_beyond_params_bytes": beyond,
            "int8_build_peak_limit_bytes": MOE_LAYER_STACK_BYTES,
@@ -6800,11 +6833,18 @@ TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 2, 4, 512
 #: serve_moe_ep's mesh: tp 2 x ep 2, four ranks on card 0; its parity:
 #: a prefill of 8 prompts of 300 ids and one decode step of the 8 rows
 MOE_EP_PLAN = {"tp": 2, "ep": 2}
+#: serve_moe_ep's pipeline mesh: two stages of two layers, each stage's
+#: two ranks E/ep = 4 experts (tp 1: attention and the FFN's f whole)
+MOE_PP_EP_PLAN = {"pp": 2, "ep": 2}
 MOE_EP_PARITY_ROWS, MOE_EP_PARITY_IDS = 8, 300
 #: the W8A16 products of a Mixtral rank at tp 2 (a decode step's, <= 64 rows):
 #: wq, wk and wv, wo, lm_head; and its expert stacks at ep 2 (E = 4)
 W8A16_EP_SHAPES = ((4096, 2048), (4096, 512), (2048, 4096), (4096, 16000))
 W8A16_EP_EXPERT_SHAPES = ((4, 4096, 7168, True), (4, 7168, 4096, False))
+#: the pp 2 x ep 2 mesh's: tp 1, so wq/wo, wk/wv and lm_head whole, and
+#: the expert stacks at E = 4 over the whole f
+W8A16_PP_EP_SHAPES = ((4096, 4096), (4096, 1024), (4096, 32000))
+W8A16_PP_EP_EXPERT_SHAPES = ((4, 4096, 14336, True), (4, 14336, 4096, False))
 
 
 def rows_parity(torch, logits, oracle, layers: int, limit: float) -> dict:
@@ -7100,17 +7140,23 @@ def train_mesh_phase(torch, smi: str) -> dict:
     ring = ring_against_dense(torch, model, tokens, seq_lens, mesh)
     before = {k: v.clone() for k, v in params.items()}
     loss_m, whole_m, ms_m = mesh_step(torch, cfg, params, tokens, seq_lens, plan)
+    # the pipeline: two stages of two layers, each with its tp 2 ranks (from
+    # the same state: the one-rank step below updates ``params`` in place)
+    pp_plan = {"pp": 2, "tp": 2}
+    loss_p, whole_p, ms_p = mesh_step(torch, cfg, params, tokens, seq_lens, pp_plan)
     loss_1, whole_1, ms_1 = one_rank_step(torch, cfg, params, tokens, seq_lens)
     figures = step_against(torch, whole_m, whole_1, before, (loss_m, loss_1))
-    del model, params, before, whole_m, whole_1
+    figures_pp = step_against(torch, whole_p, whole_1, before, (loss_p, loss_1))
+    del model, params, before, whole_m, whole_p, whole_1
     free_memory(torch)
     out = {"phase": "train_mesh", "model": "llama3-8b", "layers": cfg.num_layers, "mesh": plan,
            "devices": ["cuda:0"] * 4, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-           "batch": 1, "seq": TRAIN_MESH_SEQ, "step_ms": {"mesh": ms_m, "one_rank": ms_1},
-           "against_one_rank": figures, "ring_vs_dense_f32": ring, "seconds": time.monotonic() - t_phase}
+           "batch": 1, "seq": TRAIN_MESH_SEQ, "step_ms": {"mesh": ms_m, "pp_mesh": ms_p, "one_rank": ms_1},
+           "against_one_rank": figures, "pp_mesh": pp_plan, "pp_against_one_rank": figures_pp,
+           "ring_vs_dense_f32": ring, "seconds": time.monotonic() - t_phase}
     emit(out)
-    if not figures["held"]:
-        raise AssertionError(f"the sp x tp step differs from one rank's: {figures}")
+    if not figures["held"] or not figures_pp["held"]:
+        raise AssertionError(f"a mesh step differs from one rank's: sp x tp {figures}, pp x tp {figures_pp}")
     return out
 
 
@@ -7161,7 +7207,8 @@ def moe_logits_and_routes(torch, model, prompts, caches, pt) -> tuple:
 
     cfg = model.cfg
     B, n = prompts.shape
-    ranks = 1 if not isinstance(model, llama.ShardedLlama) else model.mesh.size
+    # the ranks that route each layer: every rank of a mesh, a stage's with pp
+    ranks = 1 if not isinstance(model, llama.ShardedLlama) else model.mesh.size // model.mesh.pp
     bucket = prefill_bucket(n, cfg.max_seq_len)
     tokens = torch.zeros((B, bucket), dtype=torch.int32, device="cuda")
     tokens[:, :n] = prompts
@@ -7248,6 +7295,26 @@ def serve_moe_ep(torch, smi: str) -> dict:
                         ("w8a16_experts", [f"{E}x{K}x{N}" for E, K, N, _ in W8A16_EP_EXPERT_SHAPES])):
         if any(not by_shape[key].get(k) for k in shapes) or set(by_shape[key]) - set(shapes):
             raise AssertionError(f"the ep mesh launched {key} at {by_shape[key]}, want {shapes} (E = 4) only")
+    # the pipeline mesh: the same model in two stages, its counts read right
+    # after its generate as the ep mesh's are
+    pp_plan = MeshPlan(**MOE_PP_EP_PLAN)
+    reset_counts()
+    eng_pp = InferenceEngine(ecfg, seed=5, mesh=make_mesh(pp_plan, ["cuda:0"] * pp_plan.size))
+    t0 = time.monotonic()
+    pp_out = eng_pp.generate(prompts, max_new_tokens=TRAIN_SERVE_NEW)
+    torch.cuda.synchronize()
+    pp_s = time.monotonic() - t0
+    pp_counts = read_counts()
+    check_probe_launch(pp_counts)
+    pp_by_shape = {"w8a16": dict(pp_counts["w8a16_by_shape"]), "w8a16_experts": dict(pp_counts["w8a16_experts_by_shape"])}
+    for key, shapes in (("w8a16", [f"{K}x{N}" for K, N in W8A16_PP_EP_SHAPES]),
+                        ("w8a16_experts", [f"{E}x{K}x{N}" for E, K, N, _ in W8A16_PP_EP_EXPERT_SHAPES])):
+        if any(not pp_by_shape[key].get(k) for k in shapes) or set(pp_by_shape[key]) - set(shapes):
+            raise AssertionError(f"the pp x ep mesh launched {key} at {pp_by_shape[key]}, want {shapes} only")
+    per_stage = pp_plan.size // pp_plan.pp  # each layer's attention runs on its stage's ep ranks
+    if pp_counts["decode_inline"] != cfg.num_layers * per_stage * eng_pp.decode_steps or eng_pp.decode_steps == 0:
+        raise AssertionError(f"the pp x ep mesh's decode launches {pp_counts['decode_inline']} != {cfg.num_layers} x "
+                             f"{per_stage} x {eng_pp.decode_steps} decode steps")
     one = InferenceEngine(ecfg, seed=5, device="cuda")
     t0 = time.monotonic()
     one_out = one.generate(prompts, max_new_tokens=TRAIN_SERVE_NEW)
@@ -7255,6 +7322,8 @@ def serve_moe_ep(torch, smi: str) -> dict:
     one_s = time.monotonic() - t0
     if not torch.equal(eng.model.ranks[0].layers["router"], one.model.layers["router"]):
         raise AssertionError("the mesh and the one-rank engine drew different routers from one seed")
+    if not torch.equal(eng_pp.model.ranks[2].layers["router"], one.model.layers["router"][cfg.num_layers // 2:]):
+        raise AssertionError("the pp x ep mesh's second stage does not hold the one-rank engine's last layers")
 
     # both paths' logits against the oracle: a prefill and a decode step of
     # MOE_EP_PARITY_ROWS sequences, the block of rows gated (rows_parity)
@@ -7266,14 +7335,19 @@ def serve_moe_ep(torch, smi: str) -> dict:
     shape = (cfg.num_layers, B * per + 1, ps, cfg.num_kv_heads, cfg.head_dim)
     pt = torch.arange(1, B * per + 1, dtype=torch.int32, device="cuda").reshape(B, per)
 
-    def pool(kvh):
-        return tuple(torch.zeros(shape[:3] + (kvh,) + shape[4:], dtype=cfg.dtype, device="cuda") for _ in range(2))
+    def pool(kvh, layers=cfg.num_layers):
+        return tuple(torch.zeros((layers,) + shape[1:3] + (kvh,) + shape[4:], dtype=cfg.dtype, device="cuda")
+                     for _ in range(2))
 
     paths = {"one_rank": moe_logits_and_routes(torch, one.model, batch, pool(cfg.num_kv_heads), pt),
              "ep_mesh": moe_logits_and_routes(torch, eng.model, batch,
-                                              [pool(cfg.num_kv_heads // plan.tp) for _ in range(plan.size)], pt)}
+                                              [pool(cfg.num_kv_heads // plan.tp) for _ in range(plan.size)], pt),
+             "pp_ep_mesh": moe_logits_and_routes(torch, eng_pp.model, batch,
+                                                 [pool(cfg.num_kv_heads, cfg.num_layers // pp_plan.pp)
+                                                  for _ in range(pp_plan.size)], pt)}
     L = cfg.num_layers
-    limits = {"one_rank": moe_parity_limit(L), "ep_mesh": moe_ep_parity_limit(L)}
+    # the pp x ep path rounds as the ep one at most (tp 1: no wo halves)
+    limits = {"one_rank": moe_parity_limit(L), "ep_mesh": moe_ep_parity_limit(L), "pp_ep_mesh": moe_ep_parity_limit(L)}
     figures, differ = {}, {}
     for name, (pre, dec, nxt, routes) in paths.items():
         oracle = torch.empty((2, B, cfg.vocab_size), dtype=torch.float32, device="cuda")
@@ -7290,15 +7364,17 @@ def serve_moe_ep(torch, smi: str) -> dict:
     del paths
     refused = [f"{k}: {r}" for k, f in figures.items() for r in f["refused"]]
     ratio_limit = moe_ep_ratio_limit(L)
-    ratios = {k: figures[f"{k}_ep_mesh"]["rel_l2"] / figures[f"{k}_one_rank"]["rel_l2"]
-              for k in ("prefill", "decode_inline")}
-    refused += [f"{k}: ep {r:.3f} x one rank's rel_l2 > {ratio_limit:.3f}" for k, r in ratios.items()
+    ratios = {f"{k}_{m}": figures[f"{k}_{m}"]["rel_l2"] / figures[f"{k}_one_rank"]["rel_l2"]
+              for k in ("prefill", "decode_inline") for m in ("ep_mesh", "pp_ep_mesh")}
+    refused += [f"{k}: {r:.3f} x one rank's rel_l2 > {ratio_limit:.3f}" for k, r in ratios.items()
                 if not r <= ratio_limit]
     limit = limits["one_rank"]
 
     # where the greedy completions part: a near-tie of the one-rank logits
     parts = []
-    for i, (a, b) in enumerate(zip(ep_out, one_out)):
+    parted = [(name, i, a, b) for name, outs in (("ep_mesh", ep_out), ("pp_ep_mesh", pp_out))
+              for i, (a, b) in enumerate(zip(outs, one_out))]
+    for name, i, a, b in parted:
         j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if j is None:
             continue
@@ -7314,27 +7390,249 @@ def serve_moe_ep(torch, smi: str) -> dict:
                                torch.arange(1, pages_m + 1, dtype=torch.int32, device="cuda")[None])[0, m - 1]
         tie = ARGMAX_TIE_SIGMAS * 2 ** 0.5 * limit * lg.pow(2).mean().sqrt().item()
         gap = (lg[b[j]] - lg[a[j]]).item()
-        parts.append({"completion": i, "position": j, "logit_gap": gap, "exempt_under": tie})
+        parts.append({"mesh": name, "completion": i, "position": j, "logit_gap": gap, "exempt_under": tie})
         if not abs(gap) < tie:
-            refused.append(f"completion {i} parts at position {j} by {gap:.4e} (exempt under {tie:.4e})")
+            refused.append(f"{name}: completion {i} parts at position {j} by {gap:.4e} (exempt under {tie:.4e})")
         del kv, lg
     steps = TRAIN_SERVE_NEW * len(prompts)
     out = {"phase": "serve_moe_ep", "model": "mixtral-8x7b", "quantization": "int8", "layers": L,
            "mesh": MOE_EP_PLAN, "devices": ["cuda:0"] * plan.size, "device": torch.cuda.get_device_name(0),
            "nvidia_smi": smi, "experts_per_rank": cfg.num_experts // plan.ep,
-           "generate_s": {"ep_mesh": ep_s, "one_rank": one_s}, "new_tokens": steps,
-           "tokens_equal_one_rank": ep_out == one_out, "parted": parts,
+           "generate_s": {"ep_mesh": ep_s, "pp_ep_mesh": pp_s, "one_rank": one_s}, "new_tokens": steps,
+           "pp_ep_mesh": MOE_PP_EP_PLAN, "pp_ep_launches": {k: v for k, v in pp_counts.items() if not isinstance(v, dict)},
+           "pp_ep_w8a16_launches_by_shape": pp_by_shape, "pp_ep_decode_steps": eng_pp.decode_steps,
+           "tokens_equal_one_rank": ep_out == one_out, "pp_ep_tokens_equal_one_rank": pp_out == one_out,
+           "parted": parts,
            "against_fp32_oracle": figures, "ep_over_one_rank": ratios, "ratio_limit": ratio_limit,
            "routing_decisions_fp32_would_change": differ, "w8a16_launches_by_shape": by_shape,
            "launches": {k: v for k, v in counts.items() if not isinstance(v, dict)},
            "note": "the mesh runs its chunks eagerly (a graph belongs to one device); the one-rank engine replays"}
-    del eng, one
+    del eng, eng_pp, one
     free_memory(torch)
     out["seconds"] = time.monotonic() - t_phase
     emit(out)
     if refused:
         raise AssertionError(f"ep serving breaks the oracle gate: {refused}")
-    return {"counts": counts, "by_shape": by_shape}
+    return {"counts": sum_counts(counts, pp_counts), "by_shape": sum_counts(by_shape, pp_by_shape)}
+
+
+#: serve_pp: the serve mix's four prompt lengths and its new tokens (16,
+#: as serve_moe_ep takes: the meshes run their chunks eagerly); the
+#: parity and timing block: 8 rows of 300 ids, then decode steps
+PP_PROMPT_LENS, PP_NEW_TOKENS = (20, 300, 1500, 3000), 16
+PP_PARITY_ROWS, PP_PARITY_IDS, PP_TIMED_STEPS = 8, 300, 5
+PP_PLANS = {"pp2": {"pp": 2}, "pp2tp2": {"pp": 2, "tp": 2}}
+
+
+def pp_engine(plan, packed: bool = False):
+    """Llama-3-8B at full size, seed 0, on ``MeshPlan(**plan)`` with every
+    rank on card 0 (``plan`` None: one rank)."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig
+    from llm_d_fast_model_actuation_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+    cfg = EngineConfig(model=LlamaConfig.llama3_8b(), max_batch=8, num_pages=2048, packed_serving=packed)
+    if plan is None:
+        return InferenceEngine(cfg, seed=0, device="cuda")
+    p = MeshPlan(**plan)
+    return InferenceEngine(cfg, seed=0, mesh=make_mesh(p, ["cuda:0"] * p.size))
+
+
+def pp_serve(torch, plan, prompts: list, packed: bool = False) -> tuple:
+    """A :func:`pp_engine` built with the counts at 0 and the prompts
+    generated; returns the engine, its tokens, its counts (read right
+    after the generate: the probe, the warm-ups and the serving path) and
+    its figures, and the card's free bytes before it was built."""
+    free_memory(torch)
+    free_before = torch.cuda.mem_get_info()[0]
+    reset_counts()
+    t0 = time.monotonic()
+    eng = pp_engine(plan, packed)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    outs = eng.generate(prompts, max_new_tokens=PP_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    counts = path_counts(eng)
+    figures = {"init_s": init_s, "generate_s": gen_s, "decode_steps": eng.decode_steps,
+               "cold_prefills": eng.cold_prefills, "packed_steps": eng.packed_steps, "mixed_impl": eng.mixed_impl,
+               "launches": {k: v for k, v in counts.items() if not isinstance(v, dict) and k not in ("eager", "replayed")},
+               "prefill_by_seq": counts["prefill_by_seq"], "ragged_by_rows": counts["ragged_by_rows"],
+               **graph_stats(eng)}
+    return eng, outs, counts, figures, free_before
+
+
+def check_pp_launches(eng, counts: dict, packed: bool) -> None:
+    """A mesh engine's launches (all eager): L x tp decode launches a
+    decode step, and L x tp prefill launches a cold prefill (bucketed) or
+    L ragged launches a packed step (packed, one rank a stage); one
+    probe; nothing off the path."""
+    mesh = eng.mesh
+    L, tp = eng.cfg.model.num_layers, mesh.tp
+    check_probe_launch(counts)
+    want = {"decode_inline": L * tp * eng.decode_steps, "decode_scatter_first": 0, "ragged_sharded": 0}
+    if packed:
+        want.update(prefill=0, ragged=L * eng.packed_steps)
+    else:
+        want.update(prefill=L * tp * eng.cold_prefills, ragged=0)
+    got = {k: counts[k] for k in want}
+    if got != want or eng.decode_steps == 0 or (eng.packed_steps == 0 if packed else eng.cold_prefills < 4):
+        raise AssertionError(f"{mesh}: launches {got}, want {want} ({eng.decode_steps} decode steps, "
+                             f"{eng.cold_prefills} cold prefills, {eng.packed_steps} packed steps)")
+    untimed = sorted(set(counts["ragged_by_rows"]) - set(RAGGED_ROWS))
+    if untimed:
+        raise AssertionError(f"{mesh}: the packed run launched ragged at untimed buffer sizes {untimed}")
+
+
+def pp_logits(torch, model, batch) -> tuple:
+    """A prefill of ``batch`` [B, n] (its head on row n - 1 alone, as the
+    engine's cold prefill runs it) and one inline
+    decode step of their argmax tokens (its logits) on fresh pools (one
+    pair per rank: its stage's layers, its KV-head slice), then
+    ``PP_TIMED_STEPS`` decode steps timed one by one; returns the two
+    logits blocks and the median step's ms."""
+    from llm_d_fast_model_actuation_tpu_torch.engine.engine import prefill_bucket
+    from llm_d_fast_model_actuation_tpu_torch.models import llama
+
+    cfg = model.cfg
+    B, n = batch.shape
+    ps = 16
+    per = -(-(n + 2 + PP_TIMED_STEPS) // ps)
+    pt = torch.arange(1, B * per + 1, dtype=torch.int32, device="cuda").reshape(B, per)
+
+    def pair(layers, kvh):
+        return tuple(torch.zeros((layers, B * per + 1, ps, kvh, cfg.head_dim), dtype=cfg.dtype, device="cuda")
+                     for _ in range(2))
+
+    if isinstance(model, llama.ShardedLlama):
+        mesh = model.mesh
+        caches = [pair(cfg.num_layers // mesh.pp, cfg.num_kv_heads // mesh.tp) for _ in range(mesh.size)]
+    else:
+        caches = pair(cfg.num_layers, cfg.num_kv_heads)
+    tokens = torch.zeros((B, prefill_bucket(n, cfg.max_seq_len)), dtype=torch.int32, device="cuda")
+    tokens[:, :n] = batch
+    lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    times = []
+    with torch.no_grad():
+        pre = llama.prefill(model, tokens, lens, caches, pt, last_only=True)[:, 0]
+        dec = llama.decode_step(model, pre.argmax(-1).to(torch.int32), lens, caches, pt)
+        tok = dec.argmax(-1).to(torch.int32)
+        for k in range(PP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = llama.decode_step(model, tok, lens + 1 + k, caches, pt)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            tok = out.argmax(-1).to(torch.int32)
+    del caches
+    return pre, dec, sorted(times)[len(times) // 2]
+
+
+def serve_pp(torch, smi: str) -> dict:
+    """Llama-3-8B at full size on the pipeline axis (the module docstring's
+    ``serve_pp``): ``pp`` 2 and ``pp`` 2 x ``tp`` 2 against one rank of the
+    same seed, bucketed; one packed run and one level-1 sleep and wake on
+    ``pp`` 2."""
+    import numpy as np
+
+    from llm_d_fast_model_actuation_tpu_torch.engine.sleep import attach_sleep
+
+    t_phase = time.monotonic()
+    from llm_d_fast_model_actuation_tpu_torch.models.llama import LlamaConfig
+
+    rng = np.random.default_rng(11)
+    vocab = LlamaConfig.llama3_8b().vocab_size
+    prompts = [rng.integers(0, vocab, k).tolist() for k in PP_PROMPT_LENS]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = torch.randint(0, vocab, (PP_PARITY_ROWS, PP_PARITY_IDS), generator=gen, device="cuda", dtype=torch.int32)
+    refused, runs, out = [], [], {"phase": "serve_pp", "model": "llama3-8b", "device": torch.cuda.get_device_name(0),
+                                  "nvidia_smi": smi, "prompt_lens": list(PP_PROMPT_LENS), "new_tokens": PP_NEW_TOKENS,
+                                  "devices": "every rank on cuda:0"}
+
+    # one rank: the tokens, the logits and the state's bytes every mesh is held to
+    one, one_out, counts, figures, _ = pp_serve(torch, None, prompts)
+    runs.append(counts)
+    L = one.cfg.model.num_layers
+    one_bytes = sum(p.numel() * p.element_size() for p in one.model.parameters()) + one.pool.nbytes()
+    one_pre, one_dec, one_ms = pp_logits(torch, one.model, batch)
+    out["one_rank"] = dict(figures, eager_decode_step_ms=one_ms, state_bytes=one_bytes)
+    del one
+    meshes = {}
+    for name, plan in PP_PLANS.items():
+        eng, outs, counts, figures, free_before = pp_serve(torch, plan, prompts)
+        runs.append(counts)
+        check_pp_launches(eng, counts, packed=False)
+        pre, dec, ms = pp_logits(torch, eng.model, batch)
+        diff = {"prefill": (pre - one_pre).abs().max().item(), "decode_inline": (dec - one_dec).abs().max().item()}
+        row = dict(figures, plan=plan, eager_decode_step_ms=ms, logits_max_abs_diff_vs_one_rank=diff,
+                   tokens_equal_one_rank=outs == one_out,
+                   first_difference_from_one_rank=first_differences(outs, one_out),
+                   wq_shapes=[tuple(m.layers["wq"].shape) for m in eng.model.ranks],
+                   pool_shard_shapes=[tuple(k.shape) for k, _ in eng.pool.shards])
+        if name == "pp2":
+            if not (torch.equal(pre, one_pre) and torch.equal(dec, one_dec)):
+                refused.append(f"pp 2's logits are not one rank's bits: largest differences {diff}")
+            if outs != one_out:
+                refused.append(f"pp 2's greedy tokens part from one rank's at {first_differences(outs, one_out)}")
+            # one level-1 sleep and wake: the one-rank state's bytes, nothing
+            # mapped asleep, the same tokens and addresses after the wake
+            probe = prompts[1]
+            before = eng.generate([probe], max_new_tokens=PP_NEW_TOKENS)[0]
+            ptrs = state_ptrs(eng)
+            free_memory(torch)  # the parity run's cached blocks go back first
+            mgr = attach_sleep(eng)
+            info = mgr.sleep(1)
+            asleep = check_asleep(torch, eng, free_before)
+            woke = mgr.wake_up()
+            after = eng.generate([probe], max_new_tokens=PP_NEW_TOKENS)[0]
+            del mgr  # its pinned host copies go with it
+            row["sleep_wake"] = {"bytes_offloaded": info["bytes_offloaded"], "bytes_one_rank": one_bytes,
+                                 "sleep_s": info.get("last_sleep_seconds"), "wake_s": woke.get("last_wake_seconds"),
+                                 **asleep, "tokens_identical": after == before,
+                                 "state_addresses_unchanged": state_ptrs(eng) == ptrs, "addresses": len(ptrs)}
+            if info["bytes_offloaded"] != one_bytes:
+                refused.append(f"pp 2 offloaded {info['bytes_offloaded']} bytes, one rank's state is {one_bytes}")
+            if after != before or state_ptrs(eng) != ptrs:
+                refused.append(f"pp 2's level-1 cycle changed the tokens ({before[:4]} -> {after[:4]}) or addresses")
+        meshes[name] = (outs, row)
+        out[name] = row
+        del eng, pre, dec
+    # pp 2 x tp 2 reorders the row-parallel sums as tp 2 does: where it parts
+    # from one rank, it is held to a tp 2 engine of the same seed
+    outs, row = meshes["pp2tp2"]
+    if outs != one_out:
+        tp2, tp2_out, counts, figures, _ = pp_serve(torch, {"tp": 2}, prompts)
+        runs.append(counts)
+        check_pp_launches(tp2, counts, packed=False)
+        row["tp2_engine"] = dict(figures, tokens_equal_one_rank=tp2_out == one_out)
+        row["tokens_equal_tp2"] = outs == tp2_out
+        if outs != tp2_out:
+            refused.append(f"pp 2 x tp 2's greedy tokens part from tp 2's at {first_differences(outs, tp2_out)}")
+        del tp2
+    # one packed run on pp 2 against one rank's packed engine
+    one_p, one_p_out, counts, figures, _ = pp_serve(torch, None, prompts, packed=True)
+    runs.append(counts)
+    out["one_rank_packed"] = figures
+    del one_p
+    eng, outs, counts, figures, _ = pp_serve(torch, PP_PLANS["pp2"], prompts, packed=True)
+    runs.append(counts)
+    check_pp_launches(eng, counts, packed=True)
+    out["pp2_packed"] = dict(figures, tokens_equal_one_rank_packed=outs == one_p_out,
+                             first_difference=first_differences(outs, one_p_out))
+    if outs != one_p_out:
+        refused.append(f"pp 2's packed tokens part from one rank's at {first_differences(outs, one_p_out)}")
+    del eng
+    free_memory(torch)
+    total = runs[0]
+    for c in runs[1:]:
+        total = sum_counts(total, c)
+    out["seconds"] = time.monotonic() - t_phase
+    out["refused"] = refused
+    emit(out)
+    if refused:
+        raise AssertionError(f"serve_pp: {refused}")
+    return {"counts": total}
 
 
 def check_build_probe(torch) -> dict:
@@ -7442,6 +7740,7 @@ def main() -> int:
     trained = train_phase(torch, smi)
     train_mesh_phase(torch, smi)
     train_moe_phase(torch, smi)
+    staged = serve_pp(torch, smi)
     packed = serve_packed(torch, smi, bucketed)
     tp2, eng_tp2 = serve_tp2_packed(torch, smi, bucketed, packed)
     reference, eng = serve_reference(torch, smi, bucketed)
@@ -7454,7 +7753,7 @@ def main() -> int:
     runs = (bucketed["counts"], hf["counts"], swapped["counts"], launched["counts"], quant["counts"], int8["counts"],
             zero_drain["counts"], *migrated["counts"], coresident["counts"], co_engine["counts"], orbax["counts"],
             *dual["counts"], launched["release_counts"],
-            moe["counts"], moe_ep["counts"], trained["counts"], packed["counts"],
+            moe["counts"], moe_ep["counts"], trained["counts"], staged["counts"], packed["counts"],
             tp2["counts"], reference["counts"], gang["counts"])
 
     def total(key):
@@ -7463,10 +7762,10 @@ def main() -> int:
     untimed = sorted({s for c in runs for s in c["prefill_by_seq"]} - set(PREFILL_SEQS))
     if untimed:
         raise AssertionError(f"the serve run launched prefill at untimed lengths {untimed}")
-    # the ragged kernel's launches by buffer size: the packed serve's and
-    # the coresident child's (one shape, 72 rows)
+    # the ragged kernel's launches by buffer size: the packed serve's, the
+    # coresident child's (one shape, 72 rows) and the pipeline's packed runs
     by_rows = dict(packed["counts"]["ragged_by_rows"])
-    for run in (coresident, co_engine):
+    for run in (coresident, co_engine, staged):
         for k, n in run["counts"]["ragged_by_rows"].items():
             by_rows[k] = by_rows.get(k, 0) + n
     kernels = [dict(dec[0], launches=total("decode_inline")),

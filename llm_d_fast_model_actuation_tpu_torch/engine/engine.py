@@ -43,11 +43,13 @@ a sampled chunk runs (:meth:`InferenceEngine._draw_chunk_noise`). A
 sleep releases their memory and a wake maps it back at the same
 addresses, so the captured graphs replay unchanged after a wake.
 
-Tensor and expert parallelism: ``InferenceEngine(cfg, mesh=...)`` (a
-``parallel/mesh.py:Mesh`` of ``tp``, or of ``tp`` x ``ep`` for the MoE
-family: each ``ep`` rank holds E/ep experts and its own copy of its
-``tp`` slice of attention and of the pool, as the reference replicates
-them over ``ep``) builds the model and the page pool sharded
+Tensor, expert and pipeline parallelism: ``InferenceEngine(cfg,
+mesh=...)`` (a ``parallel/mesh.py:Mesh`` of ``tp``, or of ``tp`` x ``ep``
+for the MoE family: each ``ep`` rank holds E/ep experts and its own copy
+of its ``tp`` slice of attention and of the pool, as the reference
+replicates them over ``ep``; with ``pp`` each stage's ranks hold its
+``L / pp`` layers of the weights and of the pool, and every forward walks
+the stages, ``models/llama.py``) builds the model and the page pool sharded
 over the mesh's ranks and drives all of them from this one process, one
 scheduler and one engine object, as the reference's single-process mesh
 does. The scheduler state is REPLICATED: what the forwards read (page
@@ -430,11 +432,11 @@ class InferenceEngine:
         if mesh is not None:
             for axis, why in (("dp", "a data-parallel replica is an engine of its own (one per launcher instance)"),
                               ("sp", "sp splits a training batch's sequence (models/train.py); a prompt prefills on "
-                                     "its tp ranks"),
-                              ("pp", "pipeline stages are not ported (ROADMAP.md queue 1 item 15, pipeline "
-                                     "stages across hosts)")):
+                                     "its tp ranks")):
                 if mesh.shape[axis] > 1:
-                    raise ValueError(f"the engine serves on a tp x ep mesh; {axis}={mesh.shape[axis]} refused: {why}")
+                    raise ValueError(
+                        f"the engine serves on a pp x tp x ep mesh; {axis}={mesh.shape[axis]} refused: {why}"
+                    )
             # rank 0's device, or in a gang this process's first rank's
             first = mesh.devices[mesh.local_ranks[0]]
             if device is not None:

@@ -8,9 +8,12 @@ layer's pages are the view ``k_pages[l]``.
 On a tensor-parallel mesh the pool is split on its kv_heads axis, as the
 reference shards it (``P(None, None, None, "tp", None)``): one
 ``[L, pages, page_size, kv_heads/tp, head_dim]`` pair per rank, each a
-contiguous allocation of its own on the rank's device. The shape and byte
-helpers keep reporting the GLOBAL figures; the allocator, the page table
-and the prefix cache stay single and host-side.
+contiguous allocation of its own on the rank's device. On a pipeline
+(``pp``) each rank's pool holds its stage's ``num_layers / pp`` layers:
+the stages' pools together are the reference's pool once (it replicates
+the pool over ``pp``), and a page's bytes are split over the stages. The
+shape and byte helpers keep reporting the GLOBAL figures; the allocator,
+the page table and the prefix cache stay single and host-side.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel.mesh import stage_layers
 
 
 @dataclass
@@ -84,8 +89,9 @@ class PagePool:
         arenas=None,
     ) -> "PagePool":
         """A zero pool on ``device``, or with a ``mesh``
-        (``parallel/mesh.py:Mesh``) one kv_heads/tp slice per rank on the
-        rank's device (None for a rank another process of a gang holds). With ``arenas`` (device -> ``engine/arena.py:Arena``,
+        (``parallel/mesh.py:Mesh``) one kv_heads/tp slice of its stage's
+        ``num_layers / pp`` layers per rank on the rank's device (None for
+        a rank another process of a gang holds). With ``arenas`` (device -> ``engine/arena.py:Arena``,
         the engine's) each tensor is an allocation of its device's arena,
         at an address a sleep and wake keep."""
 
@@ -99,7 +105,8 @@ class PagePool:
             return cls(k_pages=zeros(shape, device, "k_pages"), v_pages=zeros(shape, device, "v_pages"))
         if num_kv_heads % mesh.tp:
             raise ValueError(f"num_kv_heads={num_kv_heads} is not divisible by tensor_parallel_size {mesh.tp}")
-        shape = cls.pool_shape(num_layers, num_pages, page_size, num_kv_heads // mesh.tp, head_dim)
+        layers = len(stage_layers(num_layers, mesh.pp, 0))
+        shape = cls.pool_shape(layers, num_pages, page_size, num_kv_heads // mesh.tp, head_dim)
         shards = mesh.per_rank(lambda r: (zeros(shape, mesh.devices[r], f"k_pages.{r}"),
                                           zeros(shape, mesh.devices[r], f"v_pages.{r}")))
         first = next(p for p in shards if p is not None)

@@ -36,8 +36,10 @@ comes back to the device, and into the tensor object, it left: no
 resharding and no gather, each card's shard moves independently (one copy
 stream per device). ``bytes_offloaded`` is the state's GLOBAL size, as the
 reference's is (a sharded ``jax.Array``'s ``nbytes``): a replicated
-parameter (a norm) is moved once per rank but counted once, so a model
-reports the same figure at any ``tp``.
+parameter (a norm; with ``pp`` the embedding and head that every stage
+holds) is moved once per rank but counted once, so a model reports the
+same figure at any ``tp`` and ``pp``; the pool's stages hold its layers
+between them, the reference's pool once.
 
 **Chunked transfers** (``bucket_bytes``): the flattened state is split into
 size-bounded buckets of whole tensors and moved bucket by bucket, each

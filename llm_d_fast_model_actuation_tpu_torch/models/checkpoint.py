@@ -20,9 +20,9 @@ engine's, in its arenas: neither an address nor a captured graph
 changes), one zarr chunk at a time: decoded on the zstd pool into a
 pinned host buffer and copied to the card on a copy stream of its own,
 waited for by its own events (so it may run beside a capture). The
-whole tree is never assembled on the host. On a ``tp``/``ep`` mesh each
-rank's slice of a chunk goes to the rank, cut as ``llama.param_specs``
-cuts it. A ``--quantization int8`` config restores bf16 and quantizes on
+whole tree is never assembled on the host. On a ``pp``/``tp``/``ep``
+mesh each rank's slice of a chunk goes to the rank, cut as
+``llama.param_specs`` cuts it (a stage's ranks receive its layers only). A ``--quantization int8`` config restores bf16 and quantizes on
 the way in, one leaf at a time (``hf.place_quantized_leaf``).
 
 :func:`save_params` writes a checkpoint the JAX package's

@@ -48,14 +48,14 @@ def params_from_jax(
     ``<name>.q`` and ``<name>.s`` (an MoE expert stack's scale is ``[L,
     E, 1, out]``, a scale per expert).
 
-    With a ``mesh`` (``parallel/mesh.py:Mesh``, ``tp`` and ``ep``) and
+    With a ``mesh`` (``parallel/mesh.py:Mesh``, ``pp``, ``tp`` and ``ep``) and
     the model's GLOBAL ``cfg``: the state dict of a
     :class:`~.llama.ShardedLlama` (``ranks.<r>.<name>``), each numpy array
     sliced by the logical-axes table before it leaves the host, so rank
     ``r``'s tensor holds what the reference's sharded array holds on its
     ``r``-th device, on ``mesh.devices[r]``, for each rank this process
-    holds (a gang member carries its own ranks' slices; an MoE expert stack split
-    over ``ep``; a quantized ``cfg`` splits a scale over ``tp`` only along
+    holds (a gang member carries its own ranks' slices; a layer stack split
+    over ``pp``, a stage its own layers; an MoE expert stack split over ``ep``; a quantized ``cfg`` splits a scale over ``tp`` only along
     its output axis, ``llama.param_specs``)."""
     flat: Dict[str, Any] = {}
     for name, leaf in tree.items():

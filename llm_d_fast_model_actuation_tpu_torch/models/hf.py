@@ -34,10 +34,10 @@ weights go:
   * ``place=False`` stages on the host only (a prefetch): the port's
     stacked layout in the config's dtype, transposed on the readers, in
     pinned memory, for :func:`place_staged_params` to copy straight in;
-  * on a mesh (``tp``, and ``ep`` for the MoE family) each rank's slice
-    is cut from the mapped tensor by ``llama.param_specs``, as
-    ``models/convert.py`` cuts it; an expert goes to the ``ep`` ranks
-    that hold it.
+  * on a mesh (``tp``, ``pp``, and ``ep`` for the MoE family) each
+    rank's slice is cut from the mapped tensor by ``llama.param_specs``,
+    as ``models/convert.py`` cuts it; an expert goes to the ``ep`` ranks
+    that hold it, a layer to the ranks of the ``pp`` stage that holds it.
 
 HF stores per-layer ``model.layers.{i}.<name>.weight`` as (out, in); the
 port's stacked layouts are (L, in, out) (and (L, E, in, out) for expert
@@ -70,6 +70,7 @@ from .llama import (
     ShardedLlama,
     held_ranks,
     is_moe,
+    layer_at,
     param_dtype,
     param_shapes,
     param_specs,
@@ -726,6 +727,7 @@ def place_quantized_leaf(model: "Llama | ShardedLlama", flat: str, node: torch.T
             m.get_parameter(flat).copy_(shard_for(node, param_specs(plain)[flat], mesh, r), non_blocking=True)
     else:
         qspecs = param_specs(cfg)
+        at = layer_at(model)
         stacked = len(shape) >= 3
         # one layer slice's specs: s splits over tp only where that is its output axis
         q_spec, s_spec = (qspecs[f"{flat}.{k}"][1:] if stacked else qspecs[f"{flat}.{k}"] for k in ("q", "s"))
@@ -737,10 +739,12 @@ def place_quantized_leaf(model: "Llama | ShardedLlama", flat: str, node: torch.T
             qd = quant_mod.quantize_weight(w)
             del w
             for r, m in ranks:
+                if stacked and at(r, i) is None:
+                    continue  # another pipeline stage's layer
                 qp, sp = shard_for(qd["q"], q_spec, mesh, r), shard_for(qd["s"], s_spec, mesh, r)
                 q_dst, s_dst = m.get_parameter(f"{flat}.q"), m.get_parameter(f"{flat}.s")
-                (q_dst[i] if stacked else q_dst).copy_(qp)
-                (s_dst[i] if stacked else s_dst).copy_(sp)
+                (q_dst[at(r, i)] if stacked else q_dst).copy_(qp)
+                (s_dst[at(r, i)] if stacked else s_dst).copy_(sp)
             del qd
     if sync:
         for _, m in ranks:

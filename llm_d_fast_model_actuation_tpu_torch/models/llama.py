@@ -46,6 +46,18 @@ all E experts and weights its own; the FFN's partials are reduced over
 forwards' ``tp`` reduces run within each ``ep`` group. ``models/train.py``
 runs the same layer functions under autograd on ``dp`` x ``sp`` x ``tp``
 x ``ep`` meshes.
+
+**Pipeline stages.** On a mesh with ``pp`` the ranks at ``pp`` coordinate
+``s`` hold layers ``[s * L / pp, (s + 1) * L / pp)`` of every layer stack
+and of the pool (their local config has ``L / pp`` layers), and a forward
+walks the stages in order (:func:`_walk`): the first stage embeds, each
+stage runs its layers on its own mesh of the other axes
+(``Mesh.stage_mesh``, so the ``tp`` reduces group within the stage), the
+residual stream is handed to the next stage at each boundary
+(``Mesh.hand_off``), and the last stage's ranks compute the logits. The
+replicated leaves (embedding, final norm, head) are held by every stage,
+as the reference replicates them over ``pp``; the copies past the first
+stage are :meth:`ShardedLlama.replicas`.
 """
 
 from __future__ import annotations
@@ -68,7 +80,7 @@ from ..ops.attention import (
 )
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_table
-from ..parallel.mesh import Mesh, replica_of, shard_for, spec_for
+from ..parallel.mesh import Mesh, replica_of, shard_for, spec_for, stage_layers
 from .quant import LAYER_WEIGHTS, qmat, quantize_weight, quantized_axes
 
 #: one device's k and v pages; a sharded model takes one pair per rank
@@ -350,10 +362,11 @@ def param_specs(cfg: LlamaConfig) -> Dict[str, Tuple[Optional[str], ...]]:
     return {name: spec_for(ax) for name, ax in _flat_axes(cfg).items()}
 
 
-def shard_config(cfg: LlamaConfig, tp: int, ep: int = 1) -> LlamaConfig:
-    """One rank's LOCAL config on a ``tp`` x ``ep`` mesh: heads, KV heads,
-    MLP width and vocabulary divided by ``tp``, an MoE config's experts by
-    ``ep``; raises if one does not divide."""
+def shard_config(cfg: LlamaConfig, tp: int, ep: int = 1, pp: int = 1) -> LlamaConfig:
+    """One rank's LOCAL config on a ``pp`` x ``tp`` x ``ep`` mesh: heads,
+    KV heads, MLP width and vocabulary divided by ``tp``, layers by ``pp``
+    (a stage's), an MoE config's experts by ``ep``; raises if one does not
+    divide."""
     for name in ("num_kv_heads", "num_heads", "intermediate_size", "vocab_size"):
         if getattr(cfg, name) % tp:
             raise ValueError(f"{name}={getattr(cfg, name)} is not divisible by tensor_parallel_size {tp}")
@@ -363,6 +376,7 @@ def shard_config(cfg: LlamaConfig, tp: int, ep: int = 1) -> LlamaConfig:
         num_kv_heads=cfg.num_kv_heads // tp,
         intermediate_size=cfg.intermediate_size // tp,
         vocab_size=cfg.vocab_size // tp,
+        num_layers=len(stage_layers(cfg.num_layers, pp, 0)),
     )
     if ep > 1:
         if not is_moe(cfg):
@@ -540,22 +554,26 @@ class RankModules(nn.Module):
 
 
 class ShardedLlama(nn.Module):
-    """The decoder on a ``tp`` x ``ep`` mesh: ``mesh.size`` :class:`Llama`
-    modules, rank ``r`` on ``mesh.devices[r]`` holding its slice of every
-    split weight and a copy of every replicated one (an ``ep`` rank holds
-    its E/ep experts, and the attention weights whole for its ``tp``
-    coordinate, as the reference replicates them over ``ep``). ``cfg`` is
-    the GLOBAL config; each rank's own is :func:`shard_config` of it. On a
+    """The decoder on a ``pp`` x ``tp`` x ``ep`` mesh: ``mesh.size``
+    :class:`Llama` modules, rank ``r`` on ``mesh.devices[r]`` holding its
+    slice of every split weight and a copy of every replicated one (an
+    ``ep`` rank holds its E/ep experts, and the attention weights whole for
+    its ``tp`` coordinate, as the reference replicates them over ``ep``; a
+    ``pp`` rank its stage's layers of every stack, and the embedding,
+    final norm and head whole for its ``tp`` coordinate). ``cfg`` is the
+    GLOBAL config; each rank's own is :func:`shard_config` of it. On a
     gang's mesh only this process's ranks are built (:class:`RankModules`)."""
 
     def __init__(self, cfg: LlamaConfig, mesh: Mesh, arenas=None) -> None:
         super().__init__()
-        for axis in ("dp", "sp", "pp"):
+        for axis in ("dp", "sp"):
             if mesh.shape[axis] > 1:
-                raise ValueError(f"a serving model splits over tp and ep only; {mesh} has {axis}={mesh.shape[axis]}")
+                raise ValueError(
+                    f"a serving model splits over pp, tp and ep only; {mesh} has {axis}={mesh.shape[axis]}"
+                )
         self.cfg = cfg
         self.mesh = mesh
-        local = shard_config(cfg, mesh.tp, mesh.shape["ep"])
+        local = shard_config(cfg, mesh.tp, mesh.shape["ep"], mesh.pp)
         # each rank's state in its device's arena (``arenas``: device -> arena)
         self.ranks = RankModules({
             r: Llama(local, mesh.devices[r], arena=None if arenas is None else arenas[mesh.devices[r]])
@@ -575,8 +593,9 @@ class ShardedLlama(nn.Module):
     def replicas(self) -> List[torch.Tensor]:
         """The parameters that repeat an earlier rank's (norms and the
         like; on an ``ep`` mesh also the attention weights of every ``ep``
-        rank past the first): the reference holds each of them as ONE
-        replicated array."""
+        rank past the first; on a ``pp`` mesh the embedding, final norm and
+        head of every stage past the first): the reference holds each of
+        them as ONE replicated array."""
         specs = param_specs(self.cfg)
         return [
             p for r, m in self.ranks.held() for name, p in m.named_parameters()
@@ -631,6 +650,22 @@ def held_ranks(model: "Llama | ShardedLlama") -> List[Tuple[int, nn.Module]]:
     return model.ranks.held() if isinstance(model, ShardedLlama) else [(0, model)]
 
 
+def layer_at(model: "Llama | ShardedLlama") -> Callable[[int, int], Optional[int]]:
+    """``at(rank, i)``: where global layer ``i`` lies in rank ``rank``'s
+    own layer stacks, or None when another pipeline stage holds it (every
+    rank holds every layer without ``pp``)."""
+    mesh = model.mesh if isinstance(model, ShardedLlama) else None
+    if mesh is None or mesh.pp == 1:
+        return lambda r, i: i
+    L = model.cfg.num_layers
+
+    def at(r: int, i: int) -> Optional[int]:
+        held = stage_layers(L, mesh.pp, mesh.stage(r))
+        return i - held.start if i in held else None
+
+    return at
+
+
 def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> None:
     """Draw ``model``'s parameters from ``generator`` (on the model's
     device) into its tensors, in place. Same distributions as the
@@ -656,6 +691,7 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
     ranks = held_ranks(model)
     mesh = model.mesh if isinstance(model, ShardedLlama) else None
     cfg, device = model.cfg, model.device
+    at = layer_at(model)
     plain = dataclasses.replace(cfg, quantization="")
     shapes, specs = param_shapes(plain), param_specs(plain)
     quant = set(quantized_names(cfg))
@@ -664,7 +700,7 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
         for name in _draw_order(plain):
             short = name.split(".")[-1]
             if name in quant:
-                _draw_quantized(ranks, mesh, name, shapes[name], param_specs(cfg), generator, device)
+                _draw_quantized(ranks, mesh, name, shapes[name], param_specs(cfg), generator, device, at)
                 continue
             dests = [(r, m.get_parameter(name)) for r, m in ranks]
             if "norm" in short:
@@ -684,17 +720,22 @@ def fill_params(model: "Llama | ShardedLlama", generator: torch.Generator) -> No
                         dtype=torch.float32,
                     ).mul_(fan_in**-0.5)
                     for r, p in dests:
-                        piece = shard_for(src, spec, mesh, r)
-                        (p[i] if stacked else p).copy_(piece)
-                    del src, piece  # the next draw's staging replaces this one, not beside it
+                        if stacked and at(r, i) is None:
+                            continue  # another pipeline stage's layer
+                        (p[at(r, i)] if stacked else p).copy_(shard_for(src, spec, mesh, r))
+                    # the next draw's staging replaces this one, not beside it:
+                    # no name may keep it (a slice without a mesh is src itself)
+                    del src
 
 
-def _draw_quantized(ranks: List[Tuple[int, Llama]], mesh: Optional[Mesh], name: str, shape, specs, generator, device) -> None:
+def _draw_quantized(ranks: List[Tuple[int, Llama]], mesh: Optional[Mesh], name: str, shape, specs, generator, device,
+                    at: Callable[[int, int], Optional[int]]) -> None:
     """One quantized weight of :func:`fill_params`: each layer slice drawn
     whole as the plain model draws it, rounded to the model dtype,
     quantized, and its ``q`` and ``s`` cut per rank by their specs
     (``specs``: :func:`param_specs` of the quantized config; ``s`` is
-    split over ``tp`` only where the split is its output axis)."""
+    split over ``tp`` only where the split is its output axis) into the
+    ranks whose stage holds the layer (``at``, :func:`layer_at`)."""
     cfg = ranks[0][1].cfg
     stacked = len(shape) >= 3
     q_spec, s_spec = (specs[f"{name}.{k}"][1:] if stacked else specs[f"{name}.{k}"] for k in ("q", "s"))
@@ -708,9 +749,11 @@ def _draw_quantized(ranks: List[Tuple[int, Llama]], mesh: Optional[Mesh], name: 
         qd = quantize_weight(w)
         del w
         for j, (r, _) in enumerate(ranks):
+            if stacked and at(r, i) is None:
+                continue
             qp, sp = shard_for(qd["q"], q_spec, mesh, r), shard_for(qd["s"], s_spec, mesh, r)
-            (qs[j][i] if stacked else qs[j]).copy_(qp)
-            (ss[j][i] if stacked else ss[j]).copy_(sp)
+            (qs[j][at(r, i)] if stacked else qs[j]).copy_(qp)
+            (ss[j][at(r, i)] if stacked else ss[j]).copy_(sp)
         del qd
 
 
@@ -742,6 +785,47 @@ def _ranks(model, cache):
             raise ValueError(f"a model on {model.mesh} takes one (k_pages, v_pages) pair per rank")
         return model.mesh, list(model.ranks), list(cache)
     return None, [model], [cache]
+
+
+class _Stage:
+    """One pipeline stage of a forward: its mesh (the stage's, of the other
+    four axes; the model's own without ``pp``; None for a plain model), its
+    global ranks in rank order, and its modules and caches in that order.
+    The forward's per-rank closures run on a stage's lists (:meth:`take`),
+    indexed by the stage mesh's ranks."""
+
+    def __init__(self, mesh: Optional[Mesh], ranks: List[int], ms: List[Any], caches: List[Any]) -> None:
+        self.mesh, self.ranks = mesh, ranks
+        self.ms, self.caches = self.take(ms), self.take(caches)
+
+    def take(self, per_rank: Sequence[Any]) -> List[Any]:
+        """This stage's entries of a per-rank list of the whole mesh."""
+        return [per_rank[r] for r in self.ranks]
+
+
+def _stages(mesh: Optional[Mesh], ms, caches) -> List[_Stage]:
+    """The stages of a forward, in order: one with no ``pp``."""
+    if mesh is None or mesh.pp == 1:
+        return [_Stage(mesh, list(range(len(ms))), ms, caches)]
+    return [_Stage(mesh.stage_mesh(s), mesh.stage_ranks(s), ms, caches) for s in range(mesh.pp)]
+
+
+def _walk(mesh: Optional[Mesh], ms, caches, embed, layers) -> Tuple[_Stage, List[Any]]:
+    """Run a forward's layers stage after stage: ``embed(stage)`` gives the
+    first stage's residual stream, ``layers(stage, x)`` runs a stage's own
+    layers on it, and at each boundary the stream goes to the next stage's
+    ranks (``Mesh.hand_off``, the reference's ``ppermute`` along ``pp``).
+    Returns the last stage and its residual stream."""
+    stages = _stages(mesh, ms, caches)
+    x = embed(stages[0])
+    for k, st in enumerate(stages):
+        if k:
+            full: List[Any] = [None] * mesh.size
+            for r, t in zip(stages[k - 1].ranks, x):
+                full[r] = t
+            x = st.take(mesh.hand_off(full))
+        x = layers(st, x)
+    return st, x
 
 
 def _first(per_rank: Sequence[Any]) -> Any:
@@ -875,22 +959,26 @@ def _scatter_decode(pages, new, page_table, positions, page_size):
     pages[phys, positions.long() % page_size] = new
 
 
-def _logits(mesh, ms, x):
+def _logits(mesh, ms, x, home: Optional[torch.device] = None):
     """Final norm and the head product: fp32 logits over the whole
     vocabulary, on rank 0. Each rank of rank 0's ``tp`` group computes the
     product over its own slice of the vocabulary (column-parallel); the
     slices are gathered in the model dtype and widened once. In a gang
     every process but rank 0's gives its slices and gets None: sampling
     runs on rank 0, and the engine sends the sampled tokens on
-    (``engine/engine.py:chunk_body``)."""
+    (``engine/engine.py:chunk_body``). With ``pp`` this runs on the last
+    stage's mesh, and ``home`` (the model's rank 0's device, where
+    sampling runs) takes the logits."""
     def head(r):
         return qmat(_norm(ms[r].cfg, x[r], ms[r].final_norm), ms[r].head())
 
     if mesh is None:
-        return head(0).float()
-    group = mesh.group(0, "tp")
-    out = mesh.gather(mesh.per_rank(lambda r: head(r) if r in group else None), dim=-1)
-    return None if out is None else out.float()
+        out = head(0).float()
+    else:
+        group = mesh.group(0, "tp")
+        out = mesh.gather(mesh.per_rank(lambda r: head(r) if r in group else None), dim=-1)
+        out = None if out is None else out.float()
+    return out if out is None or home is None else out.to(home)
 
 
 def _last_rows(mesh, x, lens):
@@ -941,6 +1029,12 @@ def _layer_tail(mesh, ms, lps, x, attn):
     return _each(mesh, lambda r: mid[r][0] + _post(cfg, lps[r], "post_ffn_norm", y[r]))
 
 
+def _home(mesh: Optional[Mesh]) -> Optional[torch.device]:
+    """Where a forward's logits go: rank 0's device on a pipeline (its last
+    stage computes them), else where :func:`_logits` forms them."""
+    return None if mesh is None or mesh.pp == 1 else mesh.devices[0]
+
+
 @torch.no_grad()
 def prefill(
     model: "Llama | ShardedLlama",
@@ -966,21 +1060,28 @@ def prefill(
         return positions, positions < seq_lens[r][:, None]
 
     pv = _each(mesh, prepare)
-    x = _embed(mesh, ms, tokens)
-    for i in range(cfg.num_layers):
-        lps = [None if m is None else m.layer(i) for m in ms]
 
-        def attend(r):
-            positions, valid = pv[r]
-            k_pages, v_pages = caches[r]
-            h = _norm(cfg, x[r], lps[r]["attn_norm"])
-            q, k, v = _project_qkv(ms[r], lps[r], h, positions)
-            _scatter_prefill(k_pages[i], k, page_table[r], positions, valid, page_size)
-            _scatter_prefill(v_pages[i], v, page_table[r], positions, valid, page_size)
-            return causal_prefill_attention(q, k, v, seq_lens[r]).reshape(b, s, cfg.q_dim)
+    def layers(st: _Stage, x):
+        ms, caches, spv, lens, table = st.ms, st.caches, st.take(pv), st.take(seq_lens), st.take(page_table)
+        for i in range(cfg.num_layers):
+            lps = [None if m is None else m.layer(i) for m in ms]
 
-        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
-    return _logits(mesh, ms, _last_rows(mesh, x, seq_lens) if last_only else x)
+            def attend(r):
+                positions, valid = spv[r]
+                k_pages, v_pages = caches[r]
+                h = _norm(cfg, x[r], lps[r]["attn_norm"])
+                q, k, v = _project_qkv(ms[r], lps[r], h, positions)
+                _scatter_prefill(k_pages[i], k, table[r], positions, valid, page_size)
+                _scatter_prefill(v_pages[i], v, table[r], positions, valid, page_size)
+                return causal_prefill_attention(q, k, v, lens[r]).reshape(b, s, cfg.q_dim)
+
+            x = _layer_tail(st.mesh, ms, lps, x, _each(st.mesh, attend))
+        return x
+
+    st, x = _walk(mesh, ms, caches, lambda st: _embed(st.mesh, st.ms, st.take(tokens)), layers)
+    if last_only:
+        x = _last_rows(st.mesh, x, st.take(seq_lens))
+    return _logits(st.mesh, st.ms, x, _home(mesh))
 
 
 @torch.no_grad()
@@ -1009,22 +1110,29 @@ def prefill_continue(
         return start[r].long()[:, None] + ar[None, :], ar[None, :] < suffix_lens[r][:, None]
 
     pv = _each(mesh, prepare)
-    x = _embed(mesh, ms, tokens)
-    for i in range(cfg.num_layers):
-        lps = [None if m is None else m.layer(i) for m in ms]
 
-        def attend(r):
-            positions, valid = pv[r]
-            k_pages, v_pages = caches[r]
-            h = _norm(cfg, x[r], lps[r]["attn_norm"])
-            q, k, v = _project_qkv(ms[r], lps[r], h, positions)
-            _scatter_prefill(k_pages[i], k, page_table[r], positions, valid, page_size)
-            _scatter_prefill(v_pages[i], v, page_table[r], positions, valid, page_size)
-            attn = paged_suffix_attention(q, k_pages[i], v_pages[i], page_table[r], start[r])
-            return attn.reshape(b, s, cfg.q_dim)
+    def layers(st: _Stage, x):
+        ms, caches, spv, first, table = st.ms, st.caches, st.take(pv), st.take(start), st.take(page_table)
+        for i in range(cfg.num_layers):
+            lps = [None if m is None else m.layer(i) for m in ms]
 
-        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
-    return _logits(mesh, ms, _last_rows(mesh, x, suffix_lens) if last_only else x)
+            def attend(r):
+                positions, valid = spv[r]
+                k_pages, v_pages = caches[r]
+                h = _norm(cfg, x[r], lps[r]["attn_norm"])
+                q, k, v = _project_qkv(ms[r], lps[r], h, positions)
+                _scatter_prefill(k_pages[i], k, table[r], positions, valid, page_size)
+                _scatter_prefill(v_pages[i], v, table[r], positions, valid, page_size)
+                attn = paged_suffix_attention(q, k_pages[i], v_pages[i], table[r], first[r])
+                return attn.reshape(b, s, cfg.q_dim)
+
+            x = _layer_tail(st.mesh, ms, lps, x, _each(st.mesh, attend))
+        return x
+
+    st, x = _walk(mesh, ms, caches, lambda st: _embed(st.mesh, st.ms, st.take(tokens)), layers)
+    if last_only:
+        x = _last_rows(st.mesh, x, st.take(suffix_lens))
+    return _logits(st.mesh, st.ms, x, _home(mesh))
 
 
 @torch.no_grad()
@@ -1043,7 +1151,9 @@ def mixed_step(
     masks every row to its own sequence at positions <= its own — causal
     prefill, suffix continuation and decode are the same mask. On a mesh
     the attention is ``ragged_paged_attention_sharded``: the ragged kernel
-    once per rank over the rank's heads, no collective inside.
+    once per rank over the rank's heads, no collective inside (with
+    ``pp``, once per rank of the stage that holds the layer; a stage of
+    one rank launches the kernel itself, as one device does).
 
     Returns logits [T, vocab] fp32; the caller gathers the rows that
     sample. Padding rows write only the null page and produce values
@@ -1057,32 +1167,35 @@ def mixed_step(
         _row_targets(page_table[r], row_slot[r], positions[r], page_size),
         positions[r].long()[None],
     ))
-    x = _embed(mesh, ms, tokens)  # [T, hidden] per rank
-    for i in range(cfg.num_layers):
-        lps = [None if m is None else m.layer(i) for m in ms]
 
-        def project_and_write(r):
-            targets, pos = prep[r]
-            k_pages, v_pages = caches[r]
-            h = _norm(cfg, x[r], lps[r]["attn_norm"])
-            q, k, v = _project_qkv(ms[r], lps[r], h[None], pos)
-            q, k, v = q[0], k[0], v[0]  # [T, heads/kvh, hd]
-            _scatter_rows(k_pages[i], k, targets)
-            _scatter_rows(v_pages[i], v, targets)
-            return q
+    def layers(st: _Stage, x):
+        ms, caches, sprep = st.ms, st.caches, st.take(prep)
+        table, slots, pos_t = st.take(page_table), st.take(row_slot), st.take(positions)
+        for i in range(cfg.num_layers):
+            lps = [None if m is None else m.layer(i) for m in ms]
 
-        q = _each(mesh, project_and_write)
-        if mesh is None:
-            attn = [ragged_paged_attention(
-                q[0], caches[0][0][i], caches[0][1][i], page_table[0], row_slot[0], positions[0]
-            )]
-        else:
-            attn = ragged_paged_attention_sharded(
-                mesh, q, [c[0][i] for c in caches], [c[1][i] for c in caches],
-                page_table, row_slot, positions,
-            )
-        x = _layer_tail(mesh, ms, lps, x, [a.reshape(T, cfg.q_dim) for a in attn])
-    return _logits(mesh, ms, x)
+            def project_and_write(r):
+                targets, pos = sprep[r]
+                k_pages, v_pages = caches[r]
+                h = _norm(cfg, x[r], lps[r]["attn_norm"])
+                q, k, v = _project_qkv(ms[r], lps[r], h[None], pos)
+                q, k, v = q[0], k[0], v[0]  # [T, heads/kvh, hd]
+                _scatter_rows(k_pages[i], k, targets)
+                _scatter_rows(v_pages[i], v, targets)
+                return q
+
+            q = _each(st.mesh, project_and_write)
+            if st.mesh is None or st.mesh.size == 1:  # one rank (a stage of pp alone): the kernel itself
+                attn = [ragged_paged_attention(q[0], caches[0][0][i], caches[0][1][i], table[0], slots[0], pos_t[0])]
+            else:
+                attn = ragged_paged_attention_sharded(
+                    st.mesh, q, [c[0][i] for c in caches], [c[1][i] for c in caches], table, slots, pos_t,
+                )
+            x = _layer_tail(st.mesh, ms, lps, x, [a.reshape(T, cfg.q_dim) for a in attn])
+        return x
+
+    st, x = _walk(mesh, ms, caches, lambda st: _embed(st.mesh, st.ms, st.take(tokens)), layers)  # [T, hidden] per rank
+    return _logits(st.mesh, st.ms, x, _home(mesh))
 
 
 @torch.no_grad()
@@ -1104,7 +1217,8 @@ def decode_step(
       attend over positions < pos + 1 (:func:`_decode_step_scatter_first`);
     * any other value — the serving fast path: attention reads the pool
       at positions < pos and takes the new token's K/V inline, so all
-      layers' cache writes defer to ONE write after the layer loop.
+      layers' cache writes defer to ONE write after the layer loop (with
+      ``pp``, one per stage, into its own layers).
 
     ``active`` masks rows of a frozen slot: their K/V go to the null page,
     and their logits are values the caller ignores."""
@@ -1116,37 +1230,41 @@ def decode_step(
     b = _first(tokens).shape[0]
     page_size = _first(caches)[0].shape[2]
     pos2 = _each(mesh, lambda r: positions[r].long()[:, None])
-    x = _embed(mesh, ms, tokens)  # [b, hidden] per rank
-    kv_all: List[Tuple[list, list]] = [([], []) for _ in ms]
-    for i in range(cfg.num_layers):
-        lps = [None if m is None else m.layer(i) for m in ms]
 
-        def attend(r):
+    def layers(st: _Stage, x):
+        ms, caches, spos2 = st.ms, st.caches, st.take(pos2)
+        table, pos_t, live = st.take(page_table), st.take(positions), st.take(active)
+        kv_all: List[Tuple[list, list]] = [([], []) for _ in ms]
+        for i in range(cfg.num_layers):
+            lps = [None if m is None else m.layer(i) for m in ms]
+
+            def attend(r):
+                k_pages, v_pages = caches[r]
+                h = _norm(cfg, x[r], lps[r]["attn_norm"])
+                q, k, v = _project_qkv(ms[r], lps[r], h[:, None, :], spos2[r])
+                q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
+                attn = paged_decode_attention_inline(q, k_pages[i], v_pages[i], k, v, table[r], pos_t[r])
+                kv_all[r][0].append(k)
+                kv_all[r][1].append(v)
+                return attn.reshape(b, cfg.q_dim)
+
+            x = _layer_tail(st.mesh, ms, lps, x, _each(st.mesh, attend))
+
+        def write_all(r):
+            # One write for the stage's layers: [L, b, kvh, hd] at (page, slot) per row.
             k_pages, v_pages = caches[r]
-            h = _norm(cfg, x[r], lps[r]["attn_norm"])
-            q, k, v = _project_qkv(ms[r], lps[r], h[:, None, :], pos2[r])
-            q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
-            attn = paged_decode_attention_inline(
-                q, k_pages[i], v_pages[i], k, v, page_table[r], positions[r]
-            )
-            kv_all[r][0].append(k)
-            kv_all[r][1].append(v)
-            return attn.reshape(b, cfg.q_dim)
+            phys = torch.gather(table[r].long(), 1, (spos2[r] // page_size))[:, 0]
+            slot = pos_t[r].long() % page_size
+            if live[r] is not None:
+                phys = torch.where(live[r], phys, 0)  # inactive rows: the null page
+            k_pages[:, phys, slot] = torch.stack(kv_all[r][0])
+            v_pages[:, phys, slot] = torch.stack(kv_all[r][1])
 
-        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
+        _each(st.mesh, write_all)
+        return x
 
-    def write_all(r):
-        # One write for all layers: [L, b, kvh, hd] at (page, slot) per row.
-        k_pages, v_pages = caches[r]
-        phys = torch.gather(page_table[r].long(), 1, (pos2[r] // page_size))[:, 0]
-        slot = positions[r].long() % page_size
-        if active[r] is not None:
-            phys = torch.where(active[r], phys, 0)  # inactive rows: the null page
-        k_pages[:, phys, slot] = torch.stack(kv_all[r][0])
-        v_pages[:, phys, slot] = torch.stack(kv_all[r][1])
-
-    _each(mesh, write_all)
-    return _logits(mesh, ms, x)
+    st, x = _walk(mesh, ms, caches, lambda st: _embed(st.mesh, st.ms, st.take(tokens)), layers)  # [b, hidden] per rank
+    return _logits(st.mesh, st.ms, x, _home(mesh))
 
 
 def _decode_step_scatter_first(model, tokens, positions, cache, page_table, active=None):
@@ -1168,20 +1286,25 @@ def _decode_step_scatter_first(model, tokens, positions, cache, page_table, acti
         return positions[r] + 1, table, positions[r].long()[:, None]
 
     prep = _each(mesh, prepare)
-    x = _embed(mesh, ms, tokens)  # [b, hidden] per rank
-    for i in range(cfg.num_layers):
-        lps = [None if m is None else m.layer(i) for m in ms]
 
-        def attend(r):
-            seq_lens, table, pos2 = prep[r]
-            k_pages, v_pages = caches[r]
-            h = _norm(cfg, x[r], lps[r]["attn_norm"])
-            q, k, v = _project_qkv(ms[r], lps[r], h[:, None, :], pos2)
-            q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
-            _scatter_decode(k_pages[i], k, table, positions[r], page_size)
-            _scatter_decode(v_pages[i], v, table, positions[r], page_size)
-            attn = paged_decode_attention(q, k_pages[i], v_pages[i], page_table[r], seq_lens)
-            return attn.reshape(b, cfg.q_dim)
+    def layers(st: _Stage, x):
+        ms, caches, sprep, pos_t, tables = st.ms, st.caches, st.take(prep), st.take(positions), st.take(page_table)
+        for i in range(cfg.num_layers):
+            lps = [None if m is None else m.layer(i) for m in ms]
 
-        x = _layer_tail(mesh, ms, lps, x, _each(mesh, attend))
-    return _logits(mesh, ms, x)
+            def attend(r):
+                seq_lens, table, pos2 = sprep[r]
+                k_pages, v_pages = caches[r]
+                h = _norm(cfg, x[r], lps[r]["attn_norm"])
+                q, k, v = _project_qkv(ms[r], lps[r], h[:, None, :], pos2)
+                q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [b, heads/kvh, hd]
+                _scatter_decode(k_pages[i], k, table, pos_t[r], page_size)
+                _scatter_decode(v_pages[i], v, table, pos_t[r], page_size)
+                attn = paged_decode_attention(q, k_pages[i], v_pages[i], tables[r], seq_lens)
+                return attn.reshape(b, cfg.q_dim)
+
+            x = _layer_tail(st.mesh, ms, lps, x, _each(st.mesh, attend))
+        return x
+
+    st, x = _walk(mesh, ms, caches, lambda st: _embed(st.mesh, st.ms, st.take(tokens)), layers)  # [b, hidden] per rank
+    return _logits(st.mesh, st.ms, x, _home(mesh))

@@ -5,7 +5,7 @@ reference's names: :func:`forward_train`, :func:`lm_loss`,
 :class:`TrainState`, :func:`make_optimizer`, :func:`make_train_state`,
 :func:`train_step`. The serving framework's main job is inference
 actuation; the training step exists for the reference's two reasons:
-(a) it runs over a real ``dp`` x ``sp`` x ``tp`` x ``ep`` mesh, every
+(a) it runs over a real ``dp`` x ``pp`` x ``sp`` x ``tp`` x ``ep`` mesh, every
 sharding the engine uses plus the gradient reductions; (b) it makes the
 model zoo usable for fine-tune-then-serve loops (the trained parameters
 are a state dict ``InferenceEngine`` takes).
@@ -30,9 +30,12 @@ activations in the backward (``torch.utils.checkpoint``, non-reentrant),
 the reference's ``jax.checkpoint`` of the scan body.
 
 **Under a mesh.** Tokens are split over ``dp`` (rows) and ``sp``
-(positions); weights by their logical axes (``tp``, ``ep``). Every rank
-runs its block of the forward; the collectives are the mesh's
-differentiable ones, so one ``backward`` from rank 0's loss reaches every
+(positions); weights by their logical axes (``tp``, ``ep``, and the layer
+stacks over ``pp``). Every rank runs its block of the forward; with
+``pp`` the stages run in turn as the serving forwards walk them
+(``models/llama.py:_walk``), the last stage's ranks computing the logits.
+The collectives and the pipeline's hand-off are the mesh's
+differentiable ones, so one ``backward`` from the loss reaches every
 rank's tensors, and the loss is normalised over the GLOBAL mask (the
 numerator and the count summed over ``dp`` x ``sp`` before the divide).
 A weight replicated over some axes then holds, on each copy, the part of
@@ -61,6 +64,7 @@ from .llama import (
     _layer_tail,
     _norm,
     _project_qkv,
+    _walk,
     param_specs,
     quantized_names,
     shard_config,
@@ -90,7 +94,8 @@ class _Rank:
 
 
 def _layered(tree: Params, mesh: Optional[Mesh], num_layers: int):
-    """One (top-level leaves, per-layer weight dicts) pair per rank. A
+    """One (top-level leaves, per-layer weight dicts) pair per rank, over
+    the rank's own ``num_layers`` (its stage's, :func:`_local_cfg`). A
     stacked leaf is a tensor, indexed per layer under autograd, or already
     a list of per-layer views (:func:`_leaf_views`)."""
     if mesh is not None:
@@ -118,11 +123,11 @@ def _check_plain(cfg: LlamaConfig) -> None:
 
 
 def _local_cfg(cfg: LlamaConfig, mesh: Optional[Mesh]) -> LlamaConfig:
+    """One rank's config: its ``tp`` and ``ep`` slices, and with ``pp``
+    its stage's layers."""
     if mesh is None:
         return cfg
-    if mesh.shape["pp"] > 1:
-        raise NotImplementedError("pp is not ported (ROADMAP.md queue 1 item 15)")
-    return shard_config(cfg, mesh.tp, mesh.shape["ep"])
+    return shard_config(cfg, mesh.tp, mesh.shape["ep"], mesh.pp)
 
 
 def _blocks(mesh: Optional[Mesh], tokens: torch.Tensor, seq_lens: torch.Tensor, devices: Sequence[torch.device]):
@@ -145,9 +150,10 @@ def _blocks(mesh: Optional[Mesh], tokens: torch.Tensor, seq_lens: torch.Tensor, 
 
 
 def _loss_ranks(mesh: Optional[Mesh]) -> List[int]:
-    """The ranks that compute the loss: ``tp`` and ``ep`` coordinate 0,
-    every ``dp`` and ``sp`` block once (rank 0's group over dp x sp)."""
-    return [0] if mesh is None else mesh.group(0, ("dp", "sp"))
+    """The ranks that compute the loss: the last pipeline stage's at
+    ``tp`` and ``ep`` coordinate 0, every ``dp`` and ``sp`` block once
+    (that stage's first rank's group over dp x sp)."""
+    return [0] if mesh is None else mesh.group(mesh.stage_ranks(mesh.pp - 1)[0], ("dp", "sp"))
 
 
 def _forward_ranks(
@@ -171,33 +177,43 @@ def _forward_ranks(
     if use_ring:
         from ..ops.ring_attention import ring_prefill_attention
 
-    x = _embed(mesh, ms, [blk[0] for blk in blocks])
+    def layers(st, x):
+        sms, sblocks = st.ms, st.take(blocks)
 
-    def layer(i: int, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        lps = [m.layers[i] for m in ms]
+        def layer(i: int, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+            lps = [m.layers[i] for m in sms]
 
-        def project(r):
-            h = _norm(local, xs[r], lps[r]["attn_norm"])
-            return _project_qkv(ms[r], lps[r], h, blocks[r][2])
+            def project(r):
+                h = _norm(local, xs[r], lps[r]["attn_norm"])
+                return _project_qkv(sms[r], lps[r], h, sblocks[r][2])
 
-        qkv = _each(mesh, project)
-        lens = [blk[1] for blk in blocks]
-        if use_ring:
-            attn = ring_prefill_attention([t[0] for t in qkv], [t[1] for t in qkv], [t[2] for t in qkv], lens, mesh)
-        else:
-            attn = [dense_causal_attention(q, k, v, lens[r]) for r, (q, k, v) in enumerate(qkv)]
-        attn = [a.reshape(a.shape[0], a.shape[1], local.q_dim) for a in attn]
-        return tuple(_layer_tail(mesh, ms, lps, list(xs), attn))
+            qkv = _each(st.mesh, project)
+            lens = [blk[1] for blk in sblocks]
+            if use_ring:
+                attn = ring_prefill_attention(
+                    [t[0] for t in qkv], [t[1] for t in qkv], [t[2] for t in qkv], lens, st.mesh
+                )
+            else:
+                attn = [dense_causal_attention(q, k, v, lens[r]) for r, (q, k, v) in enumerate(qkv)]
+            attn = [a.reshape(a.shape[0], a.shape[1], local.q_dim) for a in attn]
+            return tuple(_layer_tail(st.mesh, sms, lps, list(xs), attn))
 
-    for i in range(cfg.num_layers):
-        if remat:
-            x = list(checkpoint(layer, i, *x, use_reentrant=False))
-        else:
-            x = list(layer(i, *x))
+        for i in range(local.num_layers):
+            if remat:
+                x = list(checkpoint(layer, i, *x, use_reentrant=False))
+            else:
+                x = list(layer(i, *x))
+        return x
+
+    def embed(st):
+        return _embed(st.mesh, st.ms, [blk[0] for blk in st.take(blocks)])
+
+    last, x = _walk(mesh, ms, [None] * len(ms), embed, layers)
+    x = dict(zip(last.ranks, x))  # the last stage's residual stream, by global rank
 
     out = {}
     heads = {}
-    for r in range(len(ms)):
+    for r in last.ranks:
         if mesh is None or mesh.index(r, "ep") == 0:
             heads[r] = _norm(local, x[r], ms[r].final_norm) @ ms[r].head()
     for r in _loss_ranks(mesh):
@@ -223,14 +239,16 @@ def forward_train(
     With a ``mesh`` (``params`` one tensor per rank,
     :func:`shard_train_params`) every rank runs its block; attention runs
     as RING attention over ``sp`` when ``sp > 1``. The logits are joined
-    on rank 0's device."""
+    on rank 0's device (from the last pipeline stage's ranks)."""
     _check_plain(cfg)
-    out = _forward_ranks(_layered(params, mesh, cfg.num_layers), cfg, tokens, seq_lens, remat, mesh)
+    layered = _layered(params, mesh, _local_cfg(cfg, mesh).num_layers)
+    out = _forward_ranks(layered, cfg, tokens, seq_lens, remat, mesh)
     if mesh is None:
         return out[0]
     dev = mesh.devices[0]
-    parts = [out[r].to(dev) if r in out else None for r in range(mesh.size)]
-    return join_for(parts, ("dp", "sp", None), mesh)
+    last = mesh.stage_ranks(mesh.pp - 1)
+    parts = [out[r].to(dev) if r in out else None for r in last]
+    return join_for(parts, ("dp", "sp", None), mesh.stage_mesh(mesh.pp - 1))
 
 
 def _masked_nll(logits: torch.Tensor, tokens: torch.Tensor, seq_lens: torch.Tensor, start: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -264,7 +282,8 @@ def _loss_from_layered(layered, cfg, tokens, seq_lens, mesh) -> torch.Tensor:
         # summed over dp x sp on rank 0's device, in rank order, before the divide
         num = n.to(dev) if num is None else num + n.to(dev)
         den = c.to(dev) if den is None else den + c.to(dev)
-    return num / torch.clamp(den, min=1.0)
+    loss = num / torch.clamp(den, min=1.0)
+    return loss if mesh is None else loss.to(mesh.devices[0])
 
 
 def lm_loss(
@@ -279,7 +298,7 @@ def lm_loss(
     numerator and the count are summed over ``dp`` x ``sp`` first. A
     scalar on rank 0's device."""
     _check_plain(cfg)
-    return _loss_from_layered(_layered(params, mesh, cfg.num_layers), cfg, tokens, seq_lens, mesh)
+    return _loss_from_layered(_layered(params, mesh, _local_cfg(cfg, mesh).num_layers), cfg, tokens, seq_lens, mesh)
 
 
 # -- the optimizer ------------------------------------------------------------
@@ -360,11 +379,11 @@ def make_train_state(params: Params, optimizer: Optional[AdamW] = None) -> Train
 
 def shard_train_params(params: Dict[str, torch.Tensor], cfg: LlamaConfig, mesh: Mesh) -> Params:
     """A single-device flat tree -> one tensor per rank on ``mesh``: each
-    rank's slice by the weight's spec (``llama.param_specs``; ``tp`` and
-    ``ep``), a contiguous copy on its device. Ranks that hold the same
-    slice on one device share ONE tensor (as ``Mesh.replicate`` hands a
-    replicated input); a tree with a tensor of its own for every rank is
-    taken by :func:`train_step` as well."""
+    rank's slice by the weight's spec (``llama.param_specs``; ``tp``,
+    ``ep``, and ``pp`` for the layer stacks), a contiguous copy on its
+    device. Ranks that hold the same slice on one device share ONE tensor
+    (as ``Mesh.replicate`` hands a replicated input); a tree with a tensor
+    of its own for every rank is taken by :func:`train_step` as well."""
     specs = param_specs(cfg)
     out: Params = {}
     for name, t in params.items():
@@ -468,19 +487,21 @@ def train_step(
     """One optimizer step, in place (the module docstring). Under a mesh
     the parameters and moments are one tensor per rank, the batch is
     split over ``dp`` x ``sp``, attention runs as the ring when ``sp >
-    1``, and each replicated weight's gradient is summed over its
-    replicas before the update. Returns the new state and ``{"loss"}``
-    (a scalar on rank 0's device)."""
+    1``, the stages run in turn with ``pp`` (each rank's optimizer
+    updates its own stage's layers), and each replicated weight's
+    gradient is summed over its replicas before the update. Returns the
+    new state and ``{"loss"}`` (a scalar on rank 0's device)."""
     _check_plain(cfg)
     optimizer = optimizer or make_optimizer()
-    vparams = _leaf_views(state.params, cfg.num_layers)
-    loss = _loss_from_layered(_layered(vparams, mesh, cfg.num_layers), cfg, tokens, seq_lens, mesh)
+    layers = _local_cfg(cfg, mesh).num_layers  # a rank's own: its stage's with pp
+    vparams = _leaf_views(state.params, layers)
+    loss = _loss_from_layered(_layered(vparams, mesh, layers), cfg, tokens, seq_lens, mesh)
     loss.backward()
     if mesh is not None:
         reduce_replica_grads(vparams, cfg, mesh)
     count = state.opt_state.count + 1
-    mu = _leaf_views(state.opt_state.mu, cfg.num_layers, grad=False)
-    nu = _leaf_views(state.opt_state.nu, cfg.num_layers, grad=False)
+    mu = _leaf_views(state.opt_state.mu, layers, grad=False)
+    nu = _leaf_views(state.opt_state.nu, layers, grad=False)
     for p, m, v in _distinct(vparams, mu, nu, mesh):
         optimizer.apply_(p.detach(), p.grad if p.grad is not None else torch.zeros_like(p), m, v, count)
         p.grad = None

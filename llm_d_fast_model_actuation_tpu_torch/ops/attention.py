@@ -50,11 +50,13 @@ def resolve_ragged_impl(impl: str, mesh) -> str:
     between. The port has ONE ragged implementation per device kind (the
     kernel on the card, its plain version on the CPU, picked by the
     tensors' device), whatever ``impl`` says, so the only decision left is
-    the mesh's: ``"ragged"`` without one, ``"ragged_sharded"`` (the kernel
-    once per rank, ``ragged_paged_attention_sharded``) with one. The
-    reference's interpret-mode column does not exist here."""
+    the mesh's: ``"ragged"`` without one, or where each pipeline stage of
+    the mesh is one rank (``pp`` alone: the kernel once per layer on the
+    stage's rank), ``"ragged_sharded"`` (the kernel once per rank,
+    ``ragged_paged_attention_sharded``) otherwise. The reference's
+    interpret-mode column does not exist here."""
     del impl  # the cache-write strategy of the decode step only
-    return "ragged" if mesh is None else "ragged_sharded"
+    return "ragged" if mesh is None or mesh.size == mesh.pp else "ragged_sharded"
 
 
 def dense_causal_attention(

@@ -1,4 +1,5 @@
-"""Parallelism: the mesh over dp, sp, tp and ep and its collectives
-(``mesh``, which imports torch), and card identity (``topology``, which
-does not: the control plane reads the gpu-map through it). Import the
-module you need; the package itself imports neither."""
+"""Parallelism: the mesh over dp, pp, sp, tp and ep, its collectives and
+its pipeline stages (``mesh``, which imports torch), and card identity
+(``topology``, which does not: the control plane reads the gpu-map
+through it). Import the module you need; the package itself imports
+neither."""

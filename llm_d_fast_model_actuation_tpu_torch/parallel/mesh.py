@@ -10,14 +10,26 @@ partitioner derives from them: :func:`spec_for` answers "which mesh axis
 splits each dimension of this weight", :func:`shard_for` cuts a rank's
 slice, and :class:`Mesh` carries the collectives.
 
-Four of the five axes are realised: ``dp``, ``sp``, ``tp`` and ``ep``
-(``pp`` raises). A rank is an index into an ordered list of devices,
+All five axes are realised in one process: ``dp``, ``pp``, ``sp``,
+``tp`` and ``ep`` (a gang's mesh, below, refuses ``pp``). A rank is an
+index into an ordered list of devices,
 **and a device may appear more than once**: ranks on one card run every
 line of the sharded path except the copy between cards, which is how a
 one-card machine (and the CPU tests, mesh ``cpu,cpu``) exercises it.
 Ranks take their coordinates in ``AXES`` order, the row-major reshape of
 the device list (``ep`` innermost), as the reference's ``make_mesh``
 lays out a flat device list.
+
+``pp`` is STAGES, what the reference's docstring names it ("lax.scan
+over stages + ppermute"): the ranks at ``pp`` coordinate ``s`` hold
+layers ``[s * L / pp, (s + 1) * L / pp)`` of every layer stack (its
+``"layers": "pp"`` rule, :func:`stage_layers`), a forward runs stage
+after stage, each on the stage's own mesh of the other four axes
+(:meth:`Mesh.stage_mesh`), and the residual stream goes from the last
+layer of stage ``s`` to the first of stage ``s + 1`` (:meth:`Mesh.
+hand_off`, the reference's ``ppermute`` along ``pp``). The bytes each
+rank holds are what the reference's ``pp`` sharding puts on its device,
+and each layer runs the same kernels at the same shapes as on one rank.
 
 One process drives every rank (the reference's single-process mesh), or
 a GANG of processes drives them together (``group``, a
@@ -194,6 +206,7 @@ class Mesh:
                 rest //= n
             self._coords.append(tuple(reversed(c)))
         self._groups: Dict[Tuple[str, ...], List[List[int]]] = {}
+        self._stages: Dict[int, "Mesh"] = {}
         #: the gang's process group, or None for one process
         self.process_group = group
         self.num_processes, self.process_index = 1, 0
@@ -270,6 +283,55 @@ class Mesh:
     def group(self, rank: int, axes: AxisNames) -> List[int]:
         """The group of :meth:`groups` that holds ``rank``."""
         return next(g for g in self.groups(axes) if rank in g)
+
+    # -- pipeline stages ------------------------------------------------------
+
+    @property
+    def pp(self) -> int:
+        return self.plan.pp
+
+    def stage(self, rank: int) -> int:
+        """The pipeline stage of ``rank``: its ``pp`` coordinate."""
+        return self.index(rank, "pp")
+
+    def stage_ranks(self, stage: int) -> List[int]:
+        """The ranks of ``stage``, in rank order: row-major over the other
+        four axes, so the ``j``-th rank of every stage has the same
+        coordinates off ``pp``."""
+        return [r for r in range(self.size) if self.stage(r) == stage]
+
+    def stage_mesh(self, stage: int) -> "Mesh":
+        """The mesh of ``stage``'s ranks over the other four axes (``pp``
+        1): its rank ``j`` is ``stage_ranks(stage)[j]``, so every
+        collective inside a stage runs on it unchanged. Without ``pp`` the
+        mesh itself."""
+        if self.pp == 1:
+            return self
+        if self.spans_processes:
+            raise NotImplementedError("pipeline stages across a gang's processes (ROADMAP.md queue 1 item 15)")
+        if stage not in self._stages:
+            p = self.plan
+            self._stages[stage] = Mesh(
+                MeshPlan(dp=p.dp, sp=p.sp, tp=p.tp, ep=p.ep), [self.devices[r] for r in self.stage_ranks(stage)]
+            )
+        return self._stages[stage]
+
+    def hand_off(self, parts: Sequence[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
+        """The pipeline's hand-off, the reference's ``ppermute`` along
+        ``pp`` with ``[(i, i + 1)]``: the rank at stage ``s`` gives its
+        tensor to the rank with the same coordinates at stage ``s + 1``, a
+        copy when their devices differ (the same tensor when they share
+        one). The first stage's ranks get None and the last stage's
+        tensors go nowhere. Differentiable: the transpose is the hand-off
+        the other way."""
+        self._check(parts)
+        if self.spans_processes:
+            raise NotImplementedError("pipeline stages across a gang's processes (ROADMAP.md queue 1 item 15)")
+        out: List[Optional[torch.Tensor]] = [None] * self.size
+        for g in self.groups("pp"):
+            for src, dst in zip(g, g[1:]):
+                out[dst] = None if parts[src] is None else parts[src].to(self.devices[dst])
+        return out
 
     # -- replicated inputs ----------------------------------------------------
 
@@ -507,6 +569,17 @@ def replica_of(spec: Sequence[Optional[str]], mesh: Mesh, rank: int) -> int:
     return next(r for r in range(mesh.size) if all(mesh.index(r, a) == c[a] for a in on))
 
 
+def stage_layers(num_layers: int, pp: int, stage: int) -> range:
+    """The layers of pipeline stage ``stage`` of ``pp``: the ``stage``-th
+    of ``pp`` equal contiguous runs of ``range(num_layers)``, as
+    ``"layers": "pp"`` cuts a layer stack. A ``pp`` that does not divide
+    ``num_layers`` raises, as the reference's placement does."""
+    if num_layers % pp:
+        raise ValueError(f"num_layers={num_layers} is not divisible by pp={pp}")
+    per = num_layers // pp
+    return range(stage * per, (stage + 1) * per)
+
+
 def make_mesh(
     plan: MeshPlan, devices: Sequence[Union[str, torch.device]], group: Any = None
 ) -> Mesh:
@@ -514,16 +587,16 @@ def make_mesh(
     process ``group``, ``devices`` are this process's own and the global
     list is every process's in process order (a gang's members run with
     the same options, so each names its own the same way): they must
-    number ``plan.size`` over the group's size. ``pp`` above 1 raises: a
-    pipeline over layers runs a stage per host (ROADMAP.md queue 1 item
-    15, pipeline stages across hosts)."""
-    if plan.pp > 1:
-        raise NotImplementedError(
-            f"mesh axis pp={plan.pp} is not ported yet: dp, sp, tp and ep are "
-            "realised (ROADMAP.md queue 1 item 15, pipeline stages across hosts)"
-        )
+    number ``plan.size`` over the group's size. A gang's mesh with ``pp``
+    above 1 raises: its stages would run a host each (ROADMAP.md queue 1
+    item 15, pipeline stages across hosts); one process realises ``pp``."""
     devices = list(devices)
     if group is not None:
+        if plan.pp > 1:
+            raise NotImplementedError(
+                f"mesh axis pp={plan.pp} across a gang's processes is not ported yet: one process realises "
+                "it (ROADMAP.md queue 1 item 15, pipeline stages across hosts)"
+            )
         import torch.distributed as dist
 
         n = dist.get_world_size(group)

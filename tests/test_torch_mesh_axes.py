@@ -3,7 +3,8 @@ their coordinates as the reference's ``make_mesh`` lays a flat device
 list out (the row-major reshape in ``AXES`` order), each axis' groups,
 the collectives' values, ``torch.autograd.gradcheck`` (float64) of the
 all-reduce and the ring shift, the slicing by spec and its inverse, and
-what stays refused (``pp``)."""
+what stays refused (``pp`` across a gang's processes; ``pp`` in one
+process is tests/test_torch_pp.py's)."""
 
 import itertools
 
@@ -164,7 +165,12 @@ def test_replicate_shares_one_tensor_per_device():
 
 
 def test_pp_stays_refused_naming_its_item():
+    """pp is realised in one process (tests/test_torch_pp.py); a gang's
+    mesh, whose stages would run a host each, still refuses it naming its
+    ROADMAP item."""
+    mesh = tmesh.make_mesh(tmesh.MeshPlan(pp=2), ["cpu", "cpu"])
+    assert mesh.pp == 2 and [mesh.stage(r) for r in range(2)] == [0, 1]
     with pytest.raises(NotImplementedError, match="item 15"):
-        tmesh.make_mesh(tmesh.MeshPlan(pp=2), ["cpu", "cpu"])
+        tmesh.make_mesh(tmesh.MeshPlan(pp=2), ["cpu"], group=object())
     with pytest.raises(ValueError, match="needs 4 devices, have 2"):
         tmesh.make_mesh(tmesh.MeshPlan(dp=2, sp=2), ["cpu", "cpu"])

@@ -243,11 +243,14 @@ def test_tp2_on_a_cpu_mesh_matches_tp1():
 
 
 def test_expert_parallelism_is_refused_naming_its_item():
-    """ep is realised (tests/test_torch_moe_ep.py); what stays refused
-    names its item: pp (queue 1 item 15), and ep over a model whose
-    experts it cannot split evenly."""
+    """ep is realised (tests/test_torch_moe_ep.py), and with pp in one
+    process (tests/test_torch_pp.py); what stays refused names its item:
+    pp across a gang's processes (queue 1 item 15), and ep over a model
+    whose experts it cannot split evenly."""
+    staged = tllama.ShardedLlama(tmoe.MoeConfig.tiny_moe(), tmesh.make_mesh(tmesh.MeshPlan(pp=2, ep=2), ["cpu"] * 4))
+    assert [(m.cfg.num_layers, m.cfg.num_experts) for m in staged.ranks] == [(1, 2)] * 4
     with pytest.raises(NotImplementedError, match="item 15"):
-        tmesh.make_mesh(tmesh.MeshPlan(pp=2, ep=2), ["cpu"] * 4)
+        tmesh.make_mesh(tmesh.MeshPlan(pp=2, ep=2), ["cpu"] * 2, group=object())
     mesh = tmesh.make_mesh(tmesh.MeshPlan(ep=2), ["cpu", "cpu"])
     bad = dataclasses.replace(tmoe.MoeConfig.tiny_moe(), num_experts=3)
     with pytest.raises(ValueError, match="num_experts=3 is not divisible by ep=2"):

@@ -597,16 +597,16 @@ def test_indivisible_sizes_raise(field):
 
 @pytest.mark.parametrize("axis", ["dp", "pp", "sp", "ep"])
 def test_only_tp_is_realised(axis):
-    """A dense serving model splits over tp alone: the mesh refuses pp
-    (naming its ROADMAP item), and the model refuses dp and sp (training
+    """A dense serving model splits over tp and, in pipeline stages, over
+    pp (tests/test_torch_pp.py): the model refuses dp and sp (training
     axes) and ep (it has no experts)."""
     plan = tmesh.MeshPlan(**{axis: 2})
     assert plan.size == 2 and plan.describe() == f"{axis}=2"
-    if axis == "pp":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmesh.make_mesh(plan, ["cpu", "cpu"])
-        return
     mesh = tmesh.make_mesh(plan, ["cpu", "cpu"])
+    if axis == "pp":
+        staged = tllama.ShardedLlama(tllama.LlamaConfig.tiny(), mesh)
+        assert [m.cfg.num_layers for m in staged.ranks] == [1, 1] and mesh.tp == 1
+        return
     assert mesh.shape[axis] == 2 and mesh.tp == 1 and mesh.size == 2
     with pytest.raises(ValueError, match="splits experts" if axis == "ep" else "tp and ep only"):
         tllama.ShardedLlama(tllama.LlamaConfig.tiny(), mesh)

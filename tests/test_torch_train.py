@@ -267,5 +267,14 @@ def test_training_refuses_int8_and_pp():
     cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), quantization="int8")
     with pytest.raises(ValueError, match="serving-time quantization"):
         ttrain.forward_train({}, cfg, torch.zeros((1, 4), dtype=torch.int32), torch.tensor([4]))
+    # pp trains in one process (tests/test_torch_pp.py); a gang's pp mesh
+    # stays refused, naming its item
+    mesh = tmesh.make_mesh(tmesh.MeshPlan(pp=2), ["cpu", "cpu"])
+    tc = tllama.LlamaConfig.tiny()
+    sharded = ttrain.shard_train_params(
+        {k: v.float() for k, v in tllama.init_params(tc, torch.Generator().manual_seed(0), "cpu").state_dict().items()},
+        dataclasses.replace(tc, dtype=torch.float32), mesh,
+    )
+    assert [t.shape[0] for t in sharded["layers.wq"]] == [1, 1]
     with pytest.raises(NotImplementedError, match="item 15"):
-        tmesh.make_mesh(tmesh.MeshPlan(pp=2), ["cpu", "cpu"])
+        tmesh.make_mesh(tmesh.MeshPlan(pp=2), ["cpu"], group=object())
